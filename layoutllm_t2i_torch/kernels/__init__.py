@@ -1,0 +1,36 @@
+"""The port's hand-written Hopper kernels, their plain versions and counters.
+
+Each wrapper takes its plain PyTorch version for a CPU tensor and launches
+its CUDA kernel for a CUDA tensor (see ``dispatch``). ``launches`` on each
+wrapper counts the calls that launched the kernel on the card.
+"""
+from __future__ import annotations
+
+from .dispatch import plain_route
+from .ffn import ffn_ln_geglu, ffn_ln_geglu_plain
+from .flash_attention import flash_attention, flash_attention_plain
+from .group_norm import group_norm, group_norm_plain
+from .layer_norm import layer_norm, layer_norm_plain
+
+# id -> (wrapper, plain version)
+KERNELS = {
+    "K1": (flash_attention, flash_attention_plain),
+    "K2": (group_norm, group_norm_plain),
+    "K3": (layer_norm, layer_norm_plain),
+    "K4": (ffn_ln_geglu, ffn_ln_geglu_plain),
+}
+
+
+def reset_launches() -> None:
+    for wrapper, _ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {kid: wrapper.launches for kid, (wrapper, _) in KERNELS.items()}
+
+
+__all__ = ["KERNELS", "flash_attention", "flash_attention_plain",
+           "ffn_ln_geglu", "ffn_ln_geglu_plain", "group_norm",
+           "group_norm_plain", "launch_counts", "layer_norm",
+           "layer_norm_plain", "plain_route", "reset_launches"]

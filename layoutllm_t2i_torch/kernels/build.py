@@ -1,0 +1,140 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes). All
+sources compile in parallel, one ``nvcc`` process each, at first use; the
+outputs go to ``build/kernels/`` at the repository root (listed in
+``.gitignore``) under a name that carries a hash of the sources and flags,
+so an edited source is rebuilt and an unchanged one is reused.
+
+Nothing here runs at import time: this module imports on machines without
+nvcc or a GPU, where the wrappers only ever take their plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+
+# one shared library per kernel source
+SOURCES = ("flash_attention", "group_norm", "layer_norm", "ffn")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C entry points: name -> (argtypes), restype is int (a cudaError_t)
+SIGNATURES = {
+    "flash_attention": {
+        "llt2i_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    },
+    "group_norm": {
+        "llt2i_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _I, _I, _P],
+    },
+    "layer_norm": {
+        "llt2i_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
+    },
+    "ffn": {
+        "llt2i_ffn_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
+                               _I, _I, _I, _F, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# per-source build record of the last build_all(): seconds and ptxas lines
+build_log: Dict[str, dict] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every source not yet built, all nvcc processes at once.
+    Returns {name: {"seconds": s, "cached": bool, "ptxas": [lines]}}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in SOURCES:
+        out = lib_path(name)
+        if out.exists():
+            build_log[name] = {"seconds": 0.0, "cached": True, "ptxas": []}
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        text, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        (BUILD_DIR / f"{name}.log").write_text(text)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{text}")
+            continue
+        os.replace(tmp, out)
+        ptxas = [ln.strip() for ln in text.splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+        build_log[name] = {"seconds": secs, "cached": False, "ptxas": ptxas}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return dict(build_log)
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library for one source, building all sources on first use."""
+    with _lock:
+        if name not in _libs:
+            if not all(lib_path(n).exists() for n in SOURCES):
+                build_all()
+            handle = ctypes.CDLL(str(lib_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(handle, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = handle
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
