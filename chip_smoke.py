@@ -19,14 +19,29 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   4. generate  random_models() at full SD-1.4 width in bf16, then PLMS-50,
                CFG 7.5, alpha (0.3, 0, 0.7), vae_chunk 8 on 2 requests;
                checks shape, finiteness and range; counts kernel launches.
-  5. the `kernels` JSON line, then the card line, then the result line.
+  5. train-grad  one full-width loss backward at batch 2 (f32 master
+               weights, bf16 compute, alphas 0.5), kernel route against
+               plain route: the relative L2 error of the rela_fuse
+               gradients against a stated bound.
+  6. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
+               8, rela_fuse, AdamW, mixed precision, warmup 0, alphas 0.5;
+               2 warm-up steps then 5 timed ones; s/step, images/s, peak
+               memory, finite losses, every rela_fuse tensor changed and
+               every frozen one bit-identical; kernel launches per step.
+  7. the `kernels` JSON line, then the card line, then the result line.
      In that line `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
-     timed in phase 2); `launches` counts phase 4's run alone.
+     timed in phase 2; K1's include the training shapes with the lse);
+     `launches` counts phase 4's run for K1-K4 and phase 6's for K5a/K5b.
+
+Phase 2's training shapes are those of phase 6: batch 8, no CFG doubling,
+N = M = 4096/4126 at d 40 and 1024/1054 at d 80. There K1 runs with its
+lse output, and K5a/K5b take the lse and delta of the plain forward.
 
 With `--profile OUT.json`, one more generation runs under torch.profiler
 after phase 4 and prints device time by kernel group and the device's idle
-share; OUT.json gets the per-kernel table.
+share; OUT.json gets the per-kernel table. One more training step is
+profiled likewise after phase 6, into OUT_train.json.
 
 The script imports nothing of JAX or of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -37,6 +52,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -53,6 +70,11 @@ H100_HBM_BYTES = 3.35e12    # HBM3 bytes/s, H100 SXM
 # K1's atol a fraction of the output's rms, and a whole-tensor rms bound)
 # full-width UNet forward, kernel route vs plain route: max |a-b| / max |b|
 UNET_REL_TOL = 5e-2
+# full-width loss backward, kernel route vs plain route: ||g_k - g_p|| /
+# ||g_p|| over all rela_fuse gradients. Both routes round to bf16 at the
+# same points; they differ by summation order through 16 transformer blocks
+# forward and back, as the forward's 5e-2 allows for its output.
+TRAIN_GRAD_REL_TOL = 5e-2
 
 KERNEL_META = {
     "K1": ("flash_attention", "layoutllm_t2i_torch/csrc/flash_attention.cu",
@@ -63,7 +85,13 @@ KERNEL_META = {
            "layoutllm_t2i_tpu/ops/pallas/norms.py:333"),
     "K4": ("ffn_ln_geglu", "layoutllm_t2i_torch/csrc/ffn.cu",
            "layoutllm_t2i_tpu/ops/pallas/ffn.py:182"),
+    "K5a": ("flash_attention_bwd_dq", "layoutllm_t2i_torch/csrc/flash_attention.cu",
+            "layoutllm_t2i_tpu/ops/pallas/flash_attention.py:533"),
+    "K5b": ("flash_attention_bwd_dkv", "layoutllm_t2i_torch/csrc/flash_attention.cu",
+            "layoutllm_t2i_tpu/ops/pallas/flash_attention.py:555"),
 }
+# the training phases' batch (no CFG doubling)
+TRAIN_BATCH = 8
 
 
 def emit(obj) -> None:
@@ -173,6 +201,13 @@ def kernel_cases(unet_cfg, vae_cfg, prompts: int = 2):
     for hw, k in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
         for s in (1.0, 0.5):
             cases.append(("K4", f"M{b2 * hw} K{k} s{s:g}", (b2 * hw, k, s)))
+    # training: K1 with its lse, and K5a/K5b, at the flash-routed sites of
+    # a batch-8 step (self-attention and gated self-attention, 64^2 and 32^2)
+    for n, d in ((4096, 40), (4126, 40), (1024, 80), (1054, 80)):
+        args = (TRAIN_BATCH, n, n, 8, d)
+        label = f"B{TRAIN_BATCH} N{n} M{n} H8 d{d}"
+        cases += [("K1", label + " lse", args + ("lse",)),
+                  ("K5a", label, args), ("K5b", label, args)]
     return cases
 
 
@@ -182,6 +217,10 @@ def make_case(kid, args, dev, gen):
 
     bf = torch.bfloat16
     rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
+    if kid == "K1" and len(args) == 6:
+        return make_lse_case(args[:5], dev, rnd)
+    if kid in ("K5a", "K5b"):
+        return make_bwd_case(kid, args, dev, rnd)
     if kid == "K1":
         b, n, m, h, d = args
         q, k, v = rnd(b, n, h * d), rnd(b, m, h * d), rnd(b, m, h * d)
@@ -232,6 +271,76 @@ def make_case(kid, args, dev, gen):
             lib, flops, nbytes)
 
 
+def make_lse_case(args, dev, rnd):
+    """K1 as the training forward runs it: (out, lse) through the kernel's
+    lse output, against the plain forward's (out, lse)."""
+    from layoutllm_t2i_torch import kernels as K
+    from layoutllm_t2i_torch.kernels.flash_attention import _launch_fwd
+
+    b, n, m, h, d = args
+    q, k, v = rnd(b, n, h * d), rnd(b, m, h * d), rnd(b, m, h * d)
+    sc = d ** -0.5
+    heads = lambda t: t.view(t.shape[0], t.shape[1], h, d).transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                 scale=sc)
+    flops = 4.0 * b * h * n * m * d
+    nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d) + 4.0 * b * h * n
+    return (lambda: _launch_fwd(q, k, v, h, sc, need_lse=True),
+            lambda: K.flash_attention_lse_plain(q, k, v, h, sc), lib, flops,
+            nbytes)
+
+
+def make_bwd_case(kid, args, dev, rnd):
+    """K5a (dQ) or K5b (dK, dV) on the lse and delta of the plain forward,
+    against the plain backward. The library call is SDPA's whole backward
+    (dQ, dK and dV in one call): its forward plus backward, timed as one
+    closure, minus its forward, timed alone; both rows list it."""
+    from layoutllm_t2i_torch import kernels as K
+
+    b, n, m, h, d = args
+    q, k, v = rnd(b, n, h * d), rnd(b, m, h * d), rnd(b, m, h * d)
+    dout = rnd(b, n, h * d, scale=0.1)
+    sc = d ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, h, sc)
+    delta = K.attention_delta(out, dout, h)
+    del out
+    heads = lambda t: t.view(t.shape[0], t.shape[1], h, d).transpose(1, 2)
+    qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k, v))
+    doh = heads(dout)
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=sc)
+    lib = (lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), sdpa)
+    io = 2.0 * 4 * b * n * h * d + 4.0 * 2 * b * h * n  # q, k, v, dO; lse, delta
+    if kid == "K5a":
+        # S, dP and dQ: three N x M x d products
+        return (lambda: K.flash_attention_bwd_dq(q, k, v, dout, lse, delta, h, sc),
+                lambda: K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, h, sc)[0],
+                lib, 6.0 * b * h * n * m * d, io + 2.0 * b * n * h * d)
+    # S, dP, dV and dK: four
+    return (lambda: K.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h, sc),
+            lambda: K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, h, sc)[1:],
+            lib, 8.0 * b * h * n * m * d, io + 2.0 * 2 * b * m * h * d)
+
+
+def library_ms(lib) -> float:
+    """ms of one library call; of a (whole, part) pair, whole minus part."""
+    if isinstance(lib, tuple):
+        whole, part = lib
+        return time_ms(whole) - time_ms(part)
+    return time_ms(lib)
+
+
+def agreement_of(kid, label, out, ref):
+    """K1's lse cases hold the output to K1's tolerance and the lse to its
+    own; the worst of each figure is reported."""
+    from layoutllm_t2i_torch.kernels.tolerance import agreement
+
+    if kid == "K1" and label.endswith("lse"):
+        a, b = agreement("K1", out[0], ref[0]), agreement("lse", out[1], ref[1])
+        return {key: (a["ok"] and b["ok"]) if key == "ok" else max(a[key], b[key])
+                for key in a}
+    return agreement(kid, out, ref)
+
+
 # ---------------------------------------------------------------------------
 # phases
 
@@ -246,8 +355,6 @@ def phase_build():
 
 
 def phase_kernels(unet_cfg, vae_cfg):
-    from layoutllm_t2i_torch.kernels.tolerance import agreement
-
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -262,12 +369,12 @@ def phase_kernels(unet_cfg, vae_cfg):
         out = kern()
         ref = plain()
         torch.cuda.synchronize()
-        agree = agreement(kid, out, ref)
+        agree = agreement_of(kid, label, out, ref)
         del out, ref
         b_ms, b_by = bound(flops, nbytes)
         rec = {"phase": "kernels", "kernel": kid, "shape": label, **agree,
                "ms": time_ms(kern), "plain_ms": time_ms(plain),
-               "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": library_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
         emit(rec)
         agg = summary[kid]
         for key in ("max_abs_err", "max_rel_err", "rms_rel_err"):
@@ -279,6 +386,7 @@ def phase_kernels(unet_cfg, vae_cfg):
         agg["shapes"] += 1
         if not agree["ok"]:
             failed.append(f"{kid} {label}")
+        del kern, plain, lib
         torch.cuda.empty_cache()
     if failed:
         raise SmokeFailure(f"kernel disagrees with its plain version: {failed}")
@@ -394,31 +502,165 @@ def phase_generate(models):
     return counts
 
 
+def synthetic_step_batch(cfg, b: int, dev, gen) -> dict:
+    """A full-width training batch of the shapes prepare_batch gives: clean
+    latents, CLIP-width context, three boxes with phrases, two relations."""
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    boxes = torch.zeros(b, 30, 4, device=dev)
+    boxes[:, :3] = torch.tensor([[0.1, 0.2, 0.5, 0.9], [0.55, 0.1, 0.95, 0.6],
+                                 [0.3, 0.5, 0.7, 0.95]], device=dev)
+    masks = torch.zeros(b, 30, device=dev)
+    masks[:, :3] = 1
+    rel = torch.zeros(b, 10, cfg.context_dim, device=dev)
+    rel[:, :2] = rnd(b, 2, cfg.context_dim) * 0.5
+    z = rnd(b, 4, cfg.image_size, cfg.image_size).contiguous(
+        memory_format=torch.channels_last)
+    return {"z": z, "context": rnd(b, 77, cfg.context_dim) * 0.5,
+            "boxes": boxes, "masks": masks,
+            "phrase_embeddings": rnd(b, 30, cfg.grounding_in_dim) * 0.5,
+            "relations": rel}
+
+
+def phase_train_grad():
+    """One full-width loss backward at batch 2 through the kernels and
+    again through the plain versions, from the same weights and draws."""
+    from layoutllm_t2i_torch.kernels import launch_counts, plain_route, reset_launches
+    from layoutllm_t2i_torch.pipeline.loaders import random_models
+    from layoutllm_t2i_torch.training.train_step import TrainStep, TrainStepConfig
+
+    dev = torch.device("cuda")
+    models = random_models(small=False, device=dev, dtype=torch.float32, seed=0)
+    n_alpha = set_alphas(models.unet_params, 0.5)
+    step = TrainStep(TrainStepConfig(unet_cfg=models.unet_cfg,
+                                     schedule=models.schedule,
+                                     mixed_precision=True, warmup_steps=0),
+                     models.unet_params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    batch = synthetic_step_batch(models.unet_cfg, 2, dev, gen)
+    t = torch.tensor([801, 301], device=dev)
+    noise = torch.randn(batch["z"].shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    keep = torch.ones((), device=dev)
+    reset_launches()
+    loss_k, g_k = step.grads(batch, t, noise, keep)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with plain_route():
+        loss_p, g_p = step.grads(batch, t, noise, keep)
+    torch.cuda.synchronize()
+    diff = torch.cat([(a - b).flatten() for a, b in zip(g_k, g_p)])
+    ref = torch.cat([b.flatten() for b in g_p])
+    rel = float(diff.norm() / ref.norm())
+    per_tensor = max(float((a - b).norm() / max(float(b.norm()), 1e-30))
+                     for a, b in zip(g_k, g_p))
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+    ok = finite and rel <= TRAIN_GRAD_REL_TOL and launch_counts() == counts
+    emit({"phase": "train-grad", "ok": ok, "batch": 2, "alphas_set": n_alpha,
+          "trainable_tensors": len(g_k),
+          "trainable_params": sum(g.numel() for g in g_k),
+          "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+          "grad_rel_l2_err": rel, "worst_tensor_rel_l2_err": per_tensor,
+          "grad_norm": float(ref.norm()), "tol_rel_l2": TRAIN_GRAD_REL_TOL,
+          "launches": counts})
+    if not ok:
+        raise SmokeFailure("loss backward: kernel route disagrees with plain "
+                           "route (or a plain-route call launched a kernel)")
+    del models, step, g_k, g_p
+    torch.cuda.empty_cache()
+
+
+TRAIN_STEPS, TRAIN_WARMUP = 7, 2
+
+
+def phase_train(work_dir: str):
+    """DiffusionTrainer at full width; returns (launch counts, trainer, data
+    iterator)."""
+    from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
+    from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
+    from layoutllm_t2i_torch.pipeline.loaders import random_models
+    from layoutllm_t2i_torch.training.diffusion_trainer import (
+        DiffusionTrainer, TrainerConfig)
+
+    shutil.rmtree(work_dir, ignore_errors=True)  # no auto-resume from a past run
+    cfg = TrainerConfig(output_root=work_dir, name="chip_smoke",
+                        batch_size=TRAIN_BATCH, total_iters=TRAIN_STEPS,
+                        save_every_iters=10 ** 9, log_every=1,
+                        warmup_steps=0, trainable_mode="rela_fuse",
+                        optimizer="adamw", mixed_precision=True,
+                        max_relations=10)
+    models = random_models(small=False, device="cuda", dtype=torch.float32,
+                           seed=0)
+    n_alpha = set_alphas(models.unet_params, 0.5)
+    data = synthetic_layout_batches(cfg.batch_size, 512, cfg.max_boxes)
+    trainer = DiffusionTrainer(cfg, data, models=models)
+    before = {n: p.detach().clone()
+              for n, p in trainer.models.unet_params.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    trained = trainer.train_step.params
+    changed = sum(not torch.equal(p, before[n]) for n, p in trained.items())
+    frozen_same = all(torch.equal(p, before[n]) for n, p in
+                      trainer.models.unet_params.named_parameters()
+                      if n not in trained)
+    del before
+    with open(f"{trainer.run_dir}/metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs]
+    timed = [r["sec_per_iter"] for r in recs[TRAIN_WARMUP:]]
+    s_step = sum(timed) / len(timed)
+    ok = (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+          and changed == len(trained) and frozen_same)
+    emit({"phase": "train", "ok": ok, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+          "warmup_steps": TRAIN_WARMUP, "alphas_set": n_alpha,
+          "s_per_step": s_step, "s_per_step_each": timed,
+          "images_per_s": TRAIN_BATCH / s_step,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "wall_s": wall, "losses": losses,
+          "trainable_tensors": len(trained),
+          "trainable_params": sum(p.numel() for p in trained.values()),
+          "trainable_changed": changed, "frozen_bit_identical": frozen_same,
+          "launches": counts,
+          "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()}})
+    if not ok:
+        raise SmokeFailure("training: a loss is not finite, a rela_fuse "
+                           "tensor did not change or a frozen one did")
+    return counts, trainer, data
+
+
 # device-time groups of the profile, matched in order against kernel names
 PROFILE_GROUPS = (
     ("K1 flash_attention", ("flash_fwd_kernel",)),
+    ("K5a flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K5b flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("K2 group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("K3 layer_norm", ("ln_kernel",)),
     ("K4 ffn_ln_geglu", ("ffn_up_kernel", "ffn_down_kernel")),
-    ("convolution", ("conv", "cudnn", "implicit", "winograd", "nhwc", "fprop")),
+    ("convolution", ("conv", "cudnn", "implicit", "winograd", "nhwc", "fprop",
+                     "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
     ("softmax", ("softmax",)),
 )
 
 
-def phase_profile(models, out_path: str) -> None:
-    """One more generation under torch.profiler, tracing the device only
-    (each kernel counted once, and little host overhead): device time by
-    kernel group and the device's idle share of the wall time; the full
+def profile_device(run, label: str, out_path: str, **extra) -> None:
+    """``run()`` once under torch.profiler, tracing the device only (each
+    kernel counted once, and little host overhead): device time by kernel
+    group and the device's idle share of the wall time; the full
     per-kernel table goes to ``out_path``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = exact_pipeline(models)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.generate(*REQUESTS, seed=0)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -437,7 +679,7 @@ def phase_profile(models, out_path: str) -> None:
                      if any(k in low for k in keys)), "other")
         groups[name] += r["device_ms"]
     busy = sum(groups.values())
-    summary = {"phase": "profile", "steps": STEPS, "wall_ms": wall * 1e3,
+    summary = {"phase": label, **extra, "wall_ms": wall * 1e3,
                "device_busy_ms": busy,
                "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
                "device_ms_by_group": groups}
@@ -450,7 +692,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="JSON",
                     help="after the checks, profile one more generation "
-                         "and write its per-kernel device times here")
+                         "and one more training step and write their "
+                         "per-kernel device times here and to JSON_train")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -473,19 +716,42 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0))})
+    work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_train")
     try:
         phase_build()
         summary = phase_kernels(UNetConfig(), VAEConfig())
         models = random_models(small=False, device="cuda", dtype=torch.bfloat16,
                                seed=0)
         phase_unet(models)
-        counts = phase_generate(models)
+        gen_counts = phase_generate(models)
         if args.profile:
-            phase_profile(models, args.profile)
+            pipe = exact_pipeline(models)
+            profile_device(lambda: pipe.generate(*REQUESTS, seed=0),
+                           "profile", args.profile, steps=STEPS)
+            del pipe
+        del models
+        torch.cuda.empty_cache()
+        phase_train_grad()
+        train_counts, trainer, data = phase_train(work_dir)
+        if args.profile:
+            it = iter(data)
+            profile_device(
+                lambda: trainer.train_step(trainer.prepare_batch(next(it)),
+                                           trainer.generator),
+                "profile-train", os.path.splitext(args.profile)[0] + "_train.json",
+                batch=TRAIN_BATCH)
+        trainer.close()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    missing = [kid for kid, n in counts.items() if n <= 0]
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    # the generation path launches K1-K4, the training path all six
+    counts = {kid: gen_counts[kid] for kid in ("K1", "K2", "K3", "K4")}
+    counts.update(K5a=train_counts["K5a"], K5b=train_counts["K5b"])
+    missing = ([f"{kid} (generate)" for kid, n in counts.items() if n <= 0]
+               + [f"{kid} (train)" for kid, n in train_counts.items() if n <= 0])
     line = []
     for kid, (name, src, replaces) in KERNEL_META.items():
         s = summary[kid]

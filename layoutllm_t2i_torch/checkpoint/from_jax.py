@@ -7,12 +7,13 @@ so the port never imports JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from ..utils.trees import ParamTree, flatten_tree
+from ..utils.trees import ParamTree, flatten_tree, unflatten_tree
 
 # names whose 2-D weights are lookup tables, not nn.Linear kernels
 _EMBEDDING_SUFFIXES = (
@@ -47,3 +48,51 @@ def load_from_jax(module: ParamTree, tree: Dict[str, Any]) -> ParamTree:
     """Copy a JAX tree into ``module`` (strict: every name must match)."""
     module.load_state_dict(state_dict_from_jax(tree), strict=True)
     return module
+
+
+def port_config(cls, cfg):
+    """A JAX package config dataclass -> the port's ``cls`` with the same
+    field values. A field the port lacks must sit at its JAX default: the
+    port does not run what it would switch on."""
+    values = dataclasses.asdict(cfg)
+    names = {f.name for f in dataclasses.fields(cls)}
+    defaults = dataclasses.asdict(type(cfg)())
+    extra = {k: v for k, v in values.items()
+             if k not in names and v != defaults[k]}
+    if extra:
+        raise NotImplementedError(f"{type(cfg).__name__} options not ported: {extra}")
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in values.items() if k in names})
+
+
+def gligen_models_from_jax(m: Dict[str, Any], tokenizer, device=None,
+                           dtype: torch.dtype = torch.float32):
+    """The JAX package's model dict (unet_cfg, unet_params, vae_cfg,
+    vae_params, clip_cfg, clip_params, schedule; the DiffusionTrainer's
+    ``models`` argument) -> a port GligenModels on ``device``. The
+    schedule's arrays are copied as they are; ``tokenizer`` is the port's
+    own."""
+    from ..models.clip_text import CLIPTextConfig
+    from ..models.unet import UNetConfig
+    from ..models.vae import VAEConfig
+    from ..ops.schedules import DDPMSchedule
+    from ..pipeline.inference import GligenModels
+
+    sched = m["schedule"]
+    return GligenModels(
+        unet_cfg=port_config(UNetConfig, m["unet_cfg"]),
+        unet_params=param_tree_from_jax(m["unet_params"], device, dtype),
+        vae_cfg=port_config(VAEConfig, m["vae_cfg"]),
+        vae_params=param_tree_from_jax(m["vae_params"], device, dtype),
+        clip_cfg=port_config(CLIPTextConfig, m["clip_cfg"]),
+        clip_params=param_tree_from_jax(m["clip_params"], device, dtype),
+        schedule=DDPMSchedule(*(np.asarray(a, np.float32) for a in sched)),
+        tokenizer=tokenizer, compute_dtype=dtype, device=device)
+
+
+def param_tree_from_jax(tree: Dict[str, Any], device=None,
+                        dtype: torch.dtype = torch.float32) -> ParamTree:
+    """A ParamTree holding a JAX tree's weights in the torch layouts."""
+    return ParamTree(unflatten_tree(
+        {name: t.to(device=device, dtype=dtype)
+         for name, t in state_dict_from_jax(tree).items()}))

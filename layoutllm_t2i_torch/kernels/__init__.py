@@ -8,7 +8,10 @@ from __future__ import annotations
 
 from .dispatch import plain_route
 from .ffn import ffn_ln_geglu, ffn_ln_geglu_plain
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (attention_delta, flash_attention,
+                              flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                              flash_attention_bwd_plain,
+                              flash_attention_lse_plain, flash_attention_plain)
 from .group_norm import group_norm, group_norm_plain
 from .layer_norm import layer_norm, layer_norm_plain
 
@@ -18,6 +21,8 @@ KERNELS = {
     "K2": (group_norm, group_norm_plain),
     "K3": (layer_norm, layer_norm_plain),
     "K4": (ffn_ln_geglu, ffn_ln_geglu_plain),
+    "K5a": (flash_attention_bwd_dq, flash_attention_bwd_plain),
+    "K5b": (flash_attention_bwd_dkv, flash_attention_bwd_plain),
 }
 
 
@@ -30,7 +35,9 @@ def launch_counts() -> dict:
     return {kid: wrapper.launches for kid, (wrapper, _) in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "flash_attention", "flash_attention_plain",
-           "ffn_ln_geglu", "ffn_ln_geglu_plain", "group_norm",
-           "group_norm_plain", "launch_counts", "layer_norm",
+__all__ = ["KERNELS", "attention_delta", "flash_attention",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_bwd_plain", "flash_attention_lse_plain",
+           "flash_attention_plain", "ffn_ln_geglu", "ffn_ln_geglu_plain",
+           "group_norm", "group_norm_plain", "launch_counts", "layer_norm",
            "layer_norm_plain", "plain_route", "reset_launches"]

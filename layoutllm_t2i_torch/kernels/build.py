@@ -40,8 +40,12 @@ _F = ctypes.c_float
 # C entry points: name -> (argtypes), restype is int (a cudaError_t)
 SIGNATURES = {
     "flash_attention": {
-        "llt2i_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+        "llt2i_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+        "llt2i_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _F, _P],
+        "llt2i_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _L, _L, _L, _L, _L, _L, _F, _P],
     },
     "group_norm": {
         "llt2i_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

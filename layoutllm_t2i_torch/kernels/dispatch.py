@@ -5,7 +5,9 @@ device launches the hand-written kernel, and raises if the card is not a
 Hopper (sm_90) card: nothing falls back to the plain version on the card.
 The one exception is ``plain_route()``, an explicit switch that the chip
 check and the tests use to run a whole model through the plain versions
-on the card, as the reference the kernel route is compared against.
+on the card, as the reference the kernel route is compared against. The
+switch is read when a forward runs; a backward takes its forward's route
+(autograd runs backward on threads of its own).
 """
 from __future__ import annotations
 
@@ -63,3 +65,24 @@ def check_operand(t: torch.Tensor, name: str, device: torch.device,
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def needs_grad(*args) -> bool:
+    """True when autograd must record a call on these arguments."""
+    return torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+
+
+def plain_vjp(plain_fn, args, needs, grad_out):
+    """The vector-Jacobian product of ``plain_fn(*args)`` with ``grad_out``:
+    a recompute through the plain version, as the JAX package's custom VJPs
+    of its norm and FF kernels do (``jax.vjp`` of the reference math).
+    Returns one gradient per argument, None where ``needs`` is False."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(bool(n))
+                  if isinstance(a, torch.Tensor) else a
+                  for a, n in zip(args, needs)]
+        wrt = [a for a, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(plain_fn(*leaves), wrt, grad_out)
+                     if wrt else ())
+    return tuple(next(grads) if n else None for n in needs)

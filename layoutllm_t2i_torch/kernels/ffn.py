@@ -4,7 +4,10 @@ Replaces ``layoutllm_t2i_tpu/ops/pallas/ffn.py`` ``_ffn_ln_call`` /
 ``_ffn_ln_kernel`` (``ffn_ln_geglu_fused``, s = 1, and
 ``ffn_ln_geglu_scaled``). Weights stay in the reference torch layout:
 ``w1`` is ``net.0.proj.weight`` (2*inner, K) = [Wa; Wg] and ``w2`` is
-``net.2.weight`` (K, inner).
+``net.2.weight`` (K, inner). Differentiable through ``FfnLnGeglu``, whose
+backward is the plain version's VJP, as ``_ffn_ln_bwd`` (ffn.py:287) and
+``_ffn_ln_s_bwd`` (ffn.py:315) recompute it; the gradient reaches every
+tensor input, the scale ``s`` included.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ from typing import Union
 import torch
 
 from .build import check, lib
-from .dispatch import check_operand, require, stream_handle, use_kernel
+from .dispatch import (check_operand, needs_grad, plain_vjp, require,
+                       stream_handle, use_kernel)
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, every reference norm3/norm2 site
 
@@ -47,6 +51,31 @@ def ffn_ln_geglu(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                  eps: float = LN_EPS) -> torch.Tensor:
     """x: (M, K) -> x + s * FF(LN(x)), (M, K). ``s`` is a float or a 0-d
     tensor on x's device (read by the kernel, never synced to the host)."""
+    if needs_grad(x, ln_w, ln_b, w1, b1, w2, b2, s):
+        return FfnLnGeglu.apply(x, ln_w, ln_b, w1, b1, w2, b2, s, eps)
+    return _forward(x, ln_w, ln_b, w1, b1, w2, b2, s, eps)
+
+
+class FfnLnGeglu(torch.autograd.Function):
+    """K4 forward; the backward recomputes through ``ffn_ln_geglu_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, s, eps):
+        args = (x, ln_w, ln_b, w1, b1, w2, b2, s)
+        ctx.save_for_backward(*(a for a in args if isinstance(a, torch.Tensor)))
+        ctx.s_value = None if isinstance(s, torch.Tensor) else s
+        ctx.eps = eps
+        return _forward(x, ln_w, ln_b, w1, b1, w2, b2, s, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        s = saved[7] if ctx.s_value is None else ctx.s_value
+        args = (*saved[:7], s, ctx.eps)
+        return plain_vjp(ffn_ln_geglu_plain, args, ctx.needs_input_grad, grad)
+
+
+def _forward(x, ln_w, ln_b, w1, b1, w2, b2, s, eps):
     if not use_kernel(x):
         return ffn_ln_geglu_plain(x, ln_w, ln_b, w1, b1, w2, b2, s, eps)
     m, k = x.shape

@@ -1,10 +1,22 @@
-"""K1: non-causal flash-attention forward (csrc/flash_attention.cu).
+"""K1: non-causal flash-attention forward, and K5a/K5b: its backward
+(csrc/flash_attention.cu).
 
-Replaces ``layoutllm_t2i_tpu/ops/pallas/flash_attention.py`` ``_flash_bh``
-and its four forward kernels. Operands use the packed-head layout the
-projections produce, (B, N, H*d), so no transposed copy is made.
+Replaces ``layoutllm_t2i_tpu/ops/pallas/flash_attention.py``: ``_flash_bh``
+and its four forward kernels (K1), and the custom VJP's ``_bwd_dq_kernel``
+(K5a) and ``_bwd_dkv_kernel`` (K5b). Operands use the packed-head layout
+the projections produce, (B, N, H*d), so no transposed copy is made.
+
+``flash_attention`` is differentiable. Where a gradient is needed it runs
+``FlashAttention``, an ``autograd.Function`` whose forward also writes the
+row log-sum-exp (the JAX forward's ``need_lse``) and saves q, k, v, the
+output and the lse: no N x M matrix. Its backward takes
+delta = rowsum(dO * O) as one plain reduction, as the JAX package takes it
+in XLA, then K5a (dQ) and K5b (dK, dV) recompute the softmax from the lse.
+Where no gradient is needed, K1 launches exactly as for inference.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -12,50 +24,200 @@ from .build import check, lib
 from .dispatch import require, stream_handle, use_kernel
 
 
+def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, H*d) -> (B, H, N, d) f32."""
+    b, n, hc = t.shape
+    return t.reshape(b, n, heads, hc // heads).transpose(1, 2).float()
+
+
+def _packed(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, N, d) -> (B, N, H*d) in ``dtype``."""
+    b, h, n, d = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * d).to(dtype)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, heads: int, scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(softmax(q k^T * scale) v per head, lse (B, H, N) f32), in f32."""
+    sim = torch.einsum("bhnc,bhmc->bhnm", _heads(q, heads), _heads(k, heads))
+    sim = sim * scale
+    lse = torch.logsumexp(sim, dim=-1)
+    out = torch.einsum("bhnm,bhmc->bhnc", torch.exp(sim - lse[..., None]),
+                       _heads(v, heads))
+    return _packed(out, q.dtype), lse
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           heads: int, scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v per head, computed in f32."""
+    return flash_attention_lse_plain(q, k, v, heads, scale)[0]
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor,
+                    heads: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) per head: (B, H, N) f32."""
+    b, n, hc = out.shape
+    prod = dout.float() * out.float()
+    return prod.reshape(b, n, heads, hc // heads).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor,
+                              lse: torch.Tensor, delta: torch.Tensor,
+                              heads: int, scale: float):
+    """(dq, dk, dv) recomputed from the lse, the math of K5a/K5b: S = q k^T
+    * scale, P = exp(S - lse), dV = P^T dO, dS = P o (dO V^T - delta),
+    dQ = scale dS K, dK = scale dS^T Q; P and dS rounded to the operands'
+    dtype before their products, as the kernels round them."""
+    qh, kh, vh, doh = (_heads(t, heads) for t in (q, k, v, dout))
+    s = torch.einsum("bhnc,bhmc->bhnm", qh, kh) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhnc,bhmc->bhnm", doh, vh)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    dv = torch.einsum("bhnm,bhnc->bhmc", p, doh)
+    dq = torch.einsum("bhnm,bhmc->bhnc", ds, kh) * scale
+    dk = torch.einsum("bhnm,bhnc->bhmc", ds, qh) * scale
+    return _packed(dq, q.dtype), _packed(dk, k.dtype), _packed(dv, v.dtype)
+
+
+def _check_qkv(q, k, v, heads, what):
+    b, _, hc = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        require(t.device == q.device and t.dtype == torch.bfloat16,
+                f"{what}: {name} must be bf16 on {q.device}")
+        require(t.dim() == 3 and t.shape[0] == b and t.shape[2] == hc,
+                f"{what}: {name} shape {tuple(t.shape)}")
+        require(t.stride(2) == 1 and t.stride(1) % 8 == 0
+                and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0,
+                f"{what}: {name} rows must be 16-byte aligned")
+    require(v.shape[1] == k.shape[1], f"{what}: k and v lengths differ")
+    require(hc % heads == 0 and (hc // heads) % 8 == 0,
+            f"{what}: head dim {hc}/{heads} must be a multiple of 8")
+
+
+def _launch_fwd(q, k, v, heads, scale, need_lse):
+    """K1; with ``need_lse`` it also writes the (B, H, N) f32 lse."""
+    _check_qkv(q, k, v, heads, "flash_attention")
     b, n, hc = q.shape
     m = k.shape[1]
-    c = hc // heads
-    qh = q.reshape(b, n, heads, c).float()
-    kh = k.reshape(b, m, heads, c).float()
-    vh = v.reshape(b, m, heads, c).float()
-    sim = torch.einsum("bnhc,bmhc->bhnm", qh, kh) * scale
-    attn = torch.softmax(sim, dim=-1)
-    out = torch.einsum("bhnm,bmhc->bnhc", attn, vh)
-    return out.reshape(b, n, hc).to(q.dtype)
+    out = torch.empty((b, n, hc), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    check(lib("flash_attention").llt2i_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        b, heads, n, m, hc // heads,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        float(scale), stream_handle(q.device)), "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _check_bwd(q, k, v, dout, lse, delta, heads, what):
+    _check_qkv(q, k, v, heads, what)
+    b, n, _ = q.shape
+    require(dout.shape == q.shape and dout.dtype == q.dtype
+            and dout.device == q.device and dout.is_contiguous(),
+            f"{what}: dout must be contiguous bf16 shaped like q")
+    for name, t in (("lse", lse), ("delta", delta)):
+        require(t.shape == (b, heads, n) and t.dtype == torch.float32
+                and t.device == q.device and t.is_contiguous(),
+                f"{what}: {name} must be contiguous f32 (B, H, N)")
+
+
+def _bwd_args(q, k, v, dout, lse, delta, heads):
+    b, n, hc = q.shape
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (b, heads, n, k.shape[1], hc // heads, q.stride(0), q.stride(1),
+             k.stride(0), k.stride(1), v.stride(0), v.stride(1)))
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           dout: torch.Tensor, lse: torch.Tensor,
+                           delta: torch.Tensor, heads: int,
+                           scale: float) -> torch.Tensor:
+    """K5a: dQ (B, N, H*d) from the saved lse and delta."""
+    if not use_kernel(q):
+        return flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads,
+                                         scale)[0]
+    _check_bwd(q, k, v, dout, lse, delta, heads, "flash_attention_bwd_dq")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
+    check(lib("flash_attention").llt2i_flash_bwd_dq(
+        *ptrs, dq.data_ptr(), *dims, float(scale), stream_handle(q.device)),
+        "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            dout: torch.Tensor, lse: torch.Tensor,
+                            delta: torch.Tensor, heads: int, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5b: (dK, dV), each (B, M, H*d), from the saved lse and delta."""
+    if not use_kernel(q):
+        return flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads,
+                                         scale)[1:]
+    _check_bwd(q, k, v, dout, lse, delta, heads, "flash_attention_bwd_dkv")
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
+    check(lib("flash_attention").llt2i_flash_bwd_dkv(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, float(scale),
+        stream_handle(q.device)), "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with the lse forward, K5a/K5b backward; on CPU tensors the plain
+    versions of both (the backward then is ``flash_attention_bwd_plain``,
+    not autograd of the plain forward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads: int, scale: float):
+        # the backward takes the forward's route: autograd runs it on its
+        # own thread, which does not see a plain_route() around the call
+        ctx.kernel = use_kernel(q)
+        if ctx.kernel:
+            out, lse = _launch_fwd(q, k, v, heads, scale, need_lse=True)
+        else:
+            out, lse = flash_attention_lse_plain(q, k, v, heads, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = attention_delta(out, dout, ctx.heads)
+        if ctx.kernel:
+            dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, ctx.heads,
+                                        ctx.scale)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                             ctx.heads, ctx.scale)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                   ctx.heads, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int, scale: float) -> torch.Tensor:
     """q: (B, N, H*d); k, v: (B, M, H*d) -> (B, N, H*d)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, heads, scale)
     if not use_kernel(q):
         return flash_attention_plain(q, k, v, heads, scale)
-    b, n, hc = q.shape
-    m = k.shape[1]
-    d = hc // heads
-    lib_ = lib("flash_attention")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        require(t.device == q.device and t.dtype == torch.bfloat16,
-                f"flash_attention: {name} must be bf16 on {q.device}")
-        require(t.dim() == 3 and t.shape[0] == b and t.shape[2] == hc,
-                f"flash_attention: {name} shape {tuple(t.shape)}")
-        require(t.stride(2) == 1 and t.stride(1) % 8 == 0
-                and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0,
-                f"flash_attention: {name} rows must be 16-byte aligned")
-    require(v.shape[1] == m, "flash_attention: k and v lengths differ")
-    require(hc % heads == 0 and d % 8 == 0,
-            f"flash_attention: head dim {hc}/{heads} must be a multiple of 8")
-    out = torch.empty((b, n, hc), dtype=q.dtype, device=q.device)
-    check(lib_.llt2i_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, heads, n, m, d,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        float(scale), stream_handle(q.device)), "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _launch_fwd(q, k, v, heads, scale, need_lse=False)[0]
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

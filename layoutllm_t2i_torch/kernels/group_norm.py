@@ -2,14 +2,16 @@
 
 Replaces ``layoutllm_t2i_tpu/ops/pallas/norms.py`` ``_gn_pallas`` and
 ``_gn_pallas_rows`` (their ``_gn_kernel``, ``_gn_stats_kernel`` and
-``_gn_apply_kernel``).
+``_gn_apply_kernel``). Differentiable through ``GroupNorm``, whose backward
+is the plain version's VJP, as ``_gn_bwd`` (norms.py:294) recomputes it.
 """
 from __future__ import annotations
 
 import torch
 
 from .build import check, lib
-from .dispatch import check_operand, require, stream_handle, use_kernel
+from .dispatch import (check_operand, needs_grad, plain_vjp, require,
+                       stream_handle, use_kernel)
 
 # statistics blocks to aim for: a few per SM of the H100's 132
 _STATS_BLOCKS = 528
@@ -33,6 +35,27 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-5,
                silu: bool = False) -> torch.Tensor:
     """x: (N, HW, C) channels-last rows -> same shape, f32 statistics."""
+    if needs_grad(x, weight, bias):
+        return GroupNorm.apply(x, weight, bias, num_groups, eps, silu)
+    return _forward(x, weight, bias, num_groups, eps, silu)
+
+
+class GroupNorm(torch.autograd.Function):
+    """K2 forward; the backward recomputes through ``group_norm_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, silu):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.static = (num_groups, eps, silu)
+        return _forward(x, weight, bias, num_groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = (*ctx.saved_tensors, *ctx.static)
+        return plain_vjp(group_norm_plain, args, ctx.needs_input_grad, grad)
+
+
+def _forward(x, weight, bias, num_groups, eps, silu):
     if not use_kernel(x):
         return group_norm_plain(x, weight, bias, num_groups, eps, silu)
     n, hw, c = x.shape

@@ -1,14 +1,16 @@
 """K3: row LayerNorm + affine (csrc/layer_norm.cu).
 
 Replaces ``layoutllm_t2i_tpu/ops/pallas/norms.py`` ``_ln_pallas`` /
-``_ln_kernel``.
+``_ln_kernel``. Differentiable through ``LayerNorm``, whose backward is the
+plain version's VJP, as ``_ln_bwd`` (norms.py:384) recomputes it.
 """
 from __future__ import annotations
 
 import torch
 
 from .build import check, lib
-from .dispatch import check_operand, require, stream_handle, use_kernel
+from .dispatch import (check_operand, needs_grad, plain_vjp, require,
+                       stream_handle, use_kernel)
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -24,6 +26,27 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """x: (rows, C) -> (rows, C), f32 statistics."""
+    if needs_grad(x, weight, bias):
+        return LayerNorm.apply(x, weight, bias, eps)
+    return _forward(x, weight, bias, eps)
+
+
+class LayerNorm(torch.autograd.Function):
+    """K3 forward; the backward recomputes through ``layer_norm_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _forward(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = (*ctx.saved_tensors, ctx.eps)
+        return plain_vjp(layer_norm_plain, args, ctx.needs_input_grad, grad)
+
+
+def _forward(x, weight, bias, eps):
     if not use_kernel(x):
         return layer_norm_plain(x, weight, bias, eps)
     rows, c = x.shape

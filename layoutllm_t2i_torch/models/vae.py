@@ -1,12 +1,16 @@
-"""AutoencoderKL (SD f8/z4 VAE) decode path (layoutllm_t2i_tpu/models/vae.py;
-reference GLIGEN/ldm/modules/diffusionmodules/model.py Decoder:462,
-ResnetBlock:82, AttnBlock:150). All norms are GroupNorm(32, eps=1e-6) with
-f32 statistics. Activations NCHW in channels_last memory.
+"""AutoencoderKL (SD f8/z4 VAE) encode and decode paths
+(layoutllm_t2i_tpu/models/vae.py; reference GLIGEN/ldm/modules/
+diffusionmodules/model.py Encoder:368, Decoder:462, ResnetBlock:82,
+AttnBlock:150). All norms are GroupNorm(32, eps=1e-6) with f32 statistics.
+Activations NCHW in channels_last memory.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
 
 from ..ops import nn
 from ..ops.attention import multi_head_attention
@@ -53,6 +57,46 @@ def vae_upsample(p, x):
     return nn.conv2d(p["conv"], nn.nearest_upsample_2x(x), padding=1)
 
 
+def vae_downsample(p, x):
+    """torch pads right and bottom by one only (model.py Downsample), then
+    a stride-2 valid conv (layoutllm_t2i_tpu/models/vae.py:83-86)."""
+    return nn.conv2d(p["conv"], F.pad(x, (0, 1, 0, 1)), stride=2, padding=0)
+
+
+def encoder_apply(p, cfg: VAEConfig, x):
+    h = nn.conv2d(p["conv_in"], x)
+    for i_level in range(len(cfg.ch_mult)):
+        lvl = p["down"][str(i_level)]
+        for i_block in range(cfg.num_res_blocks):
+            h = resnet_block(lvl["block"][str(i_block)], h)
+        if i_level != len(cfg.ch_mult) - 1:
+            h = vae_downsample(lvl["downsample"], h)
+    h = resnet_block(p["mid"]["block_1"], h)
+    h = attn_block(p["mid"]["attn_1"], h)
+    h = resnet_block(p["mid"]["block_2"], h)
+    return nn.conv2d(p["conv_out"], _gn(p["norm_out"], h, silu=True))
+
+
+def encode(params, cfg: VAEConfig, x, generator: Optional[torch.Generator] = None,
+           sample: bool = True, noise: Optional[torch.Tensor] = None):
+    """Image (B, 3, H, W) channels_last in [-1, 1] -> scaled latent
+    (B, 4, H/8, W/8) f32. ``sample=False`` returns the posterior mean; with
+    ``sample`` the posterior noise is ``noise`` if given, else drawn in f32
+    from ``generator`` (logvar clipped to [-30, 20], vae.py:126-141)."""
+    moments = encoder_apply(params["encoder"], cfg, x)
+    moments = nn.conv2d(params["quant_conv"], moments, padding=0).float()
+    mean, logvar = moments.chunk(2, dim=1)
+    if sample:
+        std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=mean.device, dtype=torch.float32)
+        z = mean + std * noise
+    else:
+        z = mean
+    return (z * cfg.scale_factor).contiguous(memory_format=nn.CL)
+
+
 def decoder_apply(p, cfg: VAEConfig, z):
     h = nn.conv2d(p["conv_in"], z)
     h = resnet_block(p["mid"]["block_1"], h)
@@ -96,8 +140,8 @@ def _init_attn_block(ini, c):
 
 
 def init_vae_params(ini: init.Init, cfg: VAEConfig):
-    """The full AutoencoderKL tree (encoder included), so reference
-    checkpoints load strict; only the decoder runs in the port so far."""
+    """The full AutoencoderKL tree, encoder and decoder, under the reference
+    names, so reference checkpoints load strict."""
     in_ch_mult = (1,) + tuple(cfg.ch_mult)
     down = {}
     block_in = cfg.ch

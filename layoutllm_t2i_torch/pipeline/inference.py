@@ -87,6 +87,18 @@ def convert_xcycwh_to_ltrb(box):
 # device-side programs
 
 
+@torch.no_grad()
+def encode_texts_bucketed(models: GligenModels, texts: List[str]):
+    """(last hidden, pooled) CLIP outputs of ``texts``, with the batch
+    padded to a power-of-two bucket (the JAX package's compile-cache
+    policy, kept for parity) and the padding rows sliced off."""
+    ids = models.tokenizer(texts)
+    n = ids.shape[0]
+    ids = torch.from_numpy(pad_rows_pow2(ids).astype(np.int64)).to(models.device)
+    hidden, pooled = clip_text_apply(models.clip_params, models.clip_cfg, ids)
+    return hidden[:n], pooled[:n]
+
+
 def precompute_grounding_tokens(models: GligenModels, unet_params, cond,
                                 use_cfg: bool) -> torch.Tensor:
     """Grounding tokens are step-invariant: computed once before sampling
@@ -169,24 +181,13 @@ class InferencePipeline:
 
     # -- text encode ------------------------------------------------------
 
-    @torch.no_grad()
-    def _encode_bucketed(self, texts: List[str]):
-        """Tokenize and encode with the batch padded to a power-of-two
-        bucket (the JAX package's compile-cache policy, kept for parity)."""
-        m = self.models
-        ids = m.tokenizer(texts)
-        n = ids.shape[0]
-        ids = torch.from_numpy(pad_rows_pow2(ids).astype(np.int64)).to(m.device)
-        hidden, pooled = clip_text_apply(m.clip_params, m.clip_cfg, ids)
-        return hidden[:n], pooled[:n]
-
     def encode_text(self, texts: List[str]) -> torch.Tensor:
-        return self._encode_bucketed(texts)[0]
+        return encode_texts_bucketed(self.models, texts)[0]
 
     def encode_pooled(self, texts: List[str]) -> torch.Tensor:
         """Pooled (eot) embedding per text: per-phrase grounding tokens
         (encode_one_token, modules.py:176-184) and relation triplets."""
-        return self._encode_bucketed(texts)[1]
+        return encode_texts_bucketed(self.models, texts)[1]
 
     # -- conditioning -------------------------------------------------------
 

@@ -1,7 +1,7 @@
 """Parameter containers under the reference torch state_dict names."""
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator
+from typing import Any, Callable, Dict, Iterator
 
 import torch
 from torch import nn
@@ -14,7 +14,8 @@ class ParamTree(nn.Module):
     in_layers.0.weight``), so checkpoints load with ``strict=True``, and the
     model functions index it like the nested dict it was built from
     (``p["in_layers"]["0"]["weight"]``, ``"bias" in p``).
-    Parameters are frozen: the port only runs inference.
+    Parameters are built frozen (``requires_grad=False``);
+    ``set_trainable`` opens exactly the ones a training mode selects.
     """
 
     def __init__(self, tree: Dict[str, Any]):
@@ -38,6 +39,18 @@ class ParamTree(nn.Module):
         yield from self._parameters
         yield from self._modules
 
+    def set_trainable(self, predicate: Callable[[str], bool]
+                      ) -> Dict[str, nn.Parameter]:
+        """``requires_grad`` on exactly the parameters whose dotted
+        state_dict name satisfies ``predicate``, off on every other one.
+        Returns the trainable ones by name, in state_dict order."""
+        out = {}
+        for name, p in self.named_parameters():
+            p.requires_grad_(bool(predicate(name)))
+            if p.requires_grad:
+                out[name] = p
+        return out
+
 
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     """Nested dict -> flat {'a.b.c': leaf} (torch state_dict naming)."""
@@ -48,6 +61,18 @@ def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
             out.update(flatten_tree(v, name + "."))
         else:
             out[name] = v
+    return out
+
+
+def unflatten_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Flat {'a.b.c': leaf} -> nested dict (the inverse of flatten_tree)."""
+    out: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        node = out
+        *parents, last = name.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = leaf
     return out
 
 

@@ -6,13 +6,16 @@
   geometry the two packages' initializers name and shape every tensor alike.
 * No file of ``layoutllm_t2i_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or ``layoutllm_t2i_tpu`` (an AST scan, so a lazy import inside a
-  function counts too).
+  function counts too), and every module of the port, the training slice's
+  included, imports in a process where importing JAX fails.
 * An entry point called without ``device`` where CUDA is missing raises
   instead of running on the CPU, and a CPU tensor never counts a launch.
 """
 import ast
 import dataclasses
 import pathlib
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -155,6 +158,32 @@ def test_port_imports_no_jax():
     assert bad == []
 
 
+TRAINING_MODULES = (
+    "checkpoint.async_io", "checkpoint.export", "checkpoint.io",
+    "cli.train_diffusion", "data.synthetic", "diffusion.ddpm",
+    "pipeline.scene_graph", "training.diffusion_trainer",
+    "training.train_step", "utils.logging",
+)
+
+
+def test_every_port_module_imports_without_jax():
+    modules = sorted(
+        ".".join(("layoutllm_t2i_torch",) + f.relative_to(
+            REPO / "layoutllm_t2i_torch").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for f in (REPO / "layoutllm_t2i_torch").rglob("*.py"))
+    assert {f"layoutllm_t2i_torch.{m}" for m in TRAINING_MODULES} <= set(modules)
+    # a None entry in sys.modules makes any import of these names raise
+    code = ("import importlib, sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'layoutllm_t2i_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -179,6 +208,7 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     K.group_norm(torch.randn(1, 4, 32), torch.ones(32), torch.zeros(32), 8)
     q = torch.randn(1, 8, 16)
     K.flash_attention(q, q, q, 2, 0.25)
-    assert K.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    assert K.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                 "K5a": 0, "K5b": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         use_kernel(torch.empty(1, device="meta"))
