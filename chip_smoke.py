@@ -8,10 +8,11 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                prints build seconds, ptxas lines and the card's name and
                power limit.
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
-               K4 LN+GEGLU FF) against its plain PyTorch version on the card,
-               in bf16, at the main-path shapes of a 2-request batch (CFG
-               batch 4); times kernel, plain version and one PyTorch library
-               call for the same function, beside the roofline bound.
+               K4 LN+GEGLU FF, K5a/K5b flash-attention backward) against
+               its plain PyTorch version on the card, in bf16, at every
+               distinct shape that phases 4 and 6 give it; times kernel,
+               plain version and one PyTorch library call for the same
+               function, beside the roofline bound.
   3. unet      one full-width UNet forward through the kernels and again
                through the plain versions (fuser and relation alphas set to
                0.5 first: random init leaves them 0, which would hide a
@@ -22,7 +23,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   5. train-grad  one full-width loss backward at batch 2 (f32 master
                weights, bf16 compute, alphas 0.5), kernel route against
                plain route: the relative L2 error of the rela_fuse
-               gradients against a stated bound.
+               gradients against a stated bound, which a planted fault of
+               the K5 backward must exceed.
   6. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
                8, rela_fuse, AdamW, mixed precision, warmup 0, alphas 0.5;
                2 warm-up steps then 5 timed ones; s/step, images/s, peak
@@ -31,12 +33,17 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   7. the `kernels` JSON line, then the card line, then the result line.
      In that line `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
-     timed in phase 2; K1's include the training shapes with the lse);
-     `launches` counts phase 4's run for K1-K4 and phase 6's for K5a/K5b.
+     timed in phase 2); `launches` adds phase 4's run and phase 6's.
 
-Phase 2's training shapes are those of phase 6: batch 8, no CFG doubling,
-N = M = 4096/4126 at d 40 and 1024/1054 at d 80. There K1 runs with its
-lse output, and K5a/K5b take the lse and delta of the plain forward.
+Phase 2's shapes are walked from the model configs (generation_calls,
+training_calls): the generation at 2 requests (CFG batch 4), and a
+training step at batch 8 with no CFG doubling: the VAE encoder on 512^2
+images (K1 at d 512), CLIP on the captions and on the grounding texts,
+and the UNet, whose flash sites after the first relation fuser run K1
+with its lse (N = M = 4096/4126 at d 40, 1024/1054 at d 80). Each of
+those is also a K5a and a K5b case, on the lse and delta of the plain
+forward. tests/test_torch_smoke_shapes.py holds the walk against the
+calls that a small model makes on the CPU.
 
 With `--profile OUT.json`, one more generation runs under torch.profiler
 after phase 4 and prints device time by kernel group and the device's idle
@@ -50,6 +57,8 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import math
 import os
@@ -70,11 +79,18 @@ H100_HBM_BYTES = 3.35e12    # HBM3 bytes/s, H100 SXM
 # K1's atol a fraction of the output's rms, and a whole-tensor rms bound)
 # full-width UNet forward, kernel route vs plain route: max |a-b| / max |b|
 UNET_REL_TOL = 5e-2
-# full-width loss backward, kernel route vs plain route: ||g_k - g_p|| /
-# ||g_p|| over all rela_fuse gradients. Both routes round to bf16 at the
-# same points; they differ by summation order through 16 transformer blocks
-# forward and back, as the forward's 5e-2 allows for its output.
-TRAIN_GRAD_REL_TOL = 5e-2
+# full-width loss backward at batch 2, kernel route against plain route:
+# ||g_k - g_p|| / ||g_p|| over all rela_fuse gradients. Both round to bf16
+# at the same points and differ by summation order through 16 transformer
+# blocks forward and back. On the H100 that reads 4.4e-3, and the planted
+# K5 fault of TRAIN_GRAD_CAUGHT 4.4e-2 (planted_fault): the bound sits
+# between. Those of TRAIN_GRAD_UNSEEN read within 3 % of the kernel route,
+# lost in the rounding of the bf16 backward; they are run and reported,
+# not bounded: phase 2 and tests/test_torch_kernels.py hold K5 against
+# such faults.
+TRAIN_GRAD_REL_TOL = 1e-2
+TRAIN_GRAD_CAUGHT = ("dk_unscaled",)
+TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 
 KERNEL_META = {
     "K1": ("flash_attention", "layoutllm_t2i_torch/csrc/flash_attention.cu",
@@ -90,8 +106,8 @@ KERNEL_META = {
     "K5b": ("flash_attention_bwd_dkv", "layoutllm_t2i_torch/csrc/flash_attention.cu",
             "layoutllm_t2i_tpu/ops/pallas/flash_attention.py:555"),
 }
-# the training phases' batch (no CFG doubling)
-TRAIN_BATCH = 8
+# the training phases' batch (no CFG doubling), boxes and relation slots
+TRAIN_BATCH, TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS = 8, 30, 10
 
 
 def emit(obj) -> None:
@@ -141,74 +157,175 @@ def bound(flops: float, nbytes: float):
 
 
 # ---------------------------------------------------------------------------
-# main-path shapes (2 requests -> CFG batch 4)
+# main-path shapes: every kernel call of a generation and of a training step,
+# walked from the model configs in the order the models make them
 
 
-def kernel_cases(unet_cfg, vae_cfg, prompts: int = 2):
-    """(kid, label, shape-args) at every distinct main-path shape."""
+def attention_calls(b, n, m, heads, c, lse=False):
+    """K1 where multi_head_attention routes an unmasked site to it."""
+    from layoutllm_t2i_torch.ops.attention import FLASH_MIN_KV, FLASH_MIN_Q_LEN
+
+    if n >= FLASH_MIN_Q_LEN and m >= FLASH_MIN_KV:
+        return [("K1", (b, n, m, heads, c // heads) + (("lse",) if lse else ()))]
+    return []
+
+
+def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False):
+    """One UNet forward at batch b, n_obj grounding tokens, n_rel relations.
+    With ``train`` (rela_fuse mode) autograd records every call from the
+    first relation fuser on, so the flash sites there take the lse."""
     from layoutllm_t2i_torch.models.unet import input_block_specs, output_block_specs
 
-    b2 = 2 * prompts
-    lat = unet_cfg.image_size
-    cases = []
-    # K1: the flash-routed sites (N >= 512, M >= 128, no mask)
-    for n, m, heads, d, b in ((4096, 4096, 8, 40, b2), (4126, 4126, 8, 40, b2),
-                              (1024, 1024, 8, 80, b2), (1054, 1054, 8, 80, b2),
-                              (4096, 4096, 1, 512, prompts)):
-        cases.append(("K1", f"B{b} N{n} M{m} H{heads} d{d}", (b, n, m, heads, d)))
-    # K2: every GroupNorm of the UNet and of the VAE decoder
-    gn = []
-    for kind, ci, co, ds in input_block_specs(unet_cfg):
-        hw = (lat // ds) ** 2
+    lat, heads = cfg.image_size, cfg.num_heads
+    calls = []
+    grad = False
+
+    def res(hw, ci, co):
+        calls.extend([("K2", (b, hw, ci, 1e-5, True)), ("K2", (b, hw, co, 1e-5, True))])
+
+    def st(hw, c):
+        nonlocal grad
+        calls.append(("K2", (b, hw, c, 1e-6, False)))
+        for _ in range(cfg.transformer_depth):
+            calls.append(("K3", (b * hw, c)))                        # attn1
+            calls.extend(attention_calls(b, hw, hw, heads, c, grad))
+            calls.append(("K3", (b * (hw + n_obj), c)))              # fuser
+            calls.extend(attention_calls(b, hw + n_obj, hw + n_obj, heads, c, grad))
+            calls.append(("K4", (b * hw, c, 0.5)))
+            if cfg.use_relation_attention:                           # rela_fuse
+                grad = grad or train
+                calls.extend([("K3", (b * hw, c)), ("K3", (b * n_obj, c))])
+                calls.extend(attention_calls(b, n_obj, n_rel, heads, c, grad))
+                calls.append(("K3", (b * n_obj, c)))
+            calls.append(("K3", (b * hw, c)))                        # attn2
+            calls.extend(attention_calls(b, hw, ctx_len, heads, c, grad))
+            calls.append(("K4", (b * hw, c, 1.0)))                   # ff
+
+    for kind, ci, co, ds in input_block_specs(cfg):
         if kind in ("res", "res_st"):
-            gn += [(b2, hw, ci, 1e-5, True), (b2, hw, co, 1e-5, True)]
+            res((lat // ds) ** 2, ci, co)
         if kind == "res_st":
-            gn.append((b2, hw, co, 1e-6, False))
-    mid = unet_cfg.model_channels * unet_cfg.channel_mult[-1]
-    hw8 = (lat // 2 ** (len(unet_cfg.channel_mult) - 1)) ** 2
-    gn += [(b2, hw8, mid, 1e-5, True), (b2, hw8, mid, 1e-6, False)]
-    for kind, ci, _skip, co, _up, ds in output_block_specs(unet_cfg):
-        hw = (lat // ds) ** 2
-        gn += [(b2, hw, ci, 1e-5, True), (b2, hw, co, 1e-5, True)]
+            st((lat // ds) ** 2, co)
+    mid = cfg.model_channels * cfg.channel_mult[-1]
+    hw = (lat // 2 ** (len(cfg.channel_mult) - 1)) ** 2
+    res(hw, mid, mid)
+    st(hw, mid)
+    res(hw, mid, mid)
+    for kind, ci, _skip, co, _up, ds in output_block_specs(cfg):
+        res((lat // ds) ** 2, ci, co)
         if kind == "res_st":
-            gn.append((b2, hw, co, 1e-6, False))
-    gn.append((b2, lat * lat, unet_cfg.model_channels, 1e-5, True))
-    ch = [vae_cfg.ch * m for m in vae_cfg.ch_mult]
-    side = lat
-    gn += [(prompts, side * side, ch[-1], 1e-6, True),
-           (prompts, side * side, ch[-1], 1e-6, False)]
-    block_in = ch[-1]
-    for i_level in reversed(range(len(ch))):
-        for _ in range(vae_cfg.num_res_blocks + 1):
-            gn += [(prompts, side * side, block_in, 1e-6, True),
-                   (prompts, side * side, ch[i_level], 1e-6, True)]
-            block_in = ch[i_level]
-        if i_level:
+            st((lat // ds) ** 2, co)
+    calls.append(("K2", (b, lat * lat, cfg.model_channels, 1e-5, True)))
+    return calls
+
+
+def vae_res_calls(b, hw, ci, co):
+    return [("K2", (b, hw, ci, 1e-6, True)), ("K2", (b, hw, co, 1e-6, True))]
+
+
+def vae_mid_calls(b, hw, c):
+    return (vae_res_calls(b, hw, c, c) + [("K2", (b, hw, c, 1e-6, False))]
+            + attention_calls(b, hw, hw, 1, c) + vae_res_calls(b, hw, c, c))
+
+
+def vae_encoder_calls(cfg, b, side):
+    """The VAE encoder on (b, 3, side, side) images."""
+    calls, block_in = [], cfg.ch
+    for i, mult in enumerate(cfg.ch_mult):
+        for _ in range(cfg.num_res_blocks):
+            calls += vae_res_calls(b, side * side, block_in, cfg.ch * mult)
+            block_in = cfg.ch * mult
+        if i != len(cfg.ch_mult) - 1:
+            side //= 2
+    calls += vae_mid_calls(b, side * side, block_in)
+    return calls + [("K2", (b, side * side, block_in, 1e-6, True))]
+
+
+def vae_decoder_calls(cfg, b, side):
+    """The VAE decoder on (b, 4, side, side) latents."""
+    block_in = cfg.ch * cfg.ch_mult[-1]
+    calls = vae_mid_calls(b, side * side, block_in)
+    for i in reversed(range(len(cfg.ch_mult))):
+        for _ in range(cfg.num_res_blocks + 1):
+            calls += vae_res_calls(b, side * side, block_in, cfg.ch * cfg.ch_mult[i])
+            block_in = cfg.ch * cfg.ch_mult[i]
+        if i:
             side *= 2
-    for args in sorted(set(gn)):
+    return calls + [("K2", (b, side * side, block_in, 1e-6, True))]
+
+
+def clip_calls(clip_cfg, rows):
+    """The CLIP text encoder on ``rows`` token rows (its attention is
+    causal, so masked: it never routes to K1)."""
+    return [("K3", (rows, clip_cfg.hidden_size))] * (2 * clip_cfg.num_layers + 1)
+
+
+def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
+                     vae_chunk, max_objs=30, max_relas=5):
+    """InferencePipeline.generate: prompts and empty prompts, then every
+    phrase and relation text in one batch, each padded to a power of two;
+    the CFG-doubled UNet; the VAE decode in chunks."""
+    from layoutllm_t2i_torch.utils.buckets import pow2_bucket
+
+    prompts, layouts, relations = requests
+    b = len(prompts)
+    n_texts = (sum(len(phrases) for _, phrases in layouts)
+               + sum(min(len(r), max_relas) for r in relations))
+    calls = 2 * clip_calls(clip_cfg, pow2_bucket(b) * tok_len)
+    if n_texts:
+        calls += clip_calls(clip_cfg, pow2_bucket(n_texts) * tok_len)
+    calls += unet_calls(unet_cfg, 2 * b, max_objs, max_relas, tok_len)
+    for i in range(0, b, vae_chunk):
+        calls += vae_decoder_calls(vae_cfg, min(vae_chunk, b - i), unet_cfg.image_size)
+    return calls
+
+
+def training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, batch, max_boxes,
+                   max_relations):
+    """One DiffusionTrainer step on a host batch: prepare_batch (VAE
+    encode, CLIP on the captions, then every phrase and relation text in
+    one power-of-two batch) and the UNet forward of the loss."""
+    from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_training
+    from layoutllm_t2i_torch.utils.buckets import pow2_bucket
+
+    b, side = len(batch["caption"]), batch["image"].shape[1]
+    n_texts = (sum(min(len(labels), max_boxes) for labels in batch["labels"])
+               + sum(len(relation_texts_for_training(c, max_relations))
+                     for c in batch["caption"]))
+    calls = vae_encoder_calls(vae_cfg, b, side) + clip_calls(clip_cfg, b * tok_len)
+    if n_texts:
+        calls += clip_calls(clip_cfg, pow2_bucket(n_texts) * tok_len)
+    return calls + unet_calls(unet_cfg, b, max_boxes, max_relations, tok_len,
+                              train=True)
+
+
+def case_label(kid, args):
+    if kid in ("K1", "K5a", "K5b"):
+        b, n, m, h, d = args[:5]
+        return f"B{b} N{n} M{m} H{h} d{d}" + (" lse" if len(args) > 5 else "")
+    if kid == "K2":
         n, hw, c, eps, silu = args
-        cases.append(("K2", f"N{n} HW{hw} C{c} eps{eps:g} silu{int(silu)}", args))
-    # K3: every LayerNorm width and row count; CLIP encodes the prompts
-    # (and the empty uncond prompts) in a batch of 2, and the 5 phrases +
-    # 3 relation texts of phase_generate in one batch of 8
-    ln = [(b2 * 4096, 320), (b2 * 4126, 320), (b2 * 1024, 640),
-          (b2 * 1054, 640), (b2 * 256, 1280), (b2 * 286, 1280),
-          (b2 * 64, 1280), (b2 * 94, 1280), (b2 * 30, 320), (b2 * 30, 640),
-          (b2 * 30, 1280), (8 * 77, 768), (prompts * 77, 768)]
-    for rows, c in ln:
-        cases.append(("K3", f"rows{rows} C{c}", (rows, c)))
-    # K4: every FF site (norm3, s = 1; the fuser FF, s = scale*tanh(alpha))
-    for hw, k in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
-        for s in (1.0, 0.5):
-            cases.append(("K4", f"M{b2 * hw} K{k} s{s:g}", (b2 * hw, k, s)))
-    # training: K1 with its lse, and K5a/K5b, at the flash-routed sites of
-    # a batch-8 step (self-attention and gated self-attention, 64^2 and 32^2)
-    for n, d in ((4096, 40), (4126, 40), (1024, 80), (1054, 80)):
-        args = (TRAIN_BATCH, n, n, 8, d)
-        label = f"B{TRAIN_BATCH} N{n} M{n} H8 d{d}"
-        cases += [("K1", label + " lse", args + ("lse",)),
-                  ("K5a", label, args), ("K5b", label, args)]
-    return cases
+        return f"N{n} HW{hw} C{c} eps{eps:g} silu{int(silu)}"
+    if kid == "K3":
+        return "rows{} C{}".format(*args)
+    return "M{} K{} s{:g}".format(*args)
+
+
+def kernel_cases(paths):
+    """(kid, label, args, path names) at every distinct shape of the given
+    {path name: calls}; each K1 site with its lse is also a K5a and a K5b
+    case (the backward of that site)."""
+    where = {}
+    for path, calls in paths.items():
+        for kid, args in calls:
+            where.setdefault((kid, args), []).append(path)
+            if kid == "K1" and len(args) > 5:
+                for bwd in ("K5a", "K5b"):
+                    where.setdefault((bwd, args[:5]), []).append(path)
+    order = list(KERNEL_META)
+    keys = sorted(where, key=lambda key: order.index(key[0]))
+    return [(kid, case_label(kid, args), args, sorted(set(where[kid, args])))
+            for kid, args in keys]
 
 
 def make_case(kid, args, dev, gen):
@@ -329,18 +446,6 @@ def library_ms(lib) -> float:
     return time_ms(lib)
 
 
-def agreement_of(kid, label, out, ref):
-    """K1's lse cases hold the output to K1's tolerance and the lse to its
-    own; the worst of each figure is reported."""
-    from layoutllm_t2i_torch.kernels.tolerance import agreement
-
-    if kid == "K1" and label.endswith("lse"):
-        a, b = agreement("K1", out[0], ref[0]), agreement("lse", out[1], ref[1])
-        return {key: (a["ok"] and b["ok"]) if key == "ok" else max(a[key], b[key])
-                for key in a}
-    return agreement(kid, out, ref)
-
-
 # ---------------------------------------------------------------------------
 # phases
 
@@ -354,7 +459,9 @@ def phase_build():
           "libs": log})
 
 
-def phase_kernels(unet_cfg, vae_cfg):
+def phase_kernels(cases):
+    from layoutllm_t2i_torch.kernels.tolerance import agreement
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -364,15 +471,17 @@ def phase_kernels(unet_cfg, vae_cfg):
                      "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
                for kid in KERNEL_META}
     failed = []
-    for kid, label, args in kernel_cases(unet_cfg, vae_cfg):
+    for kid, label, args, paths in cases:
         kern, plain, lib, flops, nbytes = make_case(kid, args, dev, gen)
         out = kern()
         ref = plain()
         torch.cuda.synchronize()
-        agree = agreement_of(kid, label, out, ref)
+        # K1 with its lse: the output to K1's tolerance, the lse to its own
+        agree = agreement(("K1", "lse") if label.endswith("lse") else kid, out, ref)
         del out, ref
         b_ms, b_by = bound(flops, nbytes)
-        rec = {"phase": "kernels", "kernel": kid, "shape": label, **agree,
+        rec = {"phase": "kernels", "kernel": kid, "shape": label, "paths": paths,
+               **agree,
                "ms": time_ms(kern), "plain_ms": time_ms(plain),
                "library_ms": library_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
         emit(rec)
@@ -446,6 +555,7 @@ def phase_unet(models):
 # PLMS steps of the generation phases: the whole script runs well inside the
 # time limit at the full 50, so the step count is never lowered
 STEPS = 50
+VAE_CHUNK = 8
 
 # two requests: a prompt, 2-3 boxes with phrases, 1-2 relation texts each
 REQUESTS = (
@@ -464,7 +574,7 @@ def exact_pipeline(models):
 
     return InferencePipeline(models, steps=STEPS, sampler="plms",
                              guidance_scale=7.5, alpha_type=(0.3, 0.0, 0.7),
-                             vae_chunk=8)
+                             vae_chunk=VAE_CHUNK)
 
 
 def phase_generate(models):
@@ -476,7 +586,8 @@ def phase_generate(models):
     # warm-up at 2 steps: cuDNN algorithm selection and the first kernel
     # launches stay out of the timed run
     InferencePipeline(models, steps=2, alpha_type=(0.5, 0.0, 0.5),
-                      vae_chunk=8).generate(prompts, layouts, relations, seed=3)
+                      vae_chunk=VAE_CHUNK).generate(prompts, layouts, relations,
+                                                    seed=3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -521,9 +632,49 @@ def synthetic_step_batch(cfg, b: int, dev, gen) -> dict:
             "relations": rel}
 
 
+@contextlib.contextmanager
+def planted_fault(name: str):
+    """Plant fault ``name`` in the K5 wrappers that FlashAttention.backward
+    calls; the kernels still launch (and count) as on the kernel route."""
+    # the module, not the function the package exports under its name
+    fa = importlib.import_module("layoutllm_t2i_torch.kernels.flash_attention")
+    dq_fn, dkv_fn = fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv
+
+    def dq(q, k, v, dout, lse, delta, heads, scale):
+        if name == "softmax_scale":
+            return dq_fn(q, k, v, dout, lse, delta, heads, scale * 1.005)
+        if name == "dq_kv_tail":
+            m = k.shape[1] - k.shape[1] % 64
+            return dq_fn(q, k[:, :m], v[:, :m], dout, lse, delta, heads, scale)
+        out = dq_fn(q, k, v, dout, lse, delta, heads, scale)
+        return out * 1.01 if name == "dq_1pct" else out
+
+    def dkv(q, k, v, dout, lse, delta, heads, scale):
+        if name == "softmax_scale":
+            return dkv_fn(q, k, v, dout, lse, delta, heads, scale * 1.005)
+        dk, dv = dkv_fn(q, k, v, dout, lse, delta, heads, scale)
+        return (dk / scale if name == "dk_unscaled" else dk), dv
+
+    # the wrappers count through their module's names: these get the counts
+    dq.launches = dkv.launches = 0
+    fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = dq, dkv
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = dq_fn, dkv_fn
+
+
+def rel_l2(grads, ref) -> float:
+    """||g - g_ref|| / ||g_ref|| over all tensors together."""
+    num = sum(float((a - b).double().pow(2).sum()) for a, b in zip(grads, ref))
+    den = sum(float(b.double().pow(2).sum()) for b in ref)
+    return math.sqrt(num / den)
+
+
 def phase_train_grad():
     """One full-width loss backward at batch 2 through the kernels and
-    again through the plain versions, from the same weights and draws."""
+    again through the plain versions, from the same weights and draws;
+    then once with each planted K5 fault."""
     from layoutllm_t2i_torch.kernels import launch_counts, plain_route, reset_launches
     from layoutllm_t2i_torch.pipeline.loaders import random_models
     from layoutllm_t2i_torch.training.train_step import TrainStep, TrainStepConfig
@@ -542,31 +693,44 @@ def phase_train_grad():
     noise = torch.randn(batch["z"].shape, generator=gen, device=dev).contiguous(
         memory_format=torch.channels_last)
     keep = torch.ones((), device=dev)
+    grads = lambda: step.grads(batch, t, noise, keep)
     reset_launches()
-    loss_k, g_k = step.grads(batch, t, noise, keep)
+    loss_k, g_k = grads()
     torch.cuda.synchronize()
     counts = launch_counts()
     with plain_route():
-        loss_p, g_p = step.grads(batch, t, noise, keep)
+        loss_p, g_p = grads()
     torch.cuda.synchronize()
-    diff = torch.cat([(a - b).flatten() for a, b in zip(g_k, g_p)])
-    ref = torch.cat([b.flatten() for b in g_p])
-    rel = float(diff.norm() / ref.norm())
-    per_tensor = max(float((a - b).norm() / max(float(b.norm()), 1e-30))
-                     for a, b in zip(g_k, g_p))
+    plain_launched = launch_counts() != counts
+    rel = rel_l2(g_k, g_p)
+    per_tensor = {name: float((a - b).norm() / max(float(b.norm()), 1e-30))
+                  for name, a, b in zip(step.params, g_k, g_p)}
+    worst = max(per_tensor, key=per_tensor.get)
     finite = all(bool(torch.isfinite(g).all()) for g in g_k)
-    ok = finite and rel <= TRAIN_GRAD_REL_TOL and launch_counts() == counts
+    del g_k
+    faults = {}
+    for name in TRAIN_GRAD_CAUGHT + TRAIN_GRAD_UNSEEN:
+        with planted_fault(name):
+            g_f = grads()[1]
+        faults[name] = rel_l2(g_f, g_p)
+        del g_f
+    ok = (finite and not plain_launched and rel <= TRAIN_GRAD_REL_TOL
+          and all(faults[name] > TRAIN_GRAD_REL_TOL for name in TRAIN_GRAD_CAUGHT))
     emit({"phase": "train-grad", "ok": ok, "batch": 2, "alphas_set": n_alpha,
-          "trainable_tensors": len(g_k),
-          "trainable_params": sum(g.numel() for g in g_k),
+          "trainable_tensors": len(g_p),
+          "trainable_params": sum(g.numel() for g in g_p),
           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
-          "grad_rel_l2_err": rel, "worst_tensor_rel_l2_err": per_tensor,
-          "grad_norm": float(ref.norm()), "tol_rel_l2": TRAIN_GRAD_REL_TOL,
+          "grad_rel_l2_err": rel, "tol_rel_l2": TRAIN_GRAD_REL_TOL,
+          "planted_fault_rel_l2_err": faults,
+          "worst_tensor": worst, "worst_tensor_rel_l2_err": per_tensor[worst],
+          "worst_tensor_grad_norm": float(g_p[list(step.params).index(worst)].norm()),
+          "grad_norm": math.sqrt(sum(float(g.double().pow(2).sum()) for g in g_p)),
           "launches": counts})
     if not ok:
-        raise SmokeFailure("loss backward: kernel route disagrees with plain "
-                           "route (or a plain-route call launched a kernel)")
-    del models, step, g_k, g_p
+        raise SmokeFailure("loss backward: the kernel route lies outside the "
+                           "bound, a planted fault it must catch inside it, "
+                           "or a plain-route call launched a kernel")
+    del models, step, g_p
     torch.cuda.empty_cache()
 
 
@@ -588,7 +752,8 @@ def phase_train(work_dir: str):
                         save_every_iters=10 ** 9, log_every=1,
                         warmup_steps=0, trainable_mode="rela_fuse",
                         optimizer="adamw", mixed_precision=True,
-                        max_relations=10)
+                        max_boxes=TRAIN_MAX_BOXES,
+                        max_relations=TRAIN_MAX_RELATIONS)
     models = random_models(small=False, device="cuda", dtype=torch.float32,
                            seed=0)
     n_alpha = set_alphas(models.unet_params, 0.5)
@@ -700,9 +865,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from layoutllm_t2i_torch.models.unet import UNetConfig
-        from layoutllm_t2i_torch.models.vae import VAEConfig
-        from layoutllm_t2i_torch.pipeline.loaders import random_models
+        from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
+        from layoutllm_t2i_torch.pipeline.loaders import model_configs, random_models
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
@@ -720,7 +884,16 @@ def main(argv=None) -> int:
                             "build", "chip_smoke_train")
     try:
         phase_build()
-        summary = phase_kernels(UNetConfig(), VAEConfig())
+        unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+        tok_len = clip_cfg.max_length
+        train_batch = next(synthetic_layout_batches(TRAIN_BATCH, 512, TRAIN_MAX_BOXES))
+        summary = phase_kernels(kernel_cases({
+            "generate": generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
+                                         REQUESTS, VAE_CHUNK),
+            "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
+                                    train_batch, TRAIN_MAX_BOXES,
+                                    TRAIN_MAX_RELATIONS)}))
+        del train_batch
         models = random_models(small=False, device="cuda", dtype=torch.bfloat16,
                                seed=0)
         phase_unet(models)
@@ -747,10 +920,11 @@ def main(argv=None) -> int:
         return 1
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
-    # the generation path launches K1-K4, the training path all six
-    counts = {kid: gen_counts[kid] for kid in ("K1", "K2", "K3", "K4")}
-    counts.update(K5a=train_counts["K5a"], K5b=train_counts["K5b"])
-    missing = ([f"{kid} (generate)" for kid, n in counts.items() if n <= 0]
+    # the generation path launches K1-K4, the training path all six; the
+    # line counts both runs
+    counts = {kid: gen_counts[kid] + train_counts[kid] for kid in KERNEL_META}
+    missing = ([f"{kid} (generate)" for kid in ("K1", "K2", "K3", "K4")
+                if gen_counts[kid] <= 0]
                + [f"{kid} (train)" for kid, n in train_counts.items() if n <= 0])
     line = []
     for kid, (name, src, replaces) in KERNEL_META.items():

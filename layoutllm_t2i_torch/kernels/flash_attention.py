@@ -21,7 +21,7 @@ from typing import Tuple
 import torch
 
 from .build import check, lib
-from .dispatch import require, stream_handle, use_kernel
+from .dispatch import needs_grad, require, stream_handle, use_kernel
 
 
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -210,8 +210,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int, scale: float) -> torch.Tensor:
     """q: (B, N, H*d); k, v: (B, M, H*d) -> (B, N, H*d)."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, heads, scale)
     if not use_kernel(q):
         return flash_attention_plain(q, k, v, heads, scale)

@@ -50,7 +50,10 @@ def clip_text_apply(params, cfg: CLIPTextConfig, input_ids: torch.Tensor):
     """input_ids: (B, 77) int. Returns (last_hidden (B,77,C), pooled (B,C))."""
     b, n = input_ids.shape
     emb = params["embeddings"]
-    x = emb["token_embedding"]["weight"][input_ids] \
+    # an id past the table clamps to its last row, as JAX's gather does
+    # (HashTokenizer's word ids exceed a small test vocabulary)
+    rows = input_ids.clamp(0, cfg.vocab_size - 1)
+    x = emb["token_embedding"]["weight"][rows] \
         + emb["position_embedding"]["weight"][:n][None]
     for i in range(cfg.num_layers):
         lyr = params["encoder"]["layers"][str(i)]

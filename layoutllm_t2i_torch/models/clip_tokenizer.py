@@ -177,18 +177,12 @@ class CLIPTokenizer:
 
 class HashTokenizer:
     """Deterministic stand-in for offline smoke tests: hashes words to ids in
-    [1000, 40000); correct SOT/EOT framing and padding. A vocabulary too
-    small for that range (the tiny training models use 512) takes word ids
-    in [0, vocab_size - 2) instead: the JAX package's copy keeps them in
-    [1000, 40000) there, and its embedding gather clamps them all to the
-    EOT row."""
+    [1000, 40000); correct SOT/EOT framing and padding."""
 
     def __init__(self, max_length: int = 77, vocab_size: int = 49408):
         self.max_length = max_length
         self.sot = vocab_size - 2
         self.eot = vocab_size - 1
-        self._word_id = ((lambda h: 1000 + h % 39000) if vocab_size >= 40002
-                         else (lambda h: h % (vocab_size - 2)))
 
     def __call__(self, texts, max_length: Optional[int] = None, pad: bool = True) -> np.ndarray:
         if isinstance(texts, str):
@@ -197,7 +191,7 @@ class HashTokenizer:
         out = np.full((len(texts), max_length), self.eot, dtype=np.int32)
         for i, t in enumerate(texts):
             words = whitespace_clean(basic_clean(t)).lower().split()
-            ids = [self._word_id(hash(w)) for w in words]
+            ids = [1000 + (hash(w) % 39000) for w in words]
             ids = [self.sot] + ids[: max_length - 2] + [self.eot]
             out[i, : len(ids)] = ids
         return out

@@ -6,9 +6,10 @@ versions for CPU tensors. Both sides see the same f32 inputs from a numpy
 seed. Tolerance: 1e-5 absolute (f32, differing only in summation order),
 2e-5 where a contraction over 512 features adds rounding.
 
-The last test holds K1's stated bf16 tolerance on the card
-(``kernels/tolerance.py``) against a CPU emulation of the CUDA kernel's
-algorithm: the kernel's own rounding must pass it, small faults must not.
+The last two tests hold K1's and K5's stated bf16 tolerances on the card
+(``kernels/tolerance.py``) against CPU emulations of the CUDA kernels'
+algorithms: the kernels' own rounding must pass them, small faults must
+not.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -20,7 +21,8 @@ from layoutllm_t2i_tpu.ops.pallas.flash_attention import flash_attention as jax_
 from layoutllm_t2i_tpu.ops.pallas.norms import _gn_pallas, _gn_pallas_rows, _ln_pallas
 
 from layoutllm_t2i_torch.kernels import (
-    ffn_ln_geglu, flash_attention, flash_attention_plain, group_norm, layer_norm,
+    attention_delta, ffn_ln_geglu, flash_attention, flash_attention_bwd_plain,
+    flash_attention_lse_plain, flash_attention_plain, group_norm, layer_norm,
 )
 from layoutllm_t2i_torch.kernels.tolerance import agreement
 
@@ -154,4 +156,81 @@ def test_k1_tolerance_separates_rounding_from_faults(fault):
                for _ in range(3))
     ref = flash_attention_plain(q, k, v, heads, d ** -0.5)
     got = agreement("K1", _flash_emulated(q, k, v, heads, d ** -0.5, fault), ref)
+    assert got["ok"] == (fault is None), got
+
+
+def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
+                        fault=None, bq=64, bk=64):
+    """csrc/flash_attention.cu's K5a (dQ) or K5b (dK, dV) algorithm in f32
+    on the CPU: K5a streams K/V in BK-row tiles, K5b streams q/dO in
+    BQ-row tiles; P = exp(S * scale - lse), dS = P o (dO V^T - delta), both
+    cast to bf16 before their products; outputs in bf16. ``fault`` injects
+    a mistake the kernels could make."""
+    b, n, hc = q.shape
+    m, d = k.shape[1], hc // heads
+    split = lambda t: t.float().view(b, -1, heads, d).transpose(1, 2)
+    qh, kh, vh, doh = split(q), split(k), split(v), split(dout)
+    lse, delta = lse[..., None], delta[..., None]
+    s_p = scale * 1.005 if fault == "scale" else scale    # 0.5 % logit scale
+    out_mul = 1.0 if fault == "out_scale" else scale      # dropped final scale
+    bf = lambda t: t.to(torch.bfloat16).float()
+    if kid == "K5a":
+        dq = torch.zeros(b, heads, n, d)
+        end = m - m % bk if fault == "kv_tail" else m
+        for k0 in range(0, end, bk):
+            kt, vt = kh[:, :, k0:k0 + bk], vh[:, :, k0:k0 + bk]
+            p = torch.exp(qh @ kt.transpose(-1, -2) * s_p - lse)
+            dq += bf(p * (doh @ vt.transpose(-1, -2) - delta)) @ kt
+        dq = dq * out_mul * (1.005 if fault == "skew" else 1.0)
+        return dq.transpose(1, 2).reshape(b, n, hc).to(torch.bfloat16)
+    if fault == "q_tail":
+        # the last q tile reads past N: the rows that follow in memory (the
+        # next batch element's first rows, the next (b, h) row's lse/delta)
+        pad = bq - n % bq
+        nxt = lambda t: torch.cat([t, t.roll(-1, 0)[:, :, :pad]], dim=2)
+        qh, doh = nxt(qh), nxt(doh)
+        flat = lambda t: torch.cat(
+            [t, t.reshape(b * heads, n, 1).roll(-1, 0)[:, :pad]
+             .reshape(b, heads, pad, 1)], dim=2)
+        lse, delta = flat(lse), flat(delta)
+    dk = torch.zeros(b, heads, m, d)
+    dv = torch.zeros(b, heads, m, d)
+    for q0 in range(0, qh.shape[2], bq):
+        qt, dot = qh[:, :, q0:q0 + bq], doh[:, :, q0:q0 + bq]
+        lt, dt = lse[:, :, q0:q0 + bq], delta[:, :, q0:q0 + bq]
+        p = torch.exp(qt @ kh.transpose(-1, -2) * s_p - lt)
+        ds = bf(p * (dot @ vh.transpose(-1, -2) - dt))
+        dv += bf(p).transpose(-1, -2) @ dot
+        dk += ds.transpose(-1, -2) @ qt
+    dk = dk * out_mul * (1.005 if fault == "skew" else 1.0)
+    if fault == "kv_tail":   # the last, ragged k tile is never written
+        dk[:, :, m - m % bk:] = 0
+        dv[:, :, m - m % bk:] = 0
+    packed = lambda t: t.transpose(1, 2).reshape(b, m, hc).to(torch.bfloat16)
+    return packed(dk), packed(dv)
+
+
+@pytest.mark.parametrize("kid,fault", [
+    ("K5a", None), ("K5a", "kv_tail"), ("K5a", "scale"), ("K5a", "out_scale"),
+    ("K5a", "skew"),
+    ("K5b", None), ("K5b", "kv_tail"), ("K5b", "q_tail"), ("K5b", "scale"),
+    ("K5b", "out_scale"), ("K5b", "skew"),
+])
+def test_k5_tolerance_separates_rounding_from_faults(kid, fault):
+    # the 32^2 gated sites at two batch elements: N = M = 1054 = 16 * 64 + 30
+    # leaves ragged q and KV tails of 30 rows; "scale" is a 0.5 % error of
+    # the softmax scale, "out_scale" drops the final scale of dQ or dK,
+    # "skew" is a 0.5 % error of dQ or dK, "q_tail" reads past N
+    b, heads, n, d = 2, 2, 1054, 80
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(b, n, heads * d, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    dout = (0.1 * torch.randn(b, n, heads * d, generator=g)).to(torch.bfloat16)
+    scale = d ** -0.5
+    out, lse = flash_attention_lse_plain(q, k, v, heads, scale)
+    delta = attention_delta(out, dout, heads)
+    ref = flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, scale)
+    ref = ref[0] if kid == "K5a" else ref[1:]
+    got = agreement(kid, _flash_bwd_emulated(kid, q, k, v, dout, lse, delta,
+                                             heads, scale, fault), ref)
     assert got["ok"] == (fault is None), got

@@ -30,6 +30,7 @@ import torch
 
 from layoutllm_t2i_tpu.checkpoint.export import export_gligen_checkpoint as jax_export
 from layoutllm_t2i_tpu.diffusion import ddpm as jddpm
+from layoutllm_t2i_tpu.models import clip_text as jclip
 from layoutllm_t2i_tpu.models import unet as junet
 from layoutllm_t2i_tpu.models.clip_text import CLIPTextConfig, init_clip_text_params
 from layoutllm_t2i_tpu.models.clip_tokenizer import HashTokenizer as JaxHashTokenizer
@@ -43,6 +44,7 @@ from layoutllm_t2i_torch.checkpoint.from_jax import (
 )
 from layoutllm_t2i_torch.cli import train_diffusion as cli
 from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
+from layoutllm_t2i_torch.models.clip_text import clip_text_apply
 from layoutllm_t2i_torch.models.clip_tokenizer import HashTokenizer
 from layoutllm_t2i_torch.models.unet import UNetConfig
 from layoutllm_t2i_torch.ops import nn as pnn
@@ -335,12 +337,21 @@ def test_hash_tokenizer_small_vocab_stays_in_range():
     """The JAX package's HashTokenizer ignores a small vocab_size for word
     ids (1000 + hash % 39000): with the tiny training models' 512 tokens
     they fall outside the embedding table, and JAX's gather clamps every
-    one to the EOT row. The port's copy keeps them inside."""
+    one to the EOT row. The port's copy gives the same ids, and its CLIP
+    lookup stays in the table by the same clamp: the tiny encoder's
+    outputs match JAX's (f32, 1e-5)."""
     texts = ["a dog chasing a frisbee in a park", "two cats on a couch"]
     jax_ids = JaxHashTokenizer(max_length=8, vocab_size=512)(texts)
     port_ids = HashTokenizer(max_length=8, vocab_size=512)(texts)
     assert jax_ids.max() >= 512
-    assert port_ids.max() < 512 and port_ids.min() >= 0
-    assert (port_ids[:, 0] == 510).all()  # SOT framing unchanged
-    full = HashTokenizer()(texts)
-    np.testing.assert_array_equal(full, JaxHashTokenizer()(texts))
+    np.testing.assert_array_equal(port_ids, jax_ids)
+    np.testing.assert_array_equal(HashTokenizer()(texts), JaxHashTokenizer()(texts))
+
+    jm = jax_tiny_models()
+    want_hidden, want_pooled = jclip.clip_text_apply(
+        jm["clip_params"], jm["clip_cfg"], jnp.asarray(jax_ids))
+    pm = _port_models()
+    hidden, pooled = clip_text_apply(pm.clip_params, pm.clip_cfg,
+                                     torch.from_numpy(port_ids.astype(np.int64)))
+    np.testing.assert_allclose(hidden.numpy(), np.asarray(want_hidden), atol=1e-5)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(want_pooled), atol=1e-5)
