@@ -4,15 +4,17 @@
 Run from the repository root:  python3 chip_smoke.py
 Phases, in order; each prints JSON lines and any failure exits non-zero:
 
-  1. build     nvcc-builds the four kernel libraries from csrc/ (sm_90a),
+  1. build     nvcc-builds the five kernel libraries from csrc/ (sm_90a),
                prints build seconds, ptxas lines and the card's name and
                power limit.
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
-               K4 LN+GEGLU FF, K5a/K5b flash-attention backward) against
-               its plain PyTorch version on the card, in bf16, at every
-               distinct shape that phases 4 and 6 give it; times kernel,
-               plain version and one PyTorch library call for the same
-               function, beside the roofline bound.
+               K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
+               FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
+               GEGLU GEMM) against its plain PyTorch version on the card,
+               in bf16 (K7 on int8 weights), at every distinct shape that
+               phases 4-6 and 8 give it; times kernel, plain version and
+               one PyTorch library call for the same function, beside the
+               roofline bound.
   3. unet      one full-width UNet forward through the kernels and again
                through the plain versions (fuser and relation alphas set to
                0.5 first: random init leaves them 0, which would hide a
@@ -20,35 +22,48 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   4. generate  random_models() at full SD-1.4 width in bf16, then PLMS-50,
                CFG 7.5, alpha (0.3, 0, 0.7), vae_chunk 8 on 2 requests;
                checks shape, finiteness and range; counts kernel launches.
-  5. train-grad  one full-width loss backward at batch 2 (f32 master
+  5. int8      quantize_unet_int8 of phase 4's bundle: the UNet's dense and
+               int8 bytes; under LLT2I_FFN_INT8=1 a UNet forward through
+               K7 against the plain route and against the default int8
+               route (dequantize, then cuBLAS); then phase 4's generation,
+               its launches and its mean |int8 - dense| image difference.
+  6. routes    under LLT2I_FFN_LN=0 and LLT2I_PALLAS_MATMUL=1 (K3 + K6 at
+               the norm3 sites, K3 + K8b + K8a at the fusers' dense
+               branch): a UNet forward against the plain route, then phase
+               4's generation and its launches.
+  7. train-grad  one full-width loss backward at batch 2 (f32 master
                weights, bf16 compute, alphas 0.5), kernel route against
                plain route: the relative L2 error of the rela_fuse
                gradients against a stated bound, which a planted fault of
                the K5 backward must exceed.
-  6. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
+  8. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
                8, rela_fuse, AdamW, mixed precision, warmup 0, alphas 0.5;
                2 warm-up steps then 5 timed ones; s/step, images/s, peak
                memory, finite losses, every rela_fuse tensor changed and
                every frozen one bit-identical; kernel launches per step.
-  7. the `kernels` JSON line, then the card line, then the result line.
+  9. the `kernels` JSON line, then the card line, then the result line.
      In that line `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
-     timed in phase 2); `launches` adds phase 4's run and phase 6's.
+     timed in phase 2); `launches` adds the runs of phases 4, 5, 6 and 8,
+     each read from counts set to 0 just before it.
 
 Phase 2's shapes are walked from the model configs (generation_calls,
-training_calls): the generation at 2 requests (CFG batch 4), and a
-training step at batch 8 with no CFG doubling: the VAE encoder on 512^2
-images (K1 at d 512), CLIP on the captions and on the grounding texts,
-and the UNet, whose flash sites after the first relation fuser run K1
-with its lse (N = M = 4096/4126 at d 40, 1024/1054 at d 80). Each of
+training_calls): the generation at 2 requests (CFG batch 4) on each of
+its three routes (Route: the default, int8, and the split FF routes),
+and a training step at batch 8 with no CFG doubling: the VAE encoder on
+512^2 images (K1 at d 512), CLIP on the captions and on the grounding
+texts, and the UNet, whose flash sites after the first relation fuser run
+K1 with its lse (N = M = 4096/4126 at d 40, 1024/1054 at d 80). Each of
 those is also a K5a and a K5b case, on the lse and delta of the plain
-forward. tests/test_torch_smoke_shapes.py holds the walk against the
-calls that a small model makes on the CPU.
+forward. The walk routes each feed-forward site as ops/nn.py does, with
+the same eligibility tests (ff_site_calls). tests/test_torch_smoke_shapes.py
+holds the walk against the calls that a small model makes on the CPU.
 
 With `--profile OUT.json`, one more generation runs under torch.profiler
 after phase 4 and prints device time by kernel group and the device's idle
-share; OUT.json gets the per-kernel table. One more training step is
-profiled likewise after phase 6, into OUT_train.json.
+share; OUT.json gets the per-kernel table. One more generation is profiled
+likewise after phases 5 and 6 (OUT_int8.json, OUT_routes.json), and one
+more training step after phase 8 (OUT_train.json).
 
 The script imports nothing of JAX or of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -66,6 +81,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -105,9 +121,60 @@ KERNEL_META = {
             "layoutllm_t2i_tpu/ops/pallas/flash_attention.py:533"),
     "K5b": ("flash_attention_bwd_dkv", "layoutllm_t2i_torch/csrc/flash_attention.cu",
             "layoutllm_t2i_tpu/ops/pallas/flash_attention.py:555"),
+    "K6": ("ffn_geglu", "layoutllm_t2i_torch/csrc/ffn.cu",
+           "layoutllm_t2i_tpu/ops/pallas/ffn.py:140"),
+    "K7": ("ffn_ln_geglu_q", "layoutllm_t2i_torch/csrc/ffn.cu",
+           "layoutllm_t2i_tpu/ops/pallas/ffn.py:383"),
+    "K8a": ("linear_fused", "layoutllm_t2i_torch/csrc/matmul.cu",
+            "layoutllm_t2i_tpu/ops/pallas/matmul.py:131"),
+    "K8b": ("geglu_fused", "layoutllm_t2i_torch/csrc/matmul.cu",
+            "layoutllm_t2i_tpu/ops/pallas/matmul.py:169"),
 }
 # the training phases' batch (no CFG doubling), boxes and relation slots
 TRAIN_BATCH, TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS = 8, 30, 10
+# the int8 generation's images against the dense ones: mean |d| bound of
+# the JAX package's int8 test (tests/test_quant.py:152)
+INT8_IMAGE_TOL = 0.15
+# int8 UNet bytes over its dense bf16 bytes: int8 values, f32 scales per
+# output channel, and the small weights, biases and norms left in bf16
+INT8_BYTES_RATIO_MAX = 0.55
+
+
+class Route(NamedTuple):
+    """The switches ops/nn.py reads, and whether the UNet is int8."""
+    int8: bool = False            # a quantize_unet_int8 bundle
+    ffn_int8: bool = False        # LLT2I_FFN_INT8
+    ffn_ln: bool = True           # LLT2I_FFN_LN
+    pallas_ffn: bool = True       # LLT2I_PALLAS_FFN
+    pallas_matmul: bool = False   # LLT2I_PALLAS_MATMUL
+
+    def env(self) -> dict:
+        flag = lambda on: "1" if on else "0"
+        return {"LLT2I_FFN_INT8": flag(self.ffn_int8),
+                "LLT2I_FFN_LN": flag(self.ffn_ln),
+                "LLT2I_PALLAS_FFN": flag(self.pallas_ffn),
+                "LLT2I_PALLAS_MATMUL": flag(self.pallas_matmul)}
+
+
+DEFAULT = Route()
+INT8 = Route(int8=True, ffn_int8=True)       # phase 5: K7
+INT8_DEQUANT = Route(int8=True)              # the default int8 route
+SPLIT = Route(ffn_ln=False, pallas_matmul=True)   # phase 6: K6, K8a, K8b
+
+
+@contextlib.contextmanager
+def route_env(route: Route):
+    """Set the route's switches; restore the environment after."""
+    saved = {k: os.environ.get(k) for k in route.env()}
+    os.environ.update(route.env())
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def emit(obj) -> None:
@@ -170,10 +237,49 @@ def attention_calls(b, n, m, heads, c, lse=False):
     return []
 
 
-def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False):
-    """One UNet forward at batch b, n_obj grounding tokens, n_rel relations.
-    With ``train`` (rela_fuse mode) autograd records every call from the
-    first relation fuser on, so the flash sites there take the lse."""
+def geglu_ff_calls(route, m, k):
+    """ops/nn.py geglu_ff on m rows of width k (inner 4k): K8b, then K8a
+    for the down-projection, where LLT2I_PALLAS_MATMUL=1 and _eligible."""
+    from layoutllm_t2i_torch.kernels.matmul import _eligible
+
+    inner = 4 * k
+    if not route.pallas_matmul:
+        return []
+    if _eligible(m, k, inner):
+        calls = [("K8b", (m, k, inner))]
+    elif _eligible(m, k, 2 * inner):      # linear(net.0.proj)
+        calls = [("K8a", (m, k, 2 * inner))]
+    else:
+        calls = []
+    if _eligible(m, inner, k):            # linear(net.2)
+        calls.append(("K8a", (m, inner, k)))
+    return calls
+
+
+def ff_site_calls(route, m, k, s):
+    """One LN + GEGLU FF + residual site of m rows and width k, in the
+    fall-through order of ops/nn.py: s = 1.0 is the norm3 site
+    (ln_geglu_ff_res), s = 0.5 stands for a fuser's traced gate
+    (ln_geglu_ff_scaled_res, which never takes K6)."""
+    from layoutllm_t2i_torch.kernels.ffn import ffn_eligible
+
+    eligible = ffn_eligible(m, k, 4 * k)
+    if route.pallas_ffn and route.ffn_ln and eligible:
+        if route.int8 and route.ffn_int8:
+            return [("K7", (m, k, s))]
+        if not route.int8:
+            return [("K4", (m, k, s))]
+    calls = [("K3", (m, k))]
+    if s == 1.0 and route.pallas_ffn and not route.int8 and eligible:
+        return calls + [("K6", (m, k))]
+    return calls + geglu_ff_calls(route, m, k)
+
+
+def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False, route=DEFAULT):
+    """One UNet forward at batch b, n_obj grounding tokens, n_rel relations,
+    on ``route``. With ``train`` (rela_fuse mode) autograd records every
+    call from the first relation fuser on, so the flash sites there take
+    the lse."""
     from layoutllm_t2i_torch.models.unet import input_block_specs, output_block_specs
 
     lat, heads = cfg.image_size, cfg.num_heads
@@ -191,7 +297,7 @@ def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False):
             calls.extend(attention_calls(b, hw, hw, heads, c, grad))
             calls.append(("K3", (b * (hw + n_obj), c)))              # fuser
             calls.extend(attention_calls(b, hw + n_obj, hw + n_obj, heads, c, grad))
-            calls.append(("K4", (b * hw, c, 0.5)))
+            calls.extend(ff_site_calls(route, b * hw, c, 0.5))
             if cfg.use_relation_attention:                           # rela_fuse
                 grad = grad or train
                 calls.extend([("K3", (b * hw, c)), ("K3", (b * n_obj, c))])
@@ -199,7 +305,7 @@ def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False):
                 calls.append(("K3", (b * n_obj, c)))
             calls.append(("K3", (b * hw, c)))                        # attn2
             calls.extend(attention_calls(b, hw, ctx_len, heads, c, grad))
-            calls.append(("K4", (b * hw, c, 1.0)))                   # ff
+            calls.extend(ff_site_calls(route, b * hw, c, 1.0))       # ff
 
     for kind, ci, co, ds in input_block_specs(cfg):
         if kind in ("res", "res_st"):
@@ -261,10 +367,10 @@ def clip_calls(clip_cfg, rows):
 
 
 def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
-                     vae_chunk, max_objs=30, max_relas=5):
+                     vae_chunk, max_objs=30, max_relas=5, route=DEFAULT):
     """InferencePipeline.generate: prompts and empty prompts, then every
     phrase and relation text in one batch, each padded to a power of two;
-    the CFG-doubled UNet; the VAE decode in chunks."""
+    the CFG-doubled UNet on ``route``; the VAE decode in chunks."""
     from layoutllm_t2i_torch.utils.buckets import pow2_bucket
 
     prompts, layouts, relations = requests
@@ -274,7 +380,8 @@ def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
     calls = 2 * clip_calls(clip_cfg, pow2_bucket(b) * tok_len)
     if n_texts:
         calls += clip_calls(clip_cfg, pow2_bucket(n_texts) * tok_len)
-    calls += unet_calls(unet_cfg, 2 * b, max_objs, max_relas, tok_len)
+    calls += unet_calls(unet_cfg, 2 * b, max_objs, max_relas, tok_len,
+                        route=route)
     for i in range(0, b, vae_chunk):
         calls += vae_decoder_calls(vae_cfg, min(vae_chunk, b - i), unet_cfg.image_size)
     return calls
@@ -308,6 +415,10 @@ def case_label(kid, args):
         return f"N{n} HW{hw} C{c} eps{eps:g} silu{int(silu)}"
     if kid == "K3":
         return "rows{} C{}".format(*args)
+    if kid == "K6":
+        return "M{} K{}".format(*args)
+    if kid in ("K8a", "K8b"):
+        return "M{} K{} N{}".format(*args)
     return "M{} K{} s{:g}".format(*args)
 
 
@@ -370,6 +481,10 @@ def make_case(kid, args, dev, gen):
                 lambda: K.layer_norm_plain(x, w, bb, 1e-5),
                 lambda: F.layer_norm(x, (c,), w, bb, 1e-5),
                 8.0 * x.numel(), 2.0 * (2 * x.numel() + 2 * c))
+    if kid in ("K8a", "K8b"):
+        return make_gemm_case(kid, args, rnd)
+    if kid == "K6":
+        return make_ffn_res_case(args, rnd)
     m, k, s = args
     inner = 4 * k
     x = rnd(m, k)
@@ -377,6 +492,8 @@ def make_case(kid, args, dev, gen):
     w1, b1 = rnd(2 * inner, k, scale=k ** -0.5), rnd(2 * inner, scale=0.1)
     w2, b2 = rnd(k, inner, scale=inner ** -0.5), rnd(k, scale=0.1)
     s_t = torch.tensor(s, device=dev, dtype=torch.float32)
+    if kid == "K7":
+        return make_int8_ffn_case(args, x, lw, lb, w1, b1, w2, b2, s_t)
 
     def lib():
         a, g = F.linear(F.layer_norm(x, (k,), lw, lb, 1e-5), w1, b1).chunk(2, -1)
@@ -386,6 +503,72 @@ def make_case(kid, args, dev, gen):
     return (lambda: K.ffn_ln_geglu(x, lw, lb, w1, b1, w2, b2, s_t),
             lambda: K.ffn_ln_geglu_plain(x, lw, lb, w1, b1, w2, b2, s_t),
             lib, flops, nbytes)
+
+
+def make_ffn_res_case(args, rnd):
+    """K6: the FF without the LN, its residual passed in. Library: the
+    FF as F.linear, GEGLU, F.linear, then the residual add."""
+    from layoutllm_t2i_torch import kernels as K
+
+    m, k = args
+    inner = 4 * k
+    x, r = rnd(m, k), rnd(m, k)
+    w1, b1 = rnd(2 * inner, k, scale=k ** -0.5), rnd(2 * inner, scale=0.1)
+    w2, b2 = rnd(k, inner, scale=inner ** -0.5), rnd(k, scale=0.1)
+
+    def lib():
+        a, g = F.linear(x, w1, b1).chunk(2, -1)
+        return F.linear(a * F.gelu(g), w2, b2) + r
+    flops = 6.0 * m * k * inner
+    nbytes = 2.0 * (3 * m * k + 3 * inner * k + 2 * inner + k)
+    return (lambda: K.ffn_geglu(x, w1, b1, w2, b2, r),
+            lambda: K.ffn_geglu_plain(x, w1, b1, w2, b2, r), lib, flops,
+            nbytes)
+
+
+def make_int8_ffn_case(args, x, lw, lb, w1, b1, w2, b2, s_t):
+    """K7 on K4's inputs with w1 and w2 quantized as quantize_unet_int8
+    quantizes them. Library: dequantize, then K4's library chain. The
+    bound counts the weights at one byte each."""
+    from layoutllm_t2i_torch import kernels as K
+    from layoutllm_t2i_torch.ops.quant import quantize_tensor
+
+    m, k, s = args
+    inner = 4 * k
+    qw1, qw2 = quantize_tensor(w1), quantize_tensor(w2)
+    q = (qw1.q, qw1.scale, b1, qw2.q, qw2.scale, b2)
+
+    def lib():
+        a, g = F.linear(F.layer_norm(x, (k,), lw, lb, 1e-5), qw1.dequantize(),
+                        b1).chunk(2, -1)
+        return x + s * F.linear(a * F.gelu(g), qw2.dequantize(), b2)
+    flops = 6.0 * m * k * inner
+    nbytes = (2.0 * (2 * m * k + 2 * inner + 3 * k) + 3.0 * inner * k
+              + 4.0 * (2 * inner + k))
+    return (lambda: K.ffn_ln_geglu_q(x, lw, lb, *q, s_t),
+            lambda: K.ffn_ln_geglu_q_plain(x, lw, lb, *q, s_t), lib, flops,
+            nbytes)
+
+
+def make_gemm_case(kid, args, rnd):
+    """K8a: x W^T + b (library: F.linear with the bias). K8b: the GEGLU of
+    x [Wa; Wg]^T + b (library: F.linear on [Wa; Wg], then a * gelu(g))."""
+    from layoutllm_t2i_torch import kernels as K
+
+    m, k, n = args
+    x = rnd(m, k)
+    if kid == "K8a":
+        w, b = rnd(n, k, scale=k ** -0.5), rnd(n, scale=0.1)
+        return (lambda: K.linear_fused(x, w, b),
+                lambda: K.linear_plain(x, w, b), lambda: F.linear(x, w, b),
+                2.0 * m * k * n, 2.0 * (m * k + n * k + m * n + n))
+    w, b = rnd(2 * n, k, scale=k ** -0.5), rnd(2 * n, scale=0.1)
+
+    def lib():
+        a, g = F.linear(x, w, b).chunk(2, -1)
+        return a * F.gelu(g)
+    return (lambda: K.geglu_fused(x, w, b), lambda: K.geglu_plain(x, w, b),
+            lib, 4.0 * m * k * n, 2.0 * (m * k + 2 * n * k + m * n + 2 * n))
 
 
 def make_lse_case(args, dev, rnd):
@@ -511,13 +694,13 @@ def set_alphas(tree, value: float) -> int:
     return n
 
 
-def phase_unet(models):
-    from layoutllm_t2i_torch.kernels import plain_route
+def unet_runner(models):
+    """One full-width UNet forward at batch 4 on fixed inputs (seed 1):
+    three boxes, five relation slots, timesteps 981 and 501."""
     from layoutllm_t2i_torch.models.unet import unet_apply
 
     dev, dt = models.device, models.compute_dtype
     cfg = models.unet_cfg
-    n_alpha = set_alphas(models.unet_params, 0.5)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
@@ -534,21 +717,48 @@ def phase_unet(models):
     masks[:, :3] = 1
     pos = (rnd(b, 30, cfg.grounding_in_dim) * 0.5).to(dt)
     rel = (rnd(b, 5, cfg.context_dim) * 0.5).to(dt)
-    run = lambda: unet_apply(models.unet_params, cfg, x, t, ctx, boxes, masks,
-                             pos, rel, fuser_scale=1.0)
-    with torch.no_grad():
-        out = run().float()
-        with plain_route():
-            ref = run().float()
+
+    @torch.no_grad()
+    def run():
+        return unet_apply(models.unet_params, cfg, x, t, ctx, boxes, masks,
+                          pos, rel, fuser_scale=1.0).float()
+    return run
+
+
+def unet_agreement(out, ref) -> dict:
+    """max |a-b| / max |b| of two UNet outputs, against UNET_REL_TOL."""
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(out).all() and torch.isfinite(ref).all())
     diff = float((out - ref).abs().max())
     rel_err = diff / max(float(ref.abs().max()), 1e-6)
-    ok = finite and rel_err <= UNET_REL_TOL
-    emit({"phase": "unet", "ok": ok, "alphas_set": n_alpha, "shape": list(out.shape),
-          "max_abs_diff": diff, "ref_max_abs": float(ref.abs().max()),
-          "rel_err": rel_err, "tol_rel": UNET_REL_TOL})
-    if not ok:
+    return {"ok": finite and rel_err <= UNET_REL_TOL, "max_abs_diff": diff,
+            "ref_max_abs": float(ref.abs().max()), "rel_err": rel_err}
+
+
+def routed_unet(run):
+    """``run()`` through the kernels (launches counted from 0), then through
+    the plain versions; (kernel output, plain output, kernel launches,
+    whether the plain run launched a kernel)."""
+    from layoutllm_t2i_torch.kernels import launch_counts, plain_route, reset_launches
+
+    reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with plain_route():
+        ref = run()
+    torch.cuda.synchronize()
+    return out, ref, counts, launch_counts() != counts
+
+
+def phase_unet(models):
+    n_alpha = set_alphas(models.unet_params, 0.5)
+    out, ref, _, _ = routed_unet(unet_runner(models))
+    agree = unet_agreement(out, ref)
+    emit({"phase": "unet", "ok": agree["ok"], "alphas_set": n_alpha,
+          "shape": list(out.shape), **{k: v for k, v in agree.items() if k != "ok"},
+          "tol_rel": UNET_REL_TOL})
+    if not agree["ok"]:
         raise SmokeFailure("UNet forward: kernel route disagrees with plain route")
 
 
@@ -577,14 +787,16 @@ def exact_pipeline(models):
                              vae_chunk=VAE_CHUNK)
 
 
-def phase_generate(models):
+def run_generation(models, label: str, **extra):
+    """A 2-step warm-up generation (cuDNN algorithm selection and the first
+    kernel launches stay out of the timed run), then PLMS-50 on REQUESTS
+    from seed 0 with the launches counted from 0. Returns (record, launch
+    counts, images)."""
     from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
     from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
 
     pipe = exact_pipeline(models)
     prompts, layouts, relations = REQUESTS
-    # warm-up at 2 steps: cuDNN algorithm selection and the first kernel
-    # launches stay out of the timed run
     InferencePipeline(models, steps=2, alpha_type=(0.5, 0.0, 0.5),
                       vae_chunk=VAE_CHUNK).generate(prompts, layouts, relations,
                                                     seed=3)
@@ -599,17 +811,98 @@ def phase_generate(models):
     ok = (img.shape == (2, 512, 512, 3) and bool(np.isfinite(img).all())
           and float(img.min()) >= 0.0 and float(img.max()) <= 1.0)
     grounded = int((pipe.tables.fuser_scale != 0).sum())
-    emit({"phase": "generate", "ok": ok, "steps": STEPS,
-          "shape": list(img.shape), "min": float(img.min()),
-          "max": float(img.max()), "mean": float(img.mean()),
-          "std_across_images": float(img.std(axis=0).mean()),
-          "wall_s": wall, "img_per_s": len(prompts) / wall,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "unet_evals": STEPS + 1, "grounded_steps": grounded,
-          "launches": counts})
-    if not ok:
+    rec = {"phase": label, "ok": ok, **extra, "steps": STEPS,
+           "shape": list(img.shape), "min": float(img.min()),
+           "max": float(img.max()), "mean": float(img.mean()),
+           "std_across_images": float(img.std(axis=0).mean()),
+           "wall_s": wall, "img_per_s": len(prompts) / wall,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "unet_evals": STEPS + 1, "grounded_steps": grounded,
+           "launches": counts}
+    return rec, counts, img
+
+
+def phase_generate(models):
+    rec, counts, img = run_generation(models, "generate")
+    emit(rec)
+    if not rec["ok"]:
         raise SmokeFailure("generation output is not a finite (2,512,512,3) "
                            "image batch in [0, 1]")
+    return counts, img
+
+
+def profile_generation(models, label: str, profile, suffix: str) -> None:
+    """With ``--profile``, one more generation of ``models`` (on the route
+    the switches set) under the profiler, into the profile's path, with
+    ``suffix`` in place of its extension if given."""
+    if profile:
+        pipe = exact_pipeline(models)
+        path = os.path.splitext(profile)[0] + suffix if suffix else profile
+        profile_device(lambda: pipe.generate(*REQUESTS, seed=0), label, path,
+                       steps=STEPS)
+
+
+def phase_int8(models, dense_img, profile=None):
+    """The int8 UNet of phase 4's bundle: its bytes, K7 in a UNet forward
+    against the plain route and against the default int8 route, and the
+    generation (launches; images against phase 4's)."""
+    from layoutllm_t2i_torch.ops.quant import quantized_bytes
+    from layoutllm_t2i_torch.pipeline.loaders import quantize_unet_int8
+
+    qmodels = quantize_unet_int8(models)
+    dense_b = quantized_bytes(models.unet_params)
+    int8_b = quantized_bytes(qmodels.unet_params)
+    run = unet_runner(qmodels)
+    with route_env(INT8):
+        out, ref, fwd_counts, plain_launched = routed_unet(run)
+    with route_env(INT8_DEQUANT):
+        dequant = run()
+    vs_plain, vs_dequant = unet_agreement(out, ref), unet_agreement(out, dequant)
+    del out, ref, dequant
+    with route_env(INT8):
+        rec, counts, img = run_generation(qmodels, "int8")
+        profile_generation(qmodels, "profile-int8", profile, "_int8.json")
+    img_diff = float(np.abs(img - dense_img).mean())
+    ok = (vs_plain["ok"] and vs_dequant["ok"] and not plain_launched
+          and fwd_counts["K7"] > 0 and fwd_counts["K4"] == 0 and rec["ok"]
+          and img_diff < INT8_IMAGE_TOL
+          and int8_b / dense_b <= INT8_BYTES_RATIO_MAX)
+    rec.update({"ok": ok, "unet_dense_bytes": dense_b, "unet_int8_bytes": int8_b,
+                "bytes_ratio": int8_b / dense_b,
+                "bytes_ratio_max": INT8_BYTES_RATIO_MAX,
+                "unet_vs_plain": vs_plain, "unet_vs_dequant_route": vs_dequant,
+                "unet_tol_rel": UNET_REL_TOL, "unet_launches": fwd_counts,
+                "plain_route_launched": plain_launched,
+                "image_mean_abs_diff_vs_dense": img_diff,
+                "image_tol": INT8_IMAGE_TOL})
+    emit(rec)
+    if not ok:
+        raise SmokeFailure("int8: K7 disagrees with the plain or the dequant "
+                           "route, the generation is off, or the bytes or "
+                           "image bounds fail")
+    return counts
+
+
+def phase_routes(models, profile=None):
+    """LLT2I_FFN_LN=0 + LLT2I_PALLAS_MATMUL=1: K6 at the norm3 sites, K8b and
+    K8a at the fusers' dense branch; a UNet forward against the plain
+    route, then the generation."""
+    with route_env(SPLIT):
+        out, ref, fwd_counts, plain_launched = routed_unet(unet_runner(models))
+        agree = unet_agreement(out, ref)
+        del out, ref
+        rec, counts, _ = run_generation(models, "routes", env=SPLIT.env())
+        profile_generation(models, "profile-routes", profile, "_routes.json")
+    ok = (agree["ok"] and not plain_launched and rec["ok"]
+          and fwd_counts["K4"] == 0
+          and all(fwd_counts[kid] > 0 for kid in ("K6", "K8a", "K8b")))
+    rec.update({"ok": ok, "unet_vs_plain": agree, "unet_tol_rel": UNET_REL_TOL,
+                "unet_launches": fwd_counts,
+                "plain_route_launched": plain_launched})
+    emit(rec)
+    if not ok:
+        raise SmokeFailure("routes: the split FF routes disagree with the "
+                           "plain route, or the generation is off")
     return counts
 
 
@@ -807,6 +1100,10 @@ PROFILE_GROUPS = (
     ("K2 group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("K3 layer_norm", ("ln_kernel",)),
     ("K4 ffn_ln_geglu", ("ffn_up_kernel", "ffn_down_kernel")),
+    ("K6 ffn_geglu", ("ffn_res_up_kernel", "ffn_res_down_kernel")),
+    ("K7 ffn_ln_geglu_q", ("ffn_q_up_kernel", "ffn_q_down_kernel")),
+    ("K8a linear_fused", ("linear_fused_kernel",)),
+    ("K8b geglu_fused", ("geglu_fused_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit", "winograd", "nhwc", "fprop",
                      "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
@@ -856,9 +1153,10 @@ def profile_device(run, label: str, out_path: str, **extra) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="JSON",
-                    help="after the checks, profile one more generation "
-                         "and one more training step and write their "
-                         "per-kernel device times here and to JSON_train")
+                    help="after the checks, profile one more generation on "
+                         "each route and one more training step and write "
+                         "their per-kernel device times here and to "
+                         "JSON_int8, JSON_routes and JSON_train")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -883,49 +1181,60 @@ def main(argv=None) -> int:
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke_train")
     try:
-        phase_build()
-        unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
-        tok_len = clip_cfg.max_length
-        train_batch = next(synthetic_layout_batches(TRAIN_BATCH, 512, TRAIN_MAX_BOXES))
-        summary = phase_kernels(kernel_cases({
-            "generate": generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
-                                         REQUESTS, VAE_CHUNK),
-            "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
-                                    train_batch, TRAIN_MAX_BOXES,
-                                    TRAIN_MAX_RELATIONS)}))
-        del train_batch
-        models = random_models(small=False, device="cuda", dtype=torch.bfloat16,
-                               seed=0)
-        phase_unet(models)
-        gen_counts = phase_generate(models)
-        if args.profile:
-            pipe = exact_pipeline(models)
-            profile_device(lambda: pipe.generate(*REQUESTS, seed=0),
-                           "profile", args.profile, steps=STEPS)
-            del pipe
-        del models
-        torch.cuda.empty_cache()
-        phase_train_grad()
-        train_counts, trainer, data = phase_train(work_dir)
-        if args.profile:
-            it = iter(data)
-            profile_device(
-                lambda: trainer.train_step(trainer.prepare_batch(next(it)),
-                                           trainer.generator),
-                "profile-train", os.path.splitext(args.profile)[0] + "_train.json",
-                batch=TRAIN_BATCH)
-        trainer.close()
+        with route_env(DEFAULT):
+            phase_build()
+            unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+            tok_len = clip_cfg.max_length
+            train_batch = next(synthetic_layout_batches(TRAIN_BATCH, 512,
+                                                        TRAIN_MAX_BOXES))
+            gen_paths = {
+                f"generate{suffix}": generation_calls(
+                    unet_cfg, vae_cfg, clip_cfg, tok_len, REQUESTS, VAE_CHUNK,
+                    route=route)
+                for suffix, route in (("", DEFAULT), ("-int8", INT8),
+                                      ("-routes", SPLIT))}
+            summary = phase_kernels(kernel_cases({
+                **gen_paths,
+                "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
+                                        train_batch, TRAIN_MAX_BOXES,
+                                        TRAIN_MAX_RELATIONS)}))
+            del train_batch
+            models = random_models(small=False, device="cuda",
+                                   dtype=torch.bfloat16, seed=0)
+            phase_unet(models)
+            gen_counts, dense_img = phase_generate(models)
+            profile_generation(models, "profile", args.profile, "")
+            int8_counts = phase_int8(models, dense_img, args.profile)
+            routes_counts = phase_routes(models, args.profile)
+            del models, dense_img
+            torch.cuda.empty_cache()
+            phase_train_grad()
+            train_counts, trainer, data = phase_train(work_dir)
+            if args.profile:
+                it = iter(data)
+                profile_device(
+                    lambda: trainer.train_step(trainer.prepare_batch(next(it)),
+                                               trainer.generator),
+                    "profile-train",
+                    os.path.splitext(args.profile)[0] + "_train.json",
+                    batch=TRAIN_BATCH)
+            trainer.close()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
-    # the generation path launches K1-K4, the training path all six; the
-    # line counts both runs
-    counts = {kid: gen_counts[kid] + train_counts[kid] for kid in KERNEL_META}
-    missing = ([f"{kid} (generate)" for kid in ("K1", "K2", "K3", "K4")
-                if gen_counts[kid] <= 0]
-               + [f"{kid} (train)" for kid, n in train_counts.items() if n <= 0])
+    # each run launches its path's kernels: the generation K1-K4, the int8
+    # generation K7, the split routes K6, K8a and K8b, training K1-K5b; the
+    # line adds the four runs
+    runs = {"generate": gen_counts, "int8": int8_counts,
+            "routes": routes_counts, "train": train_counts}
+    counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
+    expected = {"generate": ("K1", "K2", "K3", "K4"), "int8": ("K7",),
+                "routes": ("K6", "K8a", "K8b"),
+                "train": ("K1", "K2", "K3", "K4", "K5a", "K5b")}
+    missing = [f"{kid} ({path})" for path, kids in expected.items()
+               for kid in kids if runs[path][kid] <= 0]
     line = []
     for kid, (name, src, replaces) in KERNEL_META.items():
         s = summary[kid]

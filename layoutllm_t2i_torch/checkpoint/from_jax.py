@@ -3,7 +3,11 @@
 The JAX trees are nested dicts keyed by the reference torch names, with
 NumPy leaves in the TPU layouts (conv HWIO, linear (in, out)); this undoes
 layoutllm_t2i_tpu/checkpoint/convert.py:34-41. It takes NumPy arrays only,
-so the port never imports JAX.
+so the port never imports JAX. An int8 leaf of the JAX package's
+``quantize_params`` (its ``QuantTensor`` after a NumPy ``tree_map``: an
+object with ``.q``, ``.scale`` and ``.dtype``) crosses as the port's
+``QuantTensor``: q transposed as the dense weight would be, the scale, per
+output channel in both layouts, as it is.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..ops.quant import QuantTensor, place
 from ..utils.trees import ParamTree, flatten_tree, unflatten_tree
 
 # names whose 2-D weights are lookup tables, not nn.Linear kernels
@@ -33,13 +38,34 @@ def torch_layout(name: str, a) -> np.ndarray:
     return a  # 0-D and 1-D tensors and embedding tables stay as they are
 
 
-def tensor_from_jax(name: str, a) -> torch.Tensor:
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def _is_jax_quantized(a) -> bool:
+    return hasattr(a, "q") and hasattr(a, "scale")
+
+
+def tensor_from_jax(name: str, a):
+    """A JAX leaf as a torch tensor in the torch layout, or an int8 leaf as
+    a QuantTensor."""
+    if _is_jax_quantized(a):
+        q = np.asarray(a.q)
+        if q.ndim not in (2, 4) or name.endswith(_EMBEDDING_SUFFIXES):
+            raise ValueError(f"{name}: an int8 leaf must be a linear or conv "
+                             "kernel, whose output channel the layout moves "
+                             "to axis 0")
+        return QuantTensor(tensor_from_jax(name, q),
+                           torch.from_numpy(np.array(a.scale, np.float32)),
+                           _TORCH_DTYPES[np.dtype(a.dtype).name])
     # np.array keeps a 0-D leaf 0-D (np.ascontiguousarray would make it 1-D)
     return torch.from_numpy(np.array(torch_layout(name, a), order="C"))
 
 
 def state_dict_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Nested JAX parameter tree -> flat torch state_dict (reference names)."""
+    """Nested JAX parameter tree -> flat torch state_dict (reference names;
+    an int8 leaf becomes a QuantTensor, which ``param_tree_from_jax`` takes
+    and ``load_state_dict`` does not)."""
     return {name: tensor_from_jax(name, a)
             for name, a in flatten_tree(tree).items()}
 
@@ -92,7 +118,9 @@ def gligen_models_from_jax(m: Dict[str, Any], tokenizer, device=None,
 
 def param_tree_from_jax(tree: Dict[str, Any], device=None,
                         dtype: torch.dtype = torch.float32) -> ParamTree:
-    """A ParamTree holding a JAX tree's weights in the torch layouts."""
+    """A ParamTree holding a JAX tree's weights in the torch layouts; an
+    int8 leaf keeps its int8 values and f32 scales, with ``dtype`` as its
+    logical dtype."""
     return ParamTree(unflatten_tree(
-        {name: t.to(device=device, dtype=dtype)
+        {name: place(t, device, dtype)
          for name, t in state_dict_from_jax(tree).items()}))

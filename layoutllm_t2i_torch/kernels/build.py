@@ -27,7 +27,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 
 # one shared library per kernel source
-SOURCES = ("flash_attention", "group_norm", "layer_norm", "ffn")
+SOURCES = ("flash_attention", "group_norm", "layer_norm", "ffn", "matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,6 +57,13 @@ SIGNATURES = {
     "ffn": {
         "llt2i_ffn_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                                _I, _I, _I, _F, _P],
+        "llt2i_ffn_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "llt2i_ffn_ln_geglu_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _F, _I, _I, _I, _F, _P],
+    },
+    "matmul": {
+        "llt2i_linear": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "llt2i_geglu": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

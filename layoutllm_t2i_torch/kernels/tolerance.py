@@ -23,7 +23,13 @@ closer to it: on the H100 their whole-tensor error is at most 2.2e-4 of
 rms(b), against K1's 2.5e-3, and their rms bound is 2e-3, under the 5e-3
 that a 0.5 % scale error of the output gives. "lse" is K1's log-sum-exp
 output (about log M, an f32 sum of f32 exponentials on both sides), held
-to an absolute atol. ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
+to an absolute atol. K6 and K7 write K4's function (K7 on int8 weights,
+its scales applied to f32 sums on both sides) and K8a and K8b one GEMM's
+output, of rms about 1 at the inputs the checks draw: all four take K4's
+numbers. A planted K7 fault (a dropped output scale, scales applied per
+input channel, int8 read as unsigned, the scale s ignored) lies 6e-2 to
+8e2 of rms(b) off, the rounding 1e-4 (``tests/test_torch_kernels.py``).
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``
 hold the kernels to these numbers; ``tests/test_torch_kernels.py`` shows
 on the CPU that they pass the kernels' rounding and fail planted faults.
 """
@@ -36,6 +42,8 @@ import torch
 TOLERANCE = {"K1": (0.03, 1e-2, 1e-2), "K2": (1e-2, 1e-2, 1e-2),
              "K3": (1e-2, 1e-2, 1e-2), "K4": (2e-2, 2e-2, 1e-2),
              "K5a": (0.03, 1e-2, 2e-3), "K5b": (0.03, 1e-2, 2e-3),
+             "K6": (2e-2, 2e-2, 1e-2), "K7": (2e-2, 2e-2, 1e-2),
+             "K8a": (2e-2, 2e-2, 1e-2), "K8b": (2e-2, 2e-2, 1e-2),
              "lse": (1e-3, 1e-4, 1e-2)}
 RMS_SCALED = ("K1", "K5a", "K5b")
 

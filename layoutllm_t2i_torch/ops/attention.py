@@ -8,13 +8,18 @@ the relation fuser) runs the plain path: an einsum with an f32 softmax,
 never a fused library attention. K1 is built for the head dims that the
 SD-1.4 geometry routes to it (40, 80 and the VAE's 512); another head dim
 routed here raises on the card.
+
+The q/k/v and output projections are plain matmuls on the dense (or
+dequantized) weights, as the JAX package's ``attention_with_projections``
+computes them with einsums and dots (attention.py:139-183), never through
+``nn.linear``: under LLT2I_PALLAS_MATMUL=1 they take no GEMM kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import flash_attention
-from .nn import linear
+from .nn import dense
 
 _NEG_INF = -1e30
 FLASH_MIN_Q_LEN = 512
@@ -26,9 +31,9 @@ def attention_with_projections(p, x: torch.Tensor, key: torch.Tensor,
                                mask=None) -> torch.Tensor:
     """q/k/v projections, attention, output projection.
     p: {'to_q','to_k','to_v','to_out':{'0'}} in torch-name layout."""
-    out = multi_head_attention(linear(p["to_q"], x), linear(p["to_k"], key),
-                               linear(p["to_v"], value), num_heads, mask=mask)
-    return linear(p["to_out"]["0"], out)
+    out = multi_head_attention(dense(p["to_q"], x), dense(p["to_k"], key),
+                               dense(p["to_v"], value), num_heads, mask=mask)
+    return dense(p["to_out"]["0"], out)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,9 +4,11 @@
 full SD-1.4 geometry or the small smoke geometry, directly on the target
 device in the compute dtype. No GLIGEN checkpoint is in the repository;
 weights from the JAX package cross over through checkpoint/from_jax.py.
+``quantize_unet_int8`` makes a bundle's UNet weight-only int8.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -17,6 +19,7 @@ from ..models.clip_tokenizer import default_tokenizer
 from ..models.initializers import Init
 from ..models.unet import UNetConfig, init_unet_params
 from ..models.vae import VAEConfig, init_vae_params
+from ..ops.quant import quantize_params
 from ..ops.schedules import make_ddpm_schedule
 from ..utils.trees import ParamTree
 from .inference import GligenModels
@@ -56,3 +59,14 @@ def random_models(small: bool = False, device: DeviceLike = None,
         compute_dtype=dtype,
         device=dev,
     )
+
+
+def quantize_unet_int8(models: GligenModels,
+                       min_size: int = 1 << 16) -> GligenModels:
+    """The bundle with a weight-only int8 UNet (ops/quant.py), as the JAX
+    package's ``--int8`` entry points build it (loaders.py:193): every UNet
+    weight of ndim >= 2 and at least ``min_size`` elements; the VAE and
+    CLIP stay dense. Opt-in; LLT2I_FFN_INT8=1 then routes its LN + FF
+    sites to K7."""
+    return dataclasses.replace(
+        models, unet_params=quantize_params(models.unet_params, min_size))

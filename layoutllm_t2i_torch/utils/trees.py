@@ -6,6 +6,8 @@ from typing import Any, Callable, Dict, Iterator
 import torch
 from torch import nn
 
+from ..ops.quant import QuantTensor, is_quantized, place
+
 
 class ParamTree(nn.Module):
     """A nested parameter dict as an ``nn.Module``.
@@ -16,13 +18,22 @@ class ParamTree(nn.Module):
     (``p["in_layers"]["0"]["weight"]``, ``"bias" in p``).
     Parameters are built frozen (``requires_grad=False``);
     ``set_trainable`` opens exactly the ones a training mode selects.
+
+    An int8 leaf (``ops/quant.py QuantTensor``) is held beside the
+    parameters, not as one: it is indexed like them, but is neither a
+    parameter nor a buffer, so neither ``state_dict`` nor a dtype cast of
+    the module reaches it. A device move does (``_apply``), and leaves its
+    f32 scales f32.
     """
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
+        self._quantized: Dict[str, QuantTensor] = {}
         for key, val in tree.items():
             if isinstance(val, dict):
                 self.add_module(key, ParamTree(val))
+            elif is_quantized(val):
+                self._quantized[key] = val
             else:
                 self.register_parameter(
                     key, nn.Parameter(torch.as_tensor(val), requires_grad=False))
@@ -30,14 +41,25 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         if key in self._modules:
             return self._modules[key]
+        if key in self._quantized:
+            return self._quantized[key]
         return self._parameters[key]
 
     def __contains__(self, key: str) -> bool:
-        return key in self._modules or key in self._parameters
+        return (key in self._modules or key in self._parameters
+                or key in self._quantized)
 
     def keys(self) -> Iterator[str]:
         yield from self._parameters
+        yield from self._quantized
         yield from self._modules
+
+    def _apply(self, fn, recurse: bool = True):
+        # fn is a cast or a move of every tensor; an int8 leaf takes only
+        # the move (fn leaves int8 values int8, the scales follow them)
+        for key, leaf in self._quantized.items():
+            self._quantized[key] = place(leaf, fn(leaf.q).device)
+        return super()._apply(fn, recurse)
 
     def set_trainable(self, predicate: Callable[[str], bool]
                       ) -> Dict[str, nn.Parameter]:

@@ -41,6 +41,7 @@ from layoutllm_t2i_torch.models.initializers import Init
 from layoutllm_t2i_torch.pipeline.inference import GligenModels
 from layoutllm_t2i_torch.pipeline.loaders import random_models
 from layoutllm_t2i_torch.utils.trees import flatten_tree
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "layoutllm_t2i_tpu")
@@ -208,7 +209,14 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     K.group_norm(torch.randn(1, 4, 32), torch.ones(32), torch.zeros(32), 8)
     q = torch.randn(1, 8, 16)
     K.flash_attention(q, q, q, 2, 0.25)
+    w1, w2 = torch.randn(64, 16), torch.randn(16, 32)
+    K.ffn_geglu(x, w1, torch.zeros(64), w2, b, x)
+    K.ffn_ln_geglu_q(x, w, b, w1.to(torch.int8), torch.ones(64), torch.zeros(64),
+                     w2.to(torch.int8), torch.ones(16), b, 0.5)
+    K.linear_fused(x, w2.t().contiguous(), None, torch.randn(4, 32))
+    K.geglu_fused(x, w1)
     assert K.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                 "K5a": 0, "K5b": 0}
+                                 "K5a": 0, "K5b": 0, "K6": 0, "K7": 0,
+                                 "K8a": 0, "K8b": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         use_kernel(torch.empty(1, device="meta"))

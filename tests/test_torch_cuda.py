@@ -4,10 +4,14 @@ These tests need an NVIDIA Hopper card and ``nvcc``: they carry the
 ``cuda`` marker and skip where no CUDA device is present. They cover edge
 cases the main-path shapes of ``chip_smoke.py`` do not reach: ragged tails
 off the block sizes, strided attention operands, odd group widths, wide and
-narrow LayerNorm rows, a partial FF row block; and the training path's
+narrow LayerNorm rows, a partial FF row block; the training path's
 kernels: K1's lse output, the K5a/K5b backward at the ragged training
 shapes (N = M = 4126 and 1054), and the gradients of the K1-K4 autograd
-Functions against the plain versions on the card. Run them on the card with
+Functions against the plain versions on the card; and the opt-in FF and
+GEMM kernels K6, K7, K8a and K8b: ragged M, K = 1280 with inner = 5120,
+the scale s as a device tensor, int8 weights whose width is not a multiple
+of the 32-deep k step, and the gradients of the K6, K8a and K8b Functions.
+Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
@@ -283,3 +287,92 @@ def test_training_refuses_f32_on_the_card(dev):
                           schedule=make_ddpm_schedule("linear", 1000, 0.00085, 0.012))
     with pytest.raises(ValueError, match="mixed_precision"):
         TrainStep(cfg, tree)
+
+
+def _ffn_weights(gen, k, inner):
+    w1, b1 = _rand(gen, 2 * inner, k, scale=k ** -0.5), _rand(gen, 2 * inner, scale=0.1)
+    w2, b2 = _rand(gen, k, inner, scale=inner ** -0.5), _rand(gen, k, scale=0.1)
+    return w1, b1, w2, b2
+
+
+# (M, K, inner): a ragged row block, K = 1280 with inner = 5120, and widths
+# off the 64-column tiles
+FF_SHAPES = [(100, 320, 1280), (1054, 1280, 5120), (130, 72, 200)]
+
+
+@pytest.mark.parametrize("m,k,inner", FF_SHAPES)
+def test_ffn_geglu(dev, gen, m, k, inner):
+    x, r = _rand(gen, m, k), _rand(gen, m, k)
+    w1, b1, w2, b2 = _ffn_weights(gen, k, inner)
+    _check("K6", lambda: K.ffn_geglu(x, w1, b1, w2, b2, r),
+           lambda: K.ffn_geglu_plain(x, w1, b1, w2, b2, r), K.ffn_geglu)
+
+
+# int8 needs K and inner to be multiples of 16: K = 336 and inner = 1344
+# leave a half k step at the end of both products
+@pytest.mark.parametrize("m,k,inner", [(100, 320, 1280), (1054, 1280, 5120),
+                                       (77, 336, 1344)])
+@pytest.mark.parametrize("scale", [1.0, 0.37, "tensor"])
+def test_ffn_ln_geglu_q(dev, gen, m, k, inner, scale):
+    from layoutllm_t2i_torch.ops.quant import quantize_tensor
+
+    x = _rand(gen, m, k)
+    lw, lb = _rand(gen, k, scale=0.2, shift=1.0), _rand(gen, k, scale=0.2)
+    w1, b1, w2, b2 = _ffn_weights(gen, k, inner)
+    q1, q2 = quantize_tensor(w1), quantize_tensor(w2)
+    args = (x, lw, lb, q1.q, q1.scale, b1, q2.q, q2.scale, b2,
+            torch.tensor(0.37, device=dev) if scale == "tensor" else scale)
+    _check("K7", lambda: K.ffn_ln_geglu_q(*args),
+           lambda: K.ffn_ln_geglu_q_plain(*args), K.ffn_ln_geglu_q)
+
+
+def test_ffn_ln_geglu_q_refuses_what_it_cannot_take(dev, gen):
+    x = _rand(gen, 64, 72)  # K = 72: no 16-byte int8 rows
+    lw, lb = _rand(gen, 72), _rand(gen, 72)
+    q1 = torch.zeros(2 * 288, 72, dtype=torch.int8, device=dev)
+    q2 = torch.zeros(72, 288, dtype=torch.int8, device=dev)
+    s1, s2 = torch.ones(576, device=dev), torch.ones(72, device=dev)
+    b1, b2 = _rand(gen, 576), _rand(gen, 72)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        K.ffn_ln_geglu_q(x, lw, lb, q1, s1, b1, q2, s2, b2)
+    with pytest.raises(ValueError, match="inference only"):
+        K.ffn_ln_geglu_q(x.requires_grad_(), lw, lb, q1, s1, b1, q2, s2, b2)
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 320, 1280), (1054, 5120, 1280),
+                                   (130, 72, 200)])
+@pytest.mark.parametrize("bias,residual", [(True, False), (False, True),
+                                           (False, False)])
+def test_linear_fused(dev, gen, m, k, n, bias, residual):
+    x, w = _rand(gen, m, k), _rand(gen, n, k, scale=k ** -0.5)
+    b = _rand(gen, n, scale=0.1) if bias else None
+    r = _rand(gen, m, n) if residual else None
+    _check("K8a", lambda: K.linear_fused(x, w, b, r),
+           lambda: K.linear_plain(x, w, b, r), K.linear_fused)
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 320, 1280), (1054, 1280, 5120),
+                                   (130, 72, 200)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_geglu_fused(dev, gen, m, k, n, bias):
+    x, w = _rand(gen, m, k), _rand(gen, 2 * n, k, scale=k ** -0.5)
+    b = _rand(gen, 2 * n, scale=0.1) if bias else None
+    _check("K8b", lambda: K.geglu_fused(x, w, b),
+           lambda: K.geglu_plain(x, w, b), K.geglu_fused)
+
+
+def test_ffn_geglu_grads(dev, gen):
+    m, k, inner = 1054, 640, 2560
+    x, r = _rand(gen, m, k), _rand(gen, m, k)
+    w1, b1, w2, b2 = _ffn_weights(gen, k, inner)
+    _grads_match(K.ffn_geglu, K.ffn_geglu_plain, [x, w1, b1, w2, b2, r],
+                 K.ffn_geglu)
+
+
+def test_gemm_grads(dev, gen):
+    m, k, n = 1054, 640, 2560
+    x, w, b = _rand(gen, m, k), _rand(gen, n, k, scale=k ** -0.5), _rand(gen, n)
+    _grads_match(K.linear_fused, K.linear_plain, [x, w, b, None],
+                 K.linear_fused)
+    x, w, b = _rand(gen, m, k), _rand(gen, 2 * n, k, scale=k ** -0.5), _rand(gen, 2 * n)
+    _grads_match(K.geglu_fused, K.geglu_plain, [x, w, b], K.geglu_fused)

@@ -25,6 +25,7 @@ from layoutllm_t2i_torch.kernels import (
     flash_attention_lse_plain, flash_attention_plain, group_norm, layer_norm,
 )
 from layoutllm_t2i_torch.kernels.tolerance import agreement
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
 

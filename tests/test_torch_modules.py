@@ -37,6 +37,7 @@ from layoutllm_t2i_torch.ops import attention as pattn
 from layoutllm_t2i_torch.ops import nn as pnn
 from layoutllm_t2i_torch.ops import schedules as psched
 from layoutllm_t2i_torch.pipeline import inference as pinf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = RTOL = 1e-4
 

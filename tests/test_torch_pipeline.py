@@ -28,6 +28,7 @@ from layoutllm_t2i_torch.checkpoint.from_jax import load_from_jax
 from layoutllm_t2i_torch.pipeline import inference as pinf
 from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
 from layoutllm_t2i_torch.pipeline.loaders import random_models
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 PROMPTS = ["a dog chasing a ball on the grass", "a cat sitting on a chair"]
 LAYOUTS = [([[0.1, 0.4, 0.5, 0.9], [0.6, 0.6, 0.85, 0.85]], ["a dog", "a ball"]),

@@ -2,9 +2,16 @@
 it, walked from the model configs. These tests hold that walk against the
 kernel calls that a small model really makes on the CPU: one generation
 and one training step, with every wrapper call recorded as chip_smoke
-describes it. The geometry is small but routes sites to K1 (32^2 latents:
-1024 visual tokens and 1054 with the grounding tokens; the VAE mid block at
-32^2) and leaves others on the plain path (16^2), as the full model does.
+describes it, the kernel routes of ops/nn.py taken as for CUDA tensors.
+The geometry is small but routes sites to K1 (32^2 latents: 1024 visual
+tokens and 1054 with the grounding tokens; the VAE mid block at 32^2) and
+leaves others on the plain path (16^2), as the full model does. Its 32
+channels leave every feed-forward site below the fused FF kernels' width
+(K3 and dense dots). One UNet forward of a 128-channel model at batch 1 is
+held against the walk on every route that chip_smoke drives: its 32^2
+feed-forward sites (1024 rows) are eligible for K4, K6, K7, K8a and K8b,
+its 16^2 ones (256 rows) are not, as at full width the 8^2 middle block
+is not.
 """
 import collections
 import importlib.util
@@ -18,14 +25,16 @@ from layoutllm_t2i_torch.kernels.dispatch import needs_grad
 from layoutllm_t2i_torch.models.clip_text import CLIPTextConfig, init_clip_text_params
 from layoutllm_t2i_torch.models.clip_tokenizer import HashTokenizer
 from layoutllm_t2i_torch.models.initializers import Init
-from layoutllm_t2i_torch.models.unet import UNetConfig, init_unet_params
+from layoutllm_t2i_torch.models.unet import UNetConfig, init_unet_params, unet_apply
 from layoutllm_t2i_torch.models.vae import VAEConfig, init_vae_params
 from layoutllm_t2i_torch.ops import attention as attention_mod
 from layoutllm_t2i_torch.ops import nn as nn_mod
+from layoutllm_t2i_torch.ops.quant import quantize_params
 from layoutllm_t2i_torch.ops.schedules import make_ddpm_schedule
 from layoutllm_t2i_torch.pipeline.inference import GligenModels, InferencePipeline
 from layoutllm_t2i_torch.training.diffusion_trainer import DiffusionTrainer, TrainerConfig
 from layoutllm_t2i_torch.utils.trees import ParamTree
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _chip_smoke():
@@ -40,11 +49,12 @@ cs = _chip_smoke()
 TOK_LEN = 8
 
 
-def _models():
+
+def _models(channels=32, channel_mult=(1, 2)):
     gen = torch.Generator().manual_seed(0)
     ini = Init(gen, torch.device("cpu"), torch.float32)
-    unet_cfg = UNetConfig(image_size=32, model_channels=32, num_res_blocks=1,
-                          attention_resolutions=(2, 1), channel_mult=(1, 2),
+    unet_cfg = UNetConfig(image_size=32, model_channels=channels, num_res_blocks=1,
+                          attention_resolutions=(2, 1), channel_mult=channel_mult,
                           num_heads=2, context_dim=32, grounding_in_dim=32,
                           grounding_out_dim=32)
     vae_cfg = VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1)
@@ -61,10 +71,14 @@ def _models():
 
 @pytest.fixture
 def recorded(monkeypatch):
-    """Every kernel wrapper call, as (kid, args) in chip_smoke's terms."""
+    """Every kernel wrapper call, as (kid, args) in chip_smoke's terms, with
+    the routes taken as on the card."""
     calls = []
     gn, ln = nn_mod._group_norm_rows, nn_mod._layer_norm_rows
     ff, fa = nn_mod.ffn_ln_geglu, attention_mod.flash_attention
+    ff_res, ff_q = nn_mod.ffn_geglu, nn_mod.ffn_ln_geglu_q
+    mm, geglu = nn_mod.linear_fused, nn_mod.geglu_fused
+    label = lambda s: 1.0 if isinstance(s, float) and s == 1.0 else 0.5
 
     def group_norm(x, w, b, groups, eps, silu):
         calls.append(("K2", (*x.shape, eps, silu)))
@@ -75,9 +89,24 @@ def recorded(monkeypatch):
         return ln(x, w, b, eps)
 
     def ffn(x, lw, lb, w1, b1, w2, b2, s):
-        is_one = isinstance(s, float) and s == 1.0
-        calls.append(("K4", (*x.shape, 1.0 if is_one else 0.5)))
+        calls.append(("K4", (*x.shape, label(s))))
         return ff(x, lw, lb, w1, b1, w2, b2, s)
+
+    def ffn_res(x, w1, b1, w2, b2, r):
+        calls.append(("K6", tuple(x.shape)))
+        return ff_res(x, w1, b1, w2, b2, r)
+
+    def ffn_q(x, lw, lb, q1, s1, b1, q2, s2, b2, s):
+        calls.append(("K7", (*x.shape, label(s))))
+        return ff_q(x, lw, lb, q1, s1, b1, q2, s2, b2, s)
+
+    def linear(x, w, b=None, r=None):
+        calls.append(("K8a", (*x.shape, w.shape[0])))
+        return mm(x, w, b, r)
+
+    def geglu_proj(x, w, b=None):
+        calls.append(("K8b", (*x.shape, w.shape[0] // 2)))
+        return geglu(x, w, b)
 
     def flash(q, k, v, heads, scale):
         b, n, hc = q.shape
@@ -88,6 +117,11 @@ def recorded(monkeypatch):
     monkeypatch.setattr(nn_mod, "_group_norm_rows", group_norm)
     monkeypatch.setattr(nn_mod, "_layer_norm_rows", layer_norm)
     monkeypatch.setattr(nn_mod, "ffn_ln_geglu", ffn)
+    monkeypatch.setattr(nn_mod, "ffn_geglu", ffn_res)
+    monkeypatch.setattr(nn_mod, "ffn_ln_geglu_q", ffn_q)
+    monkeypatch.setattr(nn_mod, "linear_fused", linear)
+    monkeypatch.setattr(nn_mod, "geglu_fused", geglu_proj)
+    monkeypatch.setattr(nn_mod, "_on_card", lambda x: True)
     monkeypatch.setattr(attention_mod, "flash_attention", flash)
     return calls
 
@@ -100,7 +134,7 @@ def test_generation_walk_matches_the_calls(recorded):
         pipe.generate(*cs.REQUESTS, seed=0)
     want = cs.generation_calls(models.unet_cfg, models.vae_cfg, models.clip_cfg,
                                TOK_LEN, cs.REQUESTS, vae_chunk=1)
-    assert any(kid == "K1" for kid, _ in want)
+    assert {kid for kid, _ in want} == {"K1", "K2", "K3"}
     # PLMS runs the UNet several times, with and without the gated fusers:
     # the walk covers each distinct call
     assert set(recorded) == set(want)
@@ -123,4 +157,40 @@ def test_training_walk_matches_the_calls(recorded, tmp_path):
     # one step: the walk gives every call, as many times as it is made
     assert collections.Counter(recorded) == collections.Counter(want)
     cases = cs.kernel_cases({"train": want})
-    assert {kid for kid, *_ in cases} == set(cs.KERNEL_META)
+    assert {kid for kid, *_ in cases} == {"K1", "K2", "K3", "K5a", "K5b"}
+
+
+# route -> (its switches, the feed-forward kernels its eligible sites take)
+ROUTES = {
+    "default": (cs.DEFAULT, {"K4"}),
+    "int8": (cs.INT8, {"K7"}),
+    "int8-dequant": (cs.INT8_DEQUANT, set()),
+    "split": (cs.SPLIT, {"K6", "K8a", "K8b"}),
+    "no-fused-ffn": (cs.Route(pallas_ffn=False, pallas_matmul=True),
+                     {"K8a", "K8b"}),
+    "int8-matmul": (cs.Route(int8=True, pallas_matmul=True), {"K8a", "K8b"}),
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_unet_walk_matches_the_calls_on_each_route(recorded, route):
+    r, ff_kernels = ROUTES[route]
+    models = _models(channels=128, channel_mult=(1, 1))
+    params = models.unet_params
+    if r.int8:
+        params = quantize_params(params, min_size=128)
+    cfg, b = models.unet_cfg, 1
+    g = torch.Generator().manual_seed(1)
+    boxes = torch.zeros(b, 30, 4)
+    boxes[:, 0] = torch.tensor([0.1, 0.2, 0.5, 0.9])
+    masks = torch.zeros(b, 30)
+    masks[:, 0] = 1
+    with cs.route_env(r), torch.no_grad():
+        unet_apply(params, cfg, torch.randn(b, 4, 32, 32, generator=g),
+                   torch.tensor([900]),
+                   torch.randn(b, TOK_LEN, 32, generator=g), boxes, masks,
+                   torch.randn(b, 30, 32, generator=g),
+                   torch.randn(b, 5, 32, generator=g), fuser_scale=0.5)
+    want = cs.unet_calls(cfg, b, 30, 5, TOK_LEN, route=r)
+    assert {kid for kid, _ in want} - {"K1", "K2", "K3"} == ff_kernels
+    assert collections.Counter(recorded) == collections.Counter(want)

@@ -54,6 +54,7 @@ from layoutllm_t2i_torch.training.diffusion_trainer import (
     DiffusionTrainer, TrainerConfig,
 )
 from layoutllm_t2i_torch.utils.trees import flatten_tree
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SMALL_UNET = dict(image_size=8, model_channels=32, num_res_blocks=1,
                   attention_resolutions=(2, 1), channel_mult=(1, 2),

@@ -29,6 +29,7 @@ from layoutllm_t2i_torch import kernels as K
 from layoutllm_t2i_torch.checkpoint.from_jax import param_tree_from_jax
 from layoutllm_t2i_torch.models import vae as pvae
 from layoutllm_t2i_torch.ops import nn as pnn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 FLASH_ATOL = 2e-4
 ATOL = 1e-4
