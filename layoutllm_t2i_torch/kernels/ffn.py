@@ -63,8 +63,9 @@ def ffn_eligible(m: int, k: int, n: int, itemsize: int = 2) -> bool:
 
 
 def _scale_operand(s: Scale, x: torch.Tensor, what: str):
-    """(device pointer or None, host value) of the scale ``s``: a 0-d
-    tensor is read by the kernel, never synced to the host."""
+    """(device pointer or None, host value, tensor the pointer reads) of
+    the scale ``s``: a 0-d tensor is read by the kernel, never synced to
+    the host; the caller holds the third item until the launch."""
     if not isinstance(s, torch.Tensor):
         return None, float(s), None
     require(s.numel() == 1 and s.device == x.device,

@@ -28,10 +28,11 @@ its scales applied to f32 sums on both sides) and K8a and K8b one GEMM's
 output, of rms about 1 at the inputs the checks draw: all four take K4's
 numbers. A planted K7 fault (a dropped output scale, scales applied per
 input channel, int8 read as unsigned, the scale s ignored) lies 6e-2 to
-8e2 of rms(b) off, the rounding 1e-4 (``tests/test_torch_kernels.py``).
-``chip_smoke.py`` and ``tests/test_torch_cuda.py``
-hold the kernels to these numbers; ``tests/test_torch_kernels.py`` shows
-on the CPU that they pass the kernels' rounding and fail planted faults.
+8e2 of rms(b) off, the rounding 1e-4 (``tests/test_torch_quant.py``).
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels to
+these numbers; ``tests/test_torch_kernels.py`` and
+``tests/test_torch_quant.py`` show on the CPU that they pass the kernels'
+rounding and fail planted faults.
 """
 from __future__ import annotations
 
