@@ -6,7 +6,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
 
   1. build     nvcc-builds the five kernel libraries from csrc/ (sm_90a),
                prints build seconds, ptxas lines and the card's name and
-               power limit.
+               power limit, and fails unless cuobjdump finds wgmma (HGMMA)
+               in every K1 kernel.
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
@@ -14,7 +15,9 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                in bf16 (K7 on int8 weights), at every distinct shape that
                phases 4-6 and 8 give it; times kernel, plain version and
                one PyTorch library call for the same function, beside the
-               roofline bound.
+               roofline bound; K1's rows add `exp_ms`, the time of their
+               exponentials at the SFUs' rate (exp_ms()), and `vs_library`,
+               ms over library_ms.
   3. unet      one full-width UNet forward through the kernels and again
                through the plain versions (fuser and relation alphas set to
                0.5 first: random init leaves them 0, which would hide a
@@ -63,7 +66,9 @@ With `--profile OUT.json`, one more generation runs under torch.profiler
 after phase 4 and prints device time by kernel group and the device's idle
 share; OUT.json gets the per-kernel table. One more generation is profiled
 likewise after phases 5 and 6 (OUT_int8.json, OUT_routes.json), and one
-more training step after phase 8 (OUT_train.json).
+more training step after phase 8 (OUT_train.json). With `--kernels K1`
+(ids comma-separated) only phases 1 and 2 run, for those kernels, and no
+result line is printed: the quick check while a kernel is being worked on.
 
 The script imports nothing of JAX or of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -89,6 +94,9 @@ import torch.nn.functional as F
 
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, H100 SXM
 H100_HBM_BYTES = 3.35e12    # HBM3 bytes/s, H100 SXM
+H100_SMS = 132              # streaming multiprocessors, H100 SXM
+MUFU_PER_SM_CLOCK = 16      # ex2 results a clock per SM (the SFUs)
+SLEEP_CLOCK_HZ = 1.98e9     # H100 SXM maximum SM clock: sizes time_ms's sleep
 
 # kernel vs plain version: the tolerances stated in
 # layoutllm_t2i_torch/kernels/tolerance.py (element-wise atol + rtol*|b|,
@@ -185,11 +193,20 @@ class SmokeFailure(Exception):
     pass
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it ("1980 MHz")."""
+    return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -198,17 +215,26 @@ def nvidia_smi_line() -> str:
 
 def time_ms(fn, target_ms: float = 60.0) -> float:
     """Mean device ms per call: warm-up, then CUDA events around a run of
-    launches sized to ~target_ms."""
+    launches sized to ~target_ms. The run is queued behind a device-side
+    sleep that outlasts the host's enqueueing of it, so the device takes
+    the calls back to back: a kernel that runs shorter than its launch path
+    on the host (a few tens of microseconds through the Python wrapper) is
+    timed by the device, not by the host."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     e0.record()
     fn()
     e1.record()
+    host_s = time.perf_counter() - t0
     e1.synchronize()
     once = max(e0.elapsed_time(e1), 1e-3)
     iters = int(min(200, max(3, target_ms / once)))
+    # twice the host's time for the run, at the fastest SM clock (capped at
+    # one second)
+    torch.cuda._sleep(int(min(2.0 * iters * host_s, 1.0) * SLEEP_CLOCK_HZ))
     e0.record()
     for _ in range(iters):
         fn()
@@ -221,6 +247,13 @@ def bound(flops: float, nbytes: float):
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_mem = nbytes / H100_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def exp_ms(exps: float, clock_hz: float) -> float:
+    """ms for ``exps`` exponentials at the SFUs' rate: every SM's 16 a
+    clock at the card's maximum SM clock. Attention takes one a score,
+    which at d 40 outlasts the tensor cores' share (``bound``)."""
+    return exps / (H100_SMS * MUFU_PER_SM_CLOCK * clock_hz) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -633,13 +666,37 @@ def library_ms(lib) -> float:
 # phases
 
 
+def sass_opcode_counts(lib_path, opcode: str) -> dict:
+    """{kernel function: instructions of ``opcode``} in a built library's
+    SASS, as cuobjdump (beside nvcc) disassembles it."""
+    from layoutllm_t2i_torch.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     from layoutllm_t2i_torch.kernels import build
 
     t0 = time.perf_counter()
     log = build.build_all()
+    # K1's kernels must run on the wgmma tensor-core path (HGMMA in SASS)
+    hgmma = {fn: n for fn, n in sass_opcode_counts(
+        build.lib_path("flash_attention"), "HGMMA").items()
+        if "flash_fwd_kernel" in fn}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libs": log})
+          "libs": log, "k1_hgmma": hgmma})
+    if not hgmma or not all(hgmma.values()):
+        raise SmokeFailure(f"K1 kernels without HGMMA in their SASS: {hgmma}")
 
 
 def phase_kernels(cases):
@@ -648,6 +705,7 @@ def phase_kernels(cases):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    clock_hz = max_sm_clock_hz()
     summary = {kid: {"max_abs_err": 0.0, "max_rel_err": 0.0,
                      "rms_rel_err": 0.0, "ms": 0.0,
                      "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
@@ -667,6 +725,10 @@ def phase_kernels(cases):
                **agree,
                "ms": time_ms(kern), "plain_ms": time_ms(plain),
                "library_ms": library_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+        if kid == "K1":
+            b, n, m, h = args[:4]
+            rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
+            rec["vs_library"] = rec["ms"] / rec["library_ms"]
         emit(rec)
         agg = summary[kid]
         for key in ("max_abs_err", "max_rel_err", "rms_rel_err"):
@@ -1157,6 +1219,10 @@ def main(argv=None) -> int:
                          "each route and one more training step and write "
                          "their per-kernel device times here and to "
                          "JSON_int8, JSON_routes and JSON_train")
+    ap.add_argument("--kernels", metavar="KIDS",
+                    help="comma-separated kernel ids (e.g. K1): build, run "
+                         "phase 2 for these kernels alone, print their rows "
+                         "and exit; no other phase and no result line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1193,12 +1259,19 @@ def main(argv=None) -> int:
                     route=route)
                 for suffix, route in (("", DEFAULT), ("-int8", INT8),
                                       ("-routes", SPLIT))}
-            summary = phase_kernels(kernel_cases({
+            cases = kernel_cases({
                 **gen_paths,
                 "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
                                         train_batch, TRAIN_MAX_BOXES,
-                                        TRAIN_MAX_RELATIONS)}))
+                                        TRAIN_MAX_RELATIONS)})
             del train_batch
+            if args.kernels:
+                only = args.kernels.split(",")
+                summary = phase_kernels([c for c in cases if c[0] in only])
+                emit({"phase": "kernels-summary",
+                      **{kid: summary[kid] for kid in only}})
+                return 0
+            summary = phase_kernels(cases)
             models = random_models(small=False, device="cuda",
                                    dtype=torch.bfloat16, seed=0)
             phase_unet(models)

@@ -4,202 +4,355 @@
 // reached from `_flash_bh` (l.244): `_attn_kernel_wholerow` (l.165),
 // `_flash_kernel_fullkv` (l.117), `_flash_kernel` (l.76) and
 // `_attn_kernel_wholerow_hb` (l.195). Those four are TPU VMEM-tiling variants
-// of one function, out = softmax(q k^T * scale) v per (batch, head); here one
-// kernel covers them all.
+// of one function, out = softmax(q k^T * scale) v per (batch, head), with
+// the row log-sum-exp (natural log, f32) when asked; here one kernel with
+// one instantiation per head dim covers them all.
 //
-// What bounds it on the H100: operations. At the UNet's 64^2 sites
-// (N = M = 4096 or 4126, d = 40) every q row meets every k row, so the work
-// is 4*N*M*d flops against ~8*N*d bytes (q, k, v read once, o written once):
-// ~N/2 = 2048 flop/byte, far above the card's ~295 flop/byte balance point,
-// so the tensor cores are the limit.
+// What bounds it on the H100. At d = 80 and 512, operations: every q row
+// meets every k row, 4*N*M*d flops against ~8*N*d bytes, thousands of flops
+// a byte. At d = 40 (the UNet's 64^2 sites), the exponentials: one per
+// score, B*H*N*M of them on 16 SFU lanes a clock per SM, about 0.13 ms at
+// the generation's shape against 0.087 ms of tensor-core work. So the
+// design keeps the tensor cores fed and spends as few instructions per
+// score as it can besides the exp.
 //
-// The simple design: one block owns BQ = 16*warps query rows of one
-// (batch, head) and streams K/V through shared memory in BK-row tiles,
-// keeping the online-softmax running max, denominator and the f32 output
-// accumulator in shared memory. Each warp owns 16 query rows end to end, so
-// only K/V tile loads need a block barrier. Products run on the tensor cores
-// through WMMA 16x16x16 bf16 fragments with f32 accumulation:
-//   * the head dim is zero-padded to DP = round_up(d, 16) inside shared
-//     memory only (d = 40 -> 48), never in HBM;
-//   * ragged q tails (rows >= N) are zero-filled and never written back;
-//     ragged KV tails (rows >= M, e.g. M = 4126) are masked to -1e30 before
-//     the softmax and zero-filled in the V tile;
-//   * d = 512 (the VAE's single-head mid attention) gets its own
-//     instantiation with BQ = BK = 32 so that the 32x512 f32 accumulator and
-//     the Q/K/V tiles fit the 227 KB of shared memory a block may use.
-// The softmax denominator is a plain f32 row sum (no ones-column trick; that
-// existed for the TPU's matrix unit). Operands are read from the packed
-// (B, N, H*d) projection layout through strides, so no transposed copy of
-// q/k/v or of the output is made.
+// Design: one block per (BQ query rows, batch, head), nine warps.
+//  * Warp 8 is the producer: one thread loads the Q tile once and then
+//    K and V tiles into a ring of kStages shared-memory stages with TMA.
+//    Each stage has a "full" mbarrier (TMA transaction bytes) and an
+//    "empty" one (one arrival per consumer warp); the producer refills a
+//    stage as soon as all eight consumer warps release it, so every load
+//    the ring has room for is in flight while the consumers compute.
+//  * Operands are read from the packed (B, N, H*d) projection layout
+//    through 4-d tensor maps (d, H, rows, B) with the caller's strides,
+//    built on the host per launch (cuTensorMapEncodeTiled, reached through
+//    the runtime's driver entry point). Boxes are 64 columns (128 bytes)
+//    wide in the 128-byte swizzle that wgmma reads without bank conflicts.
+//    Columns past d (d = 40: 40..63, d = 80: 80..127) and rows past N or M
+//    lie outside the map, so TMA writes zeros there: no other head's
+//    columns and nothing past a row is ever read, and the zero columns of
+//    Q and K make the padded depth (48 at d = 40) add nothing to S.
+//  * Warps 0-7 are two consumer warpgroups. S = Q K^T: wgmma.mma_async
+//    m64nBKk16, Q and K from shared memory (K-major), S in registers.
+//  * The online softmax runs in registers: each accumulator row lies in
+//    one quad of lanes, so row max and row sum need two xor-shuffles. The
+//    max is taken over the raw scores (scale > 0) and p = exp2(s*c - m*c),
+//    c = scale*log2(e): one FMA and one ex2 a score. Columns past M (the
+//    ragged KV tail: a zero-filled K row would score 0, not -inf) are set
+//    to -inf before the max. Row sums stay per thread until the end.
+//  * O += P V: P is rounded to bf16 in registers -- a 16-column slice of
+//    the S fragment is already wgmma's register-A fragment -- and V comes
+//    from shared memory, MN-major (the descriptor reads it transposed).
+//    O stays in registers for the whole K/V loop and is rescaled there.
+//    Neither S, P nor O is ever stored to shared memory.
+//  * d = 40 and 80: BQ = 128, each consumer warpgroup owns 64 rows (one
+//    whose rows all lie past N leaves at once); K/V tiles of 64 rows in 4
+//    stages at d = 40 (the fastest of the tilings tried on the card), 128
+//    rows in 2 stages at d = 80; grid B*H*ceil(N/128) (1,024 blocks at the
+//    generation's d = 40 shape). d = 512 (the VAE's single head): a 64 x
+//    512 f32 accumulator does not fit one warpgroup's registers, so both
+//    warpgroups take the same 64 rows, each owns 256 output columns and
+//    computes the 64 x 32 S tile itself. S is computed twice, nothing is
+//    exchanged between the warpgroups, and the grid keeps B*N/64 blocks
+//    (128 at the decode's B = 2). 32 K/V rows a stage, so two stages
+//    (64 KB each) fit beside Q (64 KB).
+//  * Epilogue: O / l in bf16 straight from registers to global memory; q
+//    rows >= N and columns >= d are never written. lse = m*scale + ln(l).
+#include <math.h>
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-template <int DP, int BQ, int BK>
-struct FlashCfg {
-  static constexpr int kWarps = BQ / 16;
-  static constexpr int kThreads = kWarps * 32;
+// kDepth: wgmma depth (d padded to 16); kChunks: 64-column chunks per row
+// in shared memory; kBQ: q rows a block loads; kBK: K/V rows a stage;
+// kON: output columns a consumer warpgroup owns; kSplitCols: both
+// warpgroups share the rows and split the columns (else they split the
+// rows, 64 each, and own all kON columns).
+template <int kDepth_, int kChunks_, int kBQ_, int kBK_, int kStages_,
+          int kON_, bool kSplitCols_>
+struct FwdCfg {
+  static constexpr int kDepth = kDepth_, kChunks = kChunks_, kBQ = kBQ_,
+                       kBK = kBK_, kStages = kStages_, kON = kON_;
+  static constexpr bool kSplitCols = kSplitCols_;
+  static constexpr int kThreads = 9 * 32;  // two consumer warpgroups + producer
+  static constexpr uint32_t kQBytes = kChunks * kBQ * 128;
+  static constexpr uint32_t kKVBytes = kChunks * kBK * 128;  // one K or V stage
+  // 1024 bytes of slack to align the swizzled tiles, then the mbarriers
   static constexpr size_t kSmemBytes =
-      (size_t)(BQ * DP + 2 * BK * DP + BQ * BK) * sizeof(bf16) +
-      (size_t)(BQ * BK + BQ * DP + 2 * BQ) * sizeof(float);
+      1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (2 * kStages + 1);
+  static_assert(kBQ == (kSplitCols ? 64 : 128), "64 rows a warpgroup");
+  static_assert(kDepth % 16 == 0 && kDepth <= 64 * kChunks, "depth");
+  static_assert(kON % 8 == 0 && kON <= 256 && kBK % 16 == 0, "wgmma shape");
 };
 
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(FlashCfg<DP, BQ, BK>::kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int N, int M, int D,
-                 long long q_bs, long long q_rs,
-                 long long k_bs, long long k_rs, long long v_bs,
-                 long long v_rs, long long o_bs, long long o_rs, float scale) {
-  constexpr int NT = FlashCfg<DP, BQ, BK>::kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // BQ x DP
-  bf16* sK = sQ + BQ * DP;                   // BK x DP
-  bf16* sV = sK + BK * DP;                   // BK x DP
-  bf16* sP = sV + BK * DP;                   // BQ x BK, exp'd scores
-  float* sS = reinterpret_cast<float*>(sP + BQ * BK);  // BQ x BK scores
-  float* sO = sS + BQ * BK;                  // BQ x DP accumulator
-  float* sM = sO + BQ * DP;                  // BQ running max
-  float* sL = sM + BQ;                       // BQ running denominator
+using Fwd40 = FwdCfg<48, 1, 128, 64, 4, 48, false>;    // 64^2 sites
+using Fwd80 = FwdCfg<80, 2, 128, 128, 2, 80, false>;   // 32^2 sites
+using Fwd512 = FwdCfg<512, 8, 64, 32, 2, 256, true>;   // the VAE's head
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 bf16* __restrict__ o, float* __restrict__ lse, int H, int N,
+                 int M, int D, long long o_bs, long long o_rs, float scale,
+                 float c) {
+  constexpr int S = C::kStages, BK = C::kBK, ON = C::kON;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + C::kQBytes;             // stage s at + s * kKVBytes
+  const uint32_t sV = sK + S * C::kKVBytes;
+  const uint32_t full = sV + S * C::kKVBytes;      // mbarrier of stage s at + 8s
+  const uint32_t empty = full + 8 * S;
+  const uint32_t qbar = empty + 8 * S;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const bf16* qb = q + b * q_bs + (long long)h * D;
-  const bf16* kb = k + b * k_bs + (long long)h * D;
-  const bf16* vb = v + b * v_bs + (long long)h * D;
-  bf16* ob = o + b * o_bs + (long long)h * D;
-  const int vpr = D / 8;  // 16-byte vectors per row
+  const int q0 = blockIdx.x * C::kBQ;
+  const int tiles = (M + BK - 1) / BK;
+  // a consumer warpgroup whose 64 rows all lie past N has nothing to do
+  // (the second one of a ragged last q tile): it leaves at once, and the
+  // stages wait for the other one's four warps alone
+  const int busy_groups = (C::kSplitCols || q0 + 64 < N) ? 2 : 1;
 
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < (BQ + 2 * BK) * DP; i += NT) sQ[i] = zero;
-  for (int i = tid; i < BQ * DP; i += NT) sO[i] = 0.f;
-  for (int i = tid; i < BQ; i += NT) {
-    sM[i] = -1e30f;
-    sL[i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * busy_groups);  // one arrival a consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
-  for (int i = tid; i < BQ * vpr; i += NT) {
-    const int r = i / vpr, c = (i % vpr) * 8;
-    if (q0 + r < N)
-      *reinterpret_cast<uint4*>(sQ + r * DP + c) =
-          *reinterpret_cast<const uint4*>(qb + (q0 + r) * q_rs + c);
+
+  if (warp == 8) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(qbar, C::kQBytes);
+      for (int ch = 0; ch < C::kChunks; ++ch)
+        tma_load_4d(sQ + ch * C::kBQ * 128, &tq, qbar, ch * 64, h, q0, b);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty + 8 * s, ((t / S) - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * C::kKVBytes);
+        const uint32_t ks = sK + s * C::kKVBytes, vs = sV + s * C::kKVBytes;
+        for (int ch = 0; ch < C::kChunks; ++ch) {
+          tma_load_4d(ks + ch * BK * 128, &tk, full + 8 * s, ch * 64, h,
+                      t * BK, b);
+          tma_load_4d(vs + ch * BK * 128, &tv, full + 8 * s, ch * 64, h,
+                      t * BK, b);
+        }
+      }
+    }
+    return;
   }
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fkt;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-
-  for (int k0 = 0; k0 < M; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < BK * vpr; i += NT) {
-      const int r = i / vpr, c = (i % vpr) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (k0 + r < M) {
-        kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * k_rs + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * v_rs + c);
-      }
-      *reinterpret_cast<uint4*>(sK + r * DP + c) = kv;
-      *reinterpret_cast<uint4*>(sV + r * DP + c) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fill_fragment(fc, 0.f);
+  // the consumers: warpgroup g, its warp wq owns rows 16 wq .. 16 wq + 15
+  const int g = warp >> 2;
+  const int wq = warp & 3;
+  if (g >= busy_groups) return;
+  const int row_off = C::kSplitCols ? 0 : 64 * g;
+  const int col_off = C::kSplitCols ? ON * g : 0;
+  const uint32_t sQg = sQ + row_off * 128;
+  float acc[ON / 2];
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * DP + kk * 16, DP);
-        wmma::load_matrix_sync(fkt, sK + n * 16 * DP + kk * 16, DP);
-        wmma::mma_sync(fc, fa, fkt, fc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * BK + n * 16, fc, BK,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
+  for (int i = 0; i < ON / 2; ++i) acc[i] = 0.f;
+  // running max of the raw scores and per-thread partial row sums, for
+  // this thread's rows r and r + 8
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
 
-    // online softmax over the tile, one row at a time across the warp
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      float* srow = sS + r * BK;
-      float mx = -1e30f;
-      for (int j = lane; j < BK; j += 32) {
-        const float s = (k0 + j < M) ? srow[j] * scale : -1e30f;
-        srow[j] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float p = __expf(srow[j] - m_new);
-        sP[r * BK + j] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      const float alpha = __expf(m_old - m_new);
-      for (int c = lane; c < DP; c += 32) sO[r * DP + c] *= alpha;
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-      }
-    }
-    __syncwarp();
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % S;
+    mbar_wait(full + 8 * s, (t / S) & 1);
+    __syncwarp();  // converged again for the warpgroup-wide wgmma
+    const uint32_t ks = sK + s * C::kKVBytes, vs = sV + s * C::kKVBytes;
 
-    // O += P V for this warp's 16 rows
-    for (int n = 0; n < DP / 16; ++n) {
-      float* optr = sO + warp * 16 * DP + n * 16;
-      wmma::load_matrix_sync(fc, optr, DP, wmma::mem_row_major);
+    // S = Q K^T
+    float sc[BK / 2];
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::load_matrix_sync(fa, sP + warp * 16 * BK + kk * 16, BK);
-        wmma::load_matrix_sync(fv, sV + kk * 16 * DP + n * 16, DP);
-        wmma::mma_sync(fc, fa, fv, fc);
-      }
-      wmma::store_matrix_sync(optr, fc, DP, wmma::mem_row_major);
+    for (int kk = 0; kk < C::kDepth / 16; ++kk) {
+      const uint32_t a = sQg + (kk / 4) * C::kBQ * 128 + (kk % 4) * 32;
+      const uint32_t bk = ks + (kk / 4) * BK * 128 + (kk % 4) * 32;
+      wgmma_ss(sc, sw128_desc(a, 16), sw128_desc(bk, 16), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // the ragged KV tail scores -inf
+    const int k0 = t * BK;
+    if (k0 + BK > M) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int col = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+        if (col >= M) sc[i] = -INFINITY;
+      }
+    }
+
+    // online softmax: row max over the quad, p = exp2(s c - m c)
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = ex2((m_run[r] - mx[r]) * c);
+      m_run[r] = mx[r];
+      mc[r] = mx[r] * c;
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = ex2(fmaf(sc[i], c, -mc[r]));
+      sum[r] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < ON / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V, P as bf16 register fragments
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t bv = vs + (col_off / 64) * BK * 128 + kk * 16 * 128;
+      wgmma_rs(acc, pa[kk], sw128_desc(bv, BK * 128));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(pa);
     __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with stage s
   }
 
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    if (q0 + r >= N) break;  // rows are ascending: the rest are tail too
-    const float inv = 1.f / sL[r];
-    bf16* orow = ob + (q0 + r) * o_rs;
-    for (int c = lane; c < D; c += 32)
-      orow[c] = __float2bfloat16(sO[r * DP + c] * inv);
-    // the backward's softmax statistic, in the same scaled units as sM
-    if (lse != nullptr && lane == 0)
-      lse[(long long)bh * N + q0 + r] = sM[r] + logf(sL[r]);
+  // epilogue: O / l, lse = m scale + ln l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const long long hd = (long long)h * D + col_off;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row_off + 16 * wq + (lane >> 2) + 8 * r;
+    if (row >= N) continue;
+    const float inv = 1.f / l_run[r];
+    bf16* orow = o + b * o_bs + row * o_rs + hd;
+#pragma unroll
+    for (int j = 0; j < ON / 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      if (col_off + col < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    }
+    if (lse != nullptr && (lane & 3) == 0 && (!C::kSplitCols || g == 0))
+      lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
   }
 }
 
-template <int DP, int BQ, int BK>
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime loaded (the library
+// does not link libcuda itself)
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (d, H, rows, B) map of a packed (B, rows, H*d) bf16 operand with row
+// stride rs and batch stride bs (elements); boxes of 64 columns of one head
+// by box_rows rows, 128-byte swizzle, zeros outside.
+int tensor_map(CUtensorMap* map, const void* base, int D, int H, int rows,
+               int B, long long rs, long long bs, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)rows,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)rs * 2,
+                                 (cuuint64_t)bs * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(base), dims, strides, box, step,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <class C>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int N, int M, int D, long long q_bs, long long q_rs,
            long long k_bs, long long k_rs, long long v_bs, long long v_rs,
            long long o_bs, long long o_rs, float scale, cudaStream_t stream) {
-  using Cfg = FlashCfg<DP, BQ, BK>;
-  auto kern = flash_fwd_kernel<DP, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + BQ - 1) / BQ, B * H);
-  kern<<<grid, Cfg::kThreads, Cfg::kSmemBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, N, M, D,
-      q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale);
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, D, H, N, B, q_rs, q_bs, C::kBQ);
+  if (err == 0) err = tensor_map(&tk, k, D, H, M, B, k_rs, k_bs, C::kBK);
+  if (err == 0) err = tensor_map(&tv, v, D, H, M, B, v_rs, v_bs, C::kBK);
+  if (err != 0) return err;
+  auto kern = flash_fwd_kernel<C>;
+  static unsigned long long smem_set = 0;  // devices already set, a bit each
+  int dev = 0;
+  err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev >= 64 || !(smem_set >> dev & 1)) {
+    err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmemBytes);
+    if (err != 0) return err;
+    if (dev < 64) smem_set |= 1ull << dev;
+  }
+  dim3 grid((N + C::kBQ - 1) / C::kBQ, B * H);
+  kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, H, N, M, D, o_bs, o_rs, scale,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -212,11 +365,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // layoutllm_t2i_tpu/ops/pallas/flash_attention.py. On the TPU both carry an
 // f32 scratch accumulator across a sequential grid axis; here a loop inside
 // the block takes that axis's place and the accumulators are WMMA fragments
-// held in registers for the whole loop. Like the forward, operations bound
-// them at the 64^2 sites: 10*N*M*d flops (S, dP, dQ in K5a; S, dP, dV, dK
-// in K5b; S and dP are recomputed by both) against ~12*N*d bytes.
+// held in registers for the whole loop. Operations bound them at the 64^2
+// sites: 10*N*M*d flops (S, dP, dQ in K5a; S, dP, dV, dK in K5b; S and dP
+// are recomputed by both) against ~12*N*d bytes.
 //
-// The simple design again: one shared-memory stage, WMMA 16x16x16 with f32
+// The simple design of the first port (not yet redesigned for Hopper): one
+// shared-memory stage, WMMA 16x16x16 with f32
 // accumulation, each warp owning 16 rows of the block end to end, so only
 // tile loads need a block barrier. The head dim is zero-padded to DP in
 // shared memory only. Ragged tails: KV rows >= M load as zeros and their
@@ -612,8 +766,9 @@ LLT2I_API int llt2i_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // (B, M, H*D) likewise; o: (B, N, H*D). D % 8 == 0; 16-byte aligned rows.
 // lse: null, or a contiguous f32 (B, H, N) buffer that receives the row
 // log-sum-exp of the scaled scores (the backward's saved statistic).
-// Only head dims that pad to 48, 80 or 512 are instantiated; any other
-// returns cudaErrorInvalidValue without launching.
+// scale > 0. Only head dims that pad to 48, 80 or 512 are instantiated;
+// any other, or scale <= 0, returns cudaErrorInvalidValue without
+// launching.
 LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int H, int N,
                               int M, int D,
@@ -622,18 +777,18 @@ LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
                               long long o_bs, long long o_rs, float scale,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dp = (D + 15) / 16 * 16;
-#define LLT2I_FLASH_CASE(DPV, BQV, BKV)                                     \
-  case DPV:                                                                 \
-    return launch<DPV, BQV, BKV>(q, k, v, o, lse, B, H, N, M, D, q_bs,      \
-                                 q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs,  \
-                                 scale, s);
-  switch (dp) {
-    LLT2I_FLASH_CASE(48, 64, 64)    // d = 40: the 64^2 sites
-    LLT2I_FLASH_CASE(80, 64, 64)    // d = 80: the 32^2 sites
-    LLT2I_FLASH_CASE(512, 32, 32)   // d = 512: the VAE's mid attention
-    default:                        // no site routes another head dim here
+  if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;  // max over raw scores
+  switch ((D + 15) / 16 * 16) {
+    case 48:  // d = 40: the 64^2 sites
+      return launch<Fwd40>(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs,
+                           k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
+    case 80:  // d = 80: the 32^2 sites
+      return launch<Fwd80>(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs,
+                           k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
+    case 512:  // d = 512: the VAE's mid attention
+      return launch<Fwd512>(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs,
+                            k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
+    default:  // no site routes another head dim here
       return (int)cudaErrorInvalidValue;
   }
-#undef LLT2I_FLASH_CASE
 }

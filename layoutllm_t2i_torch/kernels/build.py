@@ -123,7 +123,8 @@ def build_all() -> Dict[str, dict]:
             continue
         os.replace(tmp, out)
         ptxas = [ln.strip() for ln in text.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
+                 if "Function properties" in ln or "registers" in ln
+                 or "spill" in ln or "smem" in ln]
         build_log[name] = {"seconds": secs, "cached": False, "ptxas": ptxas}
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

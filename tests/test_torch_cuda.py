@@ -3,7 +3,11 @@
 These tests need an NVIDIA Hopper card and ``nvcc``: they carry the
 ``cuda`` marker and skip where no CUDA device is present. They cover edge
 cases the main-path shapes of ``chip_smoke.py`` do not reach: ragged tails
-off the block sizes, strided attention operands, odd group widths, wide and
+off the block sizes, strided attention operands; for K1's TMA and wgmma
+design, operands fenced by NaN and Inf columns and rows (a pad or an
+overread turns the output NaN), N and M off both tile sizes, the lse of
+the d = 512 head and two launches agreeing bit for bit (a race in the
+K/V stage ring would not); odd group widths, wide and
 narrow LayerNorm rows, a partial FF row block; the training path's
 kernels: K1's lse output, the K5a/K5b backward at the ragged training
 shapes (N = M = 4126 and 1054), and the gradients of the K1-K4 autograd
@@ -23,7 +27,7 @@ import pytest
 import torch
 
 from layoutllm_t2i_torch import kernels as K
-from layoutllm_t2i_torch.kernels.flash_attention import FlashAttention
+from layoutllm_t2i_torch.kernels.flash_attention import FlashAttention, _launch_fwd
 from layoutllm_t2i_torch.kernels.tolerance import agreement
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +82,86 @@ def test_flash_attention_strided_operands(dev, gen):
     q, k, v = qkv.split(heads * d, dim=-1)
     _check("K1", lambda: K.flash_attention(q, k, v, heads, 0.2),
            lambda: K.flash_attention_plain(q, k, v, heads, 0.2), K.flash_attention)
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", [
+    (1, 1, 130, 2, 40),       # one q row; M one tile and two rows
+    (1, 1, 130, 2, 80),
+    (1, 1, 130, 1, 512),
+    (3, 4127, 4126, 8, 40),   # neither a multiple of BQ nor of BK
+    (3, 4127, 4126, 8, 80),
+    (3, 4127, 4126, 1, 512),
+])
+def test_flash_attention_ragged_tiles(dev, gen, b, n, m, heads, d):
+    q = _rand(gen, b, n, heads * d)
+    k = _rand(gen, b, m, heads * d)
+    v = _rand(gen, b, m, heads * d)
+    s = d ** -0.5
+    _check("K1", lambda: K.flash_attention(q, k, v, heads, s),
+           lambda: K.flash_attention_plain(q, k, v, heads, s), K.flash_attention)
+
+
+def _fenced(gen, b, rows, heads, d):
+    """A (b, rows, heads*d) column slice of a wider buffer: 8 NaN columns
+    before it, 8 Inf columns after it, and 37 more rows of NaN below it
+    in every batch element. A kernel that reads a pad column, another
+    head's columns or past a row or the last row as data turns NaN."""
+    buf = torch.full((b, rows + 37, heads * d + 16), float("nan"),
+                     device=gen.device, dtype=torch.bfloat16)
+    buf[:, :, heads * d + 8:] = float("inf")
+    view = buf[:, :rows, 8:8 + heads * d]
+    view.copy_(_rand(gen, b, rows, heads * d))
+    return view
+
+
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("need_lse", [False, True])
+def test_flash_attention_never_reads_outside_its_operands(dev, gen, d, need_lse):
+    b, n, m, heads = 2, 700, 650, 4
+    q, k, v = (_fenced(gen, b, rows, heads, d) for rows in (n, m, m))
+    s = d ** -0.5
+    ref_out, ref_lse = K.flash_attention_lse_plain(q, k, v, heads, s)
+    before = K.flash_attention.launches
+    out, lse = _launch_fwd(q, k, v, heads, s, need_lse)
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == before + 1
+    got = agreement("K1", out, ref_out)
+    assert got["ok"], got
+    if need_lse:
+        got = agreement("lse", lse, ref_lse)
+        assert got["ok"], got
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 4096, 4096), (1, 520, 600)])
+def test_flash_attention_lse_wide_head(dev, gen, b, n, m):
+    # the VAE's single head of 512, with its lse: both consumer warpgroups
+    # compute S, one writes the lse
+    q, k, v, _ = _attention_inputs(gen, b, n, m, 1, 512)
+    s = 512 ** -0.5
+    out, lse = _launch_fwd(q, k, v, 1, s, need_lse=True)
+    ref_out, ref_lse = K.flash_attention_lse_plain(q, k, v, 1, s)
+    torch.cuda.synchronize()
+    got = agreement(("K1", "lse"), (out, lse), (ref_out, ref_lse))
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", [
+    (4, 4126, 4126, 8, 40),
+    (4, 1054, 1054, 8, 80),
+    (2, 4096, 4096, 1, 512),
+])
+def test_flash_attention_is_bitwise_repeatable(dev, gen, b, n, m, heads, d):
+    # two launches on the same inputs agree bit for bit: a race in the K/V
+    # stage ring (a stage refilled before every warp released it) would
+    # not
+    q = _rand(gen, b, n, heads * d)
+    k = _rand(gen, b, m, heads * d)
+    v = _rand(gen, b, m, heads * d)
+    first = _launch_fwd(q, k, v, heads, d ** -0.5, need_lse=True)
+    second = _launch_fwd(q, k, v, heads, d ** -0.5, need_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
 
 
 def test_flash_attention_uninstantiated_head_dim_raises(dev, gen):

@@ -6,10 +6,10 @@ versions for CPU tensors. Both sides see the same f32 inputs from a numpy
 seed. Tolerance: 1e-5 absolute (f32, differing only in summation order),
 2e-5 where a contraction over 512 features adds rounding.
 
-The last two tests hold K1's and K5's stated bf16 tolerances on the card
+The last three tests hold K1's and K5's stated bf16 tolerances on the card
 (``kernels/tolerance.py``) against CPU emulations of the CUDA kernels'
-algorithms: the kernels' own rounding must pass them, small faults must
-not.
+algorithms (K1 in its first, WMMA design and in its wgmma design): the
+kernels' own rounding must pass them, small faults must not.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -121,9 +121,10 @@ def test_ffn_plain_matches_pallas(rng, s):
 
 
 def _flash_emulated(q, k, v, heads, scale, fault=None, bk=64):
-    """csrc/flash_attention.cu's algorithm in f32 on the CPU: K/V in BK-row
-    tiles, online softmax, exp'd scores cast to bf16 before P V, bf16
-    output; ``fault`` injects a mistake the kernel could make."""
+    """K1's first (WMMA) design in f32 on the CPU: K/V in BK-row tiles,
+    online softmax on the scaled scores with exp, exp'd scores cast to bf16
+    before P V, bf16 output; ``fault`` injects a mistake the kernel could
+    make."""
     b, n, hc = q.shape
     m, d = k.shape[1], hc // heads
     split = lambda t: t.float().view(b, -1, heads, d).transpose(1, 2)
@@ -157,6 +158,76 @@ def test_k1_tolerance_separates_rounding_from_faults(fault):
                for _ in range(3))
     ref = flash_attention_plain(q, k, v, heads, d ** -0.5)
     got = agreement("K1", _flash_emulated(q, k, v, heads, d ** -0.5, fault), ref)
+    assert got["ok"] == (fault is None), got
+
+
+def _flash_wgmma_emulated(q, k, v, heads, scale, fault=None, bk=128):
+    """The wgmma design of csrc/flash_attention.cu in f32 on the CPU: K/V in
+    BK-row tiles zero-filled past M (TMA), the ragged tail masked to -inf,
+    the row max over the raw scores, p = exp2(s c - m c) with c =
+    scale log2(e) rounded to f32 as the host rounds it, row sums of the f32
+    p, P cast to bf16 before P V, O times the f32 reciprocal of the sum,
+    bf16 output; lse = m scale + ln(sum). Returns (out, lse). ``fault``
+    injects a mistake the kernel could make."""
+    b, n, hc = q.shape
+    m, d = k.shape[1], hc // heads
+    split = lambda t: t.float().view(b, -1, heads, d).transpose(1, 2)
+    qh, kh, vh = split(q), split(k), split(v)
+    if fault == "pad_neighbour":
+        # the 8 pad columns of d = 40 read from the next head, not zeros
+        nb = lambda t: torch.cat([t, t.roll(-1, 1)[..., :8]], dim=-1)
+        qh, kh = nb(qh), nb(kh)
+    pad = -m % bk
+    kh = torch.cat([kh, torch.zeros(b, heads, pad, kh.shape[-1])], dim=2)
+    vh = torch.cat([vh, torch.zeros(b, heads, pad, d)], dim=2)
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    if fault == "scale":
+        c = c * 1.005
+    m_run = torch.full((b, heads, n, 1), -torch.inf)
+    den = torch.zeros(b, heads, n, 1)
+    acc = torch.zeros(b, heads, n, d)
+    end = m - m % bk if fault == "kv_tail" else m
+    for k0 in range(0, end, bk):
+        s = qh @ kh[:, :, k0:k0 + bk].transpose(-1, -2)
+        if fault != "mask_zero":   # zero-filled rows would score 0
+            s[..., max(0, m - k0):] = -torch.inf
+        m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+        p = torch.exp2(s * c - m_new * c)
+        alpha = torch.exp2((m_run - m_new) * c)
+        den = (den if fault == "rescale" else den * alpha) + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vh[:, :, k0:k0 + bk]
+        m_run = m_new
+    out = (acc * (1.0 / den)).transpose(1, 2).reshape(b, n, hc)
+    lse = (m_run * scale + torch.log(den))[..., 0]
+    if fault == "lse_log2":     # left in the exponent's base-2 units
+        lse = (m_run * c + torch.log2(den))[..., 0]
+    return out.to(torch.bfloat16), lse
+
+
+@pytest.mark.parametrize("d,fault", [
+    (80, None), (80, "kv_tail"), (80, "rescale"), (80, "scale"),
+    (80, "mask_zero"), (80, "lse_log2"),
+    (40, None), (40, "mask_zero"), (40, "pad_neighbour"),
+    (512, None), (512, "kv_tail"), (512, "scale"),
+])
+def test_k1_wgmma_tolerance_separates_rounding_from_faults(d, fault):
+    # K1's tolerance, unchanged, against the rounding of the wgmma design:
+    # at M = 1054 = 8 * 128 + 30 (d 40, 80; BK = 128) and 1054 = 32 * 32 + 30
+    # (d 512; BK = 32) the last tile is ragged. "mask_zero" lets the
+    # zero-filled rows past M score 0 instead of -inf, "pad_neighbour"
+    # reads the next head's columns as d = 40's pad, "lse_log2" leaves
+    # the lse in base-2 units; the others as for the first design.
+    heads = 1 if d == 512 else 2
+    n = 600 if d == 512 else 1054
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, n, heads * d, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(1, 1054, heads * d, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    scale = d ** -0.5
+    ref = flash_attention_lse_plain(q, k, v, heads, scale)
+    got = agreement(("K1", "lse"), _flash_wgmma_emulated(
+        q, k, v, heads, scale, fault, bk=32 if d == 512 else 128), ref)
     assert got["ok"] == (fault is None), got
 
 
