@@ -25,8 +25,8 @@
 //    the ring has room for is in flight while the consumers compute.
 //  * Operands are read from the packed (B, N, H*d) projection layout
 //    through 4-d tensor maps (d, H, rows, B) with the caller's strides,
-//    built on the host per launch (cuTensorMapEncodeTiled, reached through
-//    the runtime's driver entry point). Boxes are 64 columns (128 bytes)
+//    built on the host per launch (cuTensorMapEncodeTiled, looked up with
+//    cudaGetDriverEntryPoint). Boxes are 64 columns (128 bytes)
 //    wide in the 128-byte swizzle that wgmma reads without bank conflicts.
 //    Columns past d (d = 40: 40..63, d = 80: 80..127) and rows past N or M
 //    lie outside the map, so TMA writes zeros there: no other head's
@@ -287,7 +287,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver the runtime loaded (the library
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (the library
 // does not link libcuda itself)
 EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
