@@ -15,9 +15,14 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                in bf16 (K7 on int8 weights), at every distinct shape that
                phases 4-6 and 8 give it; times kernel, plain version and
                one PyTorch library call for the same function, beside the
-               roofline bound; K1's rows add `exp_ms`, the time of their
-               exponentials at the SFUs' rate (exp_ms()), and `vs_library`,
-               ms over library_ms.
+               roofline bound. `ms`, `plain_ms` and `library_ms` are
+               launched back to back from the host (time_ms), so a call
+               shorter than its launch path reads the host's time;
+               `device_ms` and `library_device_ms` take the host out
+               (device_time), and `host_us` is the kernel wrapper's host
+               time a call. K1's rows add `exp_ms`, the time of their
+               exponentials at the SFUs' rate (exp_ms()), `vs_library`,
+               ms over library_ms, and `device_vs_library`.
   3. unet      one full-width UNet forward through the kernels and again
                through the plain versions (fuser and relation alphas set to
                0.5 first: random init leaves them 0, which would hide a
@@ -45,7 +50,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                memory, finite losses, every rela_fuse tensor changed and
                every frozen one bit-identical; kernel launches per step.
   9. the `kernels` JSON line, then the card line, then the result line.
-     In that line `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
+     In that line `ms`, `plain_ms`, `library_ms`, `bound_ms`, `device_ms`
+     and `library_device_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2); `launches` adds the runs of phases 4, 5, 6 and 8,
      each read from counts set to 0 just before it.
@@ -66,9 +72,7 @@ With `--profile OUT.json`, one more generation runs under torch.profiler
 after phase 4 and prints device time by kernel group and the device's idle
 share; OUT.json gets the per-kernel table. One more generation is profiled
 likewise after phases 5 and 6 (OUT_int8.json, OUT_routes.json), and one
-more training step after phase 8 (OUT_train.json). With `--kernels K1`
-(ids comma-separated) only phases 1 and 2 run, for those kernels, and no
-result line is printed: the quick check while a kernel is being worked on.
+more training step after phase 8 (OUT_train.json).
 
 The script imports nothing of JAX or of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -78,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import importlib
 import json
 import math
@@ -96,7 +101,6 @@ H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, H100 SXM
 H100_HBM_BYTES = 3.35e12    # HBM3 bytes/s, H100 SXM
 H100_SMS = 132              # streaming multiprocessors, H100 SXM
 MUFU_PER_SM_CLOCK = 16      # ex2 results a clock per SM (the SFUs)
-SLEEP_CLOCK_HZ = 1.98e9     # H100 SXM maximum SM clock: sizes time_ms's sleep
 
 # kernel vs plain version: the tolerances stated in
 # layoutllm_t2i_torch/kernels/tolerance.py (element-wise atol + rtol*|b|,
@@ -204,6 +208,7 @@ def nvidia_smi_line() -> str:
     return nvidia_smi("name,power.limit")
 
 
+@functools.lru_cache(maxsize=None)
 def max_sm_clock_hz() -> float:
     """The card's maximum SM clock, as nvidia-smi reports it ("1980 MHz")."""
     return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
@@ -213,13 +218,9 @@ def max_sm_clock_hz() -> float:
 # timing and bounds
 
 
-def time_ms(fn, target_ms: float = 60.0) -> float:
-    """Mean device ms per call: warm-up, then CUDA events around a run of
-    launches sized to ~target_ms. The run is queued behind a device-side
-    sleep that outlasts the host's enqueueing of it, so the device takes
-    the calls back to back: a kernel that runs shorter than its launch path
-    on the host (a few tens of microseconds through the Python wrapper) is
-    timed by the device, not by the host."""
+def _warm_and_size(fn, target_ms: float):
+    """Two warm-up calls, then one timed call: the number of calls that
+    fill ~target_ms, and the host's seconds for that one call."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -231,16 +232,48 @@ def time_ms(fn, target_ms: float = 60.0) -> float:
     host_s = time.perf_counter() - t0
     e1.synchronize()
     once = max(e0.elapsed_time(e1), 1e-3)
-    iters = int(min(200, max(3, target_ms / once)))
-    # twice the host's time for the run, at the fastest SM clock (capped at
-    # one second)
-    torch.cuda._sleep(int(min(2.0 * iters * host_s, 1.0) * SLEEP_CLOCK_HZ))
+    return int(min(200, max(3, target_ms / once))), host_s
+
+
+def time_ms(fn, target_ms: float = 60.0) -> float:
+    """Mean ms per call: warm-up, then CUDA events around a run of launches
+    sized to ~target_ms, issued back to back from the host. A call whose
+    kernels run shorter than its launch path on the host is timed by the
+    host (the ``ms`` of every row); ``device_time`` takes the host out."""
+    iters, _ = _warm_and_size(fn, target_ms)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(iters):
         fn()
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def device_time(fn, target_ms: float = 60.0):
+    """(device ms, host us) per call. The run of launches is queued behind
+    a device-side sleep that outlasts the host's enqueueing of it, so the
+    device takes the calls back to back and its events time the kernels
+    alone; the host's seconds to enqueue the run, over its calls, are the
+    launch path's cost. If the sleep ended before the host was done, the
+    run is made again behind one twice as long."""
+    iters, host_s = _warm_and_size(fn, target_ms)
+    sleep_s = min(max(2.0 * iters * host_s, 2e-3), 1.0)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda._sleep(int(sleep_s * max_sm_clock_hz()))
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        enqueue_s = time.perf_counter() - t0
+        still_asleep = not e0.query()
+        e1.synchronize()
+        if still_asleep or sleep_s >= 1.0:
+            break
+        sleep_s = min(2.0 * sleep_s, 1.0)
+    return e0.elapsed_time(e1) / iters, enqueue_s / iters * 1e6
 
 
 def bound(flops: float, nbytes: float):
@@ -654,12 +687,16 @@ def make_bwd_case(kid, args, dev, rnd):
             lib, 8.0 * b * h * n * m * d, io + 2.0 * 2 * b * m * h * d)
 
 
-def library_ms(lib) -> float:
+def library_ms(lib, timer=time_ms) -> float:
     """ms of one library call; of a (whole, part) pair, whole minus part."""
     if isinstance(lib, tuple):
         whole, part = lib
-        return time_ms(whole) - time_ms(part)
-    return time_ms(lib)
+        return timer(whole) - timer(part)
+    return timer(lib)
+
+
+def device_ms(fn) -> float:
+    return device_time(fn)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -709,6 +746,7 @@ def phase_kernels(cases):
     summary = {kid: {"max_abs_err": 0.0, "max_rel_err": 0.0,
                      "rms_rel_err": 0.0, "ms": 0.0,
                      "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                     "device_ms": 0.0, "library_device_ms": 0.0,
                      "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
                for kid in KERNEL_META}
     failed = []
@@ -725,15 +763,19 @@ def phase_kernels(cases):
                **agree,
                "ms": time_ms(kern), "plain_ms": time_ms(plain),
                "library_ms": library_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+        rec["device_ms"], rec["host_us"] = device_time(kern)
+        rec["library_device_ms"] = library_ms(lib, device_ms)
         if kid == "K1":
             b, n, m, h = args[:4]
             rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
             rec["vs_library"] = rec["ms"] / rec["library_ms"]
+            rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
         emit(rec)
         agg = summary[kid]
         for key in ("max_abs_err", "max_rel_err", "rms_rel_err"):
             agg[key] = max(agg[key], agree[key])
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                    "library_device_ms"):
             agg[key] += rec[key]
         agg["ops_ms"] += flops / H100_BF16_FLOPS * 1e3
         agg["bytes_ms"] += nbytes / H100_HBM_BYTES * 1e3
@@ -1219,10 +1261,6 @@ def main(argv=None) -> int:
                          "each route and one more training step and write "
                          "their per-kernel device times here and to "
                          "JSON_int8, JSON_routes and JSON_train")
-    ap.add_argument("--kernels", metavar="KIDS",
-                    help="comma-separated kernel ids (e.g. K1): build, run "
-                         "phase 2 for these kernels alone, print their rows "
-                         "and exit; no other phase and no result line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1259,19 +1297,12 @@ def main(argv=None) -> int:
                     route=route)
                 for suffix, route in (("", DEFAULT), ("-int8", INT8),
                                       ("-routes", SPLIT))}
-            cases = kernel_cases({
+            summary = phase_kernels(kernel_cases({
                 **gen_paths,
                 "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
                                         train_batch, TRAIN_MAX_BOXES,
-                                        TRAIN_MAX_RELATIONS)})
+                                        TRAIN_MAX_RELATIONS)}))
             del train_batch
-            if args.kernels:
-                only = args.kernels.split(",")
-                summary = phase_kernels([c for c in cases if c[0] in only])
-                emit({"phase": "kernels-summary",
-                      **{kid: summary[kid] for kid in only}})
-                return 0
-            summary = phase_kernels(cases)
             models = random_models(small=False, device="cuda",
                                    dtype=torch.bfloat16, seed=0)
             phase_unet(models)
@@ -1317,7 +1348,9 @@ def main(argv=None) -> int:
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": ("operations" if s["ops_ms"] >= s["bytes_ms"]
                                   else "bytes"),
-                     "library_ms": s["library_ms"], "shapes": s["shapes"]})
+                     "library_ms": s["library_ms"], "device_ms": s["device_ms"],
+                     "library_device_ms": s["library_device_ms"],
+                     "shapes": s["shapes"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if missing:
         print(f"chip_smoke: FAILED: no launches of {missing} on the main path",

@@ -212,9 +212,10 @@ def _flash_wgmma_emulated(q, k, v, heads, scale, fault=None, bk=128):
     (512, None), (512, "kv_tail"), (512, "scale"),
 ])
 def test_k1_wgmma_tolerance_separates_rounding_from_faults(d, fault):
-    # K1's tolerance, unchanged, against the rounding of the wgmma design:
-    # at M = 1054 = 8 * 128 + 30 (d 40, 80; BK = 128) and 1054 = 32 * 32 + 30
-    # (d 512; BK = 32) the last tile is ragged. "mask_zero" lets the
+    # K1's tolerance, unchanged, against the rounding of the wgmma design,
+    # at each head dim's K/V tile (csrc/flash_attention.cu Fwd40, Fwd80,
+    # Fwd512): M = 1054 = 16 * 64 + 30 (d 40; BK = 64), 8 * 128 + 30 (d 80;
+    # BK = 128) and 32 * 32 + 30 (d 512; BK = 32) leaves the last tile ragged. "mask_zero" lets the
     # zero-filled rows past M score 0 instead of -inf, "pad_neighbour"
     # reads the next head's columns as d = 40's pad, "lse_log2" leaves
     # the lse in base-2 units; the others as for the first design.
@@ -227,7 +228,7 @@ def test_k1_wgmma_tolerance_separates_rounding_from_faults(d, fault):
     scale = d ** -0.5
     ref = flash_attention_lse_plain(q, k, v, heads, scale)
     got = agreement(("K1", "lse"), _flash_wgmma_emulated(
-        q, k, v, heads, scale, fault, bk=32 if d == 512 else 128), ref)
+        q, k, v, heads, scale, fault, bk={40: 64, 80: 128, 512: 32}[d]), ref)
     assert got["ok"] == (fault is None), got
 
 
