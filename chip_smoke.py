@@ -7,7 +7,7 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   1. build     nvcc-builds the five kernel libraries from csrc/ (sm_90a),
                prints build seconds, ptxas lines and the card's name and
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
-               in every K1 kernel.
+               in every K1, K5a and K5b kernel.
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
@@ -20,9 +20,14 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                shorter than its launch path reads the host's time;
                `device_ms` and `library_device_ms` take the host out
                (device_time), and `host_us` is the kernel wrapper's host
-               time a call. K1's rows add `exp_ms`, the time of their
-               exponentials at the SFUs' rate (exp_ms()), `vs_library`,
-               ms over library_ms, and `device_vs_library`.
+               time a call. K1's, K5a's and K5b's rows add `exp_ms`, the
+               time of their exponentials at the SFUs' rate (exp_ms()),
+               `vs_library`, ms over library_ms, and `device_vs_library`.
+               K5a's and K5b's library call is SDPA's whole backward (dQ,
+               dK and dV), so after both rows of a shape a "K5 pair" row
+               holds their sum against that call, counted once, with the
+               bound and exp_ms of that function (pair_work()), not the
+               sum of the two rows' (both kernels recompute S and dP).
   3. unet      one full-width UNet forward through the kernels and again
                through the plain versions (fuser and relation alphas set to
                0.5 first: random init leaves them 0, which would hide a
@@ -54,7 +59,10 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      and `library_device_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2); `launches` adds the runs of phases 4, 5, 6 and 8,
-     each read from counts set to 0 just before it.
+     each read from counts set to 0 just before it. K5a's and K5b's
+     entries carry the pair's sums (`pair`: ms, device_ms, library_ms and
+     library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
+     vs_library, device_vs_library, and the largest shape's vs_library).
 
 Phase 2's shapes are walked from the model configs (generation_calls,
 training_calls): the generation at 2 requests (CFG batch 4) on each of
@@ -119,6 +127,9 @@ UNET_REL_TOL = 5e-2
 TRAIN_GRAD_REL_TOL = 1e-2
 TRAIN_GRAD_CAUGHT = ("dk_unscaled",)
 TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
+
+# the kernels written on csrc/hopper.cuh's wgmma (K1, K5a, K5b)
+WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 KERNEL_META = {
     "K1": ("flash_attention", "layoutllm_t2i_torch/csrc/flash_attention.cu",
@@ -726,14 +737,18 @@ def phase_build():
 
     t0 = time.perf_counter()
     log = build.build_all()
-    # K1's kernels must run on the wgmma tensor-core path (HGMMA in SASS)
+    # K1's, K5a's and K5b's kernels must run on the wgmma tensor-core path
+    # (HGMMA in SASS), each in every instantiation
     hgmma = {fn: n for fn, n in sass_opcode_counts(
         build.lib_path("flash_attention"), "HGMMA").items()
-        if "flash_fwd_kernel" in fn}
+        if any(name in fn for name in WGMMA_KERNELS)}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libs": log, "k1_hgmma": hgmma})
-    if not hgmma or not all(hgmma.values()):
-        raise SmokeFailure(f"K1 kernels without HGMMA in their SASS: {hgmma}")
+          "libs": log, "hgmma": hgmma})
+    missing = [name for name in WGMMA_KERNELS
+               if not any(name in fn for fn in hgmma)]
+    if missing or not all(hgmma.values()):
+        raise SmokeFailure(f"flash-attention kernels without HGMMA in their "
+                           f"SASS: {hgmma}, none found of {missing}")
 
 
 def phase_kernels(cases):
@@ -749,6 +764,9 @@ def phase_kernels(cases):
                      "device_ms": 0.0, "library_device_ms": 0.0,
                      "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
                for kid in KERNEL_META}
+    pair = {key: 0.0 for key in PAIR_SUMS}
+    pair["shapes"], pair["max_vs_library"] = 0, 0.0
+    half = {}  # (K5a or K5b, shape) -> its record, until the pair is complete
     failed = []
     for kid, label, args, paths in cases:
         kern, plain, lib, flops, nbytes = make_case(kid, args, dev, gen)
@@ -765,12 +783,17 @@ def phase_kernels(cases):
                "library_ms": library_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
         rec["device_ms"], rec["host_us"] = device_time(kern)
         rec["library_device_ms"] = library_ms(lib, device_ms)
-        if kid == "K1":
+        if kid in ("K1", "K5a", "K5b"):
             b, n, m, h = args[:4]
             rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
             rec["vs_library"] = rec["ms"] / rec["library_ms"]
             rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
         emit(rec)
+        if kid in ("K5a", "K5b"):
+            half[kid, label] = rec
+            if ("K5a", label) in half and ("K5b", label) in half:
+                pair_record(half["K5a", label], half["K5b", label], args,
+                            clock_hz, pair)
         agg = summary[kid]
         for key in ("max_abs_err", "max_rel_err", "rms_rel_err"):
             agg[key] = max(agg[key], agree[key])
@@ -786,7 +809,52 @@ def phase_kernels(cases):
         torch.cuda.empty_cache()
     if failed:
         raise SmokeFailure(f"kernel disagrees with its plain version: {failed}")
-    return summary
+    if pair["shapes"]:
+        pair["vs_library"] = pair["ms"] / pair["library_ms"]
+        pair["device_vs_library"] = pair["device_ms"] / pair["library_device_ms"]
+    return summary, pair
+
+
+PAIR_SUMS = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
+             "exp_ms")
+
+
+def pair_work(args):
+    """(flops, bytes) of the function the K5 pair computes at one shape:
+    dQ, dK and dV from q, k, v, dO, lse and delta, as SDPA's backward
+    computes them. S, dP, dQ, dK and dV are five N x M x d products, each
+    counted once, and every operand is read once and every gradient written
+    once, although the pair's design recomputes S and dP in both kernels."""
+    b, n, m, h, d = args
+    flops = 10.0 * b * h * n * m * d
+    # bf16 q, dO and dQ; k, v, dK and dV; f32 lse and delta
+    nbytes = 2.0 * (3 * b * n * h * d + 4 * b * m * h * d) + 4.0 * 2 * b * h * n
+    return flops, nbytes
+
+
+def pair_record(dq, dkv, args, clock_hz, pair) -> None:
+    """The K5 pair at one shape: K5a + K5b against SDPA's whole backward,
+    the one library call that computes what the pair computes (dQ, dK and
+    dV), counted once: the mean of the two rows' timings of it. Its bound
+    and ``exp_ms`` are the function's own (``pair_work``, B*H*N*M
+    exponentials), not the sum of the two rows'. Adds the pair's numbers to
+    the running sums in ``pair``."""
+    b, n, m, h = args[:4]
+    rec = {"phase": "kernels", "kernel": "K5 pair", "shape": dq["shape"],
+           "paths": dq["paths"], "ok": dq["ok"] and dkv["ok"]}
+    for key in ("ms", "device_ms"):
+        rec[key] = dq[key] + dkv[key]
+    for key in ("library_ms", "library_device_ms"):
+        rec[key] = 0.5 * (dq[key] + dkv[key])
+    rec["bound_ms"], rec["bound_by"] = bound(*pair_work(args))
+    rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
+    rec["vs_library"] = rec["ms"] / rec["library_ms"]
+    rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
+    emit(rec)
+    for key in PAIR_SUMS:
+        pair[key] += rec[key]
+    pair["shapes"] += 1
+    pair["max_vs_library"] = max(pair["max_vs_library"], rec["vs_library"])
 
 
 def set_alphas(tree, value: float) -> int:
@@ -1297,7 +1365,7 @@ def main(argv=None) -> int:
                     route=route)
                 for suffix, route in (("", DEFAULT), ("-int8", INT8),
                                       ("-routes", SPLIT))}
-            summary = phase_kernels(kernel_cases({
+            summary, k5_pair = phase_kernels(kernel_cases({
                 **gen_paths,
                 "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
                                         train_batch, TRAIN_MAX_BOXES,
@@ -1351,6 +1419,8 @@ def main(argv=None) -> int:
                      "library_ms": s["library_ms"], "device_ms": s["device_ms"],
                      "library_device_ms": s["library_device_ms"],
                      "shapes": s["shapes"]})
+        if kid in ("K5a", "K5b"):
+            line[-1]["pair"] = k5_pair
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if missing:
         print(f"chip_smoke: FAILED: no launches of {missing} on the main path",

@@ -59,12 +59,9 @@
 //  * Epilogue: O / l in bf16 straight from registers to global memory; q
 //    rows >= N and columns >= d are never written. lse = m*scale + ln(l).
 #include <math.h>
-#include <mma.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -328,6 +325,20 @@ int tensor_map(CUtensorMap* map, const void* base, int D, int H, int rows,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Let `kern` use `bytes` of dynamic shared memory on the current device,
+// once per device: `set` holds a bit for each device already set.
+template <typename Kern>
+int allow_smem(Kern kern, size_t bytes, unsigned long long& set) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev < 64 && (set >> dev & 1)) return 0;
+  err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == 0 && dev < 64) set |= 1ull << dev;
+  return err;
+}
+
 template <class C>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int N, int M, int D, long long q_bs, long long q_rs,
@@ -338,17 +349,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (err == 0) err = tensor_map(&tk, k, D, H, M, B, k_rs, k_bs, C::kBK);
   if (err == 0) err = tensor_map(&tv, v, D, H, M, B, v_rs, v_bs, C::kBK);
   if (err != 0) return err;
+  static unsigned long long smem_set = 0;
   auto kern = flash_fwd_kernel<C>;
-  static unsigned long long smem_set = 0;  // devices already set, a bit each
-  int dev = 0;
-  err = (int)cudaGetDevice(&dev);
+  err = allow_smem(kern, C::kSmemBytes, smem_set);
   if (err != 0) return err;
-  if (dev >= 64 || !(smem_set >> dev & 1)) {
-    err = (int)cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmemBytes);
-    if (err != 0) return err;
-    if (dev < 64) smem_set |= 1ull << dev;
-  }
   dim3 grid((N + C::kBQ - 1) / C::kBQ, B * H);
   kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, H, N, M, D, o_bs, o_rs, scale,
@@ -364,371 +368,520 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // Replaces `_bwd_dq_kernel` (l.435) and `_bwd_dkv_kernel` (l.472) of
 // layoutllm_t2i_tpu/ops/pallas/flash_attention.py. On the TPU both carry an
 // f32 scratch accumulator across a sequential grid axis; here a loop inside
-// the block takes that axis's place and the accumulators are WMMA fragments
-// held in registers for the whole loop. Operations bound them at the 64^2
-// sites: 10*N*M*d flops (S, dP, dQ in K5a; S, dP, dV, dK in K5b; S and dP
-// are recomputed by both) against ~12*N*d bytes.
+// the block takes that axis's place and the accumulators stay in registers
+// for the whole loop. Two kernels, as the JAX package splits them: K5a
+// writes dQ, K5b dK and dV, each output row by one block, so no atomics and
+// the result is bitwise repeatable.
 //
-// The simple design of the first port (not yet redesigned for Hopper): one
-// shared-memory stage, WMMA 16x16x16 with f32
-// accumulation, each warp owning 16 rows of the block end to end, so only
-// tile loads need a block barrier. The head dim is zero-padded to DP in
-// shared memory only. Ragged tails: KV rows >= M load as zeros and their
-// probabilities are masked to 0 (the JAX kernel's `col < kv_len`); q rows
-// >= N load as zero q and dO, and their probabilities are masked to 0 as
-// well, so they add nothing to dK/dV and nothing is padded in HBM; rows
-// past N (K5a) or M (K5b) are never written. P and dS are rounded to bf16
-// before their products, the TPU kernels' rounding points.
+// What bounds them on the H100: operations, 6*N*M*d flops in K5a (S, dP,
+// dQ) and 8*N*M*d in K5b (S, dP, dV, dK) against ~12*N*d bytes; at d = 40
+// as much again in exponentials (one a score in each kernel, B*H*N*M on 16
+// SFU lanes a clock per SM). So the design is K1's: the tensor cores fed by
+// a TMA ring, and as few instructions per score as possible besides the exp.
+//
+// Design: one block per (64 resident rows a consumer warpgroup, batch,
+// head): two or three consumer warpgroups and a producer warpgroup.
+//  * The last warpgroup is the producer: it hands its registers back
+//    (setmaxnreg) and one thread loads the resident operands once and the
+//    streamed tiles into a ring of kStages stages with TMA (mbarriers
+//    "full" and "empty" as in K1), from 4-d tensor maps (d, H, rows, B)
+//    with the caller's strides. Columns past d and rows past N or M come
+//    in as zeros; no other head's columns and nothing past a row is read.
+//  * The consumer warpgroups own 64 resident rows each, with 160 registers
+//    a thread (three of them) or 232 (two). Both products of the scores
+//    are SS wgmma with K-major operands; the score fragments stay in
+//    registers, each
+//    16-column slice of them is the register A fragment of the next wgmma
+//    (RS, B MN-major), so S, P, dP and dS never touch shared memory.
+//  * P = exp2(S c - lse log2 e), c = scale log2(e): one FMA and one ex2 a
+//    score, on the natural-log lse that K1 writes. dS = P (dP - delta). P
+//    and dS are rounded to bf16 before their products, the TPU kernels'
+//    rounding points.
+//  * Within a warpgroup a tile runs in order: the two score products, the
+//    exponentials, the output products, then the stage is released; the
+//    consumer warpgroups overlap one another. (Leaving the output products
+//    in flight across the next tile's score products made ptxas serialise
+//    every wgmma (C7515) and was slower on the card.)
+//  * K5a: a block keeps Q and dO resident (192 q rows) and streams K/V
+//    tiles; each thread holds the lse and delta of the two rows its
+//    fragment owns. S = Q K^T, dP = dO V^T, dQ += dS K. K rows past M
+//    load as zeros and would score 0, so P is masked to 0 past M.
+//  * K5b: a block keeps K and V resident (192 k rows at d = 40, 128 at
+//    d = 80) and streams Q/dO tiles. It computes S^T = K Q^T and
+//    dP^T = V dO^T, so P^T and dS^T
+//    come out in the A layout of dV += P^T dO and dK += dS^T Q. The q rows
+//    lie along the fragment's columns, so the producer warp writes each
+//    stage's lse (times log2 e) and delta to shared memory beside the tile
+//    and each thread reads the columns it owns. P^T is masked to 0 past N.
+//  * Epilogue: bf16 straight from registers; only rows < N (K5a) or < M
+//    (K5b) and columns < d are written (d = 40's 48-column tile would
+//    otherwise overwrite the next head's first 8 columns).
 
-template <int DP, int BQ, int BK>
-struct BwdDqCfg {
-  static constexpr int kWarps = BQ / 16;
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr size_t kSmemBytes =
-      (size_t)(2 * BQ * DP + 2 * BK * DP + BQ * BK) * sizeof(bf16) +
-      (size_t)(2 * BQ * BK + 2 * BQ) * sizeof(float);
+// kDepth: wgmma depth of the scores (d padded to 16), also the width of the
+// dQ, dK and dV accumulators; kChunks: 64-column chunks per row in shared
+// memory; kGroups: consumer warpgroups, each owning 64 of the block's kBR
+// resident rows; kBS: rows of a streamed stage; kStages: the ring's depth;
+// kRowStats: each stage carries its rows' lse and delta (K5b only).
+template <int kDepth_, int kChunks_, int kGroups_, int kBS_, int kStages_,
+          bool kRowStats>
+struct BwdCfg {
+  static constexpr int kDepth = kDepth_, kChunks = kChunks_,
+                       kGroups = kGroups_, kBR = 64 * kGroups, kBS = kBS_,
+                       kStages = kStages_;
+  static constexpr int kThreads = 128 * (kGroups + 1);  // + the producer's
+  // the producer warpgroup's registers go to the consumers: 232 each with
+  // two consumer warpgroups, 160 with three
+  static constexpr int kProducerRegs = kGroups == 2 ? 40 : 24;
+  static constexpr int kConsumerRegs =
+      (65536 - 128 * kProducerRegs) / (128 * kGroups) / 8 * 8;
+  static constexpr uint32_t kResBytes = kChunks * kBR * 128;   // one resident operand
+  static constexpr uint32_t kTileBytes = kChunks * kBS * 128;  // one streamed operand
+  static constexpr uint32_t kStatBytes = kRowStats ? 2 * kBS * 4 : 0;  // lse log2 e, delta
+  // 1024 bytes of slack to align the swizzled tiles, then the mbarriers
+  static constexpr size_t kSmemBytes = 1024 + 2 * kResBytes +
+                                       kStages * (2 * kTileBytes + kStatBytes) +
+                                       8 * (2 * kStages + 1);
+  static_assert(kDepth % 16 == 0 && kDepth <= 64 * kChunks, "depth");
+  static_assert(kBS % 16 == 0 && kBS <= 128, "stage rows");
+  static_assert(kBR <= 256 && kConsumerRegs <= 256, "TMA box, registers");
 };
 
-template <int DP, int BQ, int BK>
-struct BwdDkvCfg {
-  static constexpr int kWarps = BK / 16;
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr size_t kSmemBytes =
-      (size_t)(2 * BK * DP + 2 * BQ * DP + 2 * BK * BQ) * sizeof(bf16) +
-      (size_t)(2 * BK * BQ + 2 * BQ) * sizeof(float);
-};
+// K5a (Dq) and K5b (Dkv) at the 64^2 sites (d = 40) and the 32^2 sites.
+// Three consumer warpgroups were faster than two on the card (and 64-row
+// stages than 128 with two); K5b at d = 80 keeps two, for the 232
+// registers its two 64 x 80 accumulators and four score fragments need.
+using Dq40 = BwdCfg<48, 1, 3, 64, 4, false>;
+using Dkv40 = BwdCfg<48, 1, 3, 64, 4, true>;
+using Dq80 = BwdCfg<80, 2, 3, 64, 3, false>;
+using Dkv80 = BwdCfg<80, 2, 2, 64, 3, true>;
 
-// rows [r0, r0 + rows) of a (rows, D) operand into a (rows, DP) tile; rows
-// at or past `limit` stay as they are (zero-filled by the caller)
-template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long rs, int r0, int rows,
-                                          int limit, int D, int tid, int nt) {
-  const int vpr = D / 8;
-  for (int i = tid; i < rows * vpr; i += nt) {
-    const int r = i / vpr, c = (i % vpr) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared-memory layout of both kernels: two resident operands, two streamed
+// ones in kStages stages, K5b's per-stage row statistics (none in K5a), the
+// mbarriers
+template <class C>
+struct BwdSmem {
+  uint32_t res0, res1, tile0, tile1, full, empty, rbar;
+  float* stats;
+  __device__ explicit BwdSmem(unsigned char* raw) {
+    const uint32_t base = smem_u32(raw);
+    res0 = (base + 1023u) & ~1023u;
+    res1 = res0 + C::kResBytes;
+    tile0 = res1 + C::kResBytes;  // stage s at + s * kTileBytes
+    tile1 = tile0 + C::kStages * C::kTileBytes;
+    const uint32_t st = tile1 + C::kStages * C::kTileBytes;
+    stats = reinterpret_cast<float*>(raw + (st - base));
+    full = st + C::kStages * C::kStatBytes;  // mbarrier of stage s at + 8s
+    empty = full + 8 * C::kStages;
+    rbar = empty + 8 * C::kStages;
   }
-}
+};
 
-// write a warp's 16 x DP f32 accumulator (times `mul`) as bf16 rows
-// [row0, row0 + 16) of a contiguous (rows, H*D) output, through `stage`
-// (16 x 16 floats of the warp's own shared memory)
-template <int DP>
-__device__ __forceinline__ void store_acc(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[DP / 16],
-    float* stage, bf16* out, long long rs, int row0, int limit, int D,
-    float mul, int lane) {
+// S (+)= A B^T over the padded depth: A the 64 rows of this warpgroup at
+// `a` in a resident operand of kBR rows, B a stage of kBS rows at `b`
+template <class C, int N>
+__device__ __forceinline__ void scores(float (&s)[N], uint32_t a, uint32_t b) {
 #pragma unroll
-  for (int n = 0; n < DP / 16; ++n) {
-    wmma::store_matrix_sync(stage, acc[n], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const int rr = i / 16, c = n * 16 + i % 16;
-      if (row0 + rr < limit && c < D)
-        out[(long long)(row0 + rr) * rs + c] = __float2bfloat16(stage[i] * mul);
+  for (int kk = 0; kk < C::kDepth / 16; ++kk)
+    wgmma_ss(s, sw128_desc(a + (kk / 4) * C::kBR * 128 + (kk % 4) * 32, 16),
+             sw128_desc(b + (kk / 4) * C::kBS * 128 + (kk % 4) * 32, 16),
+             kk > 0);
+}
+
+// D += A B: A in registers (16 columns of k a slice), B the kBS-row stage
+// at `b` read MN-major
+template <class C, int N, int K>
+__device__ __forceinline__ void product(float (&d)[N], const uint32_t (&a)[K][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+    wgmma_rs(d, a[kk], sw128_desc(b + kk * 16 * 128, C::kBS * 128));
+}
+
+// the register A fragments of a score fragment, two bf16 a register
+template <int N, int K>
+__device__ __forceinline__ void to_bf16(uint32_t (&a)[K][4], const float (&s)[N]) {
+  static_assert(N == 8 * K, "one A slice per 16 columns");
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+// this thread's rows row0 and row0 + 8 of a warpgroup's 64 x kDepth
+// accumulator (times mul) as bf16 into a contiguous (rows, H*D) output:
+// only rows < limit and columns < D
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N], bf16* out,
+                                           long long hd, int row0, int limit,
+                                           int D, float mul, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= limit) continue;
+    bf16* orow = out + row * hd;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
     }
-    __syncwarp();
   }
 }
 
-// K5a: one block per (q tile, batch*head) streams K/V tiles and accumulates
-// dQ = scale * sum_k [P o (dO V^T - delta)] K.
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(BwdDqCfg<DP, BQ, BK>::kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// K5a's dS = P o (dP - delta) in place of S, P = exp2(S c - lse log2 e):
+// the thread's rows r (i / 2 even) and r + 8 carry l2 and dl; with kMask,
+// P = 0 in the columns at or past `lim`
+template <bool kMask, int N>
+__device__ __forceinline__ void ds_rows(float (&sc)[N], const float (&dp)[N],
+                                        const float (&l2)[2],
+                                        const float (&dl)[2], float c, int lim,
+                                        int lane) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    float p = ex2(fmaf(sc[i], c, -l2[r]));
+    if (kMask && 8 * (i / 4) + 2 * (lane & 3) + (i & 1) >= lim) p = 0.f;
+    sc[i] = p * (dp[i] - dl[r]);
+  }
+}
+
+// K5b's P^T in place of S^T and dS^T in place of dP^T: the thread's q
+// columns 8 j + 2 (lane % 4) + {0, 1} read their lse log2 e and delta from
+// the stage's statistics `st` (2N of each); with kMask, P^T = 0 in the
+// columns at or past `lim`
+template <bool kMask, int N>
+__device__ __forceinline__ void p_ds_cols(float (&sc)[N], float (&dp)[N],
+                                          const float* st, float c, int lim,
+                                          int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float2 l2 = *reinterpret_cast<const float2*>(st + col);
+    const float2 dl = *reinterpret_cast<const float2*>(st + 2 * N + col);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int i = 4 * j + v;
+      const bool odd = v & 1;
+      float p = ex2(fmaf(sc[i], c, -(odd ? l2.y : l2.x)));
+      if (kMask && col + odd >= lim) p = 0.f;
+      sc[i] = p;
+      dp[i] = p * (dp[i] - (odd ? dl.y : dl.x));
+    }
+  }
+}
+
+// K5a: dQ = scale * sum over K/V tiles of [P o (dO V^T - delta)] K
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int H, int N, int M, int D, long long q_bs, long long q_rs,
-                    long long k_bs, long long k_rs, long long v_bs,
-                    long long v_rs, float scale) {
-  constexpr int NT = BwdDqCfg<DP, BQ, BK>::kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // BQ x DP
-  bf16* sDO = sQ + BQ * DP;                  // BQ x DP
-  bf16* sK = sDO + BQ * DP;                  // BK x DP
-  bf16* sV = sK + BK * DP;                   // BK x DP
-  bf16* sDS = sV + BK * DP;                  // BQ x BK, bf16 dS
-  float* sS = reinterpret_cast<float*>(sDS + BQ * BK);  // BQ x BK scores
-  float* sDP = sS + BQ * BK;                 // BQ x BK, dO V^T
-  float* sLse = sDP + BQ * BK;               // BQ
-  float* sDelta = sLse + BQ;                 // BQ
+                    int H, int N, int M, int D, float scale, float c) {
+  constexpr int S = C::kStages, BK = C::kBS, BQ = C::kBR;
+  extern __shared__ unsigned char smem_raw[];
+  const BwdSmem<C> sm(smem_raw);
+  const uint32_t sQ = sm.res0, sDO = sm.res1, sK = sm.tile0, sV = sm.tile1;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int q0 = blockIdx.x * BQ;
-  const long long hd = (long long)H * D;  // row stride of dO and dQ
-  const bf16* qb = q + b * q_bs + (long long)h * D;
-  const bf16* kb = k + b * k_bs + (long long)h * D;
-  const bf16* vb = v + b * v_bs + (long long)h * D;
-  const bf16* dob = dout + b * N * hd + (long long)h * D;
+  const int tiles = (M + BK - 1) / BK;
+  // the last consumer warpgroups of a ragged last q tile may own no row
+  const int busy_groups = min(C::kGroups, (N - q0 + 63) / 64);
 
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < (2 * BQ + 2 * BK) * DP; i += NT) sQ[i] = zero;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(sm.full + 8 * s, 1);
+      mbar_init(sm.empty + 8 * s, 4 * busy_groups);  // one arrival a consumer warp
+    }
+    mbar_init(sm.rbar, 1);
+    mbar_init_fence();
+  }
   __syncthreads();
-  load_rows<DP>(sQ, qb, q_rs, q0, BQ, N, D, tid, NT);
-  load_rows<DP>(sDO, dob, hd, q0, BQ, N, D, tid, NT);
-  for (int i = tid; i < BQ; i += NT) {
-    const bool in = q0 + i < N;
-    sLse[i] = in ? lse[(long long)bh * N + q0 + i] : 0.f;
-    sDelta[i] = in ? delta[(long long)bh * N + q0 + i] : 0.f;
+
+  if (warp >= 4 * C::kGroups) {  // the producer warpgroup: one thread loads
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (warp == 4 * C::kGroups && lane == 0) {
+      mbar_expect_tx(sm.rbar, 2 * C::kResBytes);
+      for (int ch = 0; ch < C::kChunks; ++ch) {
+        tma_load_4d(sQ + ch * BQ * 128, &tq, sm.rbar, ch * 64, h, q0, b);
+        tma_load_4d(sDO + ch * BQ * 128, &tdo, sm.rbar, ch * 64, h, q0, b);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(sm.empty + 8 * s, ((t / S) - 1) & 1);
+        mbar_expect_tx(sm.full + 8 * s, 2 * C::kTileBytes);
+        const uint32_t ks = sK + s * C::kTileBytes, vs = sV + s * C::kTileBytes;
+        for (int ch = 0; ch < C::kChunks; ++ch) {
+          tma_load_4d(ks + ch * BK * 128, &tk, sm.full + 8 * s, ch * 64, h,
+                      t * BK, b);
+          tma_load_4d(vs + ch * BK * 128, &tv, sm.full + 8 * s, ch * 64, h,
+                      t * BK, b);
+        }
+      }
+    }
+  } else {  // the consumers: warpgroup g, its warp wq owns rows 16 wq .. + 15
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int g = warp >> 2;
+    const int wq = warp & 3;
+    if (g >= busy_groups) return;
+    const uint32_t sQg = sQ + 64 * g * 128, sDOg = sDO + 64 * g * 128;
+    // this thread's rows: row0 and row0 + 8; their lse (times log2 e) and
+    // delta, zero past N (those rows are zero in Q and dO, never written)
+    const int row0 = q0 + 64 * g + 16 * wq + (lane >> 2);
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = row0 + 8 * r < N;
+      const long long i = (long long)bh * N + row0 + 8 * r;
+      l2[r] = in ? lse[i] * kLog2e : 0.f;
+      dl[r] = in ? delta[i] : 0.f;
+    }
+    float acc[C::kDepth / 2];
+#pragma unroll
+    for (int i = 0; i < C::kDepth / 2; ++i) acc[i] = 0.f;
+    mbar_wait(sm.rbar, 0);
+
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % S;
+      mbar_wait(sm.full + 8 * s, (t / S) & 1);
+      __syncwarp();  // converged again for the warpgroup-wide wgmma
+      const uint32_t ks = sK + s * C::kTileBytes, vs = sV + s * C::kTileBytes;
+
+      // S = Q K^T, dP = dO V^T
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
+      scores<C>(sc, sQg, ks);
+      scores<C>(dp, sDOg, vs);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P = exp2(S c - lse log2 e), 0 past M; dS = P (dP - delta)
+      const int k0 = t * BK;
+      if (k0 + BK > M)
+        ds_rows<true>(sc, dp, l2, dl, c, M - k0, lane);
+      else
+        ds_rows<false>(sc, dp, l2, dl, c, BK, lane);
+
+      // dQ += dS K
+      uint32_t dsa[BK / 16][4];
+      to_bf16(dsa, sc);
+      wgmma_fence();
+      product<C>(acc, dsa, ks);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(dsa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty + 8 * s);
+    }
+
+    const long long hd = (long long)H * D;  // row stride of dQ
+    store_rows(acc, dq + (long long)b * N * hd + (long long)h * D, hd, row0,
+               N, D, scale, lane);
   }
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fbt;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DP / 16];
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  for (int k0 = 0; k0 < M; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<DP>(sK, kb, k_rs, k0, BK, M, D, tid, NT);
-    load_rows<DP>(sV, vb, v_rs, k0, BK, M, D, tid, NT);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fill_fragment(fc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * DP + kk * 16, DP);
-        wmma::load_matrix_sync(fbt, sK + n * 16 * DP + kk * 16, DP);
-        wmma::mma_sync(fc, fa, fbt, fc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * BK + n * 16, fc, BK,
-                              wmma::mem_row_major);
-      wmma::fill_fragment(fc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::load_matrix_sync(fa, sDO + warp * 16 * DP + kk * 16, DP);
-        wmma::load_matrix_sync(fbt, sV + n * 16 * DP + kk * 16, DP);
-        wmma::mma_sync(fc, fa, fbt, fc);
-      }
-      wmma::store_matrix_sync(sDP + warp * 16 * BK + n * 16, fc, BK,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // dS = P o (dP - delta), P = exp(S * scale - lse), masked past M
-    for (int i = lane; i < 16 * BK; i += 32) {
-      const int r = warp * 16 + i / BK, j = i % BK;
-      const float p = (k0 + j < M)
-                          ? __expf(sS[r * BK + j] * scale - sLse[r]) : 0.f;
-      sDS[r * BK + j] = __float2bfloat16(p * (sDP[r * BK + j] - sDelta[r]));
-    }
-    __syncwarp();
-
-    // dQ += dS K
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::load_matrix_sync(fa, sDS + warp * 16 * BK + kk * 16, BK);
-        wmma::load_matrix_sync(fb, sK + kk * 16 * DP + n * 16, DP);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-    }
-  }
-
-  __syncwarp();
-  bf16* dqb = dq + b * N * hd + (long long)h * D;
-  store_acc<DP>(acc, sS + warp * 16 * BK, dqb, hd, q0 + warp * 16, N, D,
-                scale, lane);
 }
 
-// K5b: one block per (k tile, batch*head) streams q/dO tiles and
-// accumulates dV = P^T dO and dK = scale * [P o (dP - delta)]^T Q. The
-// scores are computed transposed (S^T = K Q^T), so each warp's 16 k rows
-// are the rows of its products.
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(BwdDkvCfg<DP, BQ, BK>::kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// K5b: dV = sum over q/dO tiles of P^T dO and dK = scale * sum of
+// [P o (dO V^T - delta)]^T Q, from S^T = K Q^T and dP^T = V dO^T
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int H, int N, int M, int D,
-                     long long q_bs, long long q_rs, long long k_bs,
-                     long long k_rs, long long v_bs, long long v_rs,
-                     float scale) {
-  constexpr int NT = BwdDkvCfg<DP, BQ, BK>::kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // BK x DP
-  bf16* sV = sK + BK * DP;                   // BK x DP
-  bf16* sQ = sV + BK * DP;                   // BQ x DP
-  bf16* sDO = sQ + BQ * DP;                  // BQ x DP
-  bf16* sP = sDO + BQ * DP;                  // BK x BQ, bf16 P^T
-  bf16* sDS = sP + BK * BQ;                  // BK x BQ, bf16 dS^T
-  float* sS = reinterpret_cast<float*>(sDS + BK * BQ);  // BK x BQ, S^T
-  float* sDP = sS + BK * BQ;                 // BK x BQ, dP^T
-  float* sLse = sDP + BK * BQ;               // BQ
-  float* sDelta = sLse + BQ;                 // BQ
+                     float scale, float c) {
+  constexpr int S = C::kStages, BQ = C::kBS, BK = C::kBR;
+  extern __shared__ unsigned char smem_raw[];
+  const BwdSmem<C> sm(smem_raw);
+  const uint32_t sK = sm.res0, sV = sm.res1, sQ = sm.tile0, sDO = sm.tile1;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int k0 = blockIdx.x * BK;
-  const long long hd = (long long)H * D;
-  const bf16* qb = q + b * q_bs + (long long)h * D;
-  const bf16* kb = k + b * k_bs + (long long)h * D;
-  const bf16* vb = v + b * v_bs + (long long)h * D;
-  const bf16* dob = dout + b * N * hd + (long long)h * D;
+  const int tiles = (N + BQ - 1) / BQ;
+  const int busy_groups = min(C::kGroups, (M - k0 + 63) / 64);
 
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < (2 * BK + 2 * BQ) * DP; i += NT) sK[i] = zero;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      // the producer warp's 32 lanes arrive, each after its statistics
+      mbar_init(sm.full + 8 * s, 32);
+      mbar_init(sm.empty + 8 * s, 4 * busy_groups);
+    }
+    mbar_init(sm.rbar, 1);
+    mbar_init_fence();
+  }
   __syncthreads();
-  load_rows<DP>(sK, kb, k_rs, k0, BK, M, D, tid, NT);
-  load_rows<DP>(sV, vb, v_rs, k0, BK, M, D, tid, NT);
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fbt;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_k[DP / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_v[DP / 16];
+  if (warp >= 4 * C::kGroups) {  // the producer warpgroup: its first warp
+    setmaxnreg_dec<C::kProducerRegs>();  // loads, the rest leave
+    if (warp == 4 * C::kGroups) {
+      if (lane == 0) {
+        mbar_expect_tx(sm.rbar, 2 * C::kResBytes);
+        for (int ch = 0; ch < C::kChunks; ++ch) {
+          tma_load_4d(sK + ch * BK * 128, &tk, sm.rbar, ch * 64, h, k0, b);
+          tma_load_4d(sV + ch * BK * 128, &tv, sm.rbar, ch * 64, h, k0, b);
+        }
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(sm.empty + 8 * s, ((t / S) - 1) & 1);
+        // the stage's lse (times log2 e) and delta, zero past N
+        float* st = sm.stats + s * 2 * BQ;
+        for (int i = lane; i < BQ; i += 32) {
+          const int q = t * BQ + i;
+          const bool in = q < N;
+          st[i] = in ? lse[(long long)bh * N + q] * kLog2e : 0.f;
+          st[BQ + i] = in ? delta[(long long)bh * N + q] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(sm.full + 8 * s, 2 * C::kTileBytes);
+          const uint32_t qs = sQ + s * C::kTileBytes, ds = sDO + s * C::kTileBytes;
+          for (int ch = 0; ch < C::kChunks; ++ch) {
+            tma_load_4d(qs + ch * BQ * 128, &tq, sm.full + 8 * s, ch * 64, h,
+                        t * BQ, b);
+            tma_load_4d(ds + ch * BQ * 128, &tdo, sm.full + 8 * s, ch * 64, h,
+                        t * BQ, b);
+          }
+        } else {
+          mbar_arrive(sm.full + 8 * s);
+        }
+      }
+    }
+  } else {  // the consumers: warpgroup g, its warp wk owns k rows 16 wk .. + 15
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int g = warp >> 2;
+    const int wk = warp & 3;
+    if (g >= busy_groups) return;
+    const uint32_t sKg = sK + 64 * g * 128, sVg = sV + 64 * g * 128;
+    float acc_k[C::kDepth / 2], acc_v[C::kDepth / 2];
 #pragma unroll
-  for (int n = 0; n < DP / 16; ++n) {
-    wmma::fill_fragment(acc_k[n], 0.f);
-    wmma::fill_fragment(acc_v[n], 0.f);
+    for (int i = 0; i < C::kDepth / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    mbar_wait(sm.rbar, 0);
+
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % S;
+      mbar_wait(sm.full + 8 * s, (t / S) & 1);
+      __syncwarp();
+      const uint32_t qs = sQ + s * C::kTileBytes, ds = sDO + s * C::kTileBytes;
+
+      // S^T = K Q^T, dP^T = V dO^T
+      float sc[BQ / 2], dp[BQ / 2];
+      wgmma_fence();
+      scores<C>(sc, sKg, qs);
+      scores<C>(dp, sVg, ds);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P^T = exp2(S^T c - lse log2 e), 0 past N; dS^T = P^T (dP^T - delta)
+      const float* st = sm.stats + s * 2 * BQ;
+      const int q0 = t * BQ;
+      if (q0 + BQ > N)
+        p_ds_cols<true>(sc, dp, st, c, N - q0, lane);
+      else
+        p_ds_cols<false>(sc, dp, st, c, BQ, lane);
+
+      // dV += P^T dO, dK += dS^T Q
+      uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+      to_bf16(pa, sc);
+      to_bf16(dsa, dp);
+      wgmma_fence();
+      product<C>(acc_v, pa, ds);
+      product<C>(acc_k, dsa, qs);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc_k);
+      fence_regs(acc_v);
+      fence_regs(pa);
+      fence_regs(dsa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty + 8 * s);
+    }
+
+    const long long hd = (long long)H * D;  // row stride of dK and dV
+    const long long off = (long long)b * M * hd + (long long)h * D;
+    const int row0 = k0 + 64 * g + 16 * wk + (lane >> 2);
+    store_rows(acc_v, dv + off, hd, row0, M, D, 1.f, lane);
+    store_rows(acc_k, dk + off, hd, row0, M, D, scale, lane);
   }
-
-  for (int q0 = 0; q0 < N; q0 += BQ) {
-    __syncthreads();  // every warp is done with the previous q/dO tile
-    load_rows<DP>(sQ, qb, q_rs, q0, BQ, N, D, tid, NT);
-    load_rows<DP>(sDO, dob, hd, q0, BQ, N, D, tid, NT);
-    for (int i = tid; i < BQ; i += NT) {
-      const bool in = q0 + i < N;
-      sLse[i] = in ? lse[(long long)bh * N + q0 + i] : 0.f;
-      sDelta[i] = in ? delta[(long long)bh * N + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 k rows
-    for (int n = 0; n < BQ / 16; ++n) {
-      wmma::fill_fragment(fc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::load_matrix_sync(fa, sK + warp * 16 * DP + kk * 16, DP);
-        wmma::load_matrix_sync(fbt, sQ + n * 16 * DP + kk * 16, DP);
-        wmma::mma_sync(fc, fa, fbt, fc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * BQ + n * 16, fc, BQ,
-                              wmma::mem_row_major);
-      wmma::fill_fragment(fc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::load_matrix_sync(fa, sV + warp * 16 * DP + kk * 16, DP);
-        wmma::load_matrix_sync(fbt, sDO + n * 16 * DP + kk * 16, DP);
-        wmma::mma_sync(fc, fa, fbt, fc);
-      }
-      wmma::store_matrix_sync(sDP + warp * 16 * BQ + n * 16, fc, BQ,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // P^T and dS^T; q columns past N are masked to 0
-    for (int i = lane; i < 16 * BQ; i += 32) {
-      const int r = warp * 16 + i / BQ, j = i % BQ;
-      const float p = (q0 + j < N)
-                          ? __expf(sS[r * BQ + j] * scale - sLse[j]) : 0.f;
-      sP[r * BQ + j] = __float2bfloat16(p);
-      sDS[r * BQ + j] = __float2bfloat16(p * (sDP[r * BQ + j] - sDelta[j]));
-    }
-    __syncwarp();
-
-    // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        wmma::load_matrix_sync(fa, sP + warp * 16 * BQ + kk * 16, BQ);
-        wmma::load_matrix_sync(fb, sDO + kk * 16 * DP + n * 16, DP);
-        wmma::mma_sync(acc_v[n], fa, fb, acc_v[n]);
-        wmma::load_matrix_sync(fa, sDS + warp * 16 * BQ + kk * 16, BQ);
-        wmma::load_matrix_sync(fb, sQ + kk * 16 * DP + n * 16, DP);
-        wmma::mma_sync(acc_k[n], fa, fb, acc_k[n]);
-      }
-    }
-  }
-
-  __syncwarp();
-  float* stage = sS + warp * 16 * BQ;
-  const int row0 = k0 + warp * 16;
-  store_acc<DP>(acc_v, stage, dv + b * M * hd + (long long)h * D, hd, row0,
-                M, D, 1.f, lane);
-  store_acc<DP>(acc_k, stage, dk + b * M * hd + (long long)h * D, hd, row0,
-                M, D, scale, lane);
 }
 
-template <typename Kern>
-int prepare(Kern kern, size_t smem) {
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <int DP, int BQ, int BK>
+// K5a (kDq) or K5b: four tensor maps per launch; Q/dO boxes of the
+// resident (K5a) or streamed (K5b) rows, K/V boxes the other way round
+template <class C, bool kDq>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk,
                void* dv, int B, int H, int N, int M, int D, long long q_bs,
                long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                long long v_rs, float scale, cudaStream_t stream) {
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dop = static_cast<const bf16*>(dout);
-  if (dq != nullptr) {
-    using Cfg = BwdDqCfg<DP, BQ, BK>;
-    auto kern = flash_bwd_dq_kernel<DP, BQ, BK>;
-    int err = prepare(kern, Cfg::kSmemBytes);
+  const int q_box = kDq ? C::kBR : C::kBS;
+  const int kv_box = kDq ? C::kBS : C::kBR;
+  const long long hd = (long long)H * D;  // dO is contiguous
+  CUtensorMap tq, tk, tv, tdo;
+  int err = tensor_map(&tq, q, D, H, N, B, q_rs, q_bs, q_box);
+  if (err == 0) err = tensor_map(&tk, k, D, H, M, B, k_rs, k_bs, kv_box);
+  if (err == 0) err = tensor_map(&tv, v, D, H, M, B, v_rs, v_bs, kv_box);
+  if (err == 0) err = tensor_map(&tdo, dout, D, H, N, B, hd, N * hd, q_box);
+  if (err != 0) return err;
+  static unsigned long long smem_set = 0;
+  const float c = scale * kLog2e;
+  if constexpr (kDq) {
+    auto kern = flash_bwd_dq_kernel<C>;
+    err = allow_smem(kern, C::kSmemBytes, smem_set);
     if (err != 0) return err;
-    dim3 grid((N + BQ - 1) / BQ, B * H);
-    kern<<<grid, Cfg::kThreads, Cfg::kSmemBytes, stream>>>(
-        qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dq), H, N, M, D,
-        q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale);
+    dim3 grid((N + C::kBR - 1) / C::kBR, B * H);
+    kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), H, N, M, D, scale,
+        c);
   } else {
-    using Cfg = BwdDkvCfg<DP, BQ, BK>;
-    auto kern = flash_bwd_dkv_kernel<DP, BQ, BK>;
-    int err = prepare(kern, Cfg::kSmemBytes);
+    auto kern = flash_bwd_dkv_kernel<C>;
+    err = allow_smem(kern, C::kSmemBytes, smem_set);
     if (err != 0) return err;
-    dim3 grid((M + BK - 1) / BK, B * H);
-    kern<<<grid, Cfg::kThreads, Cfg::kSmemBytes, stream>>>(
-        qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), H, N, M, D, q_bs, q_rs, k_bs, k_rs, v_bs,
-        v_rs, scale);
+    dim3 grid((M + C::kBR - 1) / C::kBR, B * H);
+    kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), H, N, M, D, scale, c);
   }
   return (int)cudaGetLastError();
 }
 
+// K5a when dq is given, else K5b
 int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, void* dk,
               void* dv, int B, int H, int N, int M, int D, long long q_bs,
               long long q_rs, long long k_bs, long long k_rs, long long v_bs,
               long long v_rs, float scale, void* stream) {
+  // d = 40 (the 64^2 sites) and 80 (the 32^2 sites); the training path
+  // routes no other head dim here
+  const int padded = (D + 15) / 16 * 16;
+  if (padded != 48 && padded != 80) return (int)cudaErrorInvalidValue;
+  auto launch = dq != nullptr
+                    ? (padded == 48 ? launch_bwd<Dq40, true> : launch_bwd<Dq80, true>)
+                    : (padded == 48 ? launch_bwd<Dkv40, false>
+                                    : launch_bwd<Dkv80, false>);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((D + 15) / 16 * 16) {
-    case 48:  // d = 40: the 64^2 sites
-      return launch_bwd<48, 64, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                                    H, N, M, D, q_bs, q_rs, k_bs, k_rs, v_bs,
-                                    v_rs, scale, s);
-    case 80:  // d = 80: the 32^2 sites
-      return launch_bwd<80, 64, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                                    H, N, M, D, q_bs, q_rs, k_bs, k_rs, v_bs,
-                                    v_rs, scale, s);
-    default:  // the training path routes no other head dim here
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, q_bs,
+                q_rs, k_bs, k_rs, v_bs, v_rs, scale, s);
 }
 
 }  // namespace

@@ -62,6 +62,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------------------
+// setmaxnreg: a warpgroup hands registers back to the SM's pool (dec) or
+// takes more (inc). All four warps of the warpgroup execute it together,
+// on a path that never rejoins the other warpgroups' (or ptxas ignores it).
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+// ---------------------------------------------------------------------------
 // TMA: one box of a 4-d tensor map into shared memory, completion counted
 // in transaction bytes on `bar`
 

@@ -19,7 +19,7 @@ their atol is absolute. K5a and K5b (dQ, and dK with dV) are sums over N or
 M terms whose scale follows the inputs, so their atol is a fraction of
 rms(b) too, at K1's values. Their plain version rounds P and dS to bf16
 where the kernels do (K1's plain version keeps P in f32), so they sit
-closer to it: on the H100 their whole-tensor error is at most 2.2e-4 of
+closer to it: on the H100 their whole-tensor error is at most 2.4e-4 of
 rms(b), against K1's 2.5e-3, and their rms bound is 2e-3, under the 5e-3
 that a 0.5 % scale error of the output gives. "lse" is K1's log-sum-exp
 output (about log M, an f32 sum of f32 exponentials on both sides), held

@@ -10,7 +10,9 @@ the d = 512 head and two launches agreeing bit for bit (a race in the
 K/V stage ring would not); odd group widths, wide and
 narrow LayerNorm rows, a partial FF row block; the training path's
 kernels: K1's lse output, the K5a/K5b backward at the ragged training
-shapes (N = M = 4126 and 1054), and the gradients of the K1-K4 autograd
+shapes (N = M = 4126 and 1054), on operands fenced by NaN and Inf, into
+outputs filled with NaN (every element written, nothing past N, M or d),
+and bitwise repeatable over launches, and the gradients of the K1-K4 autograd
 Functions against the plain versions on the card; and the opt-in FF and
 GEMM kernels K6, K7, K8a and K8b: ragged M, K = 1280 with inner = 5120,
 the scale s as a device tensor, int8 weights whose width is not a multiple
@@ -27,7 +29,10 @@ import pytest
 import torch
 
 from layoutllm_t2i_torch import kernels as K
-from layoutllm_t2i_torch.kernels.flash_attention import FlashAttention, _launch_fwd
+from layoutllm_t2i_torch.kernels.build import check, lib
+from layoutllm_t2i_torch.kernels.dispatch import stream_handle
+from layoutllm_t2i_torch.kernels.flash_attention import (FlashAttention, _bwd_args,
+                                                         _launch_fwd)
 from layoutllm_t2i_torch.kernels.tolerance import agreement
 
 pytestmark = pytest.mark.cuda
@@ -277,6 +282,91 @@ def test_flash_attention_backward_strided_operands(dev, gen):
     _check("K5b", lambda: K.flash_attention_bwd_dkv(q, k, v, dout, lse,
                                                      delta, heads, 0.2),
            lambda: ref[1:], K.flash_attention_bwd_dkv)
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_flash_attention_backward_never_reads_outside_its_operands(dev, gen, d):
+    # K5a/K5b read q, k and v through the same TMA maps as K1: fenced by NaN
+    # and Inf columns and NaN rows, the gradients stay finite and right
+    b, n, m, heads = 2, 700, 650, 4
+    q, k, v = (_fenced(gen, b, rows, heads, d) for rows in (n, m, m))
+    dout = _rand(gen, b, n, heads * d, scale=0.1)
+    s = d ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
+    delta = K.attention_delta(out, dout, heads)
+    ref = K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, s)
+    _check("K5a", lambda: K.flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                                    heads, s),
+           lambda: ref[0], K.flash_attention_bwd_dq)
+    _check("K5b", lambda: K.flash_attention_bwd_dkv(q, k, v, dout, lse,
+                                                     delta, heads, s),
+           lambda: ref[1:], K.flash_attention_bwd_dkv)
+
+
+def _bwd_into_nan(q, k, v, dout, lse, delta, heads, s, guard=4096):
+    """K5a and K5b through their C entry points into output buffers filled
+    with NaN, each followed by ``guard`` more NaN elements: (dq, dk, dv,
+    the three guards)."""
+    b, n, hc = q.shape
+    m = k.shape[1]
+    bufs = [torch.full((b * rows * hc + guard,), float("nan"), device=q.device,
+                       dtype=torch.bfloat16) for rows in (n, m, m)]
+    ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
+    lib_fa, stream = lib("flash_attention"), stream_handle(q.device)
+    check(lib_fa.llt2i_flash_bwd_dq(*ptrs, bufs[0].data_ptr(), *dims, float(s),
+                                    stream), "flash_attention_bwd_dq")
+    check(lib_fa.llt2i_flash_bwd_dkv(*ptrs, bufs[1].data_ptr(),
+                                     bufs[2].data_ptr(), *dims, float(s),
+                                     stream), "flash_attention_bwd_dkv")
+    torch.cuda.synchronize()
+    outs = [buf[:-guard].view(b, rows, hc) for buf, rows in zip(bufs, (n, m, m))]
+    return outs, [buf[-guard:] for buf in bufs]
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", [
+    (2, 700, 650, 4, 40),     # ragged N and M, the 48-column padded tile
+    (2, 650, 700, 4, 80),
+    (1, 1, 130, 2, 40),       # one q row
+    (1, 130, 2, 2, 80),       # two k rows (with one, dQ is 0 exactly)
+    (3, 4127, 4126, 8, 40),   # neither a multiple of a stage nor of 128
+])
+def test_flash_attention_backward_writes_only_its_outputs(dev, gen, b, n, m,
+                                                          heads, d):
+    # every element of dQ, dK and dV is written (none stays NaN), nothing
+    # past the last row (the guards stay NaN), and no row past N or M nor
+    # column past d overwrites another row's or head's values
+    q, k, v, dout = _attention_inputs(gen, b, n, m, heads, d)
+    s = d ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
+    delta = K.attention_delta(out, dout, heads)
+    ref = K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, s)
+    (dq, dk, dv), guards = _bwd_into_nan(q, k, v, dout, lse, delta, heads, s)
+    assert all(bool(g.isnan().all()) for g in guards)
+    got = agreement("K5a", dq, ref[0])
+    assert got["ok"], got
+    got = agreement("K5b", (dk, dv), ref[1:])
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", [
+    (4, 4126, 4126, 8, 40),
+    (4, 1054, 1054, 8, 80),
+])
+def test_flash_attention_backward_is_bitwise_repeatable(dev, gen, b, n, m,
+                                                        heads, d):
+    # each output row is summed by one block in a fixed order: no atomics,
+    # so repeated launches agree bit for bit (a race in the stage ring
+    # would not)
+    q, k, v, dout = _attention_inputs(gen, b, n, m, heads, d)
+    s = d ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
+    delta = K.attention_delta(out, dout, heads)
+    runs = [(K.flash_attention_bwd_dq(q, k, v, dout, lse, delta, heads, s),
+             *K.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, heads, s))
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], run))
 
 
 def test_flash_attention_backward_uninstantiated_head_dim_raises(dev, gen):

@@ -236,26 +236,45 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
                         fault=None, bq=64, bk=64):
     """csrc/flash_attention.cu's K5a (dQ) or K5b (dK, dV) algorithm in f32
     on the CPU: K5a streams K/V in BK-row tiles, K5b streams q/dO in
-    BQ-row tiles; P = exp(S * scale - lse), dS = P o (dO V^T - delta), both
-    cast to bf16 before their products; outputs in bf16. ``fault`` injects
-    a mistake the kernels could make."""
+    BQ-row tiles (csrc Dq40, Dkv40, Dq80, Dkv80: 64 rows a stage at d 40
+    and 80);
+    P = exp2(S c - lse log2 e) on the raw scores S, with c = scale log2(e)
+    rounded to f32 as the host rounds it and the lse times log2(e) in f32
+    as the kernels take it; dS = P o (dO V^T - delta); P and dS cast to
+    bf16 before their products; outputs in bf16. ``fault`` injects a
+    mistake the kernels could make."""
     b, n, hc = q.shape
     m, d = k.shape[1], hc // heads
     split = lambda t: t.float().view(b, -1, heads, d).transpose(1, 2)
     qh, kh, vh, doh = split(q), split(k), split(v), split(dout)
-    lse, delta = lse[..., None], delta[..., None]
-    s_p = scale * 1.005 if fault == "scale" else scale    # 0.5 % logit scale
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    c = torch.tensor(scale, dtype=torch.float32) * log2e
+    if fault == "scale":                                  # 0.5 % logit scale
+        c = c * 1.005
+    # the lse as the exponent takes it; "lse_log2" skips the change of base
+    l2 = lse[..., None] if fault == "lse_log2" else lse[..., None] * log2e
+    delta = delta[..., None]
     out_mul = 1.0 if fault == "out_scale" else scale      # dropped final scale
     bf = lambda t: t.to(torch.bfloat16).float()
+
+    def packed(t, rows):
+        t = t.transpose(1, 2).reshape(b, rows, hc).to(torch.bfloat16)
+        if fault == "pad_neighbour":
+            # d = 40's 48-column tile written whole: its 8 pad columns
+            # (zero: Q and K read zeros past d) over the next head's first 8
+            flat = t.reshape(-1, d)
+            flat[1:, :8] = 0
+        return t
+
     if kid == "K5a":
         dq = torch.zeros(b, heads, n, d)
         end = m - m % bk if fault == "kv_tail" else m
         for k0 in range(0, end, bk):
             kt, vt = kh[:, :, k0:k0 + bk], vh[:, :, k0:k0 + bk]
-            p = torch.exp(qh @ kt.transpose(-1, -2) * s_p - lse)
+            p = torch.exp2(qh @ kt.transpose(-1, -2) * c - l2)
             dq += bf(p * (doh @ vt.transpose(-1, -2) - delta)) @ kt
         dq = dq * out_mul * (1.005 if fault == "skew" else 1.0)
-        return dq.transpose(1, 2).reshape(b, n, hc).to(torch.bfloat16)
+        return packed(dq, n)
     if fault == "q_tail":
         # the last q tile reads past N: the rows that follow in memory (the
         # next batch element's first rows, the next (b, h) row's lse/delta)
@@ -265,13 +284,13 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
         flat = lambda t: torch.cat(
             [t, t.reshape(b * heads, n, 1).roll(-1, 0)[:, :pad]
              .reshape(b, heads, pad, 1)], dim=2)
-        lse, delta = flat(lse), flat(delta)
+        l2, delta = flat(l2), flat(delta)
     dk = torch.zeros(b, heads, m, d)
     dv = torch.zeros(b, heads, m, d)
     for q0 in range(0, qh.shape[2], bq):
         qt, dot = qh[:, :, q0:q0 + bq], doh[:, :, q0:q0 + bq]
-        lt, dt = lse[:, :, q0:q0 + bq], delta[:, :, q0:q0 + bq]
-        p = torch.exp(qt @ kh.transpose(-1, -2) * s_p - lt)
+        lt, dt = l2[:, :, q0:q0 + bq], delta[:, :, q0:q0 + bq]
+        p = torch.exp2(qt @ kh.transpose(-1, -2) * c - lt)
         ds = bf(p * (dot @ vh.transpose(-1, -2) - dt))
         dv += bf(p).transpose(-1, -2) @ dot
         dk += ds.transpose(-1, -2) @ qt
@@ -279,22 +298,32 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
     if fault == "kv_tail":   # the last, ragged k tile is never written
         dk[:, :, m - m % bk:] = 0
         dv[:, :, m - m % bk:] = 0
-    packed = lambda t: t.transpose(1, 2).reshape(b, m, hc).to(torch.bfloat16)
-    return packed(dk), packed(dv)
+    return packed(dk, m), packed(dv, m)
 
 
-@pytest.mark.parametrize("kid,fault", [
-    ("K5a", None), ("K5a", "kv_tail"), ("K5a", "scale"), ("K5a", "out_scale"),
-    ("K5a", "skew"),
-    ("K5b", None), ("K5b", "kv_tail"), ("K5b", "q_tail"), ("K5b", "scale"),
-    ("K5b", "out_scale"), ("K5b", "skew"),
+_K5_FAULTS = {"K5a": (None, "kv_tail", "scale", "out_scale", "skew"),
+              "K5b": (None, "kv_tail", "q_tail", "scale", "out_scale", "skew")}
+
+
+@pytest.mark.parametrize("d,kid,fault", [
+    # d 80: the first cases, under their first ids
+    *(pytest.param(80, kid, fault, id=f"{kid}-{fault}")
+      for kid, faults in _K5_FAULTS.items() for fault in faults),
+    *(pytest.param(80, kid, "lse_log2", id=f"d80-{kid}-lse_log2")
+      for kid in _K5_FAULTS),
+    *(pytest.param(40, kid, fault, id=f"d40-{kid}-{fault}")
+      for kid, faults in _K5_FAULTS.items()
+      for fault in faults + ("pad_neighbour", "lse_log2")),
 ])
-def test_k5_tolerance_separates_rounding_from_faults(kid, fault):
-    # the 32^2 gated sites at two batch elements: N = M = 1054 = 16 * 64 + 30
-    # leaves ragged q and KV tails of 30 rows; "scale" is a 0.5 % error of
-    # the softmax scale, "out_scale" drops the final scale of dQ or dK,
-    # "skew" is a 0.5 % error of dQ or dK, "q_tail" reads past N
-    b, heads, n, d = 2, 2, 1054, 80
+def test_k5_tolerance_separates_rounding_from_faults(d, kid, fault):
+    # the 32^2 gated sites at two batch elements, and the 64^2 sites' head
+    # dim at the same length: N = M = 1054 = 16 * 64 + 30 leaves ragged q
+    # and KV tails of 30 rows; "scale" is a 0.5 % error of the softmax
+    # scale, "out_scale" drops the final scale of dQ or dK, "skew" is a
+    # 0.5 % error of dQ or dK, "q_tail" reads past N, "pad_neighbour"
+    # writes d = 40's padded tile over the next head, "lse_log2" takes the
+    # natural-log lse as if it were in base 2
+    b, heads, n = 2, 2, 1054
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(b, n, heads * d, generator=g).to(torch.bfloat16)
                for _ in range(3))

@@ -194,3 +194,36 @@ def test_unet_walk_matches_the_calls_on_each_route(recorded, route):
     want = cs.unet_calls(cfg, b, 30, 5, TOK_LEN, route=r)
     assert {kid for kid, _ in want} - {"K1", "K2", "K3"} == ff_kernels
     assert collections.Counter(recorded) == collections.Counter(want)
+
+
+@pytest.mark.parametrize("args", [(8, 4096, 4096, 8, 40), (8, 1054, 1054, 8, 80),
+                                  (2, 70, 33, 3, 40)])
+def test_k5_pair_bound_counts_the_function_once(monkeypatch, args):
+    """The K5 pair row is held to SDPA's whole backward, so its bound is
+    that function's: five N x M x d products and B*H*N*M exponentials, each
+    counted once, every operand read and every gradient written once. The
+    sum of K5a's and K5b's own bounds counts S, dP and the inputs twice."""
+    b, n, m, h, d = args
+    clock = 1.98e9
+    rows = {}
+    for kid in ("K5a", "K5b"):
+        rows[kid] = {"shape": "s", "paths": ["train"], "ok": True, "ms": 2.0,
+                     "device_ms": 1.5, "library_ms": 1.0 + (kid == "K5b"),
+                     "library_device_ms": 1.0,
+                     "exp_ms": cs.exp_ms(float(b) * h * n * m, clock)}
+    emitted = []
+    monkeypatch.setattr(cs, "emit", emitted.append)
+    pair = {key: 0.0 for key in cs.PAIR_SUMS}
+    pair["shapes"], pair["max_vs_library"] = 0, 0.0
+    cs.pair_record(rows["K5a"], rows["K5b"], args, clock, pair)
+    (rec,) = emitted
+    flops = 10.0 * b * h * n * m * d
+    nbytes = 2.0 * (3 * b * n * h * d + 4 * b * m * h * d) + 8.0 * b * h * n
+    assert rec["bound_ms"] == pytest.approx(max(
+        flops / cs.H100_BF16_FLOPS, nbytes / cs.H100_HBM_BYTES) * 1e3)
+    # K5a's S, dP, dQ plus K5b's S, dP, dV, dK: 14 products where 10 are owed
+    assert rec["bound_ms"] < cs.bound(14.0 * b * h * n * m * d, 2 * nbytes)[0]
+    assert rec["exp_ms"] == rows["K5a"]["exp_ms"]
+    assert rec["ms"] == 4.0 and rec["library_ms"] == 1.5
+    assert rec["vs_library"] == pytest.approx(4.0 / 1.5)
+    assert pair["bound_ms"] == rec["bound_ms"] and pair["shapes"] == 1
