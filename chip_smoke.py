@@ -7,7 +7,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   1. build     nvcc-builds the five kernel libraries from csrc/ (sm_90a),
                prints build seconds, ptxas lines and the card's name and
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
-               in every K1, K5a and K5b kernel.
+               in every K1, K5a, K5b, K4 and K8a kernel (WGMMA_KERNELS;
+               K4's LN pre-pass does no product).
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
@@ -21,7 +22,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                `device_ms` and `library_device_ms` take the host out
                (device_time), and `host_us` is the kernel wrapper's host
                time a call. K1's, K5a's and K5b's rows add `exp_ms`, the
-               time of their exponentials at the SFUs' rate (exp_ms()),
+               time of their exponentials at the SFUs' rate (exp_ms()); the
+               rows of the kernels on wgmma (K1, K5a, K5b, K4, K8a) add
                `vs_library`, ms over library_ms, and `device_vs_library`.
                K5a's and K5b's library call is SDPA's whole backward (dQ,
                dK and dV), so after both rows of a shape a "K5 pair" row
@@ -128,8 +130,17 @@ TRAIN_GRAD_REL_TOL = 1e-2
 TRAIN_GRAD_CAUGHT = ("dk_unscaled",)
 TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 
-# the kernels written on csrc/hopper.cuh's wgmma (K1, K5a, K5b)
-WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# library -> its kernels written on csrc/hopper.cuh's wgmma: K1, K5a, K5b;
+# K4's up and down GEMMs and K8a on csrc/gemm_tiles.cuh. Each must show
+# HGMMA in its SASS, in every instantiation.
+WGMMA_KERNELS = {
+    "flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                        "flash_bwd_dkv_kernel"),
+    "ffn": ("ffn_up_wgmma_kernel", "ffn_down_wgmma_kernel"),
+    "matmul": ("linear_wgmma_kernel",),
+}
+# the kernels whose rows are held against their library call (vs_library)
+WGMMA_KIDS = ("K1", "K5a", "K5b", "K4", "K8a")
 
 KERNEL_META = {
     "K1": ("flash_attention", "layoutllm_t2i_torch/csrc/flash_attention.cu",
@@ -737,18 +748,21 @@ def phase_build():
 
     t0 = time.perf_counter()
     log = build.build_all()
-    # K1's, K5a's and K5b's kernels must run on the wgmma tensor-core path
-    # (HGMMA in SASS), each in every instantiation
-    hgmma = {fn: n for fn, n in sass_opcode_counts(
-        build.lib_path("flash_attention"), "HGMMA").items()
-        if any(name in fn for name in WGMMA_KERNELS)}
+    # the wgmma kernels must run on the tensor cores' wgmma path (HGMMA in
+    # SASS), each in every instantiation
+    hgmma, missing = {}, []
+    for lib, names in WGMMA_KERNELS.items():
+        found = {fn: n for fn, n in sass_opcode_counts(
+            build.lib_path(lib), "HGMMA").items()
+            if any(name in fn for name in names)}
+        hgmma.update(found)
+        missing += [name for name in names
+                    if not any(name in fn for fn in found)]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libs": log, "hgmma": hgmma})
-    missing = [name for name in WGMMA_KERNELS
-               if not any(name in fn for fn in hgmma)]
     if missing or not all(hgmma.values()):
-        raise SmokeFailure(f"flash-attention kernels without HGMMA in their "
-                           f"SASS: {hgmma}, none found of {missing}")
+        raise SmokeFailure(f"wgmma kernels without HGMMA in their SASS: "
+                           f"{hgmma}, none found of {missing}")
 
 
 def phase_kernels(cases):
@@ -786,6 +800,7 @@ def phase_kernels(cases):
         if kid in ("K1", "K5a", "K5b"):
             b, n, m, h = args[:4]
             rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
+        if kid in WGMMA_KIDS:
             rec["vs_library"] = rec["ms"] / rec["library_ms"]
             rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
         emit(rec)
@@ -1271,10 +1286,11 @@ PROFILE_GROUPS = (
     ("K5b flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("K2 group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("K3 layer_norm", ("ln_kernel",)),
-    ("K4 ffn_ln_geglu", ("ffn_up_kernel", "ffn_down_kernel")),
+    ("K4 ffn_ln_geglu", ("ffn_norm_rows_kernel", "ffn_up_wgmma_kernel",
+                         "ffn_down_wgmma_kernel")),
     ("K6 ffn_geglu", ("ffn_res_up_kernel", "ffn_res_down_kernel")),
     ("K7 ffn_ln_geglu_q", ("ffn_q_up_kernel", "ffn_q_down_kernel")),
-    ("K8a linear_fused", ("linear_fused_kernel",)),
+    ("K8a linear_fused", ("linear_wgmma_kernel",)),
     ("K8b geglu_fused", ("geglu_fused_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit", "winograd", "nhwc", "fprop",
                      "dgrad", "wgrad")),

@@ -24,37 +24,206 @@
 //
 // The TPU kernels keep a (bm, K) f32 accumulator resident across the inner
 // dimension; at K = 1280 that alone exceeds the 227 KB of shared memory a
-// Hopper block may use. So each function is split in two kernels:
-//   (a) an up kernel (geglu_up_tile): per 64x64 tile of the (M, 4K) GEGLU
-//       product, both up-projections on the tensor cores with f32
-//       accumulation (K4/K7: LN statistics of the 64 rows first, each A tile
-//       normalised and rounded to bf16 on its way into shared memory, as
-//       `_ffn_ln_kernel` rounds its LN'd row, ffn.py:89; K7: int8 weight
-//       tiles converted to bf16 in shared memory); the epilogue applies the
-//       scales and biases, a * gelu_erf(g) in f32, and writes h as bf16;
-//   (b) a down kernel (down_tile): the GEMM h W2^T whose epilogue computes
-//       bf16((acc * s2 + b2) * s) + residual, the rounding order of
-//       ffn.py:107-108 (K4), :66-67 (K6, s = 1) and :366-367 (K7).
-// Simple, not fast: see ffn_tiles.cuh.
+// Hopper block may use. So each function is split in two GEMMs with the
+// GEGLU product h (M, 4K) written once in bf16 between them.
+//
+// K4 runs on gemm_tiles.cuh's mainloop (TMA ring, wgmma, f32 accumulators
+// in registers), in three launches on the caller's stream:
+//   (0) ffn_norm_rows_kernel: bf16(LN(x)) of every row, once, into scratch
+//       (one warp a row, centred two-pass f32 statistics), the rounding
+//       point of `_ffn_ln_kernel` (ffn.py:89). It moves 4*M*K bytes, a few
+//       microseconds, where normalising each A tile in the up kernel would
+//       redo a row's LN in every one of its inner/128 column blocks.
+//   (1) ffn_up_wgmma_kernel: A = LN(x) and two B operands, the Wa and Wg
+//       rows of the same h columns, each with its own f32 accumulator; the
+//       epilogue computes (a + ba) * gelu_erf(g + bg) in f32 and rounds once
+//       to bf16 h. Tiles 128 x 128 of h.
+//   (2) ffn_down_wgmma_kernel: h W2^T, K8a's GEMM, whose epilogue computes
+//       bf16((acc + b2) * s) + x, the rounding order of ffn.py:107-108.
+//       Tiles 128 x 160 (or 80 where that fills the card better: M = 1024,
+//       K = 1280 would fill 64 SMs).
+//
+// K6 and K7 stay on ffn_tiles.cuh's first WMMA design: (a) an up kernel
+// (geglu_up_tile: per 64x64 tile of the (M, 4K) GEGLU product, both
+// up-projections, K7 with LN statistics of the 64 rows first and int8
+// weight tiles converted to bf16 in shared memory) and (b) a down kernel
+// (down_tile, the scaled-residual epilogue of ffn.py:66-67 (K6, s = 1) and
+// :366-367 (K7)). Simple, not fast: see ffn_tiles.cuh.
 #include "ffn_tiles.cuh"
+#include "gemm_tiles.cuh"
 
 using namespace ffn_tiles;
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-ffn_up_kernel(const bf16* x, const bf16* lnw, const bf16* lnb, const bf16* w1,
-              const bf16* b1, bf16* hout, int M, int K, int inner, float eps) {
-  geglu_up_tile<true, bf16>(x, lnw, lnb, w1, nullptr, b1, hout, M, K, inner, eps);
+// ---------------------------------------------------------------------------
+// K4
+
+constexpr int kNormRows = 8;  // rows (warps) a block of the LN pre-pass
+
+// xn = bf16(LayerNorm(x) * lnw + lnb), one warp a row: the mean, then the
+// centred variance, in f32 over 16-byte vectors (K % 8 == 0)
+__global__ void __launch_bounds__(kNormRows * 32)
+ffn_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
+                     const bf16* __restrict__ lnb, bf16* __restrict__ xn,
+                     int M, int K, float eps) {
+  const int row = blockIdx.x * kNormRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const int nv = K / 8;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (long long)row * K);
+  float f[8], s = 0.f;
+  for (int vi = lane; vi < nv; vi += 32) {
+    unpack8(xr[vi], f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += f[j];
+  }
+  const float mean = warp_sum(s) / K;
+  float ss = 0.f;
+  for (int vi = lane; vi < nv; vi += 32) {
+    unpack8(xr[vi], f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ss += (f[j] - mean) * (f[j] - mean);
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / K + eps);
+  uint4* yr = reinterpret_cast<uint4*>(xn + (long long)row * K);
+  for (int vi = lane; vi < nv; vi += 32) {
+    float g[8], b[8], o[8];
+    unpack8(xr[vi], f);
+    unpack8(reinterpret_cast<const uint4*>(lnw)[vi], g);
+    unpack8(reinterpret_cast<const uint4*>(lnb)[vi], b);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = (f[j] - mean) * rstd * g[j] + b[j];
+    yr[vi] = pack8(o);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-ffn_down_kernel(const bf16* h, const bf16* w2, const bf16* b2, const bf16* x,
-                bf16* out, const float* s_ptr, float s_val, int M, int K,
-                int inner) {
-  down_tile<Epilogue::kScaledResidual, bf16>(h, w2, nullptr, b2, x, out, s_ptr,
-                                              s_val, M, K, inner);
+// The up kernel's epilogue: h = bf16((a + ba) * gelu_erf(g + bg)), a and g
+// the two accumulators
+struct Geglu {
+  const bf16* ba;  // (inner,)
+  const bf16* bg;  // (inner,)
+  bf16* h;         // (M, inner)
+  int M, inner;
+
+  template <int NB, int W>
+  __device__ __forceinline__ void operator()(const float (&acc)[NB][W],
+                                             int row0, int n0,
+                                             int lane) const {
+    static_assert(NB == 2, "a and g");
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= M) continue;
+      bf16* hrow = h + (long long)row * inner;
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        if (col >= inner) continue;
+        const float2 va = gemm_tiles::load_pair(ba + col);
+        const float2 vg = gemm_tiles::load_pair(bg + col);
+        const int i = 4 * j + 2 * r;
+        gemm_tiles::store_pair(
+            hrow + col, (acc[0][i] + va.x) * gelu_erf(acc[1][i] + vg.x),
+            (acc[0][i + 1] + va.y) * gelu_erf(acc[1][i + 1] + vg.y));
+      }
+    }
+  }
+};
+
+// The down kernel's epilogue: out = bf16(bf16((acc + b2) * s) + x)
+struct ScaledResidual {
+  const bf16* b2;  // (K,)
+  const bf16* x;   // (M, K)
+  bf16* out;       // (M, K)
+  float s;
+  int M, K;
+
+  template <int NB, int W>
+  __device__ __forceinline__ void operator()(const float (&acc)[NB][W],
+                                             int row0, int n0,
+                                             int lane) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= M) continue;
+      const long long at = (long long)row * K;
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        if (col >= K) continue;
+        const float2 vb = gemm_tiles::load_pair(b2 + col);
+        const float2 vx = gemm_tiles::load_pair(x + at + col);
+        const int i = 4 * j + 2 * r;
+        const float y0 = __bfloat162float(__float2bfloat16((acc[0][i] + vb.x) * s));
+        const float y1 =
+            __bfloat162float(__float2bfloat16((acc[0][i + 1] + vb.y) * s));
+        gemm_tiles::store_pair(out + at + col, y0 + vx.x, y1 + vx.y);
+      }
+    }
+  }
+};
+
+// up tiles 128 x (2 x 128): at every main-path shape faster than 2 x 64,
+// which left fewer SMs idle in the last wave but ran m64n64 products; down
+// tiles 128 x 160, or 80 where that fills the card better
+using UpCfg = gemm_tiles::Cfg<128, 2>;
+using DownWide = gemm_tiles::Cfg<160, 1>;
+using DownNarrow = gemm_tiles::Cfg<80, 1>;
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap txn,
+                    const __grid_constant__ CUtensorMap twa,
+                    const __grid_constant__ CUtensorMap twg,
+                    const bf16* __restrict__ b1, bf16* __restrict__ h, int M,
+                    int K, int inner) {
+  gemm_tiles::gemm_tile<C>(&txn, &twa, &twg, K,
+                           Geglu{b1, b1 + inner, h, M, inner});
 }
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                      const __grid_constant__ CUtensorMap tw2,
+                      const bf16* __restrict__ b2, const bf16* __restrict__ x,
+                      bf16* __restrict__ out, const float* __restrict__ s_ptr,
+                      float s_val, int M, int K, int inner) {
+  const float s = s_ptr != nullptr ? *s_ptr : s_val;
+  gemm_tiles::gemm_tile<C>(&th, &tw2, nullptr, inner,
+                           ScaledResidual{b2, x, out, s, M, K});
+}
+
+template <class C>
+int launch_up(const void* xn, const void* w1, const void* b1, void* h, int M,
+              int K, int inner, cudaStream_t st) {
+  const bf16* wa = static_cast<const bf16*>(w1);
+  CUtensorMap txn, twa, twg;
+  int err = tensor_map_2d(&txn, xn, M, K, gemm_tiles::kBM);
+  if (err == 0) err = tensor_map_2d(&twa, wa, inner, K, C::kBN);
+  if (err == 0) err = tensor_map_2d(&twg, wa + (long long)inner * K, inner, K, C::kBN);
+  if (err != 0) return err;
+  return gemm_tiles::launch<C, ffn_up_wgmma_kernel<C>>(
+      M, inner, st, txn, twa, twg, static_cast<const bf16*>(b1),
+      static_cast<bf16*>(h), M, K, inner);
+}
+
+template <class C>
+int launch_down(const void* h, const void* w2, const void* b2, const void* x,
+                void* out, const void* s_ptr, float s_val, int M, int K,
+                int inner, cudaStream_t st) {
+  CUtensorMap th, tw2;
+  int err = tensor_map_2d(&th, h, M, inner, gemm_tiles::kBM);
+  if (err == 0) err = tensor_map_2d(&tw2, w2, K, inner, C::kBN);
+  if (err != 0) return err;
+  return gemm_tiles::launch<C, ffn_down_wgmma_kernel<C>>(
+      M, K, st, th, tw2, static_cast<const bf16*>(b2),
+      static_cast<const bf16*>(x), static_cast<bf16*>(out),
+      static_cast<const float*>(s_ptr), s_val, M, K, inner);
+}
+
+// ---------------------------------------------------------------------------
+// K6, K7 (ffn_tiles.cuh)
 
 __global__ void __launch_bounds__(kThreads)
 ffn_res_up_kernel(const bf16* x, const bf16* w1, const bf16* b1, bf16* hout,
@@ -66,8 +235,7 @@ ffn_res_up_kernel(const bf16* x, const bf16* w1, const bf16* b1, bf16* hout,
 __global__ void __launch_bounds__(kThreads)
 ffn_res_down_kernel(const bf16* h, const bf16* w2, const bf16* b2,
                     const bf16* r, bf16* out, int M, int K, int inner) {
-  down_tile<Epilogue::kScaledResidual, bf16>(h, w2, nullptr, b2, r, out,
-                                              nullptr, 1.f, M, K, inner);
+  down_tile<bf16>(h, w2, nullptr, b2, r, out, nullptr, 1.f, M, K, inner);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -81,8 +249,7 @@ __global__ void __launch_bounds__(kThreads)
 ffn_q_down_kernel(const bf16* h, const int8_t* q2, const float* s2,
                   const bf16* b2, const bf16* x, bf16* out, const float* s_ptr,
                   float s_val, int M, int K, int inner) {
-  down_tile<Epilogue::kScaledResidual, int8_t>(h, q2, s2, b2, x, out, s_ptr,
-                                                s_val, M, K, inner);
+  down_tile<int8_t>(h, q2, s2, b2, x, out, s_ptr, s_val, M, K, inner);
 }
 
 inline dim3 up_grid(int M, int inner) {
@@ -97,8 +264,10 @@ inline dim3 down_grid(int M, int K) {
 
 // K4. x, out: (M, K) bf16; lnw, lnb: (K,); w1: (2*inner, K) = [Wa; Wg] in
 // the torch (out, in) layout; b1: (2*inner,); w2: (K, inner); b2: (K,);
-// hbuf: (M, inner) bf16 scratch. s_ptr: device f32 scalar or null (then
-// s_val). K % 8 == 0, inner % 8 == 0.
+// hbuf: (M, inner + K) bf16 scratch, h (M, inner) then bf16(LN(x)) (M, K).
+// s_ptr: device f32 scalar or null (then s_val). K % 8 == 0, inner % 8 ==
+// 0; x, lnw, lnb, w1, w2 and hbuf 16-byte aligned (TMA, 16-byte loads),
+// b1, b2 and out 4-byte aligned.
 LLT2I_API int llt2i_ffn_ln_geglu(const void* x, const void* lnw,
                                  const void* lnb, const void* w1,
                                  const void* b1, const void* w2,
@@ -107,19 +276,21 @@ LLT2I_API int llt2i_ffn_ln_geglu(const void* x, const void* lnw,
                                  int inner, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K % 8 || inner % 8) return (int)cudaErrorInvalidValue;
-  ffn_up_kernel<<<up_grid(M, inner), kThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(lnw),
-      static_cast<const bf16*>(lnb), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<bf16*>(hbuf), M, K, inner,
-      eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ffn_down_kernel<<<down_grid(M, K), kThreads, 0, st>>>(
-      static_cast<const bf16*>(hbuf), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<const bf16*>(x),
-      static_cast<bf16*>(out), static_cast<const float*>(s_ptr), s_val, M, K,
-      inner);
-  return (int)cudaGetLastError();
+  bf16* h = static_cast<bf16*>(hbuf);
+  bf16* xn = h + (long long)M * inner;
+  ffn_norm_rows_kernel<<<(M + kNormRows - 1) / kNormRows, kNormRows * 32, 0,
+                         st>>>(static_cast<const bf16*>(x),
+                               static_cast<const bf16*>(lnw),
+                               static_cast<const bf16*>(lnb), xn, M, K, eps);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = launch_up<UpCfg>(xn, w1, b1, h, M, K, inner, st);
+  if (err != 0) return err;
+  return gemm_tiles::pick_narrow(M, K, DownWide::kBN, DownNarrow::kBN)
+             ? launch_down<DownNarrow>(h, w2, b2, x, out, s_ptr, s_val, M, K,
+                                       inner, st)
+             : launch_down<DownWide>(h, w2, b2, x, out, s_ptr, s_val, M, K,
+                                     inner, st);
 }
 
 // K6. x, r, out: (M, K) bf16; w1, b1, w2, b2 as K4; hbuf (M, inner) bf16

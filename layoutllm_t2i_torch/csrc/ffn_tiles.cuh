@@ -1,5 +1,6 @@
-// Tile bodies shared by the feed-forward kernels (K4, K6, K7: ffn.cu) and
-// the GEMM kernels (K8a, K8b: matmul.cu).
+// Tile bodies of the first WMMA design, shared by the feed-forward kernels
+// K6 and K7 (ffn.cu) and the GEGLU GEMM K8b (matmul.cu). K4 and K8a run on
+// gemm_tiles.cuh's wgmma mainloop instead.
 //
 // Every product here is A W^T with both operands row-major over the
 // contraction: activations (M, K) and weights in the torch (out, in) layout.
@@ -10,9 +11,11 @@
 // Two bodies:
 //   geglu_up_tile  h = (A Wa^T * sa + ba) * gelu_erf(A Wg^T * sg + bg),
 //                  rounded to bf16; W = [Wa; Wg] is (2*inner, K). With kLN
-//                  the A tile is LayerNorm(x) rounded to bf16 on its way into
-//                  shared memory (statistics of the block's 64 rows first).
-//   down_tile      out = A W^T with one of two epilogues (see Epilogue).
+//                  (K7) the A tile is LayerNorm(x) rounded to bf16 on its
+//                  way into shared memory (statistics of the block's 64 rows
+//                  first).
+//   down_tile      out = bf16((A W^T * ws + b) * s) + r, the scaled-residual
+//                  epilogue of K6 and K7.
 // W is bf16 or int8. An int8 tile is converted to bf16 on its way into shared
 // memory (every int8 value is exact in bf16) and its per-output-channel f32
 // scales multiply the f32 sums in the epilogue, as the TPU kernel applies
@@ -199,19 +202,12 @@ __device__ __forceinline__ void geglu_up_tile(
   }
 }
 
-enum class Epilogue {
-  // K4, K6, K7: bf16((acc * ws + b) * s) + r, the residual added to the
-  // rounded FF output in bf16 (ffn.py:66-67, :107-108, :366-367)
-  kScaledResidual,
-  // K8a: bf16(acc + b + r), bias and residual added in f32 (matmul.py:70-75)
-  kBiasResidual,
-};
-
-// One 64x64 tile of out (M, N) from A (M, Kd) bf16 and W (N, Kd); ws: (N,)
-// f32 or null; b: (N,) bf16 or null; r: (M, N) bf16 (null allowed for
-// kBiasResidual only). s is read from s_ptr (a device f32 scalar) when given,
-// so a traced gate never syncs to the host, else s_val.
-template <Epilogue kEpi, typename W>
+// One 64x64 tile of out (M, N) = bf16((A W^T * ws + b) * s) + r, the
+// residual added to the rounded FF output in bf16 (ffn.py:66-67, :366-367),
+// from A (M, Kd) bf16 and W (N, Kd); ws: (N,) f32 or null; b: (N,) bf16 or
+// null; r: (M, N) bf16. s is read from s_ptr (a device f32 scalar) when
+// given, so a traced gate never syncs to the host, else s_val.
+template <typename W>
 __device__ __forceinline__ void down_tile(
     const bf16* __restrict__ a, const W* __restrict__ w,
     const float* __restrict__ ws, const bf16* __restrict__ b,
@@ -256,16 +252,10 @@ __device__ __forceinline__ void down_tile(
       if (gm < M && gn < N) {
         const long long idx = (long long)gm * N + gn;
         float y = st[e];
-        if constexpr (kEpi == Epilogue::kScaledResidual) {
-          if (ws) y *= ws[gn];
-          if (b) y += __bfloat162float(b[gn]);
-          const float yb = __bfloat162float(__float2bfloat16(y * s));
-          out[idx] = __float2bfloat16(yb + __bfloat162float(r[idx]));
-        } else {
-          if (b) y += __bfloat162float(b[gn]);
-          if (r) y += __bfloat162float(r[idx]);
-          out[idx] = __float2bfloat16(y);
-        }
+        if (ws) y *= ws[gn];
+        if (b) y += __bfloat162float(b[gn]);
+        const float yb = __bfloat162float(__float2bfloat16(y * s));
+        out[idx] = __float2bfloat16(yb + __bfloat162float(r[idx]));
       }
     }
     __syncwarp();

@@ -277,33 +277,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (the library
-// does not link libcuda itself)
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A (d, H, rows, B) map of a packed (B, rows, H*d) bf16 operand with row
 // stride rs and batch stride bs (elements); boxes of 64 columns of one head
 // by box_rows rows, 128-byte swizzle, zeros outside.
@@ -323,20 +296,6 @@ int tensor_map(CUtensorMap* map, const void* base, int D, int H, int rows,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-// Let `kern` use `bytes` of dynamic shared memory on the current device,
-// once per device: `set` holds a bit for each device already set.
-template <typename Kern>
-int allow_smem(Kern kern, size_t bytes, unsigned long long& set) {
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err != 0) return err;
-  if (dev < 64 && (set >> dev & 1)) return 0;
-  err = (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == 0 && dev < 64) set |= 1ull << dev;
-  return err;
 }
 
 template <class C>

@@ -11,25 +11,88 @@
 //        FF up-projection where `geglu_ff` sees M >= 1024 rows.
 //
 // What bounds them on the H100: operations (K8a 2*M*K*N, K8b 4*M*K*N flops;
-// at M = 16384, K = 320, N = 1280 about 300 flop per byte moved).
+// at M = 16384, K = 320, N = 1280 about 300 flop per byte moved). K8a's
+// bytes come closest at M = 1024, K = 5120, N = 1280: 13.4 GFLOP against
+// 26.2 MB, 13.6 us of operations against 7.8 us of bytes. There the grid
+// is the limit: only 64 of the 132 SMs would hold a 128 x 160 tile, so the
+// launch takes tiles 80 wide (gemm_tiles.cuh pick_narrow), 128 of them.
 //
-// The TPU kernels carry an f32 (bm, bn) accumulator across a sequential K
-// grid axis; here each 64x64 output tile is one block that loops over K
-// itself (ffn_tiles.cuh: WMMA bf16 fragments, f32 accumulators in
-// registers), and the epilogue of the last K step runs in the same block.
-// K8b is K6's up kernel and K8a K6's down kernel with the bias-and-residual
-// epilogue in f32. Simple, not fast.
+// K8a runs on gemm_tiles.cuh's mainloop: TMA ring, wgmma with the f32
+// accumulators in registers, the bias and the residual added to them in
+// the epilogue. The TPU kernel carries an f32 (bm, bn) accumulator across
+// a sequential K grid axis; here each block's loop over K takes that
+// axis's place.
+//
+// K8b stays on ffn_tiles.cuh's first WMMA design (64x64 tiles, one
+// shared-memory stage; K6's up kernel): simple, not fast.
 #include "ffn_tiles.cuh"
+#include "gemm_tiles.cuh"
 
 using namespace ffn_tiles;
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-linear_fused_kernel(const bf16* x, const bf16* w, const bf16* b,
-                    const bf16* r, bf16* out, int M, int K, int N) {
-  down_tile<Epilogue::kBiasResidual, bf16>(x, w, nullptr, b, r, out, nullptr,
-                                            1.f, M, N, K);
+// K8a's epilogue: bf16(acc + b + r), b and r optional, in f32 as
+// matmul.py:70-75 adds them
+struct BiasResidual {
+  const bf16* b;  // (N,) or null
+  const bf16* r;  // (M, N) or null
+  bf16* out;      // (M, N)
+  int M, N;
+
+  template <int NB, int W>
+  __device__ __forceinline__ void operator()(const float (&acc)[NB][W],
+                                             int row0, int n0,
+                                             int lane) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M) continue;
+      const long long at = (long long)row * N;
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        if (col >= N) continue;
+        float y0 = acc[0][4 * j + 2 * h], y1 = acc[0][4 * j + 2 * h + 1];
+        if (b != nullptr) {
+          const float2 v = gemm_tiles::load_pair(b + col);
+          y0 += v.x;
+          y1 += v.y;
+        }
+        if (r != nullptr) {
+          const float2 v = gemm_tiles::load_pair(r + at + col);
+          y0 += v.x;
+          y1 += v.y;
+        }
+        gemm_tiles::store_pair(out + at + col, y0, y1);
+      }
+    }
+  }
+};
+
+// K8a tiles: 128 x 160, or 128 x 80 where that fills the card better
+using LinearWide = gemm_tiles::Cfg<160, 1>;
+using LinearNarrow = gemm_tiles::Cfg<80, 1>;
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+linear_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tw,
+                    const bf16* __restrict__ b, const bf16* __restrict__ r,
+                    bf16* __restrict__ out, int M, int N, int K) {
+  gemm_tiles::gemm_tile<C>(&tx, &tw, nullptr, K, BiasResidual{b, r, out, M, N});
+}
+
+template <class C>
+int launch_linear(const void* x, const void* w, const void* b, const void* r,
+                  void* out, int M, int K, int N, cudaStream_t st) {
+  CUtensorMap tx, tw;
+  int err = tensor_map_2d(&tx, x, M, K, gemm_tiles::kBM);
+  if (err == 0) err = tensor_map_2d(&tw, w, N, K, C::kBN);
+  if (err != 0) return err;
+  return gemm_tiles::launch<C, linear_wgmma_kernel<C>>(
+      M, N, st, tx, tw, static_cast<const bf16*>(b),
+      static_cast<const bf16*>(r), static_cast<bf16*>(out), M, N, K);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -42,17 +105,16 @@ geglu_fused_kernel(const bf16* x, const bf16* w, const bf16* b, bf16* out,
 }  // namespace
 
 // K8a. x: (M, K) bf16; w: (N, K) bf16 (torch layout); b: (N,) bf16 or null;
-// r: (M, N) bf16 or null; out: (M, N) bf16. K % 8 == 0.
+// r: (M, N) bf16 or null; out: (M, N) bf16. K % 8 == 0 and N % 8 == 0; x
+// and w 16-byte aligned (TMA), b, r and out 4-byte aligned.
 LLT2I_API int llt2i_linear(const void* x, const void* w, const void* b,
                            const void* r, void* out, int M, int K, int N,
                            void* stream) {
-  if (K % 8) return (int)cudaErrorInvalidValue;
-  linear_fused_kernel<<<dim3((N + BN - 1) / BN, (M + BM - 1) / BM), kThreads,
-                        0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(b), static_cast<const bf16*>(r),
-      static_cast<bf16*>(out), M, K, N);
-  return (int)cudaGetLastError();
+  if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return gemm_tiles::pick_narrow(M, N, LinearWide::kBN, LinearNarrow::kBN)
+             ? launch_linear<LinearNarrow>(x, w, b, r, out, M, K, N, st)
+             : launch_linear<LinearWide>(x, w, b, r, out, M, K, N, st);
 }
 
 // K8b. x: (M, K) bf16; w: (2N, K) = [Wa; Wg] bf16; b: (2N,) bf16 or null;

@@ -63,6 +63,14 @@ def check_operand(t: torch.Tensor, name: str, device: torch.device,
     require(t.is_contiguous(), f"{name}: must be contiguous")
 
 
+def require_aligned(t: torch.Tensor, name: str, nbytes: int = 16) -> None:
+    """A kernel that loads ``t`` through TMA or in 16-byte vectors needs its
+    address 16-byte aligned, one that moves bf16 pairs 4-byte aligned:
+    raise otherwise (no fallback)."""
+    require(t.data_ptr() % nbytes == 0,
+            f"{name}: data_ptr() must be {nbytes}-byte aligned")
+
+
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -21,9 +21,9 @@ inference only, as the JAX package's (no VJP).
 
 ``_blocks`` and ``ffn_eligible`` are copies of the JAX package's
 (ffn.py:111, :216), with its ``LLT2I_FFN_BM`` / ``LLT2I_FFN_BN`` overrides:
-the CUDA kernels tile 64x64 whatever they say, but they decide where
-``ops/nn.py`` takes K4, K6 or K7, exactly where the JAX package takes its
-Pallas kernel.
+the CUDA kernels pick their own tiles whatever they say, but they decide
+where ``ops/nn.py`` takes K4, K6 or K7, exactly where the JAX package takes
+its Pallas kernel.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from .build import check, lib
 from .dispatch import (check_operand, needs_grad, plain_vjp, require,
-                       stream_handle, use_kernel)
+                       require_aligned, stream_handle, use_kernel)
 from .matmul import _pick_block
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, every reference norm3/norm2 site
@@ -146,12 +146,19 @@ def _forward(x, ln_w, ln_b, w1, b1, w2, b2, s, eps):
             and w2.shape == (k, inner), "ffn_ln_geglu: weight shapes")
     require(k % 8 == 0 and inner % 8 == 0,
             f"ffn_ln_geglu: K={k}, inner={inner} must be multiples of 8")
+    # x, ln_w and ln_b in 16-byte vectors, w1 and w2 through TMA, the
+    # biases in bf16 pairs
+    for name, t, nbytes in (("x", x, 16), ("ln_w", ln_w, 16), ("ln_b", ln_b, 16),
+                            ("w1", w1, 16), ("w2", w2, 16), ("b1", b1, 4),
+                            ("b2", b2, 4)):
+        require_aligned(t, f"ffn_ln_geglu: {name}", nbytes)
     # s_keep holds the f32 copy of a tensor s alive until the launch
     s_ptr, s_val, s_keep = _scale_operand(s, x, "ffn_ln_geglu")
     out = torch.empty_like(x)
     if m == 0:
         return out
-    hbuf = torch.empty((m, inner), dtype=x.dtype, device=x.device)
+    # one scratch allocation: h (m, inner), then bf16(LN(x)) (m, k)
+    hbuf = torch.empty((m * (inner + k),), dtype=x.dtype, device=x.device)
     check(lib("ffn").llt2i_ffn_ln_geglu(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), hbuf.data_ptr(),

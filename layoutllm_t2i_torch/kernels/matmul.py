@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from .build import check, lib
 from .dispatch import (check_operand, needs_grad, plain_vjp, require,
-                       stream_handle, use_kernel)
+                       require_aligned, stream_handle, use_kernel)
 
 # the Pallas kernels' block sizes (matmul.py:109): they decide eligibility
 _BM, _BN, _BK = 512, 512, 512
@@ -97,7 +97,13 @@ def _linear_forward(x, w, b, r):
             check_operand(t, f"linear_fused: {name}", x.device)
     require(w.shape == (n, k) and (b is None or b.shape == (n,))
             and (r is None or r.shape == (m, n)), "linear_fused: shapes")
-    require(k % 8 == 0, f"linear_fused: K={k} must be a multiple of 8")
+    require(k % 8 == 0 and n % 8 == 0,
+            f"linear_fused: K={k}, N={n} must be multiples of 8")
+    # x and w through TMA, b and r in bf16 pairs
+    for name, t, nbytes in (("x", x, 16), ("w", w, 16), ("b", b, 4),
+                            ("r", r, 4)):
+        if t is not None:
+            require_aligned(t, f"linear_fused: {name}", nbytes)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out

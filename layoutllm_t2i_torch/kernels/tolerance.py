@@ -29,6 +29,12 @@ output, of rms about 1 at the inputs the checks draw: all four take K4's
 numbers. A planted K7 fault (a dropped output scale, scales applied per
 input channel, int8 read as unsigned, the scale s ignored) lies 6e-2 to
 8e2 of rms(b) off, the rounding 1e-4 (``tests/test_torch_quant.py``).
+A planted fault of K4's or K8a's wgmma design (a dropped ragged k chunk,
+an unwritten last row block, Wa and Wg swapped, a bias dropped or added
+twice, s applied after the residual, LN without its rstd) lies 2.3e-2 to
+0.6 of rms(b) off in the whole-tensor error, the emulated rounding at
+most 7.2e-5 (``tests/test_torch_kernels.py``); h left unrounded in f32 and
+K8a's sum rounded before its residual (1.0e-3 and 2.5e-3) are within it.
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels to
 these numbers; ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_quant.py`` show on the CPU that they pass the kernels'

@@ -16,7 +16,10 @@ and bitwise repeatable over launches, and the gradients of the K1-K4 autograd
 Functions against the plain versions on the card; and the opt-in FF and
 GEMM kernels K6, K7, K8a and K8b: ragged M, K = 1280 with inner = 5120,
 the scale s as a device tensor, int8 weights whose width is not a multiple
-of the 32-deep k step, and the gradients of the K6, K8a and K8b Functions.
+of the 32-deep k step, and the gradients of the K6, K8a and K8b Functions;
+for K4's and K8a's TMA and wgmma design (gemm_tiles.cuh), ragged M, N and
+K, the grid-fill shape, operands fenced by NaN and Inf, outputs and
+scratch pre-filled with NaN, bitwise repeatability and misaligned operands.
 Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -550,3 +553,151 @@ def test_gemm_grads(dev, gen):
                  K.linear_fused)
     x, w, b = _rand(gen, m, k), _rand(gen, 2 * n, k, scale=k ** -0.5), _rand(gen, 2 * n)
     _grads_match(K.geglu_fused, K.geglu_plain, [x, w, b], K.geglu_fused)
+
+
+
+# ---------------------------------------------------------------------------
+# K4 and K8a on the wgmma mainloop (csrc/gemm_tiles.cuh)
+
+
+def _k4_args(gen, m, k, inner, s=0.37):
+    """K4's operands (x off unit variance, as a LayerNorm sees it) and s as
+    a device tensor, the fusers' traced gate."""
+    x = _rand(gen, m, k, scale=2.0, shift=0.5)
+    lw, lb = _rand(gen, k, scale=0.2, shift=1.0), _rand(gen, k, scale=0.2)
+    w1, b1, w2, b2 = _ffn_weights(gen, k, inner)
+    return [x, lw, lb, w1, b1, w2, b2, torch.tensor(s, device=gen.device)]
+
+
+def _k8a_args(gen, m, k, n):
+    x, w = _rand(gen, m, k), _rand(gen, n, k, scale=k ** -0.5)
+    return [x, w, _rand(gen, n, scale=0.1), _rand(gen, m, n)]
+
+
+# kid -> (wrapper, plain version, operands for an (M, contraction, N) case)
+WGMMA_GEMMS = {
+    "K4": (K.ffn_ln_geglu, K.ffn_ln_geglu_plain,
+           lambda gen, m, k, n: _k4_args(gen, m, k, n)),
+    "K8a": (K.linear_fused, K.linear_plain, _k8a_args),
+}
+
+
+def _wgmma_cases(*shapes):
+    return [pytest.param(kid, shape, id=f"{kid}-{'-'.join(map(str, shape))}")
+            for kid in WGMMA_GEMMS for shape in shapes]
+
+
+# K4's (M, K, inner) and K8a's (M, K, N): K = 72 ends in a ragged 64-deep
+# chunk, N = 200 in a partial tile, M = 100 and 1054 in a partial 128-row
+# block; M = 1024 with a 5,120-deep contraction and 1,280 outputs is the
+# grid-fill shape (K8a's 1024 x 5120 x 1280, K4's down GEMM at K = 1280)
+RAGGED = [(100, 72, 200), (1054, 72, 200)]
+
+
+@pytest.mark.parametrize("kid,shape", _wgmma_cases(*RAGGED) + [
+    pytest.param("K4", (1024, 1280, 5120), id="K4-grid-fill"),
+    pytest.param("K8a", (1024, 5120, 1280), id="K8a-grid-fill")])
+def test_wgmma_gemm_ragged_and_grid_fill(dev, gen, kid, shape):
+    fn, plain, make = WGMMA_GEMMS[kid]
+    args = make(gen, *shape)
+    _check(kid, lambda: fn(*args), lambda: plain(*args), fn)
+
+
+def _fenced_flat(t, before=8, after=4096):
+    """``t`` copied into a flat buffer between ``before`` NaNs (16 bytes,
+    so the copy stays 16-byte aligned) and ``after`` Infs: a kernel that
+    reads past either end of the operand turns its output NaN or Inf."""
+    buf = torch.full((before + t.numel() + after,), float("nan"),
+                     device=t.device, dtype=t.dtype)
+    buf[before + t.numel():] = float("inf")
+    view = buf[before:before + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("kid,shape", _wgmma_cases(*RAGGED))
+def test_wgmma_gemm_never_reads_outside_its_operands(dev, gen, kid, shape):
+    # TMA zero-fills past the last row and column: a map whose dims ran
+    # past K or N would read the next row, and at the end the Inf fence
+    fn, plain, make = WGMMA_GEMMS[kid]
+    args = make(gen, *shape)
+    fenced = [_fenced_flat(a) if a.dim() else a for a in args]
+    _check(kid, lambda: fn(*fenced), lambda: plain(*args), fn)
+
+
+def _into_nan(kid, args, guard=4096):
+    """K4 or K8a through its C entry point into an output (and K4's
+    scratch) filled with NaN, each followed by ``guard`` more NaN elements:
+    (output, [guards])."""
+    x = args[0]
+    m = x.shape[0]
+    stream = stream_handle(x.device)
+    nan = lambda n: torch.full((n + guard,), float("nan"), device=x.device,
+                               dtype=torch.bfloat16)
+    if kid == "K8a":
+        x, w, b, r = args
+        n, k = w.shape
+        out = nan(m * n)
+        check(lib("matmul").llt2i_linear(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                         r.data_ptr(), out.data_ptr(), m, k, n,
+                                         stream), "linear_fused")
+        bufs = [out]
+        shape = (m, n)
+    else:
+        x, lw, lb, w1, b1, w2, b2, s = args
+        k, inner = x.shape[1], w2.shape[1]
+        out, hbuf = nan(m * k), nan(m * (inner + k))
+        check(lib("ffn").llt2i_ffn_ln_geglu(
+            x.data_ptr(), lw.data_ptr(), lb.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), hbuf.data_ptr(),
+            out.data_ptr(), s.data_ptr(), 1.0, m, k, inner, 1e-5, stream),
+            "ffn_ln_geglu")
+        bufs = [out, hbuf]
+        shape = (m, k)
+    torch.cuda.synchronize()
+    return out[:-guard].view(shape), [buf[-guard:] for buf in bufs]
+
+
+@pytest.mark.parametrize("kid,shape", _wgmma_cases(*RAGGED))
+def test_wgmma_gemm_writes_only_its_outputs(dev, gen, kid, shape):
+    # every output element is written (none stays NaN), and nothing past
+    # the output or K4's scratch (h, then LN(x)): the guards stay NaN; a
+    # column of h past inner left unwritten would turn the output NaN
+    fn, plain, make = WGMMA_GEMMS[kid]
+    args = make(gen, *shape)
+    out, guards = _into_nan(kid, args)
+    assert all(bool(g.isnan().all()) for g in guards)
+    got = agreement(kid, out, plain(*args))
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("kid,shape", _wgmma_cases((1054, 72, 200)) + [
+    pytest.param("K4", (16384, 320, 1280), id="K4-16384-320-1280"),
+    pytest.param("K8a", (1024, 5120, 1280), id="K8a-grid-fill")])
+def test_wgmma_gemm_is_bitwise_repeatable(dev, gen, kid, shape):
+    # each output element is summed by one thread in a fixed order: no
+    # atomics, so launches agree bit for bit (a race in the stage ring, a
+    # stage refilled before both warpgroups released it, would not)
+    fn, _, make = WGMMA_GEMMS[kid]
+    args = make(gen, *shape)
+    runs = [fn(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], run) for run in runs[1:])
+
+
+@pytest.mark.parametrize("kid", list(WGMMA_GEMMS))
+@pytest.mark.parametrize("operand", [0, 1])
+def test_wgmma_gemm_misaligned_operand_raises(dev, gen, kid, operand):
+    # x and the weight go through TMA, which needs 16-byte aligned
+    # addresses: a view 2 bytes into its buffer raises, nothing launches
+    fn, _, make = WGMMA_GEMMS[kid]
+    args = make(gen, 256, 64, 256)
+    idx = 0 if operand == 0 else (3 if kid == "K4" else 1)
+    t = args[idx]
+    buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+    args[idx] = buf[1:].view(t.shape)
+    args[idx].copy_(t)
+    before = fn.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fn(*args)
+    assert fn.launches == before

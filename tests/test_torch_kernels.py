@@ -6,10 +6,10 @@ versions for CPU tensors. Both sides see the same f32 inputs from a numpy
 seed. Tolerance: 1e-5 absolute (f32, differing only in summation order),
 2e-5 where a contraction over 512 features adds rounding.
 
-The last three tests hold K1's and K5's stated bf16 tolerances on the card
-(``kernels/tolerance.py``) against CPU emulations of the CUDA kernels'
-algorithms (K1 in its first, WMMA design and in its wgmma design): the
-kernels' own rounding must pass them, small faults must not.
+The last five tests hold K1's, K5's, K4's and K8a's stated bf16
+tolerances on the card (``kernels/tolerance.py``) against CPU emulations of
+the CUDA kernels' algorithms (K1 in its first, WMMA design and in its wgmma
+design): the kernels' own rounding must pass them, small faults must not.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -21,8 +21,9 @@ from layoutllm_t2i_tpu.ops.pallas.flash_attention import flash_attention as jax_
 from layoutllm_t2i_tpu.ops.pallas.norms import _gn_pallas, _gn_pallas_rows, _ln_pallas
 
 from layoutllm_t2i_torch.kernels import (
-    attention_delta, ffn_ln_geglu, flash_attention, flash_attention_bwd_plain,
-    flash_attention_lse_plain, flash_attention_plain, group_norm, layer_norm,
+    attention_delta, ffn_ln_geglu, ffn_ln_geglu_plain, flash_attention,
+    flash_attention_bwd_plain, flash_attention_lse_plain, flash_attention_plain,
+    group_norm, layer_norm, linear_plain,
 )
 from layoutllm_t2i_torch.kernels.tolerance import agreement
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -336,3 +337,136 @@ def test_k5_tolerance_separates_rounding_from_faults(d, kid, fault):
     got = agreement(kid, _flash_bwd_emulated(kid, q, k, v, dout, lse, delta,
                                              heads, scale, fault), ref)
     assert got["ok"] == (fault is None), got
+
+
+# ---------------------------------------------------------------------------
+# K4 and K8a on gemm_tiles.cuh's wgmma mainloop
+
+_BF = torch.bfloat16
+
+
+def _gemm_emulated(a, b, drop_k_tail=False):
+    """a b^T as csrc/gemm_tiles.cuh sums it: f32 over 64-deep chunks of the
+    contraction (one TMA stage each), the last one zero-filled past K;
+    ``drop_k_tail`` drops that ragged last chunk."""
+    k = a.shape[1]
+    end = k - k % 64 if drop_k_tail else k
+    acc = torch.zeros(a.shape[0], b.shape[0])
+    for k0 in range(0, end, 64):
+        acc += a[:, k0:k0 + 64].float() @ b[:, k0:k0 + 64].float().t()
+    return acc
+
+
+def _unwritten_tail(out, m):
+    """The last ragged 128-row block of the output left unwritten (zero)."""
+    out[m - m % 128:] = 0
+    return out
+
+
+def _k4_emulated(x, lw, lb, w1, b1, w2, b2, s, fault=None, eps=1e-5):
+    """csrc/ffn.cu's K4: bf16(LN(x)) once per row (mean, then the centred
+    variance, in f32), the up GEMM against Wa and Wg with (a + ba) *
+    gelu_erf(g + bg) in f32 rounded once to bf16 h, the down GEMM with
+    bf16((acc + b2) * s) + x. ``fault`` plants a mistake the kernels could
+    make."""
+    m, inner = x.shape[0], w1.shape[0] // 2
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
+    if fault == "ln_no_rstd":
+        rstd = torch.ones_like(rstd)
+    xn = ((xf - mean) * rstd * lw.float() + lb.float()).to(_BF)
+    wa, wg = (w1[inner:], w1[:inner]) if fault == "swap_wa_wg" else (w1[:inner], w1[inner:])
+    tail = fault == "k_tail"
+    ba, bg = b1[:inner].float(), b1[inner:].float()
+    a = _gemm_emulated(xn, wa, tail) + ba * (2 if fault == "bias_twice" else 1)
+    g = _gemm_emulated(xn, wg, tail) + bg * (2 if fault == "bias_twice" else 1)
+    h = a * torch.nn.functional.gelu(g)
+    if fault != "h_unrounded":
+        h = h.to(_BF)
+    y = _gemm_emulated(h, w2, tail)
+    if fault != "bias_dropped":
+        y = y + b2.float()
+    if fault == "s_after_residual":
+        out = ((y.to(_BF).float() + xf) * s).to(_BF)
+    else:
+        out = ((y * s).to(_BF).float() + xf).to(_BF)
+    return _unwritten_tail(out, m) if fault == "rows_tail" else out
+
+
+def _k4_inputs(m, k, inner, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape, scale=1.0, shift=0.0: (
+        torch.randn(*shape, generator=g) * scale + shift).to(_BF)
+    # activations off unit variance, as a LayerNorm sees them
+    return (rnd(m, k, scale=2.0, shift=0.5), rnd(k, scale=0.2, shift=1.0),
+            rnd(k, scale=0.2), rnd(2 * inner, k, scale=k ** -0.5),
+            rnd(2 * inner, scale=0.1), rnd(k, inner, scale=inner ** -0.5),
+            rnd(k, scale=0.1))
+
+
+# K4's faults the tolerance must catch, and those it cannot see: h left in
+# f32 is one bf16 rounding of an intermediate, within the rounding the
+# tolerance allows. ("s_after_residual" is caught at s = 0.5, the fusers'
+# gate, and is no fault at s = 1, the norm3 sites.)
+K4_CAUGHT = ("k_tail", "rows_tail", "swap_wa_wg", "bias_dropped",
+             "bias_twice", "s_after_residual", "ln_no_rstd")
+K4_UNSEEN = ("h_unrounded",)
+
+
+@pytest.mark.parametrize("k,s,fault", [
+    # the three widths of the UNet's LN + FF sites (inner 4K), at s = 1 (the
+    # norm3 sites) and 0.5 (a fuser's gate)
+    *(pytest.param(k, s, None, id=f"K{k}-s{s:g}")
+      for k in (320, 640, 1280) for s in (1.0, 0.5)),
+    # K = 72 (inner 288): both contractions end in a ragged 64-deep chunk
+    pytest.param(72, 0.5, None, id="K72-s0.5"),
+    pytest.param(72, 0.5, "k_tail", id="K72-k_tail"),
+    *(pytest.param(320, 0.5, fault, id=f"K320-{fault}")
+      for fault in K4_CAUGHT[1:] + K4_UNSEEN),
+])
+def test_k4_tolerance_separates_rounding_from_faults(k, s, fault):
+    # M = 200 = 128 + 72 leaves a ragged last row block
+    m, inner = 200, 4 * k
+    args = _k4_inputs(m, k, inner)
+    ref = ffn_ln_geglu_plain(*args, s)
+    got = agreement("K4", _k4_emulated(*args, s, fault=fault), ref)
+    assert got["ok"] == (fault is None or fault in K4_UNSEEN), got
+
+
+def _k8a_emulated(x, w, b, r, fault=None):
+    """csrc/matmul.cu's K8a: the mainloop's f32 sums, then bf16(acc + b + r)
+    with bias and residual added in f32. ``fault`` plants a mistake."""
+    y = _gemm_emulated(x, w, fault == "k_tail")
+    if fault != "bias_dropped":
+        y = y + b.float() * (2 if fault == "bias_twice" else 1)
+    if fault == "round_before_residual":
+        y = y.to(_BF).float()
+    out = (y + r.float()).to(_BF)
+    return _unwritten_tail(out, x.shape[0]) if fault == "rows_tail" else out
+
+
+# a second rounding of the sum before the residual is one bf16 ulp, within
+# the tolerance
+K8A_CAUGHT = ("k_tail", "rows_tail", "bias_dropped", "bias_twice")
+K8A_UNSEEN = ("round_before_residual",)
+
+
+@pytest.mark.parametrize("k,n,fault", [
+    # the three shapes of the split routes' down-projections (K = 4N)
+    *(pytest.param(4 * n, n, None, id=f"K{4 * n}-N{n}") for n in (320, 640, 1280)),
+    pytest.param(72, 200, None, id="K72-N200"),
+    pytest.param(72, 200, "k_tail", id="K72-k_tail"),
+    *(pytest.param(1280, 320, fault, id=f"K1280-{fault}")
+      for fault in K8A_CAUGHT[1:] + K8A_UNSEEN),
+])
+def test_k8a_tolerance_separates_rounding_from_faults(k, n, fault):
+    m = 200
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(m, k, generator=g).to(_BF)
+    w = (torch.randn(n, k, generator=g) * k ** -0.5).to(_BF)
+    b = (torch.randn(n, generator=g) * 0.1).to(_BF)
+    r = torch.randn(m, n, generator=g).to(_BF)
+    got = agreement("K8a", _k8a_emulated(x, w, b, r, fault),
+                    linear_plain(x, w, b, r))
+    assert got["ok"] == (fault is None or fault in K8A_UNSEEN), got

@@ -16,6 +16,8 @@ is not.
 import collections
 import importlib.util
 import os
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -227,3 +229,64 @@ def test_k5_pair_bound_counts_the_function_once(monkeypatch, args):
     assert rec["ms"] == 4.0 and rec["library_ms"] == 1.5
     assert rec["vs_library"] == pytest.approx(4.0 / 1.5)
     assert pair["bound_ms"] == rec["bound_ms"] and pair["shapes"] == 1
+
+
+
+CSRC = Path(__file__).resolve().parents[1] / "layoutllm_t2i_torch" / "csrc"
+KERNEL_DECL = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def _source_kernels():
+    """{kernel name: library} of every __global__ function under csrc/."""
+    found = {}
+    for path in sorted(CSRC.glob("*.cu")):
+        for name in KERNEL_DECL.findall(path.read_text()):
+            found[name] = path.stem
+    return found
+
+
+def _group_of(kernel):
+    """The PROFILE_GROUPS entry that a profiler row of ``kernel`` lands in
+    (first match wins), for the name as torch.profiler shows a template
+    instantiation of it."""
+    shown = (f"void (anonymous namespace)::{kernel}<gemm_tiles::Cfg<128, 2> >"
+             "(CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)").lower()
+    return next((g for g, keys in cs.PROFILE_GROUPS
+                 if any(k in shown for k in keys)), "other")
+
+
+def test_profile_groups_and_wgmma_kernels_name_the_sources():
+    """chip_smoke's kernel-name lists against the kernels in csrc/: every
+    kernel's profile time counts under its own kernel id (not "matmul",
+    whose keys "gemm" and "sm90_" a template name can contain), and phase
+    build looks for HGMMA in every wgmma kernel of K1, K5a, K5b, K4 and
+    K8a."""
+    kernels = _source_kernels()
+    lib_of = {kid: Path(meta[1]).stem for kid, meta in cs.KERNEL_META.items()}
+    groups = {name.split()[0]: keys for name, keys in cs.PROFILE_GROUPS}
+    for kid in cs.KERNEL_META:
+        assert groups[kid], kid
+        for key in groups[kid]:
+            assert kernels.get(key) == lib_of[kid], (kid, key)
+    for kernel, lib in kernels.items():
+        kid = _group_of(kernel).split()[0]
+        assert kid in cs.KERNEL_META and lib_of[kid] == lib, (kernel, kid)
+    for lib, names in cs.WGMMA_KERNELS.items():
+        for name in names:
+            assert kernels.get(name) == lib, name
+    # the only kernels of those ids without a product: K4's LN pre-pass
+    for kid in cs.WGMMA_KIDS:
+        off_wgmma = set(groups[kid]) - set(cs.WGMMA_KERNELS[lib_of[kid]])
+        assert off_wgmma == ({"ffn_norm_rows_kernel"} if kid == "K4" else set())
+
+
+def test_gemm_tiles_sweep_patches_the_sources(tmp_path):
+    """The tile sweep (cli/gemm_tiles_sweep.py) builds its variants by
+    patching copies of csrc/: the lines it patches must still be there."""
+    from layoutllm_t2i_torch.cli.gemm_tiles_sweep import variant_sources
+
+    variant_sources(CSRC, tmp_path / "v", 64, True)
+    assert "using UpCfg = gemm_tiles::Cfg<64, 2>;" in (tmp_path / "v" / "ffn.cu").read_text()
+    tiles = (tmp_path / "v" / "gemm_tiles.cuh").read_text()
+    assert "int narrow) {\n  return true;\n" in tiles
