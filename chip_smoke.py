@@ -7,8 +7,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   1. build     nvcc-builds the five kernel libraries from csrc/ (sm_90a),
                prints build seconds, ptxas lines and the card's name and
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
-               in every K1, K5a, K5b, K4 and K8a kernel (WGMMA_KERNELS;
-               K4's LN pre-pass does no product).
+               in every K1, K5a, K5b, K4, K6, K8a and K8b kernel
+               (WGMMA_KERNELS; K4's LN pre-pass does no product).
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
@@ -23,8 +23,9 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                (device_time), and `host_us` is the kernel wrapper's host
                time a call. K1's, K5a's and K5b's rows add `exp_ms`, the
                time of their exponentials at the SFUs' rate (exp_ms()); the
-               rows of the kernels on wgmma (K1, K5a, K5b, K4, K8a) add
-               `vs_library`, ms over library_ms, and `device_vs_library`.
+               rows of the kernels on wgmma (K1, K5a, K5b, K4, K6, K8a,
+               K8b) add `vs_library`, ms over library_ms, and
+               `device_vs_library`.
                K5a's and K5b's library call is SDPA's whole backward (dQ,
                dK and dV), so after both rows of a shape a "K5 pair" row
                holds their sum against that call, counted once, with the
@@ -60,7 +61,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      In that line `ms`, `plain_ms`, `library_ms`, `bound_ms`, `device_ms`
      and `library_device_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
-     timed in phase 2); `launches` adds the runs of phases 4, 5, 6 and 8,
+     timed in phase 2), and the wgmma kernels' `vs_library` and
+     `device_vs_library` are the ratios of those sums; `launches` adds the runs of phases 4, 5, 6 and 8,
      each read from counts set to 0 just before it. K5a's and K5b's
      entries carry the pair's sums (`pair`: ms, device_ms, library_ms and
      library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
@@ -131,16 +133,17 @@ TRAIN_GRAD_CAUGHT = ("dk_unscaled",)
 TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 
 # library -> its kernels written on csrc/hopper.cuh's wgmma: K1, K5a, K5b;
-# K4's up and down GEMMs and K8a on csrc/gemm_tiles.cuh. Each must show
-# HGMMA in its SASS, in every instantiation.
+# K4's and K6's up and down GEMMs, K8a and K8b on csrc/gemm_tiles.cuh. Each
+# must show HGMMA in its SASS, in every instantiation.
 WGMMA_KERNELS = {
     "flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                         "flash_bwd_dkv_kernel"),
-    "ffn": ("ffn_up_wgmma_kernel", "ffn_down_wgmma_kernel"),
-    "matmul": ("linear_wgmma_kernel",),
+    "ffn": ("ffn_up_wgmma_kernel", "ffn_down_wgmma_kernel",
+            "ffn_res_up_wgmma_kernel", "ffn_res_down_wgmma_kernel"),
+    "matmul": ("linear_wgmma_kernel", "geglu_wgmma_kernel"),
 }
 # the kernels whose rows are held against their library call (vs_library)
-WGMMA_KIDS = ("K1", "K5a", "K5b", "K4", "K8a")
+WGMMA_KIDS = ("K1", "K5a", "K5b", "K4", "K6", "K8a", "K8b")
 
 KERNEL_META = {
     "K1": ("flash_attention", "layoutllm_t2i_torch/csrc/flash_attention.cu",
@@ -1288,10 +1291,11 @@ PROFILE_GROUPS = (
     ("K3 layer_norm", ("ln_kernel",)),
     ("K4 ffn_ln_geglu", ("ffn_norm_rows_kernel", "ffn_up_wgmma_kernel",
                          "ffn_down_wgmma_kernel")),
-    ("K6 ffn_geglu", ("ffn_res_up_kernel", "ffn_res_down_kernel")),
+    ("K6 ffn_geglu", ("ffn_res_up_wgmma_kernel",
+                      "ffn_res_down_wgmma_kernel")),
     ("K7 ffn_ln_geglu_q", ("ffn_q_up_kernel", "ffn_q_down_kernel")),
     ("K8a linear_fused", ("linear_wgmma_kernel",)),
-    ("K8b geglu_fused", ("geglu_fused_kernel",)),
+    ("K8b geglu_fused", ("geglu_wgmma_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit", "winograd", "nhwc", "fprop",
                      "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
@@ -1435,6 +1439,10 @@ def main(argv=None) -> int:
                      "library_ms": s["library_ms"], "device_ms": s["device_ms"],
                      "library_device_ms": s["library_device_ms"],
                      "shapes": s["shapes"]})
+        if kid in WGMMA_KIDS:
+            line[-1]["vs_library"] = s["ms"] / s["library_ms"]
+            line[-1]["device_vs_library"] = (s["device_ms"]
+                                             / s["library_device_ms"])
         if kid in ("K5a", "K5b"):
             line[-1]["pair"] = k5_pair
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -38,3 +38,8 @@ __device__ __forceinline__ uint4 pack8(const float* in) {
   for (int j = 0; j < 8; ++j) v.h[j] = __float2bfloat16(in[j]);
   return v.u;
 }
+
+// GELU with the exact erf, in f32 (jax.nn.gelu(approximate=False))
+__device__ __forceinline__ float gelu_erf(float g) {
+  return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
+}

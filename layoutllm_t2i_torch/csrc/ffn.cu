@@ -27,8 +27,9 @@
 // Hopper block may use. So each function is split in two GEMMs with the
 // GEGLU product h (M, 4K) written once in bf16 between them.
 //
-// K4 runs on gemm_tiles.cuh's mainloop (TMA ring, wgmma, f32 accumulators
-// in registers), in three launches on the caller's stream:
+// K4 and K6 run on gemm_tiles.cuh's mainloop (TMA ring, wgmma, f32
+// accumulators in registers). K4 takes three launches on the caller's
+// stream:
 //   (0) ffn_norm_rows_kernel: bf16(LN(x)) of every row, once, into scratch
 //       (one warp a row, centred two-pass f32 statistics), the rounding
 //       point of `_ffn_ln_kernel` (ffn.py:89). It moves 4*M*K bytes, a few
@@ -36,19 +37,21 @@
 //       redo a row's LN in every one of its inner/128 column blocks.
 //   (1) ffn_up_wgmma_kernel: A = LN(x) and two B operands, the Wa and Wg
 //       rows of the same h columns, each with its own f32 accumulator; the
-//       epilogue computes (a + ba) * gelu_erf(g + bg) in f32 and rounds once
-//       to bf16 h. Tiles 128 x 128 of h.
-//   (2) ffn_down_wgmma_kernel: h W2^T, K8a's GEMM, whose epilogue computes
-//       bf16((acc + b2) * s) + x, the rounding order of ffn.py:107-108.
-//       Tiles 128 x 160 (or 80 where that fills the card better: M = 1024,
-//       K = 1280 would fill 64 SMs).
+//       Geglu epilogue computes (a + ba) * gelu_erf(g + bg) in f32 and
+//       rounds once to bf16 h. Tiles 128 x 128 of h.
+//   (2) ffn_down_wgmma_kernel: h W2^T, K8a's GEMM, whose ScaledResidual
+//       epilogue computes bf16((acc + b2) * s) + x, the rounding order of
+//       ffn.py:107-108. Tiles 128 x 160 (or 80 where that fills the card
+//       better: M = 1024, K = 1280 would fill 64 SMs).
+// K6 is K4 without the pre-pass, in two launches: ffn_res_up_wgmma_kernel,
+// (1) on x, then ffn_res_down_wgmma_kernel, (2) with s = 1 and r in place
+// of x: bf16(bf16(acc + b2) + r), the rounding order of ffn.py:64-67.
 //
-// K6 and K7 stay on ffn_tiles.cuh's first WMMA design: (a) an up kernel
-// (geglu_up_tile: per 64x64 tile of the (M, 4K) GEGLU product, both
-// up-projections, K7 with LN statistics of the 64 rows first and int8
-// weight tiles converted to bf16 in shared memory) and (b) a down kernel
-// (down_tile, the scaled-residual epilogue of ffn.py:66-67 (K6, s = 1) and
-// :366-367 (K7)). Simple, not fast: see ffn_tiles.cuh.
+// K7 alone stays on ffn_tiles.cuh's first WMMA design: an up kernel
+// (geglu_up_tile: per 64x64 tile of the (M, 4K) GEGLU product, LN
+// statistics of the 64 rows first, int8 weight tiles converted to bf16 in
+// shared memory) and a down kernel (down_tile, the scaled-residual epilogue
+// of ffn.py:366-367). Simple, not fast: see ffn_tiles.cuh.
 #include "ffn_tiles.cuh"
 #include "gemm_tiles.cuh"
 
@@ -98,78 +101,15 @@ ffn_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   }
 }
 
-// The up kernel's epilogue: h = bf16((a + ba) * gelu_erf(g + bg)), a and g
-// the two accumulators
-struct Geglu {
-  const bf16* ba;  // (inner,)
-  const bf16* bg;  // (inner,)
-  bf16* h;         // (M, inner)
-  int M, inner;
-
-  template <int NB, int W>
-  __device__ __forceinline__ void operator()(const float (&acc)[NB][W],
-                                             int row0, int n0,
-                                             int lane) const {
-    static_assert(NB == 2, "a and g");
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row >= M) continue;
-      bf16* hrow = h + (long long)row * inner;
-#pragma unroll
-      for (int j = 0; j < W / 4; ++j) {
-        const int col = n0 + 8 * j + 2 * (lane & 3);
-        if (col >= inner) continue;
-        const float2 va = gemm_tiles::load_pair(ba + col);
-        const float2 vg = gemm_tiles::load_pair(bg + col);
-        const int i = 4 * j + 2 * r;
-        gemm_tiles::store_pair(
-            hrow + col, (acc[0][i] + va.x) * gelu_erf(acc[1][i] + vg.x),
-            (acc[0][i + 1] + va.y) * gelu_erf(acc[1][i + 1] + vg.y));
-      }
-    }
-  }
-};
-
-// The down kernel's epilogue: out = bf16(bf16((acc + b2) * s) + x)
-struct ScaledResidual {
-  const bf16* b2;  // (K,)
-  const bf16* x;   // (M, K)
-  bf16* out;       // (M, K)
-  float s;
-  int M, K;
-
-  template <int NB, int W>
-  __device__ __forceinline__ void operator()(const float (&acc)[NB][W],
-                                             int row0, int n0,
-                                             int lane) const {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row >= M) continue;
-      const long long at = (long long)row * K;
-#pragma unroll
-      for (int j = 0; j < W / 4; ++j) {
-        const int col = n0 + 8 * j + 2 * (lane & 3);
-        if (col >= K) continue;
-        const float2 vb = gemm_tiles::load_pair(b2 + col);
-        const float2 vx = gemm_tiles::load_pair(x + at + col);
-        const int i = 4 * j + 2 * r;
-        const float y0 = __bfloat162float(__float2bfloat16((acc[0][i] + vb.x) * s));
-        const float y1 =
-            __bfloat162float(__float2bfloat16((acc[0][i + 1] + vb.y) * s));
-        gemm_tiles::store_pair(out + at + col, y0 + vx.x, y1 + vx.y);
-      }
-    }
-  }
-};
-
 // up tiles 128 x (2 x 128): at every main-path shape faster than 2 x 64,
 // which left fewer SMs idle in the last wave but ran m64n64 products; down
 // tiles 128 x 160, or 80 where that fills the card better
 using UpCfg = gemm_tiles::Cfg<128, 2>;
 using DownWide = gemm_tiles::Cfg<160, 1>;
 using DownNarrow = gemm_tiles::Cfg<80, 1>;
+
+// The up and down GEMMs of K4 and of K6 run the same tiles under names of
+// their own, so that a profile and the HGMMA check tell them apart.
 
 template <class C>
 __global__ void __launch_bounds__(C::kThreads, 1)
@@ -179,7 +119,18 @@ ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap txn,
                     const bf16* __restrict__ b1, bf16* __restrict__ h, int M,
                     int K, int inner) {
   gemm_tiles::gemm_tile<C>(&txn, &twa, &twg, K,
-                           Geglu{b1, b1 + inner, h, M, inner});
+                           gemm_tiles::Geglu{b1, h, M, inner});
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+ffn_res_up_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap twa,
+                        const __grid_constant__ CUtensorMap twg,
+                        const bf16* __restrict__ b1, bf16* __restrict__ h,
+                        int M, int K, int inner) {
+  gemm_tiles::gemm_tile<C>(&tx, &twa, &twg, K,
+                           gemm_tiles::Geglu{b1, h, M, inner});
 }
 
 template <class C>
@@ -191,65 +142,62 @@ ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap th,
                       float s_val, int M, int K, int inner) {
   const float s = s_ptr != nullptr ? *s_ptr : s_val;
   gemm_tiles::gemm_tile<C>(&th, &tw2, nullptr, inner,
-                           ScaledResidual{b2, x, out, s, M, K});
+                           gemm_tiles::ScaledResidual{b2, x, out, s, M, K});
 }
 
 template <class C>
-int launch_up(const void* xn, const void* w1, const void* b1, void* h, int M,
-              int K, int inner, cudaStream_t st) {
-  const bf16* wa = static_cast<const bf16*>(w1);
-  CUtensorMap txn, twa, twg;
-  int err = tensor_map_2d(&txn, xn, M, K, gemm_tiles::kBM);
-  if (err == 0) err = tensor_map_2d(&twa, wa, inner, K, C::kBN);
-  if (err == 0) err = tensor_map_2d(&twg, wa + (long long)inner * K, inner, K, C::kBN);
-  if (err != 0) return err;
-  return gemm_tiles::launch<C, ffn_up_wgmma_kernel<C>>(
-      M, inner, st, txn, twa, twg, static_cast<const bf16*>(b1),
-      static_cast<bf16*>(h), M, K, inner);
+__global__ void __launch_bounds__(C::kThreads, 1)
+ffn_res_down_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                          const __grid_constant__ CUtensorMap tw2,
+                          const bf16* __restrict__ b2,
+                          const bf16* __restrict__ r, bf16* __restrict__ out,
+                          const float* __restrict__ s_ptr, float s_val, int M,
+                          int K, int inner) {
+  const float s = s_ptr != nullptr ? *s_ptr : s_val;
+  gemm_tiles::gemm_tile<C>(&th, &tw2, nullptr, inner,
+                           gemm_tiles::ScaledResidual{b2, r, out, s, M, K});
 }
 
-template <class C>
-int launch_down(const void* h, const void* w2, const void* b2, const void* x,
+// The down GEMM h W2^T with the residual r, by kWide on 160-wide tiles or
+// kNarrow on 80-wide ones (ffn_down_wgmma_kernel or
+// ffn_res_down_wgmma_kernel of DownWide and DownNarrow)
+template <auto kWide, auto kNarrow>
+int launch_down(const void* h, const void* w2, const void* b2, const void* r,
                 void* out, const void* s_ptr, float s_val, int M, int K,
                 int inner, cudaStream_t st) {
+  const bool narrow =
+      gemm_tiles::pick_narrow(M, K, DownWide::kBN, DownNarrow::kBN);
   CUtensorMap th, tw2;
   int err = tensor_map_2d(&th, h, M, inner, gemm_tiles::kBM);
-  if (err == 0) err = tensor_map_2d(&tw2, w2, K, inner, C::kBN);
+  if (err == 0)
+    err = tensor_map_2d(&tw2, w2, K, inner,
+                        narrow ? DownNarrow::kBN : DownWide::kBN);
   if (err != 0) return err;
-  return gemm_tiles::launch<C, ffn_down_wgmma_kernel<C>>(
-      M, K, st, th, tw2, static_cast<const bf16*>(b2),
-      static_cast<const bf16*>(x), static_cast<bf16*>(out),
-      static_cast<const float*>(s_ptr), s_val, M, K, inner);
+  const bf16* b = static_cast<const bf16*>(b2);
+  const bf16* res = static_cast<const bf16*>(r);
+  bf16* o = static_cast<bf16*>(out);
+  const float* sp = static_cast<const float*>(s_ptr);
+  return narrow ? gemm_tiles::launch<DownNarrow, kNarrow>(
+                      M, K, st, th, tw2, b, res, o, sp, s_val, M, K, inner)
+                : gemm_tiles::launch<DownWide, kWide>(
+                      M, K, st, th, tw2, b, res, o, sp, s_val, M, K, inner);
 }
 
 // ---------------------------------------------------------------------------
-// K6, K7 (ffn_tiles.cuh)
-
-__global__ void __launch_bounds__(kThreads)
-ffn_res_up_kernel(const bf16* x, const bf16* w1, const bf16* b1, bf16* hout,
-                  int M, int K, int inner) {
-  geglu_up_tile<false, bf16>(x, nullptr, nullptr, w1, nullptr, b1, hout, M, K,
-                             inner, 0.f);
-}
-
-__global__ void __launch_bounds__(kThreads)
-ffn_res_down_kernel(const bf16* h, const bf16* w2, const bf16* b2,
-                    const bf16* r, bf16* out, int M, int K, int inner) {
-  down_tile<bf16>(h, w2, nullptr, b2, r, out, nullptr, 1.f, M, K, inner);
-}
+// K7 (ffn_tiles.cuh)
 
 __global__ void __launch_bounds__(kThreads)
 ffn_q_up_kernel(const bf16* x, const bf16* lnw, const bf16* lnb,
                 const int8_t* q1, const float* s1, const bf16* b1, bf16* hout,
                 int M, int K, int inner, float eps) {
-  geglu_up_tile<true, int8_t>(x, lnw, lnb, q1, s1, b1, hout, M, K, inner, eps);
+  geglu_up_tile(x, lnw, lnb, q1, s1, b1, hout, M, K, inner, eps);
 }
 
 __global__ void __launch_bounds__(kThreads)
 ffn_q_down_kernel(const bf16* h, const int8_t* q2, const float* s2,
                   const bf16* b2, const bf16* x, bf16* out, const float* s_ptr,
                   float s_val, int M, int K, int inner) {
-  down_tile<int8_t>(h, q2, s2, b2, x, out, s_ptr, s_val, M, K, inner);
+  down_tile(h, q2, s2, b2, x, out, s_ptr, s_val, M, K, inner);
 }
 
 inline dim3 up_grid(int M, int inner) {
@@ -284,33 +232,30 @@ LLT2I_API int llt2i_ffn_ln_geglu(const void* x, const void* lnw,
                                static_cast<const bf16*>(lnb), xn, M, K, eps);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = launch_up<UpCfg>(xn, w1, b1, h, M, K, inner, st);
+  err = gemm_tiles::launch_geglu<UpCfg, ffn_up_wgmma_kernel<UpCfg>>(
+      xn, w1, b1, h, M, K, inner, st);
   if (err != 0) return err;
-  return gemm_tiles::pick_narrow(M, K, DownWide::kBN, DownNarrow::kBN)
-             ? launch_down<DownNarrow>(h, w2, b2, x, out, s_ptr, s_val, M, K,
-                                       inner, st)
-             : launch_down<DownWide>(h, w2, b2, x, out, s_ptr, s_val, M, K,
-                                     inner, st);
+  return launch_down<ffn_down_wgmma_kernel<DownWide>,
+                     ffn_down_wgmma_kernel<DownNarrow>>(
+      h, w2, b2, x, out, s_ptr, s_val, M, K, inner, st);
 }
 
 // K6. x, r, out: (M, K) bf16; w1, b1, w2, b2 as K4; hbuf (M, inner) bf16
-// scratch. K % 8 == 0, inner % 8 == 0.
+// scratch. K % 8 == 0, inner % 8 == 0; x, w1, w2 and hbuf 16-byte aligned
+// (TMA), b1, b2, r and out 4-byte aligned.
 LLT2I_API int llt2i_ffn_geglu(const void* x, const void* w1, const void* b1,
                               const void* w2, const void* b2, const void* r,
                               void* hbuf, void* out, int M, int K, int inner,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K % 8 || inner % 8) return (int)cudaErrorInvalidValue;
-  ffn_res_up_kernel<<<up_grid(M, inner), kThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<bf16*>(hbuf), M, K, inner);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ffn_res_down_kernel<<<down_grid(M, K), kThreads, 0, st>>>(
-      static_cast<const bf16*>(hbuf), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<const bf16*>(r),
-      static_cast<bf16*>(out), M, K, inner);
-  return (int)cudaGetLastError();
+  const int err =
+      gemm_tiles::launch_geglu<UpCfg, ffn_res_up_wgmma_kernel<UpCfg>>(
+          x, w1, b1, hbuf, M, K, inner, st);
+  if (err != 0) return err;
+  return launch_down<ffn_res_down_wgmma_kernel<DownWide>,
+                     ffn_res_down_wgmma_kernel<DownNarrow>>(
+      hbuf, w2, b2, r, out, nullptr, 1.f, M, K, inner, st);
 }
 
 // K7. x, out, lnw, lnb, b1, b2 as K4; q1: (2*inner, K) int8 = [Qa; Qg];

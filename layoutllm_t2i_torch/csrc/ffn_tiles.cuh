@@ -1,26 +1,24 @@
-// Tile bodies of the first WMMA design, shared by the feed-forward kernels
-// K6 and K7 (ffn.cu) and the GEGLU GEMM K8b (matmul.cu). K4 and K8a run on
-// gemm_tiles.cuh's wgmma mainloop instead.
+// Tile bodies of the first WMMA design, now K7's alone (ffn.cu: the int8
+// LN + GEGLU FF). K4, K6, K8a and K8b run on gemm_tiles.cuh's wgmma
+// mainloop instead.
 //
 // Every product here is A W^T with both operands row-major over the
-// contraction: activations (M, K) and weights in the torch (out, in) layout.
-// Output tiles are 64x64, the contraction steps 32 deep, four warps each own
-// 16 rows and hold four WMMA 16x16x16 bf16 fragments with f32 accumulators,
-// one shared-memory stage: simple, not fast.
+// contraction: activations (M, K) and int8 weights in the torch (out, in)
+// layout. Output tiles are 64x64, the contraction steps 32 deep, four warps
+// each own 16 rows and hold four WMMA 16x16x16 bf16 fragments with f32
+// accumulators, one shared-memory stage: simple, not fast.
 //
 // Two bodies:
-//   geglu_up_tile  h = (A Wa^T * sa + ba) * gelu_erf(A Wg^T * sg + bg),
-//                  rounded to bf16; W = [Wa; Wg] is (2*inner, K). With kLN
-//                  (K7) the A tile is LayerNorm(x) rounded to bf16 on its
-//                  way into shared memory (statistics of the block's 64 rows
-//                  first).
-//   down_tile      out = bf16((A W^T * ws + b) * s) + r, the scaled-residual
-//                  epilogue of K6 and K7.
-// W is bf16 or int8. An int8 tile is converted to bf16 on its way into shared
-// memory (every int8 value is exact in bf16) and its per-output-channel f32
-// scales multiply the f32 sums in the epilogue, as the TPU kernel applies
-// them after the dot (layoutllm_t2i_tpu/ops/pallas/ffn.py:356-366). A null
-// scale pointer means a bf16 weight, a null bias no bias.
+//   geglu_up_tile  h = (LN(x) Qa^T * sa + ba) * gelu_erf(LN(x) Qg^T * sg +
+//                  bg), rounded to bf16; Q = [Qa; Qg] is (2*inner, K). The
+//                  A tile is LayerNorm(x) rounded to bf16 on its way into
+//                  shared memory (statistics of the block's 64 rows first).
+//   down_tile      out = bf16((h Q2^T * s2 + b2) * s) + x, the
+//                  scaled-residual epilogue.
+// An int8 tile is converted to bf16 on its way into shared memory (every
+// int8 value is exact in bf16) and its per-output-channel f32 scales
+// multiply the f32 sums in the epilogue, as the TPU kernel applies them
+// after the dot (layoutllm_t2i_tpu/ops/pallas/ffn.py:356-366).
 #pragma once
 
 #include <mma.h>
@@ -78,19 +76,13 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const int8_t* src,
   }
 }
 
-__device__ __forceinline__ float gelu_erf(float g) {
-  return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
-}
-
-// One 64x64 tile of h = (A Wa^T * sa + ba) * gelu_erf(A Wg^T * sg + bg),
-// stored bf16 (M, inner). x: (M, K) bf16; lnw, lnb: (K,) bf16 (kLN only);
-// w1: (2*inner, K) = [Wa; Wg]; ws1: (2*inner,) f32 or null; b1: (2*inner,)
-// bf16 or null. Block (x, y) computes columns [64x, 64x+64) of rows
-// [64y, 64y+64).
-template <bool kLN, typename W>
+// One 64x64 tile of h = (LN(x) Qa^T * sa + ba) * gelu_erf(LN(x) Qg^T * sg
+// + bg), stored bf16 (M, inner). x: (M, K) bf16; lnw, lnb: (K,) bf16; w1:
+// (2*inner, K) int8 = [Qa; Qg]; ws1: (2*inner,) f32; b1: (2*inner,) bf16.
+// Block (x, y) computes columns [64x, 64x+64) of rows [64y, 64y+64).
 __device__ __forceinline__ void geglu_up_tile(
     const bf16* __restrict__ x, const bf16* __restrict__ lnw,
-    const bf16* __restrict__ lnb, const W* __restrict__ w1,
+    const bf16* __restrict__ lnb, const int8_t* __restrict__ w1,
     const float* __restrict__ ws1, const bf16* __restrict__ b1,
     bf16* __restrict__ hout, int M, int K, int inner, float eps) {
   __shared__ __align__(128) bf16 sA[BM * LDS];
@@ -101,34 +93,32 @@ __device__ __forceinline__ void geglu_up_tile(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
 
-  if constexpr (kLN) {
-    // LayerNorm statistics of this block's rows: centred two-pass per row
-    const int nv = K / 8;
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      if (m0 + r >= M) break;
-      const uint4* xr = reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * K);
-      float f[8], s = 0.f;
-      for (int vi = lane; vi < nv; vi += 32) {
-        unpack8(xr[vi], f);
+  // LayerNorm statistics of this block's rows: centred two-pass per row
+  const int nv = K / 8;
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = warp * 16 + rr;
+    if (m0 + r >= M) break;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * K);
+    float f[8], s = 0.f;
+    for (int vi = lane; vi < nv; vi += 32) {
+      unpack8(xr[vi], f);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s += f[j];
-      }
-      const float mean = warp_sum(s) / K;
-      float ss = 0.f;
-      for (int vi = lane; vi < nv; vi += 32) {
-        unpack8(xr[vi], f);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) ss += (f[j] - mean) * (f[j] - mean);
-      }
-      const float rstd = rsqrtf(warp_sum(ss) / K + eps);
-      if (lane == 0) {
-        sMean[r] = mean;
-        sRstd[r] = rstd;
-      }
+      for (int j = 0; j < 8; ++j) s += f[j];
     }
-    __syncthreads();
+    const float mean = warp_sum(s) / K;
+    float ss = 0.f;
+    for (int vi = lane; vi < nv; vi += 32) {
+      unpack8(xr[vi], f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ss += (f[j] - mean) * (f[j] - mean);
+    }
+    const float rstd = rsqrtf(warp_sum(ss) / K + eps);
+    if (lane == 0) {
+      sMean[r] = mean;
+      sRstd[r] = rstd;
+    }
   }
+  __syncthreads();
 
   FragC acc_a[4], acc_g[4];
 #pragma unroll
@@ -139,24 +129,20 @@ __device__ __forceinline__ void geglu_up_tile(
   FragA fa;
   FragB fb;
   for (int k0 = 0; k0 < K; k0 += BKT) {
-    if constexpr (kLN) {
-      // A tile: LN(x) rounded to bf16
-      for (int i = threadIdx.x; i < BM * (BKT / 8); i += kThreads) {
-        const int r = i / (BKT / 8), c = (i % (BKT / 8)) * 8;
-        float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (m0 + r < M && k0 + c < K) {
-          float xv[8], g[8], b[8];
-          unpack8(*reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * K + k0 + c), xv);
-          unpack8(*reinterpret_cast<const uint4*>(lnw + k0 + c), g);
-          unpack8(*reinterpret_cast<const uint4*>(lnb + k0 + c), b);
-          const float mean = sMean[r], rstd = sRstd[r];
+    // A tile: LN(x) rounded to bf16
+    for (int i = threadIdx.x; i < BM * (BKT / 8); i += kThreads) {
+      const int r = i / (BKT / 8), c = (i % (BKT / 8)) * 8;
+      float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (m0 + r < M && k0 + c < K) {
+        float xv[8], g[8], b[8];
+        unpack8(*reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * K + k0 + c), xv);
+        unpack8(*reinterpret_cast<const uint4*>(lnw + k0 + c), g);
+        unpack8(*reinterpret_cast<const uint4*>(lnb + k0 + c), b);
+        const float mean = sMean[r], rstd = sRstd[r];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) o[j] = (xv[j] - mean) * rstd * g[j] + b[j];
-        }
-        *reinterpret_cast<uint4*>(sA + r * LDS + c) = pack8(o);
+        for (int j = 0; j < 8; ++j) o[j] = (xv[j] - mean) * rstd * g[j] + b[j];
       }
-    } else {
-      stage_tile(sA, x, K, m0, M, k0, K);
+      *reinterpret_cast<uint4*>(sA + r * LDS + c) = pack8(o);
     }
     stage_tile(sWa, w1, K, j0, inner, k0, K);
     stage_tile(sWg, w1 + (long long)inner * K, K, j0, inner, k0, K);
@@ -186,15 +172,9 @@ __device__ __forceinline__ void geglu_up_tile(
       const int gm = m0 + warp * 16 + e / 16;
       const int gn = j0 + f * 16 + (e % 16);
       if (gm < M && gn < inner) {
-        float a = stA[e], g = stG[e];
-        if (ws1) {
-          a *= ws1[gn];
-          g *= ws1[inner + gn];
-        }
-        if (b1) {
-          a += __bfloat162float(b1[gn]);
-          g += __bfloat162float(b1[inner + gn]);
-        }
+        const float a = stA[e] * ws1[gn] + __bfloat162float(b1[gn]);
+        const float g =
+            stG[e] * ws1[inner + gn] + __bfloat162float(b1[inner + gn]);
         hout[(long long)gm * inner + gn] = __float2bfloat16(a * gelu_erf(g));
       }
     }
@@ -203,13 +183,12 @@ __device__ __forceinline__ void geglu_up_tile(
 }
 
 // One 64x64 tile of out (M, N) = bf16((A W^T * ws + b) * s) + r, the
-// residual added to the rounded FF output in bf16 (ffn.py:66-67, :366-367),
-// from A (M, Kd) bf16 and W (N, Kd); ws: (N,) f32 or null; b: (N,) bf16 or
-// null; r: (M, N) bf16. s is read from s_ptr (a device f32 scalar) when
-// given, so a traced gate never syncs to the host, else s_val.
-template <typename W>
+// residual added to the rounded FF output in bf16 (ffn.py:366-367), from A
+// (M, Kd) bf16 and W (N, Kd) int8; ws: (N,) f32; b: (N,) bf16; r: (M, N)
+// bf16. s is read from s_ptr (a device f32 scalar) when given, so a traced
+// gate never syncs to the host, else s_val.
 __device__ __forceinline__ void down_tile(
-    const bf16* __restrict__ a, const W* __restrict__ w,
+    const bf16* __restrict__ a, const int8_t* __restrict__ w,
     const float* __restrict__ ws, const bf16* __restrict__ b,
     const bf16* __restrict__ r, bf16* __restrict__ out,
     const float* __restrict__ s_ptr, float s_val, int M, int N, int Kd) {
@@ -251,9 +230,7 @@ __device__ __forceinline__ void down_tile(
       const int gn = n0 + f * 16 + (e % 16);
       if (gm < M && gn < N) {
         const long long idx = (long long)gm * N + gn;
-        float y = st[e];
-        if (ws) y *= ws[gn];
-        if (b) y += __bfloat162float(b[gn]);
+        const float y = st[e] * ws[gn] + __bfloat162float(b[gn]);
         const float yb = __bfloat162float(__float2bfloat16(y * s));
         out[idx] = __float2bfloat16(yb + __bfloat162float(r[idx]));
       }

@@ -1,11 +1,13 @@
-// The GEMM mainloop of K4 (ffn.cu) and K8a (matmul.cu) for Hopper (sm_90a):
-// warp-specialised wgmma on a TMA ring, accumulators in registers.
+// The GEMM mainloop of K4 and K6 (ffn.cu) and K8a and K8b (matmul.cu) for
+// Hopper (sm_90a): warp-specialised wgmma on a TMA ring, accumulators in
+// registers, and the epilogues they share.
 //
 // Every product is A B^T with both operands row-major over the contraction:
 // A (M, K) activations and B (N, K) weights in the torch (out, in) layout,
 // so both are K-major wgmma operands. A block computes one 128 x kBN output
-// tile against kNB B operands at once (K4's up kernel reads the Wa and Wg
-// tiles of the same columns and keeps two accumulators).
+// tile against kNB B operands at once (the GEGLU GEMMs, K4's and K6's up
+// kernels and K8b, read the Wa and Wg tiles of the same columns and keep
+// two accumulators).
 //
 // What bounds it on the H100: operations. A tile does 2 * 128 * kBN flops
 // for every (128 + kBN) * 2 bytes of a 64-deep chunk it loads, about 70
@@ -38,14 +40,14 @@
 //    the ragged M and N edges. Each output element is summed by one thread
 //    in a fixed order: no atomics, and launches repeat bit for bit.
 //  * The tile width: 160 and 80 divide the output widths 320 / 640 / 1280
-//    of K8a and K4's down kernel, 128 the inner widths 1280 / 2560 / 5120
-//    of K4's up kernel (128 + 2 x 128 rows a stage, 48 KB). K8a and the
-//    down kernel take the narrow one of their two instantiations where it
+//    of K8a and the down kernels, 128 the inner widths 1280 / 2560 / 5120
+//    of the GEGLU GEMMs (128 + 2 x 128 rows a stage, 48 KB). K8a and the
+//    down kernels take the narrow one of their two instantiations where it
 //    needs fewer waves times width on the card's SMs (pick_narrow): at
 //    M = 1024 and N = 1280, 8 x 8 tiles 160 wide fill 64 of the 132 SMs
 //    for a 5,120-deep contraction, and 8 x 16 tiles 80 wide fill 128. On
 //    the H100 that choice was the faster one at each of their main-path
-//    shapes; for the up kernel, tiles 2 x 64 wide never were.
+//    shapes; for K4's up kernel, tiles 2 x 64 wide never were.
 #pragma once
 
 #include "common.cuh"
@@ -166,6 +168,79 @@ __device__ __forceinline__ void store_pair(bf16* p, float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
+// epilogues
+
+// The GEGLU GEMMs' (K4's and K6's up kernels, K8b): h = bf16((a + ba) *
+// gelu_erf(g + bg)) in f32, a and g the two accumulators
+struct Geglu {
+  const bf16* b;  // (2 * N,) = [ba; bg], or null: no bias
+  bf16* h;        // (M, N)
+  int M, N;
+
+  template <int NB, int W>
+  __device__ __forceinline__ void operator()(const float (&acc)[NB][W],
+                                             int row0, int n0,
+                                             int lane) const {
+    static_assert(NB == 2, "a and g");
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= M) continue;
+      bf16* hrow = h + (long long)row * N;
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        if (col >= N) continue;
+        float2 va = make_float2(0.f, 0.f), vg = va;
+        if (b != nullptr) {
+          va = load_pair(b + col);
+          vg = load_pair(b + N + col);
+        }
+        const int i = 4 * j + 2 * r;
+        store_pair(hrow + col,
+                   (acc[0][i] + va.x) * gelu_erf(acc[1][i] + vg.x),
+                   (acc[0][i + 1] + va.y) * gelu_erf(acc[1][i + 1] + vg.y));
+      }
+    }
+  }
+};
+
+// The down kernels' (K4, K6): out = bf16(bf16((acc + b2) * s) + r), the
+// FF output rounded before the residual is added (K4: r = x; K6: r passed
+// in, s = 1)
+struct ScaledResidual {
+  const bf16* b2;  // (K,)
+  const bf16* r;   // (M, K)
+  bf16* out;       // (M, K)
+  float s;
+  int M, K;
+
+  template <int NB, int W>
+  __device__ __forceinline__ void operator()(const float (&acc)[NB][W],
+                                             int row0, int n0,
+                                             int lane) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M) continue;
+      const long long at = (long long)row * K;
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        if (col >= K) continue;
+        const float2 vb = load_pair(b2 + col);
+        const float2 vr = load_pair(r + at + col);
+        const int i = 4 * j + 2 * h;
+        const float y0 = __bfloat162float(__float2bfloat16((acc[0][i] + vb.x) * s));
+        const float y1 =
+            __bfloat162float(__float2bfloat16((acc[0][i + 1] + vb.y) * s));
+        store_pair(out + at + col, y0 + vr.x, y1 + vr.y);
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
 // host side
 
 inline int sm_count() {
@@ -202,6 +277,25 @@ int launch(int M, int N, cudaStream_t stream, Args... args) {
   const dim3 grid((N + C::kBN - 1) / C::kBN, (M + kBM - 1) / kBM);
   kKern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// Launch kKern, a GEGLU GEMM of config C (kNB == 2) with the Geglu
+// epilogue, over x (M, K) and w = [Wa; Wg] (2N, K) into h (M, N). One
+// tensor map on each half of w, N rows each: zero fill ends each at N, so a
+// ragged tile never reads Wg as Wa. kKern takes (map of x, map of Wa, map
+// of Wg, b, h, M, K, N).
+template <class C, auto kKern>
+int launch_geglu(const void* x, const void* w, const void* b, void* h, int M,
+                 int K, int N, cudaStream_t st) {
+  static_assert(C::kNB == 2, "a and g");
+  const bf16* wa = static_cast<const bf16*>(w);
+  CUtensorMap tx, twa, twg;
+  int err = tensor_map_2d(&tx, x, M, K, kBM);
+  if (err == 0) err = tensor_map_2d(&twa, wa, N, K, C::kBN);
+  if (err == 0) err = tensor_map_2d(&twg, wa + (long long)N * K, N, K, C::kBN);
+  if (err != 0) return err;
+  return launch<C, kKern>(M, N, st, tx, twa, twg, static_cast<const bf16*>(b),
+                          static_cast<bf16*>(h), M, K, N);
 }
 
 }  // namespace gemm_tiles

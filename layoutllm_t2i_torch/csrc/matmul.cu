@@ -17,18 +17,14 @@
 // is the limit: only 64 of the 132 SMs would hold a 128 x 160 tile, so the
 // launch takes tiles 80 wide (gemm_tiles.cuh pick_narrow), 128 of them.
 //
-// K8a runs on gemm_tiles.cuh's mainloop: TMA ring, wgmma with the f32
-// accumulators in registers, the bias and the residual added to them in
-// the epilogue. The TPU kernel carries an f32 (bm, bn) accumulator across
-// a sequential K grid axis; here each block's loop over K takes that
-// axis's place.
-//
-// K8b stays on ffn_tiles.cuh's first WMMA design (64x64 tiles, one
-// shared-memory stage; K6's up kernel): simple, not fast.
-#include "ffn_tiles.cuh"
+// Both run on gemm_tiles.cuh's mainloop: TMA ring, wgmma with the f32
+// accumulators in registers, the epilogue applied to them. The TPU kernels
+// carry f32 (bm, bn) accumulators across a sequential K grid axis; here
+// each block's loop over K takes that axis's place. K8a adds the bias and
+// the residual. K8b is K4's and K6's up kernel on x: Wa and Wg as two B
+// operands with an accumulator each, the shared Geglu epilogue, tiles
+// 128 x 128 of the output. (ffn_tiles.cuh's WMMA design is K7's alone.)
 #include "gemm_tiles.cuh"
-
-using namespace ffn_tiles;
 
 namespace {
 
@@ -95,11 +91,17 @@ int launch_linear(const void* x, const void* w, const void* b, const void* r,
       static_cast<const bf16*>(r), static_cast<bf16*>(out), M, N, K);
 }
 
-__global__ void __launch_bounds__(kThreads)
-geglu_fused_kernel(const bf16* x, const bf16* w, const bf16* b, bf16* out,
-                   int M, int K, int N) {
-  geglu_up_tile<false, bf16>(x, nullptr, nullptr, w, nullptr, b, out, M, K, N,
-                             0.f);
+// K8b tiles: 128 x (2 x 128), K4's up tiles (K8b's shapes are theirs)
+using GegluCfg = gemm_tiles::Cfg<128, 2>;
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap twa,
+                   const __grid_constant__ CUtensorMap twg,
+                   const bf16* __restrict__ b, bf16* __restrict__ out, int M,
+                   int K, int N) {
+  gemm_tiles::gemm_tile<C>(&tx, &twa, &twg, K, gemm_tiles::Geglu{b, out, M, N});
 }
 
 }  // namespace
@@ -118,13 +120,11 @@ LLT2I_API int llt2i_linear(const void* x, const void* w, const void* b,
 }
 
 // K8b. x: (M, K) bf16; w: (2N, K) = [Wa; Wg] bf16; b: (2N,) bf16 or null;
-// out: (M, N) bf16. K % 8 == 0.
+// out: (M, N) bf16. K % 8 == 0 and N % 8 == 0; x and w 16-byte aligned
+// (TMA), b and out 4-byte aligned.
 LLT2I_API int llt2i_geglu(const void* x, const void* w, const void* b,
                           void* out, int M, int K, int N, void* stream) {
-  if (K % 8) return (int)cudaErrorInvalidValue;
-  geglu_fused_kernel<<<dim3((N + BN - 1) / BN, (M + BM - 1) / BM), kThreads,
-                       0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(b), static_cast<bf16*>(out), M, K, N);
-  return (int)cudaGetLastError();
+  if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;
+  return gemm_tiles::launch_geglu<GegluCfg, geglu_wgmma_kernel<GegluCfg>>(
+      x, w, b, out, M, K, N, static_cast<cudaStream_t>(stream));
 }

@@ -223,6 +223,10 @@ def _forward_res(x, w1, b1, w2, b2, r):
             and r.shape == (m, k), "ffn_geglu: shapes")
     require(k % 8 == 0 and inner % 8 == 0,
             f"ffn_geglu: K={k}, inner={inner} must be multiples of 8")
+    # x, w1 and w2 through TMA, the biases and r in bf16 pairs
+    for name, t, nbytes in (("x", x, 16), ("w1", w1, 16), ("w2", w2, 16),
+                            ("b1", b1, 4), ("b2", b2, 4), ("r", r, 4)):
+        require_aligned(t, f"ffn_geglu: {name}", nbytes)
     out = torch.empty_like(x)
     if m == 0:
         return out

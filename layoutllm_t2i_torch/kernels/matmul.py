@@ -161,7 +161,12 @@ def _geglu_forward(x, w, b):
             check_operand(t, f"geglu_fused: {name}", x.device)
     require(w.shape == (2 * n, k) and (b is None or b.shape == (2 * n,)),
             "geglu_fused: shapes")
-    require(k % 8 == 0, f"geglu_fused: K={k} must be a multiple of 8")
+    require(k % 8 == 0 and n % 8 == 0,
+            f"geglu_fused: K={k}, N={n} must be multiples of 8")
+    # x and w through TMA, b in bf16 pairs
+    for name, t, nbytes in (("x", x, 16), ("w", w, 16), ("b", b, 4)):
+        if t is not None:
+            require_aligned(t, f"geglu_fused: {name}", nbytes)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out

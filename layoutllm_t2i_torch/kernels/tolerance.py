@@ -35,6 +35,10 @@ twice, s applied after the residual, LN without its rstd) lies 2.3e-2 to
 0.6 of rms(b) off in the whole-tensor error, the emulated rounding at
 most 7.2e-5 (``tests/test_torch_kernels.py``); h left unrounded in f32 and
 K8a's sum rounded before its residual (1.0e-3 and 2.5e-3) are within it.
+K6 and K8b on the same mainloop: the planted faults (those, K6's residual
+halved, K8b's also with the bias absent) lie 8.0e-2 to 0.96 off, the
+emulated rounding at most 1.4e-4; K6's h unrounded and its residual added
+before the FF output's rounding (2.0e-3 and 2.3e-3) are within it.
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels to
 these numbers; ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_quant.py`` show on the CPU that they pass the kernels'

@@ -17,9 +17,10 @@ Functions against the plain versions on the card; and the opt-in FF and
 GEMM kernels K6, K7, K8a and K8b: ragged M, K = 1280 with inner = 5120,
 the scale s as a device tensor, int8 weights whose width is not a multiple
 of the 32-deep k step, and the gradients of the K6, K8a and K8b Functions;
-for K4's and K8a's TMA and wgmma design (gemm_tiles.cuh), ragged M, N and
-K, the grid-fill shape, operands fenced by NaN and Inf, outputs and
-scratch pre-filled with NaN, bitwise repeatability and misaligned operands.
+for K4's, K6's, K8a's and K8b's TMA and wgmma design (gemm_tiles.cuh;
+K8b with and without its bias), ragged M, N and K, the grid-fill shape,
+operands fenced by NaN and Inf, outputs and scratch pre-filled with NaN,
+bitwise repeatability and misaligned operands.
 Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -557,7 +558,7 @@ def test_gemm_grads(dev, gen):
 
 
 # ---------------------------------------------------------------------------
-# K4 and K8a on the wgmma mainloop (csrc/gemm_tiles.cuh)
+# K4, K6, K8a and K8b on the wgmma mainloop (csrc/gemm_tiles.cuh)
 
 
 def _k4_args(gen, m, k, inner, s=0.37):
@@ -574,12 +575,32 @@ def _k8a_args(gen, m, k, n):
     return [x, w, _rand(gen, n, scale=0.1), _rand(gen, m, n)]
 
 
-# kid -> (wrapper, plain version, operands for an (M, contraction, N) case)
+def _k6_args(gen, m, k, inner):
+    x, r = _rand(gen, m, k), _rand(gen, m, k)
+    return [x, *_ffn_weights(gen, k, inner), r]
+
+
+def _k8b_args(gen, m, k, n, bias=True):
+    x, w = _rand(gen, m, k), _rand(gen, 2 * n, k, scale=k ** -0.5)
+    return [x, w, _rand(gen, 2 * n, scale=0.1) if bias else None]
+
+
+# case -> (wrapper, plain version, operands for an (M, contraction, N)
+# case); a case is a kernel id, "-nobias" K8b without its bias
 WGMMA_GEMMS = {
     "K4": (K.ffn_ln_geglu, K.ffn_ln_geglu_plain,
            lambda gen, m, k, n: _k4_args(gen, m, k, n)),
     "K8a": (K.linear_fused, K.linear_plain, _k8a_args),
+    "K6": (K.ffn_geglu, K.ffn_geglu_plain, _k6_args),
+    "K8b": (K.geglu_fused, K.geglu_plain, _k8b_args),
+    "K8b-nobias": (K.geglu_fused, K.geglu_plain,
+                   lambda gen, m, k, n: _k8b_args(gen, m, k, n, bias=False)),
 }
+
+
+def _kid(case):
+    """The kernel id, and so the tolerance, of a WGMMA_GEMMS case."""
+    return case.split("-")[0]
 
 
 def _wgmma_cases(*shapes):
@@ -587,20 +608,25 @@ def _wgmma_cases(*shapes):
             for kid in WGMMA_GEMMS for shape in shapes]
 
 
-# K4's (M, K, inner) and K8a's (M, K, N): K = 72 ends in a ragged 64-deep
-# chunk, N = 200 in a partial tile, M = 100 and 1054 in a partial 128-row
-# block; M = 1024 with a 5,120-deep contraction and 1,280 outputs is the
-# grid-fill shape (K8a's 1024 x 5120 x 1280, K4's down GEMM at K = 1280)
+# K4's and K6's (M, K, inner), K8a's and K8b's (M, K, N): K = 72 ends in a
+# ragged 64-deep chunk, N = 200 in a partial tile, M = 100 and 1054 in a
+# partial 128-row block; M = 1024 with a 5,120-deep contraction and 1,280
+# outputs is the grid-fill shape (K8a's 1024 x 5120 x 1280, K4's and K6's
+# down GEMM at K = 1280), as are K8b's 1024 x 1280 x 5120 (320 tiles 128
+# wide, 2.4 waves on 132 SMs)
 RAGGED = [(100, 72, 200), (1054, 72, 200)]
 
 
 @pytest.mark.parametrize("kid,shape", _wgmma_cases(*RAGGED) + [
     pytest.param("K4", (1024, 1280, 5120), id="K4-grid-fill"),
-    pytest.param("K8a", (1024, 5120, 1280), id="K8a-grid-fill")])
+    pytest.param("K8a", (1024, 5120, 1280), id="K8a-grid-fill"),
+    pytest.param("K6", (1024, 1280, 5120), id="K6-grid-fill"),
+    pytest.param("K8b", (1024, 1280, 5120), id="K8b-grid-fill"),
+    pytest.param("K8b-nobias", (1024, 1280, 5120), id="K8b-nobias-grid-fill")])
 def test_wgmma_gemm_ragged_and_grid_fill(dev, gen, kid, shape):
     fn, plain, make = WGMMA_GEMMS[kid]
     args = make(gen, *shape)
-    _check(kid, lambda: fn(*args), lambda: plain(*args), fn)
+    _check(_kid(kid), lambda: fn(*args), lambda: plain(*args), fn)
 
 
 def _fenced_flat(t, before=8, after=4096):
@@ -621,19 +647,20 @@ def test_wgmma_gemm_never_reads_outside_its_operands(dev, gen, kid, shape):
     # past K or N would read the next row, and at the end the Inf fence
     fn, plain, make = WGMMA_GEMMS[kid]
     args = make(gen, *shape)
-    fenced = [_fenced_flat(a) if a.dim() else a for a in args]
-    _check(kid, lambda: fn(*fenced), lambda: plain(*args), fn)
+    fenced = [a if a is None or not a.dim() else _fenced_flat(a) for a in args]
+    _check(_kid(kid), lambda: fn(*fenced), lambda: plain(*args), fn)
 
 
 def _into_nan(kid, args, guard=4096):
-    """K4 or K8a through its C entry point into an output (and K4's
-    scratch) filled with NaN, each followed by ``guard`` more NaN elements:
-    (output, [guards])."""
+    """A WGMMA_GEMMS case through its C entry point into an output (and
+    K4's or K6's scratch) filled with NaN, each followed by ``guard`` more
+    NaN elements: (output, [guards])."""
     x = args[0]
     m = x.shape[0]
     stream = stream_handle(x.device)
     nan = lambda n: torch.full((n + guard,), float("nan"), device=x.device,
                                dtype=torch.bfloat16)
+    ptr = lambda t: None if t is None else t.data_ptr()
     if kid == "K8a":
         x, w, b, r = args
         n, k = w.shape
@@ -643,6 +670,25 @@ def _into_nan(kid, args, guard=4096):
                                          stream), "linear_fused")
         bufs = [out]
         shape = (m, n)
+    elif _kid(kid) == "K8b":
+        x, w, b = args
+        n, k = w.shape[0] // 2, w.shape[1]
+        out = nan(m * n)
+        check(lib("matmul").llt2i_geglu(x.data_ptr(), w.data_ptr(), ptr(b),
+                                        out.data_ptr(), m, k, n, stream),
+              "geglu_fused")
+        bufs = [out]
+        shape = (m, n)
+    elif kid == "K6":
+        x, w1, b1, w2, b2, r = args
+        k, inner = x.shape[1], w2.shape[1]
+        out, hbuf = nan(m * k), nan(m * inner)
+        check(lib("ffn").llt2i_ffn_geglu(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), r.data_ptr(), hbuf.data_ptr(), out.data_ptr(), m,
+            k, inner, stream), "ffn_geglu")
+        bufs = [out, hbuf]
+        shape = (m, k)
     else:
         x, lw, lb, w1, b1, w2, b2, s = args
         k, inner = x.shape[1], w2.shape[1]
@@ -661,19 +707,22 @@ def _into_nan(kid, args, guard=4096):
 @pytest.mark.parametrize("kid,shape", _wgmma_cases(*RAGGED))
 def test_wgmma_gemm_writes_only_its_outputs(dev, gen, kid, shape):
     # every output element is written (none stays NaN), and nothing past
-    # the output or K4's scratch (h, then LN(x)): the guards stay NaN; a
-    # column of h past inner left unwritten would turn the output NaN
+    # the output or K4's scratch (h, then LN(x)) or K6's (h): the guards
+    # stay NaN; a column of h past inner left unwritten would turn the
+    # output NaN
     fn, plain, make = WGMMA_GEMMS[kid]
     args = make(gen, *shape)
     out, guards = _into_nan(kid, args)
     assert all(bool(g.isnan().all()) for g in guards)
-    got = agreement(kid, out, plain(*args))
+    got = agreement(_kid(kid), out, plain(*args))
     assert got["ok"], got
 
 
 @pytest.mark.parametrize("kid,shape", _wgmma_cases((1054, 72, 200)) + [
     pytest.param("K4", (16384, 320, 1280), id="K4-16384-320-1280"),
-    pytest.param("K8a", (1024, 5120, 1280), id="K8a-grid-fill")])
+    pytest.param("K8a", (1024, 5120, 1280), id="K8a-grid-fill"),
+    pytest.param("K6", (16384, 320, 1280), id="K6-16384-320-1280"),
+    pytest.param("K8b", (1024, 1280, 5120), id="K8b-grid-fill")])
 def test_wgmma_gemm_is_bitwise_repeatable(dev, gen, kid, shape):
     # each output element is summed by one thread in a fixed order: no
     # atomics, so launches agree bit for bit (a race in the stage ring, a
@@ -688,8 +737,9 @@ def test_wgmma_gemm_is_bitwise_repeatable(dev, gen, kid, shape):
 @pytest.mark.parametrize("kid", list(WGMMA_GEMMS))
 @pytest.mark.parametrize("operand", [0, 1])
 def test_wgmma_gemm_misaligned_operand_raises(dev, gen, kid, operand):
-    # x and the weight go through TMA, which needs 16-byte aligned
-    # addresses: a view 2 bytes into its buffer raises, nothing launches
+    # x and the weight (K4's and K6's w1) go through TMA, which needs
+    # 16-byte aligned addresses: a view 2 bytes into its buffer raises,
+    # nothing launches
     fn, _, make = WGMMA_GEMMS[kid]
     args = make(gen, 256, 64, 256)
     idx = 0 if operand == 0 else (3 if kid == "K4" else 1)

@@ -6,10 +6,11 @@ versions for CPU tensors. Both sides see the same f32 inputs from a numpy
 seed. Tolerance: 1e-5 absolute (f32, differing only in summation order),
 2e-5 where a contraction over 512 features adds rounding.
 
-The last five tests hold K1's, K5's, K4's and K8a's stated bf16
-tolerances on the card (``kernels/tolerance.py``) against CPU emulations of
-the CUDA kernels' algorithms (K1 in its first, WMMA design and in its wgmma
-design): the kernels' own rounding must pass them, small faults must not.
+The last seven tests hold K1's, K5's, K4's, K6's, K8a's and K8b's stated
+bf16 tolerances on the card (``kernels/tolerance.py``) against CPU
+emulations of the CUDA kernels' algorithms (K1 in its first, WMMA design
+and in its wgmma design): the kernels' own rounding must pass them, small
+faults must not.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -21,9 +22,9 @@ from layoutllm_t2i_tpu.ops.pallas.flash_attention import flash_attention as jax_
 from layoutllm_t2i_tpu.ops.pallas.norms import _gn_pallas, _gn_pallas_rows, _ln_pallas
 
 from layoutllm_t2i_torch.kernels import (
-    attention_delta, ffn_ln_geglu, ffn_ln_geglu_plain, flash_attention,
-    flash_attention_bwd_plain, flash_attention_lse_plain, flash_attention_plain,
-    group_norm, layer_norm, linear_plain,
+    attention_delta, ffn_geglu_plain, ffn_ln_geglu, ffn_ln_geglu_plain,
+    flash_attention, flash_attention_bwd_plain, flash_attention_lse_plain,
+    flash_attention_plain, geglu_plain, group_norm, layer_norm, linear_plain,
 )
 from layoutllm_t2i_torch.kernels.tolerance import agreement
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -340,7 +341,7 @@ def test_k5_tolerance_separates_rounding_from_faults(d, kid, fault):
 
 
 # ---------------------------------------------------------------------------
-# K4 and K8a on gemm_tiles.cuh's wgmma mainloop
+# K4, K6, K8a and K8b on gemm_tiles.cuh's wgmma mainloop
 
 _BF = torch.bfloat16
 
@@ -470,3 +471,112 @@ def test_k8a_tolerance_separates_rounding_from_faults(k, n, fault):
     got = agreement("K8a", _k8a_emulated(x, w, b, r, fault),
                     linear_plain(x, w, b, r))
     assert got["ok"] == (fault is None or fault in K8A_UNSEEN), got
+
+
+def _geglu_emulated(x, w, b, fault=None):
+    """The GEGLU GEMM of csrc/gemm_tiles.cuh (K8b, and K6's up kernel):
+    a = x Wa^T and g = x Wg^T as the mainloop sums them, then (a + ba) *
+    gelu_erf(g + bg) in f32 (Geglu), before any rounding; w = [Wa; Wg],
+    b = [ba; bg] or None. ``fault`` plants a mistake."""
+    n = w.shape[0] // 2
+    wa, wg = (w[n:], w[:n]) if fault == "swap_wa_wg" else (w[:n], w[n:])
+    tail = fault == "k_tail"
+    a, g = _gemm_emulated(x, wa, tail), _gemm_emulated(x, wg, tail)
+    if b is not None and fault != "bias_dropped":
+        twice = 2 if fault == "bias_twice" else 1
+        a = a + b[:n].float() * twice
+        g = g + b[n:].float() * twice
+    return a * torch.nn.functional.gelu(g)
+
+
+def _k6_emulated(x, w1, b1, w2, b2, r, fault=None):
+    """csrc/ffn.cu's K6: the up GEMM on x into bf16 h, the down GEMM with
+    bf16(bf16(acc + b2) + r) (ScaledResidual at s = 1). ``fault`` plants a
+    mistake: the up-kernel faults and "rows_tail" as K4's, "bias_dropped"
+    drops b2, "bias_twice" adds b1 twice, "residual_scaled" halves r,
+    "residual_unrounded" adds r before the FF output's rounding."""
+    up_fault = {"bias_dropped": None}.get(fault, fault)
+    h = _geglu_emulated(x, w1, b1, up_fault)
+    if fault != "h_unrounded":
+        h = h.to(_BF)
+    y = _gemm_emulated(h, w2, fault == "k_tail")
+    if fault != "bias_dropped":
+        y = y + b2.float()
+    rf = r.float() * (0.5 if fault == "residual_scaled" else 1)
+    if fault == "residual_unrounded":
+        out = (y + rf).to(_BF)
+    else:
+        out = (y.to(_BF).float() + rf).to(_BF)
+    return _unwritten_tail(out, x.shape[0]) if fault == "rows_tail" else out
+
+
+def _k6_inputs(m, k, inner, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g)
+                                     * scale).to(_BF)
+    return (rnd(m, k), rnd(2 * inner, k, scale=k ** -0.5),
+            rnd(2 * inner, scale=0.1), rnd(k, inner, scale=inner ** -0.5),
+            rnd(k, scale=0.1), rnd(m, k))
+
+
+# K6's faults the tolerance must catch, and those it cannot see: h left in
+# f32 and the residual added before the FF output's rounding are each one
+# bf16 rounding of an intermediate, within the rounding the tolerance
+# allows
+K6_CAUGHT = ("k_tail", "rows_tail", "swap_wa_wg", "bias_dropped",
+             "bias_twice", "residual_scaled")
+K6_UNSEEN = ("h_unrounded", "residual_unrounded")
+
+
+@pytest.mark.parametrize("k,fault", [
+    # the three widths of the split routes' norm3 sites (inner 4K)
+    *(pytest.param(k, None, id=f"K{k}") for k in (320, 640, 1280)),
+    # K = 72 (inner 288): both contractions end in a ragged 64-deep chunk
+    pytest.param(72, None, id="K72"),
+    pytest.param(72, "k_tail", id="K72-k_tail"),
+    *(pytest.param(320, fault, id=f"K320-{fault}")
+      for fault in K6_CAUGHT[1:] + K6_UNSEEN),
+])
+def test_k6_tolerance_separates_rounding_from_faults(k, fault):
+    # M = 200 = 128 + 72 leaves a ragged last row block
+    m, inner = 200, 4 * k
+    args = _k6_inputs(m, k, inner)
+    got = agreement("K6", _k6_emulated(*args, fault=fault),
+                    ffn_geglu_plain(*args))
+    assert got["ok"] == (fault is None or fault in K6_UNSEEN), got
+
+
+def _k8b_emulated(x, w, b, fault=None):
+    """csrc/matmul.cu's K8b: the Geglu epilogue's f32 value rounded once to
+    bf16. ``fault`` plants a mistake."""
+    out = _geglu_emulated(x, w, b, fault).to(_BF)
+    return _unwritten_tail(out, x.shape[0]) if fault == "rows_tail" else out
+
+
+# every K8b fault planted is caught; with the bias absent, those that do
+# not touch a bias
+K8B_CAUGHT = ("k_tail", "rows_tail", "swap_wa_wg", "bias_dropped",
+              "bias_twice")
+
+
+@pytest.mark.parametrize("k,n,bias,fault", [
+    # the three shapes of the split routes' up-projections (N = 4K)
+    *(pytest.param(k, 4 * k, bias, None, id=f"K{k}-N{4 * k}-{tag}")
+      for k in (320, 640, 1280) for bias, tag in ((True, "b"), (False, "nob"))),
+    # K = 72, N = 200: a ragged 64-deep chunk and a partial 128-wide tile
+    *(pytest.param(72, 200, bias, fault, id=f"K72-N200-{tag}-{fault}")
+      for bias, tag in ((True, "b"), (False, "nob"))
+      for fault in (None, "k_tail")),
+    *(pytest.param(320, 1280, True, fault, id=f"K320-b-{fault}")
+      for fault in K8B_CAUGHT[1:]),
+    *(pytest.param(320, 1280, False, fault, id=f"K320-nob-{fault}")
+      for fault in ("rows_tail", "swap_wa_wg")),
+])
+def test_k8b_tolerance_separates_rounding_from_faults(k, n, bias, fault):
+    m = 200
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(m, k, generator=g).to(_BF)
+    w = (torch.randn(2 * n, k, generator=g) * k ** -0.5).to(_BF)
+    b = (torch.randn(2 * n, generator=g) * 0.1).to(_BF) if bias else None
+    got = agreement("K8b", _k8b_emulated(x, w, b, fault), geglu_plain(x, w, b))
+    assert got["ok"] == (fault is None), got

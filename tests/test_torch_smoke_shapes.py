@@ -260,8 +260,8 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     """chip_smoke's kernel-name lists against the kernels in csrc/: every
     kernel's profile time counts under its own kernel id (not "matmul",
     whose keys "gemm" and "sm90_" a template name can contain), and phase
-    build looks for HGMMA in every wgmma kernel of K1, K5a, K5b, K4 and
-    K8a."""
+    build looks for HGMMA in every wgmma kernel of K1, K5a, K5b, K4, K6,
+    K8a and K8b; no `__global__` of the retired WMMA kernels is left."""
     kernels = _source_kernels()
     lib_of = {kid: Path(meta[1]).stem for kid, meta in cs.KERNEL_META.items()}
     groups = {name.split()[0]: keys for name, keys in cs.PROFILE_GROUPS}
@@ -275,6 +275,8 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     for lib, names in cs.WGMMA_KERNELS.items():
         for name in names:
             assert kernels.get(name) == lib, name
+    retired = {"ffn_res_up_kernel", "ffn_res_down_kernel", "geglu_fused_kernel"}
+    assert not retired & set(kernels), retired & set(kernels)
     # the only kernels of those ids without a product: K4's LN pre-pass
     for kid in cs.WGMMA_KIDS:
         off_wgmma = set(groups[kid]) - set(cs.WGMMA_KERNELS[lib_of[kid]])
