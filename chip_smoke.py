@@ -7,8 +7,11 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   1. build     nvcc-builds the five kernel libraries from csrc/ (sm_90a),
                prints build seconds, ptxas lines and the card's name and
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
-               in every K1, K5a, K5b, K4, K6, K8a and K8b kernel
-               (WGMMA_KERNELS; K4's LN pre-pass does no product).
+               in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel
+               (WGMMA_KERNELS; K4's and K7's LN pre-passes do no product),
+               or if ptxas reports a spill in a K7 kernel or any nvcc log
+               holds C7515 (wgmma serialised); prints the registers and
+               spills of every wgmma kernel.
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
@@ -23,9 +26,13 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                (device_time), and `host_us` is the kernel wrapper's host
                time a call. K1's, K5a's and K5b's rows add `exp_ms`, the
                time of their exponentials at the SFUs' rate (exp_ms()); the
-               rows of the kernels on wgmma (K1, K5a, K5b, K4, K6, K8a,
+               rows of the kernels on wgmma (K1, K5a, K5b, K4, K6, K7, K8a,
                K8b) add `vs_library`, ms over library_ms, and
-               `device_vs_library`.
+               `device_vs_library`. Before the rows: the wrappers' raw
+               stream handle against torch.cuda.current_stream().cuda_stream
+               outside and inside a side stream (a mismatch fails), and the
+               host floor of a call, torch.empty_like plus an empty C entry
+               point with K3's eight arguments through ctypes (host_floor).
                K5a's and K5b's library call is SDPA's whole backward (dQ,
                dK and dV), so after both rows of a shape a "K5 pair" row
                holds their sum against that call, counted once, with the
@@ -67,6 +74,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      entries carry the pair's sums (`pair`: ms, device_ms, library_ms and
      library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
      vs_library, device_vs_library, and the largest shape's vs_library).
+     `host_us_median` is the median of the kernel's `host_us` over its
+     shapes.
 
 Phase 2's shapes are walked from the model configs (generation_calls,
 training_calls): the generation at 2 requests (CFG batch 4) on each of
@@ -133,17 +142,20 @@ TRAIN_GRAD_CAUGHT = ("dk_unscaled",)
 TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 
 # library -> its kernels written on csrc/hopper.cuh's wgmma: K1, K5a, K5b;
-# K4's and K6's up and down GEMMs, K8a and K8b on csrc/gemm_tiles.cuh. Each
-# must show HGMMA in its SASS, in every instantiation.
+# K4's, K6's and K7's up and down GEMMs, K8a and K8b on csrc/gemm_tiles.cuh.
+# Each must show HGMMA in its SASS, in every instantiation.
 WGMMA_KERNELS = {
     "flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                         "flash_bwd_dkv_kernel"),
     "ffn": ("ffn_up_wgmma_kernel", "ffn_down_wgmma_kernel",
-            "ffn_res_up_wgmma_kernel", "ffn_res_down_wgmma_kernel"),
+            "ffn_res_up_wgmma_kernel", "ffn_res_down_wgmma_kernel",
+            "ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel"),
     "matmul": ("linear_wgmma_kernel", "geglu_wgmma_kernel"),
 }
 # the kernels whose rows are held against their library call (vs_library)
-WGMMA_KIDS = ("K1", "K5a", "K5b", "K4", "K6", "K8a", "K8b")
+WGMMA_KIDS = ("K1", "K5a", "K5b", "K4", "K6", "K7", "K8a", "K8b")
+# K7's kernels, which must compile without a spill (ptxas)
+NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel")
 
 KERNEL_META = {
     "K1": ("flash_attention", "layoutllm_t2i_torch/csrc/flash_attention.cu",
@@ -746,6 +758,22 @@ def sass_opcode_counts(lib_path, opcode: str) -> dict:
     return counts
 
 
+def ptxas_kernels(log: str) -> dict:
+    """{kernel (mangled): {"registers", "spill_stores", "spill_loads"}} from
+    an nvcc log written with -Xptxas -v."""
+    found, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ")[1].strip()
+            found[fn] = {}
+        elif fn is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            found[fn]["spill_stores"], found[fn]["spill_loads"] = nums[1], nums[2]
+        elif fn is not None and "Used " in line and " registers" in line:
+            found[fn]["registers"] = int(line.split("Used ")[1].split()[0])
+    return found
+
+
 def phase_build():
     from layoutllm_t2i_torch.kernels import build
 
@@ -753,24 +781,91 @@ def phase_build():
     log = build.build_all()
     # the wgmma kernels must run on the tensor cores' wgmma path (HGMMA in
     # SASS), each in every instantiation
-    hgmma, missing = {}, []
-    for lib, names in WGMMA_KERNELS.items():
+    hgmma, missing, ptxas, c7515 = {}, [], {}, []
+    for lib in build.SOURCES:
+        text = (build.BUILD_DIR / f"{lib}.log").read_text()
+        if "C7515" in text:
+            c7515.append(lib)
+        names = WGMMA_KERNELS.get(lib, ())
+        ptxas.update({fn: rec for fn, rec in ptxas_kernels(text).items()
+                      if any(name in fn for name in names)})
+        if not names:
+            continue
         found = {fn: n for fn, n in sass_opcode_counts(
             build.lib_path(lib), "HGMMA").items()
             if any(name in fn for name in names)}
         hgmma.update(found)
         missing += [name for name in names
                     if not any(name in fn for fn in found)]
+    spills = {fn: rec for fn, rec in ptxas.items()
+              if any(name in fn for name in NO_SPILL_KERNELS)
+              and (rec.get("spill_stores") or rec.get("spill_loads"))}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libs": log, "hgmma": hgmma})
+          "libs": log, "hgmma": hgmma, "ptxas": ptxas, "c7515": c7515})
     if missing or not all(hgmma.values()):
         raise SmokeFailure(f"wgmma kernels without HGMMA in their SASS: "
                            f"{hgmma}, none found of {missing}")
+    if spills or c7515:
+        raise SmokeFailure(f"ptxas spills in {sorted(spills)} or C7515 "
+                           f"(serialised wgmma) in the logs of {c7515}")
+
+
+# an empty C entry point with K3's eight arguments (host_floor)
+NOOP_SRC = ('extern "C" __attribute__((visibility("default"))) int llt2i_noop('
+            'const void*, const void*, const void*, void*, int, int, float, '
+            'void*) { return 0; }\n')
+
+
+def host_path_checks() -> dict:
+    """The wrappers' host path: their raw stream handle is the current
+    stream's, outside and inside a torch.cuda.stream block; and the floor
+    of a call from Python, torch.empty_like of K3's output plus an empty C
+    entry point with K3's eight arguments through ctypes, host us a call
+    as device_time measures the wrappers' (K3 at rows 8192, C 320)."""
+    import ctypes
+
+    from layoutllm_t2i_torch.kernels import build
+    from layoutllm_t2i_torch.kernels.dispatch import stream_handle
+
+    idx = torch.cuda.current_device()
+    outside = (stream_handle(idx), torch.cuda.current_stream().cuda_stream)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        inside = (stream_handle(idx), torch.cuda.current_stream().cuda_stream,
+                  side.cuda_stream)
+    stream_ok = (outside[0] == outside[1] and inside[0] == inside[1] == inside[2]
+                 and inside[0] != outside[0])
+    work = build.BUILD_DIR.parent / "host_floor"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "noop.cu").write_text(NOOP_SRC)
+    subprocess.run([build.nvcc_path(), "-shared", "-Xcompiler", "-fPIC", "-o",
+                    str(work / "noop.so"), str(work / "noop.cu")], check=True,
+                   capture_output=True, timeout=300)
+    noop = ctypes.CDLL(str(work / "noop.so")).llt2i_noop
+    noop.argtypes = build.SIGNATURES["layer_norm"]["llt2i_layer_norm"]
+    noop.restype = ctypes.c_int
+    x = torch.zeros(8192, 320, device="cuda", dtype=torch.bfloat16)
+    w, b = x[0], x[1]
+    out = torch.empty_like(x)
+    empty_us = device_time(lambda: torch.empty_like(x))[1]
+    call_us = device_time(lambda: noop(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                       out.data_ptr(), 8192, 320, 1e-5,
+                                       outside[0]))[1]
+    rec = {"phase": "host_path", "ok": stream_ok,
+           "stream_outside": list(outside), "stream_inside": list(inside),
+           "empty_like_us": empty_us, "ctypes_call_us": call_us,
+           "host_floor_us": empty_us + call_us}
+    emit(rec)
+    if not stream_ok:
+        raise SmokeFailure("the wrappers' raw stream handle is not the current "
+                           "stream's")
+    return rec
 
 
 def phase_kernels(cases):
     from layoutllm_t2i_torch.kernels.tolerance import agreement
 
+    host_floor = host_path_checks()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -779,7 +874,8 @@ def phase_kernels(cases):
                      "rms_rel_err": 0.0, "ms": 0.0,
                      "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                      "device_ms": 0.0, "library_device_ms": 0.0,
-                     "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
+                     "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0,
+                     "host_us": []}
                for kid in KERNEL_META}
     pair = {key: 0.0 for key in PAIR_SUMS}
     pair["shapes"], pair["max_vs_library"] = 0, 0.0
@@ -821,6 +917,7 @@ def phase_kernels(cases):
         agg["ops_ms"] += flops / H100_BF16_FLOPS * 1e3
         agg["bytes_ms"] += nbytes / H100_HBM_BYTES * 1e3
         agg["shapes"] += 1
+        agg["host_us"].append(rec["host_us"])
         if not agree["ok"]:
             failed.append(f"{kid} {label}")
         del kern, plain, lib
@@ -830,6 +927,11 @@ def phase_kernels(cases):
     if pair["shapes"]:
         pair["vs_library"] = pair["ms"] / pair["library_ms"]
         pair["device_vs_library"] = pair["device_ms"] / pair["library_device_ms"]
+    for agg in summary.values():
+        agg["host_us"] = float(np.median(agg["host_us"])) if agg["host_us"] else None
+    emit({"phase": "kernels", "host_us_median": {
+        kid: agg["host_us"] for kid, agg in summary.items()},
+        "host_floor_us": host_floor["host_floor_us"]})
     return summary, pair
 
 
@@ -1293,7 +1395,8 @@ PROFILE_GROUPS = (
                          "ffn_down_wgmma_kernel")),
     ("K6 ffn_geglu", ("ffn_res_up_wgmma_kernel",
                       "ffn_res_down_wgmma_kernel")),
-    ("K7 ffn_ln_geglu_q", ("ffn_q_up_kernel", "ffn_q_down_kernel")),
+    ("K7 ffn_ln_geglu_q", ("ffn_q_norm_rows_kernel", "ffn_q_up_wgmma_kernel",
+                           "ffn_q_down_wgmma_kernel")),
     ("K8a linear_fused", ("linear_wgmma_kernel",)),
     ("K8b geglu_fused", ("geglu_wgmma_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit", "winograd", "nhwc", "fprop",
@@ -1438,7 +1541,7 @@ def main(argv=None) -> int:
                                   else "bytes"),
                      "library_ms": s["library_ms"], "device_ms": s["device_ms"],
                      "library_device_ms": s["library_device_ms"],
-                     "shapes": s["shapes"]})
+                     "host_us_median": s["host_us"], "shapes": s["shapes"]})
         if kid in WGMMA_KIDS:
             line[-1]["vs_library"] = s["ms"] / s["library_ms"]
             line[-1]["device_vs_library"] = (s["device_ms"]

@@ -11,13 +11,26 @@ line:
   it: the wrapper's host microseconds a call, with its launches queued
   behind a device-side sleep so that the device never waits for the host,
   and the device ms a call of the same run;
+- K3 (LayerNorm) at three of its shapes, the UNet's widths: the
+  wrapper's host microseconds a call and the device ms a call, as
+  chip_smoke.device_time measures them;
+- K7 (the int8 LN + GEGLU FF) and K4 (the same on bf16 weights, whose
+  GEMM epilogues K7 shares) at K7's three (M, K) at s = 0.5: device ms a
+  call (chip_smoke.device_time) and the host microseconds;
+- every kernel's wrapper: the median of its host microseconds a call over
+  the shapes chip_smoke's phase `kernels` walks (the generation on its
+  three routes and a training step), as chip_smoke.device_time measures
+  them;
 - one timed 2-request PLMS-50 generation at full SD-1.4 width
-  (chip_smoke.run_generation): wall seconds, images/s and K1 launches.
+  (chip_smoke.run_generation): wall seconds, images/s and K1 launches;
+  then the same on the int8 UNet through K7 (LLT2I_FFN_INT8=1): wall
+  seconds and K7 launches.
 """
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -26,6 +39,8 @@ import torch
 # (B, N = M, H, d): the generation's K1 calls (CFG batch 4; the VAE at 2)
 K1_SHAPES = ((4, 4096, 8, 40), (4, 4126, 8, 40), (4, 1024, 8, 80),
              (4, 1054, 8, 80), (2, 4096, 1, 512))
+K3_SHAPES = ((16384, 320), (4096, 640), (1024, 1280))
+FF_SHAPES = ((16384, 320), (4096, 640), (1024, 1280))  # K7's and K4's
 CALLS = 100
 SLEEP_CYCLES = 200_000_000   # >= 0.1 s at the card's SM clock (<= 2 GHz)
 
@@ -53,6 +68,34 @@ def k1_timing(flash_attention, b, n, h, d):
     return host_s / CALLS * 1e6, e0.elapsed_time(e1) / CALLS, asleep
 
 
+def host_us_by_kernel(cs) -> dict:
+    """{kernel id: median host us a call} over every shape of chip_smoke's
+    walk, each wrapper call on fresh inputs from chip_smoke.make_case."""
+    from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+    unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+    tok = clip_cfg.max_length
+    batch = next(synthetic_layout_batches(cs.TRAIN_BATCH, 512,
+                                          cs.TRAIN_MAX_BOXES))
+    paths = {name: cs.generation_calls(unet_cfg, vae_cfg, clip_cfg, tok,
+                                       cs.REQUESTS, cs.VAE_CHUNK, route=route)
+             for name, route in (("generate", cs.DEFAULT), ("int8", cs.INT8),
+                                 ("routes", cs.SPLIT))}
+    paths["train"] = cs.training_calls(unet_cfg, vae_cfg, clip_cfg, tok, batch,
+                                       cs.TRAIN_MAX_BOXES,
+                                       cs.TRAIN_MAX_RELATIONS)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    host = {}
+    for kid, _, args, _ in cs.kernel_cases(paths):
+        kern = cs.make_case(kid, args, dev, gen)[0]
+        host.setdefault(kid, []).append(cs.device_time(kern)[1])
+        del kern
+        torch.cuda.empty_cache()
+    return {kid: statistics.median(us) for kid, us in host.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ab_timing: no CUDA device", file=sys.stderr)
@@ -61,7 +104,8 @@ def main() -> int:
     import chip_smoke as cs
     from layoutllm_t2i_torch.kernels import build
     from layoutllm_t2i_torch.kernels.flash_attention import flash_attention
-    from layoutllm_t2i_torch.pipeline.loaders import random_models
+    from layoutllm_t2i_torch.pipeline.loaders import (quantize_unet_int8,
+                                                      random_models)
 
     build.build_all()
     out = {"k1": []}
@@ -71,14 +115,34 @@ def main() -> int:
             out["k1"].append({"shape": f"B{b} N{n} H{h} d{d}",
                               "host_us": host_us, "device_ms": dev_ms,
                               "sleep_outlasted_host": asleep})
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for kid, shapes in (("K3", K3_SHAPES), ("K7", FF_SHAPES),
+                            ("K4", FF_SHAPES)):
+            out[kid.lower()] = []
+            for shape in shapes:
+                args = shape if kid == "K3" else (*shape, 0.5)
+                kern = cs.make_case(kid, args, dev, gen)[0]
+                dev_ms, host_us = cs.device_time(kern)
+                out[kid.lower()].append({"shape": cs.case_label(kid, args),
+                                         "host_us": host_us,
+                                         "device_ms": dev_ms})
+                del kern
+    out["host_us_median"] = host_us_by_kernel(cs)
     models = random_models(small=False, device="cuda", dtype=torch.bfloat16,
                            seed=0)
     with cs.route_env(cs.DEFAULT):
         rec, _, _ = cs.run_generation(models, "generate")
     out.update({k: rec[k] for k in ("ok", "wall_s", "img_per_s")},
                k1_launches=rec["launches"]["K1"])
+    qmodels = quantize_unet_int8(models)
+    del models
+    with cs.route_env(cs.INT8):
+        qrec, _, _ = cs.run_generation(qmodels, "int8")
+    out.update(int8_ok=qrec["ok"], int8_wall_s=qrec["wall_s"],
+               k7_launches=qrec["launches"]["K7"])
     print(json.dumps(out))
-    return 0 if rec["ok"] else 1
+    return 0 if rec["ok"] and qrec["ok"] else 1
 
 
 if __name__ == "__main__":

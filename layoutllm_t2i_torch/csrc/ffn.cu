@@ -20,14 +20,16 @@
 // What bounds them on the H100: operations. The three products do
 // 2*M*K*(2*4K) + 2*M*4K*K = 24*M*K^2 flops against ~4*M*K bytes of x and
 // out plus the weights (M = 16384, K = 320: ~1500 flop/byte); K7's int8
-// weights halve the weight bytes, which matter only at small M.
+// weights halve the weight bytes, which matter only at small M. The
+// tensor cores take bf16 products (int8 activations would change the
+// function), so K7 turns its weight tiles into bf16 in shared memory.
 //
 // The TPU kernels keep a (bm, K) f32 accumulator resident across the inner
 // dimension; at K = 1280 that alone exceeds the 227 KB of shared memory a
 // Hopper block may use. So each function is split in two GEMMs with the
 // GEGLU product h (M, 4K) written once in bf16 between them.
 //
-// K4 and K6 run on gemm_tiles.cuh's mainloop (TMA ring, wgmma, f32
+// K4, K6 and K7 run on gemm_tiles.cuh's mainloop (TMA ring, wgmma, f32
 // accumulators in registers). K4 takes three launches on the caller's
 // stream:
 //   (0) ffn_norm_rows_kernel: bf16(LN(x)) of every row, once, into scratch
@@ -46,16 +48,13 @@
 // K6 is K4 without the pre-pass, in two launches: ffn_res_up_wgmma_kernel,
 // (1) on x, then ffn_res_down_wgmma_kernel, (2) with s = 1 and r in place
 // of x: bf16(bf16(acc + b2) + r), the rounding order of ffn.py:64-67.
-//
-// K7 alone stays on ffn_tiles.cuh's first WMMA design: an up kernel
-// (geglu_up_tile: per 64x64 tile of the (M, 4K) GEGLU product, LN
-// statistics of the 64 rows first, int8 weight tiles converted to bf16 in
-// shared memory) and a down kernel (down_tile, the scaled-residual epilogue
-// of ffn.py:366-367). Simple, not fast: see ffn_tiles.cuh.
-#include "ffn_tiles.cuh"
+// K7 is K4 on int8 weights, in K4's three launches under names of its own:
+// ffn_q_norm_rows_kernel, (0); ffn_q_up_wgmma_kernel, (1) with Qa and Qg
+// as int8 B operands (Cfg::kQ: converted to bf16 in shared memory by the
+// producer warpgroup) and sa, sg on the f32 sums before the biases; and
+// ffn_q_down_wgmma_kernel, (2) on Q2 with s2 on the sums: bf16(bf16((acc *
+// s2 + b2) * s) + x), the rounding order of ffn.py:366-367.
 #include "gemm_tiles.cuh"
-
-using namespace ffn_tiles;
 
 namespace {
 
@@ -66,10 +65,11 @@ constexpr int kNormRows = 8;  // rows (warps) a block of the LN pre-pass
 
 // xn = bf16(LayerNorm(x) * lnw + lnb), one warp a row: the mean, then the
 // centred variance, in f32 over 16-byte vectors (K % 8 == 0)
-__global__ void __launch_bounds__(kNormRows * 32)
-ffn_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
-                     const bf16* __restrict__ lnb, bf16* __restrict__ xn,
-                     int M, int K, float eps) {
+__device__ __forceinline__ void norm_rows(const bf16* __restrict__ x,
+                                          const bf16* __restrict__ lnw,
+                                          const bf16* __restrict__ lnb,
+                                          bf16* __restrict__ xn, int M, int K,
+                                          float eps) {
   const int row = blockIdx.x * kNormRows + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
@@ -101,14 +101,44 @@ ffn_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   }
 }
 
+// K4's and K7's LN pre-pass, under a name each
+__global__ void __launch_bounds__(kNormRows * 32)
+ffn_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
+                     const bf16* __restrict__ lnb, bf16* __restrict__ xn,
+                     int M, int K, float eps) {
+  norm_rows(x, lnw, lnb, xn, M, K, eps);
+}
+
+__global__ void __launch_bounds__(kNormRows * 32)
+ffn_q_norm_rows_kernel(const bf16* __restrict__ x,
+                       const bf16* __restrict__ lnw,
+                       const bf16* __restrict__ lnb, bf16* __restrict__ xn,
+                       int M, int K, float eps) {
+  norm_rows(x, lnw, lnb, xn, M, K, eps);
+}
+
+// bf16(LN(x)) of every row into xn on `st`
+template <auto kNorm>
+int launch_norm(const void* x, const void* lnw, const void* lnb, bf16* xn,
+                int M, int K, float eps, cudaStream_t st) {
+  kNorm<<<(M + kNormRows - 1) / kNormRows, kNormRows * 32, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(lnw),
+      static_cast<const bf16*>(lnb), xn, M, K, eps);
+  return (int)cudaGetLastError();
+}
+
 // up tiles 128 x (2 x 128): at every main-path shape faster than 2 x 64,
 // which left fewer SMs idle in the last wave but ran m64n64 products; down
 // tiles 128 x 160, or 80 where that fills the card better
 using UpCfg = gemm_tiles::Cfg<128, 2>;
 using DownWide = gemm_tiles::Cfg<160, 1>;
 using DownNarrow = gemm_tiles::Cfg<80, 1>;
+// K7's: the same tiles on int8 B operands (3 stages up, 4 and 6 down)
+using QUpCfg = gemm_tiles::Cfg<128, 2, true>;
+using QDownWide = gemm_tiles::Cfg<160, 1, true>;
+using QDownNarrow = gemm_tiles::Cfg<80, 1, true>;
 
-// The up and down GEMMs of K4 and of K6 run the same tiles under names of
+// The up and down GEMMs of K4, K6 and K7 run the same tiles under names of
 // their own, so that a profile and the HGMMA check tell them apart.
 
 template <class C>
@@ -158,6 +188,32 @@ ffn_res_down_wgmma_kernel(const __grid_constant__ CUtensorMap th,
                            gemm_tiles::ScaledResidual{b2, r, out, s, M, K});
 }
 
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+ffn_q_up_wgmma_kernel(const __grid_constant__ CUtensorMap txn,
+                      const __grid_constant__ CUtensorMap tqa,
+                      const __grid_constant__ CUtensorMap tqg,
+                      const float* __restrict__ s1,
+                      const bf16* __restrict__ b1, bf16* __restrict__ h,
+                      int M, int K, int inner) {
+  gemm_tiles::gemm_tile<C>(&txn, &tqa, &tqg, K,
+                           gemm_tiles::Geglu{b1, h, M, inner, s1});
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+ffn_q_down_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                        const __grid_constant__ CUtensorMap tq2,
+                        const float* __restrict__ s2,
+                        const bf16* __restrict__ b2,
+                        const bf16* __restrict__ x, bf16* __restrict__ out,
+                        const float* __restrict__ s_ptr, float s_val, int M,
+                        int K, int inner) {
+  const float s = s_ptr != nullptr ? *s_ptr : s_val;
+  gemm_tiles::gemm_tile<C>(&th, &tq2, nullptr, inner,
+                           gemm_tiles::ScaledResidual{b2, x, out, s, M, K, s2});
+}
+
 // The down GEMM h W2^T with the residual r, by kWide on 160-wide tiles or
 // kNarrow on 80-wide ones (ffn_down_wgmma_kernel or
 // ffn_res_down_wgmma_kernel of DownWide and DownNarrow)
@@ -183,29 +239,49 @@ int launch_down(const void* h, const void* w2, const void* b2, const void* r,
                       M, K, st, th, tw2, b, res, o, sp, s_val, M, K, inner);
 }
 
-// ---------------------------------------------------------------------------
-// K7 (ffn_tiles.cuh)
-
-__global__ void __launch_bounds__(kThreads)
-ffn_q_up_kernel(const bf16* x, const bf16* lnw, const bf16* lnb,
-                const int8_t* q1, const float* s1, const bf16* b1, bf16* hout,
-                int M, int K, int inner, float eps) {
-  geglu_up_tile(x, lnw, lnb, q1, s1, b1, hout, M, K, inner, eps);
+// K7's up GEMM: xn (M, K) bf16 against q1 = [Qa; Qg] (2 * inner, K) int8,
+// one uint8 tensor map on each half (zero fill ends each at inner rows)
+int launch_q_up(const bf16* xn, const void* q1, const void* s1,
+                const void* b1, void* h, int M, int K, int inner,
+                cudaStream_t st) {
+  using C = QUpCfg;
+  const int8_t* qa = static_cast<const int8_t*>(q1);
+  CUtensorMap tx, tqa, tqg;
+  int err = tensor_map_2d(&tx, xn, M, K, gemm_tiles::kBM);
+  if (err == 0) err = tensor_map_2d(&tqa, qa, inner, K, C::kBN, true);
+  if (err == 0)
+    err = tensor_map_2d(&tqg, qa + (long long)inner * K, inner, K, C::kBN,
+                        true);
+  if (err != 0) return err;
+  return gemm_tiles::launch<C, ffn_q_up_wgmma_kernel<C>>(
+      M, inner, st, tx, tqa, tqg, static_cast<const float*>(s1),
+      static_cast<const bf16*>(b1), static_cast<bf16*>(h), M, K, inner);
 }
 
-__global__ void __launch_bounds__(kThreads)
-ffn_q_down_kernel(const bf16* h, const int8_t* q2, const float* s2,
-                  const bf16* b2, const bf16* x, bf16* out, const float* s_ptr,
-                  float s_val, int M, int K, int inner) {
-  down_tile(h, q2, s2, b2, x, out, s_ptr, s_val, M, K, inner);
-}
-
-inline dim3 up_grid(int M, int inner) {
-  return dim3((inner + BN - 1) / BN, (M + BM - 1) / BM);
-}
-
-inline dim3 down_grid(int M, int K) {
-  return dim3((K + BN - 1) / BN, (M + BM - 1) / BM);
+// K7's down GEMM: h (M, inner) against q2 (K, inner) int8 on 160- or
+// 80-wide tiles, as K4's
+int launch_q_down(const bf16* h, const void* q2, const void* s2,
+                  const void* b2, const void* x, void* out, const void* s_ptr,
+                  float s_val, int M, int K, int inner, cudaStream_t st) {
+  const bool narrow =
+      gemm_tiles::pick_narrow(M, K, QDownWide::kBN, QDownNarrow::kBN);
+  CUtensorMap th, tq2;
+  int err = tensor_map_2d(&th, h, M, inner, gemm_tiles::kBM);
+  if (err == 0)
+    err = tensor_map_2d(&tq2, q2, K, inner,
+                        narrow ? QDownNarrow::kBN : QDownWide::kBN, true);
+  if (err != 0) return err;
+  const float* sc = static_cast<const float*>(s2);
+  const bf16* b = static_cast<const bf16*>(b2);
+  const bf16* res = static_cast<const bf16*>(x);
+  bf16* o = static_cast<bf16*>(out);
+  const float* sp = static_cast<const float*>(s_ptr);
+  return narrow ? gemm_tiles::launch<QDownNarrow,
+                                     ffn_q_down_wgmma_kernel<QDownNarrow>>(
+                      M, K, st, th, tq2, sc, b, res, o, sp, s_val, M, K, inner)
+                : gemm_tiles::launch<QDownWide,
+                                     ffn_q_down_wgmma_kernel<QDownWide>>(
+                      M, K, st, th, tq2, sc, b, res, o, sp, s_val, M, K, inner);
 }
 
 }  // namespace
@@ -226,11 +302,7 @@ LLT2I_API int llt2i_ffn_ln_geglu(const void* x, const void* lnw,
   if (K % 8 || inner % 8) return (int)cudaErrorInvalidValue;
   bf16* h = static_cast<bf16*>(hbuf);
   bf16* xn = h + (long long)M * inner;
-  ffn_norm_rows_kernel<<<(M + kNormRows - 1) / kNormRows, kNormRows * 32, 0,
-                         st>>>(static_cast<const bf16*>(x),
-                               static_cast<const bf16*>(lnw),
-                               static_cast<const bf16*>(lnb), xn, M, K, eps);
-  int err = (int)cudaGetLastError();
+  int err = launch_norm<ffn_norm_rows_kernel>(x, lnw, lnb, xn, M, K, eps, st);
   if (err != 0) return err;
   err = gemm_tiles::launch_geglu<UpCfg, ffn_up_wgmma_kernel<UpCfg>>(
       xn, w1, b1, h, M, K, inner, st);
@@ -259,8 +331,10 @@ LLT2I_API int llt2i_ffn_geglu(const void* x, const void* w1, const void* b1,
 }
 
 // K7. x, out, lnw, lnb, b1, b2 as K4; q1: (2*inner, K) int8 = [Qa; Qg];
-// s1: (2*inner,) f32; q2: (K, inner) int8; s2: (K,) f32; hbuf (M, inner)
-// bf16 scratch. K % 16 == 0 and inner % 16 == 0 (16-byte int8 loads).
+// s1: (2*inner,) f32; q2: (K, inner) int8; s2: (K,) f32; hbuf: (M, inner +
+// K) bf16 scratch, h then bf16(LN(x)), as K4's. K % 16 == 0 and inner % 16
+// == 0 (TMA: 16-byte int8 rows); x, lnw, lnb, q1, q2 and hbuf 16-byte
+// aligned, s1 and s2 8-byte, b1, b2 and out 4-byte.
 LLT2I_API int llt2i_ffn_ln_geglu_q(const void* x, const void* lnw,
                                    const void* lnb, const void* q1,
                                    const void* s1, const void* b1,
@@ -270,17 +344,11 @@ LLT2I_API int llt2i_ffn_ln_geglu_q(const void* x, const void* lnw,
                                    int K, int inner, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K % 16 || inner % 16) return (int)cudaErrorInvalidValue;
-  ffn_q_up_kernel<<<up_grid(M, inner), kThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(lnw),
-      static_cast<const bf16*>(lnb), static_cast<const int8_t*>(q1),
-      static_cast<const float*>(s1), static_cast<const bf16*>(b1),
-      static_cast<bf16*>(hbuf), M, K, inner, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ffn_q_down_kernel<<<down_grid(M, K), kThreads, 0, st>>>(
-      static_cast<const bf16*>(hbuf), static_cast<const int8_t*>(q2),
-      static_cast<const float*>(s2), static_cast<const bf16*>(b2),
-      static_cast<const bf16*>(x), static_cast<bf16*>(out),
-      static_cast<const float*>(s_ptr), s_val, M, K, inner);
-  return (int)cudaGetLastError();
+  bf16* h = static_cast<bf16*>(hbuf);
+  bf16* xn = h + (long long)M * inner;
+  int err =
+      launch_norm<ffn_q_norm_rows_kernel>(x, lnw, lnb, xn, M, K, eps, st);
+  if (err == 0) err = launch_q_up(xn, q1, s1, b1, h, M, K, inner, st);
+  if (err != 0) return err;
+  return launch_q_down(h, q2, s2, b2, x, out, s_ptr, s_val, M, K, inner, st);
 }

@@ -63,6 +63,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (clock64() - t0 > (1ll << 33)) __trap();
 }
 
+// Order this thread's shared-memory stores (generic proxy) before later
+// reads of the same bytes by the async proxy (wgmma, TMA): a thread that
+// writes a wgmma operand runs it before the arrival that hands it over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // setmaxnreg: a warpgroup hands registers back to the SM's pool (dec) or
 // takes more (inc). All four warps of the warpgroup execute it together,
@@ -433,22 +440,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (cols, rows) map of a row-major (rows, cols) bf16 matrix: boxes of 64
-// columns (one 128-byte swizzle chunk) by box_rows rows, zeros past the
-// last row and column. The base must be 16-byte aligned and cols % 8 == 0.
+// A (cols, rows) map of a row-major (rows, cols) matrix: boxes of 64
+// columns by box_rows rows, zeros past the last row and column. bf16 in
+// 128-byte swizzled boxes (one swizzle chunk), or with `is_int8` its bytes
+// mapped as CU_TENSOR_MAP_DATA_TYPE_UINT8 (the tensor map has no signed
+// byte type; the bytes are the same) in unswizzled 64-byte boxes. The base
+// must be 16-byte aligned and a row a multiple of 16 bytes.
 inline int tensor_map_2d(CUtensorMap* map, const void* base, int rows,
-                         int cols, int box_rows) {
+                         int cols, int box_rows, bool is_int8 = false) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (is_int8 ? 1 : 2)};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                      const_cast<void*>(base), dims, strides, box, step,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = encode(
+      map,
+      is_int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      is_int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -132,7 +132,16 @@ def build_all() -> Dict[str, dict]:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library for one source, building all sources on first use."""
+    """The loaded library for one source, building all sources on first use.
+    Once it is loaded this is one dict lookup: the lock is taken only while
+    a library is loaded, and each C entry point, typed once at load, stays
+    bound on the handle (``lib(name).llt2i_...`` reads the cached function
+    object)."""
+    handle = _libs.get(name)
+    return handle if handle is not None else _load(name)
+
+
+def _load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             if not all(lib_path(n).exists() for n in SOURCES):

@@ -18,7 +18,7 @@ from typing import Dict
 import torch
 
 _state = threading.local()
-_capability: Dict[int, tuple] = {}
+_capability: Dict[int, tuple] = {}  # Hopper devices checked so far
 
 
 @contextlib.contextmanager
@@ -33,21 +33,28 @@ def plain_route():
 
 
 def use_kernel(x: torch.Tensor) -> bool:
-    """True when ``x`` must go through the CUDA kernel."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+    """True when ``x`` must go through the CUDA kernel. On the card it costs
+    a few attribute reads and one dict lookup: the tensor's device index is
+    always set, and whether that device is a Hopper card is looked up once."""
+    if not x.is_cuda:
+        if x.is_cpu:
+            return False
         raise ValueError(f"unsupported device {x.device}: use 'cuda' or 'cpu'")
     if getattr(_state, "plain", False):
         return False
-    idx = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    if idx not in _capability:
-        _capability[idx] = torch.cuda.get_device_capability(idx)
-    if _capability[idx][0] != 9:
+    idx = x.get_device()
+    if _capability.get(idx) is None:
+        _require_hopper(idx)
+    return True
+
+
+def _require_hopper(idx: int) -> None:
+    cap = torch.cuda.get_device_capability(idx)
+    if cap[0] != 9:
         raise RuntimeError(
             f"the port's kernels are built for Hopper (sm_90a); device {idx} "
-            f"is sm_{_capability[idx][0]}{_capability[idx][1]}")
-    return True
+            f"is sm_{cap[0]}{cap[1]}")
+    _capability[idx] = cap
 
 
 def require(cond: bool, what: str) -> None:
@@ -56,29 +63,45 @@ def require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def check_operand(t: torch.Tensor, name: str, device: torch.device,
+def check_operand(t: torch.Tensor, name: str, device: int,
                   dtype: torch.dtype = torch.bfloat16) -> None:
-    require(t.device == device, f"{name}: on {t.device}, expected {device}")
-    require(t.dtype == dtype, f"{name}: dtype {t.dtype}, expected {dtype}")
-    require(t.is_contiguous(), f"{name}: must be contiguous")
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on CUDA device
+    ``device`` (an index: the first operand's ``get_device()``). An identity
+    test and attribute reads: no ``torch.device`` is built unless a check
+    fails."""
+    if t.dtype is not dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if not t.is_cuda or t.get_device() != device:
+        raise ValueError(f"{name}: on {t.device}, expected "
+                         f"{torch.device('cuda', device)}")
 
 
 def require_aligned(t: torch.Tensor, name: str, nbytes: int = 16) -> None:
     """A kernel that loads ``t`` through TMA or in 16-byte vectors needs its
     address 16-byte aligned, one that moves bf16 pairs 4-byte aligned:
     raise otherwise (no fallback)."""
-    require(t.data_ptr() % nbytes == 0,
-            f"{name}: data_ptr() must be {nbytes}-byte aligned")
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data_ptr() must be {nbytes}-byte aligned")
 
 
-def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_handle(device: int) -> int:
+    """The raw handle of the current CUDA stream of device ``device`` (an
+    index), as ``torch.cuda.current_stream(device).cuda_stream`` gives it,
+    read without building a ``torch.cuda.Stream``. Read at every call, never
+    cached: a caller inside ``torch.cuda.stream(...)`` gets that stream."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def needs_grad(*args) -> bool:
     """True when autograd must record a call on these arguments."""
-    return torch.is_grad_enabled() and any(
-        isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+    if not torch.is_grad_enabled():
+        return False
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.requires_grad:
+            return True
+    return False
 
 
 def plain_vjp(plain_fn, args, needs, grad_out):

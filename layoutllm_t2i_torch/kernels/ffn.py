@@ -68,8 +68,8 @@ def _scale_operand(s: Scale, x: torch.Tensor, what: str):
     the host; the caller holds the third item until the launch."""
     if not isinstance(s, torch.Tensor):
         return None, float(s), None
-    require(s.numel() == 1 and s.device == x.device,
-            f"{what}: s must be a scalar on x's device")
+    if not (s.numel() == 1 and s.is_cuda and s.get_device() == x.get_device()):
+        raise ValueError(f"{what}: s must be a scalar on x's device")
     s = s.reshape(()).to(torch.float32)
     return s.data_ptr(), 1.0, s
 
@@ -138,20 +138,26 @@ def _forward(x, ln_w, ln_b, w1, b1, w2, b2, s, eps):
         return ffn_ln_geglu_plain(x, ln_w, ln_b, w1, b1, w2, b2, s, eps)
     m, k = x.shape
     inner = w1.shape[0] // 2
-    for name, t in (("x", x), ("ln_w", ln_w), ("ln_b", ln_b), ("w1", w1),
-                    ("b1", b1), ("w2", w2), ("b2", b2)):
-        check_operand(t, f"ffn_ln_geglu: {name}", x.device)
+    dev = x.get_device()
+    for name, t in (("ffn_ln_geglu: x", x), ("ffn_ln_geglu: ln_w", ln_w),
+                    ("ffn_ln_geglu: ln_b", ln_b), ("ffn_ln_geglu: w1", w1),
+                    ("ffn_ln_geglu: b1", b1), ("ffn_ln_geglu: w2", w2),
+                    ("ffn_ln_geglu: b2", b2)):
+        check_operand(t, name, dev)
     require(ln_w.shape == (k,) and ln_b.shape == (k,) and b2.shape == (k,)
             and w1.shape == (2 * inner, k) and b1.shape == (2 * inner,)
             and w2.shape == (k, inner), "ffn_ln_geglu: weight shapes")
-    require(k % 8 == 0 and inner % 8 == 0,
+    if not (k % 8 == 0 and inner % 8 == 0):
+        raise ValueError(
             f"ffn_ln_geglu: K={k}, inner={inner} must be multiples of 8")
     # x, ln_w and ln_b in 16-byte vectors, w1 and w2 through TMA, the
     # biases in bf16 pairs
-    for name, t, nbytes in (("x", x, 16), ("ln_w", ln_w, 16), ("ln_b", ln_b, 16),
-                            ("w1", w1, 16), ("w2", w2, 16), ("b1", b1, 4),
-                            ("b2", b2, 4)):
-        require_aligned(t, f"ffn_ln_geglu: {name}", nbytes)
+    for name, t, nbytes in (
+            ("ffn_ln_geglu: x", x, 16), ("ffn_ln_geglu: ln_w", ln_w, 16),
+            ("ffn_ln_geglu: ln_b", ln_b, 16), ("ffn_ln_geglu: w1", w1, 16),
+            ("ffn_ln_geglu: w2", w2, 16), ("ffn_ln_geglu: b1", b1, 4),
+            ("ffn_ln_geglu: b2", b2, 4)):
+        require_aligned(t, name, nbytes)
     # s_keep holds the f32 copy of a tensor s alive until the launch
     s_ptr, s_val, s_keep = _scale_operand(s, x, "ffn_ln_geglu")
     out = torch.empty_like(x)
@@ -163,7 +169,7 @@ def _forward(x, ln_w, ln_b, w1, b1, w2, b2, s, eps):
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), hbuf.data_ptr(),
         out.data_ptr(), s_ptr, s_val, m, k, inner, float(eps),
-        stream_handle(x.device)), "ffn_ln_geglu")
+        stream_handle(dev)), "ffn_ln_geglu")
     ffn_ln_geglu.launches += 1
     return out
 
@@ -215,18 +221,23 @@ def _forward_res(x, w1, b1, w2, b2, r):
         return ffn_geglu_plain(x, w1, b1, w2, b2, r)
     m, k = x.shape
     inner = w1.shape[0] // 2
-    for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2),
-                    ("r", r)):
-        check_operand(t, f"ffn_geglu: {name}", x.device)
+    dev = x.get_device()
+    for name, t in (("ffn_geglu: x", x), ("ffn_geglu: w1", w1),
+                    ("ffn_geglu: b1", b1), ("ffn_geglu: w2", w2),
+                    ("ffn_geglu: b2", b2), ("ffn_geglu: r", r)):
+        check_operand(t, name, dev)
     require(w1.shape == (2 * inner, k) and b1.shape == (2 * inner,)
             and w2.shape == (k, inner) and b2.shape == (k,)
             and r.shape == (m, k), "ffn_geglu: shapes")
-    require(k % 8 == 0 and inner % 8 == 0,
+    if not (k % 8 == 0 and inner % 8 == 0):
+        raise ValueError(
             f"ffn_geglu: K={k}, inner={inner} must be multiples of 8")
     # x, w1 and w2 through TMA, the biases and r in bf16 pairs
-    for name, t, nbytes in (("x", x, 16), ("w1", w1, 16), ("w2", w2, 16),
-                            ("b1", b1, 4), ("b2", b2, 4), ("r", r, 4)):
-        require_aligned(t, f"ffn_geglu: {name}", nbytes)
+    for name, t, nbytes in (
+            ("ffn_geglu: x", x, 16), ("ffn_geglu: w1", w1, 16),
+            ("ffn_geglu: w2", w2, 16), ("ffn_geglu: b1", b1, 4),
+            ("ffn_geglu: b2", b2, 4), ("ffn_geglu: r", r, 4)):
+        require_aligned(t, name, nbytes)
     out = torch.empty_like(x)
     if m == 0:
         return out
@@ -234,7 +245,7 @@ def _forward_res(x, w1, b1, w2, b2, r):
     check(lib("ffn").llt2i_ffn_geglu(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), r.data_ptr(), hbuf.data_ptr(), out.data_ptr(), m, k,
-        inner, stream_handle(x.device)), "ffn_geglu")
+        inner, stream_handle(dev)), "ffn_geglu")
     ffn_geglu.launches += 1
     return out
 
@@ -279,31 +290,43 @@ def ffn_ln_geglu_q(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                                     eps)
     m, k = x.shape
     inner = q1.shape[0] // 2
-    for name, t, dtype in (("x", x, torch.bfloat16), ("ln_w", ln_w, torch.bfloat16),
-                           ("ln_b", ln_b, torch.bfloat16), ("q1", q1, torch.int8),
-                           ("s1", s1, torch.float32), ("b1", b1, torch.bfloat16),
-                           ("q2", q2, torch.int8), ("s2", s2, torch.float32),
-                           ("b2", b2, torch.bfloat16)):
-        check_operand(t, f"ffn_ln_geglu_q: {name}", x.device, dtype)
+    dev = x.get_device()
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    for name, t, dtype in (
+            ("ffn_ln_geglu_q: x", x, bf), ("ffn_ln_geglu_q: ln_w", ln_w, bf),
+            ("ffn_ln_geglu_q: ln_b", ln_b, bf), ("ffn_ln_geglu_q: q1", q1, i8),
+            ("ffn_ln_geglu_q: s1", s1, f32), ("ffn_ln_geglu_q: b1", b1, bf),
+            ("ffn_ln_geglu_q: q2", q2, i8), ("ffn_ln_geglu_q: s2", s2, f32),
+            ("ffn_ln_geglu_q: b2", b2, bf)):
+        check_operand(t, name, dev, dtype)
     require(ln_w.shape == (k,) and ln_b.shape == (k,)
             and q1.shape == (2 * inner, k) and s1.shape == (2 * inner,)
             and b1.shape == (2 * inner,) and q2.shape == (k, inner)
             and s2.shape == (k,) and b2.shape == (k,),
             "ffn_ln_geglu_q: weight shapes")
-    require(k % 16 == 0 and inner % 16 == 0,
+    if not (k % 16 == 0 and inner % 16 == 0):
+        raise ValueError(
             f"ffn_ln_geglu_q: K={k}, inner={inner} must be multiples of 16")
-    require(q1.data_ptr() % 16 == 0 and q2.data_ptr() % 16 == 0,
-            "ffn_ln_geglu_q: int8 weights must be 16-byte aligned")
+    # x, ln_w and ln_b in 16-byte vectors, q1 and q2 through TMA, the
+    # scales in f32 pairs, the biases in bf16 pairs
+    for name, t, nbytes in (
+            ("ffn_ln_geglu_q: x", x, 16), ("ffn_ln_geglu_q: ln_w", ln_w, 16),
+            ("ffn_ln_geglu_q: ln_b", ln_b, 16), ("ffn_ln_geglu_q: q1", q1, 16),
+            ("ffn_ln_geglu_q: q2", q2, 16), ("ffn_ln_geglu_q: s1", s1, 8),
+            ("ffn_ln_geglu_q: s2", s2, 8), ("ffn_ln_geglu_q: b1", b1, 4),
+            ("ffn_ln_geglu_q: b2", b2, 4)):
+        require_aligned(t, name, nbytes)
     s_ptr, s_val, s_keep = _scale_operand(s, x, "ffn_ln_geglu_q")
     out = torch.empty_like(x)
     if m == 0:
         return out
-    hbuf = torch.empty((m, inner), dtype=x.dtype, device=x.device)
+    # one scratch allocation, as K4's: h (m, inner), then bf16(LN(x)) (m, k)
+    hbuf = torch.empty((m * (inner + k),), dtype=x.dtype, device=x.device)
     check(lib("ffn").llt2i_ffn_ln_geglu_q(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), q1.data_ptr(),
         s1.data_ptr(), b1.data_ptr(), q2.data_ptr(), s2.data_ptr(),
         b2.data_ptr(), hbuf.data_ptr(), out.data_ptr(), s_ptr, s_val, m, k,
-        inner, float(eps), stream_handle(x.device)), "ffn_ln_geglu_q")
+        inner, float(eps), stream_handle(dev)), "ffn_ln_geglu_q")
     ffn_ln_geglu_q.launches += 1
     return out
 

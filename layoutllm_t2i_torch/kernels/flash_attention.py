@@ -84,16 +84,20 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _check_qkv(q, k, v, heads, what):
     b, _, hc = q.shape
+    dev = q.get_device()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        require(t.device == q.device and t.dtype == torch.bfloat16,
-                f"{what}: {name} must be bf16 on {q.device}")
-        require(t.dim() == 3 and t.shape[0] == b and t.shape[2] == hc,
-                f"{what}: {name} shape {tuple(t.shape)}")
-        require(t.stride(2) == 1 and t.stride(1) % 8 == 0
-                and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0,
-                f"{what}: {name} rows must be 16-byte aligned")
-    require(v.shape[1] == k.shape[1], f"{what}: k and v lengths differ")
-    require(hc % heads == 0 and (hc // heads) % 8 == 0,
+        if not (t.is_cuda and t.get_device() == dev
+                and t.dtype is torch.bfloat16):
+            raise ValueError(f"{what}: {name} must be bf16 on {q.device}")
+        if not (t.dim() == 3 and t.shape[0] == b and t.shape[2] == hc):
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)}")
+        if (t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8
+                or t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} rows must be 16-byte aligned")
+    if v.shape[1] != k.shape[1]:
+        raise ValueError(f"{what}: k and v lengths differ")
+    if hc % heads or (hc // heads) % 8:
+        raise ValueError(
             f"{what}: head dim {hc}/{heads} must be a multiple of 8")
 
 
@@ -111,7 +115,7 @@ def _launch_fwd(q, k, v, heads, scale, need_lse):
         b, heads, n, m, hc // heads,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        float(scale), stream_handle(q.device)), "flash_attention")
+        float(scale), stream_handle(q.get_device())), "flash_attention")
     flash_attention.launches += 1
     return out, lse
 
@@ -120,11 +124,13 @@ def _check_bwd(q, k, v, dout, lse, delta, heads, what):
     _check_qkv(q, k, v, heads, what)
     b, n, _ = q.shape
     require(dout.shape == q.shape and dout.dtype == q.dtype
-            and dout.device == q.device and dout.is_contiguous(),
+            and dout.is_cuda and dout.get_device() == q.get_device()
+            and dout.is_contiguous(),
             f"{what}: dout must be contiguous bf16 shaped like q")
     for name, t in (("lse", lse), ("delta", delta)):
         require(t.shape == (b, heads, n) and t.dtype == torch.float32
-                and t.device == q.device and t.is_contiguous(),
+                and t.is_cuda and t.get_device() == q.get_device()
+                and t.is_contiguous(),
                 f"{what}: {name} must be contiguous f32 (B, H, N)")
 
 
@@ -148,7 +154,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
     check(lib("flash_attention").llt2i_flash_bwd_dq(
-        *ptrs, dq.data_ptr(), *dims, float(scale), stream_handle(q.device)),
+        *ptrs, dq.data_ptr(), *dims, float(scale),
+        stream_handle(q.get_device())),
         "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -168,7 +175,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
     check(lib("flash_attention").llt2i_flash_bwd_dkv(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, float(scale),
-        stream_handle(q.device)), "flash_attention_bwd_dkv")
+        stream_handle(q.get_device())), "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -59,11 +59,14 @@ def _forward(x, weight, bias, num_groups, eps, silu):
     if not use_kernel(x):
         return group_norm_plain(x, weight, bias, num_groups, eps, silu)
     n, hw, c = x.shape
-    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
-        check_operand(t, f"group_norm: {name}", x.device)
+    dev = x.get_device()
+    check_operand(x, "group_norm: x", dev)
+    check_operand(weight, "group_norm: weight", dev)
+    check_operand(bias, "group_norm: bias", dev)
     require(weight.shape == (c,) and bias.shape == (c,),
             "group_norm: affine params must be (C,)")
-    require(c % num_groups == 0 and c % 8 == 0 and num_groups <= 128,
+    if not (c % num_groups == 0 and c % 8 == 0 and num_groups <= 128):
+        raise ValueError(
             f"group_norm: C={c} with {num_groups} groups is unsupported")
     chunks = min(hw, max(1, -(-_STATS_BLOCKS // n)))
     rows = -(-hw // chunks)
@@ -76,7 +79,7 @@ def _forward(x, weight, bias, num_groups, eps, silu):
     check(lib("group_norm").llt2i_group_norm(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
         part.data_ptr(), ss.data_ptr(), n, hw, c, num_groups, rows,
-        float(eps), int(silu), apply_blocks, stream_handle(x.device)),
+        float(eps), int(silu), apply_blocks, stream_handle(dev)),
         "group_norm")
     group_norm.launches += 1
     return out

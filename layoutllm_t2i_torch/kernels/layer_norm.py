@@ -9,8 +9,8 @@ from __future__ import annotations
 import torch
 
 from .build import check, lib
-from .dispatch import (check_operand, needs_grad, plain_vjp, require,
-                       stream_handle, use_kernel)
+from .dispatch import (check_operand, needs_grad, plain_vjp, stream_handle,
+                       use_kernel)
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -50,17 +50,20 @@ def _forward(x, weight, bias, eps):
     if not use_kernel(x):
         return layer_norm_plain(x, weight, bias, eps)
     rows, c = x.shape
-    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
-        check_operand(t, f"layer_norm: {name}", x.device)
-    require(weight.shape == (c,) and bias.shape == (c,),
-            "layer_norm: affine params must be (C,)")
-    require(c % 8 == 0 and c <= 2048, f"layer_norm: C={c} is unsupported")
+    dev = x.get_device()
+    check_operand(x, "layer_norm: x", dev)
+    check_operand(weight, "layer_norm: weight", dev)
+    check_operand(bias, "layer_norm: bias", dev)
+    if weight.shape != (c,) or bias.shape != (c,):
+        raise ValueError("layer_norm: affine params must be (C,)")
+    if c % 8 or c > 2048:
+        raise ValueError(f"layer_norm: C={c} is unsupported")
     out = torch.empty_like(x)
     if rows == 0:
         return out
     check(lib("layer_norm").llt2i_layer_norm(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        rows, c, float(eps), stream_handle(x.device)), "layer_norm")
+        rows, c, float(eps), stream_handle(dev)), "layer_norm")
     layer_norm.launches += 1
     return out
 

@@ -92,25 +92,27 @@ def _linear_forward(x, w, b, r):
         return linear_plain(x, w, b, r)
     m, k = x.shape
     n = w.shape[0]
-    for name, t in (("x", x), ("w", w), ("b", b), ("r", r)):
+    dev = x.get_device()
+    for name, t in (("linear_fused: x", x), ("linear_fused: w", w),
+                    ("linear_fused: b", b), ("linear_fused: r", r)):
         if t is not None:
-            check_operand(t, f"linear_fused: {name}", x.device)
+            check_operand(t, name, dev)
     require(w.shape == (n, k) and (b is None or b.shape == (n,))
             and (r is None or r.shape == (m, n)), "linear_fused: shapes")
-    require(k % 8 == 0 and n % 8 == 0,
-            f"linear_fused: K={k}, N={n} must be multiples of 8")
+    if not (k % 8 == 0 and n % 8 == 0):
+        raise ValueError(f"linear_fused: K={k}, N={n} must be multiples of 8")
     # x and w through TMA, b and r in bf16 pairs
-    for name, t, nbytes in (("x", x, 16), ("w", w, 16), ("b", b, 4),
-                            ("r", r, 4)):
+    for name, t, nbytes in (("linear_fused: x", x, 16), ("linear_fused: w", w, 16),
+                            ("linear_fused: b", b, 4), ("linear_fused: r", r, 4)):
         if t is not None:
-            require_aligned(t, f"linear_fused: {name}", nbytes)
+            require_aligned(t, name, nbytes)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
     ptr = lambda t: None if t is None else t.data_ptr()
     check(lib("matmul").llt2i_linear(
         x.data_ptr(), w.data_ptr(), ptr(b), ptr(r), out.data_ptr(), m, k, n,
-        stream_handle(x.device)), "linear_fused")
+        stream_handle(dev)), "linear_fused")
     linear_fused.launches += 1
     return out
 
@@ -156,23 +158,26 @@ def _geglu_forward(x, w, b):
         return geglu_plain(x, w, b)
     m, k = x.shape
     n = w.shape[0] // 2
-    for name, t in (("x", x), ("w", w), ("b", b)):
+    dev = x.get_device()
+    for name, t in (("geglu_fused: x", x), ("geglu_fused: w", w),
+                    ("geglu_fused: b", b)):
         if t is not None:
-            check_operand(t, f"geglu_fused: {name}", x.device)
+            check_operand(t, name, dev)
     require(w.shape == (2 * n, k) and (b is None or b.shape == (2 * n,)),
             "geglu_fused: shapes")
-    require(k % 8 == 0 and n % 8 == 0,
-            f"geglu_fused: K={k}, N={n} must be multiples of 8")
+    if not (k % 8 == 0 and n % 8 == 0):
+        raise ValueError(f"geglu_fused: K={k}, N={n} must be multiples of 8")
     # x and w through TMA, b in bf16 pairs
-    for name, t, nbytes in (("x", x, 16), ("w", w, 16), ("b", b, 4)):
+    for name, t, nbytes in (("geglu_fused: x", x, 16), ("geglu_fused: w", w, 16),
+                            ("geglu_fused: b", b, 4)):
         if t is not None:
-            require_aligned(t, f"geglu_fused: {name}", nbytes)
+            require_aligned(t, name, nbytes)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
     check(lib("matmul").llt2i_geglu(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        out.data_ptr(), m, k, n, stream_handle(x.device)), "geglu_fused")
+        out.data_ptr(), m, k, n, stream_handle(dev)), "geglu_fused")
     geglu_fused.launches += 1
     return out
 

@@ -26,9 +26,11 @@ output (about log M, an f32 sum of f32 exponentials on both sides), held
 to an absolute atol. K6 and K7 write K4's function (K7 on int8 weights,
 its scales applied to f32 sums on both sides) and K8a and K8b one GEMM's
 output, of rms about 1 at the inputs the checks draw: all four take K4's
-numbers. A planted K7 fault (a dropped output scale, scales applied per
-input channel, int8 read as unsigned, the scale s ignored) lies 6e-2 to
-8e2 of rms(b) off, the rounding 1e-4 (``tests/test_torch_quant.py``).
+numbers. A planted fault of K7's design on the same mainloop (a dropped
+output scale, scales applied per input channel, int8 read as unsigned, the
+scale s ignored, a chunk converted from the previous chunk's int8 tile,
+scales applied after the bias) lies 4.8e-2 to 3.3e2 of rms(b) off, the
+emulated rounding at most 9.7e-5 (``tests/test_torch_quant.py``).
 A planted fault of K4's or K8a's wgmma design (a dropped ragged k chunk,
 an unwritten last row block, Wa and Wg swapped, a bias dropped or added
 twice, s applied after the residual, LN without its rstd) lies 2.3e-2 to

@@ -223,6 +223,33 @@ def test_cuda_tensor_never_takes_the_plain_version(dev):
         K.layer_norm(x, torch.ones(16, device=dev), torch.zeros(16, device=dev))
 
 
+# (operand, fault): a CPU x is no fault (it takes the plain version)
+@pytest.mark.parametrize("operand,fault", [
+    ("weight", "cpu"), ("bias", "cpu"), ("x", "f32"), ("weight", "f32"),
+    ("bias", "f32"), ("x", "strided"), ("weight", "strided"),
+    ("bias", "strided")])
+def test_layer_norm_host_path_still_checks_every_operand(dev, gen, operand,
+                                                          fault):
+    # the host path's cheaper checks (a device index, a dtype identity, no
+    # torch.device built) raise as before, and nothing launches
+    args = {"x": _rand(gen, 64, 320), "weight": _rand(gen, 320),
+            "bias": _rand(gen, 320)}
+    t = args[operand]
+    if fault == "cpu":
+        t, match = t.cpu(), "on cpu, expected cuda:0"
+    elif fault == "f32":
+        t, match = t.float(), "dtype torch.float32, expected torch.bfloat16"
+    elif t.dim() == 2:  # the same values, column-major
+        t, match = t.t().contiguous().t(), "must be contiguous"
+    else:  # every other element of a buffer twice as long
+        t, match = torch.stack([t, t], -1).flatten()[::2], "must be contiguous"
+    args[operand] = t
+    before = K.layer_norm.launches
+    with pytest.raises(ValueError, match=f"layer_norm: {operand}: {match}"):
+        K.layer_norm(args["x"], args["weight"], args["bias"], 1e-5)
+    assert K.layer_norm.launches == before
+
+
 def _attention_inputs(gen, b, n, m, heads, d, scale=1.0):
     q = _rand(gen, b, n, heads * d, scale=scale)
     k = _rand(gen, b, m, heads * d, scale=scale)
@@ -316,7 +343,7 @@ def _bwd_into_nan(q, k, v, dout, lse, delta, heads, s, guard=4096):
     bufs = [torch.full((b * rows * hc + guard,), float("nan"), device=q.device,
                        dtype=torch.bfloat16) for rows in (n, m, m)]
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
-    lib_fa, stream = lib("flash_attention"), stream_handle(q.device)
+    lib_fa, stream = lib("flash_attention"), stream_handle(q.get_device())
     check(lib_fa.llt2i_flash_bwd_dq(*ptrs, bufs[0].data_ptr(), *dims, float(s),
                                     stream), "flash_attention_bwd_dq")
     check(lib_fa.llt2i_flash_bwd_dkv(*ptrs, bufs[1].data_ptr(),
@@ -486,20 +513,27 @@ def test_ffn_geglu(dev, gen, m, k, inner):
            lambda: K.ffn_geglu_plain(x, w1, b1, w2, b2, r), K.ffn_geglu)
 
 
-# int8 needs K and inner to be multiples of 16: K = 336 and inner = 1344
-# leave a half k step at the end of both products
-@pytest.mark.parametrize("m,k,inner", [(100, 320, 1280), (1054, 1280, 5120),
-                                       (77, 336, 1344)])
-@pytest.mark.parametrize("scale", [1.0, 0.37, "tensor"])
-def test_ffn_ln_geglu_q(dev, gen, m, k, inner, scale):
+def _k7_args(gen, m, k, inner, scale=0.37):
+    """K7's operands: K4's with w1 and w2 quantized per output channel, s
+    a float or (``"tensor"``) a device scalar."""
     from layoutllm_t2i_torch.ops.quant import quantize_tensor
 
     x = _rand(gen, m, k)
     lw, lb = _rand(gen, k, scale=0.2, shift=1.0), _rand(gen, k, scale=0.2)
     w1, b1, w2, b2 = _ffn_weights(gen, k, inner)
     q1, q2 = quantize_tensor(w1), quantize_tensor(w2)
-    args = (x, lw, lb, q1.q, q1.scale, b1, q2.q, q2.scale, b2,
-            torch.tensor(0.37, device=dev) if scale == "tensor" else scale)
+    s = torch.tensor(0.37, device=gen.device) if scale == "tensor" else scale
+    return [x, lw, lb, q1.q, q1.scale, b1, q2.q, q2.scale, b2, s]
+
+
+# int8 needs K and inner to be multiples of 16: K = 336 ends both products'
+# first GEMM in a 16-deep chunk (of 64), inner = 1344 in a partial 128-wide
+# tile of h; M = 16384 and K = 320 is the int8 path's largest shape
+@pytest.mark.parametrize("m,k,inner", [(100, 320, 1280), (1054, 1280, 5120),
+                                       (77, 336, 1344), (16384, 320, 1280)])
+@pytest.mark.parametrize("scale", [1.0, 0.37, "tensor"])
+def test_ffn_ln_geglu_q(dev, gen, m, k, inner, scale):
+    args = _k7_args(gen, m, k, inner, scale)
     _check("K7", lambda: K.ffn_ln_geglu_q(*args),
            lambda: K.ffn_ln_geglu_q_plain(*args), K.ffn_ln_geglu_q)
 
@@ -515,6 +549,82 @@ def test_ffn_ln_geglu_q_refuses_what_it_cannot_take(dev, gen):
         K.ffn_ln_geglu_q(x, lw, lb, q1, s1, b1, q2, s2, b2)
     with pytest.raises(ValueError, match="inference only"):
         K.ffn_ln_geglu_q(x.requires_grad_(), lw, lb, q1, s1, b1, q2, s2, b2)
+    # an int8 weight whose view starts one byte into its buffer: TMA needs
+    # 16-byte aligned bases, so the wrapper raises and nothing launches
+    for idx in (3, 6):  # q1, q2
+        args = _k7_args(gen, 256, 64, 256)
+        t = args[idx]
+        buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+        args[idx] = buf[1:].view(t.shape)
+        args[idx].copy_(t)
+        before = K.ffn_ln_geglu_q.launches
+        with pytest.raises(ValueError, match="aligned"):
+            K.ffn_ln_geglu_q(*args)
+        assert K.ffn_ln_geglu_q.launches == before
+
+
+# K7 on the wgmma mainloop with its int8 B operands (gemm_tiles.cuh,
+# Cfg::kQ): a ragged M, a contraction ending in a 16-deep chunk (K = 80)
+# and h ending in a partial tile (inner = 208)
+K7_RAGGED = [(100, 80, 208), (1054, 80, 208)]
+
+
+@pytest.mark.parametrize("m,k,inner", K7_RAGGED)
+def test_ffn_ln_geglu_q_never_reads_outside_its_operands(dev, gen, m, k,
+                                                          inner):
+    # the int8 weights between 16 bytes of 0x7f and 4096 more: a map whose
+    # dims ran past K or inner would sum them in; the bf16 operands between
+    # NaN and Inf fences
+    args = _k7_args(gen, m, k, inner)
+    fenced = []
+    for a in args:
+        if not isinstance(a, torch.Tensor) or a.dtype == torch.float32:
+            fenced.append(a)
+        elif a.dtype == torch.int8:
+            buf = torch.full((16 + a.numel() + 4096,), 127, device=dev,
+                             dtype=torch.int8)
+            view = buf[16:16 + a.numel()].view(a.shape)
+            view.copy_(a)
+            fenced.append(view)
+        else:
+            fenced.append(_fenced_flat(a))
+    _check("K7", lambda: K.ffn_ln_geglu_q(*fenced),
+           lambda: K.ffn_ln_geglu_q_plain(*args), K.ffn_ln_geglu_q)
+
+
+@pytest.mark.parametrize("m,k,inner", K7_RAGGED)
+def test_ffn_ln_geglu_q_writes_only_its_outputs(dev, gen, m, k, inner):
+    # through the C entry point into an output and a scratch (h, then
+    # bf16(LN(x))) filled with NaN, each followed by NaN guards: every
+    # output element is written, nothing past either buffer
+    x, lw, lb, q1, s1, b1, q2, s2, b2, s = _k7_args(gen, m, k, inner)
+    guard = 4096
+    nan = lambda n: torch.full((n + guard,), float("nan"), device=dev,
+                               dtype=torch.bfloat16)
+    out, hbuf = nan(m * k), nan(m * (inner + k))
+    check(lib("ffn").llt2i_ffn_ln_geglu_q(
+        x.data_ptr(), lw.data_ptr(), lb.data_ptr(), q1.data_ptr(),
+        s1.data_ptr(), b1.data_ptr(), q2.data_ptr(), s2.data_ptr(),
+        b2.data_ptr(), hbuf.data_ptr(), out.data_ptr(), None, s, m, k, inner,
+        1e-5, stream_handle(x.get_device())), "ffn_ln_geglu_q")
+    torch.cuda.synchronize()
+    assert bool(out[-guard:].isnan().all()) and bool(hbuf[-guard:].isnan().all())
+    got = agreement("K7", out[:-guard].view(m, k),
+                    K.ffn_ln_geglu_q_plain(x, lw, lb, q1, s1, b1, q2, s2, b2, s))
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("m,k,inner", [(1054, 80, 208), (16384, 320, 1280),
+                                       (1024, 1280, 5120)])
+def test_ffn_ln_geglu_q_is_bitwise_repeatable(dev, gen, m, k, inner):
+    # one thread sums each output element in a fixed order, and the B slot
+    # a chunk is converted into is rewritten only after both warpgroups'
+    # products of three chunks back have completed: launches agree bit for
+    # bit (a slot rewritten too early would not)
+    args = _k7_args(gen, m, k, inner)
+    runs = [K.ffn_ln_geglu_q(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], run) for run in runs[1:])
 
 
 @pytest.mark.parametrize("m,k,n", [(100, 320, 1280), (1054, 5120, 1280),
@@ -657,7 +767,7 @@ def _into_nan(kid, args, guard=4096):
     NaN elements: (output, [guards])."""
     x = args[0]
     m = x.shape[0]
-    stream = stream_handle(x.device)
+    stream = stream_handle(x.get_device())
     nan = lambda n: torch.full((n + guard,), float("nan"), device=x.device,
                                dtype=torch.bfloat16)
     ptr = lambda t: None if t is None else t.data_ptr()

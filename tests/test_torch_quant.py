@@ -10,8 +10,8 @@
   s in {1, 0.37, 0}: f32 on both sides, atol 2e-5 (sums over 512 terms
   in another order).
 * K7's stated tolerance on the card (``kernels/tolerance.py``) against a
-  CPU emulation of the CUDA kernel: its rounding passes, four planted
-  faults do not.
+  CPU emulation of the CUDA kernel on gemm_tiles.cuh's mainloop: its
+  rounding passes, six planted faults do not.
 * The int8 generation slice at small geometry (``quantize_unet_int8(...,
   min_size=128)``, every UNet weight int8), the port against the JAX
   pipeline within tests/parity_setup.py's gates.
@@ -158,43 +158,77 @@ def test_ffn_int8_plain_matches_pallas(rng, s):
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=1e-5)
 
 
-def _k7_emulated(x, lw, lb, q1, s1, b1, q2, s2, b2, s, fault=None, bk=32):
-    """csrc/ffn.cu's K7 algorithm on the CPU: LN rounded to bf16, int8
-    weights exact in bf16, f32 sums over 32-deep k steps, the scales on the
-    f32 sums, h rounded to bf16, bf16 output plus the residual. ``fault``
-    plants a mistake the kernel could make."""
+def _chunk_sums(a, q, stale=False):
+    """a q^T as csrc/gemm_tiles.cuh sums it with an int8 B operand: f32 over
+    64-deep chunks of the contraction (one stage each), q's int8 values
+    exact in bf16, the last chunk zero-filled past the end. ``stale``
+    plants a converter one chunk behind the loading thread: chunk t is
+    multiplied by chunk t - 1's int8 tile (chunk 0 by its own)."""
+    k = a.shape[1]
+    pad = (-k) % 64
+    af = F.pad(a.float(), (0, pad))
+    qf = F.pad(q.float(), (0, pad))
+    acc = torch.zeros(a.shape[0], q.shape[0])
+    for k0 in range(0, k + pad, 64):
+        b0 = max(k0 - 64, 0) if stale else k0
+        acc += af[:, k0:k0 + 64] @ qf[:, b0:b0 + 64].t()
+    return acc
+
+
+def _k7_emulated(x, lw, lb, q1, s1, b1, q2, s2, b2, s, fault=None, eps=1e-5):
+    """csrc/ffn.cu's K7 on the CPU: K4's pre-pass (bf16(LN(x)) once per row,
+    the mean, then the centred variance, in f32), the up GEMM against Qa and
+    Qg with (acc_a * sa + ba) * gelu_erf(acc_g * sg + bg) in f32 rounded
+    once to bf16 h, the down GEMM against Q2 with bf16(bf16((acc * s2 + b2)
+    * s) + x); both GEMMs summed in 64-deep chunks (``_chunk_sums``).
+    ``fault`` plants a mistake the kernels could make."""
     bf = lambda t: t.to(torch.bfloat16).float()
     k, inner = x.shape[1], q1.shape[0] // 2
     xf = x.float()
-    mean, var = xf.mean(-1, keepdim=True), xf.var(-1, unbiased=False, keepdim=True)
-    xn = bf((xf - mean) * torch.rsqrt(var + 1e-5) * lw.float() + lb.float())
-    q1f, q2f = q1.float(), q2.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
+    xn = (xf - mean) * rstd * lw.float() + lb.float()
+    q1v, q2v = q1, q2
     if fault == "unsigned":           # the int8 bytes read as uint8
-        q1f = (q1.to(torch.int16) & 0xFF).float()
-        q2f = (q2.to(torch.int16) & 0xFF).float()
-    steps = lambda a, w, n: sum(a[:, i:i + bk] @ w[:, i:i + bk].t()
-                                for i in range(0, n, bk))
+        q1v = q1.to(torch.int16) & 0xFF
+        q2v = q2.to(torch.int16) & 0xFF
+    stale = fault == "stale_stage"
     sa, sg = s1[:inner], s1[inner:]
+    ba, bg = b1[:inner].float(), b1[inner:].float()
     if fault == "input_channel":      # the scales indexed by the input channel
-        a = steps(xn * sa[:k], q1f[:inner], k)
-        g = steps(xn * sg[:k], q1f[inner:], k)
+        a = _chunk_sums(bf(xn * sa[:k]), q1v[:inner]) + ba
+        g = _chunk_sums(bf(xn * sg[:k]), q1v[inner:]) + bg
     else:
-        y1 = steps(xn, q1f, k)
-        a, g = y1[:, :inner] * sa, y1[:, inner:] * sg
-    h = bf((a + b1[:inner].float()) * F.gelu(g + b1[inner:].float()))
-    y = steps(h, q2f, inner) * (1.0 if fault == "dropped_scale" else s2) + b2.float()
-    return (y * (1.0 if fault == "s_ignored" else s)).to(torch.bfloat16) + x
+        y1 = _chunk_sums(bf(xn), q1v, stale)
+        if fault == "scale_after_bias":   # (acc + b) * s, not acc * s + b
+            a, g = (y1[:, :inner] + ba) * sa, (y1[:, inner:] + bg) * sg
+        else:
+            a, g = y1[:, :inner] * sa + ba, y1[:, inner:] * sg + bg
+    h = bf(a * F.gelu(g))
+    acc = _chunk_sums(h, q2v, stale)
+    if fault == "dropped_scale":
+        y = acc + b2.float()
+    elif fault == "scale_after_bias":
+        y = (acc + b2.float()) * s2
+    else:
+        y = acc * s2 + b2.float()
+    y = bf(y * (1.0 if fault == "s_ignored" else s))
+    return (y + xf).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("s,fault", [
-    (1.0, None), (0.37, None), (0.0, None),
-    (0.37, "dropped_scale"), (0.37, "input_channel"), (0.37, "unsigned"),
-    (0.37, "s_ignored"),
-])
+# the planted faults of K7's design: "dropped_scale" drops s2,
+# "input_channel" applies sa and sg per input channel, "unsigned" reads q as
+# uint8, "s_ignored" takes s = 1, "stale_stage" converts each chunk from the
+# previous chunk's int8 tile, "scale_after_bias" computes (acc + b) * s
+K7_FAULTS = ("dropped_scale", "input_channel", "unsigned", "s_ignored",
+             "stale_stage", "scale_after_bias")
+
+
+@pytest.mark.parametrize("s,fault", [(1.0, None), (0.37, None), (0.0, None)]
+                         + [(0.37, fault) for fault in K7_FAULTS])
 def test_k7_tolerance_separates_rounding_from_faults(s, fault):
     # the 64^2 site's width at 512 rows, inputs drawn as chip_smoke draws
-    # them; "dropped_scale" drops s2, "input_channel" applies sa and sg per
-    # input channel, "unsigned" reads q as uint8, "s_ignored" takes s = 1
+    # them
     m, k = 512, 320
     inner = 4 * k
     g = torch.Generator().manual_seed(0)

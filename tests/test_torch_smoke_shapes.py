@@ -261,7 +261,8 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     kernel's profile time counts under its own kernel id (not "matmul",
     whose keys "gemm" and "sm90_" a template name can contain), and phase
     build looks for HGMMA in every wgmma kernel of K1, K5a, K5b, K4, K6,
-    K8a and K8b; no `__global__` of the retired WMMA kernels is left."""
+    K7, K8a and K8b; no `__global__` of the retired WMMA kernels is left,
+    and no kernel source uses WMMA."""
     kernels = _source_kernels()
     lib_of = {kid: Path(meta[1]).stem for kid, meta in cs.KERNEL_META.items()}
     groups = {name.split()[0]: keys for name, keys in cs.PROFILE_GROUPS}
@@ -275,12 +276,18 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     for lib, names in cs.WGMMA_KERNELS.items():
         for name in names:
             assert kernels.get(name) == lib, name
-    retired = {"ffn_res_up_kernel", "ffn_res_down_kernel", "geglu_fused_kernel"}
+    retired = {"ffn_res_up_kernel", "ffn_res_down_kernel", "geglu_fused_kernel",
+               "ffn_q_up_kernel", "ffn_q_down_kernel"}
     assert not retired & set(kernels), retired & set(kernels)
-    # the only kernels of those ids without a product: K4's LN pre-pass
+    assert not (CSRC / "ffn_tiles.cuh").exists()
+    for path in CSRC.glob("*.cu*"):
+        assert "wmma::" not in path.read_text() and "<mma.h>" not in path.read_text(), path
+    # the only kernels of those ids without a product: K4's and K7's LN
+    # pre-passes
+    pre_pass = {"K4": {"ffn_norm_rows_kernel"}, "K7": {"ffn_q_norm_rows_kernel"}}
     for kid in cs.WGMMA_KIDS:
         off_wgmma = set(groups[kid]) - set(cs.WGMMA_KERNELS[lib_of[kid]])
-        assert off_wgmma == ({"ffn_norm_rows_kernel"} if kid == "K4" else set())
+        assert off_wgmma == pre_pass.get(kid, set())
 
 
 def test_gemm_tiles_sweep_patches_the_sources(tmp_path):
