@@ -11,7 +11,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                (WGMMA_KERNELS; K4's and K7's LN pre-passes do no product),
                or if ptxas reports a spill in a K7 kernel or any nvcc log
                holds C7515 (wgmma serialised); prints the registers and
-               spills of every wgmma kernel.
+               spills of every wgmma kernel and of K2's three kernels
+               (GN_KERNELS).
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
@@ -27,10 +28,12 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                time a call. K1's, K5a's and K5b's rows add `exp_ms`, the
                time of their exponentials at the SFUs' rate (exp_ms()); the
                rows of the kernels on wgmma (K1, K5a, K5b, K4, K6, K7, K8a,
-               K8b) add `vs_library`, ms over library_ms, and
-               `device_vs_library`. Before the rows: the wrappers' raw
-               stream handle against torch.cuda.current_stream().cuda_stream
-               outside and inside a side stream (a mismatch fails), and the
+               K8b) and K2's add `vs_library`, ms over library_ms, and
+               `device_vs_library`; K2's add the path its plan takes
+               (`path`: "cluster" on chip or "stream"), `cluster` (blocks a
+               cluster) and `slab` (channels). Before the rows: the
+               wrappers' raw stream handle against
+               torch.cuda.current_stream().cuda_stream outside and inside a side stream (a mismatch fails), and the
                host floor of a call, torch.empty_like plus an empty C entry
                point with K3's eight arguments through ctypes (host_floor).
                K5a's and K5b's library call is SDPA's whole backward (dQ,
@@ -75,7 +78,9 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
      vs_library, device_vs_library, and the largest shape's vs_library).
      `host_us_median` is the median of the kernel's `host_us` over its
-     shapes.
+     shapes. K2's entry adds `unet_eval_device_ms`: phase 2's device_ms
+     summed over the 61 K2 calls of one CFG-batch-4 UNet evaluation
+     (unet_calls), each shape weighted by its calls.
 
 Phase 2's shapes are walked from the model configs (generation_calls,
 training_calls): the generation at 2 requests (CFG batch 4) on each of
@@ -154,6 +159,10 @@ WGMMA_KERNELS = {
 }
 # the kernels whose rows are held against their library call (vs_library)
 WGMMA_KIDS = ("K1", "K5a", "K5b", "K4", "K6", "K7", "K8a", "K8b")
+# K2's kernels: the on-chip path's cluster kernel, the streaming path's two;
+# phase build prints their registers and spills
+GN_KERNELS = ("gn_cluster_kernel", "gn_stats_kernel", "gn_apply_kernel")
+VS_LIBRARY_KIDS = WGMMA_KIDS + ("K2",)
 # K7's kernels, which must compile without a spill (ptxas)
 NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel")
 
@@ -724,6 +733,21 @@ def make_bwd_case(kid, args, dev, rnd):
             lib, 8.0 * b * h * n * m * d, io + 2.0 * 2 * b * m * h * d)
 
 
+def gn_plan(n, hw, c, groups=32):
+    """K2's plan (kernels/group_norm.py plan_group_norm) for a row label."""
+    gn = importlib.import_module("layoutllm_t2i_torch.kernels.group_norm")
+    return gn.plan_group_norm(n, hw, c, groups)
+
+
+def unet_eval_device_ms(unet_cfg, tok_len, device_ms_by_args) -> float:
+    """K2's device ms in one UNet evaluation of the generation (CFG batch
+    4, 30 grounding tokens, 5 relations): phase 2's device_ms at each of
+    its K2 shapes, weighted by the number of its calls there."""
+    calls = [args for kid, args in unet_calls(unet_cfg, 2 * len(REQUESTS[0]),
+                                               30, 5, tok_len) if kid == "K2"]
+    return sum(device_ms_by_args[args] for args in calls)
+
+
 def library_ms(lib, timer=time_ms) -> float:
     """ms of one library call; of a (whole, part) pair, whole minus part."""
     if isinstance(lib, tuple):
@@ -787,8 +811,9 @@ def phase_build():
         if "C7515" in text:
             c7515.append(lib)
         names = WGMMA_KERNELS.get(lib, ())
+        shown = names + (GN_KERNELS if lib == "group_norm" else ())
         ptxas.update({fn: rec for fn, rec in ptxas_kernels(text).items()
-                      if any(name in fn for name in names)})
+                      if any(name in fn for name in shown)})
         if not names:
             continue
         found = {fn: n for fn, n in sass_opcode_counts(
@@ -875,7 +900,7 @@ def phase_kernels(cases):
                      "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                      "device_ms": 0.0, "library_device_ms": 0.0,
                      "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0,
-                     "host_us": []}
+                     "host_us": [], "device_ms_by_args": {}}
                for kid in KERNEL_META}
     pair = {key: 0.0 for key in PAIR_SUMS}
     pair["shapes"], pair["max_vs_library"] = 0, 0.0
@@ -899,9 +924,12 @@ def phase_kernels(cases):
         if kid in ("K1", "K5a", "K5b"):
             b, n, m, h = args[:4]
             rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
-        if kid in WGMMA_KIDS:
+        if kid in VS_LIBRARY_KIDS:
             rec["vs_library"] = rec["ms"] / rec["library_ms"]
             rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
+        if kid == "K2":
+            plan = gn_plan(*args[:3])
+            rec.update(path=plan.path, cluster=plan.cluster, slab=plan.slab)
         emit(rec)
         if kid in ("K5a", "K5b"):
             half[kid, label] = rec
@@ -918,6 +946,7 @@ def phase_kernels(cases):
         agg["bytes_ms"] += nbytes / H100_HBM_BYTES * 1e3
         agg["shapes"] += 1
         agg["host_us"].append(rec["host_us"])
+        agg["device_ms_by_args"][args] = rec["device_ms"]
         if not agree["ok"]:
             failed.append(f"{kid} {label}")
         del kern, plain, lib
@@ -1389,7 +1418,7 @@ PROFILE_GROUPS = (
     ("K1 flash_attention", ("flash_fwd_kernel",)),
     ("K5a flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K5b flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
-    ("K2 group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("K2 group_norm", GN_KERNELS),
     ("K3 layer_norm", ("ln_kernel",)),
     ("K4 ffn_ln_geglu", ("ffn_norm_rows_kernel", "ffn_up_wgmma_kernel",
                          "ffn_down_wgmma_kernel")),
@@ -1542,10 +1571,13 @@ def main(argv=None) -> int:
                      "library_ms": s["library_ms"], "device_ms": s["device_ms"],
                      "library_device_ms": s["library_device_ms"],
                      "host_us_median": s["host_us"], "shapes": s["shapes"]})
-        if kid in WGMMA_KIDS:
+        if kid in VS_LIBRARY_KIDS:
             line[-1]["vs_library"] = s["ms"] / s["library_ms"]
             line[-1]["device_vs_library"] = (s["device_ms"]
                                              / s["library_device_ms"])
+        if kid == "K2":
+            line[-1]["unet_eval_device_ms"] = unet_eval_device_ms(
+                unet_cfg, tok_len, s["device_ms_by_args"])
         if kid in ("K5a", "K5b"):
             line[-1]["pair"] = k5_pair
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -11,6 +11,13 @@ line:
   it: the wrapper's host microseconds a call, with its launches queued
   behind a device-side sleep so that the device never waits for the host,
   and the device ms a call of the same run;
+- K2 (GroupNorm, + SiLU where the model has it) at every distinct shape
+  of one 2-request generation (chip_smoke.generation_calls: the UNet's 18
+  at CFG batch 4, among them 64^2 x 320, 32^2 x 640, 16^2 x 1280 and
+  8^2 x 1280, and the VAE decoder's 7): the wrapper's host microseconds a
+  call and the device ms a call, as chip_smoke.device_time measures them,
+  and their sum over one UNet evaluation's 61 calls
+  (`k2_unet_eval_device_ms`);
 - K3 (LayerNorm) at three of its shapes, the UNet's widths: the
   wrapper's host microseconds a call and the device ms a call, as
   chip_smoke.device_time measures them;
@@ -68,6 +75,26 @@ def k1_timing(flash_attention, b, n, h, d):
     return host_s / CALLS * 1e6, e0.elapsed_time(e1) / CALLS, asleep
 
 
+def k2_shapes(cs) -> list:
+    """K2's distinct (N, HW, C, eps, silu) in one generation, in call order."""
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+    unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+    calls = cs.generation_calls(unet_cfg, vae_cfg, clip_cfg, clip_cfg.max_length,
+                                cs.REQUESTS, cs.VAE_CHUNK)
+    return list(dict.fromkeys(args for kid, args in calls if kid == "K2"))
+
+
+def unet_k2_calls(cs) -> list:
+    """K2's calls in one UNet evaluation of the generation (CFG batch 4)."""
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+    unet_cfg, _, clip_cfg = model_configs(small=False)
+    return [args for kid, args in cs.unet_calls(
+        unet_cfg, 2 * len(cs.REQUESTS[0]), 30, 5, clip_cfg.max_length)
+        if kid == "K2"]
+
+
 def host_us_by_kernel(cs) -> dict:
     """{kernel id: median host us a call} over every shape of chip_smoke's
     walk, each wrapper call on fresh inputs from chip_smoke.make_case."""
@@ -117,17 +144,20 @@ def main() -> int:
                               "sleep_outlasted_host": asleep})
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(0)
-        for kid, shapes in (("K3", K3_SHAPES), ("K7", FF_SHAPES),
-                            ("K4", FF_SHAPES)):
+        for kid, shapes in (("K2", k2_shapes(cs)), ("K3", K3_SHAPES),
+                            ("K7", FF_SHAPES), ("K4", FF_SHAPES)):
             out[kid.lower()] = []
             for shape in shapes:
-                args = shape if kid == "K3" else (*shape, 0.5)
+                args = shape if kid in ("K2", "K3") else (*shape, 0.5)
                 kern = cs.make_case(kid, args, dev, gen)[0]
                 dev_ms, host_us = cs.device_time(kern)
                 out[kid.lower()].append({"shape": cs.case_label(kid, args),
                                          "host_us": host_us,
                                          "device_ms": dev_ms})
                 del kern
+    by_shape = {rec["shape"]: rec["device_ms"] for rec in out["k2"]}
+    out["k2_unet_eval_device_ms"] = sum(
+        by_shape[cs.case_label("K2", args)] for args in unet_k2_calls(cs))
     out["host_us_median"] = host_us_by_kernel(cs)
     models = random_models(small=False, device="cuda", dtype=torch.bfloat16,
                            seed=0)

@@ -48,8 +48,12 @@ SIGNATURES = {
                                 _I, _I, _L, _L, _L, _L, _L, _L, _F, _P],
     },
     "group_norm": {
-        "llt2i_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _F, _I, _I, _P],
+        "llt2i_group_norm_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _F, _I, _P],
+        "llt2i_group_norm_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _F, _I, _P],
+        # returns bytes, not a cudaError_t (-1: over a block's limit)
+        "llt2i_group_norm_cluster_smem": [_I, _I, _I],
     },
     "layer_norm": {
         "llt2i_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],

@@ -41,6 +41,13 @@ K6 and K8b on the same mainloop: the planted faults (those, K6's residual
 halved, K8b's also with the bias absent) lie 8.0e-2 to 0.96 off, the
 emulated rounding at most 1.4e-4; K6's h unrounded and its residual added
 before the FF output's rounding (2.0e-3 and 2.3e-3) are within it.
+K2's on-chip and streaming designs (per-block sums shifted by the block's
+first row, Chan's merges within a block and across the cluster or the
+statistics chunks): the emulated rounding lies at most 4.6e-5 of rms(b)
+off in the whole-tensor error, planted faults (a block normalising with
+its own statistics, the ragged last block dropped, slabs one channel off
+the groups, gamma and beta of the next slab) 0.56 to 0.72
+(``tests/test_torch_group_norm.py``).
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels to
 these numbers; ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_quant.py`` show on the CPU that they pass the kernels'

@@ -7,8 +7,12 @@ off the block sizes, strided attention operands; for K1's TMA and wgmma
 design, operands fenced by NaN and Inf columns and rows (a pad or an
 overread turns the output NaN), N and M off both tile sizes, the lse of
 the d = 512 head and two launches agreeing bit for bit (a race in the
-K/V stage ring would not); odd group widths, wide and
-narrow LayerNorm rows, a partial FF row block; the training path's
+K/V stage ring would not); odd group widths, K2's on-chip (cluster)
+and streaming paths through both C entry points, its ragged last block,
+bitwise repeatability, equal inputs in different blocks mapped to equal
+outputs, SiLU's negative tail to a bf16 ulp, an operand fenced by NaN and
+the planner's copy of the on-chip kernel's shared-memory layout;
+wide and narrow LayerNorm rows, a partial FF row block; the training path's
 kernels: K1's lse output, the K5a/K5b backward at the ragged training
 shapes (N = M = 4126 and 1054), on operands fenced by NaN and Inf, into
 outputs filled with NaN (every element written, nothing past N, M or d),
@@ -29,6 +33,9 @@ Run them on the card with
 machine need not have). Tolerance: the one ``chip_smoke.py`` states,
 from ``layoutllm_t2i_torch/kernels/tolerance.py``.
 """
+import importlib
+import math
+
 import pytest
 import torch
 
@@ -194,6 +201,136 @@ def test_group_norm(dev, gen, n, hw, c, groups, silu):
     w, bias = _rand(gen, c, scale=0.5, shift=1.0), _rand(gen, c, scale=0.5)
     _check("K2", lambda: K.group_norm(x, w, bias, groups, 1e-6, silu),
            lambda: K.group_norm_plain(x, w, bias, groups, 1e-6, silu), K.group_norm)
+
+
+# K2's two paths (kernels/group_norm.py launch with a forced plan)
+GN = importlib.import_module("layoutllm_t2i_torch.kernels.group_norm")
+
+
+def _gn_operands(gen, n, hw, c):
+    x = _rand(gen, n, hw, c, scale=3.0, shift=1.5)
+    return x, _rand(gen, c, scale=0.5, shift=1.0), _rand(gen, c, scale=0.5)
+
+
+def _gn_plan(path, n, hw, c, groups):
+    plan = (GN.plan_group_norm(n, hw, c, groups) if path == "cluster"
+            else GN.stream_plan(n, hw, c, groups))
+    assert plan.path == path
+    return plan
+
+
+@pytest.mark.parametrize("path", ["cluster", "stream"])
+def test_group_norm_both_entry_points(dev, gen, path):
+    # one shape, through the on-chip and the streaming C entry point
+    n, hw, c, groups = 2, 4096, 320, 32
+    plan = _gn_plan(path, n, hw, c, groups)
+    x, w, bias = _gn_operands(gen, n, hw, c)
+    _check("K2", lambda: GN.launch(x, w, bias, groups, 1e-6, True, plan),
+           lambda: K.group_norm_plain(x, w, bias, groups, 1e-6, True), K.group_norm)
+
+
+@pytest.mark.parametrize("n,hw,c,groups", [
+    (2, 4097, 96, 32),     # C/G = 3 (24-channel slabs), a ragged last block
+])
+def test_group_norm_cluster_ragged(dev, gen, n, hw, c, groups):
+    plan = _gn_plan("cluster", n, hw, c, groups)
+    assert hw % plan.rows and plan.cluster > 1
+    x, w, bias = _gn_operands(gen, n, hw, c)
+    _check("K2", lambda: K.group_norm(x, w, bias, groups, 1e-6, True),
+           lambda: K.group_norm_plain(x, w, bias, groups, 1e-6, True), K.group_norm)
+
+
+@pytest.mark.parametrize("path,shape", [("cluster", (4, 4096, 960)),
+                                        ("stream", (2, 65536, 256))])
+def test_group_norm_is_bitwise_repeatable(dev, gen, path, shape):
+    # two launches give the same bits (blocks agreeing with each other is
+    # test_group_norm_blocks_apply_one_scale)
+    plan = _gn_plan(path, *shape, 32)
+    x, w, bias = _gn_operands(gen, *shape)
+    a = GN.launch(x, w, bias, 32, 1e-5, True, plan)
+    b = GN.launch(x, w, bias, 32, 1e-5, True, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("path,shape", [("cluster", (2, 4097, 96)),
+                                        ("cluster", (4, 4096, 960)),
+                                        ("stream", (2, 65536, 256))])
+def test_group_norm_blocks_apply_one_scale(dev, gen, path, shape):
+    # each channel holds two values, the second's share growing along the
+    # rows, so the blocks' own statistics differ widely; every block (of a
+    # cluster, or of the streaming apply pass) must map each value to the
+    # same output bits, which a block on statistics other than the others'
+    # would not
+    n, hw, c = shape
+    plan = _gn_plan(path, n, hw, c, 32)
+    assert (plan.cluster if path == "cluster" else -(-hw // plan.apply_rows)) > 1
+    r = torch.arange(hw, device=dev, dtype=torch.float32)
+    second = ((r * 0.6180339887) % 1.0) < (r + 0.5) / hw
+    a = _rand(gen, n, 1, c, scale=2.0)
+    b = (a.float() + _rand(gen, n, 1, c).float().abs() + 0.25).to(torch.bfloat16)
+    x = torch.where(second[None, :, None], b, a)
+    w, bias = _rand(gen, c, scale=0.5, shift=1.0), _rand(gen, c, scale=0.5)
+    y = GN.launch(x, w, bias, 32, 1e-5, True, plan)
+    torch.cuda.synchronize()
+    for rows in (second, ~second):
+        ys = y[:, rows]
+        assert torch.equal(ys, ys[:, :1].expand_as(ys))
+    got = agreement("K2", y, K.group_norm_plain(x, w, bias, 32, 1e-5, True))
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("path", ["cluster", "stream"])
+def test_group_norm_silu_tail(dev, gen, path):
+    # rows a ramp and gamma 9: the normalised values span about [-15.6,
+    # 15.6]; SiLU's negative tail (-2.7e-3 at -8, -4.6e-6 at -15) must hold
+    # to a bf16 ulp of the plain version, not to K2's absolute 1e-2
+    n, hw, c = 2, 4096, 320
+    plan = _gn_plan(path, n, hw, c, 32)
+    ramp = torch.linspace(-1.0, 1.0, hw, device=dev)
+    x = (ramp[None, :, None] + 0.01 * _rand(gen, n, hw, c).float()).to(torch.bfloat16)
+    w = torch.full((c,), 9.0, device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros(c, device=dev, dtype=torch.bfloat16)
+    y = GN.launch(x, w, bias, 32, 1e-5, True, plan)
+    ref = K.group_norm_plain(x, w, bias, 32, 1e-5, True)
+    assert ref.float().min() < -0.27 and (ref.float().abs() < 1e-5).any()
+    torch.testing.assert_close(y.float(), ref.float(), rtol=2 ** -7, atol=1e-4)
+
+
+def test_group_norm_smem_mirror(dev):
+    # the planner's cluster_smem_bytes against the C layout and limit,
+    # every slab of each group width up to 640 channels, rows up to and one
+    # past the most a block holds
+    smem = lib("group_norm").llt2i_group_norm_cluster_smem
+    for cg in (1, 2, 3, 4, 8, 10, 16, 20, 30, 40, 60, 80):
+        for slab in range(math.lcm(cg, 8), 641, math.lcm(cg, 8)):
+            most = GN.SMEM_MAX // (2 * slab)
+            while GN.cluster_smem_bytes(most, slab, cg) > GN.SMEM_MAX:
+                most -= 1
+            for rows in (1, 31, 32, 205, most // 2, most, most + 1):
+                py = GN.cluster_smem_bytes(rows, slab, cg)
+                want = py if py <= GN.SMEM_MAX else -1
+                assert smem(rows, slab, cg) == want, (rows, slab, cg)
+
+
+@pytest.mark.parametrize("path,shape", [("cluster", (4, 1024, 640)),
+                                        ("stream", (2, 65536, 256))])
+def test_group_norm_fenced_operand(dev, gen, path, shape):
+    # x a slice of a larger buffer whose neighbours are NaN: a read past
+    # either end of x turns the output NaN
+    n, hw, c = shape
+    guard = 4096
+    buf = torch.full((n * hw * c + 2 * guard,), float("nan"), device=dev,
+                     dtype=torch.bfloat16)
+    x = buf[guard:guard + n * hw * c].view(n, hw, c)
+    x.copy_(_rand(gen, n, hw, c, scale=3.0, shift=1.5))
+    w, bias = _rand(gen, c, scale=0.5, shift=1.0), _rand(gen, c, scale=0.5)
+    plan = _gn_plan(path, n, hw, c, 32)
+    out = GN.launch(x, w, bias, 32, 1e-6, False, plan)
+    torch.cuda.synchronize()
+    assert not out.isnan().any()
+    got = agreement("K2", out, K.group_norm_plain(x, w, bias, 32, 1e-6, False))
+    assert got["ok"], got
 
 
 @pytest.mark.parametrize("rows,c", [(1, 8), (7, 1000), (33, 2048), (4126, 320)])
