@@ -18,7 +18,7 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
                GEGLU GEMM) against its plain PyTorch version on the card,
                in bf16 (K7 on int8 weights), at every distinct shape that
-               phases 4-6 and 8 give it; times kernel, plain version and
+               phases 4-8 and 10 give it; times kernel, plain version and
                one PyTorch library call for the same function, beside the
                roofline bound. `ms`, `plain_ms` and `library_ms` are
                launched back to back from the host (time_ms), so a call
@@ -48,31 +48,47 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   4. generate  random_models() at full SD-1.4 width in bf16, then PLMS-50,
                CFG 7.5, alpha (0.3, 0, 0.7), vae_chunk 8 on 2 requests;
                checks shape, finiteness and range; counts kernel launches.
-  5. int8      quantize_unet_int8 of phase 4's bundle: the UNet's dense and
+  5. fast      the fast preset (pipeline/presets.py, as `cli/serve.py
+               --fast` expands it: DPM-Solver++ 15 steps, CFG only on the
+               steps in (0, 0.75), the UNet encoder re-run every 2nd step)
+               on phase 4's bundle, requests, seed and alpha: wall s, img/s,
+               peak memory, UNet evaluations (CFG at batch 4 / cond-only at
+               batch 2, key / propagated) against the step tables, launches,
+               and `psnr_vs_exact_db`, the worse image's PSNR against phase
+               4's from the same noise, which must be >= 30 dB.
+  6. serve     GenerationServer on 127.0.0.1 with phase 5's pipeline at
+               batch 2: /healthz after the warm-up, three concurrent POSTs
+               (one full batch, one padded); every reply a 512x512 RGB PNG
+               (decoded with zlib), /metrics 3 requests, 2 batches, 1
+               padded row, 0 errors; the padded request byte-identical to
+               pipe.generate on its padded batch; the batched requests
+               against themselves alone (per-request seeds): max |d| and
+               PSNR >= 35 dB.
+  7. int8      quantize_unet_int8 of phase 4's bundle: the UNet's dense and
                int8 bytes; under LLT2I_FFN_INT8=1 a UNet forward through
                K7 against the plain route and against the default int8
                route (dequantize, then cuBLAS); then phase 4's generation,
                its launches and its mean |int8 - dense| image difference.
-  6. routes    under LLT2I_FFN_LN=0 and LLT2I_PALLAS_MATMUL=1 (K3 + K6 at
+  8. routes    under LLT2I_FFN_LN=0 and LLT2I_PALLAS_MATMUL=1 (K3 + K6 at
                the norm3 sites, K3 + K8b + K8a at the fusers' dense
                branch): a UNet forward against the plain route, then phase
                4's generation and its launches.
-  7. train-grad  one full-width loss backward at batch 2 (f32 master
+  9. train-grad  one full-width loss backward at batch 2 (f32 master
                weights, bf16 compute, alphas 0.5), kernel route against
                plain route: the relative L2 error of the rela_fuse
                gradients against a stated bound, which a planted fault of
                the K5 backward must exceed.
-  8. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
+ 10. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
                8, rela_fuse, AdamW, mixed precision, warmup 0, alphas 0.5;
                2 warm-up steps then 5 timed ones; s/step, images/s, peak
                memory, finite losses, every rela_fuse tensor changed and
                every frozen one bit-identical; kernel launches per step.
-  9. the `kernels` JSON line, then the card line, then the result line.
+ 11. the `kernels` JSON line, then the card line, then the result line.
      In that line `ms`, `plain_ms`, `library_ms`, `bound_ms`, `device_ms`
      and `library_device_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
-     `device_vs_library` are the ratios of those sums; `launches` adds the runs of phases 4, 5, 6 and 8,
+     `device_vs_library` are the ratios of those sums; `launches` adds the runs of phases 4, 5, 7, 8 and 10,
      each read from counts set to 0 just before it. K5a's and K5b's
      entries carry the pair's sums (`pair`: ms, device_ms, library_ms and
      library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
@@ -84,7 +100,10 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
 
 Phase 2's shapes are walked from the model configs (generation_calls,
 training_calls): the generation at 2 requests (CFG batch 4) on each of
-its three routes (Route: the default, int8, and the split FF routes),
+its three routes (Route: the default, int8, and the split FF routes), the
+fast preset's evaluations from its step tables (unet_evaluations: CFG at
+batch 4, cond-only at batch 2, with and without the gated fusers, key
+and propagated),
 and a training step at batch 8 with no CFG doubling: the VAE encoder on
 512^2 images (K1 at d 512), CLIP on the captions and on the grounding
 texts, and the UNet, whose flash sites after the first relation fuser run
@@ -97,8 +116,9 @@ holds the walk against the calls that a small model makes on the CPU.
 With `--profile OUT.json`, one more generation runs under torch.profiler
 after phase 4 and prints device time by kernel group and the device's idle
 share; OUT.json gets the per-kernel table. One more generation is profiled
-likewise after phases 5 and 6 (OUT_int8.json, OUT_routes.json), and one
-more training step after phase 8 (OUT_train.json).
+likewise after phases 5, 7 and 8 (OUT_fast.json, OUT_int8.json,
+OUT_routes.json), and one more training step after phase 10
+(OUT_train.json).
 
 The script imports nothing of JAX or of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -117,6 +137,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -387,11 +408,14 @@ def ff_site_calls(route, m, k, s):
     return calls + geglu_ff_calls(route, m, k)
 
 
-def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False, route=DEFAULT):
+def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False, route=DEFAULT,
+               gated=True, encoder=True):
     """One UNet forward at batch b, n_obj grounding tokens, n_rel relations,
     on ``route``. With ``train`` (rela_fuse mode) autograd records every
     call from the first relation fuser on, so the flash sites there take
-    the lse."""
+    the lse. ``gated=False``: a step with grounding alpha 0, whose body
+    elides the gated fusers; ``encoder=False``: a propagated step of the
+    encoder cache, which skips input_blocks."""
     from layoutllm_t2i_torch.models.unet import input_block_specs, output_block_specs
 
     lat, heads = cfg.image_size, cfg.num_heads
@@ -407,9 +431,11 @@ def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False, route=DEFAULT):
         for _ in range(cfg.transformer_depth):
             calls.append(("K3", (b * hw, c)))                        # attn1
             calls.extend(attention_calls(b, hw, hw, heads, c, grad))
-            calls.append(("K3", (b * (hw + n_obj), c)))              # fuser
-            calls.extend(attention_calls(b, hw + n_obj, hw + n_obj, heads, c, grad))
-            calls.extend(ff_site_calls(route, b * hw, c, 0.5))
+            if gated:                                                # fuser
+                calls.append(("K3", (b * (hw + n_obj), c)))
+                calls.extend(attention_calls(b, hw + n_obj, hw + n_obj, heads,
+                                             c, grad))
+                calls.extend(ff_site_calls(route, b * hw, c, 0.5))
             if cfg.use_relation_attention:                           # rela_fuse
                 grad = grad or train
                 calls.extend([("K3", (b * hw, c)), ("K3", (b * n_obj, c))])
@@ -419,7 +445,7 @@ def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False, route=DEFAULT):
             calls.extend(attention_calls(b, hw, ctx_len, heads, c, grad))
             calls.extend(ff_site_calls(route, b * hw, c, 1.0))       # ff
 
-    for kind, ci, co, ds in input_block_specs(cfg):
+    for kind, ci, co, ds in input_block_specs(cfg) if encoder else ():
         if kind in ("res", "res_st"):
             res((lat // ds) ** 2, ci, co)
         if kind == "res_st":
@@ -478,11 +504,34 @@ def clip_calls(clip_cfg, rows):
     return [("K3", (rows, clip_cfg.hidden_size))] * (2 * clip_cfg.num_layers + 1)
 
 
+def unet_evaluations(pipe, b):
+    """(batch, gated, encoder) of every UNet evaluation that ``pipe``'s
+    sampler makes for b requests, from its own step tables: CFG steps at
+    2b and the guidance interval's cond-only steps at b; steps with
+    grounding alpha 0 without the gated fusers; the encoder cache's
+    propagated steps without the encoder. PLMS adds its Heun warm start,
+    at step 0's batch and alpha, propagated in cached mode."""
+    n = len(pipe.tables.t)
+    cfg_on = (pipe._cfg_on_steps() if pipe._guidance_interval_on()
+              else np.ones(n, dtype=bool))
+    keys = (pipe._key_steps() if pipe.encoder_cache_interval
+            else np.ones(n, dtype=bool))
+    gated = np.asarray(pipe.tables.fuser_scale) != 0
+    evals = [(2 * b if cfg_on[i] else b, bool(gated[i]), bool(keys[i]))
+             for i in range(n)]
+    if pipe.sampler == "plms":
+        evals.insert(1, evals[0][:2] + (not pipe.encoder_cache_interval,))
+    return evals
+
+
 def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
-                     vae_chunk, max_objs=30, max_relas=5, route=DEFAULT):
+                     vae_chunk, max_objs=30, max_relas=5, route=DEFAULT,
+                     evals=None):
     """InferencePipeline.generate: prompts and empty prompts, then every
     phrase and relation text in one batch, each padded to a power of two;
-    the CFG-doubled UNet on ``route``; the VAE decode in chunks."""
+    the UNet on ``route`` at each distinct evaluation of ``evals``
+    (unet_evaluations; default the CFG-doubled full forward, which holds
+    every call of the exact path); the VAE decode in chunks."""
     from layoutllm_t2i_torch.utils.buckets import pow2_bucket
 
     prompts, layouts, relations = requests
@@ -492,8 +541,9 @@ def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
     calls = 2 * clip_calls(clip_cfg, pow2_bucket(b) * tok_len)
     if n_texts:
         calls += clip_calls(clip_cfg, pow2_bucket(n_texts) * tok_len)
-    calls += unet_calls(unet_cfg, 2 * b, max_objs, max_relas, tok_len,
-                        route=route)
+    for batch, gated, encoder in sorted(set(evals or [(2 * b, True, True)])):
+        calls += unet_calls(unet_cfg, batch, max_objs, max_relas, tok_len,
+                            route=route, gated=gated, encoder=encoder)
     for i in range(0, b, vae_chunk):
         calls += vae_decoder_calls(vae_cfg, min(vae_chunk, b - i), unet_cfg.image_size)
     return calls
@@ -1108,6 +1158,36 @@ def exact_pipeline(models):
                              vae_chunk=VAE_CHUNK)
 
 
+def fast_settings() -> dict:
+    """The fast preset as ``cli/serve.py --fast`` expands it
+    (pipeline/presets.py): DPM-Solver++ 15 steps, CFG on (0, 0.75), the
+    encoder re-run every 2nd step."""
+    from layoutllm_t2i_torch.cli.serve import parse_args
+    from layoutllm_t2i_torch.pipeline.presets import apply_fast_preset
+
+    a = apply_fast_preset(parse_args(["--fast"]))
+    return dict(sampler=a.sampler, steps=a.steps, guidance_scale=a.guidance_scale,
+                cfg_interval=a.cfg_interval,
+                encoder_cache_interval=a.cache_encoder)
+
+
+def fast_pipeline(models, vae_chunk=VAE_CHUNK):
+    """The fast preset on the generation's alpha (0.3, 0, 0.7). Its step
+    tables need only ``models.schedule``."""
+    from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
+
+    return InferencePipeline(models, alpha_type=(0.3, 0.0, 0.7),
+                             vae_chunk=vae_chunk, **fast_settings())
+
+
+def fast_tables_pipeline():
+    """fast_pipeline for its step tables alone (random_models' schedule)."""
+    from layoutllm_t2i_torch.ops.schedules import make_ddpm_schedule
+
+    return fast_pipeline(types.SimpleNamespace(
+        schedule=make_ddpm_schedule("linear", 1000, 0.00085, 0.012)))
+
+
 def run_generation(models, label: str, **extra):
     """A 2-step warm-up generation (cuDNN algorithm selection and the first
     kernel launches stay out of the timed run), then PLMS-50 on REQUESTS
@@ -1150,6 +1230,230 @@ def phase_generate(models):
         raise SmokeFailure("generation output is not a finite (2,512,512,3) "
                            "image batch in [0, 1]")
     return counts, img
+
+
+# phase fast: its images against the exact path's from the same noise
+FAST_PSNR_MIN_DB = 30.0
+# phase serve: batch 2, three requests (prompt, one box and phrase, a
+# relation, a seed): one full batch, one padded
+SERVE_BATCH = 2
+SERVE_DELAY_MS = 2000.0
+SERVE_REQUESTS = (
+    ("a dog chasing a red ball on the grass", [0.05, 0.4, 0.55, 0.95], "a dog",
+     "dog chasing ball", 11),
+    ("a cat sitting on a wooden chair", [0.2, 0.1, 0.6, 0.6], "a cat",
+     "cat on chair", 12),
+    ("a red car parked by a tree", [0.1, 0.3, 0.7, 0.9], "a red car",
+     "car next to tree", 13),
+)
+# the per-request-seed contract: a request alone and batched with a
+# stranger, tests/parity_setup.py's image gate
+SERVE_PSNR_MIN_DB = 35.0
+
+
+def psnr_db(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
+
+
+@contextlib.contextmanager
+def counted_unet_evals(b: int):
+    """Count the UNet evaluations that InferencePipeline's denoisers make
+    for b requests: CFG (batch 2b) or cond-only (b), key (the encoder runs)
+    or propagated (an encoder cache is read)."""
+    inference = importlib.import_module("layoutllm_t2i_torch.pipeline.inference")
+    real = inference.unet_apply
+    counts = {"cfg": 0, "cond_only": 0, "key": 0, "propagated": 0}
+
+    def spy(params, cfg, x, *args, encoder_cache=None, **kw):
+        counts["cfg" if x.shape[0] == 2 * b else "cond_only"] += 1
+        counts["key" if encoder_cache is None else "propagated"] += 1
+        return real(params, cfg, x, *args, encoder_cache=encoder_cache, **kw)
+
+    inference.unet_apply = spy
+    try:
+        yield counts
+    finally:
+        inference.unet_apply = real
+
+
+def phase_fast(models, exact_img):
+    """The fast preset at full width on phase 4's bundle, requests and seed
+    (the same noise): a short warm-up that takes every new shape (CFG and
+    cond-only, key and propagated), then the timed generation with its
+    launches and UNet evaluations counted from 0; its images against the
+    exact path's."""
+    from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
+    from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
+
+    prompts, layouts, relations = REQUESTS
+    b = len(prompts)
+    pipe = fast_pipeline(models)
+    InferencePipeline(models, steps=4, sampler="dpm", alpha_type=(0.5, 0.0, 0.5),
+                      cfg_interval=(0.0, 0.5), encoder_cache_interval=2,
+                      vae_chunk=VAE_CHUNK).generate(prompts, layouts, relations,
+                                                    seed=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with counted_unet_evals(b) as evals:
+        t0 = time.perf_counter()
+        img = pipe.generate(prompts, layouts, relations, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    planned = unet_evaluations(pipe, b)
+    want = {"cfg": sum(e[0] == 2 * b for e in planned),
+            "cond_only": sum(e[0] == b for e in planned),
+            "key": sum(e[2] for e in planned),
+            "propagated": sum(not e[2] for e in planned)}
+    psnrs = [psnr_db(a, e) for a, e in zip(img, exact_img)]
+    finite = bool(np.isfinite(img).all())
+    launched = all(counts[kid] > 0 for kid in ("K1", "K2", "K3", "K4"))
+    ok = (img.shape == (b, 512, 512, 3) and finite
+          and float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+          and launched and evals == want and min(psnrs) >= FAST_PSNR_MIN_DB)
+    emit({"phase": "fast", "ok": ok, **fast_settings(),
+          "alpha_type": list(pipe.alpha_type), "shape": list(img.shape),
+          "min": float(img.min()), "max": float(img.max()),
+          "wall_s": wall, "img_per_s": b / wall,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "unet_evals": evals, "unet_evals_planned": want,
+          "psnr_vs_exact_db": min(psnrs), "psnr_vs_exact_db_each": psnrs,
+          "psnr_min_db": FAST_PSNR_MIN_DB, "launches": counts})
+    if not ok:
+        raise SmokeFailure("fast: an image is off (shape, range, finite), a "
+                           "kernel of K1-K4 did not launch, the UNet "
+                           "evaluations differ from the tables, or "
+                           f"psnr_vs_exact_db < {FAST_PSNR_MIN_DB}")
+    return counts, pipe
+
+
+def png_pixels(png: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all use filter
+    0, as the port's writer stores them (serving/server.py); decoded here
+    with zlib, every chunk's CRC checked."""
+    import struct
+    import zlib
+
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise SmokeFailure("serve: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(png):
+        n, kind = struct.unpack(">I4s", png[pos:pos + 8])
+        data = png[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", png[pos + 8 + n:pos + 12 + n])
+        if crc != zlib.crc32(kind + data) & 0xFFFFFFFF:
+            raise SmokeFailure(f"serve: bad CRC in the PNG's {kind!r} chunk")
+        pos += 12 + n
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat += data
+        elif kind == b"IEND":
+            break
+    w, h, depth, colour, _, _, interlace = head
+    if (depth, colour, interlace) != (8, 2, 0):
+        raise SmokeFailure(f"serve: not 8-bit RGB without interlace: {head}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise SmokeFailure("serve: a PNG row uses a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def http_json(conn, method: str, path: str, body=None):
+    conn.request(method, path, body=None if body is None else json.dumps(body))
+    r = conn.getresponse()
+    return r.status, json.loads(r.read())
+
+
+def phase_serve(pipe):
+    """GenerationServer on 127.0.0.1 with the fast pipeline at batch 2:
+    /healthz after the warm-up, then three concurrent POSTs (one full
+    batch, one padded). Checks the PNGs, /metrics, the padded request
+    against pipe.generate on the same padded batch byte for byte, and the
+    batched requests against the same, alone (per-request seeds)."""
+    import http.client
+    import threading
+
+    from layoutllm_t2i_torch.serving.server import GenerationServer, _png_bytes
+
+    srv = GenerationServer(pipe, batch_size=SERVE_BATCH,
+                           max_delay_ms=SERVE_DELAY_MS, host="127.0.0.1",
+                           port=0, warmup=True)
+    srv.start_background()
+    t0 = time.perf_counter()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
+        while http_json(conn, "GET", "/healthz")[0] != 200:
+            if time.perf_counter() - t0 > 600:
+                raise SmokeFailure("serve: /healthz not 200 after 600 s")
+            time.sleep(0.1)
+        warm_s = time.perf_counter() - t0
+        http_json(conn, "POST", "/metrics/reset")
+        replies = {}
+
+        def post(i, prompt, box, phrase, relation, seed):
+            c = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
+            c.request("POST", "/generate", body=json.dumps({
+                "prompt": prompt, "layout": [{"phrase": phrase, "box": box}],
+                "relations": [relation], "seed": seed}))
+            r = c.getresponse()
+            replies[i] = (r.status, r.getheader("Content-Type"), r.read(),
+                          time.perf_counter())
+            c.close()
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i, *req))
+                   for i, req in enumerate(SERVE_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        serve_s = time.perf_counter() - t1
+        metrics = http_json(conn, "GET", "/metrics")[1]
+    finally:
+        srv.shutdown()
+    statuses = [replies.get(i, (None,))[0] for i in range(len(SERVE_REQUESTS))]
+    if statuses != [200] * len(SERVE_REQUESTS):
+        raise SmokeFailure(f"serve: /generate answered {statuses}")
+    pixels = [png_pixels(replies[i][2]) for i in range(len(SERVE_REQUESTS))]
+    # the one worker serves the full batch first: the last reply is the
+    # padded batch's
+    padded = max(replies, key=lambda i: replies[i][3])
+    same_bytes, psnrs, max_d = {}, {}, {}
+    for i, (prompt, box, phrase, relation, seed) in enumerate(SERVE_REQUESTS):
+        solo = pipe.generate([prompt] * SERVE_BATCH,
+                             [([box], [phrase])] * SERVE_BATCH,
+                             [[relation]] * SERVE_BATCH,
+                             seeds=[seed] * SERVE_BATCH)[0]
+        png = _png_bytes(solo)
+        same_bytes[i] = png == replies[i][2]
+        if i != padded:
+            a = pixels[i].astype(np.float64) / 255
+            e = png_pixels(png).astype(np.float64) / 255
+            psnrs[i], max_d[i] = psnr_db(a, e), float(np.abs(a - e).max())
+    want_metrics = {"requests": 3, "batches": 2, "padded_rows": 1, "errors": 0}
+    ok = (all(p.shape == (512, 512, 3) for p in pixels)
+          and all(replies[i][1] == "image/png" for i in replies)
+          and {k: metrics.get(k) for k in want_metrics} == want_metrics
+          and same_bytes[padded]
+          and min(psnrs.values()) >= SERVE_PSNR_MIN_DB)
+    emit({"phase": "serve", "ok": ok, "batch": SERVE_BATCH,
+          "warmup_s": warm_s, "serve_s": serve_s,
+          "png_bytes": [len(replies[i][2]) for i in sorted(replies)],
+          "metrics": metrics, "padded_request": padded,
+          "padded_byte_identical": same_bytes[padded],
+          "byte_identical_to_solo": same_bytes,
+          "batched_vs_alone_max_abs_diff": max(max_d.values()),
+          "batched_vs_alone_psnr_db": psnrs,
+          "psnr_min_db": SERVE_PSNR_MIN_DB})
+    if not ok:
+        raise SmokeFailure("serve: a reply is not a 512x512 RGB PNG, /metrics "
+                           "is not 3 requests, 2 batches, 1 padded row, 0 "
+                           "errors, the padded request differs from "
+                           "pipe.generate on its padded batch, or a batched "
+                           "request from itself alone")
 
 
 def profile_generation(models, label: str, profile, suffix: str) -> None:
@@ -1478,9 +1782,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="JSON",
                     help="after the checks, profile one more generation on "
-                         "each route and one more training step and write "
-                         "their per-kernel device times here and to "
-                         "JSON_int8, JSON_routes and JSON_train")
+                         "each route and of the fast preset, and one more "
+                         "training step, and write their per-kernel device "
+                         "times here and to JSON_fast, JSON_int8, "
+                         "JSON_routes and JSON_train")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1517,6 +1822,9 @@ def main(argv=None) -> int:
                     route=route)
                 for suffix, route in (("", DEFAULT), ("-int8", INT8),
                                       ("-routes", SPLIT))}
+            gen_paths["fast"] = generation_calls(
+                unet_cfg, vae_cfg, clip_cfg, tok_len, REQUESTS, VAE_CHUNK,
+                evals=unet_evaluations(fast_tables_pipeline(), len(REQUESTS[0])))
             summary, k5_pair = phase_kernels(kernel_cases({
                 **gen_paths,
                 "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
@@ -1528,6 +1836,14 @@ def main(argv=None) -> int:
             phase_unet(models)
             gen_counts, dense_img = phase_generate(models)
             profile_generation(models, "profile", args.profile, "")
+            fast_counts, fast_pipe = phase_fast(models, dense_img)
+            if args.profile:
+                profile_device(lambda: fast_pipe.generate(*REQUESTS, seed=0),
+                               "profile-fast",
+                               os.path.splitext(args.profile)[0] + "_fast.json",
+                               steps=fast_pipe.steps)
+            phase_serve(fast_pipe)
+            del fast_pipe
             int8_counts = phase_int8(models, dense_img, args.profile)
             routes_counts = phase_routes(models, args.profile)
             del models, dense_img
@@ -1548,13 +1864,14 @@ def main(argv=None) -> int:
         return 1
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
-    # each run launches its path's kernels: the generation K1-K4, the int8
-    # generation K7, the split routes K6, K8a and K8b, training K1-K5b; the
-    # line adds the four runs
-    runs = {"generate": gen_counts, "int8": int8_counts,
+    # each run launches its path's kernels: the exact and the fast
+    # generation K1-K4, the int8 generation K7, the split routes K6, K8a and
+    # K8b, training K1-K5b; the line adds the five runs
+    runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
             "routes": routes_counts, "train": train_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
-    expected = {"generate": ("K1", "K2", "K3", "K4"), "int8": ("K7",),
+    expected = {"generate": ("K1", "K2", "K3", "K4"),
+                "fast": ("K1", "K2", "K3", "K4"), "int8": ("K7",),
                 "routes": ("K6", "K8a", "K8b"),
                 "train": ("K1", "K2", "K3", "K4", "K5a", "K5b")}
     missing = [f"{kid} ({path})" for path, kids in expected.items()

@@ -1,9 +1,11 @@
 """Time K2 on the card along every plan it can take at a few shapes.
 
 Run from the repository root on a machine with one H100:
-  python3 layoutllm_t2i_torch/cli/group_norm_sweep.py
+  python3 layoutllm_t2i_torch/cli/group_norm_sweep.py [--fast]
 ``kernels/group_norm.py plan_group_norm`` picks one plan per (N, HW, C, G).
-This script forces, at each shape below (G = 32, SiLU on), every on-chip
+This script forces, at each shape below (G = 32, SiLU on; with ``--fast``
+the UNet levels at N = 2 that the fast preset's cond-only steps give K2
+instead), every on-chip
 plan (each slab of at most 640 channels, each portable cluster of 1-8
 blocks whose rows fit shared memory) and the streaming plan aimed at 1, 2
 (the shipped aim) and 4 blocks an SM, checks each output against the plain
@@ -26,6 +28,11 @@ SHAPES = ((4, 4096, 320), (4, 4096, 640), (4, 4096, 960), (4, 1024, 640),
           (4, 1024, 1280), (4, 256, 1280), (4, 256, 2560), (4, 64, 1280),
           (8, 4096, 960), (8, 1024, 640), (8, 256, 1920), (2, 16384, 512),
           (2, 65536, 256), (2, 262144, 128))
+# the fast preset's cond-only steps: the UNet's levels at batch 2
+FAST_SHAPES = ((2, 4096, 320), (2, 4096, 640), (2, 4096, 960), (2, 1024, 320),
+               (2, 1024, 640), (2, 1024, 960), (2, 1024, 1280), (2, 1024, 1920),
+               (2, 256, 640), (2, 256, 1280), (2, 256, 1920), (2, 256, 2560),
+               (2, 64, 1280), (2, 64, 2560))
 GROUPS = 32
 WAVES = (1, 2, 4)
 
@@ -66,7 +73,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     ok = True
-    for n, hw, c in SHAPES:
+    for n, hw, c in FAST_SHAPES if "--fast" in sys.argv[1:] else SHAPES:
         x = (torch.randn(n, hw, c, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
         w = (torch.randn(c, generator=gen, device=dev) * 0.5 + 1).to(torch.bfloat16)
         b = (torch.randn(c, generator=gen, device=dev) * 0.5).to(torch.bfloat16)

@@ -8,9 +8,11 @@ On the CPU, with tiny random models:
   python -m layoutllm_t2i_torch.cli.train_diffusion --small --synthetic \\
       --device cpu --batch_size 2 --total_iters 3 --save_every_iters 2 \\
       --warmup_steps 1
-The flags are the JAX CLI's, plus ``--device``. Not ported yet, and refused
-with NotImplementedError naming the ROADMAP.md item: ``--coco_root``,
-``--ckpt_path``, ``--multihost``, ``--zero1`` and ``--enable_previews``.
+The flags are the JAX CLI's, plus ``--device``. ``--ckpt_path`` starts
+from a reference GLIGEN .pth (its embedded config sets the geometry, so it
+takes the place of ``--small``'s models). Not ported yet, and refused with
+NotImplementedError naming the ROADMAP.md item: ``--coco_root``,
+``--multihost``, ``--zero1`` and ``--enable_previews``.
 """
 from __future__ import annotations
 
@@ -134,7 +136,8 @@ def main(argv=None):
         accum_steps=args.accum_steps, zero1_opt_state=args.zero1,
         async_ckpt=not args.sync_ckpt,
     )
-    models = small_models(args.device) if args.small else None
+    models = (small_models(args.device) if args.small and not args.ckpt_path
+              else None)
     image_size = 16 if args.small else args.image_size  # small: f2 VAE, latent 8
     dataset = synthetic_layout_batches(cfg.batch_size, image_size, cfg.max_boxes)
     trainer = DiffusionTrainer(cfg, dataset, models=models, device=args.device)

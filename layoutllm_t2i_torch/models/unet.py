@@ -197,9 +197,19 @@ def unet_apply(
     fuser_scale: float = 1.0,
     objs: Optional[torch.Tensor] = None,  # precomputed grounding tokens
     skip_gated: bool = False,        # fuser_scale == 0 for this step
+    encoder_cache: Optional[dict] = None,     # propagated-step reuse
+    return_encoder_cache: bool = False,
 ):
     """One eps-prediction forward (openaimodel.py:413-459). Returns
-    (B, out_channels, H, W) channels_last."""
+    (B, out_channels, H, W) channels_last.
+
+    Encoder propagation ("Faster Diffusion", arXiv:2312.09608; opt-in, no
+    reference counterpart): ``return_encoder_cache=True`` also returns
+    ``{"hs": tuple, "mid_in": h}``, the skip features and the middle
+    block's input; ``encoder_cache`` (the same structure) skips
+    ``input_blocks`` entirely, the first conv included, and runs the
+    middle block and the decoder on the cached features. Mutually
+    exclusive."""
     if skip_gated:
         # grounding tokens feed only the gated fusers: with those elided,
         # position_net is dead compute too
@@ -219,19 +229,27 @@ def unet_apply(
             fuser_scale, cfg.transformer_depth,
             use_rela=cfg.use_relation_attention, skip_gated=skip_gated)
 
-    h = x
-    hs = []
-    for idx, (kind, _ci, _co, _ds) in enumerate(input_block_specs(cfg)):
-        blk = params["input_blocks"][str(idx)]
-        if kind == "conv":
-            h = nn.conv2d(blk["0"], h, padding=1)
-        elif kind == "down":
-            h = downsample(blk["0"], h)
-        else:
-            h = res_block(blk["0"], h, emb)
-            if kind == "res_st":
-                h = run_st(blk["1"], h)
-        hs.append(h)
+    if encoder_cache is not None:
+        if return_encoder_cache:
+            raise ValueError("encoder_cache and return_encoder_cache are "
+                             "mutually exclusive")
+        hs = list(encoder_cache["hs"])
+        h = encoder_cache["mid_in"]
+    else:
+        h = x
+        hs = []
+        for idx, (kind, _ci, _co, _ds) in enumerate(input_block_specs(cfg)):
+            blk = params["input_blocks"][str(idx)]
+            if kind == "conv":
+                h = nn.conv2d(blk["0"], h, padding=1)
+            elif kind == "down":
+                h = downsample(blk["0"], h)
+            else:
+                h = res_block(blk["0"], h, emb)
+                if kind == "res_st":
+                    h = run_st(blk["1"], h)
+            hs.append(h)
+    cache = {"hs": tuple(hs), "mid_in": h} if return_encoder_cache else None
 
     mid = params["middle_block"]
     h = res_block(mid["0"], h, emb)
@@ -250,4 +268,5 @@ def unet_apply(
             h = upsample(blk[str(nxt)], h)
 
     h = nn.group_norm(params["out"]["0"], h, silu=True)
-    return nn.conv2d(params["out"]["2"], h)
+    h = nn.conv2d(params["out"]["2"], h)
+    return (h, cache) if return_encoder_cache else h

@@ -2,7 +2,9 @@
 inference.py; reference GLIGEN interface.py).
 
 CLIP text encode -> PositionNet grounding tokens (once, outside the step
-loop) -> PLMS over a doubled-batch CFG denoiser -> VAE decode. Host code
+loop) -> PLMS, DDIM or DPM-Solver++ over a doubled-batch CFG denoiser ->
+VAE decode; the guidance interval and the encoder cache are opt-in
+(pipeline/presets.py bundles them as the fast preset). Host code
 builds fixed-shape (max_objs=30, max_relas) tensors from the ragged layout,
 mirroring interface.py:157-290. Public tensors keep the JAX package's
 shapes: noise (B, 64, 64, 4), images (B, 512, 512, 3) in [0, 1].
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, default_dtype, resolve_device
-from ..diffusion.samplers import StepTables, make_step_tables, plms_sample
+from ..diffusion.samplers import (StepTables, ddim_sample, dpm_sample,
+                                  make_step_tables, plms_sample)
 from ..models.clip_text import CLIPTextConfig, clip_text_apply
 from ..models.position_net import position_net
 from ..models.unet import UNetConfig, unet_apply
@@ -115,17 +118,48 @@ def precompute_grounding_tokens(models: GligenModels, unet_params, cond,
     return torch.cat([objs_c, objs_u])
 
 
-def make_cfg_denoiser(models: GligenModels, guidance_scale: float):
+def parse_cfg_interval(spec) -> Optional[Tuple[float, float]]:
+    """A guidance interval: "LO,HI" or a 2-sequence of step fractions,
+    0 <= LO < HI; None for None or "". Shared by every CLI so the
+    validation lives in one place."""
+    if spec is None or spec == "":
+        return None
+    parts = spec.split(",") if isinstance(spec, str) else list(spec)
+    try:
+        vals = tuple(float(v) for v in parts)
+    except (TypeError, ValueError):
+        raise ValueError(f"cfg_interval: want 'LO,HI' fractions, got {spec!r}")
+    if len(vals) != 2:
+        raise ValueError(f"cfg_interval: want exactly 2 values, got {spec!r}")
+    lo, hi = vals
+    if not (0.0 <= lo < hi):
+        raise ValueError(
+            f"cfg_interval: need 0 <= LO < HI (got {lo}, {hi}); a reversed "
+            "interval would silently disable guidance everywhere")
+    return vals
+
+
+def make_cfg_denoiser(models: GligenModels, guidance_scale: float,
+                      cfg_override: Optional[bool] = None):
     """Returns denoise(params, sd_conv, cond, x, t, fuser_scale, use_sd,
-    skip_gated=False) with classifier-free guidance as one doubled batch
-    (the reference issues two UNet calls, plms.py:115-124). x is the
-    (B, 4, h, w) channels_last f32 latent; the result is f32 eps."""
+    skip_gated=False, cache=None, is_key=None) with classifier-free
+    guidance as one doubled batch (the reference issues two UNet calls,
+    plms.py:115-124). x is the (B, 4, h, w) channels_last f32 latent; the
+    result is f32 eps.
+
+    ``cfg_override=False`` forces the cond-only batch whatever the scale:
+    the guidance interval runs the steps outside it through this variant.
+
+    Encoder-propagation mode (``is_key`` not None) returns (eps, cache): a
+    key step runs the full UNet and returns its encoder cache; any other
+    step runs the middle block and the decoder on ``cache``, which must
+    come from a key step at the same batch."""
     cfg = models.unet_cfg
     dtype = models.compute_dtype
-    use_cfg = guidance_scale != 1.0
+    use_cfg = (guidance_scale != 1.0) if cfg_override is None else cfg_override
 
     def denoise(params, sd_conv, cond, x, t, fuser_scale: float, use_sd: bool,
-                skip_gated: bool = False):
+                skip_gated: bool = False, cache=None, is_key=None):
         if sd_conv is not None and use_sd:
             params = override_subtree(params, ("input_blocks", "0", "0"), {
                 "weight": sd_conv["weight"].to(dtype),
@@ -148,36 +182,78 @@ def make_cfg_denoiser(models: GligenModels, guidance_scale: float):
             boxes, masks = cond["boxes"], cond["masks"]
             pos = cond["phrase_embeddings"].to(dtype)
             rel = cond["relations"].to(dtype)
-        eps = unet_apply(params, cfg, x_in, t_in, ctx, boxes, masks, pos, rel,
-                         fuser_scale=fuser_scale, objs=cond.get("objs"),
-                         skip_gated=skip_gated).float()
-        if not use_cfg:
-            return eps
-        e_cond, e_uncond = eps.chunk(2)
-        return e_uncond + guidance_scale * (e_cond - e_uncond)
+        objs = cond.get("objs")
+        if objs is not None and not use_cfg and objs.shape[0] == 2 * xm.shape[0]:
+            # tokens precomputed at the CFG layout ([cond; null]) for the
+            # cond-only variant: keep the cond half
+            objs = objs[: xm.shape[0]]
+
+        def call_unet(enc_cache, return_cache):
+            return unet_apply(params, cfg, x_in, t_in, ctx, boxes, masks, pos,
+                              rel, fuser_scale=fuser_scale, objs=objs,
+                              skip_gated=skip_gated, encoder_cache=enc_cache,
+                              return_encoder_cache=return_cache)
+
+        def combine(eps):
+            eps = eps.float()
+            if not use_cfg:
+                return eps
+            e_cond, e_uncond = eps.chunk(2)
+            return e_uncond + guidance_scale * (e_cond - e_uncond)
+
+        if is_key is None:
+            return combine(call_unet(None, False))
+        if is_key:
+            eps, new_cache = call_unet(None, True)
+            return combine(eps), new_cache
+        if cache is None or cache["mid_in"].shape[0] != x_in.shape[0]:
+            raise RuntimeError(
+                "a propagated step needs the encoder cache of a key step at "
+                f"batch {x_in.shape[0]}, found "
+                + ("none" if cache is None else
+                   f"batch {cache['mid_in'].shape[0]}"))
+        return combine(call_unet(cache, False)), cache
 
     return denoise
 
 
+SAMPLERS = {"plms": plms_sample, "ddim": ddim_sample, "dpm": dpm_sample}
+
+
 class InferencePipeline:
-    """Text + layout -> image sampler (exact configuration: PLMS)."""
+    """Text + layout -> image sampler: PLMS (the exact configuration), DDIM
+    or DPM-Solver++(2M), with the opt-in guidance interval and encoder
+    cache."""
 
     def __init__(self, models: GligenModels, steps: int = 50,
                  sampler: str = "plms", guidance_scale: float = 7.5,
-                 alpha_type=(0.3, 0.0, 0.7), vae_chunk: Optional[int] = None):
-        if sampler != "plms":
-            raise NotImplementedError(
-                f"sampler {sampler!r}: only 'plms' is ported so far")
+                 alpha_type=(0.3, 0.0, 0.7), vae_chunk: Optional[int] = None,
+                 eta: float = 0.0,
+                 encoder_cache_interval: Optional[int] = None,
+                 cfg_interval=None):
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler {sampler!r}: want one of {sorted(SAMPLERS)}")
         self.models = models
         self.steps = steps
         self.sampler = sampler
         self.guidance_scale = guidance_scale
         self.alpha_type = tuple(alpha_type) if alpha_type is not None else None
+        self.eta = eta
         # decode the VAE in batch chunks: the 512^2 decode is the pipeline's
         # peak-memory site
         self.vae_chunk = vae_chunk
+        # encoder propagation (arXiv:2312.09608, approximate, opt-in): the
+        # UNet encoder runs every Nth step, its cached features reused in
+        # between; None, 0 or 1 = exact
+        self.encoder_cache_interval = (
+            None if not encoder_cache_interval or encoder_cache_interval <= 1
+            else int(encoder_cache_interval))
+        # guidance interval (arXiv:2404.07724): CFG only on the steps whose
+        # fraction of the sequence lies in [lo, hi]; outside, the cond-only
+        # denoiser at half the batch. None = CFG on every step
+        self.cfg_interval = parse_cfg_interval(cfg_interval)
         self.tables: StepTables = make_step_tables(
-            models.schedule, steps, alpha_type=self.alpha_type)
+            models.schedule, steps, eta=eta, alpha_type=self.alpha_type)
 
     # -- text encode ------------------------------------------------------
 
@@ -244,26 +320,65 @@ class InferencePipeline:
 
     # -- sampling ---------------------------------------------------------
 
+    def _guidance_interval_on(self) -> bool:
+        return self.cfg_interval is not None and self.guidance_scale != 1.0
+
+    def _cfg_on_steps(self) -> np.ndarray:
+        """(S,) bool: True where CFG applies (guidance-interval mode)."""
+        lo, hi = self.cfg_interval
+        s = len(self.tables.t)
+        frac = np.arange(s) / max(s - 1, 1)
+        return (frac >= lo) & (frac <= hi)
+
+    def _key_steps(self) -> np.ndarray:
+        """(S,) bool for encoder propagation: a key (full) forward every Nth
+        step within each constant-(fuser_scale == 0, cfg_on) segment.
+        Segment starts are key, so a propagated step never reads a cache
+        made under another first conv, another skip_gated body or another
+        batch."""
+        zero = np.asarray(self.tables.fuser_scale) == 0
+        cfg_on = (self._cfg_on_steps() if self._guidance_interval_on()
+                  else np.ones(len(zero), dtype=bool))
+        keys = np.zeros(len(zero), dtype=bool)
+        seg_start = 0
+        for i in range(len(zero)):
+            if i and (zero[i], cfg_on[i]) != (zero[i - 1], cfg_on[i - 1]):
+                seg_start = i
+            keys[i] = (i - seg_start) % self.encoder_cache_interval == 0
+        return keys
+
     @torch.no_grad()
-    def run_sampler(self, cond: dict, noise) -> torch.Tensor:
-        """Noise (B, h, w, 4) -> final latent (B, h, w, 4) f32."""
+    def run_sampler(self, cond: dict, noise,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Noise (B, h, w, 4) -> final latent (B, h, w, 4) f32. ``generator``
+        draws DDIM's step noise where eta > 0."""
         m = self.models
-        denoise_core = make_cfg_denoiser(m, self.guidance_scale)
         cond = dict(cond)
         cond["objs"] = precompute_grounding_tokens(
             m, m.unet_params, cond, self.guidance_scale != 1.0)
 
-        def denoise(x, t, fscale, use_sd):
-            return denoise_core(m.unet_params, m.sd_first_conv, cond, x, t,
-                                fscale, use_sd)
+        def bind(core, skip_gated):
+            def denoise(x, t, fscale, use_sd, **kw):
+                return core(m.unet_params, m.sd_first_conv, cond, x, t,
+                            fscale, use_sd, skip_gated=skip_gated, **kw)
+            return denoise
 
-        def denoise_skip(x, t, fscale, use_sd):
-            # only called where fuser_scale == 0 (see _alpha_segments)
-            return denoise_core(m.unet_params, m.sd_first_conv, cond, x, t,
-                                fscale, use_sd, skip_gated=True)
-
+        core = make_cfg_denoiser(m, self.guidance_scale)
+        # the skip variant is only called where fuser_scale == 0
+        # (samplers._alpha_segments)
+        kw = {"denoise_skip_fn": bind(core, True)}
+        if self._guidance_interval_on():
+            nc_core = make_cfg_denoiser(m, self.guidance_scale,
+                                        cfg_override=False)
+            kw.update(denoise_nocfg_fn=bind(nc_core, False),
+                      denoise_nocfg_skip_fn=bind(nc_core, True),
+                      cfg_on=self._cfg_on_steps())
+        if self.encoder_cache_interval:
+            kw["key_steps"] = self._key_steps()
+        if self.sampler == "ddim":
+            kw["generator"] = generator
         x0 = nhwc_to_nchw(torch.as_tensor(noise, dtype=torch.float32).to(m.device))
-        z = plms_sample(denoise, self.tables, x0, denoise_skip_fn=denoise_skip)
+        z = SAMPLERS[self.sampler](bind(core, False), self.tables, x0, **kw)
         return nchw_to_nhwc(z)
 
     @torch.no_grad()
@@ -277,25 +392,46 @@ class InferencePipeline:
         img = torch.clamp(img.float(), -1.0, 1.0) * 0.5 + 0.5
         return nchw_to_nhwc(img)
 
-    def sample_latents(self, cond: dict, noise) -> torch.Tensor:
+    def sample_latents(self, cond: dict, noise,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Conditioning + noise -> decoded images (B, 512, 512, 3) in [0, 1],
         as the JAX package's sample_latents returns."""
-        return self.decode(self.run_sampler(cond, noise))
+        return self.decode(self.run_sampler(cond, noise, generator))
 
-    def _batch_noise(self, b: int, seed: int) -> torch.Tensor:
+    def _batch_noise(self, b: int, seed: int,
+                     seeds: Optional[Sequence[int]] = None):
+        """(noise (b, h, w, c) f32, the generator that goes on to draw any
+        step noise). With per-row ``seeds`` each row's noise comes from a
+        generator seeded with that row's seed alone, so a request gives the
+        same image whatever batch it is served in (serving/batcher.py; for
+        the deterministic samplers: DDIM with eta > 0 draws its step noise
+        batch-wide). Default: one batch draw from ``seed``."""
         m = self.models
-        gen = torch.Generator(device=m.device)
-        gen.manual_seed(seed)
         size = m.unet_cfg.image_size
-        return torch.randn((b, size, size, m.unet_cfg.in_channels),
-                           generator=gen, device=m.device, dtype=torch.float32)
+        shape = (size, size, m.unet_cfg.in_channels)
+
+        def drawn(s, rows):
+            gen = torch.Generator(device=m.device)
+            gen.manual_seed(int(s))
+            return gen, torch.randn(rows + shape, generator=gen,
+                                    device=m.device, dtype=torch.float32)
+
+        if seeds is None:
+            gen, noise = drawn(seed, (b,))
+            return noise, gen
+        if len(seeds) != b:
+            raise ValueError(f"seeds: want {b} entries, got {len(seeds)}")
+        gens, rows = zip(*(drawn(s, ()) for s in seeds))
+        return torch.stack(rows), gens[0]
 
     def generate(self, prompts: List[str], layouts, relation_texts=None,
-                 seed: int = 42) -> np.ndarray:
-        """Returns (B, 512, 512, 3) float images in [0, 1]."""
+                 seed: int = 42,
+                 seeds: Optional[Sequence[int]] = None) -> np.ndarray:
+        """Returns (B, 512, 512, 3) float images in [0, 1]. ``seeds``: see
+        _batch_noise (per-request reproducibility for serving batches)."""
         cond = self.build_cond(prompts, layouts, relation_texts)
-        img = self.sample_latents(cond, self._batch_noise(len(prompts), seed))
-        return img.cpu().numpy()
+        noise, gen = self._batch_noise(len(prompts), seed, seeds)
+        return self.sample_latents(cond, noise, gen).cpu().numpy()
 
 
 def images_to_uint8(images: np.ndarray) -> np.ndarray:

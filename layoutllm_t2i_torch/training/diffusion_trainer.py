@@ -39,7 +39,7 @@ from ..models.clip_text import clip_text_apply
 from ..models.vae import encode as vae_encode
 from ..ops.nn import nhwc_to_nchw
 from ..pipeline.inference import GligenModels, encode_texts_bucketed
-from ..pipeline.loaders import random_models
+from ..pipeline.loaders import load_models_from_gligen_ckpt, random_models
 from ..pipeline.scene_graph import relation_texts_for_training
 from ..utils.logging import Logger, MetricsWriter
 from .train_step import TrainStep, TrainStepConfig
@@ -62,7 +62,7 @@ class TrainerConfig:
     max_boxes: int = 30
     max_relations: int = 10
     seed: int = 123
-    ckpt_path: Optional[str] = None   # GLIGEN .pth to start from (not ported)
+    ckpt_path: Optional[str] = None   # GLIGEN .pth to start from
     # periodic PLMS sample grid at every save (not ported: must stay True)
     disable_inference_in_training: bool = True
     preview_steps: int = 50
@@ -87,10 +87,6 @@ def check_supported(config: TrainerConfig) -> None:
         raise NotImplementedError(
             "more than one device and ZeRO-1 are not ported (ROADMAP.md "
             "Queue 1 item 16, parallel/)")
-    if config.ckpt_path:
-        raise NotImplementedError(
-            "starting from a GLIGEN .pth waits for a checkpoint in the "
-            "repository (ROADMAP.md Queue 1 item 1, the .pth loader)")
     if not config.disable_inference_in_training:
         raise NotImplementedError(
             "sample previews during training are not ported (ROADMAP.md "
@@ -115,8 +111,10 @@ class DiffusionTrainer:
         [-1, 1], caption (list[str]), boxes (B, MO, 4) xyxy, masks (B, MO),
         labels (list[list[str]]).
 
-        models: a GligenModels bundle (its device is used), or None to build
-        random SD-1.4 weights from seed 0 on ``device`` (None: the card)."""
+        models: a GligenModels bundle (its device is used), or None to load
+        ``config.ckpt_path`` (a reference GLIGEN .pth) or, without one, to
+        build random SD-1.4 weights from seed 0, on ``device`` (None: the
+        card)."""
         check_supported(config)
         if config.batch_size % config.accum_steps != 0:
             raise ValueError(
@@ -124,7 +122,10 @@ class DiffusionTrainer:
                 f"accum_steps {config.accum_steps} microbatches")
         self.config = config
         self.dataset = dataset
-        if models is None:
+        if models is None and config.ckpt_path:
+            models = load_models_from_gligen_ckpt(
+                config.ckpt_path, device=device, dtype=torch.float32)
+        elif models is None:
             models = random_models(small=False, device=device,
                                    dtype=torch.float32, seed=0)
         self.device = models.device

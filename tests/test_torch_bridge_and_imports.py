@@ -165,6 +165,11 @@ TRAINING_MODULES = (
     "pipeline.scene_graph", "training.diffusion_trainer",
     "training.train_step", "utils.logging",
 )
+# the fast preset and the serving path, with the .pth loader behind it
+SERVING_MODULES = (
+    "checkpoint.convert", "checkpoint.tools", "cli.serve", "pipeline.presets",
+    "serving.batcher", "serving.server",
+)
 
 
 def test_every_port_module_imports_without_jax():
@@ -174,6 +179,7 @@ def test_every_port_module_imports_without_jax():
         .removesuffix(".__init__")
         for f in (REPO / "layoutllm_t2i_torch").rglob("*.py"))
     assert {f"layoutllm_t2i_torch.{m}" for m in TRAINING_MODULES} <= set(modules)
+    assert {f"layoutllm_t2i_torch.{m}" for m in SERVING_MODULES} <= set(modules)
     # a None entry in sys.modules makes any import of these names raise
     code = ("import importlib, sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'layoutllm_t2i_tpu'):\n"

@@ -24,7 +24,9 @@ of the 32-deep k step, and the gradients of the K6, K8a and K8b Functions;
 for K4's, K6's, K8a's and K8b's TMA and wgmma design (gemm_tiles.cuh;
 K8b with and without its bias), ragged M, N and K, the grid-fill shape,
 operands fenced by NaN and Inf, outputs and scratch pre-filled with NaN,
-bitwise repeatability and misaligned operands.
+bitwise repeatability and misaligned operands; and one generation of the
+fast preset (DPM, guidance interval, encoder cache) at small geometry
+through K1-K4 against the plain route.
 Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -36,6 +38,7 @@ from ``layoutllm_t2i_torch/kernels/tolerance.py``.
 import importlib
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -998,3 +1001,67 @@ def test_wgmma_gemm_misaligned_operand_raises(dev, gen, kid, operand):
     with pytest.raises(ValueError, match="aligned"):
         fn(*args)
     assert fn.launches == before
+
+
+def _card_models(dev):
+    """A small bundle on the card in bf16 whose 32^2 level routes to K1
+    (1,024 visual tokens, heads of d 40, an instantiated width), K4
+    (1,024-row FF sites at width 160), K2 and K3: the fast path's kernels
+    at small geometry. The VAE's middle block is 512 channels wide, as at
+    full width (K1 at d 512)."""
+    from layoutllm_t2i_torch.models.clip_text import CLIPTextConfig, init_clip_text_params
+    from layoutllm_t2i_torch.models.clip_tokenizer import HashTokenizer
+    from layoutllm_t2i_torch.models.initializers import Init
+    from layoutllm_t2i_torch.models.unet import UNetConfig, init_unet_params
+    from layoutllm_t2i_torch.models.vae import VAEConfig, init_vae_params
+    from layoutllm_t2i_torch.ops.schedules import make_ddpm_schedule
+    from layoutllm_t2i_torch.pipeline.inference import GligenModels
+    from layoutllm_t2i_torch.utils.trees import ParamTree
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    ini = Init(g, dev, torch.bfloat16)
+    unet_cfg = UNetConfig(image_size=32, model_channels=160, num_res_blocks=1,
+                          attention_resolutions=(2, 1), channel_mult=(1, 2),
+                          num_heads=4, context_dim=64, grounding_in_dim=64,
+                          grounding_out_dim=64)
+    vae_cfg = VAEConfig(ch=128, ch_mult=(1, 4), num_res_blocks=1)
+    clip_cfg = CLIPTextConfig(num_layers=1, hidden_size=64, num_heads=2,
+                              intermediate_size=128, vocab_size=512)
+    unet = ParamTree(init_unet_params(ini, unet_cfg))
+    for name, p in unet.named_parameters():
+        if name.endswith(("alpha_attn", "alpha_dense")):
+            p.data.fill_(0.5)  # random init leaves the fuser gates closed
+    return GligenModels(
+        unet_cfg=unet_cfg, unet_params=unet,
+        vae_cfg=vae_cfg, vae_params=ParamTree(init_vae_params(ini, vae_cfg)),
+        clip_cfg=clip_cfg, clip_params=ParamTree(init_clip_text_params(ini, clip_cfg)),
+        schedule=make_ddpm_schedule("linear", 1000, 0.00085, 0.012),
+        tokenizer=HashTokenizer(max_length=8, vocab_size=512),
+        compute_dtype=torch.bfloat16, device=dev)
+
+
+def test_fast_generation_kernels_against_plain_route(dev):
+    """One fast-preset generation (DPM, CFG on (0, 0.75), encoder cache 2)
+    at small geometry through K1-K4, against the same through the plain
+    versions on the card: PSNR >= 30 dB, chip_smoke's fast-path bound."""
+    from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
+
+    pipe = InferencePipeline(_card_models(dev), steps=8, sampler="dpm",
+                             alpha_type=(0.3, 0.0, 0.7), cfg_interval=(0.0, 0.75),
+                             encoder_cache_interval=2)
+    requests = (["a dog on the grass", "a cat on a chair"],
+                [([[0.1, 0.4, 0.5, 0.9]], ["a dog"]),
+                 ([[0.2, 0.1, 0.6, 0.6], [0.1, 0.4, 0.7, 0.95]], ["a cat", "a chair"])],
+                [["dog on grass"], ["cat on chair"]])
+    K.reset_launches()
+    img = pipe.generate(*requests, seeds=[3, 4])
+    counts = K.launch_counts()
+    with K.plain_route():
+        ref = pipe.generate(*requests, seeds=[3, 4])
+    assert K.launch_counts() == counts
+    assert all(counts[kid] > 0 for kid in ("K1", "K2", "K3", "K4")), counts
+    assert img.shape == (2, 64, 64, 3) and np.isfinite(img).all()
+    for a, b in zip(img, ref):
+        mse = float(np.mean((a - b) ** 2))
+        assert mse == 0 or 10 * np.log10(1.0 / mse) >= 30.0, mse

@@ -142,6 +142,52 @@ def test_generation_walk_matches_the_calls(recorded):
     assert set(recorded) == set(want)
 
 
+def test_fast_generation_walk_matches_the_calls(recorded):
+    """The fast preset (DPM-15, CFG on (0, 0.75), encoder cache 2): CFG
+    steps at batch 4, cond-only steps at batch 2, the gated fusers on the
+    first steps only, propagated steps without the encoder's calls."""
+    models = _models()
+    pipe = cs.fast_pipeline(models, vae_chunk=1)
+    with torch.no_grad():
+        pipe.generate(*cs.REQUESTS, seed=0)
+    evals = cs.unet_evaluations(pipe, 2)
+    assert {b for b, _, _ in evals} == {2, 4}
+    assert {(gated, encoder) for _, gated, encoder in evals} == {
+        (True, True), (True, False), (False, True), (False, False)}
+    want = cs.generation_calls(models.unet_cfg, models.vae_cfg, models.clip_cfg,
+                               TOK_LEN, cs.REQUESTS, vae_chunk=1, evals=evals)
+    assert set(recorded) == set(want)
+    # the walk from the tables alone, as phase kernels takes it
+    assert cs.unet_evaluations(cs.fast_tables_pipeline(), 2) == evals
+
+
+def test_unet_walk_models_the_gated_and_encoder_skips(recorded):
+    """One UNet forward per (gated, encoder) case against its walk, as a
+    list: the skip-gated body drops the fusers' calls, a propagated step
+    the encoder's."""
+    from layoutllm_t2i_torch.pipeline.inference import make_cfg_denoiser
+
+    models = _models()
+    cond = {"context": torch.zeros(2, TOK_LEN, 32), "uc_context": torch.zeros(2, TOK_LEN, 32),
+            "boxes": torch.rand(2, 30, 4), "masks": torch.ones(2, 30),
+            "phrase_embeddings": torch.zeros(2, 30, 32),
+            "relations": torch.zeros(2, 5, 32)}
+    x, t = torch.zeros(2, 4, 32, 32), torch.full((2,), 981)
+    for cfg_on in (True, False):
+        dn = make_cfg_denoiser(models, 7.5, cfg_override=cfg_on)
+        with torch.no_grad():
+            _, cache = dn(models.unet_params, None, cond, x, t, 1.0, False,
+                          cache=None, is_key=True)
+            for gated in (True, False):
+                for encoder in (True, False):
+                    recorded.clear()
+                    dn(models.unet_params, None, cond, x, t, 1.0, False,
+                       skip_gated=not gated, cache=cache, is_key=encoder)
+                    want = cs.unet_calls(models.unet_cfg, 4 if cfg_on else 2, 30, 5,
+                                         TOK_LEN, gated=gated, encoder=encoder)
+                    assert recorded == want, (cfg_on, gated, encoder)
+
+
 def test_training_walk_matches_the_calls(recorded, tmp_path):
     cfg = TrainerConfig(output_root=str(tmp_path), name="t", batch_size=2,
                         total_iters=1, warmup_steps=0, max_boxes=30,

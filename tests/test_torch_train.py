@@ -288,7 +288,6 @@ def test_trainer_runs_resumes_and_trains_only_rela_fuse(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     for kw in (dict(num_devices=2), dict(zero1_opt_state=True),
-               dict(ckpt_path="gligen.pth"),
                dict(disable_inference_in_training=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             DiffusionTrainer(_trainer_cfg(tmp_path, **kw), iter(()),
