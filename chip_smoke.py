@@ -18,7 +18,7 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
                GEGLU GEMM) against its plain PyTorch version on the card,
                in bf16 (K7 on int8 weights), at every distinct shape that
-               phases 4-8 and 10 give it; times kernel, plain version and
+               phases 4-10 and 12 give it; times kernel, plain version and
                one PyTorch library call for the same function, beside the
                roofline bound. `ms`, `plain_ms` and `library_ms` are
                launched back to back from the host (time_ms), so a call
@@ -73,22 +73,38 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                the norm3 sites, K3 + K8b + K8a at the fusers' dense
                branch): a UNet forward against the plain route, then phase
                4's generation and its launches.
-  9. train-grad  one full-width loss backward at batch 2 (f32 master
+  9. bench     the port bench (cli/bench.py) as run with no flags, in this
+               process: random weights from seed 0, bf16, 8 requests (CFG
+               batch 16), iters 3, exact PLMS-50 then the fast preset on the
+               same noise; prints the bench's JSON line, then fails on its
+               fast_error, on fast_psnr_vs_exact_db < 30 dB, on an image not
+               finite or outside [0, 1], on an mfu outside (0, 1], or on a
+               flops_per_image other than utils/flops.py's count.
+ 10. cli       the generation CLIs at full width on the card, one request
+               each: cli/txt2img.py main with --layout and again through
+               the offline planner (a candidate JSON, a layout-cache JSON
+               and a random policy .pt written to build/), cli/
+               gligen_inference.py main with --negative_prompt, and one
+               POST to cli/demo.py's /api/generate on 127.0.0.1; every PNG
+               decodes (zlib) to 512x512 RGB with its layout's box outlines
+               in blue.
+ 11. train-grad  one full-width loss backward at batch 2 (f32 master
                weights, bf16 compute, alphas 0.5), kernel route against
                plain route: the relative L2 error of the rela_fuse
                gradients against a stated bound, which a planted fault of
                the K5 backward must exceed.
- 10. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
+ 12. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
                8, rela_fuse, AdamW, mixed precision, warmup 0, alphas 0.5;
                2 warm-up steps then 5 timed ones; s/step, images/s, peak
                memory, finite losses, every rela_fuse tensor changed and
                every frozen one bit-identical; kernel launches per step.
- 11. the `kernels` JSON line, then the card line, then the result line.
+ 13. the `kernels` JSON line, then the card line, then the result line.
      In that line `ms`, `plain_ms`, `library_ms`, `bound_ms`, `device_ms`
      and `library_device_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
-     `device_vs_library` are the ratios of those sums; `launches` adds the runs of phases 4, 5, 7, 8 and 10,
+     `device_vs_library` are the ratios of those sums; `launches` adds
+     the runs of phases 4, 5, 7-10 and 12,
      each read from counts set to 0 just before it. K5a's and K5b's
      entries carry the pair's sums (`pair`: ms, device_ms, library_ms and
      library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
@@ -103,7 +119,9 @@ training_calls): the generation at 2 requests (CFG batch 4) on each of
 its three routes (Route: the default, int8, and the split FF routes), the
 fast preset's evaluations from its step tables (unet_evaluations: CFG at
 batch 4, cond-only at batch 2, with and without the gated fusers, key
-and propagated),
+and propagated), the bench's 8 requests (exact: CFG batch 16; fast: CFG
+16 and cond-only 8), the CLIs' one request (CFG batch 2) and the
+planner's CLIP features (cli_paths),
 and a training step at batch 8 with no CFG doubling: the VAE encoder on
 512^2 images (K1 at d 512), CLIP on the captions and on the grounding
 texts, and the UNet, whose flash sites after the first relation fuser run
@@ -117,7 +135,8 @@ With `--profile OUT.json`, one more generation runs under torch.profiler
 after phase 4 and prints device time by kernel group and the device's idle
 share; OUT.json gets the per-kernel table. One more generation is profiled
 likewise after phases 5, 7 and 8 (OUT_fast.json, OUT_int8.json,
-OUT_routes.json), and one more training step after phase 10
+OUT_routes.json), one more exact generation of the bench's 8 requests
+after phase 9 (OUT_bench.json), and one more training step after phase 12
 (OUT_train.json).
 
 The script imports nothing of JAX or of the JAX package. Without a CUDA
@@ -505,23 +524,11 @@ def clip_calls(clip_cfg, rows):
 
 
 def unet_evaluations(pipe, b):
-    """(batch, gated, encoder) of every UNet evaluation that ``pipe``'s
-    sampler makes for b requests, from its own step tables: CFG steps at
-    2b and the guidance interval's cond-only steps at b; steps with
-    grounding alpha 0 without the gated fusers; the encoder cache's
-    propagated steps without the encoder. PLMS adds its Heun warm start,
-    at step 0's batch and alpha, propagated in cached mode."""
-    n = len(pipe.tables.t)
-    cfg_on = (pipe._cfg_on_steps() if pipe._guidance_interval_on()
-              else np.ones(n, dtype=bool))
-    keys = (pipe._key_steps() if pipe.encoder_cache_interval
-            else np.ones(n, dtype=bool))
-    gated = np.asarray(pipe.tables.fuser_scale) != 0
-    evals = [(2 * b if cfg_on[i] else b, bool(gated[i]), bool(keys[i]))
-             for i in range(n)]
-    if pipe.sampler == "plms":
-        evals.insert(1, evals[0][:2] + (not pipe.encoder_cache_interval,))
-    return evals
+    """(batch, gated, encoder) of every UNet evaluation of ``pipe`` for b
+    requests: utils/flops.py's, which counts the FLOPs of the same list."""
+    from layoutllm_t2i_torch.utils.flops import unet_evaluations as evals
+
+    return evals(pipe, b)
 
 
 def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
@@ -530,8 +537,8 @@ def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
     """InferencePipeline.generate: prompts and empty prompts, then every
     phrase and relation text in one batch, each padded to a power of two;
     the UNet on ``route`` at each distinct evaluation of ``evals``
-    (unet_evaluations; default the CFG-doubled full forward, which holds
-    every call of the exact path); the VAE decode in chunks."""
+    (utils/flops.py unet_evaluations; default the CFG-doubled full forward,
+    which holds every call of the exact path); the VAE decode in chunks."""
     from layoutllm_t2i_torch.utils.buckets import pow2_bucket
 
     prompts, layouts, relations = requests
@@ -1331,20 +1338,20 @@ def phase_fast(models, exact_img):
 
 def png_pixels(png: bytes) -> np.ndarray:
     """(H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all use filter
-    0, as the port's writer stores them (serving/server.py); decoded here
+    0, as the port's writer stores them (utils/images.py); decoded here
     with zlib, every chunk's CRC checked."""
     import struct
     import zlib
 
     if png[:8] != b"\x89PNG\r\n\x1a\n":
-        raise SmokeFailure("serve: not a PNG")
+        raise SmokeFailure("png: not a PNG")
     pos, idat, head = 8, b"", None
     while pos < len(png):
         n, kind = struct.unpack(">I4s", png[pos:pos + 8])
         data = png[pos + 8:pos + 8 + n]
         (crc,) = struct.unpack(">I", png[pos + 8 + n:pos + 12 + n])
         if crc != zlib.crc32(kind + data) & 0xFFFFFFFF:
-            raise SmokeFailure(f"serve: bad CRC in the PNG's {kind!r} chunk")
+            raise SmokeFailure(f"png: bad CRC in the PNG's {kind!r} chunk")
         pos += 12 + n
         if kind == b"IHDR":
             head = struct.unpack(">IIBBBBB", data)
@@ -1354,10 +1361,10 @@ def png_pixels(png: bytes) -> np.ndarray:
             break
     w, h, depth, colour, _, _, interlace = head
     if (depth, colour, interlace) != (8, 2, 0):
-        raise SmokeFailure(f"serve: not 8-bit RGB without interlace: {head}")
+        raise SmokeFailure(f"png: not 8-bit RGB without interlace: {head}")
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
     if rows[:, 0].any():
-        raise SmokeFailure("serve: a PNG row uses a filter other than 0")
+        raise SmokeFailure("png: a row uses a filter other than 0")
     return rows[:, 1:].reshape(h, w, 3)
 
 
@@ -1454,6 +1461,263 @@ def phase_serve(pipe):
                            "errors, the padded request differs from "
                            "pipe.generate on its padded batch, or a batched "
                            "request from itself alone")
+
+
+
+# phase bench: the port bench's default invocation (cli/bench.py: batch 8,
+# iters 3, exact PLMS-50 then the fast preset on the same noise)
+BENCH_BATCH = 8
+BENCH_PSNR_MIN_DB = 30.0
+
+
+def bench_requests(b: int = BENCH_BATCH):
+    """cli/bench.py's requests: its prompt, two boxes and one relation,
+    b times."""
+    from layoutllm_t2i_torch.cli import bench
+
+    return [bench.PROMPT] * b, [bench.LAYOUT] * b, [bench.RELATIONS] * b
+
+
+def bench_pipelines(models):
+    """(exact, fast) pipelines of the bench's default run on ``models``
+    (for step tables and FLOPs, a namespace with the configs will do)."""
+    from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
+
+    kw = dict(guidance_scale=7.5, alpha_type=(0.3, 0.0, 0.7),
+              vae_chunk=VAE_CHUNK)
+    return (InferencePipeline(models, steps=STEPS, sampler="plms", **kw),
+            InferencePipeline(models, **{**kw, **fast_settings()}))
+
+
+def tables_models():
+    """The full-width configs and schedule of random_models, no weights."""
+    from layoutllm_t2i_torch.models.clip_tokenizer import HashTokenizer
+    from layoutllm_t2i_torch.ops.schedules import make_ddpm_schedule
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+    unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+    return types.SimpleNamespace(
+        unet_cfg=unet_cfg, vae_cfg=vae_cfg, clip_cfg=clip_cfg, max_objs=30,
+        max_relas=5, tokenizer=HashTokenizer(max_length=clip_cfg.max_length),
+        schedule=make_ddpm_schedule("linear", 1000, 0.00085, 0.012))
+
+
+def images_ok(img, b: int) -> bool:
+    return (img.shape == (b, 512, 512, 3) and bool(np.isfinite(img).all())
+            and float(img.min()) >= 0.0 and float(img.max()) <= 1.0)
+
+
+def phase_bench(profile=None):
+    """``python -m layoutllm_t2i_torch.cli.bench`` as run with no flags, in
+    this process (random weights from seed 0, bf16, batch 8, iters 3): its
+    JSON line, then the checks. Launches counted from 0 over its runs."""
+    from layoutllm_t2i_torch.cli.bench import Bench, parse_args
+    from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
+    from layoutllm_t2i_torch.utils.flops import generation_flops
+
+    bench = Bench(parse_args([]))
+    reset_launches()
+    t0 = time.perf_counter()
+    out, images = bench.run()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    print(json.dumps(out), flush=True)
+    exact, fast = bench_pipelines(tables_models())
+    want = {mode: generation_flops(p, BENCH_BATCH)["total"] / BENCH_BATCH / 1e12
+            for mode, p in (("exact", exact), ("fast", fast))}
+    got = {"exact": out.get("flops_per_image"),
+           "fast": out.get("fast_flops_per_image")}
+    flops_ok = all(got[m] is not None and math.isclose(got[m], want[m],
+                                                       rel_tol=1e-9)
+                   for m in want)
+    mfu_ok = all(0.0 < out.get(k, 0.0) <= 1.0 for k in ("mfu", "fast_mfu"))
+    imgs_ok = (set(images) == {"exact", "fast"}
+               and all(images_ok(img, BENCH_BATCH) for img in images.values()))
+    psnr = out.get("fast_psnr_vs_exact_db", float("nan"))
+    launched = all(counts[kid] > 0 for kid in ("K1", "K2", "K3", "K4"))
+    ok = ("fast_error" not in out and psnr >= BENCH_PSNR_MIN_DB and mfu_ok
+          and imgs_ok and flops_ok and launched)
+    emit({"phase": "bench", "ok": ok, "wall_s": wall,
+          "flops_per_image_planned": want, "psnr_min_db": BENCH_PSNR_MIN_DB,
+          "images_ok": imgs_ok, "launches": counts})
+    if not ok:
+        raise SmokeFailure("bench: fast_error, fast_psnr_vs_exact_db < "
+                           f"{BENCH_PSNR_MIN_DB}, an mfu outside (0, 1], an "
+                           "image off (shape, range, finite), flops_per_image "
+                           "not utils/flops.py's, or K1-K4 not launched")
+    if profile:
+        noise = bench.make_noises(99)[:1]
+        profile_device(lambda: bench.run_all(bench.pipe, noise), "profile-bench",
+                       os.path.splitext(profile)[0] + "_bench.json",
+                       batch=BENCH_BATCH, steps=STEPS)
+    return counts
+
+
+# phase cli: the generation CLIs at full width on the card, one request each
+CLI_PROMPT = "a cat sitting on a wooden chair next to a lamp"
+CLI_LAYOUT = "cat:[0.2,0.1,0.4,0.5];wooden chair:[0.15,0.45,0.55,0.5]"
+CLI_PLANNED_PROMPT = "a dog chasing a red ball on the grass"
+CLI_CACHED_LAYOUT = [["dog", [0.1, 0.35, 0.45, 0.5]],
+                     ["red ball", [0.6, 0.65, 0.2, 0.2]]]
+# the planner's candidate pool: captions, labels, centre-format boxes
+CLI_CANDIDATES = [
+    {"captions": "a dog running on a beach", "label": ["dog"],
+     "bbox": [[0.5, 0.6, 0.4, 0.5]]},
+    {"captions": "a cat under a table", "label": ["cat", "table"],
+     "bbox": [[0.4, 0.7, 0.3, 0.3], [0.5, 0.5, 0.8, 0.6]]},
+    {"captions": "a boy throwing a ball", "label": ["boy", "ball"],
+     "bbox": [[0.4, 0.5, 0.3, 0.8], [0.8, 0.3, 0.1, 0.1]]},
+    {"captions": "two dogs playing with a frisbee",
+     "label": ["dog", "dog", "frisbee"],
+     "bbox": [[0.3, 0.6, 0.3, 0.4], [0.7, 0.6, 0.3, 0.4],
+              [0.5, 0.2, 0.1, 0.1]]},
+    {"captions": "a red car parked by a tree", "label": ["car", "tree"],
+     "bbox": [[0.4, 0.7, 0.6, 0.4], [0.8, 0.4, 0.3, 0.8]]},
+]
+
+
+def cli_paths(unet_cfg, vae_cfg, clip_cfg, tok_len) -> list:
+    """The calls of the CLIs' runs in phase cli: an exact PLMS-50
+    generation of one request (CFG batch 2) for each layout, and the
+    planner's CLIP features of the prompt and the candidates' captions."""
+    from layoutllm_t2i_torch.pipeline.inference import convert_xywh_to_ltrb
+    from layoutllm_t2i_torch.pipeline.planner import extract_prediction
+    from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_inference
+    from layoutllm_t2i_torch.utils.buckets import pow2_bucket
+
+    cached = "\n".join(f"{lab}: {box}" for lab, box in CLI_CACHED_LAYOUT)
+    calls = clip_calls(clip_cfg,
+                       pow2_bucket(1 + len(CLI_CANDIDATES)) * tok_len)
+    for prompt, spec in ((CLI_PROMPT, CLI_LAYOUT),
+                         (CLI_PLANNED_PROMPT, cached)):
+        cats, boxes = extract_prediction(spec)
+        rel = relation_texts_for_inference(prompt, 5)
+        calls += generation_calls(
+            unet_cfg, vae_cfg, clip_cfg, tok_len,
+            ([prompt], [([convert_xywh_to_ltrb(b) for b in boxes], cats)],
+             [rel]), VAE_CHUNK)
+    return calls
+
+
+def drawn_boxes_ok(pixels, spec: str) -> dict:
+    """Every pixel of the layout's box outlines (utils/boxes.py, Pillow's
+    rectangle of width 4) is blue, outside the phrase labels' cells."""
+    from layoutllm_t2i_torch.pipeline.inference import convert_xywh_to_ltrb
+    from layoutllm_t2i_torch.pipeline.planner import extract_prediction
+    from layoutllm_t2i_torch.utils import boxes as B
+
+    cats, boxes = extract_prediction(spec)
+    h, w = pixels.shape[:2]
+    outline = np.zeros((h, w), dtype=bool)
+    labels = np.zeros((h, w), dtype=bool)
+    for (x0, y0, x1, y1), cat in zip(map(convert_xywh_to_ltrb, boxes), cats):
+        outline |= B.outline_mask(h, w, (x0 * w, y0 * h, x1 * w, y1 * h))
+        lx0, ly0, lx1, ly1 = B.label_rect(int(np.floor(x0 * w)),
+                                          int(np.floor(y0 * h - B.LABEL_OFFSET)),
+                                          cat)
+        labels[max(ly0, 0):max(ly1, 0), max(lx0, 0):max(lx1, 0)] = True
+    want = outline & ~labels
+    blue = (pixels == np.array(B.BOX_COLOR, np.uint8)).all(axis=-1)
+    return {"outline_pixels": int(want.sum()),
+            "blue_on_outline": int((blue & want).sum()),
+            "ok": bool(want.any() and blue[want].all())}
+
+
+def phase_cli(work_dir: str):
+    """cli/txt2img.py main with --layout and again through the offline
+    planner (a candidate JSON, a layout-cache JSON and a random policy .pt
+    written here), cli/gligen_inference.py main with --negative_prompt,
+    and one POST to cli/demo.py's /api/generate on 127.0.0.1, at full
+    width on the card: every PNG decodes to 512x512 RGB with the layout's
+    box outlines in blue. Launches counted from 0 over the four runs."""
+    import base64
+    import http.client
+    import threading
+
+    from layoutllm_t2i_torch.cli import demo, gligen_inference, txt2img
+    from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    cand, cache = os.path.join(work_dir, "cand.json"), os.path.join(work_dir, "cache.json")
+    with open(cand, "w") as f:
+        json.dump({"id": list(range(len(CLI_CANDIDATES))),
+                   "data": CLI_CANDIDATES}, f)
+    with open(cache, "w") as f:
+        json.dump({CLI_PLANNED_PROMPT: CLI_CACHED_LAYOUT}, f)
+    policy = torch.nn.Linear(768, 128)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(5)
+        policy.weight.copy_(torch.randn(128, 768, generator=g) * 0.05)
+        policy.bias.zero_()
+    policy_path = os.path.join(work_dir, "policy.pt")
+    torch.save(policy.state_dict(), policy_path)
+    cached_spec = "; ".join(f"{lab}:{box}" for lab, box in CLI_CACHED_LAYOUT)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = {
+        "txt2img-layout": (txt2img.main([
+            "--prompt", CLI_PROMPT, "--layout", CLI_LAYOUT,
+            "--num_per_prompt", "1", "--batch_size", "1",
+            "--folder", os.path.join(work_dir, "t2i")]), CLI_LAYOUT),
+        "txt2img-planner": (txt2img.main([
+            "--prompt", CLI_PLANNED_PROMPT, "--cand_path", cand,
+            "--layout_cache", cache, "--policy_ckpt_path", policy_path,
+            "--num_per_prompt", "1", "--batch_size", "1",
+            "--folder", os.path.join(work_dir, "t2i-planner")]), cached_spec),
+        "gligen_inference": (gligen_inference.main([
+            "--prompt", CLI_PROMPT, "--layout", CLI_LAYOUT,
+            "--negative_prompt", "blurry, low quality",
+            "--folder", os.path.join(work_dir, "gligen")]), CLI_LAYOUT),
+    }
+    torch.cuda.empty_cache()
+    srv = demo.build_server(demo.parse_args(["--host", "127.0.0.1", "--port", "0"]))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                          timeout=600)
+        conn.request("POST", "/api/generate", body=json.dumps({
+            "prompt": CLI_PROMPT, "negative": "", "guidance": 7.5,
+            "alpha": [0.3, 0.0, 0.7], "seed": 42,
+            "boxes": [{"label": "cat", "x": 0.2, "y": 0.1, "w": 0.4, "h": 0.5},
+                      {"label": "wooden chair", "x": 0.15, "y": 0.45,
+                       "w": 0.55, "h": 0.5}]}))
+        reply = json.loads(conn.getresponse().read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(60)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    checks = {}
+    for name, (paths, spec) in runs.items():
+        pixels = [png_pixels(open(path, "rb").read()) for path in paths]
+        checks[name] = {"files": [os.path.basename(p) for p in paths],
+                        "shape": [list(p.shape) for p in pixels],
+                        **drawn_boxes_ok(pixels[0], spec)}
+        checks[name]["ok"] = (checks[name]["ok"] and len(pixels) == 1
+                              and pixels[0].shape == (512, 512, 3))
+    demo_ok = "image" in reply
+    if demo_ok:
+        pixels = png_pixels(base64.b64decode(reply["image"]))
+        checks["demo"] = {"seconds": reply["seconds"], "layout": reply["layout"],
+                          "shape": list(pixels.shape),
+                          **drawn_boxes_ok(pixels, CLI_LAYOUT)}
+        checks["demo"]["ok"] = checks["demo"]["ok"] and pixels.shape == (512, 512, 3)
+    else:
+        checks["demo"] = {"ok": False, "reply": reply}
+    launched = all(counts[kid] > 0 for kid in ("K1", "K2", "K3", "K4"))
+    ok = launched and all(c["ok"] for c in checks.values())
+    emit({"phase": "cli", "ok": ok, "wall_s": wall, "checks": checks,
+          "launches": counts})
+    if not ok:
+        raise SmokeFailure("cli: a CLI's PNG is not a 512x512 RGB image with "
+                           "its layout's box outlines, the demo gave no image, "
+                           "or K1-K4 not launched")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return counts
 
 
 def profile_generation(models, label: str, profile, suffix: str) -> None:
@@ -1782,10 +2046,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="JSON",
                     help="after the checks, profile one more generation on "
-                         "each route and of the fast preset, and one more "
-                         "training step, and write their per-kernel device "
-                         "times here and to JSON_fast, JSON_int8, "
-                         "JSON_routes and JSON_train")
+                         "each route, of the fast preset and of the bench's "
+                         "exact path at batch 8, and one more training "
+                         "step, and write their per-kernel device times "
+                         "here and to JSON_fast, JSON_int8, JSON_routes, "
+                         "JSON_bench and JSON_train")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1807,8 +2072,9 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0))})
-    work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "build", "chip_smoke_train")
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    work_dir = os.path.join(build_dir, "chip_smoke_train")
+    cli_dir = os.path.join(build_dir, "chip_smoke_cli")
     try:
         with route_env(DEFAULT):
             phase_build()
@@ -1825,6 +2091,14 @@ def main(argv=None) -> int:
             gen_paths["fast"] = generation_calls(
                 unet_cfg, vae_cfg, clip_cfg, tok_len, REQUESTS, VAE_CHUNK,
                 evals=unet_evaluations(fast_tables_pipeline(), len(REQUESTS[0])))
+            # the bench's default run: 8 requests, CFG batch 16 (exact) and
+            # CFG 16 / cond-only 8 (fast)
+            bench_exact, bench_fast = bench_pipelines(tables_models())
+            for name, pipe in (("bench", bench_exact), ("bench-fast", bench_fast)):
+                gen_paths[name] = generation_calls(
+                    unet_cfg, vae_cfg, clip_cfg, tok_len, bench_requests(),
+                    VAE_CHUNK, evals=unet_evaluations(pipe, BENCH_BATCH))
+            gen_paths["cli"] = cli_paths(unet_cfg, vae_cfg, clip_cfg, tok_len)
             summary, k5_pair = phase_kernels(kernel_cases({
                 **gen_paths,
                 "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
@@ -1848,6 +2122,10 @@ def main(argv=None) -> int:
             routes_counts = phase_routes(models, args.profile)
             del models, dense_img
             torch.cuda.empty_cache()
+            bench_counts = phase_bench(args.profile)
+            torch.cuda.empty_cache()
+            cli_counts = phase_cli(cli_dir)
+            torch.cuda.empty_cache()
             phase_train_grad()
             train_counts, trainer, data = phase_train(work_dir)
             if args.profile:
@@ -1864,15 +2142,19 @@ def main(argv=None) -> int:
         return 1
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+        shutil.rmtree(cli_dir, ignore_errors=True)
     # each run launches its path's kernels: the exact and the fast
-    # generation K1-K4, the int8 generation K7, the split routes K6, K8a and
-    # K8b, training K1-K5b; the line adds the five runs
+    # generation, the bench and the CLIs K1-K4, the int8 generation K7, the
+    # split routes K6, K8a and K8b, training K1-K5b; the line adds the
+    # seven runs
     runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
-            "routes": routes_counts, "train": train_counts}
+            "routes": routes_counts, "bench": bench_counts, "cli": cli_counts,
+            "train": train_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
-    expected = {"generate": ("K1", "K2", "K3", "K4"),
-                "fast": ("K1", "K2", "K3", "K4"), "int8": ("K7",),
-                "routes": ("K6", "K8a", "K8b"),
+    generation = ("K1", "K2", "K3", "K4")
+    expected = {"generate": generation, "fast": generation, "int8": ("K7",),
+                "routes": ("K6", "K8a", "K8b"), "bench": generation,
+                "cli": generation,
                 "train": ("K1", "K2", "K3", "K4", "K5a", "K5b")}
     missing = [f"{kid} ({path})" for path, kids in expected.items()
                for kid in kids if runs[path][kid] <= 0]

@@ -26,6 +26,11 @@ import torch
 
 StateDict = Dict[str, torch.Tensor]
 CLIP_PREFIX = "transformer.text_model."
+# a full HF CLIPModel's text tower and its projection
+CLIP_MODEL_PREFIX = "text_model."
+CLIP_PROJECTION = "text_projection.weight"
+# the width of a CLIP text head (ViT-L/14: 768 wide, 12 heads)
+CLIP_HEAD_DIM = 64
 
 
 def _torch_load(path: str):
@@ -100,3 +105,49 @@ def load_torch_linear(path: str) -> StateDict:
     """A bare nn.Linear state_dict (policy ckpt_E.pt files, train_rl.py:219):
     {'weight' (out, in), 'bias'}."""
     return dict(_torch_load(path))
+
+
+def clip_text_model_state_dict(sd: Mapping[str, Any]) -> StateDict:
+    """A full HF CLIPModel state_dict -> its text tower (``text_model.*``,
+    the prefix stripped) and ``text_projection.weight``; the vision tower,
+    ``logit_scale`` and the ``position_ids`` buffer are left out."""
+    out = select(sd, strip_prefix=CLIP_MODEL_PREFIX)
+    out[CLIP_PROJECTION] = sd[CLIP_PROJECTION]
+    return out
+
+
+def clip_text_config_of(sd: Mapping[str, Any]):
+    """The CLIPTextConfig whose tree has the shapes of ``sd`` (a
+    clip_text_model_state_dict): width, vocabulary, context length, layers
+    and MLP width from the tensors, heads of CLIP_HEAD_DIM channels."""
+    from ..models.clip_text import CLIPTextConfig
+
+    vocab, c = sd["embeddings.token_embedding.weight"].shape
+    layers = {int(k.split(".")[2]) for k in sd if k.startswith("encoder.layers.")}
+    return CLIPTextConfig(
+        vocab_size=vocab, hidden_size=c, num_layers=len(layers),
+        num_heads=max(c // CLIP_HEAD_DIM, 1),
+        intermediate_size=sd["encoder.layers.0.mlp.fc1.weight"].shape[0],
+        max_length=sd["embeddings.position_embedding.weight"].shape[0])
+
+
+def load_clip_text_model(path: str, device=None, dtype=None):
+    """A full HF CLIPModel ``.pth`` as (ParamTree of the text tower with
+    ``text_projection``, CLIPTextConfig), loaded strictly by name, for
+    models/clip_text.py clip_text_features (the projected
+    get_text_features, reference txt2img.py:454-457)."""
+    from ..device import default_dtype, resolve_device
+    from ..models.clip_text import init_clip_text_params
+    from ..models.initializers import Init, linear_p
+    from ..utils.trees import ParamTree
+
+    sd = clip_text_model_state_dict(_torch_load(path))
+    cfg = clip_text_config_of(sd)
+    proj_out, proj_in = sd[CLIP_PROJECTION].shape
+    meta = Init(None, torch.device("meta"))
+    tree = init_clip_text_params(meta, cfg)
+    tree["text_projection"] = linear_p(meta, proj_in, proj_out, bias=False)
+    dev = resolve_device(device)
+    module = ParamTree(tree)
+    module.load_state_dict(sd, strict=True, assign=True)
+    return module.to(device=dev, dtype=dtype or default_dtype(dev)), cfg

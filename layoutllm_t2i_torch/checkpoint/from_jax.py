@@ -124,3 +124,35 @@ def param_tree_from_jax(tree: Dict[str, Any], device=None,
     return ParamTree(unflatten_tree(
         {name: place(t, device, dtype)
          for name, t in state_dict_from_jax(tree).items()}))
+
+
+def _strict_tree(init_tree, tree: Dict[str, Any], device, dtype) -> ParamTree:
+    """A ParamTree of ``init_tree``'s names and shapes (meta tensors)
+    holding the JAX ``tree``: a missing, extra or misshapen leaf raises."""
+    module = ParamTree(init_tree)
+    module.load_state_dict(state_dict_from_jax(tree), strict=True, assign=True)
+    return module.to(device=device, dtype=dtype)
+
+
+def policy_params_from_jax(tree: Dict[str, Any], device=None,
+                           dtype: torch.dtype = torch.float32) -> ParamTree:
+    """The JAX package's policy tree (models/policy.py init_policy_params:
+    ``{"linear": {"weight" (in, out), "bias"}}``) as the port's, strictly."""
+    from ..models.initializers import Init
+    from ..models.policy import init_policy_params
+
+    din, dout = np.shape(tree["linear"]["weight"])
+    meta = Init(None, torch.device("meta"))
+    return _strict_tree(init_policy_params(meta, din, dout), tree, device, dtype)
+
+
+def aesthetic_params_from_jax(tree: Dict[str, Any], device=None,
+                              dtype: torch.dtype = torch.float32) -> ParamTree:
+    """The JAX package's aesthetic predictor tree (``layers.{0,2,4,6,8}``)
+    as the port's, strictly."""
+    from ..models.initializers import Init
+    from ..models.policy import init_aesthetic_params
+
+    din = np.shape(tree["layers"]["0"]["weight"])[0]
+    meta = Init(None, torch.device("meta"))
+    return _strict_tree(init_aesthetic_params(meta, din), tree, device, dtype)

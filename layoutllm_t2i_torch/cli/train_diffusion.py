@@ -115,11 +115,12 @@ def main(argv=None):
     args = parse_args(argv)
     if args.coco_root:
         raise NotImplementedError(
-            "the COCO loader is not ported (ROADMAP.md Queue 1 item 15); "
-            "use --synthetic")
+            "the COCO loader is not ported (ROADMAP.md Queue 1, \"data "
+            "loaders\"); use --synthetic")
     if args.multihost:
         raise NotImplementedError(
-            "multihost training is not ported (ROADMAP.md Queue 1 item 16)")
+            "multihost training is not ported (ROADMAP.md Queue 1, "
+            "\"parallel/\")")
     cfg = TrainerConfig(
         output_root=args.output_root, name=args.name, batch_size=args.batch_size,
         total_iters=args.total_iters, save_every_iters=args.save_every_iters,

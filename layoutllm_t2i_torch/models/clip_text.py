@@ -69,6 +69,14 @@ def clip_text_apply(params, cfg: CLIPTextConfig, input_ids: torch.Tensor):
     return x, pooled
 
 
+def clip_text_features(params, cfg: CLIPTextConfig, input_ids: torch.Tensor):
+    """CLIPModel.get_text_features: text_projection over the pooled output.
+    Expects params['text_projection'] beside the text_model tree (the HF
+    CLIPModel key 'text_projection.weight', no bias)."""
+    _, pooled = clip_text_apply(params, cfg, input_ids)
+    return nn.linear(params["text_projection"], pooled)
+
+
 def init_clip_text_params(ini: init.Init, cfg: CLIPTextConfig):
     c, inter = cfg.hidden_size, cfg.intermediate_size
     layers = {}

@@ -14,47 +14,19 @@ Endpoints:
 The threading server gives each connection a thread; all of them funnel into
 the single batcher worker, which turns concurrency into fixed-size batches
 on the card. Boxes are normalized xyxy in [0, 1] (reference
-interface.py:157-219). Images are written as 8-bit RGB PNG by a small
-writer of its own (zlib + struct, filter 0 on every row): the same pixels
-the JAX package's Pillow writer stores, with no imaging library needed.
+interface.py:157-219). Images are written as 8-bit RGB PNG by
+utils/images.py's writer (zlib + struct): the same pixels the JAX package's
+Pillow writer stores, with no imaging library needed.
 """
 from __future__ import annotations
 
 import base64
 import json
-import struct
 import threading
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-import numpy as np
-
+from ..utils.images import png_bytes as _png_bytes
 from .batcher import MicroBatcher
-
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def _png_bytes(img01: np.ndarray) -> bytes:
-    """(H, W, 3) floats in [0, 1] -> PNG bytes, the pixels
-    ``(clip(img, 0, 1) * 255).astype(uint8)``."""
-    arr = (np.clip(np.asarray(img01), 0, 1) * 255).astype(np.uint8)
-    h, w, c = arr.shape
-    if c != 3:
-        raise ValueError(f"want an (H, W, 3) RGB image, got {arr.shape}")
-    # each scanline: filter type 0 (none), then its bytes
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)],
-                         axis=1).tobytes()
-    # width, height, bit depth 8, colour type 2 (RGB), deflate, filters,
-    # no interlace
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr)
-            + _png_chunk(b"IDAT", zlib.compress(raw, 6))
-            + _png_chunk(b"IEND", b""))
 
 
 class GenerationServer:

@@ -16,9 +16,11 @@ trainer_combined_layout.py).
 
 One ``torch.Generator`` seeded from ``TrainerConfig.seed`` draws the VAE
 posterior sample, the timestep, the noise and the grounding drop; nothing
-reads the global RNG. Not ported yet (each raises NotImplementedError and
-names its ROADMAP.md item): more than one device, ZeRO-1, starting from a
-GLIGEN ``.pth`` and the periodic sample previews.
+reads the global RNG. A run can start from a reference GLIGEN ``.pth``
+(``TrainerConfig.ckpt_path``). Not ported yet (each raises
+NotImplementedError and names its ROADMAP.md item by title): more than one
+device and ZeRO-1 ("parallel/") and the periodic sample previews
+("training previews").
 """
 from __future__ import annotations
 
@@ -86,11 +88,11 @@ def check_supported(config: TrainerConfig) -> None:
     if config.num_devices not in (None, 1) or config.zero1_opt_state:
         raise NotImplementedError(
             "more than one device and ZeRO-1 are not ported (ROADMAP.md "
-            "Queue 1 item 16, parallel/)")
+            "Queue 1, \"parallel/\")")
     if not config.disable_inference_in_training:
         raise NotImplementedError(
             "sample previews during training are not ported (ROADMAP.md "
-            "Queue 1 item 14)")
+            "Queue 1, \"training previews\")")
 
 
 def _prepare_models(models: GligenModels, dtype: torch.dtype) -> GligenModels:

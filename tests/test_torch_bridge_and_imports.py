@@ -13,6 +13,7 @@
 """
 import ast
 import dataclasses
+import os
 import pathlib
 import subprocess
 import sys
@@ -170,6 +171,12 @@ SERVING_MODULES = (
     "checkpoint.convert", "checkpoint.tools", "cli.serve", "pipeline.presets",
     "serving.batcher", "serving.server",
 )
+# the port bench and the generation CLIs, with what they stand on
+GENERATION_MODULES = (
+    "cli.bench", "cli.demo", "cli.gligen_inference", "cli.txt2img",
+    "data.rl_data", "models.policy", "pipeline.planner", "utils.boxes",
+    "utils.flops", "utils.images", "utils.profiling",
+)
 
 
 def test_every_port_module_imports_without_jax():
@@ -180,6 +187,7 @@ def test_every_port_module_imports_without_jax():
         for f in (REPO / "layoutllm_t2i_torch").rglob("*.py"))
     assert {f"layoutllm_t2i_torch.{m}" for m in TRAINING_MODULES} <= set(modules)
     assert {f"layoutllm_t2i_torch.{m}" for m in SERVING_MODULES} <= set(modules)
+    assert {f"layoutllm_t2i_torch.{m}" for m in GENERATION_MODULES} <= set(modules)
     # a None entry in sys.modules makes any import of these names raise
     code = ("import importlib, sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'layoutllm_t2i_tpu'):\n"
@@ -189,6 +197,36 @@ def test_every_port_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_generation_entry_points_need_no_pillow(tmp_path):
+    """The card's machine has no Pillow: the bench and the CLIs run, draw
+    their boxes and write their PNGs in a process where importing PIL (and
+    JAX) fails."""
+    code = ("import sys\n"
+            "for name in ('PIL', 'jax', 'jaxlib', 'flax', 'layoutllm_t2i_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "from layoutllm_t2i_torch.cli import bench, gligen_inference, txt2img\n"
+            "from layoutllm_t2i_torch.utils.images import save_image_grid\n"
+            "import numpy as np\n"
+            f"out = {str(tmp_path)!r}\n"
+            "txt2img.main(['--prompt', 'a dog', '--small', '--device', 'cpu',\n"
+            "              '--layout', 'dog:[0.1,0.2,0.5,0.6]', '--sample_steps', '2',\n"
+            "              '--num_per_prompt', '1', '--folder', out + '/t'])\n"
+            "gligen_inference.main(['--prompt', 'a dog', '--small', '--device', 'cpu',\n"
+            "                       '--layout', 'dog:[0.1,0.2,0.5,0.6]', '--folder',\n"
+            "                       out + '/g'])\n"
+            "save_image_grid(np.zeros((2, 4, 4, 3)), out + '/grid.png', ['a', 'b'])\n"
+            "bench.main(['--small', '--device', 'cpu', '--batch', '1', '--iters', '1',\n"
+            "            '--steps', '2', '--no_fast'])\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert (tmp_path / "t" / "a dog_0.png").exists()
+    assert (tmp_path / "g" / "sample_0.png").exists()
+    assert (tmp_path / "grid.png").exists() and (tmp_path / "grid.txt").exists()
+    assert '"metric": "images_per_sec_per_chip"' in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

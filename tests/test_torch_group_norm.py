@@ -42,7 +42,7 @@ gn = importlib.import_module("layoutllm_t2i_torch.kernels.group_norm")
 
 def _walked_shapes():
     """{(N, HW, C): paths} of every K2 call of chip_smoke's walk, and the
-    UNet's K2 shapes at batch 4 and 8."""
+    UNet's K2 shapes at batch 4, 8 and 16 (the bench's CFG batch)."""
     from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
     from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
@@ -57,11 +57,16 @@ def _walked_shapes():
     paths["train"] = cs.training_calls(unet_cfg, vae_cfg, clip_cfg, tok, batch,
                                        cs.TRAIN_MAX_BOXES,
                                        cs.TRAIN_MAX_RELATIONS)
+    for name, pipe in zip(("bench", "bench-fast"),
+                          cs.bench_pipelines(cs.tables_models())):
+        paths[name] = cs.generation_calls(
+            unet_cfg, vae_cfg, clip_cfg, tok, cs.bench_requests(), cs.VAE_CHUNK,
+            evals=cs.unet_evaluations(pipe, cs.BENCH_BATCH))
     shapes = {}
     for kid, _, args, where in cs.kernel_cases(paths):
         if kid == "K2":
             shapes.setdefault(args[:3], set()).update(where)
-    unet = {args[:3] for b in (4, 8)
+    unet = {args[:3] for b in (4, 8, 16)
             for kid, args in cs.unet_calls(unet_cfg, b, 30, 5, tok)
             if kid == "K2"}
     return shapes, unet
@@ -112,12 +117,12 @@ def test_plan(n, hw, c, groups):
 
 
 def test_walk_reaches_both_paths():
-    """The walk has the UNet's shapes at batch 4 and 8 (18 distinct in one
-    evaluation) and the VAE's 512^2 levels, which stream."""
+    """The walk has the UNet's shapes at batch 4, 8 and 16 (18 distinct in
+    one evaluation) and the VAE's 512^2 levels, which stream."""
     paths = {gn.plan_group_norm(*s, 32).path for s in WALKED}
     assert paths == {"cluster", "stream"}
     assert UNET_SHAPES <= set(WALKED)
-    assert {s[0] for s in UNET_SHAPES} == {4, 8}
+    assert {s[0] for s in UNET_SHAPES} == {4, 8, 16}
     assert gn.plan_group_norm(2, 262144, 256, 32).path == "stream"
     assert gn.plan_group_norm(*OVER_CLUSTER).path == "stream"
 

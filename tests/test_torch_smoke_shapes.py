@@ -142,6 +142,57 @@ def test_generation_walk_matches_the_calls(recorded):
     assert set(recorded) == set(want)
 
 
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_bench_generation_walk_matches_the_calls(recorded, mode):
+    """The bench's 8 requests: CFG batch 16 (exact), CFG 16 and cond-only 8
+    with key and propagated steps (the fast preset's segments, here in 5
+    steps), the VAE decoded in one chunk of 8."""
+    models = _models()
+    kw = {"exact": dict(steps=3),
+          "fast": dict(steps=4, sampler="dpm", cfg_interval=(0.0, 0.75),
+                       encoder_cache_interval=2)}[mode]
+    pipe = InferencePipeline(models, alpha_type=(0.3, 0.0, 0.7),
+                             vae_chunk=cs.VAE_CHUNK, **kw)
+    requests = cs.bench_requests()
+    with torch.no_grad():
+        pipe.generate(*requests, seed=0)
+    evals = cs.unet_evaluations(pipe, cs.BENCH_BATCH)
+    batches = {"exact": {16}, "fast": {8, 16}}[mode]
+    assert {b for b, _, _ in evals} == batches
+    want = cs.generation_calls(models.unet_cfg, models.vae_cfg, models.clip_cfg,
+                               TOK_LEN, requests, cs.VAE_CHUNK, evals=evals)
+    assert set(recorded) == set(want)
+    # the VAE decodes the 8 latents in one chunk
+    assert ("K2", (8, 64 * 64, 32, 1e-6, True)) in want
+    # phase kernels walks the bench's own pipelines at the same batches
+    bench = dict(zip(("exact", "fast"), cs.bench_pipelines(cs.tables_models())))
+    assert {b for b, _, _ in cs.unet_evaluations(bench[mode], 8)} == batches
+
+
+def test_cli_walk_matches_the_calls(recorded):
+    """Phase cli's runs: one request with each layout (CFG batch 2), and the
+    planner's CLIP features of the prompt and the candidates' captions."""
+    from layoutllm_t2i_torch.pipeline.inference import convert_xywh_to_ltrb
+    from layoutllm_t2i_torch.pipeline.planner import extract_prediction
+    from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_inference
+
+    models = _models()
+    pipe = InferencePipeline(models, steps=3, alpha_type=(0.3, 0.0, 0.7),
+                             vae_chunk=cs.VAE_CHUNK)
+    cached = "\n".join(f"{lab}: {box}" for lab, box in cs.CLI_CACHED_LAYOUT)
+    with torch.no_grad():
+        pipe.encode_pooled([cs.CLI_PLANNED_PROMPT]
+                           + [c["captions"] for c in cs.CLI_CANDIDATES])
+        for prompt, spec in ((cs.CLI_PROMPT, cs.CLI_LAYOUT),
+                             (cs.CLI_PLANNED_PROMPT, cached)):
+            cats, boxes = extract_prediction(spec)
+            pipe.generate([prompt], [([convert_xywh_to_ltrb(b) for b in boxes], cats)],
+                          [relation_texts_for_inference(prompt, 5)], seed=0)
+    want = cs.cli_paths(models.unet_cfg, models.vae_cfg, models.clip_cfg, TOK_LEN)
+    assert set(recorded) == set(want)
+    assert ("K3", (8 * TOK_LEN, 32)) in want     # 6 texts, bucket 8
+
+
 def test_fast_generation_walk_matches_the_calls(recorded):
     """The fast preset (DPM-15, CFG on (0, 0.75), encoder cache 2): CFG
     steps at batch 4, cond-only steps at batch 2, the gated fusers on the
