@@ -17,8 +17,10 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
                GEGLU GEMM) against its plain PyTorch version on the card,
-               in bf16 (K7 on int8 weights), at every distinct shape that
-               phases 4-10 and 12 give it; times kernel, plain version and
+               in bf16 (K7 on int8 weights; K3 also in f32, its rows
+               labelled "f32", bound at 4-byte elements and the f32
+               peak), at every distinct shape that phases 4-11 and 13
+               give it; times kernel, plain version and
                one PyTorch library call for the same function, beside the
                roofline bound. `ms`, `plain_ms` and `library_ms` are
                launched back to back from the host (time_ms), so a call
@@ -88,24 +90,37 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                POST to cli/demo.py's /api/generate on 127.0.0.1; every PNG
                decodes (zlib) to 512x512 RGB with its layout's box outlines
                in blue.
- 11. train-grad  one full-width loss backward at batch 2 (f32 master
+ 11. rl        the RL path at full width on a fixture written to build/
+               (4 COCO-style examples, 512^2 PNGs, a layout cache): the
+               reward (CLIP ViT-L/14 text and vision towers and the
+               aesthetic MLP in f32, random weights from seed 0) on 4
+               rollouts of the exact pipeline, each component's max |d|
+               between the kernel route and plain_route() within
+               RL_REWARD_TOL; then cli/train_rl.py main, 2 epochs of one
+               batch of 4 PLMS-50 rollouts, and 1 more epoch resumed from
+               its directory: finite rewards and losses, the policy
+               changed each epoch, ckpt_E.pt, state_E.pt and history.json
+               loaded back, Adam's step count 1, 2, 3; seconds an epoch,
+               rollout and reward seconds, peak memory, K3 f32 launches.
+ 12. train-grad  one full-width loss backward at batch 2 (f32 master
                weights, bf16 compute, alphas 0.5), kernel route against
                plain route: the relative L2 error of the rela_fuse
                gradients against a stated bound, which a planted fault of
                the K5 backward must exceed.
- 12. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
+ 13. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
                8, rela_fuse, AdamW, mixed precision, warmup 0, alphas 0.5;
                2 warm-up steps then 5 timed ones; s/step, images/s, peak
                memory, finite losses, every rela_fuse tensor changed and
                every frozen one bit-identical; kernel launches per step.
- 13. the `kernels` JSON line, then the card line, then the result line.
+ 14. the `kernels` JSON line, then the card line, then the result line.
      In that line `ms`, `plain_ms`, `library_ms`, `bound_ms`, `device_ms`
      and `library_device_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
      `device_vs_library` are the ratios of those sums; `launches` adds
-     the runs of phases 4, 5, 7-10 and 12,
-     each read from counts set to 0 just before it. K5a's and K5b's
+     the runs of phases 4, 5, 7-11 and 13,
+     each read from counts set to 0 just before it. K3's entry adds
+     `f32`: its f32 rows' sums and phase 11's f32 launches. K5a's and K5b's
      entries carry the pair's sums (`pair`: ms, device_ms, library_ms and
      library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
      vs_library, device_vs_library, and the largest shape's vs_library).
@@ -121,7 +136,8 @@ fast preset's evaluations from its step tables (unet_evaluations: CFG at
 batch 4, cond-only at batch 2, with and without the gated fusers, key
 and propagated), the bench's 8 requests (exact: CFG batch 16; fast: CFG
 16 and cond-only 8), the CLIs' one request (CFG batch 2) and the
-planner's CLIP features (cli_paths),
+planner's CLIP features (cli_paths), the RL batch's 4 rollouts (CFG
+batch 8) and the reward's f32 towers (rl_calls),
 and a training step at batch 8 with no CFG doubling: the VAE encoder on
 512^2 images (K1 at d 512), CLIP on the captions and on the grounding
 texts, and the UNet, whose flash sites after the first relation fuser run
@@ -164,6 +180,7 @@ import torch
 import torch.nn.functional as F
 
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, H100 SXM
+H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, H100 SXM
 H100_HBM_BYTES = 3.35e12    # HBM3 bytes/s, H100 SXM
 H100_SMS = 132              # streaming multiprocessors, H100 SXM
 MUFU_PER_SM_CLOCK = 16      # ex2 results a clock per SM (the SFUs)
@@ -362,10 +379,17 @@ def device_time(fn, target_ms: float = 60.0):
     return e0.elapsed_time(e1) / iters, enqueue_s / iters * 1e6
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / H100_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def flops_peak(kid, args) -> float:
+    """The card's peak for a case's operations: K3's f32 rows (args end in
+    "f32") run outside the tensor cores, every other case on them in
+    bf16."""
+    return H100_F32_FLOPS if kid == "K3" and len(args) > 2 else H100_BF16_FLOPS
 
 
 def exp_ms(exps: float, clock_hz: float) -> float:
@@ -583,7 +607,7 @@ def case_label(kid, args):
         n, hw, c, eps, silu = args
         return f"N{n} HW{hw} C{c} eps{eps:g} silu{int(silu)}"
     if kid == "K3":
-        return "rows{} C{}".format(*args)
+        return "rows{} C{}".format(*args) + (" f32" if len(args) > 2 else "")
     if kid == "K6":
         return "M{} K{}".format(*args)
     if kid in ("K8a", "K8b"):
@@ -643,13 +667,16 @@ def make_case(kid, args, dev, gen):
                 lambda: K.group_norm_plain(x, w, bb, 32, eps, silu), lib,
                 10.0 * x.numel(), 2.0 * (2 * x.numel() + 2 * c))
     if kid == "K3":
-        rows, c = args
+        rows, c = args[:2]
         x = rnd(rows, c, scale=2.0) + 0.5
         w, bb = rnd(c, scale=0.5) + 1.0, rnd(c, scale=0.5)
+        if len(args) > 2:  # the f32 form (the reward's CLIP towers)
+            x, w, bb = x.float(), w.float(), bb.float()
         return (lambda: K.layer_norm(x, w, bb, 1e-5),
                 lambda: K.layer_norm_plain(x, w, bb, 1e-5),
                 lambda: F.layer_norm(x, (c,), w, bb, 1e-5),
-                8.0 * x.numel(), 2.0 * (2 * x.numel() + 2 * c))
+                8.0 * x.numel(),
+                x.element_size() * (2.0 * x.numel() + 2 * c))
     if kid in ("K8a", "K8b"):
         return make_gemm_case(kid, args, rnd)
     if kid == "K6":
@@ -961,6 +988,9 @@ def phase_kernels(cases):
                for kid in KERNEL_META}
     pair = {key: 0.0 for key in PAIR_SUMS}
     pair["shapes"], pair["max_vs_library"] = 0, 0.0
+    # K3's f32 rows (the reward's towers), summed apart as well
+    k3_f32 = {key: 0.0 for key in F32_SUMS}
+    k3_f32.update(shapes=0, max_abs_err=0.0)
     half = {}  # (K5a or K5b, shape) -> its record, until the pair is complete
     failed = []
     for kid, label, args, paths in cases:
@@ -971,7 +1001,8 @@ def phase_kernels(cases):
         # K1 with its lse: the output to K1's tolerance, the lse to its own
         agree = agreement(("K1", "lse") if label.endswith("lse") else kid, out, ref)
         del out, ref
-        b_ms, b_by = bound(flops, nbytes)
+        peak = flops_peak(kid, args)
+        b_ms, b_by = bound(flops, nbytes, peak)
         rec = {"phase": "kernels", "kernel": kid, "shape": label, "paths": paths,
                **agree,
                "ms": time_ms(kern), "plain_ms": time_ms(plain),
@@ -999,11 +1030,16 @@ def phase_kernels(cases):
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
                     "library_device_ms"):
             agg[key] += rec[key]
-        agg["ops_ms"] += flops / H100_BF16_FLOPS * 1e3
+        agg["ops_ms"] += flops / peak * 1e3
         agg["bytes_ms"] += nbytes / H100_HBM_BYTES * 1e3
         agg["shapes"] += 1
         agg["host_us"].append(rec["host_us"])
         agg["device_ms_by_args"][args] = rec["device_ms"]
+        if kid == "K3" and len(args) > 2:
+            for key in F32_SUMS:
+                k3_f32[key] += rec[key]
+            k3_f32["shapes"] += 1
+            k3_f32["max_abs_err"] = max(k3_f32["max_abs_err"], agree["max_abs_err"])
         if not agree["ok"]:
             failed.append(f"{kid} {label}")
         del kern, plain, lib
@@ -1018,11 +1054,13 @@ def phase_kernels(cases):
     emit({"phase": "kernels", "host_us_median": {
         kid: agg["host_us"] for kid, agg in summary.items()},
         "host_floor_us": host_floor["host_floor_us"]})
-    return summary, pair
+    return summary, pair, k3_f32
 
 
 PAIR_SUMS = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
              "exp_ms")
+F32_SUMS = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+            "library_device_ms")
 
 
 def pair_work(args):
@@ -1338,34 +1376,14 @@ def phase_fast(models, exact_img):
 
 def png_pixels(png: bytes) -> np.ndarray:
     """(H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all use filter
-    0, as the port's writer stores them (utils/images.py); decoded here
-    with zlib, every chunk's CRC checked."""
-    import struct
-    import zlib
+    0, as the port's writer stores them, decoded by utils/images.py
+    read_png (zlib, every chunk's CRC checked)."""
+    from layoutllm_t2i_torch.utils.images import read_png
 
-    if png[:8] != b"\x89PNG\r\n\x1a\n":
-        raise SmokeFailure("png: not a PNG")
-    pos, idat, head = 8, b"", None
-    while pos < len(png):
-        n, kind = struct.unpack(">I4s", png[pos:pos + 8])
-        data = png[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", png[pos + 8 + n:pos + 12 + n])
-        if crc != zlib.crc32(kind + data) & 0xFFFFFFFF:
-            raise SmokeFailure(f"png: bad CRC in the PNG's {kind!r} chunk")
-        pos += 12 + n
-        if kind == b"IHDR":
-            head = struct.unpack(">IIBBBBB", data)
-        elif kind == b"IDAT":
-            idat += data
-        elif kind == b"IEND":
-            break
-    w, h, depth, colour, _, _, interlace = head
-    if (depth, colour, interlace) != (8, 2, 0):
-        raise SmokeFailure(f"png: not 8-bit RGB without interlace: {head}")
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise SmokeFailure("png: a row uses a filter other than 0")
-    return rows[:, 1:].reshape(h, w, 3)
+    try:
+        return read_png(png)
+    except ValueError as exc:
+        raise SmokeFailure(str(exc)) from exc
 
 
 def http_json(conn, method: str, path: str, body=None):
@@ -1720,6 +1738,252 @@ def phase_cli(work_dir: str):
     return counts
 
 
+# phase rl: cli/train_rl.py on a fixture written to the build directory,
+# 4 COCO-style examples with 512^2 PNGs, at the reference's rollout sampler
+# (PLMS-50) and batch (4 rollouts a batch, CFG batch 8)
+RL_N = 4
+RL_TRAIN = [
+    {"img_id": 0, "name": "rl_0.png", "width": 512, "height": 512,
+     "captions": "a dog running on the grass with a frisbee",
+     "label": ["dog", "frisbee"],
+     "bbox": [[0.4, 0.6, 0.4, 0.5], [0.7, 0.3, 0.15, 0.1]]},
+    {"img_id": 1, "name": "rl_1.png", "width": 512, "height": 512,
+     "captions": "a cat sleeping on a couch", "label": ["cat", "couch"],
+     "bbox": [[0.5, 0.45, 0.3, 0.2], [0.5, 0.6, 0.9, 0.6]]},
+    {"img_id": 2, "name": "rl_2.png", "width": 512, "height": 512,
+     "captions": "a man riding a horse next to a fence",
+     "label": ["person", "horse"],
+     "bbox": [[0.45, 0.35, 0.2, 0.4], [0.5, 0.6, 0.5, 0.5]]},
+    {"img_id": 3, "name": "rl_3.png", "width": 512, "height": 512,
+     "captions": "a pizza on a table beside a cup", "label": ["pizza", "cup"],
+     "bbox": [[0.45, 0.6, 0.5, 0.35], [0.8, 0.4, 0.15, 0.2]]},
+]
+RL_CANDIDATES = [
+    {"img_id": 10 + i, "name": f"cand_{i}.jpg", "width": 640, "height": 480,
+     **c} for i, c in enumerate(CLI_CANDIDATES[:RL_N])]
+# the layout cache: caption -> (label, [x, y, w, h]); "puppy" is not a
+# COCO-80 label, so the reward maps it through the text tower
+RL_LAYOUTS = {
+    RL_TRAIN[0]["captions"]: [["puppy", [0.2, 0.35, 0.4, 0.5]],
+                              ["frisbee", [0.62, 0.25, 0.15, 0.1]]],
+    RL_TRAIN[1]["captions"]: [["cat", [0.35, 0.35, 0.3, 0.2]],
+                              ["couch", [0.05, 0.3, 0.9, 0.6]]],
+    RL_TRAIN[2]["captions"]: [["person", [0.35, 0.15, 0.2, 0.4]],
+                              ["horse", [0.25, 0.35, 0.5, 0.5]]],
+    RL_TRAIN[3]["captions"]: [["pizza", [0.2, 0.45, 0.5, 0.35]],
+                              ["cup", [0.72, 0.3, 0.15, 0.2]]],
+}
+RL_NEW_LABELS = 1   # predicted labels outside COCO-80: "puppy"
+# the reward's kernel route against its plain route on the same images,
+# each component's max |d| (unweighted: clip, aesthetic, max_iou, docsim).
+# Both routes run the f32 towers and differ only in K3's summation order
+# (~1e-7 of a row's values); through 24 + 12 layers that stays near 1e-6.
+# A K3 fault that phase kernels' K3 tolerance would catch (1e-2 of rms)
+# moves the cosines by more than 1e-3.
+RL_REWARD_TOL = 1e-4
+RL_EPOCHS, RL_RESUME_EPOCHS = 2, 1
+
+
+def f32_calls(calls):
+    """K3 calls of an f32 model: their args end in "f32"."""
+    return [(kid, args + ("f32",)) for kid, args in calls]
+
+
+def vision_calls(vision_cfg, b):
+    """The CLIP vision tower on b images: pre_layrnorm and two LNs a layer
+    on b x (patches + 1) rows, post_layernorm on the b class tokens."""
+    rows = b * (vision_cfg.num_patches + 1)
+    c = vision_cfg.hidden_size
+    return ([("K3", (rows, c, "f32"))] * (2 * vision_cfg.num_layers + 1)
+            + [("K3", (b, c, "f32"))])
+
+
+def reward_calls(text_cfg, vision_cfg, tok_len, b, new_labels):
+    """RewardModel on b rollouts: the captions through the text tower, the
+    predicted then the ground-truth images through the vision tower, then
+    each predicted label not in COCO-80 (not cached yet) alone through the
+    text tower; all f32."""
+    calls = f32_calls(clip_calls(text_cfg, b * tok_len))
+    calls += vision_calls(vision_cfg, b) + vision_calls(vision_cfg, b)
+    for _ in range(new_labels):
+        calls += f32_calls(clip_calls(text_cfg, tok_len))
+    return calls
+
+
+def rl_requests():
+    """The rollouts of one RL batch as pipe.generate takes them: captions,
+    the cached layouts in ltrb, the relation texts cli/train_rl.py makes."""
+    from layoutllm_t2i_torch.pipeline.inference import convert_xywh_to_ltrb
+    from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_inference
+
+    captions = [ex["captions"] for ex in RL_TRAIN]
+    layouts = [([convert_xywh_to_ltrb(box) for _, box in RL_LAYOUTS[c]],
+                [lab for lab, _ in RL_LAYOUTS[c]]) for c in captions]
+    return captions, layouts, [relation_texts_for_inference(c, 5) for c in captions]
+
+
+def rl_calls(unet_cfg, vae_cfg, clip_cfg, text_cfg, vision_cfg, tok_len):
+    """The calls of phase rl's training run: the reward's 80 COCO label
+    embeddings, the train and candidate captions' features, then a batch:
+    the PLMS-50 generation of its 4 rollouts (CFG batch 8) and one reward
+    call."""
+    from layoutllm_t2i_torch.pipeline.reward import COCO80_LABELS
+
+    calls = f32_calls(clip_calls(text_cfg, len(COCO80_LABELS) * tok_len))
+    calls += 2 * f32_calls(clip_calls(text_cfg, RL_N * tok_len))
+    calls += generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
+                              rl_requests(), VAE_CHUNK)
+    return calls + reward_calls(text_cfg, vision_cfg, tok_len, RL_N,
+                                RL_NEW_LABELS)
+
+
+def rl_fixture(work_dir: str) -> dict:
+    """train2014_{train,candidate}_4.json in the reference schema, the
+    layout cache, and the 4 train images as 512^2 PNGs (utils/images.py)."""
+    from layoutllm_t2i_torch.utils.images import png_bytes
+
+    data, imgs = os.path.join(work_dir, "data"), os.path.join(work_dir, "imgs")
+    os.makedirs(data)
+    os.makedirs(imgs)
+    for name, examples in (("train", RL_TRAIN), ("candidate", RL_CANDIDATES)):
+        with open(os.path.join(data, f"train2014_{name}_{RL_N}.json"), "w") as f:
+            json.dump({"id": [ex["img_id"] for ex in examples],
+                       "data": examples}, f)
+    rng = np.random.default_rng(0)
+    for ex in RL_TRAIN:
+        with open(os.path.join(imgs, ex["name"]), "wb") as f:
+            f.write(png_bytes(rng.uniform(size=(512, 512, 3))))
+    cache = os.path.join(work_dir, "layouts.json")
+    with open(cache, "w") as f:
+        json.dump(RL_LAYOUTS, f)
+    return {"data": data, "imgs": imgs, "cache": cache,
+            "ckpt_root": os.path.join(work_dir, "ckpt")}
+
+
+def rl_argv(fx: dict, *extra) -> list:
+    return ["--img_dir", fx["imgs"], "--sampled_data_dir", fx["data"],
+            "--train_number", str(RL_N), "--cand_number", str(RL_N),
+            "--batch_size", str(RL_N), "--layout_cache", fx["cache"],
+            "--ckpt_root", fx["ckpt_root"], *extra]
+
+
+def reward_check(fx: dict) -> dict:
+    """RewardModel at full width (CLIP ViT-L/14 text and vision towers in
+    f32, the aesthetic MLP; random weights from seed 0, as cli/train_rl.py
+    builds them) on 4 rollouts of the exact pipeline (the CLI's
+    generate_fn): every component through the kernels, then again under
+    plain_route() on the same images."""
+    from layoutllm_t2i_torch import kernels as K
+    from layoutllm_t2i_torch.cli import train_rl
+    from layoutllm_t2i_torch.data.rl_data import RLBatches
+    from layoutllm_t2i_torch.pipeline.planner import center2lefttop
+
+    args = train_rl.parse_args(rl_argv(fx))
+    generate_fn = train_rl.build_generate_fn(args, args.device)
+    captions = [ex["captions"] for ex in RL_TRAIN]
+    pred = [([box for _, box in RL_LAYOUTS[c]], [lab for lab, _ in RL_LAYOUTS[c]])
+            for c in captions]
+    gt = [(center2lefttop(ex["bbox"]), ex["label"]) for ex in RL_TRAIN]
+    imgs = generate_fn(captions, pred, seed=0)
+    del generate_fn
+    torch.cuda.empty_cache()
+    gt_imgs = next(iter(RLBatches(RL_TRAIN, fx["imgs"], RL_N)))[1]
+    reward = train_rl.build_reward(args, args.device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    got = reward.components(captions, imgs, gt_imgs, pred, gt)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    f32_launches = K.layer_norm.f32_launches
+    with K.plain_route():
+        ref = reward.components(captions, imgs, gt_imgs, pred, gt)
+    delta = {k: float(np.abs(got[k] - ref[k]).max()) for k in got}
+    finite = all(bool(np.isfinite(v).all()) for v in (*got.values(), *ref.values()))
+    return {"ok": (finite and f32_launches > 0
+                   and all(d <= RL_REWARD_TOL for d in delta.values())),
+            "max_abs_delta": delta, "tol": RL_REWARD_TOL,
+            "components": {k: v.tolist() for k, v in got.items()},
+            "reward_s": kernel_s, "k3_f32_launches": f32_launches,
+            "images": list(imgs.shape)}
+
+
+def phase_rl(work_dir: str):
+    """The RL path at full width: the reward check, then cli/train_rl.py
+    main for 2 epochs and 1 more resumed from its directory. Fails unless
+    the kernel and plain routes' reward components agree, every reward and
+    loss is finite, the policy changes each epoch, the reference-format
+    files load through the port's loaders and the resumed Adam step count
+    continues from the saved one. Launches counted from 0 over the two
+    training runs."""
+    from layoutllm_t2i_torch import kernels as K
+    from layoutllm_t2i_torch.checkpoint.convert import load_policy, load_policy_state
+    from layoutllm_t2i_torch.cli import train_rl
+    from layoutllm_t2i_torch.models.initializers import Init
+    from layoutllm_t2i_torch.models.policy import init_policy_params
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    fx = rl_fixture(work_dir)
+    check = reward_check(fx)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    run_dir, history = train_rl.main(rl_argv(fx, "--epochs", str(RL_EPOCHS),
+                                             "--exp", "rl"))
+    resumed_dir, resumed = train_rl.main(rl_argv(
+        fx, "--epochs", str(RL_RESUME_EPOCHS), "--exp", "rl_resume",
+        "--resume", run_dir))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, f32_launches = K.launch_counts(), K.layer_norm.f32_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = []
+    for d in (run_dir, resumed_dir):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            metrics += [json.loads(line) for line in f]
+    # the policy the trainer starts from (RLConfig's seed 53), then each
+    # epoch's checkpoint: every one differs from the one before
+    init = init_policy_params(Init(torch.Generator().manual_seed(53),
+                                   torch.device("cpu")), 768, 128)["linear"]
+    epochs = RL_EPOCHS + RL_RESUME_EPOCHS
+    dirs = [run_dir] * RL_EPOCHS + [resumed_dir] * RL_RESUME_EPOCHS
+    weights = [init["weight"]] + [
+        load_policy(os.path.join(d, f"ckpt_{e}.pt"))["linear"]["weight"]
+        for e, d in enumerate(dirs)]
+    changed = [not torch.equal(a, b) for a, b in zip(weights, weights[1:])]
+    steps = [load_policy_state(os.path.join(d, f"state_{e}.pt"))["step"]
+             for e, d in enumerate(dirs)]
+    with open(os.path.join(run_dir, "history.json")) as f:
+        history_ok = json.load(f) == history
+    values = (history["reward_history"] + history["loss_history"]
+              + resumed["reward_history"] + resumed["loss_history"])
+    ok = (check["ok"] and history_ok and all(changed)
+          and len(values) == 2 * epochs and all(math.isfinite(v) for v in values)
+          and steps == list(range(1, epochs + 1)) and f32_launches > 0
+          and all(counts[kid] > 0 for kid in ("K1", "K2", "K3", "K4")))
+    emit({"phase": "rl", "ok": ok, "card": nvidia_smi_line(),
+          "reward_check": check, "wall_s": wall,
+          "epochs": epochs, "rollouts_per_epoch": RL_N,
+          "epoch_s": [m["batch_s"] for m in metrics],
+          "rollout_s": [m["rollout_s"] for m in metrics],
+          "reward_s": [m["reward_s"] for m in metrics],
+          "rewards": history["reward_history"] + resumed["reward_history"],
+          "losses": history["loss_history"] + resumed["loss_history"],
+          "policy_changed_each_epoch": changed, "adam_steps": steps,
+          "peak_mem_gib": peak, "k3_f32_launches": f32_launches,
+          "launches": counts})
+    if not ok:
+        raise SmokeFailure(
+            "rl: the reward's kernel route is off its plain route (or not "
+            "through K3's f32 form), a reward or loss is not finite, the "
+            "policy did not change in an epoch, a checkpoint is missing or "
+            "the resumed Adam step count does not continue, or K1-K4 not "
+            "launched")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return counts, f32_launches
+
+
 def profile_generation(models, label: str, profile, suffix: str) -> None:
     """With ``--profile``, one more generation of ``models`` (on the route
     the switches set) under the profiler, into the profile's path, with
@@ -2058,6 +2322,8 @@ def main(argv=None) -> int:
         return 2
     try:
         from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
+        from layoutllm_t2i_torch.models.clip_text import CLIPTextConfig
+        from layoutllm_t2i_torch.models.clip_vision import CLIPVisionConfig
         from layoutllm_t2i_torch.pipeline.loaders import model_configs, random_models
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}",
@@ -2075,6 +2341,7 @@ def main(argv=None) -> int:
     build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     work_dir = os.path.join(build_dir, "chip_smoke_train")
     cli_dir = os.path.join(build_dir, "chip_smoke_cli")
+    rl_dir = os.path.join(build_dir, "chip_smoke_rl")
     try:
         with route_env(DEFAULT):
             phase_build()
@@ -2099,7 +2366,10 @@ def main(argv=None) -> int:
                     unet_cfg, vae_cfg, clip_cfg, tok_len, bench_requests(),
                     VAE_CHUNK, evals=unet_evaluations(pipe, BENCH_BATCH))
             gen_paths["cli"] = cli_paths(unet_cfg, vae_cfg, clip_cfg, tok_len)
-            summary, k5_pair = phase_kernels(kernel_cases({
+            gen_paths["rl"] = rl_calls(unet_cfg, vae_cfg, clip_cfg,
+                                       CLIPTextConfig(), CLIPVisionConfig(),
+                                       tok_len)
+            summary, k5_pair, k3_f32 = phase_kernels(kernel_cases({
                 **gen_paths,
                 "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
                                         train_batch, TRAIN_MAX_BOXES,
@@ -2126,6 +2396,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             cli_counts = phase_cli(cli_dir)
             torch.cuda.empty_cache()
+            rl_counts, rl_f32_launches = phase_rl(rl_dir)
+            torch.cuda.empty_cache()
             phase_train_grad()
             train_counts, trainer, data = phase_train(work_dir)
             if args.profile:
@@ -2143,18 +2415,19 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
         shutil.rmtree(cli_dir, ignore_errors=True)
+        shutil.rmtree(rl_dir, ignore_errors=True)
     # each run launches its path's kernels: the exact and the fast
-    # generation, the bench and the CLIs K1-K4, the int8 generation K7, the
-    # split routes K6, K8a and K8b, training K1-K5b; the line adds the
-    # seven runs
+    # generation, the bench, the CLIs and the RL trainer K1-K4 (K3 also in
+    # f32, in the reward), the int8 generation K7, the split routes K6, K8a
+    # and K8b, training K1-K5b; the line adds the eight runs
     runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
             "routes": routes_counts, "bench": bench_counts, "cli": cli_counts,
-            "train": train_counts}
+            "rl": rl_counts, "train": train_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
     generation = ("K1", "K2", "K3", "K4")
     expected = {"generate": generation, "fast": generation, "int8": ("K7",),
                 "routes": ("K6", "K8a", "K8b"), "bench": generation,
-                "cli": generation,
+                "cli": generation, "rl": generation,
                 "train": ("K1", "K2", "K3", "K4", "K5a", "K5b")}
     missing = [f"{kid} ({path})" for path, kids in expected.items()
                for kid in kids if runs[path][kid] <= 0]
@@ -2179,6 +2452,8 @@ def main(argv=None) -> int:
                 unet_cfg, tok_len, s["device_ms_by_args"])
         if kid in ("K5a", "K5b"):
             line[-1]["pair"] = k5_pair
+        if kid == "K3":  # its f32 form's rows and phase rl's f32 launches
+            line[-1]["f32"] = {**k3_f32, "launches": rl_f32_launches}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if missing:
         print(f"chip_smoke: FAILED: no launches of {missing} on the main path",

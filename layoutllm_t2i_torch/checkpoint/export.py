@@ -1,5 +1,7 @@
-"""Reference-format GLIGEN ``.pth`` export (layoutllm_t2i_tpu/checkpoint/
-export.py ``export_gligen_checkpoint``).
+"""Reference-format GLIGEN ``.pth`` export and the RL policy's ``ckpt_E.pt``
+and ``state_E.pt`` (layoutllm_t2i_tpu/checkpoint/export.py
+``export_gligen_checkpoint``, ``export_policy_checkpoint``,
+``export_policy_state``).
 
 Writes the 4-module dict the reference trainer saves
 (trainer_combined_layout.py:523-535): ``{model, text_encoder, autoencoder,
@@ -67,3 +69,51 @@ def export_gligen_checkpoint(path: str, unet_sd: StateDict, vae_sd: StateDict,
     if ema_unet_sd is not None:
         ckpt["ema"] = _cpu_f32(ema_unet_sd)
     torch.save(ckpt, path)
+
+
+def export_policy_checkpoint(path: str, policy_params) -> None:
+    """Write the policy linear as the reference ``ckpt_E.pt`` —
+    ``torch.save(policy_model.linear.state_dict())`` (train_rl.py:218-219):
+    a bare ``{'weight': (out, in), 'bias': (out,)}`` dict, f32 on the CPU,
+    which the reference's txt2img.py:546-553 and ``convert.load_policy``
+    read."""
+    lin = policy_params["linear"]
+    torch.save(_cpu_f32({"weight": lin["weight"], "bias": lin["bias"]}), path)
+
+
+def export_policy_state(path: str, adam_state: Mapping[str, Any], *,
+                        epoch: int, lr: float, lr_step_size: int,
+                        lr_gamma: float) -> None:
+    """Write ``state_E.pt`` in the reference layout (train_rl.py:220-222):
+    ``{'optimizer': Adam.state_dict(), 'lr_scheduler': StepLR.state_dict()}``
+    with the keys the JAX package's export writes. ``adam_state`` is
+    ``{'step': int, 'mu': tree, 'nu': tree}`` (``convert.load_policy_state``
+    reads it back), the moments uncorrected, as both torch's Adam and
+    optax's keep them, in the policy tree's torch layout. Param ids follow
+    ``nn.Linear.parameters()`` order: 0 = weight, 1 = bias."""
+    step = int(adam_state["step"])
+    mu = _cpu_f32(adam_state["mu"]["linear"])
+    nu = _cpu_f32(adam_state["nu"]["linear"])
+    cur_lr = float(lr * lr_gamma ** (epoch // lr_step_size))
+    opt_sd = {
+        "state": {
+            i: {"step": torch.tensor(float(step)),
+                "exp_avg": mu[name].clone(), "exp_avg_sq": nu[name].clone()}
+            for i, name in enumerate(("weight", "bias"))
+        },
+        "param_groups": [{
+            "lr": cur_lr,
+            "betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 0,
+            "amsgrad": False, "maximize": False, "foreach": None,
+            "capturable": False, "differentiable": False, "fused": None,
+            "params": [0, 1],
+        }],
+    }
+    sched_sd = {
+        "step_size": int(lr_step_size), "gamma": float(lr_gamma),
+        "base_lrs": [float(lr)], "last_epoch": int(epoch),
+        "_step_count": int(epoch) + 1, "verbose": False,
+        "_get_lr_called_within_step": False,
+        "_last_lr": [cur_lr],
+    }
+    torch.save({"optimizer": opt_sd, "lr_scheduler": sched_sd}, path)

@@ -156,3 +156,31 @@ def aesthetic_params_from_jax(tree: Dict[str, Any], device=None,
     din = np.shape(tree["layers"]["0"]["weight"])[0]
     meta = Init(None, torch.device("meta"))
     return _strict_tree(init_aesthetic_params(meta, din), tree, device, dtype)
+
+
+def clip_vision_params_from_jax(tree: Dict[str, Any], cfg, device=None,
+                                dtype: torch.dtype = torch.float32) -> ParamTree:
+    """The JAX package's CLIP vision tree (models/clip_vision.py
+    init_clip_vision_params, with ``visual_projection``) as the port's for
+    ``cfg`` (models/clip_vision.py CLIPVisionConfig), strictly: the patch
+    conv HWIO -> OIHW, the linears (in, out) -> (out, in)."""
+    from ..models.clip_vision import init_clip_vision_params
+    from ..models.initializers import Init
+
+    meta = Init(None, torch.device("meta"))
+    return _strict_tree(init_clip_vision_params(meta, cfg), tree, device, dtype)
+
+
+def clip_text_params_from_jax(tree: Dict[str, Any], cfg, device=None,
+                              dtype: torch.dtype = torch.float32) -> ParamTree:
+    """The JAX package's CLIP text tree with its ``text_projection`` (the
+    reward's and txt2img's projected get_text_features) as the port's for
+    ``cfg`` (models/clip_text.py CLIPTextConfig), strictly."""
+    from ..models.clip_text import init_clip_text_params
+    from ..models.initializers import Init, linear_p
+
+    din, dout = np.shape(tree["text_projection"]["weight"])
+    meta = Init(None, torch.device("meta"))
+    init_tree = init_clip_text_params(meta, cfg)
+    init_tree["text_projection"] = linear_p(meta, din, dout, bias=False)
+    return _strict_tree(init_tree, tree, device, dtype)

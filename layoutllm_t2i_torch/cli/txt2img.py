@@ -92,11 +92,11 @@ def load_policy(path: str, device):
     state_dict) or a pickled JAX policy tree (through the weights
     bridge)."""
     if path.endswith((".pt", ".pth")):
-        from ..checkpoint.convert import load_torch_linear
+        from ..checkpoint import convert
 
-        linear = {k: v.to(device=device, dtype=torch.float32)
-                  for k, v in load_torch_linear(path).items()}
-        return {"linear": linear}
+        linear = convert.load_policy(path)["linear"]
+        return {"linear": {k: v.to(device=device, dtype=torch.float32)
+                           for k, v in linear.items()}}
     import pickle
 
     from ..checkpoint.from_jax import policy_params_from_jax
@@ -142,8 +142,10 @@ def plan_layout(args):
 def _caption_features(texts, args) -> torch.Tensor:
     """CLIP text features for policy scoring, on the pipeline's device.
     With --clip_ckpt the projected get_text_features (reference
-    txt2img.py:454-457); otherwise the pipeline text encoder's pooled
-    output (same dim, unprojected)."""
+    txt2img.py:454-457), computed in f32 whatever the pipeline's compute
+    dtype, as the JAX CLI computes them: top-k shot selection on bf16
+    scores could pick other shots. Otherwise the pipeline text encoder's
+    pooled output (same dim, unprojected)."""
     pipe = _get_pipe(args)
     if getattr(args, "clip_ckpt", None):
         from ..checkpoint.convert import load_clip_text_model
@@ -151,7 +153,7 @@ def _caption_features(texts, args) -> torch.Tensor:
 
         dev = pipe.models.device
         params, cfg = load_clip_text_model(args.clip_ckpt, device=dev,
-                                           dtype=pipe.models.compute_dtype)
+                                           dtype=torch.float32)
         ids = torch.from_numpy(pipe.models.tokenizer(texts).astype(np.int64))
         with torch.no_grad():
             return clip_text_features(params, cfg, ids.to(dev))

@@ -1,43 +1,81 @@
-// K3: row LayerNorm + affine over (rows, C), bf16 in and out, f32 stats.
+// K3: row LayerNorm + affine over (rows, C), f32 statistics; bf16 or f32
+// in and out (x, gamma, beta and y share one type).
 //
 // Replaces the TPU kernel `_ln_kernel` (l.309) of
 // layoutllm_t2i_tpu/ops/pallas/norms.py, launched by `_ln_pallas`
-// (l.322/333) under `layer_norm_fused` (l.358).
+// (l.322/333) under `layer_norm_fused` (l.358). That kernel takes any float
+// type: bf16 at the UNet's and the pipeline's CLIP sites, f32 in the
+// reward's CLIP towers (text C 768, vision C 1024 at 257 rows an image).
 //
 // What bounds it on the H100: bytes (one read and one write per element,
 // ~10 flops each).
 //
 // The simple design: one warp per row. The row (C <= 2048) is held in
-// registers as 16-byte vectors, so the mean and the centred variance are
-// two passes over registers, not over memory, matching the reference's
-// mean / mean((x - mean)^2) order. Every LayerNorm site of the port runs
-// here, C = 320 included: the TPU's c % 128 gate measured XLA fusion, not
-// a property of the function.
+// registers as 16-byte vectors (8 bf16 or 4 f32 values), so the mean and
+// the centred variance are two passes over registers, not over memory,
+// matching the reference's mean / mean((x - mean)^2) order. Rows past the
+// last full block of 8 are masked (the vision tower's 257·B rows). Every
+// LayerNorm site of the port runs here, C = 320 included: the TPU's
+// c % 128 gate measured XLA fusion, not a property of the function.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kRowsPerBlock = 8;
 
-template <int VPL>  // 16-byte vectors per lane
+// one 16-byte vector of T: its width, the most vectors a lane holds of a
+// row (C <= 2048), and its conversions to and from f32
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<bf16> {
+  static constexpr int kN = 8;
+  static constexpr int kMaxVpl = 2048 / kN / 32;
+  static __device__ __forceinline__ void load(const uint4& raw, float* out) {
+    unpack8(raw, out);
+  }
+  static __device__ __forceinline__ uint4 store(const float* in) {
+    return pack8(in);
+  }
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  static constexpr int kMaxVpl = 2048 / kN / 32;
+  static __device__ __forceinline__ void load(const uint4& raw, float* out) {
+    out[0] = __uint_as_float(raw.x);
+    out[1] = __uint_as_float(raw.y);
+    out[2] = __uint_as_float(raw.z);
+    out[3] = __uint_as_float(raw.w);
+  }
+  static __device__ __forceinline__ uint4 store(const float* in) {
+    return make_uint4(__float_as_uint(in[0]), __float_as_uint(in[1]),
+                      __float_as_uint(in[2]), __float_as_uint(in[3]));
+  }
+};
+
+template <typename T, int VPL>  // 16-byte vectors per lane
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
-ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-          const bf16* __restrict__ beta, bf16* __restrict__ y, int rows,
-          int C, float eps) {
+ln_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+          const T* __restrict__ beta, T* __restrict__ y, int rows, int C,
+          float eps) {
+  constexpr int E = Vec<T>::kN;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const int nv = C / 8;
+  const int nv = C / E;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (long long)row * C);
-  float v[VPL * 8];
+  float v[VPL * E];
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int vi = lane + i * 32;
     if (vi < nv) {
-      unpack8(xr[vi], v + i * 8);
+      Vec<T>::load(xr[vi], v + i * E);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s += v[i * 8 + j];
+      for (int j = 0; j < E; ++j) s += v[i * E + j];
     }
   }
   const float mean = warp_sum(s) / C;
@@ -46,9 +84,9 @@ ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   for (int i = 0; i < VPL; ++i) {
     if (lane + i * 32 < nv) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = v[i * 8 + j] - mean;
-        v[i * 8 + j] = d;
+      for (int j = 0; j < E; ++j) {
+        const float d = v[i * E + j] - mean;
+        v[i * E + j] = d;
         ss += d * d;
       }
     }
@@ -61,24 +99,43 @@ ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   for (int i = 0; i < VPL; ++i) {
     const int vi = lane + i * 32;
     if (vi < nv) {
-      float g[8], b[8], o[8];
-      unpack8(gr[vi], g);
-      unpack8(br[vi], b);
+      float g[E], b[E], o[E];
+      Vec<T>::load(gr[vi], g);
+      Vec<T>::load(br[vi], b);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = v[i * 8 + j] * rstd * g[j] + b[j];
-      yr[vi] = pack8(o);
+      for (int j = 0; j < E; ++j) o[j] = v[i * E + j] * rstd * g[j] + b[j];
+      yr[vi] = Vec<T>::store(o);
     }
   }
 }
 
-template <int VPL>
+template <typename T, int VPL>
 int launch(const void* x, const void* g, const void* b, void* y, int rows,
            int C, float eps, cudaStream_t s) {
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  ln_kernel<VPL><<<blocks, kRowsPerBlock * 32, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(b), static_cast<bf16*>(y), rows, C, eps);
+  ln_kernel<T, VPL><<<blocks, kRowsPerBlock * 32, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const T*>(b), static_cast<T*>(y), rows, C, eps);
   return (int)cudaGetLastError();
+}
+
+// the instantiation whose VPL covers a row's vpl vectors: the least V >= 1
+// with V >= vpl, up to kMaxVpl (C = 2048)
+template <typename T, int V = 1>
+int launch_vpl(int vpl, const void* x, const void* g, const void* b, void* y,
+               int rows, int C, float eps, cudaStream_t s) {
+  if constexpr (V < Vec<T>::kMaxVpl) {
+    if (vpl > V) return launch_vpl<T, V + 1>(vpl, x, g, b, y, rows, C, eps, s);
+  }
+  return launch<T, V>(x, g, b, y, rows, C, eps, s);
+}
+
+template <typename T>
+int dispatch(const void* x, const void* g, const void* b, void* y, int rows,
+             int C, float eps, cudaStream_t s) {
+  constexpr int E = Vec<T>::kN;
+  if (C % E || C <= 0 || C > 2048) return (int)cudaErrorInvalidValue;
+  return launch_vpl<T>((C / E + 31) / 32, x, g, b, y, rows, C, eps, s);
 }
 
 }  // namespace
@@ -88,16 +145,15 @@ int launch(const void* x, const void* g, const void* b, void* y, int rows,
 LLT2I_API int llt2i_layer_norm(const void* x, const void* gamma,
                                const void* beta, void* y, int rows, int C,
                                float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C % 8 || C > 2048) return (int)cudaErrorInvalidValue;
-  switch ((C / 8 + 31) / 32) {
-    case 1: return launch<1>(x, gamma, beta, y, rows, C, eps, s);
-    case 2: return launch<2>(x, gamma, beta, y, rows, C, eps, s);
-    case 3: return launch<3>(x, gamma, beta, y, rows, C, eps, s);
-    case 4: return launch<4>(x, gamma, beta, y, rows, C, eps, s);
-    case 5: return launch<5>(x, gamma, beta, y, rows, C, eps, s);
-    case 6: return launch<6>(x, gamma, beta, y, rows, C, eps, s);
-    case 7: return launch<7>(x, gamma, beta, y, rows, C, eps, s);
-    default: return launch<8>(x, gamma, beta, y, rows, C, eps, s);
-  }
+  return dispatch<bf16>(x, gamma, beta, y, rows, C, eps,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// x, y: (rows, C) f32 contiguous; gamma, beta: (C,) f32.
+// C % 4 == 0 and C <= 2048.
+LLT2I_API int llt2i_layer_norm_f32(const void* x, const void* gamma,
+                                   const void* beta, void* y, int rows, int C,
+                                   float eps, void* stream) {
+  return dispatch<float>(x, gamma, beta, y, rows, C, eps,
+                         static_cast<cudaStream_t>(stream));
 }

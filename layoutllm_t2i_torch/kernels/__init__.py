@@ -35,6 +35,7 @@ KERNELS = {
 def reset_launches() -> None:
     for wrapper, _ in KERNELS.values():
         wrapper.launches = 0
+    layer_norm.f32_launches = 0
 
 
 def launch_counts() -> dict:

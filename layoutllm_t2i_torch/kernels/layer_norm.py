@@ -1,8 +1,11 @@
 """K3: row LayerNorm + affine (csrc/layer_norm.cu).
 
 Replaces ``layoutllm_t2i_tpu/ops/pallas/norms.py`` ``_ln_pallas`` /
-``_ln_kernel``. Differentiable through ``LayerNorm``, whose backward is the
-plain version's VJP, as ``_ln_bwd`` (norms.py:384) recomputes it.
+``_ln_kernel``, which takes any float type. The port's kernel has a bf16
+and an f32 instantiation, picked from ``x.dtype`` (the reward's CLIP towers
+run in f32); weight and bias come in the same type. Differentiable through
+``LayerNorm``, whose backward is the plain version's VJP, as ``_ln_bwd``
+(norms.py:384) recomputes it.
 """
 from __future__ import annotations
 
@@ -46,26 +49,41 @@ class LayerNorm(torch.autograd.Function):
         return plain_vjp(layer_norm_plain, args, ctx.needs_input_grad, grad)
 
 
+# the instantiations: dtype -> (C entry point, elements a 16-byte vector)
+_ENTRY = {torch.bfloat16: ("llt2i_layer_norm", 8),
+          torch.float32: ("llt2i_layer_norm_f32", 4)}
+
+
 def _forward(x, weight, bias, eps):
     if not use_kernel(x):
         return layer_norm_plain(x, weight, bias, eps)
     rows, c = x.shape
     dev = x.get_device()
-    check_operand(x, "layer_norm: x", dev)
-    check_operand(weight, "layer_norm: weight", dev)
-    check_operand(bias, "layer_norm: bias", dev)
+    # any other dtype is held to bf16's, and so raises
+    dtype = x.dtype if x.dtype in _ENTRY else torch.bfloat16
+    check_operand(x, "layer_norm: x", dev, dtype)
+    check_operand(weight, "layer_norm: weight", dev, dtype)
+    check_operand(bias, "layer_norm: bias", dev, dtype)
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError("layer_norm: affine params must be (C,)")
-    if c % 8 or c > 2048:
-        raise ValueError(f"layer_norm: C={c} is unsupported")
+    entry, per_vec = _ENTRY[dtype]
+    if c % per_vec or c > 2048:
+        raise ValueError(f"layer_norm: C={c} is unsupported for {dtype}")
+    xp, wp, bp = x.data_ptr(), weight.data_ptr(), bias.data_ptr()
+    if (xp | wp | bp) & 15:  # rows and params move as 16-byte vectors
+        raise ValueError("layer_norm: x, weight and bias must be 16-byte "
+                         "aligned")
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    check(lib("layer_norm").llt2i_layer_norm(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        rows, c, float(eps), stream_handle(dev)), "layer_norm")
+    check(getattr(lib("layer_norm"), entry)(
+        xp, wp, bp, out.data_ptr(), rows, c, float(eps), stream_handle(dev)),
+        "layer_norm")
     layer_norm.launches += 1
+    if dtype is torch.float32:
+        layer_norm.f32_launches += 1
     return out
 
 
 layer_norm.launches = 0
+layer_norm.f32_launches = 0  # the f32 form's share of ``launches``

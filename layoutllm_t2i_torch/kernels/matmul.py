@@ -51,6 +51,16 @@ def _eligible(m: int, k: int, n: int) -> bool:
     )
 
 
+def _refuse_f32(x: torch.Tensor, name: str) -> None:
+    """K8a and K8b take bf16 only: an f32 operand (the reward's f32 CLIP
+    towers reach K8a under LLT2I_PALLAS_MATMUL=1) raises, naming the
+    ROADMAP item that ports their f32 forms."""
+    if x.dtype is torch.float32:
+        raise ValueError(f"{name}: f32 operands are not ported to this "
+                         "kernel (ROADMAP Queue 2, 'f32 operands, every "
+                         "kernel'); unset LLT2I_PALLAS_MATMUL for f32 models")
+
+
 def linear_plain(x: torch.Tensor, w: torch.Tensor,
                  b: Optional[torch.Tensor] = None,
                  r: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -90,6 +100,7 @@ class LinearFused(torch.autograd.Function):
 def _linear_forward(x, w, b, r):
     if not use_kernel(x):
         return linear_plain(x, w, b, r)
+    _refuse_f32(x, "linear_fused")
     m, k = x.shape
     n = w.shape[0]
     dev = x.get_device()
@@ -156,6 +167,7 @@ class GegluFused(torch.autograd.Function):
 def _geglu_forward(x, w, b):
     if not use_kernel(x):
         return geglu_plain(x, w, b)
+    _refuse_f32(x, "geglu_fused")
     m, k = x.shape
     n = w.shape[0] // 2
     dev = x.get_device()

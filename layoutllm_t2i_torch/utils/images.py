@@ -1,10 +1,12 @@
-"""Image grids and the PNG writer (layoutllm_t2i_tpu/utils/images.py; the
-reference ImageCaptionSaver, trainer_combined_layout.py:37-67: a row-major
-grid PNG plus a captions txt).
+"""Image grids, the PNG writer and its reader (layoutllm_t2i_tpu/utils/
+images.py; the reference ImageCaptionSaver, trainer_combined_layout.py:
+37-67: a row-major grid PNG plus a captions txt).
 
 PNGs are written by a small writer of its own (zlib + struct, filter 0 on
 every row, 8-bit RGB): the same pixels the JAX package's Pillow writer
-stores, with no imaging library needed where the port runs.
+stores, with no imaging library needed where the port runs. ``read_png``
+reads back exactly that form (the RL data's images where Pillow is
+absent); any other PNG raises ``PNGFormatError``.
 """
 from __future__ import annotations
 
@@ -63,6 +65,43 @@ def png_bytes(img01: np.ndarray) -> bytes:
     if arr.ndim != 3 or arr.shape[2] != 3:
         raise ValueError(f"want an (H, W, 3) RGB image, got {arr.shape}")
     return png_bytes_uint8((np.clip(arr, 0, 1) * 255).astype(np.uint8))
+
+
+class PNGFormatError(ValueError):
+    """A well-formed PNG in a form ``read_png`` does not decode (another
+    bit depth or colour type, interlacing, a row filter other than 0)."""
+
+
+def read_png(png: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 pixels of an 8-bit RGB PNG without interlacing whose
+    rows all use filter 0, as ``png_bytes_uint8`` writes it; every chunk's
+    CRC is checked. A damaged file raises ValueError, another form of PNG
+    PNGFormatError."""
+    if png[:8] != PNG_SIGNATURE:
+        raise ValueError("png: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(png):
+        n, kind = struct.unpack(">I4s", png[pos:pos + 8])
+        data = png[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", png[pos + 8 + n:pos + 12 + n])
+        if crc != zlib.crc32(kind + data) & 0xFFFFFFFF:
+            raise ValueError(f"png: bad CRC in the PNG's {kind!r} chunk")
+        pos += 12 + n
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat += data
+        elif kind == b"IEND":
+            break
+    if head is None:
+        raise ValueError("png: no IHDR chunk")
+    w, h, depth, colour, _, _, interlace = head
+    if (depth, colour, interlace) != (8, 2, 0):
+        raise PNGFormatError(f"png: not 8-bit RGB without interlace: {head}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise PNGFormatError("png: a row uses a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
 
 
 def save_png(arr_uint8: np.ndarray, path: str) -> None:

@@ -178,6 +178,12 @@ GENERATION_MODULES = (
     "utils.flops", "utils.images", "utils.profiling",
 )
 
+# the RL trainer, its reward and what they stand on
+RL_MODULES = (
+    "cli.train_rl", "eval.clip_score", "eval.metrics", "models.clip_vision",
+    "pipeline.reward", "training.rl_trainer",
+)
+
 
 def test_every_port_module_imports_without_jax():
     modules = sorted(
@@ -188,6 +194,7 @@ def test_every_port_module_imports_without_jax():
     assert {f"layoutllm_t2i_torch.{m}" for m in TRAINING_MODULES} <= set(modules)
     assert {f"layoutllm_t2i_torch.{m}" for m in SERVING_MODULES} <= set(modules)
     assert {f"layoutllm_t2i_torch.{m}" for m in GENERATION_MODULES} <= set(modules)
+    assert {f"layoutllm_t2i_torch.{m}" for m in RL_MODULES} <= set(modules)
     # a None entry in sys.modules makes any import of these names raise
     code = ("import importlib, sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'layoutllm_t2i_tpu'):\n"

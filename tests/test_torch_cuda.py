@@ -12,7 +12,8 @@ and streaming paths through both C entry points, its ragged last block,
 bitwise repeatability, equal inputs in different blocks mapped to equal
 outputs, SiLU's negative tail to a bf16 ulp, an operand fenced by NaN and
 the planner's copy of the on-chip kernel's shared-memory layout;
-wide and narrow LayerNorm rows, a partial FF row block; the training path's
+wide and narrow LayerNorm rows in bf16 and in f32 (the reward towers'
+shapes, a ragged last row block), a partial FF row block; the training path's
 kernels: K1's lse output, the K5a/K5b backward at the ragged training
 shapes (N = M = 4126 and 1054), on operands fenced by NaN and Inf, into
 outputs filled with NaN (every element written, nothing past N, M or d),
@@ -358,14 +359,42 @@ def test_ffn_ln_geglu(dev, gen, m, k, scale):
 
 
 def test_cuda_tensor_never_takes_the_plain_version(dev):
-    x = torch.randn(4, 16, device=dev)  # f32: no kernel takes it
+    x = torch.randn(4, 16, device=dev).half()  # f16: no kernel takes it
     with pytest.raises(ValueError, match="dtype"):
-        K.layer_norm(x, torch.ones(16, device=dev), torch.zeros(16, device=dev))
+        K.layer_norm(x, torch.ones(16, device=dev).half(),
+                     torch.zeros(16, device=dev).half())
+
+
+@pytest.mark.parametrize("rows,c", [(2056, 1024), (8, 1024), (616, 768),
+                                    (6160, 768), (771, 1024), (1, 4),
+                                    (7, 1000), (33, 2048)])
+def test_layer_norm_f32(dev, gen, rows, c):
+    """K3's f32 form at the reward towers' shapes (771 = 3 x 257 rows: a
+    ragged last block of 8 rows) and at the widths' edges."""
+    x = _rand(gen, rows, c, scale=2.0, shift=0.5).float()
+    w = _rand(gen, c, scale=0.5, shift=1.0).float()
+    bias = _rand(gen, c, scale=0.5).float()
+    before = K.layer_norm.f32_launches
+    _check("K3", lambda: K.layer_norm(x, w, bias, 1e-5),
+           lambda: K.layer_norm_plain(x, w, bias, 1e-5), K.layer_norm)
+    assert K.layer_norm.f32_launches == before + 1
+
+
+def test_layer_norm_f32_refuses_mixed_types_and_widths(dev):
+    x = torch.randn(4, 1022, device=dev)
+    w, b = torch.ones(1022, device=dev), torch.zeros(1022, device=dev)
+    with pytest.raises(ValueError, match="C=1022 is unsupported"):
+        K.layer_norm(x, w, b)
+    x = torch.randn(4, 16, device=dev)
+    with pytest.raises(ValueError, match="layer_norm: weight: dtype "
+                       "torch.bfloat16, expected torch.float32"):
+        K.layer_norm(x, torch.ones(16, device=dev, dtype=torch.bfloat16),
+                     torch.zeros(16, device=dev))
 
 
 # (operand, fault): a CPU x is no fault (it takes the plain version)
 @pytest.mark.parametrize("operand,fault", [
-    ("weight", "cpu"), ("bias", "cpu"), ("x", "f32"), ("weight", "f32"),
+    ("weight", "cpu"), ("bias", "cpu"), ("x", "f16"), ("weight", "f32"),
     ("bias", "f32"), ("x", "strided"), ("weight", "strided"),
     ("bias", "strided")])
 def test_layer_norm_host_path_still_checks_every_operand(dev, gen, operand,
@@ -379,6 +408,8 @@ def test_layer_norm_host_path_still_checks_every_operand(dev, gen, operand,
         t, match = t.cpu(), "on cpu, expected cuda:0"
     elif fault == "f32":
         t, match = t.float(), "dtype torch.float32, expected torch.bfloat16"
+    elif fault == "f16":  # K3 takes bf16 or f32 x, nothing else
+        t, match = t.half(), "dtype torch.float16, expected torch.bfloat16"
     elif t.dim() == 2:  # the same values, column-major
         t, match = t.t().contiguous().t(), "must be contiguous"
     else:  # every other element of a buffer twice as long
@@ -1065,3 +1096,48 @@ def test_fast_generation_kernels_against_plain_route(dev):
     for a, b in zip(img, ref):
         mse = float(np.mean((a - b) ** 2))
         assert mse == 0 or 10 * np.log10(1.0 / mse) >= 30.0, mse
+
+
+def test_reward_model_on_the_card_matches_its_plain_route(dev):
+    """A small RewardModel (f32 towers: every LayerNorm through K3's f32
+    form) against itself under plain_route() on the same images."""
+    from layoutllm_t2i_torch.models.clip_text import (CLIPTextConfig,
+                                                      init_clip_text_params)
+    from layoutllm_t2i_torch.models.clip_tokenizer import HashTokenizer
+    from layoutllm_t2i_torch.models.clip_vision import (CLIPVisionConfig,
+                                                        init_clip_vision_params)
+    from layoutllm_t2i_torch.models.initializers import Init, linear_p
+    from layoutllm_t2i_torch.models.policy import init_aesthetic_params
+    from layoutllm_t2i_torch.pipeline.reward import RewardModel
+
+    ini = Init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    text_cfg = CLIPTextConfig(num_layers=2, hidden_size=128, num_heads=2,
+                              intermediate_size=256, vocab_size=512,
+                              max_length=16)
+    vision_cfg = CLIPVisionConfig(image_size=56, hidden_size=128, num_layers=2,
+                                  num_heads=2, intermediate_size=256,
+                                  projection_dim=96)
+    text = init_clip_text_params(ini, text_cfg)
+    text["text_projection"] = linear_p(ini, 128, 96, bias=False)
+    reward = RewardModel(text_cfg, text, vision_cfg,
+                         init_clip_vision_params(ini, vision_cfg),
+                         init_aesthetic_params(ini, 96),
+                         HashTokenizer(max_length=16, vocab_size=512),
+                         device=dev)
+    rng = np.random.default_rng(0)
+    imgs = rng.uniform(size=(3, 64, 64, 3)).astype(np.float32)
+    gt = rng.uniform(size=(3, 64, 64, 3)).astype(np.float32)
+    layouts = [([[0.1, 0.1, 0.5, 0.5]], ["dog"]), ([[0.2, 0.2, 0.6, 0.9]], ["puppy"]),
+               ([[0.0, 0.3, 0.4, 0.8]], ["cat"])]
+    caps = ["a dog", "a small puppy", "a cat on a mat"]
+    before = K.layer_norm.f32_launches
+    gt_layouts = [([[0.1, 0.1, 0.5, 0.6]], ["dog"]), ([[0.2, 0.2, 0.6, 0.9]], ["dog"]),
+                  ([[0.0, 0.3, 0.4, 0.8]], ["cat"])]
+    got = reward.components(caps, imgs, gt, layouts, gt_layouts)
+    assert K.layer_norm.f32_launches > before
+    with K.plain_route():
+        ref = reward.components(caps, imgs, gt, layouts, gt_layouts)
+    for name in got:
+        assert np.isfinite(got[name]).all()
+        np.testing.assert_allclose(got[name], ref[name], rtol=0, atol=1e-4,
+                                   err_msg=name)

@@ -193,6 +193,58 @@ def test_cli_walk_matches_the_calls(recorded):
     assert ("K3", (8 * TOK_LEN, 32)) in want     # 6 texts, bucket 8
 
 
+def test_rl_walk_matches_the_calls(recorded):
+    """Phase rl's training run: the reward's 80 label embeddings, the train
+    and candidate captions' features and one batch (the generation of its 4
+    rollouts, CFG batch 8, then one reward call with one label outside
+    COCO-80), its towers' LayerNorms in f32 (K3's f32 rows)."""
+    from layoutllm_t2i_torch.models.clip_vision import (CLIPVisionConfig,
+                                                        init_clip_vision_params)
+    from layoutllm_t2i_torch.models.initializers import linear_p
+    from layoutllm_t2i_torch.models.policy import init_aesthetic_params
+    from layoutllm_t2i_torch.pipeline.planner import center2lefttop
+    from layoutllm_t2i_torch.pipeline.reward import RewardModel
+
+    models = _models()
+    ini = Init(torch.Generator().manual_seed(1), torch.device("cpu"))
+    text_cfg = CLIPTextConfig(num_layers=1, hidden_size=32, num_heads=2,
+                              intermediate_size=64, vocab_size=512,
+                              max_length=TOK_LEN)
+    vision_cfg = CLIPVisionConfig(image_size=28, patch_size=14, hidden_size=32,
+                                  num_layers=2, num_heads=2,
+                                  intermediate_size=64, projection_dim=24)
+    text = init_clip_text_params(ini, text_cfg)
+    text["text_projection"] = linear_p(ini, 32, 24, bias=False)
+    captions = [ex["captions"] for ex in cs.RL_TRAIN]
+    reward = RewardModel(text_cfg, text, vision_cfg,
+                         init_clip_vision_params(ini, vision_cfg),
+                         init_aesthetic_params(ini, 24),
+                         HashTokenizer(max_length=TOK_LEN, vocab_size=512),
+                         device="cpu")
+    reward.text_features(captions)
+    reward.text_features([c["captions"] for c in cs.RL_CANDIDATES])
+    n_setup = len(recorded)
+    pipe = InferencePipeline(models, steps=3, alpha_type=(0.3, 0.0, 0.7),
+                             vae_chunk=cs.VAE_CHUNK)
+    with torch.no_grad():
+        imgs = pipe.generate(*cs.rl_requests(), seed=0)
+    n_gen = len(recorded)
+    pred = [([box for _, box in cs.RL_LAYOUTS[c]],
+             [lab for lab, _ in cs.RL_LAYOUTS[c]]) for c in captions]
+    gt = [(center2lefttop(ex["bbox"]), ex["label"]) for ex in cs.RL_TRAIN]
+    reward(captions, imgs, imgs, pred, gt)
+    f32 = recorded[:n_setup] + recorded[n_gen:]
+    assert {kid for kid, _ in f32} == {"K3"}
+    want = cs.rl_calls(models.unet_cfg, models.vae_cfg, models.clip_cfg,
+                       text_cfg, vision_cfg, TOK_LEN)
+    is_f32 = lambda c: c[0] == "K3" and len(c[1]) > 2
+    want_f32 = [c for c in want if is_f32(c)]
+    assert collections.Counter(cs.f32_calls(f32)) == collections.Counter(want_f32)
+    assert set(recorded[n_setup:n_gen]) == {c for c in want if not is_f32(c)}
+    assert ("K3", (4 * 5, 32, "f32")) in want_f32     # 4 images x 5 tokens
+    assert ("K3", (TOK_LEN, 32, "f32")) in want_f32    # the one new label
+
+
 def test_fast_generation_walk_matches_the_calls(recorded):
     """The fast preset (DPM-15, CFG on (0, 0.75), encoder cache 2): CFG
     steps at batch 4, cond-only steps at batch 2, the gated fusers on the
