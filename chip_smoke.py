@@ -8,19 +8,27 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                prints build seconds, ptxas lines and the card's name and
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
                in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel
-               (WGMMA_KERNELS; K4's and K7's LN pre-passes do no product),
-               or if ptxas reports a spill in a K7 kernel or any nvcc log
-               holds C7515 (wgmma serialised); prints the registers and
-               spills of every wgmma kernel and of K2's three kernels
-               (GN_KERNELS).
+               (WGMMA_KERNELS; K4's and K7's LN pre-passes do no product)
+               and HMMA (mma.sync, TF32) in every product kernel of the
+               f32 forms of K1, K5a, K5b and K4 (MMA_F32_KERNELS), or if
+               ptxas reports a spill in a K7 kernel or any nvcc log holds
+               C7515 (wgmma serialised); prints the registers and spills
+               of every wgmma and f32 product kernel and of K2's three
+               kernels (GN_KERNELS).
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
                GEGLU GEMM) against its plain PyTorch version on the card,
-               in bf16 (K7 on int8 weights; K3 also in f32, its rows
-               labelled "f32", bound at 4-byte elements and the f32
-               peak), at every distinct shape that phases 4-11 and 13
-               give it; times kernel, plain version and
+               in bf16 (K7 on int8 weights) and, for K1 (with and without
+               its lse), K2, K3, K4, K5a and K5b, in f32: rows labelled
+               "f32" and kernel "K1/f32" etc., held to the f32 rows of
+               kernels/tolerance.py, with `arith` (3xTF32 mma.sync, or
+               f32 without products for K2 and K3), bound at 4-byte
+               elements and the TF32 peak (495 TFLOP/s; K2, K3: the f32
+               peak), library calls in f32 with allow_tf32 off; at every
+               distinct shape that phases 4-11, 13 and 15 give it
+               (mixed-precision training's VAE and CLIP run in f32); times
+               kernel, plain version and
                one PyTorch library call for the same function, beside the
                roofline bound. `ms`, `plain_ms` and `library_ms` are
                launched back to back from the host (time_ms), so a call
@@ -106,21 +114,32 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                weights, bf16 compute, alphas 0.5), kernel route against
                plain route: the relative L2 error of the rela_fuse
                gradients against a stated bound, which a planted fault of
-               the K5 backward must exceed.
+               the K5 backward must exceed; every kernel of the step
+               launched, none on the plain route.
  13. train     DiffusionTrainer at full width on synthetic 512^2 data: batch
-               8, rela_fuse, AdamW, mixed precision, warmup 0, alphas 0.5;
-               2 warm-up steps then 5 timed ones; s/step, images/s, peak
-               memory, finite losses, every rela_fuse tensor changed and
-               every frozen one bit-identical; kernel launches per step.
- 14. the `kernels` JSON line, then the card line, then the result line.
+               8, rela_fuse, AdamW, mixed precision (the UNet in bf16; the
+               VAE and CLIP encode in f32, as the JAX trainer's), warmup 0,
+               alphas 0.5; 2 warm-up steps then 5 timed ones; s/step,
+               images/s, peak memory, finite losses, every rela_fuse tensor
+               changed and every frozen one bit-identical; kernel launches
+               per step, K1's and K5's (bf16 and f32, the VAE's d 512
+               site) exactly the walk's (training_calls) count a step.
+ 14. train-grad-f32  phase 12 with mixed_precision=False: every operand
+               f32, the kernels' f32 forms, bound TRAIN_GRAD_F32_REL_TOL.
+ 15. train-f32 phase 13 with TrainerConfig()'s precision, f32 throughout
+               (the JAX package's default): the same checks, every f32
+               form launched (K1 at d 40, 80 and 512).
+ 16. the `kernels` JSON line, then the card line, then the result line.
      In that line `ms`, `plain_ms`, `library_ms`, `bound_ms`, `device_ms`
      and `library_device_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
      `device_vs_library` are the ratios of those sums; `launches` adds
-     the runs of phases 4, 5, 7-11 and 13,
-     each read from counts set to 0 just before it. K3's entry adds
-     `f32`: its f32 rows' sums and phase 11's f32 launches. K5a's and K5b's
+     the runs of phases 4, 5, 7-11, 13 and 15,
+     each read from counts set to 0 just before it; each f32 form
+     has an entry of its own ("K1/f32 flash_attention", ...), its rows'
+     sums, its f32 launches and its `arith`, and the bf16 entries count
+     bf16 launches only. K5a's and K5b's
      entries carry the pair's sums (`pair`: ms, device_ms, library_ms and
      library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
      vs_library, device_vs_library, and the largest shape's vs_library).
@@ -140,8 +159,9 @@ planner's CLIP features (cli_paths), the RL batch's 4 rollouts (CFG
 batch 8) and the reward's f32 towers (rl_calls),
 and a training step at batch 8 with no CFG doubling: the VAE encoder on
 512^2 images (K1 at d 512), CLIP on the captions and on the grounding
-texts, and the UNet, whose flash sites after the first relation fuser run
-K1 with its lse (N = M = 4096/4126 at d 40, 1024/1054 at d 80). Each of
+texts, all in f32, and the UNet in bf16 ("train") and in f32
+("train-f32"), whose flash sites after the first relation fuser run K1
+with its lse (N = M = 4096/4126 at d 40, 1024/1054 at d 80). Each of
 those is also a K5a and a K5b case, on the lse and delta of the plain
 forward. The walk routes each feed-forward site as ops/nn.py does, with
 the same eligibility tests (ff_site_calls). tests/test_torch_smoke_shapes.py
@@ -152,8 +172,8 @@ after phase 4 and prints device time by kernel group and the device's idle
 share; OUT.json gets the per-kernel table. One more generation is profiled
 likewise after phases 5, 7 and 8 (OUT_fast.json, OUT_int8.json,
 OUT_routes.json), one more exact generation of the bench's 8 requests
-after phase 9 (OUT_bench.json), and one more training step after phase 12
-(OUT_train.json).
+after phase 9 (OUT_bench.json), and one more training step after phases
+13 and 15 (OUT_train.json, OUT_train-f32.json).
 
 The script imports nothing of JAX or of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -180,6 +200,7 @@ import torch
 import torch.nn.functional as F
 
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, H100 SXM
+H100_TF32_FLOPS = 495e12    # dense TF32 tensor-core peak, H100 SXM
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, H100 SXM
 H100_HBM_BYTES = 3.35e12    # HBM3 bytes/s, H100 SXM
 H100_SMS = 132              # streaming multiprocessors, H100 SXM
@@ -200,6 +221,11 @@ UNET_REL_TOL = 5e-2
 # not bounded: phase 2 and tests/test_torch_kernels.py hold K5 against
 # such faults.
 TRAIN_GRAD_REL_TOL = 1e-2
+# the same in f32 (phase train-grad-f32): both routes f32, the kernels'
+# products 3xTF32, so they differ by summation order and a few ulps
+# through the same blocks; the bound is 1e-3, and the planted dK fault
+# (dK off by the factor 1 / scale) lies far above it
+TRAIN_GRAD_F32_REL_TOL = 1e-3
 TRAIN_GRAD_CAUGHT = ("dk_unscaled",)
 TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 
@@ -222,6 +248,13 @@ GN_KERNELS = ("gn_cluster_kernel", "gn_stats_kernel", "gn_apply_kernel")
 VS_LIBRARY_KIDS = WGMMA_KIDS + ("K2",)
 # K7's kernels, which must compile without a spill (ptxas)
 NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel")
+# library -> the f32 forms' kernels on mma.sync (3xTF32, csrc/f32_tiles.cuh):
+# each must show HMMA (the TF32 tensor-core instruction) in its SASS
+MMA_F32_KERNELS = {
+    "flash_attention": ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
+                        "flash_bwd_dkv_f32_kernel"),
+    "ffn": ("ffn_up_f32_kernel", "ffn_down_f32_kernel"),
+}
 
 KERNEL_META = {
     "K1": ("flash_attention", "layoutllm_t2i_torch/csrc/flash_attention.cu",
@@ -245,6 +278,15 @@ KERNEL_META = {
     "K8b": ("geglu_fused", "layoutllm_t2i_torch/csrc/matmul.cu",
             "layoutllm_t2i_tpu/ops/pallas/matmul.py:169"),
 }
+# the f32 forms, entries of their own: the same Pallas kernels (which take
+# any float type) and sources, f32 instantiations (K1, K4, K5a, K5b: 3xTF32
+# on mma.sync; K2, K3: f32 tiles, no products)
+F32_FORMS = ("K1", "K2", "K3", "K4", "K5a", "K5b")
+KERNEL_META.update({f"{kid}/f32": KERNEL_META[kid] for kid in F32_FORMS})
+# the arithmetic of each f32 form's products, for its rows
+F32_ARITH = {"K1": "3xTF32 mma.sync", "K4": "3xTF32 mma.sync",
+             "K5a": "3xTF32 mma.sync", "K5b": "3xTF32 mma.sync",
+             "K2": "f32, no products", "K3": "f32, no products"}
 # the training phases' batch (no CFG doubling), boxes and relation slots
 TRAIN_BATCH, TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS = 8, 30, 10
 # the int8 generation's images against the dense ones: mean |d| bound of
@@ -385,11 +427,30 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
+def is_f32(args) -> bool:
+    """A case of a kernel's f32 form: its args end in "f32"."""
+    return args[-1] == "f32"
+
+
+def has_lse(args) -> bool:
+    """A K1 case that also writes the lse (a training site)."""
+    return "lse" in args
+
+
+def row_kid(kid, args) -> str:
+    """The id a case's row is summed and held under: "K1/f32" for an f32
+    case, "K1" for bf16 (kernels/tolerance.py tol_id's ids)."""
+    return f"{kid}/f32" if is_f32(args) else kid
+
+
 def flops_peak(kid, args) -> float:
-    """The card's peak for a case's operations: K3's f32 rows (args end in
-    "f32") run outside the tensor cores, every other case on them in
-    bf16."""
-    return H100_F32_FLOPS if kid == "K3" and len(args) > 2 else H100_BF16_FLOPS
+    """The card's peak for a case's operations: the f32 forms' products run
+    on the tensor cores in TF32 (3xTF32 takes three, so no f32 kernel can
+    beat this bound), K2's and K3's f32 rows have no products (the f32 rate
+    outside the tensor cores), every bf16 case runs in bf16."""
+    if not is_f32(args):
+        return H100_BF16_FLOPS
+    return H100_F32_FLOPS if kid in ("K2", "K3") else H100_TF32_FLOPS
 
 
 def exp_ms(exps: float, clock_hz: float) -> float:
@@ -405,7 +466,8 @@ def exp_ms(exps: float, clock_hz: float) -> float:
 
 
 def attention_calls(b, n, m, heads, c, lse=False):
-    """K1 where multi_head_attention routes an unmasked site to it."""
+    """K1 where multi_head_attention routes an unmasked site to it (its
+    args: b, n, m, heads, d, then "lse" at a site that autograd records)."""
     from layoutllm_t2i_torch.ops.attention import FLASH_MIN_KV, FLASH_MIN_Q_LEN
 
     if n >= FLASH_MIN_Q_LEN and m >= FLASH_MIN_KV:
@@ -581,10 +643,12 @@ def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
 
 
 def training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, batch, max_boxes,
-                   max_relations):
+                   max_relations, f32=False):
     """One DiffusionTrainer step on a host batch: prepare_batch (VAE
     encode, CLIP on the captions, then every phrase and relation text in
-    one power-of-two batch) and the UNet forward of the loss."""
+    one power-of-two batch), always in f32 as the JAX trainer encodes, and
+    the UNet forward of the loss, in f32 with ``f32`` (the trainer's
+    default precision), else in bf16 (mixed precision)."""
     from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_training
     from layoutllm_t2i_torch.utils.buckets import pow2_bucket
 
@@ -595,24 +659,25 @@ def training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, batch, max_boxes,
     calls = vae_encoder_calls(vae_cfg, b, side) + clip_calls(clip_cfg, b * tok_len)
     if n_texts:
         calls += clip_calls(clip_cfg, pow2_bucket(n_texts) * tok_len)
-    return calls + unet_calls(unet_cfg, b, max_boxes, max_relations, tok_len,
-                              train=True)
+    unet = unet_calls(unet_cfg, b, max_boxes, max_relations, tok_len, train=True)
+    return f32_calls(calls) + (f32_calls(unet) if f32 else unet)
 
 
 def case_label(kid, args):
+    f32 = " f32" if is_f32(args) else ""
     if kid in ("K1", "K5a", "K5b"):
         b, n, m, h, d = args[:5]
-        return f"B{b} N{n} M{m} H{h} d{d}" + (" lse" if len(args) > 5 else "")
+        return f"B{b} N{n} M{m} H{h} d{d}" + (" lse" if has_lse(args) else "") + f32
     if kid == "K2":
-        n, hw, c, eps, silu = args
-        return f"N{n} HW{hw} C{c} eps{eps:g} silu{int(silu)}"
+        n, hw, c, eps, silu = args[:5]
+        return f"N{n} HW{hw} C{c} eps{eps:g} silu{int(silu)}" + f32
     if kid == "K3":
-        return "rows{} C{}".format(*args) + (" f32" if len(args) > 2 else "")
+        return "rows{} C{}".format(*args) + f32
     if kid == "K6":
         return "M{} K{}".format(*args)
     if kid in ("K8a", "K8b"):
         return "M{} K{} N{}".format(*args)
-    return "M{} K{} s{:g}".format(*args)
+    return "M{} K{} s{:g}".format(*args) + f32
 
 
 def kernel_cases(paths):
@@ -623,38 +688,41 @@ def kernel_cases(paths):
     for path, calls in paths.items():
         for kid, args in calls:
             where.setdefault((kid, args), []).append(path)
-            if kid == "K1" and len(args) > 5:
+            if kid == "K1" and has_lse(args):
                 for bwd in ("K5a", "K5b"):
-                    where.setdefault((bwd, args[:5]), []).append(path)
+                    where.setdefault((bwd, args[:5] + args[6:]), []).append(path)
     order = list(KERNEL_META)
-    keys = sorted(where, key=lambda key: order.index(key[0]))
+    keys = sorted(where, key=lambda key: order.index(row_kid(*key)))
     return [(kid, case_label(kid, args), args, sorted(set(where[kid, args])))
             for kid, args in keys]
 
 
 def make_case(kid, args, dev, gen):
-    """(kernel_fn, plain_fn, library_fn, flops, bytes) on fresh bf16 inputs."""
+    """(kernel_fn, plain_fn, library_fn, flops, bytes) on fresh inputs of
+    the case's type: bf16, or f32 for an f32 case (its library call in f32
+    too, with allow_tf32 off)."""
     from layoutllm_t2i_torch import kernels as K
 
-    bf = torch.bfloat16
-    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
-    if kid == "K1" and len(args) == 6:
-        return make_lse_case(args[:5], dev, rnd)
+    dt = torch.float32 if is_f32(args) else torch.bfloat16
+    item = 4 if is_f32(args) else 2
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(dt)
+    if kid == "K1" and has_lse(args):
+        return make_lse_case(args[:5], dev, rnd, item)
     if kid in ("K5a", "K5b"):
-        return make_bwd_case(kid, args, dev, rnd)
+        return make_bwd_case(kid, args[:5], dev, rnd, item)
     if kid == "K1":
-        b, n, m, h, d = args
+        b, n, m, h, d = args[:5]
         q, k, v = rnd(b, n, h * d), rnd(b, m, h * d), rnd(b, m, h * d)
         sc = d ** -0.5
         heads = lambda t: t.view(t.shape[0], t.shape[1], h, d).transpose(1, 2)
         lib = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
                                                      scale=sc)
         flops = 4.0 * b * h * n * m * d
-        nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d)
+        nbytes = item * (2 * b * n * h * d + 2 * b * m * h * d)
         return (lambda: K.flash_attention(q, k, v, h, sc),
                 lambda: K.flash_attention_plain(q, k, v, h, sc), lib, flops, nbytes)
     if kid == "K2":
-        n, hw, c, eps, silu = args
+        n, hw, c, eps, silu = args[:5]
         x = rnd(n, hw, c, scale=2.0) + 0.5
         w, bb = rnd(c, scale=0.5) + 1.0, rnd(c, scale=0.5)
         side = int(math.isqrt(hw))
@@ -665,13 +733,11 @@ def make_case(kid, args, dev, gen):
             return F.silu(y) if silu else y
         return (lambda: K.group_norm(x, w, bb, 32, eps, silu),
                 lambda: K.group_norm_plain(x, w, bb, 32, eps, silu), lib,
-                10.0 * x.numel(), 2.0 * (2 * x.numel() + 2 * c))
+                10.0 * x.numel(), item * (2 * x.numel() + 2 * c))
     if kid == "K3":
         rows, c = args[:2]
         x = rnd(rows, c, scale=2.0) + 0.5
         w, bb = rnd(c, scale=0.5) + 1.0, rnd(c, scale=0.5)
-        if len(args) > 2:  # the f32 form (the reward's CLIP towers)
-            x, w, bb = x.float(), w.float(), bb.float()
         return (lambda: K.layer_norm(x, w, bb, 1e-5),
                 lambda: K.layer_norm_plain(x, w, bb, 1e-5),
                 lambda: F.layer_norm(x, (c,), w, bb, 1e-5),
@@ -681,7 +747,7 @@ def make_case(kid, args, dev, gen):
         return make_gemm_case(kid, args, rnd)
     if kid == "K6":
         return make_ffn_res_case(args, rnd)
-    m, k, s = args
+    m, k, s = args[:3]
     inner = 4 * k
     x = rnd(m, k)
     lw, lb = rnd(k, scale=0.2) + 1.0, rnd(k, scale=0.2)
@@ -695,7 +761,7 @@ def make_case(kid, args, dev, gen):
         a, g = F.linear(F.layer_norm(x, (k,), lw, lb, 1e-5), w1, b1).chunk(2, -1)
         return x + s * F.linear(a * F.gelu(g), w2, b2)
     flops = 6.0 * m * k * inner
-    nbytes = 2.0 * (2 * m * k + 3 * inner * k + 2 * inner + 3 * k)
+    nbytes = item * (2 * m * k + 3 * inner * k + 2 * inner + 3 * k)
     return (lambda: K.ffn_ln_geglu(x, lw, lb, w1, b1, w2, b2, s_t),
             lambda: K.ffn_ln_geglu_plain(x, lw, lb, w1, b1, w2, b2, s_t),
             lib, flops, nbytes)
@@ -767,9 +833,10 @@ def make_gemm_case(kid, args, rnd):
             lib, 4.0 * m * k * n, 2.0 * (m * k + 2 * n * k + m * n + 2 * n))
 
 
-def make_lse_case(args, dev, rnd):
+def make_lse_case(args, dev, rnd, item=2):
     """K1 as the training forward runs it: (out, lse) through the kernel's
-    lse output, against the plain forward's (out, lse)."""
+    lse output, against the plain forward's (out, lse); operands of
+    ``item`` bytes."""
     from layoutllm_t2i_torch import kernels as K
     from layoutllm_t2i_torch.kernels.flash_attention import _launch_fwd
 
@@ -780,17 +847,18 @@ def make_lse_case(args, dev, rnd):
     lib = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
                                                  scale=sc)
     flops = 4.0 * b * h * n * m * d
-    nbytes = 2.0 * (2 * b * n * h * d + 2 * b * m * h * d) + 4.0 * b * h * n
+    nbytes = item * (2 * b * n * h * d + 2 * b * m * h * d) + 4.0 * b * h * n
     return (lambda: _launch_fwd(q, k, v, h, sc, need_lse=True),
             lambda: K.flash_attention_lse_plain(q, k, v, h, sc), lib, flops,
             nbytes)
 
 
-def make_bwd_case(kid, args, dev, rnd):
+def make_bwd_case(kid, args, dev, rnd, item=2):
     """K5a (dQ) or K5b (dK, dV) on the lse and delta of the plain forward,
-    against the plain backward. The library call is SDPA's whole backward
-    (dQ, dK and dV in one call): its forward plus backward, timed as one
-    closure, minus its forward, timed alone; both rows list it."""
+    against the plain backward; operands of ``item`` bytes. The library
+    call is SDPA's whole backward (dQ, dK and dV in one call): its forward
+    plus backward, timed as one closure, minus its forward, timed alone;
+    both rows list it."""
     from layoutllm_t2i_torch import kernels as K
 
     b, n, m, h, d = args
@@ -805,22 +873,22 @@ def make_bwd_case(kid, args, dev, rnd):
     doh = heads(dout)
     sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=sc)
     lib = (lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), sdpa)
-    io = 2.0 * 4 * b * n * h * d + 4.0 * 2 * b * h * n  # q, k, v, dO; lse, delta
+    io = item * 4 * b * n * h * d + 4.0 * 2 * b * h * n  # q, k, v, dO; lse, delta
     if kid == "K5a":
         # S, dP and dQ: three N x M x d products
         return (lambda: K.flash_attention_bwd_dq(q, k, v, dout, lse, delta, h, sc),
                 lambda: K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, h, sc)[0],
-                lib, 6.0 * b * h * n * m * d, io + 2.0 * b * n * h * d)
+                lib, 6.0 * b * h * n * m * d, io + item * b * n * h * d)
     # S, dP, dV and dK: four
     return (lambda: K.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h, sc),
             lambda: K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, h, sc)[1:],
-            lib, 8.0 * b * h * n * m * d, io + 2.0 * 2 * b * m * h * d)
+            lib, 8.0 * b * h * n * m * d, io + item * 2 * b * m * h * d)
 
 
-def gn_plan(n, hw, c, groups=32):
+def gn_plan(n, hw, c, groups=32, itemsize=2):
     """K2's plan (kernels/group_norm.py plan_group_norm) for a row label."""
     gn = importlib.import_module("layoutllm_t2i_torch.kernels.group_norm")
-    return gn.plan_group_norm(n, hw, c, groups)
+    return gn.plan_group_norm(n, hw, c, groups, itemsize)
 
 
 def unet_eval_device_ms(unet_cfg, tok_len, device_ms_by_args) -> float:
@@ -888,32 +956,38 @@ def phase_build():
     t0 = time.perf_counter()
     log = build.build_all()
     # the wgmma kernels must run on the tensor cores' wgmma path (HGMMA in
-    # SASS), each in every instantiation
-    hgmma, missing, ptxas, c7515 = {}, [], {}, []
+    # SASS), each in every instantiation; the f32 forms' product kernels on
+    # mma.sync's (HMMA, TF32)
+    hgmma, hmma, missing, ptxas, c7515 = {}, {}, [], {}, []
     for lib in build.SOURCES:
         text = (build.BUILD_DIR / f"{lib}.log").read_text()
         if "C7515" in text:
             c7515.append(lib)
         names = WGMMA_KERNELS.get(lib, ())
-        shown = names + (GN_KERNELS if lib == "group_norm" else ())
+        mma_names = MMA_F32_KERNELS.get(lib, ())
+        shown = names + mma_names + (GN_KERNELS if lib == "group_norm" else ())
         ptxas.update({fn: rec for fn, rec in ptxas_kernels(text).items()
                       if any(name in fn for name in shown)})
-        if not names:
-            continue
-        found = {fn: n for fn, n in sass_opcode_counts(
-            build.lib_path(lib), "HGMMA").items()
-            if any(name in fn for name in names)}
-        hgmma.update(found)
-        missing += [name for name in names
-                    if not any(name in fn for fn in found)]
+        for opcode, want, found_by in (("HGMMA", names, hgmma),
+                                       ("HMMA", mma_names, hmma)):
+            if not want:
+                continue
+            found = {fn: n for fn, n in sass_opcode_counts(
+                build.lib_path(lib), opcode).items()
+                if any(name in fn for name in want)}
+            found_by.update(found)
+            missing += [name for name in want
+                        if not any(name in fn for fn in found)]
     spills = {fn: rec for fn, rec in ptxas.items()
               if any(name in fn for name in NO_SPILL_KERNELS)
               and (rec.get("spill_stores") or rec.get("spill_loads"))}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libs": log, "hgmma": hgmma, "ptxas": ptxas, "c7515": c7515})
-    if missing or not all(hgmma.values()):
-        raise SmokeFailure(f"wgmma kernels without HGMMA in their SASS: "
-                           f"{hgmma}, none found of {missing}")
+          "libs": log, "hgmma": hgmma, "hmma": hmma, "ptxas": ptxas,
+          "c7515": c7515})
+    if missing or not all(hgmma.values()) or not all(hmma.values()):
+        raise SmokeFailure(f"tensor-core kernels without HGMMA (wgmma) or "
+                           f"HMMA (the f32 forms) in their SASS: {hgmma}, "
+                           f"{hmma}, none found of {missing}")
     if spills or c7515:
         raise SmokeFailure(f"ptxas spills in {sorted(spills)} or C7515 "
                            f"(serialised wgmma) in the logs of {c7515}")
@@ -971,8 +1045,19 @@ def host_path_checks() -> dict:
     return rec
 
 
+def path_counts() -> dict:
+    """Kernel launches since the counts were last set to 0, each f32 form
+    apart: {"K1": bf16 launches, "K1/f32": f32 launches, ...}."""
+    from layoutllm_t2i_torch.kernels import f32_launch_counts, launch_counts
+
+    counts, f32 = launch_counts(), f32_launch_counts()
+    out = {kid: n - f32.get(kid, 0) for kid, n in counts.items()}
+    out.update({f"{kid}/f32": n for kid, n in f32.items()})
+    return out
+
+
 def phase_kernels(cases):
-    from layoutllm_t2i_torch.kernels.tolerance import agreement
+    from layoutllm_t2i_torch.kernels.tolerance import agreement, tol_id
 
     host_floor = host_path_checks()
     dev = torch.device("cuda")
@@ -986,27 +1071,33 @@ def phase_kernels(cases):
                      "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0,
                      "host_us": [], "device_ms_by_args": {}}
                for kid in KERNEL_META}
-    pair = {key: 0.0 for key in PAIR_SUMS}
-    pair["shapes"], pair["max_vs_library"] = 0, 0.0
-    # K3's f32 rows (the reward's towers), summed apart as well
-    k3_f32 = {key: 0.0 for key in F32_SUMS}
-    k3_f32.update(shapes=0, max_abs_err=0.0)
+    # the K5 pairs' sums, bf16 and f32 apart
+    pairs = {}
+    for key in ("bf16", "f32"):
+        pairs[key] = {k: 0.0 for k in PAIR_SUMS}
+        pairs[key]["shapes"], pairs[key]["max_vs_library"] = 0, 0.0
     half = {}  # (K5a or K5b, shape) -> its record, until the pair is complete
     failed = []
     for kid, label, args, paths in cases:
+        rid = row_kid(kid, args)
         kern, plain, lib, flops, nbytes = make_case(kid, args, dev, gen)
         out = kern()
         ref = plain()
         torch.cuda.synchronize()
         # K1 with its lse: the output to K1's tolerance, the lse to its own
-        agree = agreement(("K1", "lse") if label.endswith("lse") else kid, out, ref)
+        dt = torch.float32 if is_f32(args) else torch.bfloat16
+        tid = (tol_id("K1", dt), tol_id("lse", dt)) if has_lse(args) and kid == "K1" \
+            else tol_id(kid, dt)
+        agree = agreement(tid, out, ref)
         del out, ref
         peak = flops_peak(kid, args)
         b_ms, b_by = bound(flops, nbytes, peak)
-        rec = {"phase": "kernels", "kernel": kid, "shape": label, "paths": paths,
+        rec = {"phase": "kernels", "kernel": rid, "shape": label, "paths": paths,
                **agree,
                "ms": time_ms(kern), "plain_ms": time_ms(plain),
                "library_ms": library_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+        if is_f32(args):
+            rec["arith"] = F32_ARITH[kid]
         rec["device_ms"], rec["host_us"] = device_time(kern)
         rec["library_device_ms"] = library_ms(lib, device_ms)
         if kid in ("K1", "K5a", "K5b"):
@@ -1016,15 +1107,15 @@ def phase_kernels(cases):
             rec["vs_library"] = rec["ms"] / rec["library_ms"]
             rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
         if kid == "K2":
-            plan = gn_plan(*args[:3])
+            plan = gn_plan(*args[:3], itemsize=4 if is_f32(args) else 2)
             rec.update(path=plan.path, cluster=plan.cluster, slab=plan.slab)
         emit(rec)
         if kid in ("K5a", "K5b"):
             half[kid, label] = rec
             if ("K5a", label) in half and ("K5b", label) in half:
                 pair_record(half["K5a", label], half["K5b", label], args,
-                            clock_hz, pair)
-        agg = summary[kid]
+                            clock_hz, pairs["f32" if is_f32(args) else "bf16"])
+        agg = summary[rid]
         for key in ("max_abs_err", "max_rel_err", "rms_rel_err"):
             agg[key] = max(agg[key], agree[key])
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
@@ -1035,32 +1126,26 @@ def phase_kernels(cases):
         agg["shapes"] += 1
         agg["host_us"].append(rec["host_us"])
         agg["device_ms_by_args"][args] = rec["device_ms"]
-        if kid == "K3" and len(args) > 2:
-            for key in F32_SUMS:
-                k3_f32[key] += rec[key]
-            k3_f32["shapes"] += 1
-            k3_f32["max_abs_err"] = max(k3_f32["max_abs_err"], agree["max_abs_err"])
         if not agree["ok"]:
-            failed.append(f"{kid} {label}")
+            failed.append(f"{rid} {label}")
         del kern, plain, lib
         torch.cuda.empty_cache()
     if failed:
         raise SmokeFailure(f"kernel disagrees with its plain version: {failed}")
-    if pair["shapes"]:
-        pair["vs_library"] = pair["ms"] / pair["library_ms"]
-        pair["device_vs_library"] = pair["device_ms"] / pair["library_device_ms"]
+    for pair in pairs.values():
+        if pair["shapes"]:
+            pair["vs_library"] = pair["ms"] / pair["library_ms"]
+            pair["device_vs_library"] = pair["device_ms"] / pair["library_device_ms"]
     for agg in summary.values():
         agg["host_us"] = float(np.median(agg["host_us"])) if agg["host_us"] else None
     emit({"phase": "kernels", "host_us_median": {
         kid: agg["host_us"] for kid, agg in summary.items()},
         "host_floor_us": host_floor["host_floor_us"]})
-    return summary, pair, k3_f32
+    return summary, pairs
 
 
 PAIR_SUMS = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
              "exp_ms")
-F32_SUMS = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
-            "library_device_ms")
 
 
 def pair_work(args):
@@ -1068,11 +1153,13 @@ def pair_work(args):
     dQ, dK and dV from q, k, v, dO, lse and delta, as SDPA's backward
     computes them. S, dP, dQ, dK and dV are five N x M x d products, each
     counted once, and every operand is read once and every gradient written
-    once, although the pair's design recomputes S and dP in both kernels."""
-    b, n, m, h, d = args
+    once, although the pair's design recomputes S and dP in both kernels.
+    An f32 case (args ending in "f32") moves 4-byte operands."""
+    b, n, m, h, d = args[:5]
+    item = 4 if is_f32(args) else 2
     flops = 10.0 * b * h * n * m * d
-    # bf16 q, dO and dQ; k, v, dK and dV; f32 lse and delta
-    nbytes = 2.0 * (3 * b * n * h * d + 4 * b * m * h * d) + 4.0 * 2 * b * h * n
+    # q, dO and dQ; k, v, dK and dV; f32 lse and delta
+    nbytes = item * (3 * b * n * h * d + 4 * b * m * h * d) + 4.0 * 2 * b * h * n
     return flops, nbytes
 
 
@@ -1084,13 +1171,16 @@ def pair_record(dq, dkv, args, clock_hz, pair) -> None:
     exponentials), not the sum of the two rows'. Adds the pair's numbers to
     the running sums in ``pair``."""
     b, n, m, h = args[:4]
-    rec = {"phase": "kernels", "kernel": "K5 pair", "shape": dq["shape"],
-           "paths": dq["paths"], "ok": dq["ok"] and dkv["ok"]}
+    rec = {"phase": "kernels",
+           "kernel": "K5 pair" + (" f32" if is_f32(args) else ""),
+           "shape": dq["shape"], "paths": dq["paths"],
+           "ok": dq["ok"] and dkv["ok"]}
     for key in ("ms", "device_ms"):
         rec[key] = dq[key] + dkv[key]
     for key in ("library_ms", "library_device_ms"):
         rec[key] = 0.5 * (dq[key] + dkv[key])
-    rec["bound_ms"], rec["bound_by"] = bound(*pair_work(args))
+    rec["bound_ms"], rec["bound_by"] = bound(*pair_work(args),
+                                             flops_peak("K5a", args))
     rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
     rec["vs_library"] = rec["ms"] / rec["library_ms"]
     rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
@@ -1238,7 +1328,7 @@ def run_generation(models, label: str, **extra):
     kernel launches stay out of the timed run), then PLMS-50 on REQUESTS
     from seed 0 with the launches counted from 0. Returns (record, launch
     counts, images)."""
-    from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
+    from layoutllm_t2i_torch.kernels import reset_launches
     from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
 
     pipe = exact_pipeline(models)
@@ -1253,7 +1343,7 @@ def run_generation(models, label: str, **extra):
     img = pipe.generate(prompts, layouts, relations, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = path_counts()
     ok = (img.shape == (2, 512, 512, 3) and bool(np.isfinite(img).all())
           and float(img.min()) >= 0.0 and float(img.max()) <= 1.0)
     grounded = int((pipe.tables.fuser_scale != 0).sum())
@@ -1328,7 +1418,7 @@ def phase_fast(models, exact_img):
     cond-only, key and propagated), then the timed generation with its
     launches and UNet evaluations counted from 0; its images against the
     exact path's."""
-    from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
+    from layoutllm_t2i_torch.kernels import reset_launches
     from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
 
     prompts, layouts, relations = REQUESTS
@@ -1346,7 +1436,7 @@ def phase_fast(models, exact_img):
         img = pipe.generate(prompts, layouts, relations, seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = path_counts()
     planned = unet_evaluations(pipe, b)
     want = {"cfg": sum(e[0] == 2 * b for e in planned),
             "cond_only": sum(e[0] == b for e in planned),
@@ -1530,7 +1620,7 @@ def phase_bench(profile=None):
     this process (random weights from seed 0, bf16, batch 8, iters 3): its
     JSON line, then the checks. Launches counted from 0 over its runs."""
     from layoutllm_t2i_torch.cli.bench import Bench, parse_args
-    from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
+    from layoutllm_t2i_torch.kernels import reset_launches
     from layoutllm_t2i_torch.utils.flops import generation_flops
 
     bench = Bench(parse_args([]))
@@ -1538,7 +1628,7 @@ def phase_bench(profile=None):
     t0 = time.perf_counter()
     out, images = bench.run()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = path_counts()
     print(json.dumps(out), flush=True)
     exact, fast = bench_pipelines(tables_models())
     want = {mode: generation_flops(p, BENCH_BATCH)["total"] / BENCH_BATCH / 1e12
@@ -1653,7 +1743,7 @@ def phase_cli(work_dir: str):
     import threading
 
     from layoutllm_t2i_torch.cli import demo, gligen_inference, txt2img
-    from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
+    from layoutllm_t2i_torch.kernels import reset_launches
 
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
@@ -1708,7 +1798,7 @@ def phase_cli(work_dir: str):
         srv.server_close()
         thread.join(60)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = path_counts()
     checks = {}
     for name, (paths, spec) in runs.items():
         pixels = [png_pixels(open(path, "rb").read()) for path in paths]
@@ -1785,7 +1875,7 @@ RL_EPOCHS, RL_RESUME_EPOCHS = 2, 1
 
 
 def f32_calls(calls):
-    """K3 calls of an f32 model: their args end in "f32"."""
+    """The calls of an f32 model: their args end in "f32"."""
     return [(kid, args + ("f32",)) for kid, args in calls]
 
 
@@ -1936,7 +2026,8 @@ def phase_rl(work_dir: str):
         "--resume", run_dir))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, f32_launches = K.launch_counts(), K.layer_norm.f32_launches
+    counts = path_counts()
+    f32_launches = counts["K3/f32"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     metrics = []
     for d in (run_dir, resumed_dir):
@@ -1962,6 +2053,8 @@ def phase_rl(work_dir: str):
           and len(values) == 2 * epochs and all(math.isfinite(v) for v in values)
           and steps == list(range(1, epochs + 1)) and f32_launches > 0
           and all(counts[kid] > 0 for kid in ("K1", "K2", "K3", "K4")))
+    ok = ok and all(counts[f"{kid}/f32"] == 0 for kid in ("K1", "K2", "K4", "K5a",
+                                                           "K5b"))
     emit({"phase": "rl", "ok": ok, "card": nvidia_smi_line(),
           "reward_check": check, "wall_s": wall,
           "epochs": epochs, "rollouts_per_epoch": RL_N,
@@ -1981,7 +2074,7 @@ def phase_rl(work_dir: str):
             "the resumed Adam step count does not continue, or K1-K4 not "
             "launched")
     shutil.rmtree(work_dir, ignore_errors=True)
-    return counts, f32_launches
+    return counts
 
 
 def profile_generation(models, label: str, profile, suffix: str) -> None:
@@ -2102,7 +2195,7 @@ def planted_fault(name: str):
         return (dk / scale if name == "dk_unscaled" else dk), dv
 
     # the wrappers count through their module's names: these get the counts
-    dq.launches = dkv.launches = 0
+    dq.launches = dkv.launches = dq.f32_launches = dkv.f32_launches = 0
     fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = dq, dkv
     try:
         yield
@@ -2117,20 +2210,25 @@ def rel_l2(grads, ref) -> float:
     return math.sqrt(num / den)
 
 
-def phase_train_grad():
+def phase_train_grad(mixed_precision: bool = True):
     """One full-width loss backward at batch 2 through the kernels and
     again through the plain versions, from the same weights and draws;
-    then once with each planted K5 fault."""
-    from layoutllm_t2i_torch.kernels import launch_counts, plain_route, reset_launches
+    then once with each planted K5 fault. ``mixed_precision`` False: phase
+    train-grad-f32, every operand f32 (the kernels' f32 forms), held to
+    TRAIN_GRAD_F32_REL_TOL."""
+    from layoutllm_t2i_torch.kernels import plain_route, reset_launches
     from layoutllm_t2i_torch.pipeline.loaders import random_models
     from layoutllm_t2i_torch.training.train_step import TrainStep, TrainStepConfig
 
+    label = "train-grad" if mixed_precision else "train-grad-f32"
+    tol = TRAIN_GRAD_REL_TOL if mixed_precision else TRAIN_GRAD_F32_REL_TOL
     dev = torch.device("cuda")
     models = random_models(small=False, device=dev, dtype=torch.float32, seed=0)
     n_alpha = set_alphas(models.unet_params, 0.5)
     step = TrainStep(TrainStepConfig(unet_cfg=models.unet_cfg,
                                      schedule=models.schedule,
-                                     mixed_precision=True, warmup_steps=0),
+                                     mixed_precision=mixed_precision,
+                                     warmup_steps=0),
                      models.unet_params)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -2143,11 +2241,11 @@ def phase_train_grad():
     reset_launches()
     loss_k, g_k = grads()
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = path_counts()
     with plain_route():
         loss_p, g_p = grads()
     torch.cuda.synchronize()
-    plain_launched = launch_counts() != counts
+    plain_launched = path_counts() != counts
     rel = rel_l2(g_k, g_p)
     per_tensor = {name: float((a - b).norm() / max(float(b.norm()), 1e-30))
                   for name, a, b in zip(step.params, g_k, g_p)}
@@ -2160,22 +2258,28 @@ def phase_train_grad():
             g_f = grads()[1]
         faults[name] = rel_l2(g_f, g_p)
         del g_f
-    ok = (finite and not plain_launched and rel <= TRAIN_GRAD_REL_TOL
-          and all(faults[name] > TRAIN_GRAD_REL_TOL for name in TRAIN_GRAD_CAUGHT))
-    emit({"phase": "train-grad", "ok": ok, "batch": 2, "alphas_set": n_alpha,
+    # the step's kernels in its precision: all five, f32 forms or bf16
+    forms = ("K1", "K2", "K3", "K4", "K5a", "K5b")
+    launched = all(counts[kid if mixed_precision else f"{kid}/f32"] > 0
+                   for kid in forms)
+    ok = (finite and not plain_launched and rel <= tol and launched
+          and all(faults[name] > tol for name in TRAIN_GRAD_CAUGHT))
+    emit({"phase": label, "ok": ok, "batch": 2, "alphas_set": n_alpha,
+          "mixed_precision": mixed_precision,
           "trainable_tensors": len(g_p),
           "trainable_params": sum(g.numel() for g in g_p),
           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
-          "grad_rel_l2_err": rel, "tol_rel_l2": TRAIN_GRAD_REL_TOL,
+          "grad_rel_l2_err": rel, "tol_rel_l2": tol,
           "planted_fault_rel_l2_err": faults,
           "worst_tensor": worst, "worst_tensor_rel_l2_err": per_tensor[worst],
           "worst_tensor_grad_norm": float(g_p[list(step.params).index(worst)].norm()),
           "grad_norm": math.sqrt(sum(float(g.double().pow(2).sum()) for g in g_p)),
           "launches": counts})
     if not ok:
-        raise SmokeFailure("loss backward: the kernel route lies outside the "
+        raise SmokeFailure(f"{label}: the kernel route lies outside the "
                            "bound, a planted fault it must catch inside it, "
-                           "or a plain-route call launched a kernel")
+                           "a kernel of the step did not launch, or a "
+                           "plain-route call launched a kernel")
     del models, step, g_p
     torch.cuda.empty_cache()
 
@@ -2183,21 +2287,24 @@ def phase_train_grad():
 TRAIN_STEPS, TRAIN_WARMUP = 7, 2
 
 
-def phase_train(work_dir: str):
+def phase_train(work_dir: str, mixed_precision: bool = True):
     """DiffusionTrainer at full width; returns (launch counts, trainer, data
-    iterator)."""
+    iterator). ``mixed_precision`` False: phase train-f32, TrainerConfig()'s
+    own precision (f32 throughout, the JAX package's default)."""
     from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
-    from layoutllm_t2i_torch.kernels import launch_counts, reset_launches
+    from layoutllm_t2i_torch.kernels import reset_launches
     from layoutllm_t2i_torch.pipeline.loaders import random_models
     from layoutllm_t2i_torch.training.diffusion_trainer import (
         DiffusionTrainer, TrainerConfig)
 
+    label = "train" if mixed_precision else "train-f32"
     shutil.rmtree(work_dir, ignore_errors=True)  # no auto-resume from a past run
+    # mixed_precision False is TrainerConfig()'s default
     cfg = TrainerConfig(output_root=work_dir, name="chip_smoke",
                         batch_size=TRAIN_BATCH, total_iters=TRAIN_STEPS,
                         save_every_iters=10 ** 9, log_every=1,
                         warmup_steps=0, trainable_mode="rela_fuse",
-                        optimizer="adamw", mixed_precision=True,
+                        optimizer="adamw", mixed_precision=mixed_precision,
                         max_boxes=TRAIN_MAX_BOXES,
                         max_relations=TRAIN_MAX_RELATIONS)
     models = random_models(small=False, device="cuda", dtype=torch.float32,
@@ -2214,7 +2321,7 @@ def phase_train(work_dir: str):
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = path_counts()
     trained = trainer.train_step.params
     changed = sum(not torch.equal(p, before[n]) for n, p in trained.items())
     frozen_same = all(torch.equal(p, before[n]) for n, p in
@@ -2226,9 +2333,30 @@ def phase_train(work_dir: str):
     losses = [r["loss"] for r in recs]
     timed = [r["sec_per_iter"] for r in recs[TRAIN_WARMUP:]]
     s_step = sum(timed) / len(timed)
+    # the launches of one step, walked from the configs (the data's shape
+    # is the same every step): prepare_batch's encoders in f32 (K1 at
+    # d 512 in the VAE), the UNet in the step's precision
+    m = trainer.models
+    walk = training_calls(m.unet_cfg, m.vae_cfg, m.clip_cfg,
+                          m.clip_cfg.max_length,
+                          next(synthetic_layout_batches(cfg.batch_size, 512,
+                                                        cfg.max_boxes)),
+                          cfg.max_boxes, cfg.max_relations,
+                          f32=not mixed_precision)
+    per_step = {}
+    for kid, args in walk:
+        per_step[row_kid(kid, args)] = per_step.get(row_kid(kid, args), 0) + 1
+        if kid == "K1" and has_lse(args):
+            for bwd in ("K5a", "K5b"):
+                key = row_kid(bwd, args)
+                per_step[key] = per_step.get(key, 0) + 1
+    walk_ok = all(counts[kid] == n * TRAIN_STEPS for kid, n in per_step.items()
+                  if kid in ("K1", "K1/f32", "K5a", "K5b", "K5a/f32", "K5b/f32"))
     ok = (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)
-          and changed == len(trained) and frozen_same)
-    emit({"phase": "train", "ok": ok, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+          and changed == len(trained) and frozen_same and walk_ok
+          and all(counts[kid] > 0 for kid in per_step))
+    emit({"phase": label, "ok": ok, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+          "mixed_precision": mixed_precision,
           "warmup_steps": TRAIN_WARMUP, "alphas_set": n_alpha,
           "s_per_step": s_step, "s_per_step_each": timed,
           "images_per_s": TRAIN_BATCH / s_step,
@@ -2238,15 +2366,27 @@ def phase_train(work_dir: str):
           "trainable_params": sum(p.numel() for p in trained.values()),
           "trainable_changed": changed, "frozen_bit_identical": frozen_same,
           "launches": counts,
-          "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()}})
+          "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+          "walked_per_step": per_step,
+          "launches_match_walk": walk_ok})
     if not ok:
-        raise SmokeFailure("training: a loss is not finite, a rela_fuse "
-                           "tensor did not change or a frozen one did")
+        raise SmokeFailure(f"{label}: a loss is not finite, a rela_fuse "
+                           "tensor did not change or a frozen one did, or a "
+                           "kernel of the walk launched no time or other "
+                           "than the walk's count")
     return counts, trainer, data
 
 
 # device-time groups of the profile, matched in order against kernel names
+# (the f32 instantiations of K2's and K3's templates before their bf16 ones)
 PROFILE_GROUPS = (
+    ("K1/f32 flash_attention", ("flash_fwd_f32_kernel",)),
+    ("K5a/f32 flash_attention_bwd_dq", ("flash_bwd_dq_f32_kernel",)),
+    ("K5b/f32 flash_attention_bwd_dkv", ("flash_bwd_dkv_f32_kernel",)),
+    ("K2/f32 group_norm", tuple(f"{k}<float>" for k in GN_KERNELS)),
+    ("K3/f32 layer_norm", ("ln_kernel<float",)),
+    ("K4/f32 ffn_ln_geglu", ("ffn_norm_rows_f32_kernel", "ffn_up_f32_kernel",
+                             "ffn_down_f32_kernel")),
     ("K1 flash_attention", ("flash_fwd_kernel",)),
     ("K5a flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K5b flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
@@ -2314,7 +2454,7 @@ def main(argv=None) -> int:
                          "exact path at batch 8, and one more training "
                          "step, and write their per-kernel device times "
                          "here and to JSON_fast, JSON_int8, JSON_routes, "
-                         "JSON_bench and JSON_train")
+                         "JSON_bench, JSON_train and JSON_train-f32")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2369,11 +2509,12 @@ def main(argv=None) -> int:
             gen_paths["rl"] = rl_calls(unet_cfg, vae_cfg, clip_cfg,
                                        CLIPTextConfig(), CLIPVisionConfig(),
                                        tok_len)
-            summary, k5_pair, k3_f32 = phase_kernels(kernel_cases({
+            summary, k5_pairs = phase_kernels(kernel_cases({
                 **gen_paths,
-                "train": training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
+                **{name: training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
                                         train_batch, TRAIN_MAX_BOXES,
-                                        TRAIN_MAX_RELATIONS)}))
+                                        TRAIN_MAX_RELATIONS, f32=f32)
+                   for name, f32 in (("train", False), ("train-f32", True))}}))
             del train_batch
             models = random_models(small=False, device="cuda",
                                    dtype=torch.bfloat16, seed=0)
@@ -2396,19 +2537,24 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             cli_counts = phase_cli(cli_dir)
             torch.cuda.empty_cache()
-            rl_counts, rl_f32_launches = phase_rl(rl_dir)
+            rl_counts = phase_rl(rl_dir)
             torch.cuda.empty_cache()
-            phase_train_grad()
-            train_counts, trainer, data = phase_train(work_dir)
-            if args.profile:
-                it = iter(data)
-                profile_device(
-                    lambda: trainer.train_step(trainer.prepare_batch(next(it)),
-                                               trainer.generator),
-                    "profile-train",
-                    os.path.splitext(args.profile)[0] + "_train.json",
-                    batch=TRAIN_BATCH)
-            trainer.close()
+            train_counts = {}
+            for mixed, suffix in ((True, ""), (False, "-f32")):
+                phase_train_grad(mixed_precision=mixed)
+                train_counts[suffix], trainer, data = phase_train(
+                    work_dir, mixed_precision=mixed)
+                if args.profile:
+                    it = iter(data)
+                    profile_device(
+                        lambda: trainer.train_step(
+                            trainer.prepare_batch(next(it)), trainer.generator),
+                        f"profile-train{suffix}",
+                        os.path.splitext(args.profile)[0] + f"_train{suffix}.json",
+                        batch=TRAIN_BATCH)
+                trainer.close()
+                del trainer, data
+                torch.cuda.empty_cache()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2419,16 +2565,21 @@ def main(argv=None) -> int:
     # each run launches its path's kernels: the exact and the fast
     # generation, the bench, the CLIs and the RL trainer K1-K4 (K3 also in
     # f32, in the reward), the int8 generation K7, the split routes K6, K8a
-    # and K8b, training K1-K5b; the line adds the eight runs
+    # and K8b, mixed-precision training K1-K5b in bf16 and its encoders'
+    # K1 (d 512), K2 and K3 in f32, f32 training every f32 form; the line
+    # adds the nine runs
     runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
             "routes": routes_counts, "bench": bench_counts, "cli": cli_counts,
-            "rl": rl_counts, "train": train_counts}
+            "rl": rl_counts, "train": train_counts[""],
+            "train-f32": train_counts["-f32"]}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
     generation = ("K1", "K2", "K3", "K4")
+    encoders = ("K1/f32", "K2/f32", "K3/f32")
     expected = {"generate": generation, "fast": generation, "int8": ("K7",),
                 "routes": ("K6", "K8a", "K8b"), "bench": generation,
-                "cli": generation, "rl": generation,
-                "train": ("K1", "K2", "K3", "K4", "K5a", "K5b")}
+                "cli": generation, "rl": generation + ("K3/f32",),
+                "train": ("K1", "K2", "K3", "K4", "K5a", "K5b") + encoders,
+                "train-f32": tuple(f"{kid}/f32" for kid in F32_FORMS)}
     missing = [f"{kid} ({path})" for path, kids in expected.items()
                for kid in kids if runs[path][kid] <= 0]
     line = []
@@ -2443,17 +2594,18 @@ def main(argv=None) -> int:
                      "library_ms": s["library_ms"], "device_ms": s["device_ms"],
                      "library_device_ms": s["library_device_ms"],
                      "host_us_median": s["host_us"], "shapes": s["shapes"]})
-        if kid in VS_LIBRARY_KIDS:
+        base = kid.split("/")[0]
+        if base in VS_LIBRARY_KIDS:
             line[-1]["vs_library"] = s["ms"] / s["library_ms"]
             line[-1]["device_vs_library"] = (s["device_ms"]
                                              / s["library_device_ms"])
         if kid == "K2":
             line[-1]["unet_eval_device_ms"] = unet_eval_device_ms(
                 unet_cfg, tok_len, s["device_ms_by_args"])
-        if kid in ("K5a", "K5b"):
-            line[-1]["pair"] = k5_pair
-        if kid == "K3":  # its f32 form's rows and phase rl's f32 launches
-            line[-1]["f32"] = {**k3_f32, "launches": rl_f32_launches}
+        if base in ("K5a", "K5b"):
+            line[-1]["pair"] = k5_pairs["f32" if kid != base else "bf16"]
+        if kid != base:
+            line[-1]["arith"] = F32_ARITH[base]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if missing:
         print(f"chip_smoke: FAILED: no launches of {missing} on the main path",

@@ -1,9 +1,10 @@
 """Relation-aware diffusion training CLI (layoutllm_t2i_tpu/cli/
 train_diffusion.py; GLIGEN/main.py equivalent).
 
-Run on the card (one device; bf16 compute with f32 master weights):
-  python -m layoutllm_t2i_torch.cli.train_diffusion --synthetic \\
-      --mixed_precision --name exp
+Run on the card (one device; f32 throughout, the JAX CLI's default, on the
+kernels' f32 forms; ``--mixed_precision`` computes the UNet in bf16 with
+f32 master weights):
+  python -m layoutllm_t2i_torch.cli.train_diffusion --synthetic --name exp
 On the CPU, with tiny random models:
   python -m layoutllm_t2i_torch.cli.train_diffusion --small --synthetic \\
       --device cpu --batch_size 2 --total_iters 3 --save_every_iters 2 \\
@@ -65,8 +66,8 @@ def parse_args(argv=None):
     p.add_argument("--export_reference_ckpt", action="store_true",
                    help="also write the reference 4-module .pth at every save")
     p.add_argument("--mixed_precision", action="store_true",
-                   help="bf16 compute with f32 master weights (required on "
-                        "a CUDA device)")
+                   help="bf16 compute of the UNet with f32 master weights "
+                        "(default: f32 throughout)")
     p.add_argument("--accum_steps", type=int, default=1,
                    help="gradient accumulation microbatches per step "
                         "(batch_size is the effective batch)")

@@ -54,6 +54,17 @@
 // producer warpgroup) and sa, sg on the f32 sums before the biases; and
 // ffn_q_down_wgmma_kernel, (2) on Q2 with s2 on the sums: bf16(bf16((acc *
 // s2 + b2) * s) + x), the rounding order of ffn.py:366-367.
+//
+// K4 also has an f32 form (llt2i_ffn_ln_geglu_f32), for f32 activations and
+// weights, as `_ffn_ln_kernel` takes them: LN(x) and h stay f32, as the
+// kernel keeps them in x's type (scratch (M, inner + K) f32), and every
+// product is 3xTF32 on mma.sync (csrc/f32_tiles.cuh), f32 accuracy on the
+// tensor cores. The same three launches: ffn_norm_rows_f32_kernel, then
+// ffn_up_f32_kernel and ffn_down_f32_kernel on one simple tile GEMM (128 x
+// 64 tiles, 32-deep k steps in a two-stage cp.async ring, eight warps of
+// 32 x 32), with the GEGLU and scaled-residual epilogues in f32. Bound:
+// operations at the TF32 rate, three products each.
+#include "f32_tiles.cuh"
 #include "gemm_tiles.cuh"
 
 namespace {
@@ -284,6 +295,191 @@ int launch_q_down(const bf16* h, const void* q2, const void* s2,
                       M, K, st, th, tq2, sc, b, res, o, sp, s_val, M, K, inner);
 }
 
+// ---------------------------------------------------------------------------
+// K4 in f32
+
+// xn = LayerNorm(x) * lnw + lnb in f32, one warp a row: the mean, then the
+// centred variance, over 16-byte vectors (K % 4 == 0)
+__global__ void __launch_bounds__(kNormRows * 32)
+ffn_norm_rows_f32_kernel(const float* __restrict__ x,
+                         const float* __restrict__ lnw,
+                         const float* __restrict__ lnb, float* __restrict__ xn,
+                         int M, int K, float eps) {
+  const int row = blockIdx.x * kNormRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const int nv = K / 4;
+  const float4* xr = reinterpret_cast<const float4*>(x + (long long)row * K);
+  float s = 0.f;
+  for (int vi = lane; vi < nv; vi += 32) {
+    const float4 f = xr[vi];
+    s += (f.x + f.y) + (f.z + f.w);
+  }
+  const float mean = warp_sum(s) / K;
+  float ss = 0.f;
+  for (int vi = lane; vi < nv; vi += 32) {
+    const float4 f = xr[vi];
+    const float a = f.x - mean, b = f.y - mean, c = f.z - mean, d = f.w - mean;
+    ss += (a * a + b * b) + (c * c + d * d);
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / K + eps);
+  const float4* gr = reinterpret_cast<const float4*>(lnw);
+  const float4* br = reinterpret_cast<const float4*>(lnb);
+  float4* yr = reinterpret_cast<float4*>(xn + (long long)row * K);
+  for (int vi = lane; vi < nv; vi += 32) {
+    const float4 f = xr[vi], g = gr[vi], b = br[vi];
+    yr[vi] = make_float4((f.x - mean) * rstd * g.x + b.x,
+                         (f.y - mean) * rstd * g.y + b.y,
+                         (f.z - mean) * rstd * g.z + b.z,
+                         (f.w - mean) * rstd * g.w + b.w);
+  }
+}
+
+constexpr int kF32BM = 128, kF32BN = 64, kF32BK = 32, kF32Ld = kF32BK + 4;
+constexpr int kF32Threads = 256;
+
+// shared memory of the f32 GEMM with kNB B operands: two stages of an A
+// tile and kNB B tiles
+template <int kNB>
+constexpr size_t f32_gemm_smem() {
+  return 4ull * kF32Ld * 2 * (kF32BM + kNB * kF32BN);
+}
+
+// The (kF32BM x kF32BN) tile at (m0, n0) of A B_i^T for i < kNB: A (M x Kd,
+// row stride lda), B_i (N x Kd, row stride ldb), both row-major, each
+// product into its own accumulators. Eight warps as 4 (rows) x 2 (columns),
+// a warp 32 x 32: acc[i][m16 tile][n8 tile][4]. Rows past M or N and
+// columns past Kd (Kd % 4 == 0) load as zeros.
+template <int kNB>
+__device__ __forceinline__ void gemm_f32(float (&acc)[kNB][2][4][4],
+                                         const float* A, long long lda, int M,
+                                         const float* const (&B)[kNB],
+                                         long long ldb, int N, int Kd, int m0,
+                                         int n0, float* smem) {
+  using namespace f32_tiles;
+  constexpr int kStage = kF32Ld * (kF32BM + kNB * kF32BN);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 32 * (warp >> 1), wn = 32 * (warp & 1);
+  const int tiles = (Kd + kF32BK - 1) / kF32BK;
+  auto load = [&](int kt) {
+    float* st = smem + (kt & 1) * kStage;
+    const int k0 = kt * kF32BK;
+    load_tile<kF32BM, kF32BK, kF32Threads>(st, kF32Ld, A + (long long)m0 * lda + k0,
+                                           lda, 0, M - m0, Kd - k0);
+#pragma unroll
+    for (int i = 0; i < kNB; ++i)
+      load_tile<kF32BN, kF32BK, kF32Threads>(
+          st + (kF32BM + i * kF32BN) * kF32Ld, kF32Ld,
+          B[i] + (long long)n0 * ldb + k0, ldb, 0, N - n0, Kd - k0);
+  };
+#pragma unroll
+  for (int i = 0; i < kNB; ++i)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][mi][nt][c] = 0.f;
+  load(0);
+  cp_commit();
+  for (int kt = 0; kt < tiles; ++kt) {
+    if (kt + 1 < tiles) {  // the next stage; its last readers were synced
+      load(kt + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* sA = smem + (kt & 1) * kStage;
+#pragma unroll
+    for (int kk = 0; kk < kF32BK / 8; ++kk) {
+      float a[2][4];
+      frag_a(a[0], sA, kF32Ld, wm, 8 * kk, lane);
+      frag_a(a[1], sA, kF32Ld, wm + 16, 8 * kk, lane);
+      const SplitA a0(a[0]), a1(a[1]);
+#pragma unroll
+      for (int i = 0; i < kNB; ++i) {
+        const float* sB = sA + (kF32BM + i * kF32BN) * kF32Ld;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float bb[2];
+          frag_b_nk(bb, sB, kF32Ld, wn + 8 * nt, 8 * kk, lane);
+          mma3(acc[i][0][nt], a0, bb);
+          mma3(acc[i][1][nt], a1, bb);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+}
+
+// h = (xn Wa^T + ba) * gelu(xn Wg^T + bg), f32, tiles of h (M, inner)
+__global__ void __launch_bounds__(kF32Threads, 2)
+ffn_up_f32_kernel(const float* __restrict__ xn, const float* __restrict__ w1,
+                  const float* __restrict__ b1, float* __restrict__ h, int M,
+                  int K, int inner) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
+  const float* const B[2] = {w1, w1 + (long long)inner * K};
+  float acc[2][2][4][4];
+  gemm_f32<2>(acc, xn, K, M, B, K, inner, K, m0, n0, smem_f);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 32 * (warp >> 1) + 16 * mi + (lane >> 2) + 8 * r;
+      if (row >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + 32 * (warp & 1) + 8 * nt + 2 * (lane & 3);
+        if (col >= inner) continue;
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = acc[0][mi][nt][2 * r + e] + b1[col + e];
+          const float g = acc[1][mi][nt][2 * r + e] + b1[inner + col + e];
+          o[e] = a * gelu_erf(g);
+        }
+        *reinterpret_cast<float2*>(h + (long long)row * inner + col) =
+            make_float2(o[0], o[1]);
+      }
+    }
+}
+
+// out = x + s * (h W2^T + b2), f32, tiles of out (M, K)
+__global__ void __launch_bounds__(kF32Threads, 2)
+ffn_down_f32_kernel(const float* __restrict__ h, const float* __restrict__ w2,
+                    const float* __restrict__ b2, const float* __restrict__ x,
+                    float* __restrict__ out, const float* __restrict__ s_ptr,
+                    float s_val, int M, int K, int inner) {
+  extern __shared__ __align__(16) float smem_f[];
+  const float s = s_ptr != nullptr ? *s_ptr : s_val;
+  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
+  const float* const B[1] = {w2};
+  float acc[1][2][4][4];
+  gemm_f32<1>(acc, h, inner, M, B, inner, K, inner, m0, n0, smem_f);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 32 * (warp >> 1) + 16 * mi + (lane >> 2) + 8 * r;
+      if (row >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + 32 * (warp & 1) + 8 * nt + 2 * (lane & 3);
+        if (col >= K) continue;
+        const long long i = (long long)row * K + col;
+        const float2 xr = *reinterpret_cast<const float2*>(x + i);
+        *reinterpret_cast<float2*>(out + i) = make_float2(
+            xr.x + (acc[0][mi][nt][2 * r] + b2[col]) * s,
+            xr.y + (acc[0][mi][nt][2 * r + 1] + b2[col + 1]) * s);
+      }
+    }
+}
+
 }  // namespace
 
 // K4. x, out: (M, K) bf16; lnw, lnb: (K,); w1: (2*inner, K) = [Wa; Wg] in
@@ -351,4 +547,45 @@ LLT2I_API int llt2i_ffn_ln_geglu_q(const void* x, const void* lnw,
   if (err == 0) err = launch_q_up(xn, q1, s1, b1, h, M, K, inner, st);
   if (err != 0) return err;
   return launch_q_down(h, q2, s2, b2, x, out, s_ptr, s_val, M, K, inner, st);
+}
+
+// K4 in f32. x, out, lnw, lnb, w1, b1, w2, b2 as K4's, all f32; hbuf: (M,
+// inner + K) f32 scratch, h (M, inner) then LN(x) (M, K). K % 8 == 0 and
+// inner % 8 == 0; x, lnw, lnb, w1, w2 and hbuf 16-byte aligned, b1, b2 and
+// out 8-byte aligned.
+LLT2I_API int llt2i_ffn_ln_geglu_f32(const void* x, const void* lnw,
+                                     const void* lnb, const void* w1,
+                                     const void* b1, const void* w2,
+                                     const void* b2, void* hbuf, void* out,
+                                     const void* s_ptr, float s_val, int M,
+                                     int K, int inner, float eps,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K % 8 || inner % 8) return (int)cudaErrorInvalidValue;
+  float* h = static_cast<float*>(hbuf);
+  float* xn = h + (long long)M * inner;
+  ffn_norm_rows_f32_kernel<<<(M + kNormRows - 1) / kNormRows, kNormRows * 32,
+                             0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(lnw),
+      static_cast<const float*>(lnb), xn, M, K, eps);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  static unsigned long long up_set = 0, down_set = 0;
+  err = allow_smem(ffn_up_f32_kernel, f32_gemm_smem<2>(), up_set);
+  if (err == 0)
+    err = allow_smem(ffn_down_f32_kernel, f32_gemm_smem<1>(), down_set);
+  if (err != 0) return err;
+  const int mt = (M + kF32BM - 1) / kF32BM;
+  ffn_up_f32_kernel<<<dim3((inner + kF32BN - 1) / kF32BN, mt), kF32Threads,
+                      f32_gemm_smem<2>(), st>>>(
+      xn, static_cast<const float*>(w1), static_cast<const float*>(b1), h, M,
+      K, inner);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ffn_down_f32_kernel<<<dim3((K + kF32BN - 1) / kF32BN, mt), kF32Threads,
+                        f32_gemm_smem<1>(), st>>>(
+      h, static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(x), static_cast<float*>(out),
+      static_cast<const float*>(s_ptr), s_val, M, K, inner);
+  return (int)cudaGetLastError();
 }

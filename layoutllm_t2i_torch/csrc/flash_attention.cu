@@ -1,4 +1,5 @@
-// K1: non-causal flash-attention forward for Hopper (bf16 in, f32 softmax).
+// K1: non-causal flash-attention forward for Hopper (bf16 in, f32 softmax;
+// the f32 forms of K1, K5a and K5b follow the bf16 kernels, below).
 //
 // Replaces the TPU kernels of layoutllm_t2i_tpu/ops/pallas/flash_attention.py
 // reached from `_flash_bh` (l.244): `_attn_kernel_wholerow` (l.165),
@@ -61,6 +62,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -845,6 +847,558 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The f32 forms of K1, K5a and K5b: the same functions on f32 operands, as
+// the Pallas kernels take them (the JAX trainer's default precision). P and
+// dS stay f32 (`_flash_kernel` keeps P in the operands' type, and the plain
+// backward rounds them to it), and every product is 3xTF32 on mma.sync
+// (csrc/f32_tiles.cuh): f32 accuracy on the tensor cores.
+//
+// What bounds them: operations, as the bf16 forms, at the TF32 rate (495
+// TFLOP/s dense) times three; 3xTF32 on mma.sync reaches a fraction of it.
+// A simple design that is right first:
+//  * one block of eight warps per (rows of q or k, batch, head); each warp
+//    owns 16 rows of the resident operand and keeps its accumulators in
+//    registers for the whole loop;
+//  * the resident operands (Q, or Q and dO, or K and V) and a two-stage
+//    ring of the streamed ones load with 16-byte cp.async into row-major
+//    f32 tiles of row stride d + 4 (conflict-free fragment loads); rows past
+//    N or M load as zeros, so no other row or head is read;
+//  * the online softmax (K1) and P = exp2(S c - lse log2 e) (K5) run on
+//    the score fragments in registers, masked past M (or N in K5b), and the
+//    score fragment is the A fragment of the next product (f32_tiles.cuh);
+//  * d = 512 (the VAE's head, K1 only): four warps share 16 rows, each owns
+//    128 output columns and computes the 16 x 16 score tile itself.
+
+namespace {
+
+// kD: the head dim; kCG: warps sharing 16 q rows (each owns kD / kCG output
+// columns); kBK: K/V rows a stage; kMinBlocks: blocks an SM (registers)
+template <int kD_, int kCG_, int kBK_, int kMinBlocks_>
+struct FwdF32Cfg {
+  static constexpr int kD = kD_, kCG = kCG_, kBK = kBK_,
+                       kMinBlocks = kMinBlocks_;
+  static constexpr int kThreads = 256;
+  static constexpr int kBQ = 16 * (8 / kCG);
+  static constexpr int kLd = kD + 4;
+  static constexpr int kON = kD / kCG;
+  // Q, then two stages of K and V
+  static constexpr size_t kSmemBytes = 4ull * kLd * (kBQ + 4 * kBK);
+  static_assert(kD % 8 == 0 && kON % 8 == 0 && kBK % 8 == 0, "mma tiles");
+};
+
+using Fwd40F = FwdF32Cfg<40, 1, 64, 2>;    // 64^2 sites: 67.6 KB
+using Fwd80F = FwdF32Cfg<80, 1, 32, 2>;    // 32^2 sites: 86 KB
+using Fwd512F = FwdF32Cfg<512, 4, 16, 1>;  // the VAE's head: 198 KB
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int H, int N, int M,
+                     long long q_bs, long long q_rs, long long k_bs,
+                     long long k_rs, long long v_bs, long long v_rs,
+                     long long o_bs, long long o_rs, float scale, float c) {
+  using namespace f32_tiles;
+  constexpr int D = C::kD, BK = C::kBK, LD = C::kLd, ON = C::kON;
+  extern __shared__ __align__(16) float smem_f[];
+  float* sQ = smem_f;
+  float* sKV = sQ + C::kBQ * LD;  // stage s: K at + 2 s BK LD, V after it
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * C::kBQ;
+  const int tiles = (M + BK - 1) / BK;
+  const float* qg = q + b * q_bs + (long long)h * D;
+  const float* kg = k + b * k_bs + (long long)h * D;
+  const float* vg = v + b * v_bs + (long long)h * D;
+
+  load_tile<C::kBQ, D, C::kThreads>(sQ, LD, qg, q_rs, q0, N, D);
+  load_tile<BK, D, C::kThreads>(sKV, LD, kg, k_rs, 0, M, D);
+  load_tile<BK, D, C::kThreads>(sKV + BK * LD, LD, vg, v_rs, 0, M, D);
+  cp_commit();
+
+  const int r0 = 16 * (warp / C::kCG);  // the warp's rows of the q tile
+  const int c0 = ON * (warp % C::kCG);  // and its output columns
+  float acc[ON / 8][4];
+#pragma unroll
+  for (int n = 0; n < ON / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  // running max of the raw scores and per-thread partial row sums of the
+  // thread's rows g and g + 8
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {  // the next stage; its last readers were synced
+      float* nk = sKV + 2 * ((t + 1) & 1) * BK * LD;
+      load_tile<BK, D, C::kThreads>(nk, LD, kg, k_rs, (t + 1) * BK, M, D);
+      load_tile<BK, D, C::kThreads>(nk + BK * LD, LD, vg, v_rs, (t + 1) * BK,
+                                    M, D);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = sKV + 2 * (t & 1) * BK * LD;
+    const float* sV = sK + BK * LD;
+
+    // S = Q K^T
+    float sc[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float a[4];
+      frag_a(a, sQ, LD, r0, 8 * kk, lane);
+      const SplitA as(a);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float bb[2];
+        frag_b_nk(bb, sK, LD, 8 * j, 8 * kk, lane);
+        mma3(sc[j], as, bb);
+      }
+    }
+
+    // the ragged KV tail scores -inf
+    const int k0 = t * BK;
+    if (k0 + BK > M) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * j + 2 * (lane & 3) + (i & 1) >= M) sc[j][i] = -INFINITY;
+    }
+
+    // online softmax: row max over the quad, p = exp2(s c - m c)
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], sc[j][i]);
+    float alpha[2], mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = ex2((m_run[r] - mx[r]) * c);
+      m_run[r] = mx[r];
+      mc[r] = mx[r] * c;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sc[j][i] = ex2(fmaf(sc[j][i], c, -mc[i >> 1]));
+        sum[i >> 1] += sc[j][i];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int n = 0; n < ON / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
+
+    // O += P V, P in f32 (3xTF32)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const SplitA pa = c_as_a(sc[j]);
+#pragma unroll
+      for (int n = 0; n < ON / 8; ++n) {
+        float bb[2];
+        frag_b_kn(bb, sV, LD, 8 * j, c0 + 8 * n, lane);
+        mma3(acc[n], pa, bb);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // epilogue: O / l, lse = m scale + ln l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + (lane >> 2) + 8 * r;
+    if (row >= N) continue;
+    const float inv = 1.f / l_run[r];
+    float* orow = o + b * o_bs + row * o_rs + (long long)h * D + c0;
+#pragma unroll
+    for (int n = 0; n < ON / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * (lane & 3)) =
+          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (lse != nullptr && (lane & 3) == 0 && warp % C::kCG == 0)
+      lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
+  }
+}
+
+template <class C>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int N, int M, long long q_bs,
+                   long long q_rs, long long k_bs, long long k_rs,
+                   long long v_bs, long long v_rs, long long o_bs,
+                   long long o_rs, float scale, cudaStream_t stream) {
+  static unsigned long long smem_set = 0;
+  auto kern = flash_fwd_f32_kernel<C>;
+  int err = allow_smem(kern, C::kSmemBytes, smem_set);
+  if (err != 0) return err;
+  dim3 grid((N + C::kBQ - 1) / C::kBQ, B * H);
+  kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, N, M, q_bs,
+      q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// K5a and K5b in f32. kBR: resident rows (eight warps of 16); kBS: rows of
+// a streamed stage (two stages); kMinBlocks: blocks an SM (registers).
+template <int kD_, int kBS_, int kMinBlocks_>
+struct BwdF32Cfg {
+  static constexpr int kD = kD_, kBS = kBS_, kMinBlocks = kMinBlocks_;
+  static constexpr int kThreads = 256, kBR = 128;
+  static constexpr int kLd = kD + 4;
+  // two resident operands, two stages of two streamed ones, and (K5b) each
+  // stage's lse log2 e and delta
+  static constexpr size_t kSmemBytes =
+      4ull * kLd * (2 * kBR + 4 * kBS) + 4ull * 2 * 2 * kBS;
+  static_assert(kD % 8 == 0 && kBS % 8 == 0, "mma tiles");
+};
+
+using DqF40 = BwdF32Cfg<40, 32, 2>;   // 68 KB
+using DqF80 = BwdF32Cfg<80, 32, 1>;   // 129 KB
+using DkvF40 = BwdF32Cfg<40, 32, 2>;
+using DkvF80 = BwdF32Cfg<80, 32, 1>;
+
+// K5a: dQ = scale * sum over K/V tiles of [P o (dO V^T - delta)] K
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq,
+                        int H, int N, int M, long long q_bs, long long q_rs,
+                        long long k_bs, long long k_rs, long long v_bs,
+                        long long v_rs, float scale, float c) {
+  using namespace f32_tiles;
+  constexpr int D = C::kD, BK = C::kBS, BQ = C::kBR, LD = C::kLd;
+  extern __shared__ __align__(16) float smem_f[];
+  float* sQ = smem_f;
+  float* sDO = sQ + BQ * LD;
+  float* sKV = sDO + BQ * LD;  // stage s: K at + 2 s BK LD, V after it
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ;
+  const int tiles = (M + BK - 1) / BK;
+  const long long hd = (long long)H * D;  // row stride of dO and dQ
+  const float* qg = q + b * q_bs + (long long)h * D;
+  const float* dog = dout + b * N * hd + (long long)h * D;
+  const float* kg = k + b * k_bs + (long long)h * D;
+  const float* vg = v + b * v_bs + (long long)h * D;
+
+  load_tile<BQ, D, C::kThreads>(sQ, LD, qg, q_rs, q0, N, D);
+  load_tile<BQ, D, C::kThreads>(sDO, LD, dog, hd, q0, N, D);
+  load_tile<BK, D, C::kThreads>(sKV, LD, kg, k_rs, 0, M, D);
+  load_tile<BK, D, C::kThreads>(sKV + BK * LD, LD, vg, v_rs, 0, M, D);
+  cp_commit();
+
+  // the warp's rows r0.. of the q tile; this thread's rows row0 and row0 +
+  // 8, their lse (times log2 e) and delta, zero past N
+  const int r0 = 16 * warp;
+  const int row0 = q0 + r0 + (lane >> 2);
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row0 + 8 * r < N;
+    const long long i = (long long)bh * N + row0 + 8 * r;
+    l2[r] = in ? lse[i] * kLog2e : 0.f;
+    dl[r] = in ? delta[i] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      float* nk = sKV + 2 * ((t + 1) & 1) * BK * LD;
+      load_tile<BK, D, C::kThreads>(nk, LD, kg, k_rs, (t + 1) * BK, M, D);
+      load_tile<BK, D, C::kThreads>(nk + BK * LD, LD, vg, v_rs, (t + 1) * BK,
+                                    M, D);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = sKV + 2 * (t & 1) * BK * LD;
+    const float* sV = sK + BK * LD;
+
+    // S = Q K^T, dP = dO V^T
+    float sc[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float a[4], ad[4];
+      frag_a(a, sQ, LD, r0, 8 * kk, lane);
+      frag_a(ad, sDO, LD, r0, 8 * kk, lane);
+      const SplitA aq(a), ado(ad);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float bk[2], bv[2];
+        frag_b_nk(bk, sK, LD, 8 * j, 8 * kk, lane);
+        frag_b_nk(bv, sV, LD, 8 * j, 8 * kk, lane);
+        mma3(sc[j], aq, bk);
+        mma3(dp[j], ado, bv);
+      }
+    }
+
+    // P = exp2(S c - lse log2 e), 0 past M; dS = P (dP - delta)
+    const int k0 = t * BK;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = ex2(fmaf(sc[j][i], c, -l2[i >> 1]));
+        if (k0 + 8 * j + 2 * (lane & 3) + (i & 1) >= M) p = 0.f;
+        sc[j][i] = p * (dp[j][i] - dl[i >> 1]);
+      }
+
+    // dQ += dS K
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const SplitA ds = c_as_a(sc[j]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float bb[2];
+        frag_b_kn(bb, sK, LD, 8 * j, 8 * n, lane);
+        mma3(acc[n], ds, bb);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* dqb = dq + b * N * hd + (long long)h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dqb + row * hd + 8 * n + 2 * (lane & 3)) =
+          make_float2(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  }
+}
+
+// K5b: dV = sum over q/dO tiles of P^T dO and dK = scale * sum of
+// [P o (dO V^T - delta)]^T Q, from S^T = K Q^T and dP^T = V dO^T
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, int H,
+                         int N, int M, long long q_bs, long long q_rs,
+                         long long k_bs, long long k_rs, long long v_bs,
+                         long long v_rs, float scale, float c) {
+  using namespace f32_tiles;
+  constexpr int D = C::kD, BQ = C::kBS, BK = C::kBR, LD = C::kLd;
+  extern __shared__ __align__(16) float smem_f[];
+  float* sK = smem_f;
+  float* sV = sK + BK * LD;
+  float* sQD = sV + BK * LD;  // stage s: Q at + 2 s BQ LD, dO after it
+  float* sSt = sQD + 4 * BQ * LD;  // stage s: lse log2 e at + 2 s BQ, delta
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * BK;
+  const int tiles = (N + BQ - 1) / BQ;
+  const long long hd = (long long)H * D;  // row stride of dO, dK and dV
+  const float* qg = q + b * q_bs + (long long)h * D;
+  const float* dog = dout + b * N * hd + (long long)h * D;
+  const float* kg = k + b * k_bs + (long long)h * D;
+  const float* vg = v + b * v_bs + (long long)h * D;
+  const float* lse_bh = lse + (long long)bh * N;
+  const float* delta_bh = delta + (long long)bh * N;
+
+  // a stage of q rows [t BQ, (t + 1) BQ): Q, dO and the rows' statistics,
+  // zero past N
+  auto load_stage = [&](int t) {
+    const int s = t & 1;
+    float* qs = sQD + 2 * s * BQ * LD;
+    load_tile<BQ, D, C::kThreads>(qs, LD, qg, q_rs, t * BQ, N, D);
+    load_tile<BQ, D, C::kThreads>(qs + BQ * LD, LD, dog, hd, t * BQ, N, D);
+    float* st = sSt + 2 * s * BQ;
+    for (int i = threadIdx.x; i < BQ; i += C::kThreads) {
+      const int row = t * BQ + i;
+      const bool in = row < N;
+      st[i] = in ? lse_bh[row] * kLog2e : 0.f;
+      st[BQ + i] = in ? delta_bh[row] : 0.f;
+    }
+  };
+  load_tile<BK, D, C::kThreads>(sK, LD, kg, k_rs, k0, M, D);
+  load_tile<BK, D, C::kThreads>(sV, LD, vg, v_rs, k0, M, D);
+  load_stage(0);
+  cp_commit();
+
+  const int r0 = 16 * warp;  // the warp's k rows
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      load_stage(t + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* sQ = sQD + 2 * (t & 1) * BQ * LD;
+    const float* sDO = sQ + BQ * LD;
+    const float* st = sSt + 2 * (t & 1) * BQ;
+
+    // S^T = K Q^T, dP^T = V dO^T
+    float sc[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float a[4], av[4];
+      frag_a(a, sK, LD, r0, 8 * kk, lane);
+      frag_a(av, sV, LD, r0, 8 * kk, lane);
+      const SplitA ak(a), avs(av);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        float bq[2], bd[2];
+        frag_b_nk(bq, sQ, LD, 8 * j, 8 * kk, lane);
+        frag_b_nk(bd, sDO, LD, 8 * j, 8 * kk, lane);
+        mma3(sc[j], ak, bq);
+        mma3(dp[j], avs, bd);
+      }
+    }
+
+    // P^T = exp2(S^T c - lse log2 e), 0 past N; dS^T = P^T (dP^T - delta):
+    // the thread's q columns 8 j + 2 t + {0, 1} read their statistics
+    const int q0 = t * BQ;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * j + 2 * (lane & 3) + (i & 1);
+        float p = ex2(fmaf(sc[j][i], c, -st[col]));
+        if (q0 + col >= N) p = 0.f;
+        sc[j][i] = p;
+        dp[j][i] = p * (dp[j][i] - st[BQ + col]);
+      }
+
+    // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const SplitA pa = c_as_a(sc[j]);
+      const SplitA da = c_as_a(dp[j]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float bd[2], bq[2];
+        frag_b_kn(bd, sDO, LD, 8 * j, 8 * n, lane);
+        frag_b_kn(bq, sQ, LD, 8 * j, 8 * n, lane);
+        mma3(acc_v[n], pa, bd);
+        mma3(acc_k[n], da, bq);
+      }
+    }
+    __syncthreads();
+  }
+
+  const long long off = b * M * hd + (long long)h * D;
+  const int row0 = k0 + r0 + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= M) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const long long i = off + row * hd + 8 * n + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(dv + i) =
+          make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+      *reinterpret_cast<float2*>(dk + i) =
+          make_float2(acc_k[n][2 * r] * scale, acc_k[n][2 * r + 1] * scale);
+    }
+  }
+}
+
+// K5a (dq given) or K5b in f32
+template <class C, bool kDq>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, void* dk, void* dv, int B, int H, int N, int M,
+                   long long q_bs, long long q_rs, long long k_bs,
+                   long long k_rs, long long v_bs, long long v_rs, float scale,
+                   cudaStream_t stream) {
+  static unsigned long long smem_set = 0;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
+  const float c = scale * kLog2e;
+  int err;
+  if constexpr (kDq) {
+    auto kern = flash_bwd_dq_f32_kernel<C>;
+    err = allow_smem(kern, C::kSmemBytes, smem_set);
+    if (err != 0) return err;
+    dim3 grid((N + C::kBR - 1) / C::kBR, B * H);
+    kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+        qf, kf, vf, df, lse, delta, static_cast<float*>(dq), H, N, M, q_bs,
+        q_rs, k_bs, k_rs, v_bs, v_rs, scale, c);
+  } else {
+    auto kern = flash_bwd_dkv_f32_kernel<C>;
+    err = allow_smem(kern, C::kSmemBytes, smem_set);
+    if (err != 0) return err;
+    dim3 grid((M + C::kBR - 1) / C::kBR, B * H);
+    kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+        qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), H, N, M, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
+        scale, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+int flash_bwd_f32(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, void* dk, void* dv, int B, int H, int N, int M,
+                  int D, long long q_bs, long long q_rs, long long k_bs,
+                  long long k_rs, long long v_bs, long long v_rs, float scale,
+                  void* stream) {
+  // d = 40 and 80, the training path's head dims
+  if (D != 40 && D != 80) return (int)cudaErrorInvalidValue;
+  auto launch = dq != nullptr
+                    ? (D == 40 ? launch_bwd_f32<DqF40, true>
+                               : launch_bwd_f32<DqF80, true>)
+                    : (D == 40 ? launch_bwd_f32<DkvF40, false>
+                               : launch_bwd_f32<DkvF80, false>);
+  return launch(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, q_bs, q_rs,
+                k_bs, k_rs, v_bs, v_rs, scale,
+                static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
 // K5a. q, k, v as for llt2i_flash_fwd; dout and dq contiguous (B, N, H*D);
 // lse and delta contiguous f32 (B, H, N). Only d = 40 and 80 are
 // instantiated; any other returns cudaErrorInvalidValue without launching.
@@ -903,4 +1457,64 @@ LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
     default:  // no site routes another head dim here
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The f32 forms: q, k, v, o (and dout, dq, dk, dv) f32, with the strides
+// and layouts of the bf16 entry points; rows 16-byte aligned (strides and
+// head offsets multiples of 4 floats). K1: head dims 40, 80 and 512; K5a
+// and K5b: 40 and 80. Any other, or scale <= 0 (K1), returns
+// cudaErrorInvalidValue without launching.
+LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
+                                  void* o, float* lse, int B, int H, int N,
+                                  int M, int D, long long q_bs, long long q_rs,
+                                  long long k_bs, long long k_rs,
+                                  long long v_bs, long long v_rs,
+                                  long long o_bs, long long o_rs, float scale,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;  // max over raw scores
+  switch (D) {
+    case 40:
+      return launch_fwd_f32<Fwd40F>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
+                                    k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale,
+                                    s);
+    case 80:
+      return launch_fwd_f32<Fwd80F>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
+                                    k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale,
+                                    s);
+    case 512:
+      return launch_fwd_f32<Fwd512F>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
+                                     k_bs, k_rs, v_bs, v_rs, o_bs, o_rs,
+                                     scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+LLT2I_API int llt2i_flash_bwd_dq_f32(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     void* dq, int B, int H, int N, int M,
+                                     int D, long long q_bs, long long q_rs,
+                                     long long k_bs, long long k_rs,
+                                     long long v_bs, long long v_rs,
+                                     float scale, void* stream) {
+  if (dq == nullptr) return (int)cudaErrorInvalidValue;
+  return flash_bwd_f32(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H,
+                       N, M, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale,
+                       stream);
+}
+
+LLT2I_API int llt2i_flash_bwd_dkv_f32(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const float* lse, const float* delta,
+                                      void* dk, void* dv, int B, int H, int N,
+                                      int M, int D, long long q_bs,
+                                      long long q_rs, long long k_bs,
+                                      long long k_rs, long long v_bs,
+                                      long long v_rs, float scale,
+                                      void* stream) {
+  if (dk == nullptr || dv == nullptr) return (int)cudaErrorInvalidValue;
+  return flash_bwd_f32(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, N, M,
+                       D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, stream);
 }

@@ -1,5 +1,5 @@
-// K2: GroupNorm + affine (+ SiLU) over channels-last (N, HW, C), bf16 in
-// and out, f32 statistics.
+// K2: GroupNorm + affine (+ SiLU) over channels-last (N, HW, C), bf16 or
+// f32 in and out (x, gamma, beta and y share one type), f32 statistics.
 //
 // Replaces the TPU kernels of layoutllm_t2i_tpu/ops/pallas/norms.py:
 // `_gn_kernel` (l.57, launched by `_gn_pallas` l.120), which holds a
@@ -9,9 +9,13 @@
 //
 // What bounds it on the H100: bytes. Each element must be read once and
 // written once for ~10 flops; the least time is 4 bytes an element over
-// 3.35 TB/s. The channels are cut into slabs of whole groups, a multiple of
-// 8 channels (16-byte vectors); kernels/group_norm.py `plan_group_norm`
-// picks the slab and one of two paths for each (N, HW, C, G):
+// 3.35 TB/s (8 bytes in f32). The channels are cut into slabs of whole
+// groups, a multiple of 8 channels (a 16-byte vector of bf16, two of f32:
+// every kernel is templated on the type through Chan8<T>, with the same
+// index math over 8-channel vectors); kernels/group_norm.py
+// `plan_group_norm` picks the slab and one of two paths for each (N, HW,
+// C, G, item size). An f32 slab holds half the rows in shared memory, so
+// more shapes stream:
 //
 // On-chip path, one launch (gn_cluster_kernel). One thread block cluster
 // of K <= 8 blocks (a portable cluster) works on each (sample, slab); block `rank` holds rows
@@ -41,7 +45,7 @@
 // gn_apply_kernel merges the partials of its sample's groups in its
 // prologue (one warp per group, lanes over chunks, butterfly sums: a tree,
 // no serial chain), then reads x a second time and writes y. That path
-// moves 6 bytes an element, not 4.
+// moves 6 bytes an element, not 4 (12, not 8, in f32).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -54,7 +58,41 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSmemMax = 232448;     // dynamic shared memory a block can use
 constexpr int kMaxCluster = 8;       // the portable cluster size
-constexpr int kUnroll = 8;           // 16-byte loads in flight a thread
+
+// 8 channels of T moved as one Raw: one 16-byte vector of bf16, two of f32.
+// kUnroll: Raw loads in flight a thread (128 bytes either way).
+template <typename T>
+struct Chan8;
+
+template <>
+struct Chan8<bf16> {
+  using Raw = uint4;
+  static constexpr int kUnroll = 8;
+  static __device__ __forceinline__ void unpack(const Raw& r, float* f) {
+    unpack8(r, f);
+  }
+  static __device__ __forceinline__ Raw pack(const float* f) { return pack8(f); }
+  static __device__ __forceinline__ float to_f(bf16 v) {
+    return __bfloat162float(v);
+  }
+};
+
+template <>
+struct Chan8<float> {
+  struct __align__(16) Raw {
+    float4 lo, hi;
+  };
+  static constexpr int kUnroll = 4;
+  static __device__ __forceinline__ void unpack(const Raw& r, float* f) {
+    f[0] = r.lo.x, f[1] = r.lo.y, f[2] = r.lo.z, f[3] = r.lo.w;
+    f[4] = r.hi.x, f[5] = r.hi.y, f[6] = r.hi.z, f[7] = r.hi.w;
+  }
+  static __device__ __forceinline__ Raw pack(const float* f) {
+    return Raw{make_float4(f[0], f[1], f[2], f[3]),
+               make_float4(f[4], f[5], f[6], f[7])};
+  }
+  static __device__ __forceinline__ float to_f(float v) { return v; }
+};
 
 // How a block's threads cover a tile of rows x V vectors of 8 channels:
 // thread t takes vectors v0, v0 + vt, ... of rows rl, rl + R, ...; threads
@@ -80,15 +118,15 @@ __host__ __device__ inline int stat_vectors(int V) {
 
 // Byte offsets of the on-chip kernel's shared memory (mirrored by
 // kernels/group_norm.py `cluster_smem_bytes`, which the card tests hold
-// against llt2i_group_norm_cluster_smem): the bf16 tile, then f32
-// arrays: red_s and red_q (P x S), shift, gam, bet (S each), part (3 per
-// group), gmean, grstd (1 per group).
+// against llt2i_group_norm_cluster_smem): the tile of `item`-byte values,
+// then f32 arrays: red_s and red_q (P x S), shift, gam, bet (S each), part
+// (3 per group), gmean, grstd (1 per group).
 struct ClusterSmem {
   int red_s, red_q, shift, gam, bet, part, gmean, grstd, total;
-  __host__ __device__ ClusterSmem(int rows, int S, int cg) {
+  __host__ __device__ ClusterSmem(int rows, int S, int cg, int item) {
     const int P = kWarps / stat_vectors(S / 8);
     const int gs = S / cg;
-    red_s = round16(rows * S * 2);
+    red_s = round16(rows * S * item);
     red_q = red_s + 4 * P * S;
     shift = red_q + 4 * P * S;
     gam = shift + 4 * S;
@@ -171,14 +209,18 @@ __device__ __forceinline__ float2 merge_parts(float cnt, float mean_k,
 // grid (K, C / S, N), cluster (K, 1, 1); block rank takes `rows` rows. The
 // second launch bound lets ptxas take 72 registers: aimed at more blocks an
 // SM, it capped the kernel at 64 and spilled.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-gn_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                  const bf16* __restrict__ beta, bf16* __restrict__ y, int HW,
+gn_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                  const T* __restrict__ beta, T* __restrict__ y, int HW,
                   int C, int S, int cg, int rows, float eps, int silu) {
+  using V8 = Chan8<T>;
+  using Raw = typename V8::Raw;
+  constexpr int kPer16 = 16 / sizeof(T);  // values a 16-byte copy moves
   extern __shared__ __align__(16) unsigned char smem[];
   cgrp::cluster_group cluster = cgrp::this_cluster();
-  const ClusterSmem L(rows, S, cg);
-  bf16* tile = reinterpret_cast<bf16*>(smem);
+  const ClusterSmem L(rows, S, cg, sizeof(T));
+  T* tile = reinterpret_cast<T*>(smem);
   float* red_s = reinterpret_cast<float*>(smem + L.red_s);
   float* red_q = reinterpret_cast<float*>(smem + L.red_q);
   float* shift = reinterpret_cast<float*>(smem + L.shift);
@@ -200,11 +242,14 @@ gn_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   if (ln.active())
     for (int r = ln.rl; r < nr; r += ln.R)
       for (int v = ln.v0; v < V; v += ln.vt)
-        cp_async16(tile + r * S + v * 8, x + base + (long long)r * C + v * 8);
+#pragma unroll
+        for (int i = 0; i < 8; i += kPer16)
+          cp_async16(tile + r * S + v * 8 + i,
+                     x + base + (long long)r * C + v * 8 + i);
   // gamma and beta while the tile is in flight
   for (int c = threadIdx.x; c < S; c += kThreads) {
-    gam[c] = __bfloat162float(gamma[slab * S + c]);
-    bet[c] = __bfloat162float(beta[slab * S + c]);
+    gam[c] = V8::to_f(gamma[slab * S + c]);
+    bet[c] = V8::to_f(beta[slab * S + c]);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -216,14 +261,14 @@ gn_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   if (warp < P * vw)
     for (int v = warp % vw; v < V; v += vw) {
       const int p = warp / vw;
-      const uint4* t4 = reinterpret_cast<const uint4*>(tile) + v;
+      const Raw* t4 = reinterpret_cast<const Raw*>(tile) + v;
       float sh[8], s[8], q[8];
-      unpack8(t4[0], sh);
+      V8::unpack(t4[0], sh);
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[j] = q[j] = 0.f;
       for (int r = p * 32 + lane; r < nr; r += P * 32) {
         float f[8];
-        unpack8(t4[r * V], f);
+        V8::unpack(t4[r * V], f);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float d = f[j] - sh[j];
@@ -290,16 +335,16 @@ gn_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
         sc[j] = gam[c] * grstd[g];
         sh[j] = bet[c] - gmean[g] * sc[j];
       }
-      const uint4* t4 = reinterpret_cast<const uint4*>(tile) + v;
+      const Raw* t4 = reinterpret_cast<const Raw*>(tile) + v;
       for (int r = ln.rl; r < nr; r += ln.R) {
         float f[8];
-        unpack8(t4[r * V], f);
+        V8::unpack(t4[r * V], f);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float t = f[j] * sc[j] + sh[j];
           f[j] = silu ? silu_f(t) : t;
         }
-        *reinterpret_cast<uint4*>(y + base + (long long)r * C + v * 8) = pack8(f);
+        *reinterpret_cast<Raw*>(y + base + (long long)r * C + v * 8) = V8::pack(f);
       }
     }
   if (K > 1) cluster_wait();  // the others no longer read this block's part
@@ -307,9 +352,13 @@ gn_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
 
 // grid (chunks, C / S, N): per-(sample, group, chunk) partials
 // part[((n * G + g) * chunks + k) * 3 + (count, mean, M2)] of `rows` rows.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ part, int HW,
+gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part, int HW,
                 int C, int S, int cg, int G, int rows) {
+  using V8 = Chan8<T>;
+  using Raw = typename V8::Raw;
+  constexpr int kUnroll = V8::kUnroll;
   extern __shared__ __align__(16) unsigned char smem[];
   const int V = S / 8, gs = S / cg;
   const Lanes ln(V);
@@ -321,27 +370,27 @@ gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ part, int HW,
   const int slab = blockIdx.y, n = blockIdx.z;
   const int r0 = k * rows;
   const int nr = min(rows, HW - r0);
-  const uint4* xb = reinterpret_cast<const uint4*>(
+  const Raw* xb = reinterpret_cast<const Raw*>(
       x + ((long long)n * HW + r0) * C + (long long)slab * S);
   const long long stride = (long long)ln.R * C / 8;  // vectors between rows
 
   if (ln.active())
     for (int v = ln.v0; v < V; v += ln.vt) {
       float sh[8], s[8], q[8];
-      unpack8(xb[v], sh);
+      V8::unpack(xb[v], sh);
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[j] = q[j] = 0.f;
-      const uint4* p = xb + (long long)ln.rl * C / 8 + v;
+      const Raw* p = xb + (long long)ln.rl * C / 8 + v;
       int r = ln.rl;
       for (; r + (kUnroll - 1) * ln.R < nr; r += kUnroll * ln.R) {
-        uint4 raw[kUnroll];
+        Raw raw[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) raw[u] = p[u * stride];
         p += kUnroll * stride;
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           float f[8];
-          unpack8(raw[u], f);
+          V8::unpack(raw[u], f);
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const float d = f[j] - sh[j];
@@ -352,7 +401,7 @@ gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ part, int HW,
       }
       for (; r < nr; r += ln.R, p += stride) {
         float f[8];
-        unpack8(*p, f);
+        V8::unpack(*p, f);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float d = f[j] - sh[j];
@@ -382,11 +431,15 @@ gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ part, int HW,
 
 // grid (blocks, N): block b normalises rows [b * rows, (b + 1) * rows) of
 // sample n, all C channels, after merging the sample's partials.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ part,
-                const bf16* __restrict__ gamma, const bf16* __restrict__ beta,
-                bf16* __restrict__ y, int HW, int C, int G, int chunks,
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ part,
+                const T* __restrict__ gamma, const T* __restrict__ beta,
+                T* __restrict__ y, int HW, int C, int G, int chunks,
                 int rows, float eps, int silu) {
+  using V8 = Chan8<T>;
+  using Raw = typename V8::Raw;
+  constexpr int kUnroll = V8::kUnroll;
   extern __shared__ __align__(16) unsigned char smem[];
   float* scale = reinterpret_cast<float*>(smem);
   float* shift = scale + C;
@@ -420,9 +473,9 @@ gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ part,
   const int cg = C / G;
   for (int c = threadIdx.x; c < C; c += kThreads) {
     const int g = c / cg;
-    const float sc = __bfloat162float(gamma[c]) * grstd[g];
+    const float sc = V8::to_f(gamma[c]) * grstd[g];
     scale[c] = sc;
-    shift[c] = __bfloat162float(beta[c]) - gmean[g] * sc;
+    shift[c] = V8::to_f(beta[c]) - gmean[g] * sc;
   }
   __syncthreads();
 
@@ -432,8 +485,8 @@ gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ part,
   const int r0 = blockIdx.x * rows;
   const int nr = min(rows, HW - r0);
   const long long first = ((long long)n * HW + r0) * V;  // in vectors
-  const uint4* xb = reinterpret_cast<const uint4*>(x) + first;
-  uint4* yb = reinterpret_cast<uint4*>(y) + first;
+  const Raw* xb = reinterpret_cast<const Raw*>(x) + first;
+  Raw* yb = reinterpret_cast<Raw*>(y) + first;
   const long long stride = (long long)ln.R * V;
   for (int v = ln.v0; v < V; v += ln.vt) {
     float sc[8], sh[8];
@@ -445,31 +498,31 @@ gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ part,
     long long i = (long long)ln.rl * V + v;
     int r = ln.rl;
     for (; r + (kUnroll - 1) * ln.R < nr; r += kUnroll * ln.R) {
-      uint4 raw[kUnroll];
+      Raw raw[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) raw[u] = xb[i + u * stride];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         float f[8];
-        unpack8(raw[u], f);
+        V8::unpack(raw[u], f);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float t = f[j] * sc[j] + sh[j];
           f[j] = silu ? silu_f(t) : t;
         }
-        yb[i + u * stride] = pack8(f);
+        yb[i + u * stride] = V8::pack(f);
       }
       i += kUnroll * stride;
     }
     for (; r < nr; r += ln.R, i += stride) {
       float f[8];
-      unpack8(xb[i], f);
+      V8::unpack(xb[i], f);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float t = f[j] * sc[j] + sh[j];
         f[j] = silu ? silu_f(t) : t;
       }
-      yb[i] = pack8(f);
+      yb[i] = V8::pack(f);
     }
   }
 }
@@ -496,36 +549,28 @@ bool slab_ok(int C, int G, int S) {
   return S > 0 && S % 8 == 0 && C % S == 0 && S % (C / G) == 0;
 }
 
-}  // namespace
-
-// The on-chip kernel's dynamic shared memory for a block of `rows` rows of
-// an S-channel slab in groups of cg, or -1 where it exceeds what a block
-// can have: the planner's `cluster_smem_bytes` is held to it.
-LLT2I_API int llt2i_group_norm_cluster_smem(int rows, int S, int cg) {
-  if (rows < 1 || S < 8 || S % 8 != 0 || cg < 1 || S % cg != 0) return -1;
-  if ((long long)rows * S * 2 > kSmemMax) return -1;
-  const int smem = ClusterSmem(rows, S, cg).total;
+int cluster_smem(int rows, int S, int cg, int item) {
+  if (rows < 1 || S < 8 || S % 8 != 0 || cg < 1 || S % cg != 0 ||
+      (item != 2 && item != 4))
+    return -1;
+  if ((long long)rows * S * item > kSmemMax) return -1;
+  const int smem = ClusterSmem(rows, S, cg, item).total;
   return smem > kSmemMax ? -1 : smem;
 }
 
-// On-chip path. x, y: (N, HW, C) bf16 contiguous, 16-byte aligned; gamma,
-// beta: (C,) bf16. Slabs of S channels (whole groups, S % 8 == 0), clusters
-// of `cluster` blocks of `rows` rows: (cluster - 1) * rows < HW <=
-// cluster * rows, and the tile fits shared memory.
-LLT2I_API int llt2i_group_norm_cluster(const void* x, const void* gamma,
-                                       const void* beta, void* y, int N,
-                                       int HW, int C, int G, int S,
-                                       int cluster, int rows, float eps,
-                                       int silu, void* stream) {
+template <typename T>
+int launch_cluster(const void* x, const void* gamma, const void* beta, void* y,
+                   int N, int HW, int C, int G, int S, int cluster, int rows,
+                   float eps, int silu, void* stream) {
   if (!shape_ok(N, HW, C, G) || !slab_ok(C, G, S) || cluster < 1 ||
       cluster > kMaxCluster || rows < 1 ||
       (long long)rows * cluster < HW || (long long)rows * (cluster - 1) >= HW)
     return (int)cudaErrorInvalidValue;
   const int cg = C / G;
-  const int smem = llt2i_group_norm_cluster_smem(rows, S, cg);
+  const int smem = cluster_smem(rows, S, cg, sizeof(T));
   if (smem < 0) return (int)cudaErrorInvalidValue;
   static unsigned long long set = 0;
-  int err = allow(gn_cluster_kernel, set);
+  int err = allow(gn_cluster_kernel<T>, set);
   if (err != 0) return err;
 
   cudaLaunchConfig_t cfg = {};
@@ -541,22 +586,18 @@ LLT2I_API int llt2i_group_norm_cluster(const void* x, const void* gamma,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = (int)cudaLaunchKernelEx(
-      &cfg, gn_cluster_kernel, static_cast<const bf16*>(x),
-      static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta),
-      static_cast<bf16*>(y), HW, C, S, cg, rows, eps, silu);
+      &cfg, gn_cluster_kernel<T>, static_cast<const T*>(x),
+      static_cast<const T*>(gamma), static_cast<const T*>(beta),
+      static_cast<T*>(y), HW, C, S, cg, rows, eps, silu);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }
 
-// Streaming path. x, y, gamma, beta as above; part: N * G * chunks * 3 f32
-// scratch. Statistics over slabs of S channels in `chunks` chunks of
-// `rows` rows ((chunks - 1) * rows < HW <= chunks * rows); the apply pass
-// in blocks of `apply_rows` rows.
-LLT2I_API int llt2i_group_norm_stream(const void* x, const void* gamma,
-                                      const void* beta, void* y, void* part,
-                                      int N, int HW, int C, int G, int S,
-                                      int chunks, int rows, int apply_rows,
-                                      float eps, int silu, void* stream) {
+template <typename T>
+int launch_stream(const void* x, const void* gamma, const void* beta, void* y,
+                  void* part, int N, int HW, int C, int G, int S, int chunks,
+                  int rows, int apply_rows, float eps, int silu,
+                  void* stream) {
   if (!shape_ok(N, HW, C, G) || !slab_ok(C, G, S) || chunks < 1 ||
       rows < 1 || (long long)rows * chunks < HW ||
       (long long)rows * (chunks - 1) >= HW || apply_rows < 1)
@@ -569,19 +610,76 @@ LLT2I_API int llt2i_group_norm_stream(const void* x, const void* gamma,
   if (stats_smem > kSmemMax || apply_smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
   static unsigned long long set_stats = 0, set_apply = 0;
-  int err = allow(gn_stats_kernel, set_stats);
-  if (err == 0) err = allow(gn_apply_kernel, set_apply);
+  int err = allow(gn_stats_kernel<T>, set_stats);
+  if (err == 0) err = allow(gn_apply_kernel<T>, set_apply);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gn_stats_kernel<<<dim3(chunks, C / S, N), kThreads, stats_smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<float*>(part), HW, C, S, cg, G,
+  gn_stats_kernel<T><<<dim3(chunks, C / S, N), kThreads, stats_smem, s>>>(
+      static_cast<const T*>(x), static_cast<float*>(part), HW, C, S, cg, G,
       rows);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int blocks = (HW + apply_rows - 1) / apply_rows;
-  gn_apply_kernel<<<dim3(blocks, N), kThreads, apply_smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(part),
-      static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta),
-      static_cast<bf16*>(y), HW, C, G, chunks, apply_rows, eps, silu);
+  gn_apply_kernel<T><<<dim3(blocks, N), kThreads, apply_smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(part),
+      static_cast<const T*>(gamma), static_cast<const T*>(beta),
+      static_cast<T*>(y), HW, C, G, chunks, apply_rows, eps, silu);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The on-chip kernel's dynamic shared memory for a block of `rows` rows of
+// an S-channel slab in groups of cg, at `item` bytes a value (2: bf16, 4:
+// f32), or -1 where it exceeds what a block can have: the planner's
+// `cluster_smem_bytes` is held to it.
+LLT2I_API int llt2i_group_norm_cluster_smem(int rows, int S, int cg, int item) {
+  return cluster_smem(rows, S, cg, item);
+}
+
+// On-chip path. x, y: (N, HW, C) bf16 contiguous, 16-byte aligned; gamma,
+// beta: (C,) bf16. Slabs of S channels (whole groups, S % 8 == 0), clusters
+// of `cluster` blocks of `rows` rows: (cluster - 1) * rows < HW <=
+// cluster * rows, and the tile fits shared memory.
+LLT2I_API int llt2i_group_norm_cluster(const void* x, const void* gamma,
+                                       const void* beta, void* y, int N,
+                                       int HW, int C, int G, int S,
+                                       int cluster, int rows, float eps,
+                                       int silu, void* stream) {
+  return launch_cluster<bf16>(x, gamma, beta, y, N, HW, C, G, S, cluster,
+                              rows, eps, silu, stream);
+}
+
+// The on-chip path on f32 x, y, gamma and beta: the tile holds f32 values.
+LLT2I_API int llt2i_group_norm_cluster_f32(const void* x, const void* gamma,
+                                           const void* beta, void* y, int N,
+                                           int HW, int C, int G, int S,
+                                           int cluster, int rows, float eps,
+                                           int silu, void* stream) {
+  return launch_cluster<float>(x, gamma, beta, y, N, HW, C, G, S, cluster,
+                               rows, eps, silu, stream);
+}
+
+// Streaming path. x, y, gamma, beta as above; part: N * G * chunks * 3 f32
+// scratch. Statistics over slabs of S channels in `chunks` chunks of
+// `rows` rows ((chunks - 1) * rows < HW <= chunks * rows); the apply pass
+// in blocks of `apply_rows` rows.
+LLT2I_API int llt2i_group_norm_stream(const void* x, const void* gamma,
+                                      const void* beta, void* y, void* part,
+                                      int N, int HW, int C, int G, int S,
+                                      int chunks, int rows, int apply_rows,
+                                      float eps, int silu, void* stream) {
+  return launch_stream<bf16>(x, gamma, beta, y, part, N, HW, C, G, S, chunks,
+                             rows, apply_rows, eps, silu, stream);
+}
+
+// The streaming path on f32 x, y, gamma and beta.
+LLT2I_API int llt2i_group_norm_stream_f32(const void* x, const void* gamma,
+                                          const void* beta, void* y,
+                                          void* part, int N, int HW, int C,
+                                          int G, int S, int chunks, int rows,
+                                          int apply_rows, float eps, int silu,
+                                          void* stream) {
+  return launch_stream<float>(x, gamma, beta, y, part, N, HW, C, G, S, chunks,
+                              rows, apply_rows, eps, silu, stream);
 }

@@ -32,22 +32,32 @@ KERNELS = {
 }
 
 
+# the kernels with an f32 form: their wrappers also count its launches
+# (``f32_launches``, a share of ``launches``)
+F32_KIDS = ("K1", "K2", "K3", "K4", "K5a", "K5b")
+
+
 def reset_launches() -> None:
     for wrapper, _ in KERNELS.values():
         wrapper.launches = 0
-    layer_norm.f32_launches = 0
+    for kid in F32_KIDS:
+        KERNELS[kid][0].f32_launches = 0
 
 
 def launch_counts() -> dict:
     return {kid: wrapper.launches for kid, (wrapper, _) in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "attention_delta", "ffn_geglu", "ffn_geglu_plain",
-           "ffn_ln_geglu", "ffn_ln_geglu_plain", "ffn_ln_geglu_q",
-           "ffn_ln_geglu_q_plain", "flash_attention",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_bwd_plain", "flash_attention_lse_plain",
-           "flash_attention_plain", "geglu_fused", "geglu_plain",
-           "group_norm", "group_norm_plain", "launch_counts", "layer_norm",
-           "layer_norm_plain", "linear_fused", "linear_plain", "plain_route",
-           "reset_launches"]
+def f32_launch_counts() -> dict:
+    return {kid: KERNELS[kid][0].f32_launches for kid in F32_KIDS}
+
+
+__all__ = ["F32_KIDS", "KERNELS", "attention_delta", "f32_launch_counts",
+           "ffn_geglu", "ffn_geglu_plain", "ffn_ln_geglu",
+           "ffn_ln_geglu_plain", "ffn_ln_geglu_q", "ffn_ln_geglu_q_plain",
+           "flash_attention", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "flash_attention_bwd_plain",
+           "flash_attention_lse_plain", "flash_attention_plain", "geglu_fused",
+           "geglu_plain", "group_norm", "group_norm_plain", "launch_counts",
+           "layer_norm", "layer_norm_plain", "linear_fused", "linear_plain",
+           "plain_route", "reset_launches"]

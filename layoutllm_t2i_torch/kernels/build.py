@@ -53,7 +53,7 @@ SIGNATURES = {
         "llt2i_group_norm_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _I, _P],
         # returns bytes, not a cudaError_t (-1: over a block's limit)
-        "llt2i_group_norm_cluster_smem": [_I, _I, _I],
+        "llt2i_group_norm_cluster_smem": [_I, _I, _I, _I],
     },
     "layer_norm": {
         "llt2i_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
@@ -71,6 +71,15 @@ SIGNATURES = {
         "llt2i_geglu": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
+
+# the f32 forms of K1, K5a, K5b, K2 and K4 take their bf16 forms' arguments
+F32_TWINS = {"flash_attention": ("llt2i_flash_fwd", "llt2i_flash_bwd_dq",
+                                 "llt2i_flash_bwd_dkv"),
+             "group_norm": ("llt2i_group_norm_cluster", "llt2i_group_norm_stream"),
+             "ffn": ("llt2i_ffn_ln_geglu",)}
+for lib_name, twins in F32_TWINS.items():
+    SIGNATURES[lib_name].update({f"{fn}_f32": SIGNATURES[lib_name][fn]
+                                 for fn in twins})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

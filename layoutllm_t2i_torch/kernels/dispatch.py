@@ -63,11 +63,24 @@ def require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
+# the operand types of the kernels' instantiations: bf16 for every kernel,
+# f32 for K1, K2, K3, K4, K5a and K5b
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def operand_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type a kernel call is checked against: ``x``'s where a form of
+    the kernel takes it, else bf16 (so that any other type raises naming
+    both)."""
+    return x.dtype if x.dtype in KERNEL_DTYPES else torch.bfloat16
+
+
 def check_operand(t: torch.Tensor, name: str, device: int,
-                  dtype: torch.dtype = torch.bfloat16) -> None:
+                  dtype: torch.dtype) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor on CUDA device
-    ``device`` (an index: the first operand's ``get_device()``). An identity
-    test and attribute reads: no ``torch.device`` is built unless a check
+    ``device`` (an index: the first operand's ``get_device()``). ``dtype``
+    is the operand type of the call (``operand_dtype``). An identity test
+    and attribute reads: no ``torch.device`` is built unless a check
     fails."""
     if t.dtype is not dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
@@ -80,10 +93,17 @@ def check_operand(t: torch.Tensor, name: str, device: int,
 
 def require_aligned(t: torch.Tensor, name: str, nbytes: int = 16) -> None:
     """A kernel that loads ``t`` through TMA or in 16-byte vectors needs its
-    address 16-byte aligned, one that moves bf16 pairs 4-byte aligned:
-    raise otherwise (no fallback)."""
+    address 16-byte aligned, one that moves pairs of values 2 values'
+    bytes aligned: raise otherwise (no fallback)."""
     if t.data_ptr() % nbytes:
         raise ValueError(f"{name}: data_ptr() must be {nbytes}-byte aligned")
+
+
+def vector_elems(dtype: torch.dtype) -> int:
+    """Values of ``dtype`` in a 16-byte vector: 8 bf16, 4 f32. A row that a
+    kernel moves in 16-byte vectors has a stride that is a multiple of it
+    (the alignment rule in elements, not bytes)."""
+    return 16 // dtype.itemsize
 
 
 def stream_handle(device: int) -> int:

@@ -3,7 +3,8 @@
 * K4 ``ffn_ln_geglu``: LayerNorm + GEGLU FF + scaled residual. Replaces
   ``layoutllm_t2i_tpu/ops/pallas/ffn.py`` ``_ffn_ln_call`` /
   ``_ffn_ln_kernel`` (``ffn_ln_geglu_fused``, s = 1, and
-  ``ffn_ln_geglu_scaled``).
+  ``ffn_ln_geglu_scaled``). bf16 or f32 (``llt2i_ffn_ln_geglu_f32``,
+  3xTF32 products, LN(x) and h kept in f32), picked from ``x.dtype``.
 * K6 ``ffn_geglu``: the FF without the LN, its residual passed in.
   Replaces ``_ffn_call`` / ``_ffn_kernel`` (``ffn_geglu_fused``).
 * K7 ``ffn_ln_geglu_q``: K4 with int8 weights and per-output-channel f32
@@ -34,8 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from .build import check, lib
-from .dispatch import (check_operand, needs_grad, plain_vjp, require,
-                       require_aligned, stream_handle, use_kernel)
+from .dispatch import (check_operand, needs_grad, operand_dtype, plain_vjp,
+                       require, require_aligned, stream_handle, use_kernel)
 from .matmul import _pick_block
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, every reference norm3/norm2 site
@@ -133,48 +134,58 @@ class FfnLnGeglu(torch.autograd.Function):
         return plain_vjp(ffn_ln_geglu_plain, args, ctx.needs_input_grad, grad)
 
 
+# the instantiations: dtype -> C entry point
+_ENTRY = {torch.bfloat16: "llt2i_ffn_ln_geglu",
+          torch.float32: "llt2i_ffn_ln_geglu_f32"}
+
+
 def _forward(x, ln_w, ln_b, w1, b1, w2, b2, s, eps):
     if not use_kernel(x):
         return ffn_ln_geglu_plain(x, ln_w, ln_b, w1, b1, w2, b2, s, eps)
     m, k = x.shape
     inner = w1.shape[0] // 2
     dev = x.get_device()
+    dtype = operand_dtype(x)
     for name, t in (("ffn_ln_geglu: x", x), ("ffn_ln_geglu: ln_w", ln_w),
                     ("ffn_ln_geglu: ln_b", ln_b), ("ffn_ln_geglu: w1", w1),
                     ("ffn_ln_geglu: b1", b1), ("ffn_ln_geglu: w2", w2),
                     ("ffn_ln_geglu: b2", b2)):
-        check_operand(t, name, dev)
+        check_operand(t, name, dev, dtype)
     require(ln_w.shape == (k,) and ln_b.shape == (k,) and b2.shape == (k,)
             and w1.shape == (2 * inner, k) and b1.shape == (2 * inner,)
             and w2.shape == (k, inner), "ffn_ln_geglu: weight shapes")
     if not (k % 8 == 0 and inner % 8 == 0):
         raise ValueError(
             f"ffn_ln_geglu: K={k}, inner={inner} must be multiples of 8")
-    # x, ln_w and ln_b in 16-byte vectors, w1 and w2 through TMA, the
-    # biases in bf16 pairs
+    # x, ln_w and ln_b in 16-byte vectors, w1 and w2 through TMA (f32:
+    # 16-byte cp.async), the biases in pairs of values
+    pair = 2 * x.element_size()
     for name, t, nbytes in (
             ("ffn_ln_geglu: x", x, 16), ("ffn_ln_geglu: ln_w", ln_w, 16),
             ("ffn_ln_geglu: ln_b", ln_b, 16), ("ffn_ln_geglu: w1", w1, 16),
-            ("ffn_ln_geglu: w2", w2, 16), ("ffn_ln_geglu: b1", b1, 4),
-            ("ffn_ln_geglu: b2", b2, 4)):
+            ("ffn_ln_geglu: w2", w2, 16), ("ffn_ln_geglu: b1", b1, pair),
+            ("ffn_ln_geglu: b2", b2, pair)):
         require_aligned(t, name, nbytes)
     # s_keep holds the f32 copy of a tensor s alive until the launch
     s_ptr, s_val, s_keep = _scale_operand(s, x, "ffn_ln_geglu")
     out = torch.empty_like(x)
     if m == 0:
         return out
-    # one scratch allocation: h (m, inner), then bf16(LN(x)) (m, k)
+    # one scratch allocation: h (m, inner), then LN(x) (m, k), in x's type
     hbuf = torch.empty((m * (inner + k),), dtype=x.dtype, device=x.device)
-    check(lib("ffn").llt2i_ffn_ln_geglu(
+    check(getattr(lib("ffn"), _ENTRY[dtype])(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), hbuf.data_ptr(),
         out.data_ptr(), s_ptr, s_val, m, k, inner, float(eps),
         stream_handle(dev)), "ffn_ln_geglu")
     ffn_ln_geglu.launches += 1
+    if dtype is torch.float32:
+        ffn_ln_geglu.f32_launches += 1
     return out
 
 
 ffn_ln_geglu.launches = 0
+ffn_ln_geglu.f32_launches = 0  # the f32 form's share of ``launches``
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +236,7 @@ def _forward_res(x, w1, b1, w2, b2, r):
     for name, t in (("ffn_geglu: x", x), ("ffn_geglu: w1", w1),
                     ("ffn_geglu: b1", b1), ("ffn_geglu: w2", w2),
                     ("ffn_geglu: b2", b2), ("ffn_geglu: r", r)):
-        check_operand(t, name, dev)
+        check_operand(t, name, dev, torch.bfloat16)
     require(w1.shape == (2 * inner, k) and b1.shape == (2 * inner,)
             and w2.shape == (k, inner) and b2.shape == (k,)
             and r.shape == (m, k), "ffn_geglu: shapes")

@@ -13,6 +13,12 @@ output and the lse: no N x M matrix. Its backward takes
 delta = rowsum(dO * O) as one plain reduction, as the JAX package takes it
 in XLA, then K5a (dQ) and K5b (dK, dV) recompute the softmax from the lse.
 Where no gradient is needed, K1 launches exactly as for inference.
+
+Each kernel comes in bf16 and in f32 (``llt2i_flash_*_f32``: 3xTF32
+products on mma.sync, P and dS kept in f32, as the Pallas kernels keep
+them in the operands' type), picked from q's dtype; q, k, v and dO share
+it. The f32 forms take d 40 and 80 (K1 also 512), the training path's
+head dims.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from typing import Tuple
 import torch
 
 from .build import check, lib
-from .dispatch import needs_grad, require, stream_handle, use_kernel
+from .dispatch import (needs_grad, operand_dtype, require, stream_handle,
+                       use_kernel, vector_elems)
 
 
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -82,34 +89,47 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return _packed(dq, q.dtype), _packed(dk, k.dtype), _packed(dv, v.dtype)
 
 
+# the C entry points of each form: dtype -> (K1, K5a, K5b)
+_ENTRY = {torch.bfloat16: ("llt2i_flash_fwd", "llt2i_flash_bwd_dq",
+                           "llt2i_flash_bwd_dkv"),
+          torch.float32: ("llt2i_flash_fwd_f32", "llt2i_flash_bwd_dq_f32",
+                          "llt2i_flash_bwd_dkv_f32")}
+
+
 def _check_qkv(q, k, v, heads, what):
+    """q, k and v of q's operand type (bf16 or f32) on one card, packed
+    (B, rows, H*d) with 16-byte aligned rows: strides in whole 16-byte
+    vectors of that type (8 bf16, 4 f32). Returns the type."""
     b, _, hc = q.shape
     dev = q.get_device()
+    dtype = operand_dtype(q)
+    per_vec = vector_elems(dtype)
+    name_of = "bf16" if dtype is torch.bfloat16 else "f32"
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not (t.is_cuda and t.get_device() == dev
-                and t.dtype is torch.bfloat16):
-            raise ValueError(f"{what}: {name} must be bf16 on {q.device}")
+        if not (t.is_cuda and t.get_device() == dev and t.dtype is dtype):
+            raise ValueError(f"{what}: {name} must be {name_of} on {q.device}")
         if not (t.dim() == 3 and t.shape[0] == b and t.shape[2] == hc):
             raise ValueError(f"{what}: {name} shape {tuple(t.shape)}")
-        if (t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8
-                or t.data_ptr() % 16):
+        if (t.stride(2) != 1 or t.stride(1) % per_vec
+                or t.stride(0) % per_vec or t.data_ptr() % 16):
             raise ValueError(f"{what}: {name} rows must be 16-byte aligned")
     if v.shape[1] != k.shape[1]:
         raise ValueError(f"{what}: k and v lengths differ")
     if hc % heads or (hc // heads) % 8:
         raise ValueError(
             f"{what}: head dim {hc}/{heads} must be a multiple of 8")
+    return dtype
 
 
 def _launch_fwd(q, k, v, heads, scale, need_lse):
     """K1; with ``need_lse`` it also writes the (B, H, N) f32 lse."""
-    _check_qkv(q, k, v, heads, "flash_attention")
+    dtype = _check_qkv(q, k, v, heads, "flash_attention")
     b, n, hc = q.shape
     m = k.shape[1]
     out = torch.empty((b, n, hc), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    check(lib("flash_attention").llt2i_flash_fwd(
+    check(getattr(lib("flash_attention"), _ENTRY[dtype][0])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         b, heads, n, m, hc // heads,
@@ -117,21 +137,26 @@ def _launch_fwd(q, k, v, heads, scale, need_lse):
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
         float(scale), stream_handle(q.get_device())), "flash_attention")
     flash_attention.launches += 1
+    if dtype is torch.float32:
+        flash_attention.f32_launches += 1
     return out, lse
 
 
 def _check_bwd(q, k, v, dout, lse, delta, heads, what):
-    _check_qkv(q, k, v, heads, what)
+    """As ``_check_qkv``, and dout contiguous of q's type and shape. Returns
+    the operand type."""
+    dtype = _check_qkv(q, k, v, heads, what)
     b, n, _ = q.shape
     require(dout.shape == q.shape and dout.dtype == q.dtype
             and dout.is_cuda and dout.get_device() == q.get_device()
             and dout.is_contiguous(),
-            f"{what}: dout must be contiguous bf16 shaped like q")
+            f"{what}: dout must be contiguous, of q's dtype and shape")
     for name, t in (("lse", lse), ("delta", delta)):
         require(t.shape == (b, heads, n) and t.dtype == torch.float32
                 and t.is_cuda and t.get_device() == q.get_device()
                 and t.is_contiguous(),
                 f"{what}: {name} must be contiguous f32 (B, H, N)")
+    return dtype
 
 
 def _bwd_args(q, k, v, dout, lse, delta, heads):
@@ -150,14 +175,17 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not use_kernel(q):
         return flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads,
                                          scale)[0]
-    _check_bwd(q, k, v, dout, lse, delta, heads, "flash_attention_bwd_dq")
+    dtype = _check_bwd(q, k, v, dout, lse, delta, heads,
+                       "flash_attention_bwd_dq")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
-    check(lib("flash_attention").llt2i_flash_bwd_dq(
+    check(getattr(lib("flash_attention"), _ENTRY[dtype][1])(
         *ptrs, dq.data_ptr(), *dims, float(scale),
         stream_handle(q.get_device())),
         "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    if dtype is torch.float32:
+        flash_attention_bwd_dq.f32_launches += 1
     return dq
 
 
@@ -169,14 +197,17 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not use_kernel(q):
         return flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads,
                                          scale)[1:]
-    _check_bwd(q, k, v, dout, lse, delta, heads, "flash_attention_bwd_dkv")
+    dtype = _check_bwd(q, k, v, dout, lse, delta, heads,
+                       "flash_attention_bwd_dkv")
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
-    check(lib("flash_attention").llt2i_flash_bwd_dkv(
+    check(getattr(lib("flash_attention"), _ENTRY[dtype][2])(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, float(scale),
         stream_handle(q.get_device())), "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    if dtype is torch.float32:
+        flash_attention_bwd_dkv.f32_launches += 1
     return dk, dv
 
 
@@ -227,3 +258,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+# the f32 forms' shares of ``launches``
+flash_attention.f32_launches = 0
+flash_attention_bwd_dq.f32_launches = 0
+flash_attention_bwd_dkv.f32_launches = 0

@@ -5,9 +5,12 @@ Replaces ``layoutllm_t2i_tpu/ops/pallas/norms.py`` ``_gn_pallas`` and
 ``_gn_apply_kernel``). Differentiable through ``GroupNorm``, whose backward
 is the plain version's VJP, as ``_gn_bwd`` (norms.py:294) recomputes it.
 
-``plan_group_norm`` (a function of the shape alone) picks the kernel's
-path: one cluster launch that holds each (sample, slab) on chip, or two
-streaming launches where no portable cluster (8 blocks) holds the slab.
+``plan_group_norm`` (a function of the shape and the item size alone)
+picks the kernel's path: one cluster launch that holds each (sample, slab)
+on chip, or two streaming launches where no portable cluster (8 blocks)
+holds the slab. The kernels come in bf16 and in f32 (x, weight and bias of
+one type, picked from ``x.dtype``); an f32 slab holds half the rows in
+shared memory, so more shapes stream.
 """
 from __future__ import annotations
 
@@ -18,8 +21,8 @@ from typing import NamedTuple
 import torch
 
 from .build import check, lib
-from .dispatch import (check_operand, needs_grad, plain_vjp, require,
-                       require_aligned, stream_handle, use_kernel)
+from .dispatch import (check_operand, needs_grad, operand_dtype, plain_vjp,
+                       require, require_aligned, stream_handle, use_kernel)
 
 # the H100's SMs; a block's dynamic shared memory; what each of two blocks
 # resident on one SM can have (228 KB an SM, 1 KB of it reserved a block)
@@ -57,13 +60,14 @@ def row_parts(slab: int) -> int:
     return (THREADS // 32) // min(slab // 8, THREADS // 32)
 
 
-def cluster_smem_bytes(rows: int, slab: int, cg: int) -> int:
-    """Shared memory of one on-chip block (csrc ``ClusterSmem``): the bf16
-    tile, the row parts' sums, three per-channel and five per-group floats.
-    The planner runs without a card, so this mirrors the C layout; the card
-    tests hold it to ``llt2i_group_norm_cluster_smem``."""
-    return _round16(rows * slab * 2) + 4 * (2 * row_parts(slab) * slab
-                                            + 3 * slab + 5 * (slab // cg))
+def cluster_smem_bytes(rows: int, slab: int, cg: int, itemsize: int = 2) -> int:
+    """Shared memory of one on-chip block (csrc ``ClusterSmem``): the tile
+    of ``itemsize``-byte values (2: bf16, 4: f32), the row parts' sums,
+    three per-channel and five per-group floats. The planner runs without a
+    card, so this mirrors the C layout; the card tests hold it to
+    ``llt2i_group_norm_cluster_smem``."""
+    return _round16(rows * slab * itemsize) + 4 * (2 * row_parts(slab) * slab
+                                                   + 3 * slab + 5 * (slab // cg))
 
 
 def slabs(c: int, groups: int) -> list:
@@ -80,8 +84,10 @@ def cluster_slab(c: int, groups: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan_group_norm(n: int, hw: int, c: int, groups: int) -> GNPlan:
-    """K2's plan for x (n, hw, c) in ``groups`` groups. The slab is the
+def plan_group_norm(n: int, hw: int, c: int, groups: int,
+                    itemsize: int = 2) -> GNPlan:
+    """K2's plan for x (n, hw, c) in ``groups`` groups of ``itemsize``-byte
+    values (2: bf16, 4: f32; the tile's bytes, nothing else). The slab is the
     narrowest of at least MIN_SLAB channels. A cluster takes the fewest
     blocks whose rows fit shared memory, two blocks an SM where that needs
     no more than MAX_CLUSTER, and, where the clusters alone leave more
@@ -98,7 +104,7 @@ def plan_group_norm(n: int, hw: int, c: int, groups: int) -> GNPlan:
     clusters = n * (c // slab)
 
     def fits(k, limit):
-        return cluster_smem_bytes(-(-hw // k), slab, cg) <= limit
+        return cluster_smem_bytes(-(-hw // k), slab, cg, itemsize) <= limit
 
     sizes = range(1, min(MAX_CLUSTER, hw) + 1)
     k_min = next((k for k in sizes if fits(k, SMEM_MAX)), None)
@@ -117,7 +123,8 @@ def plan_group_norm(n: int, hw: int, c: int, groups: int) -> GNPlan:
 def stream_plan(n: int, hw: int, c: int, groups: int) -> GNPlan:
     """The streaming path's plan: statistics over whole rows where C <= 2048
     (else the widest slab of at most 2048 channels), in about STREAM_BLOCKS
-    blocks; the apply pass in about STREAM_BLOCKS blocks."""
+    blocks; the apply pass in about STREAM_BLOCKS blocks. Its shared memory
+    holds f32 sums only, so the item size does not enter it."""
     widths = slabs(c, groups)
     slab = max((s for s in widths if s <= 2048), default=widths[0])
     chunks = min(hw, max(1, -(-STREAM_BLOCKS // (n * (c // slab)))))
@@ -176,31 +183,39 @@ def launch(x, weight, bias, num_groups, eps, silu, plan: GNPlan = None):
     launches and their partials. Raises where the kernel cannot launch."""
     n, hw, c = x.shape
     dev = x.get_device()
-    check_operand(x, "group_norm: x", dev)
-    check_operand(weight, "group_norm: weight", dev)
-    check_operand(bias, "group_norm: bias", dev)
+    dtype = operand_dtype(x)
+    check_operand(x, "group_norm: x", dev, dtype)
+    check_operand(weight, "group_norm: weight", dev, dtype)
+    check_operand(bias, "group_norm: bias", dev, dtype)
     require(weight.shape == (c,) and bias.shape == (c,),
             "group_norm: affine params must be (C,)")
     require_aligned(x, "group_norm: x")
+    f32 = dtype is torch.float32
     if plan is None:
-        plan = plan_group_norm(n, hw, c, num_groups)
+        plan = plan_group_norm(n, hw, c, num_groups, x.element_size())
     out = torch.empty_like(x)
+    gn = lib("group_norm")
     if plan.path == "cluster":
-        err = lib("group_norm").llt2i_group_norm_cluster(
+        entry = gn.llt2i_group_norm_cluster_f32 if f32 else gn.llt2i_group_norm_cluster
+        err = entry(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
             n, hw, c, num_groups, plan.slab, plan.cluster, plan.rows,
             float(eps), int(silu), stream_handle(dev))
     else:
         part = torch.empty(n * num_groups * plan.chunks * 3,
                            dtype=torch.float32, device=x.device)
-        err = lib("group_norm").llt2i_group_norm_stream(
+        entry = gn.llt2i_group_norm_stream_f32 if f32 else gn.llt2i_group_norm_stream
+        err = entry(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
             part.data_ptr(), n, hw, c, num_groups, plan.slab, plan.chunks,
             plan.rows, plan.apply_rows, float(eps), int(silu),
             stream_handle(dev))
     check(err, "group_norm")
     group_norm.launches += 1
+    if f32:
+        group_norm.f32_launches += 1
     return out
 
 
 group_norm.launches = 0
+group_norm.f32_launches = 0  # the f32 form's share of ``launches``

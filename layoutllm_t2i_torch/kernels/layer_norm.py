@@ -12,8 +12,8 @@ from __future__ import annotations
 import torch
 
 from .build import check, lib
-from .dispatch import (check_operand, needs_grad, plain_vjp, stream_handle,
-                       use_kernel)
+from .dispatch import (check_operand, needs_grad, operand_dtype, plain_vjp,
+                       stream_handle, use_kernel)
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -59,8 +59,7 @@ def _forward(x, weight, bias, eps):
         return layer_norm_plain(x, weight, bias, eps)
     rows, c = x.shape
     dev = x.get_device()
-    # any other dtype is held to bf16's, and so raises
-    dtype = x.dtype if x.dtype in _ENTRY else torch.bfloat16
+    dtype = operand_dtype(x)  # any other dtype is held to bf16's, and raises
     check_operand(x, "layer_norm: x", dev, dtype)
     check_operand(weight, "layer_norm: weight", dev, dtype)
     check_operand(bias, "layer_norm: bias", dev, dtype)

@@ -57,8 +57,9 @@ def _refuse_f32(x: torch.Tensor, name: str) -> None:
     ROADMAP item that ports their f32 forms."""
     if x.dtype is torch.float32:
         raise ValueError(f"{name}: f32 operands are not ported to this "
-                         "kernel (ROADMAP Queue 2, 'f32 operands, every "
-                         "kernel'); unset LLT2I_PALLAS_MATMUL for f32 models")
+                         "kernel (ROADMAP Queue 2, 'f32 operands of K6, K7, "
+                         "K8a and K8b'); unset LLT2I_PALLAS_MATMUL for f32 "
+                         "models")
 
 
 def linear_plain(x: torch.Tensor, w: torch.Tensor,
@@ -107,7 +108,7 @@ def _linear_forward(x, w, b, r):
     for name, t in (("linear_fused: x", x), ("linear_fused: w", w),
                     ("linear_fused: b", b), ("linear_fused: r", r)):
         if t is not None:
-            check_operand(t, name, dev)
+            check_operand(t, name, dev, torch.bfloat16)
     require(w.shape == (n, k) and (b is None or b.shape == (n,))
             and (r is None or r.shape == (m, n)), "linear_fused: shapes")
     if not (k % 8 == 0 and n % 8 == 0):
@@ -174,7 +175,7 @@ def _geglu_forward(x, w, b):
     for name, t in (("geglu_fused: x", x), ("geglu_fused: w", w),
                     ("geglu_fused: b", b)):
         if t is not None:
-            check_operand(t, name, dev)
+            check_operand(t, name, dev, torch.bfloat16)
     require(w.shape == (2 * n, k) and (b is None or b.shape == (2 * n,)),
             "geglu_fused: shapes")
     if not (k % 8 == 0 and n % 8 == 0):

@@ -7,7 +7,8 @@ trainer_combined_layout.py).
     checkpoint/from_jax.py); VAE and text encoder frozen, the UNet trained
     under a mode ('rela_fuse' for LayoutLLM-T2I, 'gligen', 'all');
   * ``prepare_batch``: VAE encode with a posterior sample, CLIP context,
-    pooled phrase and relation embeddings (power-of-two bucketed);
+    pooled phrase and relation embeddings (power-of-two bucketed), all in
+    f32 whatever the compute dtype, as the JAX trainer encodes;
   * ``TrainStep``: eps-MSE, backward through the kernels, optax-style
     AdamW/SGD on the trainable subset, optional EMA;
   * checkpoints with embedded config and tagNN auto-resume
@@ -71,7 +72,8 @@ class TrainerConfig:
     preview_guidance: float = 5.0
     # also write the reference 4-module dict .pth at every save
     export_reference_ckpt: bool = False
-    # bf16 compute / f32 master weights (required on the card)
+    # bf16 compute of the UNet with f32 master weights; False (the JAX
+    # package's default): f32 throughout
     mixed_precision: bool = False
     enable_ema: bool = False
     ema_rate: float = 0.9999
@@ -95,13 +97,17 @@ def check_supported(config: TrainerConfig) -> None:
             "Queue 1, \"training previews\")")
 
 
-def _prepare_models(models: GligenModels, dtype: torch.dtype) -> GligenModels:
-    """f32 master weights for the UNet; the frozen VAE and text encoder in
-    the compute dtype."""
+def _prepare_models(models: GligenModels) -> GligenModels:
+    """f32 master weights for the UNet, and the frozen VAE and text encoder
+    in f32 whatever the compute dtype: the JAX trainer builds all three in
+    f32 (``_build_models``) and only its train step casts the UNet's
+    inputs, so the latents, the context, the phrase and relation embeddings
+    and the exported VAE and CLIP weights are f32. The UNet's compute dtype
+    is the train step's (``TrainStepConfig.compute_dtype``)."""
     models.unet_params.float()
-    models.vae_params.to(dtype)
-    models.clip_params.to(dtype)
-    models.compute_dtype = dtype
+    models.vae_params.float()
+    models.clip_params.float()
+    models.compute_dtype = torch.float32
     return models
 
 
@@ -145,7 +151,7 @@ class DiffusionTrainer:
             ema_rate=config.ema_rate if config.enable_ema else None,
             accum_steps=config.accum_steps,
         )
-        self.models = _prepare_models(models, self.step_cfg.compute_dtype)
+        self.models = _prepare_models(models)
         self.train_step = TrainStep(self.step_cfg, models.unet_params)
 
         self.run_dir, resume_ckpt = create_run_dir_with_auto_resume(
@@ -203,7 +209,7 @@ class DiffusionTrainer:
         dev = self.device
         ids = torch.from_numpy(m.tokenizer(batch["caption"]).astype(np.int64))
         images = torch.from_numpy(np.asarray(batch["image"], np.float32))
-        images = nhwc_to_nchw(images.to(dev, m.compute_dtype))
+        images = nhwc_to_nchw(images.to(dev, torch.float32))
         z = vae_encode(m.vae_params, m.vae_cfg, images,
                        generator=self.generator, sample=True)
         context, _ = clip_text_apply(m.clip_params, m.clip_cfg, ids.to(dev))

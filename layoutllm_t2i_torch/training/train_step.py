@@ -9,13 +9,15 @@ state_dict name) carry ``requires_grad`` and optimizer state; the frozen
 rest of the UNet is read-only input and never gets a ``.grad``. Gradients
 are taken with ``torch.autograd.grad`` over the trainable tensors alone.
 
-Mixed precision (``mixed_precision=True``, the only mode on the card, whose
-kernels take bf16 operands) computes in bf16 from f32 master weights: the
-frozen weights are cast to bf16 once at setup (the cast is deterministic,
-so every step sees the values a per-step cast would give), the trainable
-ones every step through a differentiable cast, so their gradients arrive in
-f32, as the JAX cast transpose gives them. The MSE is taken in f32 against
-the f32 noise.
+The default, as the JAX package's, is f32 throughout (the kernels' f32
+forms on the card). Mixed precision (``mixed_precision=True``) computes in
+bf16 from f32 master weights: the frozen weights are cast to bf16 once at
+setup (the cast is deterministic, so every step sees the values a per-step
+cast would give), the trainable ones every step through a differentiable
+cast, so their gradients arrive in f32, as the JAX cast transpose gives
+them. In f32 the "cast" of a frozen weight is the master itself (``.to``
+of the same type returns the tensor): no copy of the frozen UNet is made.
+The MSE is taken in f32 against the f32 noise.
 
 The optimizer mirrors optax, not torch's defaults: ``optax.adamw(schedule,
 weight_decay)`` (b1 0.9, b2 0.999, eps 1e-8 outside the square root,
@@ -70,7 +72,8 @@ class TrainStepConfig:
     # recompute the UNet forward in backward (torch.utils.checkpoint), the
     # JAX package's jax.checkpoint option
     remat: bool = False
-    # bf16 compute with f32 master weights (required on the card)
+    # bf16 compute with f32 master weights; False (the JAX package's
+    # default): f32 throughout
     mixed_precision: bool = False
     # k microbatches, gradients averaged, one optimizer/EMA update
     accum_steps: int = 1
@@ -202,12 +205,6 @@ class TrainStep:
 
     def __init__(self, cfg: TrainStepConfig, unet: ParamTree):
         self.cfg = cfg
-        device = next(unet.parameters()).device
-        if device.type == "cuda" and not cfg.mixed_precision:
-            raise ValueError(
-                "mixed_precision=False on a CUDA device: the port's kernels "
-                "take bf16 operands and f32 kernels are not ported; train "
-                "with mixed_precision=True")
         if cfg.accum_steps < 1:
             raise ValueError(f"accum_steps {cfg.accum_steps} must be >= 1")
         self.unet = unet
@@ -218,6 +215,8 @@ class TrainStep:
             if cfg.ema_rate is not None else None)
         self.step = 0
         dt = cfg.compute_dtype
+        # in f32 each entry aliases its master (detach() shares storage and
+        # .to() of the same type returns it)
         self._frozen = {n: p.detach().to(dt) for n, p in unet.named_parameters()
                         if n not in self.params}
 

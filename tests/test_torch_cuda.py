@@ -302,19 +302,20 @@ def test_group_norm_silu_tail(dev, gen, path):
 
 
 def test_group_norm_smem_mirror(dev):
-    # the planner's cluster_smem_bytes against the C layout and limit,
-    # every slab of each group width up to 640 channels, rows up to and one
-    # past the most a block holds
+    # the planner's cluster_smem_bytes against the C layout and limit, at
+    # both item sizes (bf16 and f32 tiles), every slab of each group width
+    # up to 640 channels, rows up to and one past the most a block holds
     smem = lib("group_norm").llt2i_group_norm_cluster_smem
-    for cg in (1, 2, 3, 4, 8, 10, 16, 20, 30, 40, 60, 80):
-        for slab in range(math.lcm(cg, 8), 641, math.lcm(cg, 8)):
-            most = GN.SMEM_MAX // (2 * slab)
-            while GN.cluster_smem_bytes(most, slab, cg) > GN.SMEM_MAX:
-                most -= 1
-            for rows in (1, 31, 32, 205, most // 2, most, most + 1):
-                py = GN.cluster_smem_bytes(rows, slab, cg)
-                want = py if py <= GN.SMEM_MAX else -1
-                assert smem(rows, slab, cg) == want, (rows, slab, cg)
+    for item in (2, 4):
+        for cg in (1, 2, 3, 4, 8, 10, 16, 20, 30, 40, 60, 80):
+            for slab in range(math.lcm(cg, 8), 641, math.lcm(cg, 8)):
+                most = GN.SMEM_MAX // (item * slab)
+                while GN.cluster_smem_bytes(most, slab, cg, item) > GN.SMEM_MAX:
+                    most -= 1
+                for rows in (1, 31, 32, 205, most // 2, most, most + 1):
+                    py = GN.cluster_smem_bytes(rows, slab, cg, item)
+                    want = py if py <= GN.SMEM_MAX else -1
+                    assert smem(rows, slab, cg, item) == want, (rows, slab, cg, item)
 
 
 @pytest.mark.parametrize("path,shape", [("cluster", (4, 1024, 640)),
@@ -649,20 +650,280 @@ def test_ffn_ln_geglu_grads(dev, gen, scale):
                  [x, lw, lb, w1, b1, w2, b2, s, 1e-5], K.ffn_ln_geglu)
 
 
-def test_training_refuses_f32_on_the_card(dev):
-    """The kernels take bf16 operands: an f32 train step on the card raises
-    and names the flag, rather than quietly running the plain versions."""
+def test_training_runs_f32_on_the_card(dev):
+    """TrainStepConfig's default, f32 (the JAX package's), trains on the
+    card through the kernels' f32 forms: a step at a geometry whose 32^2
+    sites reach K1 with its lse, K5a/K5b and K4, all in f32, against the
+    same step under plain_route(); the frozen weights are the masters
+    themselves, not an f32 copy."""
     from layoutllm_t2i_torch.ops.schedules import make_ddpm_schedule
-    from layoutllm_t2i_torch.pipeline.loaders import model_configs
     from layoutllm_t2i_torch.training.train_step import TrainStep, TrainStepConfig
+    from layoutllm_t2i_torch.models.initializers import Init
+    from layoutllm_t2i_torch.models.unet import UNetConfig, init_unet_params
     from layoutllm_t2i_torch.utils.trees import ParamTree
 
-    unet_cfg = model_configs(small=True)[0]
-    tree = ParamTree({"rela_fuse": {"weight": torch.zeros(4, device=dev)}})
-    cfg = TrainStepConfig(unet_cfg=unet_cfg,
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # 160 channels in 2 heads: d 80 at the 32^2 sites (1024 tokens, 1054
+    # with the grounding tokens), whose FF sites (2048 rows) take K4
+    cfg_u = UNetConfig(image_size=32, model_channels=160, num_res_blocks=1,
+                       attention_resolutions=(1,), channel_mult=(1, 1),
+                       num_heads=2)
+    g = torch.Generator(device=dev).manual_seed(0)
+    unet = ParamTree(init_unet_params(Init(g, dev, torch.float32), cfg_u))
+    for name, p in unet.named_parameters():
+        if name.rsplit(".", 1)[-1].startswith("alpha_"):
+            p.data.fill_(0.5)
+    cfg = TrainStepConfig(unet_cfg=cfg_u, warmup_steps=0,
                           schedule=make_ddpm_schedule("linear", 1000, 0.00085, 0.012))
-    with pytest.raises(ValueError, match="mixed_precision"):
-        TrainStep(cfg, tree)
+    assert not cfg.mixed_precision and cfg.compute_dtype is torch.float32
+    step = TrainStep(cfg, unet)
+    frozen = dict(unet.named_parameters())
+    assert all(t.data_ptr() == frozen[n].data_ptr() for n, t in step._frozen.items())
+    b = 2
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    boxes = torch.zeros(b, 30, 4, device=dev)
+    boxes[:, 0] = torch.tensor([0.1, 0.2, 0.6, 0.9], device=dev)
+    masks = torch.zeros(b, 30, device=dev)
+    masks[:, 0] = 1
+    batch = {"z": rnd(b, 4, 32, 32).contiguous(memory_format=torch.channels_last),
+             "context": rnd(b, 77, 768), "boxes": boxes, "masks": masks,
+             "phrase_embeddings": rnd(b, 30, 768), "relations": rnd(b, 5, 768)}
+    t = torch.tensor([701, 42], device=dev)
+    noise = rnd(b, 4, 32, 32).contiguous(memory_format=torch.channels_last)
+    keep = torch.ones((), device=dev)
+    K.reset_launches()
+    loss, grads = step.grads(batch, t, noise, keep)
+    torch.cuda.synchronize()
+    f32 = K.f32_launch_counts()
+    assert all(f32[kid] > 0 for kid in ("K1", "K2", "K3", "K4", "K5a", "K5b")), f32
+    assert f32 == {kid: n for kid, n in K.launch_counts().items() if kid in f32}
+    with K.plain_route():
+        loss_p, grads_p = step.grads(batch, t, noise, keep)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    num = sum(float((a - b_).double().pow(2).sum()) for a, b_ in zip(grads, grads_p))
+    den = sum(float(b_.double().pow(2).sum()) for b_ in grads_p)
+    assert math.sqrt(num / den) <= 1e-4
+    before = [p.detach().clone() for p in step.params.values()]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    assert torch.isfinite(step(batch, gen))
+    assert all(not torch.equal(p, q) for p, q in zip(step.params.values(), before))
+
+
+# ---------------------------------------------------------------------------
+# the f32 forms of K1, K5a/K5b, K2 and K4 (3xTF32 on mma.sync; K2 on f32
+# tiles), against the plain versions in full f32
+
+
+@pytest.fixture
+def f32(dev):
+    """The plain versions' products in full f32 (no TF32), as chip_smoke
+    sets it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.float32
+
+
+def _check_f32(kid, kernel_fn, plain_fn, counter, kids=None):
+    before, before_f32 = counter.launches, counter.f32_launches
+    out = kernel_fn()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert counter.f32_launches == before_f32 + 1
+    got = agreement(kids or f"{kid}/f32", out, plain_fn())
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", [
+    (1, 600, 630, 2, 40), (2, 513, 129, 8, 80), (1, 520, 600, 1, 512),
+    (2, 4126, 4126, 8, 40), (1, 4096, 4096, 1, 512),
+])
+def test_flash_attention_f32(dev, gen, f32, b, n, m, heads, d):
+    q, k, v = (_rand(gen, b, r, heads * d).float() for r in (n, m, m))
+    s = d ** -0.5
+    _check_f32("K1", lambda: K.flash_attention(q, k, v, heads, s),
+               lambda: K.flash_attention_plain(q, k, v, heads, s),
+               K.flash_attention)
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", TRAIN_SHAPES)
+def test_flash_attention_lse_f32(dev, gen, f32, b, n, m, heads, d):
+    q, k, v, _ = (t.float() for t in _attention_inputs(gen, b, n, m, heads, d))
+    s = d ** -0.5
+    _check_f32("K1", lambda: _launch_fwd(q, k, v, heads, s, need_lse=True),
+               lambda: K.flash_attention_lse_plain(q, k, v, heads, s),
+               K.flash_attention, kids=("K1/f32", "lse/f32"))
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", TRAIN_SHAPES)
+def test_flash_attention_backward_f32(dev, gen, f32, b, n, m, heads, d):
+    q, k, v, dout = (t.float() for t in _attention_inputs(gen, b, n, m, heads, d))
+    s = d ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
+    delta = K.attention_delta(out, dout, heads)
+    ref = K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, s)
+    _check_f32("K5a", lambda: K.flash_attention_bwd_dq(q, k, v, dout, lse,
+                                                        delta, heads, s),
+               lambda: ref[0], K.flash_attention_bwd_dq)
+    _check_f32("K5b", lambda: K.flash_attention_bwd_dkv(q, k, v, dout, lse,
+                                                         delta, heads, s),
+               lambda: ref[1:], K.flash_attention_bwd_dkv)
+
+
+def test_flash_attention_f32_strided_and_fenced(dev, gen, f32):
+    # q, k and v slices of one packed qkv buffer (row stride 3 H d, a
+    # multiple of 4 floats, not of 8) whose neighbours are NaN: a read past
+    # any operand turns the output NaN
+    b, n, heads, d = 2, 700, 2, 40
+    guard = 4096
+    buf = torch.full((b * n * 3 * heads * d + 2 * guard,), float("nan"),
+                     device=dev)
+    qkv = buf[guard:guard + b * n * 3 * heads * d].view(b, n, 3 * heads * d)
+    qkv.copy_(_rand(gen, b, n, 3 * heads * d).float())
+    q, k, v = qkv.split(heads * d, dim=-1)
+    out = K.flash_attention(q, k, v, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    assert not out.isnan().any()
+    got = agreement("K1/f32", out, K.flash_attention_plain(q, k, v, heads, d ** -0.5))
+    assert got["ok"], got
+
+
+def test_flash_attention_f32_autograd_through_the_kernels(dev, gen, f32):
+    b, n, heads, d = 2, 1054, 8, 80
+    leaves = [_rand(gen, b, n, heads * d).float().requires_grad_() for _ in range(3)]
+    gout = _rand(gen, b, n, heads * d, scale=0.1).float()
+    before = K.f32_launch_counts()
+    got = torch.autograd.grad(K.flash_attention(*leaves, heads, d ** -0.5),
+                              leaves, gout)
+    after = K.f32_launch_counts()
+    assert all(after[kid] == before[kid] + 1 for kid in ("K1", "K5a", "K5b"))
+    with K.plain_route():
+        want = torch.autograd.grad(K.flash_attention(*leaves, heads, d ** -0.5),
+                                   leaves, gout)
+    for kid, a, w in zip(("K5a", "K5b", "K5b"), got, want):
+        res = agreement(f"{kid}/f32", a, w)
+        assert res["ok"], res
+
+
+def test_flash_attention_f32_refuses_mixed_types(dev, gen):
+    q = _rand(gen, 1, 600, 80).float()
+    k = _rand(gen, 1, 600, 80)
+    with pytest.raises(ValueError, match="k must be f32"):
+        K.flash_attention(q, k, k, 2, 40 ** -0.5)
+    # a row stride of 2 H d + 2 floats: not a whole 16-byte vector
+    bad = torch.zeros(1, 600, 2 * 80 + 2, device=dev)[..., :80]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.flash_attention(bad, bad, bad, 2, 40 ** -0.5)
+
+
+def test_group_norm_f32_refuses_a_bf16_plan_that_does_not_fit(dev, gen):
+    # a plan made for 2-byte values holds twice the rows an f32 tile can:
+    # the C entry point refuses it, nothing launches
+    n, hw, c = 4, 4096, 960
+    plan = GN.plan_group_norm(n, hw, c, 32)
+    assert plan.path == "cluster" and GN.plan_group_norm(n, hw, c, 32, 4).path == "stream"
+    x, w, bias = (t.float() for t in _gn_operands(gen, n, hw, c))
+    before = K.group_norm.launches
+    with pytest.raises(RuntimeError, match="group_norm: CUDA error"):
+        GN.launch(x, w, bias, 32, 1e-5, True, plan)
+    assert K.group_norm.launches == before
+
+
+@pytest.mark.parametrize("path,shape", [("cluster", (3, 49, 96)),
+                                        ("cluster", (2, 4097, 96)),
+                                        ("cluster", (8, 4096, 320)),
+                                        ("stream", (2, 65536, 256)),
+                                        ("stream", (8, 4096, 960))])
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_f32(dev, gen, f32, path, shape, silu):
+    # the f32 tiles on both paths: the planner's plan at item size 4
+    n, hw, c = shape
+    plan = (GN.plan_group_norm(n, hw, c, 32, 4) if path == "cluster"
+            else GN.stream_plan(n, hw, c, 32))
+    assert plan.path == path
+    if shape == (8, 4096, 960):   # on chip in bf16, streamed in f32
+        assert GN.plan_group_norm(n, hw, c, 32, 4) == plan
+    x, w, bias = (t.float() for t in _gn_operands(gen, n, hw, c))
+    _check_f32("K2", lambda: K.group_norm(x, w, bias, 32, 1e-6, silu),
+               lambda: K.group_norm_plain(x, w, bias, 32, 1e-6, silu),
+               K.group_norm)
+
+
+@pytest.mark.parametrize("path,shape", [("cluster", (4, 4096, 320)),
+                                        ("stream", (2, 65536, 256))])
+def test_group_norm_f32_repeatable_and_fenced(dev, gen, f32, path, shape):
+    # two launches give the same bits; x is a slice of a NaN-fenced buffer
+    n, hw, c = shape
+    plan = (GN.plan_group_norm(n, hw, c, 32, 4) if path == "cluster"
+            else GN.stream_plan(n, hw, c, 32))
+    assert plan.path == path and (path == "stream" or plan.cluster > 1)
+    guard = 4096
+    buf = torch.full((n * hw * c + 2 * guard,), float("nan"), device=dev)
+    x = buf[guard:guard + n * hw * c].view(n, hw, c)
+    x.copy_(_rand(gen, n, hw, c, scale=3.0, shift=1.5).float())
+    w, bias = (_rand(gen, c, scale=0.5, shift=1.0).float(),
+               _rand(gen, c, scale=0.5).float())
+    a = GN.launch(x, w, bias, 32, 1e-5, True, plan)
+    b = GN.launch(x, w, bias, 32, 1e-5, True, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and not a.isnan().any()
+
+
+@pytest.mark.parametrize("m,k", [(100, 320), (64, 72), (200, 640),
+                                 (32768, 320), (2048, 1280)])
+@pytest.mark.parametrize("scale", [1.0, "tensor"])
+def test_ffn_ln_geglu_f32(dev, gen, f32, m, k, scale):
+    # ragged row blocks and k steps, and two of the training sites
+    inner = 4 * k
+    x = _rand(gen, m, k).float()
+    lw, lb = _rand(gen, k, scale=0.2, shift=1.0).float(), _rand(gen, k, scale=0.2).float()
+    w1, b1 = (_rand(gen, 2 * inner, k, scale=k ** -0.5).float(),
+              _rand(gen, 2 * inner, scale=0.1).float())
+    w2, b2 = (_rand(gen, k, inner, scale=inner ** -0.5).float(),
+              _rand(gen, k, scale=0.1).float())
+    s = torch.tensor(0.37, device=dev) if scale == "tensor" else scale
+    _check_f32("K4", lambda: K.ffn_ln_geglu(x, lw, lb, w1, b1, w2, b2, s),
+               lambda: K.ffn_ln_geglu_plain(x, lw, lb, w1, b1, w2, b2, s),
+               K.ffn_ln_geglu)
+
+
+def test_f32_products_sum_in_round_to_nearest(dev, gen, f32):
+    # the longest sums of the training path: PV over 4096 keys (K1 at d
+    # 40) and K4's down product over inner = 5120. Each 3xTF32 step adds
+    # into its accumulator in round-to-nearest f32 (f32_tiles.cuh mma3):
+    # chained through the tensor cores' truncating C operand instead, the
+    # same kernels read 2.9e-5 and 3.0e-5 of rms(b) at these sites'
+    # batch-8 shapes (PERF.md §6), K1 within its stated bound; the
+    # round-to-nearest sums read under 1.5e-6 there
+    q, k, v = (_rand(gen, 2, 4096, 8 * 40).float() for _ in range(3))
+    got = agreement("K1/f32", K.flash_attention(q, k, v, 8, 40 ** -0.5),
+                    K.flash_attention_plain(q, k, v, 8, 40 ** -0.5))
+    assert got["rms_rel_err"] <= 5e-6, got
+    m, k_ = 2048, 1280
+    inner = 4 * k_
+    x = _rand(gen, m, k_).float()
+    lw, lb = _rand(gen, k_, shift=1.0).float(), _rand(gen, k_).float()
+    w1, b1 = (_rand(gen, 2 * inner, k_, scale=k_ ** -0.5).float(),
+              _rand(gen, 2 * inner, scale=0.1).float())
+    w2, b2 = (_rand(gen, k_, inner, scale=inner ** -0.5).float(),
+              _rand(gen, k_, scale=0.1).float())
+    got = agreement("K4/f32", K.ffn_ln_geglu(x, lw, lb, w1, b1, w2, b2, 1.0),
+                    K.ffn_ln_geglu_plain(x, lw, lb, w1, b1, w2, b2, 1.0))
+    assert got["rms_rel_err"] <= 5e-6, got
+
+
+def test_ffn_ln_geglu_f32_writes_only_its_output(dev, gen, f32):
+    m, k = 200, 320
+    inner = 4 * k
+    args = [t.float() for t in (_rand(gen, m, k), _rand(gen, k, shift=1.0),
+                                _rand(gen, k), _rand(gen, 2 * inner, k, scale=k ** -0.5),
+                                _rand(gen, 2 * inner, scale=0.1),
+                                _rand(gen, k, inner, scale=inner ** -0.5),
+                                _rand(gen, k, scale=0.1))]
+    a = K.ffn_ln_geglu(*args, 0.5)
+    b = K.ffn_ln_geglu(*args, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.isfinite(a).all()
 
 
 def _ffn_weights(gen, k, inner):

@@ -280,6 +280,88 @@ def test_planted_faults_fail(fault):
     assert not got["ok"], got
 
 
+# ---------------------------------------------------------------------------
+# the f32 form: the same kernels on f32 values (csrc Chan8<float>)
+
+
+@pytest.mark.parametrize("n,hw,c,groups", PLANNED,
+                         ids=[f"N{n}-HW{hw}-C{c}-G{g}" for n, hw, c, g in PLANNED])
+def test_plan_f32(n, hw, c, groups):
+    # at item size 4 the tile holds half the rows: the plan's blocks fit
+    # shared memory at 4 bytes a value, and a shape that streams in bf16
+    # streams in f32
+    plan = gn.plan_group_norm(n, hw, c, groups, 4)
+    cg = c // groups
+    assert plan.slab % cg == 0 and plan.slab % 8 == 0 and c % plan.slab == 0
+    if plan.path == "cluster":
+        assert 1 <= plan.cluster <= gn.MAX_CLUSTER
+        assert _covers_once(hw, _spans(hw, plan.rows, plan.cluster))
+        assert gn.cluster_smem_bytes(plan.rows, plan.slab, cg, 4) <= gn.SMEM_MAX
+    else:
+        assert plan == gn.stream_plan(n, hw, c, groups)
+        rows = -(-hw // gn.MAX_CLUSTER)
+        assert gn.cluster_smem_bytes(rows, gn.cluster_slab(c, groups), cg,
+                                     4) > gn.SMEM_MAX
+    if gn.plan_group_norm(n, hw, c, groups).path == "stream":
+        assert plan.path == "stream"
+
+
+def test_f32_plan_streams_where_an_f32_slab_does_not_fit():
+    # the tile is the only part of the layout that the item size changes
+    for rows, slab, cg in ((683, 40, 10), (1366, 16, 16), (1, 8, 1)):
+        assert (gn.cluster_smem_bytes(rows, slab, cg, 4)
+                - gn.cluster_smem_bytes(rows, slab, cg)
+                == gn._round16(4 * rows * slab) - gn._round16(2 * rows * slab))
+    # the UNet's 64^2 level at 960 channels, batch 8 (the decoder's
+    # 120-channel slabs): on chip in bf16, streamed in f32
+    assert gn.plan_group_norm(8, 4096, 960, 32).path == "cluster"
+    assert gn.plan_group_norm(8, 4096, 960, 32, 4).path == "stream"
+    # the VAE encoder's 512^2 and 256^2 levels at batch 8 stream either way
+    for hw, c in ((262144, 128), (65536, 128), (65536, 256)):
+        assert gn.plan_group_norm(8, hw, c, 32, 4).path == "stream"
+    # more blocks a cluster where an f32 slab needs them
+    assert (gn.plan_group_norm(8, 4096, 320, 32, 4).cluster
+            > gn.plan_group_norm(8, 4096, 320, 32).cluster)
+
+
+def _forced_f32(kind, n, hw, c, groups):
+    if kind == "stream":
+        return gn.stream_plan(n, hw, c, groups)
+    plan = gn.plan_group_norm(n, hw, c, groups, 4)
+    assert plan.path == "cluster"
+    return plan
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("kind,shape", EMULATED,
+                         ids=[f"{k}-{'x'.join(map(str, s))}" for k, s in EMULATED])
+def test_f32_emulation_agrees_with_plain(kind, shape, silu):
+    # f32 in and out: the plain version's f32 GroupNorm, held to K2's f32 row
+    n, hw, c, groups = shape
+    plan = _forced_f32(kind, *shape)
+    x, gamma, beta = (torch.from_numpy(a) for a in _inputs(n, hw, c, groups, 0))
+    out = emulate(x, gamma, beta, groups, 1e-6, silu, plan)
+    ref = gn.group_norm_plain(x, gamma, beta, groups, 1e-6, silu)
+    assert ref.dtype is torch.float32
+    got = agreement("K2/f32", out, ref)
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("fault", ["own_stats", "drop_ragged", "slab_off",
+                                   "gamma_neighbour"])
+def test_f32_planted_faults_fail(fault):
+    n, hw, c, groups = 2, 4097, 96, 32
+    plan = _forced_f32("cluster", n, hw, c, groups)
+    assert plan.cluster > 1 and hw % plan.rows and c // plan.slab > 1
+    x, gamma, beta = (torch.from_numpy(a) for a in _inputs(n, hw, c, groups, 2))
+    ref = gn.group_norm_plain(x, gamma, beta, groups, 1e-6, True)
+    assert agreement("K2/f32", emulate(x, gamma, beta, groups, 1e-6, True,
+                                       plan), ref)["ok"]
+    bad = emulate(x, gamma, beta, groups, 1e-6, True, plan, fault)
+    got = agreement("K2/f32", bad, ref)
+    assert not got["ok"], got
+
+
 def test_shifted_sums_keep_a_large_group_accurate():
     # one group of 2^20 elements with mean 300 and std 1: the shifted sums
     # and Chan's merges keep its variance in f32

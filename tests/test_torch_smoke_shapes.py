@@ -71,11 +71,23 @@ def _models(channels=32, channel_mult=(1, 2)):
         compute_dtype=torch.float32, device="cpu")
 
 
+class Calls(list):
+    """The recorded calls; with ``mark_f32`` set, the args of a call on f32
+    operands end in "f32", as chip_smoke's walk marks the kernels' f32
+    forms (off by default: the CPU models of the other walks are f32 and
+    stand for the card's bf16 ones)."""
+    mark_f32 = False
+
+    def add(self, kid, args, x):
+        marked = self.mark_f32 and x.dtype is torch.float32
+        self.append((kid, args + (("f32",) if marked else ())))
+
+
 @pytest.fixture
 def recorded(monkeypatch):
     """Every kernel wrapper call, as (kid, args) in chip_smoke's terms, with
     the routes taken as on the card."""
-    calls = []
+    calls = Calls()
     gn, ln = nn_mod._group_norm_rows, nn_mod._layer_norm_rows
     ff, fa = nn_mod.ffn_ln_geglu, attention_mod.flash_attention
     ff_res, ff_q = nn_mod.ffn_geglu, nn_mod.ffn_ln_geglu_q
@@ -83,15 +95,15 @@ def recorded(monkeypatch):
     label = lambda s: 1.0 if isinstance(s, float) and s == 1.0 else 0.5
 
     def group_norm(x, w, b, groups, eps, silu):
-        calls.append(("K2", (*x.shape, eps, silu)))
+        calls.add("K2", (*x.shape, eps, silu), x)
         return gn(x, w, b, groups, eps, silu)
 
     def layer_norm(x, w, b, eps):
-        calls.append(("K3", tuple(x.shape)))
+        calls.add("K3", tuple(x.shape), x)
         return ln(x, w, b, eps)
 
     def ffn(x, lw, lb, w1, b1, w2, b2, s):
-        calls.append(("K4", (*x.shape, label(s))))
+        calls.add("K4", (*x.shape, label(s)), x)
         return ff(x, lw, lb, w1, b1, w2, b2, s)
 
     def ffn_res(x, w1, b1, w2, b2, r):
@@ -113,7 +125,7 @@ def recorded(monkeypatch):
     def flash(q, k, v, heads, scale):
         b, n, hc = q.shape
         args = (b, n, k.shape[1], heads, hc // heads)
-        calls.append(("K1", args + (("lse",) if needs_grad(q, k, v) else ())))
+        calls.add("K1", args + (("lse",) if needs_grad(q, k, v) else ()), q)
         return fa(q, k, v, heads, scale)
 
     monkeypatch.setattr(nn_mod, "_group_norm_rows", group_norm)
@@ -291,24 +303,50 @@ def test_unet_walk_models_the_gated_and_encoder_skips(recorded):
                     assert recorded == want, (cfg_on, gated, encoder)
 
 
-def test_training_walk_matches_the_calls(recorded, tmp_path):
+def _training_step(tmp_path, **kw):
     cfg = TrainerConfig(output_root=str(tmp_path), name="t", batch_size=2,
                         total_iters=1, warmup_steps=0, max_boxes=30,
-                        max_relations=10)
+                        max_relations=10, **kw)
     trainer = DiffusionTrainer(cfg, iter(()), models=_models())
     batch = next(synthetic_layout_batches(2, 64, 30))
     trainer.train_step(trainer.prepare_batch(batch), trainer.generator)
     trainer.close()
+    return trainer, batch
+
+
+def test_training_walk_matches_the_calls(recorded, tmp_path):
+    # TrainerConfig()'s precision, f32 throughout: every call an f32 case
+    # (phase kernels' "train-f32" path)
+    recorded.mark_f32 = True
+    trainer, batch = _training_step(tmp_path)
     want = cs.training_calls(trainer.models.unet_cfg, trainer.models.vae_cfg,
-                             trainer.models.clip_cfg, TOK_LEN, batch, 30, 10)
+                             trainer.models.clip_cfg, TOK_LEN, batch, 30, 10,
+                             f32=True)
+    assert all(cs.is_f32(args) for _, args in want)
     flash = [args for kid, args in want if kid == "K1"]
     # the VAE encoder's site, and the 32^2 sites with and without the lse
     assert any(a[3] == 1 for a in flash)
-    assert any(len(a) > 5 for a in flash) and any(len(a) == 5 for a in flash)
+    assert any(cs.has_lse(a) for a in flash) and not all(cs.has_lse(a) for a in flash)
     # one step: the walk gives every call, as many times as it is made
     assert collections.Counter(recorded) == collections.Counter(want)
-    cases = cs.kernel_cases({"train": want})
-    assert {kid for kid, *_ in cases} == {"K1", "K2", "K3", "K5a", "K5b"}
+    cases = cs.kernel_cases({"train-f32": want})
+    assert {cs.row_kid(kid, args) for kid, _, args, _ in cases} == {
+        "K1/f32", "K2/f32", "K3/f32", "K5a/f32", "K5b/f32"}
+
+
+def test_mixed_precision_training_walk_matches_the_calls(recorded, tmp_path):
+    # mixed precision: the UNet in bf16, prepare_batch's VAE and CLIP in
+    # f32 as the JAX trainer encodes (phase kernels' "train" path)
+    recorded.mark_f32 = True
+    trainer, batch = _training_step(tmp_path, mixed_precision=True)
+    want = cs.training_calls(trainer.models.unet_cfg, trainer.models.vae_cfg,
+                             trainer.models.clip_cfg, TOK_LEN, batch, 30, 10)
+    assert collections.Counter(recorded) == collections.Counter(want)
+    n_encoder = len(cs.vae_encoder_calls(trainer.models.vae_cfg, 2, 64))
+    assert all(cs.is_f32(args) for _, args in want[:n_encoder])
+    assert ("K1", (2, 1024, 1024, 1, 64, "f32")) in want  # the VAE mid block
+    flash_unet = [args for kid, args in want[n_encoder:] if kid == "K1"]
+    assert flash_unet and not any(cs.is_f32(a) for a in flash_unet)
 
 
 # route -> (its switches, the feed-forward kernels its eligible sites take)
@@ -418,7 +456,15 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     for kid in cs.KERNEL_META:
         assert groups[kid], kid
         for key in groups[kid]:
-            assert kernels.get(key) == lib_of[kid], (kid, key)
+            # an f32 instantiation of a template ("gn_cluster_kernel<float>")
+            # is named by its kernel
+            assert kernels.get(key.split("<")[0]) == lib_of[kid], (kid, key)
+    # the f32 forms' products on mma.sync: each kernel in its library, and
+    # profiled under its own f32 id
+    for lib, names in cs.MMA_F32_KERNELS.items():
+        for name in names:
+            assert kernels.get(name) == lib, name
+            assert _group_of(name).split()[0].endswith("/f32"), name
     for kernel, lib in kernels.items():
         kid = _group_of(kernel).split()[0]
         assert kid in cs.KERNEL_META and lib_of[kid] == lib, (kernel, kid)
