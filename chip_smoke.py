@@ -10,7 +10,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel
                (WGMMA_KERNELS; K4's and K7's LN pre-passes do no product)
                and HMMA (mma.sync, TF32) in every product kernel of the
-               f32 forms of K1, K5a, K5b and K4 (MMA_F32_KERNELS), or if
+               f32 forms of K1, K5a, K5b, K4, K6, K7, K8a and K8b
+               (MMA_F32_KERNELS; K6/f32 runs K4/f32's), or if
                ptxas reports a spill in a K7 kernel or any nvcc log holds
                C7515 (wgmma serialised); prints the registers and spills
                of every wgmma and f32 product kernel and of K2's three
@@ -19,15 +20,17 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
                GEGLU GEMM) against its plain PyTorch version on the card,
-               in bf16 (K7 on int8 weights) and, for K1 (with and without
-               its lse), K2, K3, K4, K5a and K5b, in f32: rows labelled
-               "f32" and kernel "K1/f32" etc., held to the f32 rows of
-               kernels/tolerance.py, with `arith` (3xTF32 mma.sync, or
-               f32 without products for K2 and K3), bound at 4-byte
-               elements and the TF32 peak (495 TFLOP/s; K2, K3: the f32
-               peak), library calls in f32 with allow_tf32 off; at every
-               distinct shape that phases 4-11, 13 and 15 give it
-               (mixed-precision training's VAE and CLIP run in f32); times
+               in bf16 (K7 on int8 weights) and, for every kernel (K1 with
+               and without its lse), in f32: rows labelled "f32" and
+               kernel "K1/f32" etc., held to the f32 rows of
+               kernels/tolerance.py, with `arith` (3xTF32 mma.sync; K7
+               two TF32 products against its int8 weights; f32 without
+               products for K2 and K3), bound at 4-byte elements (K7's
+               weights 1, its scales 4) and the TF32 peak (495 TFLOP/s;
+               K2, K3: the f32 peak), library calls in f32 with
+               allow_tf32 off; at every distinct shape that phases 4-11,
+               13, 15, 16, 17 and 18 give it (mixed-precision training's
+               VAE and CLIP run in f32); times
                kernel, plain version and
                one PyTorch library call for the same function, beside the
                roofline bound. `ms`, `plain_ms` and `library_ms` are
@@ -127,15 +130,37 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
  14. train-grad-f32  phase 12 with mixed_precision=False: every operand
                f32, the kernels' f32 forms, bound TRAIN_GRAD_F32_REL_TOL.
  15. train-f32 phase 13 with TrainerConfig()'s precision, f32 throughout
-               (the JAX package's default): the same checks, every f32
-               form launched (K1 at d 40, 80 and 512).
- 16. the `kernels` JSON line, then the card line, then the result line.
+               (the JAX package's default): the same checks, the f32 forms
+               of K1-K5b launched (K1 at d 40, 80 and 512).
+ 16. generate-f32  random_models(dtype=torch.float32) at full width, phase
+               4's generation (requests, seed, alpha, PLMS-50, CFG 7.5)
+               through the f32 forms of K1-K4: shape, finiteness, range,
+               wall s, peak memory; every launch the walk's count
+               (generation_walk: every UNet evaluation of the step tables);
+               each image's PSNR against phase 4's bf16 image from the
+               same noise, printed, not bounded.
+ 17. int8-f32  phase 7 on quantize_unet_int8 of phase 16's f32 bundle
+               (int8 values, f32 scales, the rest f32) under
+               LLT2I_FFN_INT8=1: K7/f32 in a UNet forward against the
+               plain and the default int8 route, then phase 16's
+               generation: mean |int8 - dense f32| image difference within
+               INT8_IMAGE_TOL, K7/f32's launches the walk's.
+ 18. routes-f32  the split FF routes (LLT2I_FFN_LN=0, LLT2I_PALLAS_MATMUL=1)
+               in f32: a full-width UNet forward (alphas 0.5) against the
+               plain route (K6/f32, K8a/f32, K8b/f32, no K4/f32); phase 14
+               under the route (routes-f32-grad: no planted faults,
+               TRAIN_GRAD_F32_REL_TOL, the route's kernels launched, none
+               on the plain route); phase 15 under the route at 1 warm-up
+               and 2 timed steps (routes-f32-train: s/step, peak memory,
+               finite losses, K1, K5a, K5b, K6, K8a and K8b a step the
+               walk's count).
+ 19. the `kernels` JSON line, then the card line, then the result line.
      In that line `ms`, `plain_ms`, `library_ms`, `bound_ms`, `device_ms`
      and `library_device_ms` are sums
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
      `device_vs_library` are the ratios of those sums; `launches` adds
-     the runs of phases 4, 5, 7-11, 13 and 15,
+     the runs of phases 4, 5, 7-11, 13, 15, 16, 17 and 18 (its training),
      each read from counts set to 0 just before it; each f32 form
      has an entry of its own ("K1/f32 flash_attention", ...), its rows'
      sums, its f32 launches and its `arith`, and the bf16 entries count
@@ -156,12 +181,14 @@ batch 4, cond-only at batch 2, with and without the gated fusers, key
 and propagated), the bench's 8 requests (exact: CFG batch 16; fast: CFG
 16 and cond-only 8), the CLIs' one request (CFG batch 2) and the
 planner's CLIP features (cli_paths), the RL batch's 4 rollouts (CFG
-batch 8) and the reward's f32 towers (rl_calls),
-and a training step at batch 8 with no CFG doubling: the VAE encoder on
-512^2 images (K1 at d 512), CLIP on the captions and on the grounding
-texts, all in f32, and the UNet in bf16 ("train") and in f32
-("train-f32"), whose flash sites after the first relation fuser run K1
-with its lse (N = M = 4096/4126 at d 40, 1024/1054 at d 80). Each of
+batch 8) and the reward's f32 towers (rl_calls), the f32 bundle's
+generation on the default and the int8 route ("generate-f32",
+"int8-f32"), and a training step at batch 8 with no CFG doubling: the VAE
+encoder on 512^2 images (K1 at d 512), CLIP on the captions and on the
+grounding texts, all in f32, and the UNet in bf16 ("train"), in f32
+("train-f32") and in f32 on the split routes ("routes-f32"), whose flash
+sites after the first relation fuser run K1 with its lse (N = M =
+4096/4126 at d 40, 1024/1054 at d 80). Each of
 those is also a K5a and a K5b case, on the lse and delta of the plain
 forward. The walk routes each feed-forward site as ops/nn.py does, with
 the same eligibility tests (ff_site_calls). tests/test_torch_smoke_shapes.py
@@ -173,7 +200,10 @@ share; OUT.json gets the per-kernel table. One more generation is profiled
 likewise after phases 5, 7 and 8 (OUT_fast.json, OUT_int8.json,
 OUT_routes.json), one more exact generation of the bench's 8 requests
 after phase 9 (OUT_bench.json), and one more training step after phases
-13 and 15 (OUT_train.json, OUT_train-f32.json).
+13 and 15 (OUT_train.json, OUT_train-f32.json), one more f32 generation
+after phase 16 and one more on phase 17's route (OUT_f32.json,
+OUT_int8-f32.json), and one more training step of phase 18
+(OUT_routes-f32.json).
 
 The script imports nothing of JAX or of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -253,7 +283,9 @@ NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel")
 MMA_F32_KERNELS = {
     "flash_attention": ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
                         "flash_bwd_dkv_f32_kernel"),
-    "ffn": ("ffn_up_f32_kernel", "ffn_down_f32_kernel"),
+    "ffn": ("ffn_up_f32_kernel", "ffn_down_f32_kernel", "ffn_q_up_f32_kernel",
+            "ffn_q_down_f32_kernel"),
+    "matmul": ("linear_f32_kernel", "geglu_f32_kernel"),
 }
 
 KERNEL_META = {
@@ -278,14 +310,17 @@ KERNEL_META = {
     "K8b": ("geglu_fused", "layoutllm_t2i_torch/csrc/matmul.cu",
             "layoutllm_t2i_tpu/ops/pallas/matmul.py:169"),
 }
-# the f32 forms, entries of their own: the same Pallas kernels (which take
-# any float type) and sources, f32 instantiations (K1, K4, K5a, K5b: 3xTF32
-# on mma.sync; K2, K3: f32 tiles, no products)
-F32_FORMS = ("K1", "K2", "K3", "K4", "K5a", "K5b")
-KERNEL_META.update({f"{kid}/f32": KERNEL_META[kid] for kid in F32_FORMS})
+# every kernel's f32 form, an entry of its own: the same Pallas kernel
+# (which takes any float type) and source, f32 instantiations (K1, K4, K5a,
+# K5b, K6, K8a, K8b: 3xTF32 on mma.sync; K7: two TF32 products against int8
+# weights, which TF32 holds exactly; K2, K3: f32 tiles, no products)
+KERNEL_META.update({f"{kid}/f32": meta for kid, meta in list(KERNEL_META.items())})
 # the arithmetic of each f32 form's products, for its rows
 F32_ARITH = {"K1": "3xTF32 mma.sync", "K4": "3xTF32 mma.sync",
              "K5a": "3xTF32 mma.sync", "K5b": "3xTF32 mma.sync",
+             "K6": "3xTF32 mma.sync", "K8a": "3xTF32 mma.sync",
+             "K8b": "3xTF32 mma.sync",
+             "K7": "2xTF32 mma.sync (int8 weights exact in TF32)",
              "K2": "f32, no products", "K3": "f32, no products"}
 # the training phases' batch (no CFG doubling), boxes and relation slots
 TRAIN_BATCH, TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS = 8, 30, 10
@@ -314,9 +349,9 @@ class Route(NamedTuple):
 
 
 DEFAULT = Route()
-INT8 = Route(int8=True, ffn_int8=True)       # phase 5: K7
+INT8 = Route(int8=True, ffn_int8=True)       # phases 7 and 17: K7
 INT8_DEQUANT = Route(int8=True)              # the default int8 route
-SPLIT = Route(ffn_ln=False, pallas_matmul=True)   # phase 6: K6, K8a, K8b
+SPLIT = Route(ffn_ln=False, pallas_matmul=True)   # phases 8, 18: K6, K8a, K8b
 
 
 @contextlib.contextmanager
@@ -494,18 +529,21 @@ def geglu_ff_calls(route, m, k):
     return calls
 
 
-def ff_site_calls(route, m, k, s):
+def ff_site_calls(route, m, k, s, itemsize=2):
     """One LN + GEGLU FF + residual site of m rows and width k, in the
     fall-through order of ops/nn.py: s = 1.0 is the norm3 site
     (ln_geglu_ff_res), s = 0.5 stands for a fuser's traced gate
-    (ln_geglu_ff_scaled_res, which never takes K6)."""
+    (ln_geglu_ff_scaled_res, which never takes K6). K7's site asks
+    ffn_eligible with the activations' item size, as ops/nn.py does; K4's
+    and K6's without it."""
     from layoutllm_t2i_torch.kernels.ffn import ffn_eligible
 
     eligible = ffn_eligible(m, k, 4 * k)
-    if route.pallas_ffn and route.ffn_ln and eligible:
-        if route.int8 and route.ffn_int8:
+    if route.pallas_ffn and route.ffn_ln:
+        if (route.int8 and route.ffn_int8
+                and ffn_eligible(m, k, 4 * k, itemsize)):
             return [("K7", (m, k, s))]
-        if not route.int8:
+        if not route.int8 and eligible:
             return [("K4", (m, k, s))]
     calls = [("K3", (m, k))]
     if s == 1.0 and route.pallas_ffn and not route.int8 and eligible:
@@ -514,13 +552,14 @@ def ff_site_calls(route, m, k, s):
 
 
 def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False, route=DEFAULT,
-               gated=True, encoder=True):
+               gated=True, encoder=True, itemsize=2):
     """One UNet forward at batch b, n_obj grounding tokens, n_rel relations,
-    on ``route``. With ``train`` (rela_fuse mode) autograd records every
-    call from the first relation fuser on, so the flash sites there take
-    the lse. ``gated=False``: a step with grounding alpha 0, whose body
-    elides the gated fusers; ``encoder=False``: a propagated step of the
-    encoder cache, which skips input_blocks."""
+    on ``route``, its activations of ``itemsize`` bytes. With ``train``
+    (rela_fuse mode) autograd records every call from the first relation
+    fuser on, so the flash sites there take the lse. ``gated=False``: a
+    step with grounding alpha 0, whose body elides the gated fusers;
+    ``encoder=False``: a propagated step of the encoder cache, which skips
+    input_blocks."""
     from layoutllm_t2i_torch.models.unet import input_block_specs, output_block_specs
 
     lat, heads = cfg.image_size, cfg.num_heads
@@ -540,7 +579,7 @@ def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False, route=DEFAULT,
                 calls.append(("K3", (b * (hw + n_obj), c)))
                 calls.extend(attention_calls(b, hw + n_obj, hw + n_obj, heads,
                                              c, grad))
-                calls.extend(ff_site_calls(route, b * hw, c, 0.5))
+                calls.extend(ff_site_calls(route, b * hw, c, 0.5, itemsize))
             if cfg.use_relation_attention:                           # rela_fuse
                 grad = grad or train
                 calls.extend([("K3", (b * hw, c)), ("K3", (b * n_obj, c))])
@@ -548,7 +587,7 @@ def unet_calls(cfg, b, n_obj, n_rel, ctx_len, train=False, route=DEFAULT,
                 calls.append(("K3", (b * n_obj, c)))
             calls.append(("K3", (b * hw, c)))                        # attn2
             calls.extend(attention_calls(b, hw, ctx_len, heads, c, grad))
-            calls.extend(ff_site_calls(route, b * hw, c, 1.0))       # ff
+            calls.extend(ff_site_calls(route, b * hw, c, 1.0, itemsize))  # ff
 
     for kind, ci, co, ds in input_block_specs(cfg) if encoder else ():
         if kind in ("res", "res_st"):
@@ -619,12 +658,14 @@ def unet_evaluations(pipe, b):
 
 def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
                      vae_chunk, max_objs=30, max_relas=5, route=DEFAULT,
-                     evals=None):
+                     evals=None, f32=False, distinct=True):
     """InferencePipeline.generate: prompts and empty prompts, then every
     phrase and relation text in one batch, each padded to a power of two;
     the UNet on ``route`` at each distinct evaluation of ``evals``
     (utils/flops.py unet_evaluations; default the CFG-doubled full forward,
-    which holds every call of the exact path); the VAE decode in chunks."""
+    which holds every call of the exact path), or at every evaluation with
+    ``distinct`` False (the calls as many times as they are made); the VAE
+    decode in chunks. ``f32``: an f32 bundle, every call an f32 case."""
     from layoutllm_t2i_torch.utils.buckets import pow2_bucket
 
     prompts, layouts, relations = requests
@@ -634,21 +675,23 @@ def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
     calls = 2 * clip_calls(clip_cfg, pow2_bucket(b) * tok_len)
     if n_texts:
         calls += clip_calls(clip_cfg, pow2_bucket(n_texts) * tok_len)
-    for batch, gated, encoder in sorted(set(evals or [(2 * b, True, True)])):
+    evals = evals or [(2 * b, True, True)]
+    for batch, gated, encoder in (sorted(set(evals)) if distinct else evals):
         calls += unet_calls(unet_cfg, batch, max_objs, max_relas, tok_len,
-                            route=route, gated=gated, encoder=encoder)
+                            route=route, gated=gated, encoder=encoder,
+                            itemsize=4 if f32 else 2)
     for i in range(0, b, vae_chunk):
         calls += vae_decoder_calls(vae_cfg, min(vae_chunk, b - i), unet_cfg.image_size)
-    return calls
+    return f32_calls(calls) if f32 else calls
 
 
 def training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, batch, max_boxes,
-                   max_relations, f32=False):
+                   max_relations, f32=False, route=DEFAULT):
     """One DiffusionTrainer step on a host batch: prepare_batch (VAE
     encode, CLIP on the captions, then every phrase and relation text in
     one power-of-two batch), always in f32 as the JAX trainer encodes, and
-    the UNet forward of the loss, in f32 with ``f32`` (the trainer's
-    default precision), else in bf16 (mixed precision)."""
+    the UNet forward of the loss on ``route``, in f32 with ``f32`` (the
+    trainer's default precision), else in bf16 (mixed precision)."""
     from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_training
     from layoutllm_t2i_torch.utils.buckets import pow2_bucket
 
@@ -659,8 +702,20 @@ def training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, batch, max_boxes,
     calls = vae_encoder_calls(vae_cfg, b, side) + clip_calls(clip_cfg, b * tok_len)
     if n_texts:
         calls += clip_calls(clip_cfg, pow2_bucket(n_texts) * tok_len)
-    unet = unet_calls(unet_cfg, b, max_boxes, max_relations, tok_len, train=True)
+    unet = unet_calls(unet_cfg, b, max_boxes, max_relations, tok_len, train=True,
+                      route=route, itemsize=4 if f32 else 2)
     return f32_calls(calls) + (f32_calls(unet) if f32 else unet)
+
+
+def launches_of(calls) -> dict:
+    """{row id: launches} of a walk with its calls as many times as they
+    are made; each K1 site with its lse also launches K5a and K5b once."""
+    counts = {}
+    for kid, args in calls:
+        kids = [kid] + (["K5a", "K5b"] if kid == "K1" and has_lse(args) else [])
+        for k in kids:
+            counts[row_kid(k, args)] = counts.get(row_kid(k, args), 0) + 1
+    return counts
 
 
 def case_label(kid, args):
@@ -674,9 +729,9 @@ def case_label(kid, args):
     if kid == "K3":
         return "rows{} C{}".format(*args) + f32
     if kid == "K6":
-        return "M{} K{}".format(*args)
+        return "M{} K{}".format(*args) + f32
     if kid in ("K8a", "K8b"):
-        return "M{} K{} N{}".format(*args)
+        return "M{} K{} N{}".format(*args) + f32
     return "M{} K{} s{:g}".format(*args) + f32
 
 
@@ -744,9 +799,9 @@ def make_case(kid, args, dev, gen):
                 8.0 * x.numel(),
                 x.element_size() * (2.0 * x.numel() + 2 * c))
     if kid in ("K8a", "K8b"):
-        return make_gemm_case(kid, args, rnd)
+        return make_gemm_case(kid, args[:3], rnd, item)
     if kid == "K6":
-        return make_ffn_res_case(args, rnd)
+        return make_ffn_res_case(args[:2], rnd, item)
     m, k, s = args[:3]
     inner = 4 * k
     x = rnd(m, k)
@@ -755,7 +810,7 @@ def make_case(kid, args, dev, gen):
     w2, b2 = rnd(k, inner, scale=inner ** -0.5), rnd(k, scale=0.1)
     s_t = torch.tensor(s, device=dev, dtype=torch.float32)
     if kid == "K7":
-        return make_int8_ffn_case(args, x, lw, lb, w1, b1, w2, b2, s_t)
+        return make_int8_ffn_case(args[:3], x, lw, lb, w1, b1, w2, b2, s_t, item)
 
     def lib():
         a, g = F.linear(F.layer_norm(x, (k,), lw, lb, 1e-5), w1, b1).chunk(2, -1)
@@ -767,9 +822,10 @@ def make_case(kid, args, dev, gen):
             lib, flops, nbytes)
 
 
-def make_ffn_res_case(args, rnd):
+def make_ffn_res_case(args, rnd, item=2):
     """K6: the FF without the LN, its residual passed in. Library: the
-    FF as F.linear, GEGLU, F.linear, then the residual add."""
+    FF as F.linear, GEGLU, F.linear, then the residual add. Operands of
+    ``item`` bytes."""
     from layoutllm_t2i_torch import kernels as K
 
     m, k = args
@@ -782,16 +838,17 @@ def make_ffn_res_case(args, rnd):
         a, g = F.linear(x, w1, b1).chunk(2, -1)
         return F.linear(a * F.gelu(g), w2, b2) + r
     flops = 6.0 * m * k * inner
-    nbytes = 2.0 * (3 * m * k + 3 * inner * k + 2 * inner + k)
+    nbytes = item * (3 * m * k + 3 * inner * k + 2 * inner + k)
     return (lambda: K.ffn_geglu(x, w1, b1, w2, b2, r),
             lambda: K.ffn_geglu_plain(x, w1, b1, w2, b2, r), lib, flops,
             nbytes)
 
 
-def make_int8_ffn_case(args, x, lw, lb, w1, b1, w2, b2, s_t):
+def make_int8_ffn_case(args, x, lw, lb, w1, b1, w2, b2, s_t, item=2):
     """K7 on K4's inputs with w1 and w2 quantized as quantize_unet_int8
     quantizes them. Library: dequantize, then K4's library chain. The
-    bound counts the weights at one byte each."""
+    bound counts the weights at one byte each, the scales at four, the
+    other operands at ``item``."""
     from layoutllm_t2i_torch import kernels as K
     from layoutllm_t2i_torch.ops.quant import quantize_tensor
 
@@ -805,16 +862,17 @@ def make_int8_ffn_case(args, x, lw, lb, w1, b1, w2, b2, s_t):
                         b1).chunk(2, -1)
         return x + s * F.linear(a * F.gelu(g), qw2.dequantize(), b2)
     flops = 6.0 * m * k * inner
-    nbytes = (2.0 * (2 * m * k + 2 * inner + 3 * k) + 3.0 * inner * k
+    nbytes = (item * (2 * m * k + 2 * inner + 3 * k) + 3.0 * inner * k
               + 4.0 * (2 * inner + k))
     return (lambda: K.ffn_ln_geglu_q(x, lw, lb, *q, s_t),
             lambda: K.ffn_ln_geglu_q_plain(x, lw, lb, *q, s_t), lib, flops,
             nbytes)
 
 
-def make_gemm_case(kid, args, rnd):
+def make_gemm_case(kid, args, rnd, item=2):
     """K8a: x W^T + b (library: F.linear with the bias). K8b: the GEGLU of
-    x [Wa; Wg]^T + b (library: F.linear on [Wa; Wg], then a * gelu(g))."""
+    x [Wa; Wg]^T + b (library: F.linear on [Wa; Wg], then a * gelu(g)).
+    Operands of ``item`` bytes."""
     from layoutllm_t2i_torch import kernels as K
 
     m, k, n = args
@@ -823,14 +881,14 @@ def make_gemm_case(kid, args, rnd):
         w, b = rnd(n, k, scale=k ** -0.5), rnd(n, scale=0.1)
         return (lambda: K.linear_fused(x, w, b),
                 lambda: K.linear_plain(x, w, b), lambda: F.linear(x, w, b),
-                2.0 * m * k * n, 2.0 * (m * k + n * k + m * n + n))
+                2.0 * m * k * n, item * (m * k + n * k + m * n + n))
     w, b = rnd(2 * n, k, scale=k ** -0.5), rnd(2 * n, scale=0.1)
 
     def lib():
         a, g = F.linear(x, w, b).chunk(2, -1)
         return a * F.gelu(g)
     return (lambda: K.geglu_fused(x, w, b), lambda: K.geglu_plain(x, w, b),
-            lib, 4.0 * m * k * n, 2.0 * (m * k + 2 * n * k + m * n + 2 * n))
+            lib, 4.0 * m * k * n, item * (m * k + 2 * n * k + m * n + 2 * n))
 
 
 def make_lse_case(args, dev, rnd, item=2):
@@ -1243,18 +1301,19 @@ def unet_agreement(out, ref) -> dict:
 
 def routed_unet(run):
     """``run()`` through the kernels (launches counted from 0), then through
-    the plain versions; (kernel output, plain output, kernel launches,
-    whether the plain run launched a kernel)."""
-    from layoutllm_t2i_torch.kernels import launch_counts, plain_route, reset_launches
+    the plain versions; (kernel output, plain output, kernel launches, each
+    f32 form apart (path_counts), whether the plain run launched a
+    kernel)."""
+    from layoutllm_t2i_torch.kernels import plain_route, reset_launches
 
     reset_launches()
     out = run()
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = path_counts()
     with plain_route():
         ref = run()
     torch.cuda.synchronize()
-    return out, ref, counts, launch_counts() != counts
+    return out, ref, counts, path_counts() != counts
 
 
 def phase_unet(models):
@@ -2088,13 +2147,17 @@ def profile_generation(models, label: str, profile, suffix: str) -> None:
                        steps=STEPS)
 
 
-def phase_int8(models, dense_img, profile=None):
-    """The int8 UNet of phase 4's bundle: its bytes, K7 in a UNet forward
-    against the plain route and against the default int8 route, and the
-    generation (launches; images against phase 4's)."""
+def phase_int8(models, dense_img, profile=None, label="int8"):
+    """The int8 UNet of phase 4's bundle (phase int8-f32: of phase
+    generate-f32's f32 bundle, K7's f32 form): its bytes, K7 in a UNet
+    forward against the plain route and against the default int8 route,
+    and the generation (launches; images against the dense bundle's from
+    the same noise; in f32, K7/f32's launches against the walk's)."""
     from layoutllm_t2i_torch.ops.quant import quantized_bytes
     from layoutllm_t2i_torch.pipeline.loaders import quantize_unet_int8
 
+    f32 = models.compute_dtype is torch.float32
+    form = "/f32" if f32 else ""
     qmodels = quantize_unet_int8(models)
     dense_b = quantized_bytes(models.unet_params)
     int8_b = quantized_bytes(qmodels.unet_params)
@@ -2106,13 +2169,18 @@ def phase_int8(models, dense_img, profile=None):
     vs_plain, vs_dequant = unet_agreement(out, ref), unet_agreement(out, dequant)
     del out, ref, dequant
     with route_env(INT8):
-        rec, counts, img = run_generation(qmodels, "int8")
-        profile_generation(qmodels, "profile-int8", profile, "_int8.json")
+        rec, counts, img = run_generation(qmodels, label)
+        profile_generation(qmodels, f"profile-{label}", profile, f"_{label}.json")
     img_diff = float(np.abs(img - dense_img).mean())
+    walk_ok = True
+    if f32:
+        walk = generation_walk(qmodels, INT8)
+        rec["walked_launches"] = walk
+        walk_ok = counts["K7/f32"] == walk["K7/f32"] > 0
     ok = (vs_plain["ok"] and vs_dequant["ok"] and not plain_launched
-          and fwd_counts["K7"] > 0 and fwd_counts["K4"] == 0 and rec["ok"]
-          and img_diff < INT8_IMAGE_TOL
-          and int8_b / dense_b <= INT8_BYTES_RATIO_MAX)
+          and fwd_counts["K7" + form] > 0 and fwd_counts["K4" + form] == 0
+          and rec["ok"] and img_diff < INT8_IMAGE_TOL and walk_ok
+          and (f32 or int8_b / dense_b <= INT8_BYTES_RATIO_MAX))
     rec.update({"ok": ok, "unet_dense_bytes": dense_b, "unet_int8_bytes": int8_b,
                 "bytes_ratio": int8_b / dense_b,
                 "bytes_ratio_max": INT8_BYTES_RATIO_MAX,
@@ -2123,9 +2191,93 @@ def phase_int8(models, dense_img, profile=None):
                 "image_tol": INT8_IMAGE_TOL})
     emit(rec)
     if not ok:
-        raise SmokeFailure("int8: K7 disagrees with the plain or the dequant "
-                           "route, the generation is off, or the bytes or "
+        raise SmokeFailure(f"{label}: K7 disagrees with the plain or the "
+                           "dequant route, the generation is off, K7's "
+                           "launches are not the walk's, or the bytes or "
                            "image bounds fail")
+    return counts
+
+
+def generation_walk(models, route) -> dict:
+    """{row id: launches} of run_generation's timed generation of
+    ``models`` on ``route``: every call of PLMS-50 on REQUESTS, walked from
+    the configs and the exact pipeline's step tables (every UNet
+    evaluation, not each distinct one)."""
+    pipe = exact_pipeline(models)
+    return launches_of(generation_calls(
+        models.unet_cfg, models.vae_cfg, models.clip_cfg,
+        models.clip_cfg.max_length, REQUESTS, VAE_CHUNK, route=route,
+        evals=unet_evaluations(pipe, len(REQUESTS[0])),
+        f32=models.compute_dtype is torch.float32, distinct=False))
+
+
+def phase_generate_f32(bf16_img):
+    """random_models(dtype=torch.float32) at full width: phase 4's
+    generation (requests, seed, alpha, PLMS-50, CFG 7.5) through the f32
+    forms of K1-K4, every launch against the walk's, and each image's PSNR
+    against phase 4's bf16 image from the same noise (printed, not held to
+    a bound: bf16 rounding through 50 steps is a different trajectory).
+    Returns (launch counts, the f32 bundle, its images)."""
+    from layoutllm_t2i_torch.pipeline.loaders import random_models
+
+    models = random_models(small=False, device="cuda", dtype=torch.float32,
+                           seed=0)
+    rec, counts, img = run_generation(models, "generate-f32")
+    walk = generation_walk(models, DEFAULT)
+    walk_ok = ({kid: n for kid, n in counts.items() if n} == walk
+               and all(kid.endswith("/f32") for kid in walk))
+    rec.update({"ok": rec["ok"] and walk_ok, "walked_launches": walk,
+                "launches_match_walk": walk_ok,
+                "psnr_vs_bf16_db": [psnr_db(a, b) for a, b in zip(img, bf16_img)]})
+    emit(rec)
+    if not rec["ok"]:
+        raise SmokeFailure("generate-f32: the images are not a finite "
+                           "(2,512,512,3) batch in [0, 1], or the launches "
+                           "are not the walk's")
+    return counts, models, img
+
+
+def phase_routes_f32(work_dir: str, profile=None):
+    """The split FF routes (LLT2I_FFN_LN=0, LLT2I_PALLAS_MATMUL=1) in f32:
+    a full-width f32 UNet forward (alphas 0.5) against the plain route;
+    phase train-grad-f32 under the route (K6/f32, K8a/f32 and K8b/f32 in
+    the gradients, none on the plain route); then phase train-f32 under
+    the route, one warm-up and two timed steps, every launch of K1, K5a,
+    K5b, K6, K8a and K8b a step the walk's; with ``profile``, one more
+    step under the profiler. Returns the training's launch counts."""
+    from layoutllm_t2i_torch.pipeline.loaders import random_models
+
+    with route_env(SPLIT):
+        models = random_models(small=False, device="cuda", dtype=torch.float32,
+                               seed=0)
+        n_alpha = set_alphas(models.unet_params, 0.5)
+        out, ref, fwd_counts, plain_launched = routed_unet(unet_runner(models))
+        agree = unet_agreement(out, ref)
+        del out, ref, models
+        torch.cuda.empty_cache()
+        split = ("K6/f32", "K8a/f32", "K8b/f32")
+        ok = (agree["ok"] and not plain_launched and fwd_counts["K4/f32"] == 0
+              and all(fwd_counts[kid] > 0 for kid in split)
+              and not any(fwd_counts[kid.split("/")[0]] for kid in split))
+        emit({"phase": "routes-f32", "ok": ok, "alphas_set": n_alpha,
+              "env": SPLIT.env(), "unet_vs_plain": agree,
+              "unet_tol_rel": UNET_REL_TOL, "unet_launches": fwd_counts,
+              "plain_route_launched": plain_launched})
+        if not ok:
+            raise SmokeFailure("routes-f32: the split FF routes in f32 "
+                               "disagree with the plain route, or K6/f32, "
+                               "K8a/f32 and K8b/f32 did not all launch")
+        phase_train_grad(mixed_precision=False, route=SPLIT,
+                         label="routes-f32-grad")
+        counts, trainer, data = phase_train(work_dir, mixed_precision=False,
+                                            route=SPLIT, steps=ROUTES_F32_STEPS,
+                                            warmup=ROUTES_F32_WARMUP,
+                                            label="routes-f32-train")
+        if profile:
+            profile_train_step(trainer, data, "routes-f32", profile)
+        trainer.close()
+    del trainer, data
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2210,17 +2362,26 @@ def rel_l2(grads, ref) -> float:
     return math.sqrt(num / den)
 
 
-def phase_train_grad(mixed_precision: bool = True):
+def step_kernels(route: Route) -> tuple:
+    """The kernels a training step launches on ``route``: K1-K3, K5a/K5b
+    and the FF sites' (K4, or K6, K8a and K8b on the split routes)."""
+    ff = ("K6", "K8a", "K8b") if route == SPLIT else ("K4",)
+    return ("K1", "K2", "K3", "K5a", "K5b") + ff
+
+
+def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
+                     label: str = ""):
     """One full-width loss backward at batch 2 through the kernels and
-    again through the plain versions, from the same weights and draws;
-    then once with each planted K5 fault. ``mixed_precision`` False: phase
-    train-grad-f32, every operand f32 (the kernels' f32 forms), held to
+    again through the plain versions, from the same weights and draws, on
+    ``route`` (under its switches); then, on the default route, once with
+    each planted K5 fault. ``mixed_precision`` False: phase train-grad-f32,
+    every operand f32 (the kernels' f32 forms), held to
     TRAIN_GRAD_F32_REL_TOL."""
     from layoutllm_t2i_torch.kernels import plain_route, reset_launches
     from layoutllm_t2i_torch.pipeline.loaders import random_models
     from layoutllm_t2i_torch.training.train_step import TrainStep, TrainStepConfig
 
-    label = "train-grad" if mixed_precision else "train-grad-f32"
+    label = label or ("train-grad" if mixed_precision else "train-grad-f32")
     tol = TRAIN_GRAD_REL_TOL if mixed_precision else TRAIN_GRAD_F32_REL_TOL
     dev = torch.device("cuda")
     models = random_models(small=False, device=dev, dtype=torch.float32, seed=0)
@@ -2253,19 +2414,20 @@ def phase_train_grad(mixed_precision: bool = True):
     finite = all(bool(torch.isfinite(g).all()) for g in g_k)
     del g_k
     faults = {}
-    for name in TRAIN_GRAD_CAUGHT + TRAIN_GRAD_UNSEEN:
+    for name in (TRAIN_GRAD_CAUGHT + TRAIN_GRAD_UNSEEN if route == DEFAULT
+                 else ()):
         with planted_fault(name):
             g_f = grads()[1]
         faults[name] = rel_l2(g_f, g_p)
         del g_f
-    # the step's kernels in its precision: all five, f32 forms or bf16
-    forms = ("K1", "K2", "K3", "K4", "K5a", "K5b")
+    # the step's kernels in its precision, f32 forms or bf16
     launched = all(counts[kid if mixed_precision else f"{kid}/f32"] > 0
-                   for kid in forms)
+                   for kid in step_kernels(route))
     ok = (finite and not plain_launched and rel <= tol and launched
-          and all(faults[name] > tol for name in TRAIN_GRAD_CAUGHT))
+          and all(faults[name] > tol for name in faults
+                  if name in TRAIN_GRAD_CAUGHT))
     emit({"phase": label, "ok": ok, "batch": 2, "alphas_set": n_alpha,
-          "mixed_precision": mixed_precision,
+          "mixed_precision": mixed_precision, "route": route.env(),
           "trainable_tensors": len(g_p),
           "trainable_params": sum(g.numel() for g in g_p),
           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
@@ -2285,23 +2447,29 @@ def phase_train_grad(mixed_precision: bool = True):
 
 
 TRAIN_STEPS, TRAIN_WARMUP = 7, 2
+# phase routes-f32's training: one warm-up step and two timed ones
+ROUTES_F32_STEPS, ROUTES_F32_WARMUP = 3, 1
 
 
-def phase_train(work_dir: str, mixed_precision: bool = True):
-    """DiffusionTrainer at full width; returns (launch counts, trainer, data
-    iterator). ``mixed_precision`` False: phase train-f32, TrainerConfig()'s
-    own precision (f32 throughout, the JAX package's default)."""
+def phase_train(work_dir: str, mixed_precision: bool = True,
+                route: Route = DEFAULT, steps: int = TRAIN_STEPS,
+                warmup: int = TRAIN_WARMUP, label: str = ""):
+    """DiffusionTrainer at full width, ``steps`` steps of which the first
+    ``warmup`` are not timed, on ``route`` (under its switches); returns
+    (launch counts, trainer, data iterator). ``mixed_precision`` False:
+    phase train-f32, TrainerConfig()'s own precision (f32 throughout, the
+    JAX package's default)."""
     from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
     from layoutllm_t2i_torch.kernels import reset_launches
     from layoutllm_t2i_torch.pipeline.loaders import random_models
     from layoutllm_t2i_torch.training.diffusion_trainer import (
         DiffusionTrainer, TrainerConfig)
 
-    label = "train" if mixed_precision else "train-f32"
+    label = label or ("train" if mixed_precision else "train-f32")
     shutil.rmtree(work_dir, ignore_errors=True)  # no auto-resume from a past run
     # mixed_precision False is TrainerConfig()'s default
     cfg = TrainerConfig(output_root=work_dir, name="chip_smoke",
-                        batch_size=TRAIN_BATCH, total_iters=TRAIN_STEPS,
+                        batch_size=TRAIN_BATCH, total_iters=steps,
                         save_every_iters=10 ** 9, log_every=1,
                         warmup_steps=0, trainable_mode="rela_fuse",
                         optimizer="adamw", mixed_precision=mixed_precision,
@@ -2331,33 +2499,26 @@ def phase_train(work_dir: str, mixed_precision: bool = True):
     with open(f"{trainer.run_dir}/metrics.jsonl") as f:
         recs = [json.loads(line) for line in f]
     losses = [r["loss"] for r in recs]
-    timed = [r["sec_per_iter"] for r in recs[TRAIN_WARMUP:]]
+    timed = [r["sec_per_iter"] for r in recs[warmup:]]
     s_step = sum(timed) / len(timed)
     # the launches of one step, walked from the configs (the data's shape
     # is the same every step): prepare_batch's encoders in f32 (K1 at
-    # d 512 in the VAE), the UNet in the step's precision
+    # d 512 in the VAE), the UNet in the step's precision on the route
     m = trainer.models
-    walk = training_calls(m.unet_cfg, m.vae_cfg, m.clip_cfg,
-                          m.clip_cfg.max_length,
-                          next(synthetic_layout_batches(cfg.batch_size, 512,
-                                                        cfg.max_boxes)),
-                          cfg.max_boxes, cfg.max_relations,
-                          f32=not mixed_precision)
-    per_step = {}
-    for kid, args in walk:
-        per_step[row_kid(kid, args)] = per_step.get(row_kid(kid, args), 0) + 1
-        if kid == "K1" and has_lse(args):
-            for bwd in ("K5a", "K5b"):
-                key = row_kid(bwd, args)
-                per_step[key] = per_step.get(key, 0) + 1
-    walk_ok = all(counts[kid] == n * TRAIN_STEPS for kid, n in per_step.items()
-                  if kid in ("K1", "K1/f32", "K5a", "K5b", "K5a/f32", "K5b/f32"))
-    ok = (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+    per_step = launches_of(training_calls(
+        m.unet_cfg, m.vae_cfg, m.clip_cfg, m.clip_cfg.max_length,
+        next(synthetic_layout_batches(cfg.batch_size, 512, cfg.max_boxes)),
+        cfg.max_boxes, cfg.max_relations, f32=not mixed_precision,
+        route=route))
+    walked = ("K1", "K5a", "K5b", "K6", "K8a", "K8b")
+    walk_ok = all(counts[kid] == n * steps for kid, n in per_step.items()
+                  if kid.split("/")[0] in walked)
+    ok = (len(losses) == steps and all(math.isfinite(x) for x in losses)
           and changed == len(trained) and frozen_same and walk_ok
           and all(counts[kid] > 0 for kid in per_step))
-    emit({"phase": label, "ok": ok, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
-          "mixed_precision": mixed_precision,
-          "warmup_steps": TRAIN_WARMUP, "alphas_set": n_alpha,
+    emit({"phase": label, "ok": ok, "batch": TRAIN_BATCH, "steps": steps,
+          "mixed_precision": mixed_precision, "route": route.env(),
+          "warmup_steps": warmup, "alphas_set": n_alpha,
           "s_per_step": s_step, "s_per_step_each": timed,
           "images_per_s": TRAIN_BATCH / s_step,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2366,7 +2527,7 @@ def phase_train(work_dir: str, mixed_precision: bool = True):
           "trainable_params": sum(p.numel() for p in trained.values()),
           "trainable_changed": changed, "frozen_bit_identical": frozen_same,
           "launches": counts,
-          "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+          "launches_per_step": {k: v / steps for k, v in counts.items()},
           "walked_per_step": per_step,
           "launches_match_walk": walk_ok})
     if not ok:
@@ -2378,15 +2539,21 @@ def phase_train(work_dir: str, mixed_precision: bool = True):
 
 
 # device-time groups of the profile, matched in order against kernel names
-# (the f32 instantiations of K2's and K3's templates before their bf16 ones)
+# (the f32 instantiations of K2's and K3's templates before their bf16 ones).
+# K6/f32 runs K4/f32's up and down kernels and K7/f32 K4/f32's LN pre-pass,
+# so their time counts under K4/f32; K6/f32's group names them all the same
 PROFILE_GROUPS = (
     ("K1/f32 flash_attention", ("flash_fwd_f32_kernel",)),
     ("K5a/f32 flash_attention_bwd_dq", ("flash_bwd_dq_f32_kernel",)),
     ("K5b/f32 flash_attention_bwd_dkv", ("flash_bwd_dkv_f32_kernel",)),
     ("K2/f32 group_norm", tuple(f"{k}<float>" for k in GN_KERNELS)),
     ("K3/f32 layer_norm", ("ln_kernel<float",)),
-    ("K4/f32 ffn_ln_geglu", ("ffn_norm_rows_f32_kernel", "ffn_up_f32_kernel",
-                             "ffn_down_f32_kernel")),
+    ("K7/f32 ffn_ln_geglu_q", ("ffn_q_up_f32_kernel", "ffn_q_down_f32_kernel")),
+    ("K4/f32 ffn_ln_geglu (+ K6/f32, K7/f32's LN)",
+     ("ffn_norm_rows_f32_kernel", "ffn_up_f32_kernel", "ffn_down_f32_kernel")),
+    ("K6/f32 ffn_geglu", ("ffn_up_f32_kernel", "ffn_down_f32_kernel")),
+    ("K8a/f32 linear_fused", ("linear_f32_kernel",)),
+    ("K8b/f32 geglu_fused", ("geglu_f32_kernel",)),
     ("K1 flash_attention", ("flash_fwd_kernel",)),
     ("K5a flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K5b flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
@@ -2405,6 +2572,17 @@ PROFILE_GROUPS = (
     ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
     ("softmax", ("softmax",)),
 )
+
+
+def profile_train_step(trainer, data, name: str, profile: str) -> None:
+    """One more training step of ``trainer`` on the next batch of ``data``
+    under the profiler, into the profile's path with ``_<name>.json``."""
+    it = iter(data)
+    profile_device(
+        lambda: trainer.train_step(trainer.prepare_batch(next(it)),
+                                   trainer.generator),
+        f"profile-{name}", os.path.splitext(profile)[0] + f"_{name}.json",
+        batch=TRAIN_BATCH)
 
 
 def profile_device(run, label: str, out_path: str, **extra) -> None:
@@ -2450,11 +2628,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="JSON",
                     help="after the checks, profile one more generation on "
-                         "each route, of the fast preset and of the bench's "
-                         "exact path at batch 8, and one more training "
-                         "step, and write their per-kernel device times "
-                         "here and to JSON_fast, JSON_int8, JSON_routes, "
-                         "JSON_bench, JSON_train and JSON_train-f32")
+                         "each route, of the fast preset, of the bench's "
+                         "exact path at batch 8 and of the f32 bundle, "
+                         "dense and int8, and one more training step of "
+                         "each training phase, and write their per-kernel "
+                         "device times here and to JSON_fast, JSON_int8, "
+                         "JSON_routes, JSON_bench, JSON_train, "
+                         "JSON_train-f32, JSON_f32, JSON_int8-f32 and "
+                         "JSON_routes-f32")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2509,12 +2690,21 @@ def main(argv=None) -> int:
             gen_paths["rl"] = rl_calls(unet_cfg, vae_cfg, clip_cfg,
                                        CLIPTextConfig(), CLIPVisionConfig(),
                                        tok_len)
+            # the f32 bundle's generations: dense, and int8 through K7/f32
+            for name, route in (("generate-f32", DEFAULT),
+                                ("int8-f32", INT8)):
+                gen_paths[name] = generation_calls(
+                    unet_cfg, vae_cfg, clip_cfg, tok_len, REQUESTS, VAE_CHUNK,
+                    route=route, f32=True)
             summary, k5_pairs = phase_kernels(kernel_cases({
                 **gen_paths,
                 **{name: training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
                                         train_batch, TRAIN_MAX_BOXES,
-                                        TRAIN_MAX_RELATIONS, f32=f32)
-                   for name, f32 in (("train", False), ("train-f32", True))}}))
+                                        TRAIN_MAX_RELATIONS, f32=f32,
+                                        route=route)
+                   for name, f32, route in (("train", False, DEFAULT),
+                                            ("train-f32", True, DEFAULT),
+                                            ("routes-f32", True, SPLIT))}}))
             del train_batch
             models = random_models(small=False, device="cuda",
                                    dtype=torch.bfloat16, seed=0)
@@ -2531,7 +2721,7 @@ def main(argv=None) -> int:
             del fast_pipe
             int8_counts = phase_int8(models, dense_img, args.profile)
             routes_counts = phase_routes(models, args.profile)
-            del models, dense_img
+            del models
             torch.cuda.empty_cache()
             bench_counts = phase_bench(args.profile)
             torch.cuda.empty_cache()
@@ -2545,16 +2735,18 @@ def main(argv=None) -> int:
                 train_counts[suffix], trainer, data = phase_train(
                     work_dir, mixed_precision=mixed)
                 if args.profile:
-                    it = iter(data)
-                    profile_device(
-                        lambda: trainer.train_step(
-                            trainer.prepare_batch(next(it)), trainer.generator),
-                        f"profile-train{suffix}",
-                        os.path.splitext(args.profile)[0] + f"_train{suffix}.json",
-                        batch=TRAIN_BATCH)
+                    profile_train_step(trainer, data, f"train{suffix}",
+                                       args.profile)
                 trainer.close()
                 del trainer, data
                 torch.cuda.empty_cache()
+            gen_f32_counts, models, img = phase_generate_f32(dense_img)
+            profile_generation(models, "profile-f32", args.profile, "_f32.json")
+            int8_f32_counts = phase_int8(models, img, args.profile,
+                                         label="int8-f32")
+            del models, img, dense_img
+            torch.cuda.empty_cache()
+            routes_f32_counts = phase_routes_f32(work_dir, args.profile)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2566,20 +2758,26 @@ def main(argv=None) -> int:
     # generation, the bench, the CLIs and the RL trainer K1-K4 (K3 also in
     # f32, in the reward), the int8 generation K7, the split routes K6, K8a
     # and K8b, mixed-precision training K1-K5b in bf16 and its encoders'
-    # K1 (d 512), K2 and K3 in f32, f32 training every f32 form; the line
-    # adds the nine runs
+    # K1 (d 512), K2 and K3 in f32, f32 training the f32 forms of K1-K5b,
+    # the f32 generation those of K1-K4, its int8 one K7/f32 and f32
+    # training on the split routes those of K6, K8a and K8b; the line adds
+    # the twelve runs
     runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
             "routes": routes_counts, "bench": bench_counts, "cli": cli_counts,
             "rl": rl_counts, "train": train_counts[""],
-            "train-f32": train_counts["-f32"]}
+            "train-f32": train_counts["-f32"], "generate-f32": gen_f32_counts,
+            "int8-f32": int8_f32_counts, "routes-f32": routes_f32_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
     generation = ("K1", "K2", "K3", "K4")
     encoders = ("K1/f32", "K2/f32", "K3/f32")
     expected = {"generate": generation, "fast": generation, "int8": ("K7",),
                 "routes": ("K6", "K8a", "K8b"), "bench": generation,
                 "cli": generation, "rl": generation + ("K3/f32",),
-                "train": ("K1", "K2", "K3", "K4", "K5a", "K5b") + encoders,
-                "train-f32": tuple(f"{kid}/f32" for kid in F32_FORMS)}
+                "train": step_kernels(DEFAULT) + encoders,
+                "train-f32": tuple(f"{kid}/f32" for kid in step_kernels(DEFAULT)),
+                "generate-f32": tuple(f"{kid}/f32" for kid in generation),
+                "int8-f32": ("K7/f32",),
+                "routes-f32": ("K6/f32", "K8a/f32", "K8b/f32")}
     missing = [f"{kid} ({path})" for path, kids in expected.items()
                for kid in kids if runs[path][kid] <= 0]
     line = []

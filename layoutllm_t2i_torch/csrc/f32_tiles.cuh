@@ -1,4 +1,5 @@
-// f32 tile products for the f32 forms of K1, K5a/K5b and K4 (sm_90a).
+// f32 tile products for the f32 forms of K1, K5a/K5b, K4, K6, K7, K8a and
+// K8b (sm_90a), and the tile GEMM the FF and matmul forms share.
 //
 // "f32" means f32 accuracy: a single TF32 pass rounds each operand to 10
 // mantissa bits (about 4e-4 relative error of a product), which is a
@@ -29,10 +30,18 @@
 // Shared-memory tiles are row-major f32 with a row stride ld = width + 4
 // (ld % 8 == 4): the fragment loads of a warp, at rows g and columns t, or
 // at rows 2t and columns g, then fall in 32 distinct banks.
+//
+// int8 B operands (K7's weights) need no split: |q| <= 127 takes 7 bits,
+// exact in TF32, so hi = q and lo = 0, and a_hi q + a_lo q (``mma2``, two
+// products) has the accuracy of 3xTF32. Their tiles hold the raw int8
+// bytes (a quarter of the f32 bytes through cp.async); a value turns into
+// a float as its fragment is formed (``frag_b_q``).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace f32_tiles {
 
@@ -88,6 +97,17 @@ __device__ __forceinline__ void mma3(float (&d)[4], const SplitA& a,
   for (int i = 0; i < 4; ++i) d[i] += t[i];
 }
 
+// d += a q for a B fragment exact in TF32 (int8 values, ``frag_b_q``): the
+// small term, then hi * q, into a fresh fragment as in mma3
+__device__ __forceinline__ void mma2(float (&d)[4], const SplitA& a,
+                                     const uint32_t (&q)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.lo, q);
+  mma_tf32(t, a.hi, q);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
 // A fragment of rows r0.. and columns k0.. of a row-major tile
 __device__ __forceinline__ void frag_a(float (&a)[4], const float* s, int ld,
                                        int r0, int k0, int lane) {
@@ -105,6 +125,14 @@ __device__ __forceinline__ void frag_b_nk(float (&b)[2], const float* s, int ld,
   const float* p = s + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
   b[0] = p[0];
   b[1] = p[4];
+}
+
+// frag_b_nk of an int8 tile, each value as the float it is (exact in TF32)
+__device__ __forceinline__ void frag_b_q(uint32_t (&b)[2], const int8_t* s,
+                                         int ld, int n0, int k0, int lane) {
+  const int8_t* p = s + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
+  b[0] = __float_as_uint(static_cast<float>(p[0]));
+  b[1] = __float_as_uint(static_cast<float>(p[4]));
 }
 
 // B fragment (k0.., n0..) of a tile stored [k][n] (MN-major: V in P V), at
@@ -125,7 +153,7 @@ __device__ __forceinline__ SplitA c_as_a(const float (&c)[4]) {
 // ---------------------------------------------------------------------------
 // cp.async: 16 bytes global -> shared, or 16 zero bytes where `in` is false
 
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
@@ -141,21 +169,161 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
-// rows [r0, r0 + kRows) x kCols f32 columns of a strided operand (row
-// stride rs floats, 16-byte aligned rows) into a tile of row stride ld;
-// rows at or past `limit` and columns at or past `cols` come in as zeros.
-// Every thread of the block takes part (kThreads of them).
-template <int kRows, int kCols, int kThreads>
-__device__ __forceinline__ void load_tile(float* tile, int ld, const float* src,
+// rows [r0, r0 + kRows) x kCols columns of a strided f32 (or int8) operand
+// (row stride rs values, 16-byte aligned rows) into a tile of row stride
+// ld; rows at or past `limit` and columns at or past `cols` (a multiple of
+// a 16-byte chunk's values) come in as zeros. Every thread of the block
+// takes part (kThreads of them).
+template <int kRows, int kCols, int kThreads, class T>
+__device__ __forceinline__ void load_tile(T* tile, int ld, const T* src,
                                           long long rs, int r0, int limit,
                                           int cols) {
-  constexpr int kChunks = kCols / 4;
-  static_assert(kCols % 4 == 0, "16-byte chunks");
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int kChunks = kCols / kPer;
+  static_assert(kCols % kPer == 0, "16-byte chunks");
   for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = 4 * (i % kChunks);
+    const int r = i / kChunks, c = kPer * (i % kChunks);
     const bool in = r0 + r < limit && c < cols;
     cp16(tile + r * ld + c, in ? src + (r0 + r) * rs + c : src, in);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tile GEMM of the FF and matmul forms (K4, K6, K7, K8a, K8b in f32):
+// 128 x 64 output tiles, 32-deep k steps in a two-stage cp.async ring,
+// eight warps of 32 x 32, every product 3xTF32 (f32 B) or two TF32
+// products (int8 B)
+
+constexpr int kF32BM = 128, kF32BN = 64, kF32BK = 32, kF32Ld = kF32BK + 4;
+constexpr int kF32Threads = 256;
+// an int8 B tile's row stride in bytes: 12 words, so the 8 rows of a
+// fragment load fall in 8 distinct banks (16-byte aligned for cp.async)
+constexpr int kQLd = kF32BK + 16;
+
+template <class TB>
+__host__ __device__ constexpr int b_ld() {
+  static_assert(std::is_same<TB, float>::value || std::is_same<TB, int8_t>::value,
+                "f32 or int8 B operands");
+  return std::is_same<TB, float>::value ? kF32Ld : kQLd;
+}
+
+// bytes of one stage: an A tile and kNB B tiles
+template <int kNB, class TB = float>
+__host__ __device__ constexpr size_t f32_gemm_stage() {
+  return 4ull * kF32Ld * kF32BM + sizeof(TB) * kNB * kF32BN * b_ld<TB>();
+}
+
+// shared memory of the f32 GEMM with kNB B operands: two stages
+template <int kNB, class TB = float>
+__host__ __device__ constexpr size_t f32_gemm_smem() {
+  return 2 * f32_gemm_stage<kNB, TB>();
+}
+
+// The (kF32BM x kF32BN) tile at (m0, n0) of A B_i^T for i < kNB: A (M x Kd,
+// row stride lda) f32, B_i (N x Kd, row stride ldb) f32 or int8, both
+// row-major, each product into its own accumulators. Eight warps as 4
+// (rows) x 2 (columns), a warp 32 x 32: acc[i][m16 tile][n8 tile][4]. Rows
+// past M or N and columns past Kd (Kd % 4 == 0; int8 B: Kd % 16 == 0) load
+// as zeros.
+template <int kNB, class TB = float>
+__device__ __forceinline__ void gemm_f32(float (&acc)[kNB][2][4][4],
+                                         const float* A, long long lda, int M,
+                                         const TB* const (&B)[kNB],
+                                         long long ldb, int N, int Kd, int m0,
+                                         int n0, float* smem) {
+  constexpr size_t kStage = f32_gemm_stage<kNB, TB>();
+  constexpr int kBLd = b_ld<TB>();
+  char* base = reinterpret_cast<char*>(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 32 * (warp >> 1), wn = 32 * (warp & 1);
+  const int tiles = (Kd + kF32BK - 1) / kF32BK;
+  auto stage_a = [&](int kt) {
+    return reinterpret_cast<float*>(base + (kt & 1) * kStage);
+  };
+  auto stage_b = [&](int kt, int i) {
+    return reinterpret_cast<TB*>(base + (kt & 1) * kStage +
+                                 4ull * kF32Ld * kF32BM) +
+           i * kF32BN * kBLd;
+  };
+  auto load = [&](int kt) {
+    const int k0 = kt * kF32BK;
+    load_tile<kF32BM, kF32BK, kF32Threads>(stage_a(kt), kF32Ld,
+                                           A + (long long)m0 * lda + k0, lda,
+                                           0, M - m0, Kd - k0);
+#pragma unroll
+    for (int i = 0; i < kNB; ++i)
+      load_tile<kF32BN, kF32BK, kF32Threads>(
+          stage_b(kt, i), kBLd, B[i] + (long long)n0 * ldb + k0, ldb, 0,
+          N - n0, Kd - k0);
+  };
+#pragma unroll
+  for (int i = 0; i < kNB; ++i)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][mi][nt][c] = 0.f;
+  load(0);
+  cp_commit();
+  for (int kt = 0; kt < tiles; ++kt) {
+    if (kt + 1 < tiles) {  // the next stage; its last readers were synced
+      load(kt + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* sA = stage_a(kt);
+#pragma unroll
+    for (int kk = 0; kk < kF32BK / 8; ++kk) {
+      float a[2][4];
+      frag_a(a[0], sA, kF32Ld, wm, 8 * kk, lane);
+      frag_a(a[1], sA, kF32Ld, wm + 16, 8 * kk, lane);
+      const SplitA a0(a[0]), a1(a[1]);
+#pragma unroll
+      for (int i = 0; i < kNB; ++i) {
+        const TB* sB = stage_b(kt, i);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if constexpr (std::is_same<TB, float>::value) {
+            float bb[2];
+            frag_b_nk(bb, sB, kF32Ld, wn + 8 * nt, 8 * kk, lane);
+            mma3(acc[i][0][nt], a0, bb);
+            mma3(acc[i][1][nt], a1, bb);
+          } else {
+            uint32_t bq[2];
+            frag_b_q(bq, sB, kQLd, wn + 8 * nt, 8 * kk, lane);
+            mma2(acc[i][0][nt], a0, bq);
+            mma2(acc[i][1][nt], a1, bq);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+}
+
+// fn(mi, nt, r, row, col) for each pair of output columns (col, col + 1)
+// of this thread's accumulators in the tile at (m0, n0) that lies inside
+// (M, N) (N even): its values are acc[.][mi][nt][2 r] and [2 r + 1]
+template <class Fn>
+__device__ __forceinline__ void for_each_pair(int m0, int n0, int M, int N,
+                                              Fn fn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 32 * (warp >> 1) + 16 * mi + (lane >> 2) + 8 * r;
+      if (row >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + 32 * (warp & 1) + 8 * nt + 2 * (lane & 3);
+        if (col < N) fn(mi, nt, r, row, col);
+      }
+    }
 }
 
 }  // namespace f32_tiles

@@ -55,15 +55,24 @@
 // ffn_q_down_wgmma_kernel, (2) on Q2 with s2 on the sums: bf16(bf16((acc *
 // s2 + b2) * s) + x), the rounding order of ffn.py:366-367.
 //
-// K4 also has an f32 form (llt2i_ffn_ln_geglu_f32), for f32 activations and
-// weights, as `_ffn_ln_kernel` takes them: LN(x) and h stay f32, as the
-// kernel keeps them in x's type (scratch (M, inner + K) f32), and every
-// product is 3xTF32 on mma.sync (csrc/f32_tiles.cuh), f32 accuracy on the
-// tensor cores. The same three launches: ffn_norm_rows_f32_kernel, then
-// ffn_up_f32_kernel and ffn_down_f32_kernel on one simple tile GEMM (128 x
-// 64 tiles, 32-deep k steps in a two-stage cp.async ring, eight warps of
-// 32 x 32), with the GEGLU and scaled-residual epilogues in f32. Bound:
-// operations at the TF32 rate, three products each.
+// K4, K6 and K7 also have f32 forms (llt2i_ffn_ln_geglu_f32,
+// llt2i_ffn_geglu_f32, llt2i_ffn_ln_geglu_q_f32), for f32 activations, as
+// the Pallas kernels take them: LN(x) and h stay f32, as the kernels keep
+// them in x's type (scratch (M, inner [+ K]) f32), and every product runs
+// on mma.sync at f32 accuracy (csrc/f32_tiles.cuh): 3xTF32, or two TF32
+// products against K7's int8 weights (exact in TF32, mma2). All are the
+// tile GEMM gemm_f32 of f32_tiles.cuh (128 x 64 tiles, 32-deep k steps in a
+// two-stage cp.async ring, eight warps of 32 x 32) with f32 epilogues:
+//   K4/f32  ffn_norm_rows_f32_kernel, then ffn_up_f32_kernel (GEGLU) and
+//           ffn_down_f32_kernel (x + s (acc + b2));
+//   K6/f32  K4/f32's up kernel on x and its down kernel with r in place of
+//           x and s = 1: (acc + b2) + r, exact as `_ffn_kernel`'s residual
+//           add in x's type (ffn.py:64-67) is in f32;
+//   K7/f32  K4/f32's pre-pass, then ffn_q_up_f32_kernel and
+//           ffn_q_down_f32_kernel on int8 B tiles (cp.async moves a
+//           quarter of the f32 bytes): a = acc sa + ba, y = acc s2 + b2,
+//           out = x + s y, as `_ffn_ln_q_kernel` (ffn.py:356-368).
+// Bound: operations at the TF32 rate.
 #include "f32_tiles.cuh"
 #include "gemm_tiles.cuh"
 
@@ -335,84 +344,12 @@ ffn_norm_rows_f32_kernel(const float* __restrict__ x,
   }
 }
 
-constexpr int kF32BM = 128, kF32BN = 64, kF32BK = 32, kF32Ld = kF32BK + 4;
-constexpr int kF32Threads = 256;
-
-// shared memory of the f32 GEMM with kNB B operands: two stages of an A
-// tile and kNB B tiles
-template <int kNB>
-constexpr size_t f32_gemm_smem() {
-  return 4ull * kF32Ld * 2 * (kF32BM + kNB * kF32BN);
-}
-
-// The (kF32BM x kF32BN) tile at (m0, n0) of A B_i^T for i < kNB: A (M x Kd,
-// row stride lda), B_i (N x Kd, row stride ldb), both row-major, each
-// product into its own accumulators. Eight warps as 4 (rows) x 2 (columns),
-// a warp 32 x 32: acc[i][m16 tile][n8 tile][4]. Rows past M or N and
-// columns past Kd (Kd % 4 == 0) load as zeros.
-template <int kNB>
-__device__ __forceinline__ void gemm_f32(float (&acc)[kNB][2][4][4],
-                                         const float* A, long long lda, int M,
-                                         const float* const (&B)[kNB],
-                                         long long ldb, int N, int Kd, int m0,
-                                         int n0, float* smem) {
-  using namespace f32_tiles;
-  constexpr int kStage = kF32Ld * (kF32BM + kNB * kF32BN);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = 32 * (warp >> 1), wn = 32 * (warp & 1);
-  const int tiles = (Kd + kF32BK - 1) / kF32BK;
-  auto load = [&](int kt) {
-    float* st = smem + (kt & 1) * kStage;
-    const int k0 = kt * kF32BK;
-    load_tile<kF32BM, kF32BK, kF32Threads>(st, kF32Ld, A + (long long)m0 * lda + k0,
-                                           lda, 0, M - m0, Kd - k0);
-#pragma unroll
-    for (int i = 0; i < kNB; ++i)
-      load_tile<kF32BN, kF32BK, kF32Threads>(
-          st + (kF32BM + i * kF32BN) * kF32Ld, kF32Ld,
-          B[i] + (long long)n0 * ldb + k0, ldb, 0, N - n0, Kd - k0);
-  };
-#pragma unroll
-  for (int i = 0; i < kNB; ++i)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][mi][nt][c] = 0.f;
-  load(0);
-  cp_commit();
-  for (int kt = 0; kt < tiles; ++kt) {
-    if (kt + 1 < tiles) {  // the next stage; its last readers were synced
-      load(kt + 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const float* sA = smem + (kt & 1) * kStage;
-#pragma unroll
-    for (int kk = 0; kk < kF32BK / 8; ++kk) {
-      float a[2][4];
-      frag_a(a[0], sA, kF32Ld, wm, 8 * kk, lane);
-      frag_a(a[1], sA, kF32Ld, wm + 16, 8 * kk, lane);
-      const SplitA a0(a[0]), a1(a[1]);
-#pragma unroll
-      for (int i = 0; i < kNB; ++i) {
-        const float* sB = sA + (kF32BM + i * kF32BN) * kF32Ld;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          float bb[2];
-          frag_b_nk(bb, sB, kF32Ld, wn + 8 * nt, 8 * kk, lane);
-          mma3(acc[i][0][nt], a0, bb);
-          mma3(acc[i][1][nt], a1, bb);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-}
+// the tile GEMM of f32_tiles.cuh
+using f32_tiles::f32_gemm_smem;
+using f32_tiles::gemm_f32;
+using f32_tiles::kF32BM;
+using f32_tiles::kF32BN;
+using f32_tiles::kF32Threads;
 
 // h = (xn Wa^T + ba) * gelu(xn Wg^T + bg), f32, tiles of h (M, inner)
 __global__ void __launch_bounds__(kF32Threads, 2)
@@ -448,10 +385,11 @@ ffn_up_f32_kernel(const float* __restrict__ xn, const float* __restrict__ w1,
     }
 }
 
-// out = x + s * (h W2^T + b2), f32, tiles of out (M, K)
+// out = res + s * (h W2^T + b2), f32, tiles of out (M, K); the residual
+// res is K4's x, or K6's r with s = 1
 __global__ void __launch_bounds__(kF32Threads, 2)
 ffn_down_f32_kernel(const float* __restrict__ h, const float* __restrict__ w2,
-                    const float* __restrict__ b2, const float* __restrict__ x,
+                    const float* __restrict__ b2, const float* __restrict__ res,
                     float* __restrict__ out, const float* __restrict__ s_ptr,
                     float s_val, int M, int K, int inner) {
   extern __shared__ __align__(16) float smem_f[];
@@ -472,12 +410,104 @@ ffn_down_f32_kernel(const float* __restrict__ h, const float* __restrict__ w2,
         const int col = n0 + 32 * (warp & 1) + 8 * nt + 2 * (lane & 3);
         if (col >= K) continue;
         const long long i = (long long)row * K + col;
-        const float2 xr = *reinterpret_cast<const float2*>(x + i);
+        const float2 xr = *reinterpret_cast<const float2*>(res + i);
         *reinterpret_cast<float2*>(out + i) = make_float2(
             xr.x + (acc[0][mi][nt][2 * r] + b2[col]) * s,
             xr.y + (acc[0][mi][nt][2 * r + 1] + b2[col + 1]) * s);
       }
     }
+}
+
+// The f32 up and down GEMMs of K4 (and K6) on `st`: h = GEGLU(a W1^T + b1)
+// from a (M, K), then out = res + s * (h W2^T + b2)
+int launch_f32_ffn(const float* a, const void* w1, const void* b1,
+                   const void* w2, const void* b2, const void* res, float* h,
+                   void* out, const void* s_ptr, float s_val, int M, int K,
+                   int inner, cudaStream_t st) {
+  static unsigned long long up_set = 0, down_set = 0;
+  int err = allow_smem(ffn_up_f32_kernel, f32_gemm_smem<2>(), up_set);
+  if (err == 0)
+    err = allow_smem(ffn_down_f32_kernel, f32_gemm_smem<1>(), down_set);
+  if (err != 0) return err;
+  const int mt = (M + kF32BM - 1) / kF32BM;
+  ffn_up_f32_kernel<<<dim3((inner + kF32BN - 1) / kF32BN, mt), kF32Threads,
+                      f32_gemm_smem<2>(), st>>>(
+      a, static_cast<const float*>(w1), static_cast<const float*>(b1), h, M,
+      K, inner);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ffn_down_f32_kernel<<<dim3((K + kF32BN - 1) / kF32BN, mt), kF32Threads,
+                        f32_gemm_smem<1>(), st>>>(
+      h, static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(res), static_cast<float*>(out),
+      static_cast<const float*>(s_ptr), s_val, M, K, inner);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K7 in f32: K4/f32's GEMMs on int8 B tiles (two TF32 products a product,
+// f32_tiles.cuh mma2), each per-channel scale on its f32 sum
+
+// h = (acc_a sa + ba) * gelu(acc_g sg + bg), acc = xn Q^T, f32
+__global__ void __launch_bounds__(kF32Threads, 2)
+ffn_q_up_f32_kernel(const float* __restrict__ xn,
+                    const int8_t* __restrict__ q1,
+                    const float* __restrict__ s1,
+                    const float* __restrict__ b1, float* __restrict__ h, int M,
+                    int K, int inner) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
+  const int8_t* const B[2] = {q1, q1 + (long long)inner * K};
+  float acc[2][2][4][4];
+  gemm_f32<2>(acc, xn, K, M, B, K, inner, K, m0, n0, smem_f);
+  f32_tiles::for_each_pair(
+      m0, n0, M, inner, [&](int mi, int nt, int r, int row, int col) {
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = acc[0][mi][nt][2 * r + e] * s1[col + e] + b1[col + e];
+          const float g = acc[1][mi][nt][2 * r + e] * s1[inner + col + e] +
+                          b1[inner + col + e];
+          o[e] = a * gelu_erf(g);
+        }
+        *reinterpret_cast<float2*>(h + (long long)row * inner + col) =
+            make_float2(o[0], o[1]);
+      });
+}
+
+// out = x + s * (acc s2 + b2), acc = h Q2^T, f32
+__global__ void __launch_bounds__(kF32Threads, 2)
+ffn_q_down_f32_kernel(const float* __restrict__ h,
+                      const int8_t* __restrict__ q2,
+                      const float* __restrict__ s2,
+                      const float* __restrict__ b2, const float* __restrict__ x,
+                      float* __restrict__ out, const float* __restrict__ s_ptr,
+                      float s_val, int M, int K, int inner) {
+  extern __shared__ __align__(16) float smem_f[];
+  const float s = s_ptr != nullptr ? *s_ptr : s_val;
+  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
+  const int8_t* const B[1] = {q2};
+  float acc[1][2][4][4];
+  gemm_f32<1>(acc, h, inner, M, B, inner, K, inner, m0, n0, smem_f);
+  f32_tiles::for_each_pair(
+      m0, n0, M, K, [&](int mi, int nt, int r, int row, int col) {
+        const long long i = (long long)row * K + col;
+        const float2 xr = *reinterpret_cast<const float2*>(x + i);
+        const float y0 = acc[0][mi][nt][2 * r] * s2[col] + b2[col];
+        const float y1 = acc[0][mi][nt][2 * r + 1] * s2[col + 1] + b2[col + 1];
+        *reinterpret_cast<float2*>(out + i) =
+            make_float2(xr.x + y0 * s, xr.y + y1 * s);
+      });
+}
+
+// LN(x) of every row in f32 into xn on `st`
+int launch_norm_f32(const void* x, const void* lnw, const void* lnb,
+                    float* xn, int M, int K, float eps, cudaStream_t st) {
+  ffn_norm_rows_f32_kernel<<<(M + kNormRows - 1) / kNormRows, kNormRows * 32,
+                             0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(lnw),
+      static_cast<const float*>(lnb), xn, M, K, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -564,28 +594,65 @@ LLT2I_API int llt2i_ffn_ln_geglu_f32(const void* x, const void* lnw,
   if (K % 8 || inner % 8) return (int)cudaErrorInvalidValue;
   float* h = static_cast<float*>(hbuf);
   float* xn = h + (long long)M * inner;
-  ffn_norm_rows_f32_kernel<<<(M + kNormRows - 1) / kNormRows, kNormRows * 32,
-                             0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(lnw),
-      static_cast<const float*>(lnb), xn, M, K, eps);
-  int err = (int)cudaGetLastError();
+  const int err = launch_norm_f32(x, lnw, lnb, xn, M, K, eps, st);
+  if (err != 0) return err;
+  return launch_f32_ffn(xn, w1, b1, w2, b2, x, h, out, s_ptr, s_val, M, K,
+                        inner, st);
+}
+
+// K6 in f32. x, r, out: (M, K) f32; w1, b1, w2, b2 as K4's, f32; hbuf (M,
+// inner) f32 scratch. K % 4 == 0, inner % 4 == 0 (16-byte rows); x, w1, w2
+// and hbuf 16-byte aligned, b1 and b2 4-byte, r and out 8-byte. out = (h
+// W2^T + b2) + r, K4/f32's up and down kernels with r in place of x and
+// s = 1.
+LLT2I_API int llt2i_ffn_geglu_f32(const void* x, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* b2, const void* r, void* hbuf,
+                                  void* out, int M, int K, int inner,
+                                  void* stream) {
+  if (K % 4 || inner % 4) return (int)cudaErrorInvalidValue;
+  return launch_f32_ffn(static_cast<const float*>(x), w1, b1, w2, b2, r,
+                        static_cast<float*>(hbuf), out, nullptr, 1.f, M, K,
+                        inner, static_cast<cudaStream_t>(stream));
+}
+
+// K7 in f32. x, out, lnw, lnb, b1, b2 f32 as K4/f32's; q1: (2*inner, K)
+// int8; s1: (2*inner,) f32; q2: (K, inner) int8; s2: (K,) f32; hbuf: (M,
+// inner + K) f32 scratch, h then LN(x). K % 16 == 0 and inner % 16 == 0
+// (16-byte int8 chunks); x, lnw, lnb, q1, q2 and hbuf 16-byte aligned, s1,
+// s2, b1 and b2 4-byte, out 8-byte.
+LLT2I_API int llt2i_ffn_ln_geglu_q_f32(const void* x, const void* lnw,
+                                       const void* lnb, const void* q1,
+                                       const void* s1, const void* b1,
+                                       const void* q2, const void* s2,
+                                       const void* b2, void* hbuf, void* out,
+                                       const void* s_ptr, float s_val, int M,
+                                       int K, int inner, float eps,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K % 16 || inner % 16) return (int)cudaErrorInvalidValue;
+  float* h = static_cast<float*>(hbuf);
+  float* xn = h + (long long)M * inner;
+  int err = launch_norm_f32(x, lnw, lnb, xn, M, K, eps, st);
   if (err != 0) return err;
   static unsigned long long up_set = 0, down_set = 0;
-  err = allow_smem(ffn_up_f32_kernel, f32_gemm_smem<2>(), up_set);
-  if (err == 0)
-    err = allow_smem(ffn_down_f32_kernel, f32_gemm_smem<1>(), down_set);
+  constexpr size_t kUp = f32_gemm_smem<2, int8_t>();
+  constexpr size_t kDown = f32_gemm_smem<1, int8_t>();
+  err = allow_smem(ffn_q_up_f32_kernel, kUp, up_set);
+  if (err == 0) err = allow_smem(ffn_q_down_f32_kernel, kDown, down_set);
   if (err != 0) return err;
   const int mt = (M + kF32BM - 1) / kF32BM;
-  ffn_up_f32_kernel<<<dim3((inner + kF32BN - 1) / kF32BN, mt), kF32Threads,
-                      f32_gemm_smem<2>(), st>>>(
-      xn, static_cast<const float*>(w1), static_cast<const float*>(b1), h, M,
-      K, inner);
+  ffn_q_up_f32_kernel<<<dim3((inner + kF32BN - 1) / kF32BN, mt), kF32Threads,
+                        kUp, st>>>(
+      xn, static_cast<const int8_t*>(q1), static_cast<const float*>(s1),
+      static_cast<const float*>(b1), h, M, K, inner);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  ffn_down_f32_kernel<<<dim3((K + kF32BN - 1) / kF32BN, mt), kF32Threads,
-                        f32_gemm_smem<1>(), st>>>(
-      h, static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<const float*>(s_ptr), s_val, M, K, inner);
+  ffn_q_down_f32_kernel<<<dim3((K + kF32BN - 1) / kF32BN, mt), kF32Threads,
+                          kDown, st>>>(
+      h, static_cast<const int8_t*>(q2), static_cast<const float*>(s2),
+      static_cast<const float*>(b2), static_cast<const float*>(x),
+      static_cast<float*>(out), static_cast<const float*>(s_ptr), s_val, M, K,
+      inner);
   return (int)cudaGetLastError();
 }

@@ -23,10 +23,23 @@
 // each block's loop over K takes that axis's place. K8a adds the bias and
 // the residual. K8b is K4's and K6's up kernel on x: Wa and Wg as two B
 // operands with an accumulator each, the shared Geglu epilogue, tiles
-// 128 x 128 of the output. (ffn_tiles.cuh's WMMA design is K7's alone.)
+// 128 x 128 of the output.
+//
+// Both have f32 forms (llt2i_linear_f32, llt2i_geglu_f32), for f32 x and
+// weights, as the Pallas kernels take them: f32_tiles.cuh's tile GEMM
+// (3xTF32 on mma.sync, f32 accuracy) with the same epilogues in f32,
+// linear_f32_kernel (acc + b, then + r) and geglu_f32_kernel. Bound:
+// operations at the TF32 rate.
+#include "f32_tiles.cuh"
 #include "gemm_tiles.cuh"
 
 namespace {
+
+using f32_tiles::f32_gemm_smem;
+using f32_tiles::gemm_f32;
+using f32_tiles::kF32BM;
+using f32_tiles::kF32BN;
+using f32_tiles::kF32Threads;
 
 // K8a's epilogue: bf16(acc + b + r), b and r optional, in f32 as
 // matmul.py:70-75 adds them
@@ -104,6 +117,66 @@ geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   gemm_tiles::gemm_tile<C>(&tx, &twa, &twg, K, gemm_tiles::Geglu{b, out, M, N});
 }
 
+// K8a in f32: out = x W^T (+ b) (+ r), b and r added to the f32 sum in
+// that order, as matmul.py:70-75
+__global__ void __launch_bounds__(kF32Threads, 2)
+linear_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ b, const float* __restrict__ r,
+                  float* __restrict__ out, int M, int K, int N) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
+  const float* const B[1] = {w};
+  float acc[1][2][4][4];
+  gemm_f32<1>(acc, x, K, M, B, K, N, K, m0, n0, smem_f);
+  f32_tiles::for_each_pair(
+      m0, n0, M, N, [&](int mi, int nt, int rr, int row, int col) {
+        float y0 = acc[0][mi][nt][2 * rr], y1 = acc[0][mi][nt][2 * rr + 1];
+        if (b != nullptr) {
+          y0 += b[col];
+          y1 += b[col + 1];
+        }
+        const long long i = (long long)row * N + col;
+        if (r != nullptr) {
+          const float2 v = *reinterpret_cast<const float2*>(r + i);
+          y0 += v.x;
+          y1 += v.y;
+        }
+        *reinterpret_cast<float2*>(out + i) = make_float2(y0, y1);
+      });
+}
+
+// K8b in f32: out = (x Wa^T + ba) * gelu_erf(x Wg^T + bg), b optional
+__global__ void __launch_bounds__(kF32Threads, 2)
+geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ b, float* __restrict__ out, int M,
+                 int K, int N) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
+  const float* const B[2] = {w, w + (long long)N * K};
+  float acc[2][2][4][4];
+  gemm_f32<2>(acc, x, K, M, B, K, N, K, m0, n0, smem_f);
+  f32_tiles::for_each_pair(
+      m0, n0, M, N, [&](int mi, int nt, int r, int row, int col) {
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = acc[0][mi][nt][2 * r + e], g = acc[1][mi][nt][2 * r + e];
+          if (b != nullptr) {
+            a += b[col + e];
+            g += b[N + col + e];
+          }
+          o[e] = a * gelu_erf(g);
+        }
+        *reinterpret_cast<float2*>(out + (long long)row * N + col) =
+            make_float2(o[0], o[1]);
+      });
+}
+
+// the f32 forms' grid: kF32BM x kF32BN tiles of (M, N)
+dim3 f32_grid(int M, int N) {
+  return dim3((N + kF32BN - 1) / kF32BN, (M + kF32BM - 1) / kF32BM);
+}
+
 }  // namespace
 
 // K8a. x: (M, K) bf16; w: (N, K) bf16 (torch layout); b: (N,) bf16 or null;
@@ -127,4 +200,38 @@ LLT2I_API int llt2i_geglu(const void* x, const void* w, const void* b,
   if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;
   return gemm_tiles::launch_geglu<GegluCfg, geglu_wgmma_kernel<GegluCfg>>(
       x, w, b, out, M, K, N, static_cast<cudaStream_t>(stream));
+}
+
+// K8a in f32. x: (M, K) f32; w: (N, K) f32; b: (N,) f32 or null; r: (M, N)
+// f32 or null; out: (M, N) f32. K % 4 == 0 and N % 4 == 0; x and w 16-byte
+// aligned (cp.async), b 4-byte, r and out 8-byte.
+LLT2I_API int llt2i_linear_f32(const void* x, const void* w, const void* b,
+                               const void* r, void* out, int M, int K, int N,
+                               void* stream) {
+  if (K % 4 || N % 4) return (int)cudaErrorInvalidValue;
+  static unsigned long long set = 0;
+  const int err = allow_smem(linear_f32_kernel, f32_gemm_smem<1>(), set);
+  if (err != 0) return err;
+  linear_f32_kernel<<<f32_grid(M, N), kF32Threads, f32_gemm_smem<1>(),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<const float*>(r),
+      static_cast<float*>(out), M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// K8b in f32. x: (M, K) f32; w: (2N, K) = [Wa; Wg] f32; b: (2N,) f32 or
+// null; out: (M, N) f32. K % 4 == 0 and N % 4 == 0; x and w 16-byte aligned
+// (cp.async), b 4-byte, out 8-byte.
+LLT2I_API int llt2i_geglu_f32(const void* x, const void* w, const void* b,
+                              void* out, int M, int K, int N, void* stream) {
+  if (K % 4 || N % 4) return (int)cudaErrorInvalidValue;
+  static unsigned long long set = 0;
+  const int err = allow_smem(geglu_f32_kernel, f32_gemm_smem<2>(), set);
+  if (err != 0) return err;
+  geglu_f32_kernel<<<f32_grid(M, N), kF32Threads, f32_gemm_smem<2>(),
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(out), M, K, N);
+  return (int)cudaGetLastError();
 }

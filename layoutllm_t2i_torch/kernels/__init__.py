@@ -32,16 +32,13 @@ KERNELS = {
 }
 
 
-# the kernels with an f32 form: their wrappers also count its launches
-# (``f32_launches``, a share of ``launches``)
-F32_KIDS = ("K1", "K2", "K3", "K4", "K5a", "K5b")
+# every kernel has an f32 form: its wrapper also counts that form's
+# launches (``f32_launches``, a share of ``launches``)
 
 
 def reset_launches() -> None:
     for wrapper, _ in KERNELS.values():
-        wrapper.launches = 0
-    for kid in F32_KIDS:
-        KERNELS[kid][0].f32_launches = 0
+        wrapper.launches = wrapper.f32_launches = 0
 
 
 def launch_counts() -> dict:
@@ -49,10 +46,10 @@ def launch_counts() -> dict:
 
 
 def f32_launch_counts() -> dict:
-    return {kid: KERNELS[kid][0].f32_launches for kid in F32_KIDS}
+    return {kid: wrapper.f32_launches for kid, (wrapper, _) in KERNELS.items()}
 
 
-__all__ = ["F32_KIDS", "KERNELS", "attention_delta", "f32_launch_counts",
+__all__ = ["KERNELS", "attention_delta", "f32_launch_counts",
            "ffn_geglu", "ffn_geglu_plain", "ffn_ln_geglu",
            "ffn_ln_geglu_plain", "ffn_ln_geglu_q", "ffn_ln_geglu_q_plain",
            "flash_attention", "flash_attention_bwd_dkv",

@@ -72,11 +72,14 @@ SIGNATURES = {
     },
 }
 
-# the f32 forms of K1, K5a, K5b, K2 and K4 take their bf16 forms' arguments
+# the f32 forms of K1, K5a, K5b, K2, K4, K6, K7, K8a and K8b take their bf16
+# forms' arguments
 F32_TWINS = {"flash_attention": ("llt2i_flash_fwd", "llt2i_flash_bwd_dq",
                                  "llt2i_flash_bwd_dkv"),
              "group_norm": ("llt2i_group_norm_cluster", "llt2i_group_norm_stream"),
-             "ffn": ("llt2i_ffn_ln_geglu",)}
+             "ffn": ("llt2i_ffn_ln_geglu", "llt2i_ffn_geglu",
+                     "llt2i_ffn_ln_geglu_q"),
+             "matmul": ("llt2i_linear", "llt2i_geglu")}
 for lib_name, twins in F32_TWINS.items():
     SIGNATURES[lib_name].update({f"{fn}_f32": SIGNATURES[lib_name][fn]
                                  for fn in twins})

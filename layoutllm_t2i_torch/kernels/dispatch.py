@@ -63,8 +63,8 @@ def require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
-# the operand types of the kernels' instantiations: bf16 for every kernel,
-# f32 for K1, K2, K3, K4, K5a and K5b
+# the operand types of the kernels' instantiations: bf16 and f32 for every
+# kernel (K7's int8 weights and f32 scales aside)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 

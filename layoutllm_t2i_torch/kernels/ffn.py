@@ -6,10 +6,17 @@
   ``ffn_ln_geglu_scaled``). bf16 or f32 (``llt2i_ffn_ln_geglu_f32``,
   3xTF32 products, LN(x) and h kept in f32), picked from ``x.dtype``.
 * K6 ``ffn_geglu``: the FF without the LN, its residual passed in.
-  Replaces ``_ffn_call`` / ``_ffn_kernel`` (``ffn_geglu_fused``).
+  Replaces ``_ffn_call`` / ``_ffn_kernel`` (``ffn_geglu_fused``). bf16 or
+  f32 (``llt2i_ffn_geglu_f32``: K4/f32's up and down kernels, h in f32).
 * K7 ``ffn_ln_geglu_q``: K4 with int8 weights and per-output-channel f32
   scales applied after each dot. Replaces ``_ffn_ln_q_call`` /
-  ``_ffn_ln_q_kernel`` (``ffn_ln_geglu_scaled_q``).
+  ``_ffn_ln_q_kernel`` (``ffn_ln_geglu_scaled_q``). bf16 or f32
+  activations (``llt2i_ffn_ln_geglu_q_f32``: two TF32 products against
+  the int8 values, which TF32 holds exactly); its LN parameters and biases
+  in x's type, its int8 values and f32 scales as they are.
+
+Each wrapper picks its C entry from ``operand_dtype(x)`` and counts the f32
+form's launches in ``f32_launches`` beside ``launches``.
 
 Weights stay in the reference torch layout: ``w1`` is ``net.0.proj.weight``
 (2*inner, K) = [Wa; Wg] and ``w2`` is ``net.2.weight`` (K, inner); K7 takes
@@ -36,7 +43,8 @@ import torch.nn.functional as F
 
 from .build import check, lib
 from .dispatch import (check_operand, needs_grad, operand_dtype, plain_vjp,
-                       require, require_aligned, stream_handle, use_kernel)
+                       require, require_aligned, stream_handle, use_kernel,
+                       vector_elems)
 from .matmul import _pick_block
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, every reference norm3/norm2 site
@@ -227,41 +235,52 @@ class FfnGeglu(torch.autograd.Function):
                          ctx.needs_input_grad, grad)
 
 
+_RES_ENTRY = {torch.bfloat16: "llt2i_ffn_geglu",
+              torch.float32: "llt2i_ffn_geglu_f32"}
+
+
 def _forward_res(x, w1, b1, w2, b2, r):
     if not use_kernel(x):
         return ffn_geglu_plain(x, w1, b1, w2, b2, r)
     m, k = x.shape
     inner = w1.shape[0] // 2
     dev = x.get_device()
+    dtype = operand_dtype(x)
     for name, t in (("ffn_geglu: x", x), ("ffn_geglu: w1", w1),
                     ("ffn_geglu: b1", b1), ("ffn_geglu: w2", w2),
                     ("ffn_geglu: b2", b2), ("ffn_geglu: r", r)):
-        check_operand(t, name, dev, torch.bfloat16)
+        check_operand(t, name, dev, dtype)
     require(w1.shape == (2 * inner, k) and b1.shape == (2 * inner,)
             and w2.shape == (k, inner) and b2.shape == (k,)
             and r.shape == (m, k), "ffn_geglu: shapes")
-    if not (k % 8 == 0 and inner % 8 == 0):
+    # rows of x, w1, h and w2 in whole 16-byte vectors (TMA or cp.async)
+    v = vector_elems(dtype)
+    if not (k % v == 0 and inner % v == 0):
         raise ValueError(
-            f"ffn_geglu: K={k}, inner={inner} must be multiples of 8")
-    # x, w1 and w2 through TMA, the biases and r in bf16 pairs
+            f"ffn_geglu: K={k}, inner={inner} must be multiples of {v}")
+    # x, w1 and w2 through TMA (f32: 16-byte cp.async), the biases in bf16
+    # pairs or f32 values, r in pairs of values
     for name, t, nbytes in (
             ("ffn_geglu: x", x, 16), ("ffn_geglu: w1", w1, 16),
             ("ffn_geglu: w2", w2, 16), ("ffn_geglu: b1", b1, 4),
-            ("ffn_geglu: b2", b2, 4), ("ffn_geglu: r", r, 4)):
+            ("ffn_geglu: b2", b2, 4), ("ffn_geglu: r", r, 2 * x.element_size())):
         require_aligned(t, name, nbytes)
     out = torch.empty_like(x)
     if m == 0:
         return out
     hbuf = torch.empty((m, inner), dtype=x.dtype, device=x.device)
-    check(lib("ffn").llt2i_ffn_geglu(
+    check(getattr(lib("ffn"), _RES_ENTRY[dtype])(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), r.data_ptr(), hbuf.data_ptr(), out.data_ptr(), m, k,
         inner, stream_handle(dev)), "ffn_geglu")
     ffn_geglu.launches += 1
+    if dtype is torch.float32:
+        ffn_geglu.f32_launches += 1
     return out
 
 
 ffn_geglu.launches = 0
+ffn_geglu.f32_launches = 0  # the f32 form's share of ``launches``
 
 
 # ---------------------------------------------------------------------------
@@ -287,13 +306,17 @@ def ffn_ln_geglu_q_plain(x: torch.Tensor, ln_w: torch.Tensor,
     return (y * _scale_value(s)).to(x.dtype) + x
 
 
+_Q_ENTRY = {torch.bfloat16: "llt2i_ffn_ln_geglu_q",
+            torch.float32: "llt2i_ffn_ln_geglu_q_f32"}
+
+
 def ffn_ln_geglu_q(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                    q1: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
                    q2: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor,
                    s: Scale = 1.0, eps: float = LN_EPS) -> torch.Tensor:
-    """x: (M, K) -> x + s * FF(LN(x)) with q1 (2*inner, K) and q2 (K,
-    inner) int8, s1 (2*inner,) and s2 (K,) f32. Inference only: raises where
-    autograd would record the call."""
+    """x: (M, K) bf16 or f32 -> x + s * FF(LN(x)) with q1 (2*inner, K) and
+    q2 (K, inner) int8, s1 (2*inner,) and s2 (K,) f32. Inference only:
+    raises where autograd would record the call."""
     require(not needs_grad(x, ln_w, ln_b, s1, b1, s2, b2, s),
             "ffn_ln_geglu_q: inference only (no VJP, as the JAX package's)")
     if not use_kernel(x):
@@ -302,13 +325,14 @@ def ffn_ln_geglu_q(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     m, k = x.shape
     inner = q1.shape[0] // 2
     dev = x.get_device()
-    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    # x, its LN parameters and biases in x's type; int8 values, f32 scales
+    dt, i8, f32 = operand_dtype(x), torch.int8, torch.float32
     for name, t, dtype in (
-            ("ffn_ln_geglu_q: x", x, bf), ("ffn_ln_geglu_q: ln_w", ln_w, bf),
-            ("ffn_ln_geglu_q: ln_b", ln_b, bf), ("ffn_ln_geglu_q: q1", q1, i8),
-            ("ffn_ln_geglu_q: s1", s1, f32), ("ffn_ln_geglu_q: b1", b1, bf),
+            ("ffn_ln_geglu_q: x", x, dt), ("ffn_ln_geglu_q: ln_w", ln_w, dt),
+            ("ffn_ln_geglu_q: ln_b", ln_b, dt), ("ffn_ln_geglu_q: q1", q1, i8),
+            ("ffn_ln_geglu_q: s1", s1, f32), ("ffn_ln_geglu_q: b1", b1, dt),
             ("ffn_ln_geglu_q: q2", q2, i8), ("ffn_ln_geglu_q: s2", s2, f32),
-            ("ffn_ln_geglu_q: b2", b2, bf)):
+            ("ffn_ln_geglu_q: b2", b2, dt)):
         check_operand(t, name, dev, dtype)
     require(ln_w.shape == (k,) and ln_b.shape == (k,)
             and q1.shape == (2 * inner, k) and s1.shape == (2 * inner,)
@@ -318,8 +342,9 @@ def ffn_ln_geglu_q(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     if not (k % 16 == 0 and inner % 16 == 0):
         raise ValueError(
             f"ffn_ln_geglu_q: K={k}, inner={inner} must be multiples of 16")
-    # x, ln_w and ln_b in 16-byte vectors, q1 and q2 through TMA, the
-    # scales in f32 pairs, the biases in bf16 pairs
+    # x, ln_w and ln_b in 16-byte vectors, q1 and q2 through TMA (f32:
+    # 16-byte cp.async), the scales in f32 pairs, the biases in bf16 pairs
+    # or f32 values
     for name, t, nbytes in (
             ("ffn_ln_geglu_q: x", x, 16), ("ffn_ln_geglu_q: ln_w", ln_w, 16),
             ("ffn_ln_geglu_q: ln_b", ln_b, 16), ("ffn_ln_geglu_q: q1", q1, 16),
@@ -331,15 +356,19 @@ def ffn_ln_geglu_q(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     out = torch.empty_like(x)
     if m == 0:
         return out
-    # one scratch allocation, as K4's: h (m, inner), then bf16(LN(x)) (m, k)
+    # one scratch allocation, as K4's: h (m, inner), then LN(x) (m, k), in
+    # x's type
     hbuf = torch.empty((m * (inner + k),), dtype=x.dtype, device=x.device)
-    check(lib("ffn").llt2i_ffn_ln_geglu_q(
+    check(getattr(lib("ffn"), _Q_ENTRY[dt])(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), q1.data_ptr(),
         s1.data_ptr(), b1.data_ptr(), q2.data_ptr(), s2.data_ptr(),
         b2.data_ptr(), hbuf.data_ptr(), out.data_ptr(), s_ptr, s_val, m, k,
         inner, float(eps), stream_handle(dev)), "ffn_ln_geglu_q")
     ffn_ln_geglu_q.launches += 1
+    if dt is torch.float32:
+        ffn_ln_geglu_q.f32_launches += 1
     return out
 
 
 ffn_ln_geglu_q.launches = 0
+ffn_ln_geglu_q.f32_launches = 0  # the f32 form's share of ``launches``

@@ -7,11 +7,18 @@ Replace ``layoutllm_t2i_tpu/ops/pallas/matmul.py`` ``_mm_call`` /
 ``net.0.proj.weight`` holds them. Both are differentiable through
 Functions whose backward is the plain version's VJP, as ``_linear_bwd``
 (matmul.py:228) and ``_geglu_bwd`` (matmul.py:264) compute it with plain
-dots.
+dots. Both take bf16 or f32 operands, as the Pallas kernels take any float
+type: the wrapper picks the C entry from ``operand_dtype(x)``
+(``llt2i_linear_f32`` and ``llt2i_geglu_f32``: 3xTF32 products, f32
+epilogues) and counts the f32 form's launches in ``f32_launches``.
 
 ``_pick_block`` and ``_eligible`` are copies of the JAX package's
 (matmul.py:34, :192): ``ops/nn.py`` routes a site to these kernels exactly
-where the JAX package routes it to its Pallas kernels.
+where the JAX package routes it to its Pallas kernels. A product of more
+than 512 rows is eligible only where 256 divides its rows, so the CLIP
+towers' linears (B * 77 or B * 257 rows) reach K8a only at batches that are
+multiples of 256, none that the port runs; the UNet's FF sites at 1024
+rows or more do.
 """
 from __future__ import annotations
 
@@ -21,8 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from .build import check, lib
-from .dispatch import (check_operand, needs_grad, plain_vjp, require,
-                       require_aligned, stream_handle, use_kernel)
+from .dispatch import (check_operand, needs_grad, operand_dtype, plain_vjp,
+                       require, require_aligned, stream_handle, use_kernel,
+                       vector_elems)
 
 # the Pallas kernels' block sizes (matmul.py:109): they decide eligibility
 _BM, _BN, _BK = 512, 512, 512
@@ -49,17 +57,6 @@ def _eligible(m: int, k: int, n: int) -> bool:
         and _pick_block(k, _BK) >= 128
         and _pick_block(n, _BN) >= 128
     )
-
-
-def _refuse_f32(x: torch.Tensor, name: str) -> None:
-    """K8a and K8b take bf16 only: an f32 operand (the reward's f32 CLIP
-    towers reach K8a under LLT2I_PALLAS_MATMUL=1) raises, naming the
-    ROADMAP item that ports their f32 forms."""
-    if x.dtype is torch.float32:
-        raise ValueError(f"{name}: f32 operands are not ported to this "
-                         "kernel (ROADMAP Queue 2, 'f32 operands of K6, K7, "
-                         "K8a and K8b'); unset LLT2I_PALLAS_MATMUL for f32 "
-                         "models")
 
 
 def linear_plain(x: torch.Tensor, w: torch.Tensor,
@@ -98,38 +95,48 @@ class LinearFused(torch.autograd.Function):
                          grad)
 
 
+_LINEAR_ENTRY = {torch.bfloat16: "llt2i_linear", torch.float32: "llt2i_linear_f32"}
+
+
 def _linear_forward(x, w, b, r):
     if not use_kernel(x):
         return linear_plain(x, w, b, r)
-    _refuse_f32(x, "linear_fused")
     m, k = x.shape
     n = w.shape[0]
     dev = x.get_device()
+    dtype = operand_dtype(x)
     for name, t in (("linear_fused: x", x), ("linear_fused: w", w),
                     ("linear_fused: b", b), ("linear_fused: r", r)):
         if t is not None:
-            check_operand(t, name, dev, torch.bfloat16)
+            check_operand(t, name, dev, dtype)
     require(w.shape == (n, k) and (b is None or b.shape == (n,))
             and (r is None or r.shape == (m, n)), "linear_fused: shapes")
-    if not (k % 8 == 0 and n % 8 == 0):
-        raise ValueError(f"linear_fused: K={k}, N={n} must be multiples of 8")
-    # x and w through TMA, b and r in bf16 pairs
+    # rows of x, w and out in whole 16-byte vectors (TMA or cp.async)
+    v = vector_elems(dtype)
+    if not (k % v == 0 and n % v == 0):
+        raise ValueError(f"linear_fused: K={k}, N={n} must be multiples of {v}")
+    # x and w through TMA (f32: 16-byte cp.async), b in bf16 pairs or f32
+    # values, r in pairs of values
     for name, t, nbytes in (("linear_fused: x", x, 16), ("linear_fused: w", w, 16),
-                            ("linear_fused: b", b, 4), ("linear_fused: r", r, 4)):
+                            ("linear_fused: b", b, 4),
+                            ("linear_fused: r", r, 2 * x.element_size())):
         if t is not None:
             require_aligned(t, name, nbytes)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
     ptr = lambda t: None if t is None else t.data_ptr()
-    check(lib("matmul").llt2i_linear(
+    check(getattr(lib("matmul"), _LINEAR_ENTRY[dtype])(
         x.data_ptr(), w.data_ptr(), ptr(b), ptr(r), out.data_ptr(), m, k, n,
         stream_handle(dev)), "linear_fused")
     linear_fused.launches += 1
+    if dtype is torch.float32:
+        linear_fused.f32_launches += 1
     return out
 
 
 linear_fused.launches = 0
+linear_fused.f32_launches = 0  # the f32 form's share of ``launches``
 
 
 def geglu_plain(x: torch.Tensor, w: torch.Tensor,
@@ -165,22 +172,28 @@ class GegluFused(torch.autograd.Function):
                          grad)
 
 
+_GEGLU_ENTRY = {torch.bfloat16: "llt2i_geglu", torch.float32: "llt2i_geglu_f32"}
+
+
 def _geglu_forward(x, w, b):
     if not use_kernel(x):
         return geglu_plain(x, w, b)
-    _refuse_f32(x, "geglu_fused")
     m, k = x.shape
     n = w.shape[0] // 2
     dev = x.get_device()
+    dtype = operand_dtype(x)
     for name, t in (("geglu_fused: x", x), ("geglu_fused: w", w),
                     ("geglu_fused: b", b)):
         if t is not None:
-            check_operand(t, name, dev, torch.bfloat16)
+            check_operand(t, name, dev, dtype)
     require(w.shape == (2 * n, k) and (b is None or b.shape == (2 * n,)),
             "geglu_fused: shapes")
-    if not (k % 8 == 0 and n % 8 == 0):
-        raise ValueError(f"geglu_fused: K={k}, N={n} must be multiples of 8")
-    # x and w through TMA, b in bf16 pairs
+    # rows of x, w and out in whole 16-byte vectors (TMA or cp.async)
+    v = vector_elems(dtype)
+    if not (k % v == 0 and n % v == 0):
+        raise ValueError(f"geglu_fused: K={k}, N={n} must be multiples of {v}")
+    # x and w through TMA (f32: 16-byte cp.async), b in bf16 pairs or f32
+    # values
     for name, t, nbytes in (("geglu_fused: x", x, 16), ("geglu_fused: w", w, 16),
                             ("geglu_fused: b", b, 4)):
         if t is not None:
@@ -188,11 +201,14 @@ def _geglu_forward(x, w, b):
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    check(lib("matmul").llt2i_geglu(
+    check(getattr(lib("matmul"), _GEGLU_ENTRY[dtype])(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
         out.data_ptr(), m, k, n, stream_handle(dev)), "geglu_fused")
     geglu_fused.launches += 1
+    if dtype is torch.float32:
+        geglu_fused.f32_launches += 1
     return out
 
 
 geglu_fused.launches = 0
+geglu_fused.f32_launches = 0  # the f32 form's share of ``launches``

@@ -25,9 +25,14 @@ of the 32-deep k step, and the gradients of the K6, K8a and K8b Functions;
 for K4's, K6's, K8a's and K8b's TMA and wgmma design (gemm_tiles.cuh;
 K8b with and without its bias), ragged M, N and K, the grid-fill shape,
 operands fenced by NaN and Inf, outputs and scratch pre-filled with NaN,
-bitwise repeatability and misaligned operands; and one generation of the
-fast preset (DPM, guidance interval, encoder cache) at small geometry
-through K1-K4 against the plain route.
+bitwise repeatability and misaligned operands; the f32 forms of K6, K7,
+K8a and K8b (f32_tiles.cuh's tile GEMM) at ragged shapes and at the f32
+generation's and split-route training's shapes, with and without K8a's
+bias and residual and K8b's bias, K7's s as a device tensor, two launches
+agreeing bit for bit, the size rules and the gradients of the K6, K8a and
+K8b Functions in f32; and one generation of the fast preset (DPM, guidance
+interval, encoder cache) at small geometry through K1-K4 against the plain
+route.
 Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -1402,3 +1407,114 @@ def test_reward_model_on_the_card_matches_its_plain_route(dev):
         assert np.isfinite(got[name]).all()
         np.testing.assert_allclose(got[name], ref[name], rtol=0, atol=1e-4,
                                    err_msg=name)
+
+
+
+# ---------------------------------------------------------------------------
+# the f32 forms of K6, K7, K8a and K8b (f32_tiles.cuh's tile GEMM: 3xTF32,
+# or two TF32 products against K7's int8 weights), against the plain
+# versions in full f32
+
+
+def _f32(*tensors):
+    return [t.float() if t.is_floating_point() else t for t in tensors]
+
+
+# (M, K, inner): a ragged row block, widths off the 64-column tiles and a
+# ragged 32-deep k step (K = 72), and the split routes' training sites
+FF_F32_SHAPES = FF_SHAPES + [(32768, 320, 1280), (2048, 1280, 5120)]
+
+
+@pytest.mark.parametrize("m,k,inner", FF_F32_SHAPES)
+def test_ffn_geglu_f32(dev, gen, f32, m, k, inner):
+    x, r, w1, b1, w2, b2 = _f32(_rand(gen, m, k), _rand(gen, m, k),
+                                *_ffn_weights(gen, k, inner))
+    _check_f32("K6", lambda: K.ffn_geglu(x, w1, b1, w2, b2, r),
+               lambda: K.ffn_geglu_plain(x, w1, b1, w2, b2, r), K.ffn_geglu)
+
+
+# K % 16 and inner % 16 as in bf16: K = 80 ends the up GEMM in a 16-deep
+# step, inner = 208 h in a partial tile; M = 16384, 4096 and 1024 are the
+# f32 int8 generation's sites
+@pytest.mark.parametrize("m,k,inner", [(100, 80, 208), (1054, 1280, 5120),
+                                       (16384, 320, 1280), (4096, 640, 2560)])
+@pytest.mark.parametrize("scale", [1.0, "tensor"])
+def test_ffn_ln_geglu_q_f32(dev, gen, f32, m, k, inner, scale):
+    args = _k7_args(gen, m, k, inner, scale)
+    for i in (0, 1, 2, 5, 8):     # x, LN parameters and biases in f32
+        args[i] = args[i].float()
+    _check_f32("K7", lambda: K.ffn_ln_geglu_q(*args),
+               lambda: K.ffn_ln_geglu_q_plain(*args), K.ffn_ln_geglu_q)
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 1280, 320), (2048, 5120, 1280),
+                                   (130, 72, 200)])
+@pytest.mark.parametrize("bias,residual", [(True, False), (True, True),
+                                           (False, True), (False, False)])
+def test_linear_fused_f32(dev, gen, f32, m, k, n, bias, residual):
+    x, w = _rand(gen, m, k).float(), _rand(gen, n, k, scale=k ** -0.5).float()
+    b = _rand(gen, n, scale=0.1).float() if bias else None
+    r = _rand(gen, m, n).float() if residual else None
+    _check_f32("K8a", lambda: K.linear_fused(x, w, b, r),
+               lambda: K.linear_plain(x, w, b, r), K.linear_fused)
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 320, 1280), (2048, 1280, 5120),
+                                   (130, 72, 200)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_geglu_fused_f32(dev, gen, f32, m, k, n, bias):
+    x, w = _rand(gen, m, k).float(), _rand(gen, 2 * n, k, scale=k ** -0.5).float()
+    b = _rand(gen, 2 * n, scale=0.1).float() if bias else None
+    _check_f32("K8b", lambda: K.geglu_fused(x, w, b),
+               lambda: K.geglu_plain(x, w, b), K.geglu_fused)
+
+
+def test_f32_gemm_forms_repeat_bit_for_bit(dev, gen, f32):
+    m, k, inner = 1054, 640, 2560
+    x, r, w1, b1, w2, b2 = _f32(_rand(gen, m, k), _rand(gen, m, k),
+                                *_ffn_weights(gen, k, inner))
+    q = _k7_args(gen, m, k, inner)
+    for i in (0, 1, 2, 5, 8):
+        q[i] = q[i].float()
+    for fn in (lambda: K.ffn_geglu(x, w1, b1, w2, b2, r),
+               lambda: K.ffn_ln_geglu_q(*q),
+               lambda: K.linear_fused(x, w1, b1),
+               lambda: K.geglu_fused(x, w1, b1)):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and torch.isfinite(a).all()
+
+
+def test_f32_gemm_forms_refuse_what_they_cannot_take(dev, gen):
+    # f32 rows move in 16-byte vectors: K and N multiples of 4; mixed types
+    # raise; nothing launches
+    x = _rand(gen, 64, 70).float()
+    w = _rand(gen, 64, 70).float()
+    before = K.linear_fused.launches
+    with pytest.raises(ValueError, match="multiples of 4"):
+        K.linear_fused(x, w)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        K.geglu_fused(x, w)
+    x, w = _rand(gen, 64, 72).float(), _rand(gen, 64, 72)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        K.linear_fused(x, w)
+    assert K.linear_fused.launches == before
+    args = _k7_args(gen, 64, 64, 256)
+    args[0] = args[0].float()       # f32 x with bf16 LN parameters
+    with pytest.raises(ValueError, match="ln_w: dtype"):
+        K.ffn_ln_geglu_q(*args)
+
+
+def test_f32_gemm_grads(dev, gen, f32):
+    m, k, inner = 1054, 640, 2560
+    x, r, w1, b1, w2, b2 = _f32(_rand(gen, m, k), _rand(gen, m, k),
+                                *_ffn_weights(gen, k, inner))
+    _grads_match(K.ffn_geglu, K.ffn_geglu_plain, [x, w1, b1, w2, b2, r],
+                 K.ffn_geglu)
+    x, w, b = (_rand(gen, m, k).float(),
+               _rand(gen, inner, k, scale=k ** -0.5).float(),
+               _rand(gen, inner).float())
+    _grads_match(K.linear_fused, K.linear_plain, [x, w, b, None],
+                 K.linear_fused)
+    w, b = _rand(gen, 2 * inner, k, scale=k ** -0.5).float(), _rand(gen, 2 * inner).float()
+    _grads_match(K.geglu_fused, K.geglu_plain, [x, w, b], K.geglu_fused)

@@ -1,40 +1,50 @@
-"""The f32 forms of K1, K5a/K5b and K4 on the CPU: their stated tolerances
-against CPU emulations of the kernels' arithmetic, and the plain versions
-against the Pallas kernels at the f32 block choices.
+"""The f32 forms of K1, K5a/K5b, K4, K6, K7, K8a and K8b on the CPU: their
+stated tolerances against CPU emulations of the kernels' arithmetic, and
+the plain versions against the Pallas kernels at the f32 block choices.
 
 The CUDA kernels run only on the card. Their f32 products are 3xTF32 on
 mma.sync (``csrc/f32_tiles.cuh``): each operand split into hi = tf32(x) and
 lo = tf32(x - hi) (round to nearest, ties away, to 10 mantissa bits, as
 ``cvt.rna.tf32.f32``), three TF32 products hi*hi + hi*lo + lo*hi summed in
 f32. The emulations below repeat that split and each kernel's tiling
-(K1's online softmax over K/V stages with P in f32, K5's stages, K4's
-32-deep k steps, 128-row blocks and f32 LN(x) and h): they must pass the
-f32 rows of ``kernels/tolerance.py`` against the plain versions, and a
-single TF32 pass (operands rounded once: a different function, about
-4e-4 off), a dropped ragged K/V tail, a missing rescale and K4's s applied
-after the residual must fail them.
+(K1's online softmax over K/V stages with P in f32, K5's stages, the tile
+GEMM's 32-deep k steps and 128-row blocks, f32 LN(x) and h): they must
+pass the f32 rows of ``kernels/tolerance.py`` against the plain versions,
+and a single TF32 pass (operands rounded once: a different function, about
+4e-4 off), a dropped ragged K/V tail or k step, a missing rescale, K4's s
+applied after the residual, K6's residual added twice, K8a's bias dropped,
+and K7's scale missing or folded into its weights before the dot must
+fail them. K7's weights are int8, exact in TF32 (tested), so its products
+are two TF32 passes, a_hi q + a_lo q.
 
 The Pallas kernels run in interpret mode, as the JAX package's own tests
 run them, at the shapes where f32 picks other blocks than bf16 (K4's
 ``_blocks`` halves its row block at item size 4; the GroupNorm kernels'
 ``_gn_group_chunks`` and ``_gn_rows_block`` budget bytes, so f32 cuts a
-sample into more channel chunks or fewer rows).
+sample into more channel chunks or fewer rows), and the f32 plain versions
+of K6, K7, K8a and K8b against their Pallas kernels with f32 operands at
+m = 1024 rows.
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from layoutllm_t2i_tpu.ops.pallas import matmul as jmm
 from layoutllm_t2i_tpu.ops.pallas.ffn import _blocks as jax_blocks
-from layoutllm_t2i_tpu.ops.pallas.ffn import _ffn_ln_call
+from layoutllm_t2i_tpu.ops.pallas.ffn import (_ffn_ln_call, ffn_geglu_fused,
+                                              ffn_ln_geglu_scaled_q)
 from layoutllm_t2i_tpu.ops.pallas.norms import (_gn_group_chunks, _gn_pallas,
                                                 _gn_pallas_rows, _gn_rows_block)
 
 from layoutllm_t2i_torch.kernels import (
-    attention_delta, ffn_ln_geglu, ffn_ln_geglu_plain,
-    flash_attention_bwd_plain, flash_attention_lse_plain, group_norm,
+    attention_delta, ffn_geglu, ffn_geglu_plain, ffn_ln_geglu,
+    ffn_ln_geglu_plain, ffn_ln_geglu_q, ffn_ln_geglu_q_plain,
+    flash_attention_bwd_plain, flash_attention_lse_plain, geglu_fused,
+    geglu_plain, group_norm, linear_fused, linear_plain,
 )
 from layoutllm_t2i_torch.kernels.ffn import _blocks, ffn_eligible
+from layoutllm_t2i_torch.ops.quant import quantize_tensor
 from layoutllm_t2i_torch.kernels.tolerance import TOLERANCE, agreement, tol_id
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -55,6 +65,26 @@ def mm(a, b, passes=3):
         return ah @ bh
     al, bl = tf32(a - ah), tf32(b - bh)
     return al @ bh + ah @ bl + ah @ bh
+
+
+def mm_q(a, q, passes=2):
+    """a @ q for an int8 q (exact in TF32) as ``mma2`` takes it: a_hi q +
+    a_lo q, or one TF32 pass (``passes=1``, the fault)."""
+    ah = tf32(a)
+    return ah @ q if passes == 1 else tf32(a - ah) @ q + ah @ q
+
+
+def gemm(a, w, passes=3, k_tail=False, prod=None):
+    """a w^T as f32_tiles.cuh gemm_f32 sums it: 32-deep k steps, each step's
+    product 3xTF32 (``mm``; an int8 w: ``mm_q``) added in f32; ``k_tail``
+    drops a ragged last step (the fault)."""
+    kd = a.shape[1]
+    end = kd - kd % 32 if k_tail else kd
+    prod = prod or (mm_q if w.dtype is torch.int8 else mm)
+    acc = torch.zeros(a.shape[0], w.shape[0])
+    for k0 in range(0, end, 32):
+        acc += prod(a[:, k0:k0 + 32], w[:, k0:k0 + 32].float().t(), passes)
+    return acc
 
 
 def _split(t, heads):
@@ -200,30 +230,27 @@ def _k4_f32_emulated(x, lw, lb, w1, b1, w2, b2, s, fault=None, eps=1e-5):
     centred variance), the up GEMM against Wa and Wg and the down GEMM in
     3xTF32 over 32-deep k steps, (a + ba) * gelu_erf(g + bg) kept in f32,
     then x + s (acc + b2)."""
-    passes = 1 if fault == "tf32_one_pass" else 3
+    kw = dict(passes=1 if fault == "tf32_one_pass" else 3,
+              k_tail=fault == "k_tail")
     m, inner = x.shape[0], w1.shape[0] // 2
-    mean = x.mean(-1, keepdim=True)
-    rstd = torch.rsqrt(((x - mean) ** 2).mean(-1, keepdim=True) + eps)
-    xn = (x - mean) * rstd * lw + lb
-
-    def gemm(a, w):
-        kd = a.shape[1]
-        end = kd - kd % 32 if fault == "k_tail" else kd
-        acc = torch.zeros(a.shape[0], w.shape[0])
-        for k0 in range(0, end, 32):
-            acc += mm(a[:, k0:k0 + 32], w[:, k0:k0 + 32].t(), passes)
-        return acc
-
-    a = gemm(xn, w1[:inner]) + b1[:inner]
-    gate = gemm(xn, w1[inner:]) + b1[inner:]
+    xn = _ln_f32(x, lw, lb, eps)
+    a = gemm(xn, w1[:inner], **kw) + b1[:inner]
+    gate = gemm(xn, w1[inner:], **kw) + b1[inner:]
     h = a * torch.nn.functional.gelu(gate)
-    y = gemm(h, w2) + b2
+    y = gemm(h, w2, **kw) + b2
     if fault == "s_after_residual":
         return (y + x) * s
     out = x + y * s
     if fault == "rows_tail":   # the last, ragged 128-row block unwritten
         out[m - m % 128:] = 0
     return out
+
+
+def _ln_f32(x, lw, lb, eps=1e-5):
+    """The f32 LN pre-pass: the mean, then the centred variance, a row."""
+    mean = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((x - mean) ** 2).mean(-1, keepdim=True) + eps)
+    return (x - mean) * rstd * lw + lb
 
 
 def _k4_inputs(m, k, inner, seed=0):
@@ -252,9 +279,137 @@ def test_k4_f32_tolerance_separates_rounding_from_faults(k, s, fault):
     assert got["ok"] == (fault is None), got
 
 
+# ---------------------------------------------------------------------------
+# K6, K7, K8a and K8b on the tile GEMM
+
+
+def _k6_f32_emulated(x, w1, b1, w2, b2, r, fault=None):
+    """csrc/ffn.cu's f32 K6: K4/f32's up kernel on x (no LN), h in f32, its
+    down kernel with r in place of x and s = 1: (acc + b2) + r."""
+    kw = dict(passes=1 if fault == "tf32_one_pass" else 3,
+              k_tail=fault == "k_tail")
+    inner = w1.shape[0] // 2
+    a = gemm(x, w1[:inner], **kw) + b1[:inner]
+    g = gemm(x, w1[inner:], **kw) + b1[inner:]
+    y = gemm(a * torch.nn.functional.gelu(g), w2, **kw) + b2
+    return y + r + (r if fault == "residual_twice" else 0.0)
+
+
+@pytest.mark.parametrize("k,fault", [
+    (320, None), (640, None), (72, None), (320, "tf32_one_pass"),
+    (72, "k_tail"), (320, "residual_twice"),
+])
+def test_k6_f32_tolerance_separates_rounding_from_faults(k, fault):
+    # M = 200: a ragged last row block; K = 72: a ragged 32-deep step
+    m, inner = 200, 4 * k
+    x, _, _, w1, b1, w2, b2 = _k4_inputs(m, k, inner)
+    r = torch.randn(m, k, generator=torch.Generator().manual_seed(1))
+    ref = ffn_geglu_plain(x, w1, b1, w2, b2, r)
+    got = agreement(tol_id("K6", F32), _k6_f32_emulated(x, w1, b1, w2, b2, r, fault), ref)
+    assert got["ok"] == (fault is None), got
+
+
+def _k7_f32_emulated(x, lw, lb, q1, s1, b1, q2, s2, b2, s, fault=None):
+    """csrc/ffn.cu's f32 K7: K4/f32's LN pre-pass, the up GEMM against Qa
+    and Qg and the down GEMM against Q2 on int8 tiles (``mm_q``, 32-deep
+    steps), a = acc sa + ba and y = acc s2 + b2 on the f32 sums, h in f32,
+    out = x + s y. ``scale_before_dot`` folds the scales into the weights
+    before the dot (q s is not exact in TF32, so two products lose its low
+    half); ``scale_missing`` drops s2."""
+    kw = dict(passes=1 if fault == "tf32_one_pass" else 2,
+              k_tail=fault == "k_tail")
+    inner = q1.shape[0] // 2
+    xn = _ln_f32(x, lw, lb)
+    if fault == "scale_before_dot":
+        # two products on the dequantized weights, which TF32 does not
+        # hold: the tensor cores read them rounded
+        dq = lambda q, sc: tf32(q.float() * sc[:, None])
+        a = gemm(xn, dq(q1[:inner], s1[:inner]), prod=mm_q) + b1[:inner]
+        g = gemm(xn, dq(q1[inner:], s1[inner:]), prod=mm_q) + b1[inner:]
+        y = gemm(a * torch.nn.functional.gelu(g), dq(q2, s2), prod=mm_q) + b2
+        return x + s * y
+    a = gemm(xn, q1[:inner], **kw) * s1[:inner] + b1[:inner]
+    g = gemm(xn, q1[inner:], **kw) * s1[inner:] + b1[inner:]
+    acc = gemm(a * torch.nn.functional.gelu(g), q2, **kw)
+    y = acc + b2 if fault == "scale_missing" else acc * s2 + b2
+    return x + s * y
+
+
+@pytest.mark.parametrize("k,s,fault", [
+    (320, 1.0, None), (320, 0.37, None), (640, 1.0, None), (80, 0.5, None),
+    (320, 1.0, "tf32_one_pass"), (80, 0.5, "k_tail"),
+    (320, 1.0, "scale_before_dot"), (320, 0.37, "scale_missing"),
+])
+def test_k7_f32_tolerance_separates_rounding_from_faults(k, s, fault):
+    # M = 200: a ragged last row block; K = 80 (K % 16 == 0): a ragged
+    # 32-deep step of 16 in the up GEMM; weights quantized as
+    # quantize_unet_int8 quantizes them
+    m, inner = 200, 4 * k
+    x, lw, lb, w1, b1, w2, b2 = _k4_inputs(m, k, inner)
+    qw1, qw2 = quantize_tensor(w1), quantize_tensor(w2)
+    assert qw1.scale.dtype is F32 and qw1.dtype is F32
+    args = (x, lw, lb, qw1.q, qw1.scale, b1, qw2.q, qw2.scale, b2, s)
+    ref = ffn_ln_geglu_q_plain(*args)
+    got = agreement(tol_id("K7", F32), _k7_f32_emulated(*args, fault=fault), ref)
+    assert got["ok"] == (fault is None), got
+
+
+def test_int8_values_split_exactly_in_tf32():
+    # the ground for mma2: every int8 value is its own TF32 hi, with a zero
+    # lo, so a_hi q + a_lo q is the 3xTF32 product of a and q
+    q = torch.arange(-128, 128, dtype=torch.int8).float()
+    hi = tf32(q)
+    assert torch.equal(hi, q) and torch.equal(tf32(q - hi), torch.zeros_like(q))
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(64, 256, generator=g)
+    qs = torch.randint(-127, 128, (256, 96), generator=g, dtype=torch.int8).float()
+    np.testing.assert_array_equal(mm(a, qs).numpy(), mm_q(a, qs).numpy())
+
+
+def _k8_f32_emulated(kid, x, w, b, r=None, fault=None):
+    """csrc/matmul.cu's f32 K8a (acc + b, then + r) or K8b ((acc_a + ba)
+    gelu(acc_g + bg)) on the tile GEMM."""
+    kw = dict(passes=1 if fault == "tf32_one_pass" else 3,
+              k_tail=fault == "k_tail")
+    if kid == "K8a":
+        y = gemm(x, w, **kw)
+        if b is not None and fault != "bias_dropped":
+            y = y + b
+        return y if r is None else y + r
+    n = w.shape[0] // 2
+    a, g = gemm(x, w[:n], **kw), gemm(x, w[n:], **kw)
+    if b is not None:
+        a, g = a + b[:n], g + b[n:]
+    return a * torch.nn.functional.gelu(g)
+
+
+@pytest.mark.parametrize("kid,k,n,extras,fault", [
+    ("K8a", 1280, 320, "b", None), ("K8a", 1280, 320, "br", None),
+    ("K8a", 72, 96, "", None), ("K8a", 1280, 320, "b", "tf32_one_pass"),
+    ("K8a", 72, 96, "br", "k_tail"), ("K8a", 1280, 320, "br", "bias_dropped"),
+    ("K8b", 320, 1280, "b", None), ("K8b", 72, 96, "", None),
+    ("K8b", 320, 1280, "b", "tf32_one_pass"), ("K8b", 72, 96, "b", "k_tail"),
+])
+def test_k8_f32_tolerance_separates_rounding_from_faults(kid, k, n, extras, fault):
+    # M = 200: a ragged last row block; K = 72: a ragged 32-deep step;
+    # (1280, 320) and (320, 1280) the down and up projections' widths
+    m = 200
+    g = torch.Generator().manual_seed(0)
+    rnd = lambda *shape, scale=1.0: torch.randn(*shape, generator=g) * scale
+    x = rnd(m, k)
+    rows = n if kid == "K8a" else 2 * n
+    w = rnd(rows, k, scale=k ** -0.5)
+    b = rnd(rows, scale=0.1) if "b" in extras else None
+    r = rnd(m, n) if "r" in extras else None
+    ref = linear_plain(x, w, b, r) if kid == "K8a" else geglu_plain(x, w, b)
+    out = _k8_f32_emulated(kid, x, w, b, r, fault)
+    got = agreement(tol_id(kid, F32), out, ref)
+    assert got["ok"] == (fault is None), got
+
+
 def test_f32_rows_bound_the_whole_tensor_under_one_tf32_pass():
     # r no looser than 1e-4; the element-wise bounds are the kernels' own
-    for kid in ("K1", "K4", "K5a", "K5b"):
+    for kid in ("K1", "K4", "K5a", "K5b", "K6", "K7", "K8a", "K8b"):
         assert TOLERANCE[f"{kid}/f32"][2] <= 1e-4
     assert TOLERANCE["K2/f32"][2] <= 1e-4
 
@@ -322,3 +477,96 @@ def test_group_norm_f32_plain_matches_pallas_at_f32_blocks(rng, kind, silu):
     # f32 on both sides, differing in summation order only
     np.testing.assert_allclose(out.numpy(), np.asarray(ref).reshape(n, h * w, c),
                                atol=2e-5)
+
+
+# the f32 plain versions of K6, K7, K8a and K8b against the Pallas kernels
+# with f32 operands, at a shape every one of them takes (m = 1024 rows)
+
+M_PALLAS, INNER_PALLAS = 1024, 256
+
+
+def _rms_close(out, ref, rel=1e-5):
+    """f32 on both sides, in another summation order: max |a - b| within
+    ``rel`` of rms(b)."""
+    ref = np.asarray(ref)
+    rms = float(np.sqrt(np.mean(ref.astype(np.float64) ** 2)))
+    err = float(np.abs(np.asarray(out) - ref).max())
+    assert err <= rel * rms, (err, rms)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("k", [128, 256])
+def test_ffn_geglu_f32_plain_matches_pallas(rng, k):
+    m, inner = M_PALLAS, INNER_PALLAS
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    x, r = f(m, k), f(m, k)
+    wa, wg, w2 = f(k, inner) * k ** -0.5, f(k, inner) * k ** -0.5, f(inner, k) * inner ** -0.5
+    ba, bg, b2 = f(inner) * 0.1, f(inner) * 0.1, f(k) * 0.1
+    ref = ffn_geglu_fused(*(jnp.asarray(a) for a in (x, wa, wg, ba, bg, w2, b2, r)))
+    out = ffn_geglu(_t(x), _t(np.concatenate([wa, wg], 1).T),
+                    _t(np.concatenate([ba, bg])), _t(w2.T), _t(b2), _t(r))
+    assert out.dtype is F32
+    _rms_close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("k,s", [(128, 1.0), (256, 0.37)])
+def test_ffn_int8_f32_plain_matches_pallas(rng, k, s):
+    m, inner = M_PALLAS, INNER_PALLAS
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    x = f(m, k) * 2.0 + 0.5
+    gamma = rng.uniform(0.5, 1.5, k).astype(np.float32)
+    beta = rng.uniform(-0.5, 0.5, k).astype(np.float32)
+    qw1 = quantize_tensor(torch.from_numpy(f(2 * inner, k) * k ** -0.5))
+    qw2 = quantize_tensor(torch.from_numpy(f(k, inner) * inner ** -0.5))
+    b1, b2 = f(2 * inner) * 0.1, f(k) * 0.1
+    q1, s1 = qw1.q.numpy().T, qw1.scale.numpy()     # the JAX (in, out) layout
+    ref = ffn_ln_geglu_scaled_q(
+        jnp.asarray(x), jnp.asarray(q1[:, :inner]), jnp.asarray(q1[:, inner:]),
+        jnp.asarray(s1[:inner]), jnp.asarray(s1[inner:]), jnp.asarray(b1[:inner]),
+        jnp.asarray(b1[inner:]), jnp.asarray(qw2.q.numpy().T),
+        jnp.asarray(qw2.scale.numpy()), jnp.asarray(b2), jnp.asarray(gamma),
+        jnp.asarray(beta), jnp.float32(s))
+    out = ffn_ln_geglu_q(_t(x), _t(gamma), _t(beta), qw1.q, qw1.scale, _t(b1),
+                         qw2.q, qw2.scale, _t(b2), torch.tensor(s))
+    assert out.dtype is F32
+    _rms_close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("bias,residual", [(False, False), (True, False),
+                                           (True, True), (False, True)])
+def test_linear_f32_plain_matches_pallas(rng, bias, residual):
+    m, k, n = M_PALLAS, 256, INNER_PALLAS
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    x, w = f(m, k), f(k, n) * k ** -0.5          # the JAX (in, out) layout
+    b, r = f(n) * 0.1, f(m, n)
+    dummy = jnp.zeros((1, 1), jnp.float32)
+    ref = jmm._mm_call(jnp.asarray(x), jnp.asarray(w),
+                       jnp.asarray(b).reshape(1, -1) if bias else dummy,
+                       jnp.asarray(r) if residual else dummy, interpret=True,
+                       has_bias=bias, has_res=residual)
+    if not residual:   # the public entry, as ops/nn.py calls it
+        want = jmm.linear_fused(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(b) if bias else None)
+        np.testing.assert_array_equal(np.asarray(want), np.asarray(ref))
+    out = linear_fused(_t(x), _t(w.T), _t(b) if bias else None,
+                       _t(r) if residual else None)
+    assert out.dtype is F32
+    _rms_close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("k,bias", [(128, True), (256, False)])
+def test_geglu_f32_plain_matches_pallas(rng, k, bias):
+    m, n = M_PALLAS, INNER_PALLAS
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    x, wa, wg = f(m, k), f(k, n) * k ** -0.5, f(k, n) * k ** -0.5
+    ba, bg = f(n) * 0.1, f(n) * 0.1
+    ref = jmm.geglu_fused(jnp.asarray(x), jnp.asarray(wa), jnp.asarray(wg),
+                          jnp.asarray(ba) if bias else None,
+                          jnp.asarray(bg) if bias else None)
+    out = geglu_fused(_t(x), _t(np.concatenate([wa, wg], 1).T),
+                      _t(np.concatenate([ba, bg])) if bias else None)
+    assert out.dtype is F32
+    _rms_close(out.numpy(), ref)

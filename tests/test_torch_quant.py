@@ -13,8 +13,13 @@
   CPU emulation of the CUDA kernel on gemm_tiles.cuh's mainloop: its
   rounding passes, six planted faults do not.
 * The int8 generation slice at small geometry (``quantize_unet_int8(...,
-  min_size=128)``, every UNet weight int8), the port against the JAX
-  pipeline within tests/parity_setup.py's gates.
+  min_size=128)``, every UNet weight int8, the FF weights among them) of an
+  f32 bundle, the port against the JAX pipeline within
+  tests/parity_setup.py's gates: on the default int8 route and under
+  LLT2I_FFN_INT8=1 (both packages on their kernel routes: the JAX enabler
+  and the port's ``_on_card`` patched; at this geometry no FF site is
+  eligible for K7, so both take their plain paths). The bundle quantizes to
+  int8 values and f32 scales, its dense leaves stay f32.
 """
 import numpy as np
 import jax
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from layoutllm_t2i_tpu.diffusion.samplers import plms_sample as jax_plms
 from layoutllm_t2i_tpu.models import unet as junet
 from layoutllm_t2i_tpu.models.vae import decode as jax_vae_decode
+from layoutllm_t2i_tpu.ops import nn as jnn
 from layoutllm_t2i_tpu.ops import quant as jquant
 from layoutllm_t2i_tpu.ops.pallas.ffn import ffn_ln_geglu_scaled_q
 from layoutllm_t2i_tpu.pipeline.inference import (
@@ -41,6 +47,7 @@ from layoutllm_t2i_torch.checkpoint.from_jax import (
 )
 from layoutllm_t2i_torch.kernels import ffn_ln_geglu_q, ffn_ln_geglu_q_plain
 from layoutllm_t2i_torch.kernels.tolerance import agreement
+from layoutllm_t2i_torch.ops import nn as pnn
 from layoutllm_t2i_torch.ops import quant as pquant
 from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
 from layoutllm_t2i_torch.pipeline.loaders import quantize_unet_int8, random_models
@@ -254,18 +261,35 @@ RELATIONS = [["dog chasing ball"], ["cat on chair"]]
 SAMPLE = dict(steps=4, guidance_scale=7.5, alpha_type=(0.5, 0.0, 0.5))
 
 
-def test_int8_generation_matches_jax():
+@pytest.mark.parametrize("ffn_int8", ["0", "1"])
+def test_int8_generation_matches_jax(monkeypatch, ffn_int8):
+    monkeypatch.setenv("LLT2I_FFN_INT8", ffn_int8)
+    if ffn_int8 == "1":
+        monkeypatch.setattr(jnn, "_pallas_ffn_enabled", lambda: True)
+        monkeypatch.setattr(pnn, "_on_card", lambda x: True)
     jm = jax_random_models(seed=0, small=True)
     jm.unet_params["input_blocks"]["1"]["1"]["transformer_blocks"]["0"][
         "fuser"]["alpha_attn"] = np.asarray(0.6, np.float32)
-    pm = random_models(small=True, device="cpu", seed=1)
+    pm = random_models(small=True, device="cpu", dtype=torch.float32, seed=1)
     for name in ("unet_params", "vae_params", "clip_params"):
         load_from_jax(getattr(pm, name), getattr(jm, name))
     jq = jax_quantize_unet_int8(jm, min_size=128)
     pq = quantize_unet_int8(pm, min_size=128)
-    n_q = sum(pquant.is_quantized(v) for v in _flat_leaves(pq.unet_params).values())
+    leaves = _flat_leaves(pq.unet_params)
+    n_q = sum(pquant.is_quantized(v) for v in leaves.values())
     assert n_q == sum(jquant.is_quantized(v) for v in jax.tree_util.tree_leaves(
         jq.unet_params, is_leaf=jquant.is_quantized)) > 0
+    # an f32 bundle: int8 values, f32 scales and logical type, every FF
+    # weight quantized; the small weights, biases and norms stay f32
+    ff = [v for n, v in leaves.items() if ".ff.net." in n and n.endswith("weight")]
+    assert ff and all(pquant.is_quantized(v) for v in ff)
+    for v in leaves.values():
+        if pquant.is_quantized(v):
+            assert (v.q.dtype, v.scale.dtype, v.dtype) == (
+                torch.int8, torch.float32, torch.float32)
+        else:
+            assert v.dtype is torch.float32
+    assert pq.compute_dtype is torch.float32
 
     jp, pp = JaxPipeline(jq, **SAMPLE), InferencePipeline(pq, **SAMPLE)
     noise = np.random.default_rng(7).standard_normal((2, 8, 8, 4)).astype(np.float32)

@@ -18,7 +18,8 @@
   ``data/rl_data.py`` reads the fixture as the JAX loader does.
 * txt2img's policy features with ``--clip_ckpt`` (a bf16 pipeline) come out
   f32 and equal the JAX CLI's.
-* The opt-in K8a/K8b route refuses f32 operands naming the ROADMAP item.
+* The opt-in K8a/K8b route takes f32 operands to the kernels' f32 entries
+  (``llt2i_linear_f32``, ``llt2i_geglu_f32``), no longer refused.
 """
 import json
 import os
@@ -53,6 +54,7 @@ from layoutllm_t2i_torch.kernels import matmul
 from layoutllm_t2i_torch.models.clip_tokenizer import default_tokenizer as ptok
 from layoutllm_t2i_torch.training import rl_trainer as prl
 from layoutllm_t2i_torch.utils import images as pimages
+from torch_kernel_stub import stub_kernels
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 IN_DIM, EMB = 48, 16
@@ -430,7 +432,18 @@ def test_txt2img_clip_features_are_f32(tmp_path, monkeypatch):
     (matmul.linear_fused, lambda x: (x, torch.zeros(128, 256))),
     (matmul.geglu_fused, lambda x: (x, torch.zeros(256, 256)))])
 def test_f32_gemm_route_names_the_roadmap_item(monkeypatch, fn, args):
-    monkeypatch.setattr(matmul, "use_kernel", lambda x: True)
-    x = torch.zeros(1024, 256)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2, 'f32 operands"):
-        fn(*args(x))
+    """The item this test once named (ROADMAP Queue 2, f32 operands of K8a
+    and K8b) is done: an f32 operand on the kernel route reaches the f32 C
+    entry and counts as an f32 launch."""
+    lib = stub_kernels(monkeypatch)
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "f32_launches", 0)
+    out = fn(*args(torch.zeros(1024, 256)))
+    assert out.dtype is torch.float32
+    name = "llt2i_linear_f32" if fn is matmul.linear_fused else "llt2i_geglu_f32"
+    assert lib.calls == [name]
+    assert fn.launches == fn.f32_launches == 1
+    # a bf16 operand still takes the bf16 entry
+    fn(*(t.bfloat16() for t in args(torch.zeros(1024, 256))))
+    assert lib.calls == [name, name[:-len("_f32")]]
+    assert fn.launches == 2 and fn.f32_launches == 1

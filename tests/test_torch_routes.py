@@ -17,7 +17,16 @@ CPU.
   the TPU, and the port's ``_on_card`` to take the kernel routes for CPU
   tensors; a spy on each side records the kernel entries reached. Both
   sides reach the same entries in the same order, the attention
-  projections never reach K8a, and the outputs agree to 1e-4 (f32).
+  projections never reach K8a, and the outputs agree to 1e-4 (f32). The
+  cases marked "f32 entries" (the split routes, and LLT2I_FFN_INT8=1 on
+  an f32 int8 bundle) then run the port's block again with the FF and GEMM
+  wrappers on their kernel path (``torch_kernel_stub``): every call reaches
+  the f32 C entry of its kernel, in the JAX package's order.
+* K8a and the CLIP towers: under LLT2I_PALLAS_MATMUL=1 the reward's text
+  and vision towers (full width, one layer) at B = 4 and B = 8 route no
+  linear to K8a, as ``_eligible`` (the JAX package's, copied) says of B *
+  77 and B * 257 rows; the copy agrees with the JAX one on every (m, k, n)
+  of the reward's and of a batch-8 training step's linears.
 """
 import os
 
@@ -39,6 +48,7 @@ from layoutllm_t2i_torch.models import blocks as pblocks
 from layoutllm_t2i_torch.ops import nn as pnn
 from layoutllm_t2i_torch.ops.quant import quantize_params
 from layoutllm_t2i_torch.utils.trees import unflatten_tree
+from torch_kernel_stub import F32_ENTRY, stub_kernels
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 2e-5
@@ -243,12 +253,20 @@ def _block_inputs(rng, h, w):
     return params, acts
 
 
+# a case that also runs the port's block on the stubbed kernel path
+ENTRIES = " f32 entries"
+
+
 @pytest.mark.parametrize("h,w,combo", [
     *((16, 32, name) for name in COMBOS),
     (16, 16, "ffn_ln0+matmul"), (16, 16, "int8+ffn_int8"),
+    *((16, 32, name + ENTRIES) for name in ("ffn_ln0", "ffn_ln0+matmul",
+                                            "no_fused_ffn+matmul",
+                                            "int8+ffn_int8")),
 ])
 def test_block_routes_match_jax(rng, spies, monkeypatch, h, w, combo):
-    switches, int8, kernels = COMBOS[combo]
+    entries = combo.endswith(ENTRIES)
+    switches, int8, kernels = COMBOS[combo.removesuffix(ENTRIES)]
     for name in SWITCHES:
         monkeypatch.delenv(name, raising=False)
     for name, value in switches.items():
@@ -272,3 +290,81 @@ def test_block_routes_match_jax(rng, spies, monkeypatch, h, w, combo):
     # K8a only ever takes the FF down-projection (inner = 4 * C columns in):
     # the attention projections are plain matmuls on both sides
     assert all(c[2] == 4 * C for c in port_calls if c[0] == "K8a")
+    if entries:
+        # f32 activations (and, int8, f32 scales and dense leaves): each
+        # wrapper reaches its kernel's f32 entry
+        assert out.dtype is torch.float32
+        lib = stub_kernels(monkeypatch)
+        pblocks.basic_transformer_block(
+            pparams, *(_t(a[n]) for n in names), h, w, HEADS, fuser_scale=0.8)
+        assert lib.calls == [F32_ENTRY[kid] for kid in kernels] != []
+
+
+# ---------------------------------------------------------------------------
+# K8a and the reward's f32 CLIP towers
+
+
+@pytest.mark.parametrize("b", [4, 8])
+def test_reward_towers_route_no_linear_to_k8a(monkeypatch, b):
+    """B * 77 (text) and B * 257 (vision) rows: above 512, _pick_block(m,
+    512) >= 256 asks 256 to divide m, which only B a multiple of 256 meets;
+    so under LLT2I_PALLAS_MATMUL=1 no linear of the towers takes K8a."""
+    from layoutllm_t2i_torch.kernels import matmul as pmm
+    from layoutllm_t2i_torch.models import clip_text, clip_vision
+    from layoutllm_t2i_torch.models import initializers as init
+
+    monkeypatch.setenv("LLT2I_PALLAS_MATMUL", "1")
+    monkeypatch.setattr(pnn, "_on_card", lambda x: True)
+    asked, routed = [], []
+    monkeypatch.setattr(pnn, "_eligible", lambda m, k, n: asked.append(
+        (m, k, n)) or pmm._eligible(m, k, n))
+    monkeypatch.setattr(pnn, "linear_fused", lambda *a: routed.append(a))
+    ini = init.Init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    tcfg = clip_text.CLIPTextConfig(num_layers=1)
+    tparams = clip_text.init_clip_text_params(ini, tcfg)
+    tparams["text_projection"] = init.linear_p(ini, tcfg.hidden_size, 768,
+                                               bias=False)
+    vcfg = clip_vision.CLIPVisionConfig(num_layers=1)
+    vparams = clip_vision.init_clip_vision_params(ini, vcfg)
+    ids = torch.randint(0, tcfg.vocab_size, (b, tcfg.max_length),
+                        generator=torch.Generator().manual_seed(1))
+    pixels = torch.randn(b, vcfg.image_size, vcfg.image_size, 3,
+                         generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        t = clip_text.clip_text_features(tparams, tcfg, ids)
+        v = clip_vision.clip_image_features(vparams, vcfg, pixels)
+    assert t.shape == v.shape == (b, 768) and t.dtype is v.dtype is torch.float32
+    assert {m for m, _, _ in asked} == {b * 77, b * 257, b}
+    assert routed == []
+    assert all(not jmm._eligible(*mkn) for mkn in asked)
+
+
+def test_eligible_matches_jax_on_reward_and_training_linears():
+    """The copy of _eligible against the JAX one on every (m, k, n) of the
+    reward's towers (B = 1..600) and of a batch-8 training step's linears
+    (rows at the UNet's levels, with and without the 30 grounding tokens,
+    and the text and time rows; every width the step's linears take)."""
+    from layoutllm_t2i_torch.kernels.matmul import _eligible
+
+    reward_rows = [b * n for b in range(1, 601) for n in (1, 77, 257)]
+    reward_widths = [(768, 768), (768, 3072), (3072, 768), (1024, 1024),
+                     (1024, 4096), (4096, 1024), (1024, 768)]
+    unet_rows = [8 * n for hw in (4096, 1024, 256, 64)
+                 for n in (hw, hw + 30)] + [8, 8 * 30, 8 * 10, 8 * 77]
+    widths = (320, 640, 768, 1280, 1024, 2560, 5120, 10240)
+    unet_widths = [(k, n) for k in widths for n in widths]
+    eligible = set()
+    for rows, pairs in ((reward_rows, reward_widths), (unet_rows, unet_widths)):
+        for m in rows:
+            for k, n in pairs:
+                got = _eligible(m, k, n)
+                assert got == jmm._eligible(m, k, n), (m, k, n)
+                if got:
+                    eligible.add((m, k, n))
+    # the reward's rows qualify at B = 256 and 512 only; the FF sites of
+    # the 64^2, 32^2 and 16^2 levels at batch 8 do
+    assert {m for m, _, _ in eligible if m in reward_rows and m not in
+            unet_rows} == {256 * 77, 512 * 77, 256 * 257, 512 * 257}
+    assert {(8 * 4096, 320, 1280), (8 * 1024, 640, 2560),
+            (8 * 256, 1280, 5120), (8 * 4096, 1280, 320)} <= eligible
+    assert not any(m in (8 * 4126, 8 * 1054, 8 * 64) for m, _, _ in eligible)

@@ -107,19 +107,19 @@ def recorded(monkeypatch):
         return ff(x, lw, lb, w1, b1, w2, b2, s)
 
     def ffn_res(x, w1, b1, w2, b2, r):
-        calls.append(("K6", tuple(x.shape)))
+        calls.add("K6", tuple(x.shape), x)
         return ff_res(x, w1, b1, w2, b2, r)
 
     def ffn_q(x, lw, lb, q1, s1, b1, q2, s2, b2, s):
-        calls.append(("K7", (*x.shape, label(s))))
+        calls.add("K7", (*x.shape, label(s)), x)
         return ff_q(x, lw, lb, q1, s1, b1, q2, s2, b2, s)
 
     def linear(x, w, b=None, r=None):
-        calls.append(("K8a", (*x.shape, w.shape[0])))
+        calls.add("K8a", (*x.shape, w.shape[0]), x)
         return mm(x, w, b, r)
 
     def geglu_proj(x, w, b=None):
-        calls.append(("K8b", (*x.shape, w.shape[0] // 2)))
+        calls.add("K8b", (*x.shape, w.shape[0] // 2), x)
         return geglu(x, w, b)
 
     def flash(q, k, v, heads, scale):
@@ -303,11 +303,11 @@ def test_unet_walk_models_the_gated_and_encoder_skips(recorded):
                     assert recorded == want, (cfg_on, gated, encoder)
 
 
-def _training_step(tmp_path, **kw):
+def _training_step(tmp_path, models=None, **kw):
     cfg = TrainerConfig(output_root=str(tmp_path), name="t", batch_size=2,
                         total_iters=1, warmup_steps=0, max_boxes=30,
                         max_relations=10, **kw)
-    trainer = DiffusionTrainer(cfg, iter(()), models=_models())
+    trainer = DiffusionTrainer(cfg, iter(()), models=models or _models())
     batch = next(synthetic_layout_batches(2, 64, 30))
     trainer.train_step(trainer.prepare_batch(batch), trainer.generator)
     trainer.close()
@@ -494,3 +494,75 @@ def test_gemm_tiles_sweep_patches_the_sources(tmp_path):
     assert "using UpCfg = gemm_tiles::Cfg<64, 2>;" in (tmp_path / "v" / "ffn.cu").read_text()
     tiles = (tmp_path / "v" / "gemm_tiles.cuh").read_text()
     assert "int narrow) {\n  return true;\n" in tiles
+
+
+# the f32 phases' walks (generate-f32, int8-f32, routes-f32) on the
+# 128-channel model, whose 32^2 feed-forward sites are eligible
+
+
+@pytest.mark.parametrize("route", ["default", "int8", "split"])
+def test_f32_unet_walk_matches_the_calls_on_each_route(recorded, route):
+    """An f32 UNet forward: every call an f32 case, K7's site asked with
+    the f32 item size, as ops/nn.py asks it."""
+    r, ff_kernels = ROUTES[route]
+    recorded.mark_f32 = True
+    models = _models(channels=128, channel_mult=(1, 1))
+    params = models.unet_params
+    if r.int8:
+        params = quantize_params(params, min_size=128)
+    cfg, b = models.unet_cfg, 1
+    g = torch.Generator().manual_seed(1)
+    boxes = torch.zeros(b, 30, 4)
+    boxes[:, 0] = torch.tensor([0.1, 0.2, 0.5, 0.9])
+    masks = torch.zeros(b, 30)
+    masks[:, 0] = 1
+    with cs.route_env(r), torch.no_grad():
+        unet_apply(params, cfg, torch.randn(b, 4, 32, 32, generator=g),
+                   torch.tensor([900]),
+                   torch.randn(b, TOK_LEN, 32, generator=g), boxes, masks,
+                   torch.randn(b, 30, 32, generator=g),
+                   torch.randn(b, 5, 32, generator=g), fuser_scale=0.5)
+    want = cs.f32_calls(cs.unet_calls(cfg, b, 30, 5, TOK_LEN, route=r, itemsize=4))
+    assert {kid for kid, _ in want} - {"K1", "K2", "K3"} == ff_kernels
+    assert collections.Counter(recorded) == collections.Counter(want)
+
+
+@pytest.mark.parametrize("route", ["default", "int8"])
+def test_f32_generation_walk_counts_every_launch(recorded, route):
+    """Phases generate-f32 and int8-f32 hold each f32 form's launches to
+    the walk's count: every call of the generation, as many times as it is
+    made (distinct=False, every UNet evaluation of the step tables)."""
+    r, _ = ROUTES[route]
+    recorded.mark_f32 = True
+    models = _models(channels=128, channel_mult=(1, 1))
+    if r.int8:
+        models.unet_params = quantize_params(models.unet_params, min_size=128)
+    pipe = InferencePipeline(models, steps=3, alpha_type=(0.3, 0.0, 0.7),
+                             vae_chunk=cs.VAE_CHUNK)
+    with cs.route_env(r), torch.no_grad():
+        pipe.generate(*cs.REQUESTS, seed=0)
+    want = cs.generation_calls(models.unet_cfg, models.vae_cfg, models.clip_cfg,
+                               TOK_LEN, cs.REQUESTS, cs.VAE_CHUNK, route=r,
+                               evals=cs.unet_evaluations(pipe, 2), f32=True,
+                               distinct=False)
+    assert collections.Counter(recorded) == collections.Counter(want)
+    counts = cs.launches_of(want)
+    assert all(kid.endswith("/f32") for kid in counts)
+    assert counts.get("K7/f32", 0) > 0 if r.int8 else counts["K4/f32"] > 0
+
+
+def test_split_route_f32_training_walk_matches_the_calls(recorded, tmp_path):
+    """Phase routes-f32's training step: f32 throughout, the norm3 sites
+    through K3 and K6, the fusers' dense branch through K3, K8b and K8a;
+    each call as many times as the walk gives it."""
+    recorded.mark_f32 = True
+    models = _models(channels=128, channel_mult=(1, 1))
+    with cs.route_env(cs.SPLIT):
+        trainer, batch = _training_step(tmp_path, models=models)
+    want = cs.training_calls(trainer.models.unet_cfg, trainer.models.vae_cfg,
+                             trainer.models.clip_cfg, TOK_LEN, batch, 30, 10,
+                             f32=True, route=cs.SPLIT)
+    assert collections.Counter(recorded) == collections.Counter(want)
+    counts = cs.launches_of(want)
+    assert {"K6/f32", "K8a/f32", "K8b/f32", "K5a/f32"} <= set(counts)
+    assert "K4/f32" not in counts

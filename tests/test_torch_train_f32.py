@@ -13,7 +13,13 @@ trainer on the CPU at small geometry; and the trainer's encoders in f32.
   gradients to 1e-4 of the largest (the gate of
   ``tests/test_torch_train.py``), and the AdamW update the trainer makes
   from its gradients against optax's from the same gradients, as
-  ``test_three_updates_match_optax`` compares them.
+  ``test_three_updates_match_optax`` compares them; on the default FF
+  routes and again on the split ones (``LLT2I_FFN_LN=0
+  LLT2I_PALLAS_MATMUL=1``, K6, K8b and K8a where a site is eligible), both
+  packages on their kernel routes (the JAX enablers and the port's
+  ``_on_card`` patched). At this geometry no FF site is eligible, so both
+  sides take their plain paths; ``tests/test_torch_routes.py`` shows which
+  sites reach the kernels.
 * The CLI without ``--mixed_precision`` (f32) and with it: both export f32
   VAE and CLIP weights in the reference ``.pth``.
 
@@ -33,6 +39,7 @@ import torch
 from layoutllm_t2i_tpu.diffusion import ddpm as jddpm
 from layoutllm_t2i_tpu.models import unet as junet
 from layoutllm_t2i_tpu.models.clip_tokenizer import HashTokenizer as JaxHashTokenizer
+from layoutllm_t2i_tpu.ops import nn as jnn
 from layoutllm_t2i_tpu.training import diffusion_trainer as jdt
 from layoutllm_t2i_tpu.training import train_step as jts
 
@@ -134,8 +141,22 @@ def _jax_loss_and_grads(jtr, jb, t, noise, keep):
     return float(value), grads, train
 
 
+# the FF routes of the iteration: the switches ops/nn.py reads
+ROUTES = {"default": {},
+          "split": {"LLT2I_FFN_LN": "0", "LLT2I_PALLAS_MATMUL": "1"}}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
 def test_f32_trainer_iteration_matches_the_jax_trainer(tmp_path, posterior_mean,
-                                                       monkeypatch):
+                                                       monkeypatch, route):
+    for name in ("LLT2I_FFN_LN", "LLT2I_PALLAS_MATMUL", "LLT2I_PALLAS_FFN"):
+        monkeypatch.delenv(name, raising=False)
+    if ROUTES[route]:
+        for name, value in ROUTES[route].items():
+            monkeypatch.setenv(name, value)
+        monkeypatch.setattr(jnn, "_pallas_matmul_enabled", lambda: True)
+        monkeypatch.setattr(jnn, "_pallas_ffn_enabled", lambda: True)
+        monkeypatch.setattr(pnn, "_on_card", lambda x: True)
     jtr, ptr = _trainers(tmp_path, _models())
     assert not jtr.config.mixed_precision and not ptr.config.mixed_precision
     assert ptr.step_cfg.compute_dtype is torch.float32
