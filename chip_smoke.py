@@ -7,15 +7,17 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   1. build     nvcc-builds the five kernel libraries from csrc/ (sm_90a),
                prints build seconds, ptxas lines and the card's name and
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
-               in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel
+               in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel and
+               in the TF32 wgmma kernels of K1/f32 at d 512 and K8a/f32
                (WGMMA_KERNELS; K4's and K7's LN pre-passes do no product)
-               and HMMA (mma.sync, TF32) in every product kernel of the
-               f32 forms of K1, K5a, K5b, K4, K6, K7, K8a and K8b
-               (MMA_F32_KERNELS; K6/f32 runs K4/f32's), or if
-               ptxas reports a spill in a K7 kernel or any nvcc log holds
-               C7515 (wgmma serialised); prints the registers and spills
-               of every wgmma and f32 product kernel and of K2's three
-               kernels (GN_KERNELS).
+               and HMMA (mma.sync, TF32) in every mma.sync product kernel
+               of the f32 forms of K1 (d 40, 80), K5a, K5b, K4, K6, K7 and
+               K8b (MMA_F32_KERNELS; K6/f32 runs K4/f32's), or if
+               ptxas reports a spill in a K7 kernel or a TF32 wgmma kernel
+               (NO_SPILL_KERNELS) or any nvcc log holds C7515 (wgmma
+               serialised); prints the registers and spills of every wgmma
+               and f32 product kernel and of K2's three kernels
+               (GN_KERNELS).
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
@@ -23,9 +25,10 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                in bf16 (K7 on int8 weights) and, for every kernel (K1 with
                and without its lse), in f32: rows labelled "f32" and
                kernel "K1/f32" etc., held to the f32 rows of
-               kernels/tolerance.py, with `arith` (3xTF32 mma.sync; K7
-               two TF32 products against its int8 weights; f32 without
-               products for K2 and K3), bound at 4-byte elements (K7's
+               kernels/tolerance.py, with `arith` (3xTF32 mma.sync; K8a
+               and K1's S at d 512 3xTF32 wgmma; K7 two TF32 products
+               against its int8 weights; f32 without products for K2 and
+               K3), bound at 4-byte elements (K7's
                weights 1, its scales 4) and the TF32 peak (495 TFLOP/s;
                K2, K3: the f32 peak), library calls in f32 with
                allow_tf32 off; at every distinct shape that phases 4-11,
@@ -195,8 +198,10 @@ the same eligibility tests (ff_site_calls). tests/test_torch_smoke_shapes.py
 holds the walk against the calls that a small model makes on the CPU.
 
 With `--profile OUT.json`, one more generation runs under torch.profiler
-after phase 4 and prints device time by kernel group and the device's idle
-share; OUT.json gets the per-kernel table. One more generation is profiled
+after phase 4 and prints device time by kernel group (each group's kernels'
+summed times) and the device's busy time, the union of the trace's kernel,
+copy and set intervals, so that activities that overlap count once, with
+its idle share of the wall; OUT.json gets the per-kernel table. One more generation is profiled
 likewise after phases 5, 7 and 8 (OUT_fast.json, OUT_int8.json,
 OUT_routes.json), one more exact generation of the bench's 8 requests
 after phase 9 (OUT_bench.json), and one more training step after phases
@@ -260,15 +265,18 @@ TRAIN_GRAD_CAUGHT = ("dk_unscaled",)
 TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 
 # library -> its kernels written on csrc/hopper.cuh's wgmma: K1, K5a, K5b;
-# K4's, K6's and K7's up and down GEMMs, K8a and K8b on csrc/gemm_tiles.cuh.
-# Each must show HGMMA in its SASS, in every instantiation.
+# K4's, K6's and K7's up and down GEMMs, K8a and K8b on csrc/gemm_tiles.cuh;
+# the f32 forms' TF32 wgmma kernels, K1/f32 at d 512 (its S) and K8a/f32
+# (csrc/tf32_gemm.cuh). Each must show HGMMA in its SASS, in every
+# instantiation.
 WGMMA_KERNELS = {
     "flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                        "flash_bwd_dkv_kernel"),
+                        "flash_bwd_dkv_kernel", "flash_fwd_f32_wgmma_kernel"),
     "ffn": ("ffn_up_wgmma_kernel", "ffn_down_wgmma_kernel",
             "ffn_res_up_wgmma_kernel", "ffn_res_down_wgmma_kernel",
             "ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel"),
-    "matmul": ("linear_wgmma_kernel", "geglu_wgmma_kernel"),
+    "matmul": ("linear_wgmma_kernel", "geglu_wgmma_kernel",
+               "linear_f32_wgmma_kernel"),
 }
 # the kernels whose rows are held against their library call (vs_library)
 WGMMA_KIDS = ("K1", "K5a", "K5b", "K4", "K6", "K7", "K8a", "K8b")
@@ -276,8 +284,10 @@ WGMMA_KIDS = ("K1", "K5a", "K5b", "K4", "K6", "K7", "K8a", "K8b")
 # phase build prints their registers and spills
 GN_KERNELS = ("gn_cluster_kernel", "gn_stats_kernel", "gn_apply_kernel")
 VS_LIBRARY_KIDS = WGMMA_KIDS + ("K2",)
-# K7's kernels, which must compile without a spill (ptxas)
-NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel")
+# K7's kernels and the TF32 wgmma kernels, which must compile without a
+# spill (ptxas)
+NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
+                    "flash_fwd_f32_wgmma_kernel", "linear_f32_wgmma_kernel")
 # library -> the f32 forms' kernels on mma.sync (3xTF32, csrc/f32_tiles.cuh):
 # each must show HMMA (the TF32 tensor-core instruction) in its SASS
 MMA_F32_KERNELS = {
@@ -285,7 +295,7 @@ MMA_F32_KERNELS = {
                         "flash_bwd_dkv_f32_kernel"),
     "ffn": ("ffn_up_f32_kernel", "ffn_down_f32_kernel", "ffn_q_up_f32_kernel",
             "ffn_q_down_f32_kernel"),
-    "matmul": ("linear_f32_kernel", "geglu_f32_kernel"),
+    "matmul": ("geglu_f32_kernel",),
 }
 
 KERNEL_META = {
@@ -312,13 +322,15 @@ KERNEL_META = {
 }
 # every kernel's f32 form, an entry of its own: the same Pallas kernel
 # (which takes any float type) and source, f32 instantiations (K1, K4, K5a,
-# K5b, K6, K8a, K8b: 3xTF32 on mma.sync; K7: two TF32 products against int8
-# weights, which TF32 holds exactly; K2, K3: f32 tiles, no products)
+# K5b, K6, K8b: 3xTF32 on mma.sync; K8a and K1 at d 512: 3xTF32 on wgmma;
+# K7: two TF32 products against int8 weights, which TF32 holds exactly; K2,
+# K3: f32 tiles, no products)
 KERNEL_META.update({f"{kid}/f32": meta for kid, meta in list(KERNEL_META.items())})
 # the arithmetic of each f32 form's products, for its rows
-F32_ARITH = {"K1": "3xTF32 mma.sync", "K4": "3xTF32 mma.sync",
+F32_ARITH = {"K1": "3xTF32 mma.sync (d 40, 80); 3xTF32 wgmma (d 512)",
+             "K4": "3xTF32 mma.sync",
              "K5a": "3xTF32 mma.sync", "K5b": "3xTF32 mma.sync",
-             "K6": "3xTF32 mma.sync", "K8a": "3xTF32 mma.sync",
+             "K6": "3xTF32 mma.sync", "K8a": "3xTF32 wgmma",
              "K8b": "3xTF32 mma.sync",
              "K7": "2xTF32 mma.sync (int8 weights exact in TF32)",
              "K2": "f32, no products", "K3": "f32, no products"}
@@ -2543,7 +2555,8 @@ def phase_train(work_dir: str, mixed_precision: bool = True,
 # K6/f32 runs K4/f32's up and down kernels and K7/f32 K4/f32's LN pre-pass,
 # so their time counts under K4/f32; K6/f32's group names them all the same
 PROFILE_GROUPS = (
-    ("K1/f32 flash_attention", ("flash_fwd_f32_kernel",)),
+    ("K1/f32 flash_attention", ("flash_fwd_f32_kernel",
+                                "flash_fwd_f32_wgmma_kernel")),
     ("K5a/f32 flash_attention_bwd_dq", ("flash_bwd_dq_f32_kernel",)),
     ("K5b/f32 flash_attention_bwd_dkv", ("flash_bwd_dkv_f32_kernel",)),
     ("K2/f32 group_norm", tuple(f"{k}<float>" for k in GN_KERNELS)),
@@ -2552,7 +2565,7 @@ PROFILE_GROUPS = (
     ("K4/f32 ffn_ln_geglu (+ K6/f32, K7/f32's LN)",
      ("ffn_norm_rows_f32_kernel", "ffn_up_f32_kernel", "ffn_down_f32_kernel")),
     ("K6/f32 ffn_geglu", ("ffn_up_f32_kernel", "ffn_down_f32_kernel")),
-    ("K8a/f32 linear_fused", ("linear_f32_kernel",)),
+    ("K8a/f32 linear_fused", ("linear_f32_wgmma_kernel",)),
     ("K8b/f32 geglu_fused", ("geglu_f32_kernel",)),
     ("K1 flash_attention", ("flash_fwd_kernel",)),
     ("K5a flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
@@ -2588,10 +2601,14 @@ def profile_train_step(trainer, data, name: str, profile: str) -> None:
 def profile_device(run, label: str, out_path: str, **extra) -> None:
     """``run()`` once under torch.profiler, tracing the device only (each
     kernel counted once, and little host overhead): device time by kernel
-    group and the device's idle share of the wall time; the full
-    per-kernel table goes to ``out_path``."""
+    group (the summed times of each group's kernels, from key_averages),
+    the device's busy time (utils/profiling.py union_ms: the union of the
+    trace's activity intervals, so activities that overlap count once) and
+    its idle share of the wall time; the full per-kernel table goes to ``out_path``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from layoutllm_t2i_torch.utils.profiling import traced_intervals, union_ms
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2599,6 +2616,9 @@ def profile_device(run, label: str, out_path: str, **extra) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    trace_path = os.path.splitext(out_path)[0] + "_trace.json"
+    intervals = traced_intervals(prof, trace_path)
+    os.remove(trace_path)
     rows = []
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CPU:
@@ -2614,10 +2634,13 @@ def profile_device(run, label: str, out_path: str, **extra) -> None:
         name = next((g for g, keys in PROFILE_GROUPS
                      if any(k in low for k in keys)), "other")
         groups[name] += r["device_ms"]
-    busy = sum(groups.values())
+    busy = union_ms(intervals)
     summary = {"phase": label, **extra, "wall_ms": wall * 1e3,
                "device_busy_ms": busy,
                "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
+               "device_group_sum_ms": sum(groups.values()),
+               "device_trace_sum_ms": sum(b - a for a, b in intervals) / 1e3,
+               "device_activities": len(intervals),
                "device_ms_by_group": groups}
     with open(out_path, "w") as f:
         json.dump({**summary, "kernels": rows}, f, indent=1)

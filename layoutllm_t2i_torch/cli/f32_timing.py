@@ -1,0 +1,92 @@
+"""Time the f32 forms of K1 and K8a of one checkout on the card, for an A/B
+of two commits.
+
+Run from the root of a checkout, naming this file by its path:
+  python3 <other checkout>/layoutllm_t2i_torch/cli/f32_timing.py [--reps R]
+It times the checkout in the working directory (its port and its
+chip_smoke.py), not the one that holds this file, so one call to the card
+can run it in turns from the roots of two checkouts (parent, change,
+change, parent) and compare them on the same card. It prints one JSON
+line: the card's name and power limit, and for each main-path shape of
+K1/f32 (the f32 generation's, d 40, 80 and 512, and the f32 trainings',
+with and without the lse) and of K8a/f32 (the split routes' f32
+training): the kernel's device ms a call and the wrapper's host us
+(chip_smoke.device_time, the best of R runs), the library call's device
+ms (SDPA or F.linear in f32 with allow_tf32 off, as phase `kernels` times
+it), the roofline bound at the TF32 peak, and the kernel's agreement with
+its plain version under the f32 tolerance rows.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+# (B, N, M, H, d[, "lse"]): K1/f32's cases in chip_smoke's phase `kernels`
+K1_F32 = ((4, 4096, 4096, 8, 40), (4, 4126, 4126, 8, 40),
+          (4, 1024, 1024, 8, 80), (4, 1054, 1054, 8, 80),
+          (2, 4096, 4096, 1, 512), (8, 4096, 4096, 1, 512),
+          (8, 4096, 4096, 8, 40), (8, 4126, 4126, 8, 40),
+          (8, 4096, 4096, 8, 40, "lse"), (8, 4126, 4126, 8, 40, "lse"),
+          (8, 1024, 1024, 8, 80, "lse"), (8, 1054, 1054, 8, 80, "lse"))
+# (M, K, N): K8a/f32's, the fuser FF down-projections at batch 8
+K8A_F32 = ((32768, 1280, 320), (8192, 2560, 640), (2048, 5120, 1280))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=3,
+                    help="device timings a shape (the best is kept)")
+    ap.add_argument("--only", choices=("K1", "K8a"), default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("f32_timing: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from layoutllm_t2i_torch.kernels.tolerance import agreement, tol_id
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = [("K1", a + ("f32",)) for a in K1_F32 if args.only in (None, "K1")]
+    cases += [("K8a", a + ("f32",)) for a in K8A_F32 if args.only in (None, "K8a")]
+    rows = []
+    for kid, case in cases:
+        kern, plain, lib, flops, nbytes = cs.make_case(kid, case, dev, gen)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        tid = ((tol_id("K1", torch.float32), tol_id("lse", torch.float32))
+               if cs.has_lse(case) else tol_id(kid, torch.float32))
+        agree = agreement(tid, out, ref)
+        del out, ref
+        timed = [cs.device_time(kern) for _ in range(args.reps)]
+        lib_ms = min(cs.library_ms(lib, cs.device_ms) for _ in range(args.reps))
+        b_ms, b_by = cs.bound(flops, nbytes, cs.flops_peak(kid, case))
+        dev_ms = min(t[0] for t in timed)
+        rows.append({"kernel": f"{kid}/f32", "shape": cs.case_label(kid, case),
+                     "device_ms": dev_ms, "host_us": min(t[1] for t in timed),
+                     "library_device_ms": lib_ms, "device_vs_library": dev_ms / lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "ok": agree["ok"],
+                     "rms_rel_err": agree["rms_rel_err"],
+                     "max_rel_err": agree["max_rel_err"]})
+        del kern, plain, lib
+        torch.cuda.empty_cache()
+    sums = {}
+    for r in rows:
+        s = sums.setdefault(r["kernel"], {"device_ms": 0.0, "library_device_ms": 0.0,
+                                          "bound_ms": 0.0})
+        for key in s:
+            s[key] += r[key]
+    print(json.dumps({"tree": os.getcwd(), "card": cs.nvidia_smi_line(),
+                      "rows": rows, "sums": sums}), flush=True)
+    return 0 if all(r["ok"] for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

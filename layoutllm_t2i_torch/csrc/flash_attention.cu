@@ -64,6 +64,7 @@
 #include "common.cuh"
 #include "f32_tiles.cuh"
 #include "hopper.cuh"
+#include "tf32_gemm.cuh"
 
 namespace {
 
@@ -281,18 +282,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
 // A (d, H, rows, B) map of a packed (B, rows, H*d) bf16 operand with row
 // stride rs and batch stride bs (elements); boxes of 64 columns of one head
-// by box_rows rows, 128-byte swizzle, zeros outside.
+// by box_rows rows, 128-byte swizzle, zeros outside. With f32, of an f32
+// operand, boxes of 32 columns (the same 128 bytes).
 int tensor_map(CUtensorMap* map, const void* base, int D, int H, int rows,
-               int B, long long rs, long long bs, int box_rows) {
+               int B, long long rs, long long bs, int box_rows,
+               bool f32 = false) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t item = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)rows,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)rs * 2,
-                                 (cuuint64_t)bs * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * item, (cuuint64_t)rs * item,
+                                 (cuuint64_t)bs * item};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  CUresult r = encode(map,
+                      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                       const_cast<void*>(base), dims, strides, box, step,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -866,30 +872,27 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 //    N or M load as zeros, so no other row or head is read;
 //  * the online softmax (K1) and P = exp2(S c - lse log2 e) (K5) run on
 //    the score fragments in registers, masked past M (or N in K5b), and the
-//    score fragment is the A fragment of the next product (f32_tiles.cuh);
-//  * d = 512 (the VAE's head, K1 only): four warps share 16 rows, each owns
-//    128 output columns and computes the 16 x 16 score tile itself.
+//    score fragment is the A fragment of the next product (f32_tiles.cuh).
+// K1 at d = 512 (the VAE's head) has a kernel of its own on wgmma and TMA,
+// flash_fwd_f32_wgmma_kernel, below.
 
 namespace {
 
-// kD: the head dim; kCG: warps sharing 16 q rows (each owns kD / kCG output
-// columns); kBK: K/V rows a stage; kMinBlocks: blocks an SM (registers)
-template <int kD_, int kCG_, int kBK_, int kMinBlocks_>
+// kD: the head dim (each warp owns 16 q rows and all kD output columns);
+// kBK: K/V rows a stage; kMinBlocks: blocks an SM (registers)
+template <int kD_, int kBK_, int kMinBlocks_>
 struct FwdF32Cfg {
-  static constexpr int kD = kD_, kCG = kCG_, kBK = kBK_,
-                       kMinBlocks = kMinBlocks_;
+  static constexpr int kD = kD_, kBK = kBK_, kMinBlocks = kMinBlocks_;
   static constexpr int kThreads = 256;
-  static constexpr int kBQ = 16 * (8 / kCG);
+  static constexpr int kBQ = 128;
   static constexpr int kLd = kD + 4;
-  static constexpr int kON = kD / kCG;
   // Q, then two stages of K and V
   static constexpr size_t kSmemBytes = 4ull * kLd * (kBQ + 4 * kBK);
-  static_assert(kD % 8 == 0 && kON % 8 == 0 && kBK % 8 == 0, "mma tiles");
+  static_assert(kD % 8 == 0 && kBK % 8 == 0, "mma tiles");
 };
 
-using Fwd40F = FwdF32Cfg<40, 1, 64, 2>;    // 64^2 sites: 67.6 KB
-using Fwd80F = FwdF32Cfg<80, 1, 32, 2>;    // 32^2 sites: 86 KB
-using Fwd512F = FwdF32Cfg<512, 4, 16, 1>;  // the VAE's head: 198 KB
+using Fwd40F = FwdF32Cfg<40, 64, 2>;    // 64^2 sites: 67.6 KB
+using Fwd80F = FwdF32Cfg<80, 32, 2>;    // 32^2 sites: 86 KB
 
 template <class C>
 __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
@@ -900,7 +903,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      long long k_rs, long long v_bs, long long v_rs,
                      long long o_bs, long long o_rs, float scale, float c) {
   using namespace f32_tiles;
-  constexpr int D = C::kD, BK = C::kBK, LD = C::kLd, ON = C::kON;
+  constexpr int D = C::kD, BK = C::kBK, LD = C::kLd;
   extern __shared__ __align__(16) float smem_f[];
   float* sQ = smem_f;
   float* sKV = sQ + C::kBQ * LD;  // stage s: K at + 2 s BK LD, V after it
@@ -917,11 +920,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_tile<BK, D, C::kThreads>(sKV + BK * LD, LD, vg, v_rs, 0, M, D);
   cp_commit();
 
-  const int r0 = 16 * (warp / C::kCG);  // the warp's rows of the q tile
-  const int c0 = ON * (warp % C::kCG);  // and its output columns
-  float acc[ON / 8][4];
+  const int r0 = 16 * warp;  // the warp's rows of the q tile
+  float acc[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < ON / 8; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   // running max of the raw scores and per-thread partial row sums of the
@@ -998,7 +1000,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
 #pragma unroll
-    for (int n = 0; n < ON / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
 
@@ -1007,9 +1009,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < BK / 8; ++j) {
       const SplitA pa = c_as_a(sc[j]);
 #pragma unroll
-      for (int n = 0; n < ON / 8; ++n) {
+      for (int n = 0; n < D / 8; ++n) {
         float bb[2];
-        frag_b_kn(bb, sV, LD, 8 * j, c0 + 8 * n, lane);
+        frag_b_kn(bb, sV, LD, 8 * j, 8 * n, lane);
         mma3(acc[n], pa, bb);
       }
     }
@@ -1027,12 +1029,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + r0 + (lane >> 2) + 8 * r;
     if (row >= N) continue;
     const float inv = 1.f / l_run[r];
-    float* orow = o + b * o_bs + row * o_rs + (long long)h * D + c0;
+    float* orow = o + b * o_bs + row * o_rs + (long long)h * D;
 #pragma unroll
-    for (int n = 0; n < ON / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<float2*>(orow + 8 * n + 2 * (lane & 3)) =
           make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (lse != nullptr && (lane & 3) == 0 && warp % C::kCG == 0)
+    if (lse != nullptr && (lane & 3) == 0)
       lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
   }
 }
@@ -1052,6 +1054,426 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, N, M, q_bs,
       q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K1/f32 at d = 512, the VAE's single head (N = M = 4096 at 512^2): 4 N M d
+// flops against ~16 N d bytes, so operations bound it, three TF32 products
+// for each f32 one. The 64 x 512 f32 Q tile that wgmma's 64 rows need
+// takes 128 KB of shared memory by itself, which shapes the design:
+//  * one block per (64 q rows, batch, head), two warpgroups (eight warps).
+//    Key tiles are 32 keys. S (64 x 32) is computed once, warpgroup g over
+//    half of d (its chunks 8 g .. 8 g + 7 of 32 values); O (64 x 512) is
+//    split by columns, warpgroup g owns 256 g .. 256 g + 255 and its warp
+//    w rows 16 w .. 16 w + 15 (128 registers a thread). So each warpgroup
+//    reads only its own Q half, K chunks and V chunks: its first thread
+//    loads them with TMA from 4-d tensor maps (32 rows x 32 values a chunk,
+//    128-byte swizzle, zeros past N or M), Q once, then a tile's 8 K
+//    chunks and 8 V chunks in turn through one ring of 8 stages, refilling
+//    a stage once the warpgroup's four warps have released it: the V
+//    chunks arrive during S and the next tile's K chunks during P V.
+//  * The warpgroup splits each K chunk once as it lands, hi in place and lo
+//    into one of two lo tiles of its own (tf32_gemm.cuh split_tile), fences
+//    the async proxy and meets at a named barrier; then wgmma m64n32k8 with
+//    Q as register A
+//    (split in registers as it is read, one thread a value: Q's hi and lo
+//    tiles would take 256 KB) against K's hi and lo tiles, each chunk's 12
+//    products into a fresh accumulator added in round-to-nearest f32
+//    (tf32_gemm.cuh). The two partial S go through shared memory (thread i
+//    of one warpgroup holds the same elements as thread i of the other), so
+//    both warpgroups hold S = S_0 + S_1, bit for bit the same, and run the
+//    same online softmax on it.
+//  * P V runs on wgmma too, V chunk by V chunk (m64n32k8, 12 products into
+//    a fresh accumulator added in RN to O's 32 columns). wgmma takes a
+//    .tf32 B K-major only, and V is stored d-contiguous, so the warpgroup
+//    transposes each V chunk as it splits it: every thread reads its 8
+//    values (a lane a key, 16 bytes a read), the warpgroup meets, and each
+//    writes hi in place and lo into a 4 KB buffer of its own (a half of
+//    the partial-S buffer, which is idle while P V runs; two, used in
+//    turns), 32 keys a 128-byte row. P is the register A operand: S's
+//    fragment, split once a tile, is the A fragment at a permuted k (key 2 t
+//    at k = t, 2 t + 1 at t + 4, f32_tiles.cuh c_as_a), so the transposed
+//    rows hold their keys in that order. A whole transposed tile (hi and
+//    lo, 128 KB) would not fit beside Q; a chunk at a time does. Two
+//    chunks' products are in flight, into two fresh accumulators in turns.
+//    (P V on mma.sync, V read MN-major, was 3 % slower on the H100.)
+//  * Each chunk's split (K) or transposition (V) runs while the tensor
+//    cores run the previous chunk's products.
+//  * What bounds it, measured on the H100 at B 8 (7.3 ms): without its TMA
+//    loads it takes 6.3 ms, the loads alone 2.8 ms. So the products'
+//    latency and the meetings bound it, not bytes: 32-key tiles give
+//    wgmma N = 32, chains of 12 dependent products a chunk and 16 chunks
+//    a tile, each with a named barrier, at about a quarter of the TF32
+//    rate. Wider products need key tiles that Q's 128 KB leaves no room
+//    for.
+//  * Registers: O's 128, the partial S and its fresh accumulator and the
+//    split Q fragments take ~210 a thread. ptxas allocates one count for
+//    the kernel, bounded by the register file of an SM's four
+//    sub-partitions (16,384 each) across the warps each holds: 255 at
+//    eight warps, 168 at nine to twelve (setmaxnreg moves registers at run
+//    time only). Hence no warp is set aside to load.
+struct Fwd512W {
+  static constexpr int kD = 512, kBQ = 64, kBK = 32, kChunks = kD / 32;
+  static constexpr int kStages = 8;     // a warpgroup's ring of K and V chunks
+  static constexpr int kThreads = 256;  // two warpgroups
+  static constexpr uint32_t kQChunk = kBQ * 128;          // 64 rows x 32 values
+  static constexpr uint32_t kQBytes = kChunks * kQChunk;  // 128 KB
+  static constexpr uint32_t kKV = kBK * 128;              // a K or V chunk
+  // a warpgroup's ring and its two K lo tiles
+  static constexpr uint32_t kGroupBytes = (kStages + 2) * kKV;
+  static constexpr uint32_t kXBytes = 2 * 16 * 128 * 4;   // both partial S
+  // a warpgroup's: Q's, and each stage's "full" and "empty"
+  static constexpr int kBars = 1 + 2 * kStages;
+  // 1024 bytes of slack to align the swizzled tiles, then Q, both
+  // warpgroups' rings and K lo tiles, the partial S and the mbarriers
+  static constexpr size_t kSmemBytes =
+      1024 + kQBytes + 2 * kGroupBytes + kXBytes + 2 * 8 * kBars;
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
+
+// The transposed row position of key r (of a 32-key chunk) where P's
+// register A fragment expects it: in each 8-key block, key 2 t at k = t and
+// key 2 t + 1 at k = t + 4 (c_as_a's permuted k)
+__device__ __forceinline__ int p_key_slot(int r) {
+  return (r & ~7) + ((r & 7) >> 1) + 4 * (r & 1);
+}
+
+// O's 32 columns of V chunk I (n8 tiles 4 I .. 4 I + 3) += a fresh m64n32
+// accumulator. The P V loop is not unrolled (unrolled, ptxas failed on the
+// kernel), so each chunk's tiles are named by a switch on its index: a
+// register array indexed at run time would live in local memory.
+template <int I>
+__device__ __forceinline__ void add_chunk(float (&acc)[32][4],
+                                          const float (&part)[16]) {
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[4 * I + nb][v] += part[4 * nb + v];
+}
+
+__global__ void __launch_bounds__(Fwd512W::kThreads, 1)
+flash_fwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           float* __restrict__ o, float* __restrict__ lse,
+                           int H, int N, int M, long long o_bs, long long o_rs,
+                           float scale, float c) {
+  using C = Fwd512W;
+  using namespace f32_tiles;
+  constexpr int R = C::kStages, BK = C::kBK;
+  extern __shared__ unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = warp >> 2;             // this warpgroup
+  const int wq = warp & 3;             // its warp: q rows 16 wq .. 16 wq + 15
+  const int tid = threadIdx.x & 127;   // and thread
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sQ = (base + 1023u) & ~1023u;  // d chunk ch at + ch kQChunk
+  // this warpgroup's ring (stage j at sR + j kKV) and two K lo tiles; then
+  // the partial S of both (two V lo tiles of each warpgroup during P V);
+  // then its mbarriers
+  const uint32_t sR = sQ + C::kQBytes + g * C::kGroupBytes;
+  const uint32_t sKlo = sR + R * C::kKV;
+  const uint32_t sX = sQ + C::kQBytes + 2 * C::kGroupBytes;
+  const uint32_t sVlo = sX + g * 2 * C::kKV;
+  const uint32_t qbar = sX + C::kXBytes + g * 8 * C::kBars;
+  const uint32_t full = qbar + 8, empty = full + 8 * R;
+  auto at = [&](uint32_t a) { return smem_raw + (a - base); };
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * C::kBQ;
+  const int tiles = (M + BK - 1) / BK;
+  // this warpgroup's chunk sequence: 16 a key tile, m = 16 t + i its K
+  // chunk i (i < 8), m = 16 t + 8 + i its V chunk i; K or V chunk i holds
+  // keys 32 t .. 32 t + 31 and d values 32 (8 g + i) .. + 31
+  const int chunks = 16 * tiles;
+  auto load = [&](int m) {
+    const int j = m % R, i = m % 16;
+    mbar_expect_tx(full + 8 * j, C::kKV);
+    tma_load_4d(sR + j * C::kKV, i < 8 ? &tk : &tv, full + 8 * j,
+                32 * (8 * g + i % 8), h, BK * (m / 16), b);
+  };
+  // chunk m's products are done: its stage goes back to the ring
+  auto release = [&](int m) {
+    const int j = m % R;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * j);
+    if (tid == 0 && m + R < chunks) {
+      mbar_wait(empty + 8 * j, (m / R) & 1);
+      load(m + R);
+    }
+    __syncwarp();
+  };
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int j = 0; j < R; ++j) {
+      mbar_init(full + 8 * j, 1);
+      mbar_init(empty + 8 * j, 4);  // the warpgroup's four warps
+    }
+    mbar_init_fence();
+    mbar_expect_tx(qbar, C::kQBytes / 2);
+    for (int ch = 8 * g; ch < 8 * g + 8; ++ch)
+      tma_load_4d(sQ + ch * C::kQChunk, &tq, qbar, 32 * ch, h, q0, b);
+    for (int m = 0; m < R && m < chunks; ++m) load(m);
+  }
+  __syncthreads();
+
+  const int r0 = 16 * wq + (lane >> 2);  // this thread's rows r0 and r0 + 8
+  float* xs = reinterpret_cast<float*>(at(sX));  // [warpgroup][16][128]
+  float acc[32][4];  // O, n8 tile n: columns 256 g + 8 n + 2 (lane % 4) + {0, 1}
+#pragma unroll
+  for (int n = 0; n < 32; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  // running max of the raw scores and per-thread partial row sums of rows
+  // r0 and r0 + 8
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+
+  // split K chunk m (its i = m % 16) once: hi in place, lo into K lo tile
+  // i % 2, each thread a quarter-row, fenced for wgmma (the warpgroup meets
+  // before its products)
+  auto split_k = [&](int m) {
+    const int j = m % R;
+    mbar_wait(full + 8 * j, (m / R) & 1);
+    float4* khi = reinterpret_cast<float4*>(at(sR + j * C::kKV));
+    float4* klo = reinterpret_cast<float4*>(at(sKlo + (m & 1) * C::kKV));
+    tf32_gemm::split_tile<128>(khi, klo, C::kKV / 16, tid);
+    fence_proxy_async();
+  };
+  // V chunk m transposed into the rows of wgmma's K-major B: this thread's
+  // key (its lane) and 8 values (columns 8 wq .. 8 wq + 7) read, the
+  // warpgroup met (every raw value read), then hi written in place and lo
+  // into V lo tile m % 2, fenced for wgmma
+  auto transpose_v = [&](int m) {
+    const int j = m % R;
+    mbar_wait(full + 8 * j, (m / R) & 1);
+    unsigned char* vc = at(sR + j * C::kKV);
+    unsigned char* vlo = at(sVlo + (m & 1) * C::kKV);
+    float4 x[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      x[e] = *reinterpret_cast<const float4*>(vc + sw128_f32(lane, 8 * wq + 4 * e));
+    named_bar_sync(3 + g, 128);
+    const int slot = p_key_slot(lane);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v[4] = {x[e].x, x[e].y, x[e].z, x[e].w};
+      uint32_t hi[4], lo[4];
+      split(v, hi, lo);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t at_n = sw128_f32(8 * wq + 4 * e + u, slot);
+        *reinterpret_cast<uint32_t*>(vc + at_n) = hi[u];
+        *reinterpret_cast<uint32_t*>(vlo + at_n) = lo[u];
+      }
+    }
+    fence_proxy_async();
+  };
+
+  for (int t = 0; t < tiles; ++t) {
+    // this warpgroup's partial S over its half of d: 8 chunks, each into a
+    // fresh accumulator (the first product's scale-d zeroes it)
+    float sp[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) sp[j] = 0.f;
+    split_k(16 * t);
+    named_bar_sync(3 + g, 128);
+#pragma unroll 1
+    for (int i = 0; i < 8; ++i) {
+      const int n = 16 * t + i;
+      const uint32_t kh = sR + (n % R) * C::kKV, kl = sKlo + (n & 1) * C::kKV;
+      uint32_t qh[4][4], ql[4][4];
+      const unsigned char* qc = at(sQ + (8 * g + i) * C::kQChunk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tf32_gemm::a_frag_split(qh[kk], ql[kk], qc, r0, kk, lane);
+      __syncwarp();  // converged again for the warpgroup-wide wgmma
+      float part[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_tf32(part, ql[kk], sw128_desc(kh + 32 * kk, 16), kk > 0);
+        wgmma_rs_tf32(part, qh[kk], sw128_desc(kl + 32 * kk, 16), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_tf32(part, qh[kk], sw128_desc(kh + 32 * kk, 16), 1);
+      wgmma_commit();
+      if (i + 1 < 8) split_k(n + 1);  // while the tensor cores run
+      wgmma_wait_all();
+      fence_regs(part);
+      fence_regs(qh);
+      fence_regs(ql);
+      release(n);
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) sp[jj] += part[jj];
+      if (i + 1 < 8) named_bar_sync(3 + g, 128);  // chunk n + 1 split
+    }
+
+    // S = S_0 + S_1: thread tid of each warpgroup holds the same elements;
+    // the second barrier keeps the partials until both have read them
+    float sc[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) xs[(16 * g + j) * 128 + tid] = sp[j];
+    named_bar_sync(1, 256);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) sc[j] = sp[j] + xs[(16 * (1 - g) + j) * 128 + tid];
+    named_bar_sync(2, 256);
+
+    // the ragged KV tail scores -inf
+    const int k0 = BK * t;
+    if (k0 + BK > M) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int col = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+        if (col >= M) sc[i] = -INFINITY;
+      }
+    }
+
+    // online softmax: row max over the quad, p = exp2(s c - m c)
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = ex2((m_run[r] - mx[r]) * c);
+      m_run[r] = mx[r];
+      mc[r] = mx[r] * c;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = ex2(fmaf(sc[i], c, -mc[r]));
+      sum[r] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
+
+    // O += P V: key block kk of P is the C fragment sc[4 kk .. 4 kk + 3],
+    // split once, as wgmma's register A; the warpgroup's 8 V chunks (its
+    // columns) in order, each transposed while the previous one's products
+    // run, into a fresh accumulator added to O's 32 columns in RN
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float f[4] = {sc[4 * kk], sc[4 * kk + 1], sc[4 * kk + 2],
+                          sc[4 * kk + 3]};
+      const SplitA a = c_as_a(f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ph[kk][e] = a.hi[e], pl[kk][e] = a.lo[e];
+    }
+    // two fresh accumulators in turns: chunk i's products are issued
+    // before chunk i - 1's are waited for and added, and chunk i + 1 is
+    // transposed while chunk i's run
+    auto issue = [&](float (&part)[16], int n) {
+      const uint32_t vh = sR + (n % R) * C::kKV;
+      const uint32_t vl = sVlo + (n & 1) * C::kKV;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_tf32(part, pl[kk], sw128_desc(vh + 32 * kk, 16), kk > 0);
+        wgmma_rs_tf32(part, ph[kk], sw128_desc(vl + 32 * kk, 16), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_tf32(part, ph[kk], sw128_desc(vh + 32 * kk, 16), 1);
+      wgmma_commit();
+    };
+    // chunk n's products done: added to O's columns, its V stage released
+    auto retire = [&](float (&part)[16], int n) {
+      fence_regs(part);
+      switch (n % 8) {  // O's columns of the chunk, named at compile time
+        case 0: add_chunk<0>(acc, part); break;
+        case 1: add_chunk<1>(acc, part); break;
+        case 2: add_chunk<2>(acc, part); break;
+        case 3: add_chunk<3>(acc, part); break;
+        case 4: add_chunk<4>(acc, part); break;
+        case 5: add_chunk<5>(acc, part); break;
+        case 6: add_chunk<6>(acc, part); break;
+        default: add_chunk<7>(acc, part); break;
+      }
+      release(n);
+    };
+    float pa0[16], pa1[16];
+    transpose_v(16 * t + 8);
+    named_bar_sync(3 + g, 128);
+#pragma unroll 1
+    for (int i = 0; i < 8; i += 2) {
+      const int n = 16 * t + 8 + i;
+      issue(pa0, n);
+      if (i > 0) {
+        wgmma_wait<1>();
+        retire(pa1, n - 1);
+      }
+      transpose_v(n + 1);  // its lo buffer was chunk n - 1's, now done
+      named_bar_sync(3 + g, 128);
+      issue(pa1, n + 1);
+      wgmma_wait<1>();
+      retire(pa0, n);
+      if (i + 2 < 8) {
+        transpose_v(n + 2);
+        named_bar_sync(3 + g, 128);
+      }
+    }
+    wgmma_wait_all();
+    retire(pa1, 16 * t + 15);
+    fence_regs(ph);
+    fence_regs(pl);
+  }
+
+  // epilogue: O / l, lse = m scale + ln l (both warpgroups hold the same m
+  // and l; the first writes the lse)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= N) continue;
+    const float inv = 1.f / l_run[r];
+    float* orow = o + b * o_bs + row * o_rs + (long long)h * C::kD + 256 * g;
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * (lane & 3)) =
+          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (lse != nullptr && (lane & 3) == 0 && g == 0)
+      lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
+  }
+}
+
+int launch_fwd_f32_512(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int H, int N, int M, long long q_bs,
+                       long long q_rs, long long k_bs, long long k_rs,
+                       long long v_bs, long long v_rs, long long o_bs,
+                       long long o_rs, float scale, cudaStream_t stream) {
+  using C = Fwd512W;
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, C::kD, H, N, B, q_rs, q_bs, C::kBQ, true);
+  if (err == 0) err = tensor_map(&tk, k, C::kD, H, M, B, k_rs, k_bs, C::kBK, true);
+  if (err == 0) err = tensor_map(&tv, v, C::kD, H, M, B, v_rs, v_bs, C::kBK, true);
+  if (err != 0) return err;
+  static unsigned long long smem_set = 0;
+  err = allow_smem(flash_fwd_f32_wgmma_kernel, C::kSmemBytes, smem_set);
+  if (err != 0) return err;
+  dim3 grid((N + C::kBQ - 1) / C::kBQ, B * H);
+  flash_fwd_f32_wgmma_kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), lse, H, N, M, o_bs, o_rs, scale,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -1482,10 +1904,9 @@ LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
       return launch_fwd_f32<Fwd80F>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
                                     k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale,
                                     s);
-    case 512:
-      return launch_fwd_f32<Fwd512F>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
-                                     k_bs, k_rs, v_bs, v_rs, o_bs, o_rs,
-                                     scale, s);
+    case 512:  // wgmma + TMA: 16-byte aligned q, k and v (TMA)
+      return launch_fwd_f32_512(q, k, v, o, lse, B, H, N, M, q_bs, q_rs, k_bs,
+                                k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -45,7 +45,9 @@
 //    operand of wgmma (out^T = Q x^T) would not, at the cost of a
 //    transposed epilogue.
 //  * The first two warpgroups are the consumers, 64 output rows each, with
-//    232 registers a thread (224 beside the converters, which take 56). A
+//    232 registers a thread at run time (224 beside the converters, which
+//    take 56); ptxas compiles the kernel within 168 (hopper.cuh
+//    setmaxnreg), which their kNB kBN / 2 accumulators fit. A
 //    stage takes four wgmma.mma_async m64nkBNk16 per B operand, A and B
 //    from shared memory, into f32 accumulators that stay in registers over
 //    the whole contraction. A chunk's products stay

@@ -7,7 +7,8 @@
 // 64-column "chunks" in the 128-byte swizzle layout that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: row r of a chunk is 128 bytes at r * 128, its
 // eight 16-byte pieces permuted by (r % 8), 8-row groups 1024 bytes apart.
-// Chunks start on 1024-byte boundaries.
+// Chunks start on 1024-byte boundaries. An f32 (TF32) chunk is 32 columns
+// wide in the same bytes.
 #pragma once
 
 #include <cuda.h>
@@ -74,6 +75,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 // setmaxnreg: a warpgroup hands registers back to the SM's pool (dec) or
 // takes more (inc). All four warps of the warpgroup execute it together,
 // on a path that never rejoins the other warpgroups' (or ptxas ignores it).
+// It moves registers at run time only: ptxas compiles the whole kernel
+// within the count its launch bounds allow, 168 a thread at 9 to 12 warps
+// (an SM sub-partition's 16,384 over 3 warps), and spills past it.
 
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
@@ -150,6 +154,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 template <int N>
@@ -411,6 +421,89 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 }
 
 // ---------------------------------------------------------------------------
+// TF32 wgmma, for the f32 forms (3xTF32: csrc/f32_tiles.cuh)
+//
+// wgmma takes .tf32 operands K-major only (no transpose). A (64 x 8) comes
+// from registers, four tf32 values a thread: rows g and g + 8 of the
+// thread's warp's 16 (g = lane / 4), columns t and t + 4 (t = lane % 4), as
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) -- mma.sync m16n8k8's A
+// map. B (N x 8) is K-major in shared memory in the 128-byte swizzle: a
+// swizzle row holds 32 f32 values, so sw128_desc describes it as it does a
+// 64-column bf16 chunk, advanced 32 bytes (8 values) a k step. accumulate
+// = 0 overwrites d instead of adding to it (scale-d), which zeroes a fresh
+// accumulator without an instruction.
+
+// byte offset of (row r, column c) in a tile of 32 f32 values a row in the
+// 128-byte swizzle, as TMA writes it (16-byte pieces permuted by r % 8)
+__device__ __forceinline__ uint32_t sw128_f32(int r, int c) {
+  return (uint32_t)(r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2));
+}
+
+// D (64 x 160) (+)= A (64 x 8, tf32 in registers) B^T
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 32) (+)= A (64 x 8, tf32 in registers) B^T
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// Wait at named barrier `id` (1-15; 0 is __syncthreads's) until `count`
+// threads, whole warps, have arrived
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // host side
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -461,6 +554,26 @@ inline int tensor_map_2d(CUtensorMap* map, const void* base, int rows,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       is_int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The same map of a row-major (rows, cols) f32 matrix: boxes of 32 columns
+// (128 bytes, one swizzle row) by box_rows rows, 128-byte swizzle, zeros
+// past the last row and column. The base must be 16-byte aligned and a row
+// a multiple of 16 bytes.
+inline int tensor_map_2d_f32(CUtensorMap* map, const void* base, int rows,
+                             int cols, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                      const_cast<void*>(base), dims, strides, box, step,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

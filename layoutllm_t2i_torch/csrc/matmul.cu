@@ -26,12 +26,15 @@
 // 128 x 128 of the output.
 //
 // Both have f32 forms (llt2i_linear_f32, llt2i_geglu_f32), for f32 x and
-// weights, as the Pallas kernels take them: f32_tiles.cuh's tile GEMM
-// (3xTF32 on mma.sync, f32 accuracy) with the same epilogues in f32,
-// linear_f32_kernel (acc + b, then + r) and geglu_f32_kernel. Bound:
-// operations at the TF32 rate.
+// weights, as the Pallas kernels take them, with the same epilogues in f32.
+// K8a/f32 (linear_f32_wgmma_kernel: acc + b, then + r) runs on
+// tf32_gemm.cuh's mainloop: 3xTF32 on wgmma fed by TMA, 128 x 160 tiles,
+// which fill 128 of the 132 SMs at its widest shape (M = 2048, N = 1280).
+// K8b/f32 (geglu_f32_kernel) is still on f32_tiles.cuh's tile GEMM (3xTF32
+// on mma.sync). Bound: operations at the TF32 rate.
 #include "f32_tiles.cuh"
 #include "gemm_tiles.cuh"
+#include "tf32_gemm.cuh"
 
 namespace {
 
@@ -117,32 +120,53 @@ geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   gemm_tiles::gemm_tile<C>(&tx, &twa, &twg, K, gemm_tiles::Geglu{b, out, M, N});
 }
 
-// K8a in f32: out = x W^T (+ b) (+ r), b and r added to the f32 sum in
-// that order, as matmul.py:70-75
-__global__ void __launch_bounds__(kF32Threads, 2)
-linear_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ b, const float* __restrict__ r,
-                  float* __restrict__ out, int M, int K, int N) {
-  extern __shared__ __align__(16) float smem_f[];
-  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
-  const float* const B[1] = {w};
-  float acc[1][2][4][4];
-  gemm_f32<1>(acc, x, K, M, B, K, N, K, m0, n0, smem_f);
-  f32_tiles::for_each_pair(
-      m0, n0, M, N, [&](int mi, int nt, int rr, int row, int col) {
-        float y0 = acc[0][mi][nt][2 * rr], y1 = acc[0][mi][nt][2 * rr + 1];
+// K8a/f32's epilogue: out = acc + b, then + r, in f32 as matmul.py:70-75
+// adds them; b and r optional
+struct BiasResidualF32 {
+  const float* b;  // (N,) or null
+  const float* r;  // (M, N) or null
+  float* out;      // (M, N)
+  int M, N;
+
+  template <int W>
+  __device__ __forceinline__ void operator()(const float (&acc)[W], int row0,
+                                             int n0, int lane) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M) continue;
+      const long long at = (long long)row * N;
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        if (col >= N) continue;  // N % 4 == 0: col + 1 < N too
+        float y0 = acc[4 * j + 2 * h], y1 = acc[4 * j + 2 * h + 1];
         if (b != nullptr) {
           y0 += b[col];
           y1 += b[col + 1];
         }
-        const long long i = (long long)row * N + col;
         if (r != nullptr) {
-          const float2 v = *reinterpret_cast<const float2*>(r + i);
+          const float2 v = *reinterpret_cast<const float2*>(r + at + col);
           y0 += v.x;
           y1 += v.y;
         }
-        *reinterpret_cast<float2*>(out + i) = make_float2(y0, y1);
-      });
+        *reinterpret_cast<float2*>(out + at + col) = make_float2(y0, y1);
+      }
+    }
+  }
+};
+
+// K8a/f32 tiles: 128 x 160 (160 divides the output widths 320, 640, 1280)
+using LinearF32Cfg = tf32_gemm::Cfg<160>;
+
+// K8a in f32: out = x W^T (+ b) (+ r) on the TF32 wgmma mainloop
+__global__ void __launch_bounds__(LinearF32Cfg::kThreads, 1)
+linear_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tw,
+                        const float* __restrict__ b, const float* __restrict__ r,
+                        float* __restrict__ out, int M, int N, int K) {
+  tf32_gemm::gemm_tile<LinearF32Cfg>(&tx, &tw, K,
+                                     BiasResidualF32{b, r, out, M, N});
 }
 
 // K8b in f32: out = (x Wa^T + ba) * gelu_erf(x Wg^T + bg), b optional
@@ -204,20 +228,19 @@ LLT2I_API int llt2i_geglu(const void* x, const void* w, const void* b,
 
 // K8a in f32. x: (M, K) f32; w: (N, K) f32; b: (N,) f32 or null; r: (M, N)
 // f32 or null; out: (M, N) f32. K % 4 == 0 and N % 4 == 0; x and w 16-byte
-// aligned (cp.async), b 4-byte, r and out 8-byte.
+// aligned (TMA), b 4-byte, r and out 8-byte.
 LLT2I_API int llt2i_linear_f32(const void* x, const void* w, const void* b,
                                const void* r, void* out, int M, int K, int N,
                                void* stream) {
   if (K % 4 || N % 4) return (int)cudaErrorInvalidValue;
-  static unsigned long long set = 0;
-  const int err = allow_smem(linear_f32_kernel, f32_gemm_smem<1>(), set);
+  CUtensorMap tx, tw;
+  int err = tensor_map_2d_f32(&tx, x, M, K, tf32_gemm::kBM);
+  if (err == 0) err = tensor_map_2d_f32(&tw, w, N, K, LinearF32Cfg::kBN);
   if (err != 0) return err;
-  linear_f32_kernel<<<f32_grid(M, N), kF32Threads, f32_gemm_smem<1>(),
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
+  return tf32_gemm::launch<LinearF32Cfg, linear_f32_wgmma_kernel>(
+      M, N, static_cast<cudaStream_t>(stream), tx, tw,
       static_cast<const float*>(b), static_cast<const float*>(r),
-      static_cast<float*>(out), M, K, N);
-  return (int)cudaGetLastError();
+      static_cast<float*>(out), M, N, K);
 }
 
 // K8b in f32. x: (M, K) f32; w: (2N, K) = [Wa; Wg] f32; b: (2N,) f32 or

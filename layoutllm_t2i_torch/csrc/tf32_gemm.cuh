@@ -1,0 +1,229 @@
+// The TF32 wgmma mainloop of the f32 GEMM forms (sm_90a): f32 accuracy
+// (3xTF32, csrc/f32_tiles.cuh) on warp-specialised wgmma fed by a TMA
+// ring. K8a/f32 (matmul.cu linear_f32_wgmma_kernel) runs on it; the other
+// users of f32_tiles.cuh's gemm_f32 (K4/f32, K6/f32, K7/f32, K8b/f32) are
+// the next to move here.
+//
+// Every product is A B^T with both operands row-major over the
+// contraction: A (M, K) activations, B (N, K) weights in the torch (out,
+// in) layout. wgmma reads .tf32 operands K-major only, which both are.
+//
+// What bounds it on the H100: operations, three TF32 products for each f32
+// one (hi*hi + hi*lo + lo*hi; 495 TFLOP/s dense TF32), and the shared
+// memory the tensor cores read them from. So A never goes through shared
+// memory as a wgmma operand: it is the register A of wgmma, B alone is read
+// by the tensor cores, and each operand is split into hi and lo once.
+//
+// Design: one block of two warpgroups (eight warps), one 128 x kBN output
+// tile a block; warpgroup g owns rows 64 g .. 64 g + 63.
+//  * Thread 0 keeps a ring of kStages stages in flight with TMA: a stage
+//    holds a 32-deep slice of the block's 128 A rows and of its kBN B
+//    rows, each row 32 f32 values (one 128-byte swizzle row, the layout of
+//    hopper.cuh), from 2-d tensor maps. Rows past M or N and columns past K
+//    come in as zeros, so a ragged K adds nothing. It refills a stage once
+//    all eight warps have released it ("empty").
+//  * B is split once, by all 256 threads together, a stage ahead: while
+//    the tensor cores run stage t's products, each thread rewrites its
+//    share of stage t + 1's B values as hi = tf32(x) in place and writes
+//    lo = tf32(x - hi) into the stage's lo tile at the same offset (the
+//    swizzle is the same in both), fences the async proxy, and the block
+//    meets at a named barrier before stage t + 1's products.
+//  * Per stage each thread reads its A fragments (four values a k step, the
+//    register A map of hopper.cuh) from the raw A tile and splits them in
+//    registers: an A value is read and split by one thread only. Then 12
+//    wgmma m64nkBNk8: the small terms lo*hi and hi*lo of the four k steps
+//    first, then hi*hi, into a fresh accumulator zeroed by the first
+//    product's scale-d, which is added to the running f32 sum with
+//    round-to-nearest adds. The tensor cores truncate where they add into
+//    their accumulator, so one accumulator over the whole contraction would
+//    drift toward zero by up to an ulp of the sum a step (as mma.sync's
+//    does, f32_tiles.cuh mma3); a fresh one a stage keeps each truncation
+//    relative to a 32-deep partial.
+//  * Registers: the running sum and the fresh one (kBN / 2 each), the
+//    split A fragments and a stage's B split take ~230 a thread at kBN =
+//    160. ptxas allocates one count for the whole kernel, bounded by the
+//    register file of an SM's four sub-partitions, 16,384 each, across the
+//    warps each holds: 255 at eight warps, 168 at nine to twelve
+//    (setmaxnreg moves registers between warpgroups at run time only). So
+//    no warp is set aside to load or split.
+//  * The epilogue is the caller's functor on the f32 sums (hopper.cuh's
+//    accumulator map: rows row0 and row0 + 8, columns 8 j + 2 (lane % 4) +
+//    {0, 1}), masked at the ragged M and N edges. Each output is summed by
+//    one thread in a fixed order: launches repeat bit for bit.
+#pragma once
+
+#include "common.cuh"
+#include "f32_tiles.cuh"
+#include "hopper.cuh"
+
+namespace tf32_gemm {
+
+constexpr int kBM = 128;  // output rows a block: 64 a consumer warpgroup
+constexpr int kBK = 32;   // contraction depth a stage: one swizzle row
+
+template <int kBN_>
+struct Cfg {
+  static constexpr int kBN = kBN_;
+  static constexpr int kThreads = 256;  // two warpgroups
+  static constexpr uint32_t kABytes = kBM * 128;  // a stage's A slice
+  static constexpr uint32_t kBBytes = kBN * 128;  // its B slice (then B hi)
+  static constexpr uint32_t kStageBytes = kABytes + 2 * kBBytes;  // + B lo
+  // as many stages as fit beside 1 KB of alignment slack and the mbarriers
+  // ("full", "empty"), at most 4
+  static constexpr int kStages =
+      (232448 - 1024) / (kStageBytes + 16) < 4
+          ? (232448 - 1024) / (kStageBytes + 16) : 4;
+  static constexpr size_t kSmemBytes = 1024 + kStages * (kStageBytes + 16);
+  static_assert(kBN % 16 == 0 && kBN <= 256, "wgmma width, TMA box rows");
+  static_assert(kStages >= 3, "a ring of at least three stages");
+};
+
+// The four A values of this thread for k step kk of a 32-deep slice in the
+// 128-byte swizzle (rows r0 and r0 + 8 of it), split into hi and lo
+__device__ __forceinline__ void a_frag_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                             const unsigned char* tile, int r0,
+                                             int kk, int lane) {
+  const int c = 8 * kk + (lane & 3);
+  const float a[4] = {
+      *reinterpret_cast<const float*>(tile + sw128_f32(r0, c)),
+      *reinterpret_cast<const float*>(tile + sw128_f32(r0 + 8, c)),
+      *reinterpret_cast<const float*>(tile + sw128_f32(r0, c + 4)),
+      *reinterpret_cast<const float*>(tile + sw128_f32(r0 + 8, c + 4))};
+  f32_tiles::split(a, hi, lo);
+}
+
+// `pieces` 16-byte pieces of f32 values at p, each value in place as hi =
+// tf32(x) and as lo = tf32(x - hi) at the same piece of lo; thread ct of
+// kThreadsSplit, four pieces a step, their loads first
+template <int kThreadsSplit>
+__device__ __forceinline__ void split_tile(float4* p, float4* lo, int pieces,
+                                           int ct) {
+  constexpr int kU = 4;
+  for (int q0 = ct; q0 < pieces; q0 += kU * kThreadsSplit) {
+    float4 x[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (q0 + u * kThreadsSplit < pieces) x[u] = p[q0 + u * kThreadsSplit];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = q0 + u * kThreadsSplit;
+      if (q >= pieces) break;
+      const float v[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+      uint32_t h[4], l[4];
+      f32_tiles::split(v, h, l);
+      p[q] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                         __uint_as_float(h[2]), __uint_as_float(h[3]));
+      lo[q] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                          __uint_as_float(l[2]), __uint_as_float(l[3]));
+    }
+  }
+}
+
+// One block's tile: acc = A[m0 : m0 + 128] B[n0 : n0 + kBN]^T over the
+// whole contraction K (m0 = 128 blockIdx.y, n0 = kBN blockIdx.x), then
+// epi(acc, row0, n0, lane) on every consumer thread. ta and tb are
+// tensor_map_2d_f32 maps of A (boxes of kBM rows) and B (kBN rows). Launch
+// with C::kThreads threads and C::kSmemBytes of dynamic shared memory.
+template <class C, class Epi>
+__device__ __forceinline__ void gemm_tile(const CUtensorMap* ta,
+                                          const CUtensorMap* tb, int K,
+                                          const Epi& epi) {
+  constexpr int S = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t ring = (base + 1023u) & ~1023u;  // stage s at + s kStageBytes
+  const uint32_t full = ring + S * C::kStageBytes;  // stage s's at + 8 s
+  const uint32_t empty = full + 8 * S;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * C::kBN;
+  const int steps = (K + kBK - 1) / kBK;
+  auto load = [&](int t) {
+    const int s = t % S;
+    const uint32_t st = ring + s * C::kStageBytes;
+    mbar_expect_tx(full + 8 * s, C::kABytes + C::kBBytes);
+    tma_load_2d(st, ta, full + 8 * s, kBK * t, m0);
+    tma_load_2d(st + C::kABytes, tb, full + 8 * s, kBK * t, n0);
+  };
+  // this thread's share of stage t's B split, fenced for wgmma's reads
+  auto split_b = [&](int t) {
+    const int s = t % S;
+    mbar_wait(full + 8 * s, (t / S) & 1);
+    float4* hi = reinterpret_cast<float4*>(
+        smem_raw + (ring + s * C::kStageBytes + C::kABytes - base));
+    split_tile<C::kThreads>(hi, hi + C::kBBytes / 16, C::kBBytes / 16,
+                            threadIdx.x);
+    fence_proxy_async();
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);   // the loading thread, with A's and B's bytes
+      mbar_init(empty + 8 * s, 8);  // one arrival a warp
+    }
+    mbar_init_fence();
+    for (int t = 0; t < S && t < steps; ++t) load(t);
+  }
+  __syncthreads();
+
+  const int g = warp >> 2;
+  const int r0 = 64 * g + 16 * (warp & 3) + (lane >> 2);  // and r0 + 8
+  float acc[C::kBN / 2], part[C::kBN / 2];
+#pragma unroll
+  for (int j = 0; j < C::kBN / 2; ++j) acc[j] = 0.f;
+  split_b(0);
+  named_bar_sync(1, C::kThreads);
+
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % S;
+    const uint32_t st = ring + s * C::kStageBytes;
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      a_frag_split(ah[kk], al[kk], smem_raw + (st - base), r0, kk, lane);
+    __syncwarp();  // converged again for the warpgroup-wide wgmma
+    const uint32_t bh = st + C::kABytes, bl = bh + C::kBBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_tf32(part, al[kk], sw128_desc(bh + 32 * kk, 16), kk > 0);
+      wgmma_rs_tf32(part, ah[kk], sw128_desc(bl + 32 * kk, 16), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tf32(part, ah[kk], sw128_desc(bh + 32 * kk, 16), 1);
+    wgmma_commit();
+    if (t + 1 < steps) split_b(t + 1);  // while the tensor cores run
+    wgmma_wait_all();
+    fence_regs(part);
+    fence_regs(ah);
+    fence_regs(al);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with stage s
+    if (threadIdx.x == 0 && t + S < steps) {
+      mbar_wait(empty + 8 * s, (t / S) & 1);
+      load(t + S);
+    }
+#pragma unroll
+    for (int j = 0; j < C::kBN / 2; ++j) acc[j] += part[j];
+    __syncwarp();
+    if (t + 1 < steps) named_bar_sync(1, C::kThreads);  // stage t + 1 split
+  }
+  epi(acc, blockIdx.y * kBM + r0, n0, lane);
+}
+
+// Launch kKern (a gemm_tile kernel of config C) over an (M, N) output on
+// `stream`, its dynamic shared memory allowed once per device.
+template <class C, auto kKern, typename... Args>
+int launch(int M, int N, cudaStream_t stream, Args... args) {
+  static unsigned long long smem_set = 0;
+  int err = allow_smem(kKern, C::kSmemBytes, smem_set);
+  if (err != 0) return err;
+  const dim3 grid((N + C::kBN - 1) / C::kBN, (M + kBM - 1) / kBM);
+  kKern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32_gemm

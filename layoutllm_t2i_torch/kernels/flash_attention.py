@@ -15,7 +15,8 @@ in XLA, then K5a (dQ) and K5b (dK, dV) recompute the softmax from the lse.
 Where no gradient is needed, K1 launches exactly as for inference.
 
 Each kernel comes in bf16 and in f32 (``llt2i_flash_*_f32``: 3xTF32
-products on mma.sync, P and dS kept in f32, as the Pallas kernels keep
+products, on mma.sync, and on wgmma with TMA for K1 at d 512 (the VAE's
+head); P and dS kept in f32, as the Pallas kernels keep
 them in the operands' type), picked from q's dtype; q, k, v and dO share
 it. The f32 forms take d 40 and 80 (K1 also 512), the training path's
 head dims.

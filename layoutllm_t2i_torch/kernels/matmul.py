@@ -111,12 +111,12 @@ def _linear_forward(x, w, b, r):
             check_operand(t, name, dev, dtype)
     require(w.shape == (n, k) and (b is None or b.shape == (n,))
             and (r is None or r.shape == (m, n)), "linear_fused: shapes")
-    # rows of x, w and out in whole 16-byte vectors (TMA or cp.async)
+    # rows of x, w and out in whole 16-byte vectors (TMA)
     v = vector_elems(dtype)
     if not (k % v == 0 and n % v == 0):
         raise ValueError(f"linear_fused: K={k}, N={n} must be multiples of {v}")
-    # x and w through TMA (f32: 16-byte cp.async), b in bf16 pairs or f32
-    # values, r in pairs of values
+    # x and w through TMA, b in bf16 pairs or f32 values, r in pairs of
+    # values
     for name, t, nbytes in (("linear_fused: x", x, 16), ("linear_fused: w", w, 16),
                             ("linear_fused: b", b, 4),
                             ("linear_fused: r", r, 2 * x.element_size())):

@@ -11,7 +11,10 @@ Usage:
 from __future__ import annotations
 
 import contextlib
+import json
+import math
 import os
+import tempfile
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -74,15 +77,46 @@ class PhaseTimer:
         return "\n".join(rows)
 
 
+# the chrome trace's categories of device activity
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_intervals(trace: dict) -> list:
+    """[(start us, end us)] of every device activity (kernel, copy, set) of
+    a chrome trace as torch.profiler exports it, sorted by start."""
+    return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in trace["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+
+
+def union_ms(intervals) -> float:
+    """ms that at least one of the sorted (start us, end us) intervals
+    covers: activities that overlap in time count once."""
+    total, end = 0.0, -math.inf
+    for start, stop in intervals:
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
+def traced_intervals(prof, path: str) -> list:
+    """The device intervals of a finished torch.profiler run, through its
+    chrome trace written to ``path``."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return device_intervals(json.load(f))
+
+
 def device_profile(run, logdir: Optional[str] = None,
                    on_card: Optional[bool] = None) -> dict:
     """``run()`` once under torch.profiler tracing the card only (each
     kernel once, little host overhead): the wall ms, the device's busy ms
-    (the kernels' and copies' own time, summed) and its idle share of the
-    wall. With ``logdir`` the chrome trace is written there as
-    ``trace.json``. A run off the card (``on_card`` False; None: whether
-    there is a card) has only its wall: busy and idle are None."""
-    from torch.autograd import DeviceType
+    (the union of its kernels', copies' and sets' intervals: activities
+    that overlap count once) and its idle share of the wall. With
+    ``logdir`` the chrome trace is written there as ``trace.json``. A run
+    off the card (``on_card`` False; None: whether there is a card) has
+    only its wall: busy and idle are None."""
     from torch.profiler import ProfilerActivity, profile
 
     if on_card is None:
@@ -98,10 +132,12 @@ def device_profile(run, logdir: Optional[str] = None,
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(evt.self_device_time_total for evt in prof.key_averages()
-               if evt.device_type != DeviceType.CPU) / 1e3
     if logdir:
         os.makedirs(logdir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        intervals = traced_intervals(prof, os.path.join(logdir, "trace.json"))
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            intervals = traced_intervals(prof, os.path.join(tmp, "trace.json"))
+    busy = union_ms(intervals)
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3))}

@@ -40,7 +40,8 @@ from layoutllm_t2i_torch.cli import bench as pbench
 from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
 from layoutllm_t2i_torch.pipeline.loaders import model_configs
 from layoutllm_t2i_torch.utils import flops as pflops
-from layoutllm_t2i_torch.utils.profiling import PhaseTimer, device_profile, trace
+from layoutllm_t2i_torch.utils.profiling import (PhaseTimer, device_intervals,
+                                                 device_profile, trace, union_ms)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -342,3 +343,24 @@ def test_phase_timer_and_trace(tmp_path):
         pass
     rec = device_profile(lambda: None, on_card=False)
     assert rec["device_idle_share"] is None and rec["wall_ms"] >= 0
+
+
+def test_device_busy_time_counts_overlapping_activities_once():
+    # the busy time is the union of the trace's device intervals: two
+    # kernels overlapping on two streams, a copy inside one of them and a
+    # host event count as the span they cover, not as the sum of their
+    # durations (which passed the wall in the f32 profiles)
+    trace_json = {"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 100.0, "dur": 50.0},
+        {"ph": "X", "cat": "kernel", "name": "b", "ts": 120.0, "dur": 60.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 130.0, "dur": 5.0},
+        {"ph": "X", "cat": "cpu_op", "name": "host", "ts": 0.0, "dur": 1e6},
+        {"ph": "X", "cat": "gpu_memset", "name": "d", "ts": 300.0, "dur": 10.0},
+        {"ph": "i", "cat": "kernel", "name": "marker", "ts": 400.0},
+    ]}
+    iv = device_intervals(trace_json)
+    assert iv == [(100.0, 150.0), (120.0, 180.0), (130.0, 135.0), (300.0, 310.0)]
+    assert union_ms(iv) == pytest.approx((80.0 + 10.0) / 1e3)
+    assert sum(b - a for a, b in iv) / 1e3 > union_ms(iv)
+    assert union_ms([]) == 0.0
+

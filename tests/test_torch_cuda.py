@@ -30,7 +30,10 @@ K8a and K8b (f32_tiles.cuh's tile GEMM) at ragged shapes and at the f32
 generation's and split-route training's shapes, with and without K8a's
 bias and residual and K8b's bias, K7's s as a device tensor, two launches
 agreeing bit for bit, the size rules and the gradients of the K6, K8a and
-K8b Functions in f32; and one generation of the fast preset (DPM, guidance
+K8b Functions in f32; the TF32 wgmma kernels, K1/f32 at d 512 and K8a/f32
+(tf32_gemm.cuh), at ragged N, M and K (one row, widths off their tiles,
+two heads), with K1's lse, on operands fenced by NaN and Inf, into a NaN
+output with a guard, and bit for bit over launches; and one generation of the fast preset (DPM, guidance
 interval, encoder cache) at small geometry through K1-K4 against the plain
 route.
 Run them on the card with
@@ -1518,3 +1521,83 @@ def test_f32_gemm_grads(dev, gen, f32):
                  K.linear_fused)
     w, b = _rand(gen, 2 * inner, k, scale=k ** -0.5).float(), _rand(gen, 2 * inner).float()
     _grads_match(K.geglu_fused, K.geglu_plain, [x, w, b], K.geglu_fused)
+
+
+# ---------------------------------------------------------------------------
+# the TF32 wgmma kernels: K1/f32 at d 512 (flash_fwd_f32_wgmma_kernel) and
+# K8a/f32 (linear_f32_wgmma_kernel on tf32_gemm.cuh), at ragged shapes
+
+
+# (B, N, M, H): N past a 64-row q tile, M one key past a 32-key tile and
+# within one, two heads (the map's head coordinate), a single q tile
+# against the VAE's 4096 keys
+D512_SHAPES = [(2, 130, 33, 1), (1, 1000, 1054, 2), (1, 64, 4096, 1),
+               (2, 77, 31, 1)]
+
+
+@pytest.mark.parametrize("b,n,m,heads", D512_SHAPES)
+def test_flash_attention_f32_d512_ragged_with_lse(dev, gen, f32, b, n, m, heads):
+    d = 512
+    q, k, v = (_rand(gen, b, r, heads * d).float() for r in (n, m, m))
+    s = d ** -0.5
+    _check_f32("K1", lambda: _launch_fwd(q, k, v, heads, s, need_lse=True),
+               lambda: K.flash_attention_lse_plain(q, k, v, heads, s),
+               K.flash_attention, kids=("K1/f32", "lse/f32"))
+
+
+def test_flash_attention_f32_d512_never_reads_outside_and_repeats(dev, gen, f32):
+    # q, k and v slices of one packed qkv buffer (row stride 3 H d) between
+    # NaN fences: TMA reads nothing past a map's rows or head, and a ring
+    # refilled before its readers left, or a partial S read before the
+    # other warpgroup wrote it, would change the bits between launches
+    b, n, heads, d = 2, 300, 1, 512
+    guard = 4096
+    buf = torch.full((b * n * 3 * heads * d + 2 * guard,), float("nan"),
+                     device=dev)
+    qkv = buf[guard:guard + b * n * 3 * heads * d].view(b, n, 3 * heads * d)
+    qkv.copy_(_rand(gen, b, n, 3 * heads * d).float())
+    q, k, v = qkv.split(heads * d, dim=-1)
+    runs = [K.flash_attention(q, k, v, heads, d ** -0.5) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert not runs[0].isnan().any()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    got = agreement("K1/f32", runs[0], K.flash_attention_plain(q, k, v, heads, d ** -0.5))
+    assert got["ok"], got
+
+
+# (M, K, N): ragged M, N and K (K % 32 in {4, 8, 28}), one row, N under
+# one 160-wide tile, the routes' grid-fill shape
+K8A_F32_SHAPES = [(1, 36, 8), (257, 68, 164), (300, 1284, 324),
+                  (2048, 5120, 1280), (129, 92, 480)]
+
+
+@pytest.mark.parametrize("m,k,n", K8A_F32_SHAPES)
+def test_linear_fused_f32_wgmma_ragged(dev, gen, f32, m, k, n):
+    x, w = _rand(gen, m, k).float(), _rand(gen, n, k, scale=k ** -0.5).float()
+    b, r = _rand(gen, n, scale=0.1).float(), _rand(gen, m, n).float()
+    _check_f32("K8a", lambda: K.linear_fused(x, w, b, r),
+               lambda: K.linear_plain(x, w, b, r), K.linear_fused)
+
+
+@pytest.mark.parametrize("m,k,n", [(257, 68, 164), (1054, 2560, 640)])
+def test_linear_f32_wgmma_reads_and_writes_only_its_operands(dev, gen, f32, m, k, n):
+    # x and w between NaN/Inf fences (TMA zero-fills past their ends), the
+    # output in a NaN buffer with a NaN guard after it: every element
+    # written, none past it, and three launches bit for bit the same
+    x = _fenced_flat(_rand(gen, m, k).float())
+    w = _fenced_flat(_rand(gen, n, k, scale=k ** -0.5).float())
+    b = _rand(gen, n, scale=0.1).float()
+    guard = 4096
+    outs = []
+    for _ in range(3):
+        out = torch.full((m * n + guard,), float("nan"), device=dev)
+        check(lib("matmul").llt2i_linear_f32(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), None, out.data_ptr(), m,
+            k, n, stream_handle(x.get_device())), "linear_fused")
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert all(bool(o[-guard:].isnan().all()) for o in outs)
+    assert all(torch.equal(outs[0][:-guard], o[:-guard]) for o in outs[1:])
+    got = agreement("K8a/f32", outs[0][:-guard].view(m, n), K.linear_plain(x, w, b))
+    assert got["ok"], got
+

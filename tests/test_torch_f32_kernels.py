@@ -74,10 +74,13 @@ def mm_q(a, q, passes=2):
     return ah @ q if passes == 1 else tf32(a - ah) @ q + ah @ q
 
 
-def gemm(a, w, passes=3, k_tail=False, prod=None):
+def gemm(a, w, passes=3, k_tail=False, prod=None, stage=None, fault=None):
     """a w^T as f32_tiles.cuh gemm_f32 sums it: 32-deep k steps, each step's
     product 3xTF32 (``mm``; an int8 w: ``mm_q``) added in f32; ``k_tail``
-    drops a ragged last step (the fault)."""
+    drops a ragged last step (the fault). With ``stage``, as tf32_gemm.cuh's
+    TF32 wgmma mainloop (K8a/f32) sums it: ``_gemm_wgmma``."""
+    if stage is not None:
+        return _gemm_wgmma(a, w, stage, passes, k_tail, fault)
     kd = a.shape[1]
     end = kd - kd % 32 if k_tail else kd
     prod = prod or (mm_q if w.dtype is torch.int8 else mm)
@@ -85,6 +88,75 @@ def gemm(a, w, passes=3, k_tail=False, prod=None):
     for k0 in range(0, end, 32):
         acc += prod(a[:, k0:k0 + 32], w[:, k0:k0 + 32].float().t(), passes)
     return acc
+
+
+def split(x):
+    """(hi, lo) = (tf32(x), tf32(x - hi)), as f32_tiles.cuh split."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def rz(x):
+    """x (float64) as f32 rounded toward zero: how the tensor cores add a
+    product into their accumulator. They truncate there (the finding of the
+    f32 forms' first card runs, f32_tiles.cuh mma3); an 8-deep product of
+    TF32 values is exact in float64."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def chain(acc, products):
+    """The products (a, b) added one after another into the accumulator
+    ``acc`` as a tensor-core chain adds them: a @ b exactly, then truncated
+    into acc. acc None: a fresh accumulator, which the first product
+    overwrites (wgmma's scale-d 0, or mma3's zeroed fragment)."""
+    for a, b in products:
+        t = a.double() @ b.double()
+        acc = rz(t if acc is None else acc.double() + t)
+    return acc
+
+
+def tc_products(ah, al, bh, bl, drop_lo_hi=False, passes=3):
+    """The 3xTF32 products of a @ b (a (..., n, K), b (..., K, N), split
+    into hi and lo) in the order of the TF32 wgmma chains: lo*hi and hi*lo
+    of each 8-deep step, then hi*hi of each. ``drop_lo_hi`` leaves lo*hi
+    out, ``passes=1`` keeps hi*hi alone (the faults)."""
+    steps = [slice(k0, k0 + 8) for k0 in range(0, ah.shape[-1], 8)]
+    small = []
+    for s in steps if passes == 3 else ():
+        if not drop_lo_hi:
+            small.append((al[..., s], bh[..., s, :]))
+        small.append((ah[..., s], bl[..., s, :]))
+    return small + [(ah[..., s], bh[..., s, :]) for s in steps]
+
+
+def _gemm_wgmma(a, w, stage, passes=3, k_tail=False, fault=None):
+    """a w^T as tf32_gemm.cuh gemm_tile sums it: ``stage``-deep slices
+    (zeros past K), each slice's products (``tc_products``: A split in
+    registers, B's hi and lo tiles) truncating into a fresh accumulator
+    (``chain``) that is added to the sum in round-to-nearest f32. Faults:
+    ``never_zeroed`` (the fresh accumulator carried into the next slice),
+    ``stale_lo`` (a slice read against the previous slice's B lo),
+    ``lo_hi_dropped``, ``one_chain`` (the whole contraction in one
+    accumulator), and ``k_tail`` and ``passes=1`` as ``gemm``'s."""
+    kd = a.shape[1]
+    end = kd - kd % stage if k_tail else kd
+    acc = torch.zeros(a.shape[0], w.shape[0])
+    part, prev_bl = None, None
+    for k0 in range(0, end, stage):
+        ah, al = split(a[:, k0:k0 + stage])
+        bh, bl = split(w[:, k0:k0 + stage].float().t())
+        lo = bl
+        if fault == "stale_lo":
+            lo = torch.zeros_like(bl) if prev_bl is None else prev_bl[:bl.shape[0]]
+        prev_bl = bl
+        carried = part if fault in ("never_zeroed", "one_chain") else None
+        part = chain(carried, tc_products(ah, al, bh, lo,
+                                          fault == "lo_hi_dropped", passes))
+        if fault != "one_chain":
+            acc = acc + part
+    return part if fault == "one_chain" else acc
 
 
 def _split(t, heads):
@@ -118,7 +190,10 @@ def _k1_emulated(q, k, v, heads, scale, bk, fault=None):
     """csrc/flash_attention.cu flash_fwd_f32_kernel on the CPU: K/V in
     BK-row stages zero-filled past M, the ragged tail scored -inf, the row
     max over the raw scores, p = exp2(s c - m c) in f32 (P never rounded),
-    O += P V, O / l; lse = m scale + ln l. Returns (out, lse)."""
+    O += P V, O / l; lse = m scale + ln l. Returns (out, lse). At d = 512,
+    flash_fwd_f32_wgmma_kernel's schedule: ``_k1_wgmma_emulated``."""
+    if q.shape[-1] // heads == 512:
+        return _k1_wgmma_emulated(q, k, v, heads, scale, bk, fault)
     passes = 1 if fault == "tf32_one_pass" else 3
     qh, kh, vh = (_split(t, heads) for t in (q, k, v))
     b, h, n, d = qh.shape
@@ -140,13 +215,80 @@ def _k1_emulated(q, k, v, heads, scale, bk, fault=None):
     return _packed(out), (m_run * scale + torch.log(den))[..., 0]
 
 
-# csrc/flash_attention.cu Fwd40F, Fwd80F, Fwd512F: K/V rows a stage
-K1_BK = {40: 64, 80: 32, 512: 16}
+def _k1_wgmma_emulated(q, k, v, heads, scale, bk, fault=None):
+    """flash_fwd_f32_wgmma_kernel (K1/f32 at d = 512) on the CPU. Per tile
+    of ``bk`` keys (zeros past M) S is computed once: warpgroup g sums d's
+    32-wide chunks 8 g .. 8 g + 7, each chunk's products (``tc_products``:
+    Q split as it is read, K's hi and lo tiles) truncating into a fresh
+    accumulator (``chain``) added in round-to-nearest f32; S = S_0 + S_1
+    through shared memory. The ragged tail scores -inf; the online softmax
+    runs in f32, P unrounded; O += P V on wgmma too, the tile's products
+    (P split once, V's transposed hi and lo tiles) truncating into a fresh
+    accumulator added to O in RN. Faults: ``stale_partial`` (S_1 of the previous tile, a
+    stale shared-memory stage), ``stale_k_lo`` (the previous chunk's K lo),
+    ``d_chunk_dropped``, ``lo_hi_dropped``, ``never_zeroed`` (a chunk's
+    accumulator carried into the next), ``tf32_one_pass``, ``kv_tail``.
+    Returns (out, lse)."""
+    passes = 1 if fault == "tf32_one_pass" else 3
+    qh, kh, vh = (_split(t, heads) for t in (q, k, v))
+    b, h, n, d = qh.shape
+    m = kh.shape[2]
+    c = torch.tensor(scale, dtype=F32) * torch.tensor(1.4426950408889634, dtype=F32)
+    m_run = torch.full((b, h, n, 1), -torch.inf)
+    den = torch.zeros(b, h, n, 1)
+    acc = torch.zeros(b, h, n, d)
+    prev_s1 = torch.zeros(b, h, n, bk)
+    end = m - m % bk if fault == "kv_tail" else m
+    for k0 in range(0, end, bk):
+        rows = min(bk, m - k0)
+        kt, vt = torch.zeros(b, h, bk, d), torch.zeros(b, h, bk, d)
+        kt[:, :, :rows], vt[:, :, :rows] = kh[:, :, k0:k0 + rows], vh[:, :, k0:k0 + rows]
+        halves = []
+        for g in (0, 1):
+            sp, part, prev_kl = torch.zeros(b, h, n, bk), None, None
+            for ch in range(8 * g, 8 * g + 8):
+                if fault == "d_chunk_dropped" and ch == 11:
+                    continue
+                cols = slice(32 * ch, 32 * ch + 32)
+                q_hi, q_lo = split(qh[..., cols])
+                k_hi, k_lo = split(kt[..., cols].transpose(-1, -2))
+                lo = k_lo
+                if fault == "stale_k_lo":
+                    lo = torch.zeros_like(k_lo) if prev_kl is None else prev_kl
+                prev_kl = k_lo
+                part = chain(part if fault == "never_zeroed" else None,
+                             tc_products(q_hi, q_lo, k_hi, lo,
+                                         fault == "lo_hi_dropped", passes))
+                sp = sp + part
+            halves.append(sp)
+        s = halves[0] + (prev_s1 if fault == "stale_partial" else halves[1])
+        prev_s1 = halves[1]
+        s[..., rows:] = -torch.inf
+        m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+        p = torch.exp2(s * c - m_new * c)
+        alpha = torch.exp2((m_run - m_new) * c)
+        den = den * alpha + p.sum(-1, keepdim=True)
+        p_hi, p_lo = split(p)
+        v_hi, v_lo = split(vt)
+        acc = acc * alpha + chain(None, tc_products(p_hi, p_lo, v_hi, v_lo,
+                                                    passes=passes))
+        m_run = m_new
+    out = acc * (1.0 / den)
+    return _packed(out), (m_run * scale + torch.log(den))[..., 0]
+
+
+# csrc/flash_attention.cu Fwd40F, Fwd80F, Fwd512W: K/V rows a stage
+K1_BK = {40: 64, 80: 32, 512: 32}
 
 
 @pytest.mark.parametrize("d,fault", [
     *((d, f) for d in (40, 80, 512) for f in (None, "tf32_one_pass")),
     (80, "kv_tail"), (80, "rescale"), (40, "kv_tail"), (512, "kv_tail"),
+    # d = 512 on wgmma: a stale shared-memory stage (the other warpgroup's
+    # partial S, or K's lo tile), a dropped chunk of d, no lo*hi term, a
+    # fresh accumulator never zeroed
+    *((512, f) for f in ("stale_partial", "stale_k_lo", "d_chunk_dropped",
+                         "lo_hi_dropped", "never_zeroed")),
 ])
 def test_k1_f32_tolerance_separates_rounding_from_faults(d, fault):
     # M = 1054 (the 32^2 gated sites' length) leaves a ragged last stage at
@@ -367,12 +509,13 @@ def test_int8_values_split_exactly_in_tf32():
 
 
 def _k8_f32_emulated(kid, x, w, b, r=None, fault=None):
-    """csrc/matmul.cu's f32 K8a (acc + b, then + r) or K8b ((acc_a + ba)
-    gelu(acc_g + bg)) on the tile GEMM."""
+    """csrc/matmul.cu's f32 K8a (acc + b, then + r) on the TF32 wgmma
+    mainloop (32-deep stages), or K8b ((acc_a + ba) gelu(acc_g + bg)) on
+    the tile GEMM."""
     kw = dict(passes=1 if fault == "tf32_one_pass" else 3,
               k_tail=fault == "k_tail")
     if kid == "K8a":
-        y = gemm(x, w, **kw)
+        y = gemm(x, w, stage=32, fault=fault, **kw)
         if b is not None and fault != "bias_dropped":
             y = y + b
         return y if r is None else y + r
@@ -387,6 +530,8 @@ def _k8_f32_emulated(kid, x, w, b, r=None, fault=None):
     ("K8a", 1280, 320, "b", None), ("K8a", 1280, 320, "br", None),
     ("K8a", 72, 96, "", None), ("K8a", 1280, 320, "b", "tf32_one_pass"),
     ("K8a", 72, 96, "br", "k_tail"), ("K8a", 1280, 320, "br", "bias_dropped"),
+    ("K8a", 1280, 320, "b", "stale_lo"), ("K8a", 1280, 320, "br", "lo_hi_dropped"),
+    ("K8a", 72, 96, "b", "never_zeroed"), ("K8a", 1280, 320, "b", "never_zeroed"),
     ("K8b", 320, 1280, "b", None), ("K8b", 72, 96, "", None),
     ("K8b", 320, 1280, "b", "tf32_one_pass"), ("K8b", 72, 96, "b", "k_tail"),
 ])
@@ -405,6 +550,37 @@ def test_k8_f32_tolerance_separates_rounding_from_faults(kid, k, n, extras, faul
     out = _k8_f32_emulated(kid, x, w, b, r, fault)
     got = agreement(tol_id(kid, F32), out, ref)
     assert got["ok"] == (fault is None), got
+
+
+def test_truncating_add_rounds_toward_zero():
+    # rz: float64 to f32 toward zero where round-to-nearest rounds away;
+    # chain: a fresh accumulator takes its first product as it is, then
+    # truncates each sum into itself
+    up = 1.0 + 2.0 ** -23 - 2.0 ** -30   # nearest f32: 1 + 2^-23
+    x = torch.tensor([up, -up, 3.0], dtype=torch.float64)
+    assert x.float().tolist() == [1.0 + 2.0 ** -23, -(1.0 + 2.0 ** -23), 3.0]
+    assert rz(x).tolist() == [1.0, -1.0, 3.0]
+    one = torch.ones(1, 1)
+    tiny = torch.full((1, 1), 2.0 ** -23 - 2.0 ** -30)
+    assert chain(None, [(one, one), (tiny, one)]).item() == 1.0
+    assert chain(None, [(-one, one), (-tiny, one)]).item() == -1.0
+
+
+@pytest.mark.parametrize("k", [1280, 2560, 5120])
+def test_k8a_f32_chain_lengths_stay_within_the_row(k):
+    # the routes-f32 down-projections' contractions (K = 1280, 2560, 5120)
+    # under the truncation model: a fresh accumulator a 32-deep stage (12
+    # products) holds the unchanged K8a/f32 row; one accumulator over the
+    # whole contraction drifts several times further (toward zero)
+    m, n = 64, 96
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(m, k, generator=g)
+    w = torch.randn(n, k, generator=g) * k ** -0.5
+    ref = linear_plain(x, w)
+    fresh = agreement("K8a/f32", gemm(x, w, stage=32), ref)
+    assert fresh["ok"], fresh
+    long = agreement("K8a/f32", gemm(x, w, stage=32, fault="one_chain"), ref)
+    assert long["rms_rel_err"] > 3 * fresh["rms_rel_err"], (long, fresh)
 
 
 def test_f32_rows_bound_the_whole_tensor_under_one_tf32_pass():
