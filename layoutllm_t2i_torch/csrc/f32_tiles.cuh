@@ -1,5 +1,7 @@
-// f32 tile products for the f32 forms of K1, K5a/K5b, K4, K6, K7, K8a and
-// K8b (sm_90a), and the tile GEMM the FF and matmul forms share.
+// f32 tile products for the f32 forms of K1, K5a/K5b, K7 and K8b (sm_90a),
+// the tile GEMM of K7/f32 and K8b/f32, and the split into hi and lo that
+// tf32_gemm.cuh's TF32 wgmma kernels (K1/f32 at d 512, K4/f32, K6/f32,
+// K8a/f32) share.
 //
 // "f32" means f32 accuracy: a single TF32 pass rounds each operand to 10
 // mantissa bits (about 4e-4 relative error of a product), which is a

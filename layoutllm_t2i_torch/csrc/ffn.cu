@@ -59,22 +59,32 @@
 // llt2i_ffn_geglu_f32, llt2i_ffn_ln_geglu_q_f32), for f32 activations, as
 // the Pallas kernels take them: LN(x) and h stay f32, as the kernels keep
 // them in x's type (scratch (M, inner [+ K]) f32), and every product runs
-// on mma.sync at f32 accuracy (csrc/f32_tiles.cuh): 3xTF32, or two TF32
-// products against K7's int8 weights (exact in TF32, mma2). All are the
-// tile GEMM gemm_f32 of f32_tiles.cuh (128 x 64 tiles, 32-deep k steps in a
-// two-stage cp.async ring, eight warps of 32 x 32) with f32 epilogues:
-//   K4/f32  ffn_norm_rows_f32_kernel, then ffn_up_f32_kernel (GEGLU) and
-//           ffn_down_f32_kernel (x + s (acc + b2));
+// at f32 accuracy: 3xTF32, or two TF32 products against K7's int8 weights
+// (exact in TF32).
+//   K4/f32  ffn_norm_rows_f32_kernel, then ffn_up_f32_wgmma_kernel (GEGLU)
+//           and ffn_down_f32_wgmma_kernel (x + s (acc + b2)), both on
+//           tf32_gemm.cuh's TF32 wgmma + TMA mainloop. The up kernel's B
+//           tile is 64 Wa rows over the same 64 Wg rows, two boxes from two
+//           tensor maps (each zero past its own inner rows), so one m64n128
+//           wgmma chain computes both and a thread holds an h column's a
+//           and gate (groups j and j + 8): 128 x 64 tiles of h. The down
+//           kernel is K8a/f32's GEMM with K4's epilogue, tiles 128 x 160,
+//           or 80 where that fills the card better (gemm_tiles.cuh
+//           pick_narrow: at M = 1024, K = 1280, 64 against 128 SMs).
 //   K6/f32  K4/f32's up kernel on x and its down kernel with r in place of
 //           x and s = 1: (acc + b2) + r, exact as `_ffn_kernel`'s residual
 //           add in x's type (ffn.py:64-67) is in f32;
 //   K7/f32  K4/f32's pre-pass, then ffn_q_up_f32_kernel and
-//           ffn_q_down_f32_kernel on int8 B tiles (cp.async moves a
-//           quarter of the f32 bytes): a = acc sa + ba, y = acc s2 + b2,
-//           out = x + s y, as `_ffn_ln_q_kernel` (ffn.py:356-368).
+//           ffn_q_down_f32_kernel on int8 B tiles: f32_tiles.cuh's tile
+//           GEMM gemm_f32 (128 x 64 tiles, 32-deep k steps in a two-stage
+//           cp.async ring, eight warps of 32 x 32, mma.sync, two TF32
+//           products a product, mma2; cp.async moves a quarter of the f32
+//           bytes): a = acc sa + ba, y = acc s2 + b2, out = x + s y, as
+//           `_ffn_ln_q_kernel` (ffn.py:356-368).
 // Bound: operations at the TF32 rate.
 #include "f32_tiles.cuh"
 #include "gemm_tiles.cuh"
+#include "tf32_gemm.cuh"
 
 namespace {
 
@@ -344,78 +354,99 @@ ffn_norm_rows_f32_kernel(const float* __restrict__ x,
   }
 }
 
-// the tile GEMM of f32_tiles.cuh
-using f32_tiles::f32_gemm_smem;
-using f32_tiles::gemm_f32;
-using f32_tiles::kF32BM;
-using f32_tiles::kF32BN;
-using f32_tiles::kF32Threads;
+// K4/f32's (and K6/f32's) GEGLU epilogue on the up tile: groups j < 8 of
+// acc are xn Wa^T, groups j + 8 xn Wg^T at the same h columns n0 / 2 + 8 j
+// + 2 (lane % 4) + {0, 1}; h = (a + ba) * gelu_erf(g + bg) in f32
+struct GegluF32 {
+  const float* b1;  // (2 inner,) = [ba; bg]
+  float* h;         // (M, inner)
+  int M, inner;
 
-// h = (xn Wa^T + ba) * gelu(xn Wg^T + bg), f32, tiles of h (M, inner)
-__global__ void __launch_bounds__(kF32Threads, 2)
-ffn_up_f32_kernel(const float* __restrict__ xn, const float* __restrict__ w1,
-                  const float* __restrict__ b1, float* __restrict__ h, int M,
-                  int K, int inner) {
-  extern __shared__ __align__(16) float smem_f[];
-  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
-  const float* const B[2] = {w1, w1 + (long long)inner * K};
-  float acc[2][2][4][4];
-  gemm_f32<2>(acc, xn, K, M, B, K, inner, K, m0, n0, smem_f);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __device__ __forceinline__ void operator()(const float (&acc)[64], int row0,
+                                             int n0, int lane) const {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = m0 + 32 * (warp >> 1) + 16 * mi + (lane >> 2) + 8 * r;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
       if (row >= M) continue;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + 32 * (warp & 1) + 8 * nt + 2 * (lane & 3);
-        if (col >= inner) continue;
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 / 2 + 8 * j + 2 * (lane & 3);
+        if (col >= inner) continue;  // inner % 4 == 0: col + 1 < inner too
         float o[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float a = acc[0][mi][nt][2 * r + e] + b1[col + e];
-          const float g = acc[1][mi][nt][2 * r + e] + b1[inner + col + e];
+          const float a = acc[4 * j + 2 * hr + e] + b1[col + e];
+          const float g = acc[4 * (j + 8) + 2 * hr + e] + b1[inner + col + e];
           o[e] = a * gelu_erf(g);
         }
         *reinterpret_cast<float2*>(h + (long long)row * inner + col) =
             make_float2(o[0], o[1]);
       }
     }
-}
+  }
+};
 
-// out = res + s * (h W2^T + b2), f32, tiles of out (M, K); the residual
-// res is K4's x, or K6's r with s = 1
-__global__ void __launch_bounds__(kF32Threads, 2)
-ffn_down_f32_kernel(const float* __restrict__ h, const float* __restrict__ w2,
-                    const float* __restrict__ b2, const float* __restrict__ res,
-                    float* __restrict__ out, const float* __restrict__ s_ptr,
-                    float s_val, int M, int K, int inner) {
-  extern __shared__ __align__(16) float smem_f[];
-  const float s = s_ptr != nullptr ? *s_ptr : s_val;
-  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
-  const float* const B[1] = {w2};
-  float acc[1][2][4][4];
-  gemm_f32<1>(acc, h, inner, M, B, inner, K, inner, m0, n0, smem_f);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// The down epilogue: out = res + s * (acc + b2), f32; res is K4's x, or
+// K6's r with s = 1
+struct ScaledResidualF32 {
+  const float* b2;   // (N,)
+  const float* res;  // (M, N)
+  float* out;        // (M, N)
+  float s;
+  int M, N;
+
+  template <int W>
+  __device__ __forceinline__ void operator()(const float (&acc)[W], int row0,
+                                             int n0, int lane) const {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = m0 + 32 * (warp >> 1) + 16 * mi + (lane >> 2) + 8 * r;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
       if (row >= M) continue;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + 32 * (warp & 1) + 8 * nt + 2 * (lane & 3);
-        if (col >= K) continue;
-        const long long i = (long long)row * K + col;
-        const float2 xr = *reinterpret_cast<const float2*>(res + i);
-        *reinterpret_cast<float2*>(out + i) = make_float2(
-            xr.x + (acc[0][mi][nt][2 * r] + b2[col]) * s,
-            xr.y + (acc[0][mi][nt][2 * r + 1] + b2[col + 1]) * s);
+      for (int j = 0; j < W / 4; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        if (col >= N) continue;  // N % 4 == 0: col + 1 < N too
+        const long long i = (long long)row * N + col;
+        const float2 r = *reinterpret_cast<const float2*>(res + i);
+        *reinterpret_cast<float2*>(out + i) =
+            make_float2(r.x + (acc[4 * j + 2 * hr] + b2[col]) * s,
+                        r.y + (acc[4 * j + 2 * hr + 1] + b2[col + 1]) * s);
       }
     }
+  }
+};
+
+// up tiles: 128 rows x (64 Wa + 64 Wg) B rows, 48 KB a stage, four stages;
+// down tiles 128 x 160, or 80 where that fills the card better
+using UpF32Cfg = tf32_gemm::Cfg<128>;
+using DownF32Wide = tf32_gemm::Cfg<160>;
+using DownF32Narrow = tf32_gemm::Cfg<80>;
+
+// h = (xn Wa^T + ba) * gelu(xn Wg^T + bg), f32, 128 x 64 tiles of h (M,
+// inner); twa and twg map Wa's and Wg's inner rows
+__global__ void __launch_bounds__(UpF32Cfg::kThreads, 1)
+ffn_up_f32_wgmma_kernel(const __grid_constant__ CUtensorMap txn,
+                        const __grid_constant__ CUtensorMap twa,
+                        const __grid_constant__ CUtensorMap twg,
+                        const float* __restrict__ b1, float* __restrict__ h,
+                        int M, int K, int inner) {
+  tf32_gemm::gemm_tile_pair<UpF32Cfg>(&txn, &twa, &twg, K,
+                                      GegluF32{b1, h, M, inner});
+}
+
+// out = res + s * (h W2^T + b2), f32, tiles of out (M, K)
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+ffn_down_f32_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                          const __grid_constant__ CUtensorMap tw2,
+                          const float* __restrict__ b2,
+                          const float* __restrict__ res,
+                          float* __restrict__ out,
+                          const float* __restrict__ s_ptr, float s_val, int M,
+                          int K, int inner) {
+  const float s = s_ptr != nullptr ? *s_ptr : s_val;
+  tf32_gemm::gemm_tile<C>(&th, &tw2, inner,
+                          ScaledResidualF32{b2, res, out, s, M, K});
 }
 
 // The f32 up and down GEMMs of K4 (and K6) on `st`: h = GEGLU(a W1^T + b1)
@@ -424,25 +455,44 @@ int launch_f32_ffn(const float* a, const void* w1, const void* b1,
                    const void* w2, const void* b2, const void* res, float* h,
                    void* out, const void* s_ptr, float s_val, int M, int K,
                    int inner, cudaStream_t st) {
-  static unsigned long long up_set = 0, down_set = 0;
-  int err = allow_smem(ffn_up_f32_kernel, f32_gemm_smem<2>(), up_set);
+  const float* wa = static_cast<const float*>(w1);
+  const bool narrow =
+      gemm_tiles::pick_narrow(M, K, DownF32Wide::kBN, DownF32Narrow::kBN);
+  CUtensorMap ta, twa, twg, th, tw2;
+  int err = tensor_map_2d_f32(&ta, a, M, K, tf32_gemm::kBM);
+  if (err == 0) err = tensor_map_2d_f32(&twa, wa, inner, K, UpF32Cfg::kBN / 2);
   if (err == 0)
-    err = allow_smem(ffn_down_f32_kernel, f32_gemm_smem<1>(), down_set);
+    err = tensor_map_2d_f32(&twg, wa + (long long)inner * K, inner, K,
+                            UpF32Cfg::kBN / 2);
+  if (err == 0) err = tensor_map_2d_f32(&th, h, M, inner, tf32_gemm::kBM);
+  if (err == 0)
+    err = tensor_map_2d_f32(&tw2, w2, K, inner,
+                            narrow ? DownF32Narrow::kBN : DownF32Wide::kBN);
   if (err != 0) return err;
-  const int mt = (M + kF32BM - 1) / kF32BM;
-  ffn_up_f32_kernel<<<dim3((inner + kF32BN - 1) / kF32BN, mt), kF32Threads,
-                      f32_gemm_smem<2>(), st>>>(
-      a, static_cast<const float*>(w1), static_cast<const float*>(b1), h, M,
-      K, inner);
-  err = (int)cudaGetLastError();
+  // the up grid: 2 inner B rows in tiles of 128, 64 h columns each
+  err = tf32_gemm::launch<UpF32Cfg, ffn_up_f32_wgmma_kernel>(
+      M, 2 * inner, st, ta, twa, twg, static_cast<const float*>(b1), h, M, K,
+      inner);
   if (err != 0) return err;
-  ffn_down_f32_kernel<<<dim3((K + kF32BN - 1) / kF32BN, mt), kF32Threads,
-                        f32_gemm_smem<1>(), st>>>(
-      h, static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<const float*>(res), static_cast<float*>(out),
-      static_cast<const float*>(s_ptr), s_val, M, K, inner);
-  return (int)cudaGetLastError();
+  const float* b = static_cast<const float*>(b2);
+  const float* r = static_cast<const float*>(res);
+  float* o = static_cast<float*>(out);
+  const float* sp = static_cast<const float*>(s_ptr);
+  return narrow
+             ? tf32_gemm::launch<DownF32Narrow,
+                                 ffn_down_f32_wgmma_kernel<DownF32Narrow>>(
+                   M, K, st, th, tw2, b, r, o, sp, s_val, M, K, inner)
+             : tf32_gemm::launch<DownF32Wide,
+                                 ffn_down_f32_wgmma_kernel<DownF32Wide>>(
+                   M, K, st, th, tw2, b, r, o, sp, s_val, M, K, inner);
 }
+
+// K7/f32's tile GEMM, f32_tiles.cuh's
+using f32_tiles::f32_gemm_smem;
+using f32_tiles::gemm_f32;
+using f32_tiles::kF32BM;
+using f32_tiles::kF32BN;
+using f32_tiles::kF32Threads;
 
 // ---------------------------------------------------------------------------
 // K7 in f32: K4/f32's GEMMs on int8 B tiles (two TF32 products a product,

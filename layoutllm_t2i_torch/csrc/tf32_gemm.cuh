@@ -1,8 +1,9 @@
 // The TF32 wgmma mainloop of the f32 GEMM forms (sm_90a): f32 accuracy
 // (3xTF32, csrc/f32_tiles.cuh) on warp-specialised wgmma fed by a TMA
-// ring. K8a/f32 (matmul.cu linear_f32_wgmma_kernel) runs on it; the other
-// users of f32_tiles.cuh's gemm_f32 (K4/f32, K6/f32, K7/f32, K8b/f32) are
-// the next to move here.
+// ring. K8a/f32 (matmul.cu linear_f32_wgmma_kernel) and the up and down
+// GEMMs of K4/f32 and K6/f32 (ffn.cu ffn_up_f32_wgmma_kernel,
+// ffn_down_f32_wgmma_kernel) run on it; the other users of f32_tiles.cuh's
+// gemm_f32 (K7/f32, K8b/f32) are the next to move here.
 //
 // Every product is A B^T with both operands row-major over the
 // contraction: A (M, K) activations, B (N, K) weights in the torch (out,
@@ -21,7 +22,10 @@
 //    rows, each row 32 f32 values (one 128-byte swizzle row, the layout of
 //    hopper.cuh), from 2-d tensor maps. Rows past M or N and columns past K
 //    come in as zeros, so a ragged K adds nothing. It refills a stage once
-//    all eight warps have released it ("empty").
+//    all eight warps have released it ("empty"). gemm_tile_pair fills the
+//    B tile from two maps, kBN / 2 rows of each at the same row (the GEGLU
+//    GEMM's Wa and Wg rows of one block of h columns), each map zero past
+//    its own last row.
 //  * B is split once, by all 256 threads together, a stage ahead: while
 //    the tensor cores run stage t's products, each thread rewrites its
 //    share of stage t + 1's B values as hi = tf32(x) in place and writes
@@ -119,14 +123,13 @@ __device__ __forceinline__ void split_tile(float4* p, float4* lo, int pieces,
   }
 }
 
-// One block's tile: acc = A[m0 : m0 + 128] B[n0 : n0 + kBN]^T over the
-// whole contraction K (m0 = 128 blockIdx.y, n0 = kBN blockIdx.x), then
-// epi(acc, row0, n0, lane) on every consumer thread. ta and tb are
-// tensor_map_2d_f32 maps of A (boxes of kBM rows) and B (kBN rows). Launch
-// with C::kThreads threads and C::kSmemBytes of dynamic shared memory.
-template <class C, class Epi>
-__device__ __forceinline__ void gemm_tile(const CUtensorMap* ta,
-                                          const CUtensorMap* tb, int K,
+// gemm_tile's and gemm_tile_pair's body: with kPairB, stage t's B tile is
+// tb's rows r .. r + kBN / 2 - 1 over tb2's same rows (r = kBN / 2
+// blockIdx.x), else tb's rows n0 .. n0 + kBN - 1
+template <class C, bool kPairB, class Epi>
+__device__ __forceinline__ void tile_loop(const CUtensorMap* ta,
+                                          const CUtensorMap* tb,
+                                          const CUtensorMap* tb2, int K,
                                           const Epi& epi) {
   constexpr int S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -145,7 +148,14 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* ta,
     const uint32_t st = ring + s * C::kStageBytes;
     mbar_expect_tx(full + 8 * s, C::kABytes + C::kBBytes);
     tma_load_2d(st, ta, full + 8 * s, kBK * t, m0);
-    tma_load_2d(st + C::kABytes, tb, full + 8 * s, kBK * t, n0);
+    if constexpr (kPairB) {
+      const int r = C::kBN / 2 * blockIdx.x;
+      tma_load_2d(st + C::kABytes, tb, full + 8 * s, kBK * t, r);
+      tma_load_2d(st + C::kABytes + C::kBBytes / 2, tb2, full + 8 * s,
+                  kBK * t, r);
+    } else {
+      tma_load_2d(st + C::kABytes, tb, full + 8 * s, kBK * t, n0);
+    }
   };
   // this thread's share of stage t's B split, fenced for wgmma's reads
   auto split_b = [&](int t) {
@@ -212,6 +222,34 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* ta,
     if (t + 1 < steps) named_bar_sync(1, C::kThreads);  // stage t + 1 split
   }
   epi(acc, blockIdx.y * kBM + r0, n0, lane);
+}
+
+// One block's tile: acc = A[m0 : m0 + 128] B[n0 : n0 + kBN]^T over the
+// whole contraction K (m0 = 128 blockIdx.y, n0 = kBN blockIdx.x), then
+// epi(acc, row0, n0, lane) on every consumer thread. ta and tb are
+// tensor_map_2d_f32 maps of A (boxes of kBM rows) and B (kBN rows). Launch
+// with C::kThreads threads and C::kSmemBytes of dynamic shared memory.
+template <class C, class Epi>
+__device__ __forceinline__ void gemm_tile(const CUtensorMap* ta,
+                                          const CUtensorMap* tb, int K,
+                                          const Epi& epi) {
+  tile_loop<C, false>(ta, tb, nullptr, K, epi);
+}
+
+// The same over two B operands of kBN / 2 rows a block each: acc's columns
+// 0 .. kBN / 2 - 1 are A tb[r : r + kBN / 2]^T, the rest A tb2[r : r + kBN /
+// 2]^T (r = kBN / 2 blockIdx.x). In the accumulator map a thread's
+// columns 8 j + 2 (lane % 4) + {0, 1} of the first operand's product and
+// the same columns of the second's are its groups j and j + kBN / 16, so
+// an epilogue meets both without a shuffle. tb and tb2 are maps with boxes
+// of kBN / 2 rows (whole 1 KB swizzle atoms, kBN % 16 == 0); the epilogue
+// still gets n0 = kBN blockIdx.x.
+template <class C, class Epi>
+__device__ __forceinline__ void gemm_tile_pair(const CUtensorMap* ta,
+                                               const CUtensorMap* tb,
+                                               const CUtensorMap* tb2, int K,
+                                               const Epi& epi) {
+  tile_loop<C, true>(ta, tb, tb2, K, epi);
 }
 
 // Launch kKern (a gemm_tile kernel of config C) over an (M, N) output on

@@ -4,7 +4,8 @@
   ``layoutllm_t2i_tpu/ops/pallas/ffn.py`` ``_ffn_ln_call`` /
   ``_ffn_ln_kernel`` (``ffn_ln_geglu_fused``, s = 1, and
   ``ffn_ln_geglu_scaled``). bf16 or f32 (``llt2i_ffn_ln_geglu_f32``,
-  3xTF32 products, LN(x) and h kept in f32), picked from ``x.dtype``.
+  3xTF32 products on TF32 wgmma, LN(x) and h kept in f32), picked from
+  ``x.dtype``.
 * K6 ``ffn_geglu``: the FF without the LN, its residual passed in.
   Replaces ``_ffn_call`` / ``_ffn_kernel`` (``ffn_geglu_fused``). bf16 or
   f32 (``llt2i_ffn_geglu_f32``: K4/f32's up and down kernels, h in f32).
@@ -165,8 +166,8 @@ def _forward(x, ln_w, ln_b, w1, b1, w2, b2, s, eps):
     if not (k % 8 == 0 and inner % 8 == 0):
         raise ValueError(
             f"ffn_ln_geglu: K={k}, inner={inner} must be multiples of 8")
-    # x, ln_w and ln_b in 16-byte vectors, w1 and w2 through TMA (f32:
-    # 16-byte cp.async), the biases in pairs of values
+    # x, ln_w and ln_b in 16-byte vectors, w1 and w2 through TMA, the
+    # biases in pairs of values
     pair = 2 * x.element_size()
     for name, t, nbytes in (
             ("ffn_ln_geglu: x", x, 16), ("ffn_ln_geglu: ln_w", ln_w, 16),
@@ -253,13 +254,13 @@ def _forward_res(x, w1, b1, w2, b2, r):
     require(w1.shape == (2 * inner, k) and b1.shape == (2 * inner,)
             and w2.shape == (k, inner) and b2.shape == (k,)
             and r.shape == (m, k), "ffn_geglu: shapes")
-    # rows of x, w1, h and w2 in whole 16-byte vectors (TMA or cp.async)
+    # rows of x, w1, h and w2 in whole 16-byte vectors (TMA)
     v = vector_elems(dtype)
     if not (k % v == 0 and inner % v == 0):
         raise ValueError(
             f"ffn_geglu: K={k}, inner={inner} must be multiples of {v}")
-    # x, w1 and w2 through TMA (f32: 16-byte cp.async), the biases in bf16
-    # pairs or f32 values, r in pairs of values
+    # x, w1 and w2 through TMA, the biases in bf16 pairs or f32 values, r
+    # in pairs of values
     for name, t, nbytes in (
             ("ffn_geglu: x", x, 16), ("ffn_geglu: w1", w1, 16),
             ("ffn_geglu: w2", w2, 16), ("ffn_geglu: b1", b1, 4),

@@ -75,9 +75,8 @@ they add into an mma's C operand, so the kernels add each 8-deep step's
 f32_tiles.cuh mma3``). Chained through one running C, the same kernels
 read 3e-5 over 4096 keys and 3.0e-5 for K4 at K = 1280, growing with the
 sum's length: the K4 row failed there.
-K6, K7, K8a and K8b in f32 ("K6/f32", "K7/f32", "K8a/f32", "K8b/f32") run
-K4/f32's tile GEMM and take K4/f32's numbers: outputs of rms about 1, f32
-on both sides. K7's int8 weights are exact in TF32, so two products (a_hi q
+K6, K7, K8a and K8b in f32 ("K6/f32", "K7/f32", "K8a/f32", "K8b/f32") take
+K4/f32's numbers: outputs of rms about 1, f32 on both sides. K7's int8 weights are exact in TF32, so two products (a_hi q
 + a_lo q) give the 3xTF32 accuracy. Their emulated rounding lies at most
 6.2e-7 of rms(b) off in the whole-tensor error; one TF32 pass 1.2e-4 to
 4.8e-4, K7's scale folded into its weights before the dot 1.2e-4, K8a's
@@ -85,6 +84,14 @@ bias dropped 7.1e-2, a dropped ragged k step 9.8e-2 to 0.45, K6's
 residual added twice 0.32, K7's s2 dropped 1.7e2
 (``tests/test_torch_f32_kernels.py``). On the H100 they read at most
 1.03e-6.
+K4/f32 and K6/f32 run their up and down GEMMs on tf32_gemm.cuh's TF32
+wgmma mainloop, as K8a/f32 does, and keep their rows: under the truncation
+model (a fresh accumulator a 32-deep stage, added in round-to-nearest) the
+emulation lies at most 6.7e-7 of rms(b) off; a gate half read from Wa's
+rows, a fresh accumulator never zeroed or a stage summed against the
+previous stage's B lo, in either GEMM, 5.2e-5 to 4.8; one accumulator over
+the down product's 5120-deep contraction 2.6e-5 to 2.8e-5 (x of rms 1, s =
+1), past the 2e-5 bound (``tests/test_torch_f32_kernels.py``).
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels to
 these numbers; ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_quant.py`` show on the CPU that they pass the kernels'

@@ -26,12 +26,13 @@ for K4's, K6's, K8a's and K8b's TMA and wgmma design (gemm_tiles.cuh;
 K8b with and without its bias), ragged M, N and K, the grid-fill shape,
 operands fenced by NaN and Inf, outputs and scratch pre-filled with NaN,
 bitwise repeatability and misaligned operands; the f32 forms of K6, K7,
-K8a and K8b (f32_tiles.cuh's tile GEMM) at ragged shapes and at the f32
-generation's and split-route training's shapes, with and without K8a's
-bias and residual and K8b's bias, K7's s as a device tensor, two launches
-agreeing bit for bit, the size rules and the gradients of the K6, K8a and
-K8b Functions in f32; the TF32 wgmma kernels, K1/f32 at d 512 and K8a/f32
-(tf32_gemm.cuh), at ragged N, M and K (one row, widths off their tiles,
+K8a and K8b (K7 and K8b on f32_tiles.cuh's tile GEMM) at ragged shapes and
+at the f32 generation's and split-route training's shapes, with and
+without K8a's bias and residual and K8b's bias, K7's s as a device tensor,
+two launches agreeing bit for bit, the size rules and the gradients of the
+K6, K8a and K8b Functions in f32; the TF32 wgmma kernels, K1/f32 at d 512,
+K4/f32's and K6/f32's up and down GEMMs and K8a/f32 (tf32_gemm.cuh), at
+ragged N, M and K (one row, widths off their tiles,
 two heads), with K1's lse, on operands fenced by NaN and Inf, into a NaN
 output with a guard, and bit for bit over launches; and one generation of the fast preset (DPM, guidance
 interval, encoder cache) at small geometry through K1-K4 against the plain
@@ -878,10 +879,12 @@ def test_group_norm_f32_repeatable_and_fenced(dev, gen, f32, path, shape):
 
 
 @pytest.mark.parametrize("m,k", [(100, 320), (64, 72), (200, 640),
-                                 (32768, 320), (2048, 1280)])
+                                 (32768, 320), (2048, 1280), (1024, 1280)])
 @pytest.mark.parametrize("scale", [1.0, "tensor"])
 def test_ffn_ln_geglu_f32(dev, gen, f32, m, k, scale):
-    # ragged row blocks and k steps, and two of the training sites
+    # ragged row blocks and k steps (K = 72: inner 288, h columns off the
+    # 64-wide up tiles), two of the training sites, and the f32
+    # generation's M = 1024, where the down GEMM takes 80-wide tiles
     inner = 4 * k
     x = _rand(gen, m, k).float()
     lw, lb = _rand(gen, k, scale=0.2, shift=1.0).float(), _rand(gen, k, scale=0.2).float()
@@ -897,8 +900,9 @@ def test_ffn_ln_geglu_f32(dev, gen, f32, m, k, scale):
 
 def test_f32_products_sum_in_round_to_nearest(dev, gen, f32):
     # the longest sums of the training path: PV over 4096 keys (K1 at d
-    # 40) and K4's down product over inner = 5120. Each 3xTF32 step adds
-    # into its accumulator in round-to-nearest f32 (f32_tiles.cuh mma3):
+    # 40) and K4's down product over inner = 5120. Each 3xTF32 step or
+    # stage adds into its accumulator in round-to-nearest f32
+    # (f32_tiles.cuh mma3, tf32_gemm.cuh's fresh accumulator a stage):
     # chained through the tensor cores' truncating C operand instead, the
     # same kernels read 2.9e-5 and 3.0e-5 of rms(b) at these sites'
     # batch-8 shapes (PERF.md §6), K1 within its stated bound; the
@@ -1414,18 +1418,21 @@ def test_reward_model_on_the_card_matches_its_plain_route(dev):
 
 
 # ---------------------------------------------------------------------------
-# the f32 forms of K6, K7, K8a and K8b (f32_tiles.cuh's tile GEMM: 3xTF32,
-# or two TF32 products against K7's int8 weights), against the plain
-# versions in full f32
+# the f32 forms of K6, K7, K8a and K8b (3xTF32: K6 and K8a on TF32 wgmma,
+# K8b on f32_tiles.cuh's tile GEMM; K7 two TF32 products against its int8
+# weights on the tile GEMM), against the plain versions in full f32
 
 
 def _f32(*tensors):
     return [t.float() if t.is_floating_point() else t for t in tensors]
 
 
-# (M, K, inner): a ragged row block, widths off the 64-column tiles and a
-# ragged 32-deep k step (K = 72), and the split routes' training sites
-FF_F32_SHAPES = FF_SHAPES + [(32768, 320, 1280), (2048, 1280, 5120)]
+# (M, K, inner): a ragged row block, widths off the 64-column tiles (inner
+# 200: Wa's and Wg's tensor maps each end in a ragged box) and a ragged
+# 32-deep k step (K = 72), the split routes' training sites, and M = 1024,
+# where the down GEMM takes 80-wide tiles
+FF_F32_SHAPES = FF_SHAPES + [(32768, 320, 1280), (2048, 1280, 5120),
+                             (1024, 1280, 5120)]
 
 
 @pytest.mark.parametrize("m,k,inner", FF_F32_SHAPES)
@@ -1434,6 +1441,18 @@ def test_ffn_geglu_f32(dev, gen, f32, m, k, inner):
                                 *_ffn_weights(gen, k, inner))
     _check_f32("K6", lambda: K.ffn_geglu(x, w1, b1, w2, b2, r),
                lambda: K.ffn_geglu_plain(x, w1, b1, w2, b2, r), K.ffn_geglu)
+
+
+def test_ffn_geglu_f32_repeats_bit_for_bit(dev, gen, f32):
+    # each output summed by one thread in a fixed order: two launches give
+    # the same bits, on the 160-wide and the 80-wide down tiles
+    for m, k, inner in ((200, 320, 1280), (1024, 1280, 5120)):
+        x, r, w1, b1, w2, b2 = _f32(_rand(gen, m, k), _rand(gen, m, k),
+                                    *_ffn_weights(gen, k, inner))
+        a = K.ffn_geglu(x, w1, b1, w2, b2, r)
+        b = K.ffn_geglu(x, w1, b1, w2, b2, r)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and torch.isfinite(a).all(), (m, k, inner)
 
 
 # K % 16 and inner % 16 as in bf16: K = 80 ends the up GEMM in a 16-deep

@@ -2,19 +2,22 @@
 stated tolerances against CPU emulations of the kernels' arithmetic, and
 the plain versions against the Pallas kernels at the f32 block choices.
 
-The CUDA kernels run only on the card. Their f32 products are 3xTF32 on
-mma.sync (``csrc/f32_tiles.cuh``): each operand split into hi = tf32(x) and
+The CUDA kernels run only on the card. Their f32 products are 3xTF32, on
+mma.sync (``csrc/f32_tiles.cuh``) or on TF32 wgmma (``csrc/tf32_gemm.cuh``:
+K4, K6 and K8a, K1 at d 512): each operand split into hi = tf32(x) and
 lo = tf32(x - hi) (round to nearest, ties away, to 10 mantissa bits, as
 ``cvt.rna.tf32.f32``), three TF32 products hi*hi + hi*lo + lo*hi summed in
 f32. The emulations below repeat that split and each kernel's tiling
 (K1's online softmax over K/V stages with P in f32, K5's stages, the tile
-GEMM's 32-deep k steps and 128-row blocks, f32 LN(x) and h): they must
+GEMM's 32-deep k steps and 128-row blocks, the wgmma mainloop's 32-deep
+stages truncating into a fresh accumulator, f32 LN(x) and h): they must
 pass the f32 rows of ``kernels/tolerance.py`` against the plain versions,
 and a single TF32 pass (operands rounded once: a different function, about
 4e-4 off), a dropped ragged K/V tail or k step, a missing rescale, K4's s
 applied after the residual, K6's residual added twice, K8a's bias dropped,
-and K7's scale missing or folded into its weights before the dot must
-fail them. K7's weights are int8, exact in TF32 (tested), so its products
+K4's and K6's gate read from Wa's rows, a stale B lo, an unzeroed fresh
+accumulator or one accumulator over the 5120-deep down product, and K7's
+scale missing or folded into its weights before the dot must fail them. K7's weights are int8, exact in TF32 (tested), so its products
 are two TF32 passes, a_hi q + a_lo q.
 
 The Pallas kernels run in interpret mode, as the JAX package's own tests
@@ -367,19 +370,42 @@ def test_k5_f32_tolerance_separates_rounding_from_faults(d, kid, fault):
 # K4
 
 
+def _ff_f32_up(a, w1, b1, fault=None):
+    """The up GEMM of csrc/ffn.cu's f32 K4 and K6 on tf32_gemm.cuh's TF32
+    wgmma mainloop (``gemm(..., stage=32)``): Wa's and Wg's rows as two B
+    boxes of one tile, h = (a + ba) * gelu_erf(g + bg) kept in f32. Faults:
+    ``tf32_one_pass`` and ``k_tail``; ``gate_from_wa`` (the second box read
+    at Wa's rows); ``up_`` with ``never_zeroed``, ``stale_lo`` or
+    ``one_chain`` (``_gemm_wgmma``'s)."""
+    inner = w1.shape[0] // 2
+    gate_rows = w1[:inner] if fault == "gate_from_wa" else w1[inner:]
+    up = lambda w: gemm(a, w, **_ff_gemm_kw(fault, "up"))
+    return (up(w1[:inner]) + b1[:inner]) * torch.nn.functional.gelu(
+        up(gate_rows) + b1[inner:])
+
+
+def _ff_gemm_kw(fault, which):
+    """``gemm`` arguments of the up or down GEMM (``which``) under
+    ``fault``: ``tf32_one_pass`` and ``k_tail`` reach both, ``up_<f>`` and
+    ``down_<f>`` one of them."""
+    own = fault[len(which) + 1:] if fault and fault.startswith(which + "_") else None
+    return dict(stage=32, passes=1 if fault == "tf32_one_pass" else 3,
+                k_tail=fault == "k_tail", fault=own)
+
+
+def _ff_f32_products(a, w1, w2, b1, fault=None):
+    """The f32 K4's and K6's two GEMMs on a: ``_ff_f32_up``, then h W2^T on
+    the same mainloop. Returns the down product's sum (before b2)."""
+    return gemm(_ff_f32_up(a, w1, b1, fault), w2, **_ff_gemm_kw(fault, "down"))
+
+
 def _k4_f32_emulated(x, lw, lb, w1, b1, w2, b2, s, fault=None, eps=1e-5):
     """csrc/ffn.cu's f32 K4: LN(x) in f32 once per row (mean, then the
-    centred variance), the up GEMM against Wa and Wg and the down GEMM in
-    3xTF32 over 32-deep k steps, (a + ba) * gelu_erf(g + bg) kept in f32,
-    then x + s (acc + b2)."""
-    kw = dict(passes=1 if fault == "tf32_one_pass" else 3,
-              k_tail=fault == "k_tail")
-    m, inner = x.shape[0], w1.shape[0] // 2
+    centred variance), the up and down GEMMs as ``_ff_f32_products`` sums
+    them, then x + s (acc + b2)."""
+    m = x.shape[0]
     xn = _ln_f32(x, lw, lb, eps)
-    a = gemm(xn, w1[:inner], **kw) + b1[:inner]
-    gate = gemm(xn, w1[inner:], **kw) + b1[inner:]
-    h = a * torch.nn.functional.gelu(gate)
-    y = gemm(h, w2, **kw) + b2
+    y = _ff_f32_products(xn, w1, w2, b1, fault) + b2
     if fault == "s_after_residual":
         return (y + x) * s
     out = x + y * s
@@ -421,19 +447,69 @@ def test_k4_f32_tolerance_separates_rounding_from_faults(k, s, fault):
     assert got["ok"] == (fault is None), got
 
 
+def _ff_f32_case(kid, m, k, inner, fault):
+    """(emulated, plain) of K4/f32 (s = 0.5) or K6/f32 at (m, k, inner)."""
+    x, lw, lb, w1, b1, w2, b2 = _k4_inputs(m, k, inner)
+    if kid == "K4":
+        args = (x, lw, lb, w1, b1, w2, b2, 0.5)
+        return _k4_f32_emulated(*args, fault=fault), ffn_ln_geglu_plain(*args)
+    r = torch.randn(m, k, generator=torch.Generator().manual_seed(1))
+    return (_k6_f32_emulated(x, w1, b1, w2, b2, r, fault),
+            ffn_geglu_plain(x, w1, b1, w2, b2, r))
+
+
+@pytest.mark.parametrize("kid", ["K4", "K6"])
+@pytest.mark.parametrize("k,inner,fault", [
+    (72, 200, None), (72, 200, "gate_from_wa"), (72, 200, "k_tail"),
+    (72, 288, "up_never_zeroed"), (72, 288, "down_never_zeroed"),
+    (320, 1280, "up_stale_lo"), (320, 1280, "down_stale_lo"),
+])
+def test_ff_f32_wgmma_faults_leave_the_row(kid, k, inner, fault):
+    # the up GEMM's B tile is 64 Wa rows over the same 64 Wg rows from two
+    # tensor maps: inner 200 (not a multiple of 64) ends each in a ragged
+    # box, zero past its own rows; a second box read at Wa's rows, a stage
+    # summed against the previous stage's B lo and a fresh accumulator
+    # never zeroed, in either GEMM, must fail the row. M = 200: a ragged
+    # last row block; K = 72: a ragged 32-deep stage
+    out, ref = _ff_f32_case(kid, 200, k, inner, fault)
+    got = agreement(tol_id(kid, F32), out, ref)
+    assert got["ok"] == (fault is None), got
+
+
+@pytest.mark.parametrize("kid", ["K4", "K6"])
+def test_ff_f32_one_chain_down_product_leaves_the_row(kid):
+    # inner 5120 (K = 1280), the longest down contraction of the f32 paths:
+    # a fresh accumulator a 32-deep stage holds the row, one accumulator
+    # over the whole contraction drifts out of it (toward zero). s = 1 and
+    # x of rms 1, as phase `kernels` draws K4's x: a residual of rms 2 (the
+    # other tests' x) at s = 0.5 dilutes the drift to within the row
+    m, k, inner = 16, 1280, 5120
+    x, lw, lb, w1, b1, w2, b2 = _k4_inputs(m, k, inner)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(2))
+    if kid == "K4":
+        h = _ff_f32_up(_ln_f32(x, lw, lb), w1, b1)
+        ref = ffn_ln_geglu_plain(x, lw, lb, w1, b1, w2, b2, 1.0)
+        res = x
+    else:
+        h = _ff_f32_up(x, w1, b1)
+        res = torch.randn(m, k, generator=torch.Generator().manual_seed(1))
+        ref = ffn_geglu_plain(x, w1, b1, w2, b2, res)
+    fresh, long = (agreement(tol_id(kid, F32),
+                             res + (gemm(h, w2, stage=32, fault=f) + b2), ref)
+                   for f in (None, "one_chain"))
+    assert fresh["ok"], fresh
+    assert not long["ok"] and long["rms_rel_err"] > 10 * fresh["rms_rel_err"], (
+        long, fresh)
+
+
 # ---------------------------------------------------------------------------
-# K6, K7, K8a and K8b on the tile GEMM
+# K6, K7, K8a and K8b
 
 
 def _k6_f32_emulated(x, w1, b1, w2, b2, r, fault=None):
-    """csrc/ffn.cu's f32 K6: K4/f32's up kernel on x (no LN), h in f32, its
-    down kernel with r in place of x and s = 1: (acc + b2) + r."""
-    kw = dict(passes=1 if fault == "tf32_one_pass" else 3,
-              k_tail=fault == "k_tail")
-    inner = w1.shape[0] // 2
-    a = gemm(x, w1[:inner], **kw) + b1[:inner]
-    g = gemm(x, w1[inner:], **kw) + b1[inner:]
-    y = gemm(a * torch.nn.functional.gelu(g), w2, **kw) + b2
+    """csrc/ffn.cu's f32 K6: K4/f32's up GEMM on x (no LN), h in f32, its
+    down GEMM with r in place of x and s = 1: (acc + b2) + r."""
+    y = _ff_f32_products(x, w1, w2, b1, fault) + b2
     return y + r + (r if fault == "residual_twice" else 0.0)
 
 
@@ -581,6 +657,28 @@ def test_k8a_f32_chain_lengths_stay_within_the_row(k):
     assert fresh["ok"], fresh
     long = agreement("K8a/f32", gemm(x, w, stage=32, fault="one_chain"), ref)
     assert long["rms_rel_err"] > 3 * fresh["rms_rel_err"], (long, fresh)
+
+
+@pytest.mark.parametrize("kid", ["K4", "K6"])
+@pytest.mark.parametrize("inner", [1280, 2560, 5120])
+def test_ff_f32_down_chain_lengths_stay_within_the_row(kid, inner):
+    # the down products of K4/f32 and K6/f32 (h W2^T over inner = 1280,
+    # 2560, 5120, then + b2 and the residual) under the truncation model:
+    # a fresh accumulator a 32-deep stage holds the row; one accumulator
+    # over the whole contraction drifts several times further
+    m, k = 16, inner // 4
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(m, inner, generator=g) * torch.nn.functional.gelu(
+        torch.randn(m, inner, generator=g))
+    w2 = torch.randn(k, inner, generator=g) * inner ** -0.5
+    b2, res = torch.randn(k, generator=g) * 0.1, torch.randn(m, k, generator=g)
+    s = 0.5 if kid == "K4" else 1.0
+    ref = res + s * linear_plain(h, w2, b2)
+    rows = {fault: agreement(tol_id(kid, F32),
+                             res + s * (gemm(h, w2, stage=32, fault=fault) + b2), ref)
+            for fault in (None, "one_chain")}
+    assert rows[None]["ok"], rows
+    assert rows["one_chain"]["rms_rel_err"] > 3 * rows[None]["rms_rel_err"], rows
 
 
 def test_f32_rows_bound_the_whole_tensor_under_one_tf32_pass():

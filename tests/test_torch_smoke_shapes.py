@@ -448,8 +448,9 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     kernel's profile time counts under its own kernel id (not "matmul",
     whose keys "gemm" and "sm90_" a template name can contain), and phase
     build looks for HGMMA in every wgmma kernel of K1, K5a, K5b, K4, K6,
-    K7, K8a and K8b; no `__global__` of the retired WMMA kernels is left,
-    and no kernel source uses WMMA."""
+    K7, K8a and K8b; no `__global__` of the retired WMMA kernels or of
+    K4/f32's retired mma.sync GEMMs is left, and no kernel source uses
+    WMMA."""
     kernels = _source_kernels()
     lib_of = {kid: Path(meta[1]).stem for kid, meta in cs.KERNEL_META.items()}
     groups = {name.split()[0]: keys for name, keys in cs.PROFILE_GROUPS}
@@ -472,7 +473,8 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
         for name in names:
             assert kernels.get(name) == lib, name
     retired = {"ffn_res_up_kernel", "ffn_res_down_kernel", "geglu_fused_kernel",
-               "ffn_q_up_kernel", "ffn_q_down_kernel"}
+               "ffn_q_up_kernel", "ffn_q_down_kernel", "ffn_up_f32_kernel",
+               "ffn_down_f32_kernel"}
     assert not retired & set(kernels), retired & set(kernels)
     assert not (CSRC / "ffn_tiles.cuh").exists()
     for path in CSRC.glob("*.cu*"):
@@ -566,3 +568,28 @@ def test_split_route_f32_training_walk_matches_the_calls(recorded, tmp_path):
     counts = cs.launches_of(want)
     assert {"K6/f32", "K8a/f32", "K8b/f32", "K5a/f32"} <= set(counts)
     assert "K4/f32" not in counts
+
+
+def test_f32_timing_times_the_walks_shapes():
+    """cli/f32_timing.py times K1/f32, K4/f32, K6/f32 and K8a/f32 at the
+    shapes that phase `kernels` gives them: each one's distinct f32 cases
+    of the full-width walks of generate-f32, train-f32 and routes-f32."""
+    from layoutllm_t2i_torch.cli import f32_timing
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+    unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+    tok_len = clip_cfg.max_length
+    batch = next(synthetic_layout_batches(cs.TRAIN_BATCH, 512, cs.TRAIN_MAX_BOXES))
+    paths = {"generate-f32": cs.generation_calls(
+        unet_cfg, vae_cfg, clip_cfg, tok_len, cs.REQUESTS, cs.VAE_CHUNK, f32=True)}
+    for name, route in (("train-f32", cs.DEFAULT), ("routes-f32", cs.SPLIT)):
+        paths[name] = cs.training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, batch,
+                                        cs.TRAIN_MAX_BOXES, cs.TRAIN_MAX_RELATIONS,
+                                        f32=True, route=route)
+    walked = {(kid, args) for kid, _, args, _ in cs.kernel_cases(paths)
+              if kid in f32_timing.CASES and cs.is_f32(args)}
+    timed = {(kid, shape + ("f32",)) for kid, shapes in f32_timing.CASES.items()
+             for shape in shapes}
+    assert timed == walked
+    assert {kid: len(s) for kid, s in f32_timing.CASES.items()} == {
+        "K1": 12, "K4": 12, "K6": 3, "K8a": 3}
