@@ -1,9 +1,9 @@
-"""Time the f32 forms of K1, K4, K6 and K8a of one checkout on the card, for
-an A/B of two commits.
+"""Time the f32 forms of K1, K4, K6, K8a and K8b of one checkout on the card,
+for an A/B of two commits.
 
 Run from the root of a checkout, naming this file by its path:
   python3 <other checkout>/layoutllm_t2i_torch/cli/f32_timing.py [--reps R]
-      [--only K1 K4 K6 K8a]
+      [--only K1 K4 K6 K8a K8b]
 It times the checkout in the working directory (its port and its
 chip_smoke.py), not the one that holds this file, so one call to the card
 can run it in turns from the roots of two checkouts (parent, change,
@@ -11,13 +11,13 @@ change, parent) and compare them on the same card. It prints one JSON
 line: the card's name and power limit, and for each main-path shape of
 K1/f32 (the f32 generation's, d 40, 80 and 512, and the f32 trainings',
 with and without the lse), of K4/f32 (the f32 generation's and the f32
-training's), of K6/f32 and of K8a/f32 (the split routes' f32 training):
-the kernel's device ms a call and the wrapper's host us
+training's), and of K6/f32, K8a/f32 and K8b/f32 (the split routes' f32
+training): the kernel's device ms a call and the wrapper's host us
 (chip_smoke.device_time, the best of R runs), the library call's device
-ms (SDPA, F.linear, or the FF as its F.layer_norm / F.linear / F.gelu
-chain, in f32 with allow_tf32 off, as phase `kernels` times it), the
-roofline bound at the TF32 peak, and the kernel's agreement with its plain
-version under the f32 tolerance rows.
+ms (SDPA, F.linear, or the FF or GEGLU as its F.layer_norm / F.linear /
+F.gelu chain, in f32 with allow_tf32 off, as phase `kernels` times it),
+the roofline bound at the TF32 peak, and the kernel's agreement with its
+plain version under the f32 tolerance rows.
 """
 from __future__ import annotations
 
@@ -44,7 +44,10 @@ K4_F32 = tuple((m, k, s) for m, k in ((16384, 320), (4096, 640), (1024, 1280),
 K6_F32 = ((32768, 320), (8192, 640), (2048, 1280))
 # (M, K, N): K8a/f32's, the fuser FF down-projections at batch 8
 K8A_F32 = ((32768, 1280, 320), (8192, 2560, 640), (2048, 5120, 1280))
-CASES = {"K1": K1_F32, "K4": K4_F32, "K6": K6_F32, "K8a": K8A_F32}
+# (M, K, N): K8b/f32's, the split routes' fuser FF up-projections at batch 8
+K8B_F32 = ((32768, 320, 1280), (8192, 640, 2560), (2048, 1280, 5120))
+CASES = {"K1": K1_F32, "K4": K4_F32, "K6": K6_F32, "K8a": K8A_F32,
+         "K8b": K8B_F32}
 
 
 def main(argv=None) -> int:
@@ -52,7 +55,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3,
                     help="device timings a shape (the best is kept)")
     ap.add_argument("--only", nargs="+", choices=tuple(CASES), default=None,
-                    help="the kernels to time (default: all four)")
+                    help="the kernels to time (default: all five)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("f32_timing: no CUDA device", file=sys.stderr)

@@ -83,7 +83,7 @@ def build_variants(build):
         handle = ctypes.CDLL(out)
         for fn, argtypes in build.SIGNATURES[lib].items():
             getattr(handle, fn).argtypes = argtypes
-            getattr(handle, fn).restype = ctypes.c_int
+            getattr(handle, fn).restype = build.RESTYPES.get(fn, ctypes.c_int)
         handles.setdefault(key, {})[lib] = handle
     return handles
 

@@ -1,7 +1,7 @@
-// f32 tile products for the f32 forms of K1, K5a/K5b, K7 and K8b (sm_90a),
-// the tile GEMM of K7/f32 and K8b/f32, and the split into hi and lo that
-// tf32_gemm.cuh's TF32 wgmma kernels (K1/f32 at d 512, K4/f32, K6/f32,
-// K8a/f32) share.
+// f32 tile products for the f32 forms of K5a/K5b and K7 (sm_90a), the tile
+// GEMM of K7/f32, and the split into hi and lo (and the C fragment as the
+// A fragment, c_as_a) that the TF32 wgmma kernels (K1/f32, and K4/f32,
+// K6/f32, K8a/f32, K8b/f32 on tf32_gemm.cuh) share.
 //
 // "f32" means f32 accuracy: a single TF32 pass rounds each operand to 10
 // mantissa bits (about 4e-4 relative error of a product), which is a
@@ -14,10 +14,11 @@
 // (cuBLAS with allow_tf32 False).
 //
 // The instruction is mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
-// wgmma with .tf32 operands takes A and B K-major only, while P V, P^T dO
-// and dS^T Q need B MN-major (V, dO and Q are stored d-contiguous); with
-// mma.sync the threads load their fragments from shared memory in any
-// layout, so one helper serves every product.
+// wgmma with .tf32 operands takes A and B K-major only, while K5's dS K,
+// P^T dO and dS^T Q need B MN-major (K, dO and Q are stored d-contiguous;
+// K1/f32 transposes V once a call instead); with mma.sync the threads load
+// their fragments from shared memory in any layout, so one helper serves
+// every product.
 //
 // Fragments of m16n8k8 (g = lane / 4, t = lane % 4):
 //   A (16 x 8):  a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
@@ -42,8 +43,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace f32_tiles {
 
@@ -137,8 +136,9 @@ __device__ __forceinline__ void frag_b_q(uint32_t (&b)[2], const int8_t* s,
   b[1] = __float_as_uint(static_cast<float>(p[4]));
 }
 
-// B fragment (k0.., n0..) of a tile stored [k][n] (MN-major: V in P V), at
-// the permuted k of a C fragment used as A: rows k0 + 2t and k0 + 2t + 1
+// B fragment (k0.., n0..) of a tile stored [k][n] (MN-major: K5's K, dO
+// and Q), at the permuted k of a C fragment used as A: rows k0 + 2t and
+// k0 + 2t + 1
 __device__ __forceinline__ void frag_b_kn(float (&b)[2], const float* s, int ld,
                                           int k0, int n0, int lane) {
   const float* p = s + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
@@ -191,10 +191,9 @@ __device__ __forceinline__ void load_tile(T* tile, int ld, const T* src,
 }
 
 // ---------------------------------------------------------------------------
-// The tile GEMM of the FF and matmul forms (K4, K6, K7, K8a, K8b in f32):
-// 128 x 64 output tiles, 32-deep k steps in a two-stage cp.async ring,
-// eight warps of 32 x 32, every product 3xTF32 (f32 B) or two TF32
-// products (int8 B)
+// The tile GEMM of K7/f32: 128 x 64 output tiles, 32-deep k steps in a
+// two-stage cp.async ring, eight warps of 32 x 32, two TF32 products a
+// product against int8 B tiles (mma2)
 
 constexpr int kF32BM = 128, kF32BN = 64, kF32BK = 32, kF32Ld = kF32BK + 4;
 constexpr int kF32Threads = 256;
@@ -202,39 +201,30 @@ constexpr int kF32Threads = 256;
 // fragment load fall in 8 distinct banks (16-byte aligned for cp.async)
 constexpr int kQLd = kF32BK + 16;
 
-template <class TB>
-__host__ __device__ constexpr int b_ld() {
-  static_assert(std::is_same<TB, float>::value || std::is_same<TB, int8_t>::value,
-                "f32 or int8 B operands");
-  return std::is_same<TB, float>::value ? kF32Ld : kQLd;
-}
-
-// bytes of one stage: an A tile and kNB B tiles
-template <int kNB, class TB = float>
+// bytes of one stage: an f32 A tile and kNB int8 B tiles
+template <int kNB>
 __host__ __device__ constexpr size_t f32_gemm_stage() {
-  return 4ull * kF32Ld * kF32BM + sizeof(TB) * kNB * kF32BN * b_ld<TB>();
+  return 4ull * kF32Ld * kF32BM + 1ull * kNB * kF32BN * kQLd;
 }
 
 // shared memory of the f32 GEMM with kNB B operands: two stages
-template <int kNB, class TB = float>
+template <int kNB>
 __host__ __device__ constexpr size_t f32_gemm_smem() {
-  return 2 * f32_gemm_stage<kNB, TB>();
+  return 2 * f32_gemm_stage<kNB>();
 }
 
 // The (kF32BM x kF32BN) tile at (m0, n0) of A B_i^T for i < kNB: A (M x Kd,
-// row stride lda) f32, B_i (N x Kd, row stride ldb) f32 or int8, both
-// row-major, each product into its own accumulators. Eight warps as 4
-// (rows) x 2 (columns), a warp 32 x 32: acc[i][m16 tile][n8 tile][4]. Rows
-// past M or N and columns past Kd (Kd % 4 == 0; int8 B: Kd % 16 == 0) load
-// as zeros.
-template <int kNB, class TB = float>
+// row stride lda) f32, B_i (N x Kd, row stride ldb) int8, both row-major,
+// each product into its own accumulators. Eight warps as 4 (rows) x 2
+// (columns), a warp 32 x 32: acc[i][m16 tile][n8 tile][4]. Rows past M or
+// N and columns past Kd (Kd % 16 == 0) load as zeros.
+template <int kNB>
 __device__ __forceinline__ void gemm_f32(float (&acc)[kNB][2][4][4],
                                          const float* A, long long lda, int M,
-                                         const TB* const (&B)[kNB],
+                                         const int8_t* const (&B)[kNB],
                                          long long ldb, int N, int Kd, int m0,
                                          int n0, float* smem) {
-  constexpr size_t kStage = f32_gemm_stage<kNB, TB>();
-  constexpr int kBLd = b_ld<TB>();
+  constexpr size_t kStage = f32_gemm_stage<kNB>();
   char* base = reinterpret_cast<char*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = 32 * (warp >> 1), wn = 32 * (warp & 1);
@@ -243,9 +233,9 @@ __device__ __forceinline__ void gemm_f32(float (&acc)[kNB][2][4][4],
     return reinterpret_cast<float*>(base + (kt & 1) * kStage);
   };
   auto stage_b = [&](int kt, int i) {
-    return reinterpret_cast<TB*>(base + (kt & 1) * kStage +
-                                 4ull * kF32Ld * kF32BM) +
-           i * kF32BN * kBLd;
+    return reinterpret_cast<int8_t*>(base + (kt & 1) * kStage +
+                                     4ull * kF32Ld * kF32BM) +
+           i * kF32BN * kQLd;
   };
   auto load = [&](int kt) {
     const int k0 = kt * kF32BK;
@@ -255,7 +245,7 @@ __device__ __forceinline__ void gemm_f32(float (&acc)[kNB][2][4][4],
 #pragma unroll
     for (int i = 0; i < kNB; ++i)
       load_tile<kF32BN, kF32BK, kF32Threads>(
-          stage_b(kt, i), kBLd, B[i] + (long long)n0 * ldb + k0, ldb, 0,
+          stage_b(kt, i), kQLd, B[i] + (long long)n0 * ldb + k0, ldb, 0,
           N - n0, Kd - k0);
   };
 #pragma unroll
@@ -286,20 +276,13 @@ __device__ __forceinline__ void gemm_f32(float (&acc)[kNB][2][4][4],
       const SplitA a0(a[0]), a1(a[1]);
 #pragma unroll
       for (int i = 0; i < kNB; ++i) {
-        const TB* sB = stage_b(kt, i);
+        const int8_t* sB = stage_b(kt, i);
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          if constexpr (std::is_same<TB, float>::value) {
-            float bb[2];
-            frag_b_nk(bb, sB, kF32Ld, wn + 8 * nt, 8 * kk, lane);
-            mma3(acc[i][0][nt], a0, bb);
-            mma3(acc[i][1][nt], a1, bb);
-          } else {
-            uint32_t bq[2];
-            frag_b_q(bq, sB, kQLd, wn + 8 * nt, 8 * kk, lane);
-            mma2(acc[i][0][nt], a0, bq);
-            mma2(acc[i][1][nt], a1, bq);
-          }
+          uint32_t bq[2];
+          frag_b_q(bq, sB, kQLd, wn + 8 * nt, 8 * kk, lane);
+          mma2(acc[i][0][nt], a0, bq);
+          mma2(acc[i][1][nt], a1, bq);
         }
       }
     }

@@ -354,38 +354,6 @@ ffn_norm_rows_f32_kernel(const float* __restrict__ x,
   }
 }
 
-// K4/f32's (and K6/f32's) GEGLU epilogue on the up tile: groups j < 8 of
-// acc are xn Wa^T, groups j + 8 xn Wg^T at the same h columns n0 / 2 + 8 j
-// + 2 (lane % 4) + {0, 1}; h = (a + ba) * gelu_erf(g + bg) in f32
-struct GegluF32 {
-  const float* b1;  // (2 inner,) = [ba; bg]
-  float* h;         // (M, inner)
-  int M, inner;
-
-  __device__ __forceinline__ void operator()(const float (&acc)[64], int row0,
-                                             int n0, int lane) const {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = row0 + 8 * hr;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 / 2 + 8 * j + 2 * (lane & 3);
-        if (col >= inner) continue;  // inner % 4 == 0: col + 1 < inner too
-        float o[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float a = acc[4 * j + 2 * hr + e] + b1[col + e];
-          const float g = acc[4 * (j + 8) + 2 * hr + e] + b1[inner + col + e];
-          o[e] = a * gelu_erf(g);
-        }
-        *reinterpret_cast<float2*>(h + (long long)row * inner + col) =
-            make_float2(o[0], o[1]);
-      }
-    }
-  }
-};
-
 // The down epilogue: out = res + s * (acc + b2), f32; res is K4's x, or
 // K6's r with s = 1
 struct ScaledResidualF32 {
@@ -431,7 +399,7 @@ ffn_up_f32_wgmma_kernel(const __grid_constant__ CUtensorMap txn,
                         const float* __restrict__ b1, float* __restrict__ h,
                         int M, int K, int inner) {
   tf32_gemm::gemm_tile_pair<UpF32Cfg>(&txn, &twa, &twg, K,
-                                      GegluF32{b1, h, M, inner});
+                                      tf32_gemm::GegluF32{b1, h, M, inner});
 }
 
 // out = res + s * (h W2^T + b2), f32, tiles of out (M, K)
@@ -686,8 +654,8 @@ LLT2I_API int llt2i_ffn_ln_geglu_q_f32(const void* x, const void* lnw,
   int err = launch_norm_f32(x, lnw, lnb, xn, M, K, eps, st);
   if (err != 0) return err;
   static unsigned long long up_set = 0, down_set = 0;
-  constexpr size_t kUp = f32_gemm_smem<2, int8_t>();
-  constexpr size_t kDown = f32_gemm_smem<1, int8_t>();
+  constexpr size_t kUp = f32_gemm_smem<2>();
+  constexpr size_t kDown = f32_gemm_smem<1>();
   err = allow_smem(ffn_q_up_f32_kernel, kUp, up_set);
   if (err == 0) err = allow_smem(ffn_q_down_f32_kernel, kDown, down_set);
   if (err != 0) return err;

@@ -857,205 +857,27 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 // The f32 forms of K1, K5a and K5b: the same functions on f32 operands, as
 // the Pallas kernels take them (the JAX trainer's default precision). P and
 // dS stay f32 (`_flash_kernel` keeps P in the operands' type, and the plain
-// backward rounds them to it), and every product is 3xTF32 on mma.sync
-// (csrc/f32_tiles.cuh): f32 accuracy on the tensor cores.
+// backward rounds them to it), and every product is 3xTF32 (csrc/
+// f32_tiles.cuh): f32 accuracy on the tensor cores.
 //
 // What bounds them: operations, as the bf16 forms, at the TF32 rate (495
-// TFLOP/s dense) times three; 3xTF32 on mma.sync reaches a fraction of it.
-// A simple design that is right first:
+// TFLOP/s dense) times three. K1/f32 runs on TF32 wgmma fed by TMA: at d =
+// 40 and 80 flash_fwd_f32_ss_kernel (Q and K by descriptor, K and V split
+// and V transposed once a call by a pre-pass), at d = 512
+// flash_fwd_f32_wgmma_kernel (Q as register A), both below. K5a/f32 and
+// K5b/f32 run on mma.sync, a simple design that is right first:
 //  * one block of eight warps per (rows of q or k, batch, head); each warp
 //    owns 16 rows of the resident operand and keeps its accumulators in
 //    registers for the whole loop;
-//  * the resident operands (Q, or Q and dO, or K and V) and a two-stage
-//    ring of the streamed ones load with 16-byte cp.async into row-major
-//    f32 tiles of row stride d + 4 (conflict-free fragment loads); rows past
-//    N or M load as zeros, so no other row or head is read;
-//  * the online softmax (K1) and P = exp2(S c - lse log2 e) (K5) run on
-//    the score fragments in registers, masked past M (or N in K5b), and the
-//    score fragment is the A fragment of the next product (f32_tiles.cuh).
-// K1 at d = 512 (the VAE's head) has a kernel of its own on wgmma and TMA,
-// flash_fwd_f32_wgmma_kernel, below.
+//  * the resident operands (Q and dO, or K and V) and a two-stage ring of
+//    the streamed ones load with 16-byte cp.async into row-major f32 tiles
+//    of row stride d + 4 (conflict-free fragment loads); rows past N or M
+//    load as zeros, so no other row or head is read;
+//  * P = exp2(S c - lse log2 e) runs on the score fragments in registers,
+//    masked past M (or N in K5b), and the score fragment is the A fragment
+//    of the next product (f32_tiles.cuh).
 
 namespace {
-
-// kD: the head dim (each warp owns 16 q rows and all kD output columns);
-// kBK: K/V rows a stage; kMinBlocks: blocks an SM (registers)
-template <int kD_, int kBK_, int kMinBlocks_>
-struct FwdF32Cfg {
-  static constexpr int kD = kD_, kBK = kBK_, kMinBlocks = kMinBlocks_;
-  static constexpr int kThreads = 256;
-  static constexpr int kBQ = 128;
-  static constexpr int kLd = kD + 4;
-  // Q, then two stages of K and V
-  static constexpr size_t kSmemBytes = 4ull * kLd * (kBQ + 4 * kBK);
-  static_assert(kD % 8 == 0 && kBK % 8 == 0, "mma tiles");
-};
-
-using Fwd40F = FwdF32Cfg<40, 64, 2>;    // 64^2 sites: 67.6 KB
-using Fwd80F = FwdF32Cfg<80, 32, 2>;    // 32^2 sites: 86 KB
-
-template <class C>
-__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int H, int N, int M,
-                     long long q_bs, long long q_rs, long long k_bs,
-                     long long k_rs, long long v_bs, long long v_rs,
-                     long long o_bs, long long o_rs, float scale, float c) {
-  using namespace f32_tiles;
-  constexpr int D = C::kD, BK = C::kBK, LD = C::kLd;
-  extern __shared__ __align__(16) float smem_f[];
-  float* sQ = smem_f;
-  float* sKV = sQ + C::kBQ * LD;  // stage s: K at + 2 s BK LD, V after it
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * C::kBQ;
-  const int tiles = (M + BK - 1) / BK;
-  const float* qg = q + b * q_bs + (long long)h * D;
-  const float* kg = k + b * k_bs + (long long)h * D;
-  const float* vg = v + b * v_bs + (long long)h * D;
-
-  load_tile<C::kBQ, D, C::kThreads>(sQ, LD, qg, q_rs, q0, N, D);
-  load_tile<BK, D, C::kThreads>(sKV, LD, kg, k_rs, 0, M, D);
-  load_tile<BK, D, C::kThreads>(sKV + BK * LD, LD, vg, v_rs, 0, M, D);
-  cp_commit();
-
-  const int r0 = 16 * warp;  // the warp's rows of the q tile
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-  // running max of the raw scores and per-thread partial row sums of the
-  // thread's rows g and g + 8
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {  // the next stage; its last readers were synced
-      float* nk = sKV + 2 * ((t + 1) & 1) * BK * LD;
-      load_tile<BK, D, C::kThreads>(nk, LD, kg, k_rs, (t + 1) * BK, M, D);
-      load_tile<BK, D, C::kThreads>(nk + BK * LD, LD, vg, v_rs, (t + 1) * BK,
-                                    M, D);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const float* sK = sKV + 2 * (t & 1) * BK * LD;
-    const float* sV = sK + BK * LD;
-
-    // S = Q K^T
-    float sc[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < D / 8; ++kk) {
-      float a[4];
-      frag_a(a, sQ, LD, r0, 8 * kk, lane);
-      const SplitA as(a);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        float bb[2];
-        frag_b_nk(bb, sK, LD, 8 * j, 8 * kk, lane);
-        mma3(sc[j], as, bb);
-      }
-    }
-
-    // the ragged KV tail scores -inf
-    const int k0 = t * BK;
-    if (k0 + BK > M) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (k0 + 8 * j + 2 * (lane & 3) + (i & 1) >= M) sc[j][i] = -INFINITY;
-    }
-
-    // online softmax: row max over the quad, p = exp2(s c - m c)
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], sc[j][i]);
-    float alpha[2], mc[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = ex2((m_run[r] - mx[r]) * c);
-      m_run[r] = mx[r];
-      mc[r] = mx[r] * c;
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sc[j][i] = ex2(fmaf(sc[j][i], c, -mc[i >> 1]));
-        sum[i >> 1] += sc[j][i];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
-
-    // O += P V, P in f32 (3xTF32)
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const SplitA pa = c_as_a(sc[j]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        float bb[2];
-        frag_b_kn(bb, sV, LD, 8 * j, 8 * n, lane);
-        mma3(acc[n], pa, bb);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  // epilogue: O / l, lse = m scale + ln l
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + (lane >> 2) + 8 * r;
-    if (row >= N) continue;
-    const float inv = 1.f / l_run[r];
-    float* orow = o + b * o_bs + row * o_rs + (long long)h * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n + 2 * (lane & 3)) =
-          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (lse != nullptr && (lane & 3) == 0)
-      lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
-  }
-}
-
-template <class C>
-int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int N, int M, long long q_bs,
-                   long long q_rs, long long k_bs, long long k_rs,
-                   long long v_bs, long long v_rs, long long o_bs,
-                   long long o_rs, float scale, cudaStream_t stream) {
-  static unsigned long long smem_set = 0;
-  auto kern = flash_fwd_f32_kernel<C>;
-  int err = allow_smem(kern, C::kSmemBytes, smem_set);
-  if (err != 0) return err;
-  dim3 grid((N + C::kBQ - 1) / C::kBQ, B * H);
-  kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, H, N, M, q_bs,
-      q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // K1/f32 at d = 512, the VAE's single head (N = M = 4096 at 512^2): 4 N M d
@@ -1477,6 +1299,382 @@ int launch_fwd_f32_512(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K1/f32 at d = 40 and 80, the UNet's heads (N = M = 4096 or 4126 at the
+// 64^2 sites, 1024 or 1054 at the 32^2 ones; M = 77 at the text sites):
+// 4 N M d flops against ~16 N d bytes, so operations bound it, three TF32
+// products for each f32 one, as at d = 512. At these widths a 128-row Q
+// tile split into hi and lo takes 64 KB (d = 40) or 96 KB (d = 80), so Q
+// is read by descriptor from shared memory and the registers go to the
+// score tile and O. The design:
+//  * A pre-pass (flash_kv_split_f32_kernel) writes K and V once a call,
+//    split into hi and lo, into a workspace the wrapper allocates: K's as
+//    (B H, M, d) matrices, V's transposed, (B H, d, Mp) with Mp = M rounded
+//    up to 8 and each 8-key block's keys at the permuted k of P's register
+//    A fragment (p_key_slot), zeros at the slots of keys past M. wgmma takes
+//    .tf32 operands K-major only and V is stored d-contiguous; transposed
+//    and split once a call, no K/V tile is split or transposed again by the
+//    N / 128 q blocks that read it, and the main loop has no block-wide
+//    meeting. It moves 6 B H M d f32 values (K and V read, four written).
+//  * One block per (128 q rows, batch, head): two consumer warpgroups of 64
+//    rows and a producer warp. The grid's first dimension is the (batch,
+//    head) pair, so the blocks of a ragged last q tile (N = 4126, 1054) come
+//    last: at N = 1054 (d = 80) its 32 blocks of 30 rows run in a third
+//    round of one warpgroup each, after the 256 full blocks, instead of
+//    spreading a third round of full blocks over the card.
+//  * The producer's first thread loads Q once (4-d map of the packed
+//    operand, 32 values x 128 rows a chunk, zeros past d and N), then each
+//    stage's K hi and lo chunks (32 values x kBK keys) and V's transposed hi
+//    and lo chunks (32 key slots x d rows) with TMA from 3-d maps of the
+//    workspace (zeros past d, M and Mp), into a ring of kStages stages with
+//    "full" and "empty" mbarriers (one arrival a consumer warp).
+//  * Each warpgroup splits its own 64 Q rows once (hi in place, lo into the
+//    Q lo tile), fences the async proxy and meets at a named barrier. S = Q
+//    K^T: wgmma m64nkBNk8 with A and B by descriptor, the d / 8 k steps'
+//    lo*hi and hi*lo products, then hi*hi, chained into one fresh
+//    accumulator (at most 30 products). The k loop stops at d: no product
+//    over the zero columns of the last 32-value chunk.
+//  * The online softmax runs in registers as in the bf16 kernel (the
+//    ragged KV tail scores -inf before the max). P stays f32: each 8-key
+//    block of S's fragment is wgmma's register A at the permuted k
+//    (f32_tiles.cuh c_as_a), split once into hi and lo. O += P V: the
+//    tile's kBK / 8 k steps' three products into a fresh m64n(d)
+//    accumulator, added to the rescaled O in round-to-nearest f32 (the
+//    tensor cores truncate where they add into their accumulator).
+//  * Registers: S (kBK / 2), P's hi and lo (kBK each), O and its fresh
+//    accumulator (d / 2 each): ~140 a thread, within the 168 that ptxas
+//    allows a kernel of nine warps.
+//  * Shared memory: d = 40, 64-key stages (K hi, K lo 16 KB each, V^T hi,
+//    V^T lo 10 KB each) in three stages beside Q's 64 KB; d = 80, 32-key
+//    stages of 44 KB in two beside Q's 96 KB.
+
+// kD: the head dim (40 or 80); kBK: keys a stage (a multiple of 32, one
+// transposed V chunk); kStages: the ring's depth
+template <int kD_, int kBK_, int kStages_>
+struct FwdF32W {
+  static constexpr int kD = kD_, kBK = kBK_, kStages = kStages_;
+  static constexpr int kChunks = (kD + 31) / 32;  // 32-value chunks of Q, K
+  static constexpr int kSteps = kD / 8;           // S's k steps
+  static constexpr int kBQ = 128;                 // two warpgroups of 64 rows
+  static constexpr int kThreads = 9 * 32;         // and the producer warp
+  static constexpr uint32_t kQChunk = kBQ * 128;
+  static constexpr uint32_t kQBytes = kChunks * kQChunk;   // Q hi; Q lo the same
+  static constexpr uint32_t kKChunk = kBK * 128;
+  static constexpr uint32_t kKBytes = kChunks * kKChunk;   // a stage's K hi or lo
+  static constexpr uint32_t kVChunk = kD * 128;            // 32 key slots x d rows
+  static constexpr uint32_t kVBytes = kBK / 32 * kVChunk;  // its V^T hi or lo
+  static constexpr uint32_t kStageBytes = 2 * kKBytes + 2 * kVBytes;
+  // 1024 bytes of slack to align the swizzled tiles, then Q hi and lo, the
+  // ring and the mbarriers
+  static constexpr size_t kSmemBytes =
+      1024 + 2 * kQBytes + kStages * kStageBytes + 8 * (2 * kStages + 1);
+  static_assert(kD % 8 == 0 && kBK % 32 == 0 && kVChunk % 1024 == 0, "tiles");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
+
+using Fwd40W = FwdF32W<40, 64, 3>;  // 64^2 sites: 221 KB
+using Fwd80W = FwdF32W<80, 32, 2>;  // 32^2 sites: 185 KB
+
+// The workspace of K1/f32 at d = 40 and 80, in floats: K hi, K lo (B H M
+// d each), then V^T hi, V^T lo (B H d Mp each)
+long long fwd_f32_ws_floats(int B, int H, int M, int D) {
+  const long long mp = (M + 7) / 8 * 8;
+  return 2ll * B * H * D * (M + mp);
+}
+
+// The pre-pass: keys m0 .. m0 + 31 of one (batch, head) (m0 = 32
+// blockIdx.x): K's rows split into khi and klo, V's transposed through
+// shared memory and split into vhi and vlo at the key slots of P's A
+// fragment, zeros at the slots of keys at or past M
+template <int kD>
+__global__ void __launch_bounds__(256)
+flash_kv_split_f32_kernel(const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ khi,
+                          float* __restrict__ klo, float* __restrict__ vhi,
+                          float* __restrict__ vlo, int H, int M, int Mp,
+                          long long k_bs, long long k_rs, long long v_bs,
+                          long long v_rs) {
+  __shared__ float vt[kD][33];
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int m0 = 32 * blockIdx.x;
+  constexpr int kVec = kD / 4;  // 16-byte pieces a row
+  for (int i = threadIdx.x; i < 32 * kVec; i += blockDim.x) {
+    const int r = i / kVec, c = 4 * (i % kVec), m = m0 + r;
+    float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+    if (m < M) {
+      kx = *reinterpret_cast<const float4*>(k + b * k_bs + m * k_rs + (long long)h * kD + c);
+      vx = *reinterpret_cast<const float4*>(v + b * v_bs + m * v_rs + (long long)h * kD + c);
+      const float kv[4] = {kx.x, kx.y, kx.z, kx.w};
+      uint32_t hi[4], lo[4];
+      f32_tiles::split(kv, hi, lo);
+      const long long at = ((long long)bh * M + m) * kD + c;
+      *reinterpret_cast<uint4*>(khi + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(klo + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    const int p = p_key_slot(r);
+    vt[c][p] = vx.x;
+    vt[c + 1][p] = vx.y;
+    vt[c + 2][p] = vx.z;
+    vt[c + 3][p] = vx.w;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * kD; i += blockDim.x) {
+    const int c = i / 32, p = i % 32;
+    if (m0 + p >= Mp) continue;
+    const float x[1] = {vt[c][p]};
+    uint32_t hi[1], lo[1];
+    f32_tiles::split(x, hi, lo);
+    const long long at = ((long long)bh * kD + c) * Mp + m0 + p;
+    vhi[at] = __uint_as_float(hi[0]);
+    vlo[at] = __uint_as_float(lo[0]);
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_fwd_f32_ss_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tkh,
+                        const __grid_constant__ CUtensorMap tkl,
+                        const __grid_constant__ CUtensorMap tvh,
+                        const __grid_constant__ CUtensorMap tvl,
+                        float* __restrict__ o, float* __restrict__ lse, int H,
+                        int N, int M, long long o_bs, long long o_rs,
+                        float scale, float c) {
+  constexpr int S = C::kStages, BK = C::kBK, D = C::kD;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sQh = (base + 1023u) & ~1023u;  // chunk ch at + ch kQChunk
+  const uint32_t sQl = sQh + C::kQBytes;
+  // stage s at + s kStageBytes: K hi, K lo, V^T hi, V^T lo
+  const uint32_t ring = sQl + C::kQBytes;
+  const uint32_t full = ring + S * C::kStageBytes;  // stage s's at + 8 s
+  const uint32_t empty = full + 8 * S;
+  const uint32_t qbar = empty + 8 * S;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.y * C::kBQ;
+  const int tiles = (M + BK - 1) / BK;
+  // a consumer warpgroup whose 64 rows all lie past N leaves at once
+  const int busy_groups = q0 + 64 < N ? 2 : 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * busy_groups);  // one arrival a consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(qbar, C::kQBytes);
+      for (int ch = 0; ch < C::kChunks; ++ch)
+        tma_load_4d(sQh + ch * C::kQChunk, &tq, qbar, 32 * ch, h, q0, b);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty + 8 * s, ((t / S) - 1) & 1);
+        const uint32_t st = ring + s * C::kStageBytes, bar = full + 8 * s;
+        mbar_expect_tx(bar, C::kStageBytes);
+        for (int ch = 0; ch < C::kChunks; ++ch) {
+          tma_load_3d(st + ch * C::kKChunk, &tkh, bar, 32 * ch, BK * t, bh);
+          tma_load_3d(st + C::kKBytes + ch * C::kKChunk, &tkl, bar, 32 * ch,
+                      BK * t, bh);
+        }
+        for (int j = 0; j < BK / 32; ++j) {
+          const uint32_t vs = st + 2 * C::kKBytes + j * C::kVChunk;
+          tma_load_3d(vs, &tvh, bar, BK * t + 32 * j, 0, bh);
+          tma_load_3d(vs + C::kVBytes, &tvl, bar, BK * t + 32 * j, 0, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g owns q rows 64 g .. 64 g + 63, its warp wq
+  // rows 16 wq .. 16 wq + 15
+  const int g = warp >> 2;
+  const int wq = warp & 3;
+  if (g >= busy_groups) return;
+  const int tid = threadIdx.x & 127;
+  const uint32_t qh = sQh + g * 64 * 128, ql = sQl + g * 64 * 128;
+  mbar_wait(qbar, 0);
+  // this warpgroup's Q rows split once: hi in place, lo into Q's lo tile
+  for (int ch = 0; ch < C::kChunks; ++ch)
+    tf32_gemm::split_tile<128>(
+        reinterpret_cast<float4*>(smem_raw + (qh + ch * C::kQChunk - base)),
+        reinterpret_cast<float4*>(smem_raw + (ql + ch * C::kQChunk - base)),
+        64 * 128 / 16, tid);
+  fence_proxy_async();
+  named_bar_sync(1 + g, 128);
+
+  float acc[D / 2];  // O: n8 tile j, columns 8 j + 2 (lane % 4) + {0, 1}
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // running max of the raw scores and per-thread partial row sums of the
+  // thread's rows r and r + 8
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % S;
+    mbar_wait(full + 8 * s, (t / S) & 1);
+    __syncwarp();  // converged again for the warpgroup-wide wgmma
+    const uint32_t kh = ring + s * C::kStageBytes, kl = kh + C::kKBytes;
+    const uint32_t vh = kl + C::kKBytes, vl = vh + C::kVBytes;
+
+    // S = Q K^T: every k step's lo*hi and hi*lo, then hi*hi, chained into
+    // one fresh accumulator (the first product's scale-d zeroes it)
+    float sc[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kSteps; ++kk) {
+      const uint32_t a = (kk / 4) * C::kQChunk + (kk % 4) * 32;
+      const uint32_t bo = (kk / 4) * C::kKChunk + (kk % 4) * 32;
+      wgmma_ss_tf32(sc, sw128_desc(ql + a, 16), sw128_desc(kh + bo, 16), kk > 0);
+      wgmma_ss_tf32(sc, sw128_desc(qh + a, 16), sw128_desc(kl + bo, 16), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::kSteps; ++kk) {
+      const uint32_t a = (kk / 4) * C::kQChunk + (kk % 4) * 32;
+      const uint32_t bo = (kk / 4) * C::kKChunk + (kk % 4) * 32;
+      wgmma_ss_tf32(sc, sw128_desc(qh + a, 16), sw128_desc(kh + bo, 16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // the ragged KV tail scores -inf
+    const int k0 = t * BK;
+    if (k0 + BK > M) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int col = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+        if (col >= M) sc[i] = -INFINITY;
+      }
+    }
+
+    // online softmax: row max over the quad, p = exp2(s c - m c)
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = ex2((m_run[r] - mx[r]) * c);
+      m_run[r] = mx[r];
+      mc[r] = mx[r] * c;
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = ex2(fmaf(sc[i], c, -mc[r]));
+      sum[r] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+
+    // O += P V: key block j of P is the C fragment sc[4 j .. 4 j + 3] as
+    // wgmma's register A at the permuted k, split once; V^T's hi and lo
+    // chunks hold the keys at those slots. The tile's products into a
+    // fresh accumulator, added to the rescaled O in round-to-nearest
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float f[4] = {sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]};
+      const f32_tiles::SplitA a = f32_tiles::c_as_a(f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ph[j][e] = a.hi[e], pl[j][e] = a.lo[e];
+    }
+    float part[D / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const uint32_t vo = (j / 4) * C::kVChunk + (j % 4) * 32;
+      wgmma_rs_tf32(part, pl[j], sw128_desc(vh + vo, 16), j > 0);
+      wgmma_rs_tf32(part, ph[j], sw128_desc(vl + vo, 16), 1);
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const uint32_t vo = (j / 4) * C::kVChunk + (j % 4) * 32;
+      wgmma_rs_tf32(part, ph[j], sw128_desc(vh + vo, 16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+    fence_regs(ph);
+    fence_regs(pl);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with stage s
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = acc[i] * alpha[(i >> 1) & 1] + part[i];
+  }
+
+  // epilogue: O / l, lse = m scale + ln l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 64 * g + 16 * wq + (lane >> 2) + 8 * r;
+    if (row >= N) continue;
+    const float inv = 1.f / l_run[r];
+    float* orow = o + b * o_bs + row * o_rs + (long long)h * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * (lane & 3)) =
+          make_float2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
+  }
+}
+
+// The pre-pass into `ws` (fwd_f32_ws_floats), then the main kernel
+template <class C>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int N, int M, long long q_bs,
+                   long long q_rs, long long k_bs, long long k_rs,
+                   long long v_bs, long long v_rs, long long o_bs,
+                   long long o_rs, float scale, float* ws,
+                   cudaStream_t stream) {
+  constexpr int D = C::kD;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int BH = B * H, Mp = (M + 7) / 8 * 8;
+  float* khi = ws;
+  float* klo = khi + (long long)BH * M * D;
+  float* vhi = klo + (long long)BH * M * D;
+  float* vlo = vhi + (long long)BH * D * Mp;
+  CUtensorMap tq, tkh, tkl, tvh, tvl;
+  int err = tensor_map(&tq, q, D, H, N, B, q_rs, q_bs, C::kBQ, true);
+  if (err == 0) err = tensor_map_3d_f32(&tkh, khi, D, M, BH, D, C::kBK);
+  if (err == 0) err = tensor_map_3d_f32(&tkl, klo, D, M, BH, D, C::kBK);
+  if (err == 0) err = tensor_map_3d_f32(&tvh, vhi, Mp, D, BH, Mp, D);
+  if (err == 0) err = tensor_map_3d_f32(&tvl, vlo, Mp, D, BH, Mp, D);
+  if (err != 0) return err;
+  static unsigned long long smem_set = 0;
+  auto kern = flash_fwd_f32_ss_kernel<C>;
+  err = allow_smem(kern, C::kSmemBytes, smem_set);
+  if (err != 0) return err;
+  flash_kv_split_f32_kernel<D><<<dim3((Mp + 31) / 32, BH), 256, 0, stream>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), khi, klo,
+      vhi, vlo, H, M, Mp, k_bs, k_rs, v_bs, v_rs);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  kern<<<dim3(BH, (N + C::kBQ - 1) / C::kBQ), C::kThreads, C::kSmemBytes,
+         stream>>>(tq, tkh, tkl, tvh, tvl, static_cast<float*>(o), lse, H, N,
+                   M, o_bs, o_rs, scale, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 // K5a and K5b in f32. kBR: resident rows (eight warps of 16); kBS: rows of
 // a streamed stage (two stages); kMinBlocks: blocks an SM (registers).
 template <int kD_, int kBS_, int kMinBlocks_>
@@ -1883,8 +2081,10 @@ LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
 
 // The f32 forms: q, k, v, o (and dout, dq, dk, dv) f32, with the strides
 // and layouts of the bf16 entry points; rows 16-byte aligned (strides and
-// head offsets multiples of 4 floats). K1: head dims 40, 80 and 512; K5a
-// and K5b: 40 and 80. Any other, or scale <= 0 (K1), returns
+// head offsets multiples of 4 floats). K1: head dims 40, 80 and 512, and at
+// d 40 and 80 a workspace `ws` of llt2i_flash_fwd_f32_ws(B, H, M, D) bytes,
+// 16-byte aligned, which the call overwrites (null at d 512); K5a and K5b:
+// 40 and 80. Any other d, scale <= 0 (K1) or a missing workspace returns
 // cudaErrorInvalidValue without launching.
 LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* o, float* lse, int B, int H, int N,
@@ -1892,24 +2092,31 @@ LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   long long k_bs, long long k_rs,
                                   long long v_bs, long long v_rs,
                                   long long o_bs, long long o_rs, float scale,
-                                  void* stream) {
+                                  void* ws, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;  // max over raw scores
+  float* w = static_cast<float*>(ws);
   switch (D) {
     case 40:
-      return launch_fwd_f32<Fwd40F>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
+      return launch_fwd_f32<Fwd40W>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
                                     k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale,
-                                    s);
+                                    w, s);
     case 80:
-      return launch_fwd_f32<Fwd80F>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
+      return launch_fwd_f32<Fwd80W>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
                                     k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale,
-                                    s);
-    case 512:  // wgmma + TMA: 16-byte aligned q, k and v (TMA)
+                                    w, s);
+    case 512:
       return launch_fwd_f32_512(q, k, v, o, lse, B, H, N, M, q_bs, q_rs, k_bs,
                                 k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bytes of llt2i_flash_fwd_f32's workspace for B x H heads of M keys
+// at head dim D (0 where it needs none)
+LLT2I_API long long llt2i_flash_fwd_f32_ws(int B, int H, int M, int D) {
+  return D == 40 || D == 80 ? 4 * fwd_f32_ws_floats(B, H, M, D) : 0;
 }
 
 LLT2I_API int llt2i_flash_bwd_dq_f32(const void* q, const void* k,

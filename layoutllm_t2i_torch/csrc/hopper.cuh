@@ -104,6 +104,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 3-d tensor map (c0 the column, c1 the row, c2 the matrix)
+// into shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box of a 2-d tensor map (c0 the column, c1 the row) into shared memory
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1) {
@@ -558,6 +570,63 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D (64 x 40) (+)= A (64 x 8, tf32 in registers) B^T
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[20],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64) (+)= A (64 x 8) B^T, A and B tf32, K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 32) (+)= A (64 x 8) B^T, A and B tf32, K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // Wait at named barrier `id` (1-15; 0 is __syncthreads's) until `count`
 // threads, whole warps, have arrived
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
@@ -631,6 +700,29 @@ inline int tensor_map_2d_f32(CUtensorMap* map, const void* base, int rows,
   const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                      const_cast<void*>(base), dims, strides, box, step,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A (cols, rows, mats) map of `mats` row-major (rows, cols) f32 matrices
+// stored one after another with row stride `ld` values: boxes of 32
+// columns (one swizzle row) by box_rows rows of one matrix, 128-byte
+// swizzle, zeros past each matrix's last row and column. The base must be
+// 16-byte aligned and ld a multiple of 4.
+inline int tensor_map_3d_f32(CUtensorMap* map, const void* base, int cols,
+                             int rows, int mats, long long ld, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 4,
+                                 (cuuint64_t)ld * rows * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                       const_cast<void*>(base), dims, strides, box, step,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -27,22 +27,17 @@
 //
 // Both have f32 forms (llt2i_linear_f32, llt2i_geglu_f32), for f32 x and
 // weights, as the Pallas kernels take them, with the same epilogues in f32.
-// K8a/f32 (linear_f32_wgmma_kernel: acc + b, then + r) runs on
-// tf32_gemm.cuh's mainloop: 3xTF32 on wgmma fed by TMA, 128 x 160 tiles,
-// which fill 128 of the 132 SMs at its widest shape (M = 2048, N = 1280).
-// K8b/f32 (geglu_f32_kernel) is still on f32_tiles.cuh's tile GEMM (3xTF32
-// on mma.sync). Bound: operations at the TF32 rate.
-#include "f32_tiles.cuh"
+// Both run on tf32_gemm.cuh's mainloop: 3xTF32 on wgmma fed by TMA. K8a/f32
+// (linear_f32_wgmma_kernel: acc + b, then + r) takes 128 x 160 tiles, which
+// fill 128 of the 132 SMs at its widest shape (M = 2048, N = 1280).
+// K8b/f32 (geglu_f32_wgmma_kernel) is K4/f32's up GEMM on x: 128 x 64
+// tiles of the output, Wa's and Wg's 64 rows of one tile from two tensor
+// maps in one 128-row B tile, tf32_gemm.cuh's GegluF32 epilogue with the
+// bias optional. Bound: operations at the TF32 rate.
 #include "gemm_tiles.cuh"
 #include "tf32_gemm.cuh"
 
 namespace {
-
-using f32_tiles::f32_gemm_smem;
-using f32_tiles::gemm_f32;
-using f32_tiles::kF32BM;
-using f32_tiles::kF32BN;
-using f32_tiles::kF32Threads;
 
 // K8a's epilogue: bf16(acc + b + r), b and r optional, in f32 as
 // matmul.py:70-75 adds them
@@ -169,36 +164,19 @@ linear_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                                      BiasResidualF32{b, r, out, M, N});
 }
 
-// K8b in f32: out = (x Wa^T + ba) * gelu_erf(x Wg^T + bg), b optional
-__global__ void __launch_bounds__(kF32Threads, 2)
-geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ b, float* __restrict__ out, int M,
-                 int K, int N) {
-  extern __shared__ __align__(16) float smem_f[];
-  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
-  const float* const B[2] = {w, w + (long long)N * K};
-  float acc[2][2][4][4];
-  gemm_f32<2>(acc, x, K, M, B, K, N, K, m0, n0, smem_f);
-  f32_tiles::for_each_pair(
-      m0, n0, M, N, [&](int mi, int nt, int r, int row, int col) {
-        float o[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float a = acc[0][mi][nt][2 * r + e], g = acc[1][mi][nt][2 * r + e];
-          if (b != nullptr) {
-            a += b[col + e];
-            g += b[N + col + e];
-          }
-          o[e] = a * gelu_erf(g);
-        }
-        *reinterpret_cast<float2*>(out + (long long)row * N + col) =
-            make_float2(o[0], o[1]);
-      });
-}
+// K8b/f32 tiles: K4/f32's up tiles, 128 rows x (64 Wa + 64 Wg) B rows
+using GegluF32Cfg = tf32_gemm::Cfg<128>;
 
-// the f32 forms' grid: kF32BM x kF32BN tiles of (M, N)
-dim3 f32_grid(int M, int N) {
-  return dim3((N + kF32BN - 1) / kF32BN, (M + kF32BM - 1) / kF32BM);
+// K8b in f32: out = (x Wa^T + ba) * gelu_erf(x Wg^T + bg), b optional, 128
+// x 64 tiles of out (M, N); twa and twg map Wa's and Wg's N rows
+__global__ void __launch_bounds__(GegluF32Cfg::kThreads, 1)
+geglu_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap twa,
+                       const __grid_constant__ CUtensorMap twg,
+                       const float* __restrict__ b, float* __restrict__ out,
+                       int M, int K, int N) {
+  tf32_gemm::gemm_tile_pair<GegluF32Cfg>(&tx, &twa, &twg, K,
+                                         tf32_gemm::GegluF32{b, out, M, N});
 }
 
 }  // namespace
@@ -245,16 +223,20 @@ LLT2I_API int llt2i_linear_f32(const void* x, const void* w, const void* b,
 
 // K8b in f32. x: (M, K) f32; w: (2N, K) = [Wa; Wg] f32; b: (2N,) f32 or
 // null; out: (M, N) f32. K % 4 == 0 and N % 4 == 0; x and w 16-byte aligned
-// (cp.async), b 4-byte, out 8-byte.
+// (TMA), b 4-byte, out 8-byte.
 LLT2I_API int llt2i_geglu_f32(const void* x, const void* w, const void* b,
                               void* out, int M, int K, int N, void* stream) {
   if (K % 4 || N % 4) return (int)cudaErrorInvalidValue;
-  static unsigned long long set = 0;
-  const int err = allow_smem(geglu_f32_kernel, f32_gemm_smem<2>(), set);
+  const float* wa = static_cast<const float*>(w);
+  CUtensorMap tx, twa, twg;
+  int err = tensor_map_2d_f32(&tx, x, M, K, tf32_gemm::kBM);
+  if (err == 0) err = tensor_map_2d_f32(&twa, wa, N, K, GegluF32Cfg::kBN / 2);
+  if (err == 0)
+    err = tensor_map_2d_f32(&twg, wa + (long long)N * K, N, K,
+                            GegluF32Cfg::kBN / 2);
   if (err != 0) return err;
-  geglu_f32_kernel<<<f32_grid(M, N), kF32Threads, f32_gemm_smem<2>(),
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
+  // the grid: 2 N B rows in tiles of 128, 64 output columns each
+  return tf32_gemm::launch<GegluF32Cfg, geglu_f32_wgmma_kernel>(
+      M, 2 * N, static_cast<cudaStream_t>(stream), tx, twa, twg,
       static_cast<const float*>(b), static_cast<float*>(out), M, K, N);
-  return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
 // The TF32 wgmma mainloop of the f32 GEMM forms (sm_90a): f32 accuracy
 // (3xTF32, csrc/f32_tiles.cuh) on warp-specialised wgmma fed by a TMA
-// ring. K8a/f32 (matmul.cu linear_f32_wgmma_kernel) and the up and down
-// GEMMs of K4/f32 and K6/f32 (ffn.cu ffn_up_f32_wgmma_kernel,
-// ffn_down_f32_wgmma_kernel) run on it; the other users of f32_tiles.cuh's
-// gemm_f32 (K7/f32, K8b/f32) are the next to move here.
+// ring. K8a/f32 (matmul.cu linear_f32_wgmma_kernel), K8b/f32 (matmul.cu
+// geglu_f32_wgmma_kernel) and the up and down GEMMs of K4/f32 and K6/f32
+// (ffn.cu ffn_up_f32_wgmma_kernel, ffn_down_f32_wgmma_kernel) run on it;
+// the GEGLU GEMMs (K4/f32's and K6/f32's up, K8b/f32) share its GegluF32
+// epilogue. K7/f32 stays on f32_tiles.cuh's gemm_f32, and K1/f32 (csrc/
+// flash_attention.cu) on TF32 wgmma of its own with this file's split.
 //
 // Every product is A B^T with both operands row-major over the
 // contraction: A (M, K) activations, B (N, K) weights in the torch (out,
@@ -251,6 +253,42 @@ __device__ __forceinline__ void gemm_tile_pair(const CUtensorMap* ta,
                                                const Epi& epi) {
   tile_loop<C, true>(ta, tb, tb2, K, epi);
 }
+
+// The GEGLU epilogue of gemm_tile_pair<Cfg<128>> (K4/f32's and K6/f32's
+// up GEMM, K8b/f32): groups j < 8 of acc are A Wa^T, groups j + 8 A Wg^T
+// at the same h columns n0 / 2 + 8 j + 2 (lane % 4) + {0, 1}; h = (a + ba)
+// * gelu_erf(g + bg) in f32, the bias b = [ba; bg] optional
+struct GegluF32 {
+  const float* b;  // (2 inner,) = [ba; bg], or null
+  float* h;        // (M, inner)
+  int M, inner;
+
+  __device__ __forceinline__ void operator()(const float (&acc)[64], int row0,
+                                             int n0, int lane) const {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 / 2 + 8 * j + 2 * (lane & 3);
+        if (col >= inner) continue;  // inner % 4 == 0: col + 1 < inner too
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = acc[4 * j + 2 * hr + e], g = acc[4 * (j + 8) + 2 * hr + e];
+          if (b != nullptr) {
+            a += b[col + e];
+            g += b[inner + col + e];
+          }
+          o[e] = a * gelu_erf(g);
+        }
+        *reinterpret_cast<float2*>(h + (long long)row * inner + col) =
+            make_float2(o[0], o[1]);
+      }
+    }
+  }
+};
 
 // Launch kKern (a gemm_tile kernel of config C) over an (M, N) output on
 // `stream`, its dynamic shared memory allowed once per device.

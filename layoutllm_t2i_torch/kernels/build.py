@@ -83,6 +83,13 @@ F32_TWINS = {"flash_attention": ("llt2i_flash_fwd", "llt2i_flash_bwd_dq",
 for lib_name, twins in F32_TWINS.items():
     SIGNATURES[lib_name].update({f"{fn}_f32": SIGNATURES[lib_name][fn]
                                  for fn in twins})
+# K1/f32 takes a workspace (d 40 and 80) before the stream, of the bytes
+# that llt2i_flash_fwd_f32_ws returns
+SIGNATURES["flash_attention"]["llt2i_flash_fwd_f32"] = (
+    SIGNATURES["flash_attention"]["llt2i_flash_fwd"][:-1] + [_P, _P])
+SIGNATURES["flash_attention"]["llt2i_flash_fwd_f32_ws"] = [_I, _I, _I, _I]
+# entry points that return another type than a cudaError_t
+RESTYPES = {"llt2i_flash_fwd_f32_ws": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -167,7 +174,7 @@ def _load(name: str) -> ctypes.CDLL:
             for fn, argtypes in SIGNATURES[name].items():
                 f = getattr(handle, fn)
                 f.argtypes = argtypes
-                f.restype = ctypes.c_int
+                f.restype = RESTYPES.get(fn, ctypes.c_int)
             _libs[name] = handle
         return _libs[name]
 

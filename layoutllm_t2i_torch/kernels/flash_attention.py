@@ -15,11 +15,12 @@ in XLA, then K5a (dQ) and K5b (dK, dV) recompute the softmax from the lse.
 Where no gradient is needed, K1 launches exactly as for inference.
 
 Each kernel comes in bf16 and in f32 (``llt2i_flash_*_f32``: 3xTF32
-products, on mma.sync, and on wgmma with TMA for K1 at d 512 (the VAE's
-head); P and dS kept in f32, as the Pallas kernels keep
-them in the operands' type), picked from q's dtype; q, k, v and dO share
-it. The f32 forms take d 40 and 80 (K1 also 512), the training path's
-head dims.
+products, on wgmma with TMA for K1, on mma.sync for K5a and K5b; P and dS
+kept in f32, as the Pallas kernels keep them in the operands' type),
+picked from q's dtype; q, k, v and dO share it. The f32 forms take d 40
+and 80 (K1 also 512), the training path's head dims. K1/f32 at d 40 and 80
+splits K and V (and transposes V) once a call into a workspace that the
+wrapper allocates for the call (``llt2i_flash_fwd_f32_ws`` bytes).
 """
 from __future__ import annotations
 
@@ -130,13 +131,22 @@ def _launch_fwd(q, k, v, heads, scale, need_lse):
     out = torch.empty((b, n, hc), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    check(getattr(lib("flash_attention"), _ENTRY[dtype][0])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        b, heads, n, m, hc // heads,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        float(scale), stream_handle(q.get_device())), "flash_attention")
+    handle = lib("flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            b, heads, n, m, hc // heads,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            float(scale))
+    if dtype is torch.float32:
+        # K and V split (and V transposed) once a call into a workspace of
+        # this call's shape, on the caller's stream; none at d 512
+        nbytes = handle.llt2i_flash_fwd_f32_ws(b, heads, m, hc // heads)
+        ws = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
+              if nbytes else None)
+        args += (None if ws is None else ws.data_ptr(),)
+    check(getattr(handle, _ENTRY[dtype][0])(
+        *args, stream_handle(q.get_device())), "flash_attention")
     flash_attention.launches += 1
     if dtype is torch.float32:
         flash_attention.f32_launches += 1

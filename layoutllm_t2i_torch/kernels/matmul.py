@@ -192,7 +192,7 @@ def _geglu_forward(x, w, b):
     v = vector_elems(dtype)
     if not (k % v == 0 and n % v == 0):
         raise ValueError(f"geglu_fused: K={k}, N={n} must be multiples of {v}")
-    # x and w through TMA (f32: 16-byte cp.async), b in bf16 pairs or f32
+    # x and w through TMA, b in bf16 pairs or f32
     # values
     for name, t, nbytes in (("geglu_fused: x", x, 16), ("geglu_fused: w", w, 16),
                             ("geglu_fused: b", b, 4)):

@@ -746,6 +746,8 @@ def _check_f32(kid, kernel_fn, plain_fn, counter, kids=None):
 @pytest.mark.parametrize("b,n,m,heads,d", [
     (1, 600, 630, 2, 40), (2, 513, 129, 8, 80), (1, 520, 600, 1, 512),
     (2, 4126, 4126, 8, 40), (1, 4096, 4096, 1, 512),
+    # the gated 32^2 site of the f32 generation; 77 keys, one ragged tile
+    (4, 1054, 1054, 8, 80), (2, 1024, 77, 8, 80), (2, 4096, 77, 8, 40),
 ])
 def test_flash_attention_f32(dev, gen, f32, b, n, m, heads, d):
     q, k, v = (_rand(gen, b, r, heads * d).float() for r in (n, m, m))
@@ -755,7 +757,7 @@ def test_flash_attention_f32(dev, gen, f32, b, n, m, heads, d):
                K.flash_attention)
 
 
-@pytest.mark.parametrize("b,n,m,heads,d", TRAIN_SHAPES)
+@pytest.mark.parametrize("b,n,m,heads,d", TRAIN_SHAPES + [(4, 4126, 4126, 8, 40)])
 def test_flash_attention_lse_f32(dev, gen, f32, b, n, m, heads, d):
     q, k, v, _ = (t.float() for t in _attention_inputs(gen, b, n, m, heads, d))
     s = d ** -0.5
@@ -779,11 +781,12 @@ def test_flash_attention_backward_f32(dev, gen, f32, b, n, m, heads, d):
                lambda: ref[1:], K.flash_attention_bwd_dkv)
 
 
-def test_flash_attention_f32_strided_and_fenced(dev, gen, f32):
+@pytest.mark.parametrize("d", [40, 80])
+def test_flash_attention_f32_strided_and_fenced(dev, gen, f32, d):
     # q, k and v slices of one packed qkv buffer (row stride 3 H d, a
     # multiple of 4 floats, not of 8) whose neighbours are NaN: a read past
-    # any operand turns the output NaN
-    b, n, heads, d = 2, 700, 2, 40
+    # any operand (the K/V pre-pass's or a tensor map's) turns the output NaN
+    b, n, heads = 2, 700, 2
     guard = 4096
     buf = torch.full((b * n * 3 * heads * d + 2 * guard,), float("nan"),
                      device=dev)
@@ -795,6 +798,22 @@ def test_flash_attention_f32_strided_and_fenced(dev, gen, f32):
     assert not out.isnan().any()
     got = agreement("K1/f32", out, K.flash_attention_plain(q, k, v, heads, d ** -0.5))
     assert got["ok"], got
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", [(2, 4126, 4126, 8, 40),
+                                            (4, 1054, 1054, 8, 80),
+                                            (1, 600, 630, 2, 40)])
+def test_flash_attention_f32_repeats_bit_for_bit(dev, gen, f32, b, n, m, heads, d):
+    # each output row summed by one warp in a fixed order and the workspace
+    # written whole by its pre-pass before the main kernel reads it: a stage
+    # refilled before its readers left, or a stale workspace slot, would
+    # change the bits between launches
+    q, k, v = (_rand(gen, b, r, heads * d).float() for r in (n, m, m))
+    runs = [_launch_fwd(q, k, v, heads, d ** -0.5, need_lse=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.isfinite(runs[0][0]).all()
+    for out, lse in runs[1:]:
+        assert torch.equal(runs[0][0], out) and torch.equal(runs[0][1], lse)
 
 
 def test_flash_attention_f32_autograd_through_the_kernels(dev, gen, f32):
@@ -1482,7 +1501,8 @@ def test_linear_fused_f32(dev, gen, f32, m, k, n, bias, residual):
 
 
 @pytest.mark.parametrize("m,k,n", [(100, 320, 1280), (2048, 1280, 5120),
-                                   (130, 72, 200)])
+                                   (130, 72, 200), (32768, 320, 1280),
+                                   (8192, 640, 2560)])
 @pytest.mark.parametrize("bias", [True, False])
 def test_geglu_fused_f32(dev, gen, f32, m, k, n, bias):
     x, w = _rand(gen, m, k).float(), _rand(gen, 2 * n, k, scale=k ** -0.5).float()

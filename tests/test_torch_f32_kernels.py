@@ -3,22 +3,26 @@ stated tolerances against CPU emulations of the kernels' arithmetic, and
 the plain versions against the Pallas kernels at the f32 block choices.
 
 The CUDA kernels run only on the card. Their f32 products are 3xTF32, on
-mma.sync (``csrc/f32_tiles.cuh``) or on TF32 wgmma (``csrc/tf32_gemm.cuh``:
-K4, K6 and K8a, K1 at d 512): each operand split into hi = tf32(x) and
-lo = tf32(x - hi) (round to nearest, ties away, to 10 mantissa bits, as
+mma.sync (``csrc/f32_tiles.cuh``: K5a, K5b, K7) or on TF32 wgmma (K1;
+``csrc/tf32_gemm.cuh``: K4, K6, K8a and K8b): each operand split into
+hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties away, to 10
+mantissa bits, as
 ``cvt.rna.tf32.f32``), three TF32 products hi*hi + hi*lo + lo*hi summed in
 f32. The emulations below repeat that split and each kernel's tiling
-(K1's online softmax over K/V stages with P in f32, K5's stages, the tile
+(K1's online softmax over K/V tiles with P in f32, S's chain and each
+tile's P V truncating into a fresh accumulator, K5's stages, the tile
 GEMM's 32-deep k steps and 128-row blocks, the wgmma mainloop's 32-deep
 stages truncating into a fresh accumulator, f32 LN(x) and h): they must
 pass the f32 rows of ``kernels/tolerance.py`` against the plain versions,
 and a single TF32 pass (operands rounded once: a different function, about
 4e-4 off), a dropped ragged K/V tail or k step, a missing rescale, K4's s
 applied after the residual, K6's residual added twice, K8a's bias dropped,
-K4's and K6's gate read from Wa's rows, a stale B lo, an unzeroed fresh
-accumulator or one accumulator over the 5120-deep down product, and K7's
-scale missing or folded into its weights before the dot must fail them. K7's weights are int8, exact in TF32 (tested), so its products
-are two TF32 passes, a_hi q + a_lo q.
+K4's, K6's and K8b's gate read from Wa's rows, a stale B lo or V stage,
+V^T's keys off P's permuted k, K1's partial last chunk of d dropped, an
+unzeroed fresh accumulator or one accumulator over the 5120-deep down
+product, and K7's scale missing or folded into its weights before the
+dot must fail them. K7's weights are int8, exact in TF32 (tested), so its
+products are two TF32 passes, a_hi q + a_lo q.
 
 The Pallas kernels run in interpret mode, as the JAX package's own tests
 run them, at the shapes where f32 picks other blocks than bf16 (K4's
@@ -190,29 +194,72 @@ def test_tf32_split_is_exact_to_2_22():
 
 
 def _k1_emulated(q, k, v, heads, scale, bk, fault=None):
-    """csrc/flash_attention.cu flash_fwd_f32_kernel on the CPU: K/V in
-    BK-row stages zero-filled past M, the ragged tail scored -inf, the row
-    max over the raw scores, p = exp2(s c - m c) in f32 (P never rounded),
-    O += P V, O / l; lse = m scale + ln l. Returns (out, lse). At d = 512,
-    flash_fwd_f32_wgmma_kernel's schedule: ``_k1_wgmma_emulated``."""
+    """K1/f32 on the CPU: at d = 40 and 80 ``_k1_ss_emulated``
+    (flash_fwd_f32_ss_kernel), at d = 512 ``_k1_wgmma_emulated``
+    (flash_fwd_f32_wgmma_kernel). Returns (out, lse)."""
     if q.shape[-1] // heads == 512:
         return _k1_wgmma_emulated(q, k, v, heads, scale, bk, fault)
+    return _k1_ss_emulated(q, k, v, heads, scale, bk, fault)
+
+
+def _slot_rows(t):
+    """t's key rows (dim -2) as V^T's key slots hold them when V is taken
+    without the transposition's permutation: row r of each 8-key block
+    replaced by row p_key_slot(r) (key 2 t at slot t, 2 t + 1 at t + 4)."""
+    r = torch.arange(t.shape[-2])
+    slot = (r & ~7) + ((r & 7) >> 1) + 4 * (r & 1)
+    return t[..., slot.clamp(max=t.shape[-2] - 1), :]
+
+
+def _k1_ss_emulated(q, k, v, heads, scale, bk, fault=None):
+    """flash_fwd_f32_ss_kernel (K1/f32 at d = 40 and 80) on the CPU. Q, K
+    and V in chunks of 32 values, zeros past d (the k loop stops at d); K
+    and V split once (the pre-pass), Q once a block. Per tile of ``bk`` keys
+    (zeros past M): S's d / 8 k steps' products (``tc_products``: lo*hi and
+    hi*lo of each, then hi*hi) truncating into one fresh accumulator
+    (``chain``); the ragged tail scores -inf; the online softmax in f32, P
+    unrounded; O += P V, P split once, V's transposed hi and lo tiles, the
+    tile's products truncating into a fresh accumulator added to the
+    rescaled O in round-to-nearest f32. Faults: ``stale_v`` (the previous
+    tile's V stage), ``v_slots`` (V^T's keys not at P's permuted k),
+    ``d_tail_dropped`` (the partial last 32-value chunk of d), ``lo_hi_dropped``,
+    ``never_zeroed`` (P V's fresh accumulator carried into the next tile),
+    ``tf32_one_pass``, ``kv_tail`` (the ragged last tile), ``rescale`` (the
+    row sum not rescaled). Returns (out, lse)."""
     passes = 1 if fault == "tf32_one_pass" else 3
     qh, kh, vh = (_split(t, heads) for t in (q, k, v))
     b, h, n, d = qh.shape
     m = kh.shape[2]
+    if fault == "d_tail_dropped":   # d 40: columns 32..39; d 80: 64..79
+        qh = qh.clone()
+        qh[..., d - d % 32:] = 0
     c = torch.tensor(scale, dtype=F32) * torch.tensor(1.4426950408889634, dtype=F32)
     m_run = torch.full((b, h, n, 1), -torch.inf)
     den = torch.zeros(b, h, n, 1)
     acc = torch.zeros(b, h, n, d)
+    q_hi, q_lo = split(qh)
+    part, prev_v = None, torch.zeros(b, h, bk, d)
     end = m - m % bk if fault == "kv_tail" else m
     for k0 in range(0, end, bk):
-        s = mm(qh, kh[:, :, k0:k0 + bk].transpose(-1, -2), passes)
+        rows = min(bk, m - k0)
+        kt, vt = torch.zeros(b, h, bk, d), torch.zeros(b, h, bk, d)
+        kt[:, :, :rows], vt[:, :, :rows] = kh[:, :, k0:k0 + rows], vh[:, :, k0:k0 + rows]
+        k_hi, k_lo = split(kt.transpose(-1, -2))
+        s = chain(None, tc_products(q_hi, q_lo, k_hi, k_lo,
+                                    fault == "lo_hi_dropped", passes))
+        s[..., rows:] = -torch.inf
         m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
         p = torch.exp2(s * c - m_new * c)
         alpha = torch.exp2((m_run - m_new) * c)
         den = (den if fault == "rescale" else den * alpha) + p.sum(-1, keepdim=True)
-        acc = acc * alpha + mm(p, vh[:, :, k0:k0 + bk], passes)
+        vs = {"stale_v": prev_v, "v_slots": _slot_rows(vt)}.get(fault, vt)
+        prev_v = vt
+        p_hi, p_lo = split(p)
+        v_hi, v_lo = split(vs)
+        part = chain(part if fault == "never_zeroed" else None,
+                     tc_products(p_hi, p_lo, v_hi, v_lo,
+                                 fault == "lo_hi_dropped", passes))
+        acc = acc * alpha + part
         m_run = m_new
     out = acc * (1.0 / den)
     return _packed(out), (m_run * scale + torch.log(den))[..., 0]
@@ -280,7 +327,7 @@ def _k1_wgmma_emulated(q, k, v, heads, scale, bk, fault=None):
     return _packed(out), (m_run * scale + torch.log(den))[..., 0]
 
 
-# csrc/flash_attention.cu Fwd40F, Fwd80F, Fwd512W: K/V rows a stage
+# csrc/flash_attention.cu Fwd40W, Fwd80W, Fwd512W: keys a stage
 K1_BK = {40: 64, 80: 32, 512: 32}
 
 
@@ -292,6 +339,11 @@ K1_BK = {40: 64, 80: 32, 512: 32}
     # fresh accumulator never zeroed
     *((512, f) for f in ("stale_partial", "stale_k_lo", "d_chunk_dropped",
                          "lo_hi_dropped", "never_zeroed")),
+    # d = 40 and 80 on wgmma: a stale V stage, V^T's keys off P's permuted
+    # k, the partial last chunk of d dropped, no lo*hi term, P V's fresh
+    # accumulator never zeroed
+    *((d, f) for d in (40, 80) for f in ("stale_v", "v_slots", "d_tail_dropped",
+                                         "lo_hi_dropped", "never_zeroed")),
 ])
 def test_k1_f32_tolerance_separates_rounding_from_faults(d, fault):
     # M = 1054 (the 32^2 gated sites' length) leaves a ragged last stage at
@@ -371,17 +423,20 @@ def test_k5_f32_tolerance_separates_rounding_from_faults(d, kid, fault):
 
 
 def _ff_f32_up(a, w1, b1, fault=None):
-    """The up GEMM of csrc/ffn.cu's f32 K4 and K6 on tf32_gemm.cuh's TF32
-    wgmma mainloop (``gemm(..., stage=32)``): Wa's and Wg's rows as two B
-    boxes of one tile, h = (a + ba) * gelu_erf(g + bg) kept in f32. Faults:
-    ``tf32_one_pass`` and ``k_tail``; ``gate_from_wa`` (the second box read
-    at Wa's rows); ``up_`` with ``never_zeroed``, ``stale_lo`` or
-    ``one_chain`` (``_gemm_wgmma``'s)."""
+    """The up GEMM of csrc/ffn.cu's f32 K4 and K6 and of K8b/f32 on
+    tf32_gemm.cuh's TF32 wgmma mainloop (``gemm(..., stage=32)``): Wa's and
+    Wg's rows as two B boxes of one tile, h = (a + ba) * gelu_erf(g + bg)
+    kept in f32 (K8b's bias b1 may be None). Faults: ``tf32_one_pass`` and
+    ``k_tail``; ``gate_from_wa`` (the second box read at Wa's rows); ``up_``
+    with ``never_zeroed``, ``stale_lo`` or ``one_chain``
+    (``_gemm_wgmma``'s)."""
     inner = w1.shape[0] // 2
     gate_rows = w1[:inner] if fault == "gate_from_wa" else w1[inner:]
     up = lambda w: gemm(a, w, **_ff_gemm_kw(fault, "up"))
-    return (up(w1[:inner]) + b1[:inner]) * torch.nn.functional.gelu(
-        up(gate_rows) + b1[inner:])
+    a_, g_ = up(w1[:inner]), up(gate_rows)
+    if b1 is not None:
+        a_, g_ = a_ + b1[:inner], g_ + b1[inner:]
+    return a_ * torch.nn.functional.gelu(g_)
 
 
 def _ff_gemm_kw(fault, which):
@@ -448,8 +503,13 @@ def test_k4_f32_tolerance_separates_rounding_from_faults(k, s, fault):
 
 
 def _ff_f32_case(kid, m, k, inner, fault):
-    """(emulated, plain) of K4/f32 (s = 0.5) or K6/f32 at (m, k, inner)."""
+    """(emulated, plain) of K4/f32 (s = 0.5) or K6/f32 at (m, k, inner), or
+    of K8b/f32 ("K8b", "K8b nobias": its GEGLU GEMM on x to inner
+    columns)."""
     x, lw, lb, w1, b1, w2, b2 = _k4_inputs(m, k, inner)
+    if kid.startswith("K8b"):
+        b = None if kid.endswith("nobias") else b1
+        return _ff_f32_up(x, w1, b, fault), geglu_plain(x, w1, b)
     if kid == "K4":
         args = (x, lw, lb, w1, b1, w2, b2, 0.5)
         return _k4_f32_emulated(*args, fault=fault), ffn_ln_geglu_plain(*args)
@@ -458,11 +518,20 @@ def _ff_f32_case(kid, m, k, inner, fault):
             ffn_geglu_plain(x, w1, b1, w2, b2, r))
 
 
-@pytest.mark.parametrize("kid", ["K4", "K6"])
-@pytest.mark.parametrize("k,inner,fault", [
+_FF_WGMMA_CASES = [
     (72, 200, None), (72, 200, "gate_from_wa"), (72, 200, "k_tail"),
     (72, 288, "up_never_zeroed"), (72, 288, "down_never_zeroed"),
     (320, 1280, "up_stale_lo"), (320, 1280, "down_stale_lo"),
+]
+
+
+@pytest.mark.parametrize("k,inner,fault,kid", [
+    *(pytest.param(k, inner, f, kid, id=f"{k}-{inner}-{f}-{kid}")
+      for k, inner, f in _FF_WGMMA_CASES for kid in ("K4", "K6")),
+    # K8b/f32 runs the up GEMM alone, its bias given or absent
+    *(pytest.param(k, inner, f, kid, id=f"{k}-{inner}-{f}-{kid}")
+      for k, inner, f in _FF_WGMMA_CASES if not (f or "").startswith("down_")
+      for kid in ("K8b", "K8b nobias")),
 ])
 def test_ff_f32_wgmma_faults_leave_the_row(kid, k, inner, fault):
     # the up GEMM's B tile is 64 Wa rows over the same 64 Wg rows from two
@@ -472,7 +541,7 @@ def test_ff_f32_wgmma_faults_leave_the_row(kid, k, inner, fault):
     # never zeroed, in either GEMM, must fail the row. M = 200: a ragged
     # last row block; K = 72: a ragged 32-deep stage
     out, ref = _ff_f32_case(kid, 200, k, inner, fault)
-    got = agreement(tol_id(kid, F32), out, ref)
+    got = agreement(tol_id(kid.split()[0], F32), out, ref)
     assert got["ok"] == (fault is None), got
 
 
@@ -585,21 +654,17 @@ def test_int8_values_split_exactly_in_tf32():
 
 
 def _k8_f32_emulated(kid, x, w, b, r=None, fault=None):
-    """csrc/matmul.cu's f32 K8a (acc + b, then + r) on the TF32 wgmma
-    mainloop (32-deep stages), or K8b ((acc_a + ba) gelu(acc_g + bg)) on
-    the tile GEMM."""
+    """csrc/matmul.cu's f32 K8a (acc + b, then + r) and K8b ((acc_a + ba)
+    gelu(acc_g + bg), K4/f32's up GEMM: ``_ff_f32_up``) on the TF32 wgmma
+    mainloop (32-deep stages)."""
+    if kid == "K8b":
+        return _ff_f32_up(x, w, b, fault)
     kw = dict(passes=1 if fault == "tf32_one_pass" else 3,
               k_tail=fault == "k_tail")
-    if kid == "K8a":
-        y = gemm(x, w, stage=32, fault=fault, **kw)
-        if b is not None and fault != "bias_dropped":
-            y = y + b
-        return y if r is None else y + r
-    n = w.shape[0] // 2
-    a, g = gemm(x, w[:n], **kw), gemm(x, w[n:], **kw)
-    if b is not None:
-        a, g = a + b[:n], g + b[n:]
-    return a * torch.nn.functional.gelu(g)
+    y = gemm(x, w, stage=32, fault=fault, **kw)
+    if b is not None and fault != "bias_dropped":
+        y = y + b
+    return y if r is None else y + r
 
 
 @pytest.mark.parametrize("kid,k,n,extras,fault", [
