@@ -9,10 +9,11 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
                in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel and
                in the TF32 wgmma kernels of K1/f32 (d 40 and 80; d 512),
-               K4/f32 (K6/f32 runs K4/f32's), K8a/f32 and K8b/f32
-               (WGMMA_KERNELS; K4's and K7's LN pre-passes and K1/f32's K/V
-               split do no product) and HMMA (mma.sync, TF32) in every
-               mma.sync product kernel of the f32 forms of K5a, K5b and K7
+               K5a/f32 and K5b/f32 (d 40 and 80), K4/f32 (K6/f32 runs
+               K4/f32's), K8a/f32 and K8b/f32 (WGMMA_KERNELS; K4's and
+               K7's LN pre-passes and the f32 flash split pre-pass,
+               flash_split_f32_kernel, K1/f32's and K5's, do no product)
+               and HMMA (mma.sync, TF32) in K7/f32's two product kernels
                (MMA_F32_KERNELS), or if
                ptxas reports a spill in a K7 kernel or a TF32 wgmma kernel
                (NO_SPILL_KERNELS) or any nvcc log holds C7515 (wgmma
@@ -26,8 +27,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                in bf16 (K7 on int8 weights) and, for every kernel (K1 with
                and without its lse), in f32: rows labelled "f32" and
                kernel "K1/f32" etc., held to the f32 rows of
-               kernels/tolerance.py, with `arith` (3xTF32 mma.sync; K1,
-               K4, K6, K8a and K8b 3xTF32 wgmma; K7 two TF32 products
+               kernels/tolerance.py, with `arith` (3xTF32 wgmma for K1,
+               K5a, K5b, K4, K6, K8a and K8b; K7 two TF32 products
                against its int8 weights; f32 without products for K2 and
                K3), bound at 4-byte elements (K7's
                weights 1, its scales 4) and the TF32 peak (495 TFLOP/s;
@@ -268,13 +269,16 @@ TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 # library -> its kernels written on csrc/hopper.cuh's wgmma: K1, K5a, K5b;
 # K4's, K6's and K7's up and down GEMMs, K8a and K8b on csrc/gemm_tiles.cuh;
 # the f32 forms' TF32 wgmma kernels, K1/f32 at d 40 and 80 (S with Q and K
-# by descriptor, P V with P as register A) and at d 512, K4/f32's (and
+# by descriptor, P V with P as register A) and at d 512, K5a/f32 and
+# K5b/f32 (the scores by descriptor, P and dS as register A), K4/f32's (and
 # K6/f32's) up and down GEMMs, K8a/f32 and K8b/f32 (csrc/tf32_gemm.cuh).
 # Each must show HGMMA in its SASS, in every instantiation.
 WGMMA_KERNELS = {
     "flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                         "flash_bwd_dkv_kernel", "flash_fwd_f32_ss_kernel",
-                        "flash_fwd_f32_wgmma_kernel"),
+                        "flash_fwd_f32_wgmma_kernel",
+                        "flash_bwd_dq_f32_ss_kernel",
+                        "flash_bwd_dkv_f32_ss_kernel"),
     "ffn": ("ffn_up_wgmma_kernel", "ffn_down_wgmma_kernel",
             "ffn_res_up_wgmma_kernel", "ffn_res_down_wgmma_kernel",
             "ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
@@ -292,12 +296,13 @@ VS_LIBRARY_KIDS = WGMMA_KIDS + ("K2",)
 # spill (ptxas)
 NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
                     "flash_fwd_f32_ss_kernel", "flash_fwd_f32_wgmma_kernel",
+                    "flash_bwd_dq_f32_ss_kernel", "flash_bwd_dkv_f32_ss_kernel",
                     "linear_f32_wgmma_kernel", "geglu_f32_wgmma_kernel",
                     "ffn_up_f32_wgmma_kernel", "ffn_down_f32_wgmma_kernel")
-# library -> the f32 forms' kernels on mma.sync (3xTF32, csrc/f32_tiles.cuh):
-# each must show HMMA (the TF32 tensor-core instruction) in its SASS
+# library -> the f32 forms' kernels on mma.sync (K7/f32: two TF32 products
+# against int8 tiles, csrc/f32_tiles.cuh): each must show HMMA (the TF32
+# tensor-core instruction) in its SASS
 MMA_F32_KERNELS = {
-    "flash_attention": ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel"),
     "ffn": ("ffn_q_up_f32_kernel", "ffn_q_down_f32_kernel"),
 }
 
@@ -324,15 +329,15 @@ KERNEL_META = {
             "layoutllm_t2i_tpu/ops/pallas/matmul.py:169"),
 }
 # every kernel's f32 form, an entry of its own: the same Pallas kernel
-# (which takes any float type) and source, f32 instantiations (K5a, K5b:
-# 3xTF32 on mma.sync; K1, K4, K6, K8a and K8b: 3xTF32 on wgmma;
+# (which takes any float type) and source, f32 instantiations (K1, K5a,
+# K5b, K4, K6, K8a and K8b: 3xTF32 on wgmma;
 # K7: two TF32 products against int8 weights, which TF32 holds exactly; K2,
 # K3: f32 tiles, no products)
 KERNEL_META.update({f"{kid}/f32": meta for kid, meta in list(KERNEL_META.items())})
 # the arithmetic of each f32 form's products, for its rows
 F32_ARITH = {"K1": "3xTF32 wgmma",
              "K4": "3xTF32 wgmma",
-             "K5a": "3xTF32 mma.sync", "K5b": "3xTF32 mma.sync",
+             "K5a": "3xTF32 wgmma", "K5b": "3xTF32 wgmma",
              "K6": "3xTF32 wgmma", "K8a": "3xTF32 wgmma",
              "K8b": "3xTF32 wgmma",
              "K7": "2xTF32 mma.sync (int8 weights exact in TF32)",
@@ -2346,7 +2351,9 @@ def planted_fault(name: str):
     fa = importlib.import_module("layoutllm_t2i_torch.kernels.flash_attention")
     dq_fn, dkv_fn = fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv
 
-    def dq(q, k, v, dout, lse, delta, heads, scale):
+    # each call fills a workspace of its own (the planted operands of
+    # dq_kv_tail are not the ones the pair's shared pre-pass would split)
+    def dq(q, k, v, dout, lse, delta, heads, scale, **_):
         if name == "softmax_scale":
             return dq_fn(q, k, v, dout, lse, delta, heads, scale * 1.005)
         if name == "dq_kv_tail":
@@ -2355,7 +2362,7 @@ def planted_fault(name: str):
         out = dq_fn(q, k, v, dout, lse, delta, heads, scale)
         return out * 1.01 if name == "dq_1pct" else out
 
-    def dkv(q, k, v, dout, lse, delta, heads, scale):
+    def dkv(q, k, v, dout, lse, delta, heads, scale, **_):
         if name == "softmax_scale":
             return dkv_fn(q, k, v, dout, lse, delta, heads, scale * 1.005)
         dk, dv = dkv_fn(q, k, v, dout, lse, delta, heads, scale)
@@ -2558,11 +2565,16 @@ def phase_train(work_dir: str, mixed_precision: bool = True,
 # K6/f32 runs K4/f32's up and down kernels and K7/f32 K4/f32's LN pre-pass,
 # so their time counts under K4/f32; K6/f32's group names them all the same
 PROFILE_GROUPS = (
+    # the split pre-pass's four-operand instantiations run in K5a/f32's
+    # call (the backward's, shared with K5b/f32), its two-operand ones in
+    # K1/f32's
+    ("K5a/f32 flash_attention_bwd_dq", ("flash_bwd_dq_f32_ss_kernel",
+                                        "flash_split_f32_kernel<40, 4>",
+                                        "flash_split_f32_kernel<80, 4>")),
+    ("K5b/f32 flash_attention_bwd_dkv", ("flash_bwd_dkv_f32_ss_kernel",)),
     ("K1/f32 flash_attention", ("flash_fwd_f32_ss_kernel",
-                                "flash_kv_split_f32_kernel",
+                                "flash_split_f32_kernel",
                                 "flash_fwd_f32_wgmma_kernel")),
-    ("K5a/f32 flash_attention_bwd_dq", ("flash_bwd_dq_f32_kernel",)),
-    ("K5b/f32 flash_attention_bwd_dkv", ("flash_bwd_dkv_f32_kernel",)),
     ("K2/f32 group_norm", tuple(f"{k}<float>" for k in GN_KERNELS)),
     ("K3/f32 layer_norm", ("ln_kernel<float",)),
     ("K7/f32 ffn_ln_geglu_q", ("ffn_q_up_f32_kernel", "ffn_q_down_f32_kernel")),

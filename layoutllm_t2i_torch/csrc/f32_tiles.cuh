@@ -1,6 +1,6 @@
-// f32 tile products for the f32 forms of K5a/K5b and K7 (sm_90a), the tile
-// GEMM of K7/f32, and the split into hi and lo (and the C fragment as the
-// A fragment, c_as_a) that the TF32 wgmma kernels (K1/f32, and K4/f32,
+// f32 tile products for the f32 form of K7 (sm_90a), its tile GEMM, and
+// the split into hi and lo (and the C fragment as the A fragment, c_as_a)
+// that the TF32 wgmma kernels (K1/f32, K5a/f32, K5b/f32, and K4/f32,
 // K6/f32, K8a/f32, K8b/f32 on tf32_gemm.cuh) share.
 //
 // "f32" means f32 accuracy: a single TF32 pass rounds each operand to 10
@@ -8,31 +8,33 @@
 // different result. These kernels use 3xTF32 on the tensor cores: each f32
 // operand x is split into hi = tf32(x) and lo = tf32(x - hi), and a product
 // is hi*hi + hi*lo + lo*hi, three TF32 products accumulated in f32 (the
-// lo*lo term, ~2^-22 relative, is dropped), each 8-deep step's partial
-// added to the accumulator in round-to-nearest f32 (``mma3``). The error of
-// a sum is then within a few f32 ulps a step, as the plain f32 versions'
-// (cuBLAS with allow_tf32 False).
+// lo*lo term, ~2^-22 relative, is dropped). The tensor cores truncate
+// where they add into their C operand (aligned to its exponent), so
+// chaining a long sum's products into one running C biases it toward zero
+// by up to an ulp of the sum a step (on the H100, 3e-5 of rms(b) over 4096
+// keys, growing with the length): every kernel takes a short run of
+// products into a fresh accumulator and adds it to its running sum with
+// round-to-nearest f32 adds. The error of a sum is then within a few f32
+// ulps a step, as the plain f32 versions' (cuBLAS with allow_tf32 False).
 //
-// The instruction is mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
-// wgmma with .tf32 operands takes A and B K-major only, while K5's dS K,
-// P^T dO and dS^T Q need B MN-major (K, dO and Q are stored d-contiguous;
-// K1/f32 transposes V once a call instead); with mma.sync the threads load
-// their fragments from shared memory in any layout, so one helper serves
-// every product.
+// K7/f32's instruction is mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32
+// .f32: its threads load their fragments from shared memory in any layout.
 //
-// Fragments of m16n8k8 (g = lane / 4, t = lane % 4):
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4), the same maps as
+// wgmma's register A and accumulator (hopper.cuh):
 //   A (16 x 8):  a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 //   B (8 x 8):   b0 (k = t, n = g), b1 (k = t + 4, n = g)
 //   C (16 x 8):  c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 // A C fragment is used as the A fragment of the next product without moving
 // a value between threads: the k index of a product may be permuted as long
 // as A and B agree, so logical k = t is column 2t of the C tile and k = t + 4
-// column 2t + 1; then (a0, a1, a2, a3) = (c0, c2, c1, c3), and B is read at
-// rows 2t and 2t + 1 (``frag_b_kn``).
+// column 2t + 1; then (a0, a1, a2, a3) = (c0, c2, c1, c3) (``c_as_a``), and
+// B holds key 2t at k = t and key 2t + 1 at k = t + 4 (the wgmma kernels'
+// transposed operands, flash_attention.cu p_key_slot).
 //
 // Shared-memory tiles are row-major f32 with a row stride ld = width + 4
-// (ld % 8 == 4): the fragment loads of a warp, at rows g and columns t, or
-// at rows 2t and columns g, then fall in 32 distinct banks.
+// (ld % 8 == 4): the fragment loads of a warp, at rows g and columns t,
+// then fall in 32 distinct banks.
 //
 // int8 B operands (K7's weights) need no split: |q| <= 127 takes 7 bits,
 // exact in TF32, so hi = q and lo = 0, and a_hi q + a_lo q (``mma2``, two
@@ -79,27 +81,9 @@ struct SplitA {
   }
 };
 
-// d += a b in 3xTF32: the two small terms first, then hi * hi, into a
-// fresh fragment that is added to d with round-to-nearest f32 adds. The
-// tensor cores truncate where they add into their C operand (aligned to
-// its exponent), so chaining a long sum's products into one running C
-// biases it toward zero by up to an ulp of the sum a step: on the H100,
-// 3e-5 of rms(b) over 4096 keys and growing with the length. A fresh C
-// keeps each step's truncation relative to its own 8-term partial.
-__device__ __forceinline__ void mma3(float (&d)[4], const SplitA& a,
-                                     const float (&b)[2]) {
-  uint32_t bh[2], bl[2];
-  split(b, bh, bl);
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, a.lo, bh);
-  mma_tf32(t, a.hi, bl);
-  mma_tf32(t, a.hi, bh);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += t[i];
-}
-
 // d += a q for a B fragment exact in TF32 (int8 values, ``frag_b_q``): the
-// small term, then hi * q, into a fresh fragment as in mma3
+// small term, then hi * q, into a fresh fragment added to d in
+// round-to-nearest f32
 __device__ __forceinline__ void mma2(float (&d)[4], const SplitA& a,
                                      const uint32_t (&q)[2]) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
@@ -119,31 +103,13 @@ __device__ __forceinline__ void frag_a(float (&a)[4], const float* s, int ld,
   a[3] = p[8 * ld + 4];
 }
 
-// B fragment (k0.., n0..) of a tile stored [n][k] (K-major: the K tile of
-// S = Q K^T, a weight tile of x W^T)
-__device__ __forceinline__ void frag_b_nk(float (&b)[2], const float* s, int ld,
-                                          int n0, int k0, int lane) {
-  const float* p = s + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
-  b[0] = p[0];
-  b[1] = p[4];
-}
-
-// frag_b_nk of an int8 tile, each value as the float it is (exact in TF32)
+// B fragment (k0.., n0..) of an int8 tile stored [n][k] (K-major: a weight
+// tile of x W^T), each value as the float it is (exact in TF32)
 __device__ __forceinline__ void frag_b_q(uint32_t (&b)[2], const int8_t* s,
                                          int ld, int n0, int k0, int lane) {
   const int8_t* p = s + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
   b[0] = __float_as_uint(static_cast<float>(p[0]));
   b[1] = __float_as_uint(static_cast<float>(p[4]));
-}
-
-// B fragment (k0.., n0..) of a tile stored [k][n] (MN-major: K5's K, dO
-// and Q), at the permuted k of a C fragment used as A: rows k0 + 2t and
-// k0 + 2t + 1
-__device__ __forceinline__ void frag_b_kn(float (&b)[2], const float* s, int ld,
-                                          int k0, int n0, int lane) {
-  const float* p = s + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
-  b[0] = p[0];
-  b[1] = p[ld];
 }
 
 // a C fragment as the A fragment of the next product (permuted k)

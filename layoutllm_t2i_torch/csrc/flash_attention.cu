@@ -861,21 +861,14 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 // f32_tiles.cuh): f32 accuracy on the tensor cores.
 //
 // What bounds them: operations, as the bf16 forms, at the TF32 rate (495
-// TFLOP/s dense) times three. K1/f32 runs on TF32 wgmma fed by TMA: at d =
-// 40 and 80 flash_fwd_f32_ss_kernel (Q and K by descriptor, K and V split
-// and V transposed once a call by a pre-pass), at d = 512
-// flash_fwd_f32_wgmma_kernel (Q as register A), both below. K5a/f32 and
-// K5b/f32 run on mma.sync, a simple design that is right first:
-//  * one block of eight warps per (rows of q or k, batch, head); each warp
-//    owns 16 rows of the resident operand and keeps its accumulators in
-//    registers for the whole loop;
-//  * the resident operands (Q and dO, or K and V) and a two-stage ring of
-//    the streamed ones load with 16-byte cp.async into row-major f32 tiles
-//    of row stride d + 4 (conflict-free fragment loads); rows past N or M
-//    load as zeros, so no other row or head is read;
-//  * P = exp2(S c - lse log2 e) runs on the score fragments in registers,
-//    masked past M (or N in K5b), and the score fragment is the A fragment
-//    of the next product (f32_tiles.cuh).
+// TFLOP/s dense) times three. All of them run on TF32 wgmma fed by TMA:
+// K1/f32 at d = 40 and 80 flash_fwd_f32_ss_kernel (Q and K by descriptor,
+// K and V split and V transposed once a call by a pre-pass), at d = 512
+// flash_fwd_f32_wgmma_kernel (Q as register A), K5a/f32 and K5b/f32
+// flash_bwd_dq_f32_ss_kernel and flash_bwd_dkv_f32_ss_kernel (the scores
+// by descriptor, P and dS as register A against operands transposed and
+// split once a call by the same pre-pass, flash_split_f32_kernel), all
+// below.
 
 namespace {
 
@@ -1307,7 +1300,7 @@ int launch_fwd_f32_512(const void* q, const void* k, const void* v, void* o,
 // tile split into hi and lo takes 64 KB (d = 40) or 96 KB (d = 80), so Q
 // is read by descriptor from shared memory and the registers go to the
 // score tile and O. The design:
-//  * A pre-pass (flash_kv_split_f32_kernel) writes K and V once a call,
+//  * A pre-pass (flash_split_f32_kernel) writes K and V once a call,
 //    split into hi and lo, into a workspace the wrapper allocates: K's as
 //    (B H, M, d) matrices, V's transposed, (B H, d, Mp) with Mp = M rounded
 //    up to 8 and each 8-key block's keys at the permuted k of P's register
@@ -1382,51 +1375,73 @@ long long fwd_f32_ws_floats(int B, int H, int M, int D) {
   return 2ll * B * H * D * (M + mp);
 }
 
-// The pre-pass: keys m0 .. m0 + 31 of one (batch, head) (m0 = 32
-// blockIdx.x): K's rows split into khi and klo, V's transposed through
-// shared memory and split into vhi and vlo at the key slots of P's A
-// fragment, zeros at the slots of keys at or past M
-template <int kD>
+// One operand of the pre-pass: a packed (B, n, H d) f32 operand with row
+// stride rs and batch stride bs (values), written split into hi and lo,
+// as rows (hi (B H, n, d), lo right after it) and/or transposed ((B H, d,
+// np) with np = n rounded up to 8, each 8-row block's rows at the key
+// slots of a register A fragment (p_key_slot), zeros at the slots of rows
+// at or past n; lo right after hi). A null destination is not written.
+struct SplitJob {
+  const float* src;
+  long long bs, rs;
+  float* rows;
+  float* t;
+  int n;
+};
+
+template <int kJobs>
+struct SplitJobs {
+  SplitJob job[kJobs];
+};
+
+// The f32 forms' pre-pass, shared by K1/f32 (kJobs 2: K as rows, V
+// transposed) and K5a/K5b f32 (kJobs 4: Q, dO, K and V as rows, Q, dO and
+// K transposed as the call needs them): rows m0 .. m0 + 31 (m0 = 32
+// blockIdx.x) of one (batch, head) (blockIdx.y) of operand blockIdx.z,
+// split row by row, and transposed through shared memory
+template <int kD, int kJobs>
 __global__ void __launch_bounds__(256)
-flash_kv_split_f32_kernel(const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ khi,
-                          float* __restrict__ klo, float* __restrict__ vhi,
-                          float* __restrict__ vlo, int H, int M, int Mp,
-                          long long k_bs, long long k_rs, long long v_bs,
-                          long long v_rs) {
-  __shared__ float vt[kD][33];
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+flash_split_f32_kernel(const __grid_constant__ SplitJobs<kJobs> jobs, int H) {
+  const SplitJob& job = jobs.job[blockIdx.z];
+  const int n = job.n, np = (n + 7) / 8 * 8;
   const int m0 = 32 * blockIdx.x;
+  if (m0 >= np) return;
+  const int BH = gridDim.y, bh = blockIdx.y, b = bh / H, h = bh % H;
+  __shared__ float vt[kD][33];
   constexpr int kVec = kD / 4;  // 16-byte pieces a row
   for (int i = threadIdx.x; i < 32 * kVec; i += blockDim.x) {
     const int r = i / kVec, c = 4 * (i % kVec), m = m0 + r;
-    float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-    if (m < M) {
-      kx = *reinterpret_cast<const float4*>(k + b * k_bs + m * k_rs + (long long)h * kD + c);
-      vx = *reinterpret_cast<const float4*>(v + b * v_bs + m * v_rs + (long long)h * kD + c);
-      const float kv[4] = {kx.x, kx.y, kx.z, kx.w};
-      uint32_t hi[4], lo[4];
-      f32_tiles::split(kv, hi, lo);
-      const long long at = ((long long)bh * M + m) * kD + c;
-      *reinterpret_cast<uint4*>(khi + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(klo + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m < n) {
+      x = *reinterpret_cast<const float4*>(job.src + b * job.bs + m * job.rs +
+                                           (long long)h * kD + c);
+      if (job.rows != nullptr) {
+        const float xv[4] = {x.x, x.y, x.z, x.w};
+        uint32_t hi[4], lo[4];
+        f32_tiles::split(xv, hi, lo);
+        float* at = job.rows + ((long long)bh * n + m) * kD + c;
+        *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(at + (long long)BH * n * kD) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
     }
     const int p = p_key_slot(r);
-    vt[c][p] = vx.x;
-    vt[c + 1][p] = vx.y;
-    vt[c + 2][p] = vx.z;
-    vt[c + 3][p] = vx.w;
+    vt[c][p] = x.x;
+    vt[c + 1][p] = x.y;
+    vt[c + 2][p] = x.z;
+    vt[c + 3][p] = x.w;
   }
+  if (job.t == nullptr) return;
   __syncthreads();
   for (int i = threadIdx.x; i < 32 * kD; i += blockDim.x) {
     const int c = i / 32, p = i % 32;
-    if (m0 + p >= Mp) continue;
+    if (m0 + p >= np) continue;
     const float x[1] = {vt[c][p]};
     uint32_t hi[1], lo[1];
     f32_tiles::split(x, hi, lo);
-    const long long at = ((long long)bh * kD + c) * Mp + m0 + p;
-    vhi[at] = __uint_as_float(hi[0]);
-    vlo[at] = __uint_as_float(lo[0]);
+    float* at = job.t + ((long long)bh * kD + c) * np + m0 + p;
+    at[0] = __uint_as_float(hi[0]);
+    at[(long long)BH * kD * np] = __uint_as_float(lo[0]);
   }
 }
 
@@ -1664,9 +1679,12 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
   auto kern = flash_fwd_f32_ss_kernel<C>;
   err = allow_smem(kern, C::kSmemBytes, smem_set);
   if (err != 0) return err;
-  flash_kv_split_f32_kernel<D><<<dim3((Mp + 31) / 32, BH), 256, 0, stream>>>(
-      static_cast<const float*>(k), static_cast<const float*>(v), khi, klo,
-      vhi, vlo, H, M, Mp, k_bs, k_rs, v_bs, v_rs);
+  const SplitJobs<2> jobs = {{{static_cast<const float*>(k), k_bs, k_rs, khi,
+                               nullptr, M},
+                              {static_cast<const float*>(v), v_bs, v_rs,
+                               nullptr, vhi, M}}};
+  flash_split_f32_kernel<D, 2><<<dim3((Mp + 31) / 32, BH, 2), 256, 0, stream>>>(
+      jobs, H);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   kern<<<dim3(BH, (N + C::kBQ - 1) / C::kBQ), C::kThreads, C::kSmemBytes,
@@ -1675,63 +1693,354 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// K5a and K5b in f32. kBR: resident rows (eight warps of 16); kBS: rows of
-// a streamed stage (two stages); kMinBlocks: blocks an SM (registers).
-template <int kD_, int kBS_, int kMinBlocks_>
-struct BwdF32Cfg {
-  static constexpr int kD = kD_, kBS = kBS_, kMinBlocks = kMinBlocks_;
-  static constexpr int kThreads = 256, kBR = 128;
-  static constexpr int kLd = kD + 4;
-  // two resident operands, two stages of two streamed ones, and (K5b) each
-  // stage's lse log2 e and delta
-  static constexpr size_t kSmemBytes =
-      4ull * kLd * (2 * kBR + 4 * kBS) + 4ull * 2 * 2 * kBS;
-  static_assert(kD % 8 == 0 && kBS % 8 == 0, "mma tiles");
+// ---------------------------------------------------------------------------
+// K5a and K5b in f32, on TF32 wgmma fed by TMA: dQ = scale sum over K/V
+// tiles of [P o (dO V^T - delta)] K (K5a), and dV = sum over q tiles of P^T
+// dO, dK = scale sum of [P o (dO V^T - delta)]^T Q (K5b), P = exp2(S c -
+// lse log2 e), every product 3xTF32 (hi*hi + hi*lo + lo*hi), P and dS f32.
+// What bounds them: operations, 6 N M d (K5a) and 8 N M d (K5b) f32 flops,
+// three TF32 products each, and one exponential a score in each kernel.
+//  * wgmma takes .tf32 operands K-major only. The score products are so as
+//    stored (S = Q K^T, dP = dO V^T; S^T = K Q^T, dP^T = V dO^T: both
+//    operands d-contiguous). The output products need their B transposed:
+//    dQ += dS K takes K^T, dV += P^T dO takes dO^T and dK += dS^T Q takes
+//    Q^T, keys (K5a) or q rows (K5b) along the contraction. So the pre-pass
+//    (flash_split_f32_kernel, K1/f32's, on four operands) writes once a
+//    call, into a workspace the wrapper allocates: Q, dO, K and V split
+//    into hi and lo as (B H, rows, d) matrices, and K^T (K5a), Q^T and dO^T
+//    (K5b) split and transposed, (B H, d, rows rounded up to 8), each 8-row
+//    block at the key slots of P's register A fragment (p_key_slot), zeros
+//    past the last row. When the autograd backward runs both kernels, the
+//    first call's pre-pass writes what both read.
+//  * P and dS (K5a), P^T and dS^T (K5b) are wgmma's register A: each 8-key
+//    block of the score fragment is the A fragment at the permuted k
+//    (f32_tiles.cuh c_as_a), split once in registers. Neither S nor P
+//    touches shared memory.
+//  * Shared memory sets the tiles. Every row operand is stored in 16-value
+//    chunks in the 64-byte swizzle (sw64_desc): a row takes 192 bytes at
+//    d = 40 and 320 at d = 80 (the 128-byte swizzle's 32-value chunks
+//    would take 256 and 384, with 24 and 16 zero columns), and a
+//    transposed operand 64 bytes (16 slots) a d row. A block is two
+//    consumer warpgroups and a producer warp (9 warps: ptxas then allows
+//    168 registers). At d = 40 the block keeps 128 rows resident (Q and dO
+//    for K5a, K and V for K5b; hi and lo, 96 KB), 64 a warpgroup, and
+//    every stage of the stream goes to both warpgroups: K5a two 48-row
+//    stages of K, V (hi, lo) and K^T (hi, lo), 51 KB each; K5b two 32-row
+//    stages of Q, dO, Q^T and dO^T (hi, lo), 44 KB each. At d = 80, 128
+//    resident rows take 160 KB, which leaves no room for two stages, so
+//    both warpgroups share 64 resident rows (80 KB) and take the stream's
+//    stages in turns (K5a two 32-row stages of 60 KB, K5b three 16-row
+//    ones of 40 KB); their two partial sums meet in shared memory at the
+//    end, added in round-to-nearest f32, warpgroup 0's first.
+//  * Tried on the H100 and not kept (PERF.md §6): at d = 40 the split
+//    design and 16-row stages (1.35-1.6x slower), 32-row K5a stages (14 %
+//    slower than 48), warp 0 loading in place of a producer warp (eight
+//    warps, 255 registers: K5b 37 % slower), A's hi of the scores read
+//    once into registers (K5a 8 % faster at 32-row stages, but it and
+//    48-row stages need more than 168 registers together), three
+//    consumer warpgroups (192 resident rows, K5a's stages 32 rows: no
+//    faster than two with 48-row stages); at d = 80, K5a's 16-row stages
+//    (four; 17 % slower than two of 32) and 128 resident rows with two
+//    16-row stages (as fast).
+//  * The grid is (q or k row blocks, B H): the blocks of one (batch, head)
+//    run together and share its stream in L2.
+//  * The producer's first lane loads the resident operands once and the
+//    stages into the ring (mbarriers "full" and "empty", one arrival a
+//    consuming warp) with TMA from 3-d maps of the workspace: rows past N
+//    or M and slots past the padded length come in as zeros. K5b's
+//    producer warp writes each stage's lse log2 e and delta (zero past N)
+//    beside it; its 32 lanes arrive on "full".
+//  * A stage: S and dP, each the d / 8 k steps' lo*hi and hi*lo, then
+//    hi*hi, chained into a fresh accumulator (wgmma m64nkBSk8, both
+//    operands by descriptor); P and dS in registers (P masked to 0 past M
+//    in K5a, past N in K5b); then each output product, the stage's
+//    kBS / 8 k steps' three products into a fresh accumulator (m64n(d)k8,
+//    A the split score fragment, B the transposed tile), added to the
+//    running f32 sum in round-to-nearest. The tensor cores truncate where
+//    they add into their accumulator, so no chain runs over M or N.
+//  * Registers: the running sums (d / 2 a thread each), a fresh one, the
+//    score fragments and their split, within the 168 of nine warps.
+
+// kD: the head dim (40 or 80); kBS: rows of a streamed stage (16 to 64);
+// kStages: the ring's depth; kSplit: both warpgroups share 64 resident
+// rows and take the stages in turns (else 128 resident rows, 64 a
+// warpgroup, and every stage goes to both); kDkv: K5b (else K5a)
+template <int kD_, int kBS_, int kStages_, bool kSplit_, bool kDkv_>
+struct BwdF32W {
+  static constexpr int kD = kD_, kBS = kBS_, kStages = kStages_;
+  static constexpr bool kSplit = kSplit_, kDkv = kDkv_;
+  static constexpr int kChunks = (kD + 15) / 16;  // 16-value chunks a row
+  static constexpr int kSteps = kD / 8;           // the scores' k steps
+  static constexpr int kRes = kSplit ? 64 : 128;  // resident rows a block
+  static constexpr int kThreads = 9 * 32;         // two warpgroups, producer
+  static constexpr uint32_t kResChunk = kRes * 64;
+  static constexpr uint32_t kResBytes = kChunks * kResChunk;  // one of four
+  static constexpr uint32_t kRowChunk = kBS * 64;
+  static constexpr uint32_t kRowBytes = kChunks * kRowChunk;  // one of a stage's four
+  static constexpr uint32_t kTChunk = kD * 64;                // 16 slots x d rows
+  static constexpr uint32_t kTBytes = kBS / 16 * kTChunk;     // a transposed tile
+  static constexpr int kNT = kDkv ? 4 : 2;  // transposed tiles a stage
+  static constexpr uint32_t kStageBytes = 4 * kRowBytes + kNT * kTBytes;
+  static constexpr uint32_t kStatBytes = kDkv ? 2 * kBS * 4 : 0;
+  // 1024 bytes of slack to align the swizzled tiles, then the resident
+  // operands (K5a: Q hi, Q lo, dO hi, dO lo; K5b: K and V), the ring (a
+  // stage: K5a K and V, K5b Q and dO, hi and lo, then the transposed
+  // tiles), the stages' statistics (K5b), the mbarriers
+  static constexpr size_t kSmemBytes = 1024 + 4 * kResBytes +
+                                       kStages * (kStageBytes + kStatBytes) +
+                                       8 * (2 * kStages + 1);
+  static_assert(kD % 8 == 0 && kBS % 16 == 0 && kBS <= 64, "tiles");
+  static_assert(kStageBytes % 512 == 0 && kTChunk % 512 == 0, "swizzle atoms");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+  static_assert(!kSplit || kStages * kStageBytes >=
+                               (kDkv ? 2u : 1u) * 128 * (kD / 2) * 4,
+                "the partial sums fit the ring");
 };
 
-using DqF40 = BwdF32Cfg<40, 32, 2>;   // 68 KB
-using DqF80 = BwdF32Cfg<80, 32, 1>;   // 129 KB
-using DkvF40 = BwdF32Cfg<40, 32, 2>;
-using DkvF80 = BwdF32Cfg<80, 32, 1>;
+using DqF40 = BwdF32W<40, 48, 2, false, false>;   // 199 KB
+using DqF80 = BwdF32W<80, 32, 2, true, false>;    // 201 KB
+using DkvF40 = BwdF32W<40, 32, 2, false, true>;   // 186 KB
+using DkvF80 = BwdF32W<80, 16, 3, true, true>;    // 201 KB
 
-// K5a: dQ = scale * sum over K/V tiles of [P o (dO V^T - delta)] K
 template <class C>
-__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dq,
-                        int H, int N, int M, long long q_bs, long long q_rs,
-                        long long k_bs, long long k_rs, long long v_bs,
-                        long long v_rs, float scale, float c) {
-  using namespace f32_tiles;
-  constexpr int D = C::kD, BK = C::kBS, BQ = C::kBR, LD = C::kLd;
-  extern __shared__ __align__(16) float smem_f[];
-  float* sQ = smem_f;
-  float* sDO = sQ + BQ * LD;
-  float* sKV = sDO + BQ * LD;  // stage s: K at + 2 s BK LD, V after it
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int tiles = (M + BK - 1) / BK;
-  const long long hd = (long long)H * D;  // row stride of dO and dQ
-  const float* qg = q + b * q_bs + (long long)h * D;
-  const float* dog = dout + b * N * hd + (long long)h * D;
-  const float* kg = k + b * k_bs + (long long)h * D;
-  const float* vg = v + b * v_bs + (long long)h * D;
+struct BwdF32Smem {
+  uint32_t base, res, ring, full, empty, rbar;
+  float* stats;
+  float* scratch;  // the ring, as f32 values (kSplit's partial sums)
+  __device__ explicit BwdF32Smem(unsigned char* raw) {
+    base = smem_u32(raw);
+    res = (base + 1023u) & ~1023u;  // resident operand i at + i kResBytes
+    ring = res + 4 * C::kResBytes;  // stage s at + s kStageBytes
+    scratch = reinterpret_cast<float*>(raw + (ring - base));
+    const uint32_t st = ring + C::kStages * C::kStageBytes;
+    stats = reinterpret_cast<float*>(raw + (st - base));  // stage s at + 2 s kBS
+    full = st + C::kStages * C::kStatBytes;  // stage s's mbarrier at + 8 s
+    empty = full + 8 * C::kStages;
+    rbar = empty + 8 * C::kStages;
+  }
+};
 
-  load_tile<BQ, D, C::kThreads>(sQ, LD, qg, q_rs, q0, N, D);
-  load_tile<BQ, D, C::kThreads>(sDO, LD, dog, hd, q0, N, D);
-  load_tile<BK, D, C::kThreads>(sKV, LD, kg, k_rs, 0, M, D);
-  load_tile<BK, D, C::kThreads>(sKV + BK * LD, LD, vg, v_rs, 0, M, D);
-  cp_commit();
+// The resident operands (rows r0.. of tres' matrices op B H + bh, op < 4)
+// into shared memory, once; the loading lane
+template <class C>
+__device__ __forceinline__ void bwd_f32_load_resident(const BwdF32Smem<C>& sm,
+                                                      const CUtensorMap* tres,
+                                                      int bh, int BH, int r0) {
+  mbar_expect_tx(sm.rbar, 4 * C::kResBytes);
+  for (int op = 0; op < 4; ++op)
+    for (int ch = 0; ch < C::kChunks; ++ch)
+      tma_load_3d(sm.res + op * C::kResBytes + ch * C::kResChunk, tres,
+                  sm.rbar, 16 * ch, r0, op * BH + bh);
+}
 
-  // the warp's rows r0.. of the q tile; this thread's rows row0 and row0 +
-  // 8, their lse (times log2 e) and delta, zero past N
-  const int r0 = 16 * warp;
-  const int row0 = q0 + r0 + (lane >> 2);
+// Stage t % kStages, once its last readers left: rows BS t.. of trows'
+// matrices op B H + bh (op < 4) and the kNT transposed tiles (slots BS t..
+// of tt's matrices op B H + bh); a warp calls it, lane 0 loads. In K5b the
+// warp's lanes first write the stage's lse log2 e and delta (of rows < n,
+// else zero) and arrive on "full" with lane 0's transaction bytes.
+template <class C>
+__device__ __forceinline__ void bwd_f32_load_stage(
+    const BwdF32Smem<C>& sm, const CUtensorMap* trows, const CUtensorMap* tt,
+    int t, int bh, int BH, const float* lse_bh, const float* delta_bh, int n,
+    int lane) {
+  constexpr int S = C::kStages, BS = C::kBS;
+  const int s = t % S;
+  if (t >= S) mbar_wait(sm.empty + 8 * s, ((t / S) - 1) & 1);
+  const uint32_t bar = sm.full + 8 * s;
+  if constexpr (C::kDkv) {
+    float* st = sm.stats + s * 2 * BS;
+    for (int i = lane; i < BS; i += 32) {
+      const int row = BS * t + i;
+      const bool in = row < n;
+      st[i] = in ? lse_bh[row] * kLog2e : 0.f;
+      st[BS + i] = in ? delta_bh[row] : 0.f;
+    }
+  }
+  if (lane == 0) {
+    mbar_expect_tx(bar, C::kStageBytes);
+    const uint32_t st = sm.ring + s * C::kStageBytes;
+    for (int op = 0; op < 4; ++op)
+      for (int ch = 0; ch < C::kChunks; ++ch)
+        tma_load_3d(st + op * C::kRowBytes + ch * C::kRowChunk, trows, bar,
+                    16 * ch, BS * t, op * BH + bh);
+    for (int op = 0; op < C::kNT; ++op)
+      for (int j = 0; j < BS / 16; ++j)
+        tma_load_3d(st + 4 * C::kRowBytes + op * C::kTBytes + j * C::kTChunk,
+                    tt, bar, BS * t + 16 * j, 0, op * BH + bh);
+  } else if (C::kDkv) {
+    mbar_arrive(bar);
+  }
+}
+
+// (The descriptors are made from one base each by adding the offset to
+// the address field: the tiles lie inside the 256 KB window, so no carry
+// leaves it. The callers pass bases through `opaque` each iteration, so
+// ptxas does not keep every loop-invariant descriptor of the resident
+// operands in registers across the loop.)
+
+// S (64 x kBS) = A B^T in 3xTF32, chained into a fresh accumulator: A this
+// warpgroup's 64 rows of a resident operand (hi at `a`, lo one operand
+// on), B a stage's row operand (hi at `b`, lo one operand on), both by
+// descriptor; every k step's lo*hi and hi*lo, then hi*hi
+template <class C, int N>
+__device__ __forceinline__ void scores_f32(float (&s)[N], uint32_t a, uint32_t b) {
+  static_assert(N == C::kBS / 2, "a kBS-wide score fragment");
+  const uint64_t ah = sw64_desc(a), al = sw64_desc(a + C::kResBytes);
+  const uint64_t bh = sw64_desc(b), bl = sw64_desc(b + C::kRowBytes);
+#pragma unroll
+  for (int kk = 0; kk < C::kSteps; ++kk) {
+    const uint32_t ao = ((kk / 2) * C::kResChunk + (kk % 2) * 32) >> 4;
+    const uint32_t bo = ((kk / 2) * C::kRowChunk + (kk % 2) * 32) >> 4;
+    wgmma_ss_tf32(s, al + ao, bh + bo, kk > 0);
+    wgmma_ss_tf32(s, ah + ao, bl + bo, 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < C::kSteps; ++kk) {
+    const uint32_t ao = ((kk / 2) * C::kResChunk + (kk % 2) * 32) >> 4;
+    const uint32_t bo = ((kk / 2) * C::kRowChunk + (kk % 2) * 32) >> 4;
+    wgmma_ss_tf32(s, ah + ao, bh + bo, 1);
+  }
+}
+
+// x, which the compiler may not take for a loop invariant
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// A score fragment as wgmma's register A, split: key block j of `s` (its
+// values 4 j .. 4 j + 3) at the permuted k (c_as_a)
+template <int N>
+__device__ __forceinline__ void split_frag(uint32_t (&hi)[N / 4][4],
+                                           uint32_t (&lo)[N / 4][4],
+                                           const float (&s)[N]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float f[4] = {s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]};
+    const f32_tiles::SplitA a = f32_tiles::c_as_a(f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hi[j][e] = a.hi[e], lo[j][e] = a.lo[e];
+  }
+}
+
+// D (64 x kD) = A B over a stage's kBS keys (K5b: q rows) in 3xTF32, into a
+// fresh accumulator: A the split score fragment, B the transposed tile at
+// `t` (hi; lo one tile on), k step j at its slots 8 j .. 8 j + 7
+template <class C, int N, int K>
+__device__ __forceinline__ void product_f32(float (&d)[N],
+                                            const uint32_t (&hi)[K][4],
+                                            const uint32_t (&lo)[K][4],
+                                            uint32_t t) {
+  static_assert(N == C::kD / 2 && K == C::kBS / 8, "shapes");
+  const uint64_t th = sw64_desc(t), tl = sw64_desc(t + C::kTBytes);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const uint32_t o = ((j / 2) * C::kTChunk + (j % 2) * 32) >> 4;
+    wgmma_rs_tf32(d, lo[j], th + o, j > 0);
+    wgmma_rs_tf32(d, hi[j], tl + o, 1);
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const uint32_t o = ((j / 2) * C::kTChunk + (j % 2) * 32) >> 4;
+    wgmma_rs_tf32(d, hi[j], th + o, 1);
+  }
+}
+
+// kSplit: warpgroup 1's partial sums `a` (and `b`) added to warpgroup 0's
+// through x, the idle ring (thread i of each holds the same elements);
+// true on warpgroup 0, which then holds the sums
+template <int N>
+__device__ __forceinline__ bool sum_split(float (&a)[N], float (&b)[N],
+                                          int nb, float* x, int g, int tid) {
+  named_bar_sync(1, 256);  // both warpgroups are done with the ring
+  if (g == 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      x[i * 128 + tid] = a[i];
+      if (nb) x[(N + i) * 128 + tid] = b[i];
+    }
+  }
+  named_bar_sync(1, 256);
+  if (g == 1) return false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    a[i] += x[i * 128 + tid];
+    if (nb) b[i] += x[(N + i) * 128 + tid];
+  }
+  return true;
+}
+
+// this thread's rows row0 and row0 + 8 of a 64 x kD f32 sum (times mul)
+// into a contiguous (rows, H*D) f32 output, rows < limit
+template <int N>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[N], float* out,
+                                               long long hd, int row0,
+                                               int limit, float mul, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= limit) continue;
+    float* orow = out + row * hd;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * (lane & 3)) =
+          make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// the barriers of both kernels: "full" (one arrival, K5b the producer
+// warp's 32), "empty" (one arrival a consuming warp), the resident load's
+template <class C>
+__device__ __forceinline__ void bwd_f32_init(const BwdF32Smem<C>& sm, int busy) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(sm.full + 8 * s, C::kDkv ? 32 : 1);
+      mbar_init(sm.empty + 8 * s, C::kSplit ? 4 : 4 * busy);
+    }
+    mbar_init(sm.rbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// K5a: tres maps Q and dO (hi, lo) of the workspace, trows K and V, tt K^T
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dq_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
+                           const __grid_constant__ CUtensorMap trows,
+                           const __grid_constant__ CUtensorMap tt,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int H, int N, int M,
+                           float scale, float c) {
+  constexpr int S = C::kStages, BS = C::kBS, D = C::kD;
+  extern __shared__ unsigned char smem_raw[];
+  const BwdF32Smem<C> sm(smem_raw);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, BH = gridDim.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * C::kRes;
+  const int tiles = (M + BS - 1) / BS;
+  // without kSplit a warpgroup whose 64 rows all lie past N leaves at once
+  const int busy = C::kSplit || q0 + 64 < N ? 2 : 1;
+  bwd_f32_init(sm, busy);
+  if (warp == 8) {  // the producer warp
+    if (lane == 0) bwd_f32_load_resident(sm, &tres, bh, BH, q0);
+    for (int t = 0; t < tiles; ++t)
+      bwd_f32_load_stage(sm, &trows, &tt, t, bh, BH, nullptr, nullptr, N, lane);
+    return;
+  }
+
+  const int g = warp >> 2;
+  const int wq = warp & 3;
+  if (g >= busy) return;
+  const int tid = threadIdx.x & 127;
+  const int rb = C::kSplit ? 0 : 64 * g;  // this warpgroup's resident rows
+  // this thread's rows row0 and row0 + 8: their lse (times log2 e) and
+  // delta, zero past N (those rows are zero in Q and dO, never written)
+  const int row0 = q0 + rb + 16 * wq + (lane >> 2);
   float l2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1740,261 +2049,243 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     l2[r] = in ? lse[i] * kLog2e : 0.f;
     dl[r] = in ? delta[i] : 0.f;
   }
-  float acc[D / 8][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t qa = sm.res + rb * 64, da = qa + 2 * C::kResBytes;
+  mbar_wait(sm.rbar, 0);
 
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      float* nk = sKV + 2 * ((t + 1) & 1) * BK * LD;
-      load_tile<BK, D, C::kThreads>(nk, LD, kg, k_rs, (t + 1) * BK, M, D);
-      load_tile<BK, D, C::kThreads>(nk + BK * LD, LD, vg, v_rs, (t + 1) * BK,
-                                    M, D);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const float* sK = sKV + 2 * (t & 1) * BK * LD;
-    const float* sV = sK + BK * LD;
+  for (int t = C::kSplit ? g : 0; t < tiles; t += C::kSplit ? 2 : 1) {
+    const int s = t % S;
+    mbar_wait(sm.full + 8 * s, (t / S) & 1);
+    __syncwarp();  // converged again for the warpgroup-wide wgmma
+    const uint32_t st = sm.ring + s * C::kStageBytes;
 
     // S = Q K^T, dP = dO V^T
-    float sc[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.f;
-#pragma unroll 1
-    for (int kk = 0; kk < D / 8; ++kk) {
-      float a[4], ad[4];
-      frag_a(a, sQ, LD, r0, 8 * kk, lane);
-      frag_a(ad, sDO, LD, r0, 8 * kk, lane);
-      const SplitA aq(a), ado(ad);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        float bk[2], bv[2];
-        frag_b_nk(bk, sK, LD, 8 * j, 8 * kk, lane);
-        frag_b_nk(bv, sV, LD, 8 * j, 8 * kk, lane);
-        mma3(sc[j], aq, bk);
-        mma3(dp[j], ado, bv);
-      }
-    }
+    float sc[BS / 2], dp[BS / 2];
+    wgmma_fence();
+    scores_f32<C>(sc, opaque(qa), st);
+    scores_f32<C>(dp, opaque(da), st + 2 * C::kRowBytes);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
 
     // P = exp2(S c - lse log2 e), 0 past M; dS = P (dP - delta)
-    const int k0 = t * BK;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p = ex2(fmaf(sc[j][i], c, -l2[i >> 1]));
-        if (k0 + 8 * j + 2 * (lane & 3) + (i & 1) >= M) p = 0.f;
-        sc[j][i] = p * (dp[j][i] - dl[i >> 1]);
-      }
+    const int k0 = t * BS;
+    if (k0 + BS > M)
+      ds_rows<true>(sc, dp, l2, dl, c, M - k0, lane);
+    else
+      ds_rows<false>(sc, dp, l2, dl, c, BS, lane);
 
-    // dQ += dS K
+    // dQ += dS K: K^T's hi and lo tiles after the stage's rows
+    uint32_t ah[BS / 8][4], al[BS / 8][4];
+    split_frag(ah, al, sc);
+    float part[D / 2];
+    wgmma_fence();
+    product_f32<C>(part, ah, al, st + 4 * C::kRowBytes);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+    fence_regs(ah);
+    fence_regs(al);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.empty + 8 * s);  // this warp is done with it
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const SplitA ds = c_as_a(sc[j]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        float bb[2];
-        frag_b_kn(bb, sK, LD, 8 * j, 8 * n, lane);
-        mma3(acc[n], ds, bb);
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
   }
 
-  float* dqb = dq + b * N * hd + (long long)h * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= N) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(dqb + row * hd + 8 * n + 2 * (lane & 3)) =
-          make_float2(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
-  }
+  if (C::kSplit && !sum_split(acc, acc, 0, sm.scratch, g, tid)) return;
+  const long long hd = (long long)H * D;  // row stride of dQ
+  store_rows_f32(acc, dq + (long long)b * N * hd + (long long)h * D, hd, row0,
+                 N, scale, lane);
 }
 
-// K5b: dV = sum over q/dO tiles of P^T dO and dK = scale * sum of
-// [P o (dO V^T - delta)]^T Q, from S^T = K Q^T and dP^T = V dO^T
+// K5b: tres maps K and V (hi, lo) of the workspace, trows Q and dO, tt Q^T
+// and dO^T
 template <class C>
-__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int H,
-                         int N, int M, long long q_bs, long long q_rs,
-                         long long k_bs, long long k_rs, long long v_bs,
-                         long long v_rs, float scale, float c) {
-  using namespace f32_tiles;
-  constexpr int D = C::kD, BQ = C::kBS, BK = C::kBR, LD = C::kLd;
-  extern __shared__ __align__(16) float smem_f[];
-  float* sK = smem_f;
-  float* sV = sK + BK * LD;
-  float* sQD = sV + BK * LD;  // stage s: Q at + 2 s BQ LD, dO after it
-  float* sSt = sQD + 4 * BQ * LD;  // stage s: lse log2 e at + 2 s BQ, delta
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BK;
-  const int tiles = (N + BQ - 1) / BQ;
-  const long long hd = (long long)H * D;  // row stride of dO, dK and dV
-  const float* qg = q + b * q_bs + (long long)h * D;
-  const float* dog = dout + b * N * hd + (long long)h * D;
-  const float* kg = k + b * k_bs + (long long)h * D;
-  const float* vg = v + b * v_bs + (long long)h * D;
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dkv_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
+                            const __grid_constant__ CUtensorMap trows,
+                            const __grid_constant__ CUtensorMap tt,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int H, int N, int M, float scale, float c) {
+  constexpr int S = C::kStages, BS = C::kBS, D = C::kD;
+  extern __shared__ unsigned char smem_raw[];
+  const BwdF32Smem<C> sm(smem_raw);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, BH = gridDim.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.x * C::kRes;
+  const int tiles = (N + BS - 1) / BS;
+  const int busy = C::kSplit || k0 + 64 < M ? 2 : 1;
+  bwd_f32_init(sm, busy);
   const float* lse_bh = lse + (long long)bh * N;
   const float* delta_bh = delta + (long long)bh * N;
+  if (warp == 8) {  // the producer warp
+    if (lane == 0) bwd_f32_load_resident(sm, &tres, bh, BH, k0);
+    for (int t = 0; t < tiles; ++t)
+      bwd_f32_load_stage(sm, &trows, &tt, t, bh, BH, lse_bh, delta_bh, N, lane);
+    return;
+  }
 
-  // a stage of q rows [t BQ, (t + 1) BQ): Q, dO and the rows' statistics,
-  // zero past N
-  auto load_stage = [&](int t) {
-    const int s = t & 1;
-    float* qs = sQD + 2 * s * BQ * LD;
-    load_tile<BQ, D, C::kThreads>(qs, LD, qg, q_rs, t * BQ, N, D);
-    load_tile<BQ, D, C::kThreads>(qs + BQ * LD, LD, dog, hd, t * BQ, N, D);
-    float* st = sSt + 2 * s * BQ;
-    for (int i = threadIdx.x; i < BQ; i += C::kThreads) {
-      const int row = t * BQ + i;
-      const bool in = row < N;
-      st[i] = in ? lse_bh[row] * kLog2e : 0.f;
-      st[BQ + i] = in ? delta_bh[row] : 0.f;
-    }
-  };
-  load_tile<BK, D, C::kThreads>(sK, LD, kg, k_rs, k0, M, D);
-  load_tile<BK, D, C::kThreads>(sV, LD, vg, v_rs, k0, M, D);
-  load_stage(0);
-  cp_commit();
-
-  const int r0 = 16 * warp;  // the warp's k rows
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  const int g = warp >> 2;
+  const int wk = warp & 3;
+  if (g >= busy) return;
+  const int tid = threadIdx.x & 127;
+  const int rb = C::kSplit ? 0 : 64 * g;  // this warpgroup's resident rows
+  float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const uint32_t ka = sm.res + rb * 64, va = ka + 2 * C::kResBytes;
+  mbar_wait(sm.rbar, 0);
 
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      load_stage(t + 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const float* sQ = sQD + 2 * (t & 1) * BQ * LD;
-    const float* sDO = sQ + BQ * LD;
-    const float* st = sSt + 2 * (t & 1) * BQ;
+  for (int t = C::kSplit ? g : 0; t < tiles; t += C::kSplit ? 2 : 1) {
+    const int s = t % S;
+    mbar_wait(sm.full + 8 * s, (t / S) & 1);
+    __syncwarp();
+    const uint32_t st = sm.ring + s * C::kStageBytes;
+    const uint32_t qt = st + 4 * C::kRowBytes, dot = qt + 2 * C::kTBytes;
 
     // S^T = K Q^T, dP^T = V dO^T
-    float sc[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.f;
-#pragma unroll 1
-    for (int kk = 0; kk < D / 8; ++kk) {
-      float a[4], av[4];
-      frag_a(a, sK, LD, r0, 8 * kk, lane);
-      frag_a(av, sV, LD, r0, 8 * kk, lane);
-      const SplitA ak(a), avs(av);
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-        float bq[2], bd[2];
-        frag_b_nk(bq, sQ, LD, 8 * j, 8 * kk, lane);
-        frag_b_nk(bd, sDO, LD, 8 * j, 8 * kk, lane);
-        mma3(sc[j], ak, bq);
-        mma3(dp[j], avs, bd);
-      }
-    }
+    float sc[BS / 2], dp[BS / 2];
+    wgmma_fence();
+    scores_f32<C>(sc, opaque(ka), st);
+    scores_f32<C>(dp, opaque(va), st + 2 * C::kRowBytes);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
 
-    // P^T = exp2(S^T c - lse log2 e), 0 past N; dS^T = P^T (dP^T - delta):
-    // the thread's q columns 8 j + 2 t + {0, 1} read their statistics
-    const int q0 = t * BQ;
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = 8 * j + 2 * (lane & 3) + (i & 1);
-        float p = ex2(fmaf(sc[j][i], c, -st[col]));
-        if (q0 + col >= N) p = 0.f;
-        sc[j][i] = p;
-        dp[j][i] = p * (dp[j][i] - st[BQ + col]);
-      }
+    // P^T = exp2(S^T c - lse log2 e), 0 past N; dS^T = P^T (dP^T - delta)
+    const float* stat = sm.stats + s * 2 * BS;
+    const int q0 = t * BS;
+    if (q0 + BS > N)
+      p_ds_cols<true>(sc, dp, stat, c, N - q0, lane);
+    else
+      p_ds_cols<false>(sc, dp, stat, c, BS, lane);
 
-    // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-      const SplitA pa = c_as_a(sc[j]);
-      const SplitA da = c_as_a(dp[j]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        float bd[2], bq[2];
-        frag_b_kn(bd, sDO, LD, 8 * j, 8 * n, lane);
-        frag_b_kn(bq, sQ, LD, 8 * j, 8 * n, lane);
-        mma3(acc_v[n], pa, bd);
-        mma3(acc_k[n], da, bq);
-      }
+    // dV += P^T dO (dO^T's tiles), then dK += dS^T Q (Q^T's), each into a
+    // fresh accumulator
+    float part[D / 2];
+    {
+      uint32_t ah[BS / 8][4], al[BS / 8][4];
+      split_frag(ah, al, sc);
+      wgmma_fence();
+      product_f32<C>(part, ah, al, dot);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(part);
+      fence_regs(ah);
+      fence_regs(al);
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_v[i] += part[i];
+    {
+      uint32_t ah[BS / 8][4], al[BS / 8][4];
+      split_frag(ah, al, dp);
+      wgmma_fence();
+      product_f32<C>(part, ah, al, qt);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(part);
+      fence_regs(ah);
+      fence_regs(al);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.empty + 8 * s);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] += part[i];
   }
 
-  const long long off = b * M * hd + (long long)h * D;
-  const int row0 = k0 + r0 + (lane >> 2);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= M) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const long long i = off + row * hd + 8 * n + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(dv + i) =
-          make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
-      *reinterpret_cast<float2*>(dk + i) =
-          make_float2(acc_k[n][2 * r] * scale, acc_k[n][2 * r + 1] * scale);
-    }
-  }
+  if (C::kSplit && !sum_split(acc_v, acc_k, 1, sm.scratch, g, tid)) return;
+  const long long hd = (long long)H * D;  // row stride of dK and dV
+  const long long off = (long long)b * M * hd + (long long)h * D;
+  const int row0 = k0 + rb + 16 * wk + (lane >> 2);
+  store_rows_f32(acc_v, dv + off, hd, row0, M, 1.f, lane);
+  store_rows_f32(acc_k, dk + off, hd, row0, M, scale, lane);
 }
 
-// K5a (dq given) or K5b in f32
-template <class C, bool kDq>
+// The workspace of K5a and K5b in f32, in floats: Q and dO split (hi, lo
+// each: four (B H, N, d) blocks), K and V split (four (B H, M, d)), K^T
+// split (two (B H, d, Mp)), Q^T and dO^T split (four (B H, d, Np))
+long long bwd_f32_ws_floats(int B, int H, int N, int M, int D) {
+  const long long np = (N + 7) / 8 * 8, mp = (M + 7) / 8 * 8;
+  return (long long)B * H * D * (4ll * N + 4ll * M + 2 * mp + 4 * np);
+}
+
+struct BwdF32Ws {
+  float *qd, *kv, *kt, *tqd;
+  BwdF32Ws(float* ws, int BH, int N, int M, int D) {
+    const long long mp = (M + 7) / 8 * 8;
+    qd = ws;
+    kv = qd + 4ll * BH * N * D;
+    kt = kv + 4ll * BH * M * D;
+    tqd = kt + 2ll * BH * D * mp;
+  }
+};
+
+// K5a (kDkv false, dq given) or K5b into the workspace `ws`; first, with
+// `prepare`, the pre-pass of what K5a (bit 0) and K5b (bit 1) read
+template <class C>
 int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, void* dk, void* dv, int B, int H, int N, int M,
                    long long q_bs, long long q_rs, long long k_bs,
                    long long k_rs, long long v_bs, long long v_rs, float scale,
-                   cudaStream_t stream) {
-  static unsigned long long smem_set = 0;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* df = static_cast<const float*>(dout);
-  const float c = scale * kLog2e;
+                   float* ws, int prepare, cudaStream_t stream) {
+  constexpr int D = C::kD;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int BH = B * H, Np = (N + 7) / 8 * 8, Mp = (M + 7) / 8 * 8;
+  const long long hd = (long long)H * D;  // dO is contiguous
+  const BwdF32Ws w(ws, BH, N, M, D);
+  CUtensorMap tres, trows, tt;
   int err;
-  if constexpr (kDq) {
-    auto kern = flash_bwd_dq_f32_kernel<C>;
-    err = allow_smem(kern, C::kSmemBytes, smem_set);
-    if (err != 0) return err;
-    dim3 grid((N + C::kBR - 1) / C::kBR, B * H);
-    kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-        qf, kf, vf, df, lse, delta, static_cast<float*>(dq), H, N, M, q_bs,
-        q_rs, k_bs, k_rs, v_bs, v_rs, scale, c);
+  if constexpr (C::kDkv) {
+    err = tensor_map_3d_f32(&tres, w.kv, D, M, 4 * BH, D, C::kRes, 16);
+    if (err == 0) err = tensor_map_3d_f32(&trows, w.qd, D, N, 4 * BH, D, C::kBS, 16);
+    if (err == 0) err = tensor_map_3d_f32(&tt, w.tqd, Np, D, 4 * BH, Np, D, 16);
   } else {
-    auto kern = flash_bwd_dkv_f32_kernel<C>;
-    err = allow_smem(kern, C::kSmemBytes, smem_set);
+    err = tensor_map_3d_f32(&tres, w.qd, D, N, 4 * BH, D, C::kRes, 16);
+    if (err == 0) err = tensor_map_3d_f32(&trows, w.kv, D, M, 4 * BH, D, C::kBS, 16);
+    if (err == 0) err = tensor_map_3d_f32(&tt, w.kt, Mp, D, 2 * BH, Mp, D, 16);
+  }
+  if (err != 0) return err;
+  static unsigned long long smem_set = 0;
+  auto kern = [] {
+    if constexpr (C::kDkv) return flash_bwd_dkv_f32_ss_kernel<C>;
+    else return flash_bwd_dq_f32_ss_kernel<C>;
+  }();
+  err = allow_smem(kern, C::kSmemBytes, smem_set);
+  if (err != 0) return err;
+  if (prepare != 0) {
+    const bool ta = prepare & 1, tb = prepare & 2;
+    const SplitJobs<4> jobs = {{
+        {static_cast<const float*>(q), q_bs, q_rs, w.qd, tb ? w.tqd : nullptr, N},
+        {static_cast<const float*>(dout), N * hd, hd, w.qd + 2ll * BH * N * D,
+         tb ? w.tqd + 2ll * BH * D * Np : nullptr, N},
+        {static_cast<const float*>(k), k_bs, k_rs, w.kv, ta ? w.kt : nullptr, M},
+        {static_cast<const float*>(v), v_bs, v_rs, w.kv + 2ll * BH * M * D,
+         nullptr, M}}};
+    const int rows = Np > Mp ? Np : Mp;
+    flash_split_f32_kernel<D, 4><<<dim3((rows + 31) / 32, BH, 4), 256, 0,
+                                   stream>>>(jobs, H);
+    err = (int)cudaGetLastError();
     if (err != 0) return err;
-    dim3 grid((M + C::kBR - 1) / C::kBR, B * H);
-    kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-        qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), H, N, M, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-        scale, c);
+  }
+  const float c = scale * kLog2e;
+  if constexpr (C::kDkv) {
+    kern<<<dim3((M + C::kRes - 1) / C::kRes, BH), C::kThreads, C::kSmemBytes,
+           stream>>>(tres, trows, tt, lse, delta, static_cast<float*>(dk),
+                     static_cast<float*>(dv), H, N, M, scale, c);
+  } else {
+    kern<<<dim3((N + C::kRes - 1) / C::kRes, BH), C::kThreads, C::kSmemBytes,
+           stream>>>(tres, trows, tt, lse, delta, static_cast<float*>(dq), H,
+                     N, M, scale, c);
   }
   return (int)cudaGetLastError();
 }
@@ -2004,17 +2295,15 @@ int flash_bwd_f32(const void* q, const void* k, const void* v,
                   void* dq, void* dk, void* dv, int B, int H, int N, int M,
                   int D, long long q_bs, long long q_rs, long long k_bs,
                   long long k_rs, long long v_bs, long long v_rs, float scale,
-                  void* stream) {
+                  void* ws, int prepare, void* stream) {
   // d = 40 and 80, the training path's head dims
   if (D != 40 && D != 80) return (int)cudaErrorInvalidValue;
   auto launch = dq != nullptr
-                    ? (D == 40 ? launch_bwd_f32<DqF40, true>
-                               : launch_bwd_f32<DqF80, true>)
-                    : (D == 40 ? launch_bwd_f32<DkvF40, false>
-                               : launch_bwd_f32<DkvF80, false>);
+                    ? (D == 40 ? launch_bwd_f32<DqF40> : launch_bwd_f32<DqF80>)
+                    : (D == 40 ? launch_bwd_f32<DkvF40> : launch_bwd_f32<DkvF80>);
   return launch(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, q_bs, q_rs,
-                k_bs, k_rs, v_bs, v_rs, scale,
-                static_cast<cudaStream_t>(stream));
+                k_bs, k_rs, v_bs, v_rs, scale, static_cast<float*>(ws),
+                prepare, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -2119,6 +2408,13 @@ LLT2I_API long long llt2i_flash_fwd_f32_ws(int B, int H, int M, int D) {
   return D == 40 || D == 80 ? 4 * fwd_f32_ws_floats(B, H, M, D) : 0;
 }
 
+// K5a and K5b f32: d 40 and 80, and a workspace `ws` of
+// llt2i_flash_bwd_f32_ws(B, H, N, M, D) bytes, 16-byte aligned. With
+// `prepare`, the call first writes into it the split (and transposed)
+// operands that K5a (bit 0) and K5b (bit 1) read; with 0 it reads what an
+// earlier call on the same operands and workspace wrote (the autograd
+// backward: K5a with prepare 3, then K5b with 0). Any other d or a missing
+// workspace returns cudaErrorInvalidValue without launching.
 LLT2I_API int llt2i_flash_bwd_dq_f32(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const float* lse, const float* delta,
@@ -2126,11 +2422,12 @@ LLT2I_API int llt2i_flash_bwd_dq_f32(const void* q, const void* k,
                                      int D, long long q_bs, long long q_rs,
                                      long long k_bs, long long k_rs,
                                      long long v_bs, long long v_rs,
-                                     float scale, void* stream) {
+                                     float scale, void* ws, int prepare,
+                                     void* stream) {
   if (dq == nullptr) return (int)cudaErrorInvalidValue;
   return flash_bwd_f32(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H,
-                       N, M, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale,
-                       stream);
+                       N, M, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, ws,
+                       prepare, stream);
 }
 
 LLT2I_API int llt2i_flash_bwd_dkv_f32(const void* q, const void* k,
@@ -2140,9 +2437,16 @@ LLT2I_API int llt2i_flash_bwd_dkv_f32(const void* q, const void* k,
                                       int M, int D, long long q_bs,
                                       long long q_rs, long long k_bs,
                                       long long k_rs, long long v_bs,
-                                      long long v_rs, float scale,
-                                      void* stream) {
+                                      long long v_rs, float scale, void* ws,
+                                      int prepare, void* stream) {
   if (dk == nullptr || dv == nullptr) return (int)cudaErrorInvalidValue;
   return flash_bwd_f32(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, N, M,
-                       D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, stream);
+                       D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, ws,
+                       prepare, stream);
+}
+
+// The bytes of the K5a/K5b f32 workspace for B x H heads of N queries and
+// M keys at head dim D (0 where no kernel takes D)
+LLT2I_API long long llt2i_flash_bwd_f32_ws(int B, int H, int N, int M, int D) {
+  return D == 40 || D == 80 ? 4 * bwd_f32_ws_floats(B, H, N, M, D) : 0;
 }

@@ -611,6 +611,25 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D (64 x 48) (+)= A (64 x 8) B^T, A and B tf32, K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[24], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D (64 x 32) (+)= A (64 x 8) B^T, A and B tf32, K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t a,
                                               uint64_t b, int accumulate) {
@@ -625,6 +644,30 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t a,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 16) (+)= A (64 x 8) B^T, A and B tf32, K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[8], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The 64-byte swizzle, for f32 operands 16 values (64 bytes) a row: row r
+// of a tile at r * 64, its four 16-byte pieces permuted by (r / 2) % 4,
+// the pattern repeating every 512 bytes (8 rows), as TMA writes it with
+// CU_TENSOR_MAP_SWIZZLE_64B; tiles start on 512-byte boundaries. A K-major
+// wgmma operand in it: stride byte offset 512 (one 8-row group to the
+// next), layout type 2; advancing along K adds 32 bytes (8 tf32) a k step.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 
 // Wait at named barrier `id` (1-15; 0 is __syncthreads's) until `count`
@@ -710,21 +753,25 @@ inline int tensor_map_2d_f32(CUtensorMap* map, const void* base, int rows,
 // A (cols, rows, mats) map of `mats` row-major (rows, cols) f32 matrices
 // stored one after another with row stride `ld` values: boxes of 32
 // columns (one swizzle row) by box_rows rows of one matrix, 128-byte
-// swizzle, zeros past each matrix's last row and column. The base must be
-// 16-byte aligned and ld a multiple of 4.
+// swizzle, or with box_cols 16 boxes of 16 columns in the 64-byte swizzle;
+// zeros past each matrix's last row and column. The base must be 16-byte
+// aligned and ld a multiple of 4.
 inline int tensor_map_3d_f32(CUtensorMap* map, const void* base, int cols,
-                             int rows, int mats, long long ld, int box_rows) {
+                             int rows, int mats, long long ld, int box_rows,
+                             int box_cols = 32) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)mats};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 4,
                                  (cuuint64_t)ld * rows * 4};
-  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                       const_cast<void*>(base), dims, strides, box, step,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -43,7 +43,7 @@
 //    round-to-nearest adds. The tensor cores truncate where they add into
 //    their accumulator, so one accumulator over the whole contraction would
 //    drift toward zero by up to an ulp of the sum a step (as mma.sync's
-//    does, f32_tiles.cuh mma3); a fresh one a stage keeps each truncation
+//    does); a fresh one a stage keeps each truncation
 //    relative to a 32-deep partial.
 //  * Registers: the running sum and the fresh one (kBN / 2 each), the
 //    split A fragments and a stage's B split take ~230 a thread at kBN =

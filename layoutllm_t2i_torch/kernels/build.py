@@ -88,8 +88,14 @@ for lib_name, twins in F32_TWINS.items():
 SIGNATURES["flash_attention"]["llt2i_flash_fwd_f32"] = (
     SIGNATURES["flash_attention"]["llt2i_flash_fwd"][:-1] + [_P, _P])
 SIGNATURES["flash_attention"]["llt2i_flash_fwd_f32_ws"] = [_I, _I, _I, _I]
+# K5a/f32 and K5b/f32 take a workspace of llt2i_flash_bwd_f32_ws bytes and
+# the pre-pass bits (`prepare`) before the stream
+for _fn in ("llt2i_flash_bwd_dq_f32", "llt2i_flash_bwd_dkv_f32"):
+    SIGNATURES["flash_attention"][_fn] = (
+        SIGNATURES["flash_attention"][_fn][:-1] + [_P, _I, _P])
+SIGNATURES["flash_attention"]["llt2i_flash_bwd_f32_ws"] = [_I, _I, _I, _I, _I]
 # entry points that return another type than a cudaError_t
-RESTYPES = {"llt2i_flash_fwd_f32_ws": _L}
+RESTYPES = {"llt2i_flash_fwd_f32_ws": _L, "llt2i_flash_bwd_f32_ws": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -15,12 +15,17 @@ in XLA, then K5a (dQ) and K5b (dK, dV) recompute the softmax from the lse.
 Where no gradient is needed, K1 launches exactly as for inference.
 
 Each kernel comes in bf16 and in f32 (``llt2i_flash_*_f32``: 3xTF32
-products, on wgmma with TMA for K1, on mma.sync for K5a and K5b; P and dS
-kept in f32, as the Pallas kernels keep them in the operands' type),
-picked from q's dtype; q, k, v and dO share it. The f32 forms take d 40
-and 80 (K1 also 512), the training path's head dims. K1/f32 at d 40 and 80
-splits K and V (and transposes V) once a call into a workspace that the
-wrapper allocates for the call (``llt2i_flash_fwd_f32_ws`` bytes).
+products on TF32 wgmma with TMA; P and dS kept in f32, as the Pallas
+kernels keep them in the operands' type), picked from q's dtype; q, k, v
+and dO share it. The f32 forms take d 40 and 80 (K1 also 512), the
+training path's head dims. K1/f32 at d 40 and 80 splits K and V (and
+transposes V) once a call into a workspace that the wrapper allocates for
+the call (``llt2i_flash_fwd_f32_ws`` bytes). K5a/f32 and K5b/f32 read q,
+k, v and dO split, and k, q and dO also transposed, from a workspace of
+``llt2i_flash_bwd_f32_ws`` bytes that a pre-pass writes: each wrapper
+allocates and fills its own, and ``FlashAttention.backward`` fills one in
+the K5a call for both kernels (``prepare``), so a training step's backward
+splits each operand once.
 """
 from __future__ import annotations
 
@@ -170,6 +175,34 @@ def _check_bwd(q, k, v, dout, lse, delta, heads, what):
     return dtype
 
 
+# bits of a K5 f32 call's ``prepare``: its pre-pass writes what K5a (1)
+# and K5b (2) read into the workspace
+PREPARE_DQ, PREPARE_DKV = 1, 2
+
+
+def bwd_f32_workspace(q: torch.Tensor, k: torch.Tensor,
+                      heads: int) -> torch.Tensor:
+    """The K5a/K5b f32 workspace of one backward call, on q's device and
+    the caller's stream: ``llt2i_flash_bwd_f32_ws`` bytes (none at a head
+    dim the kernels refuse, which then raise)."""
+    b, n, hc = q.shape
+    nbytes = lib("flash_attention").llt2i_flash_bwd_f32_ws(
+        b, heads, n, k.shape[1], hc // heads)
+    return torch.empty(nbytes // 4, dtype=torch.float32,
+                       device=q.device) if nbytes else None
+
+
+def _f32_tail(q, k, heads, workspace, prepare, own):
+    """The f32 entry points' workspace and prepare arguments: a workspace
+    of the caller's (read as ``prepare`` says) or the call's own, filled
+    by its pre-pass (``own``)."""
+    if workspace is None:
+        workspace, prepare = bwd_f32_workspace(q, k, heads), own
+    elif prepare is None:
+        prepare = own
+    return (None if workspace is None else workspace.data_ptr(), prepare)
+
+
 def _bwd_args(q, k, v, dout, lse, delta, heads):
     b, n, hc = q.shape
     return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -180,9 +213,12 @@ def _bwd_args(q, k, v, dout, lse, delta, heads):
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            dout: torch.Tensor, lse: torch.Tensor,
-                           delta: torch.Tensor, heads: int,
-                           scale: float) -> torch.Tensor:
-    """K5a: dQ (B, N, H*d) from the saved lse and delta."""
+                           delta: torch.Tensor, heads: int, scale: float, *,
+                           workspace=None, prepare=None) -> torch.Tensor:
+    """K5a: dQ (B, N, H*d) from the saved lse and delta. In f32 it reads
+    ``workspace`` (``bwd_f32_workspace``), filled first by its pre-pass
+    with what ``prepare`` asks (default: K5a's own); with no workspace it
+    takes and fills its own."""
     if not use_kernel(q):
         return flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads,
                                          scale)[0]
@@ -190,8 +226,10 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        "flash_attention_bwd_dq")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
+    tail = (_f32_tail(q, k, heads, workspace, prepare, PREPARE_DQ)
+            if dtype is torch.float32 else ())
     check(getattr(lib("flash_attention"), _ENTRY[dtype][1])(
-        *ptrs, dq.data_ptr(), *dims, float(scale),
+        *ptrs, dq.data_ptr(), *dims, float(scale), *tail,
         stream_handle(q.get_device())),
         "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
@@ -202,9 +240,11 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             dout: torch.Tensor, lse: torch.Tensor,
-                            delta: torch.Tensor, heads: int, scale: float
+                            delta: torch.Tensor, heads: int, scale: float, *,
+                            workspace=None, prepare=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5b: (dK, dV), each (B, M, H*d), from the saved lse and delta."""
+    """K5b: (dK, dV), each (B, M, H*d), from the saved lse and delta; in
+    f32 its workspace as K5a's (default ``prepare``: K5b's own)."""
     if not use_kernel(q):
         return flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads,
                                          scale)[1:]
@@ -213,8 +253,10 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
+    tail = (_f32_tail(q, k, heads, workspace, prepare, PREPARE_DKV)
+            if dtype is torch.float32 else ())
     check(getattr(lib("flash_attention"), _ENTRY[dtype][2])(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, float(scale),
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, float(scale), *tail,
         stream_handle(q.get_device())), "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     if dtype is torch.float32:
@@ -246,10 +288,15 @@ class FlashAttention(torch.autograd.Function):
         dout = dout.contiguous()
         delta = attention_delta(out, dout, ctx.heads)
         if ctx.kernel:
+            # in f32 one workspace for the pair, filled once by K5a's call
+            ws = (bwd_f32_workspace(q, k, ctx.heads)
+                  if q.dtype is torch.float32 else None)
             dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, ctx.heads,
-                                        ctx.scale)
+                                        ctx.scale, workspace=ws,
+                                        prepare=PREPARE_DQ | PREPARE_DKV)
             dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
-                                             ctx.heads, ctx.scale)
+                                             ctx.heads, ctx.scale,
+                                             workspace=ws, prepare=0)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, dout, lse, delta,
                                                    ctx.heads, ctx.scale)

@@ -54,7 +54,8 @@ The f32 forms ("K1/f32", "lse/f32", "K2/f32", "K4/f32", "K5a/f32",
 kernels' products 3xTF32 (about 2^-21 relative a product), the plain
 versions' cuBLAS in full f32, so the two differ by summation order and a
 few f32 ulps: the 3xTF32 emulation lies at most 8.0e-7 of rms(b) off in
-the whole-tensor error for K1, K5a and K5b, 2.2e-7 for K4. One TF32 pass
+the whole-tensor error for K1, 1.05e-6 for K5a and K5b (their wgmma
+tiles, N = M = 1054), 2.2e-7 for K4. One TF32 pass
 (operands rounded once to 10 mantissa bits: a different function) lies
 4.1e-4 to 5.8e-4 off for K1, K5a and K5b, and 8.7e-5 to 1.8e-4 for K4,
 whose output the residual x dominates. So the whole-tensor bound is 5e-5
@@ -62,7 +63,9 @@ for K1, K5a and K5b and 2e-5 for K4, both under the 1e-4 that separates
 f32 from one TF32 pass, with element-wise bounds of 1e-3 of rms(b) (K1,
 K5) and 1e-4 (K4). A dropped ragged K/V tail, a missing rescale, K4's s
 applied after the residual, an unwritten last row block and a dropped
-ragged k step lie 7e-2 to 0.6 off (``tests/test_torch_f32_kernels.py``).
+ragged k step lie 7e-2 to 0.6 off, K5's transposed operands off P's key
+slots, a stale stage or an unzeroed fresh accumulator 1.2 to 38
+(``tests/test_torch_f32_kernels.py``).
 K2 in f32 has no products: its emulated sums lie at most 1.0e-6 off, its
 four planted faults 0.56 to 0.72, and its bound is 2e-5
 (``tests/test_torch_group_norm.py``). The lse in f32 is held to 1e-4
@@ -70,11 +73,13 @@ absolute (emulated: 1e-6; one TF32 pass moves it by 6e-5 to 2.6e-4, which
 K1's output row already catches). On the H100 the f32 rows read at most
 1.5e-6 of rms(b) (K1, K5a, K5b), 7.1e-7 (K4) and 1.1e-7 (K2). The
 emulation adds in round-to-nearest f32; the tensor cores truncate where
-they add into an mma's C operand, so the kernels add each 8-deep step's
-3xTF32 partial into their accumulators with f32 adds (``csrc/
-f32_tiles.cuh mma3``). Chained through one running C, the same kernels
-read 3e-5 over 4096 keys and 3.0e-5 for K4 at K = 1280, growing with the
-sum's length: the K4 row failed there.
+they add into an mma's C operand, so the kernels add each stage's 3xTF32
+partial, from a fresh accumulator, into their sums with f32 adds.
+Chained through one running C, the same kernels read 3e-5 over 4096 keys
+and 3.0e-5 for K4 at K = 1280, growing with the sum's length: the K4 row
+failed there. K5's emulated one chain reads 1.0e-5 at N = M = 1054 and
+3.9e-5 at 4126, inside its row: the fresh accumulators keep K5 at
+~1e-6.
 K6, K7, K8a and K8b in f32 ("K6/f32", "K7/f32", "K8a/f32", "K8b/f32") take
 K4/f32's numbers: outputs of rms about 1, f32 on both sides. K7's int8 weights are exact in TF32, so two products (a_hi q
 + a_lo q) give the 3xTF32 accuracy. Their emulated rounding lies at most

@@ -30,7 +30,10 @@ K8a and K8b (K7 and K8b on f32_tiles.cuh's tile GEMM) at ragged shapes and
 at the f32 generation's and split-route training's shapes, with and
 without K8a's bias and residual and K8b's bias, K7's s as a device tensor,
 two launches agreeing bit for bit, the size rules and the gradients of the
-K6, K8a and K8b Functions in f32; the TF32 wgmma kernels, K1/f32 at d 512,
+K6, K8a and K8b Functions in f32; K5a/f32 and K5b/f32 at the f32
+training's batch-8 shapes, on strided operands fenced by NaN, into NaN
+outputs and a NaN-guarded shared workspace, bit for bit over launches,
+refusing other head dims; the TF32 wgmma kernels, K1/f32 at d 512,
 K4/f32's and K6/f32's up and down GEMMs and K8a/f32 (tf32_gemm.cuh), at
 ragged N, M and K (one row, widths off their tiles,
 two heads), with K1's lse, on operands fenced by NaN and Inf, into a NaN
@@ -720,7 +723,7 @@ def test_training_runs_f32_on_the_card(dev):
 
 
 # ---------------------------------------------------------------------------
-# the f32 forms of K1, K5a/K5b, K2 and K4 (3xTF32 on mma.sync; K2 on f32
+# the f32 forms of K1, K5a/K5b, K2 and K4 (3xTF32 on TF32 wgmma; K2 on f32
 # tiles), against the plain versions in full f32
 
 
@@ -766,7 +769,8 @@ def test_flash_attention_lse_f32(dev, gen, f32, b, n, m, heads, d):
                K.flash_attention, kids=("K1/f32", "lse/f32"))
 
 
-@pytest.mark.parametrize("b,n,m,heads,d", TRAIN_SHAPES)
+@pytest.mark.parametrize("b,n,m,heads,d", TRAIN_SHAPES + [
+    (8, 4126, 4126, 8, 40), (8, 1054, 1054, 8, 80)])   # f32 training's batch
 def test_flash_attention_backward_f32(dev, gen, f32, b, n, m, heads, d):
     q, k, v, dout = (t.float() for t in _attention_inputs(gen, b, n, m, heads, d))
     s = d ** -0.5
@@ -779,6 +783,120 @@ def test_flash_attention_backward_f32(dev, gen, f32, b, n, m, heads, d):
     _check_f32("K5b", lambda: K.flash_attention_bwd_dkv(q, k, v, dout, lse,
                                                          delta, heads, s),
                lambda: ref[1:], K.flash_attention_bwd_dkv)
+
+
+def _f32_packed(dev, gen, b, n, heads, d, guard=4096):
+    """q, k and v f32 column slices of one packed (b, n, 3 H d) buffer (row
+    stride 3 H d: a multiple of 4 floats, not of 8) between NaN guards: a
+    read past any operand turns the result NaN."""
+    buf = torch.full((b * n * 3 * heads * d + 2 * guard,), float("nan"),
+                     device=dev)
+    qkv = buf[guard:guard + b * n * 3 * heads * d].view(b, n, 3 * heads * d)
+    qkv.copy_(_rand(gen, b, n, 3 * heads * d).float())
+    return qkv.split(heads * d, dim=-1)
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_flash_attention_backward_f32_strided_and_fenced(dev, gen, f32, d):
+    # K5a/K5b f32 read q, k and v once, in the pre-pass that splits (and
+    # transposes) them into the workspace: strided column slices of one
+    # packed buffer, its neighbours NaN, at ragged N and M off every tile
+    b, n, heads = 2, 700, 2
+    q, k, v = _f32_packed(dev, gen, b, n, heads, d)
+    k, v = k[:, :650], v[:, :650]
+    dout = _rand(gen, b, n, heads * d, scale=0.1).float()
+    s = d ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
+    delta = K.attention_delta(out, dout, heads)
+    ref = K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, s)
+    dq = K.flash_attention_bwd_dq(q, k, v, dout, lse, delta, heads, s)
+    dk, dv = K.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, heads, s)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
+    got = agreement("K5a/f32", dq, ref[0])
+    assert got["ok"], got
+    got = agreement("K5b/f32", (dk, dv), ref[1:])
+    assert got["ok"], got
+
+
+def _bwd_f32_into_nan(q, k, v, dout, lse, delta, heads, s, guard=4096):
+    """K5a/f32 and K5b/f32 through their C entry points, sharing one
+    workspace as the autograd backward does (K5a's pre-pass for both), into
+    outputs filled with NaN, each followed by ``guard`` more NaN elements,
+    and the workspace followed by a NaN guard: (dq, dk, dv), the guards."""
+    b, n, hc = q.shape
+    m = k.shape[1]
+    fa = lib("flash_attention")
+    nbytes = fa.llt2i_flash_bwd_f32_ws(b, heads, n, m, hc // heads)
+    ws = torch.full((nbytes // 4 + guard,), float("nan"), device=q.device)
+    bufs = [torch.full((b * rows * hc + guard,), float("nan"), device=q.device)
+            for rows in (n, m, m)]
+    ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
+    stream = stream_handle(q.get_device())
+    check(fa.llt2i_flash_bwd_dq_f32(*ptrs, bufs[0].data_ptr(), *dims, float(s),
+                                    ws.data_ptr(), 3, stream), "K5a/f32")
+    check(fa.llt2i_flash_bwd_dkv_f32(*ptrs, bufs[1].data_ptr(),
+                                     bufs[2].data_ptr(), *dims, float(s),
+                                     ws.data_ptr(), 0, stream), "K5b/f32")
+    torch.cuda.synchronize()
+    outs = [buf[:-guard].view(b, rows, hc) for buf, rows in zip(bufs, (n, m, m))]
+    return outs, [buf[-guard:] for buf in bufs + [ws]]
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", [
+    (2, 700, 650, 4, 40), (2, 650, 700, 4, 80),
+    (1, 1, 130, 2, 40),       # one q row
+    (1, 130, 2, 2, 80),       # two k rows
+    (3, 4127, 4126, 8, 40),   # neither a multiple of a stage nor of 128
+])
+def test_flash_attention_backward_f32_writes_only_its_outputs(dev, gen, f32, b,
+                                                              n, m, heads, d):
+    # every element of dQ, dK and dV written (none stays NaN), nothing past
+    # the last row nor past the workspace (the guards stay NaN), and the
+    # shared workspace read by K5b as K5a's pre-pass wrote it
+    q, k, v, dout = (t.float() for t in _attention_inputs(gen, b, n, m, heads, d))
+    s = d ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
+    delta = K.attention_delta(out, dout, heads)
+    ref = K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, s)
+    (dq, dk, dv), guards = _bwd_f32_into_nan(q, k, v, dout, lse, delta, heads, s)
+    assert all(bool(g.isnan().all()) for g in guards)
+    got = agreement("K5a/f32", dq, ref[0])
+    assert got["ok"], got
+    got = agreement("K5b/f32", (dk, dv), ref[1:])
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("b,n,m,heads,d", [(4, 4126, 4126, 8, 40),
+                                            (4, 1054, 1054, 8, 80)])
+def test_flash_attention_backward_f32_is_bitwise_repeatable(dev, gen, f32, b, n,
+                                                            m, heads, d):
+    # each output row summed by one block in a fixed order (at d 80 the two
+    # warpgroups' halves added in one order): launches agree bit for bit
+    q, k, v, dout = (t.float() for t in _attention_inputs(gen, b, n, m, heads, d))
+    s = d ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
+    delta = K.attention_delta(out, dout, heads)
+    runs = [(K.flash_attention_bwd_dq(q, k, v, dout, lse, delta, heads, s),
+             *K.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, heads, s))
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], run))
+
+
+def test_flash_attention_backward_f32_other_head_dims_raise(dev, gen, f32):
+    # d 40 and 80 only: no workspace and no launch at d 160 (the 16^2 sites)
+    q, k, v, dout = (t.float() for t in _attention_inputs(gen, 1, 512, 512, 2, 160))
+    lse = torch.zeros(1, 2, 512, device=dev)
+    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 160) == 0
+    before = (K.flash_attention_bwd_dq.launches, K.flash_attention_bwd_dkv.launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 160 ** -0.5)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 160 ** -0.5)
+    assert (K.flash_attention_bwd_dq.launches,
+            K.flash_attention_bwd_dkv.launches) == before
 
 
 @pytest.mark.parametrize("d", [40, 80])

@@ -3,14 +3,15 @@ stated tolerances against CPU emulations of the kernels' arithmetic, and
 the plain versions against the Pallas kernels at the f32 block choices.
 
 The CUDA kernels run only on the card. Their f32 products are 3xTF32, on
-mma.sync (``csrc/f32_tiles.cuh``: K5a, K5b, K7) or on TF32 wgmma (K1;
-``csrc/tf32_gemm.cuh``: K4, K6, K8a and K8b): each operand split into
+TF32 wgmma (K1, K5a, K5b; ``csrc/tf32_gemm.cuh``: K4, K6, K8a and K8b) or
+on mma.sync (``csrc/f32_tiles.cuh``: K7): each operand split into
 hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties away, to 10
 mantissa bits, as
 ``cvt.rna.tf32.f32``), three TF32 products hi*hi + hi*lo + lo*hi summed in
 f32. The emulations below repeat that split and each kernel's tiling
 (K1's online softmax over K/V tiles with P in f32, S's chain and each
-tile's P V truncating into a fresh accumulator, K5's stages, the tile
+tile's P V truncating into a fresh accumulator, K5's stages and output
+products at its tiles, with its transposed operands at P's slots, the tile
 GEMM's 32-deep k steps and 128-row blocks, the wgmma mainloop's 32-deep
 stages truncating into a fresh accumulator, f32 LN(x) and h): they must
 pass the f32 rows of ``kernels/tolerance.py`` against the plain versions,
@@ -20,8 +21,10 @@ applied after the residual, K6's residual added twice, K8a's bias dropped,
 K4's, K6's and K8b's gate read from Wa's rows, a stale B lo or V stage,
 V^T's keys off P's permuted k, K1's partial last chunk of d dropped, an
 unzeroed fresh accumulator or one accumulator over the 5120-deep down
-product, and K7's scale missing or folded into its weights before the
-dot must fail them. K7's weights are int8, exact in TF32 (tested), so its
+product, K5's transposed operands off the slots, a stale K5 stage, and
+K7's scale missing or folded into its weights before the dot must fail
+them (one K5 accumulator over the whole stream stays inside its row at
+the main path's lengths, tested as such). K7's weights are int8, exact in TF32 (tested), so its
 products are two TF32 passes, a_hi q + a_lo q.
 
 The Pallas kernels run in interpret mode, as the JAX package's own tests
@@ -365,57 +368,144 @@ def test_k1_f32_tolerance_separates_rounding_from_faults(d, fault):
 # K5a and K5b
 
 
-def _k5_emulated(kid, q, k, v, dout, lse, delta, heads, scale, bs=32,
-                 fault=None):
-    """csrc/flash_attention.cu's f32 K5a (dQ over K/V stages) or K5b (dK
-    and dV over q/dO stages) on the CPU: P = exp2(S c - lse log2 e) masked
-    past the ragged edge, dS = P (dP - delta), P and dS in f32, every
-    product 3xTF32."""
+# csrc/flash_attention.cu DqF40, DqF80, DkvF40, DkvF80: rows a streamed
+# stage, and whether the two warpgroups share the resident rows and take the
+# stages in turns (their sums added at the end, warpgroup 0's first)
+K5_TILES = {("K5a", 40): (48, False), ("K5a", 80): (16, True),
+            ("K5b", 40): (32, False), ("K5b", 80): (16, True)}
+
+
+def _stage(t, r0, bs):
+    """Rows r0 .. r0 + bs - 1 of t (..., rows, d), zeros past its end."""
+    out = torch.zeros(*t.shape[:-2], bs, t.shape[-1])
+    rows = min(bs, t.shape[-2] - r0)
+    out[..., :rows, :] = t[..., r0:r0 + rows, :]
+    return out
+
+
+def _k5_wgmma_emulated(kid, q, k, v, dout, lse, delta, heads, scale, fault=None):
+    """flash_bwd_dq_f32_ss_kernel (K5a: dQ over K/V stages) or
+    flash_bwd_dkv_f32_ss_kernel (K5b: dK and dV over Q/dO stages) on the CPU,
+    at the kernels' tiles (``K5_TILES``). Every operand split once into hi
+    and lo (the pre-pass). A stage (zeros past the stream's end): S and dP
+    (K5b: S^T = K Q^T, dP^T = V dO^T), each the d / 8 k steps' lo*hi and
+    hi*lo, then hi*hi, truncating into a fresh accumulator (``chain``); P =
+    exp2(S c - lse log2 e) masked to 0 past the ragged edge, dS = P (dP -
+    delta), both f32; each output product (dQ += dS K; dV += P^T dO, dK +=
+    dS^T Q) with the score fragment split as register A and the transposed
+    operand's hi and lo tiles as B, its kBS / 8 k steps' products
+    truncating into a fresh accumulator, added to the warpgroup's running
+    sum in round-to-nearest f32. With the split tiles (d 80) the two
+    warpgroups take the stages in turns and their sums meet at the end.
+    Faults: ``t_slots`` (the transposed operand at unpermuted slots, not
+    the key slots of the A fragment's permuted k), ``stale_stage`` (the
+    previous stage's transposed tiles), ``lo_hi_dropped``, ``never_zeroed``
+    (an output product's fresh accumulator carried into the next stage),
+    ``kv_tail`` (the ragged last stage dropped), ``one_chain`` (each running
+    sum the tensor cores' own accumulator over the whole stream),
+    ``tf32_one_pass``. Returns dQ, or (dK, dV)."""
     passes = 1 if fault == "tf32_one_pass" else 3
+    drop = fault == "lo_hi_dropped"
+    bs, two = K5_TILES[kid, q.shape[-1] // heads]
     qh, kh, vh, doh = (_split(t, heads) for t in (q, k, v, dout))
-    n, m = qh.shape[2], kh.shape[2]
     log2e = torch.tensor(1.4426950408889634, dtype=F32)
     c = torch.tensor(scale, dtype=F32) * log2e
-    l2, dl = lse[..., None] * log2e, delta[..., None]
-    if kid == "K5a":
-        dq = torch.zeros_like(qh)
-        end = m - m % bs if fault == "kv_tail" else m
-        for k0 in range(0, end, bs):
-            kt, vt = kh[:, :, k0:k0 + bs], vh[:, :, k0:k0 + bs]
-            p = torch.exp2(mm(qh, kt.transpose(-1, -2), passes) * c - l2)
-            ds = p * (mm(doh, vt.transpose(-1, -2), passes) - dl)
-            dq += mm(ds, kt, passes)
-        return _packed(dq * scale)
-    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
-    end = n - n % bs if fault == "kv_tail" else n   # the ragged q stage
-    for q0 in range(0, end, bs):
-        qt, dot = qh[:, :, q0:q0 + bs], doh[:, :, q0:q0 + bs]
-        p = torch.exp2(mm(qt, kh.transpose(-1, -2), passes) * c - l2[:, :, q0:q0 + bs])
-        ds = p * (mm(dot, vh.transpose(-1, -2), passes) - dl[:, :, q0:q0 + bs])
-        dv += mm(p.transpose(-1, -2), dot, passes)
-        dk += mm(ds.transpose(-1, -2), qt, passes)
-    return _packed(dk * scale), _packed(dv)
+    l2, dl = lse[..., None] * log2e, delta[..., None]     # (b, h, n, 1)
+    dqa = kid == "K5a"
+    ra, rb = (qh, doh) if dqa else (kh, vh)               # resident: A of S, dP
+    sa, sb = (kh, vh) if dqa else (qh, doh)               # streamed: B of S, dP
+    outs = 1 if dqa else 2                                # dQ; dV, dK
+    a_hi, a_lo = split(ra)
+    b_hi, b_lo = split(rb)
+    length = sa.shape[2]
+    end = length - length % bs if fault == "kv_tail" else length
+    sums = [[None] * outs for _ in range(2)]              # [warpgroup][output]
+    parts, prev = [None] * outs, [torch.zeros(*sa.shape[:2], bs, sa.shape[-1])] * 2
+    for t, r0 in enumerate(range(0, end, bs)):
+        g = t % 2 if two else 0
+        rows = min(bs, length - r0)
+        st_a, st_b = _stage(sa, r0, bs), _stage(sb, r0, bs)
+        s = chain(None, tc_products(a_hi, a_lo, *split(st_a.transpose(-1, -2)),
+                                    drop, passes))
+        dp = chain(None, tc_products(b_hi, b_lo, *split(st_b.transpose(-1, -2)),
+                                     drop, passes))
+        if dqa:   # the rows' statistics: (b, h, n, 1)
+            p = torch.exp2(s * c - l2)
+            p[..., rows:] = 0
+            ds = p * (dp - dl)
+            prods = [(ds, st_a)]                          # dQ += dS K
+        else:     # the stage's columns: (b, h, 1, bs), zero past N
+            l2t = _stage(l2, r0, bs).transpose(-1, -2)
+            dlt = _stage(dl, r0, bs).transpose(-1, -2)
+            p = torch.exp2(s * c - l2t)
+            p[..., rows:] = 0
+            ds = p * (dp - dlt)
+            prods = [(p, st_b), (ds, st_a)]               # dV += P^T dO, dK += dS^T Q
+        for i, (a, bt) in enumerate(prods):
+            if fault == "t_slots":
+                bt = _slot_rows(bt)
+            elif fault == "stale_stage":
+                bt, prev[i] = prev[i], bt
+            carried = parts[i] if fault in ("never_zeroed", "one_chain") else None
+            parts[i] = chain(carried, tc_products(*split(a), *split(bt), drop,
+                                                  passes))
+            if fault == "one_chain":
+                sums[g][i] = parts[i]
+            else:
+                sums[g][i] = parts[i] if sums[g][i] is None else sums[g][i] + parts[i]
+            if fault == "one_chain" and two:
+                parts[i] = sums[1 - g][i]                 # the other warpgroup's chain
+    got = [sums[0][i] if sums[1][i] is None else sums[0][i] + sums[1][i]
+           for i in range(outs)]
+    if dqa:
+        return _packed(got[0] * scale)
+    return _packed(got[1] * scale), _packed(got[0])
 
 
-@pytest.mark.parametrize("d,kid,fault", [
-    *((d, kid, f) for d in (40, 80) for kid in ("K5a", "K5b")
-      for f in (None, "tf32_one_pass")),
-    (80, "K5a", "kv_tail"), (80, "K5b", "kv_tail"), (40, "K5a", "kv_tail"),
-])
-def test_k5_f32_tolerance_separates_rounding_from_faults(d, kid, fault):
-    # N = M = 1054 = 32 * 32 + 30: ragged last stages of 30 rows
-    b, heads, n = 1, 2, 1054
+# the faults of the wgmma design that the f32 rows catch
+K5_FAULTS = ("t_slots", "stale_stage", "lo_hi_dropped", "never_zeroed",
+             "kv_tail")
+
+
+def _k5_case(kid, d, fault, n=1054, heads=2):
+    """The emulated K5a or K5b at N = M = n against the plain backward,
+    under the f32 row (``agreement``)."""
     g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(b, n, heads * d, generator=g) for _ in range(3))
-    dout = 0.1 * torch.randn(b, n, heads * d, generator=g)
+    q, k, v = (torch.randn(1, n, heads * d, generator=g) for _ in range(3))
+    dout = 0.1 * torch.randn(1, n, heads * d, generator=g)
     scale = d ** -0.5
     out, lse = flash_attention_lse_plain(q, k, v, heads, scale)
     delta = attention_delta(out, dout, heads)
     ref = flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, scale)
     ref = ref[0] if kid == "K5a" else ref[1:]
-    got = agreement(tol_id(kid, F32), _k5_emulated(
+    return agreement(tol_id(kid, F32), _k5_wgmma_emulated(
         kid, q, k, v, dout, lse, delta, heads, scale, fault=fault), ref)
+
+
+@pytest.mark.parametrize("d,kid,fault", [
+    *((d, kid, f) for d in (40, 80) for kid in ("K5a", "K5b")
+      for f in (None, "tf32_one_pass") + K5_FAULTS),
+])
+def test_k5_f32_tolerance_separates_rounding_from_faults(d, kid, fault):
+    # N = M = 1054 (the 32^2 gated sites' length): a ragged last stage at
+    # every tile (48, 32, 16 rows)
+    got = _k5_case(kid, d, fault)
     assert got["ok"] == (fault is None), got
+
+
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("kid", ["K5a", "K5b"])
+def test_k5_f32_one_chain_drifts_within_the_row(kid, d):
+    # One tensor-core accumulator over the whole stream (no fresh one a
+    # stage) truncates at every product: at N = M = 1054 it drifts 5-13x
+    # as far as the fresh accumulators (1.0e-5 of rms(b) at d 40, 5.6e-6
+    # at d 80, where each warpgroup sums half the stages), and 3.9e-5 and
+    # 2.0e-5 at the 64^2 sites' 4126: inside the 5e-5 row, which cannot
+    # catch it at the main path's lengths (K1's chained sums read 3e-5 on
+    # the card over 4096 keys). The kernels keep a fresh accumulator a stage.
+    clean, chained = _k5_case(kid, d, None), _k5_case(kid, d, "one_chain")
+    assert clean["ok"] and chained["ok"], (clean, chained)
+    assert chained["rms_rel_err"] >= 4 * clean["rms_rel_err"], (clean, chained)
 
 
 # ---------------------------------------------------------------------------

@@ -449,10 +449,10 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     whose keys "gemm" and "sm90_" a template name can contain), and phase
     build looks for HGMMA in every wgmma kernel of K1, K5a, K5b, K4, K6,
     K7, K8a and K8b and in every kernel of the f32 forms on TF32 wgmma
-    (K1/f32, K4/f32, K6/f32, K8a/f32, K8b/f32) but their pre-passes; no
-    `__global__` of the retired WMMA kernels or of the retired mma.sync
-    kernels of K1/f32 (d 40, 80), K4/f32 and K8b/f32 is left, and no kernel
-    source uses WMMA."""
+    (K1/f32, K5a/f32, K5b/f32, K4/f32, K6/f32, K8a/f32, K8b/f32) but their
+    pre-passes; no `__global__` of the retired WMMA kernels or of the
+    retired mma.sync kernels of K1/f32 (d 40, 80), K5a/f32, K5b/f32,
+    K4/f32 and K8b/f32 is left, and no kernel source uses WMMA."""
     kernels = _source_kernels()
     lib_of = {kid: Path(meta[1]).stem for kid, meta in cs.KERNEL_META.items()}
     groups = {name.split()[0]: keys for name, keys in cs.PROFILE_GROUPS}
@@ -476,7 +476,9 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
             assert kernels.get(name) == lib, name
     retired = {"ffn_res_up_kernel", "ffn_res_down_kernel", "geglu_fused_kernel",
                "ffn_q_up_kernel", "ffn_q_down_kernel", "ffn_up_f32_kernel",
-               "ffn_down_f32_kernel", "flash_fwd_f32_kernel", "geglu_f32_kernel"}
+               "ffn_down_f32_kernel", "flash_fwd_f32_kernel", "geglu_f32_kernel",
+               "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
+               "flash_kv_split_f32_kernel"}
     assert not retired & set(kernels), retired & set(kernels)
     assert not (CSRC / "ffn_tiles.cuh").exists()
     for path in CSRC.glob("*.cu*"):
@@ -487,11 +489,22 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     for kid in cs.WGMMA_KIDS:
         off_wgmma = set(groups[kid]) - set(cs.WGMMA_KERNELS[lib_of[kid]])
         assert off_wgmma == pre_pass.get(kid, set())
-    # the f32 forms on TF32 wgmma: every kernel of their groups but K1/f32's
-    # K/V split and K4/f32's LN pre-pass, and none on mma.sync
-    f32_pre = {"K1/f32": {"flash_kv_split_f32_kernel"},
+    # the f32 forms on TF32 wgmma: every kernel of their groups but the
+    # flash split pre-pass (K1/f32's instantiations, and K5a/f32's, whose
+    # call runs the backward's) and K4/f32's LN pre-pass, and none on
+    # mma.sync
+    f32_pre = {"K1/f32": {"flash_split_f32_kernel"},
+               "K5a/f32": {"flash_split_f32_kernel<40, 4>",
+                           "flash_split_f32_kernel<80, 4>"},
                "K4/f32": {"ffn_norm_rows_f32_kernel"}}
-    for kid in ("K1/f32", "K4/f32", "K6/f32", "K8a/f32", "K8b/f32"):
+    for d in (40, 80):
+        for jobs, kid in ((2, "K1/f32"), (4, "K5a/f32")):
+            shown = (f"void (anonymous namespace)::flash_split_f32_kernel<{d}, "
+                     f"{jobs}>((anonymous namespace)::SplitJobs<{jobs}>, int)")
+            assert next(g for g, keys in cs.PROFILE_GROUPS
+                        if any(k in shown.lower() for k in keys)).split()[0] == kid
+    for kid in ("K1/f32", "K5a/f32", "K5b/f32", "K4/f32", "K6/f32", "K8a/f32",
+                "K8b/f32"):
         off_wgmma = set(groups[kid]) - set(cs.WGMMA_KERNELS[lib_of[kid]])
         assert off_wgmma == f32_pre.get(kid, set()), (kid, off_wgmma)
         assert not set(groups[kid]) & set(cs.MMA_F32_KERNELS.get(lib_of[kid], ())), kid
@@ -581,9 +594,10 @@ def test_split_route_f32_training_walk_matches_the_calls(recorded, tmp_path):
 
 
 def test_f32_timing_times_the_walks_shapes():
-    """cli/f32_timing.py times K1/f32, K4/f32, K6/f32, K8a/f32 and K8b/f32
-    at the shapes that phase `kernels` gives them: each one's distinct f32 cases
-    of the full-width walks of generate-f32, train-f32 and routes-f32."""
+    """cli/f32_timing.py times K1/f32, K5a/f32, K5b/f32, K4/f32, K6/f32,
+    K8a/f32 and K8b/f32 at the shapes that phase `kernels` gives them: each
+    one's distinct f32 cases of the full-width walks of generate-f32,
+    train-f32 and routes-f32."""
     from layoutllm_t2i_torch.cli import f32_timing
     from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
@@ -602,4 +616,4 @@ def test_f32_timing_times_the_walks_shapes():
              for shape in shapes}
     assert timed == walked
     assert {kid: len(s) for kid, s in f32_timing.CASES.items()} == {
-        "K1": 12, "K4": 12, "K6": 3, "K8a": 3, "K8b": 3}
+        "K1": 12, "K5a": 4, "K5b": 4, "K4": 12, "K6": 3, "K8a": 3, "K8b": 3}
