@@ -10,11 +10,11 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel and
                in the TF32 wgmma kernels of K1/f32 (d 40 and 80; d 512),
                K5a/f32 and K5b/f32 (d 40 and 80), K4/f32 (K6/f32 runs
-               K4/f32's), K8a/f32 and K8b/f32 (WGMMA_KERNELS; K4's and
+               K4/f32's), K7/f32 (int8 B tiles converted in shared
+               memory), K8a/f32 and K8b/f32 (WGMMA_KERNELS; K4's and
                K7's LN pre-passes and the f32 flash split pre-pass,
-               flash_split_f32_kernel, K1/f32's and K5's, do no product)
-               and HMMA (mma.sync, TF32) in K7/f32's two product kernels
-               (MMA_F32_KERNELS), or if
+               flash_split_f32_kernel, K1/f32's and K5's, do no product),
+               or if
                ptxas reports a spill in a K7 kernel or a TF32 wgmma kernel
                (NO_SPILL_KERNELS) or any nvcc log holds C7515 (wgmma
                serialised); prints the registers and spills of every wgmma
@@ -271,7 +271,8 @@ TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 # the f32 forms' TF32 wgmma kernels, K1/f32 at d 40 and 80 (S with Q and K
 # by descriptor, P V with P as register A) and at d 512, K5a/f32 and
 # K5b/f32 (the scores by descriptor, P and dS as register A), K4/f32's (and
-# K6/f32's) up and down GEMMs, K8a/f32 and K8b/f32 (csrc/tf32_gemm.cuh).
+# K6/f32's) and K7/f32's up and down GEMMs, K8a/f32 and K8b/f32
+# (csrc/tf32_gemm.cuh; K7/f32's with int8 B operands, Cfg::kQ).
 # Each must show HGMMA in its SASS, in every instantiation.
 WGMMA_KERNELS = {
     "flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
@@ -282,7 +283,8 @@ WGMMA_KERNELS = {
     "ffn": ("ffn_up_wgmma_kernel", "ffn_down_wgmma_kernel",
             "ffn_res_up_wgmma_kernel", "ffn_res_down_wgmma_kernel",
             "ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
-            "ffn_up_f32_wgmma_kernel", "ffn_down_f32_wgmma_kernel"),
+            "ffn_up_f32_wgmma_kernel", "ffn_down_f32_wgmma_kernel",
+            "ffn_q_up_f32_wgmma_kernel", "ffn_q_down_f32_wgmma_kernel"),
     "matmul": ("linear_wgmma_kernel", "geglu_wgmma_kernel",
                "linear_f32_wgmma_kernel", "geglu_f32_wgmma_kernel"),
 }
@@ -298,13 +300,8 @@ NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
                     "flash_fwd_f32_ss_kernel", "flash_fwd_f32_wgmma_kernel",
                     "flash_bwd_dq_f32_ss_kernel", "flash_bwd_dkv_f32_ss_kernel",
                     "linear_f32_wgmma_kernel", "geglu_f32_wgmma_kernel",
-                    "ffn_up_f32_wgmma_kernel", "ffn_down_f32_wgmma_kernel")
-# library -> the f32 forms' kernels on mma.sync (K7/f32: two TF32 products
-# against int8 tiles, csrc/f32_tiles.cuh): each must show HMMA (the TF32
-# tensor-core instruction) in its SASS
-MMA_F32_KERNELS = {
-    "ffn": ("ffn_q_up_f32_kernel", "ffn_q_down_f32_kernel"),
-}
+                    "ffn_up_f32_wgmma_kernel", "ffn_down_f32_wgmma_kernel",
+                    "ffn_q_up_f32_wgmma_kernel", "ffn_q_down_f32_wgmma_kernel")
 
 KERNEL_META = {
     "K1": ("flash_attention", "layoutllm_t2i_torch/csrc/flash_attention.cu",
@@ -331,8 +328,8 @@ KERNEL_META = {
 # every kernel's f32 form, an entry of its own: the same Pallas kernel
 # (which takes any float type) and source, f32 instantiations (K1, K5a,
 # K5b, K4, K6, K8a and K8b: 3xTF32 on wgmma;
-# K7: two TF32 products against int8 weights, which TF32 holds exactly; K2,
-# K3: f32 tiles, no products)
+# K7: two TF32 products on wgmma against int8 weights, which TF32 holds
+# exactly; K2, K3: f32 tiles, no products)
 KERNEL_META.update({f"{kid}/f32": meta for kid, meta in list(KERNEL_META.items())})
 # the arithmetic of each f32 form's products, for its rows
 F32_ARITH = {"K1": "3xTF32 wgmma",
@@ -340,7 +337,7 @@ F32_ARITH = {"K1": "3xTF32 wgmma",
              "K5a": "3xTF32 wgmma", "K5b": "3xTF32 wgmma",
              "K6": "3xTF32 wgmma", "K8a": "3xTF32 wgmma",
              "K8b": "3xTF32 wgmma",
-             "K7": "2xTF32 mma.sync (int8 weights exact in TF32)",
+             "K7": "2xTF32 wgmma (int8 weights exact in TF32)",
              "K2": "f32, no products", "K3": "f32, no products"}
 # the training phases' batch (no CFG doubling), boxes and relation slots
 TRAIN_BATCH, TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS = 8, 30, 10
@@ -1034,38 +1031,32 @@ def phase_build():
     t0 = time.perf_counter()
     log = build.build_all()
     # the wgmma kernels must run on the tensor cores' wgmma path (HGMMA in
-    # SASS), each in every instantiation; the f32 forms' product kernels on
-    # mma.sync's (HMMA, TF32)
-    hgmma, hmma, missing, ptxas, c7515 = {}, {}, [], {}, []
+    # SASS), each in every instantiation
+    hgmma, missing, ptxas, c7515 = {}, [], {}, []
     for lib in build.SOURCES:
         text = (build.BUILD_DIR / f"{lib}.log").read_text()
         if "C7515" in text:
             c7515.append(lib)
         names = WGMMA_KERNELS.get(lib, ())
-        mma_names = MMA_F32_KERNELS.get(lib, ())
-        shown = names + mma_names + (GN_KERNELS if lib == "group_norm" else ())
+        shown = names + (GN_KERNELS if lib == "group_norm" else ())
         ptxas.update({fn: rec for fn, rec in ptxas_kernels(text).items()
                       if any(name in fn for name in shown)})
-        for opcode, want, found_by in (("HGMMA", names, hgmma),
-                                       ("HMMA", mma_names, hmma)):
-            if not want:
-                continue
-            found = {fn: n for fn, n in sass_opcode_counts(
-                build.lib_path(lib), opcode).items()
-                if any(name in fn for name in want)}
-            found_by.update(found)
-            missing += [name for name in want
-                        if not any(name in fn for fn in found)]
+        if not names:
+            continue
+        found = {fn: n for fn, n in sass_opcode_counts(
+            build.lib_path(lib), "HGMMA").items()
+            if any(name in fn for name in names)}
+        hgmma.update(found)
+        missing += [name for name in names
+                    if not any(name in fn for fn in found)]
     spills = {fn: rec for fn, rec in ptxas.items()
               if any(name in fn for name in NO_SPILL_KERNELS)
               and (rec.get("spill_stores") or rec.get("spill_loads"))}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libs": log, "hgmma": hgmma, "hmma": hmma, "ptxas": ptxas,
-          "c7515": c7515})
-    if missing or not all(hgmma.values()) or not all(hmma.values()):
-        raise SmokeFailure(f"tensor-core kernels without HGMMA (wgmma) or "
-                           f"HMMA (the f32 forms) in their SASS: {hgmma}, "
-                           f"{hmma}, none found of {missing}")
+          "libs": log, "hgmma": hgmma, "ptxas": ptxas, "c7515": c7515})
+    if missing or not all(hgmma.values()):
+        raise SmokeFailure(f"tensor-core kernels without HGMMA (wgmma) in "
+                           f"their SASS: {hgmma}, none found of {missing}")
     if spills or c7515:
         raise SmokeFailure(f"ptxas spills in {sorted(spills)} or C7515 "
                            f"(serialised wgmma) in the logs of {c7515}")
@@ -2577,7 +2568,8 @@ PROFILE_GROUPS = (
                                 "flash_fwd_f32_wgmma_kernel")),
     ("K2/f32 group_norm", tuple(f"{k}<float>" for k in GN_KERNELS)),
     ("K3/f32 layer_norm", ("ln_kernel<float",)),
-    ("K7/f32 ffn_ln_geglu_q", ("ffn_q_up_f32_kernel", "ffn_q_down_f32_kernel")),
+    ("K7/f32 ffn_ln_geglu_q", ("ffn_q_up_f32_wgmma_kernel",
+                               "ffn_q_down_f32_wgmma_kernel")),
     ("K4/f32 ffn_ln_geglu (+ K6/f32, K7/f32's LN)",
      ("ffn_norm_rows_f32_kernel", "ffn_up_f32_wgmma_kernel",
       "ffn_down_f32_wgmma_kernel")),

@@ -1,9 +1,9 @@
-"""Time the f32 forms of K1, K5a, K5b, K4, K6, K8a and K8b of one checkout on
-the card, for an A/B of two commits.
+"""Time the f32 forms of K1, K5a, K5b, K4, K6, K7, K8a and K8b of one
+checkout on the card, for an A/B of two commits.
 
 Run from the root of a checkout, naming this file by its path:
   python3 <other checkout>/layoutllm_t2i_torch/cli/f32_timing.py [--reps R]
-      [--only K1 K5a K5b K4 K6 K8a K8b]
+      [--only K1 K5a K5b K4 K6 K7 K8a K8b]
 It times the checkout in the working directory (its port and its
 chip_smoke.py), not the one that holds this file, so one call to the card
 can run it in turns from the roots of two checkouts (parent, change,
@@ -12,8 +12,9 @@ line: the card's name and power limit, and for each main-path shape of
 K1/f32 (the f32 generation's, d 40, 80 and 512, and the f32 trainings',
 with and without the lse), of K5a/f32 and K5b/f32 (the f32 trainings'
 backward: d 40 and 80 at batch 8), of K4/f32 (the f32 generation's and the
-f32 training's), and of K6/f32, K8a/f32 and K8b/f32 (the split routes' f32
-training): the kernel's device ms a call and the wrapper's host us
+f32 training's), of K7/f32 (the f32 int8 generation's), and of K6/f32,
+K8a/f32 and K8b/f32 (the split routes' f32 training): the kernel's device
+ms a call and the wrapper's host us
 (chip_smoke.device_time, the best of R runs), the library call's device
 ms (SDPA, SDPA's whole backward for K5a and K5b, F.linear, or the FF or
 GEGLU as its F.layer_norm / F.linear / F.gelu chain, in f32 with
@@ -48,6 +49,10 @@ K5_F32 = ((8, 4096, 4096, 8, 40), (8, 4126, 4126, 8, 40),
 K4_F32 = tuple((m, k, s) for m, k in ((16384, 320), (4096, 640), (1024, 1280),
                                       (32768, 320), (8192, 640), (2048, 1280))
                for s in (0.5, 1.0))
+# (M, K, s): K7/f32's, the f32 int8 generation's (CFG batch 4) LN + FF
+# sites on int8 weights, s = 1 (norm3) and 0.5 (the fuser)
+K7_F32 = tuple((m, k, s) for m, k in ((16384, 320), (4096, 640), (1024, 1280))
+               for s in (0.5, 1.0))
 # (M, K): K6/f32's, the split routes' norm3 FF sites at batch 8
 K6_F32 = ((32768, 320), (8192, 640), (2048, 1280))
 # (M, K, N): K8a/f32's, the fuser FF down-projections at batch 8
@@ -55,7 +60,7 @@ K8A_F32 = ((32768, 1280, 320), (8192, 2560, 640), (2048, 5120, 1280))
 # (M, K, N): K8b/f32's, the split routes' fuser FF up-projections at batch 8
 K8B_F32 = ((32768, 320, 1280), (8192, 640, 2560), (2048, 1280, 5120))
 CASES = {"K1": K1_F32, "K5a": K5_F32, "K5b": K5_F32, "K4": K4_F32,
-         "K6": K6_F32, "K8a": K8A_F32, "K8b": K8B_F32}
+         "K6": K6_F32, "K7": K7_F32, "K8a": K8A_F32, "K8b": K8B_F32}
 
 
 def pair_row(cs, dq, dkv, case) -> dict:
@@ -78,7 +83,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3,
                     help="device timings a shape (the best is kept)")
     ap.add_argument("--only", nargs="+", choices=tuple(CASES), default=None,
-                    help="the kernels to time (default: all seven)")
+                    help="the kernels to time (default: all eight)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("f32_timing: no CUDA device", file=sys.stderr)

@@ -74,15 +74,15 @@
 //   K6/f32  K4/f32's up kernel on x and its down kernel with r in place of
 //           x and s = 1: (acc + b2) + r, exact as `_ffn_kernel`'s residual
 //           add in x's type (ffn.py:64-67) is in f32;
-//   K7/f32  K4/f32's pre-pass, then ffn_q_up_f32_kernel and
-//           ffn_q_down_f32_kernel on int8 B tiles: f32_tiles.cuh's tile
-//           GEMM gemm_f32 (128 x 64 tiles, 32-deep k steps in a two-stage
-//           cp.async ring, eight warps of 32 x 32, mma.sync, two TF32
-//           products a product, mma2; cp.async moves a quarter of the f32
-//           bytes): a = acc sa + ba, y = acc s2 + b2, out = x + s y, as
-//           `_ffn_ln_q_kernel` (ffn.py:356-368).
+//   K7/f32  K4/f32's pre-pass, then ffn_q_up_f32_wgmma_kernel and
+//           ffn_q_down_f32_wgmma_kernel: K4/f32's two GEMMs on the same
+//           mainloop with int8 B operands (tf32_gemm.cuh Cfg::kQ: TMA
+//           brings the raw bytes, a quarter of the f32 ones, and the
+//           threads convert them to f32 in shared memory a stage ahead;
+//           two TF32 products a product, the int8 values exact in TF32):
+//           a = acc sa + ba in the GegluF32 epilogue, y = acc s2 + b2,
+//           out = x + s y, as `_ffn_ln_q_kernel` (ffn.py:356-368).
 // Bound: operations at the TF32 rate.
-#include "f32_tiles.cuh"
 #include "gemm_tiles.cuh"
 #include "tf32_gemm.cuh"
 
@@ -354,14 +354,16 @@ ffn_norm_rows_f32_kernel(const float* __restrict__ x,
   }
 }
 
-// The down epilogue: out = res + s * (acc + b2), f32; res is K4's x, or
-// K6's r with s = 1
+// The down epilogue: out = res + s * (acc s2 + b2), f32; res is K4's x, or
+// K6's r with s = 1; the per-channel scales s2 (K7's int8 weights)
+// optional
 struct ScaledResidualF32 {
   const float* b2;   // (N,)
   const float* res;  // (M, N)
   float* out;        // (M, N)
   float s;
   int M, N;
+  const float* s2 = nullptr;  // (N,), or null
 
   template <int W>
   __device__ __forceinline__ void operator()(const float (&acc)[W], int row0,
@@ -375,10 +377,14 @@ struct ScaledResidualF32 {
         const int col = n0 + 8 * j + 2 * (lane & 3);
         if (col >= N) continue;  // N % 4 == 0: col + 1 < N too
         const long long i = (long long)row * N + col;
+        float y0 = acc[4 * j + 2 * hr], y1 = acc[4 * j + 2 * hr + 1];
+        if (s2 != nullptr) {
+          y0 *= s2[col];
+          y1 *= s2[col + 1];
+        }
         const float2 r = *reinterpret_cast<const float2*>(res + i);
         *reinterpret_cast<float2*>(out + i) =
-            make_float2(r.x + (acc[4 * j + 2 * hr] + b2[col]) * s,
-                        r.y + (acc[4 * j + 2 * hr + 1] + b2[col + 1]) * s);
+            make_float2(r.x + (y0 + b2[col]) * s, r.y + (y1 + b2[col + 1]) * s);
       }
     }
   }
@@ -455,67 +461,86 @@ int launch_f32_ffn(const float* a, const void* w1, const void* b1,
                    M, K, st, th, tw2, b, r, o, sp, s_val, M, K, inner);
 }
 
-// K7/f32's tile GEMM, f32_tiles.cuh's
-using f32_tiles::f32_gemm_smem;
-using f32_tiles::gemm_f32;
-using f32_tiles::kF32BM;
-using f32_tiles::kF32BN;
-using f32_tiles::kF32Threads;
-
 // ---------------------------------------------------------------------------
-// K7 in f32: K4/f32's GEMMs on int8 B tiles (two TF32 products a product,
-// f32_tiles.cuh mma2), each per-channel scale on its f32 sum
+// K7 in f32: K4/f32's GEMMs on int8 B operands (tf32_gemm.cuh Cfg::kQ: two
+// TF32 products a product), each per-channel scale on its f32 sum
 
-// h = (acc_a sa + ba) * gelu(acc_g sg + bg), acc = xn Q^T, f32
-__global__ void __launch_bounds__(kF32Threads, 2)
-ffn_q_up_f32_kernel(const float* __restrict__ xn,
-                    const int8_t* __restrict__ q1,
-                    const float* __restrict__ s1,
-                    const float* __restrict__ b1, float* __restrict__ h, int M,
-                    int K, int inner) {
-  extern __shared__ __align__(16) float smem_f[];
-  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
-  const int8_t* const B[2] = {q1, q1 + (long long)inner * K};
-  float acc[2][2][4][4];
-  gemm_f32<2>(acc, xn, K, M, B, K, inner, K, m0, n0, smem_f);
-  f32_tiles::for_each_pair(
-      m0, n0, M, inner, [&](int mi, int nt, int r, int row, int col) {
-        float o[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float a = acc[0][mi][nt][2 * r + e] * s1[col + e] + b1[col + e];
-          const float g = acc[1][mi][nt][2 * r + e] * s1[inner + col + e] +
-                          b1[inner + col + e];
-          o[e] = a * gelu_erf(g);
-        }
-        *reinterpret_cast<float2*>(h + (long long)row * inner + col) =
-            make_float2(o[0], o[1]);
-      });
+// the same tiles as K4/f32's: up 128 rows x (64 Qa + 64 Qg) B rows, 36 KB
+// a stage; down 128 x 160 (41 KB) or 80 (29 KB); four stages each
+using QUpF32Cfg = tf32_gemm::Cfg<128, true>;
+using QDownF32Wide = tf32_gemm::Cfg<160, true>;
+using QDownF32Narrow = tf32_gemm::Cfg<80, true>;
+
+// h = (acc_a sa + ba) * gelu(acc_g sg + bg), acc = xn Q^T, f32, 128 x 64
+// tiles of h (M, inner); tqa and tqg map Qa's and Qg's inner rows
+__global__ void __launch_bounds__(QUpF32Cfg::kThreads, 1)
+ffn_q_up_f32_wgmma_kernel(const __grid_constant__ CUtensorMap txn,
+                          const __grid_constant__ CUtensorMap tqa,
+                          const __grid_constant__ CUtensorMap tqg,
+                          const float* __restrict__ s1,
+                          const float* __restrict__ b1, float* __restrict__ h,
+                          int M, int K, int inner) {
+  tf32_gemm::gemm_tile_pair<QUpF32Cfg>(
+      &txn, &tqa, &tqg, K, tf32_gemm::GegluF32{b1, h, M, inner, s1});
 }
 
-// out = x + s * (acc s2 + b2), acc = h Q2^T, f32
-__global__ void __launch_bounds__(kF32Threads, 2)
-ffn_q_down_f32_kernel(const float* __restrict__ h,
-                      const int8_t* __restrict__ q2,
-                      const float* __restrict__ s2,
-                      const float* __restrict__ b2, const float* __restrict__ x,
-                      float* __restrict__ out, const float* __restrict__ s_ptr,
-                      float s_val, int M, int K, int inner) {
-  extern __shared__ __align__(16) float smem_f[];
+// out = x + s * (acc s2 + b2), acc = h Q2^T, f32, tiles of out (M, K)
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+ffn_q_down_f32_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                            const __grid_constant__ CUtensorMap tq2,
+                            const float* __restrict__ s2,
+                            const float* __restrict__ b2,
+                            const float* __restrict__ x,
+                            float* __restrict__ out,
+                            const float* __restrict__ s_ptr, float s_val,
+                            int M, int K, int inner) {
   const float s = s_ptr != nullptr ? *s_ptr : s_val;
-  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
-  const int8_t* const B[1] = {q2};
-  float acc[1][2][4][4];
-  gemm_f32<1>(acc, h, inner, M, B, inner, K, inner, m0, n0, smem_f);
-  f32_tiles::for_each_pair(
-      m0, n0, M, K, [&](int mi, int nt, int r, int row, int col) {
-        const long long i = (long long)row * K + col;
-        const float2 xr = *reinterpret_cast<const float2*>(x + i);
-        const float y0 = acc[0][mi][nt][2 * r] * s2[col] + b2[col];
-        const float y1 = acc[0][mi][nt][2 * r + 1] * s2[col + 1] + b2[col + 1];
-        *reinterpret_cast<float2*>(out + i) =
-            make_float2(xr.x + y0 * s, xr.y + y1 * s);
-      });
+  tf32_gemm::gemm_tile<C>(&th, &tq2, inner,
+                          ScaledResidualF32{b2, x, out, s, M, K, s2});
+}
+
+// K7/f32's up and down GEMMs on `st`: h = GEGLU((xn Q1^T) s1 + b1), then
+// out = x + s ((h Q2^T) s2 + b2); the int8 maps take 32-column boxes
+int launch_q_f32_ffn(const float* xn, const void* q1, const void* s1,
+                     const void* b1, const void* q2, const void* s2,
+                     const void* b2, const void* x, float* h, void* out,
+                     const void* s_ptr, float s_val, int M, int K, int inner,
+                     cudaStream_t st) {
+  const int8_t* qa = static_cast<const int8_t*>(q1);
+  const bool narrow =
+      gemm_tiles::pick_narrow(M, K, QDownF32Wide::kBN, QDownF32Narrow::kBN);
+  constexpr int kBox = tf32_gemm::kBK;
+  CUtensorMap ta, tqa, tqg, th, tq2;
+  int err = tensor_map_2d_f32(&ta, xn, M, K, tf32_gemm::kBM);
+  if (err == 0)
+    err = tensor_map_2d(&tqa, qa, inner, K, QUpF32Cfg::kBN / 2, true, kBox);
+  if (err == 0)
+    err = tensor_map_2d(&tqg, qa + (long long)inner * K, inner, K,
+                        QUpF32Cfg::kBN / 2, true, kBox);
+  if (err == 0) err = tensor_map_2d_f32(&th, h, M, inner, tf32_gemm::kBM);
+  if (err == 0)
+    err = tensor_map_2d(&tq2, q2, K, inner,
+                        narrow ? QDownF32Narrow::kBN : QDownF32Wide::kBN, true,
+                        kBox);
+  if (err != 0) return err;
+  // the up grid: 2 inner B rows in tiles of 128, 64 h columns each
+  err = tf32_gemm::launch<QUpF32Cfg, ffn_q_up_f32_wgmma_kernel>(
+      M, 2 * inner, st, ta, tqa, tqg, static_cast<const float*>(s1),
+      static_cast<const float*>(b1), h, M, K, inner);
+  if (err != 0) return err;
+  const float* sc = static_cast<const float*>(s2);
+  const float* b = static_cast<const float*>(b2);
+  const float* r = static_cast<const float*>(x);
+  float* o = static_cast<float*>(out);
+  const float* sp = static_cast<const float*>(s_ptr);
+  return narrow
+             ? tf32_gemm::launch<QDownF32Narrow,
+                                 ffn_q_down_f32_wgmma_kernel<QDownF32Narrow>>(
+                   M, K, st, th, tq2, sc, b, r, o, sp, s_val, M, K, inner)
+             : tf32_gemm::launch<QDownF32Wide,
+                                 ffn_q_down_f32_wgmma_kernel<QDownF32Wide>>(
+                   M, K, st, th, tq2, sc, b, r, o, sp, s_val, M, K, inner);
 }
 
 // LN(x) of every row in f32 into xn on `st`
@@ -637,7 +662,7 @@ LLT2I_API int llt2i_ffn_geglu_f32(const void* x, const void* w1,
 // K7 in f32. x, out, lnw, lnb, b1, b2 f32 as K4/f32's; q1: (2*inner, K)
 // int8; s1: (2*inner,) f32; q2: (K, inner) int8; s2: (K,) f32; hbuf: (M,
 // inner + K) f32 scratch, h then LN(x). K % 16 == 0 and inner % 16 == 0
-// (16-byte int8 chunks); x, lnw, lnb, q1, q2 and hbuf 16-byte aligned, s1,
+// (TMA: 16-byte int8 rows); x, lnw, lnb, q1, q2 and hbuf 16-byte aligned, s1,
 // s2, b1 and b2 4-byte, out 8-byte.
 LLT2I_API int llt2i_ffn_ln_geglu_q_f32(const void* x, const void* lnw,
                                        const void* lnb, const void* q1,
@@ -651,26 +676,8 @@ LLT2I_API int llt2i_ffn_ln_geglu_q_f32(const void* x, const void* lnw,
   if (K % 16 || inner % 16) return (int)cudaErrorInvalidValue;
   float* h = static_cast<float*>(hbuf);
   float* xn = h + (long long)M * inner;
-  int err = launch_norm_f32(x, lnw, lnb, xn, M, K, eps, st);
+  const int err = launch_norm_f32(x, lnw, lnb, xn, M, K, eps, st);
   if (err != 0) return err;
-  static unsigned long long up_set = 0, down_set = 0;
-  constexpr size_t kUp = f32_gemm_smem<2>();
-  constexpr size_t kDown = f32_gemm_smem<1>();
-  err = allow_smem(ffn_q_up_f32_kernel, kUp, up_set);
-  if (err == 0) err = allow_smem(ffn_q_down_f32_kernel, kDown, down_set);
-  if (err != 0) return err;
-  const int mt = (M + kF32BM - 1) / kF32BM;
-  ffn_q_up_f32_kernel<<<dim3((inner + kF32BN - 1) / kF32BN, mt), kF32Threads,
-                        kUp, st>>>(
-      xn, static_cast<const int8_t*>(q1), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), h, M, K, inner);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  ffn_q_down_f32_kernel<<<dim3((K + kF32BN - 1) / kF32BN, mt), kF32Threads,
-                          kDown, st>>>(
-      h, static_cast<const int8_t*>(q2), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<const float*>(x),
-      static_cast<float*>(out), static_cast<const float*>(s_ptr), s_val, M, K,
-      inner);
-  return (int)cudaGetLastError();
+  return launch_q_f32_ffn(xn, q1, s1, b1, q2, s2, b2, x, h, out, s_ptr, s_val,
+                          M, K, inner, st);
 }

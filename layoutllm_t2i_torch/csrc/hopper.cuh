@@ -706,19 +706,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (cols, rows) map of a row-major (rows, cols) matrix: boxes of 64
-// columns by box_rows rows, zeros past the last row and column. bf16 in
-// 128-byte swizzled boxes (one swizzle chunk), or with `is_int8` its bytes
-// mapped as CU_TENSOR_MAP_DATA_TYPE_UINT8 (the tensor map has no signed
-// byte type; the bytes are the same) in unswizzled 64-byte boxes. The base
-// must be 16-byte aligned and a row a multiple of 16 bytes.
+// A (cols, rows) map of a row-major (rows, cols) matrix: boxes of box_cols
+// columns (64 unless given) by box_rows rows, zeros past the last row and
+// column. bf16 in 128-byte swizzled boxes of 64 columns (one swizzle
+// chunk), or with `is_int8` its bytes mapped as
+// CU_TENSOR_MAP_DATA_TYPE_UINT8 (the tensor map has no signed byte type;
+// the bytes are the same) in unswizzled boxes of box_cols bytes a row (K7
+// bf16: 64; K7/f32: 32, a TF32 stage's depth). The base must be 16-byte
+// aligned and a row a multiple of 16 bytes.
 inline int tensor_map_2d(CUtensorMap* map, const void* base, int rows,
-                         int cols, int box_rows, bool is_int8 = false) {
+                         int cols, int box_rows, bool is_int8 = false,
+                         int box_cols = 64) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * (is_int8 ? 1 : 2)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
   CUresult r = encode(
       map,

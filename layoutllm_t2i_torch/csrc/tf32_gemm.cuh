@@ -1,21 +1,24 @@
 // The TF32 wgmma mainloop of the f32 GEMM forms (sm_90a): f32 accuracy
-// (3xTF32, csrc/f32_tiles.cuh) on warp-specialised wgmma fed by a TMA
-// ring. K8a/f32 (matmul.cu linear_f32_wgmma_kernel), K8b/f32 (matmul.cu
-// geglu_f32_wgmma_kernel) and the up and down GEMMs of K4/f32 and K6/f32
-// (ffn.cu ffn_up_f32_wgmma_kernel, ffn_down_f32_wgmma_kernel) run on it;
-// the GEGLU GEMMs (K4/f32's and K6/f32's up, K8b/f32) share its GegluF32
-// epilogue. K7/f32 stays on f32_tiles.cuh's gemm_f32, and K1/f32 (csrc/
-// flash_attention.cu) on TF32 wgmma of its own with this file's split.
+// (3xTF32, csrc/f32_tiles.cuh) on wgmma fed by a TMA ring. K8a/f32
+// (matmul.cu linear_f32_wgmma_kernel), K8b/f32 (matmul.cu
+// geglu_f32_wgmma_kernel), the up and down GEMMs of K4/f32 and K6/f32
+// (ffn.cu ffn_up_f32_wgmma_kernel, ffn_down_f32_wgmma_kernel) and, on int8
+// weights (Cfg::kQ), those of K7/f32 (ffn_q_up_f32_wgmma_kernel,
+// ffn_q_down_f32_wgmma_kernel) run on it; the GEGLU GEMMs (K4/f32's,
+// K6/f32's and K7/f32's up, K8b/f32) share its GegluF32 epilogue. K1/f32
+// (csrc/flash_attention.cu) runs TF32 wgmma of its own with this file's
+// split.
 //
 // Every product is A B^T with both operands row-major over the
 // contraction: A (M, K) activations, B (N, K) weights in the torch (out,
 // in) layout. wgmma reads .tf32 operands K-major only, which both are.
 //
 // What bounds it on the H100: operations, three TF32 products for each f32
-// one (hi*hi + hi*lo + lo*hi; 495 TFLOP/s dense TF32), and the shared
-// memory the tensor cores read them from. So A never goes through shared
-// memory as a wgmma operand: it is the register A of wgmma, B alone is read
-// by the tensor cores, and each operand is split into hi and lo once.
+// one (hi*hi + hi*lo + lo*hi; 495 TFLOP/s dense TF32), two against int8
+// weights, and the shared memory the tensor cores read them from. So A
+// never goes through shared memory as a wgmma operand: it is the register
+// A of wgmma, B alone is read by the tensor cores, and each operand is
+// split into hi and lo once.
 //
 // Design: one block of two warpgroups (eight warps), one 128 x kBN output
 // tile a block; warpgroup g owns rows 64 g .. 64 g + 63.
@@ -34,24 +37,32 @@
 //    lo = tf32(x - hi) into the stage's lo tile at the same offset (the
 //    swizzle is the same in both), fences the async proxy, and the block
 //    meets at a named barrier before stage t + 1's products.
+//  * int8 B (Cfg::kQ, K7/f32's weights): TMA brings the raw bytes, 32 a
+//    row, unswizzled, into the stage's staging area (a quarter of the f32
+//    bytes), and the split above becomes a conversion, by the same threads
+//    at the same point: 16 bytes read, 16 f32 values written at their
+//    sw128_f32 offsets of the B tile, each the value the signed byte is.
+//    An int8 value is exact in TF32, so B needs no lo part, and a product
+//    is two TF32 products, a_lo q + a_hi q, with the accuracy of 3xTF32.
+//    The per-channel scales stay in the epilogue, on the f32 sums.
 //  * Per stage each thread reads its A fragments (four values a k step, the
 //    register A map of hopper.cuh) from the raw A tile and splits them in
 //    registers: an A value is read and split by one thread only. Then 12
-//    wgmma m64nkBNk8: the small terms lo*hi and hi*lo of the four k steps
-//    first, then hi*hi, into a fresh accumulator zeroed by the first
-//    product's scale-d, which is added to the running f32 sum with
-//    round-to-nearest adds. The tensor cores truncate where they add into
-//    their accumulator, so one accumulator over the whole contraction would
-//    drift toward zero by up to an ulp of the sum a step (as mma.sync's
-//    does); a fresh one a stage keeps each truncation
-//    relative to a 32-deep partial.
+//    wgmma m64nkBNk8 (8 with kQ): the small terms lo*hi and hi*lo of the
+//    four k steps first (with kQ lo*q), then hi*hi (hi*q), into a fresh
+//    accumulator zeroed by the first product's scale-d, which is added to
+//    the running f32 sum with round-to-nearest adds. The tensor cores
+//    truncate where they add into their accumulator, so one accumulator
+//    over the whole contraction would drift toward zero by up to an ulp of
+//    the sum a step; a fresh one a stage keeps each truncation relative to
+//    a 32-deep partial.
 //  * Registers: the running sum and the fresh one (kBN / 2 each), the
 //    split A fragments and a stage's B split take ~230 a thread at kBN =
 //    160. ptxas allocates one count for the whole kernel, bounded by the
 //    register file of an SM's four sub-partitions, 16,384 each, across the
 //    warps each holds: 255 at eight warps, 168 at nine to twelve
 //    (setmaxnreg moves registers between warpgroups at run time only). So
-//    no warp is set aside to load or split.
+//    no warp is set aside to load, split or convert.
 //  * The epilogue is the caller's functor on the f32 sums (hopper.cuh's
 //    accumulator map: rows row0 and row0 + 8, columns 8 j + 2 (lane % 4) +
 //    {0, 1}), masked at the ragged M and N edges. Each output is summed by
@@ -67,13 +78,22 @@ namespace tf32_gemm {
 constexpr int kBM = 128;  // output rows a block: 64 a consumer warpgroup
 constexpr int kBK = 32;   // contraction depth a stage: one swizzle row
 
-template <int kBN_>
+// kBN: output columns a block; kQ: the B operands are int8, converted to
+// f32 in shared memory
+template <int kBN_, bool kQ_ = false>
 struct Cfg {
   static constexpr int kBN = kBN_;
+  static constexpr bool kQ = kQ_;
   static constexpr int kThreads = 256;  // two warpgroups
   static constexpr uint32_t kABytes = kBM * 128;  // a stage's A slice
-  static constexpr uint32_t kBBytes = kBN * 128;  // its B slice (then B hi)
-  static constexpr uint32_t kStageBytes = kABytes + 2 * kBBytes;  // + B lo
+  static constexpr uint32_t kBBytes = kBN * 128;  // its f32 B slice (B hi)
+  // then B lo, or the int8 bytes TMA brings (32 a row, unswizzled)
+  static constexpr uint32_t kLoBytes = kQ ? 0 : kBBytes;
+  static constexpr uint32_t kQBytes = kQ ? kBN * kBK : 0;
+  // whole 1 KB swizzle atoms, so that every stage's A and B start on one
+  static constexpr uint32_t kStageBytes =
+      (kABytes + kBBytes + kLoBytes + kQBytes + 1023) / 1024 * 1024;
+  static constexpr uint32_t kTxBytes = kABytes + (kQ ? kQBytes : kBBytes);
   // as many stages as fit beside 1 KB of alignment slack and the mbarriers
   // ("full", "empty"), at most 4
   static constexpr int kStages =
@@ -125,6 +145,37 @@ __device__ __forceinline__ void split_tile(float4* p, float4* lo, int pieces,
   }
 }
 
+// four int8 values (lowest address first) as the floats they are: each
+// byte, offset to unsigned, becomes the low byte of the f32 2^23 + u, and
+// subtracting 2^23 + 128 leaves the signed value exactly
+__device__ __forceinline__ float4 s8x4_to_f32(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + j)) -
+           8388736.f;
+  return make_float4(f[0], f[1], f[2], f[3]);
+}
+
+// kRows rows of 32 int8 values at q (32 bytes a row, as TMA writes an
+// unswizzled box) as f32 values into b, 32 a row in the 128-byte swizzle;
+// thread ct of kThreadsConv, 16 bytes (half a row) a step. A warp's stores
+// of one piece index fall in eight distinct 16-byte bank groups.
+template <int kRows, int kThreadsConv>
+__device__ __forceinline__ void convert_q(unsigned char* b,
+                                          const unsigned char* q, int ct) {
+  for (int p = ct; p < 2 * kRows; p += kThreadsConv) {
+    const uint4 w = reinterpret_cast<const uint4*>(q)[p];
+    const int r = p >> 1, c = 16 * (p & 1);
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(b + sw128_f32(r, c + 4 * j)) =
+          s8x4_to_f32(words[j]);
+  }
+}
+
 // gemm_tile's and gemm_tile_pair's body: with kPairB, stage t's B tile is
 // tb's rows r .. r + kBN / 2 - 1 over tb2's same rows (r = kBN / 2
 // blockIdx.x), else tb's rows n0 .. n0 + kBN - 1
@@ -145,28 +196,36 @@ __device__ __forceinline__ void tile_loop(const CUtensorMap* ta,
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * C::kBN;
   const int steps = (K + kBK - 1) / kBK;
+  // TMA's B bytes: the f32 B tile, or with kQ the int8 staging after it
+  constexpr uint32_t kBDst = C::kABytes + (C::kQ ? C::kBBytes : 0);
+  constexpr uint32_t kBHalf = (C::kQ ? C::kQBytes : C::kBBytes) / 2;
   auto load = [&](int t) {
     const int s = t % S;
     const uint32_t st = ring + s * C::kStageBytes;
-    mbar_expect_tx(full + 8 * s, C::kABytes + C::kBBytes);
+    mbar_expect_tx(full + 8 * s, C::kTxBytes);
     tma_load_2d(st, ta, full + 8 * s, kBK * t, m0);
     if constexpr (kPairB) {
       const int r = C::kBN / 2 * blockIdx.x;
-      tma_load_2d(st + C::kABytes, tb, full + 8 * s, kBK * t, r);
-      tma_load_2d(st + C::kABytes + C::kBBytes / 2, tb2, full + 8 * s,
-                  kBK * t, r);
+      tma_load_2d(st + kBDst, tb, full + 8 * s, kBK * t, r);
+      tma_load_2d(st + kBDst + kBHalf, tb2, full + 8 * s, kBK * t, r);
     } else {
-      tma_load_2d(st + C::kABytes, tb, full + 8 * s, kBK * t, n0);
+      tma_load_2d(st + kBDst, tb, full + 8 * s, kBK * t, n0);
     }
   };
-  // this thread's share of stage t's B split, fenced for wgmma's reads
-  auto split_b = [&](int t) {
+  // this thread's share of stage t's B split (with kQ: its conversion),
+  // fenced for wgmma's reads
+  auto prep_b = [&](int t) {
     const int s = t % S;
     mbar_wait(full + 8 * s, (t / S) & 1);
-    float4* hi = reinterpret_cast<float4*>(
-        smem_raw + (ring + s * C::kStageBytes + C::kABytes - base));
-    split_tile<C::kThreads>(hi, hi + C::kBBytes / 16, C::kBBytes / 16,
-                            threadIdx.x);
+    unsigned char* b =
+        smem_raw + (ring + s * C::kStageBytes + C::kABytes - base);
+    if constexpr (C::kQ) {
+      convert_q<C::kBN, C::kThreads>(b, b + C::kBBytes, threadIdx.x);
+    } else {
+      float4* hi = reinterpret_cast<float4*>(b);
+      split_tile<C::kThreads>(hi, hi + C::kBBytes / 16, C::kBBytes / 16,
+                              threadIdx.x);
+    }
     fence_proxy_async();
   };
 
@@ -185,7 +244,7 @@ __device__ __forceinline__ void tile_loop(const CUtensorMap* ta,
   float acc[C::kBN / 2], part[C::kBN / 2];
 #pragma unroll
   for (int j = 0; j < C::kBN / 2; ++j) acc[j] = 0.f;
-  split_b(0);
+  prep_b(0);
   named_bar_sync(1, C::kThreads);
 
   for (int t = 0; t < steps; ++t) {
@@ -196,18 +255,25 @@ __device__ __forceinline__ void tile_loop(const CUtensorMap* ta,
     for (int kk = 0; kk < 4; ++kk)
       a_frag_split(ah[kk], al[kk], smem_raw + (st - base), r0, kk, lane);
     __syncwarp();  // converged again for the warpgroup-wide wgmma
-    const uint32_t bh = st + C::kABytes, bl = bh + C::kBBytes;
+    const uint32_t bh = st + C::kABytes;  // B hi (with kQ: B)
     wgmma_fence();
+    if constexpr (C::kQ) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs_tf32(part, al[kk], sw128_desc(bh + 32 * kk, 16), kk > 0);
-      wgmma_rs_tf32(part, ah[kk], sw128_desc(bl + 32 * kk, 16), 1);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_tf32(part, al[kk], sw128_desc(bh + 32 * kk, 16), kk > 0);
+    } else {
+      const uint32_t bl = bh + C::kBBytes;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_tf32(part, al[kk], sw128_desc(bh + 32 * kk, 16), kk > 0);
+        wgmma_rs_tf32(part, ah[kk], sw128_desc(bl + 32 * kk, 16), 1);
+      }
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs_tf32(part, ah[kk], sw128_desc(bh + 32 * kk, 16), 1);
     wgmma_commit();
-    if (t + 1 < steps) split_b(t + 1);  // while the tensor cores run
+    if (t + 1 < steps) prep_b(t + 1);  // while the tensor cores run
     wgmma_wait_all();
     fence_regs(part);
     fence_regs(ah);
@@ -221,7 +287,7 @@ __device__ __forceinline__ void tile_loop(const CUtensorMap* ta,
 #pragma unroll
     for (int j = 0; j < C::kBN / 2; ++j) acc[j] += part[j];
     __syncwarp();
-    if (t + 1 < steps) named_bar_sync(1, C::kThreads);  // stage t + 1 split
+    if (t + 1 < steps) named_bar_sync(1, C::kThreads);  // stage t + 1 ready
   }
   epi(acc, blockIdx.y * kBM + r0, n0, lane);
 }
@@ -229,7 +295,8 @@ __device__ __forceinline__ void tile_loop(const CUtensorMap* ta,
 // One block's tile: acc = A[m0 : m0 + 128] B[n0 : n0 + kBN]^T over the
 // whole contraction K (m0 = 128 blockIdx.y, n0 = kBN blockIdx.x), then
 // epi(acc, row0, n0, lane) on every consumer thread. ta and tb are
-// tensor_map_2d_f32 maps of A (boxes of kBM rows) and B (kBN rows). Launch
+// tensor_map_2d_f32 maps of A (boxes of kBM rows) and B (kBN rows); with
+// C::kQ, tb is an int8 tensor_map_2d map with boxes of 32 columns. Launch
 // with C::kThreads threads and C::kSmemBytes of dynamic shared memory.
 template <class C, class Epi>
 __device__ __forceinline__ void gemm_tile(const CUtensorMap* ta,
@@ -255,13 +322,16 @@ __device__ __forceinline__ void gemm_tile_pair(const CUtensorMap* ta,
 }
 
 // The GEGLU epilogue of gemm_tile_pair<Cfg<128>> (K4/f32's and K6/f32's
-// up GEMM, K8b/f32): groups j < 8 of acc are A Wa^T, groups j + 8 A Wg^T
-// at the same h columns n0 / 2 + 8 j + 2 (lane % 4) + {0, 1}; h = (a + ba)
-// * gelu_erf(g + bg) in f32, the bias b = [ba; bg] optional
+// up GEMM, K8b/f32) and of gemm_tile_pair<Cfg<128, true>> (K7/f32's):
+// groups j < 8 of acc are A Wa^T, groups j + 8 A Wg^T at the same h
+// columns n0 / 2 + 8 j + 2 (lane % 4) + {0, 1}; h = (a sa + ba) *
+// gelu_erf(g sg + bg) in f32, the bias b = [ba; bg] and the per-channel
+// scales s = [sa; sg] (int8 weights) optional
 struct GegluF32 {
   const float* b;  // (2 inner,) = [ba; bg], or null
   float* h;        // (M, inner)
   int M, inner;
+  const float* s = nullptr;  // (2 inner,) = [sa; sg], or null
 
   __device__ __forceinline__ void operator()(const float (&acc)[64], int row0,
                                              int n0, int lane) const {
@@ -277,6 +347,10 @@ struct GegluF32 {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float a = acc[4 * j + 2 * hr + e], g = acc[4 * (j + 8) + 2 * hr + e];
+          if (s != nullptr) {
+            a *= s[col + e];
+            g *= s[inner + col + e];
+          }
           if (b != nullptr) {
             a += b[col + e];
             g += b[inner + col + e];

@@ -12,9 +12,11 @@
 * K7 ``ffn_ln_geglu_q``: K4 with int8 weights and per-output-channel f32
   scales applied after each dot. Replaces ``_ffn_ln_q_call`` /
   ``_ffn_ln_q_kernel`` (``ffn_ln_geglu_scaled_q``). bf16 or f32
-  activations (``llt2i_ffn_ln_geglu_q_f32``: two TF32 products against
-  the int8 values, which TF32 holds exactly); its LN parameters and biases
-  in x's type, its int8 values and f32 scales as they are.
+  activations (``llt2i_ffn_ln_geglu_q_f32``: K4/f32's TF32 wgmma GEMMs
+  with the int8 weight tiles converted to f32 in shared memory, two TF32
+  products against the int8 values, which TF32 holds exactly); its LN
+  parameters and biases in x's type, its int8 values and f32 scales as
+  they are.
 
 Each wrapper picks its C entry from ``operand_dtype(x)`` and counts the f32
 form's launches in ``f32_launches`` beside ``launches``.

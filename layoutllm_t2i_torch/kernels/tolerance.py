@@ -97,6 +97,13 @@ rows, a fresh accumulator never zeroed or a stage summed against the
 previous stage's B lo, in either GEMM, 5.2e-5 to 4.8; one accumulator over
 the down product's 5120-deep contraction 2.6e-5 to 2.8e-5 (x of rms 1, s =
 1), past the 2e-5 bound (``tests/test_torch_f32_kernels.py``).
+K7/f32 runs K4/f32's two GEMMs on the same mainloop's int8 B mode (its
+weight bytes converted to f32 in shared memory, two products a product)
+and keeps its row: the emulation lies at most 2.2e-7 of rms(b) off; bytes
+converted as unsigned, a gate box read at Qa's rows, a fresh accumulator
+never zeroed or a stage converted from the previous stage's bytes 0.24 to
+3.8; one accumulator over a 5120-deep down product 1.6e-5, inside the row
+(``tests/test_torch_f32_kernels.py``).
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels to
 these numbers; ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_quant.py`` show on the CPU that they pass the kernels'

@@ -26,7 +26,8 @@ for K4's, K6's, K8a's and K8b's TMA and wgmma design (gemm_tiles.cuh;
 K8b with and without its bias), ragged M, N and K, the grid-fill shape,
 operands fenced by NaN and Inf, outputs and scratch pre-filled with NaN,
 bitwise repeatability and misaligned operands; the f32 forms of K6, K7,
-K8a and K8b (K7 and K8b on f32_tiles.cuh's tile GEMM) at ragged shapes and
+K8a and K8b (all on tf32_gemm.cuh's TF32 wgmma mainloop, K7 with int8 B
+operands) at ragged shapes and
 at the f32 generation's and split-route training's shapes, with and
 without K8a's bias and residual and K8b's bias, K7's s as a device tensor,
 two launches agreeing bit for bit, the size rules and the gradients of the
@@ -1039,7 +1040,7 @@ def test_f32_products_sum_in_round_to_nearest(dev, gen, f32):
     # the longest sums of the training path: PV over 4096 keys (K1 at d
     # 40) and K4's down product over inner = 5120. Each 3xTF32 step or
     # stage adds into its accumulator in round-to-nearest f32
-    # (f32_tiles.cuh mma3, tf32_gemm.cuh's fresh accumulator a stage):
+    # (a fresh accumulator a tile or stage, tf32_gemm.cuh's and K1/f32's):
     # chained through the tensor cores' truncating C operand instead, the
     # same kernels read 2.9e-5 and 3.0e-5 of rms(b) at these sites'
     # batch-8 shapes (PERF.md §6), K1 within its stated bound; the
@@ -1555,9 +1556,9 @@ def test_reward_model_on_the_card_matches_its_plain_route(dev):
 
 
 # ---------------------------------------------------------------------------
-# the f32 forms of K6, K7, K8a and K8b (3xTF32: K6 and K8a on TF32 wgmma,
-# K8b on f32_tiles.cuh's tile GEMM; K7 two TF32 products against its int8
-# weights on the tile GEMM), against the plain versions in full f32
+# the f32 forms of K6, K7, K8a and K8b, all on tf32_gemm.cuh's TF32 wgmma
+# mainloop (3xTF32; K7 two TF32 products against its int8 weights,
+# converted to f32 in shared memory), against the plain versions in full f32
 
 
 def _f32(*tensors):
@@ -1593,17 +1594,92 @@ def test_ffn_geglu_f32_repeats_bit_for_bit(dev, gen, f32):
 
 
 # K % 16 and inner % 16 as in bf16: K = 80 ends the up GEMM in a 16-deep
-# step, inner = 208 h in a partial tile; M = 16384, 4096 and 1024 are the
-# f32 int8 generation's sites
+# step, inner = 208 h in a partial tile (Qa's and Qg's maps each in a
+# ragged box); M = 16384, 4096 and 1024 are the f32 int8 generation's
+# sites, and at M = 1024, K = 1280 the down GEMM takes 80-wide tiles
 @pytest.mark.parametrize("m,k,inner", [(100, 80, 208), (1054, 1280, 5120),
-                                       (16384, 320, 1280), (4096, 640, 2560)])
+                                       (16384, 320, 1280), (4096, 640, 2560),
+                                       (1024, 1280, 5120)])
 @pytest.mark.parametrize("scale", [1.0, "tensor"])
 def test_ffn_ln_geglu_q_f32(dev, gen, f32, m, k, inner, scale):
-    args = _k7_args(gen, m, k, inner, scale)
-    for i in (0, 1, 2, 5, 8):     # x, LN parameters and biases in f32
-        args[i] = args[i].float()
+    args = _k7_f32_args(gen, m, k, inner, scale)
     _check_f32("K7", lambda: K.ffn_ln_geglu_q(*args),
                lambda: K.ffn_ln_geglu_q_plain(*args), K.ffn_ln_geglu_q)
+
+
+def _k7_f32_args(gen, m, k, inner, scale=0.37):
+    """K7/f32's operands: ``_k7_args`` with x, the LN parameters and the
+    biases in f32."""
+    args = _k7_args(gen, m, k, inner, scale)
+    for i in (0, 1, 2, 5, 8):
+        args[i] = args[i].float()
+    return args
+
+
+# K7/f32 on the TF32 wgmma mainloop with int8 B operands (tf32_gemm.cuh
+# Cfg::kQ: 32-byte TMA boxes converted in shared memory): a ragged M, a
+# contraction ending in a 16-deep stage (K = 80), h ending in a partial
+# tile (inner = 208), both down widths' grids (M = 1054: 160 wide)
+
+
+@pytest.mark.parametrize("m,k,inner", K7_RAGGED)
+def test_ffn_ln_geglu_q_f32_never_reads_outside_its_operands(dev, gen, f32, m,
+                                                              k, inner):
+    # the int8 weights between 16 bytes of 0x7f and 4096 more: a map whose
+    # dims ran past K or inner would sum them in; x, the LN parameters,
+    # biases and scales between NaN and Inf fences
+    args = _k7_f32_args(gen, m, k, inner)
+    fenced = []
+    for a in args:
+        if not isinstance(a, torch.Tensor):
+            fenced.append(a)
+        elif a.dtype == torch.int8:
+            buf = torch.full((16 + a.numel() + 4096,), 127, device=dev,
+                             dtype=torch.int8)
+            view = buf[16:16 + a.numel()].view(a.shape)
+            view.copy_(a)
+            fenced.append(view)
+        else:
+            fenced.append(_fenced_flat(a))
+    _check_f32("K7", lambda: K.ffn_ln_geglu_q(*fenced),
+               lambda: K.ffn_ln_geglu_q_plain(*args), K.ffn_ln_geglu_q)
+
+
+@pytest.mark.parametrize("m,k,inner", K7_RAGGED)
+def test_ffn_ln_geglu_q_f32_writes_only_its_outputs(dev, gen, f32, m, k,
+                                                     inner):
+    # through the C entry point into an output and a scratch (h, then
+    # LN(x), f32) filled with NaN, each followed by NaN guards: every output
+    # element is written, nothing past either buffer
+    x, lw, lb, q1, s1, b1, q2, s2, b2, s = _k7_f32_args(gen, m, k, inner)
+    guard = 4096
+    nan = lambda n: torch.full((n + guard,), float("nan"), device=dev,
+                               dtype=torch.float32)
+    out, hbuf = nan(m * k), nan(m * (inner + k))
+    check(lib("ffn").llt2i_ffn_ln_geglu_q_f32(
+        x.data_ptr(), lw.data_ptr(), lb.data_ptr(), q1.data_ptr(),
+        s1.data_ptr(), b1.data_ptr(), q2.data_ptr(), s2.data_ptr(),
+        b2.data_ptr(), hbuf.data_ptr(), out.data_ptr(), None, s, m, k, inner,
+        1e-5, stream_handle(x.get_device())), "ffn_ln_geglu_q_f32")
+    torch.cuda.synchronize()
+    assert bool(out[-guard:].isnan().all()) and bool(hbuf[-guard:].isnan().all())
+    got = agreement("K7/f32", out[:-guard].view(m, k),
+                    K.ffn_ln_geglu_q_plain(x, lw, lb, q1, s1, b1, q2, s2, b2, s))
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("m,k,inner", [(1054, 80, 208), (16384, 320, 1280),
+                                       (1024, 1280, 5120)])
+def test_ffn_ln_geglu_q_f32_is_bitwise_repeatable(dev, gen, f32, m, k, inner):
+    # one thread sums each output element in a fixed order, and a stage's
+    # B tile is converted only after every warp's products of the stage
+    # that last held it have completed: launches agree bit for bit (a tile
+    # rewritten too early would not)
+    args = _k7_f32_args(gen, m, k, inner)
+    runs = [K.ffn_ln_geglu_q(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], run) for run in runs[1:])
+    assert torch.isfinite(runs[0]).all()
 
 
 @pytest.mark.parametrize("m,k,n", [(100, 1280, 320), (2048, 5120, 1280),

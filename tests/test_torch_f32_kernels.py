@@ -2,30 +2,30 @@
 stated tolerances against CPU emulations of the kernels' arithmetic, and
 the plain versions against the Pallas kernels at the f32 block choices.
 
-The CUDA kernels run only on the card. Their f32 products are 3xTF32, on
-TF32 wgmma (K1, K5a, K5b; ``csrc/tf32_gemm.cuh``: K4, K6, K8a and K8b) or
-on mma.sync (``csrc/f32_tiles.cuh``: K7): each operand split into
-hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties away, to 10
-mantissa bits, as
-``cvt.rna.tf32.f32``), three TF32 products hi*hi + hi*lo + lo*hi summed in
-f32. The emulations below repeat that split and each kernel's tiling
-(K1's online softmax over K/V tiles with P in f32, S's chain and each
-tile's P V truncating into a fresh accumulator, K5's stages and output
-products at its tiles, with its transposed operands at P's slots, the tile
-GEMM's 32-deep k steps and 128-row blocks, the wgmma mainloop's 32-deep
-stages truncating into a fresh accumulator, f32 LN(x) and h): they must
-pass the f32 rows of ``kernels/tolerance.py`` against the plain versions,
-and a single TF32 pass (operands rounded once: a different function, about
-4e-4 off), a dropped ragged K/V tail or k step, a missing rescale, K4's s
-applied after the residual, K6's residual added twice, K8a's bias dropped,
-K4's, K6's and K8b's gate read from Wa's rows, a stale B lo or V stage,
-V^T's keys off P's permuted k, K1's partial last chunk of d dropped, an
-unzeroed fresh accumulator or one accumulator over the 5120-deep down
-product, K5's transposed operands off the slots, a stale K5 stage, and
-K7's scale missing or folded into its weights before the dot must fail
-them (one K5 accumulator over the whole stream stays inside its row at
-the main path's lengths, tested as such). K7's weights are int8, exact in TF32 (tested), so its
-products are two TF32 passes, a_hi q + a_lo q.
+The CUDA kernels run only on the card. Their f32 products are 3xTF32 on
+TF32 wgmma (K1, K5a, K5b; ``csrc/tf32_gemm.cuh``: K4, K6, K8a and K8b):
+each operand split into hi = tf32(x) and lo = tf32(x - hi) (round to
+nearest, ties away, to 10 mantissa bits, as ``cvt.rna.tf32.f32``), three
+TF32 products hi*hi + hi*lo + lo*hi summed in f32. K7's weights are int8,
+exact in TF32 (tested), so on the same mainloop's int8 B mode its products
+are two TF32 passes, a_lo q + a_hi q. The emulations below repeat that
+split and each kernel's tiling (K1's online softmax over K/V tiles with P
+in f32, S's chain and each tile's P V truncating into a fresh accumulator,
+K5's stages and output products at its tiles, with its transposed operands
+at P's slots, the wgmma mainloop's 32-deep stages truncating into a fresh
+accumulator, f32 LN(x) and h): they must pass the f32 rows of
+``kernels/tolerance.py`` against the plain versions, and a single TF32
+pass (operands rounded once: a different function, about 4e-4 off), a
+dropped ragged K/V tail or k step, a missing rescale, K4's s applied after
+the residual, K6's residual added twice, K8a's bias dropped, K4's, K6's,
+K7's and K8b's gate read from the first half's rows, a stale B lo, int8 B
+or V stage, V^T's keys off P's permuted k, K1's partial last chunk of d
+dropped, an unzeroed fresh accumulator or one accumulator over the
+5120-deep down product (K4, K6), K5's transposed operands off the slots, a
+stale K5 stage, K7's bytes converted as unsigned, and K7's scale missing or
+folded into its weights before the dot must fail them (one K5 accumulator
+over the whole stream, and one K7 accumulator over the down product, stay
+inside their rows at the main path's lengths, tested as such).
 
 The Pallas kernels run in interpret mode, as the JAX package's own tests
 run them, at the shapes where f32 picks other blocks than bf16 (K4's
@@ -59,6 +59,7 @@ from layoutllm_t2i_torch.kernels.tolerance import TOLERANCE, agreement, tol_id
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 F32 = torch.float32
+BYTES = (torch.int8, torch.uint8)   # B operands exact in TF32
 
 
 def tf32(x):
@@ -78,26 +79,11 @@ def mm(a, b, passes=3):
 
 
 def mm_q(a, q, passes=2):
-    """a @ q for an int8 q (exact in TF32) as ``mma2`` takes it: a_hi q +
-    a_lo q, or one TF32 pass (``passes=1``, the fault)."""
+    """a @ q for an int8 q (exact in TF32) as the int8 B mode of
+    tf32_gemm.cuh takes it: a_lo q + a_hi q, or one TF32 pass
+    (``passes=1``, the fault)."""
     ah = tf32(a)
     return ah @ q if passes == 1 else tf32(a - ah) @ q + ah @ q
-
-
-def gemm(a, w, passes=3, k_tail=False, prod=None, stage=None, fault=None):
-    """a w^T as f32_tiles.cuh gemm_f32 sums it: 32-deep k steps, each step's
-    product 3xTF32 (``mm``; an int8 w: ``mm_q``) added in f32; ``k_tail``
-    drops a ragged last step (the fault). With ``stage``, as tf32_gemm.cuh's
-    TF32 wgmma mainloop (K8a/f32) sums it: ``_gemm_wgmma``."""
-    if stage is not None:
-        return _gemm_wgmma(a, w, stage, passes, k_tail, fault)
-    kd = a.shape[1]
-    end = kd - kd % 32 if k_tail else kd
-    prod = prod or (mm_q if w.dtype is torch.int8 else mm)
-    acc = torch.zeros(a.shape[0], w.shape[0])
-    for k0 in range(0, end, 32):
-        acc += prod(a[:, k0:k0 + 32], w[:, k0:k0 + 32].float().t(), passes)
-    return acc
 
 
 def split(x):
@@ -130,39 +116,46 @@ def chain(acc, products):
 def tc_products(ah, al, bh, bl, drop_lo_hi=False, passes=3):
     """The 3xTF32 products of a @ b (a (..., n, K), b (..., K, N), split
     into hi and lo) in the order of the TF32 wgmma chains: lo*hi and hi*lo
-    of each 8-deep step, then hi*hi of each. ``drop_lo_hi`` leaves lo*hi
-    out, ``passes=1`` keeps hi*hi alone (the faults)."""
+    of each 8-deep step, then hi*hi of each. ``bl`` None: b is exact in
+    TF32 (int8 weights), and the products are lo*b of each step, then hi*b
+    of each. ``drop_lo_hi`` leaves lo*hi out, ``passes=1`` keeps hi*hi
+    alone (the faults)."""
     steps = [slice(k0, k0 + 8) for k0 in range(0, ah.shape[-1], 8)]
     small = []
     for s in steps if passes == 3 else ():
         if not drop_lo_hi:
             small.append((al[..., s], bh[..., s, :]))
-        small.append((ah[..., s], bl[..., s, :]))
+        if bl is not None:
+            small.append((ah[..., s], bl[..., s, :]))
     return small + [(ah[..., s], bh[..., s, :]) for s in steps]
 
 
-def _gemm_wgmma(a, w, stage, passes=3, k_tail=False, fault=None):
+def gemm(a, w, passes=3, k_tail=False, stage=32, fault=None):
     """a w^T as tf32_gemm.cuh gemm_tile sums it: ``stage``-deep slices
     (zeros past K), each slice's products (``tc_products``: A split in
-    registers, B's hi and lo tiles) truncating into a fresh accumulator
-    (``chain``) that is added to the sum in round-to-nearest f32. Faults:
-    ``never_zeroed`` (the fresh accumulator carried into the next slice),
-    ``stale_lo`` (a slice read against the previous slice's B lo),
-    ``lo_hi_dropped``, ``one_chain`` (the whole contraction in one
-    accumulator), and ``k_tail`` and ``passes=1`` as ``gemm``'s."""
+    registers, B's hi and lo tiles, or the values of an int8 (or, the
+    fault, uint8) w as they are, its int8 B mode) truncating into a fresh accumulator (``chain``) that is
+    added to the sum in round-to-nearest f32. Faults: ``never_zeroed`` (the
+    fresh accumulator carried into the next slice), ``stale_lo`` (a slice
+    read against the previous slice's B lo), ``stale_b`` (an int8 w's slice
+    read as the previous slice's bytes converted), ``lo_hi_dropped``,
+    ``one_chain`` (the whole contraction in one accumulator), ``k_tail``
+    (a ragged last slice dropped) and ``passes=1`` (one TF32 pass)."""
     kd = a.shape[1]
     end = kd - kd % stage if k_tail else kd
     acc = torch.zeros(a.shape[0], w.shape[0])
-    part, prev_bl = None, None
+    part, prev_b = None, None
     for k0 in range(0, end, stage):
         ah, al = split(a[:, k0:k0 + stage])
-        bh, bl = split(w[:, k0:k0 + stage].float().t())
-        lo = bl
+        b = w[:, k0:k0 + stage].float().t()
+        bh, bl = (b, None) if w.dtype in BYTES else split(b)
+        prev, prev_b = prev_b, (bh if bl is None else bl)
         if fault == "stale_lo":
-            lo = torch.zeros_like(bl) if prev_bl is None else prev_bl[:bl.shape[0]]
-        prev_bl = bl
+            bl = torch.zeros_like(bl) if prev is None else prev[:bl.shape[0]]
+        if fault == "stale_b":
+            bh = torch.zeros_like(bh) if prev is None else prev[:bh.shape[0]]
         carried = part if fault in ("never_zeroed", "one_chain") else None
-        part = chain(carried, tc_products(ah, al, bh, lo,
+        part = chain(carried, tc_products(ah, al, bh, bl,
                                           fault == "lo_hi_dropped", passes))
         if fault != "one_chain":
             acc = acc + part
@@ -519,7 +512,7 @@ def _ff_f32_up(a, w1, b1, fault=None):
     kept in f32 (K8b's bias b1 may be None). Faults: ``tf32_one_pass`` and
     ``k_tail``; ``gate_from_wa`` (the second box read at Wa's rows); ``up_``
     with ``never_zeroed``, ``stale_lo`` or ``one_chain``
-    (``_gemm_wgmma``'s)."""
+    (``gemm``'s)."""
     inner = w1.shape[0] // 2
     gate_rows = w1[:inner] if fault == "gate_from_wa" else w1[inner:]
     up = lambda w: gemm(a, w, **_ff_gemm_kw(fault, "up"))
@@ -641,7 +634,8 @@ def test_ff_f32_one_chain_down_product_leaves_the_row(kid):
     # a fresh accumulator a 32-deep stage holds the row, one accumulator
     # over the whole contraction drifts out of it (toward zero). s = 1 and
     # x of rms 1, as phase `kernels` draws K4's x: a residual of rms 2 (the
-    # other tests' x) at s = 0.5 dilutes the drift to within the row
+    # other tests' x) at s = 0.5 dilutes the drift to within the row. (K7's
+    # two products a product drift less: test_ff_f32_down_chain_lengths_...)
     m, k, inner = 16, 1280, 5120
     x, lw, lb, w1, b1, w2, b2 = _k4_inputs(m, k, inner)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(2))
@@ -687,29 +681,46 @@ def test_k6_f32_tolerance_separates_rounding_from_faults(k, fault):
 
 
 def _k7_f32_emulated(x, lw, lb, q1, s1, b1, q2, s2, b2, s, fault=None):
-    """csrc/ffn.cu's f32 K7: K4/f32's LN pre-pass, the up GEMM against Qa
-    and Qg and the down GEMM against Q2 on int8 tiles (``mm_q``, 32-deep
-    steps), a = acc sa + ba and y = acc s2 + b2 on the f32 sums, h in f32,
-    out = x + s y. ``scale_before_dot`` folds the scales into the weights
-    before the dot (q s is not exact in TF32, so two products lose its low
-    half); ``scale_missing`` drops s2."""
-    kw = dict(passes=1 if fault == "tf32_one_pass" else 2,
-              k_tail=fault == "k_tail")
+    """csrc/ffn.cu's f32 K7: K4/f32's LN pre-pass, then its up GEMM against
+    Qa and Qg and its down GEMM against Q2 on tf32_gemm.cuh's TF32 wgmma
+    mainloop with int8 B operands (``gemm``: 32-deep stages, each a_lo q,
+    then a_hi q, truncating into a fresh accumulator added in
+    round-to-nearest), a = acc sa + ba and y = acc s2 + b2 on the f32 sums,
+    h in f32, out = x + s y. Faults: ``scale_before_dot`` folds the scales
+    into the weights before the dot (q s is not exact in TF32, so the tensor
+    cores read it rounded and two products lose its low half);
+    ``scale_missing`` drops s2; ``int8_unsigned`` converts the bytes as
+    unsigned; ``gate_from_qa`` reads the gate box at Qa's rows; ``up_<f>``
+    and ``down_<f>`` plant ``gemm``'s fault f in one GEMM, ``k_tail`` and
+    ``tf32_one_pass`` in both (``_ff_gemm_kw``)."""
     inner = q1.shape[0] // 2
     xn = _ln_f32(x, lw, lb)
     if fault == "scale_before_dot":
-        # two products on the dequantized weights, which TF32 does not
-        # hold: the tensor cores read them rounded
+        # the dequantized weights, which TF32 does not hold, read rounded:
+        # their lo part is zero, as the int8 B mode has none
         dq = lambda q, sc: tf32(q.float() * sc[:, None])
-        a = gemm(xn, dq(q1[:inner], s1[:inner]), prod=mm_q) + b1[:inner]
-        g = gemm(xn, dq(q1[inner:], s1[inner:]), prod=mm_q) + b1[inner:]
-        y = gemm(a * torch.nn.functional.gelu(g), dq(q2, s2), prod=mm_q) + b2
+        a = gemm(xn, dq(q1[:inner], s1[:inner])) + b1[:inner]
+        g = gemm(xn, dq(q1[inner:], s1[inner:])) + b1[inner:]
+        y = gemm(a * torch.nn.functional.gelu(g), dq(q2, s2)) + b2
         return x + s * y
-    a = gemm(xn, q1[:inner], **kw) * s1[:inner] + b1[:inner]
-    g = gemm(xn, q1[inner:], **kw) * s1[inner:] + b1[inner:]
-    acc = gemm(a * torch.nn.functional.gelu(g), q2, **kw)
+    if fault == "int8_unsigned":
+        q1, q2 = q1.view(torch.uint8), q2.view(torch.uint8)
+    gate_rows = q1[:inner] if fault == "gate_from_qa" else q1[inner:]
+    up = lambda q: gemm(xn, q, **_ff_gemm_kw(fault, "up"))
+    a = up(q1[:inner]) * s1[:inner] + b1[:inner]
+    g = up(gate_rows) * s1[inner:] + b1[inner:]
+    acc = gemm(a * torch.nn.functional.gelu(g), q2, **_ff_gemm_kw(fault, "down"))
     y = acc + b2 if fault == "scale_missing" else acc * s2 + b2
     return x + s * y
+
+
+def _k7_inputs(m, k, inner):
+    """K4's inputs with w1 and w2 quantized as quantize_unet_int8 quantizes
+    them: (x, lw, lb, q1, s1, b1, q2, s2, b2)."""
+    x, lw, lb, w1, b1, w2, b2 = _k4_inputs(m, k, inner)
+    qw1, qw2 = quantize_tensor(w1), quantize_tensor(w2)
+    assert qw1.scale.dtype is F32 and qw1.dtype is F32
+    return x, lw, lb, qw1.q, qw1.scale, b1, qw2.q, qw2.scale, b2
 
 
 @pytest.mark.parametrize("k,s,fault", [
@@ -719,21 +730,39 @@ def _k7_f32_emulated(x, lw, lb, q1, s1, b1, q2, s2, b2, s, fault=None):
 ])
 def test_k7_f32_tolerance_separates_rounding_from_faults(k, s, fault):
     # M = 200: a ragged last row block; K = 80 (K % 16 == 0): a ragged
-    # 32-deep step of 16 in the up GEMM; weights quantized as
+    # 32-deep stage of 16 in the up GEMM; weights quantized as
     # quantize_unet_int8 quantizes them
     m, inner = 200, 4 * k
-    x, lw, lb, w1, b1, w2, b2 = _k4_inputs(m, k, inner)
-    qw1, qw2 = quantize_tensor(w1), quantize_tensor(w2)
-    assert qw1.scale.dtype is F32 and qw1.dtype is F32
-    args = (x, lw, lb, qw1.q, qw1.scale, b1, qw2.q, qw2.scale, b2, s)
+    args = (*_k7_inputs(m, k, inner), s)
+    ref = ffn_ln_geglu_q_plain(*args)
+    got = agreement(tol_id("K7", F32), _k7_f32_emulated(*args, fault=fault), ref)
+    assert got["ok"] == (fault is None), got
+
+
+@pytest.mark.parametrize("k,inner,fault", [
+    (80, 208, None), (80, 208, "int8_unsigned"), (80, 208, "gate_from_qa"),
+    (80, 208, "up_never_zeroed"), (80, 208, "down_never_zeroed"),
+    (320, 1280, "up_stale_b"), (320, 1280, "down_stale_b"),
+    (80, 208, "k_tail"),
+])
+def test_k7_f32_wgmma_faults_leave_the_row(k, inner, fault):
+    # the int8 B mode of the TF32 wgmma mainloop: the up GEMM's B tile is
+    # 64 Qa rows over the same 64 Qg rows from two int8 tensor maps, inner
+    # 208 (not a multiple of 64) ends each in a ragged box; K = 80 ends the
+    # up contraction in a 16-deep stage, inner 208 the down one. Bytes
+    # converted as unsigned, a gate box read at Qa's rows, a fresh
+    # accumulator never zeroed, a stage converted from the previous stage's
+    # bytes and a dropped ragged stage must fail the row. M = 200: a
+    # ragged last row block
+    args = (*_k7_inputs(200, k, inner), 0.5)
     ref = ffn_ln_geglu_q_plain(*args)
     got = agreement(tol_id("K7", F32), _k7_f32_emulated(*args, fault=fault), ref)
     assert got["ok"] == (fault is None), got
 
 
 def test_int8_values_split_exactly_in_tf32():
-    # the ground for mma2: every int8 value is its own TF32 hi, with a zero
-    # lo, so a_hi q + a_lo q is the 3xTF32 product of a and q
+    # the ground for the int8 B mode: every int8 value is its own TF32 hi,
+    # with a zero lo, so a_lo q + a_hi q is the 3xTF32 product of a and q
     q = torch.arange(-128, 128, dtype=torch.int8).float()
     hi = tf32(q)
     assert torch.equal(hi, q) and torch.equal(tf32(q - hi), torch.zeros_like(q))
@@ -814,13 +843,17 @@ def test_k8a_f32_chain_lengths_stay_within_the_row(k):
     assert long["rms_rel_err"] > 3 * fresh["rms_rel_err"], (long, fresh)
 
 
-@pytest.mark.parametrize("kid", ["K4", "K6"])
+@pytest.mark.parametrize("kid", ["K4", "K6", "K7"])
 @pytest.mark.parametrize("inner", [1280, 2560, 5120])
 def test_ff_f32_down_chain_lengths_stay_within_the_row(kid, inner):
-    # the down products of K4/f32 and K6/f32 (h W2^T over inner = 1280,
-    # 2560, 5120, then + b2 and the residual) under the truncation model:
-    # a fresh accumulator a 32-deep stage holds the row; one accumulator
-    # over the whole contraction drifts several times further
+    # the down products of K4/f32, K6/f32 and K7/f32 (h W2^T over inner =
+    # 1280, 2560, 5120, then + b2 and the residual; K7: h Q2^T s2 on its
+    # int8 B mode, two products a product) under the truncation model: a
+    # fresh accumulator a 32-deep stage holds the row; one accumulator over
+    # the whole contraction drifts several times further (K7 at 5120:
+    # 1.6e-5 of rms(b) against 2.4e-7, still inside the row: two products a
+    # product truncate into the chain less often than K4's and K6's three,
+    # whose one chain leaves it)
     m, k = 16, inner // 4
     g = torch.Generator().manual_seed(0)
     h = torch.randn(m, inner, generator=g) * torch.nn.functional.gelu(
@@ -828,9 +861,16 @@ def test_ff_f32_down_chain_lengths_stay_within_the_row(kid, inner):
     w2 = torch.randn(k, inner, generator=g) * inner ** -0.5
     b2, res = torch.randn(k, generator=g) * 0.1, torch.randn(m, k, generator=g)
     s = 0.5 if kid == "K4" else 1.0
-    ref = res + s * linear_plain(h, w2, b2)
+    if kid == "K7":
+        qw2 = quantize_tensor(w2)
+        w2, s2 = qw2.q, qw2.scale
+        ref = res + s * ((h @ w2.float().t()) * s2 + b2)
+    else:
+        s2 = torch.ones(k)
+        ref = res + s * linear_plain(h, w2, b2)
     rows = {fault: agreement(tol_id(kid, F32),
-                             res + s * (gemm(h, w2, stage=32, fault=fault) + b2), ref)
+                             res + s * (gemm(h, w2, stage=32, fault=fault) * s2
+                                        + b2), ref)
             for fault in (None, "one_chain")}
     assert rows[None]["ok"], rows
     assert rows["one_chain"]["rms_rel_err"] > 3 * rows[None]["rms_rel_err"], rows

@@ -449,10 +449,11 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     whose keys "gemm" and "sm90_" a template name can contain), and phase
     build looks for HGMMA in every wgmma kernel of K1, K5a, K5b, K4, K6,
     K7, K8a and K8b and in every kernel of the f32 forms on TF32 wgmma
-    (K1/f32, K5a/f32, K5b/f32, K4/f32, K6/f32, K8a/f32, K8b/f32) but their
-    pre-passes; no `__global__` of the retired WMMA kernels or of the
-    retired mma.sync kernels of K1/f32 (d 40, 80), K5a/f32, K5b/f32,
-    K4/f32 and K8b/f32 is left, and no kernel source uses WMMA."""
+    (K1/f32, K5a/f32, K5b/f32, K4/f32, K6/f32, K7/f32, K8a/f32, K8b/f32)
+    but their pre-passes; no `__global__` of the retired WMMA kernels or of
+    the retired mma.sync kernels of K1/f32 (d 40, 80), K5a/f32, K5b/f32,
+    K4/f32, K7/f32 and K8b/f32 is left, and no kernel source uses WMMA or
+    mma.sync."""
     kernels = _source_kernels()
     lib_of = {kid: Path(meta[1]).stem for kid, meta in cs.KERNEL_META.items()}
     groups = {name.split()[0]: keys for name, keys in cs.PROFILE_GROUPS}
@@ -462,12 +463,6 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
             # an f32 instantiation of a template ("gn_cluster_kernel<float>")
             # is named by its kernel
             assert kernels.get(key.split("<")[0]) == lib_of[kid], (kid, key)
-    # the f32 forms' products on mma.sync: each kernel in its library, and
-    # profiled under its own f32 id
-    for lib, names in cs.MMA_F32_KERNELS.items():
-        for name in names:
-            assert kernels.get(name) == lib, name
-            assert _group_of(name).split()[0].endswith("/f32"), name
     for kernel, lib in kernels.items():
         kid = _group_of(kernel).split()[0]
         assert kid in cs.KERNEL_META and lib_of[kid] == lib, (kernel, kid)
@@ -478,11 +473,14 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
                "ffn_q_up_kernel", "ffn_q_down_kernel", "ffn_up_f32_kernel",
                "ffn_down_f32_kernel", "flash_fwd_f32_kernel", "geglu_f32_kernel",
                "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
-               "flash_kv_split_f32_kernel"}
+               "flash_kv_split_f32_kernel", "ffn_q_up_f32_kernel",
+               "ffn_q_down_f32_kernel"}
     assert not retired & set(kernels), retired & set(kernels)
     assert not (CSRC / "ffn_tiles.cuh").exists()
     for path in CSRC.glob("*.cu*"):
-        assert "wmma::" not in path.read_text() and "<mma.h>" not in path.read_text(), path
+        text = path.read_text()
+        assert "wmma::" not in text and "<mma.h>" not in text, path
+        assert "mma.sync.aligned" not in text, path
     # the only kernels of those ids without a product: K4's and K7's LN
     # pre-passes
     pre_pass = {"K4": {"ffn_norm_rows_kernel"}, "K7": {"ffn_q_norm_rows_kernel"}}
@@ -491,8 +489,8 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
         assert off_wgmma == pre_pass.get(kid, set())
     # the f32 forms on TF32 wgmma: every kernel of their groups but the
     # flash split pre-pass (K1/f32's instantiations, and K5a/f32's, whose
-    # call runs the backward's) and K4/f32's LN pre-pass, and none on
-    # mma.sync
+    # call runs the backward's) and K4/f32's LN pre-pass (K7/f32's too,
+    # counted under K4/f32)
     f32_pre = {"K1/f32": {"flash_split_f32_kernel"},
                "K5a/f32": {"flash_split_f32_kernel<40, 4>",
                            "flash_split_f32_kernel<80, 4>"},
@@ -503,11 +501,10 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
                      f"{jobs}>((anonymous namespace)::SplitJobs<{jobs}>, int)")
             assert next(g for g, keys in cs.PROFILE_GROUPS
                         if any(k in shown.lower() for k in keys)).split()[0] == kid
-    for kid in ("K1/f32", "K5a/f32", "K5b/f32", "K4/f32", "K6/f32", "K8a/f32",
-                "K8b/f32"):
+    for kid in ("K1/f32", "K5a/f32", "K5b/f32", "K4/f32", "K6/f32", "K7/f32",
+                "K8a/f32", "K8b/f32"):
         off_wgmma = set(groups[kid]) - set(cs.WGMMA_KERNELS[lib_of[kid]])
         assert off_wgmma == f32_pre.get(kid, set()), (kid, off_wgmma)
-        assert not set(groups[kid]) & set(cs.MMA_F32_KERNELS.get(lib_of[kid], ())), kid
 
 
 def test_gemm_tiles_sweep_patches_the_sources(tmp_path):
@@ -595,17 +592,20 @@ def test_split_route_f32_training_walk_matches_the_calls(recorded, tmp_path):
 
 def test_f32_timing_times_the_walks_shapes():
     """cli/f32_timing.py times K1/f32, K5a/f32, K5b/f32, K4/f32, K6/f32,
-    K8a/f32 and K8b/f32 at the shapes that phase `kernels` gives them: each
-    one's distinct f32 cases of the full-width walks of generate-f32,
-    train-f32 and routes-f32."""
+    K7/f32, K8a/f32 and K8b/f32 at the shapes that phase `kernels` gives
+    them: each one's distinct f32 cases of the full-width walks of
+    generate-f32, int8-f32, train-f32 and routes-f32."""
     from layoutllm_t2i_torch.cli import f32_timing
     from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
     unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
     tok_len = clip_cfg.max_length
     batch = next(synthetic_layout_batches(cs.TRAIN_BATCH, 512, cs.TRAIN_MAX_BOXES))
-    paths = {"generate-f32": cs.generation_calls(
-        unet_cfg, vae_cfg, clip_cfg, tok_len, cs.REQUESTS, cs.VAE_CHUNK, f32=True)}
+    paths = {name: cs.generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
+                                       cs.REQUESTS, cs.VAE_CHUNK, route=route,
+                                       f32=True)
+             for name, route in (("generate-f32", cs.DEFAULT),
+                                 ("int8-f32", cs.INT8))}
     for name, route in (("train-f32", cs.DEFAULT), ("routes-f32", cs.SPLIT)):
         paths[name] = cs.training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, batch,
                                         cs.TRAIN_MAX_BOXES, cs.TRAIN_MAX_RELATIONS,
@@ -616,4 +616,5 @@ def test_f32_timing_times_the_walks_shapes():
              for shape in shapes}
     assert timed == walked
     assert {kid: len(s) for kid, s in f32_timing.CASES.items()} == {
-        "K1": 12, "K5a": 4, "K5b": 4, "K4": 12, "K6": 3, "K8a": 3, "K8b": 3}
+        "K1": 12, "K5a": 4, "K5b": 4, "K4": 12, "K6": 3, "K7": 6, "K8a": 3,
+        "K8b": 3}
