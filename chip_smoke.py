@@ -34,7 +34,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                weights 1, its scales 4) and the TF32 peak (495 TFLOP/s;
                K2, K3: the f32 peak), library calls in f32 with
                allow_tf32 off; at every distinct shape that phases 4-11,
-               13, 15, 16, 17 and 18 give it (mixed-precision training's
+               11b, 13 (its preview too), 15, 16, 17 and 18 give it
+               (mixed-precision training's
                VAE and CLIP run in f32); times
                kernel, plain version and
                one PyTorch library call for the same function, beside the
@@ -118,6 +119,20 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                changed each epoch, ckpt_E.pt, state_E.pt and history.json
                loaded back, Adam's step count 1, 2, 3; seconds an epoch,
                rollout and reward seconds, peak memory, K3 f32 launches.
+ 11b. eval     eval/nss1k.py main in-process at full width on a fixture
+               written to build/ (the five NSS1K split files, 2 examples
+               each in the reference schema, 512^2 ground-truth PNGs, a
+               planner candidate pool and layout cache, a random-init
+               InceptionV3 saved under torchvision's names): run A, the
+               five splits under --fast at batch 2 (five rows of n 2, an
+               overall row of n 10, every clip_score_mean finite and in
+               [0, 2.5]); run B, one split at exact PLMS-50 with --layout
+               planner and --fid (layout_miou and layout_docsim in [0, 1],
+               both layouts parsed, fid finite); the Inception's features
+               of 2 images on the card against the CPU, both f32 with TF32
+               off (relative L2 <= EVAL_INCEPTION_REL_TOL), and its ms per
+               image at batch 16; each run's sec_per_image; K1-K4 and K3's
+               f32 form launched in each run.
  12. train-grad  one full-width loss backward at batch 2 (f32 master
                weights, bf16 compute, alphas 0.5), kernel route against
                plain route: the relative L2 error of the rela_fuse
@@ -132,6 +147,11 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                changed and every frozen one bit-identical; kernel launches
                per step, K1's and K5's (bf16 and f32, the VAE's d 512
                site) exactly the walk's (training_calls) count a step.
+               Then one preview (train-preview): sample_previews on the
+               next batch at PREVIEW_STEPS (PLMS-10, a depth cut of the
+               reference's 50; CFG batch 16, bf16): both PNGs decode to
+               grids of 512^2 tiles, every rela_fuse tensor bit-identical
+               before and after, its wall s, K1-K4 and K3/f32 launched.
  14. train-grad-f32  phase 12 with mixed_precision=False: every operand
                f32, the kernels' f32 forms, bound TRAIN_GRAD_F32_REL_TOL.
  15. train-f32 phase 13 with TrainerConfig()'s precision, f32 throughout
@@ -165,7 +185,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
      `device_vs_library` are the ratios of those sums; `launches` adds
-     the runs of phases 4, 5, 7-11, 13, 15, 16, 17 and 18 (its training),
+     the runs of phases 4, 5, 7-11, 11b (its two runs), 13 (its steps and
+     its preview), 15, 16, 17 and 18 (its training),
      each read from counts set to 0 just before it; each f32 form
      has an entry of its own ("K1/f32 flash_attention", ...), its rows'
      sums, its f32 launches and its `arith`, and the bf16 entries count
@@ -186,7 +207,10 @@ batch 4, cond-only at batch 2, with and without the gated fusers, key
 and propagated), the bench's 8 requests (exact: CFG batch 16; fast: CFG
 16 and cond-only 8), the CLIs' one request (CFG batch 2) and the
 planner's CLIP features (cli_paths), the RL batch's 4 rollouts (CFG
-batch 8) and the reward's f32 towers (rl_calls), the f32 bundle's
+batch 8) and the reward's f32 towers (rl_calls), the NSS1K runs' fast
+and exact generations at batch 2 with the reward's towers on 2 images and
+the planner's features (eval_paths), the training preview at CFG batch
+16 (preview_calls), the f32 bundle's
 generation on the default and the int8 route ("generate-f32",
 "int8-f32"), and a training step at batch 8 with no CFG doubling: the VAE
 encoder on 512^2 images (K1 at d 512), CLIP on the captions and on the
@@ -222,6 +246,7 @@ import argparse
 import contextlib
 import functools
 import importlib
+import itertools
 import json
 import math
 import os
@@ -2147,6 +2172,223 @@ def phase_rl(work_dir: str):
     return counts
 
 
+# phase eval: the COCO-NSS1K runner (eval/nss1k.py) at full width on a
+# fixture written to the build directory: the five split files, 2 examples
+# each in the reference schema (captions with a relation the scene-graph
+# parser finds, centre-xywh boxes, COCO-80 labels, image names)
+EVAL_SPLITS = {
+    "numerical": [("three dogs standing next to a bench", ["dog", "bench"]),
+                  ("two cats sleeping on a couch", ["cat", "couch"])],
+    "spatial": [("a bus parked behind a truck", ["bus", "truck"]),
+                ("a kite flying over a boat", ["kite", "boat"])],
+    "semantic": [("a man riding a horse on the beach", ["person", "horse"]),
+                 ("a woman holding an umbrella near a bicycle",
+                  ["person", "umbrella"])],
+    "mixed": [("a pizza on top of a wooden table", ["pizza", "dining table"]),
+              ("a bird sitting on a tree branch above a car", ["bird", "car"])],
+    "null": [("a person sitting on a bench", ["person", "bench"]),
+             ("a dog chasing a frisbee on the grass", ["dog", "frisbee"])],
+}
+EVAL_BOXES = [[0.35, 0.55, 0.4, 0.5], [0.7, 0.4, 0.3, 0.35]]
+EVAL_N = 2          # examples a split, and the runner's batch
+EVAL_FID_SPLIT = "spatial"
+# run B's planner: the cached layouts of the FID split's captions, top-left
+# xywh, one label ("lorry") outside COCO-80
+EVAL_LAYOUTS = {
+    "a bus parked behind a truck": [["bus", [0.05, 0.3, 0.5, 0.45]],
+                                    ["lorry", [0.5, 0.35, 0.45, 0.4]]],
+    "a kite flying over a boat": [["kite", [0.4, 0.05, 0.2, 0.2]],
+                                  ["boat", [0.2, 0.55, 0.6, 0.35]]],
+}
+EVAL_INCEPTION_BATCH = 16
+# Inception pool3 features on the card against the same module on the CPU,
+# both f32 with TF32 off: ||a - b|| / ||b||. The two differ by summation
+# order in ~100 convolutions (cuDNN against the CPU's), ~1e-6 of the norm;
+# a TF32 pass (10 mantissa bits) would sit near 1e-3.
+EVAL_INCEPTION_REL_TOL = 1e-4
+# the kernels every eval run launches: the generation's, and K3's f32 form
+# in the reward's CLIP towers (CLIPScore)
+EVAL_KIDS = ("K1", "K2", "K3", "K4", "K3/f32")
+
+
+def eval_requests(split: str, planned: bool = False):
+    """The requests run_bench gives pipe.generate for one split at batch 2:
+    captions, the GT layouts in ltrb (or, ``planned``, the cached layouts'),
+    the relation texts of the scene-graph parser."""
+    from layoutllm_t2i_torch.pipeline.inference import (convert_xcycwh_to_ltrb,
+                                                        convert_xywh_to_ltrb)
+    from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_inference
+
+    captions = [cap for cap, _ in EVAL_SPLITS[split]]
+    if planned:
+        layouts = [([convert_xywh_to_ltrb(box) for _, box in EVAL_LAYOUTS[c]],
+                    [lab for lab, _ in EVAL_LAYOUTS[c]]) for c in captions]
+    else:
+        layouts = [([convert_xcycwh_to_ltrb(box) for box in EVAL_BOXES[:len(labels)]],
+                    labels) for _, labels in EVAL_SPLITS[split]]
+    return captions, layouts, [relation_texts_for_inference(c, 5) or []
+                               for c in captions]
+
+
+def eval_paths(unet_cfg, vae_cfg, clip_cfg, tok_len, text_cfg, vision_cfg) -> list:
+    """The calls of phase eval's two runs: run A, each split's fast-preset
+    generation at batch 2 and CLIPScore (the reward's f32 text and vision
+    towers on 2 captions and 2 images); run B, the planner's text features
+    of the candidates and the captions, the open-vocabulary label through
+    the text tower, then the exact generation on the planned layouts and
+    its CLIPScore. The reward's 80 COCO label embeddings are rl_calls'."""
+    fast_evals = unet_evaluations(fast_tables_pipeline(), EVAL_N)
+    score = (f32_calls(clip_calls(text_cfg, EVAL_N * tok_len))
+             + vision_calls(vision_cfg, EVAL_N))
+    calls = []
+    for split in EVAL_SPLITS:
+        calls += generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
+                                  eval_requests(split), VAE_CHUNK,
+                                  evals=fast_evals) + score
+    calls += f32_calls(clip_calls(text_cfg, len(CLI_CANDIDATES) * tok_len))
+    calls += f32_calls(clip_calls(text_cfg, tok_len))
+    return calls + generation_calls(
+        unet_cfg, vae_cfg, clip_cfg, tok_len,
+        eval_requests(EVAL_FID_SPLIT, planned=True), VAE_CHUNK) + score
+
+
+def eval_fixture(work_dir: str) -> dict:
+    """The five NSS1K split files, 512^2 ground-truth PNGs (utils/images.py,
+    seeded numpy), the planner's candidate pool and layout cache, and a
+    random-init Inception saved under torchvision's names."""
+    from layoutllm_t2i_torch.eval.fid import random_inception
+    from layoutllm_t2i_torch.eval.nss1k import SPLIT_FILES
+    from layoutllm_t2i_torch.utils.images import png_bytes
+
+    data, imgs, cands = (os.path.join(work_dir, d) for d in ("nss1k", "imgs", "cands"))
+    for d in (data, imgs, cands):
+        os.makedirs(d)
+    rng = np.random.default_rng(0)
+    for split, items in EVAL_SPLITS.items():
+        examples = [{"img_id": i, "name": f"{split}_{i}.png", "width": 512,
+                     "height": 512, "captions": cap, "label": labels,
+                     "bbox": EVAL_BOXES[:len(labels)]}
+                    for i, (cap, labels) in enumerate(items)]
+        with open(os.path.join(data, SPLIT_FILES[split]), "w") as f:
+            json.dump(examples, f)
+        for ex in examples:
+            with open(os.path.join(imgs, ex["name"]), "wb") as f:
+                f.write(png_bytes(rng.uniform(size=(512, 512, 3))))
+    pool = [{"img_id": 10 + i, "name": f"cand_{i}.jpg", "width": 640,
+             "height": 480, **c} for i, c in enumerate(CLI_CANDIDATES)]
+    for name in ("train2014_train_1.json",
+                 f"train2014_candidate_{len(pool)}.json"):
+        with open(os.path.join(cands, name), "w") as f:
+            json.dump({"id": [c["img_id"] for c in pool], "data": pool}, f)
+    cache = os.path.join(work_dir, "layouts.json")
+    with open(cache, "w") as f:
+        json.dump(EVAL_LAYOUTS, f)
+    inception = os.path.join(work_dir, "pt_inception.pth")
+    torch.save(random_inception("cpu", seed=0).state_dict(), inception)
+    return {"data": data, "imgs": imgs, "cands": cands, "cache": cache,
+            "inception": inception, "n_cands": len(pool),
+            "fid_split": os.path.join(data, SPLIT_FILES[EVAL_FID_SPLIT])}
+
+
+def counted(fn):
+    """(fn(), its wall s, the kernel launches it made), counts from 0."""
+    from layoutllm_t2i_torch.kernels import reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, path_counts()
+
+
+def inception_check(fx: dict) -> dict:
+    """The Inception of run B's checkpoint: features of 2 ground-truth
+    images on the card against the same module on the CPU (relative L2),
+    and the card's ms per image at batch 16 (pool3 on 299^2 inputs, f32,
+    TF32 off; CUDA events around back-to-back calls)."""
+    from layoutllm_t2i_torch.eval.fid import (INCEPTION_SIZE, inception_features,
+                                              inception_pool3,
+                                              load_inception_checkpoint)
+    from layoutllm_t2i_torch.eval.nss1k import load_gt_images, load_split
+
+    examples = load_split(fx["fid_split"])
+    imgs = load_gt_images(examples, fx["imgs"])
+    on_card = load_inception_checkpoint(fx["inception"], device="cuda")
+    got = inception_features(on_card, imgs, batch=len(imgs))
+    ref = inception_features(load_inception_checkpoint(fx["inception"],
+                                                       device="cpu"),
+                             imgs, batch=len(imgs))
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    x = torch.rand((EVAL_INCEPTION_BATCH, INCEPTION_SIZE, INCEPTION_SIZE, 3),
+                   generator=torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda") * 2 - 1
+    ms = time_ms(lambda: inception_pool3(on_card, x), target_ms=200.0)
+    return {"ok": bool(np.isfinite(got).all()) and rel <= EVAL_INCEPTION_REL_TOL,
+            "features_rel_l2_vs_cpu": rel, "tol": EVAL_INCEPTION_REL_TOL,
+            "features": list(got.shape), "batch": EVAL_INCEPTION_BATCH,
+            "ms_per_batch": ms, "ms_per_image": ms / EVAL_INCEPTION_BATCH}
+
+
+def phase_eval(work_dir: str):
+    """eval/nss1k.py main in this process, at full width on the card
+    (random weights from seed 0: the UNet in bf16, the reward's CLIP
+    ViT-L/14 text and vision towers in f32, InceptionV3 at 299^2 in f32).
+    Run A: the five splits under --fast, batch 2: five rows of n 2, an
+    overall row of n 10, every clip_score_mean finite and in [0, 2.5]. Run
+    B: the FID split at exact PLMS-50 with the offline planner and FID:
+    layout mIoU and DocSim in [0, 1], both layouts parsed, FID finite. Then
+    the Inception on the card against the CPU. Each run's launches are
+    counted from 0 and must include K1-K4 and K3's f32 form."""
+    from layoutllm_t2i_torch.eval import nss1k
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    fx = eval_fixture(work_dir)
+    run_a, wall_a, counts_a = counted(lambda: nss1k.main(
+        ["--data_dir", fx["data"], "--batch_size", str(EVAL_N), "--fast"]))
+    torch.cuda.empty_cache()
+    run_b, wall_b, counts_b = counted(lambda: nss1k.main(
+        ["--data_path", fx["fid_split"], "--batch_size", str(EVAL_N),
+         "--layout", "planner", "--layout_cache", fx["cache"],
+         "--cand_data_dir", fx["cands"], "--cand_number", str(fx["n_cands"]),
+         "--fid", "--img_dir", fx["imgs"], "--inception_ckpt", fx["inception"]]))
+    torch.cuda.empty_cache()
+    inception = inception_check(fx)
+    splits = [k for k in run_a if k != "overall"]
+    a_ok = (sorted(splits) == sorted(EVAL_SPLITS)
+            and all(run_a[k]["n"] == EVAL_N for k in splits)
+            and run_a["overall"]["n"] == EVAL_N * len(EVAL_SPLITS)
+            and all(math.isfinite(r["clip_score_mean"])
+                    and 0.0 <= r["clip_score_mean"] <= 2.5
+                    for r in run_a.values()))
+    b_ok = (run_b["n"] == EVAL_N and run_b["layout_parsed"] == EVAL_N
+            and all(0.0 <= run_b[k] <= 1.0 for k in ("layout_miou", "layout_docsim"))
+            and math.isfinite(run_b["clip_score_mean"])
+            and math.isfinite(run_b["fid"]))
+    launched = all(c[kid] > 0 for c in (counts_a, counts_b) for kid in EVAL_KIDS)
+    ok = a_ok and b_ok and inception["ok"] and launched
+    counts = {kid: counts_a[kid] + counts_b[kid] for kid in counts_a}
+    emit({"phase": "eval", "ok": ok, "card": nvidia_smi_line(),
+          "run_a": {"argv": "--data_dir --fast --batch_size 2", "ok": a_ok,
+                    "wall_s": wall_a, "result": run_a,
+                    "sec_per_image": run_a["overall"]["sec_per_image"],
+                    "launches": counts_a},
+          "run_b": {"argv": "--data_path --layout planner --fid --batch_size 2",
+                    "ok": b_ok, "wall_s": wall_b, "result": run_b,
+                    "sec_per_image": run_b["sec_per_image"],
+                    "launches": counts_b},
+          "inception": inception, "launches": counts})
+    if not ok:
+        raise SmokeFailure(
+            "eval: a split row or the overall row is off its count, a "
+            "CLIPScore is outside [0, 2.5] or not finite, a layout metric is "
+            "outside [0, 1], a layout was not parsed, the FID is not finite, "
+            "the card's Inception features are off the CPU's, or K1-K4 or "
+            "K3/f32 launched no time in a run")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return counts
+
+
 def profile_generation(models, label: str, profile, suffix: str) -> None:
     """With ``--profile``, one more generation of ``models`` (on the route
     the switches set) under the profiler, into the profile's path, with
@@ -2487,7 +2729,8 @@ def phase_train(work_dir: str, mixed_precision: bool = True,
                         warmup_steps=0, trainable_mode="rela_fuse",
                         optimizer="adamw", mixed_precision=mixed_precision,
                         max_boxes=TRAIN_MAX_BOXES,
-                        max_relations=TRAIN_MAX_RELATIONS)
+                        max_relations=TRAIN_MAX_RELATIONS,
+                        preview_steps=PREVIEW_STEPS)
     models = random_models(small=False, device="cuda", dtype=torch.float32,
                            seed=0)
     n_alpha = set_alphas(models.unet_params, 0.5)
@@ -2549,6 +2792,77 @@ def phase_train(work_dir: str, mixed_precision: bool = True,
                            "kernel of the walk launched no time or other "
                            "than the walk's count")
     return counts, trainer, data
+
+
+# phase train's preview: the trainer's PLMS sample grid at 10 steps, a depth
+# cut of the reference's 50 (TrainerConfig.preview_steps), on the next batch
+PREVIEW_STEPS = 10
+# the kernels a mixed-precision preview launches: the bf16 UNet and VAE
+# decode, and K3's f32 form in the trainer's f32 text encoder
+PREVIEW_KIDS = ("K1", "K2", "K3", "K4", "K3/f32")
+
+
+def preview_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, batch) -> list:
+    """trainer.sample_previews on a host batch under mixed precision: the
+    captions and as many empty prompts through the trainer's f32 text
+    encoder, the grounding texts as a training step encodes them (f32), the
+    bf16 UNet at CFG batch 2b, the bf16 VAE decode of the b latents in one
+    chunk."""
+    from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_training
+    from layoutllm_t2i_torch.utils.buckets import pow2_bucket
+
+    b = len(batch["caption"])
+    n_texts = (sum(min(len(labels), TRAIN_MAX_BOXES) for labels in batch["labels"])
+               + sum(len(relation_texts_for_training(c, TRAIN_MAX_RELATIONS))
+                     for c in batch["caption"]))
+    calls = 2 * clip_calls(clip_cfg, pow2_bucket(b) * tok_len)
+    if n_texts:
+        calls += clip_calls(clip_cfg, pow2_bucket(n_texts) * tok_len)
+    return (f32_calls(calls)
+            + unet_calls(unet_cfg, 2 * b, TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS,
+                         tok_len)
+            + vae_decoder_calls(vae_cfg, b, unet_cfg.image_size))
+
+
+def phase_train_preview(trainer, data) -> dict:
+    """trainer.sample_previews on the next batch after phase train's timed
+    steps (its s/step is read before): both PNGs written, each a grid of
+    512^2 tiles (white 2-pixel gutters), the samples not constant; every
+    trainable rela_fuse tensor bit-identical before and after (a preview
+    changes no weight); launches counted from 0 over the preview."""
+    from layoutllm_t2i_torch.utils.images import read_png
+
+    trained = trainer.train_step.params
+    before = {n: p.detach().clone() for n, p in trained.items()}
+    it = trainer.train_step.step
+    _, wall, counts = counted(lambda: trainer.sample_previews(next(data), it))
+    unchanged = all(torch.equal(p, before[n]) for n, p in trained.items())
+    del before
+    ncols = min(4, TRAIN_BATCH)
+    rows = -(-TRAIN_BATCH // ncols)
+    want = (rows * 514 - 2, ncols * 514 - 2, 3)
+    grids = {}
+    for kind in ("samples", "real"):
+        with open(os.path.join(trainer.run_dir, f"{kind}_{it:08d}.png"), "rb") as f:
+            grids[kind] = read_png(f.read())
+    tiles_ok = all(g.shape == want and (g[512:514] == 255).all()
+                   and (g[:, 512:514] == 255).all() for g in grids.values())
+    varied = float(grids["samples"][:512, :512].std()) > 0.0
+    launched = all(counts[kid] > 0 for kid in PREVIEW_KIDS)
+    ok = unchanged and tiles_ok and varied and launched
+    emit({"phase": "train-preview", "ok": ok, "card": nvidia_smi_line(),
+          "preview_steps": PREVIEW_STEPS, "batch": TRAIN_BATCH,
+          "cfg_batch": 2 * TRAIN_BATCH, "wall_s": wall,
+          "grid": list(want), "grids_ok": tiles_ok, "samples_varied": varied,
+          "rela_fuse_bit_identical": unchanged,
+          "compute_dtype": str(trainer._preview_pipe.models.compute_dtype),
+          "launches": counts})
+    if not ok:
+        raise SmokeFailure(
+            "train-preview: a PNG is missing or not a grid of 512^2 tiles, "
+            "the samples are constant, the preview changed a rela_fuse "
+            "tensor, or K1-K4 or K3/f32 launched no time")
+    return counts
 
 
 # device-time groups of the profile, matched in order against kernel names
@@ -2695,6 +3009,7 @@ def main(argv=None) -> int:
     work_dir = os.path.join(build_dir, "chip_smoke_train")
     cli_dir = os.path.join(build_dir, "chip_smoke_cli")
     rl_dir = os.path.join(build_dir, "chip_smoke_rl")
+    eval_dir = os.path.join(build_dir, "chip_smoke_eval")
     try:
         with route_env(DEFAULT):
             phase_build()
@@ -2722,6 +3037,14 @@ def main(argv=None) -> int:
             gen_paths["rl"] = rl_calls(unet_cfg, vae_cfg, clip_cfg,
                                        CLIPTextConfig(), CLIPVisionConfig(),
                                        tok_len)
+            gen_paths["eval"] = eval_paths(unet_cfg, vae_cfg, clip_cfg,
+                                           tok_len, CLIPTextConfig(),
+                                           CLIPVisionConfig())
+            # phase train's preview: the batch after its TRAIN_STEPS steps
+            gen_paths["preview"] = preview_calls(
+                unet_cfg, vae_cfg, clip_cfg, tok_len,
+                next(itertools.islice(synthetic_layout_batches(
+                    TRAIN_BATCH, 512, TRAIN_MAX_BOXES), TRAIN_STEPS, None)))
             # the f32 bundle's generations: dense, and int8 through K7/f32
             for name, route in (("generate-f32", DEFAULT),
                                 ("int8-f32", INT8)):
@@ -2761,11 +3084,15 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             rl_counts = phase_rl(rl_dir)
             torch.cuda.empty_cache()
+            eval_counts = phase_eval(eval_dir)
+            torch.cuda.empty_cache()
             train_counts = {}
             for mixed, suffix in ((True, ""), (False, "-f32")):
                 phase_train_grad(mixed_precision=mixed)
                 train_counts[suffix], trainer, data = phase_train(
                     work_dir, mixed_precision=mixed)
+                if mixed:
+                    preview_counts = phase_train_preview(trainer, data)
                 if args.profile:
                     profile_train_step(trainer, data, f"train{suffix}",
                                        args.profile)
@@ -2786,17 +3113,20 @@ def main(argv=None) -> int:
         shutil.rmtree(work_dir, ignore_errors=True)
         shutil.rmtree(cli_dir, ignore_errors=True)
         shutil.rmtree(rl_dir, ignore_errors=True)
+        shutil.rmtree(eval_dir, ignore_errors=True)
     # each run launches its path's kernels: the exact and the fast
-    # generation, the bench, the CLIs and the RL trainer K1-K4 (K3 also in
-    # f32, in the reward), the int8 generation K7, the split routes K6, K8a
-    # and K8b, mixed-precision training K1-K5b in bf16 and its encoders'
+    # generation, the bench, the CLIs, the RL trainer, the NSS1K runs and
+    # the training preview K1-K4 (K3 also in f32: the reward's towers, the
+    # trainer's text encoder), the int8 generation K7, the split routes K6,
+    # K8a and K8b, mixed-precision training K1-K5b in bf16 and its encoders'
     # K1 (d 512), K2 and K3 in f32, f32 training the f32 forms of K1-K5b,
     # the f32 generation those of K1-K4, its int8 one K7/f32 and f32
     # training on the split routes those of K6, K8a and K8b; the line adds
-    # the twelve runs
+    # the fourteen runs
     runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
             "routes": routes_counts, "bench": bench_counts, "cli": cli_counts,
-            "rl": rl_counts, "train": train_counts[""],
+            "rl": rl_counts, "eval": eval_counts, "preview": preview_counts,
+            "train": train_counts[""],
             "train-f32": train_counts["-f32"], "generate-f32": gen_f32_counts,
             "int8-f32": int8_f32_counts, "routes-f32": routes_f32_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
@@ -2805,6 +3135,7 @@ def main(argv=None) -> int:
     expected = {"generate": generation, "fast": generation, "int8": ("K7",),
                 "routes": ("K6", "K8a", "K8b"), "bench": generation,
                 "cli": generation, "rl": generation + ("K3/f32",),
+                "eval": EVAL_KIDS, "preview": PREVIEW_KIDS,
                 "train": step_kernels(DEFAULT) + encoders,
                 "train-f32": tuple(f"{kid}/f32" for kid in step_kernels(DEFAULT)),
                 "generate-f32": tuple(f"{kid}/f32" for kid in generation),

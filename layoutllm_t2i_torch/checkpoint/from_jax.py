@@ -184,3 +184,16 @@ def clip_text_params_from_jax(tree: Dict[str, Any], cfg, device=None,
     init_tree = init_clip_text_params(meta, cfg)
     init_tree["text_projection"] = linear_p(meta, din, dout, bias=False)
     return _strict_tree(init_tree, tree, device, dtype)
+
+
+def inception_params_from_jax(tree: Dict[str, Any], device=None,
+                              dtype: torch.dtype = torch.float32) -> ParamTree:
+    """The JAX package's InceptionV3 tree (eval/fid.py
+    init_inception_params, or load_inception_checkpoint's: convs HWIO, BN
+    leaves 1-D) as the port's eval/fid.py tree, strictly: convs OIHW under
+    the same torchvision names."""
+    from ..eval.fid import init_inception_params
+    from ..models.initializers import Init
+
+    meta = Init(None, torch.device("meta"))
+    return _strict_tree(init_inception_params(meta), tree, device, dtype)

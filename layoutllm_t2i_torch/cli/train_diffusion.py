@@ -11,9 +11,10 @@ On the CPU, with tiny random models:
       --warmup_steps 1
 The flags are the JAX CLI's, plus ``--device``. ``--ckpt_path`` starts
 from a reference GLIGEN .pth (its embedded config sets the geometry, so it
-takes the place of ``--small``'s models). Not ported yet, and refused with
-NotImplementedError naming the ROADMAP.md item: ``--coco_root``,
-``--multihost``, ``--zero1`` and ``--enable_previews``.
+takes the place of ``--small``'s models). ``--enable_previews`` writes a
+PLMS sample grid (``--preview_steps``) and the batch's real images at every
+save. Not ported yet, and refused with NotImplementedError naming the
+ROADMAP.md item: ``--coco_root``, ``--multihost`` and ``--zero1``.
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def parse_args(argv=None):
                    help="random data (smoke/benchmark runs)")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--enable_previews", action="store_true",
-                   help="PLMS sample grid at every save (not ported)")
+                   help="PLMS sample grid at every save")
     p.add_argument("--preview_steps", type=int, default=50)
     p.add_argument("--export_reference_ckpt", action="store_true",
                    help="also write the reference 4-module .pth at every save")

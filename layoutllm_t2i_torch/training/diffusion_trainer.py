@@ -13,15 +13,18 @@ trainer_combined_layout.py).
     AdamW/SGD on the trainable subset, optional EMA;
   * checkpoints with embedded config and tagNN auto-resume
     (trainer_combined_layout.py:147-176, 523-535), written on a background
-    thread; JSONL metrics.
+    thread; JSONL metrics;
+  * with ``disable_inference_in_training=False``, a PLMS sample grid of the
+    current weights on the saved iteration's batch at every save
+    (``sample_previews``, trainer_combined_layout.py:457-521), through one
+    ``InferencePipeline`` a run that reads the trainer's live UNet tensors.
 
 One ``torch.Generator`` seeded from ``TrainerConfig.seed`` draws the VAE
-posterior sample, the timestep, the noise and the grounding drop; nothing
-reads the global RNG. A run can start from a reference GLIGEN ``.pth``
-(``TrainerConfig.ckpt_path``). Not ported yet (each raises
-NotImplementedError and names its ROADMAP.md item by title): more than one
-device and ZeRO-1 ("parallel/") and the periodic sample previews
-("training previews").
+posterior sample, the timestep, the noise, the grounding drop and the
+previews' noise; nothing reads the global RNG. A run can start from a
+reference GLIGEN ``.pth`` (``TrainerConfig.ckpt_path``). Not ported yet
+(raises NotImplementedError and names its ROADMAP.md item by title): more
+than one device and ZeRO-1 ("parallel/").
 """
 from __future__ import annotations
 
@@ -41,10 +44,13 @@ from ..device import DeviceLike
 from ..models.clip_text import clip_text_apply
 from ..models.vae import encode as vae_encode
 from ..ops.nn import nhwc_to_nchw
-from ..pipeline.inference import GligenModels, encode_texts_bucketed
+from ..pipeline.inference import (GligenModels, InferencePipeline,
+                                  encode_texts_bucketed)
 from ..pipeline.loaders import load_models_from_gligen_ckpt, random_models
 from ..pipeline.scene_graph import relation_texts_for_training
+from ..utils.images import save_image_grid
 from ..utils.logging import Logger, MetricsWriter
+from ..utils.trees import ParamTree, unflatten_tree
 from .train_step import TrainStep, TrainStepConfig
 
 
@@ -66,7 +72,9 @@ class TrainerConfig:
     max_relations: int = 10
     seed: int = 123
     ckpt_path: Optional[str] = None   # GLIGEN .pth to start from
-    # periodic PLMS sample grid at every save (not ported: must stay True)
+    # periodic PLMS sample grid on a training batch at every save
+    # (trainer_combined_layout.py:457-521); off by default like the
+    # reference flag of the same name
     disable_inference_in_training: bool = True
     preview_steps: int = 50
     preview_guidance: float = 5.0
@@ -91,10 +99,6 @@ def check_supported(config: TrainerConfig) -> None:
         raise NotImplementedError(
             "more than one device and ZeRO-1 are not ported (ROADMAP.md "
             "Queue 1, \"parallel/\")")
-    if not config.disable_inference_in_training:
-        raise NotImplementedError(
-            "sample previews during training are not ported (ROADMAP.md "
-            "Queue 1, \"training previews\")")
 
 
 def _prepare_models(models: GligenModels) -> GligenModels:
@@ -168,6 +172,7 @@ class DiffusionTrainer:
                               f"{self.starting_iter}")
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
+        self._preview_pipe = None
 
     # -- batch encoding ------------------------------------------------------
 
@@ -226,7 +231,8 @@ class DiffusionTrainer:
         it = iter(self.dataset)
         t_last = time.time()
         for iter_idx in range(self.starting_iter, cfg.total_iters):
-            batch = self.prepare_batch(next(it))
+            host_batch = next(it)
+            batch = self.prepare_batch(host_batch)
             loss = self.train_step(batch, self.generator)
             if iter_idx % cfg.log_every == 0:
                 loss_v = float(loss)  # the one host sync of a logged step
@@ -237,6 +243,8 @@ class DiffusionTrainer:
                 self.logger.write(f"iter {iter_idx}: loss={loss_v:.5f}")
             if (iter_idx == cfg.total_iters - 1
                     or (iter_idx > 0 and iter_idx % cfg.save_every_iters == 0)):
+                if not cfg.disable_inference_in_training:
+                    self.sample_previews(host_batch, iter_idx + 1)
                 self.save_ckpt(iter_idx + 1)
         # join the in-flight checkpoint write (and surface its error)
         self.ckpt_writer.wait()
@@ -246,6 +254,73 @@ class DiffusionTrainer:
         self.ckpt_writer.wait()
         self.logger.close()
         self.metrics.close()
+
+    # -- periodic sample previews (trainer_combined_layout.py:457-521) --------
+
+    def _preview_pipeline(self) -> InferencePipeline:
+        """ONE InferencePipeline a run, built at the first preview: PLMS at
+        ``preview_steps``, guidance ``preview_guidance``, no alpha schedule,
+        computing in the train step's dtype (bf16 under mixed precision,
+        else f32). Its UNet is set at each preview to the train step's
+        compute tree (``sample_previews``). The text encoder is the
+        trainer's own f32 module, as the JAX preview encodes in f32; the
+        frozen VAE decodes in the compute dtype, as the JAX preview decodes
+        its latents cast to it: the trainer's f32 module in f32, under mixed
+        precision a bf16 copy made here, once a run (the kernels take
+        weights in their activations' type)."""
+        if self._preview_pipe is None:
+            m = self.models
+            dtype = self.step_cfg.compute_dtype
+            vae = m.vae_params
+            if dtype != torch.float32:
+                vae = ParamTree(unflatten_tree({
+                    k: v.to(dtype) for k, v in vae.state_dict().items()}))
+            models = GligenModels(
+                unet_cfg=m.unet_cfg, unet_params=None, vae_cfg=m.vae_cfg,
+                vae_params=vae, clip_cfg=m.clip_cfg,
+                clip_params=m.clip_params, schedule=m.schedule,
+                tokenizer=m.tokenizer, max_relas=self.config.max_relations,
+                compute_dtype=dtype, device=self.device)
+            self._preview_pipe = InferencePipeline(
+                models, steps=self.config.preview_steps, sampler="plms",
+                guidance_scale=self.config.preview_guidance, alpha_type=None)
+        return self._preview_pipe
+
+    @torch.no_grad()
+    def sample_previews(self, host_batch, iter_name: int):
+        """PLMS sample grid from the current weights on a training batch
+        (reference: S=50, guidance 5, no alpha schedule), written as
+        ``samples_<iter>.png`` beside ``real_<iter>.png`` in the run
+        directory. The pipeline reads the live UNet: the train step's tree
+        in its compute dtype, which aliases the f32 masters in f32 and is
+        the bf16 copy the step already holds under mixed precision (only
+        the small trainable tensors are cast here); no weight changes. The
+        noise is one draw from the trainer's generator, (B, h, w, c) f32,
+        after the step's draws, as the JAX trainer splits its key for it."""
+        cfg = self.models.unet_cfg
+        captions = list(host_batch["caption"])
+        b = len(captions)
+        pipe = self._preview_pipeline()
+        pipe.models.unet_params = self.train_step.compute_params()
+        pos, rel = self._grounding_tensors(captions, host_batch["labels"])
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                        device=self.device)
+        cond = {"context": pipe.encode_text(captions),
+                "uc_context": pipe.encode_text([""] * b),
+                "boxes": f32(host_batch["boxes"]),
+                "masks": f32(host_batch["masks"]),
+                "phrase_embeddings": f32(pos), "relations": f32(rel)}
+        noise = torch.randn((b, cfg.image_size, cfg.image_size,
+                             cfg.in_channels), generator=self.generator,
+                            device=self.device, dtype=torch.float32)
+        imgs = pipe.sample_latents(cond, noise).cpu().numpy()
+        pipe.models.unet_params = None
+        out_path = os.path.join(self.run_dir, f"samples_{iter_name:08d}.png")
+        save_image_grid(imgs, out_path, captions)
+        real = np.asarray(host_batch["image"]) * 0.5 + 0.5
+        save_image_grid(real, os.path.join(self.run_dir,
+                                           f"real_{iter_name:08d}.png"))
+        self.logger.write(f"saved sample previews to {out_path}")
 
     # -- checkpoints ---------------------------------------------------------
 

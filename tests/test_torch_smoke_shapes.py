@@ -257,6 +257,99 @@ def test_rl_walk_matches_the_calls(recorded):
     assert ("K3", (TOK_LEN, 32, "f32")) in want_f32    # the one new label
 
 
+def _small_reward():
+    """A RewardModel with towers small enough for the CPU (f32, as on the
+    card), and their configs."""
+    from layoutllm_t2i_torch.models.clip_vision import (CLIPVisionConfig,
+                                                        init_clip_vision_params)
+    from layoutllm_t2i_torch.models.initializers import linear_p
+    from layoutllm_t2i_torch.models.policy import init_aesthetic_params
+    from layoutllm_t2i_torch.pipeline.reward import RewardModel
+
+    ini = Init(torch.Generator().manual_seed(1), torch.device("cpu"))
+    text_cfg = CLIPTextConfig(num_layers=1, hidden_size=32, num_heads=2,
+                              intermediate_size=64, vocab_size=512,
+                              max_length=TOK_LEN)
+    vision_cfg = CLIPVisionConfig(image_size=28, patch_size=14, hidden_size=32,
+                                  num_layers=2, num_heads=2,
+                                  intermediate_size=64, projection_dim=24)
+    text = init_clip_text_params(ini, text_cfg)
+    text["text_projection"] = linear_p(ini, 32, 24, bias=False)
+    reward = RewardModel(text_cfg, text, vision_cfg,
+                         init_clip_vision_params(ini, vision_cfg),
+                         init_aesthetic_params(ini, 24),
+                         HashTokenizer(max_length=TOK_LEN, vocab_size=512),
+                         device="cpu")
+    return reward, text_cfg, vision_cfg
+
+
+def _unmarked(calls):
+    """A walk's calls with the f32 mark dropped (the CPU models of the
+    generation and the reward's towers are all f32)."""
+    return {(kid, args[:-1] if cs.is_f32(args) else args) for kid, args in calls}
+
+
+def test_eval_walk_matches_the_calls(recorded, tmp_path):
+    """Phase eval's runs through eval/nss1k.py run_bench: run A, each split
+    under the fast preset at batch 2; run B, the planner's features of the
+    candidates and the captions, the cached layouts (one label outside
+    COCO-80) and the exact generation; CLIPScore after each batch. The
+    reward's 80 label embeddings (made at construction) are phase rl's."""
+    from layoutllm_t2i_torch.eval import nss1k
+
+    models = _models()
+    reward, text_cfg, vision_cfg = _small_reward()
+    del recorded[:]
+    fast = InferencePipeline(models, alpha_type=(0.3, 0.0, 0.7),
+                             vae_chunk=cs.VAE_CHUNK,
+                             **{**cs.fast_settings(), "steps": 4})
+    exact = InferencePipeline(models, steps=3, alpha_type=(0.3, 0.0, 0.7),
+                              vae_chunk=cs.VAE_CHUNK)
+    splits = {split: [{"captions": cap, "label": labels,
+                       "bbox": cs.EVAL_BOXES[:len(labels)]} for cap, labels in items]
+              for split, items in cs.EVAL_SPLITS.items()}
+    for examples in splits.values():
+        nss1k.run_bench(fast, reward, examples, batch_size=cs.EVAL_N)
+    reward.text_features([c["captions"] for c in cs.CLI_CANDIDATES])
+    examples = splits[cs.EVAL_FID_SPLIT]
+
+    def planner_fn(captions):
+        reward.text_features(captions)
+        return [([lab for lab, _ in cs.EVAL_LAYOUTS[c]],
+                 [b for _, b in cs.EVAL_LAYOUTS[c]]) for c in captions]
+
+    out = nss1k.run_bench(exact, reward, examples, batch_size=cs.EVAL_N,
+                          planner_fn=planner_fn)
+    assert out["layout_parsed"] == cs.EVAL_N
+    want = cs.eval_paths(models.unet_cfg, models.vae_cfg, models.clip_cfg,
+                         TOK_LEN, text_cfg, vision_cfg)
+    assert set(recorded) == _unmarked(want)
+    assert ("K3", (2 * 5, 32, "f32")) in want      # 2 images x 5 tokens
+    assert ("K3", (len(cs.CLI_CANDIDATES) * TOK_LEN, 32, "f32")) in want
+
+
+def test_preview_walk_matches_the_calls(recorded, tmp_path):
+    """Phase train's preview under mixed precision: the trainer's f32 text
+    encoder on the captions, the empty prompts and the grounding texts, the
+    bf16 UNet at CFG batch 4, the bf16 VAE decode."""
+    recorded.mark_f32 = True
+    cfg = TrainerConfig(output_root=str(tmp_path), name="p", batch_size=2,
+                        total_iters=1, max_boxes=cs.TRAIN_MAX_BOXES,
+                        max_relations=cs.TRAIN_MAX_RELATIONS,
+                        mixed_precision=True, preview_steps=2)
+    trainer = DiffusionTrainer(cfg, iter(()), models=_models())
+    batch = next(synthetic_layout_batches(2, 64, cs.TRAIN_MAX_BOXES))
+    trainer.sample_previews(batch, 1)
+    trainer.close()
+    want = cs.preview_calls(trainer.models.unet_cfg, trainer.models.vae_cfg,
+                            trainer.models.clip_cfg, TOK_LEN, batch)
+    assert set(recorded) == set(want)
+    assert any(kid == "K1" and not cs.is_f32(a) for kid, a in want)
+    # the f32 calls are the text encoder's LayerNorms alone
+    f32 = {kid for kid, a in want if cs.is_f32(a)}
+    assert f32 == {"K3"}
+
+
 def test_fast_generation_walk_matches_the_calls(recorded):
     """The fast preset (DPM-15, CFG on (0, 0.75), encoder cache 2): CFG
     steps at batch 4, cond-only steps at batch 2, the gated fusers on the

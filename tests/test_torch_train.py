@@ -287,8 +287,7 @@ def test_trainer_runs_resumes_and_trains_only_rela_fuse(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    for kw in (dict(num_devices=2), dict(zero1_opt_state=True),
-               dict(disable_inference_in_training=False)):
+    for kw in (dict(num_devices=2), dict(zero1_opt_state=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             DiffusionTrainer(_trainer_cfg(tmp_path, **kw), iter(()),
                              models=_port_models())
@@ -327,8 +326,7 @@ def test_cli_small_drive_and_refusals(tmp_path):
     run = tmp_path / "cli" / "tag00"
     assert (run / "checkpoint_00000003" / "state.pt").exists()
     assert (run / "checkpoint_00000003.pth").exists()
-    for extra in (["--coco_root", "/data"], ["--multihost"], ["--zero1"],
-                  ["--enable_previews"]):
+    for extra in (["--coco_root", "/data"], ["--multihost"], ["--zero1"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cli.main(argv + extra)
 
