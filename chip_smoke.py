@@ -92,6 +92,30 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                the norm3 sites, K3 + K8b + K8a at the fusers' dense
                branch): a UNet forward against the plain route, then phase
                4's generation and its launches.
+  8a. inpaint inpainting on phase 4's bundle: z0 a VAE posterior sample
+               of phase 4's first image, REQUESTS' boxes the region to
+               paint (cli/gligen_inference.py inpaint_conditioning), the
+               blend's noise drawn once and fed to both routes; exact
+               PLMS-50 and the fast preset (its encoder cache off under
+               inpainting), each through the kernels and again under
+               plain_route(): PSNR >= 35 dB, the fast run's UNet
+               evaluations the uncached step tables' (utils/flops.py
+               unet_evaluations(..., inpaint=True)), the exact run's final
+               latent within INPAINT_KEPT_TOL of z0 (mean |d|) over the
+               kept region while the painted region, a planted inverted
+               mask, exceeds it; then an inpaint_mode UNet (9 input
+               channels: the latent, z0 * mask, the mask) on one exact
+               generation, both routes.
+  8b. modalities  random_models(seed 0) at full width in bf16, adapted by
+               adapt_models_for_modality, gated alphas 0.5, alpha
+               (1, 0, 0): canny (ConvNeXt-tiny at 448^2 in f32, the
+               downsampler's 8 channels; PLMS-50) and, at PLMS-10 (a depth
+               cut), keypoint (2 persons), text_image (the ViT-L/14 vision
+               tower in f32 on one reference PNG, a 2-box layout), a
+               gatedSA2 UNet on canny, a gatedCA UNet on canny and on
+               keypoint: each run's images through the kernels against
+               plain_route()'s (PSNR >= 35 dB), K1-K4 launched, and the
+               gatedCA runs' K1 at M = 196 and M = 136.
   9. bench     the port bench (cli/bench.py) as run with no flags, in this
                process: random weights from seed 0, bf16, 8 requests (CFG
                batch 16), iters 3, exact PLMS-50 then the fast preset on the
@@ -103,10 +127,16 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                each: cli/txt2img.py main with --layout and again through
                the offline planner (a candidate JSON, a layout-cache JSON
                and a random policy .pt written to build/), cli/
-               gligen_inference.py main with --negative_prompt, and one
-               POST to cli/demo.py's /api/generate on 127.0.0.1; every PNG
-               decodes (zlib) to 512x512 RGB with its layout's box outlines
-               in blue.
+               gligen_inference.py main with --negative_prompt, with
+               --inpaint_image (phase 4's first image as a 512^2 PNG),
+               --modality canny --map_path, --modality keypoint
+               --keypoints and --modality text_image --image_refs, and two
+               POSTs to cli/demo.py's /api/generate on 127.0.0.1, one with
+               a PNG data URL to inpaint; every PNG decodes (zlib) to
+               512x512 RGB, with its layout's box outlines in blue where
+               it has a layout. Then phase kernels' second pass: the
+               shapes that phases 8a, 8b and 10 recorded as they ran
+               (recorded_calls) and the first pass did not hold.
  11. rl        the RL path at full width on a fixture written to build/
                (4 COCO-style examples, 512^2 PNGs, a layout cache): the
                reward (CLIP ViT-L/14 text and vision towers and the
@@ -185,7 +215,7 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
      `device_vs_library` are the ratios of those sums; `launches` adds
-     the runs of phases 4, 5, 7-11, 11b (its two runs), 13 (its steps and
+     the runs of phases 4, 5, 7-8b, 9-11, 11b (its two runs), 13 (its steps and
      its preview), 15, 16, 17 and 18 (its training),
      each read from counts set to 0 just before it; each f32 form
      has an entry of its own ("K1/f32 flash_attention", ...), its rows'
@@ -200,7 +230,9 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      (unet_calls), each shape weighted by its calls.
 
 Phase 2's shapes are walked from the model configs (generation_calls,
-training_calls): the generation at 2 requests (CFG batch 4) on each of
+training_calls), and the bf16 head dims 48, 72 and 504 of K1 and 48 and
+72 of K5 that no model routes to them (HEAD_DIM_CALLS): the generation at
+2 requests (CFG batch 4) on each of
 its three routes (Route: the default, int8, and the split FF routes), the
 fast preset's evaluations from its step tables (unet_evaluations: CFG at
 batch 4, cond-only at batch 2, with and without the gated fusers, key
@@ -244,6 +276,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import importlib
 import itertools
@@ -690,12 +723,14 @@ def clip_calls(clip_cfg, rows):
     return [("K3", (rows, clip_cfg.hidden_size))] * (2 * clip_cfg.num_layers + 1)
 
 
-def unet_evaluations(pipe, b):
+def unet_evaluations(pipe, b, inpaint: bool = False):
     """(batch, gated, encoder) of every UNet evaluation of ``pipe`` for b
-    requests: utils/flops.py's, which counts the FLOPs of the same list."""
+    requests: utils/flops.py's, which counts the FLOPs of the same list
+    (under ``inpaint`` without the encoder cache, which inpainting turns
+    off)."""
     from layoutllm_t2i_torch.utils.flops import unet_evaluations as evals
 
-    return evals(pipe, b)
+    return evals(pipe, b, inpaint=inpaint)
 
 
 def generation_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, requests,
@@ -769,7 +804,8 @@ def case_label(kid, args):
         n, hw, c, eps, silu = args[:5]
         return f"N{n} HW{hw} C{c} eps{eps:g} silu{int(silu)}" + f32
     if kid == "K3":
-        return "rows{} C{}".format(*args) + f32
+        return "rows{} C{}".format(*args) + (
+            f" eps{args[2]:g}" if len(args) > 2 and args[2] != "f32" else "") + f32
     if kid == "K6":
         return "M{} K{}".format(*args) + f32
     if kid in ("K8a", "K8b"):
@@ -833,11 +869,13 @@ def make_case(kid, args, dev, gen):
                 10.0 * x.numel(), item * (2 * x.numel() + 2 * c))
     if kid == "K3":
         rows, c = args[:2]
+        # ConvNeXt's rows carry their eps 1e-6; every other site's is 1e-5
+        eps = args[2] if len(args) > 2 and args[2] != "f32" else 1e-5
         x = rnd(rows, c, scale=2.0) + 0.5
         w, bb = rnd(c, scale=0.5) + 1.0, rnd(c, scale=0.5)
-        return (lambda: K.layer_norm(x, w, bb, 1e-5),
-                lambda: K.layer_norm_plain(x, w, bb, 1e-5),
-                lambda: F.layer_norm(x, (c,), w, bb, 1e-5),
+        return (lambda: K.layer_norm(x, w, bb, eps),
+                lambda: K.layer_norm_plain(x, w, bb, eps),
+                lambda: F.layer_norm(x, (c,), w, bb, eps),
                 8.0 * x.numel(),
                 x.element_size() * (2.0 * x.numel() + 2 * c))
     if kid in ("K8a", "K8b"):
@@ -1150,26 +1188,35 @@ def path_counts() -> dict:
     return out
 
 
-def phase_kernels(cases):
+def phase_kernels(cases, acc=None):
+    """Every case against its plain version, timed. ``acc``: the
+    (summary, pairs, host floor) of an earlier pass, which this pass adds
+    its rows to (the second pass takes the shapes that phases inpaint,
+    modalities and cli recorded and the first did not hold). Returns
+    (summary, pairs, host floor); a summary's ``host_us`` stays a list of
+    its rows' (host_us_median takes their median)."""
     from layoutllm_t2i_torch.kernels.tolerance import agreement, tol_id
 
-    host_floor = host_path_checks()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     clock_hz = max_sm_clock_hz()
-    summary = {kid: {"max_abs_err": 0.0, "max_rel_err": 0.0,
-                     "rms_rel_err": 0.0, "ms": 0.0,
-                     "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                     "device_ms": 0.0, "library_device_ms": 0.0,
-                     "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0,
-                     "host_us": [], "device_ms_by_args": {}}
-               for kid in KERNEL_META}
-    # the K5 pairs' sums, bf16 and f32 apart
-    pairs = {}
-    for key in ("bf16", "f32"):
-        pairs[key] = {k: 0.0 for k in PAIR_SUMS}
-        pairs[key]["shapes"], pairs[key]["max_vs_library"] = 0, 0.0
+    if acc is None:
+        host_floor = host_path_checks()
+        summary = {kid: {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                         "rms_rel_err": 0.0, "ms": 0.0,
+                         "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                         "device_ms": 0.0, "library_device_ms": 0.0,
+                         "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0,
+                         "host_us": [], "device_ms_by_args": {}}
+                   for kid in KERNEL_META}
+        # the K5 pairs' sums, bf16 and f32 apart
+        pairs = {}
+        for key in ("bf16", "f32"):
+            pairs[key] = {k: 0.0 for k in PAIR_SUMS}
+            pairs[key]["shapes"], pairs[key]["max_vs_library"] = 0, 0.0
+    else:
+        summary, pairs, host_floor = acc
     half = {}  # (K5a or K5b, shape) -> its record, until the pair is complete
     failed = []
     for kid, label, args, paths in cases:
@@ -1230,12 +1277,14 @@ def phase_kernels(cases):
         if pair["shapes"]:
             pair["vs_library"] = pair["ms"] / pair["library_ms"]
             pair["device_vs_library"] = pair["device_ms"] / pair["library_device_ms"]
-    for agg in summary.values():
-        agg["host_us"] = float(np.median(agg["host_us"])) if agg["host_us"] else None
-    emit({"phase": "kernels", "host_us_median": {
-        kid: agg["host_us"] for kid, agg in summary.items()},
+    emit({"phase": "kernels", "rows": len(cases), "host_us_median": {
+        kid: host_us_median(agg) for kid, agg in summary.items()},
         "host_floor_us": host_floor["host_floor_us"]})
-    return summary, pairs
+    return summary, pairs, host_floor
+
+
+def host_us_median(agg):
+    return float(np.median(agg["host_us"])) if agg["host_us"] else None
 
 
 PAIR_SUMS = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
@@ -1826,19 +1875,25 @@ def drawn_boxes_ok(pixels, spec: str) -> dict:
             "ok": bool(want.any() and blue[want].all())}
 
 
-def phase_cli(work_dir: str):
+def phase_cli(work_dir: str, source01):
     """cli/txt2img.py main with --layout and again through the offline
     planner (a candidate JSON, a layout-cache JSON and a random policy .pt
     written here), cli/gligen_inference.py main with --negative_prompt,
-    and one POST to cli/demo.py's /api/generate on 127.0.0.1, at full
-    width on the card: every PNG decodes to 512x512 RGB with the layout's
-    box outlines in blue. Launches counted from 0 over the four runs."""
+    with --inpaint_image (``source01`` written as a 512^2 PNG), with
+    --modality canny --map_path (an edge map of it, 384x512), --modality
+    keypoint --keypoints and --modality text_image --image_refs (a crop of
+    it), and two POSTs to cli/demo.py's /api/generate on 127.0.0.1, the
+    second with the source PNG to inpaint, at full width on the card:
+    every PNG decodes to 512x512 RGB, with the layout's box outlines in
+    blue where there is a layout. Launches counted from 0 over the runs,
+    and their calls recorded. Returns (launches, calls)."""
     import base64
     import http.client
     import threading
 
     from layoutllm_t2i_torch.cli import demo, gligen_inference, txt2img
     from layoutllm_t2i_torch.kernels import reset_launches
+    from layoutllm_t2i_torch.utils.images import png_bytes_uint8, save_png
 
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
@@ -1856,8 +1911,18 @@ def phase_cli(work_dir: str):
     policy_path = os.path.join(work_dir, "policy.pt")
     torch.save(policy.state_dict(), policy_path)
     cached_spec = "; ".join(f"{lab}:{box}" for lab, box in CLI_CACHED_LAYOUT)
+    to8 = lambda a: np.clip(np.round(a * 255.0), 0, 255).astype(np.uint8)
+    src_png, edge_png, ref_png = (os.path.join(work_dir, f"{name}.png")
+                                  for name in ("src", "edges", "ref"))
+    save_png(to8(source01), src_png)
+    save_png(to8(edge_map(source01[64:448])), edge_png)
+    save_png(to8(source01[100:400, 50:330]), ref_png)
+    gligen = lambda name, *argv: gligen_inference.main(
+        ["--prompt", CLI_PROMPT, "--folder", os.path.join(work_dir, name), *argv])
 
     reset_launches()
+    recording = recorded_calls()
+    calls = recording.__enter__()
     t0 = time.perf_counter()
     runs = {
         "txt2img-layout": (txt2img.main([
@@ -1873,25 +1938,41 @@ def phase_cli(work_dir: str):
             "--prompt", CLI_PROMPT, "--layout", CLI_LAYOUT,
             "--negative_prompt", "blurry, low quality",
             "--folder", os.path.join(work_dir, "gligen")]), CLI_LAYOUT),
+        "gligen_inference-inpaint": (gligen(
+            "inpaint", "--layout", CLI_LAYOUT, "--inpaint_image", src_png),
+            CLI_LAYOUT),
+        "gligen_inference-canny": (gligen(
+            "canny", "--modality", "canny", "--map_path", edge_png), None),
+        "gligen_inference-keypoint": (gligen(
+            "keypoint", "--modality", "keypoint", "--keypoints",
+            MODALITY_KEYPOINTS), None),
+        "gligen_inference-text_image": (gligen(
+            "text_image", "--modality", "text_image", "--layout", CLI_LAYOUT,
+            "--image_refs", f"{ref_png};-"), CLI_LAYOUT),
     }
     torch.cuda.empty_cache()
     srv = demo.build_server(demo.parse_args(["--host", "127.0.0.1", "--port", "0"]))
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
+    replies = {}
     try:
         conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
                                           timeout=600)
-        conn.request("POST", "/api/generate", body=json.dumps({
-            "prompt": CLI_PROMPT, "negative": "", "guidance": 7.5,
-            "alpha": [0.3, 0.0, 0.7], "seed": 42,
-            "boxes": [{"label": "cat", "x": 0.2, "y": 0.1, "w": 0.4, "h": 0.5},
-                      {"label": "wooden chair", "x": 0.15, "y": 0.45,
-                       "w": 0.55, "h": 0.5}]}))
-        reply = json.loads(conn.getresponse().read())
+        body = {"prompt": CLI_PROMPT, "negative": "", "guidance": 7.5,
+                "alpha": [0.3, 0.0, 0.7], "seed": 42,
+                "boxes": [{"label": "cat", "x": 0.2, "y": 0.1, "w": 0.4, "h": 0.5},
+                          {"label": "wooden chair", "x": 0.15, "y": 0.45,
+                           "w": 0.55, "h": 0.5}]}
+        inpaint = "data:image/png;base64," + base64.b64encode(
+            png_bytes_uint8(to8(source01))).decode()
+        for name, extra in (("demo", {}), ("demo-inpaint", {"inpaint": inpaint})):
+            conn.request("POST", "/api/generate", body=json.dumps({**body, **extra}))
+            replies[name] = json.loads(conn.getresponse().read())
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join(60)
+        recording.__exit__(None, None, None)
     wall = time.perf_counter() - t0
     counts = path_counts()
     checks = {}
@@ -1899,28 +1980,439 @@ def phase_cli(work_dir: str):
         pixels = [png_pixels(open(path, "rb").read()) for path in paths]
         checks[name] = {"files": [os.path.basename(p) for p in paths],
                         "shape": [list(p.shape) for p in pixels],
-                        **drawn_boxes_ok(pixels[0], spec)}
+                        **(drawn_boxes_ok(pixels[0], spec) if spec else {"ok": True})}
         checks[name]["ok"] = (checks[name]["ok"] and len(pixels) == 1
                               and pixels[0].shape == (512, 512, 3))
-    demo_ok = "image" in reply
-    if demo_ok:
-        pixels = png_pixels(base64.b64decode(reply["image"]))
-        checks["demo"] = {"seconds": reply["seconds"], "layout": reply["layout"],
-                          "shape": list(pixels.shape),
-                          **drawn_boxes_ok(pixels, CLI_LAYOUT)}
-        checks["demo"]["ok"] = checks["demo"]["ok"] and pixels.shape == (512, 512, 3)
-    else:
-        checks["demo"] = {"ok": False, "reply": reply}
+    for name, reply in replies.items():
+        if "image" in reply:
+            pixels = png_pixels(base64.b64decode(reply["image"]))
+            checks[name] = {"seconds": reply["seconds"], "layout": reply["layout"],
+                            "shape": list(pixels.shape),
+                            **drawn_boxes_ok(pixels, CLI_LAYOUT)}
+            checks[name]["ok"] = checks[name]["ok"] and pixels.shape == (512, 512, 3)
+        else:
+            checks[name] = {"ok": False, "reply": reply}
     launched = all(counts[kid] > 0 for kid in ("K1", "K2", "K3", "K4"))
     ok = launched and all(c["ok"] for c in checks.values())
     emit({"phase": "cli", "ok": ok, "wall_s": wall, "checks": checks,
           "launches": counts})
     if not ok:
-        raise SmokeFailure("cli: a CLI's PNG is not a 512x512 RGB image with "
-                           "its layout's box outlines, the demo gave no image, "
-                           "or K1-K4 not launched")
+        raise SmokeFailure("cli: a CLI's PNG is not a 512x512 RGB image (with "
+                           "its layout's box outlines), a demo POST gave no "
+                           "image, or K1-K4 not launched")
     shutil.rmtree(work_dir, ignore_errors=True)
-    return counts
+    return counts, calls
+
+
+# ---------------------------------------------------------------------------
+# phases inpaint and modalities: kernel calls recorded as they are made
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Every kernel wrapper call that ops/nn.py and ops/attention.py make
+    inside the block, as (kid, args) in the walk's terms (an f32 operand's
+    args end in "f32"; a K3 call at another eps than 1e-5 carries it;
+    K4's and K7's s is 1.0 at the norm3 sites and stands at 0.5 for a
+    fuser's gate), appended to the list it yields. Phase kernels' second
+    pass takes the new shapes of phases inpaint, modalities and cli from
+    these records (tests/test_torch_smoke_shapes.py holds them against the
+    CPU test's recorder)."""
+    from layoutllm_t2i_torch.kernels.dispatch import needs_grad
+
+    nn_mod = importlib.import_module("layoutllm_t2i_torch.ops.nn")
+    attn_mod = importlib.import_module("layoutllm_t2i_torch.ops.attention")
+    calls = []
+    real = {name: getattr(nn_mod, name) for name in (
+        "_group_norm_rows", "_layer_norm_rows", "ffn_ln_geglu", "ffn_geglu",
+        "ffn_ln_geglu_q", "linear_fused", "geglu_fused")}
+    real_flash = attn_mod.flash_attention
+    f32 = lambda x: ("f32",) if x.dtype is torch.float32 else ()
+    gate = lambda s: 1.0 if isinstance(s, float) and s == 1.0 else 0.5
+
+    def group_norm(x, w, b, groups, eps, silu):
+        calls.append(("K2", (*x.shape, eps, silu) + f32(x)))
+        return real["_group_norm_rows"](x, w, b, groups, eps, silu)
+
+    def layer_norm(x, w, b, eps):
+        calls.append(("K3", tuple(x.shape) + ((eps,) if eps != 1e-5 else ())
+                      + f32(x)))
+        return real["_layer_norm_rows"](x, w, b, eps)
+
+    def ffn(x, lw, lb, w1, b1, w2, b2, s):
+        calls.append(("K4", (*x.shape, gate(s)) + f32(x)))
+        return real["ffn_ln_geglu"](x, lw, lb, w1, b1, w2, b2, s)
+
+    def ffn_res(x, w1, b1, w2, b2, r):
+        calls.append(("K6", tuple(x.shape) + f32(x)))
+        return real["ffn_geglu"](x, w1, b1, w2, b2, r)
+
+    def ffn_q(x, lw, lb, q1, s1, b1, q2, s2, b2, s):
+        calls.append(("K7", (*x.shape, gate(s)) + f32(x)))
+        return real["ffn_ln_geglu_q"](x, lw, lb, q1, s1, b1, q2, s2, b2, s)
+
+    def linear(x, w, b=None, r=None):
+        calls.append(("K8a", (*x.shape, w.shape[0]) + f32(x)))
+        return real["linear_fused"](x, w, b, r)
+
+    def geglu(x, w, b=None):
+        calls.append(("K8b", (*x.shape, w.shape[0] // 2) + f32(x)))
+        return real["geglu_fused"](x, w, b)
+
+    def flash(q, k, v, heads, scale):
+        b, n, hc = q.shape
+        lse = ("lse",) if needs_grad(q, k, v) else ()
+        calls.append(("K1", (b, n, k.shape[1], heads, hc // heads) + lse + f32(q)))
+        return real_flash(q, k, v, heads, scale)
+
+    spies = {"_group_norm_rows": group_norm, "_layer_norm_rows": layer_norm,
+             "ffn_ln_geglu": ffn, "ffn_geglu": ffn_res,
+             "ffn_ln_geglu_q": ffn_q, "linear_fused": linear,
+             "geglu_fused": geglu}
+    for name, spy in spies.items():
+        setattr(nn_mod, name, spy)
+    attn_mod.flash_attention = flash
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(nn_mod, name, fn)
+        attn_mod.flash_attention = real_flash
+
+
+def routed_generation(pipe, cond, noise, blend_noise=None) -> dict:
+    """``pipe``'s images from ``cond`` and ``noise`` (B, 64, 64, 4), through
+    the kernels (launches counted from 0, calls recorded, UNet evaluations
+    counted), then through their plain versions on the same inputs (the
+    blend's noise too). Returns {img, ref (the plain images), z (the
+    kernel run's final latent), counts, calls, evals, wall_s,
+    plain_launched}."""
+    from layoutllm_t2i_torch.kernels import plain_route, reset_launches
+
+    b = noise.shape[0]
+    reset_launches()
+    with recorded_calls() as calls, counted_unet_evals(b) as evals:
+        t0 = time.perf_counter()
+        z = pipe.run_sampler(cond, noise, blend_noise=blend_noise)
+        img = pipe.decode(z)
+        sync()
+        wall = time.perf_counter() - t0
+    counts = path_counts()
+    with plain_route():
+        ref = pipe.decode(pipe.run_sampler(cond, noise, blend_noise=blend_noise))
+    sync()
+    side = z.shape[1] * 2 ** (len(pipe.models.vae_cfg.ch_mult) - 1)
+    return {"img": img.cpu().numpy(), "ref": ref.cpu().numpy(), "z": z,
+            "side": side, "counts": counts, "calls": calls, "evals": dict(evals),
+            "wall_s": wall, "plain_launched": path_counts() != counts}
+
+
+def sync() -> None:
+    """Wait for the card, where there is one (the CPU test of these
+    phases runs them at the small geometry)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def images_in_range(img, b: int, side: int) -> bool:
+    return (img.shape == (b, side, side, 3) and bool(np.isfinite(img).all())
+            and float(img.min()) >= 0.0 and float(img.max()) <= 1.0)
+
+
+def run_record(run: dict, b: int, psnr_min: float) -> dict:
+    """A routed_generation run's record: wall s, each image's PSNR against
+    the plain route's, launches; ok when the b images are finite RGB of
+    the VAE's side in [0, 1], every PSNR >= psnr_min, K1-K4 launched and
+    the plain route launched none."""
+    psnrs = [psnr_db(a, e) for a, e in zip(run["img"], run["ref"])]
+    ok = (images_in_range(run["img"], b, run["side"]) and min(psnrs) >= psnr_min
+          and not run["plain_launched"]
+          and all(run["counts"][k] > 0 for k in ("K1", "K2", "K3", "K4")))
+    return {"ok": ok, "wall_s": run["wall_s"], "psnr_vs_plain_db": psnrs,
+            "launches": run["counts"], "plain_route_launched": run["plain_launched"]}
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    for kid, n in counts.items():
+        total[kid] = total.get(kid, 0) + n
+    return total
+
+
+# phase inpaint: the kernel route's images against plain_route()'s, the
+# tests/parity_setup.py image gate
+INPAINT_PSNR_MIN_DB = 35.0
+# the final latent's kept region against z0, mean |d|. The last step's
+# blend (t = 1) leaves sqrt(1 - alphas_cumprod[1]) = 0.0413 of unit noise
+# there, E|n| = 0.80, so 0.033 from the noise, and that step's update moves
+# it by about 0.012 of its eps (PERF.md section 6): 0.1 is 3x the noise's
+# share, and the painted region (the planted inverted mask) reads O(1)
+INPAINT_KEPT_TOL = 0.1
+
+
+def inpaint_inputs(models, source01, seed: int = 0):
+    """REQUESTS' inpainting conditioning on ``source01`` (512, 512, 3) in
+    [0, 1], both rows: z0 a VAE posterior sample from a generator seeded
+    with ``seed`` and each request's boxes as the region to paint
+    (cli/gligen_inference.py inpaint_conditioning)."""
+    from layoutllm_t2i_torch.cli.gligen_inference import inpaint_conditioning
+
+    prompts, layouts, _ = REQUESTS
+    pixels = np.clip(np.round(source01 * 255.0), 0, 255).astype(np.uint8)
+    cond = inpaint_conditioning(models, pixels, [], len(prompts), seed)
+    mo = max(len(boxes) for boxes, _ in layouts)
+    boxes = np.zeros((len(prompts), mo, 4), np.float32)
+    for i, (bxs, _) in enumerate(layouts):
+        boxes[i, :len(bxs)] = bxs
+    from layoutllm_t2i_torch.pipeline.inpaint import draw_masks_from_boxes
+
+    keep = draw_masks_from_boxes(boxes, size=models.unet_cfg.image_size)
+    cond["inpaint_mask"] = torch.from_numpy(keep).to(models.device)
+    return cond
+
+
+def kept_region_check(z, z0, keep) -> dict:
+    """mean and max |z - z0| over the kept region (keep == 1), against
+    INPAINT_KEPT_TOL, and the same statistic over the painted region (the
+    planted inverted mask), which must fail it."""
+    d = (z.float() - z0.float()).abs().cpu().numpy()
+    kept = np.broadcast_to(keep.cpu().numpy() == 1, d.shape)
+    rec = {"kept_mean_abs": float(d[kept].mean()), "kept_max_abs": float(d[kept].max()),
+           "inverted_mask_mean_abs": float(d[~kept].mean())}
+    rec["ok"] = (rec["kept_mean_abs"] <= INPAINT_KEPT_TOL
+                 < rec["inverted_mask_mean_abs"])
+    return rec
+
+
+def phase_inpaint(models, dense_img):
+    """Inpainting at full width on phase 4's bundle: the source latent a
+    VAE encode of phase 4's first image, REQUESTS' boxes the region to
+    paint; exact PLMS-50 and the fast preset (its encoder cache off), each
+    through the kernels and again through their plain versions; the kept
+    region of the exact run's final latent against z0; the fast run's UNet
+    evaluations against the uncached step tables; then an inpaint_mode
+    UNet (9 input channels: the latent, the masked z0 and the mask) on one
+    exact generation. Returns (launches, recorded calls)."""
+    from layoutllm_t2i_torch.models.initializers import Init, conv_p
+    from layoutllm_t2i_torch.utils.trees import replace_subtree
+
+    prompts, layouts, relations = REQUESTS
+    b, dev, lat = len(prompts), models.device, models.unet_cfg.image_size
+    t_phase = time.perf_counter()
+    cond0 = inpaint_inputs(models, dense_img[0])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = torch.randn(b, lat, lat, 4, generator=gen, device=dev)
+    total, calls, recs, ok = {}, [], {}, True
+    for name, pipe in (("exact", exact_pipeline(models)),
+                       ("fast", fast_pipeline(models))):
+        cond = {**pipe.build_cond(prompts, layouts, relations), **cond0}
+        blend = torch.randn((len(pipe.tables.t), b, lat, lat, 4), generator=gen,
+                            device=dev)
+        run = routed_generation(pipe, cond, noise, blend)
+        planned = unet_evaluations(pipe, b, inpaint=True)
+        want = {"cfg": sum(e[0] == 2 * b for e in planned),
+                "cond_only": sum(e[0] == b for e in planned),
+                "key": sum(e[2] for e in planned),
+                "propagated": sum(not e[2] for e in planned)}
+        rec = run_record(run, b, INPAINT_PSNR_MIN_DB)
+        rec.update(unet_evals=run["evals"], unet_evals_planned=want)
+        rec["ok"] = rec["ok"] and run["evals"] == want
+        if name == "exact":
+            rec["kept_region"] = kept_region_check(
+                run["z"], cond0["inpaint_z0"], cond0["inpaint_mask"])
+            rec["ok"] = rec["ok"] and rec["kept_region"]["ok"]
+        recs[name] = rec
+        ok = ok and rec["ok"]
+        add_counts(total, run["counts"])
+        calls += run["calls"]
+        del pipe, run
+    # an inpaint_mode UNet: the latent, then z0 * mask and the mask
+    cfg = dataclasses.replace(models.unet_cfg, inpaint_mode=True)
+    ini = Init(torch.Generator(device=dev).manual_seed(7), dev,
+               models.compute_dtype)
+    im_models = dataclasses.replace(
+        models, unet_cfg=cfg, sd_first_conv=None, unet_params=replace_subtree(
+            models.unet_params, ("input_blocks", "0", "0"),
+            conv_p(ini, 3, 3, cfg.first_conv_in_channels, cfg.model_channels)))
+    pipe = exact_pipeline(im_models)
+    cond = {**pipe.build_cond(prompts, layouts, relations), **cond0,
+            "inpainting_extra": torch.cat([cond0["inpaint_z0"] * cond0["inpaint_mask"],
+                                           cond0["inpaint_mask"]], dim=-1)}
+    blend = torch.randn((len(pipe.tables.t), b, lat, lat, 4), generator=gen,
+                        device=dev)
+    run = routed_generation(pipe, cond, noise, blend)
+    recs["inpaint_mode"] = {"first_conv_in": cfg.first_conv_in_channels,
+                            **run_record(run, b, INPAINT_PSNR_MIN_DB)}
+    ok = ok and recs["inpaint_mode"]["ok"]
+    add_counts(total, run["counts"])
+    calls += run["calls"]
+    emit({"phase": "inpaint", "ok": ok, "wall_s": time.perf_counter() - t_phase,
+          "psnr_min_db": INPAINT_PSNR_MIN_DB, "kept_tol_mean_abs": INPAINT_KEPT_TOL,
+          **recs, "launches": total})
+    if not ok:
+        raise SmokeFailure("inpaint: an image is off or disagrees with the "
+                           "plain route, the kept region is not z0 (or the "
+                           "inverted mask passes), the fast preset's UNet "
+                           "evaluations are not the uncached tables', or "
+                           "K1-K4 not launched")
+    return total, calls
+
+
+# bf16 K1 at head dims no model routes to it, which the C entry's padded
+# switch takes to the d 40 (48), d 80 (72) and d 512 (504) instantiations,
+# and K5a/K5b at 48 and 72 (the "lse" sites): phase kernels holds each
+# against its plain version (no main path launches them)
+HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72)),
+                  ("K1", (1, 4096, 4096, 1, 504)),
+                  ("K1", (2, 1024, 1024, 8, 48, "lse")),
+                  ("K1", (2, 1024, 1024, 8, 72, "lse"))]
+
+
+# phase modalities: PLMS steps of every run but the first canny one (a depth
+# cut of the reference's 50, PERF.md section 4)
+MODALITY_STEPS = 10
+MODALITY_PSNR_MIN_DB = 35.0
+# keypoint mode's two persons, 17 points each ('x,y;...|...', normalized)
+MODALITY_KEYPOINTS = "|".join(
+    ";".join(f"{x0 + 0.01 * (k % 5):.3f},{0.15 + 0.04 * k:.3f}" for k in range(17))
+    for x0 in (0.25, 0.65))
+MODALITY_LAYOUT = ([[0.05, 0.3, 0.5, 0.95], [0.55, 0.2, 0.95, 0.8]],
+                   ["a dog", "a red ball"])
+
+
+def edge_map(img01) -> np.ndarray:
+    """A canny-like binary edge map of an image: the luminance gradient's
+    magnitude above its 90th percentile, replicated to RGB, (H, W, 3) in
+    {0, 1}."""
+    lum = img01.astype(np.float32) @ np.asarray([0.299, 0.587, 0.114], np.float32)
+    gy, gx = np.gradient(lum)
+    mag = np.hypot(gx, gy)
+    edges = (mag > np.percentile(mag, 90)).astype(np.float32)
+    return np.repeat(edges[..., None], 3, axis=-1)
+
+
+def modality_bundle(fuser_type: str, modality: str, small: bool = False,
+                    device="cuda"):
+    """random_models at full width (or ``small``) in the device's dtype,
+    bf16 on the card, (seed 0) with ``fuser_type``, adapted for
+    ``modality`` (seed 0), every gated alpha 0.5 (random init leaves them
+    0, which would hide a fuser behind tanh(0) = 0)."""
+    from layoutllm_t2i_torch.models.initializers import Init
+    from layoutllm_t2i_torch.models.unet import init_unet_params
+    from layoutllm_t2i_torch.pipeline.loaders import (adapt_models_for_modality,
+                                                      random_models)
+    from layoutllm_t2i_torch.utils.trees import ParamTree
+
+    models = random_models(small=small, device=device, seed=0)
+    if fuser_type != "gatedSA":
+        cfg = dataclasses.replace(models.unet_cfg, fuser_type=fuser_type)
+        gen = torch.Generator(device=models.device).manual_seed(0)
+        models = dataclasses.replace(models, unet_cfg=cfg, unet_params=ParamTree(
+            init_unet_params(Init(gen, models.device, models.compute_dtype), cfg)))
+    models = adapt_models_for_modality(models, modality, seed=0)
+    set_alphas(models.unet_params, 0.5)
+    return models
+
+
+def modality_cond(pipe, modality: str, work_dir: str, source01):
+    """The conditioning that cli/gligen_inference.py builds for
+    ``modality`` on REQUESTS' two prompts: a map's tokens and extra
+    channels from an edge map of ``source01``, the keypoints of two
+    persons, or a 2-box layout whose first box has a reference image (a
+    crop of ``source01`` written as a PNG and read back)."""
+    from layoutllm_t2i_torch.cli import gligen_inference as cli
+    from layoutllm_t2i_torch.utils.images import save_png
+
+    prompts = REQUESTS[0]
+    b = len(prompts)
+    models = pipe.models
+    if modality == "text_image":
+        cond = pipe.build_cond(prompts, [MODALITY_LAYOUT] * b)
+        ref = os.path.join(work_dir, "ref.png")
+        h, w = source01.shape[:2]
+        crop = source01[h // 5:4 * h // 5, w // 10:2 * w // 3]
+        save_png(np.round(crop * 255).astype(np.uint8), ref)
+        args = types.SimpleNamespace(clip_vision_ckpt=None, seed=0,
+                                     small=models.unet_cfg.image_size < 64,
+                                     projection_matrix=None, batch_size=b,
+                                     image_refs=f"{ref};-")
+        cond["extra_grounding"] = cli.image_ref_grounding(args, models, cond)
+        return cond
+    cond = pipe.build_cond(prompts, [([], [])] * b)
+    if modality == "keypoint":
+        cond.update(cli.keypoint_conditioning(models, MODALITY_KEYPOINTS, b))
+    else:
+        cmap = torch.from_numpy(edge_map(source01))[None].repeat(b, 1, 1, 1)
+        cond.update(cli.map_conditioning(models, cmap.to(models.device)))
+    return cond
+
+
+# (name, fuser, modality, PLMS steps); the gatedCA runs' K1 cross-attention
+# has M = 196 (map tokens) and M = 136 (8 persons x 17 points)
+MODALITY_RUNS = (("canny", "gatedSA", "canny", STEPS),
+                 ("keypoint", "gatedSA", "keypoint", MODALITY_STEPS),
+                 ("text_image", "gatedSA", "text_image", MODALITY_STEPS),
+                 ("gatedSA2-canny", "gatedSA2", "canny", MODALITY_STEPS),
+                 ("gatedCA-canny", "gatedCA", "canny", MODALITY_STEPS),
+                 ("gatedCA-keypoint", "gatedCA", "keypoint", MODALITY_STEPS))
+
+
+def phase_modalities(work_dir: str, source01, small: bool = False,
+                     device="cuda"):
+    """The extra grounding modalities at full width in bf16, random weights
+    from seed 0 adapted by adapt_models_for_modality: canny (ConvNeXt-tiny
+    at 448^2, the downsampler's 8 channels, gatedSA; PLMS-50), keypoint
+    (2 persons), text_image (the ViT-L/14 vision tower in f32 on one
+    reference PNG), a gatedSA2 UNet with map grounding and a gatedCA UNet
+    with map and then keypoint grounding (PLMS-10 each): every run's
+    images through the kernels against plain_route()'s, K1-K4 launched in
+    each, K1 at M = 196 and M = 136 in the gatedCA runs. Returns
+    (launches, recorded calls). ``small`` and ``device``: the CPU test's
+    small geometry."""
+    from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    t_phase = time.perf_counter()
+    b = len(REQUESTS[0])
+    total, calls, recs, ok = {}, [], {}, True
+    bundles = {}
+    lat = 8 if small else 64
+    gen = torch.Generator(device=device).manual_seed(0)
+    noise = torch.randn(b, lat, lat, 4, generator=gen, device=device)
+    for name, fuser, modality, steps in MODALITY_RUNS:
+        key = (fuser, modality)
+        if key not in bundles:
+            bundles.clear()
+            torch.cuda.empty_cache()
+            bundles[key] = modality_bundle(fuser, modality, small, device)
+        models = bundles[key]
+        # grounding on every step: no SD first conv over the extra channels
+        pipe = InferencePipeline(models, steps=steps, sampler="plms",
+                                 guidance_scale=7.5, alpha_type=(1.0, 0.0, 0.0),
+                                 vae_chunk=VAE_CHUNK)
+        cond = modality_cond(pipe, modality, work_dir, source01)
+        run = routed_generation(pipe, cond, noise)
+        cross_m = sorted({args[2] for kid, args in run["calls"]
+                          if kid == "K1" and args[1] != args[2]})
+        want_m = {"canny": 196, "keypoint": 136}[modality] if fuser == "gatedCA" else None
+        rec = {"fuser": fuser, "modality": modality, "steps": steps,
+               "k1_cross_m": cross_m, **run_record(run, b, MODALITY_PSNR_MIN_DB)}
+        rec["ok"] = rec["ok"] and (want_m is None or want_m in cross_m)
+        recs[name] = rec
+        ok = ok and rec["ok"]
+        add_counts(total, run["counts"])
+        calls += run["calls"]
+        del pipe, cond, run
+    bundles.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "modalities", "ok": ok, "wall_s": time.perf_counter() - t_phase,
+          "psnr_min_db": MODALITY_PSNR_MIN_DB, "runs": recs, "launches": total})
+    if not ok:
+        raise SmokeFailure("modalities: an image is off or disagrees with the "
+                           "plain route, K1-K4 not launched, or a gatedCA run "
+                           "launched no K1 at M = 196 / 136")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return total, calls
 
 
 # phase rl: cli/train_rl.py on a fixture written to the build directory,
@@ -3010,6 +3502,7 @@ def main(argv=None) -> int:
     cli_dir = os.path.join(build_dir, "chip_smoke_cli")
     rl_dir = os.path.join(build_dir, "chip_smoke_rl")
     eval_dir = os.path.join(build_dir, "chip_smoke_eval")
+    modal_dir = os.path.join(build_dir, "chip_smoke_modalities")
     try:
         with route_env(DEFAULT):
             phase_build()
@@ -3051,7 +3544,10 @@ def main(argv=None) -> int:
                 gen_paths[name] = generation_calls(
                     unet_cfg, vae_cfg, clip_cfg, tok_len, REQUESTS, VAE_CHUNK,
                     route=route, f32=True)
-            summary, k5_pairs = phase_kernels(kernel_cases({
+            # bf16 K1 and K5 at the head dims their padded switch also
+            # takes (48 and 72 pad to d 40's and 80's tiles, 504 to 512's)
+            gen_paths["head-dim"] = HEAD_DIM_CALLS
+            first_cases = kernel_cases({
                 **gen_paths,
                 **{name: training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
                                         train_batch, TRAIN_MAX_BOXES,
@@ -3059,7 +3555,8 @@ def main(argv=None) -> int:
                                         route=route)
                    for name, f32, route in (("train", False, DEFAULT),
                                             ("train-f32", True, DEFAULT),
-                                            ("routes-f32", True, SPLIT))}}))
+                                            ("routes-f32", True, SPLIT))}})
+            kernels_acc = phase_kernels(first_cases)
             del train_batch
             models = random_models(small=False, device="cuda",
                                    dtype=torch.bfloat16, seed=0)
@@ -3076,12 +3573,25 @@ def main(argv=None) -> int:
             del fast_pipe
             int8_counts = phase_int8(models, dense_img, args.profile)
             routes_counts = phase_routes(models, args.profile)
+            inpaint_counts, inpaint_calls = phase_inpaint(models, dense_img)
             del models
+            torch.cuda.empty_cache()
+            modal_counts, modal_calls = phase_modalities(modal_dir, dense_img[0])
             torch.cuda.empty_cache()
             bench_counts = phase_bench(args.profile)
             torch.cuda.empty_cache()
-            cli_counts = phase_cli(cli_dir)
+            cli_counts, cli_calls = phase_cli(cli_dir, dense_img[0])
             torch.cuda.empty_cache()
+            # phase kernels' second pass: the shapes that phases inpaint,
+            # modalities and cli recorded and the first pass did not hold
+            held = {(kid, a) for kid, _, a, _ in first_cases}
+            kernels_acc = phase_kernels(
+                [case for case in kernel_cases({"inpaint": inpaint_calls,
+                                                "modalities": modal_calls,
+                                                "cli": cli_calls})
+                 if (case[0], case[2]) not in held], kernels_acc)
+            del inpaint_calls, modal_calls, cli_calls
+            summary, k5_pairs, _ = kernels_acc
             rl_counts = phase_rl(rl_dir)
             torch.cuda.empty_cache()
             eval_counts = phase_eval(eval_dir)
@@ -3114,6 +3624,7 @@ def main(argv=None) -> int:
         shutil.rmtree(cli_dir, ignore_errors=True)
         shutil.rmtree(rl_dir, ignore_errors=True)
         shutil.rmtree(eval_dir, ignore_errors=True)
+        shutil.rmtree(modal_dir, ignore_errors=True)
     # each run launches its path's kernels: the exact and the fast
     # generation, the bench, the CLIs, the RL trainer, the NSS1K runs and
     # the training preview K1-K4 (K3 also in f32: the reward's towers, the
@@ -3122,9 +3633,10 @@ def main(argv=None) -> int:
     # K1 (d 512), K2 and K3 in f32, f32 training the f32 forms of K1-K5b,
     # the f32 generation those of K1-K4, its int8 one K7/f32 and f32
     # training on the split routes those of K6, K8a and K8b; the line adds
-    # the fourteen runs
+    # the sixteen runs (phases inpaint and modalities: K1-K4 too)
     runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
-            "routes": routes_counts, "bench": bench_counts, "cli": cli_counts,
+            "routes": routes_counts, "inpaint": inpaint_counts,
+            "modalities": modal_counts, "bench": bench_counts, "cli": cli_counts,
             "rl": rl_counts, "eval": eval_counts, "preview": preview_counts,
             "train": train_counts[""],
             "train-f32": train_counts["-f32"], "generate-f32": gen_f32_counts,
@@ -3133,7 +3645,8 @@ def main(argv=None) -> int:
     generation = ("K1", "K2", "K3", "K4")
     encoders = ("K1/f32", "K2/f32", "K3/f32")
     expected = {"generate": generation, "fast": generation, "int8": ("K7",),
-                "routes": ("K6", "K8a", "K8b"), "bench": generation,
+                "routes": ("K6", "K8a", "K8b"), "inpaint": generation,
+                "modalities": generation, "bench": generation,
                 "cli": generation, "rl": generation + ("K3/f32",),
                 "eval": EVAL_KIDS, "preview": PREVIEW_KIDS,
                 "train": step_kernels(DEFAULT) + encoders,
@@ -3154,7 +3667,7 @@ def main(argv=None) -> int:
                                   else "bytes"),
                      "library_ms": s["library_ms"], "device_ms": s["device_ms"],
                      "library_device_ms": s["library_device_ms"],
-                     "host_us_median": s["host_us"], "shapes": s["shapes"]})
+                     "host_us_median": host_us_median(s), "shapes": s["shapes"]})
         base = kid.split("/")[0]
         if base in VS_LIBRARY_KIDS:
             line[-1]["vs_library"] = s["ms"] / s["library_ms"]

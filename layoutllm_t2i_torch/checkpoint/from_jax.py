@@ -197,3 +197,30 @@ def inception_params_from_jax(tree: Dict[str, Any], device=None,
 
     meta = Init(None, torch.device("meta"))
     return _strict_tree(init_inception_params(meta), tree, device, dtype)
+
+
+def unet_params_from_jax(tree: Dict[str, Any], cfg, device=None,
+                         dtype: torch.dtype = torch.float32) -> ParamTree:
+    """The JAX package's UNet tree for the port's ``cfg`` (models/unet.py
+    UNetConfig), strictly: every grounding tokenizer's subtree (ConvNeXt's
+    depthwise (7, 7, 1, C) kernels as (C, 1, 7, 7), ``pos_embedding`` as it
+    is), the gatedSA2 and gatedCA fusers, and a ``downsample_net`` where
+    the tree has one."""
+    from ..models.initializers import Init
+    from ..pipeline.loaders import unet_init_tree
+
+    meta = Init(None, torch.device("meta"))
+    init_tree = unet_init_tree(meta, cfg, "downsample_net" in tree)
+    return _strict_tree(init_tree, tree, device, dtype)
+
+
+def resnet_params_from_jax(tree: Dict[str, Any], cfg, device=None,
+                           dtype: torch.dtype = torch.float32) -> ParamTree:
+    """The JAX package's ResNet tree (models/resnet.py init_resnet_params)
+    for ``cfg``, strictly: convs OIHW, the BatchNorms' running statistics
+    as the parameters beside them."""
+    from ..models.initializers import Init
+    from ..models.resnet import init_resnet_params
+
+    meta = Init(None, torch.device("meta"))
+    return _strict_tree(init_resnet_params(meta, cfg), tree, device, dtype)

@@ -5,9 +5,11 @@ Stdlib-only HTTP app with the reference demo's interaction model: draw
 grounding boxes on a canvas with the mouse, label each box, set guidance
 scale / alpha schedule / negative prompt / seed, and generate. POST
 /api/generate takes the page's JSON and answers {"image": base64 PNG,
-"layout": [...], "seconds": s} or {"error": "..."}. Uploading an image to
-inpaint is not ported: such a request gets the error (ROADMAP.md Queue 1,
-"Extra grounding, inpainting and the data loaders").
+"layout": [...], "seconds": s} or {"error": "..."}. An uploaded image to
+inpaint ("inpaint": a data URL) must be an 8-bit RGB PNG at the generation
+size, read without Pillow (utils/images.py read_png; the JAX demo resizes
+any image with Pillow); the boxes are the region to paint. Any other
+upload gets the error.
 
 Run: python -m layoutllm_t2i_torch.cli.demo [--ckpt c.pth | --small] [--port 7860]
 then open http://localhost:7860. The model runs on the card unless
@@ -140,10 +142,6 @@ def _generate(pipe, req):
     from ..utils.boxes import draw_boxes_ltrb
     from ..utils.images import png_bytes_uint8
 
-    if req.get("inpaint"):
-        raise NotImplementedError(
-            "inpainting is not ported (ROADMAP.md Queue 1, \"Extra "
-            "grounding, inpainting and the data loaders\")")
     prompt = req.get("prompt", "")
     cats = [b["label"] for b in req.get("boxes", [])]
     boxes = [[b["x"], b["y"], b["x"] + b["w"], b["y"] + b["h"]]
@@ -170,6 +168,8 @@ def _generate(pipe, req):
     cond = p.build_cond([prompt], [(boxes, cats)], [rel])
     if req.get("negative"):
         cond["uc_context"] = p.encode_text([req["negative"]])
+    if req.get("inpaint"):
+        cond.update(_inpaint_cond(p.models, req["inpaint"], boxes, seed))
     noise, gen = p._batch_noise(1, seed)
     t0 = time.perf_counter()
     imgs = p.sample_latents(cond, noise, gen).cpu().numpy()
@@ -179,6 +179,23 @@ def _generate(pipe, req):
     layout = [{"label": c, "box_ltrb": [round(v, 3) for v in b]}
               for c, b in zip(cats, boxes)]
     return base64.b64encode(png_bytes_uint8(sample)).decode(), layout, dt
+
+
+def _inpaint_cond(models, data_url: str, boxes, seed: int) -> dict:
+    """A data URL's PNG as the blend's source (cli/gligen_inference.py
+    inpaint_conditioning): it must be an 8-bit RGB PNG at the generation
+    size."""
+    from ..utils.images import read_png
+    from .gligen_inference import (check_inpaint_size, generation_size,
+                                   inpaint_conditioning)
+
+    head, _, payload = data_url.partition(",")
+    if not head.startswith("data:image/png"):
+        raise ValueError("inpaint: want a PNG data URL (data:image/png;base64,...)")
+    pixels = read_png(base64.b64decode(payload))
+    size = generation_size(models.unet_cfg, models.vae_cfg)
+    check_inpaint_size(pixels, size)
+    return inpaint_conditioning(models, pixels, boxes, 1, seed)
 
 
 def build_handler(pipe, lock):

@@ -13,9 +13,17 @@ denoiser at half the CFG batch) and encoder propagation (``key_steps``: on
 a non-key step the denoiser skips the UNet encoder and reads the cache of
 the last key step). In cached mode every denoiser takes ``cache=`` and
 ``is_key=`` and returns ``(eps, cache)``.
+
+Inpainting (``inpaint``, an InpaintBlend) replaces the known region of x
+with a q-sample of the clean latent at the step's timestep at the start of
+every step, before the step's denoise (ddim.py:98-102). Its noise comes
+from the blend's own source: the JAX package draws it from a threefry key
+a step, which a torch generator cannot reproduce, so a caller that holds
+the port to it passes the JAX side's draws in.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
@@ -80,6 +88,48 @@ def _update(x, e_t, a_t, a_prev, sigma, sqrt_1m_at, noise=None):
     if noise is not None:
         x_prev = x_prev + float(sigma) * noise
     return x_prev, pred_x0
+
+
+@dataclasses.dataclass
+class InpaintBlend:
+    """Known-region replacement each step (ddim.py:98-102). ``mask`` and
+    ``z0`` are in the sampler's layout, (B, 1 or C, h, w) and (B, C, h, w);
+    the mask is 1 where the original is kept. ``noise(i)`` gives step i's
+    q-sample noise, z0's shape; None draws it from ``generator``."""
+
+    mask: torch.Tensor
+    z0: torch.Tensor
+    noise: Optional[Callable[[int], torch.Tensor]] = None
+    generator: Optional[torch.Generator] = None
+
+    def step_noise(self, i: int) -> torch.Tensor:
+        if self.noise is not None:
+            return self.noise(i).to(self.z0.dtype)
+        return torch.randn(self.z0.shape, generator=self.generator,
+                           device=self.z0.device, dtype=self.z0.dtype)
+
+
+def _q_sample(schedule: DDPMSchedule, z0: torch.Tensor, t: int,
+              noise: torch.Tensor) -> torch.Tensor:
+    """z0 diffused to timestep t: sqrt(a_t) z0 + sqrt(1 - a_t) noise, the
+    coefficients the schedule's float32 values."""
+    sa = float(np.float32(schedule.sqrt_alphas_cumprod[t]))
+    s1m = float(np.float32(schedule.sqrt_one_minus_alphas_cumprod[t]))
+    return sa * z0 + s1m * noise
+
+
+def _blend(inpaint: Optional[InpaintBlend], schedule, x: torch.Tensor,
+           t: int, i: int) -> torch.Tensor:
+    """x with its kept region replaced by the q-sampled original (step i)."""
+    if inpaint is None:
+        return x
+    img_orig = _q_sample(schedule, inpaint.z0, t, inpaint.step_noise(i))
+    return img_orig * inpaint.mask + (1.0 - inpaint.mask) * x
+
+
+def _check_inpaint(inpaint, schedule):
+    if inpaint is not None and schedule is None:
+        raise ValueError("an inpainting blend needs the sampler's schedule")
 
 
 def _alpha_segments(tables: StepTables, denoise_skip_fn, cfg_on=None):
@@ -179,7 +229,8 @@ def plms_sample(denoise_fn: Callable, tables: StepTables, x_init: torch.Tensor,
                 denoise_skip_fn: Optional[Callable] = None, key_steps=None,
                 denoise_nocfg_fn: Optional[Callable] = None,
                 denoise_nocfg_skip_fn: Optional[Callable] = None,
-                cfg_on=None) -> torch.Tensor:
+                cfg_on=None, schedule: Optional[DDPMSchedule] = None,
+                inpaint: Optional[InpaintBlend] = None) -> torch.Tensor:
     """PLMS (pseudo linear multistep) sampling: a Heun warm start at step 0,
     then Adams-Bashforth of order 2-4 (AB1-AB3 in the reference's count).
 
@@ -187,7 +238,10 @@ def plms_sample(denoise_fn: Callable, tables: StepTables, x_init: torch.Tensor,
     concern. denoise_skip_fn: same signature with the gated fusers elided,
     used on the steps where fuser_scale == 0 (bit-exact there).
     key_steps: (S,) bool, encoder-propagation mode (see the module doc).
-    denoise_nocfg_fn/denoise_nocfg_skip_fn/cfg_on: guidance-interval mode."""
+    denoise_nocfg_fn/denoise_nocfg_skip_fn/cfg_on: guidance-interval mode.
+    inpaint: the known-region blend, before each step's denoise; it needs
+    ``schedule``. The Heun warm start's second evaluation is not blended."""
+    _check_inpaint(inpaint, schedule)
     x = x_init
     hist: List[torch.Tensor] = []        # newest first, at most 3
     segs = _Segments(tables, x_init, denoise_fn, denoise_skip_fn, key_steps,
@@ -195,6 +249,7 @@ def plms_sample(denoise_fn: Callable, tables: StepTables, x_init: torch.Tensor,
     for i, dn in segs:
         coef = (tables.a_t[i], tables.a_prev[i], tables.sigma[i],
                 tables.sqrt_one_minus_at[i])
+        x = _blend(inpaint, schedule, x, int(tables.t[i]), i)
         e_t = segs.eps(dn, x, i)
         if not hist:
             # pseudo improved Euler (plms.py:144-150); in cached mode the
@@ -221,16 +276,22 @@ def ddim_sample(denoise_fn: Callable, tables: StepTables, x_init: torch.Tensor,
                 denoise_nocfg_fn: Optional[Callable] = None,
                 denoise_nocfg_skip_fn: Optional[Callable] = None,
                 cfg_on=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                schedule: Optional[DDPMSchedule] = None,
+                inpaint: Optional[InpaintBlend] = None) -> torch.Tensor:
     """DDIM sampling (ddim.py:65-135); eta > 0 tables add sigma-scaled step
     noise drawn from ``generator`` (it cannot match the JAX package's
     ``jax.random`` draws: only eta = 0 is held to it). The other arguments
-    as in plms_sample."""
+    as in plms_sample; the JAX package draws the blend's noise from the
+    first half of each step's key, split, and the step noise from the
+    second."""
+    _check_inpaint(inpaint, schedule)
     stochastic = bool(np.any(np.asarray(tables.sigma) > 0))
     x = x_init
     segs = _Segments(tables, x_init, denoise_fn, denoise_skip_fn, key_steps,
                      denoise_nocfg_fn, denoise_nocfg_skip_fn, cfg_on)
     for i, dn in segs:
+        x = _blend(inpaint, schedule, x, int(tables.t[i]), i)
         e_t = segs.eps(dn, x, i)
         noise = (torch.randn(x.shape, generator=generator, device=x.device,
                              dtype=x.dtype) if stochastic else None)
@@ -243,7 +304,8 @@ def dpm_sample(denoise_fn: Callable, tables: StepTables, x_init: torch.Tensor,
                denoise_skip_fn: Optional[Callable] = None, key_steps=None,
                denoise_nocfg_fn: Optional[Callable] = None,
                denoise_nocfg_skip_fn: Optional[Callable] = None,
-               cfg_on=None) -> torch.Tensor:
+               cfg_on=None, schedule: Optional[DDPMSchedule] = None,
+               inpaint: Optional[InpaintBlend] = None) -> torch.Tensor:
     """DPM-Solver++(2M) (Lu et al., arXiv:2211.01095), the data-prediction
     multistep form: a deterministic 2nd-order solver in log-SNR time. No
     reference counterpart (GLIGEN ships PLMS and DDIM). The arguments as in
@@ -258,6 +320,7 @@ def dpm_sample(denoise_fn: Callable, tables: StepTables, x_init: torch.Tensor,
     lambda is computed in float64 on the host and used in float32, the
     coefficients in float32, as the JAX package computes them on the
     device."""
+    _check_inpaint(inpaint, schedule)
     if bool(np.any(np.asarray(tables.sigma) > 0)):
         raise ValueError(
             "dpm_sample is a deterministic ODE solver: eta>0 step tables "
@@ -275,6 +338,7 @@ def dpm_sample(denoise_fn: Callable, tables: StepTables, x_init: torch.Tensor,
     segs = _Segments(tables, x_init, denoise_fn, denoise_skip_fn, key_steps,
                      denoise_nocfg_fn, denoise_nocfg_skip_fn, cfg_on)
     for i, dn in segs:
+        x = _blend(inpaint, schedule, x, int(tables.t[i]), i)
         e_t = segs.eps(dn, x, i)
         alpha_t, sigma_t = np.sqrt(at32[i]), np.sqrt(f32(1.0) - at32[i])
         alpha_p = np.sqrt(ap32[i])

@@ -14,7 +14,9 @@ import torch
 
 from ..ops import nn
 from ..ops.attention import attention_with_projections
+from ..ops.resize import resize_nhwc
 from . import initializers as init
+
 
 def cross_attention(p, x, key, value, heads: int, mask=None):
     return attention_with_projections(p, x, key, value, heads, mask=mask)
@@ -63,10 +65,60 @@ def gated_self_attention(p, x, objs, heads: int, scale: float):
                                      _gate(scale, p["alpha_dense"], x.dtype))
 
 
+def gated_cross_attention(p, x, objs, heads: int, scale: float):
+    """The visual rows attend to the grounding tokens (attention.py:181-206)."""
+    x = x + _gate(scale, p["alpha_attn"], x.dtype) * cross_attention(
+        p["attn"], nn.layer_norm(p["norm1"], x), objs, objs, heads)
+    return nn.ln_geglu_ff_scaled_res(p["ff"], p["norm2"], x,
+                                     _gate(scale, p["alpha_dense"], x.dtype))
+
+
+def gated_self_attention2(p, x, objs, heads: int, scale: float):
+    """The interpolating variant (attention.py:237-281): the grounding
+    tokens' rows of the joint self-attention, a square grid, are resized
+    to the visual grid (bicubic, as jax.image.resize computes it) and
+    added."""
+    b, n_visual, _ = x.shape
+    n_ground = objs.shape[1]
+    size_v = int(round(n_visual ** 0.5))
+    size_g = int(round(n_ground ** 0.5))
+    if size_v * size_v != n_visual or size_g * size_g != n_ground:
+        raise ValueError(f"gatedSA2: {n_visual} visual and {n_ground} "
+                         "grounding tokens must both be square grids")
+    objs = nn.linear(p["linear"], objs)
+    cat = torch.cat([x, objs], dim=1)
+    out = self_attention(p["attn"], nn.layer_norm(p["norm1"], cat), heads)
+    out = out[:, n_visual:, :].reshape(b, size_g, size_g, -1)
+    residual = resize_nhwc(out, (size_v, size_v), "bicubic").reshape(b, n_visual, -1)
+    x = x + _gate(scale, p["alpha_attn"], x.dtype) * residual
+    return nn.ln_geglu_ff_scaled_res(p["ff"], p["norm2"], x,
+                                     _gate(scale, p["alpha_dense"], x.dtype))
+
+
+_FUSERS = {
+    "gatedSA": gated_self_attention,
+    "gatedSA2": gated_self_attention2,
+    "gatedCA": gated_cross_attention,
+}
+
+
 def init_gated_self_attention(ini, query_dim, context_dim, heads, d_head):
     return {
         "linear": init.linear_p(ini, context_dim, query_dim),
         "attn": init_cross_attention(ini, query_dim, query_dim, query_dim,
+                                     heads, d_head),
+        "ff": init_ff(ini, query_dim),
+        "norm1": init.norm_p(ini, query_dim),
+        "norm2": init.norm_p(ini, query_dim),
+        "alpha_attn": init.scalar_p(ini, 0.0),
+        "alpha_dense": init.scalar_p(ini, 0.0),
+    }
+
+
+def init_gated_cross_attention(ini, query_dim, key_dim, value_dim, heads,
+                               d_head):
+    return {
+        "attn": init_cross_attention(ini, query_dim, key_dim, value_dim,
                                      heads, d_head),
         "ff": init_ff(ini, query_dim),
         "norm1": init.norm_p(ini, query_dim),
@@ -141,18 +193,19 @@ def init_relation_cross_attention(ini, query_dim, key_dim, value_dim, heads,
 
 # ---------------------------------------------------------------------------
 # transformer block + spatial transformer (attention.py:362-446); the fuser
-# is the gated self-attention (fuser_type "gatedSA", the only one ported)
+# is one of _FUSERS by ``fuser_type``
 
 
 def basic_transformer_block(p, x, context, objs, relations, boxes, masks,
                             h: int, w: int, heads: int, fuser_scale: float = 1.0,
-                            use_rela: bool = True, skip_gated: bool = False):
+                            use_rela: bool = True, skip_gated: bool = False,
+                            fuser_type: str = "gatedSA"):
     x = self_attention(p["attn1"], nn.layer_norm(p["norm1"], x), heads) + x
     if not skip_gated:
         # skip_gated: the sampler knows fuser_scale == 0 for this step, so
         # every gated contribution is x + 0*(...) = x and the fuser's
         # attention and FF are elided bit-exactly
-        x = gated_self_attention(p["fuser"], x, objs, heads, fuser_scale)
+        x = _FUSERS[fuser_type](p["fuser"], x, objs, heads, fuser_scale)
     if use_rela:
         # the relation fuser keeps scale=1 always: set_alpha_scale touches
         # only the gated fusers (txt2img.py:46-50)
@@ -164,7 +217,10 @@ def basic_transformer_block(p, x, context, objs, relations, boxes, masks,
 
 
 def init_basic_transformer_block(ini, query_dim, key_dim, value_dim, heads,
-                                 d_head, use_rela: bool = True):
+                                 d_head, use_rela: bool = True,
+                                 fuser_type: str = "gatedSA"):
+    if fuser_type not in _FUSERS:
+        raise ValueError(f"unknown fuser_type {fuser_type!r}")
     p = {
         "attn1": init_cross_attention(ini, query_dim, query_dim, query_dim,
                                       heads, d_head),
@@ -174,8 +230,11 @@ def init_basic_transformer_block(ini, query_dim, key_dim, value_dim, heads,
         "norm1": init.norm_p(ini, query_dim),
         "norm2": init.norm_p(ini, query_dim),
         "norm3": init.norm_p(ini, query_dim),
-        "fuser": init_gated_self_attention(ini, query_dim, key_dim, heads,
-                                           d_head),
+        "fuser": (init_gated_cross_attention(ini, query_dim, key_dim,
+                                             value_dim, heads, d_head)
+                  if fuser_type == "gatedCA" else
+                  init_gated_self_attention(ini, query_dim, key_dim, heads,
+                                            d_head)),
     }
     if use_rela:
         p["rela_fuse"] = init_relation_cross_attention(
@@ -185,7 +244,8 @@ def init_basic_transformer_block(ini, query_dim, key_dim, value_dim, heads,
 
 def spatial_transformer(p, x, context, objs, relations, boxes, masks,
                         heads: int, fuser_scale: float = 1.0, depth: int = 1,
-                        use_rela: bool = True, skip_gated: bool = False):
+                        use_rela: bool = True, skip_gated: bool = False,
+                        fuser_type: str = "gatedSA"):
     """x: (B, C, H, W) channels_last. Conv-in/out are 1x1 (attention.py:405-446)."""
     h, w = x.shape[2:]
     x_in = x
@@ -195,13 +255,14 @@ def spatial_transformer(p, x, context, objs, relations, boxes, masks,
         x = basic_transformer_block(
             p["transformer_blocks"][str(d)], x, context, objs, relations,
             boxes, masks, h, w, heads, fuser_scale, use_rela=use_rela,
-            skip_gated=skip_gated)
+            skip_gated=skip_gated, fuser_type=fuser_type)
     x = nn.conv2d(p["proj_out"], nn.from_rows(x, h, w), padding=0)
     return x + x_in
 
 
 def init_spatial_transformer(ini, in_channels, key_dim, value_dim, heads,
-                             d_head, depth: int = 1, use_rela: bool = True):
+                             d_head, depth: int = 1, use_rela: bool = True,
+                             fuser_type: str = "gatedSA"):
     query_dim = heads * d_head
     return {
         "norm": init.norm_p(ini, in_channels),
@@ -209,7 +270,7 @@ def init_spatial_transformer(ini, in_channels, key_dim, value_dim, heads,
         "transformer_blocks": {
             str(d): init_basic_transformer_block(ini, query_dim, key_dim,
                                                  value_dim, heads, d_head,
-                                                 use_rela)
+                                                 use_rela, fuser_type)
             for d in range(depth)
         },
         "proj_out": init.conv_p(ini, 1, 1, query_dim, in_channels),

@@ -5,6 +5,13 @@ Parameters are nested under the reference torch names (input_blocks.1.0.
 in_layers...); activations are NCHW in channels_last memory. The per-step
 grounding alpha arrives as ``fuser_scale``; the alpha==0 first-conv restore
 is the caller's weight select (pipeline.inference.make_cfg_denoiser).
+
+The grounding tokenizer follows ``grounding_type``: box + text ("text"),
+box + text + image ("text_image"), person keypoints ("keypoint") or a
+condition map's ConvNeXt tokens ("map"). Extra input channels are
+concatenated onto the latent before the first conv: a grounding
+downsampler's (``additional_in_channels``), then an inpainting UNet's
+masked latent and mask (``inpaint_mode``).
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ from ..ops import nn
 from ..ops.schedules import timestep_embedding
 from . import initializers as init
 from .blocks import init_spatial_transformer, spatial_transformer
-from .position_net import init_position_net, position_net
+from .position_net import (init_position_net, init_position_net_text_image,
+                           position_net, position_net_text_image)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,16 +41,35 @@ class UNetConfig:
     transformer_depth: int = 1
     context_dim: int = 768
     fuser_type: str = "gatedSA"
+    inpaint_mode: bool = False
+    # extra input channels concatenated by a grounding downsampler
+    additional_in_channels: int = 0
     grounding_in_dim: int = 768
     grounding_out_dim: int = 768
+    # LayoutLLM-T2I's relation-aware layer; False = the vanilla GLIGEN UNet
     use_relation_attention: bool = True
+    # grounding tokenizer family: text | text_image | keypoint | map
+    grounding_type: str = "text"
+    max_persons_per_image: int = 8  # keypoint mode only
+
+    @property
+    def first_conv_in_channels(self) -> int:
+        in_c = self.in_channels + self.additional_in_channels
+        if self.inpaint_mode:
+            in_c += self.in_channels + 1
+        return in_c
+
+    @property
+    def first_conv_restorable(self) -> bool:
+        """Whether SD's 4-channel first conv can stand in at alpha 0."""
+        return not self.inpaint_mode
 
 
 def input_block_specs(cfg: UNetConfig):
     """Mirror of the torch constructor loop (openaimodel.py:306-332): a list
     over input_blocks of (kind, ch_in, ch_out, ds), kind in
     'conv' | 'res' | 'res_st' | 'down'."""
-    specs = [("conv", cfg.in_channels, cfg.model_channels, 1)]
+    specs = [("conv", cfg.first_conv_in_channels, cfg.model_channels, 1)]
     ch = cfg.model_channels
     ds = 1
     for level, mult in enumerate(cfg.channel_mult):
@@ -125,24 +152,66 @@ def upsample(p, x):
 # full UNet
 
 
+def init_position_net_for(ini: init.Init, cfg: UNetConfig):
+    """The grounding tokenizer's parameters for ``cfg.grounding_type``."""
+    if cfg.grounding_type == "text":
+        return init_position_net(ini, cfg.grounding_in_dim, cfg.grounding_out_dim)
+    if cfg.grounding_type == "text_image":
+        return init_position_net_text_image(ini, cfg.grounding_in_dim,
+                                            cfg.grounding_out_dim)
+    if cfg.grounding_type == "keypoint":
+        from .grounding_extras import init_position_net_keypoint
+
+        return init_position_net_keypoint(ini, cfg.max_persons_per_image,
+                                          cfg.grounding_out_dim)
+    if cfg.grounding_type == "map":
+        from .grounding_extras import init_position_net_map
+
+        return init_position_net_map(ini, cfg.grounding_out_dim)
+    raise ValueError(f"unknown grounding_type {cfg.grounding_type}")
+
+
+def apply_position_net(params, cfg: UNetConfig, boxes, masks,
+                       positive_embeddings, extra_grounding=None):
+    """The grounding tokens of ``cfg.grounding_type``. text_image reads
+    ``extra_grounding``'s text_masks, image_masks and image_embeddings; map
+    its cond_map (B, H, W, 3) and map_mask (B,); in keypoint mode ``boxes``
+    carries the (B, P*17, 2) points and ``masks`` their validity."""
+    if cfg.grounding_type == "text":
+        return position_net(params, boxes, masks, positive_embeddings)
+    eg = extra_grounding or {}
+    if cfg.grounding_type == "text_image":
+        return position_net_text_image(
+            params, boxes, masks, eg["text_masks"], eg["image_masks"],
+            positive_embeddings, eg["image_embeddings"])
+    if cfg.grounding_type == "keypoint":
+        from .grounding_extras import position_net_keypoint
+
+        return position_net_keypoint(params, boxes, masks,
+                                     cfg.max_persons_per_image,
+                                     cfg.grounding_out_dim)
+    if cfg.grounding_type == "map":
+        from .grounding_extras import position_net_map
+
+        return position_net_map(params, eg["cond_map"], eg["map_mask"])
+    raise ValueError(f"unknown grounding_type {cfg.grounding_type}")
+
+
 def init_unet_params(ini: init.Init, cfg: UNetConfig):
-    if cfg.fuser_type != "gatedSA":
-        raise NotImplementedError(f"fuser_type {cfg.fuser_type!r} is not ported")
     emb_ch = cfg.model_channels * 4
     params = {
         "time_embed": {
             "0": init.linear_p(ini, cfg.model_channels, emb_ch),
             "2": init.linear_p(ini, emb_ch, emb_ch),
         },
-        "position_net": init_position_net(ini, cfg.grounding_in_dim,
-                                          cfg.grounding_out_dim),
+        "position_net": init_position_net_for(ini, cfg),
     }
 
     def st(ch):
         return init_spatial_transformer(
             ini, ch, cfg.context_dim, cfg.context_dim, cfg.num_heads,
             ch // cfg.num_heads, cfg.transformer_depth,
-            cfg.use_relation_attention)
+            cfg.use_relation_attention, cfg.fuser_type)
 
     inblocks = {}
     for idx, (kind, ci, co, _ds) in enumerate(input_block_specs(cfg)):
@@ -195,13 +264,19 @@ def unet_apply(
     positive_embeddings: torch.Tensor,   # (B, MO, grounding_in_dim)
     relations: torch.Tensor,         # (B, R, context_dim)
     fuser_scale: float = 1.0,
+    inpainting_extra: Optional[torch.Tensor] = None,  # (B, C+1, H, W)
+    grounding_extra: Optional[torch.Tensor] = None,   # (B, extra, H, W)
+    extra_grounding: Optional[dict] = None,   # text_image / map inputs
     objs: Optional[torch.Tensor] = None,  # precomputed grounding tokens
     skip_gated: bool = False,        # fuser_scale == 0 for this step
     encoder_cache: Optional[dict] = None,     # propagated-step reuse
     return_encoder_cache: bool = False,
 ):
     """One eps-prediction forward (openaimodel.py:413-459). Returns
-    (B, out_channels, H, W) channels_last.
+    (B, out_channels, H, W) channels_last. ``grounding_extra`` (the
+    downsampled condition map) and then, in ``inpaint_mode``,
+    ``inpainting_extra`` (the masked latent and its mask) are concatenated
+    onto x's channels, NCHW like x.
 
     Encoder propagation ("Faster Diffusion", arXiv:2312.09608; opt-in, no
     reference counterpart): ``return_encoder_cache=True`` also returns
@@ -215,8 +290,8 @@ def unet_apply(
         # position_net is dead compute too
         objs = None
     elif objs is None:
-        objs = position_net(params["position_net"], boxes, masks,
-                            positive_embeddings)
+        objs = apply_position_net(params["position_net"], cfg, boxes, masks,
+                                  positive_embeddings, extra_grounding)
     objs = None if objs is None else objs.to(x.dtype)
 
     t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
@@ -227,7 +302,8 @@ def unet_apply(
         return spatial_transformer(
             p_st, h, context, objs, relations, boxes, masks, cfg.num_heads,
             fuser_scale, cfg.transformer_depth,
-            use_rela=cfg.use_relation_attention, skip_gated=skip_gated)
+            use_rela=cfg.use_relation_attention, skip_gated=skip_gated,
+            fuser_type=cfg.fuser_type)
 
     if encoder_cache is not None:
         if return_encoder_cache:
@@ -237,6 +313,14 @@ def unet_apply(
         h = encoder_cache["mid_in"]
     else:
         h = x
+        extras = [e for e in (grounding_extra,
+                              inpainting_extra if cfg.inpaint_mode else None)
+                  if e is not None]
+        if cfg.inpaint_mode and inpainting_extra is None:
+            raise ValueError("an inpaint_mode UNet needs inpainting_extra")
+        if extras:
+            h = torch.cat([h] + [e.to(h.dtype) for e in extras],
+                          dim=1).contiguous(memory_format=nn.CL)
         hs = []
         for idx, (kind, _ci, _co, _ds) in enumerate(input_block_specs(cfg)):
             blk = params["input_blocks"][str(idx)]

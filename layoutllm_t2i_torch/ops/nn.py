@@ -176,10 +176,12 @@ def group_norm(p, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-5,
 
 
 def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis, f32 statistics (K3)."""
+    """LayerNorm over the last axis, f32 statistics (K3). The affine
+    parameters take x's dtype, as the JAX package casts them (an f32
+    tokenizer input on a bf16 bundle: the map modalities' ConvNeXt)."""
     c = x.shape[-1]
-    y = _layer_norm_rows(x.reshape(-1, c).contiguous(), p["weight"], p["bias"],
-                         eps)
+    y = _layer_norm_rows(x.reshape(-1, c).contiguous(), p["weight"].to(x.dtype),
+                         p["bias"].to(x.dtype), eps)
     return y.reshape(x.shape)
 
 

@@ -8,6 +8,15 @@ VAE decode; the guidance interval and the encoder cache are opt-in
 builds fixed-shape (max_objs=30, max_relas) tensors from the ragged layout,
 mirroring interface.py:157-290. Public tensors keep the JAX package's
 shapes: noise (B, 64, 64, 4), images (B, 512, 512, 3) in [0, 1].
+
+The conditioning dict may carry the extra grounding of the other GLIGEN
+modalities and inpainting, NHWC as in the JAX package:
+``extra_grounding`` (text_image: text_masks, image_masks,
+image_embeddings; map: cond_map, map_mask), ``grounding_extra`` (a
+downsampled condition map, extra UNet input channels), ``inpainting_extra``
+(an inpaint_mode UNet's masked latent and mask) and ``inpaint_mask`` /
+``inpaint_z0`` (the sampler's known-region blend; the encoder cache is off
+under it, since the blend must flow through the encoder every step).
 """
 from __future__ import annotations
 
@@ -18,11 +27,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, default_dtype, resolve_device
-from ..diffusion.samplers import (StepTables, ddim_sample, dpm_sample,
-                                  make_step_tables, plms_sample)
+from ..diffusion.samplers import (InpaintBlend, StepTables, ddim_sample,
+                                  dpm_sample, make_step_tables, plms_sample)
 from ..models.clip_text import CLIPTextConfig, clip_text_apply
-from ..models.position_net import position_net
-from ..models.unet import UNetConfig, unet_apply
+from ..models.unet import UNetConfig, apply_position_net, unet_apply
 from ..models.vae import VAEConfig, decode as vae_decode
 from ..ops.nn import nchw_to_nhwc, nhwc_to_nchw
 from ..ops.schedules import DDPMSchedule
@@ -106,15 +114,21 @@ def precompute_grounding_tokens(models: GligenModels, unet_params, cond,
                                 use_cfg: bool) -> torch.Tensor:
     """Grounding tokens are step-invariant: computed once before sampling
     (the reference recomputes them per step, openaimodel.py:426). Returns
-    the (2B or B, N, C) tokens in make_cfg_denoiser's batch layout."""
-    pn = unet_params["position_net"]
-    objs_c = position_net(pn, cond["boxes"], cond["masks"],
-                          cond["phrase_embeddings"])
+    the (2B or B, N, C) tokens in make_cfg_denoiser's batch layout. The
+    null half's extra grounding is all zeros: a map's mask is 0 (its tokens
+    the null feature), and so are the image masks."""
+    cfg, pn = models.unet_cfg, unet_params["position_net"]
+    eg = cond.get("extra_grounding")
+    objs_c = apply_position_net(pn, cfg, cond["boxes"], cond["masks"],
+                                cond["phrase_embeddings"], eg)
     if not use_cfg:
         return objs_c
-    objs_u = position_net(pn, torch.zeros_like(cond["boxes"]),
-                          torch.zeros_like(cond["masks"]),
-                          torch.zeros_like(cond["phrase_embeddings"]))
+    eg_null = (None if eg is None
+               else {k: torch.zeros_like(v) for k, v in eg.items()})
+    objs_u = apply_position_net(pn, cfg, torch.zeros_like(cond["boxes"]),
+                                torch.zeros_like(cond["masks"]),
+                                torch.zeros_like(cond["phrase_embeddings"]),
+                                eg_null)
     return torch.cat([objs_c, objs_u])
 
 
@@ -160,14 +174,23 @@ def make_cfg_denoiser(models: GligenModels, guidance_scale: float,
 
     def denoise(params, sd_conv, cond, x, t, fuser_scale: float, use_sd: bool,
                 skip_gated: bool = False, cache=None, is_key=None):
-        if sd_conv is not None and use_sd:
+        if sd_conv is not None and use_sd and cfg.first_conv_restorable:
             params = override_subtree(params, ("input_blocks", "0", "0"), {
                 "weight": sd_conv["weight"].to(dtype),
                 "bias": sd_conv["bias"].to(dtype)})
         xm = x.to(dtype)
+        # the extra input channels, NCHW like x (cond holds them NHWC)
+        extras = {k: None if cond.get(k) is None else nhwc_to_nchw(cond[k])
+                  for k in ("grounding_extra", "inpainting_extra")}
+        eg = cond.get("extra_grounding")
         if use_cfg:
             # uncond half: empty-text context and null (zero) grounding; the
-            # relations ride through unchanged (plms.py:118-121)
+            # extra input channels and the relations ride through unchanged
+            # (plms.py:118-121)
+            extras = {k: None if v is None else torch.cat([v, v])
+                      for k, v in extras.items()}
+            eg = None if eg is None else {
+                k: torch.cat([v, torch.zeros_like(v)]) for k, v in eg.items()}
             x_in = torch.cat([xm, xm])
             t_in = torch.cat([t, t])
             ctx = torch.cat([cond["context"], cond["uc_context"]]).to(dtype)
@@ -190,7 +213,8 @@ def make_cfg_denoiser(models: GligenModels, guidance_scale: float,
 
         def call_unet(enc_cache, return_cache):
             return unet_apply(params, cfg, x_in, t_in, ctx, boxes, masks, pos,
-                              rel, fuser_scale=fuser_scale, objs=objs,
+                              rel, fuser_scale=fuser_scale,
+                              extra_grounding=eg, objs=objs, **extras,
                               skip_gated=skip_gated, encoder_cache=enc_cache,
                               return_encoder_cache=return_cache)
 
@@ -349,11 +373,25 @@ class InferencePipeline:
 
     @torch.no_grad()
     def run_sampler(self, cond: dict, noise,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    blend_noise=None) -> torch.Tensor:
         """Noise (B, h, w, 4) -> final latent (B, h, w, 4) f32. ``generator``
-        draws DDIM's step noise where eta > 0."""
+        draws DDIM's step noise where eta > 0 and, under inpainting, the
+        blend's noise unless ``blend_noise`` gives it: (S, B, h, w, 4), one
+        draw a step (the JAX sampler's own, in a parity test)."""
         m = self.models
         cond = dict(cond)
+        inpaint = None
+        if cond.get("inpaint_mask") is not None:
+            to_dev = lambda a: nhwc_to_nchw(
+                torch.as_tensor(a, dtype=torch.float32).to(m.device))
+            step_noise = None
+            if blend_noise is not None:
+                blend_noise = torch.as_tensor(blend_noise, dtype=torch.float32)
+                step_noise = lambda i: to_dev(blend_noise[i])
+            inpaint = InpaintBlend(mask=to_dev(cond["inpaint_mask"]),
+                                   z0=to_dev(cond["inpaint_z0"]),
+                                   noise=step_noise, generator=generator)
         cond["objs"] = precompute_grounding_tokens(
             m, m.unet_params, cond, self.guidance_scale != 1.0)
 
@@ -366,14 +404,15 @@ class InferencePipeline:
         core = make_cfg_denoiser(m, self.guidance_scale)
         # the skip variant is only called where fuser_scale == 0
         # (samplers._alpha_segments)
-        kw = {"denoise_skip_fn": bind(core, True)}
+        kw = {"denoise_skip_fn": bind(core, True),
+              "schedule": m.schedule, "inpaint": inpaint}
         if self._guidance_interval_on():
             nc_core = make_cfg_denoiser(m, self.guidance_scale,
                                         cfg_override=False)
             kw.update(denoise_nocfg_fn=bind(nc_core, False),
                       denoise_nocfg_skip_fn=bind(nc_core, True),
                       cfg_on=self._cfg_on_steps())
-        if self.encoder_cache_interval:
+        if self.encoder_cache_interval and inpaint is None:
             kw["key_steps"] = self._key_steps()
         if self.sampler == "ddim":
             kw["generator"] = generator

@@ -6,7 +6,8 @@
 SD-1.4 geometry or the small smoke geometry, directly on the target device
 in the compute dtype. Weights from the JAX package's trees cross over
 through checkpoint/from_jax.py. ``quantize_unet_int8`` makes a bundle's UNet
-weight-only int8.
+weight-only int8; ``adapt_models_for_modality`` re-shapes a box + text
+bundle for another GLIGEN modality.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ..models.unet import UNetConfig, init_unet_params
 from ..models.vae import VAEConfig, init_vae_params
 from ..ops.quant import quantize_params
 from ..ops.schedules import make_ddpm_schedule
-from ..utils.trees import ParamTree
+from ..utils.trees import ParamTree, replace_subtree
 from .inference import GligenModels
 
 META = torch.device("meta")
@@ -57,9 +58,6 @@ def _unet_cfg_from_config_dict(config: Optional[dict]) -> UNetConfig:
         p = config["model"]["params"]
     except (KeyError, TypeError):
         return UNetConfig()
-    if p.get("inpaint_mode", False):
-        raise NotImplementedError("inpainting checkpoints are not ported "
-                                  "(ROADMAP.md Queue 1)")
     return UNetConfig(
         image_size=p.get("image_size", 64),
         in_channels=p.get("in_channels", 4),
@@ -72,6 +70,7 @@ def _unet_cfg_from_config_dict(config: Optional[dict]) -> UNetConfig:
         transformer_depth=p.get("transformer_depth", 1),
         context_dim=p.get("context_dim", 768),
         fuser_type=p.get("fuser_type", "gatedSA"),
+        inpaint_mode=p.get("inpaint_mode", False),
     )
 
 
@@ -85,10 +84,28 @@ def _schedule_from_config_dict(config: Optional[dict]):
         return make_ddpm_schedule("linear", 1000, 0.00085, 0.012)
 
 
+def unet_init_tree(ini: Init, cfg: UNetConfig, downsampler: bool = False):
+    """``init_unet_params``'s tree, with a map modality's grounding
+    downsampler (``downsample_net``, ``cfg.additional_in_channels`` out)
+    where ``downsampler``: adapt_models_for_modality adds it beside the
+    UNet's own parameters, as the JAX package does."""
+    from ..models.grounding_extras import init_grounding_downsampler
+
+    tree = init_unet_params(ini, cfg)
+    if downsampler:
+        tree["downsample_net"] = init_grounding_downsampler(
+            ini, cfg.additional_in_channels)
+    return tree
+
+
 def _load_strict(init_fn, cfg, sd, device: torch.device,
                  dtype: torch.dtype) -> ParamTree:
     """A ParamTree of ``cfg``'s geometry holding ``sd``: every reference
-    name must be there and nothing else (``strict=True``), at its shape."""
+    name must be there and nothing else (``strict=True``), at its shape.
+    A UNet's ``downsample_net`` is taken where ``sd`` has one."""
+    if init_fn is init_unet_params:
+        downsampler = any(k.startswith("downsample_net.") for k in sd)
+        init_fn = lambda ini, c: unet_init_tree(ini, c, downsampler)
     tree = ParamTree(init_fn(Init(None, META), cfg))
     tree.load_state_dict(sd, strict=True, assign=True)
     return tree.to(device=device, dtype=dtype)
@@ -168,3 +185,63 @@ def quantize_unet_int8(models: GligenModels,
     sites to K7."""
     return dataclasses.replace(
         models, unet_params=quantize_params(models.unet_params, min_size))
+
+
+MAP_MODALITIES = ("canny", "hed", "depth", "normal", "sem")
+
+
+def adapt_models_for_modality(models: GligenModels, modality: str,
+                              seed: int = 0, downsampler_out: int = 8,
+                              max_persons: int = 8) -> GligenModels:
+    """A box + text bundle re-shaped for another GLIGEN modality
+    (layoutllm_t2i_tpu/pipeline/loaders.py:140-190; reference
+    gligen_inference.py:199-342 loads one checkpoint a modality): the
+    grounding tokenizer, the first conv and the map modalities' grounding
+    downsampler are initialised afresh (torch generator seeded with
+    ``seed``, on the bundle's device and dtype) where the bundle does not
+    carry them, the relation layer is turned off (upstream GLIGEN
+    checkpoints have no rela_fuse) and the SD first-conv restore is
+    dropped, as it cannot apply over extra input channels.
+
+    Map modalities (canny/hed/depth/normal/sem): the ConvNeXt tokenizer and
+    ``downsampler_out`` extra input channels; keypoint: the 17-point person
+    tokenizer for ``max_persons``; text_image: the text + image tokenizer.
+    box_text returns the bundle as it is."""
+    from ..models.grounding_extras import init_grounding_downsampler
+    from ..models.initializers import conv_p
+    from ..models.unet import init_position_net_for
+
+    if modality in MAP_MODALITIES:
+        new_cfg = dataclasses.replace(
+            models.unet_cfg, grounding_type="map",
+            additional_in_channels=downsampler_out,
+            use_relation_attention=False)
+    elif modality == "keypoint":
+        new_cfg = dataclasses.replace(
+            models.unet_cfg, grounding_type="keypoint",
+            max_persons_per_image=max_persons, use_relation_attention=False)
+    elif modality == "text_image":
+        new_cfg = dataclasses.replace(
+            models.unet_cfg, grounding_type="text_image",
+            use_relation_attention=False)
+    else:
+        return models
+
+    gen = torch.Generator(device=models.device)
+    gen.manual_seed(seed)
+    ini = Init(gen, models.device, models.compute_dtype)
+    params = models.unet_params
+    old_cfg = models.unet_cfg
+    if old_cfg.grounding_type != new_cfg.grounding_type:
+        params = replace_subtree(params, ("position_net",),
+                                 init_position_net_for(ini, new_cfg))
+    if new_cfg.first_conv_in_channels != old_cfg.first_conv_in_channels:
+        params = replace_subtree(
+            params, ("input_blocks", "0", "0"),
+            conv_p(ini, 3, 3, new_cfg.first_conv_in_channels,
+                   new_cfg.model_channels))
+    if modality in MAP_MODALITIES and "downsample_net" not in params:
+        params = replace_subtree(params, ("downsample_net",),
+                                 init_grounding_downsampler(ini, downsampler_out))
+    return dataclasses.replace(models, unet_cfg=new_cfg, unet_params=params,
+                               sd_first_conv=None)

@@ -146,25 +146,26 @@ def vae_decode_flops(cfg, b: int, side: int) -> float:
     return f + _conv(b, hw, c, cfg.out_ch)
 
 
-def unet_evaluations(pipe, b: int):
+def unet_evaluations(pipe, b: int, inpaint: bool = False):
     """(batch, gated, encoder) of every UNet evaluation that ``pipe``'s
     sampler makes for b requests, from its own step tables: CFG steps at
     2b and the guidance interval's cond-only steps at b; steps with
     grounding alpha 0 without the gated fusers; the encoder cache's
-    propagated steps without the encoder. PLMS adds its Heun warm start,
-    at step 0's batch and alpha, propagated in cached mode."""
+    propagated steps without the encoder, unless ``inpaint`` (the cache is
+    off under inpainting). PLMS adds its Heun warm start, at step 0's
+    batch and alpha, propagated in cached mode."""
     n = len(pipe.tables.t)
     cfg_on = (pipe._cfg_on_steps() if pipe._guidance_interval_on()
               else np.ones(n, dtype=bool))
     if pipe.guidance_scale == 1.0:
         cfg_on = np.zeros(n, dtype=bool)
-    keys = (pipe._key_steps() if pipe.encoder_cache_interval
-            else np.ones(n, dtype=bool))
+    cached = bool(pipe.encoder_cache_interval) and not inpaint
+    keys = pipe._key_steps() if cached else np.ones(n, dtype=bool)
     gated = np.asarray(pipe.tables.fuser_scale) != 0
     evals = [(2 * b if cfg_on[i] else b, bool(gated[i]), bool(keys[i]))
              for i in range(n)]
     if pipe.sampler == "plms":
-        evals.insert(1, evals[0][:2] + (not pipe.encoder_cache_interval,))
+        evals.insert(1, evals[0][:2] + (not cached,))
     return evals
 
 

@@ -74,6 +74,40 @@ class ParamTree(nn.Module):
         return out
 
 
+def _put(tree: ParamTree, key: str, leaf) -> None:
+    """Put a child into ``tree``: a ParamTree as it is (shared), a nested
+    dict as a new ParamTree, an int8 leaf beside the parameters, a tensor
+    as a frozen parameter (a Parameter as it is)."""
+    if isinstance(leaf, ParamTree):
+        tree.add_module(key, leaf)
+    elif isinstance(leaf, dict):
+        tree.add_module(key, ParamTree(leaf))
+    elif is_quantized(leaf):
+        tree._quantized[key] = leaf
+    else:
+        if not isinstance(leaf, nn.Parameter):
+            leaf = nn.Parameter(torch.as_tensor(leaf), requires_grad=False)
+        tree.register_parameter(key, leaf)
+
+
+def replace_subtree(tree: ParamTree, path, value) -> ParamTree:
+    """A ParamTree with ``tree``'s children, shared, and the nested
+    ``path`` set to ``value`` (a nested dict of tensors or a ParamTree),
+    added where it is missing. ``tree`` itself is left as it is."""
+    head, rest = path[0], tuple(path[1:])
+    out = ParamTree({})
+    keys = list(tree.keys()) + ([] if head in tree else [head])
+    for key in keys:
+        if key != head:
+            _put(out, key, tree[key])
+        elif rest:
+            _put(out, key, replace_subtree(tree[head] if head in tree
+                                           else ParamTree({}), rest, value))
+        else:
+            _put(out, key, value)
+    return out
+
+
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     """Nested dict -> flat {'a.b.c': leaf} (torch state_dict naming)."""
     out: Dict[str, Any] = {}

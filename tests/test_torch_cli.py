@@ -58,8 +58,6 @@ from layoutllm_t2i_torch.utils import boxes as pboxes
 from layoutllm_t2i_torch.utils import images as pimages
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
-NOT_PORTED = "Extra grounding, inpainting"
-
 
 @pytest.fixture(autouse=True)
 def no_compile_cache(monkeypatch):
@@ -631,24 +629,39 @@ def test_gligen_inference_writes_pngs(tmp_path):
         assert _outlines_blue(p, spec) == ((16, 16, 3), True)
 
 
-@pytest.mark.parametrize("argv,flag", [
-    (["--modality", "canny", "--map_path", "m.png"], "--modality canny"),
-    (["--modality", "text_image", "--image_refs", "a.png"], "--modality text_image"),
-    (["--modality", "keypoint", "--keypoints", "0.5,0.5"], "--modality keypoint"),
-    (["--map_path", "m.png"], "--map_path"),
-    (["--image_refs", "a.png"], "--image_refs"),
-    (["--keypoints", "0.5,0.5"], "--keypoints"),
-    (["--inpaint_image", "x.png"], "--inpaint_image")])
-def test_gligen_refusals_come_before_any_model(monkeypatch, argv, flag):
+@pytest.mark.parametrize("argv,message", [
+    (["--modality", "canny"], "--map_path is required for canny"),
+    (["--modality", "sem"], "--map_path is required for sem"),
+    (["--modality", "text_image"], "--image_refs is required for text_image"),
+    (["--modality", "text_image", "--image_refs", "a.png;b.png"],
+     "--image_refs has 2 entries for 1 boxes ('-' skips a box)"),
+    (["--modality", "keypoint"], "--keypoints is required for keypoint"),
+    (["--modality", "keypoint", "--keypoints", "0.5;0.2"],
+     "--keypoints: cannot parse '0.5'"),
+    (["--inpaint_image", "{big}"],
+     "inpaint image: want 16x16 (the generation size), got 32x32")])
+def test_gligen_refusals_come_before_any_model(monkeypatch, tmp_path, argv, message):
+    """Bad modality input is refused before any model is built, with the
+    JAX CLI's own messages (cli/gligen_inference.py:166-185); an inpaint
+    source of another size than the generation's (which the JAX CLI
+    resizes with Pillow) is refused too."""
     def built(*a, **kw):
         raise AssertionError("a model was built")
 
-    monkeypatch.setattr(pgligen, "random_models", built)
-    monkeypatch.setattr(pgligen, "load_models_from_gligen_ckpt", built)
-    with pytest.raises(NotImplementedError, match=NOT_PORTED) as err:
-        pgligen.main(["--prompt", "a dog", "--layout", "dog:[0.1,0.1,0.5,0.5]",
-                      "--small", "--device", "cpu"] + argv)
-    assert str(err.value).startswith(flag)
+    big = str(tmp_path / "big.png")
+    pimages.save_png(np.zeros((32, 32, 3), np.uint8), big)
+    argv = ["--prompt", "a dog", "--layout", "dog:[0.1,0.1,0.5,0.5]", "--small"] + [
+        a.format(big=big) for a in argv]
+    for cli in (pgligen, jgligen):
+        monkeypatch.setattr(cli, "random_models", built)
+        monkeypatch.setattr(cli, "load_models_from_gligen_ckpt", built)
+    with pytest.raises(ValueError) as err:
+        pgligen.main(argv + ["--device", "cpu"])
+    assert str(err.value).startswith(message)
+    if "--inpaint_image" not in argv:
+        with pytest.raises((AssertionError, SystemExit)) as jerr:
+            jgligen.main(argv)
+        assert str(jerr.value).startswith(message.split(" — ")[0])
 
 
 def test_demo_answers_on_the_cpu():
@@ -678,8 +691,20 @@ def test_demo_answers_on_the_cpu():
         status, out = post("/api/generate", {**body, "guidance": 3.0,
                                              "alpha": [1.0, 0.0, 0.0]})
         assert status == 200 and "image" in out
-        status, out = post("/api/generate", {**body, "inpaint": "data:,AAAA"})
-        assert status == 200 and NOT_PORTED in out["error"]
+        # an uploaded image to inpaint: a PNG data URL at the generation size
+        src = pimages.png_bytes_uint8(
+            np.random.default_rng(1).integers(0, 256, (16, 16, 3), dtype=np.uint8))
+        status, out = post("/api/generate", {
+            **body, "inpaint": "data:image/png;base64," + base64.b64encode(src).decode()})
+        assert status == 200 and set(out) == {"image", "layout", "seconds"}
+        px = np.asarray(Image.open(io.BytesIO(base64.b64decode(out["image"]))))
+        assert px.shape == (16, 16, 3)
+        # anything else gets the JSON error
+        for bad in ("data:,AAAA", "data:image/png;base64,"
+                    + base64.b64encode(pimages.png_bytes_uint8(
+                        np.zeros((8, 8, 3), np.uint8))).decode()):
+            status, out = post("/api/generate", {**body, "inpaint": bad})
+            assert status == 200 and set(out) == {"error"}, out
         assert post("/api/other", body)[0] == 404
         conn.request("GET", "/")
         page = conn.getresponse().read().decode()

@@ -127,9 +127,14 @@ def test_configs_from_config_dict_match_jax(config):
     for a, b in zip(loaders._schedule_from_config_dict(config),
                     jloaders._schedule_from_config_dict(config)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="inpainting"):
-        loaders._unet_cfg_from_config_dict(
-            {"model": {"params": {"inpaint_mode": True}}})
+    # an inpainting checkpoint's config loads with inpaint_mode, as the JAX
+    # loader reads it, and so does its fuser_type
+    inpaint = {"model": {"params": {"inpaint_mode": True, "fuser_type": "gatedCA"}}}
+    got = loaders._unet_cfg_from_config_dict(inpaint)
+    assert got.inpaint_mode is True and got.fuser_type == "gatedCA"
+    assert got.first_conv_in_channels == 9 and not got.first_conv_restorable
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        jloaders._unet_cfg_from_config_dict(inpaint))
 
 
 def test_official_sd_checkpoint_split(jm, tmp_path):

@@ -19,6 +19,7 @@ import os
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -99,7 +100,8 @@ def recorded(monkeypatch):
         return gn(x, w, b, groups, eps, silu)
 
     def layer_norm(x, w, b, eps):
-        calls.add("K3", tuple(x.shape), x)
+        # another eps than 1e-5 (ConvNeXt's 1e-6) is part of the shape
+        calls.add("K3", tuple(x.shape) + ((eps,) if eps != 1e-5 else ()), x)
         return ln(x, w, b, eps)
 
     def ffn(x, lw, lb, w1, b1, w2, b2, s):
@@ -711,3 +713,77 @@ def test_f32_timing_times_the_walks_shapes():
     assert {kid: len(s) for kid, s in f32_timing.CASES.items()} == {
         "K1": 12, "K5a": 4, "K5b": 4, "K4": 12, "K6": 3, "K7": 6, "K8a": 3,
         "K8b": 3}
+
+
+# ---------------------------------------------------------------------------
+# phases inpaint and modalities: their calls are recorded as they are made
+# (chip_smoke.recorded_calls), and phase kernels' second pass takes its
+# shapes from those records
+
+
+@pytest.fixture
+def small_flash(monkeypatch):
+    """K1's routing thresholds lowered to the small geometry, so that its
+    8^2 latents (64 visual tokens) route the fusers' attention to K1: the
+    gatedCA runs' cross-attention at M = 196 and 136 included."""
+    monkeypatch.setattr(attention_mod, "FLASH_MIN_Q_LEN", 32)
+    monkeypatch.setattr(attention_mod, "FLASH_MIN_KV", 16)
+
+
+def test_chip_recorder_matches_the_test_recorder(recorded, small_flash):
+    """chip_smoke's recorder and this module's see the same calls, in
+    order, through a map modality's ConvNeXt (K3 at eps 1e-6, in f32) and
+    its gatedCA UNet."""
+    models = cs.modality_bundle("gatedCA", "canny", True, "cpu")
+    pipe = InferencePipeline(models, steps=2, alpha_type=(1.0, 0.0, 0.0))
+    recorded.mark_f32 = True
+    with cs.recorded_calls() as calls, torch.no_grad():
+        cond = cs.modality_cond(pipe, "canny", None, np.random.default_rng(0).random(
+            (40, 40, 3)))
+        pipe.run_sampler(cond, torch.zeros(2, 8, 8, 4))
+    assert calls == list(recorded)
+    assert ("K3", (2 * 112 * 112, 96, 1e-6, "f32")) in calls
+    assert ("K1", (4, 64, 196, 2, 16, "f32")) in calls
+
+
+@pytest.fixture
+def counted_as_recorded(monkeypatch):
+    """path_counts on the CPU: no CUDA launch happens here, so each run
+    counts one launch of every kernel, and the plain route none more."""
+    monkeypatch.setattr(cs, "path_counts", lambda: {kid: 1 for kid in cs.KERNEL_META})
+
+
+def test_phase_inpaint_on_the_cpu(monkeypatch, small_flash, counted_as_recorded):
+    """Phase inpaint at the small geometry, PLMS-4 for the exact runs (its
+    last step at t = 1, as PLMS-50's): the exact and the fast runs (the
+    fast one's UNet evaluations the uncached tables'), the kept region
+    within its bound and the planted inverted mask outside it, the
+    inpaint_mode UNet's run."""
+    from layoutllm_t2i_torch.pipeline.loaders import random_models
+
+    monkeypatch.setattr(cs, "STEPS", 4)
+
+    models = random_models(small=True, device="cpu", seed=0)
+    cs.set_alphas(models.unet_params, 0.5)
+    img = cs.exact_pipeline(models).generate(*cs.REQUESTS, seed=0)
+    counts, calls = cs.phase_inpaint(models, img)
+    assert counts == {kid: 3 for kid in cs.KERNEL_META}
+    assert {kid for kid, _ in calls} == {"K1", "K2", "K3"}
+
+
+def test_phase_modalities_on_the_cpu(tmp_path, monkeypatch, small_flash,
+                                     counted_as_recorded):
+    """Phase modalities at the small geometry, 2 PLMS steps a run: every
+    run's conditioning and images, K1 at M = 196 and M = 136 in the
+    gatedCA runs."""
+    monkeypatch.setattr(cs, "MODALITY_RUNS", tuple(
+        (name, fuser, modality, 2) for name, fuser, modality, _ in cs.MODALITY_RUNS))
+    source = np.random.default_rng(1).random((16, 16, 3))
+    counts, calls = cs.phase_modalities(str(tmp_path / "m"), source, small=True,
+                                        device="cpu")
+    assert counts == {kid: len(cs.MODALITY_RUNS) for kid in cs.KERNEL_META}
+    ms = {args[2] for kid, args in calls if kid == "K1" and args[1] != args[2]}
+    assert {196, 136} <= ms
+    # the map runs' ConvNeXt LayerNorms, in f32 at eps 1e-6
+    assert {args[1] for kid, args in calls if kid == "K3" and 1e-6 in args} == {
+        96, 192, 384, 768}
