@@ -34,7 +34,7 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                weights 1, its scales 4) and the TF32 peak (495 TFLOP/s;
                K2, K3: the f32 peak), library calls in f32 with
                allow_tf32 off; at every distinct shape that phases 4-11,
-               11b, 13 (its preview too), 15, 16, 17 and 18 give it
+               11b, 13 (its preview too), 13b, 15, 16, 17 and 18 give it
                (mixed-precision training's
                VAE and CLIP run in f32); times
                kernel, plain version and
@@ -182,6 +182,32 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                reference's 50; CFG batch 16, bf16): both PNGs decode to
                grids of 512^2 tiles, every rela_fuse tensor bit-identical
                before and after, its wall s, K1-K4 and K3/f32 launched.
+ 13a. data     host only, after phase 13's preview: a fixture written from
+               numpy seed 0 with utils/images.py (a TSV of base64 PNGs at
+               non-square sizes with entity boxes and embeddings, a
+               condition-map pair of directories, COCO person keypoints);
+               VGGrounding, DIODENormal and COCOKeypoint built by name
+               through build_datasets at 512^2, joined by
+               ConcatDataset(repeats=[2, 1, 1]) and drawn through
+               PrefetchLoader for 2 epochs: each epoch a permutation of the
+               concatenation, items equal to direct reads; shapes, dtypes,
+               ranges (images in [-1, 1], maps in [0, 1], boxes and
+               keypoints in [0, 1] where masked); the TSV's .lineidx and
+               tsv_split/tsv_merge round trip byte for byte.
+ 13b. train-coco  cli/train_diffusion.py main --coco_root on a COCO-2014
+               fixture (16 captioned PNGs of assorted sizes, one caption
+               each with a relation phrase, a crowd box, a box the crop
+               makes degenerate, one image without a caption),
+               --mixed_precision, batch 8, 3 steps (crossing the epoch) at
+               full width: finite losses; K1-K5b and the encoders' K1/f32,
+               K2/f32, K3/f32 launched; K1's, K1/f32's, K5a's and K5b's
+               launches the walk's (training_calls) over the loader's
+               batches rebuilt on the host (coco_walk); the first batch
+               (8, 512, 512, 3), the crowd, degenerate and captionless
+               entries absent; s/step, images/s, peak memory, the loader's
+               and one thread's decode s a batch. Then phase kernels' third
+               pass: the walk's shapes that the passes before did not hold
+               (the grounding texts' encoder batches).
  14. train-grad-f32  phase 12 with mixed_precision=False: every operand
                f32, the kernels' f32 forms, bound TRAIN_GRAD_F32_REL_TOL.
  15. train-f32 phase 13 with TrainerConfig()'s precision, f32 throughout
@@ -216,7 +242,7 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      timed in phase 2), and the wgmma kernels' `vs_library` and
      `device_vs_library` are the ratios of those sums; `launches` adds
      the runs of phases 4, 5, 7-8b, 9-11, 11b (its two runs), 13 (its steps and
-     its preview), 15, 16, 17 and 18 (its training),
+     its preview), 13b, 15, 16, 17 and 18 (its training),
      each read from counts set to 0 just before it; each f32 form
      has an entry of its own ("K1/f32 flash_attention", ...), its rows'
      sums, its f32 launches and its `arith`, and the bf16 entries count
@@ -275,6 +301,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import dataclasses
 import functools
@@ -3357,6 +3384,393 @@ def phase_train_preview(trainer, data) -> dict:
     return counts
 
 
+# phase data: one dataset of each kind through the catalog at the training
+# size, on fixtures written with utils/images.py from numpy seed 0: source
+# images of COCO's shapes and others, all resized with Pillow's bicubic
+# filter in numpy (utils/resample.py); the TSV's rows count twice an epoch
+DATA_SIZE = 512
+DATA_SIZES = ((640, 480), (480, 640), (333, 500), (300, 200), (512, 512),
+              (700, 300))
+DATA_NAMES = ("VGGrounding", "DIODENormal", "COCOKeypoint")
+DATA_REPEATS = (2, 1, 1)
+DATA_EPOCHS = 2
+
+
+def data_fixture(root: str, sizes=DATA_SIZES) -> dict:
+    """Under ``root``, where data/catalog.py looks for them: VGGrounding's
+    TSV (base64 PNGs at ``sizes``, 0-3 entities a row with boxes and
+    768-wide text and image embeddings), DIODENormal's image and map
+    directories (maps at other sizes; the last image has no map), and
+    COCOKeypoint's images with their person_keypoints and captions JSON (1-2
+    persons an image, invisible points and points outside the crop, one
+    caption an image)."""
+    from layoutllm_t2i_torch.utils.images import png_bytes_uint8, save_png
+
+    rng = np.random.default_rng(0)
+    pixels = lambda w, h: rng.integers(0, 256, (h, w, 3), np.uint8)
+    j = lambda *p: os.path.join(root, *p)
+    tsv = j("GROUNDING", "gqa", "tsv", "train-00.tsv")
+    rows = []
+    for i, (w, h) in enumerate(sizes):
+        ents = []
+        for _ in range(int(rng.integers(0, 4))):
+            x0, y0 = rng.uniform(0, 0.5, 2)
+            ents.append({"box": [float(x0), float(y0), float(x0 + 0.4),
+                                 float(y0 + 0.3)],
+                         "text_embedding": rng.normal(size=768).tolist(),
+                         "image_embedding": rng.normal(size=768).tolist()})
+        b64 = base64.b64encode(png_bytes_uint8(pixels(w, h))).decode()
+        rows.append(f"id{i}\t{json.dumps({'caption': f'row {i}', 'entities': ents})}"
+                    f"\t{b64}\n")
+    os.makedirs(os.path.dirname(tsv))
+    with open(tsv, "w") as f:
+        f.writelines(rows)
+    for sub in ("images", "normal"):
+        os.makedirs(j("DIODE", sub))
+    for i, (w, h) in enumerate(sizes):
+        save_png(pixels(w, h), j("DIODE", "images", f"m{i}.png"))
+        if i < len(sizes) - 1:
+            save_png(pixels(h, w), j("DIODE", "normal", f"m{i}.png"))
+    os.makedirs(j("COCO", "images"))
+    os.makedirs(j("COCO", "annotations"))
+    kp = {"images": [], "annotations": []}
+    caps = {"annotations": []}
+    for i, (w, h) in enumerate(sizes):
+        save_png(pixels(w, h), j("COCO", "images", f"k{i}.png"))
+        kp["images"].append({"id": i, "file_name": f"k{i}.png", "width": w,
+                             "height": h})
+        for _ in range(1 + i % 2):
+            pts = np.stack([rng.uniform(-0.1 * w, 1.1 * w, 17),
+                            rng.uniform(0, h, 17), rng.integers(0, 3, 17)], 1)
+            kp["annotations"].append({
+                "image_id": i, "num_keypoints": int((pts[:, 2] > 0).sum()),
+                "keypoints": [float(v) for v in pts.reshape(-1)]})
+        caps["annotations"].append({"image_id": i, "caption": f"people {i}"})
+    for name, obj in (("person_keypoints_train2017.json", kp),
+                      ("captions_train2017.json", caps)):
+        with open(j("COCO", "annotations", name), "w") as f:
+            json.dump(obj, f)
+    return {"root": root, "tsv": tsv, "rows": len(sizes)}
+
+
+def data_item_checks(item: dict, size: int) -> dict:
+    """Shape, dtype and range checks of one item of any kind: images
+    (size, size, 3) float32 in [-1, 1], maps in [0, 1], boxes and
+    keypoints in [0, 1] where masked."""
+    ok = {"image": (item["image"].shape == (size, size, 3)
+                    and item["image"].dtype == np.float32
+                    and -1 <= item["image"].min() and item["image"].max() <= 1)}
+    if "condition" in item:
+        c = item["condition"]
+        ok["condition"] = (c.shape == (size, size, 3)
+                           and 0 <= c.min() and c.max() <= 1)
+    for key in ("boxes", "points"):
+        if key in item:
+            on = item[key][item["masks"] > 0]
+            ok[key] = bool(((on >= 0) & (on <= 1)).all())
+    for key in ("text_embeddings", "image_embeddings"):
+        if key in item:
+            ok[key] = item[key].shape == (item["masks"].shape[0], 768)
+    return ok
+
+
+def tsv_round_trip(fx: dict, work_dir: str) -> dict:
+    """The .lineidx of the TSV's first read gives every row back, and
+    tsv_split into 4 shards then tsv_merge gives the TSV and its .lineidx
+    back byte for byte."""
+    from layoutllm_t2i_torch.data.tsv import TSVFile, tsv_merge, tsv_split
+
+    rows = TSVFile(fx["tsv"])
+    ids_ok = [rows[i][0] for i in range(len(rows))] == [
+        f"id{i}" for i in range(fx["rows"])]
+    merged = tsv_merge(tsv_split(fx["tsv"], 4, os.path.join(work_dir, "shards")),
+                       os.path.join(work_dir, "merged.tsv"))
+    read = lambda p: open(p, "rb").read()
+    lineidx = lambda p: os.path.splitext(p)[0] + ".lineidx"
+    return {"rows": len(rows), "lineidx_rows_ok": ids_ok,
+            "split_merge_byte_equal": (read(merged) == read(fx["tsv"])
+                                       and read(lineidx(merged))
+                                       == read(lineidx(fx["tsv"])))}
+
+
+def phase_data(work_dir: str, size: int = DATA_SIZE, sizes=DATA_SIZES) -> dict:
+    """Host only. The data fixture; VGGrounding, DIODENormal and
+    COCOKeypoint built by name through build_datasets, joined by
+    ConcatDataset(repeats=DATA_REPEATS) and drawn through PrefetchLoader
+    (4 workers, batch 1: the kinds' items differ in keys) for DATA_EPOCHS
+    epochs: each epoch's items are the concatenation's items in the
+    loader's shuffled order, every index once (a permutation); the TSV
+    alone through PrefetchLoader at batch 4; every item's shapes, dtypes
+    and ranges; the TSV's .lineidx and tsv_split/tsv_merge round trip."""
+    import layoutllm_t2i_torch.data  # noqa: F401 (fills the catalog)
+    from layoutllm_t2i_torch.data.concat import ConcatDataset, build_datasets
+    from layoutllm_t2i_torch.data.loader import PrefetchLoader
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    t_phase = t0 = time.perf_counter()
+    fx = data_fixture(os.path.join(work_dir, "root"), sizes)
+    fixture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    datasets = build_datasets({name: {} for name in DATA_NAMES},
+                              ROOT=fx["root"], image_size=size)
+    concat = ConcatDataset(datasets, repeats=DATA_REPEATS)
+    direct = {}  # (dataset, index) -> item, each decoded once
+    for d_idx, i in concat._map:
+        if (d_idx, i) not in direct:
+            direct[d_idx, i] = datasets[d_idx][i]
+    direct_s = time.perf_counter() - t0
+    loader = PrefetchLoader(concat, 1, seed=0, num_workers=4)
+    it = iter(loader)
+    perm_ok, drawn = [], 0
+    t0 = time.perf_counter()
+    try:
+        for epoch in range(DATA_EPOCHS):
+            order = [idxs[0] for idxs in loader._epoch_batches(epoch)]
+            same = sorted(order) == list(range(len(concat)))
+            for idx in order:
+                batch, want = next(it), direct[concat._map[idx]]
+                drawn += 1
+                same = same and all(
+                    np.array_equal(batch[k][0], want[k]) if hasattr(want[k], "shape")
+                    else batch[k][0] == want[k] for k in want)
+            perm_ok.append(same)
+    finally:
+        it.close()
+    loader_s = time.perf_counter() - t0
+    tsv_it = iter(PrefetchLoader(datasets[0], 4, seed=0, num_workers=4))
+    try:
+        tsv_batch = next(tsv_it)
+    finally:
+        tsv_it.close()
+    batch_ok = (tsv_batch["image"].shape == (4, size, size, 3)
+                and tsv_batch["boxes"].shape == (4, datasets[0].max_boxes, 4)
+                and len(tsv_batch["caption"]) == 4)
+    checks = {f"{DATA_NAMES[d]}[{i}]": data_item_checks(item, size)
+              for (d, i), item in direct.items()}
+    items_ok = all(all(c.values()) for c in checks.values())
+    tsv = tsv_round_trip(fx, work_dir)
+    kinds = [type(ds).__name__ for ds in datasets]
+    ok = (items_ok and all(perm_ok) and len(perm_ok) == DATA_EPOCHS
+          and batch_ok and tsv["lineidx_rows_ok"]
+          and tsv["split_merge_byte_equal"]
+          and kinds == ["TSVGroundingDataset", "ConditionMapDataset",
+                        "KeypointDataset"]
+          and len(concat) == sum(r * len(ds) for r, ds in
+                                 zip(DATA_REPEATS, datasets)))
+    rec = {"phase": "data", "ok": ok, "wall_s": time.perf_counter() - t_phase,
+           "image_size": size, "datasets": kinds,
+           "lengths": [len(ds) for ds in datasets], "repeats": list(DATA_REPEATS),
+           "concat_len": len(concat), "epochs_permutation": perm_ok,
+           "items_drawn": drawn, "tsv_batch_ok": batch_ok, "tsv": tsv,
+           "fixture_s": fixture_s, "decode_ms_per_item": 1e3 * direct_s / len(direct),
+           "loader_ms_per_item": 1e3 * loader_s / max(drawn, 1),
+           "failed_checks": {k: [n for n, v in c.items() if not v]
+                             for k, c in checks.items() if not all(c.values())}}
+    emit(rec)
+    shutil.rmtree(work_dir, ignore_errors=True)
+    if not ok:
+        raise SmokeFailure("data: an item's shape, dtype or range is off, an "
+                           "epoch is not a permutation of the dataset, or the "
+                           "TSV's lineidx or split/merge round trip failed")
+    return rec
+
+
+# phase train-coco: the CLI on a COCO-2014-form fixture, 16 images of
+# assorted sizes with one caption each (one caption keeps the per-step
+# launch walk deterministic: the dataset's caption draw is shared by the
+# loader's worker threads), a crowd box, a box the crop makes degenerate,
+# and an image without a caption; batch 8, so 3 steps cross the epoch
+COCO_SIZES = ((640, 480), (480, 640), (500, 333), (512, 512), (300, 200),
+              (640, 427), (427, 640), (612, 612), (640, 360), (375, 500),
+              (520, 520), (640, 512), (480, 360), (600, 400), (333, 500),
+              (544, 640))
+COCO_CATEGORIES = ("person", "dog", "cat", "car", "chair", "table", "horse",
+                   "bench", "umbrella", "kite")
+# "umbrella" only on the crowd box, "kite" only on the degenerate box
+COCO_ABSENT = ("umbrella", "kite")
+COCO_CAPTIONS = ("a dog to the left of a cat", "a man riding a horse on the beach",
+                 "a cup on a table next to a chair", "two people sitting on a bench",
+                 "a car parked behind a dog", "a cat sleeping on a chair",
+                 "a person standing next to a horse", "a dog running under a table",
+                 "a bench in front of a car", "a cat sitting above a dog",
+                 "a person walking beside a car", "a chair next to a table",
+                 "a horse standing near a bench", "a dog lying on a bench",
+                 "a person holding a cat", "a car driving past a person")
+COCO_STEPS = 3
+
+
+def coco_fixture(work_dir: str, sizes=COCO_SIZES) -> dict:
+    """COCO 2014's layout under ``work_dir``/coco: ``train2014/<n>.png``
+    (utils/images.py PNGs at ``sizes``, then one more at the first size)
+    and ``annotations/{instances,captions}_train2014.json`` (numpy seed
+    0). Every image has 1-4 boxes; the first (landscape) one also a box
+    at its left edge that the center crop leaves degenerate ("kite"), the
+    second a crowd box ("umbrella"); each of ``sizes`` has one caption with
+    a relation phrase, the extra image none."""
+    from layoutllm_t2i_torch.utils.images import save_png
+
+    rng = np.random.default_rng(0)
+    root = os.path.join(work_dir, "coco")
+    os.makedirs(os.path.join(root, "train2014"))
+    os.makedirs(os.path.join(root, "annotations"))
+    cats = [{"id": i + 1, "name": n} for i, n in enumerate(COCO_CATEGORIES)]
+    cat_id = {c["name"]: c["id"] for c in cats}
+    inst = {"images": [], "annotations": [], "categories": cats}
+    caps = {"annotations": []}
+    for img_id, (w, h) in enumerate(tuple(sizes) + (sizes[0],), 1):
+        name = f"{img_id:012d}.png"
+        save_png(rng.integers(0, 256, (h, w, 3), np.uint8),
+                 os.path.join(root, "train2014", name))
+        inst["images"].append({"id": img_id, "file_name": name, "width": w,
+                               "height": h})
+        boxes = []
+        for _ in range(int(rng.integers(1, 5))):
+            x, y = rng.uniform(0, 0.6 * w), rng.uniform(0, 0.6 * h)
+            label = COCO_CATEGORIES[int(rng.integers(len(COCO_CATEGORIES) - 2))]
+            boxes.append(([x, y, rng.uniform(0.2, 0.4) * w,
+                           rng.uniform(0.2, 0.4) * h], label, 0))
+        if img_id == 1:
+            boxes.append(([0.0, 0.0, w / 20, h / 2], "kite", 0))
+        if img_id == 2:
+            boxes.append(([0.1 * w, 0.1 * h, 0.8 * w, 0.8 * h], "umbrella", 1))
+        for box, label, crowd in boxes:
+            inst["annotations"].append({
+                "id": len(inst["annotations"]) + 1, "image_id": img_id,
+                "bbox": [float(v) for v in box], "area": float(box[2] * box[3]),
+                "category_id": cat_id[label], "iscrowd": crowd})
+        if img_id <= len(sizes):
+            caps["annotations"].append({
+                "image_id": img_id,
+                "caption": COCO_CAPTIONS[(img_id - 1) % len(COCO_CAPTIONS)]})
+    for kind, obj in (("instances", inst), ("captions", caps)):
+        with open(os.path.join(root, "annotations", f"{kind}_train2014.json"),
+                  "w") as f:
+            json.dump(obj, f)
+    return {"root": root, "out": os.path.join(work_dir, "out"),
+            "images": len(sizes) + 1, "captioned": len(sizes),
+            "captionless_id": len(sizes) + 1}
+
+
+def coco_walk(fx: dict, unet_cfg, vae_cfg, clip_cfg, tok_len, batch: int,
+              size: int, steps: int = COCO_STEPS):
+    """The CLI's loader rebuilt with its arguments (coco_layout_batches'
+    seed 0): its first ``steps`` batches, the training walk over them
+    (training_calls a batch, mixed precision), the loader's s a batch
+    (4 workers, from a cold start) and one batch's decode s on one thread."""
+    from layoutllm_t2i_torch.data.coco import coco_layout_batches
+
+    loader = coco_layout_batches(fx["root"], batch, size, TRAIN_MAX_BOXES)
+    it = iter(loader)
+    t0 = time.perf_counter()
+    try:
+        batches = [next(it) for _ in range(steps)]
+    finally:
+        it.close()
+    loader_s = (time.perf_counter() - t0) / steps
+    t0 = time.perf_counter()
+    loader._fetch(loader._epoch_batches(0)[0])
+    decode_s = time.perf_counter() - t0
+    calls = []
+    for b in batches:
+        calls += training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, b,
+                                TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS)
+    return {"batches": batches, "calls": calls, "dataset": loader.dataset,
+            "loader_s_per_batch": loader_s, "decode_s_per_batch": decode_s}
+
+
+def coco_batch_checks(walk: dict, fx: dict, batch: int, size: int) -> dict:
+    """The first batch's shape; the dataset's length (the captionless image
+    out); neither the crowd box's label nor the degenerate box's in any
+    batch; the captions the fixture's, each with a relation."""
+    from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_training
+
+    labels = {lab for b in walk["batches"] for labs in b["labels"] for lab in labs}
+    captions = {c for b in walk["batches"] for c in b["caption"]}
+    ds = walk["dataset"]
+    return {
+        "first_batch_shape": walk["batches"][0]["image"].shape == (batch, size, size, 3),
+        "dataset_len": len(ds) == fx["captioned"],
+        "captionless_out": fx["captionless_id"] not in ds.ids,
+        "crowd_and_degenerate_absent": not labels & set(COCO_ABSENT),
+        "captions_ok": captions <= set(COCO_CAPTIONS),
+        "relations_in_captions": all(
+            relation_texts_for_training(c, TRAIN_MAX_RELATIONS)
+            for c in captions)}
+
+
+# the kernels of a mixed-precision training step: the bf16 UNet's and the
+# f32 VAE encoder's and text encoder's
+COCO_KIDS = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K1/f32", "K2/f32", "K3/f32")
+# launched as often as the walk says (the others' counts depend on no batch
+# either, but these carry the sites that a shape or an lse decides)
+COCO_WALKED = ("K1", "K1/f32", "K5a", "K5b")
+
+
+def phase_train_coco(work_dir: str) -> tuple:
+    """cli/train_diffusion.py main with --coco_root on the fixture,
+    --mixed_precision, batch 8, COCO_STEPS steps at full width (random
+    SD-1.4 weights from seed 0, rela_fuse, AdamW): every loss finite, each
+    kernel of COCO_KIDS launched, the launches of COCO_WALKED the walk's
+    over the rebuilt loader's batches, the batch checks; s/step (the steps
+    after the first), images/s, peak memory, the loader's and one thread's
+    decode s a batch. Returns (launch counts, the walk's calls)."""
+    from layoutllm_t2i_torch.cli import train_diffusion
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    t_phase = t0 = time.perf_counter()
+    fx = coco_fixture(work_dir)
+    fixture_s = time.perf_counter() - t0
+    argv = ["--coco_root", fx["root"], "--mixed_precision",
+            "--batch_size", str(TRAIN_BATCH), "--total_iters", str(COCO_STEPS),
+            "--warmup_steps", "0", "--output_root", fx["out"],
+            "--name", "coco"]
+    # the CLI's TrainerConfig logs every 10th step: log each step's loss
+    # and time, as phase train does
+    cfg_cls = train_diffusion.TrainerConfig
+    train_diffusion.TrainerConfig = functools.partial(cfg_cls, log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, wall, counts = counted(lambda: train_diffusion.main(argv))
+    finally:
+        train_diffusion.TrainerConfig = cfg_cls
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(fx["out"], "coco", "tag00", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs]
+    each = [r["sec_per_iter"] for r in recs]
+    s_step = sum(each[1:]) / max(len(each) - 1, 1)
+    unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+    walk = coco_walk(fx, unet_cfg, vae_cfg, clip_cfg, clip_cfg.max_length,
+                     TRAIN_BATCH, 512)
+    walked = launches_of(walk["calls"])
+    walk_ok = all(counts[kid] == walked.get(kid, 0) for kid in COCO_WALKED)
+    checks = coco_batch_checks(walk, fx, TRAIN_BATCH, 512)
+    launched = all(counts[kid] > 0 for kid in COCO_KIDS)
+    ok = (len(losses) == COCO_STEPS and all(math.isfinite(x) for x in losses)
+          and walk_ok and launched and all(checks.values()))
+    emit({"phase": "train-coco", "ok": ok, "card": nvidia_smi_line(),
+          "phase_wall_s": time.perf_counter() - t_phase,
+          "batch": TRAIN_BATCH, "steps": COCO_STEPS,
+          "images": fx["images"], "dataset_len": len(walk["dataset"]),
+          "s_per_step": s_step, "s_per_step_each": each,
+          "images_per_s": TRAIN_BATCH / s_step, "peak_mem_gib": peak,
+          "wall_s": wall, "fixture_s": fixture_s, "losses": losses,
+          "loader_s_per_batch": walk["loader_s_per_batch"],
+          "decode_s_per_batch_one_thread": walk["decode_s_per_batch"],
+          "checks": checks, "launches": counts,
+          "walked": {kid: walked.get(kid, 0) for kid in COCO_WALKED},
+          "launches_match_walk": walk_ok})
+    shutil.rmtree(work_dir, ignore_errors=True)
+    if not ok:
+        raise SmokeFailure(
+            "train-coco: a loss is not finite, a kernel of the step launched "
+            "no time, K1's or K5's launches differ from the walk's, or a "
+            "batch holds a crowd, degenerate or captionless entry")
+    return counts, walk["calls"]
+
+
 # device-time groups of the profile, matched in order against kernel names
 # (the f32 instantiations of K2's and K3's templates before their bf16 ones).
 # K6/f32 runs K4/f32's up and down kernels and K7/f32 K4/f32's LN pre-pass,
@@ -3503,6 +3917,8 @@ def main(argv=None) -> int:
     rl_dir = os.path.join(build_dir, "chip_smoke_rl")
     eval_dir = os.path.join(build_dir, "chip_smoke_eval")
     modal_dir = os.path.join(build_dir, "chip_smoke_modalities")
+    data_dir = os.path.join(build_dir, "chip_smoke_data")
+    coco_dir = os.path.join(build_dir, "chip_smoke_coco")
     try:
         with route_env(DEFAULT):
             phase_build()
@@ -3585,13 +4001,12 @@ def main(argv=None) -> int:
             # phase kernels' second pass: the shapes that phases inpaint,
             # modalities and cli recorded and the first pass did not hold
             held = {(kid, a) for kid, _, a, _ in first_cases}
-            kernels_acc = phase_kernels(
-                [case for case in kernel_cases({"inpaint": inpaint_calls,
-                                                "modalities": modal_calls,
-                                                "cli": cli_calls})
-                 if (case[0], case[2]) not in held], kernels_acc)
-            del inpaint_calls, modal_calls, cli_calls
-            summary, k5_pairs, _ = kernels_acc
+            second_cases = [case for case in kernel_cases(
+                {"inpaint": inpaint_calls, "modalities": modal_calls,
+                 "cli": cli_calls}) if (case[0], case[2]) not in held]
+            kernels_acc = phase_kernels(second_cases, kernels_acc)
+            held |= {(kid, a) for kid, _, a, _ in second_cases}
+            del inpaint_calls, modal_calls, cli_calls, second_cases
             rl_counts = phase_rl(rl_dir)
             torch.cuda.empty_cache()
             eval_counts = phase_eval(eval_dir)
@@ -3609,6 +4024,18 @@ def main(argv=None) -> int:
                 trainer.close()
                 del trainer, data
                 torch.cuda.empty_cache()
+                if not mixed:
+                    continue
+                phase_data(data_dir)
+                coco_counts, coco_calls = phase_train_coco(coco_dir)
+                torch.cuda.empty_cache()
+                # phase kernels' third pass: the shapes of train-coco's walk
+                # (its grounding texts' encoder batches) the passes before
+                # did not hold
+                kernels_acc = phase_kernels(
+                    [case for case in kernel_cases({"train-coco": coco_calls})
+                     if (case[0], case[2]) not in held], kernels_acc)
+                del coco_calls
             gen_f32_counts, models, img = phase_generate_f32(dense_img)
             profile_generation(models, "profile-f32", args.profile, "_f32.json")
             int8_f32_counts = phase_int8(models, img, args.profile,
@@ -3625,6 +4052,9 @@ def main(argv=None) -> int:
         shutil.rmtree(rl_dir, ignore_errors=True)
         shutil.rmtree(eval_dir, ignore_errors=True)
         shutil.rmtree(modal_dir, ignore_errors=True)
+        shutil.rmtree(data_dir, ignore_errors=True)
+        shutil.rmtree(coco_dir, ignore_errors=True)
+    summary, k5_pairs, _ = kernels_acc
     # each run launches its path's kernels: the exact and the fast
     # generation, the bench, the CLIs, the RL trainer, the NSS1K runs and
     # the training preview K1-K4 (K3 also in f32: the reward's towers, the
@@ -3633,12 +4063,13 @@ def main(argv=None) -> int:
     # K1 (d 512), K2 and K3 in f32, f32 training the f32 forms of K1-K5b,
     # the f32 generation those of K1-K4, its int8 one K7/f32 and f32
     # training on the split routes those of K6, K8a and K8b; the line adds
-    # the sixteen runs (phases inpaint and modalities: K1-K4 too)
+    # the seventeen runs (phases inpaint and modalities: K1-K4 too;
+    # train-coco: mixed-precision training's kernels, through the loader)
     runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
             "routes": routes_counts, "inpaint": inpaint_counts,
             "modalities": modal_counts, "bench": bench_counts, "cli": cli_counts,
             "rl": rl_counts, "eval": eval_counts, "preview": preview_counts,
-            "train": train_counts[""],
+            "train": train_counts[""], "train-coco": coco_counts,
             "train-f32": train_counts["-f32"], "generate-f32": gen_f32_counts,
             "int8-f32": int8_f32_counts, "routes-f32": routes_f32_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
@@ -3650,6 +4081,7 @@ def main(argv=None) -> int:
                 "cli": generation, "rl": generation + ("K3/f32",),
                 "eval": EVAL_KIDS, "preview": PREVIEW_KIDS,
                 "train": step_kernels(DEFAULT) + encoders,
+                "train-coco": COCO_KIDS,
                 "train-f32": tuple(f"{kid}/f32" for kid in step_kernels(DEFAULT)),
                 "generate-f32": tuple(f"{kid}/f32" for kid in generation),
                 "int8-f32": ("K7/f32",),

@@ -44,7 +44,7 @@ from ..pipeline.loaders import (MAP_MODALITIES, adapt_models_for_modality,
 from ..pipeline.planner import extract_prediction
 from ..pipeline.scene_graph import relation_texts_for_inference
 from ..utils.boxes import draw_boxes_ltrb
-from ..utils.images import PNGFormatError, read_png, save_png
+from ..utils.images import read_rgb, save_png
 
 
 def parse_args(argv=None):
@@ -117,28 +117,6 @@ def parse_keypoints(spec: str, max_persons: int):
             points[pi * 17 + ki] = [x, y]
             masks[pi * 17 + ki] = 1.0
     return points, masks
-
-
-def read_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of an image file: read_png for an 8-bit RGB
-    PNG with unfiltered rows, Pillow for any other file."""
-    with open(path, "rb") as f:
-        data = f.read()
-    try:
-        return read_png(data)
-    except PNGFormatError:
-        pass
-    except ValueError:
-        if data[:8] == b"\x89PNG\r\n\x1a\n":
-            raise
-    try:
-        from PIL import Image
-    except ImportError as exc:
-        raise RuntimeError(
-            f"{path}: only 8-bit RGB PNGs with unfiltered rows are read "
-            "without Pillow, which is not installed") from exc
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"))
 
 
 def generation_size(unet_cfg, vae_cfg) -> int:

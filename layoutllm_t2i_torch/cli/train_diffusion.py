@@ -3,7 +3,10 @@ train_diffusion.py; GLIGEN/main.py equivalent).
 
 Run on the card (one device; f32 throughout, the JAX CLI's default, on the
 kernels' f32 forms; ``--mixed_precision`` computes the UNet in bf16 with
-f32 master weights):
+f32 master weights), on COCO-layout data (``DIR/train2014/`` and
+``DIR/annotations/{instances,captions}_train2014.json``, data/coco.py) or
+on synthetic batches:
+  python -m layoutllm_t2i_torch.cli.train_diffusion --coco_root DIR --name exp
   python -m layoutllm_t2i_torch.cli.train_diffusion --synthetic --name exp
 On the CPU, with tiny random models:
   python -m layoutllm_t2i_torch.cli.train_diffusion --small --synthetic \\
@@ -14,7 +17,7 @@ from a reference GLIGEN .pth (its embedded config sets the geometry, so it
 takes the place of ``--small``'s models). ``--enable_previews`` writes a
 PLMS sample grid (``--preview_steps``) and the batch's real images at every
 save. Not ported yet, and refused with NotImplementedError naming the
-ROADMAP.md item: ``--coco_root``, ``--multihost`` and ``--zero1``.
+ROADMAP.md item: ``--multihost`` and ``--zero1``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import argparse
 
 import torch
 
+from ..data.coco import coco_layout_batches
 from ..data.synthetic import synthetic_layout_batches
 from ..device import resolve_device
 from ..models.clip_text import CLIPTextConfig, init_clip_text_params
@@ -115,10 +119,6 @@ def small_models(device) -> GligenModels:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.coco_root:
-        raise NotImplementedError(
-            "the COCO loader is not ported (ROADMAP.md Queue 1, \"data "
-            "loaders\"); use --synthetic")
     if args.multihost:
         raise NotImplementedError(
             "multihost training is not ported (ROADMAP.md Queue 1, "
@@ -142,7 +142,12 @@ def main(argv=None):
     models = (small_models(args.device) if args.small and not args.ckpt_path
               else None)
     image_size = 16 if args.small else args.image_size  # small: f2 VAE, latent 8
-    dataset = synthetic_layout_batches(cfg.batch_size, image_size, cfg.max_boxes)
+    if args.coco_root and not args.synthetic:
+        dataset = coco_layout_batches(args.coco_root, cfg.batch_size,
+                                      image_size, cfg.max_boxes)
+    else:
+        dataset = synthetic_layout_batches(cfg.batch_size, image_size,
+                                           cfg.max_boxes)
     trainer = DiffusionTrainer(cfg, dataset, models=models, device=args.device)
     try:
         trainer.train()

@@ -180,33 +180,19 @@ def run_all_splits(pipe, reward_model, data_dir: str, **kwargs) -> Dict:
 
 
 def load_gt_images(examples: List[dict], img_dir: str, size: int = 512):
-    """GT COCO images resized to the generation size, float [0,1]. An 8-bit
-    RGB PNG of that size (utils/images.py's form) is read without Pillow
-    (Pillow's bicubic resize to its own size is the identity); any other
-    image is resized bicubically by Pillow, and raises without it."""
-    from ..utils.images import PNGFormatError, read_png
+    """GT COCO images resized to the generation size, float [0,1]: Pillow's
+    bicubic resize, as the JAX runner's, in numpy (utils/resample.py). An
+    8-bit RGB PNG with unfiltered rows (utils/images.py's form) is read
+    without Pillow; any other image is decoded by Pillow, and raises
+    without it (utils/images.py read_rgb)."""
+    from ..utils.images import read_rgb
+    from ..utils.resample import resize_bicubic
 
     out = []
     for ex in examples:
-        path = os.path.join(img_dir, ex["name"])
-        pixels = None
-        if ex["name"].lower().endswith(".png"):
-            with open(path, "rb") as f:
-                try:
-                    pixels = read_png(f.read())
-                except PNGFormatError:
-                    pixels = None
-        if pixels is None or pixels.shape != (size, size, 3):
-            try:
-                from PIL import Image
-            except ImportError as exc:
-                raise RuntimeError(
-                    f"load_gt_images: {ex['name']} needs Pillow, which is not "
-                    f"installed (without it only {size}x{size} 8-bit RGB PNGs "
-                    "with unfiltered rows are read)") from exc
-            img = Image.open(path).convert("RGB")
-            pixels = np.asarray(img.resize((size, size), Image.BICUBIC))
-        out.append(pixels.astype(np.float32) / 255.0)
+        pixels = read_rgb(os.path.join(img_dir, ex["name"]))
+        out.append(resize_bicubic(pixels, (size, size)).astype(np.float32)
+                   / 255.0)
     return np.stack(out)
 
 

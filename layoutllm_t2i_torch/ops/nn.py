@@ -270,3 +270,8 @@ def ln_geglu_ff_res(p_ff, p_norm, x: torch.Tensor) -> torch.Tensor:
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest").contiguous(
         memory_format=CL)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """The mean of each 2x2 patch (layoutllm_t2i_tpu/ops/nn.py:367)."""
+    return F.avg_pool2d(x, 2).contiguous(memory_format=CL)

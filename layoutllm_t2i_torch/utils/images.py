@@ -6,10 +6,13 @@ PNGs are written by a small writer of its own (zlib + struct, filter 0 on
 every row, 8-bit RGB): the same pixels the JAX package's Pillow writer
 stores, with no imaging library needed where the port runs. ``read_png``
 reads back exactly that form (the RL data's images where Pillow is
-absent); any other PNG raises ``PNGFormatError``.
+absent); any other PNG raises ``PNGFormatError``. ``decode_rgb`` and
+``read_rgb`` take that route for such a PNG and Pillow's for any other
+file, the format deciding which.
 """
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 from typing import Optional, Sequence
@@ -102,6 +105,35 @@ def read_png(png: bytes) -> np.ndarray:
     if rows[:, 0].any():
         raise PNGFormatError("png: a row uses a filter other than 0")
     return rows[:, 1:].reshape(h, w, 3)
+
+
+def decode_rgb(data: bytes, name: str = "image") -> np.ndarray:
+    """(H, W, 3) uint8 pixels of an encoded image: ``read_png`` for an 8-bit
+    RGB PNG with unfiltered rows, Pillow's ``convert("RGB")`` for any other
+    file (as the JAX package's datasets decode). Without Pillow any other
+    file raises RuntimeError naming ``name`` and the package; a damaged PNG
+    raises ValueError."""
+    try:
+        return read_png(data)
+    except PNGFormatError:
+        pass
+    except ValueError:
+        if data[:8] == PNG_SIGNATURE:
+            raise
+    try:
+        from PIL import Image
+    except ImportError as exc:
+        raise RuntimeError(
+            f"{name}: only 8-bit RGB PNGs with unfiltered rows are read "
+            "without Pillow, which is not installed") from exc
+    with Image.open(io.BytesIO(data)) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """``decode_rgb`` of the file at ``path``."""
+    with open(path, "rb") as f:
+        return decode_rgb(f.read(), path)
 
 
 def save_png(arr_uint8: np.ndarray, path: str) -> None:

@@ -183,6 +183,11 @@ RL_MODULES = (
     "cli.train_rl", "eval.clip_score", "eval.metrics", "models.clip_vision",
     "pipeline.reward", "training.rl_trainer",
 )
+# the data loaders and the Pillow-free resize they decode through
+DATA_MODULES = (
+    "data", "data.catalog", "data.coco", "data.concat", "data.loader",
+    "data.modalities", "data.tsv", "utils.resample",
+)
 
 
 def test_every_port_module_imports_without_jax():
@@ -195,6 +200,7 @@ def test_every_port_module_imports_without_jax():
     assert {f"layoutllm_t2i_torch.{m}" for m in SERVING_MODULES} <= set(modules)
     assert {f"layoutllm_t2i_torch.{m}" for m in GENERATION_MODULES} <= set(modules)
     assert {f"layoutllm_t2i_torch.{m}" for m in RL_MODULES} <= set(modules)
+    assert {f"layoutllm_t2i_torch.{m}" for m in DATA_MODULES} <= set(modules)
     # a None entry in sys.modules makes any import of these names raise
     code = ("import importlib, sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'layoutllm_t2i_tpu'):\n"

@@ -12,7 +12,8 @@ planner picks (policy-scored, on pooled or projected CLIP features), the
 relation texts and conditioning the CLIs build, the boxes drawn (Pillow's
 pixels outside the labels) and the files written (PNG where the JAX CLIs
 write JPEG through Pillow). Fixtures (a candidate JSON, a layout cache, a
-policy .pt, a tiny CLIP .pth) are written by the tests.
+policy .pt, a tiny CLIP .pth, a COCO-2014-form directory) are written by
+the tests. Also here: cli/train_diffusion.py trains from ``--coco_root``.
 """
 import base64
 import http.client
@@ -46,6 +47,7 @@ from layoutllm_t2i_torch.checkpoint.from_jax import (
     aesthetic_params_from_jax, gligen_models_from_jax, param_tree_from_jax,
     policy_params_from_jax, state_dict_from_jax)
 from layoutllm_t2i_torch.cli import demo as pdemo
+from layoutllm_t2i_torch.cli import train_diffusion as ptrain
 from layoutllm_t2i_torch.cli import gligen_inference as pgligen
 from layoutllm_t2i_torch.cli import txt2img as ptxt2img
 from layoutllm_t2i_torch.models import clip_text as pclip
@@ -713,3 +715,43 @@ def test_demo_answers_on_the_cpu():
         srv.shutdown()
         srv.server_close()
         thread.join(10)
+
+
+def test_train_diffusion_from_coco_root(tmp_path):
+    """``--coco_root`` trains from COCO-layout data: 4 captioned PNGs of
+    assorted sizes (utils/images.py's form) and one without a caption, 2
+    iterations at batch 2 with the tiny models; finite losses, a
+    checkpoint."""
+    rng = np.random.default_rng(0)
+    root = tmp_path / "coco"
+    (root / "train2014").mkdir(parents=True)
+    (root / "annotations").mkdir()
+    inst = {"images": [], "annotations": [],
+            "categories": [{"id": 1, "name": "dog"}, {"id": 2, "name": "cat"}]}
+    caps = {"annotations": []}
+    for img_id, (w, h) in enumerate(((40, 30), (30, 40), (24, 24), (50, 20),
+                                     (32, 32)), 1):
+        name = f"{img_id}.png"
+        pimages.save_png(rng.integers(0, 256, (h, w, 3), np.uint8),
+                         str(root / "train2014" / name))
+        inst["images"].append({"id": img_id, "file_name": name, "width": w,
+                               "height": h})
+        for k in (1, 2):
+            box = [w * 0.1 * k, h * 0.2, w * 0.4, h * 0.5]
+            inst["annotations"].append({
+                "id": len(inst["annotations"]) + 1, "image_id": img_id,
+                "bbox": box, "area": box[2] * box[3], "category_id": k})
+        if img_id < 5:
+            caps["annotations"].append({"image_id": img_id,
+                                        "caption": "a dog next to a cat"})
+    for kind, obj in (("instances", inst), ("captions", caps)):
+        (root / "annotations" / f"{kind}_train2014.json").write_text(json.dumps(obj))
+    ptrain.main(["--small", "--device", "cpu", "--coco_root", str(root),
+                 "--batch_size", "2", "--total_iters", "2", "--warmup_steps", "0",
+                 "--output_root", str(tmp_path / "out"), "--name", "coco",
+                 "--sync_ckpt"])
+    run = tmp_path / "out" / "coco" / "tag00"
+    losses = [json.loads(line)["loss"]
+              for line in (run / "metrics.jsonl").read_text().splitlines()]
+    assert losses and all(np.isfinite(losses))  # logged every 10th iteration
+    assert (run / "checkpoint_00000002" / "state.pt").exists()

@@ -23,6 +23,7 @@ from layoutllm_t2i_tpu.models import unet as junet
 from layoutllm_t2i_tpu.models import vae as jvae
 from layoutllm_t2i_tpu.models.clip_tokenizer import HashTokenizer
 from layoutllm_t2i_tpu.ops import attention as jattn
+from layoutllm_t2i_tpu.ops import nn as jnn
 from layoutllm_t2i_tpu.ops import schedules as jsched
 from layoutllm_t2i_tpu.pipeline import inference as jinf
 
@@ -107,6 +108,16 @@ def test_schedule_tables_and_embeddings(rng):
     boxes = rng.uniform(0, 1, (2, 30, 4)).astype(np.float32)
     _close(psched.fourier_embed(_t(boxes)), jsched.fourier_embed(jnp.asarray(boxes)),
            atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 3), (1, 6, 10, 4)])
+def test_avg_pool_2x(rng, shape):
+    # the JAX function takes NHWC, the port's logical NCHW (channels_last)
+    x = rng.normal(size=shape).astype(np.float32)
+    out = pnn.avg_pool_2x(pnn.nhwc_to_nchw(_t(x)))
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    _close(pnn.nchw_to_nhwc(out), jnn.avg_pool_2x(jnp.asarray(x)), atol=1e-6,
+           rtol=1e-6)
 
 
 @pytest.mark.parametrize("n,m,masked", [

@@ -17,9 +17,9 @@ on the CPU at small geometry.
   dropped from the layout metrics.
 * ``run_all_splits``' overall row: the n-weighted means of the split rows;
   a ragged tail chunk at its own batch.
-* ``load_gt_images`` with Pillow unimportable reads utils/images.py PNGs
-  and raises on a JPEG and on a PNG of another size; with Pillow it equals
-  JAX's on the same files.
+* ``load_gt_images`` with Pillow unimportable reads utils/images.py PNGs,
+  resizes one of another size bit-equal to Pillow's bicubic filter, and
+  raises on a JPEG; with Pillow it equals JAX's on the same files.
 * ``main`` with ``--small --device cpu`` prints one JSON line with the JAX
   runner's keys (``--data_path`` with the planner, and FID from a random
   Inception ``.pth``); ``--sharded`` is refused before any
@@ -229,6 +229,12 @@ def test_load_gt_images_without_pillow(tmp_path, monkeypatch):
     with_pil = pn.load_gt_images(EXAMPLES[:2], str(tmp_path), size=16)
     want = jn.load_gt_images(EXAMPLES[:2], str(tmp_path), size=16)
     np.testing.assert_array_equal(with_pil, want)
+    # a PNG of another size than the generation's, resized both ways
+    other = tmp_path / "other"
+    other.mkdir()
+    (other / "w.png").write_bytes(png_bytes(
+        np.random.default_rng(3).uniform(size=(23, 37, 3))))
+    want_resized = jn.load_gt_images([{"name": "w.png"}], str(other), size=16)
 
     real_import = builtins.__import__
 
@@ -242,10 +248,12 @@ def test_load_gt_images_without_pillow(tmp_path, monkeypatch):
     got = pn.load_gt_images(EXAMPLES[:2], str(tmp_path), size=16)
     assert got.dtype == np.float32 and got.shape == (2, 16, 16, 3)
     np.testing.assert_array_equal(got, want)
+    got = pn.load_gt_images([{"name": "w.png"}], str(other), size=16)
+    assert got.shape == (1, 16, 16, 3)
+    np.testing.assert_array_equal(got, want_resized)
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 not read")
-    for example, size in (({"name": "x.jpg"}, 16), (EXAMPLES[0], 8)):
-        with pytest.raises(RuntimeError, match="needs Pillow"):
-            pn.load_gt_images([example], str(tmp_path), size=size)
+    with pytest.raises(RuntimeError, match="x.jpg: .* without Pillow"):
+        pn.load_gt_images([{"name": "x.jpg"}], str(tmp_path), size=16)
 
 
 def _main_json(argv, capsys):

@@ -787,3 +787,53 @@ def test_phase_modalities_on_the_cpu(tmp_path, monkeypatch, small_flash,
     # the map runs' ConvNeXt LayerNorms, in f32 at eps 1e-6
     assert {args[1] for kid, args in calls if kid == "K3" and 1e-6 in args} == {
         96, 192, 384, 768}
+
+
+def test_phase_data_on_the_cpu(tmp_path, capsys):
+    """Phase data is host-only: here at 16^2 from small source images, the
+    fixture, the catalog's three datasets, their concatenation through the
+    loader (two epochs, each a permutation), the TSV round trips."""
+    rec = cs.phase_data(str(tmp_path / "d"), size=16,
+                        sizes=((40, 30), (30, 40), (33, 50), (20, 13),
+                               (16, 16), (70, 30)))
+    assert rec["ok"] and rec["epochs_permutation"] == [True, True]
+    assert rec["lengths"] == [6, 5, 6] and rec["concat_len"] == 23
+    assert rec["items_drawn"] == 2 * 23
+    assert not (tmp_path / "d").exists()
+    assert '"phase": "data"' in capsys.readouterr().out
+
+
+# phase train-coco's fixture at small sizes: four captioned images and the
+# captionless one (landscape first, so the crop drops the edge box), batch
+# 2: three steps cross the epoch's two batches
+COCO_SMALL = ((64, 48), (48, 64), (50, 33), (64, 64))
+
+
+def test_train_coco_walk_matches_the_calls(recorded, tmp_path):
+    """Phase train-coco's host parts: the fixture and the walk rebuilt from
+    a fresh loader (coco_walk) against the calls of a trainer that takes
+    three mixed-precision steps from the loader the CLI builds; the batch
+    checks (the crowd box, the degenerate box and the captionless image
+    absent)."""
+    from layoutllm_t2i_torch.data.coco import coco_layout_batches
+
+    recorded.mark_f32 = True
+    fx = cs.coco_fixture(str(tmp_path), COCO_SMALL)
+    models = _models()
+    cfg = TrainerConfig(output_root=str(tmp_path / "out"), name="t",
+                        batch_size=2, total_iters=cs.COCO_STEPS,
+                        warmup_steps=0, max_boxes=30, max_relations=10,
+                        mixed_precision=True)
+    trainer = DiffusionTrainer(cfg, coco_layout_batches(fx["root"], 2, 64, 30),
+                               models=models)
+    trainer.train()
+    trainer.close()
+    walk = cs.coco_walk(fx, models.unet_cfg, models.vae_cfg, models.clip_cfg,
+                        TOK_LEN, 2, 64)
+    assert collections.Counter(recorded) == collections.Counter(walk["calls"])
+    assert ("K1", (2, 1024, 1024, 1, 64, "f32")) in walk["calls"]  # VAE mid
+    checks = cs.coco_batch_checks(walk, fx, 2, 64)
+    assert all(checks.values()), checks
+    assert len(walk["dataset"]) == len(COCO_SMALL)
+    assert {kid for kid, _ in walk["calls"]} | {"K5a", "K5b"} >= {
+        kid.split("/")[0] for kid in cs.COCO_WALKED}

@@ -326,7 +326,7 @@ def test_cli_small_drive_and_refusals(tmp_path):
     run = tmp_path / "cli" / "tag00"
     assert (run / "checkpoint_00000003" / "state.pt").exists()
     assert (run / "checkpoint_00000003.pth").exists()
-    for extra in (["--coco_root", "/data"], ["--multihost"], ["--zero1"]):
+    for extra in (["--multihost"], ["--zero1"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cli.main(argv + extra)
 
