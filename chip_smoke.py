@@ -20,6 +20,34 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                serialised); prints the registers and spills of every wgmma
                and f32 product kernel and of K2's three kernels
                (GN_KERNELS).
+  1a. parallel  parallel/ for generation in ranks of their own, started
+               as subprocesses with torchrun's environment once phase build
+               has built every kernel (PARALLEL_STEPS: PLMS-10, a depth cut;
+               full width, bf16, random weights from seed 0, gates 0.5;
+               each rank PARALLEL_CHILD_S s, the group's collectives a
+               PARALLEL_GROUP_S s timeout; a non-zero exit or a hung
+               collective fails the run): world 1 on NCCL (cuda:0) and
+               world 2 on gloo, both ranks on cuda:0 (NCCL refuses two
+               ranks on one device; gloo takes the CUDA tensors as they are):
+               generate_sharded on REQUESTS (batch 2) and generate_tp
+               ('heads', 'spatial') on the first request, each against
+               generate on the same requests at PSNR >= 35 dB
+               (tests/parity_setup.py's gate); walls per rank, labelled
+               world-1 or shared-card (not TP speed-ups); each run's
+               launches counted apart, and each must launch K1, K2, K3 and
+               K4 ('heads' at world 2: K6 on a rank's inner slice for K4);
+               world 1 also runs the port bench with --sharded in-process
+               (batch 2, 1 iteration, PLMS-10). World 2 must launch K1 at
+               the local shapes (q 2048 rows against K/V 4096 at d 40,
+               'spatial' at 64^2; 4 heads, 'heads') and K2's split pair
+               (partials all-gathered between its launches), and 'heads'
+               K6 at a rank's inner slice; their shapes join phase
+               kernels' second pass (K2's split rows: rank 0's
+               block, every rank's partials, against the plain GroupNorm of
+               all the rows; no library call). Then cli/serve.py --tp at
+               world 2 on the card (gloo, cuda:0): two POSTs each answered
+               with a 512x512 PNG, /metrics counting both, both ranks
+               exiting 0 after rank 0's SIGINT.
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
@@ -241,9 +269,11 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
      `device_vs_library` are the ratios of those sums; `launches` adds
-     the runs of phases 4, 5, 7-8b, 9-11, 11b (its two runs), 13 (its steps and
-     its preview), 13b, 15, 16, 17 and 18 (its training),
-     each read from counts set to 0 just before it; each f32 form
+     the runs of phases 1a (every rank's), 4, 5, 7-8b, 9-11, 11b (its two
+     runs), 13 (its steps and its preview), 13b, 15, 16, 17 and 18 (its
+     training), each read from counts set to 0 just before it (K2's entry
+     adds `split`: its split rows' sums and the split pair's launches);
+     each f32 form
      has an entry of its own ("K1/f32 flash_attention", ...), its rows'
      sums, its f32 launches and its `arith`, and the bf16 entries count
      bf16 launches only. K5a's and K5b's
@@ -306,6 +336,7 @@ import contextlib
 import dataclasses
 import functools
 import importlib
+import io
 import itertools
 import json
 import math
@@ -569,6 +600,14 @@ def is_f32(args) -> bool:
     return args[-1] == "f32"
 
 
+def split_world(args) -> int:
+    """The ranks of a K2 case of the split pair ('spatial' TP: its args
+    carry "split<world>", HW one rank's rows), else 0."""
+    tag = next((a for a in args if isinstance(a, str) and a.startswith("split")),
+               None)
+    return int(tag[5:]) if tag else 0
+
+
 def has_lse(args) -> bool:
     """A K1 case that also writes the lse (a training site)."""
     return "lse" in args
@@ -829,12 +868,15 @@ def case_label(kid, args):
         return f"B{b} N{n} M{m} H{h} d{d}" + (" lse" if has_lse(args) else "") + f32
     if kid == "K2":
         n, hw, c, eps, silu = args[:5]
-        return f"N{n} HW{hw} C{c} eps{eps:g} silu{int(silu)}" + f32
+        world = split_world(args)
+        return (f"N{n} HW{hw} C{c} eps{eps:g} silu{int(silu)}"
+                + (f" split over {world} ranks" if world else "") + f32)
     if kid == "K3":
         return "rows{} C{}".format(*args) + (
             f" eps{args[2]:g}" if len(args) > 2 and args[2] != "f32" else "") + f32
     if kid == "K6":
-        return "M{} K{}".format(*args) + f32
+        return "M{} K{}".format(*args) + (
+            f" inner{args[2]}" if len(args) > 2 and args[2] != "f32" else "") + f32
     if kid in ("K8a", "K8b"):
         return "M{} K{} N{}".format(*args) + f32
     return "M{} K{} s{:g}".format(*args) + f32
@@ -881,6 +923,8 @@ def make_case(kid, args, dev, gen):
         nbytes = item * (2 * b * n * h * d + 2 * b * m * h * d)
         return (lambda: K.flash_attention(q, k, v, h, sc),
                 lambda: K.flash_attention_plain(q, k, v, h, sc), lib, flops, nbytes)
+    if kid == "K2" and split_world(args):
+        return make_split_case(args, rnd, item)
     if kid == "K2":
         n, hw, c, eps, silu = args[:5]
         x = rnd(n, hw, c, scale=2.0) + 0.5
@@ -908,7 +952,7 @@ def make_case(kid, args, dev, gen):
     if kid in ("K8a", "K8b"):
         return make_gemm_case(kid, args[:3], rnd, item)
     if kid == "K6":
-        return make_ffn_res_case(args[:2], rnd, item)
+        return make_ffn_res_case(args, rnd, item)
     m, k, s = args[:3]
     inner = 4 * k
     x = rnd(m, k)
@@ -929,14 +973,40 @@ def make_case(kid, args, dev, gen):
             lib, flops, nbytes)
 
 
+def make_split_case(args, rnd, item=2):
+    """K2's split pair as rank 0 of ``world`` runs it: its statistics
+    launch, every rank's partials (made here by the other blocks' statistics
+    launches, as the gather would hand them over), its apply launch.
+    Against the plain GroupNorm of the whole rows, rank 0's block. No single
+    library call computes this function (library_fn None); the bound counts
+    one rank's rows read and written once and the partials read."""
+    gn = importlib.import_module("layoutllm_t2i_torch.kernels.group_norm")
+    n, hw, c, eps, silu = args[:5]
+    world = split_world(args)
+    x = rnd(n, world * hw, c, scale=2.0) + 0.5
+    w, bb = rnd(c, scale=0.5) + 1.0, rnd(c, scale=0.5)
+    blocks = [blk.contiguous() for blk in x.chunk(world, dim=1)]
+    parts = []
+    for blk in blocks:
+        gn.group_norm_split(blk, w, bb, 32, eps, silu,
+                            lambda part: parts.append(part.clone()) or part)
+    every = torch.cat(parts, dim=2)
+    return (lambda: gn.group_norm_split(blocks[0], w, bb, 32, eps, silu,
+                                        lambda part: every),
+            lambda: gn.group_norm_plain(x, w, bb, 32, eps, silu)[:, :hw],
+            None, 10.0 * blocks[0].numel(),
+            item * (2 * blocks[0].numel() + 2 * c) + 4 * every.numel())
+
+
 def make_ffn_res_case(args, rnd, item=2):
-    """K6: the FF without the LN, its residual passed in. Library: the
-    FF as F.linear, GEGLU, F.linear, then the residual add. Operands of
-    ``item`` bytes."""
+    """K6: the FF without the LN, its residual passed in, at inner 4k or
+    at the inner width ``args`` carries (a 'heads' rank's slice). Library:
+    the FF as F.linear, GEGLU, F.linear, then the residual add. Operands
+    of ``item`` bytes."""
     from layoutllm_t2i_torch import kernels as K
 
-    m, k = args
-    inner = 4 * k
+    m, k = args[:2]
+    inner = args[2] if len(args) > 2 and args[2] != "f32" else 4 * k
     x, r = rnd(m, k), rnd(m, k)
     w1, b1 = rnd(2 * inner, k, scale=k ** -0.5), rnd(2 * inner, scale=0.1)
     w2, b2 = rnd(k, inner, scale=inner ** -0.5), rnd(k, scale=0.1)
@@ -1263,18 +1333,25 @@ def phase_kernels(cases, acc=None):
         rec = {"phase": "kernels", "kernel": rid, "shape": label, "paths": paths,
                **agree,
                "ms": time_ms(kern), "plain_ms": time_ms(plain),
-               "library_ms": library_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": lib and library_ms(lib), "bound_ms": b_ms,
+               "bound_by": b_by}
         if is_f32(args):
             rec["arith"] = F32_ARITH[kid]
         rec["device_ms"], rec["host_us"] = device_time(kern)
-        rec["library_device_ms"] = library_ms(lib, device_ms)
+        rec["library_device_ms"] = lib and library_ms(lib, device_ms)
         if kid in ("K1", "K5a", "K5b"):
             b, n, m, h = args[:4]
             rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
-        if kid in VS_LIBRARY_KIDS:
+        if kid in VS_LIBRARY_KIDS and lib:
             rec["vs_library"] = rec["ms"] / rec["library_ms"]
             rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
-        if kid == "K2":
+        if kid == "K2" and split_world(args):
+            plan = importlib.import_module(
+                "layoutllm_t2i_torch.kernels.group_norm").stream_plan(
+                    *args[:3], 32)
+            rec.update(path="split", ranks=split_world(args), slab=plan.slab,
+                       chunks=plan.chunks)
+        elif kid == "K2":
             plan = gn_plan(*args[:3], itemsize=4 if is_f32(args) else 2)
             rec.update(path=plan.path, cluster=plan.cluster, slab=plan.slab)
         emit(rec)
@@ -1286,6 +1363,20 @@ def phase_kernels(cases, acc=None):
         agg = summary[rid]
         for key in ("max_abs_err", "max_rel_err", "rms_rel_err"):
             agg[key] = max(agg[key], agree[key])
+        if not lib:
+            # the split pair (no library call): its sums apart, so the
+            # kernel's vs_library stays a ratio over the same shapes
+            agg = agg.setdefault("split", {"ms": 0.0, "plain_ms": 0.0,
+                                           "bound_ms": 0.0, "device_ms": 0.0,
+                                           "shapes": 0})
+            for key in ("ms", "plain_ms", "bound_ms", "device_ms"):
+                agg[key] += rec[key]
+            agg["shapes"] += 1
+            if not agree["ok"]:
+                failed.append(f"{rid} {label}")
+            del kern, plain, lib
+            torch.cuda.empty_cache()
+            continue
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
                     "library_device_ms"):
             agg[key] += rec[key]
@@ -2054,6 +2145,7 @@ def recorded_calls():
         "_group_norm_rows", "_layer_norm_rows", "ffn_ln_geglu", "ffn_geglu",
         "ffn_ln_geglu_q", "linear_fused", "geglu_fused")}
     real_flash = attn_mod.flash_attention
+    real_split = nn_mod.group_norm_split
     f32 = lambda x: ("f32",) if x.dtype is torch.float32 else ()
     gate = lambda s: 1.0 if isinstance(s, float) and s == 1.0 else 0.5
 
@@ -2071,7 +2163,10 @@ def recorded_calls():
         return real["ffn_ln_geglu"](x, lw, lb, w1, b1, w2, b2, s)
 
     def ffn_res(x, w1, b1, w2, b2, r):
-        calls.append(("K6", tuple(x.shape) + f32(x)))
+        # a 'heads' rank's inner slice is part of the shape
+        inner = w2.shape[1]
+        calls.append(("K6", tuple(x.shape) + (
+            (inner,) if inner != 4 * x.shape[-1] else ()) + f32(x)))
         return real["ffn_geglu"](x, w1, b1, w2, b2, r)
 
     def ffn_q(x, lw, lb, q1, s1, b1, q2, s2, b2, s):
@@ -2086,6 +2181,12 @@ def recorded_calls():
         calls.append(("K8b", (*x.shape, w.shape[0] // 2) + f32(x)))
         return real["geglu_fused"](x, w, b)
 
+    def group_norm_split(x, w, b, groups, eps, silu, gather):
+        world = importlib.import_module(
+            "layoutllm_t2i_torch.parallel.tp").current_tp().mesh.size
+        calls.append(("K2", (*x.shape, eps, silu, f"split{world}") + f32(x)))
+        return real_split(x, w, b, groups, eps, silu, gather)
+
     def flash(q, k, v, heads, scale):
         b, n, hc = q.shape
         lse = ("lse",) if needs_grad(q, k, v) else ()
@@ -2099,12 +2200,14 @@ def recorded_calls():
     for name, spy in spies.items():
         setattr(nn_mod, name, spy)
     attn_mod.flash_attention = flash
+    nn_mod.group_norm_split = group_norm_split
     try:
         yield calls
     finally:
         for name, fn in real.items():
             setattr(nn_mod, name, fn)
         attn_mod.flash_attention = real_flash
+        nn_mod.group_norm_split = real_split
 
 
 def routed_generation(pipe, cond, noise, blend_noise=None) -> dict:
@@ -3775,6 +3878,271 @@ def phase_train_coco(work_dir: str) -> tuple:
 # (the f32 instantiations of K2's and K3's templates before their bf16 ones).
 # K6/f32 runs K4/f32's up and down kernels and K7/f32 K4/f32's LN pre-pass,
 # so their time counts under K4/f32; K6/f32's group names them all the same
+# ---------------------------------------------------------------------------
+# phase parallel: parallel/ for generation (prompt-parallel and the TP
+# latency mode), in ranks of their own started with torchrun's environment
+
+PARALLEL_STEPS = 10            # a depth cut of PLMS-50 (PERF.md §4)
+PARALLEL_PSNR_MIN_DB = 35.0    # tests/parity_setup.py's image gate
+PARALLEL_CHILD_S = 420         # each rank's time limit
+PARALLEL_GROUP_S = 300         # the group's collective timeout
+PARALLEL_SERVE_REQUESTS = ("a dog chasing a red ball on the grass",
+                           "a cat sitting on a wooden chair")
+
+
+def parallel_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's environment for one rank on this machine. One hash seed
+    for every rank: without a CLIP merges file the tokenizer hashes words
+    with Python's salted ``hash``, and each rank's one-device reference
+    must see the conditioning that rank 0 broadcasts."""
+    return dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                PYTHONHASHSEED="0")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(argv, world: int, **popen) -> list:
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    return [subprocess.Popen([sys.executable] + argv, cwd=root,
+                             env=parallel_env(r, world, port), **popen)
+            for r in range(world)]
+
+
+def wait_ranks(procs, timeout: float, what: str) -> None:
+    """Every rank must exit 0 within ``timeout`` s: a hung collective or a
+    failed rank fails the phase (the others are killed)."""
+    deadline = time.perf_counter() + timeout
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(max(1.0, deadline - time.perf_counter())))
+        except subprocess.TimeoutExpired:
+            codes.append("timeout")
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if any(c != 0 for c in codes):
+        raise SmokeFailure(f"{what}: ranks exited {codes}")
+
+
+def timed(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def parallel_child(backend: str, out_dir: str, device: str = "cuda:0",
+                   small: bool = False) -> int:
+    """One rank of phase parallel (run by phase_parallel, torchrun's
+    environment set): generate_sharded at batch 2 and generate_tp
+    ('heads', 'spatial') at batch 1 against generate on the same requests,
+    walls, launches and the K1 and K2 calls of the TP runs; at world 1 the
+    port bench with --sharded. Writes OUT_DIR/rank<r>.json. gloo's ranks
+    share ``device``; NCCL's take cuda:LOCAL_RANK. ``small``: the small
+    geometry (a rehearsal on the CPU with device "cpu")."""
+    import datetime
+
+    from layoutllm_t2i_torch.kernels import group_norm, reset_launches
+    from layoutllm_t2i_torch.parallel.mesh import make_mesh
+    from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
+    from layoutllm_t2i_torch.pipeline.loaders import random_models
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device=device if backend == "gloo" else None,
+                     backend=backend,
+                     timeout=datetime.timedelta(seconds=PARALLEL_GROUP_S))
+    models = random_models(small=small, device=mesh.device,
+                           dtype=None if small else torch.bfloat16, seed=0)
+    set_alphas(models.unet_params, 0.5)
+    pipe = InferencePipeline(models, steps=PARALLEL_STEPS, sampler="plms",
+                             guidance_scale=7.5, alpha_type=(0.3, 0.0, 0.7),
+                             vae_chunk=VAE_CHUNK)
+    prompts, layouts, relations = REQUESTS
+    one = ([prompts[0]], [layouts[0]], [relations[0]])
+    # warm-up: cuDNN's algorithm choices and first launches, every path
+    warm = InferencePipeline(models, steps=2, alpha_type=(0.5, 0.0, 0.5),
+                             vae_chunk=VAE_CHUNK)
+    warm.generate_sharded(mesh, prompts, layouts, relations, seed=3)
+    for style in ("heads", "spatial"):
+        warm.generate_tp(mesh, *one, seed=3, style=style)
+    rec = {"rank": mesh.rank, "world": mesh.size, "backend": mesh.backend,
+           "device": str(mesh.device), "steps": PARALLEL_STEPS, "walls_s": {},
+           "psnr_db": {}}
+    runs = {"sharded": lambda: pipe.generate_sharded(mesh, prompts, layouts,
+                                                     relations, seed=0)}
+    for style in ("heads", "spatial"):
+        runs[style] = functools.partial(pipe.generate_tp, mesh, *one, seed=0,
+                                        style=style)
+    images, rec["launches_by_run"], rec["split_launches"] = {}, {}, 0
+    with recorded_calls() as calls:
+        for name, fn in runs.items():
+            reset_launches()
+            images[name], rec["walls_s"][name] = timed(fn)
+            rec["launches_by_run"][name] = path_counts()
+            rec["split_launches"] += group_norm.split_launches
+    rec["launches"] = {kid: sum(c[kid] for c in rec["launches_by_run"].values())
+                       for kid in rec["launches_by_run"]["sharded"]}
+    # K1 at the local shapes, K2's split pair, K6 on a 'heads' inner slice
+    rec["calls"] = sorted({(kid, args) for kid, args in calls
+                           if kid in ("K1", "K6") or "split" in str(args)})
+    # the one-device references, on each rank (its own images)
+    refs = {}
+    refs["sharded"], rec["walls_s"]["generate_b2"] = timed(
+        lambda: pipe.generate(prompts, layouts, relations, seed=0))
+    refs["heads"], rec["walls_s"]["generate_b1"] = timed(
+        lambda: pipe.generate(*one, seed=0))
+    refs["spatial"] = refs["heads"]
+    for name, img in images.items():
+        ok = (img.shape == refs[name].shape and bool(np.isfinite(img).all()))
+        rec["psnr_db"][name] = (min(psnr_db(a, b) for a, b in
+                                    zip(img, refs[name])) if ok else None)
+    if mesh.size == 1:
+        from layoutllm_t2i_torch.cli import bench
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--sharded", "--batch", "2", "--iters", "1",
+                        "--steps", str(PARALLEL_STEPS), "--no_fast"]
+                       + (["--small", "--device", device] if small else []))
+        rec["bench"] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_world(backend: str, world: int, out_dir: str) -> list:
+    os.makedirs(out_dir, exist_ok=True)
+    procs = spawn_ranks([os.path.abspath(__file__), "--parallel-child",
+                         backend, out_dir], world)
+    wait_ranks(procs, PARALLEL_CHILD_S, f"parallel world {world} {backend}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def serve_tp_check(work_dir: str) -> dict:
+    """cli/serve.py --tp at world 2, both ranks on cuda:0 over gloo: two
+    POSTs answered with 512x512 PNGs, /metrics counting both, both ranks
+    exiting 0 after rank 0's SIGINT."""
+    import http.client
+    import signal
+
+    procs = spawn_ranks(
+        ["-m", "layoutllm_t2i_torch.cli.serve", "--tp", "--device", "cuda:0",
+         "--tp_backend", "gloo", "--steps", str(PARALLEL_STEPS), "--host",
+         "127.0.0.1", "--port", "0"],
+        2, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    rec = {"phase": "parallel-serve", "world": 2, "backend": "gloo"}
+    try:
+        line = next((l for l in procs[0].stdout
+                     if l.startswith("serving on ")), "")
+        if not line.startswith("serving on 127.0.0.1:"):
+            raise SmokeFailure(f"serve --tp: no port line (rank 0 {procs[0].poll()})")
+        conn = http.client.HTTPConnection(
+            "127.0.0.1", int(line.split(":")[1].split()[0]), timeout=PARALLEL_CHILD_S)
+        deadline = time.perf_counter() + PARALLEL_CHILD_S
+        while http_json(conn, "GET", "/healthz")[0] != 200:
+            if time.perf_counter() > deadline:
+                raise SmokeFailure("serve --tp: not ready")
+            time.sleep(0.5)
+        http_json(conn, "POST", "/metrics/reset")
+        rec["request_s"] = []
+        for prompt in PARALLEL_SERVE_REQUESTS:
+            t0 = time.perf_counter()
+            conn.request("POST", "/generate", body=json.dumps({
+                "prompt": prompt, "seed": 1,
+                "layout": [{"phrase": prompt.split()[1],
+                            "box": [0.1, 0.3, 0.6, 0.9]}]}))
+            r = conn.getresponse()
+            body = r.read()
+            rec["request_s"].append(time.perf_counter() - t0)
+            if r.status != 200 or png_pixels(body).shape != (512, 512, 3):
+                raise SmokeFailure(f"serve --tp: reply {r.status}")
+        rec["metrics"] = http_json(conn, "GET", "/metrics")[1]
+        procs[0].send_signal(signal.SIGINT)
+        wait_ranks(procs, 120, "serve --tp")
+        rec["follower"] = procs[1].stdout.read().strip().splitlines()[-1:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+    if rec["metrics"].get("requests") != 2 or rec["metrics"].get("errors"):
+        raise SmokeFailure(f"serve --tp: /metrics {rec['metrics']}")
+    return rec
+
+
+def phase_parallel(work_dir: str) -> tuple:
+    """World 1 on NCCL, world 2 on gloo with both ranks on cuda:0, serve
+    --tp at world 2. Each run's images against generate's at PSNR >= 35 dB;
+    world 2's K1 at the local shapes and K2's split pair launched. Returns
+    (launches of the ranks' runs, their K1 and split K2 calls)."""
+    t0 = time.perf_counter()
+    worlds = {}
+    for backend, world in (("nccl", 1), ("gloo", 2)):
+        worlds[backend] = run_world(backend, world,
+                                    os.path.join(work_dir, f"w{world}"))
+        for rec in worlds[backend]:
+            emit({"phase": "parallel", **{k: v for k, v in rec.items()
+                                          if k != "calls"},
+                  "note": ("world-1 walls" if world == 1 else
+                           "shared-card walls: both ranks on one card, "
+                           "collectives over gloo; not a TP speed-up")})
+    counts, calls, bad = {}, set(), []
+    for backend, recs in worlds.items():
+        for rec in recs:
+            for kid, n in rec["launches"].items():
+                counts[kid] = counts.get(kid, 0) + n
+            calls |= {(kid, tuple(args)) for kid, args in rec["calls"]}
+            bad += [f"{backend} rank {rec['rank']} {k}: {v}"
+                    for k, v in rec["psnr_db"].items()
+                    if v is None or v < PARALLEL_PSNR_MIN_DB]
+    counts["K2 split"] = sum(rec["split_launches"] for recs in worlds.values()
+                             for rec in recs)
+    split = worlds["gloo"][0]["split_launches"]
+    # each run's own kernels: 'heads' at world 2 computes its FF partials
+    # with K6 on a rank's inner slice (K4's LN and residual are whole-row)
+    for backend, recs in worlds.items():
+        for rec in recs:
+            for run, got in rec["launches_by_run"].items():
+                want = (("K1", "K2", "K3", "K6") if run == "heads"
+                        and rec["world"] > 1 else ("K1", "K2", "K3", "K4"))
+                bad += [f"{backend} rank {rec['rank']} {run}: no {kid} launch"
+                        for kid in want if got.get(kid, 0) <= 0]
+    k1_local = sorted(args for kid, args in calls if kid == "K1")
+    want = {(2 * 1, 2048, 4096, 8, 40), (2 * 1, 4096, 4096, 4, 40)}
+    bench = worlds["nccl"][0]["bench"]
+    serve = serve_tp_check(work_dir)
+    emit({**serve, "seconds": time.perf_counter() - t0,
+          "k1_calls": k1_local, "split_launches_rank0": split})
+    if bad:
+        raise SmokeFailure(f"parallel (images under {PARALLEL_PSNR_MIN_DB} dB "
+                           f"or a run's kernel not launched): {bad}")
+    if not want <= set(k1_local) or split <= 0:
+        raise SmokeFailure(f"parallel: K1 at {k1_local} (want {sorted(want)}), "
+                           f"{split} split K2 launches")
+    if not (bench["value"] > 0 and 0 < bench["mfu"] <= 1 and bench["ranks"] == 1):
+        raise SmokeFailure(f"bench --sharded: {bench}")
+    return counts, sorted(calls)
+
+
 PROFILE_GROUPS = (
     # the split pre-pass's four-operand instantiations run in K5a/f32's
     # call (the backward's, shared with K5b/f32), its two-operand ones in
@@ -3888,11 +4256,15 @@ def main(argv=None) -> int:
                          "JSON_routes, JSON_bench, JSON_train, "
                          "JSON_train-f32, JSON_f32, JSON_int8-f32 and "
                          "JSON_routes-f32")
+    ap.add_argument("--parallel-child", nargs=2, metavar=("BACKEND", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of phase parallel
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.parallel_child:
+        return parallel_child(*args.parallel_child)
     try:
         from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
         from layoutllm_t2i_torch.models.clip_text import CLIPTextConfig
@@ -3919,9 +4291,12 @@ def main(argv=None) -> int:
     modal_dir = os.path.join(build_dir, "chip_smoke_modalities")
     data_dir = os.path.join(build_dir, "chip_smoke_data")
     coco_dir = os.path.join(build_dir, "chip_smoke_coco")
+    parallel_dir = os.path.join(build_dir, "chip_smoke_parallel")
     try:
         with route_env(DEFAULT):
             phase_build()
+            # its ranks start from the libraries phase build made
+            parallel_counts, parallel_calls = phase_parallel(parallel_dir)
             unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
             tok_len = clip_cfg.max_length
             train_batch = next(synthetic_layout_batches(TRAIN_BATCH, 512,
@@ -4003,7 +4378,8 @@ def main(argv=None) -> int:
             held = {(kid, a) for kid, _, a, _ in first_cases}
             second_cases = [case for case in kernel_cases(
                 {"inpaint": inpaint_calls, "modalities": modal_calls,
-                 "cli": cli_calls}) if (case[0], case[2]) not in held]
+                 "cli": cli_calls, "parallel": parallel_calls})
+                if (case[0], case[2]) not in held]
             kernels_acc = phase_kernels(second_cases, kernels_acc)
             held |= {(kid, a) for kid, _, a, _ in second_cases}
             del inpaint_calls, modal_calls, cli_calls, second_cases
@@ -4054,6 +4430,7 @@ def main(argv=None) -> int:
         shutil.rmtree(modal_dir, ignore_errors=True)
         shutil.rmtree(data_dir, ignore_errors=True)
         shutil.rmtree(coco_dir, ignore_errors=True)
+        shutil.rmtree(parallel_dir, ignore_errors=True)
     summary, k5_pairs, _ = kernels_acc
     # each run launches its path's kernels: the exact and the fast
     # generation, the bench, the CLIs, the RL trainer, the NSS1K runs and
@@ -4063,15 +4440,17 @@ def main(argv=None) -> int:
     # K1 (d 512), K2 and K3 in f32, f32 training the f32 forms of K1-K5b,
     # the f32 generation those of K1-K4, its int8 one K7/f32 and f32
     # training on the split routes those of K6, K8a and K8b; the line adds
-    # the seventeen runs (phases inpaint and modalities: K1-K4 too;
-    # train-coco: mixed-precision training's kernels, through the loader)
+    # the eighteen runs (phases inpaint and modalities: K1-K4 too;
+    # train-coco: mixed-precision training's kernels, through the loader;
+    # parallel: the ranks' runs, K1-K4, K2 also as its split pair)
     runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
             "routes": routes_counts, "inpaint": inpaint_counts,
             "modalities": modal_counts, "bench": bench_counts, "cli": cli_counts,
             "rl": rl_counts, "eval": eval_counts, "preview": preview_counts,
             "train": train_counts[""], "train-coco": coco_counts,
             "train-f32": train_counts["-f32"], "generate-f32": gen_f32_counts,
-            "int8-f32": int8_f32_counts, "routes-f32": routes_f32_counts}
+            "int8-f32": int8_f32_counts, "routes-f32": routes_f32_counts,
+            "parallel": parallel_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
     generation = ("K1", "K2", "K3", "K4")
     encoders = ("K1/f32", "K2/f32", "K3/f32")
@@ -4085,7 +4464,8 @@ def main(argv=None) -> int:
                 "train-f32": tuple(f"{kid}/f32" for kid in step_kernels(DEFAULT)),
                 "generate-f32": tuple(f"{kid}/f32" for kid in generation),
                 "int8-f32": ("K7/f32",),
-                "routes-f32": ("K6/f32", "K8a/f32", "K8b/f32")}
+                "routes-f32": ("K6/f32", "K8a/f32", "K8b/f32"),
+                "parallel": generation}
     missing = [f"{kid} ({path})" for path, kids in expected.items()
                for kid in kids if runs[path][kid] <= 0]
     line = []
@@ -4108,6 +4488,9 @@ def main(argv=None) -> int:
         if kid == "K2":
             line[-1]["unet_eval_device_ms"] = unet_eval_device_ms(
                 unet_cfg, tok_len, s["device_ms_by_args"])
+            # the split pair ('spatial' TP): its rows' sums, its launches
+            line[-1]["split"] = {**s.get("split", {}),
+                                 "launches": parallel_counts["K2 split"]}
         if base in ("K5a", "K5b"):
             line[-1]["pair"] = k5_pairs["f32" if kid != base else "bf16"]
         if kid != base:

@@ -31,8 +31,13 @@ Prints ONE JSON line, last:
    "peak_mem_gib", and in dual mode "fast_value", "fast_psnr_vs_exact_db",
    "fast_tflops_per_sec", "fast_mfu", "fast_flops_per_image" (or
    "fast_error")}
-There is no ``vs_baseline``: BASELINE.md's target is a TPU's. ``--sharded``
-is refused: parallel/ is not ported.
+There is no ``vs_baseline``: BASELINE.md's target is a TPU's.
+
+``--sharded`` splits the batch's rows over every rank of the torchrun group
+(InferencePipeline.sample_latents_sharded; ``torchrun --nproc_per_node N
+-m layoutllm_t2i_torch.cli.bench --sharded``): ``value`` is the whole
+batch's images a second and ``mfu`` counts the world size's cards, as
+bench.py does (bench.py:294). Only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -83,8 +88,8 @@ def parse_args(argv=None):
                     help="LO,HI step fractions where CFG applies "
                          "(arXiv:2404.07724)")
     ap.add_argument("--sharded", action="store_true",
-                    help="shard the prompt batch over all devices (not "
-                         "ported)")
+                    help="shard the prompt batch over every rank of the "
+                         "torchrun group (prompt-parallel)")
     ap.add_argument("--fast", action="store_true",
                     help="the fast preset only: DPM-Solver++ 15 steps + "
                          "CFG interval 0,0.75 + encoder cache 2; explicit "
@@ -139,10 +144,12 @@ class Bench:
         from ..pipeline import presets
         from ..pipeline.loaders import quantize_unet_int8, random_models
 
+        self.mesh = None
         if args.sharded:
-            raise NotImplementedError(
-                "--sharded: prompt-parallel generation over several devices "
-                "is not ported (ROADMAP.md Queue 1, \"parallel/\")")
+            from ..parallel.mesh import make_mesh, row_block
+
+            self.mesh = make_mesh(device=args.device)
+            row_block(args.batch, self.mesh)   # raises before any model
         self.args = args
         self.dual = is_dual(args)
         self.metric_suffix = ""
@@ -158,7 +165,8 @@ class Bench:
             self.metric_suffix = "_fast"
         if args.latency:
             args.batch = 1
-        self.device = resolve_device(args.device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(args.device))
         models = random_models(small=args.small, device=self.device, seed=0)
         if args.int8:
             models = quantize_unet_int8(models)
@@ -168,6 +176,10 @@ class Bench:
         # conditioning is built once, outside the timed region
         self.cond = self.pipe.build_cond([PROMPT] * b, [LAYOUT] * b,
                                          [RELATIONS] * b)
+        if self.mesh is not None:
+            from ..parallel.mesh import replicate
+
+            self.cond = replicate(self.mesh, self.cond)
         self.noises = self.make_noises(WARMUP_SEED)
         self.noises_timed = self.make_noises(TIMED_SEED)
 
@@ -206,7 +218,8 @@ class Bench:
         Returns the last images, still on the device."""
         sums, img = [], None
         for nz in noises:
-            img = pipe.sample_latents(self.cond, nz)
+            img = (pipe.sample_latents(self.cond, nz) if self.mesh is None
+                   else pipe.sample_latents_sharded(self.mesh, self.cond, nz))
             sums.append(img.float().sum())
         float(torch.stack(sums).sum())   # waits for the device
         return img
@@ -230,12 +243,16 @@ class Bench:
         _sync(dev)
         dt = time.perf_counter() - t0
         img_last = img_last.cpu().numpy()   # untimed: already synchronised
+        cards = 1 if self.mesh is None else self.mesh.size
         rec = {"imgs_per_sec": a.batch * a.iters / dt, "dt": dt,
-               "tflops_per_sec": flops / dt / 1e12, "mfu": mfu(flops, dt),
+               "tflops_per_sec": flops / dt / 1e12,
+               "mfu": mfu(flops, dt, cards),
                "peak_tflops": peak_tflops(),
                "flops_per_image": flops / (a.batch * a.iters) / 1e12,
                "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                                 if dev.type == "cuda" else None)}
+        if self.mesh is not None:
+            rec["ranks"] = self.mesh.size
         if trace_dir:
             noises_tr = self.make_noises(99)
             prof = device_profile(lambda: self.run_all(pipe, noises_tr),
@@ -280,8 +297,11 @@ class Bench:
 
 
 def main(argv=None):
+    from ..parallel.mesh import is_primary
+
     out, _ = Bench(parse_args(argv)).run()
-    print(json.dumps(out), flush=True)
+    if is_primary():
+        print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

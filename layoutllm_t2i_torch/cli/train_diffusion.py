@@ -122,7 +122,7 @@ def main(argv=None):
     if args.multihost:
         raise NotImplementedError(
             "multihost training is not ported (ROADMAP.md Queue 1, "
-            "\"parallel/\")")
+            "\"parallel/ for training\")")
     cfg = TrainerConfig(
         output_root=args.output_root, name=args.name, batch_size=args.batch_size,
         total_iters=args.total_iters, save_every_iters=args.save_every_iters,

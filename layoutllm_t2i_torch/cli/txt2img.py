@@ -12,6 +12,13 @@ Offline smoke on the CPU: --small --device cpu --layout "dog:[0.1,0.2,0.5,0.6]".
 The models run on the card unless --device says otherwise. The noise comes
 from a torch.Generator seeded with --seed + i, so images differ from the
 JAX CLI's (jax.random) for the same seed.
+
+Under torchrun (``torchrun --nproc_per_node N -m
+layoutllm_t2i_torch.cli.txt2img ...``), where the world divides
+num_per_prompt x batch_size, the whole sweep is one prompt-parallel batch
+(generate_sharded, seed --seed) split over the ranks, as the JAX CLI shards
+it over its devices (num_per_prompt is the reference's data-parallel
+axis); otherwise every rank runs the loop. Only rank 0 prints and writes.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from ..data.rl_data import load_json
+from ..parallel.mesh import is_primary, make_mesh
 from ..pipeline.inference import (InferencePipeline, convert_xywh_to_ltrb,
                                   images_to_uint8, parse_cfg_interval)
 from ..pipeline.loaders import (load_models_from_gligen_ckpt,
@@ -189,34 +197,53 @@ def _get_pipe(args) -> InferencePipeline:
     return pipe
 
 
+def sweep_mesh(args):
+    """The torchrun group when it has more than one rank and divides the
+    sweep (num_per_prompt x batch_size), else None."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and (args.num_per_prompt * args.batch_size) % world == 0:
+        return make_mesh(device=args.device)
+    return None
+
+
 def main(argv=None):
     args = parse_args(argv)
     np.random.seed(args.seed)
+    mesh = sweep_mesh(args)
+    if mesh is not None:
+        args.device = mesh.device
+    primary = is_primary()
 
     categories, boxes_xywh = plan_layout(args)
     boxes_ltrb = [convert_xywh_to_ltrb(b) for b in boxes_xywh]
-    print(f"layout: {list(zip(categories, [list(map(lambda v: round(v, 2), b)) for b in boxes_ltrb]))}")
+    if primary:
+        print(f"layout: {list(zip(categories, [list(map(lambda v: round(v, 2), b)) for b in boxes_ltrb]))}")
 
     pipe = _get_pipe(args)
     rel = relation_texts_for_inference(args.prompt, pipe.models.max_relas)
 
-    os.makedirs(args.folder, exist_ok=True)
     safe = re.sub(r"[^\w\s-]", "", args.prompt)[:100]
-    paths = []
-    for i in range(args.num_per_prompt):
-        imgs = pipe.generate(
+    if mesh is not None:
+        total = args.num_per_prompt * args.batch_size
+        batches = [pipe.generate_sharded(
+            mesh, [args.prompt] * total, [(boxes_ltrb, categories)] * total,
+            relation_texts=[rel] * total, seed=args.seed)]
+    else:
+        batches = (pipe.generate(
             [args.prompt] * args.batch_size,
             [(boxes_ltrb, categories)] * args.batch_size,
             relation_texts=[rel] * args.batch_size,
-            seed=args.seed + i,
-        )
-        for j, img in enumerate(images_to_uint8(imgs)):
-            sample = draw_boxes_ltrb(img, boxes_ltrb, categories)
-            path = os.path.join(args.folder,
-                                f"{safe}_{i * args.batch_size + j}.png")
-            save_png(sample, path)
+            seed=args.seed + i) for i in range(args.num_per_prompt))
+    if primary:
+        os.makedirs(args.folder, exist_ok=True)
+    paths = []
+    for imgs in batches:
+        for img in images_to_uint8(imgs):
+            path = os.path.join(args.folder, f"{safe}_{len(paths)}.png")
             paths.append(path)
-            print(f"saved {path}")
+            if primary:
+                save_png(draw_boxes_ltrb(img, boxes_ltrb, categories), path)
+                print(f"saved {path}")
     return paths
 
 

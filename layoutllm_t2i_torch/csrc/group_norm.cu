@@ -594,37 +594,58 @@ int launch_cluster(const void* x, const void* gamma, const void* beta, void* y,
 }
 
 template <typename T>
-int launch_stream(const void* x, const void* gamma, const void* beta, void* y,
-                  void* part, int N, int HW, int C, int G, int S, int chunks,
-                  int rows, int apply_rows, float eps, int silu,
-                  void* stream) {
+int launch_stats(const void* x, void* part, int N, int HW, int C, int G,
+                 int S, int chunks, int rows, void* stream) {
   if (!shape_ok(N, HW, C, G) || !slab_ok(C, G, S) || chunks < 1 ||
       rows < 1 || (long long)rows * chunks < HW ||
-      (long long)rows * (chunks - 1) >= HW || apply_rows < 1)
+      (long long)rows * (chunks - 1) >= HW)
     return (int)cudaErrorInvalidValue;
-  const int cg = C / G;
   const int V = S / 8;
   const int R = kThreads / (V < kThreads ? V : kThreads);
   const long long stats_smem = 4LL * (2 * R * S + S);
-  const long long apply_smem = 4LL * (2 * C + 2 * G);
-  if (stats_smem > kSmemMax || apply_smem > kSmemMax)
-    return (int)cudaErrorInvalidValue;
-  static unsigned long long set_stats = 0, set_apply = 0;
+  if (stats_smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  static unsigned long long set_stats = 0;
   int err = allow(gn_stats_kernel<T>, set_stats);
-  if (err == 0) err = allow(gn_apply_kernel<T>, set_apply);
   if (err != 0) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gn_stats_kernel<T><<<dim3(chunks, C / S, N), kThreads, stats_smem, s>>>(
-      static_cast<const T*>(x), static_cast<float*>(part), HW, C, S, cg, G,
+  gn_stats_kernel<T><<<dim3(chunks, C / S, N), kThreads, stats_smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<float*>(part), HW, C, S, C / G, G,
       rows);
-  err = (int)cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+// `chunks` here counts every partial of a group that `part` holds: under
+// 'spatial' tensor parallelism, world x the chunks of one rank's stats.
+template <typename T>
+int launch_apply(const void* x, const void* part, const void* gamma,
+                 const void* beta, void* y, int N, int HW, int C, int G,
+                 int chunks, int apply_rows, float eps, int silu,
+                 void* stream) {
+  if (!shape_ok(N, HW, C, G) || chunks < 1 || apply_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long apply_smem = 4LL * (2 * C + 2 * G);
+  if (apply_smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  static unsigned long long set_apply = 0;
+  int err = allow(gn_apply_kernel<T>, set_apply);
   if (err != 0) return err;
   const int blocks = (HW + apply_rows - 1) / apply_rows;
-  gn_apply_kernel<T><<<dim3(blocks, N), kThreads, apply_smem, s>>>(
+  gn_apply_kernel<T><<<dim3(blocks, N), kThreads, apply_smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const float*>(part),
       static_cast<const T*>(gamma), static_cast<const T*>(beta),
       static_cast<T*>(y), HW, C, G, chunks, apply_rows, eps, silu);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_stream(const void* x, const void* gamma, const void* beta, void* y,
+                  void* part, int N, int HW, int C, int G, int S, int chunks,
+                  int rows, int apply_rows, float eps, int silu,
+                  void* stream) {
+  int err = launch_stats<T>(x, part, N, HW, C, G, S, chunks, rows, stream);
+  if (err != 0) return err;
+  return launch_apply<T>(x, part, gamma, beta, y, N, HW, C, G, chunks,
+                         apply_rows, eps, silu, stream);
 }
 
 }  // namespace
@@ -682,4 +703,39 @@ LLT2I_API int llt2i_group_norm_stream_f32(const void* x, const void* gamma,
                                           void* stream) {
   return launch_stream<float>(x, gamma, beta, y, part, N, HW, C, G, S, chunks,
                               rows, apply_rows, eps, silu, stream);
+}
+
+// The streaming pair's two launches apart, so that the partials can cross
+// ranks between them (row-split GroupNorm under 'spatial' tensor
+// parallelism). Statistics: part (N, G, chunks, 3) f32 of this x's rows.
+LLT2I_API int llt2i_group_norm_stats(const void* x, void* part, int N, int HW,
+                                     int C, int G, int S, int chunks,
+                                     int rows, void* stream) {
+  return launch_stats<bf16>(x, part, N, HW, C, G, S, chunks, rows, stream);
+}
+
+LLT2I_API int llt2i_group_norm_stats_f32(const void* x, void* part, int N,
+                                         int HW, int C, int G, int S,
+                                         int chunks, int rows, void* stream) {
+  return launch_stats<float>(x, part, N, HW, C, G, S, chunks, rows, stream);
+}
+
+// Apply: part (N, G, chunks, 3) f32, every rank's partials of each group
+// (merged by count, whatever their number), over this x's HW rows.
+LLT2I_API int llt2i_group_norm_apply(const void* x, const void* part,
+                                     const void* gamma, const void* beta,
+                                     void* y, int N, int HW, int C, int G,
+                                     int chunks, int apply_rows, float eps,
+                                     int silu, void* stream) {
+  return launch_apply<bf16>(x, part, gamma, beta, y, N, HW, C, G, chunks,
+                            apply_rows, eps, silu, stream);
+}
+
+LLT2I_API int llt2i_group_norm_apply_f32(const void* x, const void* part,
+                                         const void* gamma, const void* beta,
+                                         void* y, int N, int HW, int C, int G,
+                                         int chunks, int apply_rows,
+                                         float eps, int silu, void* stream) {
+  return launch_apply<float>(x, part, gamma, beta, y, N, HW, C, G, chunks,
+                             apply_rows, eps, silu, stream);
 }

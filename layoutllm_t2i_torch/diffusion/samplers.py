@@ -24,7 +24,7 @@ the port to it passes the JAX side's draws in.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -278,23 +278,28 @@ def ddim_sample(denoise_fn: Callable, tables: StepTables, x_init: torch.Tensor,
                 cfg_on=None,
                 generator: Optional[torch.Generator] = None,
                 schedule: Optional[DDPMSchedule] = None,
-                inpaint: Optional[InpaintBlend] = None) -> torch.Tensor:
+                inpaint: Optional[InpaintBlend] = None,
+                noise_rows: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
     """DDIM sampling (ddim.py:65-135); eta > 0 tables add sigma-scaled step
     noise drawn from ``generator`` (it cannot match the JAX package's
-    ``jax.random`` draws: only eta = 0 is held to it). The other arguments
-    as in plms_sample; the JAX package draws the blend's noise from the
-    first half of each step's key, split, and the step noise from the
-    second."""
+    ``jax.random`` draws: only eta = 0 is held to it). ``noise_rows`` =
+    (batch, rows): x holds these rows of a larger batch (prompt-parallel
+    sampling), so each step draws the whole batch's noise and keeps its
+    rows, as one device would draw it. The other arguments as in
+    plms_sample; the JAX package draws the blend's noise from the first
+    half of each step's key, split, and the step noise from the second."""
     _check_inpaint(inpaint, schedule)
     stochastic = bool(np.any(np.asarray(tables.sigma) > 0))
+    batch, rows = noise_rows or (x_init.shape[0], slice(None))
     x = x_init
     segs = _Segments(tables, x_init, denoise_fn, denoise_skip_fn, key_steps,
                      denoise_nocfg_fn, denoise_nocfg_skip_fn, cfg_on)
     for i, dn in segs:
         x = _blend(inpaint, schedule, x, int(tables.t[i]), i)
         e_t = segs.eps(dn, x, i)
-        noise = (torch.randn(x.shape, generator=generator, device=x.device,
-                             dtype=x.dtype) if stochastic else None)
+        noise = (torch.randn((batch,) + x.shape[1:], generator=generator,
+                             device=x.device, dtype=x.dtype)[rows]
+                 if stochastic else None)
         x, _ = _update(x, e_t, tables.a_t[i], tables.a_prev[i],
                        tables.sigma[i], tables.sqrt_one_minus_at[i], noise)
     return x

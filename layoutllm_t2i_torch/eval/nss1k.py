@@ -21,8 +21,13 @@ CPU run (tiny models: ``--small``):
   python -m layoutllm_t2i_torch.eval.nss1k --data_path split.json \\
       --small --device cpu --steps 2 --batch_size 2
 
-The flags are the JAX CLI's, plus ``--device``. ``--sharded`` is refused
-before any model is built (parallel/ is not ported). The JAX CLI's
+The flags are the JAX CLI's, plus ``--device``. ``--sharded`` splits each
+generation batch's rows over every rank of the torchrun group
+(generate_sharded; ``torchrun --nproc_per_node N -m
+layoutllm_t2i_torch.eval.nss1k --sharded ...``): a ragged tail chunk is
+padded to ``--batch_size`` with its last example and the padding's images
+dropped, and only rank 0 prints. ``--batch_size`` must divide over the
+ranks, which is checked before any model is built. The JAX CLI's
 persistent XLA compile cache has no counterpart here. Ground-truth images
 for ``--fid`` are read without Pillow when they are 8-bit RGB PNGs at the
 generation size, as utils/images.py writes them; any other image needs
@@ -98,11 +103,15 @@ def run_bench(
     max_examples: Optional[int] = None,
     planner_fn: Optional[Callable[[List[str]], list]] = None,
     collect_images: bool = False,
+    mesh=None,
 ) -> Dict:
     """One split. ``planner_fn(captions) -> [(categories, boxes_xywh), ...]``
     switches from GT layouts to planned ones (and adds mIoU/DocSim vs GT);
     ``collect_images`` returns the generated images for FID. A ragged tail
-    chunk is generated at its own batch."""
+    chunk is generated at its own batch, or, with a ``mesh``
+    (prompt-parallel over its ranks), padded to ``batch_size`` with its
+    last example and the padding's images sliced off (nss1k.py:118-126 in
+    the JAX package)."""
     from ..pipeline.inference import convert_xywh_to_ltrb
     from ..pipeline.scene_graph import relation_texts_for_inference
     from .clip_score import clip_score
@@ -134,8 +143,16 @@ def run_bench(
                for c in captions]
         t0 = time.perf_counter()
         # generate returns host images, so the device has finished
-        imgs = pipe.generate(captions, layouts, relation_texts=rel,
-                             seed=seed + i)
+        if mesh is not None:
+            pad = batch_size - len(captions)
+            imgs = pipe.generate_sharded(
+                mesh, captions + [captions[-1]] * pad,
+                layouts + [layouts[-1]] * pad,
+                relation_texts=rel + [rel[-1]] * pad,
+                seed=seed + i)[:len(captions)]
+        else:
+            imgs = pipe.generate(captions, layouts, relation_texts=rel,
+                                 seed=seed + i)
         times.append(time.perf_counter() - t0)
         if collect_images:
             imgs_all.append(np.asarray(imgs))
@@ -271,8 +288,8 @@ def parse_args(argv=None):
                     help="full CLIPModel .pth for the scoring towers")
     ap.add_argument("--aesthetic_ckpt", type=str, default=None)
     ap.add_argument("--sharded", action="store_true",
-                    help="shard each generation batch over all devices "
-                         "(not ported)")
+                    help="shard each generation batch over every rank of "
+                         "the torchrun group")
     ap.add_argument("--cfg_interval", type=str, default=None,
                     help="LO,HI step fractions where CFG applies "
                          "(arXiv:2404.07724)")
@@ -330,14 +347,18 @@ def main(argv=None):
     args = parse_args(argv)
     if not (args.data_path or args.data_dir):
         raise SystemExit("nss1k: need --data_path or --data_dir")
+    mesh = None
     if args.sharded:
-        raise NotImplementedError(
-            "--sharded: prompt-parallel generation over several devices is "
-            "not ported (ROADMAP.md Queue 1, \"parallel/\")")
+        from ..parallel.mesh import make_mesh, row_block
+
+        mesh = make_mesh(device=args.device)
+        row_block(args.batch_size, mesh)   # raises before any model
+        args.device = mesh.device
     if args.fast:
         resolve_fast_preset(args)
 
     from ..cli.train_rl import build_reward
+    from ..parallel.mesh import is_primary
     from ..pipeline.inference import InferencePipeline, parse_cfg_interval
     from ..pipeline.loaders import (load_models_from_gligen_ckpt,
                                     quantize_unet_int8, random_models)
@@ -357,7 +378,8 @@ def main(argv=None):
     planner_fn = build_planner(args, reward) if args.layout == "planner" else None
 
     kwargs = dict(batch_size=args.batch_size, seed=args.seed,
-                  max_examples=args.max_examples, planner_fn=planner_fn)
+                  max_examples=args.max_examples, planner_fn=planner_fn,
+                  mesh=mesh)
     if args.data_dir:
         out = run_all_splits(pipe, reward, args.data_dir, **kwargs)
     else:
@@ -377,7 +399,8 @@ def main(argv=None):
             out.update(compute_fid(gen, gt, args.inception_ckpt, fid_reward,
                                    device=args.device))
         out.pop("images", None)
-    print(json.dumps(out))
+    if is_primary():
+        print(json.dumps(out))
     return out
 
 

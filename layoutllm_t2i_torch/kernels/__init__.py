@@ -39,6 +39,7 @@ KERNELS = {
 def reset_launches() -> None:
     for wrapper, _ in KERNELS.values():
         wrapper.launches = wrapper.f32_launches = 0
+    group_norm.split_launches = 0
 
 
 def launch_counts() -> dict:

@@ -7,12 +7,22 @@ outputs go to ``build/kernels/`` at the repository root (listed in
 ``.gitignore``) under a name that carries a hash of the sources and flags,
 so an edited source is rebuilt and an unchanged one is reused.
 
+Several processes may reach first use at once (the ranks of a
+torch.distributed group): the build holds an exclusive ``flock`` on
+``build/kernels/build.lock``, so one process compiles while the others
+wait and then find the libraries built, and each library is written under
+a temporary name and renamed into place, so no process loads a
+half-written one. The kernel releases a ``flock`` when its process dies,
+so a lock file left by a killed build blocks nothing.
+
 Nothing here runs at import time: this module imports on machines without
 nvcc or a GPU, where the wrappers only ever take their plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -52,6 +62,10 @@ SIGNATURES = {
                                      _I, _I, _F, _I, _P],
         "llt2i_group_norm_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _I, _P],
+        # the streaming pair's launches apart (row-split GroupNorm)
+        "llt2i_group_norm_stats": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "llt2i_group_norm_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _F, _I, _P],
         # returns bytes, not a cudaError_t (-1: over a block's limit)
         "llt2i_group_norm_cluster_smem": [_I, _I, _I, _I],
     },
@@ -76,7 +90,8 @@ SIGNATURES = {
 # forms' arguments
 F32_TWINS = {"flash_attention": ("llt2i_flash_fwd", "llt2i_flash_bwd_dq",
                                  "llt2i_flash_bwd_dkv"),
-             "group_norm": ("llt2i_group_norm_cluster", "llt2i_group_norm_stream"),
+             "group_norm": ("llt2i_group_norm_cluster", "llt2i_group_norm_stream",
+                            "llt2i_group_norm_stats", "llt2i_group_norm_apply"),
              "ffn": ("llt2i_ffn_ln_geglu", "llt2i_ffn_geglu",
                      "llt2i_ffn_ln_geglu_q"),
              "matmul": ("llt2i_linear", "llt2i_geglu")}
@@ -126,10 +141,27 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
-def build_all() -> Dict[str, dict]:
-    """Compile every source not yet built, all nvcc processes at once.
-    Returns {name: {"seconds": s, "cached": bool, "ptxas": [lines]}}."""
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory, across processes."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every source not yet built, all nvcc processes at once, under
+    the build lock. Returns {name: {"seconds": s, "cached": bool, "ptxas":
+    [lines]}}."""
+    with _build_lock():
+        return _build_missing()
+
+
+def _build_missing() -> Dict[str, dict]:
     nvcc = nvcc_path()
     procs = {}
     for name in SOURCES:

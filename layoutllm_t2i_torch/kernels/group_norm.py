@@ -8,7 +8,11 @@ is the plain version's VJP, as ``_gn_bwd`` (norms.py:294) recomputes it.
 ``plan_group_norm`` (a function of the shape and the item size alone)
 picks the kernel's path: one cluster launch that holds each (sample, slab)
 on chip, or two streaming launches where no portable cluster (8 blocks)
-holds the slab. The kernels come in bf16 and in f32 (x, weight and bias of
+holds the slab. ``group_norm_split`` runs the streaming pair on one rank's
+block of rows under 'spatial' tensor parallelism: the statistics launch
+writes this rank's partials (count, mean, M2 a chunk), a caller's function
+gathers every rank's between the two launches, and the apply launch merges
+them all by count (Chan's formula; the last chunk of a rank is shorter). The kernels come in bf16 and in f32 (x, weight and bias of
 one type, picked from ``x.dtype``); an f32 slab holds half the rows in
 shared memory, so more shapes stream.
 """
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -147,6 +151,67 @@ def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+def group_norm_stats_plain(x: torch.Tensor, num_groups: int,
+                           rows: int) -> torch.Tensor:
+    """(N, G, chunks, 3) f32 partials of x (N, HW, C) over chunks of
+    ``rows`` rows (the last one shorter): each chunk's element count, mean
+    and sum of squared deviations, as gn_stats_kernel writes them."""
+    n, hw, c = x.shape
+    cg = c // num_groups
+    parts = []
+    for r0 in range(0, hw, rows):
+        xf = x[:, r0:r0 + rows].float().reshape(n, -1, num_groups, cg)
+        mean = xf.mean(dim=(1, 3))
+        m2 = ((xf - mean[:, None, :, None]) ** 2).sum(dim=(1, 3))
+        cnt = torch.full_like(mean, float(xf.shape[1] * cg))
+        parts.append(torch.stack([cnt, mean, m2], dim=-1))
+    return torch.stack(parts, dim=2)
+
+
+def merge_partials(part: torch.Tensor, eps: float):
+    """(mean, rstd), each (N, G), of (N, G, chunks, 3) partials merged by
+    count, as gn_apply_kernel merges them: mean = sum(cnt mean) / sum(cnt),
+    M2 = sum(M2_k + cnt_k (mean_k - mean)^2)."""
+    cnt, mean_k, m2_k = part.unbind(-1)
+    tot = cnt.sum(-1)
+    mean = (cnt * mean_k).sum(-1) / tot
+    m2 = (m2_k + cnt * (mean_k - mean[..., None]) ** 2).sum(-1)
+    return mean, torch.rsqrt(m2 / tot + eps)
+
+
+def group_norm_apply_plain(x: torch.Tensor, part: torch.Tensor,
+                           weight: torch.Tensor, bias: torch.Tensor,
+                           num_groups: int, eps: float,
+                           silu: bool) -> torch.Tensor:
+    """GroupNorm of x's rows with the statistics of ``part`` (every rank's
+    partials), computed in f32."""
+    n, hw, c = x.shape
+    mean, rstd = merge_partials(part, eps)
+    xf = x.float().reshape(n, hw, num_groups, c // num_groups)
+    y = ((xf - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(n, hw, c)
+    y = y * weight.float() + bias.float()
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+def group_norm_split(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     num_groups: int, eps: float, silu: bool,
+                     gather: Callable[[torch.Tensor], torch.Tensor]
+                     ) -> torch.Tensor:
+    """GroupNorm of one rank's rows x (N, HW_local, C) with statistics over
+    every rank's: K2's statistics launch, ``gather`` of the (N, G, chunks,
+    3) partials into every rank's (N, G, world * chunks, 3), K2's apply
+    launch. Inference only (no gradient)."""
+    n, hw, c = x.shape
+    plan = stream_plan(n, hw, c, num_groups)
+    if not use_kernel(x):
+        part = group_norm_stats_plain(x, num_groups, plan.rows)
+        return group_norm_apply_plain(x, gather(part), weight, bias,
+                                      num_groups, eps, silu)
+    return launch_split(x, weight, bias, num_groups, eps, silu, gather, plan)
+
+
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-5,
                silu: bool = False) -> torch.Tensor:
@@ -182,14 +247,7 @@ def launch(x, weight, bias, num_groups, eps, silu, plan: GNPlan = None):
     a test may force either path): one launch on chip, or the two streaming
     launches and their partials. Raises where the kernel cannot launch."""
     n, hw, c = x.shape
-    dev = x.get_device()
-    dtype = operand_dtype(x)
-    check_operand(x, "group_norm: x", dev, dtype)
-    check_operand(weight, "group_norm: weight", dev, dtype)
-    check_operand(bias, "group_norm: bias", dev, dtype)
-    require(weight.shape == (c,) and bias.shape == (c,),
-            "group_norm: affine params must be (C,)")
-    require_aligned(x, "group_norm: x")
+    dev, dtype = _checked(x, weight, bias)
     f32 = dtype is torch.float32
     if plan is None:
         plan = plan_group_norm(n, hw, c, num_groups, x.element_size())
@@ -217,5 +275,52 @@ def launch(x, weight, bias, num_groups, eps, silu, plan: GNPlan = None):
     return out
 
 
+def _checked(x, weight, bias):
+    """Validate K2's operands; returns (device index, type)."""
+    c = x.shape[2]
+    dev = x.get_device()
+    dtype = operand_dtype(x)
+    check_operand(x, "group_norm: x", dev, dtype)
+    check_operand(weight, "group_norm: weight", dev, dtype)
+    check_operand(bias, "group_norm: bias", dev, dtype)
+    require(weight.shape == (c,) and bias.shape == (c,),
+            "group_norm: affine params must be (C,)")
+    require_aligned(x, "group_norm: x")
+    return dev, dtype
+
+
+def launch_split(x, weight, bias, num_groups, eps, silu, gather,
+                 plan: GNPlan):
+    """K2's streaming pair on CUDA tensors with the partials crossing ranks
+    between its launches: the statistics launch on this rank's rows, then
+    ``gather``, then the apply launch over all the gathered partials.
+    Counted once in ``group_norm.launches`` and in ``split_launches``."""
+    n, hw, c = x.shape
+    dev, dtype = _checked(x, weight, bias)
+    f32 = dtype is torch.float32
+    gn = lib("group_norm")
+    part = torch.empty((n, num_groups, plan.chunks, 3), dtype=torch.float32,
+                       device=x.device)
+    stats = gn.llt2i_group_norm_stats_f32 if f32 else gn.llt2i_group_norm_stats
+    check(stats(x.data_ptr(), part.data_ptr(), n, hw, c, num_groups,
+                plan.slab, plan.chunks, plan.rows, stream_handle(dev)),
+          "group_norm stats")
+    every = gather(part).contiguous()
+    require(every.shape[:2] == part.shape[:2] and every.shape[3] == 3,
+            f"group_norm: gathered partials {tuple(every.shape)}")
+    out = torch.empty_like(x)
+    apply = gn.llt2i_group_norm_apply_f32 if f32 else gn.llt2i_group_norm_apply
+    check(apply(x.data_ptr(), every.data_ptr(), weight.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), n, hw, c, num_groups,
+                every.shape[2], plan.apply_rows, float(eps), int(silu),
+                stream_handle(dev)), "group_norm apply")
+    group_norm.launches += 1
+    group_norm.split_launches += 1
+    if f32:
+        group_norm.f32_launches += 1
+    return out
+
+
 group_norm.launches = 0
 group_norm.f32_launches = 0  # the f32 form's share of ``launches``
+group_norm.split_launches = 0  # the split pair's share (launch_split)

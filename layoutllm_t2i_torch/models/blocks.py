@@ -7,23 +7,42 @@ reference's host-side ``set_alpha_scale`` module mutation. The relation
 fuser is vectorized as in the JAX package: a rasterized box mask
 (B, MO, H*W) and two batched matmuls, with the reference loop's
 break-at-first-degenerate-box semantics as a cumulative product.
+
+Under 'spatial' tensor parallelism (parallel/tp.py) x holds this rank's
+block of the ``total`` = h * w visual token rows: self-attention gathers
+K and V whole, the gated fusers gather the visual rows' K and V and keep
+the grounding tokens (which every rank holds) after them, and the relation
+fuser sums its per-object pooling over every rank's rows. The grounding
+tokens' own query rows are computed on every rank: the gated
+self-attention drops them and gatedSA2 keeps only them.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..ops import nn
 from ..ops.attention import attention_with_projections
 from ..ops.resize import resize_nhwc
+from ..parallel import tp
 from . import initializers as init
+
+
+def _kv_rows(n: int, total: Optional[int]):
+    """attention_with_projections' ``kv_rows`` for ``n`` local visual rows
+    of ``total``: None where they are all of them."""
+    return None if total is None or n == total else (n, total)
 
 
 def cross_attention(p, x, key, value, heads: int, mask=None):
     return attention_with_projections(p, x, key, value, heads, mask=mask)
 
 
-def self_attention(p, x, heads: int):
-    return cross_attention(p, x, x, x, heads)
+def self_attention(p, x, heads: int, total: Optional[int] = None):
+    """``total``: the token rows in all, where x holds this rank's block."""
+    return attention_with_projections(p, x, x, x, heads,
+                                      kv_rows=_kv_rows(x.shape[1], total))
 
 
 def init_cross_attention(ini, query_dim, key_dim, value_dim, heads, d_head):
@@ -54,18 +73,25 @@ def _gate(scale: float, alpha: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return (torch.tanh(alpha.float()) * float(scale)).to(dtype)
 
 
-def gated_self_attention(p, x, objs, heads: int, scale: float):
-    n_visual = x.shape[1]
+def _joint_attention(p, x, objs, heads: int, total: Optional[int]):
+    """Self-attention over [x; linear(objs)] after norm1, all rows out."""
     objs = nn.linear(p["linear"], objs)
-    cat = torch.cat([x, objs], dim=1)
-    attn_out = self_attention(p["attn"], nn.layer_norm(p["norm1"], cat), heads)
-    attn_out = attn_out[:, :n_visual, :]
+    cat = nn.layer_norm(p["norm1"], torch.cat([x, objs], dim=1))
+    return attention_with_projections(p["attn"], cat, cat, cat, heads,
+                                      kv_rows=_kv_rows(x.shape[1], total))
+
+
+def gated_self_attention(p, x, objs, heads: int, scale: float,
+                         total: Optional[int] = None):
+    n_visual = x.shape[1]
+    attn_out = _joint_attention(p, x, objs, heads, total)[:, :n_visual, :]
     x = x + _gate(scale, p["alpha_attn"], x.dtype) * attn_out
     return nn.ln_geglu_ff_scaled_res(p["ff"], p["norm2"], x,
                                      _gate(scale, p["alpha_dense"], x.dtype))
 
 
-def gated_cross_attention(p, x, objs, heads: int, scale: float):
+def gated_cross_attention(p, x, objs, heads: int, scale: float,
+                          total: Optional[int] = None):
     """The visual rows attend to the grounding tokens (attention.py:181-206)."""
     x = x + _gate(scale, p["alpha_attn"], x.dtype) * cross_attention(
         p["attn"], nn.layer_norm(p["norm1"], x), objs, objs, heads)
@@ -73,23 +99,26 @@ def gated_cross_attention(p, x, objs, heads: int, scale: float):
                                      _gate(scale, p["alpha_dense"], x.dtype))
 
 
-def gated_self_attention2(p, x, objs, heads: int, scale: float):
+def gated_self_attention2(p, x, objs, heads: int, scale: float,
+                          total: Optional[int] = None):
     """The interpolating variant (attention.py:237-281): the grounding
     tokens' rows of the joint self-attention, a square grid, are resized
     to the visual grid (bicubic, as jax.image.resize computes it) and
     added."""
     b, n_visual, _ = x.shape
+    n_all = total or n_visual
     n_ground = objs.shape[1]
-    size_v = int(round(n_visual ** 0.5))
+    size_v = int(round(n_all ** 0.5))
     size_g = int(round(n_ground ** 0.5))
-    if size_v * size_v != n_visual or size_g * size_g != n_ground:
-        raise ValueError(f"gatedSA2: {n_visual} visual and {n_ground} "
+    if size_v * size_v != n_all or size_g * size_g != n_ground:
+        raise ValueError(f"gatedSA2: {n_all} visual and {n_ground} "
                          "grounding tokens must both be square grids")
-    objs = nn.linear(p["linear"], objs)
-    cat = torch.cat([x, objs], dim=1)
-    out = self_attention(p["attn"], nn.layer_norm(p["norm1"], cat), heads)
+    out = _joint_attention(p, x, objs, heads, total)
     out = out[:, n_visual:, :].reshape(b, size_g, size_g, -1)
-    residual = resize_nhwc(out, (size_v, size_v), "bicubic").reshape(b, n_visual, -1)
+    residual = resize_nhwc(out, (size_v, size_v), "bicubic").reshape(b, n_all, -1)
+    rows = tp.token_block(n_visual, n_all)
+    if rows is not None:
+        residual = residual[:, rows]
     x = x + _gate(scale, p["alpha_attn"], x.dtype) * residual
     return nn.ln_geglu_ff_scaled_res(p["ff"], p["norm2"], x,
                                      _gate(scale, p["alpha_dense"], x.dtype))
@@ -167,7 +196,16 @@ def relation_cross_attention(p, x, relations, boxes, masks, h: int, w: int,
     region, _ = rasterize_boxes(boxes, masks, h, w)
     regionf = region.to(hidden.dtype)
     counts = torch.clamp(regionf.sum(dim=-1), min=1.0)          # (B, MO)
-    obj = torch.bmm(regionf, hidden) / counts[..., None]
+    rows = tp.token_block(x.shape[1], h * w)
+    if rows is None:
+        obj = torch.bmm(regionf, hidden)
+    else:
+        # 'spatial' TP: this rank's pixels; the pooled sums over every
+        # rank's, in f32 and rounded once, as one bmm rounds them
+        regionf = regionf[:, :, rows]
+        obj = tp.sum_over_rows(torch.bmm(regionf.float(), hidden.float()))
+        obj = obj.to(hidden.dtype)
+    obj = obj / counts[..., None]
     attn_out = cross_attention(p["attn"], nn.layer_norm(p["norm1"], obj),
                                relations, relations, heads)
     obj = obj + _gate(scale, p["alpha_attn"], obj.dtype) * attn_out
@@ -200,12 +238,17 @@ def basic_transformer_block(p, x, context, objs, relations, boxes, masks,
                             h: int, w: int, heads: int, fuser_scale: float = 1.0,
                             use_rela: bool = True, skip_gated: bool = False,
                             fuser_type: str = "gatedSA"):
-    x = self_attention(p["attn1"], nn.layer_norm(p["norm1"], x), heads) + x
+    """x: (B, n, C) token rows of an (h, w) image: all h * w of them, or
+    this rank's block under 'spatial' TP."""
+    total = h * w
+    x = self_attention(p["attn1"], nn.layer_norm(p["norm1"], x), heads,
+                       total) + x
     if not skip_gated:
         # skip_gated: the sampler knows fuser_scale == 0 for this step, so
         # every gated contribution is x + 0*(...) = x and the fuser's
         # attention and FF are elided bit-exactly
-        x = _FUSERS[fuser_type](p["fuser"], x, objs, heads, fuser_scale)
+        x = _FUSERS[fuser_type](p["fuser"], x, objs, heads, fuser_scale,
+                                total)
     if use_rela:
         # the relation fuser keeps scale=1 always: set_alpha_scale touches
         # only the gated fusers (txt2img.py:46-50)
@@ -246,15 +289,18 @@ def spatial_transformer(p, x, context, objs, relations, boxes, masks,
                         heads: int, fuser_scale: float = 1.0, depth: int = 1,
                         use_rela: bool = True, skip_gated: bool = False,
                         fuser_type: str = "gatedSA"):
-    """x: (B, C, H, W) channels_last. Conv-in/out are 1x1 (attention.py:405-446)."""
+    """x: (B, C, H, W) channels_last, or this rank's block of its rows
+    ('spatial' TP). Conv-in/out are 1x1 (attention.py:405-446)."""
     h, w = x.shape[2:]
+    rows = tp.row_block(x)
+    h_all = h if rows is None else rows[0]
     x_in = x
     x = nn.group_norm(p["norm"], x, eps=1e-6)
     x = nn.to_rows(nn.conv2d(p["proj_in"], x, padding=0))
     for d in range(depth):
         x = basic_transformer_block(
             p["transformer_blocks"][str(d)], x, context, objs, relations,
-            boxes, masks, h, w, heads, fuser_scale, use_rela=use_rela,
+            boxes, masks, h_all, w, heads, fuser_scale, use_rela=use_rela,
             skip_gated=skip_gated, fuser_type=fuser_type)
     x = nn.conv2d(p["proj_out"], nn.from_rows(x, h, w), padding=0)
     return x + x_in

@@ -22,6 +22,7 @@ import torch
 
 from ..ops import nn
 from ..ops.schedules import timestep_embedding
+from ..parallel import tp
 from . import initializers as init
 from .blocks import init_spatial_transformer, spatial_transformer
 from .position_net import (init_position_net, init_position_net_text_image,
@@ -321,6 +322,9 @@ def unet_apply(
         if extras:
             h = torch.cat([h] + [e.to(h.dtype) for e in extras],
                           dim=1).contiguous(memory_format=nn.CL)
+        # 'spatial' TP: this rank's block of the latent's rows from here on
+        # (whole where they do not split); the output is gathered whole
+        h = tp.shard_rows(h)
         hs = []
         for idx, (kind, _ci, _co, _ds) in enumerate(input_block_specs(cfg)):
             blk = params["input_blocks"][str(idx)]
@@ -352,5 +356,5 @@ def unet_apply(
             h = upsample(blk[str(nxt)], h)
 
     h = nn.group_norm(params["out"]["0"], h, silu=True)
-    h = nn.conv2d(params["out"]["2"], h)
+    h = tp.gather_rows(nn.conv2d(params["out"]["2"], h))
     return (h, cache) if return_encoder_cache else h

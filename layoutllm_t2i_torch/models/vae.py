@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from ..ops import nn
 from ..ops.attention import multi_head_attention
+from ..parallel import tp
 from . import initializers as init
 
 
@@ -43,12 +44,16 @@ def resnet_block(p, x):
 
 
 def attn_block(p, x):
-    """Single-head spatial self-attention (model.py:150-202)."""
+    """Single-head spatial self-attention (model.py:150-202). On a rank's
+    block of rows ('spatial' TP) K and V are gathered whole: one head
+    cannot split by head."""
     h, w = x.shape[2:]
+    rows = tp.row_block(x)
+    total = (h if rows is None else rows[0]) * w
     hn = _gn(p["norm"], x)
     q = nn.to_rows(nn.conv2d(p["q"], hn, padding=0))
-    k = nn.to_rows(nn.conv2d(p["k"], hn, padding=0))
-    v = nn.to_rows(nn.conv2d(p["v"], hn, padding=0))
+    k = tp.gather_tokens(nn.to_rows(nn.conv2d(p["k"], hn, padding=0)), total)
+    v = tp.gather_tokens(nn.to_rows(nn.conv2d(p["v"], hn, padding=0)), total)
     out = multi_head_attention(q, k, v, num_heads=1)
     return x + nn.conv2d(p["proj_out"], nn.from_rows(out, h, w), padding=0)
 
@@ -112,9 +117,12 @@ def decoder_apply(p, cfg: VAEConfig, z):
 
 
 def decode(params, cfg: VAEConfig, z):
-    """Scaled latent (B, 4, h, w) channels_last -> image (B, 3, 8h, 8w)."""
+    """Scaled latent (B, 4, h, w) channels_last -> image (B, 3, 8h, 8w).
+    Under 'spatial' TP a rank decodes its block of the rows; the image is
+    gathered whole."""
+    z = tp.shard_rows(z)
     z = nn.conv2d(params["post_quant_conv"], z / cfg.scale_factor, padding=0)
-    return decoder_apply(params["decoder"], cfg, z)
+    return tp.gather_rows(decoder_apply(params["decoder"], cfg, z))
 
 
 def _init_resnet_block(ini, cin, cout):

@@ -13,13 +13,27 @@ The q/k/v and output projections are plain matmuls on the dense (or
 dequantized) weights, as the JAX package's ``attention_with_projections``
 computes them with einsums and dots (attention.py:139-183), never through
 ``nn.linear``: under LLT2I_PALLAS_MATMUL=1 they take no GEMM kernel.
+
+Under tensor parallelism (parallel/tp.py), 'heads': a rank projects its
+heads' columns, attends over them (K1 at H / world heads where the site
+is K1's) and projects them out, and the partial outputs are all-reduced
+before the bias (attention.py:178-183, 219-232 in the JAX package);
+'spatial': a rank's q rows attend to K and V gathered whole (K1 at the
+local q rows against every key, the JAX package's ``_tp_spatial_flash``,
+attention.py:91-113). The JAX package routes 'heads' through XLA only
+because GSPMD cannot partition its Pallas call; a rank's heads are a
+whole attention of their own, so K1 on them is exact.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+import torch.nn.functional as F
 
 from ..kernels import flash_attention
-from .nn import dense
+from ..parallel import tp
+from .nn import _bias, dense, weight
 
 _NEG_INF = -1e30
 FLASH_MIN_Q_LEN = 512
@@ -28,12 +42,43 @@ FLASH_MIN_KV = 128
 
 def attention_with_projections(p, x: torch.Tensor, key: torch.Tensor,
                                value: torch.Tensor, num_heads: int,
-                               mask=None) -> torch.Tensor:
+                               mask=None,
+                               kv_rows: Optional[Tuple[int, int]] = None
+                               ) -> torch.Tensor:
     """q/k/v projections, attention, output projection.
-    p: {'to_q','to_k','to_v','to_out':{'0'}} in torch-name layout."""
-    out = multi_head_attention(dense(p["to_q"], x), dense(p["to_k"], key),
-                               dense(p["to_v"], value), num_heads, mask=mask)
+    p: {'to_q','to_k','to_v','to_out':{'0'}} in torch-name layout.
+    ``kv_rows`` = (local, total) under 'spatial' TP: the first ``local``
+    rows of key and value are this rank's block of ``total`` rows (any rows
+    after them, every rank holds); K and V are gathered whole after their
+    projections."""
+    heads = tp.block(num_heads)
+    if heads is not None:
+        return _heads_attention(p, x, key, value, num_heads, heads, mask)
+    k, v = dense(p["to_k"], key), dense(p["to_v"], value)
+    if kv_rows is not None:
+        local, total = kv_rows
+        k, v = (torch.cat([tp.gather_tokens(t[:, :local], total),
+                           t[:, local:]], dim=1) for t in (k, v))
+    out = multi_head_attention(dense(p["to_q"], x), k, v, num_heads, mask=mask)
     return dense(p["to_out"]["0"], out)
+
+
+def _heads_attention(p, x, key, value, num_heads: int, heads: slice, mask):
+    """attention_with_projections on this rank's ``heads`` ('heads' TP)."""
+    dt = x.dtype
+    c = p["to_q"]["weight"].shape[0] // num_heads
+    cols = slice(heads.start * c, heads.stop * c)
+
+    def project(pp, t):
+        b = _bias(pp, dt)
+        return F.linear(t, weight(pp, dt)[cols], None if b is None else b[cols])
+
+    out = multi_head_attention(project(p["to_q"], x), project(p["to_k"], key),
+                               project(p["to_v"], value),
+                               heads.stop - heads.start, mask=mask)
+    po = p["to_out"]["0"]
+    y = tp.replicate_out(F.linear(out, weight(po, dt)[:, cols]))
+    return y if "bias" not in po else y + po["bias"].to(dt)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

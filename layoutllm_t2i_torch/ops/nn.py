@@ -27,6 +27,19 @@ The JAX package takes these routes on the TPU backend only; the port takes
 them for CUDA tensors (``_on_card``). Under ``plain_route()`` a CUDA tensor
 keeps its route and each kernel wrapper on it takes its plain version, so
 a reference run holds every kernel against its own plain version.
+
+Under the tensor-parallel mode (parallel/tp.py) the convolutions, the
+GroupNorms and the upsampling take a rank's block of image rows
+('spatial': halo rows, statistics over every rank's rows), and the GEGLU
+FF splits its inner dimension ('heads': a rank's slice, then one
+all-reduce), where the JAX package states the same layouts as
+GSPMD constraints (ops/nn.py:141-145, 239-258). The JAX package turns its
+Pallas kernels off under TP (GSPMD cannot partition a custom call); the
+port keeps K2, K3, K4 and K7 on a rank's rows under 'spatial', and under
+'heads' K2 and K3 on the whole activations and K6 on a rank's inner slice
+(its partial sums, with a zero residual and bias): the same function on
+the same rows, so the routing is exact. int8 FF weights under 'heads' are
+dequantized at their use, as at every other site off K7.
 """
 from __future__ import annotations
 
@@ -42,7 +55,9 @@ from ..kernels import (ffn_geglu, ffn_ln_geglu, ffn_ln_geglu_q, geglu_fused,
 from ..kernels import group_norm as _group_norm_rows
 from ..kernels import layer_norm as _layer_norm_rows
 from ..kernels.ffn import ffn_eligible
+from ..kernels.group_norm import group_norm_split
 from ..kernels.matmul import _eligible
+from ..parallel import tp
 from .quant import is_quantized
 
 CL = torch.channels_last
@@ -161,6 +176,11 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 1) -> torch.Tensor:
+    """A rank's block of rows under 'spatial' TP convolves with its
+    neighbours' halo rows (tp.halo_conv2d)."""
+    if tp.row_block(x) is not None:
+        return tp.halo_conv2d(x, weight(p, x.dtype), _bias(p, x.dtype),
+                              stride, padding)
     y = F.conv2d(x, weight(p, x.dtype), _bias(p, x.dtype), stride=stride,
                  padding=padding)
     return y.contiguous(memory_format=CL)
@@ -168,10 +188,17 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 1) -> torch.Tenso
 
 def group_norm(p, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-5,
                silu: bool = False) -> torch.Tensor:
-    """GroupNorm(+SiLU) over NCHW channels_last, f32 statistics (K2)."""
+    """GroupNorm(+SiLU) over NCHW channels_last, f32 statistics (K2). On a
+    rank's block of rows ('spatial' TP) the statistics cover every rank's
+    rows: K2's pair with its partials all-gathered between the launches."""
     h, w = x.shape[2:]
-    y = _group_norm_rows(to_rows(x).contiguous(), p["weight"], p["bias"],
-                         num_groups, eps, silu)
+    rows = to_rows(x).contiguous()
+    if tp.row_block(x) is not None:
+        y = group_norm_split(rows, p["weight"], p["bias"], num_groups, eps,
+                             silu, tp.gather_partials)
+    else:
+        y = _group_norm_rows(rows, p["weight"], p["bias"], num_groups, eps,
+                             silu)
     return from_rows(y, h, w)
 
 
@@ -193,9 +220,46 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)  # exact erf form, as the reference's GEGLU
 
 
+def _inner_block(p_ff):
+    """This rank's slice of the FF's inner dimension under 'heads' TP, or
+    None where the FF runs whole."""
+    return tp.block(p_ff["net"]["2"]["weight"].shape[1])
+
+
+def _geglu_ff_heads(p, x: torch.Tensor, blk: slice) -> torch.Tensor:
+    """geglu_ff on this rank's slice of the inner dimension, a and gate
+    each sliced on its own, the down projection's partial sums all-reduced
+    and its bias added once (ops/nn.py:239-258 in the JAX package). The
+    partial is K6 where eligible, with a zero bias and a zero residual:
+    its residual and bias are added after the reduction."""
+    proj, out = p["net"]["0"]["proj"], p["net"]["2"]
+    w, b = weight(proj, x.dtype), _bias(proj, x.dtype)
+    inner = w.shape[0] // 2
+    gate_blk = slice(inner + blk.start, inner + blk.stop)
+    w2 = weight(out, x.dtype)[:, blk]
+    m, k = _rows(x), x.shape[-1]
+    if (_pallas_ffn_enabled(x) and not _ffn_quantized(proj, out)
+            and b is not None and ffn_eligible(m, k, w2.shape[1])):
+        zeros = x.new_zeros((m, k))
+        part = ffn_geglu(x.reshape(m, k).contiguous(),
+                         torch.cat([w[blk], w[gate_blk]]),
+                         torch.cat([b[blk], b[gate_blk]]), w2.contiguous(),
+                         zeros[0], zeros).reshape(x.shape)
+    else:
+        a = F.linear(x, w[blk], None if b is None else b[blk])
+        gate = F.linear(x, w[gate_blk], None if b is None else b[gate_blk])
+        part = F.linear(a * gelu(gate), w2)
+    y = tp.replicate_out(part)
+    return y if "bias" not in out else y + out["bias"].to(x.dtype)
+
+
 def geglu_ff(p, x: torch.Tensor) -> torch.Tensor:
     """FeedForward(glu=True): Linear(d->8d) -> a*gelu(gate) -> Linear(4d->d).
-    Under LLT2I_PALLAS_MATMUL=1 the projection is K8b where eligible."""
+    Under LLT2I_PALLAS_MATMUL=1 the projection is K8b where eligible; under
+    'heads' TP a rank computes its slice of the inner dimension."""
+    blk = _inner_block(p)
+    if blk is not None:
+        return _geglu_ff_heads(p, x, blk)
     proj = p["net"]["0"]["proj"]
     if _pallas_matmul_enabled(x):
         n2, k = proj["weight"].shape
@@ -213,7 +277,7 @@ def geglu_ff_res(p, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
     (K6 where eligible)."""
     proj, out = p["net"]["0"]["proj"], p["net"]["2"]
     if (_pallas_ffn_enabled(x) and not _ffn_quantized(proj, out)
-            and "bias" in proj and "bias" in out):
+            and "bias" in proj and "bias" in out and _inner_block(p) is None):
         n2, k = proj["weight"].shape
         m = _rows(x)
         if ffn_eligible(m, k, n2 // 2):
@@ -228,7 +292,8 @@ def geglu_ff_res(p, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
 def _ffn_ln_site(p_ff, p_norm, x: torch.Tensor, s: Scale):
     """K7 or K4 for ``x + s * geglu_ff(p_ff, layer_norm(p_norm, x))``, or
     None where neither applies (ops/nn.py:304-325, :335-356)."""
-    if not (_pallas_ffn_enabled(x) and _ffn_ln_enabled()):
+    if not (_pallas_ffn_enabled(x) and _ffn_ln_enabled()) or (
+            _inner_block(p_ff) is not None):
         return None
     y = _ffn_int8_site(p_ff, p_norm, x, s)
     if y is not None:
@@ -268,8 +333,13 @@ def ln_geglu_ff_res(p_ff, p_norm, x: torch.Tensor) -> torch.Tensor:
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
-    return F.interpolate(x, scale_factor=2, mode="nearest").contiguous(
+    """Row-local on a rank's block ('spatial' TP); a whole image whose
+    doubled rows split is split here, as the JAX package's next conv
+    input would be."""
+    y = F.interpolate(x, scale_factor=2, mode="nearest").contiguous(
         memory_format=CL)
+    return y if tp.row_block(x) is not None or tp.current_tp() is None \
+        else tp.shard_rows(y)
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:

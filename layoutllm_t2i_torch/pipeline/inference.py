@@ -34,6 +34,9 @@ from ..models.unet import UNetConfig, apply_position_net, unet_apply
 from ..models.vae import VAEConfig, decode as vae_decode
 from ..ops.nn import nchw_to_nhwc, nhwc_to_nchw
 from ..ops.schedules import DDPMSchedule
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import replicate, row_block, shard_batch
+from ..parallel.tp import tp_mode
 from ..utils.buckets import pad_rows_pow2
 from ..utils.trees import override_subtree
 
@@ -374,13 +377,19 @@ class InferencePipeline:
     @torch.no_grad()
     def run_sampler(self, cond: dict, noise,
                     generator: Optional[torch.Generator] = None,
-                    blend_noise=None) -> torch.Tensor:
+                    blend_noise=None,
+                    batch_rows: Optional[Tuple[int, slice]] = None
+                    ) -> torch.Tensor:
         """Noise (B, h, w, 4) -> final latent (B, h, w, 4) f32. ``generator``
         draws DDIM's step noise where eta > 0 and, under inpainting, the
         blend's noise unless ``blend_noise`` gives it: (S, B, h, w, 4), one
-        draw a step (the JAX sampler's own, in a parity test)."""
+        draw a step (the JAX sampler's own, in a parity test).
+        ``batch_rows`` = (batch, rows): cond and noise are these rows of a
+        larger batch (prompt-parallel sampling); every step's noise is
+        drawn, or ``blend_noise`` given, for the whole batch and sliced."""
         m = self.models
         cond = dict(cond)
+        batch, rows = batch_rows or (None, slice(None))
         inpaint = None
         if cond.get("inpaint_mask") is not None:
             to_dev = lambda a: nhwc_to_nchw(
@@ -388,7 +397,13 @@ class InferencePipeline:
             step_noise = None
             if blend_noise is not None:
                 blend_noise = torch.as_tensor(blend_noise, dtype=torch.float32)
-                step_noise = lambda i: to_dev(blend_noise[i])
+                step_noise = lambda i: to_dev(blend_noise[i][rows])
+            elif batch_rows is not None:
+                # the blend's own draw (InpaintBlend.step_noise), whole batch
+                shape = (batch,) + tuple(to_dev(cond["inpaint_z0"]).shape[1:])
+                step_noise = lambda i: torch.randn(
+                    shape, generator=generator, device=m.device,
+                    dtype=torch.float32)[rows]
             inpaint = InpaintBlend(mask=to_dev(cond["inpaint_mask"]),
                                    z0=to_dev(cond["inpaint_z0"]),
                                    noise=step_noise, generator=generator)
@@ -416,6 +431,8 @@ class InferencePipeline:
             kw["key_steps"] = self._key_steps()
         if self.sampler == "ddim":
             kw["generator"] = generator
+            if batch_rows is not None:
+                kw["noise_rows"] = batch_rows
         x0 = nhwc_to_nchw(torch.as_tensor(noise, dtype=torch.float32).to(m.device))
         z = SAMPLERS[self.sampler](bind(core, False), self.tables, x0, **kw)
         return nchw_to_nhwc(z)
@@ -436,6 +453,63 @@ class InferencePipeline:
         """Conditioning + noise -> decoded images (B, 512, 512, 3) in [0, 1],
         as the JAX package's sample_latents returns."""
         return self.decode(self.run_sampler(cond, noise, generator))
+
+    # -- multi-device sampling (parallel/) --------------------------------
+
+    def sample_latents_sharded(self, mesh, cond: dict, noise,
+                               generator: Optional[torch.Generator] = None
+                               ) -> torch.Tensor:
+        """Prompt-parallel: this rank samples and decodes its rows of the
+        batch (``cond`` and ``noise`` are the whole batch's, the same on
+        every rank; the weights are on every rank) and the images are
+        all-gathered: every rank returns the whole (B, 512, 512, 3), as the
+        JAX method returns the global array. DDIM's step noise at eta > 0
+        is drawn for the whole batch on every rank and sliced (``generator``
+        advances alike on every rank)."""
+        b = noise.shape[0]
+        rows = row_block(b, mesh)
+        z = self.run_sampler(shard_batch(mesh, cond), noise[rows], generator,
+                             batch_rows=(b, rows))
+        return all_gather(mesh, self.decode(z), dim=0)
+
+    def sample_latents_tp(self, mesh, cond: dict, noise,
+                          generator: Optional[torch.Generator] = None,
+                          style: str = "spatial") -> torch.Tensor:
+        """Tensor-parallel latency mode (parallel/tp.py): every rank holds
+        the whole batch and the weights, and each image's compute is split
+        over the ranks: 'spatial' (default) splits image rows everywhere,
+        the convolutions included; 'heads' splits attention heads and the
+        FF's inner dimension, the convolutions whole. For the wait of one
+        request, not for throughput: generate_sharded needs no collective
+        until the images are gathered. Every rank returns the images."""
+        with tp_mode(mesh, style):
+            return self.sample_latents(cond, noise, generator)
+
+    def generate_sharded(self, mesh, prompts: List[str], layouts,
+                         relation_texts=None, seed: int = 42,
+                         seeds: Optional[Sequence[int]] = None) -> np.ndarray:
+        """generate's images, the batch's rows split over the mesh (the
+        reference's num_per_prompt / data-parallel axis). The conditioning
+        is built for the whole batch (so the text encoder runs the batch
+        shape of one device) and broadcast from rank 0, so ranks agree
+        whatever their tokenizers' hashing; every rank draws the whole
+        batch's noise and takes its rows."""
+        row_block(len(prompts), mesh)
+        cond = replicate(mesh, self.build_cond(prompts, layouts, relation_texts))
+        noise, gen = self._batch_noise(len(prompts), seed, seeds)
+        return self.sample_latents_sharded(mesh, cond, noise, gen).cpu().numpy()
+
+    def generate_tp(self, mesh, prompts: List[str], layouts,
+                    relation_texts=None, seed: int = 42,
+                    seeds: Optional[Sequence[int]] = None,
+                    style: str = "spatial") -> np.ndarray:
+        """Latency-mode generate: a (small) batch, each image's compute
+        split over the mesh (sample_latents_tp); conditioning and noise as
+        generate_sharded's."""
+        cond = replicate(mesh, self.build_cond(prompts, layouts, relation_texts))
+        noise, gen = self._batch_noise(len(prompts), seed, seeds)
+        return self.sample_latents_tp(mesh, cond, noise, gen,
+                                      style=style).cpu().numpy()
 
     def _batch_noise(self, b: int, seed: int,
                      seeds: Optional[Sequence[int]] = None):

@@ -24,7 +24,7 @@ posterior sample, the timestep, the noise, the grounding drop and the
 previews' noise; nothing reads the global RNG. A run can start from a
 reference GLIGEN ``.pth`` (``TrainerConfig.ckpt_path``). Not ported yet
 (raises NotImplementedError and names its ROADMAP.md item by title): more
-than one device and ZeRO-1 ("parallel/").
+than one device and ZeRO-1 ("parallel/ for training").
 """
 from __future__ import annotations
 
@@ -97,8 +97,9 @@ def check_supported(config: TrainerConfig) -> None:
     """Raise on the options the port does not run yet."""
     if config.num_devices not in (None, 1) or config.zero1_opt_state:
         raise NotImplementedError(
-            "more than one device and ZeRO-1 are not ported (ROADMAP.md "
-            "Queue 1, \"parallel/\")")
+            "data-parallel training over more than one device and ZeRO-1 "
+            "are not ported (ROADMAP.md Queue 1, \"parallel/ for "
+            "training\")")
 
 
 def _prepare_models(models: GligenModels) -> GligenModels:

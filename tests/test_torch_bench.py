@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from layoutllm_t2i_tpu.models import position_net as jpn
 from layoutllm_t2i_tpu.models import unet as junet
@@ -258,14 +259,20 @@ def test_dual_rule(argv, dual):
 
 
 def test_sharded_is_refused_before_any_model(monkeypatch):
+    """--sharded runs (tests/test_torch_parallel_serve.py); a batch that
+    does not divide over the ranks is refused before any model is built."""
+    from layoutllm_t2i_torch.parallel import mesh as pmesh
     from layoutllm_t2i_torch.pipeline import loaders
 
     def built(**_):
         raise AssertionError("a model was built")
 
     monkeypatch.setattr(loaders, "random_models", built)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        pbench.Bench(pbench.parse_args(["--sharded", "--device", "cpu"]))
+    monkeypatch.setattr(pmesh, "make_mesh", lambda **_: pmesh.Mesh(
+        0, 3, torch.device("cpu"), "gloo"))
+    with pytest.raises(ValueError, match="must divide over 3 devices"):
+        pbench.Bench(pbench.parse_args(["--sharded", "--device", "cpu",
+                                        "--batch", "8"]))
 
 
 def test_fast_flag_expands_the_preset():

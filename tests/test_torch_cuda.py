@@ -10,8 +10,10 @@ the d = 512 head and two launches agreeing bit for bit (a race in the
 K/V stage ring would not); odd group widths, K2's on-chip (cluster)
 and streaming paths through both C entry points, its ragged last block,
 bitwise repeatability, equal inputs in different blocks mapped to equal
-outputs, SiLU's negative tail to a bf16 ulp, an operand fenced by NaN and
-the planner's copy of the on-chip kernel's shared-memory layout;
+outputs, SiLU's negative tail to a bf16 ulp, an operand fenced by NaN,
+the planner's copy of the on-chip kernel's shared-memory layout and the
+split pair over 2 and 4 blocks of rows (every block's partials handed to
+each apply launch, as the ranks' gather does), in bf16 and f32;
 wide and narrow LayerNorm rows in bf16 and in f32 (the reward towers'
 shapes, a ragged last row block), a partial FF row block; the training path's
 kernels: K1's lse output, the K5a/K5b backward at the ragged training
@@ -244,6 +246,45 @@ def test_group_norm_both_entry_points(dev, gen, path):
     x, w, bias = _gn_operands(gen, n, hw, c)
     _check("K2", lambda: GN.launch(x, w, bias, groups, 1e-6, True, plan),
            lambda: K.group_norm_plain(x, w, bias, groups, 1e-6, True), K.group_norm)
+
+
+def _split_run(x, w, bias, groups, silu, world):
+    """K2's split pair over ``world`` blocks of x's rows in one process: a
+    first pass keeps each block's partials from its statistics launch, the
+    second hands every block all of them, as the ranks' gather would."""
+    blocks = [b.contiguous() for b in x.chunk(world, dim=1)]
+    parts = []
+
+    def keep(part):
+        parts.append(part.clone())
+        return part
+
+    for b in blocks:
+        GN.group_norm_split(b, w, bias, groups, 1e-6, silu, keep)
+    every = torch.cat(parts, dim=2)
+    before = GN.group_norm.split_launches
+    out = torch.cat([GN.group_norm_split(b, w, bias, groups, 1e-6, silu,
+                                         lambda part: every)
+                     for b in blocks], dim=1)
+    torch.cuda.synchronize()
+    assert GN.group_norm.split_launches == before + world
+    return out
+
+
+@pytest.mark.parametrize("world,n,hw,c,groups", [
+    (2, 2, 4096, 320, 32),   # the UNet's 64^2 level, 2 ranks
+    (2, 2, 3002, 128, 32),   # each rank's last statistics chunk ragged
+    (4, 1, 1024, 640, 32),
+])
+@pytest.mark.parametrize("f32", [False, True])
+def test_group_norm_split_pair(dev, gen, world, n, hw, c, groups, f32):
+    x, w, bias = _gn_operands(gen, n, hw, c)
+    if f32:
+        x, w, bias = x.float(), w.float(), bias.float()
+    out = _split_run(x, w, bias, groups, True, world)
+    got = agreement("K2/f32" if f32 else "K2", out,
+                    K.group_norm_plain(x, w, bias, groups, 1e-6, True))
+    assert got["ok"], got
 
 
 @pytest.mark.parametrize("n,hw,c,groups", [

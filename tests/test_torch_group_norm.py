@@ -373,3 +373,108 @@ def test_shifted_sums_keep_a_large_group_accurate():
     out = emulate(torch.from_numpy(x), one, 0 * one, groups, 1e-6, False, plan)
     ref = (x - x.astype(np.float64).mean()) / x.astype(np.float64).std()
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# the streaming pair split across ranks ('spatial' tensor parallelism): each
+# rank's statistics launch on its rows, every rank's partials gathered
+# between the launches, the apply launch merging them all by count
+
+
+def split_partials(x, groups, plan):
+    """(n, G, chunks, 3) partials of one rank's rows in ``plan``'s chunks,
+    as gn_stats_kernel writes them: (count, mean, M2), the sums shifted by
+    each chunk's first row, channels merged into groups by Chan's formula."""
+    n, hw, c = x.shape
+    cg = c // groups
+    xf = x.float()
+    out = []
+    for r0, r1 in _spans(hw, plan.rows, plan.chunks):
+        t, nr = xf[:, r0:r1], r1 - r0
+        d = t - t[:, :1]
+        s1, s2 = d.sum(1), (d * d).sum(1)
+        m = s1 / nr
+        cmean = (t[:, 0] + m).view(n, groups, cg)
+        cm2 = (s2 - s1 * m).clamp_min(0).view(n, groups, cg)
+        gmean = cmean.sum(-1) / cg
+        gm2 = (cm2 + nr * (cmean - gmean[..., None]) ** 2).sum(-1)
+        out.append(torch.stack([torch.full_like(gmean, float(nr * cg)), gmean,
+                                gm2], dim=-1))
+    return torch.stack(out, dim=2)
+
+
+def per_chunk_merge(part, eps):
+    """The planted fault: every chunk weighted alike, not by its count."""
+    cnt, mk, m2k = part.unbind(-1)
+    mean = mk.mean(-1)
+    m2 = (m2k + cnt * (mk - mean[..., None]) ** 2).sum(-1)
+    return mean, torch.rsqrt(m2 / cnt.sum(-1) + eps)
+
+
+def emulate_split(x, gamma, beta, groups, eps, silu, world, fault=None):
+    """K2's split pair over ``world`` ranks' blocks of x's rows, merged as
+    gn_apply_kernel merges (gn.merge_partials), or per chunk (``fault``).
+    Returns f32 rows in order and every rank's plan."""
+    n, hw, c = x.shape
+    blocks = x.chunk(world, dim=1)
+    plans = [gn.stream_plan(n, b.shape[1], c, groups) for b in blocks]
+    every = torch.cat([split_partials(b, groups, p)
+                       for b, p in zip(blocks, plans)], dim=2)
+    merge = per_chunk_merge if fault == "per_chunk" else gn.merge_partials
+    mean, rstd = merge(every, eps)
+    xf = x.float().view(n, hw, groups, c // groups)
+    y = ((xf - mean[:, None, :, None]) * rstd[:, None, :, None]).view(n, hw, c)
+    y = y * gamma.float() + beta.float()
+    return (y * torch.sigmoid(y) if silu else y), plans
+
+
+SPLIT = [(2, 2, 1501, 128, 32), (3, 2, 1501, 128, 32), (2, 1, 2048, 320, 32)]
+
+
+def _split_inputs(world, n, hw_r, c, groups, seed):
+    """_inputs with the last row of every rank's block lifted by 20: a
+    ragged last chunk that a merge by chunk would over-weight."""
+    x, gamma, beta = _inputs(n, world * hw_r, c, groups, seed)
+    x[:, hw_r - 1::hw_r] += 20.0
+    return x, gamma, beta
+
+
+@pytest.mark.parametrize("world,n,hw_r,c,groups", SPLIT)
+def test_split_emulation_agrees_with_the_whole(world, n, hw_r, c, groups):
+    x, gamma, beta = (_bf16(a) for a in _split_inputs(world, n, hw_r, c,
+                                                      groups, 4))
+    out, plans = emulate_split(x, gamma, beta, groups, 1e-6, True, world)
+    ref = gn.group_norm_plain(x, gamma, beta, groups, 1e-6, True)
+    got = agreement("K2", out.to(torch.bfloat16), ref)
+    assert got["ok"], got
+
+
+def test_split_per_chunk_merge_fails():
+    world, n, hw_r, c, groups = SPLIT[0]
+    x, gamma, beta = (_bf16(a) for a in _split_inputs(world, n, hw_r, c,
+                                                      groups, 4))
+    _, plans = emulate_split(x, gamma, beta, groups, 1e-6, True, world)
+    assert all(hw_r % p.rows for p in plans)   # a shorter last chunk
+    ref = gn.group_norm_plain(x, gamma, beta, groups, 1e-6, True)
+    bad, _ = emulate_split(x, gamma, beta, groups, 1e-6, True, world,
+                           "per_chunk")
+    got = agreement("K2", bad.to(torch.bfloat16), ref)
+    assert not got["ok"], got
+
+
+@pytest.mark.parametrize("world,n,hw_r,c,groups", SPLIT)
+def test_split_plain_path_matches_the_whole_f32(world, n, hw_r, c, groups):
+    """group_norm_split on CPU tensors (its plain version): each rank's
+    output, with every rank's partials handed to it as the gather would,
+    equals the whole tensor's plain GroupNorm in f32."""
+    x, gamma, beta = (torch.from_numpy(a) for a in _split_inputs(
+        world, n, hw_r, c, groups, 5))
+    blocks = x.chunk(world, dim=1)
+    rows = gn.stream_plan(n, hw_r, c, groups).rows
+    every = torch.cat([gn.group_norm_stats_plain(b, groups, rows)
+                       for b in blocks], dim=2)
+    out = torch.cat([gn.group_norm_split(b, gamma, beta, groups, 1e-5, False,
+                                         lambda part: every)
+                     for b in blocks], dim=1)
+    ref = gn.group_norm_plain(x, gamma, beta, groups, 1e-5, False)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5, rtol=1e-5)

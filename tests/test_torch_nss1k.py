@@ -22,8 +22,8 @@ on the CPU at small geometry.
   raises on a JPEG; with Pillow it equals JAX's on the same files.
 * ``main`` with ``--small --device cpu`` prints one JSON line with the JAX
   runner's keys (``--data_path`` with the planner, and FID from a random
-  Inception ``.pth``); ``--sharded`` is refused before any
-  model is built; ``--fast`` expands as JAX's ``resolve_fast_preset`` does.
+  Inception ``.pth``); a ``--sharded`` batch that does not divide over
+  the ranks is refused before any model is built; ``--fast`` expands as JAX's ``resolve_fast_preset`` does.
 """
 import argparse
 import builtins
@@ -310,9 +310,15 @@ def test_sharded_is_refused_before_any_model(tmp_path, monkeypatch):
 
     monkeypatch.setattr(loaders, "random_models", built)
     monkeypatch.setattr(loaders, "load_models_from_gligen_ckpt", built)
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    # --sharded runs (tests/test_torch_parallel_serve.py); a batch that does
+    # not divide over the ranks is refused before any model is built
+    from layoutllm_t2i_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "make_mesh", lambda **_: pmesh.Mesh(
+        0, 3, torch.device("cpu"), "gloo"))
+    with pytest.raises(ValueError, match="must divide over 3 devices"):
         pn.main(["--data_path", str(tmp_path / "none.json"), "--small",
-                 "--device", "cpu", "--sharded"])
+                 "--device", "cpu", "--sharded", "--batch_size", "4"])
 
 
 @pytest.mark.parametrize("kw", [{}, {"steps": 30}, {"sampler": "ddim"},

@@ -224,9 +224,11 @@ def test_png_writer_matches_pillow_decode(rng, shape):
 
 
 def test_tp_is_refused():
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        serve_cli.build_server(serve_cli.parse_args(
-            ["--small", "--device", "cpu", "--tp", "--port", "0"]))
+    """--tp runs (tests/test_torch_parallel_serve.py); NCCL on the CPU is
+    refused, before any group or model is made."""
+    with pytest.raises(ValueError, match="NCCL needs a CUDA device"):
+        serve_cli.main(["--small", "--device", "cpu", "--tp", "--tp_backend",
+                        "nccl", "--port", "0"])
 
 
 def test_cli_fast_flags_build_the_preset_pipeline():

@@ -55,3 +55,43 @@ def stub_kernels(monkeypatch) -> RecordingLib:
         monkeypatch.setattr(mod, "lib", lambda name: rec)
     monkeypatch.setattr(ffn, "_scale_operand", _scale_operand)
     return rec
+
+
+# -- a stub build, for the build lock's test (tests/test_torch_parallel_serve.py)
+
+# writes its output in two halves half a second apart, and logs each call
+FAKE_NVCC = '''#!{python}
+import os, sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+with open(os.environ["FAKE_NVCC_LOG"], "a") as f:
+    f.write(out + "\\n")
+with open(out, "wb") as f:
+    f.write(b"A" * 4096)
+    f.flush()
+    time.sleep(0.5)
+    f.write(b"B" * 4096)
+'''
+STUB_LIBRARY = b"A" * 4096 + b"B" * 4096
+
+
+def stub_build(root: str) -> bytes:
+    """``build.build_all`` of one stub source under ``root`` (csrc/stub.cu,
+    build/, the fake nvcc at root/nvcc); returns the library's bytes as
+    this process finds them after the build."""
+    import pathlib
+
+    from layoutllm_t2i_torch.kernels import build
+
+    root = pathlib.Path(root)
+    build.CSRC_DIR = root / "csrc"
+    build.BUILD_DIR = root / "build"
+    build.SOURCES = ("stub",)
+    build.nvcc_path = lambda: str(root / "nvcc")
+    build.build_all()
+    return build.lib_path("stub").read_bytes()
+
+
+if __name__ == "__main__":
+    import sys
+
+    print("whole" if stub_build(sys.argv[1]) == STUB_LIBRARY else "torn")
