@@ -48,6 +48,30 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                world 2 on the card (gloo, cuda:0): two POSTs each answered
                with a 512x512 PNG, /metrics counting both, both ranks
                exiting 0 after rank 0's SIGINT.
+  1b. train-dp parallel/ for training, in ranks of their own as in 1a (the
+               same limits): the DiffusionTrainer at full width in f32,
+               rela_fuse, AdamW, synthetic 512^2 data, random weights from
+               seed 0 with gates 0.5, global batch TRAIN_BATCH,
+               TRAIN_DP_STEPS steps. World 1 on NCCL; world 2 on gloo with
+               both ranks on cuda:0 (4 rows a rank), once plain and once
+               with ZeRO-1 (cuDNN's deterministic algorithms, so that both
+               runs get the same gradients). World 2's first all-reduced
+               gradient within TRAIN_GRAD_F32_REL_TOL of world 1's
+               (relative L2), each logged loss within
+               TRAIN_DP_LOSS_REL_TOL, the 3-step update of the trained
+               tensors within TRAIN_DP_UPDATE_REL_TOL of world 1's
+               (relative L2), every trained tensor within 2 lr a step (a
+               sanity bound: AdamW moves an element by about lr a step at
+               most, so no update can leave it); ZeRO-1 bit-equal to plain on both ranks, its moments
+               a rank each leaf's zero1_dim share; each rank's K1, K5a,
+               K5b and K4 (f32) launches the walk's at its local batch
+               (training_calls), K2 and K3 launched; the calls' shapes
+               join phase kernels' second pass. Prints each rank's moment
+               bytes, peak memory and walls (world-1 or shared-card, not
+               DP speed-ups). Then cli/train_diffusion.py --synthetic
+               --zero1 --multihost --backend gloo at world 2 for
+               TRAIN_DP_CLI_STEPS steps: both ranks exit 0, one run
+               directory (tag00) holds the checkpoint.
   2. kernels   every kernel (K1 flash attention, K2 GroupNorm, K3 LayerNorm,
                K4 LN+GEGLU FF, K5a/K5b flash-attention backward, K6 GEGLU
                FF + residual, K7 int8 LN+GEGLU FF, K8a GEMM + bias, K8b
@@ -163,8 +187,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                a PNG data URL to inpaint; every PNG decodes (zlib) to
                512x512 RGB, with its layout's box outlines in blue where
                it has a layout. Then phase kernels' second pass: the
-               shapes that phases 8a, 8b and 10 recorded as they ran
-               (recorded_calls) and the first pass did not hold.
+               shapes that phases 1a, 1b, 8a, 8b and 10 recorded as they
+               ran (recorded_calls) and the first pass did not hold.
  11. rl        the RL path at full width on a fixture written to build/
                (4 COCO-style examples, 512^2 PNGs, a layout cache): the
                reward (CLIP ViT-L/14 text and vision towers and the
@@ -4143,6 +4167,276 @@ def phase_parallel(work_dir: str) -> tuple:
     return counts, sorted(calls)
 
 
+# ---------------------------------------------------------------------------
+# phase train-dp: parallel/ for training (the data-parallel DiffusionTrainer,
+# ZeRO-1 and the CLI under torchrun's environment), in ranks of their own
+
+TRAIN_DP_STEPS = 3
+TRAIN_DP_LOSS_REL_TOL = 1e-4     # each logged loss against world 1's
+# world 2's update of the trained tensors against world 1's (relative L2):
+# 6.1e-6 on the card; a rank updating from its own rows alone reads ~1
+TRAIN_DP_UPDATE_REL_TOL = 1e-3
+TRAIN_DP_CLI_STEPS = 2
+
+
+def train_dp_child(backend: str, out_dir: str, device: str = "cuda:0",
+                   small: bool = False) -> int:
+    """One rank of phase train-dp (torchrun's environment set): the
+    DiffusionTrainer at full width in f32 (TrainerConfig()'s precision),
+    rela_fuse, AdamW, TRAIN_DP_STEPS steps on the seeded synthetic global
+    batches of TRAIN_BATCH, this rank's rows of each. Every run starts
+    from the same random weights (seed 0, gates 0.5). World 1 writes the
+    first step's gradient, the losses and the trained tensors to
+    OUT_DIR/w1_reference.pt; world 2 runs once plain and once with ZeRO-1
+    and holds them to world 1 and to each other. Writes
+    OUT_DIR/w<world>_rank<r>.json: walls, peak memory, moment bytes, each
+    run's launches and the walk of one step at the local batch, the kernel
+    calls. ``small``: the small geometry (a rehearsal on the CPU with
+    device "cpu")."""
+    import datetime
+
+    from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
+    from layoutllm_t2i_torch.kernels import reset_launches
+    from layoutllm_t2i_torch.parallel.mesh import batch_rows, make_mesh, take_rows
+    from layoutllm_t2i_torch.pipeline.loaders import random_models
+    from layoutllm_t2i_torch.training.diffusion_trainer import (
+        DiffusionTrainer, TrainerConfig)
+    from layoutllm_t2i_torch.training.train_step import rela_fuse_only
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's deterministic algorithms: the plain and the ZeRO-1 run must
+    # get the same gradients bit for bit for their updates to be compared
+    torch.backends.cudnn.deterministic = True
+    mesh = make_mesh(device=device if backend == "gloo" else None,
+                     backend=backend,
+                     timeout=datetime.timedelta(seconds=PARALLEL_GROUP_S))
+    on_card = mesh.device.type == "cuda"
+    models = random_models(small=small, device=mesh.device,
+                           dtype=torch.float32, seed=0)
+    set_alphas(models.unet_params, 0.5)
+    start = {n: p.detach().clone()
+             for n, p in models.unet_params.named_parameters()
+             if rela_fuse_only(n)}
+    side = 16 if small else 512
+    rows = batch_rows(TRAIN_BATCH, mesh)
+    batches = lambda: (take_rows(b, rows) for b in synthetic_layout_batches(
+        TRAIN_BATCH, side, TRAIN_MAX_BOXES))
+    m = models
+    rec = {"rank": mesh.rank, "world": mesh.size, "backend": mesh.backend,
+           "device": str(mesh.device), "steps": TRAIN_DP_STEPS,
+           "batch": TRAIN_BATCH, "local_batch": len(rows), "runs": {},
+           "walk_per_step": launches_of(training_calls(
+               m.unet_cfg, m.vae_cfg, m.clip_cfg, m.clip_cfg.max_length,
+               next(batches()), TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS,
+               f32=True))}
+    ref_path = os.path.join(out_dir, "w1_reference.pt")
+    ref = (None if mesh.size == 1 else
+           torch.load(ref_path, map_location="cpu", weights_only=True))
+    plain, all_calls = None, set()
+    for variant in ("plain",) if mesh.size == 1 else ("plain", "zero1"):
+        with torch.no_grad():
+            for n, p in models.unet_params.named_parameters():
+                if n in start:
+                    p.copy_(start[n])
+        cfg = TrainerConfig(
+            output_root=os.path.join(out_dir, f"w{mesh.size}_{variant}"),
+            name="train_dp", batch_size=TRAIN_BATCH,
+            total_iters=TRAIN_DP_STEPS, save_every_iters=10 ** 9, log_every=1,
+            warmup_steps=0, trainable_mode="rela_fuse", optimizer="adamw",
+            max_boxes=TRAIN_MAX_BOXES, max_relations=TRAIN_MAX_RELATIONS,
+            zero1_opt_state=variant == "zero1")
+        trainer = DiffusionTrainer(cfg, batches(), models=models, mesh=mesh)
+        # the CLI drive below writes this phase's checkpoint
+        trainer.save_ckpt = lambda iter_name: None
+        step = trainer.train_step
+        first_grad, update = [], step.update
+
+        def spy(grads):
+            if not first_grad:   # the all-reduced gradient, on the host
+                first_grad.extend(g.detach().to("cpu", copy=True)
+                                  for g in grads)
+            update(grads)
+        step.update = spy
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with recorded_calls() as calls:
+            t0 = time.perf_counter()
+            trainer.train()
+            sync()
+            wall = time.perf_counter() - t0
+        all_calls |= {(kid, tuple(args)) for kid, args in calls}
+        run = {"wall_s": wall, "launches": path_counts(),
+               "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                if on_card else None),
+               "moment_bytes": sum(t.numel() * t.element_size() for t in
+                                   step.optimizer.mu + step.optimizer.nu),
+               "moment_bytes_whole": sum(
+                   2 * p.numel() * p.element_size()
+                   for p in step.params.values()),
+               "moment_bytes_want": sum(
+                   2 * p.numel() * p.element_size() // (
+                       mesh.size if d is not None else 1)
+                   for p, d in zip(step.params.values(), step.zero1_dims)),
+               "trainable_tensors": len(step.params),
+               "trainable_params": sum(p.numel() for p in step.params.values())}
+        trained = {n: p.detach().to("cpu", copy=True)
+                   for n, p in step.params.items()}
+        if mesh.rank == 0:
+            with open(os.path.join(trainer.run_dir, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            run["losses"] = [r["loss"] for r in recs]
+            run["s_per_step_each"] = [r["sec_per_iter"] for r in recs]
+        if ref is None and mesh.rank == 0:
+            torch.save({"grad": first_grad, "losses": run["losses"],
+                        "params": trained}, ref_path)
+        if ref is not None and variant == "plain":
+            run["grad_rel_l2_err"] = rel_l2(first_grad, ref["grad"])
+            if mesh.rank == 0:
+                run["loss_rel_err"] = max(
+                    abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                        ref["losses"]))
+            run["param_max_abs_diff"] = max(
+                float((trained[n] - p).abs().max())
+                for n, p in ref["params"].items())
+            run["param_bound"] = (2 * cfg.base_learning_rate
+                                  * TRAIN_DP_STEPS)
+            # how close the two runs' updates are, whole tensors together
+            run["update_rel_l2_err"] = rel_l2(
+                [trained[n] - start[n].cpu() for n in ref["params"]],
+                [p - start[n].cpu() for n, p in ref["params"].items()])
+            plain = trained, first_grad
+        if variant == "zero1":
+            run["bit_equal_to_plain"] = all(
+                torch.equal(trained[n], p) for n, p in plain[0].items())
+            run["first_grad_bit_equal_to_plain"] = all(
+                torch.equal(a, b) for a, b in zip(first_grad, plain[1]))
+            run["tensors_differing_from_plain"] = sum(
+                not torch.equal(trained[n], p) for n, p in plain[0].items())
+            run["max_abs_diff_from_plain"] = max(
+                float((trained[n] - p).abs().max()) for n, p in plain[0].items())
+        rec["runs"][variant] = run
+        del trainer, step, first_grad, trained
+        if on_card:
+            torch.cuda.empty_cache()
+    rec["calls"] = sorted(all_calls)
+    with open(os.path.join(out_dir, f"w{mesh.size}_rank{mesh.rank}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def train_dp_cli(work_dir: str) -> dict:
+    """cli/train_diffusion.py --synthetic --zero1 --multihost --backend gloo
+    at world 2 on cuda:0: both ranks exit 0 and one run directory, tag00,
+    holds the checkpoint of its last step."""
+    out = os.path.join(work_dir, "cli")
+    procs = spawn_ranks(
+        ["-m", "layoutllm_t2i_torch.cli.train_diffusion", "--synthetic",
+         "--zero1", "--multihost", "--backend", "gloo", "--device", "cuda:0",
+         "--batch_size", str(TRAIN_BATCH), "--total_iters",
+         str(TRAIN_DP_CLI_STEPS), "--warmup_steps", "0", "--output_root",
+         out, "--name", "train_dp"], 2)
+    t0 = time.perf_counter()
+    wait_ranks(procs, PARALLEL_CHILD_S, "train_diffusion --zero1 --multihost")
+    tags = sorted(os.listdir(os.path.join(out, "train_dp")))
+    ckpt = os.path.join(out, "train_dp", "tag00",
+                        f"checkpoint_{TRAIN_DP_CLI_STEPS:08d}", "state.pt")
+    return {"phase": "train-dp-cli", "world": 2, "backend": "gloo",
+            "steps": TRAIN_DP_CLI_STEPS, "wall_s": time.perf_counter() - t0,
+            "note": "shared-card wall: both ranks on one card, with process "
+                    "start, model build and the checkpoint",
+            "run_dirs": tags, "checkpoint": os.path.exists(ckpt),
+            "ok": tags == ["tag00"] and os.path.exists(ckpt)}
+
+
+def phase_train_dp(work_dir: str) -> tuple:
+    """World 1 on NCCL, then world 2 on gloo with both ranks on cuda:0
+    (plain and ZeRO-1), then the training CLI at world 2. World 2's first
+    all-reduced gradient within TRAIN_GRAD_F32_REL_TOL of world 1's, each
+    logged loss within TRAIN_DP_LOSS_REL_TOL, the update of the trained
+    tensors within TRAIN_DP_UPDATE_REL_TOL of world 1's, every trained
+    tensor within 2 lr a step of world 1's (a sanity bound only: AdamW
+    moves an element by about lr a step at most); ZeRO-1 bit-equal to plain on every rank, its moments a rank the
+    zero1_dim share of the whole; each rank's K1, K5a, K5b and K4 launches
+    (f32) the walk's at its local batch, K2 and K3 launched. Returns
+    (launches of the ranks' runs, their kernel calls)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    recs = []
+    for backend, world in (("nccl", 1), ("gloo", 2)):
+        procs = spawn_ranks([os.path.abspath(__file__), "--train-dp-child",
+                             backend, work_dir], world)
+        wait_ranks(procs, PARALLEL_CHILD_S, f"train-dp world {world} {backend}")
+        for r in range(world):
+            with open(os.path.join(work_dir, f"w{world}_rank{r}.json")) as f:
+                recs.append(json.load(f))
+            emit({"phase": "train-dp", **{k: v for k, v in recs[-1].items()
+                                          if k != "calls"},
+                  "note": ("world-1 walls" if world == 1 else
+                           "shared-card walls: both ranks on one card, "
+                           "collectives over gloo; not a DP speed-up")})
+    cli = train_dp_cli(work_dir)
+    emit({**cli, "seconds": time.perf_counter() - t0})
+    bad = train_dp_faults(recs)
+    if not cli["ok"]:
+        bad.append(f"cli: {cli['run_dirs']}, checkpoint {cli['checkpoint']}")
+    if bad:
+        raise SmokeFailure(f"train-dp: {bad}")
+    counts, calls = {}, set()
+    for rec in recs:
+        calls |= {(kid, tuple(args)) for kid, args in rec["calls"]}
+        for run in rec["runs"].values():
+            for kid, n in run["launches"].items():
+                counts[kid] = counts.get(kid, 0) + n
+    return counts, sorted(calls)
+
+
+def train_dp_faults(recs, launches: bool = True) -> list:
+    """What phase train-dp's rank records break, as strings (none: the
+    phase holds). ``launches`` False: skip the launch checks (a rehearsal
+    on the CPU launches no kernel)."""
+    bad = []
+    walked = ("K1/f32", "K5a/f32", "K5b/f32", "K4/f32")
+    for rec in recs:
+        who = f"world {rec['world']} rank {rec['rank']}"
+        for variant, run in rec["runs"].items():
+            got = run["launches"]
+            if launches:
+                bad += [f"{who} {variant}: {kid} {got.get(kid, 0)} launches, "
+                        f"walk {rec['walk_per_step'].get(kid, 0)} x "
+                        f"{rec['steps']}" for kid in walked if got.get(kid, 0)
+                        != rec["walk_per_step"].get(kid, 0) * rec["steps"]]
+                bad += [f"{who} {variant}: no {kid} launch"
+                        for kid in ("K2/f32", "K3/f32") if got.get(kid, 0) <= 0]
+            if rec["world"] == 1:
+                continue
+            if variant == "zero1":
+                if not run["bit_equal_to_plain"]:
+                    bad.append(f"{who}: ZeRO-1 not bit-equal to plain DP")
+                if not (run["moment_bytes"] == run["moment_bytes_want"]
+                        and 2 * run["moment_bytes"]
+                        <= run["moment_bytes_whole"] * 1.001):
+                    bad.append(f"{who}: ZeRO-1 moments {run['moment_bytes']} B")
+                continue
+            if run["grad_rel_l2_err"] > TRAIN_GRAD_F32_REL_TOL:
+                bad.append(f"{who}: gradient {run['grad_rel_l2_err']}")
+            if not run["update_rel_l2_err"] <= TRAIN_DP_UPDATE_REL_TOL:
+                bad.append(f"{who}: update {run['update_rel_l2_err']}")
+            if run["param_max_abs_diff"] > run["param_bound"]:
+                bad.append(f"{who}: tensors {run['param_max_abs_diff']}")
+            if rec["rank"] == 0 and not (
+                    run["loss_rel_err"] <= TRAIN_DP_LOSS_REL_TOL
+                    and len(run["losses"]) == TRAIN_DP_STEPS
+                    and all(math.isfinite(x) for x in run["losses"])):
+                bad.append(f"{who}: losses {run['losses']}")
+    return bad
+
+
 PROFILE_GROUPS = (
     # the split pre-pass's four-operand instantiations run in K5a/f32's
     # call (the backward's, shared with K5b/f32), its two-operand ones in
@@ -4258,6 +4552,8 @@ def main(argv=None) -> int:
                          "JSON_routes-f32")
     ap.add_argument("--parallel-child", nargs=2, metavar=("BACKEND", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of phase parallel
+    ap.add_argument("--train-dp-child", nargs=2, metavar=("BACKEND", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of phase train-dp
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4265,6 +4561,8 @@ def main(argv=None) -> int:
         return 2
     if args.parallel_child:
         return parallel_child(*args.parallel_child)
+    if args.train_dp_child:
+        return train_dp_child(*args.train_dp_child)
     try:
         from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
         from layoutllm_t2i_torch.models.clip_text import CLIPTextConfig
@@ -4292,11 +4590,14 @@ def main(argv=None) -> int:
     data_dir = os.path.join(build_dir, "chip_smoke_data")
     coco_dir = os.path.join(build_dir, "chip_smoke_coco")
     parallel_dir = os.path.join(build_dir, "chip_smoke_parallel")
+    train_dp_dir = os.path.join(build_dir, "chip_smoke_train_dp")
     try:
         with route_env(DEFAULT):
             phase_build()
             # its ranks start from the libraries phase build made
             parallel_counts, parallel_calls = phase_parallel(parallel_dir)
+            train_dp_counts, train_dp_calls = phase_train_dp(train_dp_dir)
+            shutil.rmtree(train_dp_dir, ignore_errors=True)
             unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
             tok_len = clip_cfg.max_length
             train_batch = next(synthetic_layout_batches(TRAIN_BATCH, 512,
@@ -4373,12 +4674,14 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             cli_counts, cli_calls = phase_cli(cli_dir, dense_img[0])
             torch.cuda.empty_cache()
-            # phase kernels' second pass: the shapes that phases inpaint,
-            # modalities and cli recorded and the first pass did not hold
+            # phase kernels' second pass: the shapes that phases parallel,
+            # train-dp, inpaint, modalities and cli recorded and the first
+            # pass did not hold
             held = {(kid, a) for kid, _, a, _ in first_cases}
             second_cases = [case for case in kernel_cases(
                 {"inpaint": inpaint_calls, "modalities": modal_calls,
-                 "cli": cli_calls, "parallel": parallel_calls})
+                 "cli": cli_calls, "parallel": parallel_calls,
+                 "train-dp": train_dp_calls})
                 if (case[0], case[2]) not in held]
             kernels_acc = phase_kernels(second_cases, kernels_acc)
             held |= {(kid, a) for kid, _, a, _ in second_cases}
@@ -4431,6 +4734,7 @@ def main(argv=None) -> int:
         shutil.rmtree(data_dir, ignore_errors=True)
         shutil.rmtree(coco_dir, ignore_errors=True)
         shutil.rmtree(parallel_dir, ignore_errors=True)
+        shutil.rmtree(train_dp_dir, ignore_errors=True)
     summary, k5_pairs, _ = kernels_acc
     # each run launches its path's kernels: the exact and the fast
     # generation, the bench, the CLIs, the RL trainer, the NSS1K runs and
@@ -4440,9 +4744,10 @@ def main(argv=None) -> int:
     # K1 (d 512), K2 and K3 in f32, f32 training the f32 forms of K1-K5b,
     # the f32 generation those of K1-K4, its int8 one K7/f32 and f32
     # training on the split routes those of K6, K8a and K8b; the line adds
-    # the eighteen runs (phases inpaint and modalities: K1-K4 too;
+    # the nineteen runs (phases inpaint and modalities: K1-K4 too;
     # train-coco: mixed-precision training's kernels, through the loader;
-    # parallel: the ranks' runs, K1-K4, K2 also as its split pair)
+    # parallel: the ranks' runs, K1-K4, K2 also as its split pair;
+    # train-dp: the ranks' f32 training runs, the f32 forms of K1-K5b)
     runs = {"generate": gen_counts, "fast": fast_counts, "int8": int8_counts,
             "routes": routes_counts, "inpaint": inpaint_counts,
             "modalities": modal_counts, "bench": bench_counts, "cli": cli_counts,
@@ -4450,7 +4755,7 @@ def main(argv=None) -> int:
             "train": train_counts[""], "train-coco": coco_counts,
             "train-f32": train_counts["-f32"], "generate-f32": gen_f32_counts,
             "int8-f32": int8_f32_counts, "routes-f32": routes_f32_counts,
-            "parallel": parallel_counts}
+            "parallel": parallel_counts, "train-dp": train_dp_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
     generation = ("K1", "K2", "K3", "K4")
     encoders = ("K1/f32", "K2/f32", "K3/f32")
@@ -4465,7 +4770,8 @@ def main(argv=None) -> int:
                 "generate-f32": tuple(f"{kid}/f32" for kid in generation),
                 "int8-f32": ("K7/f32",),
                 "routes-f32": ("K6/f32", "K8a/f32", "K8b/f32"),
-                "parallel": generation}
+                "parallel": generation,
+                "train-dp": tuple(f"{kid}/f32" for kid in step_kernels(DEFAULT))}
     missing = [f"{kid} ({path})" for path, kids in expected.items()
                for kid in kids if runs[path][kid] <= 0]
     line = []

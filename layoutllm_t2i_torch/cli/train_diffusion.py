@@ -12,18 +12,28 @@ On the CPU, with tiny random models:
   python -m layoutllm_t2i_torch.cli.train_diffusion --small --synthetic \\
       --device cpu --batch_size 2 --total_iters 3 --save_every_iters 2 \\
       --warmup_steps 1
-The flags are the JAX CLI's, plus ``--device``. ``--ckpt_path`` starts
-from a reference GLIGEN .pth (its embedded config sets the geometry, so it
-takes the place of ``--small``'s models). ``--enable_previews`` writes a
-PLMS sample grid (``--preview_steps``) and the batch's real images at every
-save. Not ported yet, and refused with NotImplementedError naming the
-ROADMAP.md item: ``--multihost`` and ``--zero1``.
+Data parallel, one process a device, under torchrun (``--batch_size`` is
+the global batch; each rank loads its rows of it; ``--zero1`` splits the
+Adam moments and the EMA over the ranks; ``--multihost`` insists on
+torchrun's environment, the JAX flag's ``jax.distributed.initialize()``):
+  torchrun --nproc_per_node 2 -m layoutllm_t2i_torch.cli.train_diffusion \
+      --small --synthetic --device cpu --backend gloo --zero1 --multihost \
+      --batch_size 4 --total_iters 3 --warmup_steps 1
+Ranks that share one card take ``--device cuda:0 --backend gloo`` (NCCL
+refuses two ranks on one device).
+The flags are the JAX CLI's, plus ``--device`` and ``--backend``.
+``--ckpt_path`` starts from a reference GLIGEN .pth (its embedded config
+sets the geometry, so it takes the place of ``--small``'s models).
+``--enable_previews`` writes a PLMS sample grid (``--preview_steps``) and
+the batch's real images at every save.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from ..data.coco import coco_layout_batches
 from ..data.synthetic import synthetic_layout_batches
@@ -34,6 +44,7 @@ from ..models.initializers import Init
 from ..models.unet import UNetConfig, init_unet_params
 from ..models.vae import VAEConfig, init_vae_params
 from ..ops.schedules import make_ddpm_schedule
+from ..parallel.mesh import BACKENDS, batch_rows, make_mesh, take_rows
 from ..pipeline.inference import GligenModels
 from ..training.diffusion_trainer import DiffusionTrainer, TrainerConfig
 from ..utils.trees import ParamTree
@@ -64,7 +75,12 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--synthetic", action="store_true",
                    help="random data (smoke/benchmark runs)")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="one process a device under torchrun's environment "
+                        "(WORLD_SIZE, RANK, ...); raises without it")
+    p.add_argument("--backend", type=str, default=None, choices=BACKENDS,
+                   help="the group's backend (default: NCCL on the card, "
+                        "gloo on the CPU; gloo where ranks share a card)")
     p.add_argument("--enable_previews", action="store_true",
                    help="PLMS sample grid at every save")
     p.add_argument("--preview_steps", type=int, default=50)
@@ -83,7 +99,8 @@ def parse_args(argv=None):
                    help="write checkpoints synchronously (default: disk "
                         "writes overlap training)")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1 optimizer-state sharding (not ported)")
+                   help="ZeRO-1: the Adam moments and the EMA split over "
+                        "the ranks")
     p.add_argument("--small", action="store_true",
                    help="tiny random models (CPU smoke)")
     p.add_argument("--device", type=str, default=None,
@@ -119,10 +136,13 @@ def small_models(device) -> GligenModels:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "multihost training is not ported (ROADMAP.md Queue 1, "
-            "\"parallel/ for training\")")
+    missing = [k for k in ("WORLD_SIZE", "RANK") if k not in os.environ]
+    if args.multihost and missing and not dist.is_initialized():
+        raise RuntimeError(
+            f"--multihost needs torchrun's environment: {', '.join(missing)} "
+            "not set (run under torchrun --nproc_per_node N)")
+    own_group = not dist.is_initialized()
+    mesh = make_mesh(device=args.device, backend=args.backend)
     cfg = TrainerConfig(
         output_root=args.output_root, name=args.name, batch_size=args.batch_size,
         total_iters=args.total_iters, save_every_iters=args.save_every_iters,
@@ -139,20 +159,30 @@ def main(argv=None):
         accum_steps=args.accum_steps, zero1_opt_state=args.zero1,
         async_ckpt=not args.sync_ckpt,
     )
-    models = (small_models(args.device) if args.small and not args.ckpt_path
+    models = (small_models(mesh.device) if args.small and not args.ckpt_path
               else None)
     image_size = 16 if args.small else args.image_size  # small: f2 VAE, latent 8
+    # each rank loads its rows of the global batch: COCO's loader takes the
+    # rank's DistributedSampler slice of an epoch at batch_size / world;
+    # synthetic runs take their rows of the one seeded global batch, so
+    # they do not depend on the world size
+    rows = batch_rows(cfg.batch_size, mesh, cfg.accum_steps)
     if args.coco_root and not args.synthetic:
-        dataset = coco_layout_batches(args.coco_root, cfg.batch_size,
-                                      image_size, cfg.max_boxes)
+        dataset = coco_layout_batches(args.coco_root, len(rows), image_size,
+                                      cfg.max_boxes)
     else:
-        dataset = synthetic_layout_batches(cfg.batch_size, image_size,
-                                           cfg.max_boxes)
-    trainer = DiffusionTrainer(cfg, dataset, models=models, device=args.device)
+        dataset = (take_rows(b, rows) for b in synthetic_layout_batches(
+            cfg.batch_size, image_size, cfg.max_boxes))
     try:
-        trainer.train()
+        trainer = DiffusionTrainer(cfg, dataset, models=models,
+                                   device=mesh.device, mesh=mesh)
+        try:
+            trainer.train()
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -52,7 +52,8 @@ def make_mesh(num_devices: Optional[int] = None, backend: Optional[str] = None,
     """The group ``torchrun``'s environment describes, or a world of one.
 
     device: None is ``cuda:LOCAL_RANK``; "cpu" (or another device) is
-    taken as given. backend: None is NCCL for CUDA and gloo for the CPU.
+    taken as given. backend: None is the running group's, else NCCL for
+    CUDA and gloo for the CPU.
     num_devices, where given, must be the world size (each process holds
     one device). ``timeout`` bounds every collective of the group."""
     world = _env_int("WORLD_SIZE", 1)
@@ -64,6 +65,8 @@ def make_mesh(num_devices: Optional[int] = None, backend: Optional[str] = None,
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", local)
+    if backend is None and dist.is_initialized():
+        backend = dist.get_backend()
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
@@ -116,6 +119,39 @@ def row_block(n: int, mesh: Mesh) -> slice:
         raise ValueError(f"batch {n} must divide over {mesh.size} devices")
     per = n // mesh.size
     return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def batch_rows(n: int, mesh: Mesh, accum_steps: int = 1) -> np.ndarray:
+    """The rows of a global batch of ``n`` that this rank takes, in order:
+    its block of each of the ``accum_steps`` microbatches the global batch
+    splits into (the JAX step's reshape to (k, n / k, ...)), so that its
+    local microbatch i is its block of global microbatch i. ``n`` must
+    divide over world x accum_steps."""
+    if n % (mesh.size * accum_steps):
+        raise ValueError(f"batch {n} must divide over {mesh.size} devices x "
+                         f"{accum_steps} microbatches")
+    micro, per = n // accum_steps, n // accum_steps // mesh.size
+    return np.concatenate([np.arange(i * micro + mesh.rank * per,
+                                     i * micro + (mesh.rank + 1) * per)
+                           for i in range(accum_steps)])
+
+
+def take_rows(batch: dict, rows) -> dict:
+    """Rows ``rows`` of every leaf of a host batch (arrays and lists)."""
+    return {k: (v[rows] if isinstance(v, (np.ndarray, torch.Tensor))
+                else [v[i] for i in rows]) for k, v in batch.items()}
+
+
+def share(mesh: Mesh, obj=None):
+    """Rank 0's ``obj`` (any picklable host object) on every rank (the
+    others pass None)."""
+    if mesh.size == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(
+        box, src=0, group=mesh.group,
+        device=mesh.device if mesh.backend == "nccl" else None)
+    return box[0]
 
 
 def shard_batch(mesh: Mesh, batch):

@@ -22,18 +22,9 @@ from typing import Optional
 
 import torch.distributed as dist
 
+from ..parallel.mesh import share
+
 STOP = "stop"
-
-
-def share(mesh, obj=None):
-    """Rank 0's ``obj`` on every rank (the others pass None)."""
-    if mesh.size == 1:
-        return obj
-    box = [obj]
-    dist.broadcast_object_list(
-        box, src=0, group=mesh.group,
-        device=mesh.device if mesh.backend == "nccl" else None)
-    return box[0]
 
 
 def _generate(pipe, mesh, style: str, req: dict):

@@ -1,6 +1,6 @@
-"""Relation-aware diffusion trainer on one device
-(layoutllm_t2i_tpu/training/diffusion_trainer.py; the rebuild of
-trainer_combined_layout.py).
+"""Relation-aware diffusion trainer, on one device or data parallel over a
+``torch.distributed`` group (layoutllm_t2i_tpu/training/
+diffusion_trainer.py; the rebuild of trainer_combined_layout.py).
 
   * the model bundle is built from a seed at SD-1.4 geometry, or taken from
     the caller (a port ``GligenModels``; JAX trees cross over through
@@ -22,9 +22,19 @@ trainer_combined_layout.py).
 One ``torch.Generator`` seeded from ``TrainerConfig.seed`` draws the VAE
 posterior sample, the timestep, the noise, the grounding drop and the
 previews' noise; nothing reads the global RNG. A run can start from a
-reference GLIGEN ``.pth`` (``TrainerConfig.ckpt_path``). Not ported yet
-(raises NotImplementedError and names its ROADMAP.md item by title): more
-than one device and ZeRO-1 ("parallel/ for training").
+reference GLIGEN ``.pth`` (``TrainerConfig.ckpt_path``).
+
+Over a group of n processes, one device each (``parallel/mesh.py``; the JAX
+trainer's 1-D ``data`` mesh), ``batch_size`` stays the global batch and the
+dataset yields this rank's rows of it (``mesh.batch_rows``: its block of
+each microbatch). Every rank seeds its generator alike and draws each
+random tensor for the global batch, keeping its rows, so a run at world n
+makes world 1's update on the same global batch (``TrainStep``: the
+gradient all-reduce, ZeRO-1 with ``zero1_opt_state``). Rank 0 alone picks
+the run directory and the checkpoint to resume from and tells the others;
+it alone logs, writes metrics, renders previews and writes checkpoints,
+while every rank takes part in the state snapshot, which gathers ZeRO-1's
+blocks.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from ..device import DeviceLike
 from ..models.clip_text import clip_text_apply
 from ..models.vae import encode as vae_encode
 from ..ops.nn import nhwc_to_nchw
+from ..parallel.mesh import Mesh, batch_rows, make_mesh, share, sync_global_devices
 from ..pipeline.inference import (GligenModels, InferencePipeline,
                                   encode_texts_bucketed)
 from ..pipeline.loaders import load_models_from_gligen_ckpt, random_models
@@ -87,19 +98,26 @@ class TrainerConfig:
     ema_rate: float = 0.9999
     # gradient accumulation: batch_size is the EFFECTIVE batch
     accum_steps: int = 1
-    zero1_opt_state: bool = False     # not ported
+    # ZeRO-1: the Adam moments and the EMA split over the ranks along each
+    # leaf's zero1_dim (parallel/mesh.py); matters for 'all' fine-tunes
+    zero1_opt_state: bool = False
     # overlap checkpoint disk writes with training (checkpoint/async_io.py)
     async_ckpt: bool = True
-    num_devices: Optional[int] = None  # None or 1: one device
+    # None: the group's world size (one process a device); else it must be
+    num_devices: Optional[int] = None
 
 
-def check_supported(config: TrainerConfig) -> None:
-    """Raise on the options the port does not run yet."""
-    if config.num_devices not in (None, 1) or config.zero1_opt_state:
-        raise NotImplementedError(
-            "data-parallel training over more than one device and ZeRO-1 "
-            "are not ported (ROADMAP.md Queue 1, \"parallel/ for "
-            "training\")")
+class _Quiet:
+    """The log and the metrics of a rank other than 0, which writes none."""
+
+    def write(self, msg) -> None:
+        pass
+
+    def log(self, step: int, **scalars) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _prepare_models(models: GligenModels) -> GligenModels:
@@ -119,22 +137,29 @@ def _prepare_models(models: GligenModels) -> GligenModels:
 class DiffusionTrainer:
     def __init__(self, config: TrainerConfig, dataset,
                  models: Optional[GligenModels] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
         """dataset: iterator of host batches with keys image (B, H, W, 3) in
         [-1, 1], caption (list[str]), boxes (B, MO, 4) xyxy, masks (B, MO),
-        labels (list[list[str]]).
+        labels (list[list[str]]); B is this rank's share of the global
+        batch, its rows ``self.rows`` of it.
 
         models: a GligenModels bundle (its device is used), or None to load
         ``config.ckpt_path`` (a reference GLIGEN .pth) or, without one, to
         build random SD-1.4 weights from seed 0, on ``device`` (None: the
-        card)."""
-        check_supported(config)
-        if config.batch_size % config.accum_steps != 0:
-            raise ValueError(
-                f"batch_size {config.batch_size} must divide into "
-                f"accum_steps {config.accum_steps} microbatches")
+        card). mesh: the data-parallel group; None makes it
+        (``make_mesh``: torchrun's environment, else a world of one)."""
+        if mesh is None:
+            mesh = make_mesh(config.num_devices,
+                             device=models.device if models else device)
+        elif config.num_devices not in (None, mesh.size):
+            raise ValueError(f"num_devices={config.num_devices}: the group "
+                             f"has {mesh.size} processes")
+        self.mesh = mesh
+        self.rows = batch_rows(config.batch_size, mesh, config.accum_steps)
+        self.primary = mesh.rank == 0
         self.config = config
         self.dataset = dataset
+        device = mesh.device if device is None else device
         if models is None and config.ckpt_path:
             models = load_models_from_gligen_ckpt(
                 config.ckpt_path, device=device, dtype=torch.float32)
@@ -157,12 +182,21 @@ class DiffusionTrainer:
             accum_steps=config.accum_steps,
         )
         self.models = _prepare_models(models)
-        self.train_step = TrainStep(self.step_cfg, models.unet_params)
+        self.train_step = TrainStep(self.step_cfg, models.unet_params,
+                                    mesh=mesh,
+                                    zero1=config.zero1_opt_state)
 
-        self.run_dir, resume_ckpt = create_run_dir_with_auto_resume(
-            config.output_root, config.name)
-        self.logger = Logger(os.path.join(self.run_dir, "log.txt"))
-        self.metrics = MetricsWriter(os.path.join(self.run_dir, "metrics.jsonl"))
+        # rank 0 alone looks for a run to resume or makes a new tagNN: every
+        # rank doing so would let the others make a second one
+        self.run_dir, resume_ckpt = share(mesh, (
+            create_run_dir_with_auto_resume(config.output_root, config.name)
+            if self.primary else None))
+        if self.primary:
+            self.logger = Logger(os.path.join(self.run_dir, "log.txt"))
+            self.metrics = MetricsWriter(os.path.join(self.run_dir,
+                                                      "metrics.jsonl"))
+        else:
+            self.logger = self.metrics = _Quiet()
         self.ckpt_writer = AsyncWriter()
         self.starting_iter = 0
         if resume_ckpt is not None:
@@ -207,17 +241,34 @@ class DiffusionTrainer:
             dst[i, j] = e
         return pos, rel
 
+    def _global_draw(self, shape) -> torch.Tensor:
+        """Gaussian f32 noise for the global batch of ``shape[0]`` x world
+        rows, drawn alike on every rank, and this rank's rows of it."""
+        g = shape[0] * self.mesh.size
+        noise = torch.randn((g,) + tuple(shape[1:]), generator=self.generator,
+                            device=self.device, dtype=torch.float32)
+        return noise if self.mesh.size == 1 else noise[self.rows]
+
     @torch.no_grad()
     def prepare_batch(self, batch) -> dict:
         """Host batch -> device model inputs (get_input + grounding prepare,
-        trainer_combined_layout.py:371-410)."""
+        trainer_combined_layout.py:371-410). ``batch`` is this rank's rows
+        of the global batch; the posterior noise is the global batch's,
+        drawn on every rank, at those rows."""
         m = self.models
         dev = self.device
         ids = torch.from_numpy(m.tokenizer(batch["caption"]).astype(np.int64))
         images = torch.from_numpy(np.asarray(batch["image"], np.float32))
         images = nhwc_to_nchw(images.to(dev, torch.float32))
-        z = vae_encode(m.vae_params, m.vae_cfg, images,
-                       generator=self.generator, sample=True)
+        if self.mesh.size == 1:
+            z = vae_encode(m.vae_params, m.vae_cfg, images,
+                           generator=self.generator, sample=True)
+        else:
+            down = 2 ** (len(m.vae_cfg.ch_mult) - 1)
+            b, _, h, w = images.shape
+            z = vae_encode(m.vae_params, m.vae_cfg, images, sample=True,
+                           noise=self._global_draw(
+                               (b, m.vae_cfg.embed_dim, h // down, w // down)))
         context, _ = clip_text_apply(m.clip_params, m.clip_cfg, ids.to(dev))
         pos, rel = self._grounding_tensors(batch["caption"], batch["labels"])
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -235,7 +286,7 @@ class DiffusionTrainer:
             host_batch = next(it)
             batch = self.prepare_batch(host_batch)
             loss = self.train_step(batch, self.generator)
-            if iter_idx % cfg.log_every == 0:
+            if self.primary and iter_idx % cfg.log_every == 0:
                 loss_v = float(loss)  # the one host sync of a logged step
                 dt = time.time() - t_last
                 t_last = time.time()
@@ -250,6 +301,8 @@ class DiffusionTrainer:
         # join the in-flight checkpoint write (and surface its error)
         self.ckpt_writer.wait()
         self.logger.write("Training finished.")
+        # no rank leaves before rank 0's checkpoint is on disk
+        sync_global_devices()
 
     def close(self) -> None:
         self.ckpt_writer.wait()
@@ -297,10 +350,16 @@ class DiffusionTrainer:
         the bf16 copy the step already holds under mixed precision (only
         the small trainable tensors are cast here); no weight changes. The
         noise is one draw from the trainer's generator, (B, h, w, c) f32,
-        after the step's draws, as the JAX trainer splits its key for it."""
+        after the step's draws, as the JAX trainer splits its key for it:
+        the global batch's, on every rank (so the generators stay alike),
+        of which rank 0 renders its rows."""
         cfg = self.models.unet_cfg
         captions = list(host_batch["caption"])
         b = len(captions)
+        noise = self._global_draw((b, cfg.image_size, cfg.image_size,
+                                   cfg.in_channels))
+        if not self.primary:
+            return
         pipe = self._preview_pipeline()
         pipe.models.unet_params = self.train_step.compute_params()
         pos, rel = self._grounding_tensors(captions, host_batch["labels"])
@@ -311,9 +370,6 @@ class DiffusionTrainer:
                 "boxes": f32(host_batch["boxes"]),
                 "masks": f32(host_batch["masks"]),
                 "phrase_embeddings": f32(pos), "relations": f32(rel)}
-        noise = torch.randn((b, cfg.image_size, cfg.image_size,
-                             cfg.in_channels), generator=self.generator,
-                            device=self.device, dtype=torch.float32)
         imgs = pipe.sample_latents(cond, noise).cpu().numpy()
         pipe.models.unet_params = None
         out_path = os.path.join(self.run_dir, f"samples_{iter_name:08d}.png")
@@ -326,8 +382,11 @@ class DiffusionTrainer:
     # -- checkpoints ---------------------------------------------------------
 
     def save_ckpt(self, iter_name: int):
-        # synchronous part: the host snapshot of everything the write needs
+        # synchronous part: the host snapshot of everything the write needs,
+        # on every rank (it gathers ZeRO-1's blocks); rank 0 writes it
         payload = {"state": self.train_step.state_dict(), "iters": iter_name}
+        if not self.primary:
+            return
         cfg_dict = dataclasses.asdict(self.config)
         cfg_dict["unet_cfg"] = dataclasses.asdict(self.models.unet_cfg)
         cfg_dict["vae_cfg"] = dataclasses.asdict(self.models.vae_cfg)

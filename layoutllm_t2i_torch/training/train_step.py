@@ -23,6 +23,20 @@ The optimizer mirrors optax, not torch's defaults: ``optax.adamw(schedule,
 weight_decay)`` (b1 0.9, b2 0.999, eps 1e-8 outside the square root,
 decoupled decay) or ``optax.sgd(schedule)``, with the schedule evaluated at
 the update count before it is incremented.
+
+On a ``Mesh`` of more than one process (data parallel: the JAX trainer's
+1-D ``data`` mesh, batch sharded and the state replicated) each rank holds
+its rows of the global batch and the same masters. A rank makes the global
+(micro)batch's draws from a generator seeded as every other rank's and
+keeps its rows of them, so each row gets the draws it gets at world 1;
+after the microbatch loop the gradients and the loss are averaged over the
+ranks in one bucketed all-reduce, the all-reduce GSPMD inserts. Under
+ZeRO-1 (``zero1``) each trainable leaf's moments and EMA hold only this
+rank's block along ``zero1_dim`` (leaves without one stay whole): a rank
+updates its block of each master from the all-reduced gradient, and the
+blocks are all-gathered back into the whole masters. The update is
+elementwise, so ZeRO-1 makes plain data parallel's update bit for bit.
+World 1 runs no collective.
 """
 from __future__ import annotations
 
@@ -37,6 +51,8 @@ from ..diffusion.ddpm import q_sample
 from ..models.unet import UNetConfig, unet_apply
 from ..ops.nn import CL
 from ..ops.schedules import DDPMSchedule
+from ..parallel.collectives import all_gather_slices, all_reduce_mean_
+from ..parallel.mesh import Mesh, zero1_dim
 from ..utils.trees import ParamTree, unflatten_tree
 
 
@@ -155,20 +171,30 @@ class Optimizer:
 # loss
 
 
-def draw(cfg: TrainStepConfig, generator: torch.Generator, z: torch.Tensor):
+def draw(cfg: TrainStepConfig, generator: torch.Generator, z: torch.Tensor,
+         mesh: Optional[Mesh] = None):
     """(t, noise, keep) from ``generator``: t = floor(U * T) with T -> T-1
     (trainer_combined_layout.py:379-381), Gaussian f32 noise shaped like z,
-    and ONE grounding-drop draw for the whole batch (train_step.py:178)."""
+    and ONE grounding-drop draw for the whole batch (train_step.py:178).
+    On a ``mesh`` of n ranks, ``z`` is this rank's block of a global batch
+    of n blocks: t and the noise are drawn for the global batch and this
+    rank keeps its block's rows (every rank's generator is seeded alike, so
+    all agree on every draw and on the one keep)."""
     n_t = cfg.schedule.num_timesteps
     dev = z.device
-    u = torch.rand(z.shape[0], generator=generator, device=dev)
+    world = 1 if mesh is None else mesh.size
+    rows = z.shape[0]
+    u = torch.rand(rows * world, generator=generator, device=dev)
     t = (u * n_t).long()
     t = torch.where(t == n_t, n_t - 1, t)
-    noise = torch.randn(z.shape, generator=generator, device=dev,
-                        dtype=torch.float32).contiguous(memory_format=CL)
+    noise = torch.randn((rows * world,) + tuple(z.shape[1:]),
+                        generator=generator, device=dev, dtype=torch.float32)
     keep = (torch.rand((), generator=generator, device=dev)
             >= cfg.grounding_drop_prob).float()
-    return t, noise, keep
+    if world > 1:
+        blk = slice(mesh.rank * rows, (mesh.rank + 1) * rows)
+        t, noise = t[blk], noise[blk]
+    return t, noise.contiguous(memory_format=CL), keep
 
 
 def loss_from_draws(cfg: TrainStepConfig, params, batch: dict,
@@ -201,17 +227,32 @@ def loss_from_draws(cfg: TrainStepConfig, params, batch: dict,
 
 class TrainStep:
     """One optimizer update per call over the trainable subset of ``unet``
-    (make_partitioned_train_step). ``unet`` holds the f32 master weights."""
+    (make_partitioned_train_step). ``unet`` holds the f32 master weights.
 
-    def __init__(self, cfg: TrainStepConfig, unet: ParamTree):
+    mesh: the data-parallel group (None: one process); each call's batch
+    is then this rank's rows of the global batch (``mesh.batch_rows``).
+    zero1: the moments and the EMA hold this rank's ``zero1_dim`` block of
+    each leaf (the JAX trainer's ``zero1_sharding`` of them)."""
+
+    def __init__(self, cfg: TrainStepConfig, unet: ParamTree,
+                 mesh: Optional[Mesh] = None, zero1: bool = False):
         self.cfg = cfg
         if cfg.accum_steps < 1:
             raise ValueError(f"accum_steps {cfg.accum_steps} must be >= 1")
         self.unet = unet
         self.params = unet.set_trainable(TRAINABLE_MODES[cfg.trainable_mode])
-        self.optimizer = Optimizer(cfg, list(self.params.values()))
+        # None: a world of one, made without a group
+        self.mesh = mesh or Mesh(0, 1, next(iter(self.params.values())).device)
+        # the dimension each leaf's optimizer state is split along, or None
+        self.zero1_dims = [zero1_dim(tuple(p.shape), self.mesh.size) if zero1 else None
+                           for p in self.params.values()]
+        # this rank's blocks of the masters, which the optimizer updates: a
+        # view of the master where it is contiguous, else a copy that the
+        # all-gather after each update writes back
+        self._blocks = self._own(self.params.values(), dense=True)
+        self.optimizer = Optimizer(cfg, self._blocks)
         self.ema: Optional[Dict[str, torch.Tensor]] = (
-            {n: p.detach().clone() for n, p in self.params.items()}
+            {n: b.detach().clone() for n, b in zip(self.params, self._blocks)}
             if cfg.ema_rate is not None else None)
         self.step = 0
         dt = cfg.compute_dtype
@@ -219,6 +260,33 @@ class TrainStep:
         # .to() of the same type returns it)
         self._frozen = {n: p.detach().to(dt) for n, p in unet.named_parameters()
                         if n not in self.params}
+
+    def _own(self, tensors, dense: bool = False) -> List[torch.Tensor]:
+        """This rank's block of each trainable leaf (or of a tensor of its
+        shape) along its ZeRO-1 dim; the whole tensor where there is none.
+        ``dense``: each block contiguous (a copy where the view is not), so
+        that the optimizer's foreach ops take the same fused kernels on the
+        blocks as on whole leaves, which keeps ZeRO-1 bit-equal on the
+        card."""
+        out = []
+        for t, d in zip(tensors, self.zero1_dims):
+            if d is not None:
+                per = t.shape[d] // self.mesh.size
+                t = t.detach().narrow(d, self.mesh.rank * per, per)
+                if dense:
+                    t = t.contiguous()
+            out.append(t)
+        return out
+
+    def _whole_on_host(self, blocks) -> List[torch.Tensor]:
+        """Host copies of whole leaves from every rank's ``blocks``, which
+        hold state of the trainable leaves' shapes (collective under
+        ZeRO-1: every rank calls it)."""
+        outs = [torch.empty(p.shape, dtype=b.dtype)
+                for p, b in zip(self.params.values(), blocks)]
+        all_gather_slices(self.mesh, [b.detach() for b in blocks], outs,
+                          self.zero1_dims)
+        return outs
 
     def compute_params(self):
         """The UNet tree in the compute dtype; the trainable leaves are cast
@@ -236,8 +304,9 @@ class TrainStep:
         return loss.detach(), grads
 
     def __call__(self, batch: dict, generator: torch.Generator) -> torch.Tensor:
-        """Draw, backpropagate over ``accum_steps`` microbatches, update.
-        Returns the mean loss as a 0-d device tensor (no host sync)."""
+        """Draw, backpropagate over ``accum_steps`` microbatches, average
+        the gradients and the loss over the ranks, update. Returns the mean
+        loss as a 0-d device tensor (no host sync)."""
         k = self.cfg.accum_steps
         b = batch["z"].shape[0]
         if b % k:
@@ -245,7 +314,8 @@ class TrainStep:
         loss_sum, grad_sum = 0.0, None
         for i in range(k):
             mb = {key: v[i * b // k:(i + 1) * b // k] for key, v in batch.items()}
-            loss, grads = self.grads(mb, *draw(self.cfg, generator, mb["z"]))
+            loss, grads = self.grads(mb, *draw(self.cfg, generator, mb["z"],
+                                               self.mesh))
             loss_sum = loss_sum + loss.detach()
             if grad_sum is None:
                 grad_sum = list(grads)
@@ -253,41 +323,62 @@ class TrainStep:
                 torch._foreach_add_(grad_sum, grads)
         if k > 1:
             torch._foreach_div_(grad_sum, float(k))
-        params = list(self.params.values())
-        self.optimizer.update(params, grad_sum)
+        loss = loss_sum / k
+        all_reduce_mean_(self.mesh, grad_sum + [loss])
+        self.update(grad_sum)
+        return loss
+
+    def update(self, grads: List[torch.Tensor]) -> None:
+        """One optimizer and EMA update from the global batch's gradients
+        (the same on every rank): this rank's blocks under ZeRO-1, then the
+        blocks all-gathered into the whole masters."""
+        params = self._blocks
+        self.optimizer.update(params, self._own(grads, dense=True))
+        if self.mesh.size > 1 and any(d is not None for d in self.zero1_dims):
+            all_gather_slices(self.mesh, params, list(self.params.values()),
+                              self.zero1_dims)
         if self.ema is not None:
             with torch.no_grad():
                 ema = list(self.ema.values())
                 torch._foreach_mul_(ema, self.cfg.ema_rate)
                 torch._foreach_add_(ema, params, alpha=1.0 - self.cfg.ema_rate)
         self.step += 1
-        return loss_sum / k
 
     # -- checkpoint state: the trainable params, optimizer, step, EMA -------
 
     def state_dict(self) -> dict:
         """A host copy (taken now: the next update changes the tensors in
-        place)."""
+        place) in the one-process format: the whole moments and EMA, every
+        rank's blocks gathered under ZeRO-1 (collective: every rank calls
+        it)."""
         host = lambda ts: [t.detach().to("cpu", copy=True) for t in ts]
         opt = self.optimizer.state_dict()
         return {
             "params": dict(zip(self.params, host(self.params.values()))),
-            "opt": {"count": opt["count"], "mu": host(opt["mu"]),
-                    "nu": host(opt["nu"])},
+            "opt": {"count": opt["count"],
+                    "mu": self._whole_on_host(opt["mu"]) if opt["mu"] else [],
+                    "nu": self._whole_on_host(opt["nu"]) if opt["nu"] else []},
             "step": self.step,
-            "ema": (None if self.ema is None else
-                    dict(zip(self.ema, host(self.ema.values())))),
+            "ema": (None if self.ema is None else dict(zip(
+                self.ema, self._whole_on_host(list(self.ema.values()))))),
         }
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
+        """From ``state_dict``'s format, whatever world wrote it: this rank
+        takes its blocks of the moments and the EMA."""
         for name, p in self.params.items():
             p.copy_(state["params"][name])
-        self.optimizer.load_state_dict(state["opt"])
+        self._blocks = self._own(self.params.values(), dense=True)
+        opt = state["opt"]
+        self.optimizer.load_state_dict(
+            {"count": opt["count"], "mu": self._own(opt["mu"]),
+             "nu": self._own(opt["nu"])})
         self.step = int(state["step"])
         if self.ema is not None:
             # an EMA newly enabled against a pre-EMA checkpoint starts from
             # the restored params
             src = state["ema"] if state["ema"] is not None else state["params"]
-            for name, e in self.ema.items():
-                e.copy_(src[name])
+            for e, s in zip(self.ema.values(),
+                            self._own([src[n] for n in self.ema])):
+                e.copy_(s)

@@ -246,7 +246,8 @@ def test_three_updates_match_optax(rng, optimizer, weight_decay):
 
 
 def _trainer_cfg(tmp_path, **kw):
-    return TrainerConfig(output_root=str(tmp_path), name="t", batch_size=2,
+    kw = {"name": "t", **kw}
+    return TrainerConfig(output_root=str(tmp_path), batch_size=2,
                          total_iters=3, save_every_iters=2, log_every=1,
                          warmup_steps=1, max_boxes=30, max_relations=5, **kw)
 
@@ -287,10 +288,39 @@ def test_trainer_runs_resumes_and_trains_only_rela_fuse(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    for kw in (dict(num_devices=2), dict(zero1_opt_state=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            DiffusionTrainer(_trainer_cfg(tmp_path, **kw), iter(()),
-                             models=_port_models())
+    """num_devices=2 outside a group of two raises make_mesh's ValueError;
+    ZeRO-1 at world 1 (each leaf's block is the whole leaf) trains exactly
+    as without it, moments and EMA included."""
+    with pytest.raises(ValueError, match="num_devices=2: this group has 1"):
+        DiffusionTrainer(_trainer_cfg(tmp_path, num_devices=2), iter(()),
+                         models=_port_models())
+    runs = {}
+    for zero1 in (False, True):
+        cfg = _trainer_cfg(tmp_path, name=f"z{int(zero1)}", enable_ema=True,
+                           ema_rate=0.5, zero1_opt_state=zero1)
+        tr = DiffusionTrainer(cfg, synthetic_layout_batches(
+            cfg.batch_size, image_size=16, max_boxes=30), models=_port_models())
+        tr.train()
+        tr.close()
+        runs[zero1] = tr.train_step.state_dict()
+    assert any(d is not None for d in tr.train_step.zero1_dims)
+    assert_same_state(runs[False], runs[True])
+
+
+def assert_same_state(a, b):
+    """Two TrainStep.state_dict()s equal bit for bit."""
+    if isinstance(a, dict):
+        assert list(a) == list(b)
+        for k in a:
+            assert_same_state(a[k], b[k])
+    elif isinstance(a, list):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert_same_state(x, y)
+    elif isinstance(a, torch.Tensor):
+        assert a.shape == b.shape and torch.equal(a, b)
+    else:
+        assert a == b
 
 
 def test_export_matches_the_jax_exporter(tmp_path):
@@ -326,9 +356,14 @@ def test_cli_small_drive_and_refusals(tmp_path):
     run = tmp_path / "cli" / "tag00"
     assert (run / "checkpoint_00000003" / "state.pt").exists()
     assert (run / "checkpoint_00000003.pth").exists()
-    for extra in (["--multihost"], ["--zero1"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main(argv + extra)
+    # --multihost asks for torchrun's environment, and names what is missing
+    for key in ("WORLD_SIZE", "RANK"):
+        assert key not in os.environ
+    with pytest.raises(RuntimeError, match="WORLD_SIZE, RANK not set"):
+        cli.main(argv + ["--multihost"])
+    # --zero1 runs (at world 1 its blocks are the whole leaves)
+    cli.main([a if a != "cli" else "z1" for a in argv] + ["--zero1"])
+    assert (tmp_path / "z1" / "tag00" / "checkpoint_00000003" / "state.pt").exists()
 
 
 def test_hash_tokenizer_small_vocab_stays_in_range():

@@ -186,7 +186,7 @@ def test_f32_trainer_iteration_matches_the_jax_trainer(tmp_path, posterior_mean,
 
     # the iteration itself: the trainer's step on the same draws, and its
     # AdamW update against optax's from the same gradients
-    monkeypatch.setattr(pts, "draw", lambda cfg, gen, z: draws)
+    monkeypatch.setattr(pts, "draw", lambda cfg, gen, z, mesh=None: draws)
     before = {n: p.detach().clone() for n, p in step.params.items()}
     got_loss = step(pb, ptr.generator)
     np.testing.assert_allclose(float(got_loss), float(loss), rtol=1e-6)

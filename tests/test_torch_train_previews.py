@@ -11,9 +11,10 @@ tiny training geometry.
   ``real_<iter>.png`` are written and decode to grids of 16² tiles.
 * Mixed precision: the preview pipeline computes in bf16 (the frozen VAE
   decodes from a bf16 copy made once, the text encoder stays the trainer's
-  f32 module), one pipeline a run, no UNet tensor changes, and ``check_supported`` accepts previews:
-  ``train()`` writes them at its saves; ``cli/train_diffusion.py
-  --enable_previews`` too.
+  f32 module), one pipeline a run, no UNet tensor changes; ``train()``
+  writes them at its saves; ``cli/train_diffusion.py --enable_previews``
+  too. A world that does not match ``num_devices`` raises before any
+  preview.
 """
 import numpy as np
 import jax
@@ -139,9 +140,12 @@ def test_mixed_precision_previews_change_no_weight(tmp_path):
 
 
 def test_check_supported_accepts_previews_and_cli_writes_them(tmp_path):
-    pdt.check_supported(pdt.TrainerConfig(disable_inference_in_training=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pdt.check_supported(pdt.TrainerConfig(num_devices=2))
+    assert not hasattr(pdt, "check_supported")
+    with pytest.raises(ValueError, match="num_devices=2"):
+        pdt.DiffusionTrainer(pdt.TrainerConfig(
+            output_root=str(tmp_path), num_devices=2,
+            disable_inference_in_training=False), iter(()),
+            models=cli.small_models("cpu"))
     cli.main(["--small", "--synthetic", "--device", "cpu", "--batch_size", "2",
               "--total_iters", "2", "--save_every_iters", "5",
               "--warmup_steps", "1", "--output_root", str(tmp_path),

@@ -22,6 +22,13 @@ Jobs:
          one process; generate_sharded against generate (PLMS, per-request
          seeds, DDIM at eta 0.5); bench --sharded, nss1k --sharded and
          txt2img's sharded sweep, each run through its main().
+  train  data-parallel training on the tiny training bundle: the
+         all-reduced rela_fuse gradients at given draws; ZeRO-1 AdamW
+         updates of odd-shaped leaves; DiffusionTrainer runs (plain DP,
+         ZeRO-1 'all' beside DP 'all', ZeRO-1 with accum_steps 2, a planted
+         per-rank noise draw, resumes across world sizes); prepare_batch
+         on a rank's rows; the global draws' rows; which rank saved; the
+         training CLI with --zero1 --multihost.
 """
 from __future__ import annotations
 
@@ -219,7 +226,204 @@ def job_paths(mesh, dirname: str) -> dict:
     return out
 
 
-JOBS = {"jax": job_jax, "paths": job_paths}
+# the trainer runs of job train (tests/test_torch_parallel_train.py makes
+# its world-1 references with the same settings)
+TRAIN = dict(batch_size=4, total_iters=3, save_every_iters=100, log_every=1,
+             warmup_steps=1, max_boxes=30, max_relations=5, seed=7)
+TRAIN_SIDE = 16        # the tiny VAE's image side (latent 8)
+
+
+def stable_tokenizer():
+    """The tiny bundle's HashTokenizer with crc32 in place of Python's
+    salted ``hash``, so that every process of a test gives the same ids."""
+    import zlib
+
+    from layoutllm_t2i_torch.models import clip_tokenizer as ct
+
+    class StableTokenizer(ct.HashTokenizer):
+        def __call__(self, texts, max_length=None, pad=True):
+            if isinstance(texts, str):
+                texts = [texts]
+            max_length = max_length or self.max_length
+            out = np.full((len(texts), max_length), self.eot, dtype=np.int32)
+            for i, t in enumerate(texts):
+                words = ct.whitespace_clean(ct.basic_clean(t)).lower().split()
+                ids = [1000 + zlib.crc32(w.encode()) % 39000 for w in words]
+                ids = [self.sot] + ids[: max_length - 2] + [self.eot]
+                out[i, : len(ids)] = ids
+            return out
+
+    return StableTokenizer(max_length=8, vocab_size=512)
+
+
+def train_models(dirname: str):
+    """The tiny training bundle holding DIR/train_weights.pt's weights."""
+    from layoutllm_t2i_torch.cli.train_diffusion import small_models
+
+    pm = small_models("cpu")
+    for name, sd in torch.load(os.path.join(dirname,
+                                            "train_weights.pt")).items():
+        getattr(pm, name).load_state_dict(sd)
+    pm.tokenizer = stable_tokenizer()
+    return pm
+
+
+def rank_batches(batch_size: int, rows):
+    """Rows ``rows`` of each of the seeded synthetic global batches."""
+    from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
+    from layoutllm_t2i_torch.parallel.mesh import take_rows
+
+    return (take_rows(b, rows) for b in synthetic_layout_batches(
+        batch_size, TRAIN_SIDE, TRAIN["max_boxes"]))
+
+
+def trained(tr) -> dict:
+    return {n: p.detach().clone() for n, p in tr.train_step.params.items()}
+
+
+def next_step(tr) -> dict:
+    """The step a run resumed from ``tr``'s last checkpoint takes next: the
+    generator seeded anew and the data from its first batch."""
+    tr.generator.manual_seed(tr.config.seed)
+    batch = next(rank_batches(tr.config.batch_size, tr.rows))
+    tr.train_step(tr.prepare_batch(batch), tr.generator)
+    return trained(tr)
+
+
+def job_train(mesh, dirname: str) -> dict:
+    from layoutllm_t2i_torch.cli import train_diffusion as cli
+    from layoutllm_t2i_torch.parallel.collectives import (all_gather,
+                                                          all_reduce_mean_)
+    from layoutllm_t2i_torch.parallel.mesh import batch_rows, take_rows
+    from layoutllm_t2i_torch.training import diffusion_trainer as dt
+    from layoutllm_t2i_torch.training import train_step as ts
+    from layoutllm_t2i_torch.utils.trees import ParamTree
+
+    inp = torch.load(os.path.join(dirname, "train_inputs.pt"),
+                     weights_only=False)   # the host batch's arrays and lists
+    out = {}
+    saves = []
+    real_save = dt.save_checkpoint
+    dt.save_checkpoint = lambda *a, **kw: saves.append(a[0]) or real_save(*a, **kw)
+
+    def run(name, root="runs", **kw):
+        cfg = dt.TrainerConfig(output_root=os.path.join(dirname, root),
+                               name=name, **{**TRAIN, **kw})
+        rows = batch_rows(cfg.batch_size, mesh, cfg.accum_steps)
+        tr = dt.DiffusionTrainer(cfg, rank_batches(cfg.batch_size, rows),
+                                 models=train_models(dirname), mesh=mesh)
+        tr.train()
+        tr.close()
+        return tr
+
+    # the all-reduced gradients of the global batch at given draws
+    m = train_models(dirname)
+    g = inp["grads"]
+    step = ts.TrainStep(ts.TrainStepConfig(unet_cfg=m.unet_cfg,
+                                           schedule=m.schedule),
+                        m.unet_params, mesh=mesh)
+    rows = batch_rows(g["t"].shape[0], mesh)
+    loss, grads = step.grads({k: v[rows] for k, v in g["batch"].items()},
+                             g["t"][rows], g["noise"][rows], g["keep"])
+    reduced = list(grads) + [loss]
+    all_reduce_mean_(mesh, reduced)
+    out["grads"] = dict(zip(step.params, reduced[:-1]))
+    out["loss"] = reduced[-1]
+
+    # ZeRO-1 AdamW updates of odd-shaped leaves, from given gradients
+    o = inp["opt"]
+    step = ts.TrainStep(ts.TrainStepConfig(unet_cfg=None, schedule=None,
+                                           trainable_mode="all", **o["cfg"]),
+                        ParamTree({k: v.clone() for k, v in o["params"].items()}),
+                        mesh=mesh, zero1=True)
+    for grads in o["grads"]:
+        step.update([grads[n] for n in step.params])
+    out["opt_params"] = {n: p.detach().clone() for n, p in step.params.items()}
+    out["opt_state"] = step.state_dict()
+
+    # plain DP: rela_fuse, AdamW, 3 steps
+    tr = run("dp")
+    out["dp"] = trained(tr)
+    out["run_dir_dp"] = tr.run_dir
+    out["logger_by_rank"] = all_gather_objects(mesh, type(tr.logger).__name__)
+
+    # ZeRO-1 'all' beside DP 'all', both with an EMA
+    kw = dict(trainable_mode="all", enable_ema=True, ema_rate=0.9)
+    dp_all, z1_all = run("all_dp", **kw), run("all_z1", zero1_opt_state=True, **kw)
+    a, b = dp_all.train_step, z1_all.train_step
+    # the masters whole, and ZeRO-1's blocks of the moments and the EMA
+    # against the same blocks of DP's whole ones
+    pairs = list(zip(a.params.values(), b.params.values()))
+    for whole, block in ((a.optimizer.mu, b.optimizer.mu),
+                         (a.optimizer.nu, b.optimizer.nu),
+                         (list(a.ema.values()), list(b.ema.values()))):
+        pairs += zip(b._own(whole), block)
+    same = all(x.shape == y.shape and torch.equal(x, y) for x, y in pairs)
+    out["z1_same_by_rank"] = all_gather_objects(mesh, same)
+    out["z1_blocks"] = all_gather_objects(mesh, {
+        n: (tuple(p.shape), tuple(mu.shape), tuple(e.shape), d)
+        for (n, p), mu, e, d in zip(b.params.items(), b.optimizer.mu,
+                                    b.ema.values(), b.zero1_dims)})
+    out["z1_state"], out["dp_state"] = b.state_dict(), a.state_dict()
+    del dp_all, z1_all, a, b
+
+    # ZeRO-1 with two microbatches a step
+    for mode in ("rela_fuse", "all"):
+        out[f"z1_accum_{mode}"] = trained(run(
+            f"z1_accum_{mode}", accum_steps=2, zero1_opt_state=True,
+            trainable_mode=mode))
+
+    # the draws: the global batch's, each rank its rows
+    z = torch.zeros(2, 4, 8, 8)
+    t, noise, keep = ts.draw(ts.TrainStepConfig(unet_cfg=None,
+                                                schedule=m.schedule),
+                             torch.Generator().manual_seed(11), z, mesh)
+    out["draw"] = {"t": all_gather(mesh, t), "noise": all_gather(mesh, noise),
+                   "keep": all_gather_objects(mesh, float(keep))}
+    # planted: every rank draws for its own rows alone
+    real_draw = ts.draw
+    ts.draw = lambda cfg, gen, z, mesh=None: real_draw(cfg, gen, z)
+    try:
+        out["planted"] = trained(run("planted"))
+    finally:
+        ts.draw = real_draw
+
+    # prepare_batch on this rank's rows
+    tr = dt.DiffusionTrainer(dt.TrainerConfig(
+        output_root=os.path.join(dirname, "runs"), name="prep", **TRAIN),
+        iter(()), models=train_models(dirname), mesh=mesh)
+    tr.generator.manual_seed(5)
+    pb = tr.prepare_batch(take_rows(inp["prep_batch"], tr.rows))
+    out["prep"] = {k: all_gather(mesh, v) for k, v in pb.items()}
+    tr.close()
+
+    # checkpoints across world sizes: saved here (ZeRO-1, 2 steps) for a
+    # world-1 resume, and resumed here from the test's world-1 checkpoint
+    ckpt = dict(zero1_opt_state=True, enable_ema=True, ema_rate=0.9)
+    tr = run("a", root="ckpt_w2", total_iters=2, **ckpt)
+    out["a_next"] = next_step(tr)
+    tr = run("b", root="ckpt_w1", **ckpt)
+    out["b_start"], out["b_resumed"] = tr.starting_iter, trained(tr)
+
+    # the training CLI at world 2
+    cli.main(["--small", "--synthetic", "--device", "cpu", "--backend",
+              "gloo", "--zero1", "--multihost", "--batch_size", "4",
+              "--total_iters", "2", "--save_every_iters", "5",
+              "--warmup_steps", "1", "--sync_ckpt", "--output_root",
+              os.path.join(dirname, "cli"), "--name", "cli"])
+    dt.save_checkpoint = real_save
+    out["saves_by_rank"] = all_gather_objects(mesh, len(saves))
+    return out
+
+
+def all_gather_objects(mesh, value) -> list:
+    """Every rank's ``value``, in rank order."""
+    box = [None] * mesh.size
+    torch.distributed.all_gather_object(box, value, group=mesh.group)
+    return box
+
+
+JOBS = {"jax": job_jax, "paths": job_paths, "train": job_train}
 
 
 def main(argv) -> int:
