@@ -8,8 +8,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                prints build seconds, ptxas lines and the card's name and
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
                in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel and
-               in the TF32 wgmma kernels of K1/f32 (d 40 and 80; d 512),
-               K5a/f32 and K5b/f32 (d 40 and 80), K4/f32 (K6/f32 runs
+               in the TF32 wgmma kernels of K1/f32 (widths 40-160; 512),
+               K5a/f32 and K5b/f32 (widths 40-160), K4/f32 (K6/f32 runs
                K4/f32's), K7/f32 (int8 B tiles converted in shared
                memory), K8a/f32 and K8b/f32 (WGMMA_KERNELS; K4's and
                K7's LN pre-passes and the f32 flash split pre-pass,
@@ -155,19 +155,31 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                unet_evaluations(..., inpaint=True)), the exact run's final
                latent within INPAINT_KEPT_TOL of z0 (mean |d|) over the
                kept region while the painted region, a planted inverted
-               mask, exceeds it; then an inpaint_mode UNet (9 input
+               mask, exceeds it; then an inpaint_mode UNet (PLMS-10; 9 input
                channels: the latent, z0 * mask, the mask) on one exact
                generation, both routes.
   8b. modalities  random_models(seed 0) at full width in bf16, adapted by
                adapt_models_for_modality, gated alphas 0.5, alpha
-               (1, 0, 0): canny (ConvNeXt-tiny at 448^2 in f32, the
-               downsampler's 8 channels; PLMS-50) and, at PLMS-10 (a depth
+               (1, 0, 0), each at PLMS-10 (a depth cut): canny
+               (ConvNeXt-tiny at 448^2 in f32, the downsampler's 8
+               channels) and, at PLMS-10 (a depth
                cut), keypoint (2 persons), text_image (the ViT-L/14 vision
                tower in f32 on one reference PNG, a 2-box layout), a
                gatedSA2 UNet on canny, a gatedCA UNet on canny and on
                keypoint: each run's images through the kernels against
                plain_route()'s (PSNR >= 35 dB), K1-K4 launched, and the
                gatedCA runs' K1 at M = 196 and M = 136.
+  8c. hires    the seed-0 weights at SD-1.4's 768^2 (UNetConfig(image_size=
+               96): 96^2 latents; GEOMETRY), REQUESTS at CFG 7.5: exact
+               PLMS-50 in bf16 and PLMS-10 (a depth cut) on the f32
+               bundle, each through the kernels and again under
+               plain_route() from the same noise: PSNR >= 35 dB, K1-K4 (or
+               their f32 forms) launched, K1's launches the walk's in all
+               and site by site at d 160 (N 576, M 576; the gated 606) and
+               at the VAE's d 512 (N 9216).
+  8d. heads5   the same weights with num_heads 5 at 512^2, PLMS-10 in bf16
+               and in f32: the same gates, K1's launches at d 64 and 128
+               the walk's site by site.
   9. bench     the port bench (cli/bench.py) as run with no flags, in this
                process: random weights from seed 0, bf16, 8 requests (CFG
                batch 16), iters 3, exact PLMS-50 then the fast preset on the
@@ -260,6 +272,14 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                and one thread's decode s a batch. Then phase kernels' third
                pass: the walk's shapes that the passes before did not hold
                (the grounding texts' encoder batches).
+ 13c. train-hires  cli/train_diffusion.py main --synthetic --image_size
+               768 at batch 8, 2 steps, --mixed_precision and again in f32
+               (the UNet at 96^2 latents): finite losses, K1's, K5a's and
+               K5b's launches (bf16 and f32) the walk's a step; then phase
+               12's check at 96^2 latents and with num_heads 5, bf16 and
+               f32 (train-grad-hires[-f32], train-grad-heads5[-f32]): the
+               planted dK fault must exceed the bound, K5's launches at
+               d 40/80/160 or 64/128 the walk's site by site.
  14. train-grad-f32  phase 12 with mixed_precision=False: every operand
                f32, the kernels' f32 forms, bound TRAIN_GRAD_F32_REL_TOL.
  15. train-f32 phase 13 with TrainerConfig()'s precision, f32 throughout
@@ -293,14 +313,17 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
      `device_vs_library` are the ratios of those sums; `launches` adds
-     the runs of phases 1a (every rank's), 4, 5, 7-8b, 9-11, 11b (its two
-     runs), 13 (its steps and its preview), 13b, 15, 16, 17 and 18 (its
-     training), each read from counts set to 0 just before it (K2's entry
+     the runs of phases 1a (every rank's), 4, 5, 7-8d, 9-11, 11b (its two
+     runs), 13 (its steps and its preview), 13b, 13c (its CLI runs and its
+     kernel-route backwards), 15, 16, 17 and 18 (its training), each
+     read from counts set to 0 just before it (K2's entry
      adds `split`: its split rows' sums and the split pair's launches);
      each f32 form
      has an entry of its own ("K1/f32 flash_attention", ...), its rows'
      sums, its f32 launches and its `arith`, and the bf16 entries count
-     bf16 launches only. K5a's and K5b's
+     bf16 launches only. K1's and K5's entries add `by_width`: their
+     rows' sums by the width of the instantiation each head dim runs on
+     (kernels/flash_attention.py kernel_width). K5a's and K5b's
      entries carry the pair's sums (`pair`: ms, device_ms, library_ms and
      library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
      vs_library, device_vs_library, and the largest shape's vs_library).
@@ -310,8 +333,11 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      (unet_calls), each shape weighted by its calls.
 
 Phase 2's shapes are walked from the model configs (generation_calls,
-training_calls), and the bf16 head dims 48, 72 and 504 of K1 and 48 and
-72 of K5 that no model routes to them (HEAD_DIM_CALLS): the generation at
+training_calls), and the head dims that no model here routes to them
+(HEAD_DIM_CALLS: bf16 48, 72 and 504; d 20, 96, 144 and 256 in both
+types), the generation and a batch-8 training step at 768^2 and with
+num_heads 5 (phases hires, heads5 and train-hires), bf16 and f32; the
+generation at
 2 requests (CFG batch 4) on each of
 its three routes (Route: the default, int8, and the split FF routes), the
 fast preset's evaluations from its step tables (unet_evaluations: CFG at
@@ -356,6 +382,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -408,7 +435,7 @@ TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 
 # library -> its kernels written on csrc/hopper.cuh's wgmma: K1, K5a, K5b;
 # K4's, K6's and K7's up and down GEMMs, K8a and K8b on csrc/gemm_tiles.cuh;
-# the f32 forms' TF32 wgmma kernels, K1/f32 at d 40 and 80 (S with Q and K
+# the f32 forms' TF32 wgmma kernels, K1/f32 at widths up to 160 (S with Q and K
 # by descriptor, P V with P as register A) and at d 512, K5a/f32 and
 # K5b/f32 (the scores by descriptor, P and dS as register A), K4/f32's (and
 # K6/f32's) and K7/f32's up and down GEMMs, K8a/f32 and K8b/f32
@@ -526,8 +553,14 @@ def route_env(route: Route):
                 os.environ[k] = v
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with ``t_s``: seconds since the script started (the
+    phases' place in the run's time limit)."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 class SmokeFailure(Exception):
@@ -858,11 +891,15 @@ def training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len, batch, max_boxes,
     encode, CLIP on the captions, then every phrase and relation text in
     one power-of-two batch), always in f32 as the JAX trainer encodes, and
     the UNet forward of the loss on ``route``, in f32 with ``f32`` (the
-    trainer's default precision), else in bf16 (mixed precision)."""
+    trainer's default precision), else in bf16 (mixed precision), at the
+    latent size the VAE gives the batch's images (96^2 at 768^2, whatever
+    the UNet config's image_size, which only sampling reads)."""
     from layoutllm_t2i_torch.pipeline.scene_graph import relation_texts_for_training
     from layoutllm_t2i_torch.utils.buckets import pow2_bucket
 
     b, side = len(batch["caption"]), batch["image"].shape[1]
+    unet_cfg = dataclasses.replace(
+        unet_cfg, image_size=side // 2 ** (len(vae_cfg.ch_mult) - 1))
     n_texts = (sum(min(len(labels), max_boxes) for labels in batch["labels"])
                + sum(len(relation_texts_for_training(c, max_relations))
                      for c in batch["caption"]))
@@ -946,7 +983,8 @@ def make_case(kid, args, dev, gen):
         flops = 4.0 * b * h * n * m * d
         nbytes = item * (2 * b * n * h * d + 2 * b * m * h * d)
         return (lambda: K.flash_attention(q, k, v, h, sc),
-                lambda: K.flash_attention_plain(q, k, v, h, sc), lib, flops, nbytes)
+                per_batch(lambda *t: K.flash_attention_plain(*t, h, sc),
+                          (q, k, v), b * h * n * m), lib, flops, nbytes)
     if kid == "K2" and split_world(args):
         return make_split_case(args, rnd, item)
     if kid == "K2":
@@ -1092,6 +1130,28 @@ def make_gemm_case(kid, args, rnd, item=2):
             lib, 4.0 * m * k * n, item * (m * k + 2 * n * k + m * n + 2 * n))
 
 
+# a plain attention version whose f32 score tensors (B H N M values) pass
+# this runs a batch element at a time: at the 768^2 training sites (8 x 8 x
+# 9246^2 scores) one would take 22 GB, and the plain backward holds four
+PLAIN_CHUNK_SCORES = 2 ** 30
+
+
+def per_batch(plain, tensors, scores: int):
+    """``plain(*tensors)``, or, past PLAIN_CHUNK_SCORES ``scores``, the
+    same function on each batch element's slice of every tensor (dim 0),
+    its outputs concatenated: the same values, less memory at once."""
+    if scores <= PLAIN_CHUNK_SCORES:
+        return lambda: plain(*tensors)
+
+    def run():
+        outs = [plain(*(t[i:i + 1] for t in tensors))
+                for i in range(tensors[0].shape[0])]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        return torch.cat(outs)
+    return run
+
+
 def make_lse_case(args, dev, rnd, item=2):
     """K1 as the training forward runs it: (out, lse) through the kernel's
     lse output, against the plain forward's (out, lse); operands of
@@ -1108,8 +1168,8 @@ def make_lse_case(args, dev, rnd, item=2):
     flops = 4.0 * b * h * n * m * d
     nbytes = item * (2 * b * n * h * d + 2 * b * m * h * d) + 4.0 * b * h * n
     return (lambda: _launch_fwd(q, k, v, h, sc, need_lse=True),
-            lambda: K.flash_attention_lse_plain(q, k, v, h, sc), lib, flops,
-            nbytes)
+            per_batch(lambda *t: K.flash_attention_lse_plain(*t, h, sc),
+                      (q, k, v), b * h * n * m), lib, flops, nbytes)
 
 
 def make_bwd_case(kid, args, dev, rnd, item=2):
@@ -1124,9 +1184,13 @@ def make_bwd_case(kid, args, dev, rnd, item=2):
     q, k, v = rnd(b, n, h * d), rnd(b, m, h * d), rnd(b, m, h * d)
     dout = rnd(b, n, h * d, scale=0.1)
     sc = d ** -0.5
-    out, lse = K.flash_attention_lse_plain(q, k, v, h, sc)
+    out, lse = per_batch(lambda *t: K.flash_attention_lse_plain(*t, h, sc),
+                         (q, k, v), b * h * n * m)()
     delta = K.attention_delta(out, dout, h)
     del out
+    plain = per_batch(
+        lambda *t: K.flash_attention_bwd_plain(*t, h, sc),
+        (q, k, v, dout, lse, delta), b * h * n * m)
     heads = lambda t: t.view(t.shape[0], t.shape[1], h, d).transpose(1, 2)
     qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k, v))
     doh = heads(dout)
@@ -1136,11 +1200,11 @@ def make_bwd_case(kid, args, dev, rnd, item=2):
     if kid == "K5a":
         # S, dP and dQ: three N x M x d products
         return (lambda: K.flash_attention_bwd_dq(q, k, v, dout, lse, delta, h, sc),
-                lambda: K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, h, sc)[0],
+                lambda: plain()[0],
                 lib, 6.0 * b * h * n * m * d, io + item * b * n * h * d)
     # S, dP, dV and dK: four
     return (lambda: K.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h, sc),
-            lambda: K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, h, sc)[1:],
+            lambda: plain()[1:],
             lib, 8.0 * b * h * n * m * d, io + item * 2 * b * m * h * d)
 
 
@@ -1316,6 +1380,7 @@ def phase_kernels(cases, acc=None):
     modalities and cli recorded and the first did not hold). Returns
     (summary, pairs, host floor); a summary's ``host_us`` stays a list of
     its rows' (host_us_median takes their median)."""
+    from layoutllm_t2i_torch.kernels.flash_attention import kernel_width
     from layoutllm_t2i_torch.kernels.tolerance import agreement, tol_id
 
     dev = torch.device("cuda")
@@ -1364,8 +1429,10 @@ def phase_kernels(cases, acc=None):
         rec["device_ms"], rec["host_us"] = device_time(kern)
         rec["library_device_ms"] = lib and library_ms(lib, device_ms)
         if kid in ("K1", "K5a", "K5b"):
-            b, n, m, h = args[:4]
+            b, n, m, h, d = args[:5]
             rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
+            # the instantiation the head dim runs on
+            rec["width"] = kernel_width(kid, dt, d)
         if kid in VS_LIBRARY_KIDS and lib:
             rec["vs_library"] = rec["ms"] / rec["library_ms"]
             rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
@@ -1409,6 +1476,12 @@ def phase_kernels(cases, acc=None):
         agg["shapes"] += 1
         agg["host_us"].append(rec["host_us"])
         agg["device_ms_by_args"][args] = rec["device_ms"]
+        if "width" in rec:   # K1's and K5's sums by instantiation width
+            w = agg.setdefault("by_width", {}).setdefault(rec["width"], dict.fromkeys(
+                ("ms", "device_ms", "library_ms", "library_device_ms",
+                 "bound_ms", "shapes"), 0))
+            for key in w:
+                w[key] += 1 if key == "shapes" else rec[key]
         if not agree["ok"]:
             failed.append(f"{rid} {label}")
         del kern, plain, lib
@@ -2273,15 +2346,17 @@ def images_in_range(img, b: int, side: int) -> bool:
             and float(img.min()) >= 0.0 and float(img.max()) <= 1.0)
 
 
-def run_record(run: dict, b: int, psnr_min: float) -> dict:
+def run_record(run: dict, b: int, psnr_min: float,
+               kids=("K1", "K2", "K3", "K4")) -> dict:
     """A routed_generation run's record: wall s, each image's PSNR against
     the plain route's, launches; ok when the b images are finite RGB of
-    the VAE's side in [0, 1], every PSNR >= psnr_min, K1-K4 launched and
-    the plain route launched none."""
+    the VAE's side in [0, 1], every PSNR >= psnr_min, each of ``kids``
+    (K1-K4, or their f32 forms) launched and the plain route launched
+    none."""
     psnrs = [psnr_db(a, e) for a, e in zip(run["img"], run["ref"])]
     ok = (images_in_range(run["img"], b, run["side"]) and min(psnrs) >= psnr_min
           and not run["plain_launched"]
-          and all(run["counts"][k] > 0 for k in ("K1", "K2", "K3", "K4")))
+          and all(run["counts"][k] > 0 for k in kids))
     return {"ok": ok, "wall_s": run["wall_s"], "psnr_vs_plain_db": psnrs,
             "launches": run["counts"], "plain_route_launched": run["plain_launched"]}
 
@@ -2345,8 +2420,9 @@ def phase_inpaint(models, dense_img):
     region of the exact run's final latent against z0; the fast run's UNet
     evaluations against the uncached step tables; then an inpaint_mode
     UNet (9 input channels: the latent, the masked z0 and the mask) on one
-    exact generation. Returns (launches, recorded calls)."""
+    PLMS-10 generation. Returns (launches, recorded calls)."""
     from layoutllm_t2i_torch.models.initializers import Init, conv_p
+    from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
     from layoutllm_t2i_torch.utils.trees import replace_subtree
 
     prompts, layouts, relations = REQUESTS
@@ -2387,7 +2463,9 @@ def phase_inpaint(models, dense_img):
         models, unet_cfg=cfg, sd_first_conv=None, unet_params=replace_subtree(
             models.unet_params, ("input_blocks", "0", "0"),
             conv_p(ini, 3, 3, cfg.first_conv_in_channels, cfg.model_channels)))
-    pipe = exact_pipeline(im_models)
+    pipe = InferencePipeline(im_models, steps=MODALITY_STEPS, sampler="plms",
+                             guidance_scale=7.5, alpha_type=(0.3, 0.0, 0.7),
+                             vae_chunk=VAE_CHUNK)
     cond = {**pipe.build_cond(prompts, layouts, relations), **cond0,
             "inpainting_extra": torch.cat([cond0["inpaint_z0"] * cond0["inpaint_mask"],
                                            cond0["inpaint_mask"]], dim=-1)}
@@ -2411,18 +2489,125 @@ def phase_inpaint(models, dense_img):
     return total, calls
 
 
-# bf16 K1 at head dims no model routes to it, which the C entry's padded
-# switch takes to the d 40 (48), d 80 (72) and d 512 (504) instantiations,
-# and K5a/K5b at 48 and 72 (the "lse" sites): phase kernels holds each
-# against its plain version (no main path launches them)
+# K1 at head dims no model here routes to it, which the C entries take to
+# the instantiation of the smallest width that holds them: bf16 d 48 and 72
+# (the 48- and 80-wide ones), 504 (512); in both types d 20 (16 heads at
+# 320 channels: not whole 16-byte vectors in bf16, so the wrapper's padded
+# copy at 24), 96 (128-wide), 256 (512-wide; num_heads 5's 24^2 sites at
+# 768^2); and K5a/K5b at 48, 72, 20, 96 and 144 (160-wide) through the
+# "lse" sites: phase kernels holds each against its plain version
 HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72)),
                   ("K1", (1, 4096, 4096, 1, 504)),
                   ("K1", (2, 1024, 1024, 8, 48, "lse")),
-                  ("K1", (2, 1024, 1024, 8, 72, "lse"))]
+                  ("K1", (2, 1024, 1024, 8, 72, "lse"))] + [
+    ("K1", shape + tag) for tag in ((), ("f32",)) for shape in (
+        (2, 1024, 1024, 16, 20), (2, 1024, 1024, 16, 20, "lse"),
+        (2, 1024, 1024, 8, 96), (2, 1024, 1024, 8, 96, "lse"),
+        (4, 576, 576, 5, 256), (2, 576, 606, 8, 144, "lse"))]
 
 
-# phase modalities: PLMS steps of every run but the first canny one (a depth
-# cut of the reference's 50, PERF.md section 4)
+# phases hires and heads5: the seed-0 weights at another geometry (neither
+# the latent size nor the head count changes a weight: inner = heads x
+# d_head = channels): SD-1.4 at 768^2 (96^2 latents; the third level's
+# 24^2 sites, 576 tokens and 606 with the grounding tokens, route K1 at
+# d 160, and the VAE's mid block K1 at d 512 over 9216 tokens), and
+# num_heads 5 at 512^2 (K1 at d 64 at the 64^2 sites, 128 at the 32^2
+# sites). Each run: (dtype, PLMS steps); hires' f32 run and both heads5
+# runs are a depth cut of the reference's 50 (PERF.md section 4)
+GEOMETRY = {"hires": dict(image_size=96), "heads5": dict(num_heads=5)}
+GEOMETRY_RUNS = {"hires": ((torch.bfloat16, STEPS), (torch.float32, 10)),
+                 "heads5": ((torch.bfloat16, 10), (torch.float32, 10))}
+# the head dims whose K1 sites each phase holds to the walk's launches, site
+# by site (N, M), and those its training check holds K5 to
+GEOMETRY_DIMS = {"hires": (160, 512), "heads5": (64, 128)}
+GEOMETRY_K5_DIMS = {"hires": (40, 80, 160), "heads5": (64, 128)}
+GEOMETRY_PSNR_MIN_DB = 35.0   # tests/parity_setup.py's image gate
+
+
+def geometry_models(name: str, dtype, small: bool = False, device="cuda"):
+    """random_models (seed 0) at full width (or ``small``) in ``dtype``,
+    its UNet config changed as GEOMETRY[name] says."""
+    from layoutllm_t2i_torch.pipeline.loaders import random_models
+
+    models = random_models(small=small, device=device, dtype=dtype, seed=0)
+    return dataclasses.replace(models, unet_cfg=dataclasses.replace(
+        models.unet_cfg, **GEOMETRY[name]))
+
+
+def sites_by_dim(calls, kid: str, dims) -> dict:
+    """{(d, N, M): calls} of ``kid``'s calls at the head dims ``dims``
+    (K5a and K5b: the K1 sites with their lse)."""
+    out = collections.Counter()
+    for k, args in calls:
+        if k == "K1" and args[4] in dims and (kid == "K1" or has_lse(args)):
+            out[(args[4], args[1], args[2])] += 1
+    return dict(out)
+
+
+def phase_geometry(name: str, small: bool = False, device="cuda"):
+    """Phase hires or heads5: REQUESTS (CFG 7.5, alpha (0.3, 0, 0.7)) on
+    the seed-0 weights at GEOMETRY[name], PLMS in bf16 and in f32
+    (GEOMETRY_RUNS), each through the kernels and again under
+    plain_route() from the same noise: PSNR >= GEOMETRY_PSNR_MIN_DB, K1-K4
+    (or their f32 forms) launched, K1's launches the walk's
+    (generation_calls over every UNet evaluation) in all and site by site
+    at the head dims of GEOMETRY_DIMS[name]. Returns (launches, recorded
+    calls). ``small`` and ``device``: the CPU test's small geometry."""
+    from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
+
+    t_phase = time.perf_counter()
+    b = len(REQUESTS[0])
+    total, calls, recs, ok = {}, [], {}, True
+    for dtype, steps in GEOMETRY_RUNS[name]:
+        f32 = dtype is torch.float32
+        models = geometry_models(name, dtype, small, device)
+        cfg = models.unet_cfg
+        pipe = InferencePipeline(models, steps=steps, sampler="plms",
+                                 guidance_scale=7.5, alpha_type=(0.3, 0.0, 0.7),
+                                 vae_chunk=VAE_CHUNK)
+        gen = torch.Generator(device=device).manual_seed(0)
+        noise = torch.randn(b, cfg.image_size, cfg.image_size, 4, generator=gen,
+                            device=device)
+        run = routed_generation(pipe, pipe.build_cond(*REQUESTS), noise)
+        walk = generation_calls(cfg, models.vae_cfg, models.clip_cfg,
+                                models.clip_cfg.max_length, REQUESTS, VAE_CHUNK,
+                                evals=unet_evaluations(pipe, b), f32=f32,
+                                distinct=False)
+        k1 = "K1/f32" if f32 else "K1"
+        kids = tuple(f"{k}/f32" if f32 else k for k in ("K1", "K2", "K3", "K4"))
+        sites = sites_by_dim(run["calls"], "K1", GEOMETRY_DIMS[name])
+        walked = sites_by_dim(walk, "K1", GEOMETRY_DIMS[name])
+        rec = {"dtype": str(dtype).split(".")[1], "steps": steps,
+               "image_size": cfg.image_size, "num_heads": cfg.num_heads,
+               **run_record(run, b, GEOMETRY_PSNR_MIN_DB, kids),
+               "k1_sites": {f"d{d} N{n} M{m}": c for (d, n, m), c in sorted(sites.items())},
+               "k1_walked": launches_of(walk)[k1]}
+        rec["sites_match_walk"] = (
+            sites == walked and run["counts"][k1] == rec["k1_walked"]
+            and {d for d, _, _ in sites} == set(GEOMETRY_DIMS[name]))
+        rec["ok"] = rec["ok"] and rec["sites_match_walk"]
+        recs[rec["dtype"]] = rec
+        ok = ok and rec["ok"]
+        add_counts(total, run["counts"])
+        calls += run["calls"]
+        del models, pipe, run
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    emit({"phase": name, "ok": ok, "wall_s": time.perf_counter() - t_phase,
+          "card": nvidia_smi_line() if torch.cuda.is_available() else None,
+          "geometry": GEOMETRY[name], "psnr_min_db": GEOMETRY_PSNR_MIN_DB,
+          "runs": recs, "launches": total})
+    if not ok:
+        raise SmokeFailure(f"{name}: an image is off or disagrees with the "
+                           "plain route, a kernel of the path did not launch, "
+                           "or K1's launches at the geometry's head dims are "
+                           "not the walk's")
+    return total, calls
+
+
+# phase modalities: PLMS steps of every run, and of phase inpaint's
+# inpaint_mode run (a depth cut of the reference's 50, PERF.md section 4,
+# which leaves the 768^2 phases room in the run's time limit)
 MODALITY_STEPS = 10
 MODALITY_PSNR_MIN_DB = 35.0
 # keypoint mode's two persons, 17 points each ('x,y;...|...', normalized)
@@ -2502,7 +2687,7 @@ def modality_cond(pipe, modality: str, work_dir: str, source01):
 
 # (name, fuser, modality, PLMS steps); the gatedCA runs' K1 cross-attention
 # has M = 196 (map tokens) and M = 136 (8 persons x 17 points)
-MODALITY_RUNS = (("canny", "gatedSA", "canny", STEPS),
+MODALITY_RUNS = (("canny", "gatedSA", "canny", MODALITY_STEPS),
                  ("keypoint", "gatedSA", "keypoint", MODALITY_STEPS),
                  ("text_image", "gatedSA", "text_image", MODALITY_STEPS),
                  ("gatedSA2-canny", "gatedSA2", "canny", MODALITY_STEPS),
@@ -2514,8 +2699,8 @@ def phase_modalities(work_dir: str, source01, small: bool = False,
                      device="cuda"):
     """The extra grounding modalities at full width in bf16, random weights
     from seed 0 adapted by adapt_models_for_modality: canny (ConvNeXt-tiny
-    at 448^2, the downsampler's 8 channels, gatedSA; PLMS-50), keypoint
-    (2 persons), text_image (the ViT-L/14 vision tower in f32 on one
+    at 448^2, the downsampler's 8 channels, gatedSA), keypoint (2
+    persons), text_image (the ViT-L/14 vision tower in f32 on one
     reference PNG), a gatedSA2 UNet with map grounding and a gatedCA UNet
     with map and then keypoint grounding (PLMS-10 each): every run's
     images through the kernels against plain_route()'s, K1-K4 launched in
@@ -3271,13 +3456,17 @@ def step_kernels(route: Route) -> tuple:
 
 
 def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
-                     label: str = ""):
+                     label: str = "", geometry: str = ""):
     """One full-width loss backward at batch 2 through the kernels and
     again through the plain versions, from the same weights and draws, on
     ``route`` (under its switches); then, on the default route, once with
     each planted K5 fault. ``mixed_precision`` False: phase train-grad-f32,
     every operand f32 (the kernels' f32 forms), held to
-    TRAIN_GRAD_F32_REL_TOL."""
+    TRAIN_GRAD_F32_REL_TOL. ``geometry``: a GEOMETRY name (phase
+    train-hires: 96^2 latents, or num_heads 5), where the planted fault is
+    TRAIN_GRAD_CAUGHT's alone and K5's launches at GEOMETRY_K5_DIMS must
+    be the walk's site by site (unet_calls at batch 2 with the lse).
+    Returns the kernel route's launch counts."""
     from layoutllm_t2i_torch.kernels import plain_route, reset_launches
     from layoutllm_t2i_torch.pipeline.loaders import random_models
     from layoutllm_t2i_torch.training.train_step import TrainStep, TrainStepConfig
@@ -3285,7 +3474,8 @@ def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
     label = label or ("train-grad" if mixed_precision else "train-grad-f32")
     tol = TRAIN_GRAD_REL_TOL if mixed_precision else TRAIN_GRAD_F32_REL_TOL
     dev = torch.device("cuda")
-    models = random_models(small=False, device=dev, dtype=torch.float32, seed=0)
+    models = (geometry_models(geometry, torch.float32) if geometry else
+              random_models(small=False, device=dev, dtype=torch.float32, seed=0))
     n_alpha = set_alphas(models.unet_params, 0.5)
     step = TrainStep(TrainStepConfig(unet_cfg=models.unet_cfg,
                                      schedule=models.schedule,
@@ -3301,8 +3491,9 @@ def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
     keep = torch.ones((), device=dev)
     grads = lambda: step.grads(batch, t, noise, keep)
     reset_launches()
-    loss_k, g_k = grads()
-    torch.cuda.synchronize()
+    with recorded_calls() as calls:
+        loss_k, g_k = grads()
+        torch.cuda.synchronize()
     counts = path_counts()
     with plain_route():
         loss_p, g_p = grads()
@@ -3315,8 +3506,9 @@ def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
     finite = all(bool(torch.isfinite(g).all()) for g in g_k)
     del g_k
     faults = {}
-    for name in (TRAIN_GRAD_CAUGHT + TRAIN_GRAD_UNSEEN if route == DEFAULT
-                 else ()):
+    planted = () if route != DEFAULT else (
+        TRAIN_GRAD_CAUGHT if geometry else TRAIN_GRAD_CAUGHT + TRAIN_GRAD_UNSEEN)
+    for name in planted:
         with planted_fault(name):
             g_f = grads()[1]
         faults[name] = rel_l2(g_f, g_p)
@@ -3324,10 +3516,29 @@ def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
     # the step's kernels in its precision, f32 forms or bf16
     launched = all(counts[kid if mixed_precision else f"{kid}/f32"] > 0
                    for kid in step_kernels(route))
+    k5 = {}
+    if geometry:
+        # K5's sites by head dim: the K1 sites with their lse, recorded and
+        # walked, and its launches in all those of the walk
+        cfg = models.unet_cfg
+        walk = unet_calls(cfg, 2, 30, 10, 77, train=True, route=route,
+                          itemsize=2 if mixed_precision else 4)
+        sites = sites_by_dim(calls, "K5a", GEOMETRY_K5_DIMS[geometry])
+        walked = launches_of(f32_calls(walk) if not mixed_precision else walk)
+        tag = "" if mixed_precision else "/f32"
+        k5 = {"k5_sites": {f"d{d} N{n} M{m}": c for (d, n, m), c in sorted(sites.items())},
+              "k5_walked": {kid: walked.get(f"{kid}{tag}", 0) for kid in ("K5a", "K5b")}}
+        k5["k5_match_walk"] = (
+            sites == sites_by_dim(walk, "K5a", GEOMETRY_K5_DIMS[geometry])
+            and {d for d, _, _ in sites} == set(GEOMETRY_K5_DIMS[geometry])
+            and all(counts[f"{kid}{tag}"] == n for kid, n in k5["k5_walked"].items()))
+        launched = launched and k5["k5_match_walk"]
     ok = (finite and not plain_launched and rel <= tol and launched
           and all(faults[name] > tol for name in faults
                   if name in TRAIN_GRAD_CAUGHT))
     emit({"phase": label, "ok": ok, "batch": 2, "alphas_set": n_alpha,
+          **({"geometry": GEOMETRY[geometry], "card": nvidia_smi_line(), **k5}
+             if geometry else {}),
           "mixed_precision": mixed_precision, "route": route.env(),
           "trainable_tensors": len(g_p),
           "trainable_params": sum(g.numel() for g in g_p),
@@ -3341,10 +3552,12 @@ def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
     if not ok:
         raise SmokeFailure(f"{label}: the kernel route lies outside the "
                            "bound, a planted fault it must catch inside it, "
-                           "a kernel of the step did not launch, or a "
-                           "plain-route call launched a kernel")
+                           "a kernel of the step did not launch (or K5 other "
+                           "than the walk's), or a plain-route call launched "
+                           "a kernel")
     del models, step, g_p
     torch.cuda.empty_cache()
+    return counts
 
 
 TRAIN_STEPS, TRAIN_WARMUP = 7, 2
@@ -3896,6 +4109,90 @@ def phase_train_coco(work_dir: str) -> tuple:
             "no time, K1's or K5's launches differ from the walk's, or a "
             "batch holds a crowd, degenerate or captionless entry")
     return counts, walk["calls"]
+
+
+# phase train-hires: cli/train_diffusion.py --image_size 768 at batch 8,
+# mixed precision and f32, TRAIN_HIRES_STEPS steps each
+TRAIN_HIRES_SIDE = 768
+TRAIN_HIRES_STEPS = 2
+# the kernels whose launches a step must equal the walk's
+TRAIN_HIRES_WALKED = ("K1", "K5a", "K5b")
+
+
+def phase_train_hires(work_dir: str) -> dict:
+    """SD-1.4 trained at 768^2 through the CLI, as the JAX trainer's
+    --image_size takes it (the VAE encodes 96^2 latents; the UNet runs
+    there): cli/train_diffusion.py main --synthetic --image_size 768 at
+    batch 8, TRAIN_HIRES_STEPS steps, with --mixed_precision and again in
+    f32 (random SD-1.4 weights from seed 0, rela_fuse, AdamW): finite
+    losses, K1's, K5a's and K5b's launches (bf16 and f32) the walk's a
+    step (training_calls at 768^2), s/step, peak memory. Then the
+    rela_fuse gradients at batch 2 against plain_route() (phase
+    train-grad's check, with its planted K5 fault), in bf16 and f32, at
+    96^2 latents and again with num_heads 5 at 64^2, K5's launches at
+    GEOMETRY_K5_DIMS the walk's. Returns the launch counts of all."""
+    from layoutllm_t2i_torch.cli import train_diffusion
+    from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+    t_phase = time.perf_counter()
+    unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+    batch = next(synthetic_layout_batches(TRAIN_BATCH, TRAIN_HIRES_SIDE,
+                                          TRAIN_MAX_BOXES))
+    total, recs, ok = {}, {}, True
+    for mixed in (True, False):
+        name = "mixed" if mixed else "f32"
+        shutil.rmtree(work_dir, ignore_errors=True)
+        argv = ["--synthetic", "--image_size", str(TRAIN_HIRES_SIDE),
+                "--batch_size", str(TRAIN_BATCH),
+                "--total_iters", str(TRAIN_HIRES_STEPS), "--warmup_steps", "0",
+                "--output_root", work_dir, "--name", "hires"] + (
+                    ["--mixed_precision"] if mixed else [])
+        # log each step's loss and time, as phase train-coco does
+        cfg_cls = train_diffusion.TrainerConfig
+        train_diffusion.TrainerConfig = functools.partial(cfg_cls, log_every=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _, wall, counts = counted(lambda: train_diffusion.main(argv))
+        finally:
+            train_diffusion.TrainerConfig = cfg_cls
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(work_dir, "hires", "tag00", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in logged]
+        each = [r["sec_per_iter"] for r in logged]
+        per_step = launches_of(training_calls(
+            unet_cfg, vae_cfg, clip_cfg, clip_cfg.max_length, batch,
+            TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS, f32=not mixed))
+        walked = {kid: n for kid, n in per_step.items()
+                  if kid.split("/")[0] in TRAIN_HIRES_WALKED}
+        walk_ok = all(counts[kid] == n * TRAIN_HIRES_STEPS
+                      for kid, n in walked.items())
+        rec = {"ok": (len(losses) == TRAIN_HIRES_STEPS and walk_ok
+                      and all(math.isfinite(x) for x in losses)),
+               "mixed_precision": mixed, "losses": losses,
+               "s_per_step_each": each, "wall_s": wall, "peak_mem_gib": peak,
+               "launches": counts, "walked_per_step": walked,
+               "launches_match_walk": walk_ok}
+        recs[name] = rec
+        ok = ok and rec["ok"]
+        add_counts(total, counts)
+        torch.cuda.empty_cache()
+    shutil.rmtree(work_dir, ignore_errors=True)
+    emit({"phase": "train-hires", "ok": ok, "card": nvidia_smi_line(),
+          "side": TRAIN_HIRES_SIDE, "batch": TRAIN_BATCH,
+          "steps": TRAIN_HIRES_STEPS, "wall_s": time.perf_counter() - t_phase,
+          **recs})
+    if not ok:
+        raise SmokeFailure("train-hires: a loss is not finite or K1's or K5's "
+                           "launches differ from the walk's at 768^2")
+    for geometry in ("hires", "heads5"):
+        for mixed in (True, False):
+            add_counts(total, phase_train_grad(
+                mixed_precision=mixed, geometry=geometry,
+                label=f"train-grad-{geometry}{'' if mixed else '-f32'}"))
+    return total
 
 
 # device-time groups of the profile, matched in order against kernel names
@@ -4636,9 +4933,24 @@ def main(argv=None) -> int:
                 gen_paths[name] = generation_calls(
                     unet_cfg, vae_cfg, clip_cfg, tok_len, REQUESTS, VAE_CHUNK,
                     route=route, f32=True)
-            # bf16 K1 and K5 at the head dims their padded switch also
-            # takes (48 and 72 pad to d 40's and 80's tiles, 504 to 512's)
+            # K1 and K5 at head dims no model here routes to them
             gen_paths["head-dim"] = HEAD_DIM_CALLS
+            # phases hires, heads5 and train-hires: SD-1.4 at 768^2 and
+            # num_heads 5, generation and a batch-8 training step, bf16
+            # and f32 (K1 at d 160, 64 and 128; K5 at the lse sites)
+            hires_batch = next(synthetic_layout_batches(
+                TRAIN_BATCH, TRAIN_HIRES_SIDE, TRAIN_MAX_BOXES))
+            for name, update in GEOMETRY.items():
+                cfg_g = dataclasses.replace(unet_cfg, **update)
+                for f32, tag in ((False, ""), (True, "-f32")):
+                    gen_paths[f"{name}{tag}"] = generation_calls(
+                        cfg_g, vae_cfg, clip_cfg, tok_len, REQUESTS,
+                        VAE_CHUNK, f32=f32)
+                    gen_paths[f"train-{name}{tag}"] = training_calls(
+                        cfg_g, vae_cfg, clip_cfg, tok_len,
+                        hires_batch if name == "hires" else train_batch,
+                        TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS, f32=f32)
+            del hires_batch
             first_cases = kernel_cases({
                 **gen_paths,
                 **{name: training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
@@ -4669,6 +4981,8 @@ def main(argv=None) -> int:
             del models
             torch.cuda.empty_cache()
             modal_counts, modal_calls = phase_modalities(modal_dir, dense_img[0])
+            torch.cuda.empty_cache()
+            geometry_counts = {name: phase_geometry(name)[0] for name in GEOMETRY}
             torch.cuda.empty_cache()
             bench_counts = phase_bench(args.profile)
             torch.cuda.empty_cache()
@@ -4715,6 +5029,8 @@ def main(argv=None) -> int:
                     [case for case in kernel_cases({"train-coco": coco_calls})
                      if (case[0], case[2]) not in held], kernels_acc)
                 del coco_calls
+            train_hires_counts = phase_train_hires(work_dir)
+            torch.cuda.empty_cache()
             gen_f32_counts, models, img = phase_generate_f32(dense_img)
             profile_generation(models, "profile-f32", args.profile, "_f32.json")
             int8_f32_counts = phase_int8(models, img, args.profile,
@@ -4755,7 +5071,9 @@ def main(argv=None) -> int:
             "train": train_counts[""], "train-coco": coco_counts,
             "train-f32": train_counts["-f32"], "generate-f32": gen_f32_counts,
             "int8-f32": int8_f32_counts, "routes-f32": routes_f32_counts,
-            "parallel": parallel_counts, "train-dp": train_dp_counts}
+            "parallel": parallel_counts, "train-dp": train_dp_counts,
+            "hires": geometry_counts["hires"], "heads5": geometry_counts["heads5"],
+            "train-hires": train_hires_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
     generation = ("K1", "K2", "K3", "K4")
     encoders = ("K1/f32", "K2/f32", "K3/f32")
@@ -4771,7 +5089,11 @@ def main(argv=None) -> int:
                 "int8-f32": ("K7/f32",),
                 "routes-f32": ("K6/f32", "K8a/f32", "K8b/f32"),
                 "parallel": generation,
-                "train-dp": tuple(f"{kid}/f32" for kid in step_kernels(DEFAULT))}
+                "train-dp": tuple(f"{kid}/f32" for kid in step_kernels(DEFAULT)),
+                "hires": generation + tuple(f"{kid}/f32" for kid in generation),
+                "heads5": generation + tuple(f"{kid}/f32" for kid in generation),
+                "train-hires": step_kernels(DEFAULT) + tuple(
+                    f"{kid}/f32" for kid in step_kernels(DEFAULT))}
     missing = [f"{kid} ({path})" for path, kids in expected.items()
                for kid in kids if runs[path][kid] <= 0]
     line = []
@@ -4799,6 +5121,8 @@ def main(argv=None) -> int:
                                  "launches": parallel_counts["K2 split"]}
         if base in ("K5a", "K5b"):
             line[-1]["pair"] = k5_pairs["f32" if kid != base else "bf16"]
+        if "by_width" in s:
+            line[-1]["by_width"] = {str(w): rec for w, rec in sorted(s["by_width"].items())}
         if kid != base:
             line[-1]["arith"] = F32_ARITH[base]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

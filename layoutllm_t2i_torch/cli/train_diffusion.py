@@ -69,7 +69,9 @@ def parse_args(argv=None):
                    help="sgd keeps zero optimizer state")
     p.add_argument("--ckpt_path", type=str, default=None)
     p.add_argument("--coco_root", type=str, default=None)
-    p.add_argument("--image_size", type=int, default=512)
+    p.add_argument("--image_size", type=int, default=512,
+                   help="training image side; the UNet runs at the VAE's "
+                        "latents (768: 96^2, SD-1.4's 24^2 sites at d 160)")
     p.add_argument("--max_boxes", type=int, default=30)
     p.add_argument("--max_relations", type=int, default=10)
     p.add_argument("--seed", type=int, default=123)

@@ -9,9 +9,9 @@
 // the row log-sum-exp (natural log, f32) when asked; here one kernel with
 // one instantiation per head dim covers them all.
 //
-// What bounds it on the H100. At d = 80 and 512, operations: every q row
-// meets every k row, 4*N*M*d flops against ~8*N*d bytes, thousands of flops
-// a byte. At d = 40 (the UNet's 64^2 sites), the exponentials: one per
+// What bounds it on the H100. At d >= 64, operations: every q row meets
+// every k row, 4*N*M*d flops against ~8*N*d bytes, thousands of flops a
+// byte. At d = 40 (the UNet's 64^2 sites), the exponentials: one per
 // score, B*H*N*M of them on 16 SFU lanes a clock per SM, about 0.13 ms at
 // the generation's shape against 0.087 ms of tensor-core work. So the
 // design keeps the tensor cores fed and spends as few instructions per
@@ -32,7 +32,10 @@
 //    Columns past d (d = 40: 40..63, d = 80: 80..127) and rows past N or M
 //    lie outside the map, so TMA writes zeros there: no other head's
 //    columns and nothing past a row is ever read, and the zero columns of
-//    Q and K make the padded depth (48 at d = 40) add nothing to S.
+//    Q and K make the padded depth (48 at d = 40) add nothing to S. So one
+//    instantiation takes every d up to its width: the entry point picks the
+//    smallest of 48, 64, 80, 128, 160 and 512 that holds d (d % 8 == 0,
+//    the map's head stride; the wrapper pads any other d in a copy).
 //  * Warps 0-7 are two consumer warpgroups. S = Q K^T: wgmma.mma_async
 //    m64nBKk16, Q and K from shared memory (K-major), S in registers.
 //  * The online softmax runs in registers: each accumulator row lies in
@@ -46,11 +49,14 @@
 //    from shared memory, MN-major (the descriptor reads it transposed).
 //    O stays in registers for the whole K/V loop and is rescaled there.
 //    Neither S, P nor O is ever stored to shared memory.
-//  * d = 40 and 80: BQ = 128, each consumer warpgroup owns 64 rows (one
-//    whose rows all lie past N leaves at once); K/V tiles of 64 rows in 4
-//    stages at d = 40 (the fastest of the tilings tried on the card), 128
-//    rows in 2 stages at d = 80; grid B*H*ceil(N/128) (1,024 blocks at the
-//    generation's d = 40 shape). d = 512 (the VAE's single head): a 64 x
+//  * d <= 160: BQ = 128, each consumer warpgroup owns 64 rows (one whose
+//    rows all lie past N leaves at once); K/V tiles of 64 rows in 4 stages
+//    at d = 40 (the fastest of the tilings tried on the card) and 64, 128
+//    rows in 2 stages at d = 80, 64 rows in 4 stages at d = 128 and in 3 at
+//    d = 160 (Q 48 KB, a K/V stage 48 KB; O's 64 x 160 f32 accumulator is
+//    80 registers a thread beside S's 32); grid B*H*ceil(N/128) (1,024
+//    blocks at the generation's d = 40 shape). d = 512 (the VAE's single
+//    head, and any d past 160 padded to it): a 64 x
 //    512 f32 accumulator does not fit one warpgroup's registers, so both
 //    warpgroups take the same 64 rows, each owns 256 output columns and
 //    computes the 64 x 32 S tile itself. S is computed twice, nothing is
@@ -91,7 +97,10 @@ struct FwdCfg {
 };
 
 using Fwd40 = FwdCfg<48, 1, 128, 64, 4, 48, false>;    // 64^2 sites
+using Fwd64 = FwdCfg<64, 1, 128, 64, 4, 64, false>;    // num_heads 5, 64^2
 using Fwd80 = FwdCfg<80, 2, 128, 128, 2, 80, false>;   // 32^2 sites
+using Fwd128 = FwdCfg<128, 2, 128, 64, 4, 128, false>; // num_heads 5, 32^2
+using Fwd160 = FwdCfg<160, 3, 128, 64, 3, 160, false>; // 24^2 sites (768^2)
 using Fwd512 = FwdCfg<512, 8, 64, 32, 2, 256, true>;   // the VAE's head
 
 __device__ __forceinline__ float ex2(float x) {
@@ -382,7 +391,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 //    and each thread reads the columns it owns. P^T is masked to 0 past N.
 //  * Epilogue: bf16 straight from registers; only rows < N (K5a) or < M
 //    (K5b) and columns < d are written (d = 40's 48-column tile would
-//    otherwise overwrite the next head's first 8 columns).
+//    otherwise overwrite the next head's first 8 columns). As in K1, one
+//    instantiation takes every d up to its width (48, 64, 80, 128, 160):
+//    the maps zero-fill Q, K, V and dO past d.
 
 // kDepth: wgmma depth of the scores (d padded to 16), also the width of the
 // dQ, dK and dV accumulators; kChunks: 64-column chunks per row in shared
@@ -417,10 +428,20 @@ struct BwdCfg {
 // Three consumer warpgroups were faster than two on the card (and 64-row
 // stages than 128 with two); K5b at d = 80 keeps two, for the 232
 // registers its two 64 x 80 accumulators and four score fragments need.
+// Past d = 80 (num_heads 5's 64 and 128, SD-1.4 at 768^2's 160) two
+// consumer warpgroups, and K5b's stages shrink as its two 64 x d
+// accumulators grow: 32 q rows at d = 128 (128 + 48 registers), 16 at
+// d = 160 (160 + 24), within the 232 that two warpgroups get.
 using Dq40 = BwdCfg<48, 1, 3, 64, 4, false>;
 using Dkv40 = BwdCfg<48, 1, 3, 64, 4, true>;
+using Dq64 = BwdCfg<64, 1, 3, 64, 4, false>;
+using Dkv64 = BwdCfg<64, 1, 2, 64, 4, true>;
 using Dq80 = BwdCfg<80, 2, 3, 64, 3, false>;
 using Dkv80 = BwdCfg<80, 2, 2, 64, 3, true>;
+using Dq128 = BwdCfg<128, 2, 2, 64, 3, false>;
+using Dkv128 = BwdCfg<128, 2, 2, 32, 4, true>;
+using Dq160 = BwdCfg<160, 3, 2, 64, 2, false>;
+using Dkv160 = BwdCfg<160, 3, 2, 16, 4, true>;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -516,11 +537,11 @@ __device__ __forceinline__ void ds_rows(float (&sc)[N], const float (&dp)[N],
   }
 }
 
-// K5b's P^T in place of S^T and dS^T in place of dP^T: the thread's q
-// columns 8 j + 2 (lane % 4) + {0, 1} read their lse log2 e and delta from
-// the stage's statistics `st` (2N of each); with kMask, P^T = 0 in the
+// K5b's P^T in place of S^T and (kDs) dS^T in place of dP^T: the thread's
+// q columns 8 j + 2 (lane % 4) + {0, 1} read their lse log2 e and delta
+// from the stage's statistics `st` (2N of each); with kMask, P^T = 0 in the
 // columns at or past `lim`
-template <bool kMask, int N>
+template <bool kMask, int N, bool kDs = true>
 __device__ __forceinline__ void p_ds_cols(float (&sc)[N], float (&dp)[N],
                                           const float* st, float c, int lim,
                                           int lane) {
@@ -536,7 +557,7 @@ __device__ __forceinline__ void p_ds_cols(float (&sc)[N], float (&dp)[N],
       float p = ex2(fmaf(sc[i], c, -(odd ? l2.y : l2.x)));
       if (kMask && col + odd >= lim) p = 0.f;
       sc[i] = p;
-      dp[i] = p * (dp[i] - (odd ? dl.y : dl.x));
+      if (kDs) dp[i] = p * (dp[i] - (odd ? dl.y : dl.x));
     }
   }
 }
@@ -838,14 +859,16 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
               void* dv, int B, int H, int N, int M, int D, long long q_bs,
               long long q_rs, long long k_bs, long long k_rs, long long v_bs,
               long long v_rs, float scale, void* stream) {
-  // d = 40 (the 64^2 sites) and 80 (the 32^2 sites); the training path
-  // routes no other head dim here
-  const int padded = (D + 15) / 16 * 16;
-  if (padded != 48 && padded != 80) return (int)cudaErrorInvalidValue;
-  auto launch = dq != nullptr
-                    ? (padded == 48 ? launch_bwd<Dq40, true> : launch_bwd<Dq80, true>)
-                    : (padded == 48 ? launch_bwd<Dkv40, false>
-                                    : launch_bwd<Dkv80, false>);
+  // the smallest width that holds d: 48, 64, 80, 128 or 160
+  using Launch = decltype(&launch_bwd<Dq40, true>);
+  Launch launch = nullptr;
+  const bool a = dq != nullptr;
+  if (D <= 48) launch = a ? launch_bwd<Dq40, true> : launch_bwd<Dkv40, false>;
+  else if (D <= 64) launch = a ? launch_bwd<Dq64, true> : launch_bwd<Dkv64, false>;
+  else if (D <= 80) launch = a ? launch_bwd<Dq80, true> : launch_bwd<Dkv80, false>;
+  else if (D <= 128) launch = a ? launch_bwd<Dq128, true> : launch_bwd<Dkv128, false>;
+  else if (D <= 160) launch = a ? launch_bwd<Dq160, true> : launch_bwd<Dkv160, false>;
+  if (launch == nullptr || D % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return launch(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, q_bs,
                 q_rs, k_bs, k_rs, v_bs, v_rs, scale, s);
@@ -862,7 +885,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 //
 // What bounds them: operations, as the bf16 forms, at the TF32 rate (495
 // TFLOP/s dense) times three. All of them run on TF32 wgmma fed by TMA:
-// K1/f32 at d = 40 and 80 flash_fwd_f32_ss_kernel (Q and K by descriptor,
+// K1/f32 at widths up to 160 flash_fwd_f32_ss_kernel (Q and K by descriptor,
 // K and V split and V transposed once a call by a pre-pass), at d = 512
 // flash_fwd_f32_wgmma_kernel (Q as register A), K5a/f32 and K5b/f32
 // flash_bwd_dq_f32_ss_kernel and flash_bwd_dkv_f32_ss_kernel (the scores
@@ -972,8 +995,8 @@ flash_fwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            float* __restrict__ o, float* __restrict__ lse,
-                           int H, int N, int M, long long o_bs, long long o_rs,
-                           float scale, float c) {
+                           int H, int N, int M, int D, long long o_bs,
+                           long long o_rs, float scale, float c) {
   using C = Fwd512W;
   using namespace f32_tiles;
   constexpr int R = C::kStages, BK = C::kBK;
@@ -1261,40 +1284,45 @@ flash_fwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = q0 + r0 + 8 * r;
     if (row >= N) continue;
     const float inv = 1.f / l_run[r];
-    float* orow = o + b * o_bs + row * o_rs + (long long)h * C::kD + 256 * g;
+    float* orow = o + b * o_bs + row * o_rs + (long long)h * D + 256 * g;
 #pragma unroll
     for (int n = 0; n < 32; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n + 2 * (lane & 3)) =
-          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      if (256 * g + 8 * n + 2 * (lane & 3) < D)  // no column past d
+        *reinterpret_cast<float2*>(orow + 8 * n + 2 * (lane & 3)) =
+            make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
     if (lse != nullptr && (lane & 3) == 0 && g == 0)
       lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
   }
 }
 
+// d <= 512: the maps hold d columns, so TMA zero-fills the rest of the
+// 512-column tiles (d 512, the VAE's head, and any d past 160)
 int launch_fwd_f32_512(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int N, int M, long long q_bs,
-                       long long q_rs, long long k_bs, long long k_rs,
-                       long long v_bs, long long v_rs, long long o_bs,
-                       long long o_rs, float scale, cudaStream_t stream) {
+                       float* lse, int B, int H, int N, int M, int D,
+                       long long q_bs, long long q_rs, long long k_bs,
+                       long long k_rs, long long v_bs, long long v_rs,
+                       long long o_bs, long long o_rs, float scale,
+                       cudaStream_t stream) {
   using C = Fwd512W;
   CUtensorMap tq, tk, tv;
-  int err = tensor_map(&tq, q, C::kD, H, N, B, q_rs, q_bs, C::kBQ, true);
-  if (err == 0) err = tensor_map(&tk, k, C::kD, H, M, B, k_rs, k_bs, C::kBK, true);
-  if (err == 0) err = tensor_map(&tv, v, C::kD, H, M, B, v_rs, v_bs, C::kBK, true);
+  int err = tensor_map(&tq, q, D, H, N, B, q_rs, q_bs, C::kBQ, true);
+  if (err == 0) err = tensor_map(&tk, k, D, H, M, B, k_rs, k_bs, C::kBK, true);
+  if (err == 0) err = tensor_map(&tv, v, D, H, M, B, v_rs, v_bs, C::kBK, true);
   if (err != 0) return err;
   static unsigned long long smem_set = 0;
   err = allow_smem(flash_fwd_f32_wgmma_kernel, C::kSmemBytes, smem_set);
   if (err != 0) return err;
   dim3 grid((N + C::kBQ - 1) / C::kBQ, B * H);
   flash_fwd_f32_wgmma_kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-      tq, tk, tv, static_cast<float*>(o), lse, H, N, M, o_bs, o_rs, scale,
+      tq, tk, tv, static_cast<float*>(o), lse, H, N, M, D, o_bs, o_rs, scale,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// K1/f32 at d = 40 and 80, the UNet's heads (N = M = 4096 or 4126 at the
-// 64^2 sites, 1024 or 1054 at the 32^2 ones; M = 77 at the text sites):
+// K1/f32 at d = 40 and 80 (and, below, 64, 128, 160), the UNet's heads
+// (N = M = 4096 or 4126 at the 64^2 sites, 1024 or 1054 at the 32^2 ones;
+// M = 77 at the text sites):
 // 4 N M d flops against ~16 N d bytes, so operations bound it, three TF32
 // products for each f32 one, as at d = 512. At these widths a 128-row Q
 // tile split into hi and lo takes 64 KB (d = 40) or 96 KB (d = 80), so Q
@@ -1339,17 +1367,31 @@ int launch_fwd_f32_512(const void* q, const void* k, const void* v, void* o,
 //    allows a kernel of nine warps.
 //  * Shared memory: d = 40, 64-key stages (K hi, K lo 16 KB each, V^T hi,
 //    V^T lo 10 KB each) in three stages beside Q's 64 KB; d = 80, 32-key
-//    stages of 44 KB in two beside Q's 96 KB.
+//    stages of 44 KB in two beside Q's 96 KB; d = 64, 32-key stages of
+//    32 KB in four beside Q's 64 KB.
+//  * d = 128 and 160 (num_heads 5's 32^2 sites, SD-1.4's 24^2 sites at
+//    768^2): 128 Q rows split would take 128 or 160 KB, so a block holds
+//    64 (one consumer warpgroup and the producer warp: five warps, which
+//    ptxas allows 255 registers, where O and its fresh accumulator take
+//    d each); 32-key stages of 64 KB in two beside Q's 64 KB at d = 128,
+//    of 80 KB in one beside Q's 80 KB at d = 160 (the producer refills
+//    the stage once the P V products of the tile are done).
+//  * Any d up to the width (40, 64, 80, 128, 160; d % 4 == 0): Q's map
+//    holds d columns, the pre-pass writes zeros past d into the workspace's
+//    width-wide rows and transposed rows, and only columns < d are stored.
 
-// kD: the head dim (40 or 80); kBK: keys a stage (a multiple of 32, one
-// transposed V chunk); kStages: the ring's depth
-template <int kD_, int kBK_, int kStages_>
+// kD: the width (40, 64, 80, 128 or 160); kBK: keys a stage (a multiple of
+// 32, one transposed V chunk); kStages: the ring's depth; kGroups: consumer
+// warpgroups, 64 q rows each
+template <int kD_, int kBK_, int kStages_, int kGroups_ = 2>
 struct FwdF32W {
-  static constexpr int kD = kD_, kBK = kBK_, kStages = kStages_;
+  static constexpr int kD = kD_, kBK = kBK_, kStages = kStages_,
+                       kGroups = kGroups_;
   static constexpr int kChunks = (kD + 31) / 32;  // 32-value chunks of Q, K
   static constexpr int kSteps = kD / 8;           // S's k steps
-  static constexpr int kBQ = 128;                 // two warpgroups of 64 rows
-  static constexpr int kThreads = 9 * 32;         // and the producer warp
+  static constexpr int kBQ = 64 * kGroups;        // 64 rows a warpgroup
+  static constexpr int kProducer = 4 * kGroups;   // the producer warp
+  static constexpr int kThreads = 32 * (kProducer + 1);
   static constexpr uint32_t kQChunk = kBQ * 128;
   static constexpr uint32_t kQBytes = kChunks * kQChunk;   // Q hi; Q lo the same
   static constexpr uint32_t kKChunk = kBK * 128;
@@ -1365,14 +1407,25 @@ struct FwdF32W {
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
 };
 
-using Fwd40W = FwdF32W<40, 64, 3>;  // 64^2 sites: 221 KB
-using Fwd80W = FwdF32W<80, 32, 2>;  // 32^2 sites: 185 KB
+using Fwd40W = FwdF32W<40, 64, 3>;         // 64^2 sites: 221 KB
+using Fwd64W = FwdF32W<64, 32, 4>;         // num_heads 5, 64^2: 193 KB
+using Fwd80W = FwdF32W<80, 32, 2>;         // 32^2 sites: 185 KB
+using Fwd128W = FwdF32W<128, 32, 2, 1>;    // num_heads 5, 32^2: 193 KB
+using Fwd160W = FwdF32W<160, 32, 1, 1>;    // 24^2 sites at 768^2: 161 KB
 
-// The workspace of K1/f32 at d = 40 and 80, in floats: K hi, K lo (B H M
-// d each), then V^T hi, V^T lo (B H d Mp each)
-long long fwd_f32_ws_floats(int B, int H, int M, int D) {
+// The width of K1/f32's and K5's f32 kernels for head dim D: the smallest
+// of 40, 64, 80, 128 and 160 that holds it; 0 past 160 (K1 then runs
+// Fwd512W, K5 has none)
+int f32_width(int D) {
+  return D <= 40 ? 40 : D <= 64 ? 64 : D <= 80 ? 80 : D <= 128 ? 128
+       : D <= 160 ? 160 : 0;
+}
+
+// The workspace of K1/f32 at widths up to 160, in floats: K hi, K lo (B H
+// M W each), then V^T hi, V^T lo (B H W Mp each), W the width
+long long fwd_f32_ws_floats(int B, int H, int M, int W) {
   const long long mp = (M + 7) / 8 * 8;
-  return 2ll * B * H * D * (M + mp);
+  return 2ll * B * H * W * (M + mp);
 }
 
 // One operand of the pre-pass: a packed (B, n, H d) f32 operand with row
@@ -1398,10 +1451,13 @@ struct SplitJobs {
 // transposed) and K5a/K5b f32 (kJobs 4: Q, dO, K and V as rows, Q, dO and
 // K transposed as the call needs them): rows m0 .. m0 + 31 (m0 = 32
 // blockIdx.x) of one (batch, head) (blockIdx.y) of operand blockIdx.z,
-// split row by row, and transposed through shared memory
+// split row by row, and transposed through shared memory. The operands
+// hold D columns a head (D % 4 == 0); the workspace rows are kD wide, zero
+// past D, and the transposed operands have kD rows, zero past D.
 template <int kD, int kJobs>
 __global__ void __launch_bounds__(256)
-flash_split_f32_kernel(const __grid_constant__ SplitJobs<kJobs> jobs, int H) {
+flash_split_f32_kernel(const __grid_constant__ SplitJobs<kJobs> jobs, int H,
+                       int D) {
   const SplitJob& job = jobs.job[blockIdx.z];
   const int n = job.n, np = (n + 7) / 8 * 8;
   const int m0 = 32 * blockIdx.x;
@@ -1413,8 +1469,9 @@ flash_split_f32_kernel(const __grid_constant__ SplitJobs<kJobs> jobs, int H) {
     const int r = i / kVec, c = 4 * (i % kVec), m = m0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (m < n) {
-      x = *reinterpret_cast<const float4*>(job.src + b * job.bs + m * job.rs +
-                                           (long long)h * kD + c);
+      if (c < D)
+        x = *reinterpret_cast<const float4*>(job.src + b * job.bs +
+                                             m * job.rs + (long long)h * D + c);
       if (job.rows != nullptr) {
         const float xv[4] = {x.x, x.y, x.z, x.w};
         uint32_t hi[4], lo[4];
@@ -1453,7 +1510,7 @@ flash_fwd_f32_ss_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tvh,
                         const __grid_constant__ CUtensorMap tvl,
                         float* __restrict__ o, float* __restrict__ lse, int H,
-                        int N, int M, long long o_bs, long long o_rs,
+                        int N, int M, int Dt, long long o_bs, long long o_rs,
                         float scale, float c) {
   constexpr int S = C::kStages, BK = C::kBK, D = C::kD;
   extern __shared__ unsigned char smem_raw[];
@@ -1474,7 +1531,7 @@ flash_fwd_f32_ss_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = blockIdx.y * C::kBQ;
   const int tiles = (M + BK - 1) / BK;
   // a consumer warpgroup whose 64 rows all lie past N leaves at once
-  const int busy_groups = q0 + 64 < N ? 2 : 1;
+  const int busy_groups = C::kGroups > 1 && q0 + 64 < N ? 2 : 1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -1486,7 +1543,7 @@ flash_fwd_f32_ss_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (warp == 8) {  // the producer
+  if (warp == C::kProducer) {  // the producer
     if (lane == 0) {
       mbar_expect_tx(qbar, C::kQBytes);
       for (int ch = 0; ch < C::kChunks; ++ch)
@@ -1643,23 +1700,25 @@ flash_fwd_f32_ss_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = q0 + 64 * g + 16 * wq + (lane >> 2) + 8 * r;
     if (row >= N) continue;
     const float inv = 1.f / l_run[r];
-    float* orow = o + b * o_bs + row * o_rs + (long long)h * D;
+    float* orow = o + b * o_bs + row * o_rs + (long long)h * Dt;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(orow + 8 * j + 2 * (lane & 3)) =
-          make_float2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      if (8 * j + 2 * (lane & 3) < Dt)  // no column past d
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * (lane & 3)) =
+            make_float2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
     if (lse != nullptr && (lane & 3) == 0)
       lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
   }
 }
 
-// The pre-pass into `ws` (fwd_f32_ws_floats), then the main kernel
+// The pre-pass into `ws` (fwd_f32_ws_floats at the width), then the main
+// kernel; Dt is the head dim (<= the width)
 template <class C>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int N, int M, long long q_bs,
-                   long long q_rs, long long k_bs, long long k_rs,
-                   long long v_bs, long long v_rs, long long o_bs,
-                   long long o_rs, float scale, float* ws,
+                   float* lse, int B, int H, int N, int M, int Dt,
+                   long long q_bs, long long q_rs, long long k_bs,
+                   long long k_rs, long long v_bs, long long v_rs,
+                   long long o_bs, long long o_rs, float scale, float* ws,
                    cudaStream_t stream) {
   constexpr int D = C::kD;
   if (ws == nullptr) return (int)cudaErrorInvalidValue;
@@ -1669,7 +1728,7 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
   float* vhi = klo + (long long)BH * M * D;
   float* vlo = vhi + (long long)BH * D * Mp;
   CUtensorMap tq, tkh, tkl, tvh, tvl;
-  int err = tensor_map(&tq, q, D, H, N, B, q_rs, q_bs, C::kBQ, true);
+  int err = tensor_map(&tq, q, Dt, H, N, B, q_rs, q_bs, C::kBQ, true);
   if (err == 0) err = tensor_map_3d_f32(&tkh, khi, D, M, BH, D, C::kBK);
   if (err == 0) err = tensor_map_3d_f32(&tkl, klo, D, M, BH, D, C::kBK);
   if (err == 0) err = tensor_map_3d_f32(&tvh, vhi, Mp, D, BH, Mp, D);
@@ -1684,12 +1743,12 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
                               {static_cast<const float*>(v), v_bs, v_rs,
                                nullptr, vhi, M}}};
   flash_split_f32_kernel<D, 2><<<dim3((Mp + 31) / 32, BH, 2), 256, 0, stream>>>(
-      jobs, H);
+      jobs, H, Dt);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   kern<<<dim3(BH, (N + C::kBQ - 1) / C::kBQ), C::kThreads, C::kSmemBytes,
          stream>>>(tq, tkh, tkl, tvh, tvl, static_cast<float*>(o), lse, H, N,
-                   M, o_bs, o_rs, scale, scale * kLog2e);
+                   M, Dt, o_bs, o_rs, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -1761,35 +1820,67 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
 //  * Registers: the running sums (d / 2 a thread each), a fresh one, the
 //    score fragments and their split, within the 168 of nine warps.
 
-// kD: the head dim (40 or 80); kBS: rows of a streamed stage (16 to 64);
-// kStages: the ring's depth; kSplit: both warpgroups share 64 resident
-// rows and take the stages in turns (else 128 resident rows, 64 a
-// warpgroup, and every stage goes to both); kDkv: K5b (else K5a)
-template <int kD_, int kBS_, int kStages_, bool kSplit_, bool kDkv_>
+//  * d = 64 (num_heads 5's 64^2 sites): as d = 80, both warpgroups on 64
+//    resident rows. d = 128 and 160 (num_heads 5's 32^2 sites, SD-1.4's
+//    24^2 sites at 768^2): 64 resident rows take 128 or 160 KB hi and lo,
+//    and the running sums d / 2 registers each beside a fresh accumulator
+//    of d / 2, more than the 168 of nine warps: one consumer warpgroup and
+//    the producer warp (five warps, 255 registers), 16-row stages. K5b
+//    there runs as two launches over the stream, dV (P^T against dO^T:
+//    its stage holds Q's rows and dO^T, its residents K alone), then dK
+//    (dS^T against Q^T: Q's and dO's rows and Q^T, residents K and V): a
+//    stage of both, eight operands of 16 rows, would not fit beside the
+//    resident K and V at d = 160, nor would both sums and a fresh one in
+//    255 registers. The scores are computed once in the first launch and
+//    twice in the second.
+//  * Any d up to the width (40, 64, 80, 128, 160; d % 4 == 0): the pre-pass
+//    writes zeros past d into the workspace's width-wide rows and
+//    transposed rows, and only columns < d are stored.
+
+// kD: the width (40, 64, 80, 128 or 160); kBS: rows of a streamed stage (16
+// to 64); kStages: the ring's depth; kSplit: both warpgroups share 64
+// resident rows and take the stages in turns (else 64 resident rows a
+// warpgroup, and every stage goes to each); kDkv: K5b (else K5a); kGroups:
+// consumer warpgroups (1 or 2); kPass (K5b): 0 dK and dV, 1 dV alone, 2
+// dK alone
+template <int kD_, int kBS_, int kStages_, bool kSplit_, bool kDkv_,
+          int kGroups_ = 2, int kPass_ = 0>
 struct BwdF32W {
-  static constexpr int kD = kD_, kBS = kBS_, kStages = kStages_;
+  static constexpr int kD = kD_, kBS = kBS_, kStages = kStages_,
+                       kGroups = kGroups_, kPass = kPass_;
   static constexpr bool kSplit = kSplit_, kDkv = kDkv_;
   static constexpr int kChunks = (kD + 15) / 16;  // 16-value chunks a row
   static constexpr int kSteps = kD / 8;           // the scores' k steps
-  static constexpr int kRes = kSplit ? 64 : 128;  // resident rows a block
-  static constexpr int kThreads = 9 * 32;         // two warpgroups, producer
+  static constexpr int kRes = kSplit ? 64 : 64 * kGroups;  // resident rows
+  static constexpr int kProducer = 4 * kGroups;   // the producer warp
+  static constexpr int kThreads = 32 * (kProducer + 1);
+  // K5b's dV pass reads one resident operand (K) and one row operand (Q)
+  // of the stream, hi and lo each; the others two (K5a: Q and dO resident,
+  // K and V streamed; K5b: K and V, Q and dO)
+  static constexpr bool kDvOnly = kDkv && kPass == 1;
+  static constexpr int kNRes = kDvOnly ? 2 : 4;   // resident hi/lo tiles
+  static constexpr int kNRows = kDvOnly ? 2 : 4;  // a stage's row tiles
   static constexpr uint32_t kResChunk = kRes * 64;
-  static constexpr uint32_t kResBytes = kChunks * kResChunk;  // one of four
+  static constexpr uint32_t kResBytes = kChunks * kResChunk;  // one resident tile
   static constexpr uint32_t kRowChunk = kBS * 64;
-  static constexpr uint32_t kRowBytes = kChunks * kRowChunk;  // one of a stage's four
+  static constexpr uint32_t kRowBytes = kChunks * kRowChunk;  // one row tile
   static constexpr uint32_t kTChunk = kD * 64;                // 16 slots x d rows
   static constexpr uint32_t kTBytes = kBS / 16 * kTChunk;     // a transposed tile
-  static constexpr int kNT = kDkv ? 4 : 2;  // transposed tiles a stage
-  static constexpr uint32_t kStageBytes = 4 * kRowBytes + kNT * kTBytes;
+  // transposed tiles a stage (K5a K^T; K5b Q^T then dO^T, one of them
+  // alone in a pass) and the first one's index in the workspace's
+  static constexpr int kNT = kDkv && kPass == 0 ? 4 : 2;
+  static constexpr int kT0 = kDvOnly ? 2 : 0;
+  static constexpr uint32_t kStageBytes = kNRows * kRowBytes + kNT * kTBytes;
   static constexpr uint32_t kStatBytes = kDkv ? 2 * kBS * 4 : 0;
   // 1024 bytes of slack to align the swizzled tiles, then the resident
   // operands (K5a: Q hi, Q lo, dO hi, dO lo; K5b: K and V), the ring (a
   // stage: K5a K and V, K5b Q and dO, hi and lo, then the transposed
   // tiles), the stages' statistics (K5b), the mbarriers
-  static constexpr size_t kSmemBytes = 1024 + 4 * kResBytes +
+  static constexpr size_t kSmemBytes = 1024 + kNRes * kResBytes +
                                        kStages * (kStageBytes + kStatBytes) +
                                        8 * (2 * kStages + 1);
   static_assert(kD % 8 == 0 && kBS % 16 == 0 && kBS <= 64, "tiles");
+  static_assert(!kSplit || kGroups == 2, "kSplit shares 64 rows between two");
   static_assert(kStageBytes % 512 == 0 && kTChunk % 512 == 0, "swizzle atoms");
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
   static_assert(!kSplit || kStages * kStageBytes >=
@@ -1798,9 +1889,17 @@ struct BwdF32W {
 };
 
 using DqF40 = BwdF32W<40, 48, 2, false, false>;   // 199 KB
+using DqF64 = BwdF32W<64, 32, 3, true, false>;    // 209 KB
 using DqF80 = BwdF32W<80, 32, 2, true, false>;    // 201 KB
+using DqF128 = BwdF32W<128, 16, 2, false, false, 1>;   // 225 KB
+using DqF160 = BwdF32W<160, 16, 1, false, false, 1>;   // 221 KB
 using DkvF40 = BwdF32W<40, 32, 2, false, true>;   // 186 KB
+using DkvF64 = BwdF32W<64, 16, 4, true, true>;    // 194 KB
 using DkvF80 = BwdF32W<80, 16, 3, true, true>;    // 201 KB
+using DvF128 = BwdF32W<128, 16, 4, false, true, 1, 1>;   // 194 KB
+using DkF128 = BwdF32W<128, 16, 2, false, true, 1, 2>;   // 225 KB
+using DvF160 = BwdF32W<160, 16, 3, false, true, 1, 1>;   // 201 KB
+using DkF160 = BwdF32W<160, 16, 1, false, true, 1, 2>;   // 221 KB
 
 template <class C>
 struct BwdF32Smem {
@@ -1809,8 +1908,8 @@ struct BwdF32Smem {
   float* scratch;  // the ring, as f32 values (kSplit's partial sums)
   __device__ explicit BwdF32Smem(unsigned char* raw) {
     base = smem_u32(raw);
-    res = (base + 1023u) & ~1023u;  // resident operand i at + i kResBytes
-    ring = res + 4 * C::kResBytes;  // stage s at + s kStageBytes
+    res = (base + 1023u) & ~1023u;  // resident tile i at + i kResBytes
+    ring = res + C::kNRes * C::kResBytes;  // stage s at + s kStageBytes
     scratch = reinterpret_cast<float*>(raw + (ring - base));
     const uint32_t st = ring + C::kStages * C::kStageBytes;
     stats = reinterpret_cast<float*>(raw + (st - base));  // stage s at + 2 s kBS
@@ -1820,22 +1919,23 @@ struct BwdF32Smem {
   }
 };
 
-// The resident operands (rows r0.. of tres' matrices op B H + bh, op < 4)
-// into shared memory, once; the loading lane
+// The resident operands (rows r0.. of tres' matrices op B H + bh, op <
+// kNRes) into shared memory, once; the loading lane
 template <class C>
 __device__ __forceinline__ void bwd_f32_load_resident(const BwdF32Smem<C>& sm,
                                                       const CUtensorMap* tres,
                                                       int bh, int BH, int r0) {
-  mbar_expect_tx(sm.rbar, 4 * C::kResBytes);
-  for (int op = 0; op < 4; ++op)
+  mbar_expect_tx(sm.rbar, C::kNRes * C::kResBytes);
+  for (int op = 0; op < C::kNRes; ++op)
     for (int ch = 0; ch < C::kChunks; ++ch)
       tma_load_3d(sm.res + op * C::kResBytes + ch * C::kResChunk, tres,
                   sm.rbar, 16 * ch, r0, op * BH + bh);
 }
 
 // Stage t % kStages, once its last readers left: rows BS t.. of trows'
-// matrices op B H + bh (op < 4) and the kNT transposed tiles (slots BS t..
-// of tt's matrices op B H + bh); a warp calls it, lane 0 loads. In K5b the
+// matrices op B H + bh (op < kNRows) and the kNT transposed tiles (slots
+// BS t.. of tt's matrices (kT0 + op) B H + bh); a warp calls it, lane 0
+// loads. In K5b the
 // warp's lanes first write the stage's lse log2 e and delta (of rows < n,
 // else zero) and arrive on "full" with lane 0's transaction bytes.
 template <class C>
@@ -1859,14 +1959,15 @@ __device__ __forceinline__ void bwd_f32_load_stage(
   if (lane == 0) {
     mbar_expect_tx(bar, C::kStageBytes);
     const uint32_t st = sm.ring + s * C::kStageBytes;
-    for (int op = 0; op < 4; ++op)
+    for (int op = 0; op < C::kNRows; ++op)
       for (int ch = 0; ch < C::kChunks; ++ch)
         tma_load_3d(st + op * C::kRowBytes + ch * C::kRowChunk, trows, bar,
                     16 * ch, BS * t, op * BH + bh);
     for (int op = 0; op < C::kNT; ++op)
       for (int j = 0; j < BS / 16; ++j)
-        tma_load_3d(st + 4 * C::kRowBytes + op * C::kTBytes + j * C::kTChunk,
-                    tt, bar, BS * t + 16 * j, 0, op * BH + bh);
+        tma_load_3d(st + C::kNRows * C::kRowBytes + op * C::kTBytes +
+                        j * C::kTChunk,
+                    tt, bar, BS * t + 16 * j, 0, (C::kT0 + op) * BH + bh);
   } else if (C::kDkv) {
     mbar_arrive(bar);
   }
@@ -1971,11 +2072,12 @@ __device__ __forceinline__ bool sum_split(float (&a)[N], float (&b)[N],
 }
 
 // this thread's rows row0 and row0 + 8 of a 64 x kD f32 sum (times mul)
-// into a contiguous (rows, H*D) f32 output, rows < limit
+// into a contiguous (rows, H*D) f32 output, rows < limit, columns < D
 template <int N>
 __device__ __forceinline__ void store_rows_f32(const float (&acc)[N], float* out,
                                                long long hd, int row0,
-                                               int limit, float mul, int lane) {
+                                               int limit, int D, float mul,
+                                               int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -1983,8 +2085,9 @@ __device__ __forceinline__ void store_rows_f32(const float (&acc)[N], float* out
     float* orow = out + row * hd;
 #pragma unroll
     for (int j = 0; j < N / 4; ++j)
-      *reinterpret_cast<float2*>(orow + 8 * j + 2 * (lane & 3)) =
-          make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+      if (8 * j + 2 * (lane & 3) < D)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * (lane & 3)) =
+            make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
   }
 }
 
@@ -2012,7 +2115,7 @@ flash_bwd_dq_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            float* __restrict__ dq, int H, int N, int M,
-                           float scale, float c) {
+                           int Dt, float scale, float c) {
   constexpr int S = C::kStages, BS = C::kBS, D = C::kD;
   extern __shared__ unsigned char smem_raw[];
   const BwdF32Smem<C> sm(smem_raw);
@@ -2024,9 +2127,9 @@ flash_bwd_dq_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
   const int q0 = blockIdx.x * C::kRes;
   const int tiles = (M + BS - 1) / BS;
   // without kSplit a warpgroup whose 64 rows all lie past N leaves at once
-  const int busy = C::kSplit || q0 + 64 < N ? 2 : 1;
+  const int busy = C::kGroups > 1 && (C::kSplit || q0 + 64 < N) ? 2 : 1;
   bwd_f32_init(sm, busy);
-  if (warp == 8) {  // the producer warp
+  if (warp == C::kProducer) {  // the producer warp
     if (lane == 0) bwd_f32_load_resident(sm, &tres, bh, BH, q0);
     for (int t = 0; t < tiles; ++t)
       bwd_f32_load_stage(sm, &trows, &tt, t, bh, BH, nullptr, nullptr, N, lane);
@@ -2096,9 +2199,9 @@ flash_bwd_dq_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
   }
 
   if (C::kSplit && !sum_split(acc, acc, 0, sm.scratch, g, tid)) return;
-  const long long hd = (long long)H * D;  // row stride of dQ
-  store_rows_f32(acc, dq + (long long)b * N * hd + (long long)h * D, hd, row0,
-                 N, scale, lane);
+  const long long hd = (long long)H * Dt;  // row stride of dQ
+  store_rows_f32(acc, dq + (long long)b * N * hd + (long long)h * Dt, hd, row0,
+                 N, Dt, scale, lane);
 }
 
 // K5b: tres maps K and V (hi, lo) of the workspace, trows Q and dO, tt Q^T
@@ -2111,8 +2214,10 @@ flash_bwd_dkv_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             float* __restrict__ dk, float* __restrict__ dv,
-                            int H, int N, int M, float scale, float c) {
+                            int H, int N, int M, int Dt, float scale,
+                            float c) {
   constexpr int S = C::kStages, BS = C::kBS, D = C::kD;
+  constexpr bool kDoV = C::kPass != 2, kDoK = C::kPass != 1;
   extern __shared__ unsigned char smem_raw[];
   const BwdF32Smem<C> sm(smem_raw);
   const int warp = threadIdx.x >> 5;
@@ -2122,11 +2227,11 @@ flash_bwd_dkv_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
   const int h = bh % H;
   const int k0 = blockIdx.x * C::kRes;
   const int tiles = (N + BS - 1) / BS;
-  const int busy = C::kSplit || k0 + 64 < M ? 2 : 1;
+  const int busy = C::kGroups > 1 && (C::kSplit || k0 + 64 < M) ? 2 : 1;
   bwd_f32_init(sm, busy);
   const float* lse_bh = lse + (long long)bh * N;
   const float* delta_bh = delta + (long long)bh * N;
-  if (warp == 8) {  // the producer warp
+  if (warp == C::kProducer) {  // the producer warp
     if (lane == 0) bwd_f32_load_resident(sm, &tres, bh, BH, k0);
     for (int t = 0; t < tiles; ++t)
       bwd_f32_load_stage(sm, &trows, &tt, t, bh, BH, lse_bh, delta_bh, N, lane);
@@ -2149,30 +2254,32 @@ flash_bwd_dkv_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
     mbar_wait(sm.full + 8 * s, (t / S) & 1);
     __syncwarp();
     const uint32_t st = sm.ring + s * C::kStageBytes;
-    const uint32_t qt = st + 4 * C::kRowBytes, dot = qt + 2 * C::kTBytes;
+    // the transposed tiles after the rows: Q^T (dK), then dO^T (dV)
+    const uint32_t qt = st + C::kNRows * C::kRowBytes;
+    const uint32_t dot = kDoK ? qt + 2 * C::kTBytes : qt;
 
-    // S^T = K Q^T, dP^T = V dO^T
+    // S^T = K Q^T, and for dK dP^T = V dO^T
     float sc[BS / 2], dp[BS / 2];
     wgmma_fence();
     scores_f32<C>(sc, opaque(ka), st);
-    scores_f32<C>(dp, opaque(va), st + 2 * C::kRowBytes);
+    if constexpr (kDoK) scores_f32<C>(dp, opaque(va), st + 2 * C::kRowBytes);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
-    fence_regs(dp);
+    if constexpr (kDoK) fence_regs(dp);
 
     // P^T = exp2(S^T c - lse log2 e), 0 past N; dS^T = P^T (dP^T - delta)
     const float* stat = sm.stats + s * 2 * BS;
     const int q0 = t * BS;
     if (q0 + BS > N)
-      p_ds_cols<true>(sc, dp, stat, c, N - q0, lane);
+      p_ds_cols<true, BS / 2, kDoK>(sc, dp, stat, c, N - q0, lane);
     else
-      p_ds_cols<false>(sc, dp, stat, c, BS, lane);
+      p_ds_cols<false, BS / 2, kDoK>(sc, dp, stat, c, BS, lane);
 
     // dV += P^T dO (dO^T's tiles), then dK += dS^T Q (Q^T's), each into a
     // fresh accumulator
     float part[D / 2];
-    {
+    if constexpr (kDoV) {
       uint32_t ah[BS / 8][4], al[BS / 8][4];
       split_frag(ah, al, sc);
       wgmma_fence();
@@ -2182,10 +2289,10 @@ flash_bwd_dkv_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
       fence_regs(part);
       fence_regs(ah);
       fence_regs(al);
-    }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_v[i] += part[i];
-    {
+      for (int i = 0; i < D / 2; ++i) acc_v[i] += part[i];
+    }
+    if constexpr (kDoK) {
       uint32_t ah[BS / 8][4], al[BS / 8][4];
       split_frag(ah, al, dp);
       wgmma_fence();
@@ -2198,21 +2305,24 @@ flash_bwd_dkv_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(sm.empty + 8 * s);
+    if constexpr (kDoK) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_k[i] += part[i];
+      for (int i = 0; i < D / 2; ++i) acc_k[i] += part[i];
+    }
   }
 
   if (C::kSplit && !sum_split(acc_v, acc_k, 1, sm.scratch, g, tid)) return;
-  const long long hd = (long long)H * D;  // row stride of dK and dV
-  const long long off = (long long)b * M * hd + (long long)h * D;
+  const long long hd = (long long)H * Dt;  // row stride of dK and dV
+  const long long off = (long long)b * M * hd + (long long)h * Dt;
   const int row0 = k0 + rb + 16 * wk + (lane >> 2);
-  store_rows_f32(acc_v, dv + off, hd, row0, M, 1.f, lane);
-  store_rows_f32(acc_k, dk + off, hd, row0, M, scale, lane);
+  if (kDoV) store_rows_f32(acc_v, dv + off, hd, row0, M, Dt, 1.f, lane);
+  if (kDoK) store_rows_f32(acc_k, dk + off, hd, row0, M, Dt, scale, lane);
 }
 
-// The workspace of K5a and K5b in f32, in floats: Q and dO split (hi, lo
-// each: four (B H, N, d) blocks), K and V split (four (B H, M, d)), K^T
-// split (two (B H, d, Mp)), Q^T and dO^T split (four (B H, d, Np))
+// The workspace of K5a and K5b in f32, in floats, at the width D: Q and dO
+// split (hi, lo each: four (B H, N, D) blocks), K and V split (four (B H,
+// M, D)), K^T split (two (B H, D, Mp)), Q^T and dO^T split (four (B H, D,
+// Np))
 long long bwd_f32_ws_floats(int B, int H, int N, int M, int D) {
   const long long np = (N + 7) / 8 * 8, mp = (M + 7) / 8 * 8;
   return (long long)B * H * D * (4ll * N + 4ll * M + 2 * mp + 4 * np);
@@ -2229,19 +2339,20 @@ struct BwdF32Ws {
   }
 };
 
-// K5a (kDkv false, dq given) or K5b into the workspace `ws`; first, with
-// `prepare`, the pre-pass of what K5a (bit 0) and K5b (bit 1) read
+// K5a (kDkv false, dq given) or K5b (or one of its passes) into the
+// workspace `ws` of width C::kD; first, with `prepare`, the pre-pass of
+// what K5a (bit 0) and K5b (bit 1) read; Dt is the head dim (<= the width)
 template <class C>
 int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, void* dk, void* dv, int B, int H, int N, int M,
-                   long long q_bs, long long q_rs, long long k_bs,
+                   int Dt, long long q_bs, long long q_rs, long long k_bs,
                    long long k_rs, long long v_bs, long long v_rs, float scale,
                    float* ws, int prepare, cudaStream_t stream) {
   constexpr int D = C::kD;
   if (ws == nullptr) return (int)cudaErrorInvalidValue;
   const int BH = B * H, Np = (N + 7) / 8 * 8, Mp = (M + 7) / 8 * 8;
-  const long long hd = (long long)H * D;  // dO is contiguous
+  const long long hd = (long long)H * Dt;  // dO is contiguous
   const BwdF32Ws w(ws, BH, N, M, D);
   CUtensorMap tres, trows, tt;
   int err;
@@ -2273,7 +2384,7 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
          nullptr, M}}};
     const int rows = Np > Mp ? Np : Mp;
     flash_split_f32_kernel<D, 4><<<dim3((rows + 31) / 32, BH, 4), 256, 0,
-                                   stream>>>(jobs, H);
+                                   stream>>>(jobs, H, Dt);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
@@ -2281,11 +2392,11 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   if constexpr (C::kDkv) {
     kern<<<dim3((M + C::kRes - 1) / C::kRes, BH), C::kThreads, C::kSmemBytes,
            stream>>>(tres, trows, tt, lse, delta, static_cast<float*>(dk),
-                     static_cast<float*>(dv), H, N, M, scale, c);
+                     static_cast<float*>(dv), H, N, M, Dt, scale, c);
   } else {
     kern<<<dim3((N + C::kRes - 1) / C::kRes, BH), C::kThreads, C::kSmemBytes,
            stream>>>(tres, trows, tt, lse, delta, static_cast<float*>(dq), H,
-                     N, M, scale, c);
+                     N, M, Dt, scale, c);
   }
   return (int)cudaGetLastError();
 }
@@ -2296,21 +2407,43 @@ int flash_bwd_f32(const void* q, const void* k, const void* v,
                   int D, long long q_bs, long long q_rs, long long k_bs,
                   long long k_rs, long long v_bs, long long v_rs, float scale,
                   void* ws, int prepare, void* stream) {
-  // d = 40 and 80, the training path's head dims
-  if (D != 40 && D != 80) return (int)cudaErrorInvalidValue;
-  auto launch = dq != nullptr
-                    ? (D == 40 ? launch_bwd_f32<DqF40> : launch_bwd_f32<DqF80>)
-                    : (D == 40 ? launch_bwd_f32<DkvF40> : launch_bwd_f32<DkvF80>);
-  return launch(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, q_bs, q_rs,
-                k_bs, k_rs, v_bs, v_rs, scale, static_cast<float*>(ws),
-                prepare, static_cast<cudaStream_t>(stream));
+  // the smallest width that holds d: 40, 64, 80, 128 or 160 (d % 4 == 0);
+  // K5b past 80 as its dV pass, then its dK pass on what the first
+  // prepared
+  using Launch = decltype(&launch_bwd_f32<DqF40>);
+  Launch first = nullptr, second = nullptr;
+  const bool a = dq != nullptr;
+  switch (f32_width(D)) {
+    case 40: first = a ? launch_bwd_f32<DqF40> : launch_bwd_f32<DkvF40>; break;
+    case 64: first = a ? launch_bwd_f32<DqF64> : launch_bwd_f32<DkvF64>; break;
+    case 80: first = a ? launch_bwd_f32<DqF80> : launch_bwd_f32<DkvF80>; break;
+    case 128:
+      first = a ? launch_bwd_f32<DqF128> : launch_bwd_f32<DvF128>;
+      if (!a) second = launch_bwd_f32<DkF128>;
+      break;
+    case 160:
+      first = a ? launch_bwd_f32<DqF160> : launch_bwd_f32<DvF160>;
+      if (!a) second = launch_bwd_f32<DkF160>;
+      break;
+    default: break;
+  }
+  if (first == nullptr || D % 4 != 0) return (int)cudaErrorInvalidValue;
+  float* w = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = first(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, q_bs,
+                  q_rs, k_bs, k_rs, v_bs, v_rs, scale, w, prepare, s);
+  if (err == 0 && second != nullptr)
+    err = second(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, q_bs,
+                 q_rs, k_bs, k_rs, v_bs, v_rs, scale, w, 0, s);
+  return err;
 }
 
 }  // namespace
 
 // K5a. q, k, v as for llt2i_flash_fwd; dout and dq contiguous (B, N, H*D);
-// lse and delta contiguous f32 (B, H, N). Only d = 40 and 80 are
-// instantiated; any other returns cudaErrorInvalidValue without launching.
+// lse and delta contiguous f32 (B, H, N). Every D <= 160 (D % 8 == 0) runs
+// the instantiation of the smallest width that holds it (48, 64, 80, 128,
+// 160); any other returns cudaErrorInvalidValue without launching.
 LLT2I_API int llt2i_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dq, int B, int H,
@@ -2341,9 +2474,9 @@ LLT2I_API int llt2i_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // (B, M, H*D) likewise; o: (B, N, H*D). D % 8 == 0; 16-byte aligned rows.
 // lse: null, or a contiguous f32 (B, H, N) buffer that receives the row
 // log-sum-exp of the scaled scores (the backward's saved statistic).
-// scale > 0. Only head dims that pad to 48, 80 or 512 are instantiated;
-// any other, or scale <= 0, returns cudaErrorInvalidValue without
-// launching.
+// scale > 0. Every D <= 512 runs the instantiation of the smallest width
+// that holds it (48, 64, 80, 128, 160, 512; zeros past D); D > 512, D % 8
+// != 0 or scale <= 0 returns cudaErrorInvalidValue without launching.
 LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int H, int N,
                               int M, int D,
@@ -2353,28 +2486,29 @@ LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;  // max over raw scores
-  switch ((D + 15) / 16 * 16) {
-    case 48:  // d = 40: the 64^2 sites
-      return launch<Fwd40>(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs,
-                           k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
-    case 80:  // d = 80: the 32^2 sites
-      return launch<Fwd80>(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs,
-                           k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
-    case 512:  // d = 512: the VAE's mid attention
-      return launch<Fwd512>(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs,
-                            k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
-    default:  // no site routes another head dim here
-      return (int)cudaErrorInvalidValue;
-  }
+  if (D % 8 != 0 || D <= 0 || D > 512) return (int)cudaErrorInvalidValue;
+  // the smallest width that holds d: 48 (d 40, the 64^2 sites), 64 and 128
+  // (num_heads 5), 80 (the 32^2 sites), 160 (the 24^2 sites at 768^2),
+  // 512 (the VAE's mid attention)
+  auto run = D <= 48    ? launch<Fwd40>
+             : D <= 64  ? launch<Fwd64>
+             : D <= 80  ? launch<Fwd80>
+             : D <= 128 ? launch<Fwd128>
+             : D <= 160 ? launch<Fwd160>
+                        : launch<Fwd512>;
+  return run(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs, k_rs, v_bs,
+             v_rs, o_bs, o_rs, scale, s);
 }
 
 // The f32 forms: q, k, v, o (and dout, dq, dk, dv) f32, with the strides
 // and layouts of the bf16 entry points; rows 16-byte aligned (strides and
-// head offsets multiples of 4 floats). K1: head dims 40, 80 and 512, and at
-// d 40 and 80 a workspace `ws` of llt2i_flash_fwd_f32_ws(B, H, M, D) bytes,
-// 16-byte aligned, which the call overwrites (null at d 512); K5a and K5b:
-// 40 and 80. Any other d, scale <= 0 (K1) or a missing workspace returns
-// cudaErrorInvalidValue without launching.
+// head offsets multiples of 4 floats, so D % 4 == 0). K1: every D <= 512,
+// on the kernel of the smallest width that holds it (40, 64, 80, 128, 160:
+// flash_fwd_f32_ss_kernel, with a workspace `ws` of
+// llt2i_flash_fwd_f32_ws(B, H, M, D) bytes, 16-byte aligned, which the call
+// overwrites; 512: flash_fwd_f32_wgmma_kernel, ws null); K5a and K5b: every
+// D <= 160 likewise. Any other d, scale <= 0 (K1) or a missing workspace
+// returns cudaErrorInvalidValue without launching.
 LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* o, float* lse, int B, int H, int N,
                                   int M, int D, long long q_bs, long long q_rs,
@@ -2385,30 +2519,31 @@ LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;  // max over raw scores
   float* w = static_cast<float*>(ws);
-  switch (D) {
-    case 40:
-      return launch_fwd_f32<Fwd40W>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
-                                    k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale,
-                                    w, s);
-    case 80:
-      return launch_fwd_f32<Fwd80W>(q, k, v, o, lse, B, H, N, M, q_bs, q_rs,
-                                    k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale,
-                                    w, s);
-    case 512:
-      return launch_fwd_f32_512(q, k, v, o, lse, B, H, N, M, q_bs, q_rs, k_bs,
-                                k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (D % 4 != 0 || D <= 0 || D > 512) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto launch_w) {
+    return launch_w(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs, k_rs,
+                    v_bs, v_rs, o_bs, o_rs, scale, w, s);
+  };
+  switch (f32_width(D)) {
+    case 40: return run(launch_fwd_f32<Fwd40W>);
+    case 64: return run(launch_fwd_f32<Fwd64W>);
+    case 80: return run(launch_fwd_f32<Fwd80W>);
+    case 128: return run(launch_fwd_f32<Fwd128W>);
+    case 160: return run(launch_fwd_f32<Fwd160W>);
+    default:  // past 160: the 512-wide kernel
+      return launch_fwd_f32_512(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs,
+                                k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
   }
 }
 
 // The bytes of llt2i_flash_fwd_f32's workspace for B x H heads of M keys
-// at head dim D (0 where it needs none)
+// at head dim D (0 where it needs none: past 160)
 LLT2I_API long long llt2i_flash_fwd_f32_ws(int B, int H, int M, int D) {
-  return D == 40 || D == 80 ? 4 * fwd_f32_ws_floats(B, H, M, D) : 0;
+  const int w = f32_width(D);
+  return w ? 4 * fwd_f32_ws_floats(B, H, M, w) : 0;
 }
 
-// K5a and K5b f32: d 40 and 80, and a workspace `ws` of
+// K5a and K5b f32: every d <= 160 (d % 4 == 0), and a workspace `ws` of
 // llt2i_flash_bwd_f32_ws(B, H, N, M, D) bytes, 16-byte aligned. With
 // `prepare`, the call first writes into it the split (and transposed)
 // operands that K5a (bit 0) and K5b (bit 1) read; with 0 it reads what an
@@ -2446,7 +2581,8 @@ LLT2I_API int llt2i_flash_bwd_dkv_f32(const void* q, const void* k,
 }
 
 // The bytes of the K5a/K5b f32 workspace for B x H heads of N queries and
-// M keys at head dim D (0 where no kernel takes D)
+// M keys at head dim D (0 where no kernel takes D: past 160)
 LLT2I_API long long llt2i_flash_bwd_f32_ws(int B, int H, int N, int M, int D) {
-  return D == 40 || D == 80 ? 4 * bwd_f32_ws_floats(B, H, N, M, D) : 0;
+  const int w = f32_width(D);
+  return w ? 4 * bwd_f32_ws_floats(B, H, N, M, w) : 0;
 }

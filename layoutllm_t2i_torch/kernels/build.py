@@ -98,7 +98,7 @@ F32_TWINS = {"flash_attention": ("llt2i_flash_fwd", "llt2i_flash_bwd_dq",
 for lib_name, twins in F32_TWINS.items():
     SIGNATURES[lib_name].update({f"{fn}_f32": SIGNATURES[lib_name][fn]
                                  for fn in twins})
-# K1/f32 takes a workspace (d 40 and 80) before the stream, of the bytes
+# K1/f32 takes a workspace (widths up to 160) before the stream, of the bytes
 # that llt2i_flash_fwd_f32_ws returns
 SIGNATURES["flash_attention"]["llt2i_flash_fwd_f32"] = (
     SIGNATURES["flash_attention"]["llt2i_flash_fwd"][:-1] + [_P, _P])

@@ -17,8 +17,22 @@ Where no gradient is needed, K1 launches exactly as for inference.
 Each kernel comes in bf16 and in f32 (``llt2i_flash_*_f32``: 3xTF32
 products on TF32 wgmma with TMA; P and dS kept in f32, as the Pallas
 kernels keep them in the operands' type), picked from q's dtype; q, k, v
-and dO share it. The f32 forms take d 40 and 80 (K1 also 512), the
-training path's head dims. K1/f32 at d 40 and 80 splits K and V (and
+and dO share it.
+
+Head dims. The Pallas kernels take any d (they zero-pad it to 128 lanes);
+so do these. Each instantiation takes every d up to its width, its tensor
+maps zero-filling the columns past d (``K1_WIDTHS``, ``K5_WIDTHS``; the C
+entry points pick the smallest width that holds d): K1 every d <= 512,
+K5a/K5b every d <= 160, in both types. The maps' head stride must be whole
+16-byte vectors (d % 8 == 0 in bf16, d % 4 in f32): for any other d (16
+heads at 320 channels give d 20) the wrapper launches the kernel on a
+zero-padded packed copy of q, k, v (and dO) at the next such d, with the
+scale of the true d, and returns the output's first d columns of each
+head (``padded_head_dim``; an explicit copy, not a fallback). Past 512
+(K1) or 160 (K5) a card call raises naming ROADMAP.md's Queue 2 item;
+``num_heads`` 5 at 768^2 reaches K5 at d 256 so.
+
+K1/f32 at widths up to 160 splits K and V (and
 transposes V) once a call into a workspace that the wrapper allocates for
 the call (``llt2i_flash_fwd_f32_ws`` bytes). K5a/f32 and K5b/f32 read q,
 k, v and dO split, and k, q and dO also transposed, from a workspace of
@@ -36,6 +50,63 @@ import torch
 from .build import check, lib
 from .dispatch import (needs_grad, operand_dtype, require, stream_handle,
                        use_kernel, vector_elems)
+
+# the widths of the kernels' instantiations (csrc/flash_attention.cu): each
+# takes every head dim up to it, its maps zero-filling the columns past d.
+# bf16 rounds d up to 16 (wgmma's depth), so d 40 runs the 48-wide one.
+K1_WIDTHS = {torch.bfloat16: (48, 64, 80, 128, 160, 512),
+             torch.float32: (40, 64, 80, 128, 160, 512)}
+K5_WIDTHS = {torch.bfloat16: (48, 64, 80, 128, 160),
+             torch.float32: (40, 64, 80, 128, 160)}
+# where the head dims past the widest are listed as still to port
+NOT_PORTED = "ROADMAP.md Queue 2: K1 past d 512, K5a/K5b past d 160"
+
+
+def padded_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim a kernel call runs at: d rounded up to whole 16-byte
+    vectors of ``dtype`` (8 bf16, 4 f32), the tensor maps' head stride."""
+    per_vec = vector_elems(dtype)
+    return -(-d // per_vec) * per_vec
+
+
+def kernel_width(kid: str, dtype: torch.dtype, d: int) -> int:
+    """The width of the instantiation of ``kid`` ("K1", "K5a" or "K5b")
+    that runs head dim d in ``dtype``: the smallest that holds
+    ``padded_head_dim(d)``. Raises ValueError past the widest."""
+    dp = padded_head_dim(d, dtype)
+    widths = (K1_WIDTHS if kid == "K1" else K5_WIDTHS)[dtype]
+    for w in widths:
+        if dp <= w:
+            return w
+    raise ValueError(f"{kid}: head dim {d} is past the widest kernel "
+                     f"({widths[-1]}); not ported ({NOT_PORTED})")
+
+
+def pad_heads(t: torch.Tensor, heads: int, dp: int) -> torch.Tensor:
+    """(B, rows, H*d) -> a contiguous zero-padded copy (B, rows, H*dp)."""
+    b, n, hc = t.shape
+    d = hc // heads
+    out = t.new_zeros((b, n, heads, dp))
+    out[..., :d] = t.reshape(b, n, heads, d)
+    return out.view(b, n, heads * dp)
+
+
+def unpad_heads(t: torch.Tensor, heads: int, d: int) -> torch.Tensor:
+    """(B, rows, H*dp) -> (B, rows, H*d): each head's first d columns."""
+    b, n, hc = t.shape
+    return t.view(b, n, heads, hc // heads)[..., :d].reshape(b, n, heads * d)
+
+
+def _padded(kid, dtype, heads, *ts):
+    """(d, the head dim the kernel runs at, ``ts`` as it takes them): the
+    packed operands' head dim, and zero-padded copies where the two differ.
+    Raises past ``kid``'s widest instantiation."""
+    d = ts[0].shape[2] // heads
+    kernel_width(kid, dtype, d)
+    dp = padded_head_dim(d, dtype)
+    if dp != d:
+        ts = tuple(pad_heads(t, heads, dp) for t in ts)
+    return d, dp, ts
 
 
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -122,15 +193,16 @@ def _check_qkv(q, k, v, heads, what):
             raise ValueError(f"{what}: {name} rows must be 16-byte aligned")
     if v.shape[1] != k.shape[1]:
         raise ValueError(f"{what}: k and v lengths differ")
-    if hc % heads or (hc // heads) % 8:
-        raise ValueError(
-            f"{what}: head dim {hc}/{heads} must be a multiple of 8")
+    if hc % heads:
+        raise ValueError(f"{what}: {hc} columns do not split into {heads} heads")
     return dtype
 
 
 def _launch_fwd(q, k, v, heads, scale, need_lse):
-    """K1; with ``need_lse`` it also writes the (B, H, N) f32 lse."""
+    """K1; with ``need_lse`` it also writes the (B, H, N) f32 lse. A head
+    dim that is not whole 16-byte vectors runs on padded copies."""
     dtype = _check_qkv(q, k, v, heads, "flash_attention")
+    d, dp, (q, k, v) = _padded("K1", dtype, heads, q, k, v)
     b, n, hc = q.shape
     m = k.shape[1]
     out = torch.empty((b, n, hc), dtype=q.dtype, device=q.device)
@@ -155,7 +227,7 @@ def _launch_fwd(q, k, v, heads, scale, need_lse):
     flash_attention.launches += 1
     if dtype is torch.float32:
         flash_attention.f32_launches += 1
-    return out, lse
+    return (unpad_heads(out, heads, d) if dp != d else out), lse
 
 
 def _check_bwd(q, k, v, dout, lse, delta, heads, what):
@@ -183,11 +255,11 @@ PREPARE_DQ, PREPARE_DKV = 1, 2
 def bwd_f32_workspace(q: torch.Tensor, k: torch.Tensor,
                       heads: int) -> torch.Tensor:
     """The K5a/K5b f32 workspace of one backward call, on q's device and
-    the caller's stream: ``llt2i_flash_bwd_f32_ws`` bytes (none at a head
-    dim the kernels refuse, which then raise)."""
+    the caller's stream: ``llt2i_flash_bwd_f32_ws`` bytes at the padded
+    head dim (none at a head dim the kernels refuse, which then raise)."""
     b, n, hc = q.shape
     nbytes = lib("flash_attention").llt2i_flash_bwd_f32_ws(
-        b, heads, n, k.shape[1], hc // heads)
+        b, heads, n, k.shape[1], padded_head_dim(hc // heads, torch.float32))
     return torch.empty(nbytes // 4, dtype=torch.float32,
                        device=q.device) if nbytes else None
 
@@ -224,6 +296,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          scale)[0]
     dtype = _check_bwd(q, k, v, dout, lse, delta, heads,
                        "flash_attention_bwd_dq")
+    d, dp, (q, k, v, dout) = _padded("K5a", dtype, heads, q, k, v, dout)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
     tail = (_f32_tail(q, k, heads, workspace, prepare, PREPARE_DQ)
@@ -235,7 +308,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_attention_bwd_dq.launches += 1
     if dtype is torch.float32:
         flash_attention_bwd_dq.f32_launches += 1
-    return dq
+    return unpad_heads(dq, heads, d) if dp != d else dq
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -250,6 +323,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          scale)[1:]
     dtype = _check_bwd(q, k, v, dout, lse, delta, heads,
                        "flash_attention_bwd_dkv")
+    d, dp, (q, k, v, dout) = _padded("K5b", dtype, heads, q, k, v, dout)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
@@ -261,6 +335,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_attention_bwd_dkv.launches += 1
     if dtype is torch.float32:
         flash_attention_bwd_dkv.f32_launches += 1
+    if dp != d:
+        dk, dv = unpad_heads(dk, heads, d), unpad_heads(dv, heads, d)
     return dk, dv
 
 

@@ -5,9 +5,13 @@ JAX package routes to its Pallas flash kernel: no key mask, at least 512
 query rows and at least 128 key rows (attention.py:28,42,133-137). Every
 other site (the 16^2 and 8^2 levels, text cross-attention with M = 77,
 the relation fuser) runs the plain path: an einsum with an f32 softmax,
-never a fused library attention. K1 is built for the head dims that the
-SD-1.4 geometry routes to it (40, 80 and the VAE's 512); another head dim
-routed here raises on the card.
+never a fused library attention. K1 takes every head dim the Pallas kernel
+takes up to 512 (SD-1.4's 40 and 80 and the VAE's 512; 160 at 768^2's
+24^2 sites; 64 and 128 with num_heads 5; a d that is not whole 16-byte
+vectors through a padded copy, kernels/flash_attention.py), and its
+backward K5a/K5b every d up to 160; a site past those raises on the card,
+naming ROADMAP.md's Queue 2 item (num_heads 5 at 768^2 trains K5 at
+d 256).
 
 The q/k/v and output projections are plain matmuls on the dense (or
 dequantized) weights, as the JAX package's ``attention_with_projections``

@@ -7,7 +7,9 @@ VAE decode; the guidance interval and the encoder cache are opt-in
 (pipeline/presets.py bundles them as the fast preset). Host code
 builds fixed-shape (max_objs=30, max_relas) tensors from the ragged layout,
 mirroring interface.py:157-290. Public tensors keep the JAX package's
-shapes: noise (B, 64, 64, 4), images (B, 512, 512, 3) in [0, 1].
+shapes: noise (B, S, S, 4) with S the UNet config's ``image_size`` (64:
+images (B, 512, 512, 3) in [0, 1]; 96, SD-1.4 at 768^2: (B, 768, 768,
+3)), as the JAX pipeline samples at ``unet_cfg.image_size``.
 
 The conditioning dict may carry the extra grounding of the other GLIGEN
 modalities and inpainting, NHWC as in the JAX package:
@@ -450,7 +452,7 @@ class InferencePipeline:
 
     def sample_latents(self, cond: dict, noise,
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Conditioning + noise -> decoded images (B, 512, 512, 3) in [0, 1],
+        """Conditioning + noise -> decoded images (B, 8S, 8S, 3) in [0, 1],
         as the JAX package's sample_latents returns."""
         return self.decode(self.run_sampler(cond, noise, generator))
 
@@ -462,7 +464,7 @@ class InferencePipeline:
         """Prompt-parallel: this rank samples and decodes its rows of the
         batch (``cond`` and ``noise`` are the whole batch's, the same on
         every rank; the weights are on every rank) and the images are
-        all-gathered: every rank returns the whole (B, 512, 512, 3), as the
+        all-gathered: every rank returns the whole (B, 8S, 8S, 3), as the
         JAX method returns the global array. DDIM's step noise at eta > 0
         is drawn for the whole batch on every rank and sliced (``generator``
         advances alike on every rank)."""
@@ -540,7 +542,8 @@ class InferencePipeline:
     def generate(self, prompts: List[str], layouts, relation_texts=None,
                  seed: int = 42,
                  seeds: Optional[Sequence[int]] = None) -> np.ndarray:
-        """Returns (B, 512, 512, 3) float images in [0, 1]. ``seeds``: see
+        """Returns (B, 8S, 8S, 3) float images in [0, 1] (S the UNet
+        config's image_size). ``seeds``: see
         _batch_noise (per-request reproducibility for serving batches)."""
         cond = self.build_cond(prompts, layouts, relation_texts)
         noise, gen = self._batch_noise(len(prompts), seed, seeds)

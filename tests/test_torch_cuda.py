@@ -101,6 +101,12 @@ def _check(kid, kernel_fn, plain_fn, counter):
     (2, 513, 129, 8, 80),     # one row past a q block, one past a kv block
     (1, 512, 700, 2, 80),
     (1, 520, 600, 1, 512),    # the VAE's single wide head
+    # every width: d 20 through the padded copy (24, on the 48 width), 64
+    # and 128 (num_heads 5), 96 and 144 (zero columns on the 128 and 160
+    # widths), 160 (768^2's 24^2 sites), 256 (on the 512 width)
+    (1, 600, 630, 16, 20), (1, 600, 630, 5, 64), (1, 600, 630, 2, 96),
+    (1, 600, 630, 5, 128), (1, 600, 630, 2, 144), (2, 576, 606, 8, 160),
+    (1, 576, 576, 5, 256),
 ])
 def test_flash_attention(dev, gen, b, n, m, heads, d):
     q = _rand(gen, b, n, heads * d)
@@ -200,11 +206,12 @@ def test_flash_attention_is_bitwise_repeatable(dev, gen, b, n, m, heads, d):
 
 
 def test_flash_attention_uninstantiated_head_dim_raises(dev, gen):
-    # d = 160 (the 16^2 sites) stays on the plain path: no instantiation
-    q = _rand(gen, 1, 512, 2 * 160)
+    # past the widest instantiation (512) the wrapper raises before any
+    # launch, naming the ROADMAP item that lists the head dim
+    q = _rand(gen, 1, 512, 2 * 520)
     before = K.flash_attention.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        K.flash_attention(q, q, q, 2, 160 ** -0.5)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        K.flash_attention(q, q, q, 2, 520 ** -0.5)
     assert K.flash_attention.launches == before
 
 
@@ -525,6 +532,30 @@ def test_flash_attention_backward(dev, gen, b, n, m, heads, d):
            lambda: ref[1:], K.flash_attention_bwd_dkv)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,m,heads,d", [
+    (1, 600, 630, 16, 20), (1, 600, 630, 5, 64), (1, 600, 630, 2, 96),
+    (2, 1054, 1054, 5, 128), (1, 600, 630, 2, 144), (2, 576, 606, 8, 160),
+])
+def test_flash_attention_backward_head_dims(dev, gen, b, n, m, heads, d, dtype):
+    # K5a and K5b at every width past 80 (K5b/f32 at 128 and 160 as its dV
+    # pass, then its dK pass) and at d on a wider one (20 through the
+    # padded copy), each against the plain backward
+    q, k, v, dout = (t.to(dtype) for t in _attention_inputs(gen, b, n, m, heads, d))
+    s = d ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
+    delta = K.attention_delta(out, dout, heads)
+    ref = K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, s)
+    tag = "/f32" if dtype is torch.float32 else ""
+    for kid, fn, want in (("K5a", K.flash_attention_bwd_dq, ref[0]),
+                          ("K5b", K.flash_attention_bwd_dkv, ref[1:])):
+        before = fn.launches
+        got = agreement(kid + tag, fn(q, k, v, dout, lse, delta, heads, s), want)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got["ok"], got
+
+
 def test_flash_attention_backward_strided_operands(dev, gen):
     b, n, heads, d = 2, 700, 4, 40
     qkv = _rand(gen, b, n, 3 * heads * d)   # q, k, v as column slices
@@ -627,14 +658,15 @@ def test_flash_attention_backward_is_bitwise_repeatable(dev, gen, b, n, m,
 
 
 def test_flash_attention_backward_uninstantiated_head_dim_raises(dev, gen):
-    # d = 160 (the 16^2 sites) never routes here: no backward instantiation
-    q, k, v, dout = _attention_inputs(gen, 1, 512, 512, 2, 160)
+    # past the widest backward instantiation (160: num_heads 5 at 768^2
+    # reaches 256) the wrappers raise before any launch
+    q, k, v, dout = _attention_inputs(gen, 1, 512, 512, 2, 256)
     lse = torch.zeros(1, 2, 512, device=dev)
     before = (K.flash_attention_bwd_dq.launches, K.flash_attention_bwd_dkv.launches)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 160 ** -0.5)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 160 ** -0.5)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 256 ** -0.5)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 256 ** -0.5)
     assert (K.flash_attention_bwd_dq.launches,
             K.flash_attention_bwd_dkv.launches) == before
 
@@ -793,6 +825,11 @@ def _check_f32(kid, kernel_fn, plain_fn, counter, kids=None):
     (2, 4126, 4126, 8, 40), (1, 4096, 4096, 1, 512),
     # the gated 32^2 site of the f32 generation; 77 keys, one ragged tile
     (4, 1054, 1054, 8, 80), (2, 1024, 77, 8, 80), (2, 4096, 77, 8, 40),
+    # the widths past 80 and d on a wider one: 20 (the 40 width), 96 (128),
+    # 144 (160), 256 (512)
+    (1, 600, 630, 16, 20), (1, 600, 630, 5, 64), (1, 600, 630, 2, 96),
+    (1, 600, 630, 5, 128), (1, 600, 630, 2, 144), (2, 576, 606, 8, 160),
+    (1, 576, 576, 5, 256),
 ])
 def test_flash_attention_f32(dev, gen, f32, b, n, m, heads, d):
     q, k, v = (_rand(gen, b, r, heads * d).float() for r in (n, m, m))
@@ -928,15 +965,16 @@ def test_flash_attention_backward_f32_is_bitwise_repeatable(dev, gen, f32, b, n,
 
 
 def test_flash_attention_backward_f32_other_head_dims_raise(dev, gen, f32):
-    # d 40 and 80 only: no workspace and no launch at d 160 (the 16^2 sites)
-    q, k, v, dout = (t.float() for t in _attention_inputs(gen, 1, 512, 512, 2, 160))
+    # d <= 160 only: no workspace and no launch at d 168
+    q, k, v, dout = (t.float() for t in _attention_inputs(gen, 1, 512, 512, 2, 168))
     lse = torch.zeros(1, 2, 512, device=dev)
-    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 160) == 0
+    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 168) == 0
+    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 160) > 0
     before = (K.flash_attention_bwd_dq.launches, K.flash_attention_bwd_dkv.launches)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 160 ** -0.5)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 160 ** -0.5)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 168 ** -0.5)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 168 ** -0.5)
     assert (K.flash_attention_bwd_dq.launches,
             K.flash_attention_bwd_dkv.launches) == before
 

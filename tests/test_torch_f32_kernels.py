@@ -189,13 +189,13 @@ def test_tf32_split_is_exact_to_2_22():
 # K1 and its lse
 
 
-def _k1_emulated(q, k, v, heads, scale, bk, fault=None):
-    """K1/f32 on the CPU: at d = 40 and 80 ``_k1_ss_emulated``
+def _k1_emulated(q, k, v, heads, scale, bk, fault=None, width=None):
+    """K1/f32 on the CPU: up to the 160 width ``_k1_ss_emulated``
     (flash_fwd_f32_ss_kernel), at d = 512 ``_k1_wgmma_emulated``
     (flash_fwd_f32_wgmma_kernel). Returns (out, lse)."""
     if q.shape[-1] // heads == 512:
         return _k1_wgmma_emulated(q, k, v, heads, scale, bk, fault)
-    return _k1_ss_emulated(q, k, v, heads, scale, bk, fault)
+    return _k1_ss_emulated(q, k, v, heads, scale, bk, fault, width)
 
 
 def _slot_rows(t):
@@ -207,8 +207,8 @@ def _slot_rows(t):
     return t[..., slot.clamp(max=t.shape[-2] - 1), :]
 
 
-def _k1_ss_emulated(q, k, v, heads, scale, bk, fault=None):
-    """flash_fwd_f32_ss_kernel (K1/f32 at d = 40 and 80) on the CPU. Q, K
+def _k1_ss_emulated(q, k, v, heads, scale, bk, fault=None, width=None):
+    """flash_fwd_f32_ss_kernel (K1/f32 at widths up to 160) on the CPU. Q, K
     and V in chunks of 32 values, zeros past d (the k loop stops at d); K
     and V split once (the pre-pass), Q once a block. Per tile of ``bk`` keys
     (zeros past M): S's d / 8 k steps' products (``tc_products``: lo*hi and
@@ -218,18 +218,28 @@ def _k1_ss_emulated(q, k, v, heads, scale, bk, fault=None):
     tile's products truncating into a fresh accumulator added to the
     rescaled O in round-to-nearest f32. Faults: ``stale_v`` (the previous
     tile's V stage), ``v_slots`` (V^T's keys not at P's permuted k),
-    ``d_tail_dropped`` (the partial last 32-value chunk of d), ``lo_hi_dropped``,
+    ``d_tail_dropped`` (the partial last 32-value chunk of d), ``drop_chunk``
+    (the ``width``'s last 64 columns of Q K^T), ``pad_nonzero`` (the
+    width's columns past d read from the next head), ``lo_hi_dropped``,
     ``never_zeroed`` (P V's fresh accumulator carried into the next tile),
     ``tf32_one_pass``, ``kv_tail`` (the ragged last tile), ``rescale`` (the
     row sum not rescaled). Returns (out, lse)."""
     passes = 1 if fault == "tf32_one_pass" else 3
     qh, kh, vh = (_split(t, heads) for t in (q, k, v))
     b, h, n, d = qh.shape
-    m = kh.shape[2]
+    m, d0 = kh.shape[2], d
     if fault == "d_tail_dropped":   # d 40: columns 32..39; d 80: 64..79
         qh = qh.clone()
         qh[..., d - d % 32:] = 0
+    elif fault == "drop_chunk":     # d 160: columns 128..159
+        qh = qh.clone()
+        qh[..., 64 * ((width - 1) // 64):] = 0
+    elif fault == "pad_nonzero":    # the pre-pass's zeros past d not written
+        nb = lambda t: torch.cat([t, t.roll(-1, 1)[..., :width - d]], dim=-1)
+        qh, kh = nb(qh), nb(kh)
+        vh = torch.cat([vh, torch.zeros_like(vh[..., :width - d])], dim=-1)
     c = torch.tensor(scale, dtype=F32) * torch.tensor(1.4426950408889634, dtype=F32)
+    d = qh.shape[-1]       # the width under "pad_nonzero"
     m_run = torch.full((b, h, n, 1), -torch.inf)
     den = torch.zeros(b, h, n, 1)
     acc = torch.zeros(b, h, n, d)
@@ -257,7 +267,7 @@ def _k1_ss_emulated(q, k, v, heads, scale, bk, fault=None):
                                  fault == "lo_hi_dropped", passes))
         acc = acc * alpha + part
         m_run = m_new
-    out = acc * (1.0 / den)
+    out = (acc * (1.0 / den))[..., :d0]   # the columns of the true d
     return _packed(out), (m_run * scale + torch.log(den))[..., 0]
 
 
@@ -323,8 +333,10 @@ def _k1_wgmma_emulated(q, k, v, heads, scale, bk, fault=None):
     return _packed(out), (m_run * scale + torch.log(den))[..., 0]
 
 
-# csrc/flash_attention.cu Fwd40W, Fwd80W, Fwd512W: keys a stage
-K1_BK = {40: 64, 80: 32, 512: 32}
+# csrc/flash_attention.cu Fwd40W, Fwd64W, Fwd80W, Fwd128W, Fwd160W, Fwd512W:
+# keys a stage (d 144 runs Fwd160W, the 160 width)
+K1_BK = {40: 64, 64: 32, 80: 32, 128: 32, 144: 32, 160: 32, 512: 32}
+K1_WIDTH = {144: 160}
 
 
 @pytest.mark.parametrize("d,fault", [
@@ -340,6 +352,12 @@ K1_BK = {40: 64, 80: 32, 512: 32}
     # accumulator never zeroed
     *((d, f) for d in (40, 80) for f in ("stale_v", "v_slots", "d_tail_dropped",
                                          "lo_hi_dropped", "never_zeroed")),
+    # the widths past 80 (num_heads 5's 64 and 128, 768^2's 160; d 144 on
+    # the 160 width): a dropped ragged tail, the width's last 64 columns
+    # dropped from the scores, its pad columns not zeroed, a stale V stage
+    *((d, f) for d in (64, 128, 160) for f in (None, "tf32_one_pass", "kv_tail")),
+    (128, "drop_chunk"), (160, "drop_chunk"), (160, "stale_v"),
+    (144, None), (144, "pad_nonzero"), (144, "drop_chunk"),
 ])
 def test_k1_f32_tolerance_separates_rounding_from_faults(d, fault):
     # M = 1054 (the 32^2 gated sites' length) leaves a ragged last stage at
@@ -353,7 +371,8 @@ def test_k1_f32_tolerance_separates_rounding_from_faults(d, fault):
     ref = flash_attention_lse_plain(q, k, v, heads, scale)
     kids = (tol_id("K1", F32), tol_id("lse", F32))
     assert kids == ("K1/f32", "lse/f32")
-    got = agreement(kids, _k1_emulated(q, k, v, heads, scale, K1_BK[d], fault), ref)
+    got = agreement(kids, _k1_emulated(q, k, v, heads, scale, K1_BK[d], fault,
+                                       K1_WIDTH.get(d, d)), ref)
     assert got["ok"] == (fault is None), got
 
 
@@ -363,9 +382,17 @@ def test_k1_f32_tolerance_separates_rounding_from_faults(d, fault):
 
 # csrc/flash_attention.cu DqF40, DqF80, DkvF40, DkvF80: rows a streamed
 # stage, and whether the two warpgroups share the resident rows and take the
-# stages in turns (their sums added at the end, warpgroup 0's first)
+# stages in turns (their sums added at the end, warpgroup 0's first). Past
+# d 80: DqF64/DkvF64 as d 80's; DqF128, DqF160 and K5b's two passes
+# (DvF128 then DkF128, DvF160 then DkF160: the same products in the same
+# order as one pass) one warpgroup on every stage; d 144 runs the 160s
 K5_TILES = {("K5a", 40): (48, False), ("K5a", 80): (16, True),
-            ("K5b", 40): (32, False), ("K5b", 80): (16, True)}
+            ("K5b", 40): (32, False), ("K5b", 80): (16, True),
+            ("K5a", 64): (32, True), ("K5b", 64): (16, True),
+            **{(kid, d): (16, False) for kid in ("K5a", "K5b")
+               for d in (128, 144, 160)}}
+# the width a head dim runs at, where it is not d itself
+K5_WIDTH = {144: 160}
 
 
 def _stage(t, r0, bs):
@@ -377,6 +404,9 @@ def _stage(t, r0, bs):
 
 
 def _k5_wgmma_emulated(kid, q, k, v, dout, lse, delta, heads, scale, fault=None):
+    # (faults past d 80: ``drop_chunk``, the width's last 64 columns dropped
+    # from the scores; ``pad_nonzero``, the width's columns past d read from
+    # the next head in the scores' operands)
     """flash_bwd_dq_f32_ss_kernel (K5a: dQ over K/V stages) or
     flash_bwd_dkv_f32_ss_kernel (K5b: dK and dV over Q/dO stages) on the CPU,
     at the kernels' tiles (``K5_TILES``). Every operand split once into hi
@@ -408,8 +438,18 @@ def _k5_wgmma_emulated(kid, q, k, v, dout, lse, delta, heads, scale, fault=None)
     ra, rb = (qh, doh) if dqa else (kh, vh)               # resident: A of S, dP
     sa, sb = (kh, vh) if dqa else (qh, doh)               # streamed: B of S, dP
     outs = 1 if dqa else 2                                # dQ; dV, dK
-    a_hi, a_lo = split(ra)
-    b_hi, b_lo = split(rb)
+    d = qh.shape[-1]
+    width = K5_WIDTH.get(d, d)
+    xa, xb, ya, yb = ra, rb, sa, sb                       # the scores' operands
+    if fault == "drop_chunk":
+        xa, xb = ra.clone(), rb.clone()
+        xa[..., 64 * ((width - 1) // 64):] = 0
+        xb[..., 64 * ((width - 1) // 64):] = 0
+    elif fault == "pad_nonzero":
+        nb = lambda t: torch.cat([t, t.roll(-1, 1)[..., :width - d]], dim=-1)
+        xa, xb, ya, yb = nb(ra), nb(rb), nb(sa), nb(sb)
+    a_hi, a_lo = split(xa)
+    b_hi, b_lo = split(xb)
     length = sa.shape[2]
     end = length - length % bs if fault == "kv_tail" else length
     sums = [[None] * outs for _ in range(2)]              # [warpgroup][output]
@@ -418,10 +458,10 @@ def _k5_wgmma_emulated(kid, q, k, v, dout, lse, delta, heads, scale, fault=None)
         g = t % 2 if two else 0
         rows = min(bs, length - r0)
         st_a, st_b = _stage(sa, r0, bs), _stage(sb, r0, bs)
-        s = chain(None, tc_products(a_hi, a_lo, *split(st_a.transpose(-1, -2)),
-                                    drop, passes))
-        dp = chain(None, tc_products(b_hi, b_lo, *split(st_b.transpose(-1, -2)),
-                                     drop, passes))
+        s = chain(None, tc_products(a_hi, a_lo, *split(
+            _stage(ya, r0, bs).transpose(-1, -2)), drop, passes))
+        dp = chain(None, tc_products(b_hi, b_lo, *split(
+            _stage(yb, r0, bs).transpose(-1, -2)), drop, passes))
         if dqa:   # the rows' statistics: (b, h, n, 1)
             p = torch.exp2(s * c - l2)
             p[..., rows:] = 0
@@ -478,11 +518,18 @@ def _k5_case(kid, d, fault, n=1054, heads=2):
 @pytest.mark.parametrize("d,kid,fault", [
     *((d, kid, f) for d in (40, 80) for kid in ("K5a", "K5b")
       for f in (None, "tf32_one_pass") + K5_FAULTS),
+    # the widths past 80 (d 144 on the 160 width): a dropped ragged tail, a
+    # stale stage, the width's last 64 columns dropped from the scores, its
+    # pad columns not zeroed
+    *((d, kid, f) for d in (64, 128, 160) for kid in ("K5a", "K5b")
+      for f in (None, "kv_tail", "stale_stage")),
+    *((d, kid, "drop_chunk") for d in (128, 160) for kid in ("K5a", "K5b")),
+    *((144, kid, f) for kid in ("K5a", "K5b") for f in (None, "pad_nonzero")),
 ])
 def test_k5_f32_tolerance_separates_rounding_from_faults(d, kid, fault):
-    # N = M = 1054 (the 32^2 gated sites' length): a ragged last stage at
-    # every tile (48, 32, 16 rows)
-    got = _k5_case(kid, d, fault)
+    # N = M = 1054 (the 32^2 gated sites' length), past d 80 606 (768^2's
+    # 24^2 gated sites): a ragged last stage at every tile (48, 32, 16 rows)
+    got = _k5_case(kid, d, fault, n=606 if d > 80 else 1054)
     assert got["ok"] == (fault is None), got
 
 

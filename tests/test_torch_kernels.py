@@ -12,6 +12,10 @@ emulations of the CUDA kernels' algorithms (K1 in its first, WMMA design
 and in its wgmma design): the kernels' own rounding must pass them, small
 faults must not.
 """
+import importlib
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -30,6 +34,8 @@ from layoutllm_t2i_torch.kernels.tolerance import agreement
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
+# the module (the package exports its function under the same name)
+FA = importlib.import_module("layoutllm_t2i_torch.kernels.flash_attention")
 
 
 def _t(a):
@@ -40,6 +46,11 @@ def _t(a):
     (2, 600, 630, 40),    # 64^2 head dim, ragged q and kv tails
     (2, 600, 630, 80),    # 32^2 head dim
     (1, 520, 600, 512),   # VAE mid attention: one head of 512
+    (2, 600, 630, 20),    # 16 heads at 320 channels (the padded copy's d)
+    (2, 600, 630, 64),    # num_heads 5 at the 64^2 sites
+    (2, 600, 630, 128),   # num_heads 5 at the 32^2 sites
+    (2, 576, 606, 160),   # SD-1.4's 24^2 sites at 768^2
+    (1, 520, 600, 256),   # num_heads 5's 24^2 sites at 768^2
 ])
 def test_flash_attention_plain_matches_pallas(rng, heads, n, m, d):
     q = rng.standard_normal((1, heads, n, d), dtype=np.float32)
@@ -51,7 +62,83 @@ def test_flash_attention_plain_matches_pallas(rng, heads, n, m, d):
     packed = lambda a: _t(a.transpose(0, 2, 1, 3).reshape(1, a.shape[2], -1))
     out = flash_attention(packed(q), packed(k), packed(v), heads, scale)
     out = out.numpy().reshape(1, n, heads, d).transpose(0, 2, 1, 3)
-    np.testing.assert_allclose(out, ref, atol=2e-5 if d == 512 else ATOL)
+    np.testing.assert_allclose(out, ref, atol=2e-5 if d >= 128 else ATOL)
+
+
+@pytest.mark.parametrize("kid,dtype,d,width", [
+    ("K1", torch.bfloat16, 20, 48), ("K1", torch.bfloat16, 40, 48),
+    ("K1", torch.bfloat16, 56, 64), ("K1", torch.bfloat16, 64, 64),
+    ("K1", torch.bfloat16, 72, 80), ("K1", torch.bfloat16, 96, 128),
+    ("K1", torch.bfloat16, 144, 160), ("K1", torch.bfloat16, 160, 160),
+    ("K1", torch.bfloat16, 168, 512), ("K1", torch.bfloat16, 256, 512),
+    ("K1", torch.bfloat16, 512, 512), ("K1", torch.float32, 20, 40),
+    ("K1", torch.float32, 44, 64), ("K1", torch.float32, 96, 128),
+    ("K1", torch.float32, 161, 512), ("K5a", torch.bfloat16, 20, 48),
+    ("K5a", torch.bfloat16, 144, 160), ("K5b", torch.bfloat16, 96, 128),
+    ("K5b", torch.float32, 20, 40), ("K5a", torch.float32, 64, 64),
+    ("K5b", torch.float32, 157, 160),
+])
+def test_kernel_width_is_the_smallest_that_holds_d(kid, dtype, d, width):
+    # the instantiation a head dim runs on, after the padding copy to whole
+    # 16-byte vectors (d 20 -> 24 in bf16; 157 -> 160 in f32)
+    assert FA.kernel_width(kid, dtype, d) == width
+    assert FA.padded_head_dim(d, dtype) <= width
+
+
+@pytest.mark.parametrize("kid,d", [("K1", 520), ("K5a", 168), ("K5b", 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_head_dims_past_the_widest_kernel_raise(kid, dtype, d):
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        FA.kernel_width(kid, dtype, d)
+
+
+def test_kernel_widths_are_the_c_entry_points():
+    # the widths the C entry points switch on (csrc/flash_attention.cu):
+    # bf16 K1 and K5 by `D <= w`, the f32 forms through f32_width
+    src = (Path(FA.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
+
+    def widths(start):
+        body = src[src.index(start):]
+        body = body[:body.index("\n}\n")]
+        return tuple(int(w) for w in re.findall(r"D <= (\d+)", body) if int(w))
+
+    assert widths("LLT2I_API int llt2i_flash_fwd(") + (512,) == \
+        FA.K1_WIDTHS[torch.bfloat16]
+    assert widths("int flash_bwd(const void* q") == FA.K5_WIDTHS[torch.bfloat16]
+    assert widths("int f32_width(int D)") == FA.K5_WIDTHS[torch.float32] == \
+        FA.K1_WIDTHS[torch.float32][:-1]
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 20), (torch.float32, 22),
+                                     (torch.bfloat16, 100)])
+def test_padded_copy_computes_the_true_head_dim(dtype, d):
+    # the wrapper's path for a d that is not whole 16-byte vectors: q, k, v
+    # (and dO) zero-padded per head, the scale of the true d, each head's
+    # first d columns of the outputs. The zero columns add nothing to the
+    # scores, and their outputs are dropped: the f32 plain versions on the
+    # copies equal them on the operands, forward and backward
+    heads, n, m = 3, 40, 56
+    dp = FA.padded_head_dim(d, dtype)
+    assert dp > d and dp % (8 if dtype is torch.bfloat16 else 4) == 0
+    g = torch.Generator().manual_seed(0)
+    q, k, v, dout = (torch.randn(2, r, heads * d, generator=g)
+                     for r in (n, m, m, n))
+    scale = d ** -0.5
+    pad = lambda t: FA.pad_heads(t, heads, dp)
+    assert torch.equal(FA.unpad_heads(pad(q), heads, d), q)
+    out, lse = flash_attention_lse_plain(q, k, v, heads, scale)
+    out_p, lse_p = flash_attention_lse_plain(pad(q), pad(k), pad(v), heads, scale)
+    torch.testing.assert_close(FA.unpad_heads(out_p, heads, d), out,
+                               rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse, rtol=0, atol=1e-6)
+    assert not FA.unpad_heads(out_p, heads, d).equal(out_p[..., :heads * d])
+    delta = attention_delta(out, dout, heads)
+    ref = flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, scale)
+    got = flash_attention_bwd_plain(pad(q), pad(k), pad(v), pad(dout), lse,
+                                    delta, heads, scale)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(FA.unpad_heads(a, heads, d), b, rtol=0,
+                                   atol=1e-6)
 
 
 def _gn_inputs(rng, shape):
@@ -163,7 +250,7 @@ def test_k1_tolerance_separates_rounding_from_faults(fault):
     assert got["ok"] == (fault is None), got
 
 
-def _flash_wgmma_emulated(q, k, v, heads, scale, fault=None, bk=128):
+def _flash_wgmma_emulated(q, k, v, heads, scale, fault=None, bk=128, width=48):
     """The wgmma design of csrc/flash_attention.cu in f32 on the CPU: K/V in
     BK-row tiles zero-filled past M (TMA), the ragged tail masked to -inf,
     the row max over the raw scores, p = exp2(s c - m c) with c =
@@ -175,10 +262,16 @@ def _flash_wgmma_emulated(q, k, v, heads, scale, fault=None, bk=128):
     m, d = k.shape[1], hc // heads
     split = lambda t: t.float().view(b, -1, heads, d).transpose(1, 2)
     qh, kh, vh = split(q), split(k), split(v)
+    qs = qh
     if fault == "pad_neighbour":
-        # the 8 pad columns of d = 40 read from the next head, not zeros
-        nb = lambda t: torch.cat([t, t.roll(-1, 1)[..., :8]], dim=-1)
-        qh, kh = nb(qh), nb(kh)
+        # the pad columns of the instantiation's ``width`` (8 at d = 40)
+        # read from the next head, not zeros
+        nb = lambda t: torch.cat([t, t.roll(-1, 1)[..., :width - d]], dim=-1)
+        qs, kh = nb(qh), nb(kh)
+    elif fault == "drop_chunk":
+        # the width's last 64-column chunk of Q K^T dropped
+        qs = qh.clone()
+        qs[..., 64 * ((width - 1) // 64):] = 0
     pad = -m % bk
     kh = torch.cat([kh, torch.zeros(b, heads, pad, kh.shape[-1])], dim=2)
     vh = torch.cat([vh, torch.zeros(b, heads, pad, d)], dim=2)
@@ -191,7 +284,7 @@ def _flash_wgmma_emulated(q, k, v, heads, scale, fault=None, bk=128):
     acc = torch.zeros(b, heads, n, d)
     end = m - m % bk if fault == "kv_tail" else m
     for k0 in range(0, end, bk):
-        s = qh @ kh[:, :, k0:k0 + bk].transpose(-1, -2)
+        s = qs @ kh[:, :, k0:k0 + bk].transpose(-1, -2)
         if fault != "mask_zero":   # zero-filled rows would score 0
             s[..., max(0, m - k0):] = -torch.inf
         m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
@@ -207,20 +300,33 @@ def _flash_wgmma_emulated(q, k, v, heads, scale, fault=None, bk=128):
     return out.to(torch.bfloat16), lse
 
 
+# csrc/flash_attention.cu's bf16 K1 instantiation of each head dim: its
+# width and its K/V rows a stage (Fwd40, Fwd64, Fwd80, Fwd128, Fwd160,
+# Fwd512; d 144 runs Fwd160 with 16 zero columns)
+K1_TILES = {40: (48, 64), 64: (64, 64), 80: (80, 128), 128: (128, 64),
+            144: (160, 64), 160: (160, 64), 512: (512, 32)}
+
+
 @pytest.mark.parametrize("d,fault", [
     (80, None), (80, "kv_tail"), (80, "rescale"), (80, "scale"),
     (80, "mask_zero"), (80, "lse_log2"),
     (40, None), (40, "mask_zero"), (40, "pad_neighbour"),
     (512, None), (512, "kv_tail"), (512, "scale"),
+    (64, None), (64, "kv_tail"), (64, "mask_zero"),
+    (128, None), (128, "kv_tail"), (128, "drop_chunk"),
+    (160, None), (160, "kv_tail"), (160, "drop_chunk"), (160, "scale"),
+    (144, None), (144, "pad_neighbour"), (144, "drop_chunk"),
 ])
 def test_k1_wgmma_tolerance_separates_rounding_from_faults(d, fault):
     # K1's tolerance, unchanged, against the rounding of the wgmma design,
-    # at each head dim's K/V tile (csrc/flash_attention.cu Fwd40, Fwd80,
-    # Fwd512): M = 1054 = 16 * 64 + 30 (d 40; BK = 64), 8 * 128 + 30 (d 80;
-    # BK = 128) and 32 * 32 + 30 (d 512; BK = 32) leaves the last tile ragged. "mask_zero" lets the
-    # zero-filled rows past M score 0 instead of -inf, "pad_neighbour"
-    # reads the next head's columns as d = 40's pad, "lse_log2" leaves
-    # the lse in base-2 units; the others as for the first design.
+    # at each head dim's K/V tile (K1_TILES): M = 1054 = 16 * 64 + 30
+    # (BK = 64), 8 * 128 + 30 (d 80; BK = 128) and 32 * 32 + 30 (d 512; BK
+    # = 32) leaves the last tile ragged. "mask_zero" lets the zero-filled
+    # rows past M score 0 instead of -inf, "pad_neighbour" reads the next
+    # head's columns as the pad of d's width (8 at d = 40, 16 at d = 144),
+    # "drop_chunk" drops the width's last 64-column chunk from the scores,
+    # "lse_log2" leaves the lse in base-2 units; the others as for the
+    # first design.
     heads = 1 if d == 512 else 2
     n = 600 if d == 512 else 1054
     g = torch.Generator().manual_seed(0)
@@ -229,13 +335,14 @@ def test_k1_wgmma_tolerance_separates_rounding_from_faults(d, fault):
             for _ in range(2))
     scale = d ** -0.5
     ref = flash_attention_lse_plain(q, k, v, heads, scale)
+    width, bk = K1_TILES[d]
     got = agreement(("K1", "lse"), _flash_wgmma_emulated(
-        q, k, v, heads, scale, fault, bk={40: 64, 80: 128, 512: 32}[d]), ref)
+        q, k, v, heads, scale, fault, bk=bk, width=width), ref)
     assert got["ok"] == (fault is None), got
 
 
 def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
-                        fault=None, bq=64, bk=64):
+                        fault=None, bq=64, bk=64, width=48):
     """csrc/flash_attention.cu's K5a (dQ) or K5b (dK, dV) algorithm in f32
     on the CPU: K5a streams K/V in BK-row tiles, K5b streams q/dO in
     BQ-row tiles (csrc Dq40, Dkv40, Dq80, Dkv80: 64 rows a stage at d 40
@@ -244,11 +351,18 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
     rounded to f32 as the host rounds it and the lse times log2(e) in f32
     as the kernels take it; dS = P o (dO V^T - delta); P and dS cast to
     bf16 before their products; outputs in bf16. ``fault`` injects a
-    mistake the kernels could make."""
+    mistake the kernels could make (``width``: the instantiation's, whose
+    pad columns "pad_neighbour" writes and whose last 64-column chunk
+    "drop_chunk" drops from the scores)."""
     b, n, hc = q.shape
     m, d = k.shape[1], hc // heads
     split = lambda t: t.float().view(b, -1, heads, d).transpose(1, 2)
     qh, kh, vh, doh = split(q), split(k), split(v), split(dout)
+    qs, ds_ = qh, doh      # the operands of the scores S and dP
+    if fault == "drop_chunk":
+        qs, ds_ = qh.clone(), doh.clone()
+        qs[..., 64 * ((width - 1) // 64):] = 0
+        ds_[..., 64 * ((width - 1) // 64):] = 0
     log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
     c = torch.tensor(scale, dtype=torch.float32) * log2e
     if fault == "scale":                                  # 0.5 % logit scale
@@ -262,10 +376,11 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
     def packed(t, rows):
         t = t.transpose(1, 2).reshape(b, rows, hc).to(torch.bfloat16)
         if fault == "pad_neighbour":
-            # d = 40's 48-column tile written whole: its 8 pad columns
-            # (zero: Q and K read zeros past d) over the next head's first 8
+            # d's width-column tile written whole: its pad columns (zero: Q
+            # and K read zeros past d) over the next head's first ones (8
+            # at d = 40)
             flat = t.reshape(-1, d)
-            flat[1:, :8] = 0
+            flat[1:, :width - d] = 0
         return t
 
     if kid == "K5a":
@@ -273,8 +388,8 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
         end = m - m % bk if fault == "kv_tail" else m
         for k0 in range(0, end, bk):
             kt, vt = kh[:, :, k0:k0 + bk], vh[:, :, k0:k0 + bk]
-            p = torch.exp2(qh @ kt.transpose(-1, -2) * c - l2)
-            dq += bf(p * (doh @ vt.transpose(-1, -2) - delta)) @ kt
+            p = torch.exp2(qs @ kt.transpose(-1, -2) * c - l2)
+            dq += bf(p * (ds_ @ vt.transpose(-1, -2) - delta)) @ kt
         dq = dq * out_mul * (1.005 if fault == "skew" else 1.0)
         return packed(dq, n)
     if fault == "q_tail":
@@ -282,7 +397,7 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
         # next batch element's first rows, the next (b, h) row's lse/delta)
         pad = bq - n % bq
         nxt = lambda t: torch.cat([t, t.roll(-1, 0)[:, :, :pad]], dim=2)
-        qh, doh = nxt(qh), nxt(doh)
+        qh, doh, qs, ds_ = nxt(qh), nxt(doh), nxt(qs), nxt(ds_)
         flat = lambda t: torch.cat(
             [t, t.reshape(b * heads, n, 1).roll(-1, 0)[:, :pad]
              .reshape(b, heads, pad, 1)], dim=2)
@@ -292,8 +407,8 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
     for q0 in range(0, qh.shape[2], bq):
         qt, dot = qh[:, :, q0:q0 + bq], doh[:, :, q0:q0 + bq]
         lt, dt = l2[:, :, q0:q0 + bq], delta[:, :, q0:q0 + bq]
-        p = torch.exp2(qt @ kh.transpose(-1, -2) * c - lt)
-        ds = bf(p * (dot @ vh.transpose(-1, -2) - dt))
+        p = torch.exp2(qs[:, :, q0:q0 + bq] @ kh.transpose(-1, -2) * c - lt)
+        ds = bf(p * (ds_[:, :, q0:q0 + bq] @ vh.transpose(-1, -2) - dt))
         dv += bf(p).transpose(-1, -2) @ dot
         dk += ds.transpose(-1, -2) @ qt
     dk = dk * out_mul * (1.005 if fault == "skew" else 1.0)
@@ -302,6 +417,14 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
         dv[:, :, m - m % bk:] = 0
     return packed(dk, m), packed(dv, m)
 
+
+# csrc/flash_attention.cu's bf16 K5 instantiations past d 80: K5b's q rows
+# a stage, each kernel's K/V rows (K5a: a stage, K5b: the block's resident
+# rows), the width (Dq64/Dkv64, Dq128/Dkv128, Dq160/Dkv160)
+K5_TILES = {**{("K5a", d): (64, 64, w) for d, w in ((64, 64), (128, 128),
+                                                    (144, 160), (160, 160))},
+            ("K5b", 64): (64, 128, 64), ("K5b", 128): (32, 128, 128),
+            ("K5b", 144): (16, 128, 160), ("K5b", 160): (16, 128, 160)}
 
 _K5_FAULTS = {"K5a": (None, "kv_tail", "scale", "out_scale", "skew"),
               "K5b": (None, "kv_tail", "q_tail", "scale", "out_scale", "skew")}
@@ -316,6 +439,15 @@ _K5_FAULTS = {"K5a": (None, "kv_tail", "scale", "out_scale", "skew"),
     *(pytest.param(40, kid, fault, id=f"d40-{kid}-{fault}")
       for kid, faults in _K5_FAULTS.items()
       for fault in faults + ("pad_neighbour", "lse_log2")),
+    # the widths past 80: each kernel's stages (K5_TILES), a dropped
+    # ragged tail, the width's last 64-column chunk dropped from the scores
+    # (not at d 64, a single chunk), K5b's q tail; d 144 on the 160 width
+    *(pytest.param(d, kid, fault, id=f"d{d}-{kid}-{fault}")
+      for d in (64, 128, 160) for kid in _K5_FAULTS
+      for fault in (None, "kv_tail") + (("drop_chunk",) if d > 64 else ())
+      + (("q_tail",) if kid == "K5b" else ())),
+    *(pytest.param(144, kid, fault, id=f"d144-{kid}-{fault}")
+      for kid in _K5_FAULTS for fault in (None, "pad_neighbour", "drop_chunk")),
 ])
 def test_k5_tolerance_separates_rounding_from_faults(d, kid, fault):
     # the 32^2 gated sites at two batch elements, and the 64^2 sites' head
@@ -335,8 +467,10 @@ def test_k5_tolerance_separates_rounding_from_faults(d, kid, fault):
     delta = attention_delta(out, dout, heads)
     ref = flash_attention_bwd_plain(q, k, v, dout, lse, delta, heads, scale)
     ref = ref[0] if kid == "K5a" else ref[1:]
+    bq, bk, width = K5_TILES.get((kid, d), (64, 64, 48))
     got = agreement(kid, _flash_bwd_emulated(kid, q, k, v, dout, lse, delta,
-                                             heads, scale, fault), ref)
+                                             heads, scale, fault, bq, bk,
+                                             width), ref)
     assert got["ok"] == (fault is None), got
 
 

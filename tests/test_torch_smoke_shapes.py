@@ -14,6 +14,8 @@ its 16^2 ones (256 rows) are not, as at full width the 8^2 middle block
 is not.
 """
 import collections
+import contextlib
+import dataclasses
 import importlib.util
 import os
 import re
@@ -839,3 +841,154 @@ def test_train_coco_walk_matches_the_calls(recorded, tmp_path):
     assert len(walk["dataset"]) == len(COCO_SMALL)
     assert {kid for kid, _ in walk["calls"]} | {"K5a", "K5b"} >= {
         kid.split("/")[0] for kid in cs.COCO_WALKED}
+
+
+# ---------------------------------------------------------------------------
+# phases hires, heads5 and train-hires: the seed-0 weights at another latent
+# size (SD-1.4 at 768^2) and head count (num_heads 5)
+
+
+@pytest.fixture
+def counted_from_records(monkeypatch):
+    """path_counts on the CPU: the launches of the calls that the last
+    recorded_calls block recorded (launches_of), at least one of every
+    kernel (the small model's feed-forward sites are below K4's width)."""
+    last = []
+    real = cs.recorded_calls
+
+    @contextlib.contextmanager
+    def recorder():
+        with real() as calls:
+            last[:] = [calls]
+            yield calls
+
+    monkeypatch.setattr(cs, "recorded_calls", recorder)
+    monkeypatch.setattr(cs, "path_counts", lambda: {
+        kid: max(1, cs.launches_of(last[0] if last else []).get(kid, 0))
+        for kid in cs.KERNEL_META})
+
+
+# the small geometry's counterparts of GEOMETRY, with the head dims K1 takes
+# there under small_flash's thresholds: 16^2 latents (the VAE's 32^2
+# images; d 32 at the 8^2 level, the VAE's mid block's d 64 over 256
+# tokens) and 4 heads (d 8 at the 8^2 level; the 4^2 level stays plain)
+SMALL_GEOMETRY = {"hires": (dict(image_size=16), (32, 64)),
+                  "heads5": (dict(num_heads=4), (8,))}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_GEOMETRY))
+def test_phase_geometry_on_the_cpu(monkeypatch, small_flash, counted_from_records,
+                                   name):
+    """Phase hires or heads5 at the small geometry, 2 PLMS steps in f32:
+    the images through both routes, K1's launches the walk's site by site
+    at the geometry's head dims."""
+    update, dims = SMALL_GEOMETRY[name]
+    monkeypatch.setitem(cs.GEOMETRY, name, update)
+    monkeypatch.setitem(cs.GEOMETRY_RUNS, name, ((torch.float32, 2),))
+    monkeypatch.setitem(cs.GEOMETRY_DIMS, name, dims)
+    counts, calls = cs.phase_geometry(name, small=True, device="cpu")
+    flash = [args for kid, args in calls if kid == "K1"]
+    assert {args[4] for args in flash} >= set(dims)
+    assert counts["K1/f32"] == len(flash)
+    # the VAE decoder's last GroupNorm at the images' side (2x the latents')
+    side = 2 * update.get("image_size", 8)
+    assert calls[-1] == ("K2", (2, side * side, 32, 1e-6, True, "f32"))
+
+
+def _attention_sites(cfg, b, n_obj, n_rel, ctx_len):
+    """Every attention of one UNet forward at batch b as (N, M, d, masked):
+    per transformer block the self-attention, the gated fuser's over the
+    visual and grounding tokens, the relation fuser's (masked: the JAX
+    package passes its relation mask) and the text cross-attention."""
+    from layoutllm_t2i_torch.models.unet import input_block_specs, output_block_specs
+
+    lat = cfg.image_size
+    levels = [(lat // ds) ** 2 for kind, _, _, ds in input_block_specs(cfg)
+              if kind == "res_st"]
+    levels.append((lat // 2 ** (len(cfg.channel_mult) - 1)) ** 2)
+    levels += [(lat // spec[-1]) ** 2 for spec in output_block_specs(cfg)
+               if spec[0] == "res_st"]
+    sites = []
+    for hw in levels:
+        c = cfg.model_channels * cfg.channel_mult[
+            {(lat // 2 ** i) ** 2: i for i in range(len(cfg.channel_mult))}[hw]]
+        d = c // cfg.num_heads
+        sites += [(hw, hw, d, False), (hw + n_obj, hw + n_obj, d, False),
+                  (n_obj, n_rel, d, True), (hw, ctx_len, d, False)]
+    return [site for site in sites for _ in range(b)][::b]
+
+
+@pytest.mark.parametrize("name", sorted(cs.GEOMETRY))
+def test_geometry_walks_route_as_the_jax_package(name):
+    """The full-width walk at each new geometry routes to K1 exactly the
+    sites the JAX package sends to its Pallas flash kernel
+    (layoutllm_t2i_tpu/ops/attention.py: no mask, N >= _FLASH_MIN_Q_LEN,
+    M >= _FLASH_MIN_KV), at the head dims these configurations reach:
+    d 40, 80 and 160 at 96^2 latents, 64 and 128 with num_heads 5."""
+    from layoutllm_t2i_tpu.ops import attention as jax_attention
+
+    from layoutllm_t2i_torch.models.unet import UNetConfig
+
+    cfg = dataclasses.replace(UNetConfig(), **cs.GEOMETRY[name])
+    walk = cs.unet_calls(cfg, 4, 30, 5, 77)
+    got = collections.Counter((a[1], a[2], a[4]) for kid, a in walk if kid == "K1")
+    want = collections.Counter(
+        (n, m, d) for n, m, d, masked in _attention_sites(cfg, 4, 30, 5, 77)
+        if not masked and n >= jax_attention._FLASH_MIN_Q_LEN
+        and m >= jax_attention._FLASH_MIN_KV)
+    assert got == want
+    dims = {"hires": {40, 80, 160}, "heads5": {64, 128}}[name]
+    assert {d for _, _, d in got} == dims
+    assert set(cs.GEOMETRY_K5_DIMS[name]) == dims
+    assert set(cs.GEOMETRY_DIMS[name]) - {512} <= dims
+    # the training walk at 768^2 images runs the UNet at 96^2 latents, the
+    # VAE encoder's mid block at 96^2 (K1 at d 512 over 9216 tokens)
+    if name == "hires":
+        batch = {"caption": ["a dog"], "labels": [["dog"]],
+                 "image": np.zeros((1, cs.TRAIN_HIRES_SIDE, cs.TRAIN_HIRES_SIDE, 3))}
+        from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+        _, vae_cfg, clip_cfg = model_configs(small=False)
+        train = cs.training_calls(UNetConfig(), vae_cfg, clip_cfg, 77, batch, 30, 10)
+        assert ("K1", (1, 9216, 9216, 1, 512, "f32")) in train
+        assert ("K1", (1, 606, 606, 8, 160, "lse")) in train
+
+
+def test_training_walk_takes_the_latent_size_of_the_batch(recorded, tmp_path):
+    """A training step on images twice the size the UNet config names
+    (its image_size only sizes sampling): the walk follows the VAE's
+    latents, as the JAX trainer's --image_size does."""
+    recorded.mark_f32 = True
+    models = _models()
+    cfg = TrainerConfig(output_root=str(tmp_path), name="t", batch_size=2,
+                        total_iters=1, warmup_steps=0, max_boxes=30,
+                        max_relations=10, mixed_precision=True)
+    trainer = DiffusionTrainer(cfg, iter(()), models=models)
+    batch = next(synthetic_layout_batches(2, 96, 30))
+    trainer.train_step(trainer.prepare_batch(batch), trainer.generator)
+    trainer.close()
+    want = cs.training_calls(models.unet_cfg, models.vae_cfg, models.clip_cfg,
+                             TOK_LEN, batch, 30, 10)
+    assert collections.Counter(recorded) == collections.Counter(want)
+    assert ("K1", (2, 2304, 2304, 2, 16)) in want   # 48^2 latents, not 32^2
+
+
+def test_generation_walk_at_another_geometry_matches_the_calls(recorded):
+    """generation_calls at a latent size and head count other than the
+    config's defaults: 48^2 latents (its second level's 576 tokens route
+    as SD-1.4's 24^2 sites at 768^2) and 4 heads."""
+    models = _models()
+    models = dataclasses.replace(models, unet_cfg=dataclasses.replace(
+        models.unet_cfg, image_size=48, num_heads=4))
+    pipe = InferencePipeline(models, steps=2, alpha_type=(0.3, 0.0, 0.7),
+                             vae_chunk=1)
+    with torch.no_grad():
+        pipe.generate(["a dog", "a cat"], [([[0.1, 0.1, 0.5, 0.5]], ["a dog"])] * 2,
+                      [["dog"], []], seed=0)
+    want = cs.generation_calls(models.unet_cfg, models.vae_cfg, models.clip_cfg,
+                               TOK_LEN, (["a dog", "a cat"],
+                                         [([[0.1, 0.1, 0.5, 0.5]], ["a dog"])] * 2,
+                                         [["dog"], []]),
+                               1, evals=cs.unet_evaluations(pipe, 2), distinct=False)
+    assert collections.Counter(recorded) == collections.Counter(want)
+    assert ("K1", (4, 576, 576, 4, 16)) in want and ("K1", (4, 2304, 2304, 4, 8)) in want

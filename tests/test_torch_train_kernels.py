@@ -48,6 +48,8 @@ def _packed(a):
 @pytest.mark.parametrize("n,m,d", [
     (300, 280, 40),   # 64^2 head dim, q and kv rows off the 128-row blocks
     (200, 150, 80),   # 32^2 head dim, ragged
+    (300, 280, 64),   # num_heads 5 at the 64^2 sites
+    (150, 130, 160),  # SD-1.4's 24^2 sites at 768^2
 ])
 def test_flash_backward_plain_matches_pallas_vjp(rng, n, m, d):
     b, h = 1, 2
