@@ -9,7 +9,9 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
                in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel and
                in the TF32 wgmma kernels of K1/f32 (widths 40-160; 512),
-               K5a/f32 and K5b/f32 (widths 40-160), K4/f32 (K6/f32 runs
+               K5a/f32 and K5b/f32 (widths 40-160; 256 and 320, the
+               d-streamed flash_bwd_{dq,dkv}_f32_stream_kernel), K4/f32
+               (K6/f32 runs
                K4/f32's), K7/f32 (int8 B tiles converted in shared
                memory), K8a/f32 and K8b/f32 (WGMMA_KERNELS; K4's and
                K7's LN pre-passes and the f32 flash split pre-pass,
@@ -92,7 +94,8 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                kernel, plain version and
                one PyTorch library call for the same function, beside the
                roofline bound. `ms`, `plain_ms` and `library_ms` are
-               launched back to back from the host (time_ms), so a call
+               launched back to back from the host (time_ms; runs of
+               ~30 ms, at most 100 calls), so a call
                shorter than its launch path reads the host's time;
                `device_ms` and `library_device_ms` take the host out
                (device_time), and `host_us` is the kernel wrapper's host
@@ -170,9 +173,9 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                plain_route()'s (PSNR >= 35 dB), K1-K4 launched, and the
                gatedCA runs' K1 at M = 196 and M = 136.
   8c. hires    the seed-0 weights at SD-1.4's 768^2 (UNetConfig(image_size=
-               96): 96^2 latents; GEOMETRY), REQUESTS at CFG 7.5: exact
-               PLMS-50 in bf16 and PLMS-10 (a depth cut) on the f32
-               bundle, each through the kernels and again under
+               96): 96^2 latents; GEOMETRY), REQUESTS at CFG 7.5: PLMS-10
+               (a depth cut) in bf16 and on the f32 bundle, each
+               through the kernels and again under
                plain_route() from the same noise: PSNR >= 35 dB, K1-K4 (or
                their f32 forms) launched, K1's launches the walk's in all
                and site by site at d 160 (N 576, M 576; the gated 606) and
@@ -276,10 +279,19 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                768 at batch 8, 2 steps, --mixed_precision and again in f32
                (the UNet at 96^2 latents): finite losses, K1's, K5a's and
                K5b's launches (bf16 and f32) the walk's a step; then phase
-               12's check at 96^2 latents and with num_heads 5, bf16 and
-               f32 (train-grad-hires[-f32], train-grad-heads5[-f32]): the
+               12's check at 96^2 latents, with num_heads 5, with
+               num_heads 2 and with num_heads 5 at 96^2 latents, bf16 and
+               f32 (train-grad-hires[-f32], train-grad-heads5[-f32],
+               train-grad-heads2[-f32], train-grad-hires5[-f32]): the
                planted dK fault must exceed the bound, K5's launches at
-               d 40/80/160 or 64/128 the walk's site by site.
+               d 40/80/160, 64/128, 160/320 or 64/128/256 the walk's site
+               by site. Then train-ckpt: the seed-0 weights written by the
+               port's .pth writer with a GLIGEN config_dict of num_heads 2
+               (build/chip_smoke_train, 5.5 GiB, removed after), trained by
+               cli/train_diffusion.py main --synthetic --mixed_precision
+               --ckpt_path at batch 8, 2 steps: finite losses, K1's and
+               K5's launches the walk's, K5's sites at d 160 and 320 the
+               walk's; s/step, peak memory.
  14. train-grad-f32  phase 12 with mixed_precision=False: every operand
                f32, the kernels' f32 forms, bound TRAIN_GRAD_F32_REL_TOL.
  15. train-f32 phase 13 with TrainerConfig()'s precision, f32 throughout
@@ -334,9 +346,13 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
 
 Phase 2's shapes are walked from the model configs (generation_calls,
 training_calls), and the head dims that no model here routes to them
-(HEAD_DIM_CALLS: bf16 48, 72 and 504; d 20, 96, 144 and 256 in both
-types), the generation and a batch-8 training step at 768^2 and with
-num_heads 5 (phases hires, heads5 and train-hires), bf16 and f32; the
+(HEAD_DIM_CALLS: bf16 48, 72 and 504; d 20, 96, 144, 168, 256 and 300 in
+both types), the K1 sites with their lse past d 160 of phase
+train-hires' gradient checks (num_heads 5 at 768^2 and num_heads 2 at
+512^2: K5 at d 256 and 320, batch 2, both types; wide_k5_sites), the
+generation and a batch-8 training step at 768^2 and with num_heads 5
+(phases hires, heads5 and train-hires), bf16 and f32, and train-ckpt's
+batch-8 mixed-precision step at num_heads 2; the
 generation at
 2 requests (CFG batch 4) on each of
 its three routes (Route: the default, int8, and the split FF routes), the
@@ -437,7 +453,8 @@ TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 # K4's, K6's and K7's up and down GEMMs, K8a and K8b on csrc/gemm_tiles.cuh;
 # the f32 forms' TF32 wgmma kernels, K1/f32 at widths up to 160 (S with Q and K
 # by descriptor, P V with P as register A) and at d 512, K5a/f32 and
-# K5b/f32 (the scores by descriptor, P and dS as register A), K4/f32's (and
+# K5b/f32 (the scores by descriptor, P and dS as register A; past d 160
+# the d-streamed kernel), K4/f32's (and
 # K6/f32's) and K7/f32's up and down GEMMs, K8a/f32 and K8b/f32
 # (csrc/tf32_gemm.cuh; K7/f32's with int8 B operands, Cfg::kQ).
 # Each must show HGMMA in its SASS, in every instantiation.
@@ -446,7 +463,9 @@ WGMMA_KERNELS = {
                         "flash_bwd_dkv_kernel", "flash_fwd_f32_ss_kernel",
                         "flash_fwd_f32_wgmma_kernel",
                         "flash_bwd_dq_f32_ss_kernel",
-                        "flash_bwd_dkv_f32_ss_kernel"),
+                        "flash_bwd_dkv_f32_ss_kernel",
+                        "flash_bwd_dq_f32_stream_kernel",
+                        "flash_bwd_dkv_f32_stream_kernel"),
     "ffn": ("ffn_up_wgmma_kernel", "ffn_down_wgmma_kernel",
             "ffn_res_up_wgmma_kernel", "ffn_res_down_wgmma_kernel",
             "ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
@@ -466,6 +485,8 @@ VS_LIBRARY_KIDS = WGMMA_KIDS + ("K2",)
 NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
                     "flash_fwd_f32_ss_kernel", "flash_fwd_f32_wgmma_kernel",
                     "flash_bwd_dq_f32_ss_kernel", "flash_bwd_dkv_f32_ss_kernel",
+                    "flash_bwd_dq_f32_stream_kernel",
+                    "flash_bwd_dkv_f32_stream_kernel",
                     "linear_f32_wgmma_kernel", "geglu_f32_wgmma_kernel",
                     "ffn_up_f32_wgmma_kernel", "ffn_down_f32_wgmma_kernel",
                     "ffn_q_up_f32_wgmma_kernel", "ffn_q_down_f32_wgmma_kernel")
@@ -588,9 +609,10 @@ def max_sm_clock_hz() -> float:
 # timing and bounds
 
 
-def _warm_and_size(fn, target_ms: float):
+def _warm_and_size(fn, target_ms: float, max_calls: int = 200):
     """Two warm-up calls, then one timed call: the number of calls that
-    fill ~target_ms, and the host's seconds for that one call."""
+    fill ~target_ms (at most ``max_calls``), and the host's seconds for
+    that one call."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -602,15 +624,15 @@ def _warm_and_size(fn, target_ms: float):
     host_s = time.perf_counter() - t0
     e1.synchronize()
     once = max(e0.elapsed_time(e1), 1e-3)
-    return int(min(200, max(3, target_ms / once))), host_s
+    return int(min(max_calls, max(3, target_ms / once))), host_s
 
 
-def time_ms(fn, target_ms: float = 60.0) -> float:
+def time_ms(fn, target_ms: float = 60.0, max_calls: int = 200) -> float:
     """Mean ms per call: warm-up, then CUDA events around a run of launches
     sized to ~target_ms, issued back to back from the host. A call whose
     kernels run shorter than its launch path on the host is timed by the
     host (the ``ms`` of every row); ``device_time`` takes the host out."""
-    iters, _ = _warm_and_size(fn, target_ms)
+    iters, _ = _warm_and_size(fn, target_ms, max_calls)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(iters):
@@ -620,14 +642,14 @@ def time_ms(fn, target_ms: float = 60.0) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def device_time(fn, target_ms: float = 60.0):
+def device_time(fn, target_ms: float = 60.0, max_calls: int = 200):
     """(device ms, host us) per call. The run of launches is queued behind
     a device-side sleep that outlasts the host's enqueueing of it, so the
     device takes the calls back to back and its events time the kernels
     alone; the host's seconds to enqueue the run, over its calls, are the
     launch path's cost. If the sleep ended before the host was done, the
     run is made again behind one twice as long."""
-    iters, host_s = _warm_and_size(fn, target_ms)
+    iters, host_s = _warm_and_size(fn, target_ms, max_calls)
     sleep_s = min(max(2.0 * iters * host_s, 2e-3), 1.0)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for _ in range(4):
@@ -1231,10 +1253,6 @@ def library_ms(lib, timer=time_ms) -> float:
     return timer(lib)
 
 
-def device_ms(fn) -> float:
-    return device_time(fn)[0]
-
-
 # ---------------------------------------------------------------------------
 # phases
 
@@ -1373,6 +1391,11 @@ def path_counts() -> dict:
     return out
 
 
+# each timing of a phase kernels row: runs of ~30 ms, at most 100 calls (a
+# depth cut for the run's time limit, PERF.md section 4)
+KERNELS_TARGET_MS, KERNELS_MAX_CALLS = 30.0, 100
+
+
 def phase_kernels(cases, acc=None):
     """Every case against its plain version, timed. ``acc``: the
     (summary, pairs, host floor) of an earlier pass, which this pass adds
@@ -1387,6 +1410,10 @@ def phase_kernels(cases, acc=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     clock_hz = max_sm_clock_hz()
+    row_ms = functools.partial(time_ms, target_ms=KERNELS_TARGET_MS,
+                               max_calls=KERNELS_MAX_CALLS)
+    row_device_time = functools.partial(device_time, target_ms=KERNELS_TARGET_MS,
+                                        max_calls=KERNELS_MAX_CALLS)
     if acc is None:
         host_floor = host_path_checks()
         summary = {kid: {"max_abs_err": 0.0, "max_rel_err": 0.0,
@@ -1421,13 +1448,14 @@ def phase_kernels(cases, acc=None):
         b_ms, b_by = bound(flops, nbytes, peak)
         rec = {"phase": "kernels", "kernel": rid, "shape": label, "paths": paths,
                **agree,
-               "ms": time_ms(kern), "plain_ms": time_ms(plain),
-               "library_ms": lib and library_ms(lib), "bound_ms": b_ms,
+               "ms": row_ms(kern), "plain_ms": row_ms(plain),
+               "library_ms": lib and library_ms(lib, row_ms), "bound_ms": b_ms,
                "bound_by": b_by}
         if is_f32(args):
             rec["arith"] = F32_ARITH[kid]
-        rec["device_ms"], rec["host_us"] = device_time(kern)
-        rec["library_device_ms"] = lib and library_ms(lib, device_ms)
+        rec["device_ms"], rec["host_us"] = row_device_time(kern)
+        rec["library_device_ms"] = lib and library_ms(
+            lib, lambda fn: row_device_time(fn)[0])
         if kid in ("K1", "K5a", "K5b"):
             b, n, m, h, d = args[:5]
             rec["exp_ms"] = exp_ms(float(b) * h * n * m, clock_hz)
@@ -2494,8 +2522,11 @@ def phase_inpaint(models, dense_img):
 # (the 48- and 80-wide ones), 504 (512); in both types d 20 (16 heads at
 # 320 channels: not whole 16-byte vectors in bf16, so the wrapper's padded
 # copy at 24), 96 (128-wide), 256 (512-wide; num_heads 5's 24^2 sites at
-# 768^2); and K5a/K5b at 48, 72, 20, 96 and 144 (160-wide) through the
-# "lse" sites: phase kernels holds each against its plain version
+# 768^2); and K5a/K5b at 48, 72, 20, 96 and 144 (160-wide), 168 (256-wide)
+# and 300 (320-wide; bf16 on the padded copy at 304) through the "lse"
+# sites, at N = M = 606 and 1054 (ragged q and KV tails): phase kernels
+# holds each against its plain version. K5 at d 256 and 320 is held at the
+# gradient checks' own sites (wide_k5_sites)
 HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72)),
                   ("K1", (1, 4096, 4096, 1, 504)),
                   ("K1", (2, 1024, 1024, 8, 48, "lse")),
@@ -2503,7 +2534,8 @@ HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72))
     ("K1", shape + tag) for tag in ((), ("f32",)) for shape in (
         (2, 1024, 1024, 16, 20), (2, 1024, 1024, 16, 20, "lse"),
         (2, 1024, 1024, 8, 96), (2, 1024, 1024, 8, 96, "lse"),
-        (4, 576, 576, 5, 256), (2, 576, 606, 8, 144, "lse"))]
+        (4, 576, 576, 5, 256), (2, 576, 606, 8, 144, "lse"),
+        (2, 606, 606, 8, 168, "lse"), (2, 1054, 1054, 2, 300, "lse"))]
 
 
 # phases hires and heads5: the seed-0 weights at another geometry (neither
@@ -2512,15 +2544,20 @@ HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72))
 # 24^2 sites, 576 tokens and 606 with the grounding tokens, route K1 at
 # d 160, and the VAE's mid block K1 at d 512 over 9216 tokens), and
 # num_heads 5 at 512^2 (K1 at d 64 at the 64^2 sites, 128 at the 32^2
-# sites). Each run: (dtype, PLMS steps); hires' f32 run and both heads5
-# runs are a depth cut of the reference's 50 (PERF.md section 4)
-GEOMETRY = {"hires": dict(image_size=96), "heads5": dict(num_heads=5)}
-GEOMETRY_RUNS = {"hires": ((torch.bfloat16, STEPS), (torch.float32, 10)),
+# sites). Each run: (dtype, PLMS steps), each a depth cut of the
+# reference's 50 (PERF.md section 4). Two more geometries train only
+# (phase train-hires' gradient checks): num_heads 2 at 512^2 (K5 at d 160
+# on the 64^2 sites, 320 on the 32^2 ones) and num_heads 5 at 768^2 (64,
+# 128 and 256 on the 96^2, 48^2 and 24^2 sites)
+GEOMETRY = {"hires": dict(image_size=96), "heads5": dict(num_heads=5),
+            "heads2": dict(num_heads=2), "hires5": dict(image_size=96, num_heads=5)}
+GEOMETRY_RUNS = {"hires": ((torch.bfloat16, 10), (torch.float32, 10)),
                  "heads5": ((torch.bfloat16, 10), (torch.float32, 10))}
 # the head dims whose K1 sites each phase holds to the walk's launches, site
 # by site (N, M), and those its training check holds K5 to
 GEOMETRY_DIMS = {"hires": (160, 512), "heads5": (64, 128)}
-GEOMETRY_K5_DIMS = {"hires": (40, 80, 160), "heads5": (64, 128)}
+GEOMETRY_K5_DIMS = {"hires": (40, 80, 160), "heads5": (64, 128),
+                    "heads2": (160, 320), "hires5": (64, 128, 256)}
 GEOMETRY_PSNR_MIN_DB = 35.0   # tests/parity_setup.py's image gate
 
 
@@ -3455,6 +3492,29 @@ def step_kernels(route: Route) -> tuple:
     return ("K1", "K2", "K3", "K5a", "K5b") + ff
 
 
+def grad_walk(unet_cfg, mixed_precision: bool = True, route: Route = DEFAULT):
+    """phase_train_grad's walk: one training UNet forward at batch 2, 30
+    grounding tokens, 10 relations and 77 context tokens (f32 calls when
+    not ``mixed_precision``)."""
+    walk = unet_calls(unet_cfg, 2, 30, 10, 77, train=True, route=route,
+                      itemsize=2 if mixed_precision else 4)
+    return walk if mixed_precision else f32_calls(walk)
+
+
+# the gradient checks' geometries whose K5 runs past d 160
+WIDE_K5_GEOMETRIES = ("heads2", "hires5")
+
+
+def wide_k5_sites(unet_cfg, geometry: str, mixed_precision: bool = True):
+    """The K1 calls with their lse past d 160 of phase_train_grad's walk at
+    ``geometry`` (each is also a K5a and a K5b case): num_heads 2's 32^2
+    sites (d 320, N = M = 1024 and 1054) or num_heads 5's 24^2 sites at
+    768^2 (d 256, 576 and 606), as the walk makes them."""
+    cfg = dataclasses.replace(unet_cfg, **GEOMETRY[geometry])
+    return [(kid, args) for kid, args in grad_walk(cfg, mixed_precision)
+            if kid == "K1" and has_lse(args) and args[4] > 160]
+
+
 def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
                      label: str = "", geometry: str = ""):
     """One full-width loss backward at batch 2 through the kernels and
@@ -3521,10 +3581,9 @@ def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
         # K5's sites by head dim: the K1 sites with their lse, recorded and
         # walked, and its launches in all those of the walk
         cfg = models.unet_cfg
-        walk = unet_calls(cfg, 2, 30, 10, 77, train=True, route=route,
-                          itemsize=2 if mixed_precision else 4)
+        walk = grad_walk(cfg, mixed_precision, route)
         sites = sites_by_dim(calls, "K5a", GEOMETRY_K5_DIMS[geometry])
-        walked = launches_of(f32_calls(walk) if not mixed_precision else walk)
+        walked = launches_of(walk)
         tag = "" if mixed_precision else "/f32"
         k5 = {"k5_sites": {f"d{d} N{n} M{m}": c for (d, n, m), c in sorted(sites.items())},
               "k5_walked": {kid: walked.get(f"{kid}{tag}", 0) for kid in ("K5a", "K5b")}}
@@ -4046,6 +4105,27 @@ COCO_KIDS = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K1/f32", "K2/f32", "K3/f32")
 COCO_WALKED = ("K1", "K1/f32", "K5a", "K5b")
 
 
+def cli_training_run(argv, name: str, output_root: str) -> tuple:
+    """cli/train_diffusion.py main(argv) (``--output_root output_root
+    --name name``) with every step logged (the CLI's TrainerConfig logs
+    every 10th), its launches counted from 0: (its metrics.jsonl records,
+    wall s, launches, peak GiB)."""
+    from layoutllm_t2i_torch.cli import train_diffusion
+
+    cfg_cls = train_diffusion.TrainerConfig
+    train_diffusion.TrainerConfig = functools.partial(cfg_cls, log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, wall, counts = counted(lambda: train_diffusion.main(
+            list(argv) + ["--output_root", output_root, "--name", name]))
+    finally:
+        train_diffusion.TrainerConfig = cfg_cls
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(output_root, name, "tag00", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f], wall, counts, peak
+
+
 def phase_train_coco(work_dir: str) -> tuple:
     """cli/train_diffusion.py main with --coco_root on the fixture,
     --mixed_precision, batch 8, COCO_STEPS steps at full width (random
@@ -4054,7 +4134,6 @@ def phase_train_coco(work_dir: str) -> tuple:
     over the rebuilt loader's batches, the batch checks; s/step (the steps
     after the first), images/s, peak memory, the loader's and one thread's
     decode s a batch. Returns (launch counts, the walk's calls)."""
-    from layoutllm_t2i_torch.cli import train_diffusion
     from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
     shutil.rmtree(work_dir, ignore_errors=True)
@@ -4063,21 +4142,8 @@ def phase_train_coco(work_dir: str) -> tuple:
     fixture_s = time.perf_counter() - t0
     argv = ["--coco_root", fx["root"], "--mixed_precision",
             "--batch_size", str(TRAIN_BATCH), "--total_iters", str(COCO_STEPS),
-            "--warmup_steps", "0", "--output_root", fx["out"],
-            "--name", "coco"]
-    # the CLI's TrainerConfig logs every 10th step: log each step's loss
-    # and time, as phase train does
-    cfg_cls = train_diffusion.TrainerConfig
-    train_diffusion.TrainerConfig = functools.partial(cfg_cls, log_every=1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        _, wall, counts = counted(lambda: train_diffusion.main(argv))
-    finally:
-        train_diffusion.TrainerConfig = cfg_cls
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with open(os.path.join(fx["out"], "coco", "tag00", "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
+            "--warmup_steps", "0"]
+    recs, wall, counts, peak = cli_training_run(argv, "coco", fx["out"])
     losses = [r["loss"] for r in recs]
     each = [r["sec_per_iter"] for r in recs]
     s_step = sum(each[1:]) / max(len(each) - 1, 1)
@@ -4117,6 +4183,106 @@ TRAIN_HIRES_SIDE = 768
 TRAIN_HIRES_STEPS = 2
 # the kernels whose launches a step must equal the walk's
 TRAIN_HIRES_WALKED = ("K1", "K5a", "K5b")
+# the geometries of its gradient checks (GEOMETRY), bf16 and f32 each
+TRAIN_GRAD_GEOMETRIES = ("hires", "heads5", "heads2", "hires5")
+# its --ckpt_path run: a reference-format .pth of the seed-0 weights whose
+# config_dict sets GEOMETRY[TRAIN_CKPT_GEOMETRY], trained through the CLI
+# at batch TRAIN_BATCH in mixed precision, TRAIN_CKPT_STEPS steps
+TRAIN_CKPT_GEOMETRY = "heads2"
+TRAIN_CKPT_STEPS = 2
+
+
+def write_gligen_pth(path: str, geometry: str) -> dict:
+    """The seed-0 full-width weights (random_models, f32) written by the
+    port's .pth writer (checkpoint/export.py export_gligen_checkpoint) with
+    a reference GLIGEN config_dict whose model.params hold the UNet config
+    changed as GEOMETRY[geometry] says (the weights do not depend on the
+    head count: inner = heads x d_head = channels), and the VAE's and
+    CLIP's configs as the port's trainer exports them. Returns the
+    config_dict."""
+    from layoutllm_t2i_torch.checkpoint.export import export_gligen_checkpoint
+    from layoutllm_t2i_torch.pipeline.loaders import random_models
+
+    models = random_models(small=False, device="cuda", dtype=torch.float32,
+                           seed=0)
+    u = dataclasses.replace(models.unet_cfg, **GEOMETRY[geometry])
+    config = {"model": {"params": {
+        "image_size": u.image_size, "in_channels": u.in_channels,
+        "model_channels": u.model_channels, "out_channels": u.out_channels,
+        "num_res_blocks": u.num_res_blocks,
+        "attention_resolutions": list(u.attention_resolutions),
+        "channel_mult": list(u.channel_mult), "num_heads": u.num_heads,
+        "transformer_depth": u.transformer_depth,
+        "context_dim": u.context_dim, "fuser_type": u.fuser_type}},
+        "vae_cfg": dataclasses.asdict(models.vae_cfg),
+        "clip_cfg": dataclasses.asdict(models.clip_cfg)}
+    export_gligen_checkpoint(path, models.unet_params.state_dict(),
+                             models.vae_params.state_dict(),
+                             models.clip_params.state_dict(), models.schedule,
+                             config)
+    del models
+    torch.cuda.empty_cache()
+    return config
+
+
+def train_ckpt_cli(work_dir: str) -> dict:
+    """A GLIGEN .pth with num_heads 2 trained through the user's entry
+    point: write_gligen_pth at TRAIN_CKPT_GEOMETRY into ``work_dir``, then
+    cli/train_diffusion.py main --synthetic --mixed_precision --ckpt_path
+    at batch TRAIN_BATCH, TRAIN_CKPT_STEPS steps: finite losses, K1's,
+    K5a's and K5b's launches the walk's (training_calls at the config), and
+    K5's calls at GEOMETRY_K5_DIMS the walk's site by site; the .pth's
+    size and write seconds, s/step, peak memory. Returns the launches."""
+    from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+    geometry = TRAIN_CKPT_GEOMETRY
+    t_phase = time.perf_counter()
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    path = os.path.join(work_dir, f"gligen_{geometry}.pth")
+    config = write_gligen_pth(path, geometry)
+    write_s, pth_gib = time.perf_counter() - t_phase, os.path.getsize(path) / 2 ** 30
+    argv = ["--synthetic", "--mixed_precision", "--ckpt_path", path,
+            "--batch_size", str(TRAIN_BATCH),
+            "--total_iters", str(TRAIN_CKPT_STEPS), "--warmup_steps", "0"]
+    with recorded_calls() as calls:
+        logged, wall, counts, peak = cli_training_run(argv, "ckpt", work_dir)
+    shutil.rmtree(work_dir, ignore_errors=True)
+    losses = [r["loss"] for r in logged]
+    unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+    walk = training_calls(
+        dataclasses.replace(unet_cfg, **GEOMETRY[geometry]), vae_cfg, clip_cfg,
+        clip_cfg.max_length,
+        next(synthetic_layout_batches(TRAIN_BATCH, 512, TRAIN_MAX_BOXES)),
+        TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS)
+    walked = {kid: n for kid, n in launches_of(walk).items()
+              if kid in TRAIN_HIRES_WALKED}
+    dims = GEOMETRY_K5_DIMS[geometry]
+    sites = sites_by_dim(calls, "K5a", dims)
+    walked_sites = {key: n * TRAIN_CKPT_STEPS
+                    for key, n in sites_by_dim(walk, "K5a", dims).items()}
+    rec = {"phase": "train-ckpt", "geometry": GEOMETRY[geometry],
+           "num_heads": config["model"]["params"]["num_heads"],
+           "card": nvidia_smi_line(), "batch": TRAIN_BATCH,
+           "steps": TRAIN_CKPT_STEPS, "pth_gib": pth_gib, "write_s": write_s,
+           "losses": losses, "s_per_step_each": [r["sec_per_iter"] for r in logged],
+           "wall_s": wall, "peak_mem_gib": peak, "walked_per_step": walked,
+           "k5_sites": {f"d{d} N{n} M{m}": c for (d, n, m), c in sorted(sites.items())},
+           "launches_match_walk": all(counts[kid] == n * TRAIN_CKPT_STEPS
+                                      for kid, n in walked.items()),
+           "k5_match_walk": (sites == walked_sites
+                             and {d for d, _, _ in sites} == set(dims)),
+           "phase_s": time.perf_counter() - t_phase, "launches": counts}
+    rec["ok"] = (len(losses) == TRAIN_CKPT_STEPS and rec["launches_match_walk"]
+                 and rec["k5_match_walk"]
+                 and all(math.isfinite(x) for x in losses))
+    emit(rec)
+    if not rec["ok"]:
+        raise SmokeFailure("train-ckpt: a loss is not finite, or K1's or K5's "
+                           "launches or K5's sites by head dim differ from "
+                           "the walk's")
+    return counts
 
 
 def phase_train_hires(work_dir: str) -> dict:
@@ -4129,9 +4295,10 @@ def phase_train_hires(work_dir: str) -> dict:
     step (training_calls at 768^2), s/step, peak memory. Then the
     rela_fuse gradients at batch 2 against plain_route() (phase
     train-grad's check, with its planted K5 fault), in bf16 and f32, at
-    96^2 latents and again with num_heads 5 at 64^2, K5's launches at
-    GEOMETRY_K5_DIMS the walk's. Returns the launch counts of all."""
-    from layoutllm_t2i_torch.cli import train_diffusion
+    each of TRAIN_GRAD_GEOMETRIES (96^2 latents; num_heads 5 at 64^2;
+    num_heads 2 at 64^2; num_heads 5 at 96^2), K5's launches at
+    GEOMETRY_K5_DIMS the walk's. Then train_ckpt_cli: a num_heads 2 .pth
+    through --ckpt_path. Returns the launch counts of all."""
     from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
     from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
@@ -4145,21 +4312,9 @@ def phase_train_hires(work_dir: str) -> dict:
         shutil.rmtree(work_dir, ignore_errors=True)
         argv = ["--synthetic", "--image_size", str(TRAIN_HIRES_SIDE),
                 "--batch_size", str(TRAIN_BATCH),
-                "--total_iters", str(TRAIN_HIRES_STEPS), "--warmup_steps", "0",
-                "--output_root", work_dir, "--name", "hires"] + (
+                "--total_iters", str(TRAIN_HIRES_STEPS), "--warmup_steps", "0"] + (
                     ["--mixed_precision"] if mixed else [])
-        # log each step's loss and time, as phase train-coco does
-        cfg_cls = train_diffusion.TrainerConfig
-        train_diffusion.TrainerConfig = functools.partial(cfg_cls, log_every=1)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            _, wall, counts = counted(lambda: train_diffusion.main(argv))
-        finally:
-            train_diffusion.TrainerConfig = cfg_cls
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        with open(os.path.join(work_dir, "hires", "tag00", "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
+        logged, wall, counts, peak = cli_training_run(argv, "hires", work_dir)
         losses = [r["loss"] for r in logged]
         each = [r["sec_per_iter"] for r in logged]
         per_step = launches_of(training_calls(
@@ -4187,11 +4342,12 @@ def phase_train_hires(work_dir: str) -> dict:
     if not ok:
         raise SmokeFailure("train-hires: a loss is not finite or K1's or K5's "
                            "launches differ from the walk's at 768^2")
-    for geometry in ("hires", "heads5"):
+    for geometry in TRAIN_GRAD_GEOMETRIES:
         for mixed in (True, False):
             add_counts(total, phase_train_grad(
                 mixed_precision=mixed, geometry=geometry,
                 label=f"train-grad-{geometry}{'' if mixed else '-f32'}"))
+    add_counts(total, train_ckpt_cli(work_dir))
     return total
 
 
@@ -4739,9 +4895,12 @@ PROFILE_GROUPS = (
     # call (the backward's, shared with K5b/f32), its two-operand ones in
     # K1/f32's
     ("K5a/f32 flash_attention_bwd_dq", ("flash_bwd_dq_f32_ss_kernel",
-                                        "flash_split_f32_kernel<40, 4>",
-                                        "flash_split_f32_kernel<80, 4>")),
-    ("K5b/f32 flash_attention_bwd_dkv", ("flash_bwd_dkv_f32_ss_kernel",)),
+                                        "flash_bwd_dq_f32_stream_kernel",
+                                        *(f"flash_split_f32_kernel<{w}, 4>"
+                                          for w in (40, 64, 80, 128, 160,
+                                                    256, 320)))),
+    ("K5b/f32 flash_attention_bwd_dkv", ("flash_bwd_dkv_f32_ss_kernel",
+                                         "flash_bwd_dkv_f32_stream_kernel")),
     ("K1/f32 flash_attention", ("flash_fwd_f32_ss_kernel",
                                 "flash_split_f32_kernel",
                                 "flash_fwd_f32_wgmma_kernel")),
@@ -4940,8 +5099,8 @@ def main(argv=None) -> int:
             # and f32 (K1 at d 160, 64 and 128; K5 at the lse sites)
             hires_batch = next(synthetic_layout_batches(
                 TRAIN_BATCH, TRAIN_HIRES_SIDE, TRAIN_MAX_BOXES))
-            for name, update in GEOMETRY.items():
-                cfg_g = dataclasses.replace(unet_cfg, **update)
+            for name in GEOMETRY_RUNS:
+                cfg_g = dataclasses.replace(unet_cfg, **GEOMETRY[name])
                 for f32, tag in ((False, ""), (True, "-f32")):
                     gen_paths[f"{name}{tag}"] = generation_calls(
                         cfg_g, vae_cfg, clip_cfg, tok_len, REQUESTS,
@@ -4951,6 +5110,18 @@ def main(argv=None) -> int:
                         hires_batch if name == "hires" else train_batch,
                         TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS, f32=f32)
             del hires_batch
+            # phase train-hires' --ckpt_path run: num_heads 2, mixed
+            # precision, batch 8 (K1 with its lse and K5 at d 160 and 320)
+            gen_paths[f"train-{TRAIN_CKPT_GEOMETRY}"] = training_calls(
+                dataclasses.replace(unet_cfg, **GEOMETRY[TRAIN_CKPT_GEOMETRY]),
+                vae_cfg, clip_cfg, tok_len, train_batch, TRAIN_MAX_BOXES,
+                TRAIN_MAX_RELATIONS)
+            # phase train-hires' gradient checks at num_heads 2 and 5 at
+            # 768^2, bf16 and f32: K5 at the 256 and 320 widths
+            for name in WIDE_K5_GEOMETRIES:
+                for mixed, tag in ((True, ""), (False, "-f32")):
+                    gen_paths[f"train-grad-{name}{tag}"] = wide_k5_sites(
+                        unet_cfg, name, mixed)
             first_cases = kernel_cases({
                 **gen_paths,
                 **{name: training_calls(unet_cfg, vae_cfg, clip_cfg, tok_len,
@@ -4982,7 +5153,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             modal_counts, modal_calls = phase_modalities(modal_dir, dense_img[0])
             torch.cuda.empty_cache()
-            geometry_counts = {name: phase_geometry(name)[0] for name in GEOMETRY}
+            geometry_counts = {name: phase_geometry(name)[0]
+                               for name in GEOMETRY_RUNS}
             torch.cuda.empty_cache()
             bench_counts = phase_bench(args.profile)
             torch.cuda.empty_cache()

@@ -392,20 +392,32 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 //  * Epilogue: bf16 straight from registers; only rows < N (K5a) or < M
 //    (K5b) and columns < d are written (d = 40's 48-column tile would
 //    otherwise overwrite the next head's first 8 columns). As in K1, one
-//    instantiation takes every d up to its width (48, 64, 80, 128, 160):
-//    the maps zero-fill Q, K, V and dO past d.
+//    instantiation takes every d up to its width (48, 64, 80, 128, 160,
+//    256, 320): the maps zero-fill Q, K, V and dO past d.
+//  * Widths 256 and 320 (num_heads 5's 24^2 sites at 768^2, num_heads 2's
+//    32^2 sites at 512^2): two consumer warpgroups on 128 resident rows,
+//    as at d = 160, with 32-row stages at 256 and 16-row ones at 320
+//    (225 KB and 221 KB of shared memory). A 64 x d accumulator is d / 2
+//    registers; K5b's two of them (256 or 320 at these widths) do not fit
+//    the 232 that two warpgroups get, so K5b runs as two launches over
+//    the stream, a dV pass (S^T alone, then P^T dO; K its one resident
+//    operand, V not loaded) and a dK pass (S^T and dP^T, then dS^T Q),
+//    each holding one accumulator: the f32 forms' split at 128 and 160. wgmma's N stops at 256, so at d = 320 each
+//    output product is two, columns 0-255 and 256-319 (whole 64-column
+//    chunks of the MN-major B), into the two parts of one accumulator.
 
 // kDepth: wgmma depth of the scores (d padded to 16), also the width of the
 // dQ, dK and dV accumulators; kChunks: 64-column chunks per row in shared
 // memory; kGroups: consumer warpgroups, each owning 64 of the block's kBR
 // resident rows; kBS: rows of a streamed stage; kStages: the ring's depth;
-// kRowStats: each stage carries its rows' lse and delta (K5b only).
+// kRowStats: each stage carries its rows' lse and delta (K5b only); kPass
+// (K5b): 0 dK and dV, 1 dV alone, 2 dK alone.
 template <int kDepth_, int kChunks_, int kGroups_, int kBS_, int kStages_,
-          bool kRowStats>
+          bool kRowStats, int kPass_ = 0>
 struct BwdCfg {
   static constexpr int kDepth = kDepth_, kChunks = kChunks_,
                        kGroups = kGroups_, kBR = 64 * kGroups, kBS = kBS_,
-                       kStages = kStages_;
+                       kStages = kStages_, kPass = kPass_;
   static constexpr int kThreads = 128 * (kGroups + 1);  // + the producer's
   // the producer warpgroup's registers go to the consumers: 232 each with
   // two consumer warpgroups, 160 with three
@@ -413,15 +425,20 @@ struct BwdCfg {
   static constexpr int kConsumerRegs =
       (65536 - 128 * kProducerRegs) / (128 * kGroups) / 8 * 8;
   static constexpr uint32_t kResBytes = kChunks * kBR * 128;   // one resident operand
+  // K5b's dV pass reads K alone (no dP^T = V dO^T): one resident operand
+  static constexpr int kResident = kPass == 1 ? 1 : 2;
   static constexpr uint32_t kTileBytes = kChunks * kBS * 128;  // one streamed operand
   static constexpr uint32_t kStatBytes = kRowStats ? 2 * kBS * 4 : 0;  // lse log2 e, delta
   // 1024 bytes of slack to align the swizzled tiles, then the mbarriers
-  static constexpr size_t kSmemBytes = 1024 + 2 * kResBytes +
+  static constexpr size_t kSmemBytes = 1024 + kResident * kResBytes +
                                        kStages * (2 * kTileBytes + kStatBytes) +
                                        8 * (2 * kStages + 1);
   static_assert(kDepth % 16 == 0 && kDepth <= 64 * kChunks, "depth");
   static_assert(kBS % 16 == 0 && kBS <= 128, "stage rows");
   static_assert(kBR <= 256 && kConsumerRegs <= 256, "TMA box, registers");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+  static_assert(kDepth <= 256 || kDepth % 64 == 0, "output parts of whole chunks");
+  static_assert(kRowStats || kPass == 0, "K5a runs in one pass");
 };
 
 // K5a (Dq) and K5b (Dkv) at the 64^2 sites (d = 40) and the 32^2 sites.
@@ -442,10 +459,17 @@ using Dq128 = BwdCfg<128, 2, 2, 64, 3, false>;
 using Dkv128 = BwdCfg<128, 2, 2, 32, 4, true>;
 using Dq160 = BwdCfg<160, 3, 2, 64, 2, false>;
 using Dkv160 = BwdCfg<160, 3, 2, 16, 4, true>;
+using Dq256 = BwdCfg<256, 4, 2, 32, 3, false>;       // 225 KB
+using Dv256 = BwdCfg<256, 4, 2, 32, 3, true, 1>;     // 162 KB (no V)
+using Dk256 = BwdCfg<256, 4, 2, 32, 3, true, 2>;     // 226 KB
+using Dq320 = BwdCfg<320, 5, 2, 16, 3, false>;       // 221 KB
+using Dv320 = BwdCfg<320, 5, 2, 16, 3, true, 1>;     // 141 KB (no V)
+using Dk320 = BwdCfg<320, 5, 2, 16, 3, true, 2>;     // 221 KB
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// shared-memory layout of both kernels: two resident operands, two streamed
+// shared-memory layout of both kernels: two resident operands (one in K5b's
+// dV pass), two streamed
 // ones in kStages stages, K5b's per-stage row statistics (none in K5a), the
 // mbarriers
 template <class C>
@@ -455,8 +479,8 @@ struct BwdSmem {
   __device__ explicit BwdSmem(unsigned char* raw) {
     const uint32_t base = smem_u32(raw);
     res0 = (base + 1023u) & ~1023u;
-    res1 = res0 + C::kResBytes;
-    tile0 = res1 + C::kResBytes;  // stage s at + s * kTileBytes
+    res1 = res0 + C::kResBytes;  // none in K5b's dV pass
+    tile0 = res0 + C::kResident * C::kResBytes;  // stage s at + s * kTileBytes
     tile1 = tile0 + C::kStages * C::kTileBytes;
     const uint32_t st = tile1 + C::kStages * C::kTileBytes;
     stats = reinterpret_cast<float*>(raw + (st - base));
@@ -485,6 +509,22 @@ __device__ __forceinline__ void product(float (&d)[N], const uint32_t (&a)[K][4]
 #pragma unroll
   for (int kk = 0; kk < K; ++kk)
     wgmma_rs(d, a[kk], sw128_desc(b + kk * 16 * 128, C::kBS * 128));
+}
+
+// product over a 64 x kDepth accumulator: one wgmma per k slice up to
+// 256 columns; past that (d = 320) the first 256 columns (chunks 0-3 of B)
+// and the rest (chunk 4 on) as two, into the two parts of `d`
+template <class C, int N, int K>
+__device__ __forceinline__ void product_cols(float (&d)[N],
+                                             const uint32_t (&a)[K][4],
+                                             uint32_t b) {
+  if constexpr (N <= 128) {
+    product<C>(d, a, b);
+  } else {
+    product<C>(*reinterpret_cast<float(*)[128]>(&d[0]), a, b);
+    product<C>(*reinterpret_cast<float(*)[N - 128]>(&d[128]), a,
+               b + 4 * C::kBS * 128);
+  }
 }
 
 // the register A fragments of a score fragment, two bf16 a register
@@ -667,7 +707,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       uint32_t dsa[BK / 16][4];
       to_bf16(dsa, sc);
       wgmma_fence();
-      product<C>(acc, dsa, ks);
+      product_cols<C>(acc, dsa, ks);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -683,7 +723,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // K5b: dV = sum over q/dO tiles of P^T dO and dK = scale * sum of
-// [P o (dO V^T - delta)]^T Q, from S^T = K Q^T and dP^T = V dO^T
+// [P o (dO V^T - delta)]^T Q, from S^T = K Q^T and dP^T = V dO^T; with
+// C::kPass 1 dV alone (no dP^T), with 2 dK alone
 template <class C>
 __global__ void __launch_bounds__(C::kThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
@@ -695,6 +736,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      bf16* __restrict__ dv, int H, int N, int M, int D,
                      float scale, float c) {
   constexpr int S = C::kStages, BQ = C::kBS, BK = C::kBR;
+  constexpr bool kDoV = C::kPass != 2, kDoK = C::kPass != 1;
   extern __shared__ unsigned char smem_raw[];
   const BwdSmem<C> sm(smem_raw);
   const uint32_t sK = sm.res0, sV = sm.res1, sQ = sm.tile0, sDO = sm.tile1;
@@ -723,10 +765,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     setmaxnreg_dec<C::kProducerRegs>();  // loads, the rest leave
     if (warp == 4 * C::kGroups) {
       if (lane == 0) {
-        mbar_expect_tx(sm.rbar, 2 * C::kResBytes);
+        mbar_expect_tx(sm.rbar, C::kResident * C::kResBytes);
         for (int ch = 0; ch < C::kChunks; ++ch) {
           tma_load_4d(sK + ch * BK * 128, &tk, sm.rbar, ch * 64, h, k0, b);
-          tma_load_4d(sV + ch * BK * 128, &tv, sm.rbar, ch * 64, h, k0, b);
+          if constexpr (kDoK)
+            tma_load_4d(sV + ch * BK * 128, &tv, sm.rbar, ch * 64, h, k0, b);
         }
       }
       for (int t = 0; t < tiles; ++t) {
@@ -760,9 +803,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     const int wk = warp & 3;
     if (g >= busy_groups) return;
     const uint32_t sKg = sK + 64 * g * 128, sVg = sV + 64 * g * 128;
-    float acc_k[C::kDepth / 2], acc_v[C::kDepth / 2];
+    // the accumulators of the outputs this pass writes (4 placeholder
+    // registers, never read, for the other one)
+    constexpr int NK = kDoK ? C::kDepth / 2 : 4, NV = kDoV ? C::kDepth / 2 : 4;
+    float acc_k[NK], acc_v[NV];
 #pragma unroll
-    for (int i = 0; i < C::kDepth / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    for (int i = 0; i < NK; ++i) acc_k[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc_v[i] = 0.f;
     mbar_wait(sm.rbar, 0);
 
     for (int t = 0; t < tiles; ++t) {
@@ -771,37 +819,41 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       const uint32_t qs = sQ + s * C::kTileBytes, ds = sDO + s * C::kTileBytes;
 
-      // S^T = K Q^T, dP^T = V dO^T
+      // S^T = K Q^T, and for dK dP^T = V dO^T
       float sc[BQ / 2], dp[BQ / 2];
       wgmma_fence();
       scores<C>(sc, sKg, qs);
-      scores<C>(dp, sVg, ds);
+      if constexpr (kDoK) scores<C>(dp, sVg, ds);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
-      fence_regs(dp);
+      if constexpr (kDoK) fence_regs(dp);
 
       // P^T = exp2(S^T c - lse log2 e), 0 past N; dS^T = P^T (dP^T - delta)
       const float* st = sm.stats + s * 2 * BQ;
       const int q0 = t * BQ;
       if (q0 + BQ > N)
-        p_ds_cols<true>(sc, dp, st, c, N - q0, lane);
+        p_ds_cols<true, BQ / 2, kDoK>(sc, dp, st, c, N - q0, lane);
       else
-        p_ds_cols<false>(sc, dp, st, c, BQ, lane);
+        p_ds_cols<false, BQ / 2, kDoK>(sc, dp, st, c, BQ, lane);
 
       // dV += P^T dO, dK += dS^T Q
       uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
-      to_bf16(pa, sc);
-      to_bf16(dsa, dp);
+      if constexpr (kDoV) to_bf16(pa, sc);
+      if constexpr (kDoK) to_bf16(dsa, dp);
       wgmma_fence();
-      product<C>(acc_v, pa, ds);
-      product<C>(acc_k, dsa, qs);
+      if constexpr (kDoV) product_cols<C>(acc_v, pa, ds);
+      if constexpr (kDoK) product_cols<C>(acc_k, dsa, qs);
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs(acc_k);
-      fence_regs(acc_v);
-      fence_regs(pa);
-      fence_regs(dsa);
+      if constexpr (kDoK) {
+        fence_regs(acc_k);
+        fence_regs(dsa);
+      }
+      if constexpr (kDoV) {
+        fence_regs(acc_v);
+        fence_regs(pa);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(sm.empty + 8 * s);
     }
@@ -809,8 +861,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     const long long hd = (long long)H * D;  // row stride of dK and dV
     const long long off = (long long)b * M * hd + (long long)h * D;
     const int row0 = k0 + 64 * g + 16 * wk + (lane >> 2);
-    store_rows(acc_v, dv + off, hd, row0, M, D, 1.f, lane);
-    store_rows(acc_k, dk + off, hd, row0, M, D, scale, lane);
+    if constexpr (kDoV) store_rows(acc_v, dv + off, hd, row0, M, D, 1.f, lane);
+    if constexpr (kDoK) store_rows(acc_k, dk + off, hd, row0, M, D, scale, lane);
   }
 }
 
@@ -853,25 +905,36 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// K5a when dq is given, else K5b
+// K5a when dq is given, else K5b (past 160 its dV pass, then its dK pass)
 int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, void* dk,
               void* dv, int B, int H, int N, int M, int D, long long q_bs,
               long long q_rs, long long k_bs, long long k_rs, long long v_bs,
               long long v_rs, float scale, void* stream) {
-  // the smallest width that holds d: 48, 64, 80, 128 or 160
+  // the smallest width that holds d: 48, 64, 80, 128, 160, 256 or 320
   using Launch = decltype(&launch_bwd<Dq40, true>);
-  Launch launch = nullptr;
+  Launch launch = nullptr, second = nullptr;
   const bool a = dq != nullptr;
   if (D <= 48) launch = a ? launch_bwd<Dq40, true> : launch_bwd<Dkv40, false>;
   else if (D <= 64) launch = a ? launch_bwd<Dq64, true> : launch_bwd<Dkv64, false>;
   else if (D <= 80) launch = a ? launch_bwd<Dq80, true> : launch_bwd<Dkv80, false>;
   else if (D <= 128) launch = a ? launch_bwd<Dq128, true> : launch_bwd<Dkv128, false>;
   else if (D <= 160) launch = a ? launch_bwd<Dq160, true> : launch_bwd<Dkv160, false>;
+  else if (D <= 256) {
+    launch = a ? launch_bwd<Dq256, true> : launch_bwd<Dv256, false>;
+    if (!a) second = launch_bwd<Dk256, false>;
+  } else if (D <= 320) {
+    launch = a ? launch_bwd<Dq320, true> : launch_bwd<Dv320, false>;
+    if (!a) second = launch_bwd<Dk320, false>;
+  }
   if (launch == nullptr || D % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return launch(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, q_bs,
-                q_rs, k_bs, k_rs, v_bs, v_rs, scale, s);
+  int err = launch(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, q_bs,
+                   q_rs, k_bs, k_rs, v_bs, v_rs, scale, s);
+  if (err == 0 && second != nullptr)
+    err = second(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, q_bs,
+                 q_rs, k_bs, k_rs, v_bs, v_rs, scale, s);
+  return err;
 }
 
 }  // namespace
@@ -890,8 +953,10 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 // flash_fwd_f32_wgmma_kernel (Q as register A), K5a/f32 and K5b/f32
 // flash_bwd_dq_f32_ss_kernel and flash_bwd_dkv_f32_ss_kernel (the scores
 // by descriptor, P and dS as register A against operands transposed and
-// split once a call by the same pre-pass, flash_split_f32_kernel), all
-// below.
+// split once a call by the same pre-pass, flash_split_f32_kernel), and at
+// widths 256 and 320 flash_bwd_dq_f32_stream_kernel and
+// flash_bwd_dkv_f32_stream_kernel (the same, the scores' depth streamed),
+// all below.
 
 namespace {
 
@@ -1421,6 +1486,13 @@ int f32_width(int D) {
        : D <= 160 ? 160 : 0;
 }
 
+// The width of K5a/f32's and K5b/f32's kernels for head dim D: f32_width's,
+// then the d-streamed kernels' (bwd_f32_stream); 0 past 320
+int bwd_f32_width(int D) {
+  const int w = f32_width(D);
+  return w ? w : D <= 256 ? 256 : D <= 320 ? 320 : 0;
+}
+
 // The workspace of K1/f32 at widths up to 160, in floats: K hi, K lo (B H
 // M W each), then V^T hi, V^T lo (B H W Mp each), W the width
 long long fwd_f32_ws_floats(int B, int H, int M, int W) {
@@ -1879,6 +1951,9 @@ struct BwdF32W {
   static constexpr size_t kSmemBytes = 1024 + kNRes * kResBytes +
                                        kStages * (kStageBytes + kStatBytes) +
                                        8 * (2 * kStages + 1);
+  static constexpr int kOutCols = kD;   // an output product's columns
+  static constexpr int kTBoxRows = kD;  // rows of a transposed tile's box
+  static constexpr bool kStream = false;
   static_assert(kD % 8 == 0 && kBS % 16 == 0 && kBS <= 64, "tiles");
   static_assert(!kSplit || kGroups == 2, "kSplit shares 64 rows between two");
   static_assert(kStageBytes % 512 == 0 && kTChunk % 512 == 0, "swizzle atoms");
@@ -1979,12 +2054,14 @@ __device__ __forceinline__ void bwd_f32_load_stage(
 // ptxas does not keep every loop-invariant descriptor of the resident
 // operands in registers across the loop.)
 
-// S (64 x kBS) = A B^T in 3xTF32, chained into a fresh accumulator: A this
-// warpgroup's 64 rows of a resident operand (hi at `a`, lo one operand
-// on), B a stage's row operand (hi at `b`, lo one operand on), both by
-// descriptor; every k step's lo*hi and hi*lo, then hi*hi
+// S (64 x kBS) = A B^T in 3xTF32, chained into a fresh accumulator (or,
+// not `fresh`, added to the chain in s): A this warpgroup's 64 rows of a
+// resident operand (hi at `a`, lo one operand on), B a stage's row operand
+// (hi at `b`, lo one operand on), both by descriptor; every k step's lo*hi
+// and hi*lo, then hi*hi
 template <class C, int N>
-__device__ __forceinline__ void scores_f32(float (&s)[N], uint32_t a, uint32_t b) {
+__device__ __forceinline__ void scores_f32(float (&s)[N], uint32_t a, uint32_t b,
+                                           bool fresh = true) {
   static_assert(N == C::kBS / 2, "a kBS-wide score fragment");
   const uint64_t ah = sw64_desc(a), al = sw64_desc(a + C::kResBytes);
   const uint64_t bh = sw64_desc(b), bl = sw64_desc(b + C::kRowBytes);
@@ -1992,7 +2069,7 @@ __device__ __forceinline__ void scores_f32(float (&s)[N], uint32_t a, uint32_t b
   for (int kk = 0; kk < C::kSteps; ++kk) {
     const uint32_t ao = ((kk / 2) * C::kResChunk + (kk % 2) * 32) >> 4;
     const uint32_t bo = ((kk / 2) * C::kRowChunk + (kk % 2) * 32) >> 4;
-    wgmma_ss_tf32(s, al + ao, bh + bo, kk > 0);
+    wgmma_ss_tf32(s, al + ao, bh + bo, kk > 0 || !fresh);
     wgmma_ss_tf32(s, ah + ao, bl + bo, 1);
   }
 #pragma unroll
@@ -2024,15 +2101,16 @@ __device__ __forceinline__ void split_frag(uint32_t (&hi)[N / 4][4],
   }
 }
 
-// D (64 x kD) = A B over a stage's kBS keys (K5b: q rows) in 3xTF32, into a
-// fresh accumulator: A the split score fragment, B the transposed tile at
-// `t` (hi; lo one tile on), k step j at its slots 8 j .. 8 j + 7
+// D (64 x kD, or the d-streamed kernel's 64 x kPartCols) = A B over a
+// stage's kBS keys (K5b: q rows) in 3xTF32, into a fresh accumulator: A the
+// split score fragment, B the transposed tile at `t` (hi; lo one tile on),
+// k step j at its slots 8 j .. 8 j + 7
 template <class C, int N, int K>
 __device__ __forceinline__ void product_f32(float (&d)[N],
                                             const uint32_t (&hi)[K][4],
                                             const uint32_t (&lo)[K][4],
                                             uint32_t t) {
-  static_assert(N == C::kD / 2 && K == C::kBS / 8, "shapes");
+  static_assert(N == C::kOutCols / 2 && K == C::kBS / 8, "shapes");
   const uint64_t th = sw64_desc(t), tl = sw64_desc(t + C::kTBytes);
 #pragma unroll
   for (int j = 0; j < K; ++j) {
@@ -2319,6 +2397,292 @@ flash_bwd_dkv_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
   if (kDoK) store_rows_f32(acc_k, dk + off, hd, row0, M, Dt, scale, lane);
 }
 
+// ---------------------------------------------------------------------------
+// K5a/f32 and K5b/f32 past d = 160 (widths 256 and 320: num_heads 5's 24^2
+// sites at 768^2, num_heads 2's 32^2 sites at 512^2). The kernels above
+// keep 64 rows of the scores' first operands resident in hi and lo: at
+// d = 256 Q and dO take 4 x 64 x 256 x 4 bytes = 256 KB, past a block's
+// 227 KB. So this kernel keeps nothing resident and streams the score
+// contraction over d, as K1/f32 at d = 512 streams its depth:
+//  * One consumer warpgroup owns 64 output rows (K5a: q rows and dQ; K5b:
+//    k rows and dV or dK) and the producer warp feeds it a ring of equal
+//    stages with TMA from the same workspace maps. The stream is a
+//    sequence of items: for each tile of kBS = 16 keys (K5a) or q rows
+//    (K5b), d / 32 score items, each the 32 columns i of the block's 64
+//    rows and of the tile's 16, hi and lo, of both score products (K5a: Q,
+//    dO and K, V; K5b's dK pass K, V and Q, dO; its dV pass K and Q), then
+//    one output item, the tile's transposed operand (K5a K^T; K5b Q^T or
+//    dO^T) whole, hi and lo, with (K5b) the tile's lse log2 e and delta.
+//    Both items take 40 KB at d = 320, so five stages fit (201 KB).
+//  * The score items chain into one accumulator each (S and dP, 64 x 16):
+//    an item's k steps' lo*hi and hi*lo, then their hi*hi, as the kernels
+//    above chain a whole row's; one chain over d is as deep at d = 320
+//    as theirs at 160 (40 steps, 120 products: no chain runs over M or N).
+//  * At the output item P and dS (or P^T, dS^T) come from the chains as
+//    above, split once as register A, and the output product runs over
+//    the accumulator's columns in parts of kPartCols, each over the tile's
+//    keys into a fresh accumulator added in round-to-nearest f32: the
+//    running sum (d / 2 registers) and one part fit the 255 registers of
+//    five warps. K5b runs as two launches, dV then dK, as at 128 and 160.
+//  * What bounds it: not the tensor cores. The 64 rows' operands are read
+//    again from L2 for every 16-key tile (4 x 64 x d x 4 bytes), so a
+//    tile moves 320 KB at d = 320 for 3 x 2 x 64 x 16 x 320 x 2 flops of
+//    scores: L2's bandwidth sets its time. It is the simple design that
+//    fits; a faster one is later work.
+
+// kD: the width (256 or 320); kStages: the ring's depth; kPartCols: the
+// output product's columns a wgmma (64 or 32); kDkv: K5b (else K5a);
+// kPass (K5b): 1 dV, 2 dK
+template <int kD_, int kStages_, int kPartCols_, bool kDkv_, int kPass_ = 0>
+struct BwdF32S {
+  static constexpr int kD = kD_, kStages = kStages_, kOutCols = kPartCols_,
+                       kPass = kPass_;
+  static constexpr bool kDkv = kDkv_, kStream = true;
+  static constexpr int kBS = 16;            // keys (K5b: q rows) a tile
+  static constexpr int kDC = 32;            // the scores' depth an item
+  static constexpr int kItems = kD / kDC;   // score items a tile
+  static constexpr int kRes = 64;           // output rows a block
+  static constexpr int kProducer = 4;       // the producer warp
+  static constexpr int kThreads = 32 * (kProducer + 1);
+  static constexpr bool kDvOnly = kDkv && kPass == 1;
+  static constexpr int kNX = kDvOnly ? 1 : 2;  // score products an item
+  static constexpr int kSteps = kDC / 8;       // an item's k steps
+  // an item's 64 rows of a first operand (hi; lo one tile on), in 16-value
+  // chunks, and its tile's rows of a second operand, in the 64-byte swizzle
+  static constexpr uint32_t kResChunk = kRes * 64;
+  static constexpr uint32_t kResBytes = kDC / 16 * kResChunk;
+  static constexpr uint32_t kRowChunk = kBS * 64;
+  static constexpr uint32_t kRowBytes = kDC / 16 * kRowChunk;
+  static constexpr uint32_t kTChunk = kD * 64;             // 16 slots x d rows
+  static constexpr uint32_t kTBytes = kBS / 16 * kTChunk;  // hi; lo after
+  static constexpr int kTBoxRows = 64;  // a TMA box holds at most 256 rows
+  static constexpr int kT0 = kDvOnly ? 2 : 0;  // dO^T's index, else Q^T/K^T's
+  static constexpr uint32_t kScoreBytes = 2 * kNX * (kResBytes + kRowBytes);
+  static constexpr uint32_t kOutBytes = 2 * kTBytes;
+  static constexpr uint32_t kStageBytes =
+      kScoreBytes > kOutBytes ? kScoreBytes : kOutBytes;
+  static constexpr uint32_t kStatBytes = kDkv ? 2 * kBS * 4 : 0;
+  static constexpr size_t kSmemBytes =
+      1024 + kStages * (kStageBytes + kStatBytes) + 8 * (2 * kStages);
+  static_assert(kD % 64 == 0 && kD % kDC == 0 && kD % kOutCols == 0, "tiles");
+  static_assert(kStageBytes % 1024 == 0, "swizzle atoms");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+  static_assert(kDkv ? kPass != 0 : kPass == 0, "K5b in two passes");
+};
+
+using DqS256 = BwdF32S<256, 5, 64, false>;      // 201 KB
+using DvS256 = BwdF32S<256, 6, 64, true, 1>;    // 194 KB
+using DkS256 = BwdF32S<256, 5, 64, true, 2>;    // 202 KB
+using DqS320 = BwdF32S<320, 5, 32, false>;      // 201 KB
+using DvS320 = BwdF32S<320, 5, 32, true, 1>;    // 202 KB
+using DkS320 = BwdF32S<320, 5, 32, true, 2>;    // 202 KB
+
+// The body of both kernels below: tres maps the workspace's first
+// operands (K5a Q, dO; K5b K, V; hi, lo), trows the second (K5a K, V; K5b
+// Q, dO), tt the transposed (K5a K^T; K5b Q^T, dO^T); out is dQ (K5a), dV
+// (K5b's pass 1) or dK (its pass 2)
+template <class C>
+__device__ __forceinline__ void bwd_f32_stream(const CUtensorMap& tres,
+                                               const CUtensorMap& trows,
+                                               const CUtensorMap& tt,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               float* __restrict__ out, int H,
+                                               int N, int M, int Dt,
+                                               float scale, float c) {
+  constexpr int S = C::kStages, BS = C::kBS, D = C::kD, I = C::kItems;
+  constexpr int P = C::kOutCols;
+  constexpr bool kDoK = C::kDkv && C::kPass == 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t ring = (base + 1023u) & ~1023u;  // stage s at + s kStageBytes
+  const uint32_t st0 = ring + S * C::kStageBytes;
+  float* stats = reinterpret_cast<float*>(smem_raw + (st0 - base));
+  const uint32_t full = st0 + S * C::kStatBytes;  // stage s's mbarrier at + 8 s
+  const uint32_t empty = full + 8 * S;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, BH = gridDim.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int r0 = blockIdx.x * C::kRes;  // the block's output rows
+  const int len = C::kDkv ? N : M;      // the stream's rows
+  const int tiles = (len + BS - 1) / BS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      // K5b: the producer warp's 32 lanes arrive, the statistics written
+      mbar_init(full + 8 * s, C::kDkv ? 32 : 1);
+      mbar_init(empty + 8 * s, 4);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == C::kProducer) {  // the producer warp: lane 0 loads
+    int item = 0;
+    for (int t = 0; t < tiles; ++t) {
+      for (int i = 0; i <= I; ++i, ++item) {
+        const int s = item % S;
+        if (item >= S) mbar_wait(empty + 8 * s, ((item / S) - 1) & 1);
+        const uint32_t bar = full + 8 * s, st = ring + s * C::kStageBytes;
+        if (C::kDkv && i == I) {  // the tile's lse log2 e and delta, 0 past N
+          float* sst = stats + s * 2 * BS;
+          for (int j = lane; j < BS; j += 32) {
+            const int row = BS * t + j;
+            const bool in = row < N;
+            sst[j] = in ? lse[(long long)bh * N + row] * kLog2e : 0.f;
+            sst[BS + j] = in ? delta[(long long)bh * N + row] : 0.f;
+          }
+        }
+        if (lane == 0) {
+          if (i < I) {  // score item i: 32 columns of each operand, hi, lo
+            mbar_expect_tx(bar, C::kScoreBytes);
+            const uint32_t sy = st + 2 * C::kNX * C::kResBytes;
+            for (int op = 0; op < 2 * C::kNX; ++op)
+              for (int ch = 0; ch < C::kDC / 16; ++ch) {
+                const int col = C::kDC * i + 16 * ch;
+                tma_load_3d(st + op * C::kResBytes + ch * C::kResChunk, &tres,
+                            bar, col, r0, op * BH + bh);
+                tma_load_3d(sy + op * C::kRowBytes + ch * C::kRowChunk, &trows,
+                            bar, col, BS * t, op * BH + bh);
+              }
+          } else {      // the output item: the tile's transposed operand
+            mbar_expect_tx(bar, C::kOutBytes);
+            for (int op = 0; op < 2; ++op)
+              for (int j = 0; j < BS / 16; ++j)
+                for (int rr = 0; rr < D / C::kTBoxRows; ++rr)
+                  tma_load_3d(st + op * C::kTBytes + j * C::kTChunk +
+                                  rr * C::kTBoxRows * 64,
+                              &tt, bar, BS * t + 16 * j, C::kTBoxRows * rr,
+                              (C::kT0 + op) * BH + bh);
+          }
+        } else if (C::kDkv) {
+          mbar_arrive(bar);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: its warp w owns rows 16 w .. 16 w + 15
+  const int row0 = r0 + 16 * warp + (lane >> 2);
+  // K5a: this thread's rows' lse (times log2 e) and delta, zero past N
+  // (those rows are zero in Q and dO, never written)
+  float l2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if constexpr (!C::kDkv) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = row0 + 8 * r < N;
+      const long long i = (long long)bh * N + row0 + 8 * r;
+      l2[r] = in ? lse[i] * kLog2e : 0.f;
+      dl[r] = in ? delta[i] : 0.f;
+    }
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  int item = 0;
+  for (int t = 0; t < tiles; ++t) {
+    // S = Q K^T, dP = dO V^T (K5b: S^T = K Q^T, dP^T = V dO^T), item by item
+    float sc[BS / 2], dp[BS / 2];
+    for (int i = 0; i < I; ++i, ++item) {
+      const int s = item % S;
+      mbar_wait(full + 8 * s, (item / S) & 1);
+      __syncwarp();  // converged again for the warpgroup-wide wgmma
+      const uint32_t st = ring + s * C::kStageBytes;
+      const uint32_t sy = st + 2 * C::kNX * C::kResBytes;
+      wgmma_fence();
+      scores_f32<C>(sc, opaque(st), sy, i == 0);
+      if constexpr (C::kNX == 2)
+        scores_f32<C>(dp, opaque(st + 2 * C::kResBytes), sy + 2 * C::kRowBytes,
+                      i == 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      if constexpr (C::kNX == 2) fence_regs(dp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    // the output item
+    const int s = item % S;
+    mbar_wait(full + 8 * s, (item / S) & 1);
+    __syncwarp();
+    const uint32_t tb = ring + s * C::kStageBytes;
+    const int t0 = t * BS;
+    uint32_t ah[BS / 8][4], al[BS / 8][4];
+    if constexpr (!C::kDkv) {
+      // P = exp2(S c - lse log2 e), 0 past M; dS = P (dP - delta), in sc
+      if (t0 + BS > M)
+        ds_rows<true>(sc, dp, l2, dl, c, M - t0, lane);
+      else
+        ds_rows<false>(sc, dp, l2, dl, c, BS, lane);
+      split_frag(ah, al, sc);
+    } else {
+      // P^T = exp2(S^T c - lse log2 e), 0 past N; dS^T = P^T (dP^T - delta)
+      const float* stat = stats + s * 2 * BS;
+      if (t0 + BS > N)
+        p_ds_cols<true, BS / 2, kDoK>(sc, dp, stat, c, N - t0, lane);
+      else
+        p_ds_cols<false, BS / 2, kDoK>(sc, dp, stat, c, BS, lane);
+      if constexpr (kDoK) split_frag(ah, al, dp);  // dK += dS^T Q
+      else split_frag(ah, al, sc);                 // dV += P^T dO
+    }
+    // the output's columns P at a time, each into a fresh accumulator
+#pragma unroll
+    for (int p = 0; p < D / P; ++p) {
+      float part[P / 2];
+      wgmma_fence();
+      product_f32<C>(part, ah, al, tb + p * P * 64);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(part);
+#pragma unroll
+      for (int e = 0; e < P / 2; ++e) acc[p * (P / 2) + e] += part[e];
+    }
+    fence_regs(ah);
+    fence_regs(al);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    ++item;
+  }
+
+  const long long hd = (long long)H * Dt;  // row stride of the output
+  const int rows = C::kDkv ? M : N;
+  store_rows_f32(acc, out + (long long)b * rows * hd + (long long)h * Dt, hd,
+                 row0, rows, Dt, C::kDkv && !kDoK ? 1.f : scale, lane);
+}
+
+// K5a/f32 past d = 160: dQ
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dq_f32_stream_kernel(const __grid_constant__ CUtensorMap tres,
+                               const __grid_constant__ CUtensorMap trows,
+                               const __grid_constant__ CUtensorMap tt,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dq, int H, int N, int M,
+                               int Dt, float scale, float c) {
+  static_assert(!C::kDkv, "K5a");
+  bwd_f32_stream<C>(tres, trows, tt, lse, delta, dq, H, N, M, Dt, scale, c);
+}
+
+// K5b/f32 past d = 160: dV (C::kPass 1) or dK (2)
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dkv_f32_stream_kernel(const __grid_constant__ CUtensorMap tres,
+                                const __grid_constant__ CUtensorMap trows,
+                                const __grid_constant__ CUtensorMap tt,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ out, int H, int N, int M,
+                                int Dt, float scale, float c) {
+  static_assert(C::kDkv, "K5b");
+  bwd_f32_stream<C>(tres, trows, tt, lse, delta, out, H, N, M, Dt, scale, c);
+}
+
 // The workspace of K5a and K5b in f32, in floats, at the width D: Q and dO
 // split (hi, lo each: four (B H, N, D) blocks), K and V split (four (B H,
 // M, D)), K^T split (two (B H, D, Mp)), Q^T and dO^T split (four (B H, D,
@@ -2356,19 +2720,22 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   const BwdF32Ws w(ws, BH, N, M, D);
   CUtensorMap tres, trows, tt;
   int err;
+  constexpr int TR = C::kTBoxRows;
   if constexpr (C::kDkv) {
     err = tensor_map_3d_f32(&tres, w.kv, D, M, 4 * BH, D, C::kRes, 16);
     if (err == 0) err = tensor_map_3d_f32(&trows, w.qd, D, N, 4 * BH, D, C::kBS, 16);
-    if (err == 0) err = tensor_map_3d_f32(&tt, w.tqd, Np, D, 4 * BH, Np, D, 16);
+    if (err == 0) err = tensor_map_3d_f32(&tt, w.tqd, Np, D, 4 * BH, Np, TR, 16);
   } else {
     err = tensor_map_3d_f32(&tres, w.qd, D, N, 4 * BH, D, C::kRes, 16);
     if (err == 0) err = tensor_map_3d_f32(&trows, w.kv, D, M, 4 * BH, D, C::kBS, 16);
-    if (err == 0) err = tensor_map_3d_f32(&tt, w.kt, Mp, D, 2 * BH, Mp, D, 16);
+    if (err == 0) err = tensor_map_3d_f32(&tt, w.kt, Mp, D, 2 * BH, Mp, TR, 16);
   }
   if (err != 0) return err;
   static unsigned long long smem_set = 0;
   auto kern = [] {
-    if constexpr (C::kDkv) return flash_bwd_dkv_f32_ss_kernel<C>;
+    if constexpr (C::kStream && C::kDkv) return flash_bwd_dkv_f32_stream_kernel<C>;
+    else if constexpr (C::kStream) return flash_bwd_dq_f32_stream_kernel<C>;
+    else if constexpr (C::kDkv) return flash_bwd_dkv_f32_ss_kernel<C>;
     else return flash_bwd_dq_f32_ss_kernel<C>;
   }();
   err = allow_smem(kern, C::kSmemBytes, smem_set);
@@ -2389,7 +2756,12 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
     if (err != 0) return err;
   }
   const float c = scale * kLog2e;
-  if constexpr (C::kDkv) {
+  if constexpr (C::kStream) {
+    float* out = static_cast<float*>(C::kDkv ? (C::kPass == 1 ? dv : dk) : dq);
+    kern<<<dim3(((C::kDkv ? M : N) + C::kRes - 1) / C::kRes, BH), C::kThreads,
+           C::kSmemBytes, stream>>>(tres, trows, tt, lse, delta, out, H, N, M,
+                                    Dt, scale, c);
+  } else if constexpr (C::kDkv) {
     kern<<<dim3((M + C::kRes - 1) / C::kRes, BH), C::kThreads, C::kSmemBytes,
            stream>>>(tres, trows, tt, lse, delta, static_cast<float*>(dk),
                      static_cast<float*>(dv), H, N, M, Dt, scale, c);
@@ -2407,13 +2779,13 @@ int flash_bwd_f32(const void* q, const void* k, const void* v,
                   int D, long long q_bs, long long q_rs, long long k_bs,
                   long long k_rs, long long v_bs, long long v_rs, float scale,
                   void* ws, int prepare, void* stream) {
-  // the smallest width that holds d: 40, 64, 80, 128 or 160 (d % 4 == 0);
-  // K5b past 80 as its dV pass, then its dK pass on what the first
-  // prepared
+  // the smallest width that holds d: 40, 64, 80, 128, 160, 256 or 320
+  // (d % 4 == 0); K5b past 80 as its dV pass, then its dK pass on what the
+  // first prepared
   using Launch = decltype(&launch_bwd_f32<DqF40>);
   Launch first = nullptr, second = nullptr;
   const bool a = dq != nullptr;
-  switch (f32_width(D)) {
+  switch (bwd_f32_width(D)) {
     case 40: first = a ? launch_bwd_f32<DqF40> : launch_bwd_f32<DkvF40>; break;
     case 64: first = a ? launch_bwd_f32<DqF64> : launch_bwd_f32<DkvF64>; break;
     case 80: first = a ? launch_bwd_f32<DqF80> : launch_bwd_f32<DkvF80>; break;
@@ -2424,6 +2796,14 @@ int flash_bwd_f32(const void* q, const void* k, const void* v,
     case 160:
       first = a ? launch_bwd_f32<DqF160> : launch_bwd_f32<DvF160>;
       if (!a) second = launch_bwd_f32<DkF160>;
+      break;
+    case 256:
+      first = a ? launch_bwd_f32<DqS256> : launch_bwd_f32<DvS256>;
+      if (!a) second = launch_bwd_f32<DkS256>;
+      break;
+    case 320:
+      first = a ? launch_bwd_f32<DqS320> : launch_bwd_f32<DvS320>;
+      if (!a) second = launch_bwd_f32<DkS320>;
       break;
     default: break;
   }
@@ -2441,9 +2821,10 @@ int flash_bwd_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // K5a. q, k, v as for llt2i_flash_fwd; dout and dq contiguous (B, N, H*D);
-// lse and delta contiguous f32 (B, H, N). Every D <= 160 (D % 8 == 0) runs
+// lse and delta contiguous f32 (B, H, N). Every D <= 320 (D % 8 == 0) runs
 // the instantiation of the smallest width that holds it (48, 64, 80, 128,
-// 160); any other returns cudaErrorInvalidValue without launching.
+// 160, 256, 320; K5b past 160 as two launches); any other returns
+// cudaErrorInvalidValue without launching.
 LLT2I_API int llt2i_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dq, int B, int H,
@@ -2507,8 +2888,9 @@ LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
 // flash_fwd_f32_ss_kernel, with a workspace `ws` of
 // llt2i_flash_fwd_f32_ws(B, H, M, D) bytes, 16-byte aligned, which the call
 // overwrites; 512: flash_fwd_f32_wgmma_kernel, ws null); K5a and K5b: every
-// D <= 160 likewise. Any other d, scale <= 0 (K1) or a missing workspace
-// returns cudaErrorInvalidValue without launching.
+// D <= 320 likewise (256, 320: the d-streamed kernels, bwd_f32_stream).
+// Any other d, scale <= 0 (K1) or a missing workspace returns
+// cudaErrorInvalidValue without launching.
 LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* o, float* lse, int B, int H, int N,
                                   int M, int D, long long q_bs, long long q_rs,
@@ -2543,7 +2925,7 @@ LLT2I_API long long llt2i_flash_fwd_f32_ws(int B, int H, int M, int D) {
   return w ? 4 * fwd_f32_ws_floats(B, H, M, w) : 0;
 }
 
-// K5a and K5b f32: every d <= 160 (d % 4 == 0), and a workspace `ws` of
+// K5a and K5b f32: every d <= 320 (d % 4 == 0), and a workspace `ws` of
 // llt2i_flash_bwd_f32_ws(B, H, N, M, D) bytes, 16-byte aligned. With
 // `prepare`, the call first writes into it the split (and transposed)
 // operands that K5a (bit 0) and K5b (bit 1) read; with 0 it reads what an
@@ -2581,8 +2963,8 @@ LLT2I_API int llt2i_flash_bwd_dkv_f32(const void* q, const void* k,
 }
 
 // The bytes of the K5a/K5b f32 workspace for B x H heads of N queries and
-// M keys at head dim D (0 where no kernel takes D: past 160)
+// M keys at head dim D (0 where no kernel takes D: past 320)
 LLT2I_API long long llt2i_flash_bwd_f32_ws(int B, int H, int N, int M, int D) {
-  const int w = f32_width(D);
+  const int w = bwd_f32_width(D);
   return w ? 4 * bwd_f32_ws_floats(B, H, N, M, w) : 0;
 }

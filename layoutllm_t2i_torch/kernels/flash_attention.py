@@ -23,14 +23,17 @@ Head dims. The Pallas kernels take any d (they zero-pad it to 128 lanes);
 so do these. Each instantiation takes every d up to its width, its tensor
 maps zero-filling the columns past d (``K1_WIDTHS``, ``K5_WIDTHS``; the C
 entry points pick the smallest width that holds d): K1 every d <= 512,
-K5a/K5b every d <= 160, in both types. The maps' head stride must be whole
-16-byte vectors (d % 8 == 0 in bf16, d % 4 in f32): for any other d (16
-heads at 320 channels give d 20) the wrapper launches the kernel on a
-zero-padded packed copy of q, k, v (and dO) at the next such d, with the
-scale of the true d, and returns the output's first d columns of each
-head (``padded_head_dim``; an explicit copy, not a fallback). Past 512
-(K1) or 160 (K5) a card call raises naming ROADMAP.md's Queue 2 item;
-``num_heads`` 5 at 768^2 reaches K5 at d 256 so.
+K5a/K5b every d <= 320, in both types (past 160 K5b runs as two launches
+from one wrapper call, a dV pass and a dK pass, one count; K5's f32 forms
+there stream the scores' depth, ``flash_bwd_*_f32_stream_kernel``). The
+maps' head stride must be whole 16-byte vectors (d % 8 == 0 in bf16,
+d % 4 in f32): for any other d (16 heads at 320 channels give d 20; d 300
+in bf16 runs at 304) the wrapper launches the kernel on a zero-padded
+packed copy of q, k, v (and dO) at the next such d, with the scale of the
+true d, and returns the output's first d columns of each head
+(``padded_head_dim``; an explicit copy, not a fallback). Past 512 (K1) or
+320 (K5) a card call raises naming ROADMAP.md's Queue 2 item (K1 past
+512, then K5 past 320): ``num_heads`` 1 at 512^2 reaches K1 at d 640 so.
 
 K1/f32 at widths up to 160 splits K and V (and
 transposes V) once a call into a workspace that the wrapper allocates for
@@ -56,10 +59,10 @@ from .dispatch import (needs_grad, operand_dtype, require, stream_handle,
 # bf16 rounds d up to 16 (wgmma's depth), so d 40 runs the 48-wide one.
 K1_WIDTHS = {torch.bfloat16: (48, 64, 80, 128, 160, 512),
              torch.float32: (40, 64, 80, 128, 160, 512)}
-K5_WIDTHS = {torch.bfloat16: (48, 64, 80, 128, 160),
-             torch.float32: (40, 64, 80, 128, 160)}
+K5_WIDTHS = {torch.bfloat16: (48, 64, 80, 128, 160, 256, 320),
+             torch.float32: (40, 64, 80, 128, 160, 256, 320)}
 # where the head dims past the widest are listed as still to port
-NOT_PORTED = "ROADMAP.md Queue 2: K1 past d 512, K5a/K5b past d 160"
+NOT_PORTED = "ROADMAP.md Queue 2: K1 past d 512, K5a/K5b past d 320"
 
 
 def padded_head_dim(d: int, dtype: torch.dtype) -> int:

@@ -71,7 +71,13 @@ four planted faults 0.56 to 0.72, and its bound is 2e-5
 (``tests/test_torch_group_norm.py``). The lse in f32 is held to 1e-4
 absolute (emulated: 1e-6; one TF32 pass moves it by 6e-5 to 2.6e-4, which
 K1's output row already catches). On the H100 the f32 rows read at most
-1.5e-6 of rms(b) (K1, K5a, K5b), 7.1e-7 (K4) and 1.1e-7 (K2). The
+1.5e-6 of rms(b) (K1, K5a, K5b), 7.1e-7 (K4) and 1.1e-7 (K2). Past
+d 160 (widths 256 and 320) K5's f32 kernels stream the scores' depth in
+32-column items chained into one accumulator, so an item's lo*hi and
+hi*lo products add into a sum that already holds the earlier items'
+hi*hi: the emulation reads 6.2e-6 and 8.0e-6 (N = M = 606), the card
+4.9e-6 to 6.3e-6, inside the row; a dropped last item, a ragged tail, a
+stage read past N or a pass of K5b not run lie 6e-2 to 1 off. The
 emulation adds in round-to-nearest f32; the tensor cores truncate where
 they add into an mma's C operand, so the kernels add each stage's 3xTF32
 partial, from a fresh accumulator, into their sums with f32 adds.

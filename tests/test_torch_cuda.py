@@ -536,11 +536,14 @@ def test_flash_attention_backward(dev, gen, b, n, m, heads, d):
 @pytest.mark.parametrize("b,n,m,heads,d", [
     (1, 600, 630, 16, 20), (1, 600, 630, 5, 64), (1, 600, 630, 2, 96),
     (2, 1054, 1054, 5, 128), (1, 600, 630, 2, 144), (2, 576, 606, 8, 160),
+    (1, 600, 630, 2, 168), (2, 576, 606, 5, 256), (1, 600, 630, 2, 300),
+    (2, 1054, 1054, 2, 320),
 ])
 def test_flash_attention_backward_head_dims(dev, gen, b, n, m, heads, d, dtype):
-    # K5a and K5b at every width past 80 (K5b/f32 at 128 and 160 as its dV
-    # pass, then its dK pass) and at d on a wider one (20 through the
-    # padded copy), each against the plain backward
+    # K5a and K5b at every width past 80 (K5b/f32 at 128 and 160, and K5b
+    # at 256 and 320 in both types, as its dV pass, then its dK pass: one
+    # count) and at d on a wider one (20 and bf16 300 through the padded
+    # copy), each against the plain backward
     q, k, v, dout = (t.to(dtype) for t in _attention_inputs(gen, b, n, m, heads, d))
     s = d ** -0.5
     out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
@@ -658,15 +661,15 @@ def test_flash_attention_backward_is_bitwise_repeatable(dev, gen, b, n, m,
 
 
 def test_flash_attention_backward_uninstantiated_head_dim_raises(dev, gen):
-    # past the widest backward instantiation (160: num_heads 5 at 768^2
-    # reaches 256) the wrappers raise before any launch
-    q, k, v, dout = _attention_inputs(gen, 1, 512, 512, 2, 256)
+    # past the widest backward instantiation (320: num_heads 2 at 512^2's
+    # 32^2 sites) the wrappers raise before any launch
+    q, k, v, dout = _attention_inputs(gen, 1, 512, 512, 2, 328)
     lse = torch.zeros(1, 2, 512, device=dev)
     before = (K.flash_attention_bwd_dq.launches, K.flash_attention_bwd_dkv.launches)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 256 ** -0.5)
+        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 328 ** -0.5)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 256 ** -0.5)
+        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 328 ** -0.5)
     assert (K.flash_attention_bwd_dq.launches,
             K.flash_attention_bwd_dkv.launches) == before
 
@@ -965,16 +968,16 @@ def test_flash_attention_backward_f32_is_bitwise_repeatable(dev, gen, f32, b, n,
 
 
 def test_flash_attention_backward_f32_other_head_dims_raise(dev, gen, f32):
-    # d <= 160 only: no workspace and no launch at d 168
-    q, k, v, dout = (t.float() for t in _attention_inputs(gen, 1, 512, 512, 2, 168))
+    # d <= 320 only: no workspace and no launch at d 328
+    q, k, v, dout = (t.float() for t in _attention_inputs(gen, 1, 512, 512, 2, 328))
     lse = torch.zeros(1, 2, 512, device=dev)
-    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 168) == 0
-    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 160) > 0
+    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 328) == 0
+    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 320) > 0
     before = (K.flash_attention_bwd_dq.launches, K.flash_attention_bwd_dkv.launches)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 168 ** -0.5)
+        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 328 ** -0.5)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 168 ** -0.5)
+        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 328 ** -0.5)
     assert (K.flash_attention_bwd_dq.launches,
             K.flash_attention_bwd_dkv.launches) == before
 

@@ -390,9 +390,13 @@ K5_TILES = {("K5a", 40): (48, False), ("K5a", 80): (16, True),
             ("K5b", 40): (32, False), ("K5b", 80): (16, True),
             ("K5a", 64): (32, True), ("K5b", 64): (16, True),
             **{(kid, d): (16, False) for kid in ("K5a", "K5b")
-               for d in (128, 144, 160)}}
+               for d in (128, 144, 160, 168, 256, 300, 320)}}
 # the width a head dim runs at, where it is not d itself
-K5_WIDTH = {144: 160}
+K5_WIDTH = {144: 160, 168: 256, 300: 320}
+# past 160 (widths 256 and 320, flash_bwd_f32_stream_kernel) the scores'
+# depth streams in items of this many columns: each item's k steps' lo*hi
+# and hi*lo, then their hi*hi, chained on into one accumulator
+K5_STREAM_COLS = 32
 
 
 def _stage(t, r0, bs):
@@ -403,10 +407,38 @@ def _stage(t, r0, bs):
     return out
 
 
+def _stage_next(t, r0, bs):
+    """As ``_stage``, but rows past t's end read on into the next (batch,
+    head)'s first rows (dim 1 rolled; with one head, its own): a stage read
+    past N."""
+    out = _stage(t, r0, bs)
+    rows = t.shape[-2] - r0
+    if rows < bs:
+        out[..., rows:, :] = t.roll(-1, 1)[..., :bs - rows, :]
+    return out
+
+
+def _score_products(ah, al, y, width, drop, passes):
+    """The products of A B^T, B = y^T, in the order of the kernels' chain:
+    one chain over the whole depth up to 160; past it (``width`` 256, 320)
+    the d-streamed kernel's items of K5_STREAM_COLS columns, one after
+    another."""
+    bh, bl = split(y.transpose(-1, -2))
+    if width <= 160:
+        return tc_products(ah, al, bh, bl, drop, passes)
+    items = [slice(c0, c0 + K5_STREAM_COLS)
+             for c0 in range(0, ah.shape[-1], K5_STREAM_COLS)]
+    return [p for i in items for p in tc_products(
+        ah[..., i], al[..., i], bh[..., i, :], bl[..., i, :], drop, passes)]
+
+
 def _k5_wgmma_emulated(kid, q, k, v, dout, lse, delta, heads, scale, fault=None):
     # (faults past d 80: ``drop_chunk``, the width's last 64 columns dropped
-    # from the scores; ``pad_nonzero``, the width's columns past d read from
-    # the next head in the scores' operands)
+    # from the scores (past 160 its last item, K5_STREAM_COLS); ``pad_nonzero``,
+    # the width's columns past d read from the next head in the scores'
+    # operands; past 160: ``q_tail`` (K5b's last stage read past N, its
+    # statistics too), ``skip_dv`` and ``skip_dk`` (a pass of K5b not run:
+    # its output left unwritten, zeros here))
     """flash_bwd_dq_f32_ss_kernel (K5a: dQ over K/V stages) or
     flash_bwd_dkv_f32_ss_kernel (K5b: dK and dV over Q/dO stages) on the CPU,
     at the kernels' tiles (``K5_TILES``). Every operand split once into hi
@@ -442,9 +474,10 @@ def _k5_wgmma_emulated(kid, q, k, v, dout, lse, delta, heads, scale, fault=None)
     width = K5_WIDTH.get(d, d)
     xa, xb, ya, yb = ra, rb, sa, sb                       # the scores' operands
     if fault == "drop_chunk":
+        chunk = 64 if width <= 160 else K5_STREAM_COLS
         xa, xb = ra.clone(), rb.clone()
-        xa[..., 64 * ((width - 1) // 64):] = 0
-        xb[..., 64 * ((width - 1) // 64):] = 0
+        xa[..., chunk * ((width - 1) // chunk):] = 0
+        xb[..., chunk * ((width - 1) // chunk):] = 0
     elif fault == "pad_nonzero":
         nb = lambda t: torch.cat([t, t.roll(-1, 1)[..., :width - d]], dim=-1)
         xa, xb, ya, yb = nb(ra), nb(rb), nb(sa), nb(sb)
@@ -454,22 +487,24 @@ def _k5_wgmma_emulated(kid, q, k, v, dout, lse, delta, heads, scale, fault=None)
     end = length - length % bs if fault == "kv_tail" else length
     sums = [[None] * outs for _ in range(2)]              # [warpgroup][output]
     parts, prev = [None] * outs, [torch.zeros(*sa.shape[:2], bs, sa.shape[-1])] * 2
+    q_tail = fault == "q_tail" and not dqa
+    stage = _stage_next if q_tail else _stage
     for t, r0 in enumerate(range(0, end, bs)):
         g = t % 2 if two else 0
-        rows = min(bs, length - r0)
-        st_a, st_b = _stage(sa, r0, bs), _stage(sb, r0, bs)
-        s = chain(None, tc_products(a_hi, a_lo, *split(
-            _stage(ya, r0, bs).transpose(-1, -2)), drop, passes))
-        dp = chain(None, tc_products(b_hi, b_lo, *split(
-            _stage(yb, r0, bs).transpose(-1, -2)), drop, passes))
+        rows = bs if q_tail else min(bs, length - r0)
+        st_a, st_b = stage(sa, r0, bs), stage(sb, r0, bs)
+        s = chain(None, _score_products(a_hi, a_lo, stage(ya, r0, bs), width,
+                                        drop, passes))
+        dp = chain(None, _score_products(b_hi, b_lo, stage(yb, r0, bs), width,
+                                         drop, passes))
         if dqa:   # the rows' statistics: (b, h, n, 1)
             p = torch.exp2(s * c - l2)
             p[..., rows:] = 0
             ds = p * (dp - dl)
             prods = [(ds, st_a)]                          # dQ += dS K
         else:     # the stage's columns: (b, h, 1, bs), zero past N
-            l2t = _stage(l2, r0, bs).transpose(-1, -2)
-            dlt = _stage(dl, r0, bs).transpose(-1, -2)
+            l2t = stage(l2, r0, bs).transpose(-1, -2)
+            dlt = stage(dl, r0, bs).transpose(-1, -2)
             p = torch.exp2(s * c - l2t)
             p[..., rows:] = 0
             ds = p * (dp - dlt)
@@ -492,6 +527,8 @@ def _k5_wgmma_emulated(kid, q, k, v, dout, lse, delta, heads, scale, fault=None)
            for i in range(outs)]
     if dqa:
         return _packed(got[0] * scale)
+    if fault in ("skip_dv", "skip_dk"):
+        got[fault == "skip_dk"] = torch.zeros_like(got[0])
     return _packed(got[1] * scale), _packed(got[0])
 
 
@@ -525,11 +562,23 @@ def _k5_case(kid, d, fault, n=1054, heads=2):
       for f in (None, "kv_tail", "stale_stage")),
     *((d, kid, "drop_chunk") for d in (128, 160) for kid in ("K5a", "K5b")),
     *((144, kid, f) for kid in ("K5a", "K5b") for f in (None, "pad_nonzero")),
+    # the d-streamed widths 256 and 320 (one head: the emulation walks every
+    # 8-deep step of the scores' chain): a dropped ragged tail, the last
+    # 32-column item dropped from the scores, K5b's last stage read past N
+    # and a pass not run; d 168 and 300 inside the widths, their pad
+    # columns not zeroed
+    *((d, kid, f) for d in (256, 320) for kid in ("K5a", "K5b")
+      for f in (None, "kv_tail", "drop_chunk")
+      + (("q_tail", "skip_dv", "skip_dk") if kid == "K5b" else ())),
+    *((d, kid, f) for d in (168, 300) for kid in ("K5a", "K5b")
+      for f in (None, "pad_nonzero")),
+    *((300, kid, "drop_chunk") for kid in ("K5a", "K5b")),
 ])
 def test_k5_f32_tolerance_separates_rounding_from_faults(d, kid, fault):
     # N = M = 1054 (the 32^2 gated sites' length), past d 80 606 (768^2's
     # 24^2 gated sites): a ragged last stage at every tile (48, 32, 16 rows)
-    got = _k5_case(kid, d, fault, n=606 if d > 80 else 1054)
+    got = _k5_case(kid, d, fault, n=606 if d > 80 else 1054,
+                   heads=1 if d > 160 else 2)
     assert got["ok"] == (fault is None), got
 
 

@@ -121,3 +121,48 @@ def test_pipeline_at_another_geometry_matches_jax(bundles):
         assert ssim(a, b) >= SSIM_GATE
     # generate samples at the config's latent size
     assert pp.generate(PROMPTS, LAYOUTS, RELATIONS, seed=3).shape == (2, 32, 32, 3)
+
+
+@pytest.mark.parametrize("num_heads", [2, 4])
+def test_gligen_config_dict_num_heads_reaches_the_trainer(tmp_path, monkeypatch,
+                                                          num_heads):
+    """train_diffusion --ckpt_path on a reference-format .pth whose
+    config_dict says num_heads 2 (model.params): the trainer's step runs
+    the UNet at 2 heads, as chip_smoke.py's train-ckpt does at full width
+    (K5 at d 160 and 320). Here the small bundle through --small, one step
+    on the CPU; 4 heads too, since the small config's own count is 2 (and
+    a config_dict without the field gives the reference's 8)."""
+    from layoutllm_t2i_torch.checkpoint.export import export_gligen_checkpoint
+    from layoutllm_t2i_torch.cli import train_diffusion
+
+    pm = loaders.random_models(small=True, device="cpu", dtype=torch.float32,
+                               seed=0)
+    u = pm.unet_cfg
+    config = {"model": {"params": {
+        "image_size": u.image_size, "model_channels": u.model_channels,
+        "num_res_blocks": u.num_res_blocks,
+        "attention_resolutions": list(u.attention_resolutions),
+        "channel_mult": list(u.channel_mult), "num_heads": num_heads}},
+        "vae_cfg": dataclasses.asdict(pm.vae_cfg),
+        "clip_cfg": dataclasses.asdict(pm.clip_cfg)}
+    path = str(tmp_path / f"gligen_heads{num_heads}.pth")
+    export_gligen_checkpoint(path, pm.unet_params.state_dict(),
+                             pm.vae_params.state_dict(),
+                             pm.clip_params.state_dict(), pm.schedule, config)
+    seen = []
+
+    class Recording(train_diffusion.DiffusionTrainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen.append(self.step_cfg.unet_cfg)
+
+    monkeypatch.setattr(train_diffusion, "DiffusionTrainer", Recording)
+    train_diffusion.main(["--small", "--synthetic", "--device", "cpu",
+                          "--ckpt_path", path, "--batch_size", "2",
+                          "--total_iters", "1", "--warmup_steps", "0",
+                          "--output_root", str(tmp_path), "--name", "run"])
+    assert len(seen) == 1
+    assert dataclasses.asdict(seen[0]) == dataclasses.asdict(
+        dataclasses.replace(u, num_heads=num_heads))
+    del config["model"]["params"]["num_heads"]
+    assert loaders._unet_cfg_from_config_dict(config).num_heads == 8

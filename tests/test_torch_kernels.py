@@ -76,16 +76,21 @@ def test_flash_attention_plain_matches_pallas(rng, heads, n, m, d):
     ("K1", torch.float32, 161, 512), ("K5a", torch.bfloat16, 20, 48),
     ("K5a", torch.bfloat16, 144, 160), ("K5b", torch.bfloat16, 96, 128),
     ("K5b", torch.float32, 20, 40), ("K5a", torch.float32, 64, 64),
-    ("K5b", torch.float32, 157, 160),
+    ("K5b", torch.float32, 157, 160), ("K5a", torch.bfloat16, 168, 256),
+    ("K5b", torch.bfloat16, 256, 256), ("K5a", torch.bfloat16, 300, 320),
+    ("K5b", torch.bfloat16, 320, 320), ("K5b", torch.float32, 168, 256),
+    ("K5a", torch.float32, 256, 256), ("K5b", torch.float32, 300, 320),
+    ("K5a", torch.float32, 320, 320),
 ])
 def test_kernel_width_is_the_smallest_that_holds_d(kid, dtype, d, width):
     # the instantiation a head dim runs on, after the padding copy to whole
-    # 16-byte vectors (d 20 -> 24 in bf16; 157 -> 160 in f32)
+    # 16-byte vectors (d 20 -> 24 in bf16; 157 -> 160 in f32; 300 -> 304
+    # in bf16)
     assert FA.kernel_width(kid, dtype, d) == width
     assert FA.padded_head_dim(d, dtype) <= width
 
 
-@pytest.mark.parametrize("kid,d", [("K1", 520), ("K5a", 168), ("K5b", 256)])
+@pytest.mark.parametrize("kid,d", [("K1", 520), ("K5a", 328), ("K5b", 328)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_head_dims_past_the_widest_kernel_raise(kid, dtype, d):
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
@@ -94,7 +99,9 @@ def test_head_dims_past_the_widest_kernel_raise(kid, dtype, d):
 
 def test_kernel_widths_are_the_c_entry_points():
     # the widths the C entry points switch on (csrc/flash_attention.cu):
-    # bf16 K1 and K5 by `D <= w`, the f32 forms through f32_width
+    # bf16 K1 and K5 by `D <= w`, the f32 forms through f32_width (K1/f32
+    # past 160 on its 512-wide kernel) and K5's through bwd_f32_width, which
+    # adds the d-streamed 256 and 320
     src = (Path(FA.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
 
     def widths(start):
@@ -105,8 +112,9 @@ def test_kernel_widths_are_the_c_entry_points():
     assert widths("LLT2I_API int llt2i_flash_fwd(") + (512,) == \
         FA.K1_WIDTHS[torch.bfloat16]
     assert widths("int flash_bwd(const void* q") == FA.K5_WIDTHS[torch.bfloat16]
-    assert widths("int f32_width(int D)") == FA.K5_WIDTHS[torch.float32] == \
-        FA.K1_WIDTHS[torch.float32][:-1]
+    assert widths("int f32_width(int D)") == FA.K1_WIDTHS[torch.float32][:-1]
+    assert widths("int f32_width(int D)") + widths("int bwd_f32_width(int D)") \
+        == FA.K5_WIDTHS[torch.float32] == (40, 64, 80, 128, 160, 256, 320)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 20), (torch.float32, 22),
@@ -420,11 +428,17 @@ def _flash_bwd_emulated(kid, q, k, v, dout, lse, delta, heads, scale,
 
 # csrc/flash_attention.cu's bf16 K5 instantiations past d 80: K5b's q rows
 # a stage, each kernel's K/V rows (K5a: a stage, K5b: the block's resident
-# rows), the width (Dq64/Dkv64, Dq128/Dkv128, Dq160/Dkv160)
+# rows), the width (Dq64/Dkv64, Dq128/Dkv128, Dq160/Dkv160; Dq256 and
+# Dv256/Dk256, Dq320 and Dv320/Dk320, K5b's two passes the same products in
+# the same order as one; d 168 on the 256 width, 300 on the 320)
 K5_TILES = {**{("K5a", d): (64, 64, w) for d, w in ((64, 64), (128, 128),
                                                     (144, 160), (160, 160))},
             ("K5b", 64): (64, 128, 64), ("K5b", 128): (32, 128, 128),
-            ("K5b", 144): (16, 128, 160), ("K5b", 160): (16, 128, 160)}
+            ("K5b", 144): (16, 128, 160), ("K5b", 160): (16, 128, 160),
+            **{("K5a", d): (64, bk, w) for d, bk, w in (
+                (168, 32, 256), (256, 32, 256), (300, 16, 320), (320, 16, 320))},
+            **{("K5b", d): (bq, 128, w) for d, bq, w in (
+                (168, 32, 256), (256, 32, 256), (300, 16, 320), (320, 16, 320))}}
 
 _K5_FAULTS = {"K5a": (None, "kv_tail", "scale", "out_scale", "skew"),
               "K5b": (None, "kv_tail", "q_tail", "scale", "out_scale", "skew")}
@@ -448,6 +462,17 @@ _K5_FAULTS = {"K5a": (None, "kv_tail", "scale", "out_scale", "skew"),
       + (("q_tail",) if kid == "K5b" else ())),
     *(pytest.param(144, kid, fault, id=f"d144-{kid}-{fault}")
       for kid in _K5_FAULTS for fault in (None, "pad_neighbour", "drop_chunk")),
+    # the widths 256 and 320, and d 168 and 300 inside them (300 runs at
+    # 304, the padded copy's d): a dropped ragged tail, the width's last
+    # 64-column chunk dropped from the scores, K5b's q tail, the pad
+    # columns written over the next head
+    *(pytest.param(d, kid, fault, id=f"d{d}-{kid}-{fault}")
+      for d in (256, 320) for kid in _K5_FAULTS
+      for fault in (None, "kv_tail", "drop_chunk")
+      + (("q_tail",) if kid == "K5b" else ())),
+    *(pytest.param(d, kid, fault, id=f"d{d}-{kid}-{fault}")
+      for d in (168, 300) for kid in _K5_FAULTS
+      for fault in (None, "pad_neighbour") + (("drop_chunk",) if d == 300 else ())),
 ])
 def test_k5_tolerance_separates_rounding_from_faults(d, kid, fault):
     # the 32^2 gated sites at two batch elements, and the 64^2 sites' head

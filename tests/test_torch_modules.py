@@ -206,8 +206,23 @@ def test_basic_transformer_block(rng, skip_gated):
 
 @pytest.mark.parametrize("skip_gated", [False, True])
 def test_unet_apply(rng, skip_gated):
-    cfg_j = junet.UNetConfig(**SMALL_UNET)
-    cfg_p = punet.UNetConfig(**SMALL_UNET)
+    _unet_parity(rng, SMALL_UNET, skip_gated)
+
+
+@pytest.mark.parametrize("relation", [True, False])
+def test_unet_apply_transformer_depth_2(rng, relation):
+    # transformer_depth, a .pth config field (pipeline/loaders.py): two
+    # transformer blocks in every spatial transformer, with and without the
+    # relation fuser; 1.5e-6 from the JAX outputs (of about 1) when written
+    _unet_parity(rng, dict(SMALL_UNET, transformer_depth=2,
+                           use_relation_attention=relation), False)
+
+
+def _unet_parity(rng, geometry, skip_gated):
+    """The port's unet_apply against the JAX one at ``geometry``, from the
+    same JAX-initialised weights (alphas set) and numpy inputs."""
+    cfg_j = junet.UNetConfig(**geometry)
+    cfg_p = punet.UNetConfig(**geometry)
     params = set_alphas(junet.init_unet_params(jax.random.PRNGKey(5), cfg_j), rng)
     b = 2
     x = rng.standard_normal((b, 8, 8, 4)).astype(np.float32)

@@ -590,11 +590,11 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     # flash split pre-pass (K1/f32's instantiations, and K5a/f32's, whose
     # call runs the backward's) and K4/f32's LN pre-pass (K7/f32's too,
     # counted under K4/f32)
+    widths = (40, 64, 80, 128, 160, 256, 320)
     f32_pre = {"K1/f32": {"flash_split_f32_kernel"},
-               "K5a/f32": {"flash_split_f32_kernel<40, 4>",
-                           "flash_split_f32_kernel<80, 4>"},
+               "K5a/f32": {f"flash_split_f32_kernel<{d}, 4>" for d in widths},
                "K4/f32": {"ffn_norm_rows_f32_kernel"}}
-    for d in (40, 80):
+    for d in widths:
         for jobs, kid in ((2, "K1/f32"), (4, "K5a/f32")):
             shown = (f"void (anonymous namespace)::flash_split_f32_kernel<{d}, "
                      f"{jobs}>((anonymous namespace)::SplitJobs<{jobs}>, int)")
@@ -924,7 +924,10 @@ def test_geometry_walks_route_as_the_jax_package(name):
     sites the JAX package sends to its Pallas flash kernel
     (layoutllm_t2i_tpu/ops/attention.py: no mask, N >= _FLASH_MIN_Q_LEN,
     M >= _FLASH_MIN_KV), at the head dims these configurations reach:
-    d 40, 80 and 160 at 96^2 latents, 64 and 128 with num_heads 5."""
+    d 40, 80 and 160 at 96^2 latents, 64 and 128 with num_heads 5, 160 and
+    320 with num_heads 2, 64, 128 and 256 with num_heads 5 at 96^2; and
+    the training walk at the batch's latents takes K5 at every one of them
+    (the lse sites)."""
     from layoutllm_t2i_tpu.ops import attention as jax_attention
 
     from layoutllm_t2i_torch.models.unet import UNetConfig
@@ -937,21 +940,55 @@ def test_geometry_walks_route_as_the_jax_package(name):
         if not masked and n >= jax_attention._FLASH_MIN_Q_LEN
         and m >= jax_attention._FLASH_MIN_KV)
     assert got == want
-    dims = {"hires": {40, 80, 160}, "heads5": {64, 128}}[name]
+    dims = {"hires": {40, 80, 160}, "heads5": {64, 128}, "heads2": {160, 320},
+            "hires5": {64, 128, 256}}[name]
     assert {d for _, _, d in got} == dims
     assert set(cs.GEOMETRY_K5_DIMS[name]) == dims
-    assert set(cs.GEOMETRY_DIMS[name]) - {512} <= dims
+    assert set(cs.GEOMETRY_DIMS.get(name, ())) - {512} <= dims
     # the training walk at 768^2 images runs the UNet at 96^2 latents, the
-    # VAE encoder's mid block at 96^2 (K1 at d 512 over 9216 tokens)
-    if name == "hires":
-        batch = {"caption": ["a dog"], "labels": [["dog"]],
-                 "image": np.zeros((1, cs.TRAIN_HIRES_SIDE, cs.TRAIN_HIRES_SIDE, 3))}
-        from layoutllm_t2i_torch.pipeline.loaders import model_configs
+    # VAE encoder's mid block at 96^2 (K1 at d 512 over 9216 tokens); at
+    # 512^2 at 64^2
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
-        _, vae_cfg, clip_cfg = model_configs(small=False)
-        train = cs.training_calls(UNetConfig(), vae_cfg, clip_cfg, 77, batch, 30, 10)
+    side = cs.TRAIN_HIRES_SIDE if cfg.image_size == 96 else 512
+    batch = {"caption": ["a dog"], "labels": [["dog"]],
+             "image": np.zeros((1, side, side, 3))}
+    _, vae_cfg, clip_cfg = model_configs(small=False)
+    train = cs.training_calls(cfg, vae_cfg, clip_cfg, 77, batch, 30, 10)
+    k5 = cs.sites_by_dim(train, "K5a", cs.GEOMETRY_K5_DIMS[name])
+    assert {d for d, _, _ in k5} == dims
+    assert cs.sites_by_dim(cs.unet_calls(cfg, 1, 30, 10, 77, train=True),
+                           "K5a", cs.GEOMETRY_K5_DIMS[name]) == k5
+    widest = {"hires": (606, 8, 160), "heads5": (1054, 5, 128),
+              "heads2": (1054, 2, 320), "hires5": (606, 5, 256)}[name]
+    n, heads, d = widest
+    assert ("K1", (1, n, n, heads, d, "lse")) in train
+    if side == cs.TRAIN_HIRES_SIDE:
         assert ("K1", (1, 9216, 9216, 1, 512, "f32")) in train
-        assert ("K1", (1, 606, 606, 8, 160, "lse")) in train
+
+
+@pytest.mark.parametrize("mixed", [True, False])
+@pytest.mark.parametrize("name", ["heads2", "hires5"])
+def test_wide_k5_rows_are_the_gradient_checks_sites(name, mixed):
+    """Phase kernels holds K5 at d 256 and 320 at the sites that phase
+    train-hires' gradient checks run (batch 2, N = M, the gated sites'
+    ragged tails of 30 rows), as its walk makes them, in the check's type;
+    and every K5 site of that walk past d 160 is among them."""
+    from layoutllm_t2i_torch.models.unet import UNetConfig
+
+    sites = cs.wide_k5_sites(UNetConfig(), name, mixed)
+    cfg = dataclasses.replace(UNetConfig(), **cs.GEOMETRY[name])
+    walk = cs.grad_walk(cfg, mixed)
+    assert cs.sites_by_dim(sites, "K5a", (256, 320)) == cs.sites_by_dim(
+        walk, "K5a", (256, 320))
+    tag = () if mixed else ("f32",)
+    n, heads, d = {"heads2": (1024, 2, 320), "hires5": (576, 5, 256)}[name]
+    cases = {(kid, args) for kid, _, args, _ in cs.kernel_cases({"g": sites})}
+    assert cases == {(kid, (2, r, r, heads, d) + lse + tag)
+                     for r in (n, n + 30)
+                     for kid, lse in (("K1", ("lse",)), ("K5a", ()), ("K5b", ()))}
+    assert cs.WIDE_K5_GEOMETRIES == tuple(
+        g for g, dims in cs.GEOMETRY_K5_DIMS.items() if max(dims) > 160)
 
 
 def test_training_walk_takes_the_latent_size_of_the_batch(recorded, tmp_path):
