@@ -7,8 +7,10 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   1. build     nvcc-builds the five kernel libraries from csrc/ (sm_90a),
                prints build seconds, ptxas lines and the card's name and
                power limit, and fails unless cuobjdump finds wgmma (HGMMA)
-               in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel and
-               in the TF32 wgmma kernels of K1/f32 (widths 40-160; 512),
+               in every K1, K5a, K5b, K4, K6, K7, K8a and K8b kernel (K1
+               past d 512: flash_fwd_wide_kernel) and
+               in the TF32 wgmma kernels of K1/f32 (widths 40-160; 512;
+               past 512 flash_fwd_f32_wide_kernel),
                K5a/f32 and K5b/f32 (widths 40-160; 256 and 320, the
                d-streamed flash_bwd_{dq,dkv}_f32_stream_kernel), K4/f32
                (K6/f32 runs
@@ -183,6 +185,14 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
   8d. heads5   the same weights with num_heads 5 at 512^2, PLMS-10 in bf16
                and in f32: the same gates, K1's launches at d 64 and 128
                the walk's site by site.
+  8e. heads1   the same weights with num_heads 1 at 512^2, PLMS-10 in bf16
+               and in f32: the same gates, K1's launches at d 320 (N 4096,
+               4126) and d 640 (the column-group kernels past 512; N 1024,
+               1054) the walk's site by site.
+  8f. hires1   num_heads 1 at 768^2, PLMS-10 in bf16 and in f32: the same
+               gates at d 320 (N 9216, 9246), 512 (the VAE's, N 9216), 640
+               (N 2304, 2334) and 1280 (N 576, 606). Neither trains: K5
+               past d 320 is not ported (ROADMAP.md Queue 2).
   9. bench     the port bench (cli/bench.py) as run with no flags, in this
                process: random weights from seed 0, bf16, 8 requests (CFG
                batch 16), iters 3, exact PLMS-50 then the fast preset on the
@@ -325,7 +335,7 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      over the kernel's distinct main-path shapes (one call at each, as
      timed in phase 2), and the wgmma kernels' `vs_library` and
      `device_vs_library` are the ratios of those sums; `launches` adds
-     the runs of phases 1a (every rank's), 4, 5, 7-8d, 9-11, 11b (its two
+     the runs of phases 1a (every rank's), 4, 5, 7-8f, 9-11, 11b (its two
      runs), 13 (its steps and its preview), 13b, 13c (its CLI runs and its
      kernel-route backwards), 15, 16, 17 and 18 (its training), each
      read from counts set to 0 just before it (K2's entry
@@ -346,12 +356,14 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
 
 Phase 2's shapes are walked from the model configs (generation_calls,
 training_calls), and the head dims that no model here routes to them
-(HEAD_DIM_CALLS: bf16 48, 72 and 504; d 20, 96, 144, 168, 256 and 300 in
-both types), the K1 sites with their lse past d 160 of phase
-train-hires' gradient checks (num_heads 5 at 768^2 and num_heads 2 at
+(HEAD_DIM_CALLS: bf16 48, 72, 504 and 636; d 20, 96, 144, 168, 256, 300,
+520, 640 and 1280 in both types), the K1 sites with their lse past d 160
+of phase train-hires' gradient checks (num_heads 5 at 768^2 and num_heads 2 at
 512^2: K5 at d 256 and 320, batch 2, both types; wide_k5_sites), the
 generation and a batch-8 training step at 768^2 and with num_heads 5
-(phases hires, heads5 and train-hires), bf16 and f32, and train-ckpt's
+(phases hires, heads5 and train-hires), the generation with num_heads 1
+at 512^2 and 768^2 (phases heads1 and hires1: K1 at d 320, 640 and 1280),
+bf16 and f32, and train-ckpt's
 batch-8 mixed-precision step at num_heads 2; the
 generation at
 2 requests (CFG batch 4) on each of
@@ -452,16 +464,19 @@ TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 # library -> its kernels written on csrc/hopper.cuh's wgmma: K1, K5a, K5b;
 # K4's, K6's and K7's up and down GEMMs, K8a and K8b on csrc/gemm_tiles.cuh;
 # the f32 forms' TF32 wgmma kernels, K1/f32 at widths up to 160 (S with Q and K
-# by descriptor, P V with P as register A) and at d 512, K5a/f32 and
+# by descriptor, P V with P as register A), at d 512 and past it (the
+# column groups, in bf16 too), K5a/f32 and
 # K5b/f32 (the scores by descriptor, P and dS as register A; past d 160
 # the d-streamed kernel), K4/f32's (and
 # K6/f32's) and K7/f32's up and down GEMMs, K8a/f32 and K8b/f32
 # (csrc/tf32_gemm.cuh; K7/f32's with int8 B operands, Cfg::kQ).
 # Each must show HGMMA in its SASS, in every instantiation.
 WGMMA_KERNELS = {
-    "flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+    "flash_attention": ("flash_fwd_kernel", "flash_fwd_wide_kernel",
+                        "flash_bwd_dq_kernel",
                         "flash_bwd_dkv_kernel", "flash_fwd_f32_ss_kernel",
                         "flash_fwd_f32_wgmma_kernel",
+                        "flash_fwd_f32_wide_kernel",
                         "flash_bwd_dq_f32_ss_kernel",
                         "flash_bwd_dkv_f32_ss_kernel",
                         "flash_bwd_dq_f32_stream_kernel",
@@ -483,7 +498,9 @@ VS_LIBRARY_KIDS = WGMMA_KIDS + ("K2",)
 # K7's kernels and the TF32 wgmma kernels, which must compile without a
 # spill (ptxas)
 NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
+                    "flash_fwd_wide_kernel",
                     "flash_fwd_f32_ss_kernel", "flash_fwd_f32_wgmma_kernel",
+                    "flash_fwd_f32_wide_kernel",
                     "flash_bwd_dq_f32_ss_kernel", "flash_bwd_dkv_f32_ss_kernel",
                     "flash_bwd_dq_f32_stream_kernel",
                     "flash_bwd_dkv_f32_stream_kernel",
@@ -973,13 +990,23 @@ def kernel_cases(paths):
     for path, calls in paths.items():
         for kid, args in calls:
             where.setdefault((kid, args), []).append(path)
-            if kid == "K1" and has_lse(args):
+            if kid == "K1" and has_lse(args) and k5_takes(args):
                 for bwd in ("K5a", "K5b"):
                     where.setdefault((bwd, args[:5] + args[6:]), []).append(path)
     order = list(KERNEL_META)
     keys = sorted(where, key=lambda key: order.index(row_kid(*key)))
     return [(kid, case_label(kid, args), args, sorted(set(where[kid, args])))
             for kid, args in keys]
+
+
+def k5_takes(args) -> bool:
+    """Whether K5a/K5b take a K1 site's head dim (past 320 not: ROADMAP.md
+    Queue 2), which its lse row is then the forward of."""
+    from layoutllm_t2i_torch.kernels.flash_attention import (K5_WIDTHS,
+                                                             padded_head_dim)
+
+    dt = torch.float32 if is_f32(args) else torch.bfloat16
+    return padded_head_dim(args[4], dt) <= K5_WIDTHS[dt][-1]
 
 
 def make_case(kid, args, dev, gen):
@@ -2526,7 +2553,11 @@ def phase_inpaint(models, dense_img):
 # and 300 (320-wide; bf16 on the padded copy at 304) through the "lse"
 # sites, at N = M = 606 and 1054 (ragged q and KV tails): phase kernels
 # holds each against its plain version. K5 at d 256 and 320 is held at the
-# gradient checks' own sites (wide_k5_sites)
+# gradient checks' own sites (wide_k5_sites). K1 past 512 (the column-group
+# kernels), with and without its lse, at the generation's batch: d 520
+# (the last group's columns ragged), 640 (one head) and bf16 636 (two: the
+# padded copy at 640, whose rows are whole 16-byte vectors) at N = M =
+# 1054, d 1280 at 606 (ragged last tiles)
 HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72)),
                   ("K1", (1, 4096, 4096, 1, 504)),
                   ("K1", (2, 1024, 1024, 8, 48, "lse")),
@@ -2535,7 +2566,11 @@ HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72))
         (2, 1024, 1024, 16, 20), (2, 1024, 1024, 16, 20, "lse"),
         (2, 1024, 1024, 8, 96), (2, 1024, 1024, 8, 96, "lse"),
         (4, 576, 576, 5, 256), (2, 576, 606, 8, 144, "lse"),
-        (2, 606, 606, 8, 168, "lse"), (2, 1054, 1054, 2, 300, "lse"))]
+        (2, 606, 606, 8, 168, "lse"), (2, 1054, 1054, 2, 300, "lse"))] + [
+    ("K1", shape + lse + tag) for tag in ((), ("f32",)) for lse in ((), ("lse",))
+    for shape in ((4, 1054, 1054, 1, 520), (4, 1054, 1054, 1, 640),
+                  (4, 606, 606, 1, 1280))] + [
+    ("K1", (4, 1054, 1054, 2, 636) + lse) for lse in ((), ("lse",))]
 
 
 # phases hires and heads5: the seed-0 weights at another geometry (neither
@@ -2548,14 +2583,25 @@ HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72))
 # reference's 50 (PERF.md section 4). Two more geometries train only
 # (phase train-hires' gradient checks): num_heads 2 at 512^2 (K5 at d 160
 # on the 64^2 sites, 320 on the 32^2 ones) and num_heads 5 at 768^2 (64,
-# 128 and 256 on the 96^2, 48^2 and 24^2 sites)
+# 128 and 256 on the 96^2, 48^2 and 24^2 sites). Two more generate only
+# (phases heads1 and hires1): num_heads 1 at 512^2 (K1 at d 320 on the
+# 64^2 sites, 640 on the 32^2 ones) and at 768^2 (320, 640 and 1280 on the
+# 96^2, 48^2 and 24^2 sites): K1 past d 512 runs the column-group kernels,
+# and they do not train, as K5 past d 320 is not ported (ROADMAP.md
+# Queue 2)
 GEOMETRY = {"hires": dict(image_size=96), "heads5": dict(num_heads=5),
-            "heads2": dict(num_heads=2), "hires5": dict(image_size=96, num_heads=5)}
+            "heads2": dict(num_heads=2), "hires5": dict(image_size=96, num_heads=5),
+            "heads1": dict(num_heads=1), "hires1": dict(image_size=96, num_heads=1)}
 GEOMETRY_RUNS = {"hires": ((torch.bfloat16, 10), (torch.float32, 10)),
-                 "heads5": ((torch.bfloat16, 10), (torch.float32, 10))}
+                 "heads5": ((torch.bfloat16, 10), (torch.float32, 10)),
+                 "heads1": ((torch.bfloat16, 10), (torch.float32, 10)),
+                 "hires1": ((torch.bfloat16, 10), (torch.float32, 10))}
+# the geometries of GEOMETRY_RUNS with no training walk (K5 past d 320)
+GENERATION_ONLY = ("heads1", "hires1")
 # the head dims whose K1 sites each phase holds to the walk's launches, site
 # by site (N, M), and those its training check holds K5 to
-GEOMETRY_DIMS = {"hires": (160, 512), "heads5": (64, 128)}
+GEOMETRY_DIMS = {"hires": (160, 512), "heads5": (64, 128), "heads1": (320, 640),
+                 "hires1": (320, 512, 640, 1280)}
 GEOMETRY_K5_DIMS = {"hires": (40, 80, 160), "heads5": (64, 128),
                     "heads2": (160, 320), "hires5": (64, 128, 256)}
 GEOMETRY_PSNR_MIN_DB = 35.0   # tests/parity_setup.py's image gate
@@ -2582,9 +2628,9 @@ def sites_by_dim(calls, kid: str, dims) -> dict:
 
 
 def phase_geometry(name: str, small: bool = False, device="cuda"):
-    """Phase hires or heads5: REQUESTS (CFG 7.5, alpha (0.3, 0, 0.7)) on
-    the seed-0 weights at GEOMETRY[name], PLMS in bf16 and in f32
-    (GEOMETRY_RUNS), each through the kernels and again under
+    """Phase hires, heads5, heads1 or hires1: REQUESTS (CFG 7.5, alpha
+    (0.3, 0, 0.7)) on the seed-0 weights at GEOMETRY[name], PLMS in bf16
+    and in f32 (GEOMETRY_RUNS), each through the kernels and again under
     plain_route() from the same noise: PSNR >= GEOMETRY_PSNR_MIN_DB, K1-K4
     (or their f32 forms) launched, K1's launches the walk's
     (generation_calls over every UNet evaluation) in all and site by site
@@ -4903,7 +4949,9 @@ PROFILE_GROUPS = (
                                          "flash_bwd_dkv_f32_stream_kernel")),
     ("K1/f32 flash_attention", ("flash_fwd_f32_ss_kernel",
                                 "flash_split_f32_kernel",
-                                "flash_fwd_f32_wgmma_kernel")),
+                                "flash_fwd_f32_wgmma_kernel",
+                                "flash_split_wide_f32_kernel",
+                                "flash_fwd_f32_wide_kernel")),
     ("K2/f32 group_norm", tuple(f"{k}<float>" for k in GN_KERNELS)),
     ("K3/f32 layer_norm", ("ln_kernel<float",)),
     ("K7/f32 ffn_ln_geglu_q", ("ffn_q_up_f32_wgmma_kernel",
@@ -4914,7 +4962,7 @@ PROFILE_GROUPS = (
     ("K6/f32 ffn_geglu", ("ffn_up_f32_wgmma_kernel", "ffn_down_f32_wgmma_kernel")),
     ("K8a/f32 linear_fused", ("linear_f32_wgmma_kernel",)),
     ("K8b/f32 geglu_fused", ("geglu_f32_wgmma_kernel",)),
-    ("K1 flash_attention", ("flash_fwd_kernel",)),
+    ("K1 flash_attention", ("flash_fwd_kernel", "flash_fwd_wide_kernel")),
     ("K5a flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K5b flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("K2 group_norm", GN_KERNELS),
@@ -5096,7 +5144,9 @@ def main(argv=None) -> int:
             gen_paths["head-dim"] = HEAD_DIM_CALLS
             # phases hires, heads5 and train-hires: SD-1.4 at 768^2 and
             # num_heads 5, generation and a batch-8 training step, bf16
-            # and f32 (K1 at d 160, 64 and 128; K5 at the lse sites)
+            # and f32 (K1 at d 160, 64 and 128; K5 at the lse sites);
+            # phases heads1 and hires1: num_heads 1, generation alone (K1
+            # at d 320, 640 and 1280)
             hires_batch = next(synthetic_layout_batches(
                 TRAIN_BATCH, TRAIN_HIRES_SIDE, TRAIN_MAX_BOXES))
             for name in GEOMETRY_RUNS:
@@ -5105,6 +5155,8 @@ def main(argv=None) -> int:
                     gen_paths[f"{name}{tag}"] = generation_calls(
                         cfg_g, vae_cfg, clip_cfg, tok_len, REQUESTS,
                         VAE_CHUNK, f32=f32)
+                    if name in GENERATION_ONLY:
+                        continue
                     gen_paths[f"train-{name}{tag}"] = training_calls(
                         cfg_g, vae_cfg, clip_cfg, tok_len,
                         hires_batch if name == "hires" else train_batch,
@@ -5244,8 +5296,7 @@ def main(argv=None) -> int:
             "train-f32": train_counts["-f32"], "generate-f32": gen_f32_counts,
             "int8-f32": int8_f32_counts, "routes-f32": routes_f32_counts,
             "parallel": parallel_counts, "train-dp": train_dp_counts,
-            "hires": geometry_counts["hires"], "heads5": geometry_counts["heads5"],
-            "train-hires": train_hires_counts}
+            **geometry_counts, "train-hires": train_hires_counts}
     counts = {kid: sum(c[kid] for c in runs.values()) for kid in KERNEL_META}
     generation = ("K1", "K2", "K3", "K4")
     encoders = ("K1/f32", "K2/f32", "K3/f32")
@@ -5264,6 +5315,8 @@ def main(argv=None) -> int:
                 "train-dp": tuple(f"{kid}/f32" for kid in step_kernels(DEFAULT)),
                 "hires": generation + tuple(f"{kid}/f32" for kid in generation),
                 "heads5": generation + tuple(f"{kid}/f32" for kid in generation),
+                "heads1": generation + tuple(f"{kid}/f32" for kid in generation),
+                "hires1": generation + tuple(f"{kid}/f32" for kid in generation),
                 "train-hires": step_kernels(DEFAULT) + tuple(
                     f"{kid}/f32" for kid in step_kernels(DEFAULT))}
     missing = [f"{kid} ({path})" for path, kids in expected.items()

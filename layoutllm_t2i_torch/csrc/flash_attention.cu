@@ -62,7 +62,9 @@
 //    computes the 64 x 32 S tile itself. S is computed twice, nothing is
 //    exchanged between the warpgroups, and the grid keeps B*N/64 blocks
 //    (128 at the decode's B = 2). 32 K/V rows a stage, so two stages
-//    (64 KB each) fit beside Q (64 KB).
+//    (64 KB each) fit beside Q (64 KB). Past d = 512 (num_heads 1) the
+//    output columns split over the grid and the depth streams:
+//    flash_fwd_wide_kernel, below.
 //  * Epilogue: O / l in bf16 straight from registers to global memory; q
 //    rows >= N and columns >= d are never written. lse = m*scale + ln(l).
 #include <math.h>
@@ -333,6 +335,284 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, H, N, M, D, o_bs, o_rs, scale,
       scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K1 past d = 512: num_heads 1's 32^2 sites at 512^2 (d 640), its 48^2 (d
+// 640) and 24^2 (d 1280) sites at 768^2, num_heads 2's 24^2 sites at 768^2
+// (d 640). Fwd512 does not stretch there: its resident Q takes 80 KB at d
+// 640 and 160 KB at d 1280, beside K/V stages as wide, and one
+// warpgroup's O accumulator cannot own more than 256 columns. So:
+//  * The output columns are split over the grid: G = ceil(d / 320) column
+//    groups on its third axis, each of 2 ow columns, ow = ceil(d / 2 G)
+//    rounded up to 8 (at most 160: d 640 runs as 2 x 320, 1280 as 4 x 320,
+//    520 as 2 x 272). Warpgroup w of group g owns O's columns (2 g + w) ow
+//    .. + ow - 1 (a 64 x 160 f32 accumulator, 80 registers, where Fwd512's
+//    128 spill) and reads V from that column on (three 64-column chunks,
+//    zeros past d; columns past its ow are computed and never written).
+//  * Both warpgroups take the same 64 q rows and compute the same S tile,
+//    as in Fwd512. Every warpgroup of every group computes S from the same
+//    operands in the same order with the same instructions, so all of them
+//    agree bit for bit on the row max and sum; the first warpgroup of
+//    group 0 writes the lse.
+//  * Nothing is resident. The producer warp streams each key tile's scores
+//    as d / 64 score items, each one 64-column chunk of Q's 64 rows and of
+//    the tile's kBK keys (8 + 8 KB; Q is read again from L2 for each key
+//    tile), through one ring, then the tile's V item (both warpgroups'
+//    chunks, 48 KB) through a second ring. S chains over the items into
+//    one accumulator, as the narrow widths chain it over their chunks.
+//  * What bounds it: S is computed 2 G times for one O (G groups, two
+//    warpgroups each): 4 G N M d flops of scores against 2 N M d of P V, so
+//    the tensor cores do (2 G + 1) / 2 times the function's work; and Q's
+//    re-reads from L2 (64 d bytes a key tile). The price of a simple
+//    kernel; a faster one shares S across the groups.
+// kBK: keys a tile; kStages, kVStages: the score ring's and the V ring's
+// depth; kON: the output columns a consumer warpgroup owns at most
+template <int kBK_, int kStages_, int kVStages_, int kON_>
+struct FwdWide {
+  static constexpr int kBK = kBK_, kStages = kStages_, kVStages = kVStages_,
+                       kON = kON_;
+  static constexpr int kBQ = 64;
+  static constexpr int kThreads = 9 * 32;  // two consumer warpgroups + producer
+  static constexpr int kVChunks = (kON + 63) / 64;  // V's chunks a warpgroup
+  static constexpr uint32_t kQBytes = kBQ * 128;    // a score item's Q chunk
+  static constexpr uint32_t kKBytes = kBK * 128;    // its K chunk; a V chunk
+  static constexpr uint32_t kItemBytes = kQBytes + kKBytes;
+  static constexpr uint32_t kVBytes = 2 * kVChunks * kKBytes;  // a V item
+  // 1024 bytes of slack to align the swizzled tiles, both rings, then the
+  // mbarriers
+  static constexpr size_t kSmemBytes = 1024 + kStages * kItemBytes +
+                                       kVStages * kVBytes +
+                                       8 * 2 * (kStages + kVStages);
+  static_assert(kON % 8 == 0 && kON <= 256 && kBK % 16 == 0, "wgmma shape");
+  static_assert(kItemBytes % 1024 == 0 && kKBytes % 1024 == 0, "swizzle atoms");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
+
+using FwdWide160 = FwdWide<64, 6, 2, 160>;  // 193 KB
+
+// One key tile's online softmax in a thread's accumulator fragment of the
+// scores (its rows r and r + 8; 2 N keys from k0): the ragged KV tail (a
+// zero-filled K row would score 0, not -inf) set to -inf, the row max over
+// the quad of the raw scores (scale > 0), s -> p = exp2(s c - m c), the
+// running max and per-thread partial sums updated; alpha: the rescale of
+// the rows' earlier sums (and O)
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m_run)[2],
+                                             float (&l_run)[2],
+                                             float (&alpha)[2], int k0, int M,
+                                             float c, int lane) {
+  if (k0 + 2 * N > M) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int col = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+      if (col >= M) sc[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+  for (int i = 0; i < N; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2((m_run[r] - mx[r]) * c);
+    m_run[r] = mx[r];
+    mc[r] = mx[r] * c;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    sc[i] = ex2(fmaf(sc[i], c, -mc[r]));
+    sum[r] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      bf16* __restrict__ o, float* __restrict__ lse, int H,
+                      int N, int M, int D, int ow, long long o_bs,
+                      long long o_rs, float scale, float c) {
+  constexpr int S = C::kStages, SV = C::kVStages, BK = C::kBK, ON = C::kON;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;  // item s at + s kItemBytes
+  const uint32_t vring = ring + S * C::kItemBytes;  // V stage j at + j kVBytes
+  const uint32_t full = vring + SV * C::kVBytes;   // the score ring's at + 8 s
+  const uint32_t empty = full + 8 * S;
+  const uint32_t vfull = empty + 8 * S;             // the V ring's at + 8 j
+  const uint32_t vempty = vfull + 8 * SV;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * C::kBQ;
+  const int col0 = 2 * ow * blockIdx.z;  // the column group's first column
+  const int tiles = (M + BK - 1) / BK;
+  const int items = (D + 63) / 64;        // score items a key tile
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival a consumer warp
+    }
+    for (int j = 0; j < SV; ++j) {
+      mbar_init(vfull + 8 * j, 1);
+      mbar_init(vempty + 8 * j, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer: the items in the order they are read
+    if (lane == 0) {
+      int n = 0;  // score items issued
+      for (int t = 0; t < tiles; ++t) {
+        for (int i = 0; i < items; ++i, ++n) {
+          const int s = n % S;
+          if (n >= S) mbar_wait(empty + 8 * s, ((n / S) - 1) & 1);
+          const uint32_t st = ring + s * C::kItemBytes;
+          mbar_expect_tx(full + 8 * s, C::kItemBytes);
+          tma_load_4d(st, &tq, full + 8 * s, 64 * i, h, q0, b);
+          tma_load_4d(st + C::kQBytes, &tk, full + 8 * s, 64 * i, h, t * BK, b);
+        }
+        const int j = t % SV;
+        if (t >= SV) mbar_wait(vempty + 8 * j, ((t / SV) - 1) & 1);
+        const uint32_t vs = vring + j * C::kVBytes;
+        mbar_expect_tx(vfull + 8 * j, C::kVBytes);
+        for (int w = 0; w < 2; ++w)
+          for (int ch = 0; ch < C::kVChunks; ++ch)
+            tma_load_4d(vs + (w * C::kVChunks + ch) * C::kKBytes, &tv,
+                        vfull + 8 * j, col0 + w * ow + 64 * ch, h, t * BK, b);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g owns O's columns col0 + g ow .., its warp
+  // wq rows 16 wq .. 16 wq + 15
+  const int g = warp >> 2;
+  const int wq = warp & 3;
+  float acc[ON / 2];
+#pragma unroll
+  for (int i = 0; i < ON / 2; ++i) acc[i] = 0.f;
+  // running max of the raw scores and per-thread partial row sums, for
+  // this thread's rows r and r + 8
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  int n = 0;  // score items read
+  for (int t = 0; t < tiles; ++t) {
+    // S = Q K^T, item by item, chained into one accumulator (the first
+    // product's scale-d zeroes it)
+    float sc[BK / 2];
+    for (int i = 0; i < items; ++i, ++n) {
+      const int s = n % S;
+      mbar_wait(full + 8 * s, (n / S) & 1);
+      __syncwarp();  // converged again for the warpgroup-wide wgmma
+      const uint32_t st = ring + s * C::kItemBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(sc, sw128_desc(st + 32 * kk, 16),
+                 sw128_desc(st + C::kQBytes + 32 * kk, 16), i > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with it
+    }
+
+    // the ragged KV tail -inf, the online softmax, O rescaled
+    float alpha[2];
+    softmax_tile(sc, m_run, l_run, alpha, t * BK, M, c, lane);
+#pragma unroll
+    for (int i = 0; i < ON / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V on this warpgroup's V chunks, P as bf16 register fragments
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+    const int j = t % SV;
+    mbar_wait(vfull + 8 * j, (t / SV) & 1);
+    __syncwarp();
+    const uint32_t vs = vring + j * C::kVBytes + g * C::kVChunks * C::kKBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(acc, pa[kk], sw128_desc(vs + kk * 16 * 128, C::kKBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(vempty + 8 * j);
+  }
+
+  // epilogue: O / l on this warpgroup's columns below d, lse = m scale +
+  // ln l (group 0's first warpgroup)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const int c0 = col0 + g * ow;
+  const int c1 = min(c0 + ow, D);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * wq + (lane >> 2) + 8 * r;
+    if (row >= N) continue;
+    const float inv = 1.f / l_run[r];
+    bf16* orow = o + b * o_bs + row * o_rs + (long long)h * D + c0;
+#pragma unroll
+    for (int jj = 0; jj < ON / 8; ++jj) {
+      const int col = 8 * jj + 2 * (lane & 3);
+      if (c0 + col < c1)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+            acc[4 * jj + 2 * r] * inv, acc[4 * jj + 2 * r + 1] * inv);
+    }
+    if (lse != nullptr && (lane & 3) == 0 && g == 0 && blockIdx.z == 0)
+      lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
+  }
+}
+
+// The columns of each of `parts` column blocks of K1 past d = 512: ceil(d
+// / parts) rounded up to 8 (both kernels' epilogues write whole 8-column
+// blocks below d)
+int wide_cols(int D, int parts) { return ((D + parts - 1) / parts + 7) / 8 * 8; }
+
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int N, int M, int D, long long q_bs,
+                long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                long long v_rs, long long o_bs, long long o_rs, float scale,
+                cudaStream_t stream) {
+  using C = FwdWide160;
+  // G = ceil(d / 320) groups of two warpgroups, each ow columns
+  const int G = (D + 2 * C::kON - 1) / (2 * C::kON), ow = wide_cols(D, 2 * G);
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, D, H, N, B, q_rs, q_bs, C::kBQ);
+  if (err == 0) err = tensor_map(&tk, k, D, H, M, B, k_rs, k_bs, C::kBK);
+  if (err == 0) err = tensor_map(&tv, v, D, H, M, B, v_rs, v_bs, C::kBK);
+  if (err != 0) return err;
+  static unsigned long long smem_set = 0;
+  auto kern = flash_fwd_wide_kernel<C>;
+  err = allow_smem(kern, C::kSmemBytes, smem_set);
+  if (err != 0) return err;
+  dim3 grid((N + C::kBQ - 1) / C::kBQ, B * H, G);
+  kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, H, N, M, D, ow, o_bs, o_rs,
+      scale, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -956,7 +1236,8 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 // split once a call by the same pre-pass, flash_split_f32_kernel), and at
 // widths 256 and 320 flash_bwd_dq_f32_stream_kernel and
 // flash_bwd_dkv_f32_stream_kernel (the same, the scores' depth streamed),
-// all below.
+// and K1/f32 past d = 512 flash_fwd_f32_wide_kernel (the scores' depth
+// streamed, the output columns split over the grid), all below.
 
 namespace {
 
@@ -1480,7 +1761,7 @@ using Fwd160W = FwdF32W<160, 32, 1, 1>;    // 24^2 sites at 768^2: 161 KB
 
 // The width of K1/f32's and K5's f32 kernels for head dim D: the smallest
 // of 40, 64, 80, 128 and 160 that holds it; 0 past 160 (K1 then runs
-// Fwd512W, K5 has none)
+// Fwd512W up to 512, FwdWideW past it; K5 has none)
 int f32_width(int D) {
   return D <= 40 ? 40 : D <= 64 ? 64 : D <= 80 ? 80 : D <= 128 ? 128
        : D <= 160 ? 160 : 0;
@@ -1821,6 +2102,348 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
   kern<<<dim3(BH, (N + C::kBQ - 1) / C::kBQ), C::kThreads, C::kSmemBytes,
          stream>>>(tq, tkh, tkl, tvh, tvl, static_cast<float*>(o), lse, H, N,
                    M, Dt, o_bs, o_rs, scale, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K1/f32 past d = 512 (the sites of the bf16 form above, in f32). Fwd512W
+// keeps Q whole (128 KB at d 512, 160 KB at d 640), so this form streams
+// the scores' depth, and splits the output columns over the grid as the
+// bf16 form does:
+//  * A pre-pass (flash_split_wide_f32_kernel) writes K split into hi and
+//    lo rows and V split and transposed (d rows of Mp key slots, each
+//    8-key block at P's permuted k, zeros at the slots past M) into a
+//    workspace the wrapper allocates, as the narrow widths' pre-pass does,
+//    in 32 x 32 tiles (any d).
+//  * G = ceil(d / 256) column groups on the grid's third axis, each ow =
+//    ceil(d / G) columns rounded up to 8 (d 640: 3 x 216, 1280: 5 x 256).
+//    A block is one consumer warpgroup (64 q rows, O's ow columns: 128
+//    registers at 256) and a producer warp: five warps, which ptxas allows
+//    255 registers a thread (a ninth warp would cap it at 168).
+//  * The producer streams each key tile's scores as d / 32 score items: Q's
+//    64 rows of one 32-value chunk, raw (split in registers as it is read,
+//    as wgmma's register A, as Fwd512W splits it), and the tile's 32 keys of
+//    that chunk, hi and lo (16 KB); then the tile's V item, the V^T hi and
+//    lo rows of the group's 256 columns (64 KB), through a second ring.
+//  * Each score item's 12 products (lo*hi, hi*lo, then hi*hi of its four k
+//    steps) truncate into a fresh accumulator, added to S in round-to-
+//    nearest f32, as Fwd512W adds its chunks. P V runs in parts of kP
+//    columns (parts past ow skipped), each part's 12 products into a fresh
+//    accumulator added to the rescaled O in RN.
+//  * All groups compute S alike, so they agree on m and l; group 0 writes
+//    the lse. S is computed G times, and Q is read again from L2 each key
+//    tile: the price of a simple kernel.
+// kON: O's columns a block owns at most; kBK: keys a tile (one transposed
+// V chunk: 32 slots); kStages, kVStages: the rings' depths; kP: columns of
+// a P V part
+template <int kON_, int kBK_, int kStages_, int kVStages_, int kP_>
+struct FwdF32Wide {
+  static constexpr int kON = kON_, kBK = kBK_, kStages = kStages_,
+                       kVStages = kVStages_, kP = kP_;
+  static constexpr int kBQ = 64;
+  static constexpr int kProducer = 4;  // the producer warp
+  static constexpr int kThreads = 32 * (kProducer + 1);
+  static constexpr uint32_t kQChunk = kBQ * 128;  // 64 rows x 32 values
+  static constexpr uint32_t kKChunk = kBK * 128;  // a K hi or lo chunk
+  static constexpr uint32_t kItemBytes = kQChunk + 2 * kKChunk;
+  static constexpr uint32_t kVHalf = kON * 128;   // V^T hi or lo: kON rows
+  static constexpr uint32_t kVBytes = 2 * kVHalf;
+  // 1024 bytes of slack to align the swizzled tiles, both rings, then the
+  // mbarriers
+  static constexpr size_t kSmemBytes = 1024 + kStages * kItemBytes +
+                                       kVStages * kVBytes +
+                                       8 * 2 * (kStages + kVStages);
+  static_assert(kBK == 32, "a tile is one transposed V chunk");
+  static_assert(kON % kP == 0 && kP % 8 == 0 && kON <= 256, "P V parts");
+  static_assert(kItemBytes % 1024 == 0 && kKChunk % 1024 == 0, "swizzle atoms");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
+
+using FwdWideW = FwdF32Wide<256, 32, 6, 2, 64>;  // 225 KB
+
+// The pre-pass of K1/f32 past d = 512: K split as rows (hi (B H, M, D), lo
+// after it), V split and transposed ((B H, D, Mp), lo after hi, Mp = M
+// rounded up to 8; key m at slot p_key_slot of its 8-key block, zeros at
+// the slots of keys past M). A block takes 32 keys x 32 columns of one
+// (batch, head): blockIdx.x the key tile and the column tile, blockIdx.y
+// the (batch, head), blockIdx.z K (0) or V (1).
+__global__ void __launch_bounds__(256)
+flash_split_wide_f32_kernel(const float* __restrict__ k, long long k_bs,
+                            long long k_rs, const float* __restrict__ v,
+                            long long v_bs, long long v_rs,
+                            float* __restrict__ kw, float* __restrict__ vt,
+                            int H, int M, int D) {
+  const int Mp = (M + 7) / 8 * 8;
+  const int key_tiles = (Mp + 31) / 32;
+  const int m0 = 32 * (blockIdx.x % key_tiles);
+  const int c0 = 32 * (blockIdx.x / key_tiles);
+  const int BH = gridDim.y, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int r = threadIdx.x / 8, cc = 4 * (threadIdx.x % 8);  // a key, 4 columns
+  const int m = m0 + r, col = c0 + cc;
+  const bool in = m < M && col < D;
+  if (blockIdx.z == 0) {  // K as rows
+    if (!in) return;
+    const float4 x = *reinterpret_cast<const float4*>(
+        k + b * k_bs + m * k_rs + (long long)h * D + col);
+    const float xv[4] = {x.x, x.y, x.z, x.w};
+    uint32_t hi[4], lo[4];
+    f32_tiles::split(xv, hi, lo);
+    float* at = kw + ((long long)bh * M + m) * D + col;
+    *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(at + (long long)BH * M * D) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    return;
+  }
+  __shared__ float tile[32][33];  // [column][key slot]
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (in)
+    x = *reinterpret_cast<const float4*>(v + b * v_bs + m * v_rs +
+                                         (long long)h * D + col);
+  const int p = p_key_slot(r);
+  tile[cc][p] = x.x;
+  tile[cc + 1][p] = x.y;
+  tile[cc + 2][p] = x.z;
+  tile[cc + 3][p] = x.w;
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * 32; i += blockDim.x) {
+    const int cl = i / 32, sl = i % 32;
+    if (c0 + cl >= D || m0 + sl >= Mp) continue;
+    const float xs[1] = {tile[cl][sl]};
+    uint32_t hi[1], lo[1];
+    f32_tiles::split(xs, hi, lo);
+    float* at = vt + ((long long)bh * D + c0 + cl) * Mp + m0 + sl;
+    at[0] = __uint_as_float(hi[0]);
+    at[(long long)BH * D * Mp] = __uint_as_float(lo[0]);
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          float* __restrict__ o, float* __restrict__ lse,
+                          int H, int N, int M, int D, int ow, long long o_bs,
+                          long long o_rs, float scale, float c) {
+  using namespace f32_tiles;
+  constexpr int S = C::kStages, SV = C::kVStages, BK = C::kBK, ON = C::kON,
+                P = C::kP;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t ring = (base + 1023u) & ~1023u;   // item s at + s kItemBytes
+  const uint32_t vring = ring + S * C::kItemBytes;  // V stage j at + j kVBytes
+  const uint32_t full = vring + SV * C::kVBytes;   // the score ring's at + 8 s
+  const uint32_t empty = full + 8 * S;
+  const uint32_t vfull = empty + 8 * S;             // the V ring's at + 8 j
+  const uint32_t vempty = vfull + 8 * SV;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, BH = gridDim.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * C::kBQ;
+  const int col0 = ow * blockIdx.z;  // the block's first column
+  const int tiles = (M + BK - 1) / BK;
+  const int items = (D + 31) / 32;   // score items a key tile
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);  // one arrival a consumer warp
+    }
+    for (int j = 0; j < SV; ++j) {
+      mbar_init(vfull + 8 * j, 1);
+      mbar_init(vempty + 8 * j, 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == C::kProducer) {  // the producer: the items in reading order
+    if (lane == 0) {
+      int n = 0;  // score items issued
+      for (int t = 0; t < tiles; ++t) {
+        for (int i = 0; i < items; ++i, ++n) {
+          const int s = n % S;
+          if (n >= S) mbar_wait(empty + 8 * s, ((n / S) - 1) & 1);
+          const uint32_t st = ring + s * C::kItemBytes, bar = full + 8 * s;
+          mbar_expect_tx(bar, C::kItemBytes);
+          tma_load_4d(st, &tq, bar, 32 * i, h, q0, b);
+          tma_load_3d(st + C::kQChunk, &tk, bar, 32 * i, BK * t, bh);
+          tma_load_3d(st + C::kQChunk + C::kKChunk, &tk, bar, 32 * i, BK * t,
+                      BH + bh);
+        }
+        const int j = t % SV;
+        if (t >= SV) mbar_wait(vempty + 8 * j, ((t / SV) - 1) & 1);
+        const uint32_t vs = vring + j * C::kVBytes, bar = vfull + 8 * j;
+        mbar_expect_tx(bar, C::kVBytes);
+        tma_load_3d(vs, &tv, bar, BK * t, col0, bh);
+        tma_load_3d(vs + C::kVHalf, &tv, bar, BK * t, col0, BH + bh);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: its warp owns q rows 16 warp .. 16 warp + 15
+  const int r0 = 16 * warp + (lane >> 2);  // this thread's rows r0 and r0 + 8
+  float acc[ON / 2];  // O: n8 tile j, columns col0 + 8 j + 2 (lane % 4) + {0, 1}
+#pragma unroll
+  for (int i = 0; i < ON / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  int n = 0;  // score items read
+  for (int t = 0; t < tiles; ++t) {
+    // S = Q K^T: each item's products into a fresh accumulator, added in RN
+    float sc[BK / 2];
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+    for (int i = 0; i < items; ++i, ++n) {
+      const int s = n % S;
+      mbar_wait(full + 8 * s, (n / S) & 1);
+      const uint32_t st = ring + s * C::kItemBytes;
+      const uint32_t kh = st + C::kQChunk, kl = kh + C::kKChunk;
+      uint32_t qh[4][4], ql[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tf32_gemm::a_frag_split(qh[kk], ql[kk], smem_raw + (st - base), r0,
+                                kk, lane);
+      __syncwarp();  // converged again for the warpgroup-wide wgmma
+      float part[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_tf32(part, ql[kk], sw128_desc(kh + 32 * kk, 16), kk > 0);
+        wgmma_rs_tf32(part, qh[kk], sw128_desc(kl + 32 * kk, 16), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_tf32(part, qh[kk], sw128_desc(kh + 32 * kk, 16), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(part);
+      fence_regs(qh);
+      fence_regs(ql);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with it
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) sc[e] += part[e];
+    }
+
+    // the ragged KV tail -inf, the online softmax, O rescaled
+    float alpha[2];
+    softmax_tile(sc, m_run, l_run, alpha, t * BK, M, c, lane);
+#pragma unroll
+    for (int i = 0; i < ON / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V: key block kk of P is the C fragment sc[4 kk .. 4 kk + 3] as
+    // wgmma's register A at the permuted k, split once; V^T's hi and lo
+    // rows hold the keys at those slots. Each part of P columns: its
+    // products into a fresh accumulator, added to O in RN
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const float f[4] = {sc[4 * kk], sc[4 * kk + 1], sc[4 * kk + 2],
+                          sc[4 * kk + 3]};
+      const SplitA a = c_as_a(f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ph[kk][e] = a.hi[e], pl[kk][e] = a.lo[e];
+    }
+    const int j = t % SV;
+    mbar_wait(vfull + 8 * j, (t / SV) & 1);
+    __syncwarp();
+    const uint32_t vh = vring + j * C::kVBytes, vl = vh + C::kVHalf;
+#pragma unroll
+    for (int p = 0; p < ON / P; ++p) {
+      if (p * P >= ow) continue;  // no column of this block's
+      float pv[P / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        wgmma_rs_tf32(pv, pl[kk], sw128_desc(vh + p * P * 128 + 32 * kk, 16),
+                      kk > 0);
+        wgmma_rs_tf32(pv, ph[kk], sw128_desc(vl + p * P * 128 + 32 * kk, 16), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)
+        wgmma_rs_tf32(pv, ph[kk], sw128_desc(vh + p * P * 128 + 32 * kk, 16), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(pv);
+#pragma unroll
+      for (int e = 0; e < P / 2; ++e) acc[p * (P / 2) + e] += pv[e];
+    }
+    fence_regs(ph);
+    fence_regs(pl);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(vempty + 8 * j);
+  }
+
+  // epilogue: O / l on the block's columns below d, lse = m scale + ln l
+  // (group 0)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const int c1 = min(col0 + ow, D);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= N) continue;
+    const float inv = 1.f / l_run[r];
+    float* orow = o + b * o_bs + row * o_rs + (long long)h * D + col0;
+#pragma unroll
+    for (int jj = 0; jj < ON / 8; ++jj) {
+      const int col = 8 * jj + 2 * (lane & 3);
+      if (col0 + col < c1)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(acc[4 * jj + 2 * r] * inv, acc[4 * jj + 2 * r + 1] * inv);
+    }
+    if (lse != nullptr && (lane & 3) == 0 && blockIdx.z == 0)
+      lse[(long long)bh * N + row] = m_run[r] * scale + logf(l_run[r]);
+  }
+}
+
+// K1/f32 past d = 512's workspace, in floats: K hi, K lo (B H M D each),
+// then V^T hi, V^T lo (B H D Mp each)
+long long fwd_f32_wide_ws_floats(int B, int H, int M, int D) {
+  const long long mp = (M + 7) / 8 * 8;
+  return 2ll * B * H * D * (M + mp);
+}
+
+// The pre-pass into `ws` (fwd_f32_wide_ws_floats), then the main kernel
+int launch_fwd_f32_wide(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int B, int H, int N, int M, int D,
+                        long long q_bs, long long q_rs, long long k_bs,
+                        long long k_rs, long long v_bs, long long v_rs,
+                        long long o_bs, long long o_rs, float scale,
+                        float* ws, cudaStream_t stream) {
+  using C = FwdWideW;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int BH = B * H, Mp = (M + 7) / 8 * 8;
+  const int G = (D + C::kON - 1) / C::kON, ow = wide_cols(D, G);
+  float* kw = ws;
+  float* vt = kw + 2ll * BH * M * D;
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, D, H, N, B, q_rs, q_bs, C::kBQ, true);
+  if (err == 0) err = tensor_map_3d_f32(&tk, kw, D, M, 2 * BH, D, C::kBK);
+  if (err == 0) err = tensor_map_3d_f32(&tv, vt, Mp, D, 2 * BH, Mp, C::kON);
+  if (err != 0) return err;
+  static unsigned long long smem_set = 0;
+  auto kern = flash_fwd_f32_wide_kernel<C>;
+  err = allow_smem(kern, C::kSmemBytes, smem_set);
+  if (err != 0) return err;
+  flash_split_wide_f32_kernel<<<dim3(((Mp + 31) / 32) * ((D + 31) / 32), BH, 2),
+                                256, 0, stream>>>(
+      static_cast<const float*>(k), k_bs, k_rs, static_cast<const float*>(v),
+      v_bs, v_rs, kw, vt, H, M, D);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  kern<<<dim3((N + C::kBQ - 1) / C::kBQ, BH, G), C::kThreads, C::kSmemBytes,
+         stream>>>(tq, tk, tv, static_cast<float*>(o), lse, H, N, M, D, ow,
+                   o_bs, o_rs, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -2856,8 +3479,9 @@ LLT2I_API int llt2i_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // lse: null, or a contiguous f32 (B, H, N) buffer that receives the row
 // log-sum-exp of the scaled scores (the backward's saved statistic).
 // scale > 0. Every D <= 512 runs the instantiation of the smallest width
-// that holds it (48, 64, 80, 128, 160, 512; zeros past D); D > 512, D % 8
-// != 0 or scale <= 0 returns cudaErrorInvalidValue without launching.
+// that holds it (48, 64, 80, 128, 160, 512; zeros past D), every D past 512
+// the column-group kernel (flash_fwd_wide_kernel, any D); D % 8 != 0 or
+// scale <= 0 returns cudaErrorInvalidValue without launching.
 LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int H, int N,
                               int M, int D,
@@ -2867,27 +3491,29 @@ LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;  // max over raw scores
-  if (D % 8 != 0 || D <= 0 || D > 512) return (int)cudaErrorInvalidValue;
+  if (D % 8 != 0 || D <= 0) return (int)cudaErrorInvalidValue;
   // the smallest width that holds d: 48 (d 40, the 64^2 sites), 64 and 128
   // (num_heads 5), 80 (the 32^2 sites), 160 (the 24^2 sites at 768^2),
-  // 512 (the VAE's mid attention)
+  // 512 (the VAE's mid attention); past it the column groups (num_heads 1)
   auto run = D <= 48    ? launch<Fwd40>
              : D <= 64  ? launch<Fwd64>
              : D <= 80  ? launch<Fwd80>
              : D <= 128 ? launch<Fwd128>
              : D <= 160 ? launch<Fwd160>
-                        : launch<Fwd512>;
+             : D <= 512 ? launch<Fwd512>
+                        : launch_wide;
   return run(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs, k_rs, v_bs,
              v_rs, o_bs, o_rs, scale, s);
 }
 
 // The f32 forms: q, k, v, o (and dout, dq, dk, dv) f32, with the strides
 // and layouts of the bf16 entry points; rows 16-byte aligned (strides and
-// head offsets multiples of 4 floats, so D % 4 == 0). K1: every D <= 512,
-// on the kernel of the smallest width that holds it (40, 64, 80, 128, 160:
+// head offsets multiples of 4 floats, so D % 4 == 0). K1: every D, on the
+// kernel of the smallest width that holds it (40, 64, 80, 128, 160:
 // flash_fwd_f32_ss_kernel, with a workspace `ws` of
 // llt2i_flash_fwd_f32_ws(B, H, M, D) bytes, 16-byte aligned, which the call
-// overwrites; 512: flash_fwd_f32_wgmma_kernel, ws null); K5a and K5b: every
+// overwrites; 512: flash_fwd_f32_wgmma_kernel, ws null; past 512:
+// flash_fwd_f32_wide_kernel, with its workspace likewise); K5a and K5b: every
 // D <= 320 likewise (256, 320: the d-streamed kernels, bwd_f32_stream).
 // Any other d, scale <= 0 (K1) or a missing workspace returns
 // cudaErrorInvalidValue without launching.
@@ -2901,7 +3527,7 @@ LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;  // max over raw scores
   float* w = static_cast<float*>(ws);
-  if (D % 4 != 0 || D <= 0 || D > 512) return (int)cudaErrorInvalidValue;
+  if (D % 4 != 0 || D <= 0) return (int)cudaErrorInvalidValue;
   auto run = [&](auto launch_w) {
     return launch_w(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs, k_bs, k_rs,
                     v_bs, v_rs, o_bs, o_rs, scale, w, s);
@@ -2912,15 +3538,17 @@ LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
     case 80: return run(launch_fwd_f32<Fwd80W>);
     case 128: return run(launch_fwd_f32<Fwd128W>);
     case 160: return run(launch_fwd_f32<Fwd160W>);
-    default:  // past 160: the 512-wide kernel
+    default:  // past 160: the 512-wide kernel, past 512 the column groups
+      if (D > 512) return run(launch_fwd_f32_wide);
       return launch_fwd_f32_512(q, k, v, o, lse, B, H, N, M, D, q_bs, q_rs,
                                 k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
   }
 }
 
 // The bytes of llt2i_flash_fwd_f32's workspace for B x H heads of M keys
-// at head dim D (0 where it needs none: past 160)
+// at head dim D (0 where it needs none: 161 to 512)
 LLT2I_API long long llt2i_flash_fwd_f32_ws(int B, int H, int M, int D) {
+  if (D > 512) return 4 * fwd_f32_wide_ws_floats(B, H, M, D);
   const int w = f32_width(D);
   return w ? 4 * fwd_f32_ws_floats(B, H, M, w) : 0;
 }

@@ -20,22 +20,26 @@ kernels keep them in the operands' type), picked from q's dtype; q, k, v
 and dO share it.
 
 Head dims. The Pallas kernels take any d (they zero-pad it to 128 lanes);
-so do these. Each instantiation takes every d up to its width, its tensor
-maps zero-filling the columns past d (``K1_WIDTHS``, ``K5_WIDTHS``; the C
-entry points pick the smallest width that holds d): K1 every d <= 512,
-K5a/K5b every d <= 320, in both types (past 160 K5b runs as two launches
-from one wrapper call, a dV pass and a dK pass, one count; K5's f32 forms
-there stream the scores' depth, ``flash_bwd_*_f32_stream_kernel``). The
-maps' head stride must be whole 16-byte vectors (d % 8 == 0 in bf16,
+so does K1, and K5 up to 320. Each instantiation takes every d up to its
+width, its tensor maps zero-filling the columns past d (``K1_WIDTHS``,
+``K5_WIDTHS``; the C entry points pick the smallest width that holds d):
+K1 every d <= 512, K5a/K5b every d <= 320, in both types (past 160 K5b
+runs as two launches from one wrapper call, a dV pass and a dK pass, one
+count; K5's f32 forms there stream the scores' depth,
+``flash_bwd_*_f32_stream_kernel``). K1 past 512 (``num_heads`` 1: d 640
+and 1280) runs the column-group kernels, ``flash_fwd_wide_kernel`` and
+``flash_fwd_f32_wide_kernel``, which take any d: the output's columns
+split over the grid, the scores' depth streamed, each d at its own width.
+The maps' head stride must be whole 16-byte vectors (d % 8 == 0 in bf16,
 d % 4 in f32): for any other d (16 heads at 320 channels give d 20; d 300
-in bf16 runs at 304) the wrapper launches the kernel on a zero-padded
-packed copy of q, k, v (and dO) at the next such d, with the scale of the
-true d, and returns the output's first d columns of each head
-(``padded_head_dim``; an explicit copy, not a fallback). Past 512 (K1) or
-320 (K5) a card call raises naming ROADMAP.md's Queue 2 item (K1 past
-512, then K5 past 320): ``num_heads`` 1 at 512^2 reaches K1 at d 640 so.
+in bf16 runs at 304, d 636 at 640) the wrapper launches the kernel on a
+zero-padded packed copy of q, k, v (and dO) at the next such d, with the
+scale of the true d, and returns the output's first d columns of each
+head (``padded_head_dim``; an explicit copy, not a fallback). Past 320 a
+K5 card call raises naming ROADMAP.md's Queue 2 (K5a/K5b past 320, then
+K3 past C 2048): ``num_heads`` 1 reaches K5 at d 640 in training.
 
-K1/f32 at widths up to 160 splits K and V (and
+K1/f32 at widths up to 160 and past 512 splits K and V (and
 transposes V) once a call into a workspace that the wrapper allocates for
 the call (``llt2i_flash_fwd_f32_ws`` bytes). K5a/f32 and K5b/f32 read q,
 k, v and dO split, and k, q and dO also transposed, from a workspace of
@@ -57,12 +61,13 @@ from .dispatch import (needs_grad, operand_dtype, require, stream_handle,
 # the widths of the kernels' instantiations (csrc/flash_attention.cu): each
 # takes every head dim up to it, its maps zero-filling the columns past d.
 # bf16 rounds d up to 16 (wgmma's depth), so d 40 runs the 48-wide one.
+# K1 past its widest runs the column-group kernels, which take any d
 K1_WIDTHS = {torch.bfloat16: (48, 64, 80, 128, 160, 512),
              torch.float32: (40, 64, 80, 128, 160, 512)}
 K5_WIDTHS = {torch.bfloat16: (48, 64, 80, 128, 160, 256, 320),
              torch.float32: (40, 64, 80, 128, 160, 256, 320)}
-# where the head dims past the widest are listed as still to port
-NOT_PORTED = "ROADMAP.md Queue 2: K1 past d 512, K5a/K5b past d 320"
+# where the head dims past K5's widest are listed as still to port
+NOT_PORTED = "ROADMAP.md Queue 2: K5a/K5b past d 320, then K3 past C 2048"
 
 
 def padded_head_dim(d: int, dtype: torch.dtype) -> int:
@@ -75,12 +80,15 @@ def padded_head_dim(d: int, dtype: torch.dtype) -> int:
 def kernel_width(kid: str, dtype: torch.dtype, d: int) -> int:
     """The width of the instantiation of ``kid`` ("K1", "K5a" or "K5b")
     that runs head dim d in ``dtype``: the smallest that holds
-    ``padded_head_dim(d)``. Raises ValueError past the widest."""
+    ``padded_head_dim(d)``; K1 past its widest, the column-group kernel at
+    ``padded_head_dim(d)`` itself. Raises ValueError past K5's widest."""
     dp = padded_head_dim(d, dtype)
     widths = (K1_WIDTHS if kid == "K1" else K5_WIDTHS)[dtype]
     for w in widths:
         if dp <= w:
             return w
+    if kid == "K1":
+        return dp
     raise ValueError(f"{kid}: head dim {d} is past the widest kernel "
                      f"({widths[-1]}); not ported ({NOT_PORTED})")
 
@@ -220,7 +228,7 @@ def _launch_fwd(q, k, v, heads, scale, need_lse):
             float(scale))
     if dtype is torch.float32:
         # K and V split (and V transposed) once a call into a workspace of
-        # this call's shape, on the caller's stream; none at d 512
+        # this call's shape, on the caller's stream; none from d 161 to 512
         nbytes = handle.llt2i_flash_fwd_f32_ws(b, heads, m, hc // heads)
         ws = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
               if nbytes else None)

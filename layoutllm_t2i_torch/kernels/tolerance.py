@@ -86,6 +86,14 @@ and 3.0e-5 for K4 at K = 1280, growing with the sum's length: the K4 row
 failed there. K5's emulated one chain reads 1.0e-5 at N = M = 1054 and
 3.9e-5 at 4126, inside its row: the fresh accumulators keep K5 at
 ~1e-6.
+K1 past d 512 (num_heads 1; the column-group kernels, both types) keeps
+K1's rows: its emulation (each column group computing the same scores
+over 64- or 32-column depth items, the f32 items' products into fresh
+accumulators) lies 2.4e-3 of rms(b) off in bf16 and at most 7.6e-7 in
+f32 at d 520, 640 and 1280; a column group not written, one reading V or
+writing O at another's columns, the last depth item dropped and a ragged
+tail scoring 0 lie 1.1e-3 (f32) or 1.9e-2 (bf16) to 0.98 off, one TF32
+pass 4.1e-4 (``tests/test_torch_k1_wide.py``).
 K6, K7, K8a and K8b in f32 ("K6/f32", "K7/f32", "K8a/f32", "K8b/f32") take
 K4/f32's numbers: outputs of rms about 1, f32 on both sides. K7's int8 weights are exact in TF32, so two products (a_hi q
 + a_lo q) give the 3xTF32 accuracy. Their emulated rounding lies at most

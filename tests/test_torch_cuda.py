@@ -107,6 +107,10 @@ def _check(kid, kernel_fn, plain_fn, counter):
     (1, 600, 630, 16, 20), (1, 600, 630, 5, 64), (1, 600, 630, 2, 96),
     (1, 600, 630, 5, 128), (1, 600, 630, 2, 144), (2, 576, 606, 8, 160),
     (1, 576, 576, 5, 256),
+    # past 512, the column-group kernel (num_heads 1): d 520 (the last
+    # group's columns ragged), 640, 1280, and 636 through the padded copy
+    (1, 600, 630, 2, 520), (2, 1054, 1054, 1, 640), (1, 606, 606, 1, 1280),
+    (1, 600, 630, 2, 636),
 ])
 def test_flash_attention(dev, gen, b, n, m, heads, d):
     q = _rand(gen, b, n, heads * d)
@@ -155,7 +159,7 @@ def _fenced(gen, b, rows, heads, d):
     return view
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 640])
 @pytest.mark.parametrize("need_lse", [False, True])
 def test_flash_attention_never_reads_outside_its_operands(dev, gen, d, need_lse):
     b, n, m, heads = 2, 700, 650, 4
@@ -190,6 +194,7 @@ def test_flash_attention_lse_wide_head(dev, gen, b, n, m):
     (4, 4126, 4126, 8, 40),
     (4, 1054, 1054, 8, 80),
     (2, 4096, 4096, 1, 512),
+    (4, 1054, 1054, 1, 640),   # two column groups, each with its own V ring
 ])
 def test_flash_attention_is_bitwise_repeatable(dev, gen, b, n, m, heads, d):
     # two launches on the same inputs agree bit for bit: a race in the K/V
@@ -206,13 +211,40 @@ def test_flash_attention_is_bitwise_repeatable(dev, gen, b, n, m, heads, d):
 
 
 def test_flash_attention_uninstantiated_head_dim_raises(dev, gen):
-    # past the widest instantiation (512) the wrapper raises before any
-    # launch, naming the ROADMAP item that lists the head dim
-    q = _rand(gen, 1, 512, 2 * 520)
-    before = K.flash_attention.launches
+    # K1 takes every head dim (past 512 the column-group kernel); a
+    # backward past K5's widest instantiation (320) raises before any K5
+    # launch, naming the ROADMAP item that lists it: a num_heads 1 training
+    # step (d 640 at 512^2's 32^2 sites)
+    q, k, v, dout = _attention_inputs(gen, 1, 512, 512, 1, 640)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = (K.flash_attention.launches, K.flash_attention_bwd_dq.launches,
+              K.flash_attention_bwd_dkv.launches)
+    out = K.flash_attention(*leaves, 1, 640 ** -0.5)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        K.flash_attention(q, q, q, 2, 520 ** -0.5)
-    assert K.flash_attention.launches == before
+        torch.autograd.grad(out, leaves, dout)
+    assert (K.flash_attention.launches, K.flash_attention_bwd_dq.launches,
+            K.flash_attention_bwd_dkv.launches) == (before[0] + 1, *before[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,m,heads,d", [
+    (1, 600, 630, 2, 520), (4, 1054, 1054, 1, 640), (4, 606, 606, 1, 1280),
+    (4, 2334, 2334, 1, 640),   # 768^2's gated 48^2 site
+])
+def test_flash_attention_lse_past_512(dev, gen, dtype, b, n, m, heads, d):
+    # the column-group kernels with their lse: every group computes S, the
+    # first writes the lse
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = (t.to(dtype) for t in _attention_inputs(gen, b, n, m, heads, d))
+    s = d ** -0.5
+    f32 = "/f32" if dtype is torch.float32 else ""
+    before = K.flash_attention.launches
+    out, lse = _launch_fwd(q, k, v, heads, s, need_lse=True)
+    ref = K.flash_attention_lse_plain(q, k, v, heads, s)
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == before + 1
+    got = agreement((f"K1{f32}", f"lse{f32}"), (out, lse), ref)
+    assert got["ok"], got
 
 
 @pytest.mark.parametrize("n,hw,c,groups", [
@@ -833,6 +865,10 @@ def _check_f32(kid, kernel_fn, plain_fn, counter, kids=None):
     (1, 600, 630, 16, 20), (1, 600, 630, 5, 64), (1, 600, 630, 2, 96),
     (1, 600, 630, 5, 128), (1, 600, 630, 2, 144), (2, 576, 606, 8, 160),
     (1, 576, 576, 5, 256),
+    # past 512, the column-group kernel and its pre-pass: d 520, 640, 1280,
+    # and 638 through the padded copy
+    (1, 600, 630, 2, 520), (2, 1054, 1054, 1, 640), (1, 606, 606, 1, 1280),
+    (1, 600, 630, 2, 638),
 ])
 def test_flash_attention_f32(dev, gen, f32, b, n, m, heads, d):
     q, k, v = (_rand(gen, b, r, heads * d).float() for r in (n, m, m))
@@ -982,7 +1018,7 @@ def test_flash_attention_backward_f32_other_head_dims_raise(dev, gen, f32):
             K.flash_attention_bwd_dkv.launches) == before
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 640])
 def test_flash_attention_f32_strided_and_fenced(dev, gen, f32, d):
     # q, k and v slices of one packed qkv buffer (row stride 3 H d, a
     # multiple of 4 floats, not of 8) whose neighbours are NaN: a read past

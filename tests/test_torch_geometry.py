@@ -47,7 +47,8 @@ GEOMETRY = dict(image_size=16, num_heads=4)
 
 
 @pytest.mark.parametrize("geometry", [dict(image_size=96), dict(num_heads=5),
-                                      GEOMETRY])
+                                      dict(num_heads=1),
+                                      dict(image_size=96, num_heads=1), GEOMETRY])
 def test_port_config_passes_image_size_and_num_heads(geometry):
     jcfg = dataclasses.replace(JaxUNetConfig(), **geometry)
     cfg = port_config(UNetConfig, jcfg)

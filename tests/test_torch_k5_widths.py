@@ -141,5 +141,5 @@ def test_k5b_passes_each_write_their_output(d, fault):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k5_past_320_names_the_rest_of_queue_2(kid, dtype):
     assert FA.kernel_width(kid, dtype, 320) == 320
-    with pytest.raises(ValueError, match="K1 past d 512, K5a/K5b past d 320"):
+    with pytest.raises(ValueError, match="K5a/K5b past d 320, then K3 past C 2048"):
         FA.kernel_width(kid, dtype, 328)

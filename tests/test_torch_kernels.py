@@ -81,16 +81,20 @@ def test_flash_attention_plain_matches_pallas(rng, heads, n, m, d):
     ("K5b", torch.bfloat16, 320, 320), ("K5b", torch.float32, 168, 256),
     ("K5a", torch.float32, 256, 256), ("K5b", torch.float32, 300, 320),
     ("K5a", torch.float32, 320, 320),
+    # K1 past 512: the column-group kernels, each d at its own width
+    ("K1", torch.bfloat16, 520, 520), ("K1", torch.bfloat16, 636, 640),
+    ("K1", torch.bfloat16, 1280, 1280), ("K1", torch.float32, 520, 520),
+    ("K1", torch.float32, 638, 640), ("K1", torch.float32, 1280, 1280),
 ])
 def test_kernel_width_is_the_smallest_that_holds_d(kid, dtype, d, width):
     # the instantiation a head dim runs on, after the padding copy to whole
     # 16-byte vectors (d 20 -> 24 in bf16; 157 -> 160 in f32; 300 -> 304
-    # in bf16)
+    # and 636 -> 640 in bf16)
     assert FA.kernel_width(kid, dtype, d) == width
     assert FA.padded_head_dim(d, dtype) <= width
 
 
-@pytest.mark.parametrize("kid,d", [("K1", 520), ("K5a", 328), ("K5b", 328)])
+@pytest.mark.parametrize("kid,d", [("K5a", 328), ("K5b", 328)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_head_dims_past_the_widest_kernel_raise(kid, dtype, d):
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
@@ -99,18 +103,26 @@ def test_head_dims_past_the_widest_kernel_raise(kid, dtype, d):
 
 def test_kernel_widths_are_the_c_entry_points():
     # the widths the C entry points switch on (csrc/flash_attention.cu):
-    # bf16 K1 and K5 by `D <= w`, the f32 forms through f32_width (K1/f32
-    # past 160 on its 512-wide kernel) and K5's through bwd_f32_width, which
-    # adds the d-streamed 256 and 320
+    # bf16 K1 and K5 by `D <= w`, K1 past the last on the column-group
+    # kernel, the f32 forms through f32_width (K1/f32 past 160 on its
+    # 512-wide kernel, past 512 on its column groups) and K5's through
+    # bwd_f32_width, which adds the d-streamed 256 and 320
     src = (Path(FA.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
 
-    def widths(start):
+    def body_of(start):
         body = src[src.index(start):]
-        body = body[:body.index("\n}\n")]
-        return tuple(int(w) for w in re.findall(r"D <= (\d+)", body) if int(w))
+        return body[:body.index("\n}\n")]
 
-    assert widths("LLT2I_API int llt2i_flash_fwd(") + (512,) == \
-        FA.K1_WIDTHS[torch.bfloat16]
+    def widths(start):
+        return tuple(int(w) for w in re.findall(r"D <= (\d+)", body_of(start))
+                     if int(w))
+
+    assert widths("LLT2I_API int llt2i_flash_fwd(") == FA.K1_WIDTHS[torch.bfloat16]
+    assert ": launch_wide;" in body_of("LLT2I_API int llt2i_flash_fwd(")
+    f32_fwd = body_of("LLT2I_API int llt2i_flash_fwd_f32(")
+    assert "D > 512) return run(launch_fwd_f32_wide)" in f32_fwd
+    assert "D > 512" not in f32_fwd.split("switch")[0]
+    assert FA.kernel_width("K1", torch.float32, 516) == 516
     assert widths("int flash_bwd(const void* q") == FA.K5_WIDTHS[torch.bfloat16]
     assert widths("int f32_width(int D)") == FA.K1_WIDTHS[torch.float32][:-1]
     assert widths("int f32_width(int D)") + widths("int bwd_f32_width(int D)") \

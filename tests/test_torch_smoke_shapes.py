@@ -591,7 +591,7 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     # call runs the backward's) and K4/f32's LN pre-pass (K7/f32's too,
     # counted under K4/f32)
     widths = (40, 64, 80, 128, 160, 256, 320)
-    f32_pre = {"K1/f32": {"flash_split_f32_kernel"},
+    f32_pre = {"K1/f32": {"flash_split_f32_kernel", "flash_split_wide_f32_kernel"},
                "K5a/f32": {f"flash_split_f32_kernel<{d}, 4>" for d in widths},
                "K4/f32": {"ffn_norm_rows_f32_kernel"}}
     for d in widths:
@@ -873,15 +873,17 @@ def counted_from_records(monkeypatch):
 # images; d 32 at the 8^2 level, the VAE's mid block's d 64 over 256
 # tokens) and 4 heads (d 8 at the 8^2 level; the 4^2 level stays plain)
 SMALL_GEOMETRY = {"hires": (dict(image_size=16), (32, 64)),
-                  "heads5": (dict(num_heads=4), (8,))}
+                  "heads5": (dict(num_heads=4), (8,)),
+                  "heads1": (dict(num_heads=1), (32,)),
+                  "hires1": (dict(image_size=16, num_heads=1), (32, 64))}
 
 
 @pytest.mark.parametrize("name", sorted(SMALL_GEOMETRY))
 def test_phase_geometry_on_the_cpu(monkeypatch, small_flash, counted_from_records,
                                    name):
-    """Phase hires or heads5 at the small geometry, 2 PLMS steps in f32:
-    the images through both routes, K1's launches the walk's site by site
-    at the geometry's head dims."""
+    """Phase hires, heads5, heads1 or hires1 at the small geometry, 2 PLMS
+    steps in f32: the images through both routes, K1's launches the walk's
+    site by site at the geometry's head dims."""
     update, dims = SMALL_GEOMETRY[name]
     monkeypatch.setitem(cs.GEOMETRY, name, update)
     monkeypatch.setitem(cs.GEOMETRY_RUNS, name, ((torch.float32, 2),))
@@ -925,9 +927,11 @@ def test_geometry_walks_route_as_the_jax_package(name):
     (layoutllm_t2i_tpu/ops/attention.py: no mask, N >= _FLASH_MIN_Q_LEN,
     M >= _FLASH_MIN_KV), at the head dims these configurations reach:
     d 40, 80 and 160 at 96^2 latents, 64 and 128 with num_heads 5, 160 and
-    320 with num_heads 2, 64, 128 and 256 with num_heads 5 at 96^2; and
-    the training walk at the batch's latents takes K5 at every one of them
-    (the lse sites)."""
+    320 with num_heads 2, 64, 128 and 256 with num_heads 5 at 96^2, 320
+    and 640 with num_heads 1, 320, 640 and 1280 with num_heads 1 at 96^2;
+    and the training walk at the batch's latents takes K5 at every one of
+    them (the lse sites): past 320 (num_heads 1), where K5 is not ported,
+    so those two geometries generate only (GENERATION_ONLY)."""
     from layoutllm_t2i_tpu.ops import attention as jax_attention
 
     from layoutllm_t2i_torch.models.unet import UNetConfig
@@ -941,9 +945,9 @@ def test_geometry_walks_route_as_the_jax_package(name):
         and m >= jax_attention._FLASH_MIN_KV)
     assert got == want
     dims = {"hires": {40, 80, 160}, "heads5": {64, 128}, "heads2": {160, 320},
-            "hires5": {64, 128, 256}}[name]
+            "hires5": {64, 128, 256}, "heads1": {320, 640},
+            "hires1": {320, 640, 1280}}[name]
     assert {d for _, _, d in got} == dims
-    assert set(cs.GEOMETRY_K5_DIMS[name]) == dims
     assert set(cs.GEOMETRY_DIMS.get(name, ())) - {512} <= dims
     # the training walk at 768^2 images runs the UNet at 96^2 latents, the
     # VAE encoder's mid block at 96^2 (K1 at d 512 over 9216 tokens); at
@@ -955,6 +959,12 @@ def test_geometry_walks_route_as_the_jax_package(name):
              "image": np.zeros((1, side, side, 3))}
     _, vae_cfg, clip_cfg = model_configs(small=False)
     train = cs.training_calls(cfg, vae_cfg, clip_cfg, 77, batch, 30, 10)
+    if name in cs.GENERATION_ONLY:
+        assert name not in cs.GEOMETRY_K5_DIMS
+        assert {d for d, _, _ in cs.sites_by_dim(train, "K5a", dims)} == dims
+        assert not cs.k5_takes((1, 1054, 1054, 1, 640, "lse"))
+        return
+    assert set(cs.GEOMETRY_K5_DIMS[name]) == dims
     k5 = cs.sites_by_dim(train, "K5a", cs.GEOMETRY_K5_DIMS[name])
     assert {d for d, _, _ in k5} == dims
     assert cs.sites_by_dim(cs.unet_calls(cfg, 1, 30, 10, 77, train=True),
