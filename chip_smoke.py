@@ -290,18 +290,23 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                (the UNet at 96^2 latents): finite losses, K1's, K5a's and
                K5b's launches (bf16 and f32) the walk's a step; then phase
                12's check at 96^2 latents, with num_heads 5, with
-               num_heads 2 and with num_heads 5 at 96^2 latents, bf16 and
+               num_heads 2, with num_heads 5 at 96^2 latents, with
+               num_heads 1 and with num_heads 1 at 96^2 latents, bf16 and
                f32 (train-grad-hires[-f32], train-grad-heads5[-f32],
-               train-grad-heads2[-f32], train-grad-hires5[-f32]): the
+               train-grad-heads2[-f32], train-grad-hires5[-f32],
+               train-grad-heads1[-f32], train-grad-hires1[-f32]): the
                planted dK fault must exceed the bound, K5's launches at
-               d 40/80/160, 64/128, 160/320 or 64/128/256 the walk's site
-               by site. Then train-ckpt: the seed-0 weights written by the
-               port's .pth writer with a GLIGEN config_dict of num_heads 2
-               (build/chip_smoke_train, 5.5 GiB, removed after), trained by
-               cli/train_diffusion.py main --synthetic --mixed_precision
-               --ckpt_path at batch 8, 2 steps: finite losses, K1's and
-               K5's launches the walk's, K5's sites at d 160 and 320 the
-               walk's; s/step, peak memory.
+               d 40/80/160, 64/128, 160/320, 64/128/256, 320/640 or
+               320/640/1280 the walk's site by site (past 320 K5's
+               column-group kernels). Then train-ckpt-heads2 and
+               train-ckpt-heads1: the seed-0 weights written by the port's
+               .pth writer with a GLIGEN config_dict of num_heads 2, then
+               1 (build/chip_smoke_train, 5.5 GiB, removed after), trained
+               by cli/train_diffusion.py main --synthetic
+               --mixed_precision --ckpt_path at batch 8, 2 steps: finite
+               losses, K1's and K5's launches the walk's, K5's sites at d
+               160 and 320 (320 and 640) the walk's; s/step, peak
+               memory.
  14. train-grad-f32  phase 12 with mixed_precision=False: every operand
                f32, the kernels' f32 forms, bound TRAIN_GRAD_F32_REL_TOL.
  15. train-f32 phase 13 with TrainerConfig()'s precision, f32 throughout
@@ -357,14 +362,16 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
 Phase 2's shapes are walked from the model configs (generation_calls,
 training_calls), and the head dims that no model here routes to them
 (HEAD_DIM_CALLS: bf16 48, 72, 504 and 636; d 20, 96, 144, 168, 256, 300,
-520, 640 and 1280 in both types), the K1 sites with their lse past d 160
-of phase train-hires' gradient checks (num_heads 5 at 768^2 and num_heads 2 at
-512^2: K5 at d 256 and 320, batch 2, both types; wide_k5_sites), the
+328, 520, 640 and 1280 in both types; each lse site is also a K5a and a
+K5b case), the K1 sites with their lse past d 160 of phase train-hires'
+gradient checks (num_heads 5 at 768^2 and num_heads 2 at 512^2: K5 at d
+256 and 320) and past d 320 (num_heads 1 at 512^2 and 768^2: K5 at d 640
+and 1280), batch 2, both types (wide_k5_sites), the
 generation and a batch-8 training step at 768^2 and with num_heads 5
 (phases hires, heads5 and train-hires), the generation with num_heads 1
 at 512^2 and 768^2 (phases heads1 and hires1: K1 at d 320, 640 and 1280),
 bf16 and f32, and train-ckpt's
-batch-8 mixed-precision step at num_heads 2; the
+batch-8 mixed-precision steps at num_heads 2 and 1; the
 generation at
 2 requests (CFG batch 4) on each of
 its three routes (Route: the default, int8, and the split FF routes), the
@@ -467,20 +474,24 @@ TRAIN_GRAD_UNSEEN = ("softmax_scale", "dq_1pct", "dq_kv_tail")
 # by descriptor, P V with P as register A), at d 512 and past it (the
 # column groups, in bf16 too), K5a/f32 and
 # K5b/f32 (the scores by descriptor, P and dS as register A; past d 160
-# the d-streamed kernel), K4/f32's (and
+# the d-streamed kernel, past 320 its column groups, in bf16 too), K4/f32's
+# (and
 # K6/f32's) and K7/f32's up and down GEMMs, K8a/f32 and K8b/f32
 # (csrc/tf32_gemm.cuh; K7/f32's with int8 B operands, Cfg::kQ).
 # Each must show HGMMA in its SASS, in every instantiation.
 WGMMA_KERNELS = {
     "flash_attention": ("flash_fwd_kernel", "flash_fwd_wide_kernel",
                         "flash_bwd_dq_kernel",
-                        "flash_bwd_dkv_kernel", "flash_fwd_f32_ss_kernel",
+                        "flash_bwd_dkv_kernel", "flash_bwd_dq_wide_kernel",
+                        "flash_bwd_dkv_wide_kernel", "flash_fwd_f32_ss_kernel",
                         "flash_fwd_f32_wgmma_kernel",
                         "flash_fwd_f32_wide_kernel",
                         "flash_bwd_dq_f32_ss_kernel",
                         "flash_bwd_dkv_f32_ss_kernel",
                         "flash_bwd_dq_f32_stream_kernel",
-                        "flash_bwd_dkv_f32_stream_kernel"),
+                        "flash_bwd_dkv_f32_stream_kernel",
+                        "flash_bwd_dq_f32_wide_kernel",
+                        "flash_bwd_dkv_f32_wide_kernel"),
     "ffn": ("ffn_up_wgmma_kernel", "ffn_down_wgmma_kernel",
             "ffn_res_up_wgmma_kernel", "ffn_res_down_wgmma_kernel",
             "ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
@@ -498,12 +509,15 @@ VS_LIBRARY_KIDS = WGMMA_KIDS + ("K2",)
 # K7's kernels and the TF32 wgmma kernels, which must compile without a
 # spill (ptxas)
 NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
-                    "flash_fwd_wide_kernel",
+                    "flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
+                    "flash_bwd_dkv_wide_kernel",
                     "flash_fwd_f32_ss_kernel", "flash_fwd_f32_wgmma_kernel",
                     "flash_fwd_f32_wide_kernel",
                     "flash_bwd_dq_f32_ss_kernel", "flash_bwd_dkv_f32_ss_kernel",
                     "flash_bwd_dq_f32_stream_kernel",
                     "flash_bwd_dkv_f32_stream_kernel",
+                    "flash_bwd_dq_f32_wide_kernel",
+                    "flash_bwd_dkv_f32_wide_kernel",
                     "linear_f32_wgmma_kernel", "geglu_f32_wgmma_kernel",
                     "ffn_up_f32_wgmma_kernel", "ffn_down_f32_wgmma_kernel",
                     "ffn_q_up_f32_wgmma_kernel", "ffn_q_down_f32_wgmma_kernel")
@@ -990,23 +1004,13 @@ def kernel_cases(paths):
     for path, calls in paths.items():
         for kid, args in calls:
             where.setdefault((kid, args), []).append(path)
-            if kid == "K1" and has_lse(args) and k5_takes(args):
+            if kid == "K1" and has_lse(args):
                 for bwd in ("K5a", "K5b"):
                     where.setdefault((bwd, args[:5] + args[6:]), []).append(path)
     order = list(KERNEL_META)
     keys = sorted(where, key=lambda key: order.index(row_kid(*key)))
     return [(kid, case_label(kid, args), args, sorted(set(where[kid, args])))
             for kid, args in keys]
-
-
-def k5_takes(args) -> bool:
-    """Whether K5a/K5b take a K1 site's head dim (past 320 not: ROADMAP.md
-    Queue 2), which its lse row is then the forward of."""
-    from layoutllm_t2i_torch.kernels.flash_attention import (K5_WIDTHS,
-                                                             padded_head_dim)
-
-    dt = torch.float32 if is_f32(args) else torch.bfloat16
-    return padded_head_dim(args[4], dt) <= K5_WIDTHS[dt][-1]
 
 
 def make_case(kid, args, dev, gen):
@@ -2557,7 +2561,9 @@ def phase_inpaint(models, dense_img):
 # kernels), with and without its lse, at the generation's batch: d 520
 # (the last group's columns ragged), 640 (one head) and bf16 636 (two: the
 # padded copy at 640, whose rows are whole 16-byte vectors) at N = M =
-# 1054, d 1280 at 606 (ragged last tiles)
+# 1054, d 1280 at 606 (ragged last tiles); each lse site there is also a
+# K5a and a K5b row on K5's column-group kernels, as is d 328 (the first
+# width past 320: two groups of 168, the last ragged) at N = M = 1054
 HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72)),
                   ("K1", (1, 4096, 4096, 1, 504)),
                   ("K1", (2, 1024, 1024, 8, 48, "lse")),
@@ -2566,7 +2572,8 @@ HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72))
         (2, 1024, 1024, 16, 20), (2, 1024, 1024, 16, 20, "lse"),
         (2, 1024, 1024, 8, 96), (2, 1024, 1024, 8, 96, "lse"),
         (4, 576, 576, 5, 256), (2, 576, 606, 8, 144, "lse"),
-        (2, 606, 606, 8, 168, "lse"), (2, 1054, 1054, 2, 300, "lse"))] + [
+        (2, 606, 606, 8, 168, "lse"), (2, 1054, 1054, 2, 300, "lse"),
+        (2, 1054, 1054, 2, 328, "lse"))] + [
     ("K1", shape + lse + tag) for tag in ((), ("f32",)) for lse in ((), ("lse",))
     for shape in ((4, 1054, 1054, 1, 520), (4, 1054, 1054, 1, 640),
                   (4, 606, 606, 1, 1280))] + [
@@ -2583,12 +2590,11 @@ HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72))
 # reference's 50 (PERF.md section 4). Two more geometries train only
 # (phase train-hires' gradient checks): num_heads 2 at 512^2 (K5 at d 160
 # on the 64^2 sites, 320 on the 32^2 ones) and num_heads 5 at 768^2 (64,
-# 128 and 256 on the 96^2, 48^2 and 24^2 sites). Two more generate only
-# (phases heads1 and hires1): num_heads 1 at 512^2 (K1 at d 320 on the
-# 64^2 sites, 640 on the 32^2 ones) and at 768^2 (320, 640 and 1280 on the
-# 96^2, 48^2 and 24^2 sites): K1 past d 512 runs the column-group kernels,
-# and they do not train, as K5 past d 320 is not ported (ROADMAP.md
-# Queue 2)
+# 128 and 256 on the 96^2, 48^2 and 24^2 sites). Two more generate
+# (phases heads1 and hires1) and train (the gradient checks): num_heads 1
+# at 512^2 (K1 and K5 at d 320 on the 64^2 sites, 640 on the 32^2 ones)
+# and at 768^2 (320, 640 and 1280 on the 96^2, 48^2 and 24^2 sites): K1
+# past d 512 and K5 past 320 run the column-group kernels
 GEOMETRY = {"hires": dict(image_size=96), "heads5": dict(num_heads=5),
             "heads2": dict(num_heads=2), "hires5": dict(image_size=96, num_heads=5),
             "heads1": dict(num_heads=1), "hires1": dict(image_size=96, num_heads=1)}
@@ -2596,14 +2602,17 @@ GEOMETRY_RUNS = {"hires": ((torch.bfloat16, 10), (torch.float32, 10)),
                  "heads5": ((torch.bfloat16, 10), (torch.float32, 10)),
                  "heads1": ((torch.bfloat16, 10), (torch.float32, 10)),
                  "hires1": ((torch.bfloat16, 10), (torch.float32, 10))}
-# the geometries of GEOMETRY_RUNS with no training walk (K5 past d 320)
+# the geometries of GEOMETRY_RUNS whose batch-8 training step phase kernels
+# does not walk: for the time a 768^2 walk would add (their gradient
+# checks train them, and train-ckpt's num_heads 1 run has its walk)
 GENERATION_ONLY = ("heads1", "hires1")
 # the head dims whose K1 sites each phase holds to the walk's launches, site
 # by site (N, M), and those its training check holds K5 to
 GEOMETRY_DIMS = {"hires": (160, 512), "heads5": (64, 128), "heads1": (320, 640),
                  "hires1": (320, 512, 640, 1280)}
 GEOMETRY_K5_DIMS = {"hires": (40, 80, 160), "heads5": (64, 128),
-                    "heads2": (160, 320), "hires5": (64, 128, 256)}
+                    "heads2": (160, 320), "hires5": (64, 128, 256),
+                    "heads1": (320, 640), "hires1": (320, 640, 1280)}
 GEOMETRY_PSNR_MIN_DB = 35.0   # tests/parity_setup.py's image gate
 
 
@@ -3547,18 +3556,25 @@ def grad_walk(unet_cfg, mixed_precision: bool = True, route: Route = DEFAULT):
     return walk if mixed_precision else f32_calls(walk)
 
 
-# the gradient checks' geometries whose K5 runs past d 160
-WIDE_K5_GEOMETRIES = ("heads2", "hires5")
+# the gradient checks' geometries whose K5 runs past d 160, and the head
+# dim past which phase kernels holds their sites: num_heads 1's past 320
+# alone (its d 320 sites, N = 4096 at 512^2 and 9216 at 768^2, would add
+# the most time and test no kernel that heads2's do not)
+WIDE_K5_GEOMETRIES = {"heads2": 160, "hires5": 160, "heads1": 320,
+                      "hires1": 320}
 
 
 def wide_k5_sites(unet_cfg, geometry: str, mixed_precision: bool = True):
-    """The K1 calls with their lse past d 160 of phase_train_grad's walk at
-    ``geometry`` (each is also a K5a and a K5b case): num_heads 2's 32^2
-    sites (d 320, N = M = 1024 and 1054) or num_heads 5's 24^2 sites at
-    768^2 (d 256, 576 and 606), as the walk makes them."""
+    """The K1 calls with their lse past WIDE_K5_GEOMETRIES[geometry] of
+    phase_train_grad's walk at ``geometry`` (each is also a K5a and a K5b
+    case): num_heads 2's 32^2 sites (d 320, N = M = 1024 and 1054),
+    num_heads 5's 24^2 sites at 768^2 (d 256, 576 and 606), num_heads 1's
+    32^2 sites (d 640, 1024 and 1054) or its 48^2 and 24^2 sites at 768^2
+    (d 640, 2304 and 2334; d 1280, 576 and 606), as the walk makes them."""
     cfg = dataclasses.replace(unet_cfg, **GEOMETRY[geometry])
+    past = WIDE_K5_GEOMETRIES[geometry]
     return [(kid, args) for kid, args in grad_walk(cfg, mixed_precision)
-            if kid == "K1" and has_lse(args) and args[4] > 160]
+            if kid == "K1" and has_lse(args) and args[4] > past]
 
 
 def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
@@ -4230,11 +4246,14 @@ TRAIN_HIRES_STEPS = 2
 # the kernels whose launches a step must equal the walk's
 TRAIN_HIRES_WALKED = ("K1", "K5a", "K5b")
 # the geometries of its gradient checks (GEOMETRY), bf16 and f32 each
-TRAIN_GRAD_GEOMETRIES = ("hires", "heads5", "heads2", "hires5")
-# its --ckpt_path run: a reference-format .pth of the seed-0 weights whose
-# config_dict sets GEOMETRY[TRAIN_CKPT_GEOMETRY], trained through the CLI
-# at batch TRAIN_BATCH in mixed precision, TRAIN_CKPT_STEPS steps
-TRAIN_CKPT_GEOMETRY = "heads2"
+TRAIN_GRAD_GEOMETRIES = ("hires", "heads5", "heads2", "hires5", "heads1",
+                         "hires1")
+# its --ckpt_path runs: a reference-format .pth of the seed-0 weights whose
+# config_dict sets GEOMETRY[geometry], trained through the CLI at batch
+# TRAIN_BATCH in mixed precision, TRAIN_CKPT_STEPS steps, at each of
+# TRAIN_CKPT_GEOMETRIES (num_heads 2: K5 at d 160 and 320; num_heads 1:
+# 320 and 640)
+TRAIN_CKPT_GEOMETRIES = ("heads2", "heads1")
 TRAIN_CKPT_STEPS = 2
 
 
@@ -4271,18 +4290,18 @@ def write_gligen_pth(path: str, geometry: str) -> dict:
     return config
 
 
-def train_ckpt_cli(work_dir: str) -> dict:
-    """A GLIGEN .pth with num_heads 2 trained through the user's entry
-    point: write_gligen_pth at TRAIN_CKPT_GEOMETRY into ``work_dir``, then
-    cli/train_diffusion.py main --synthetic --mixed_precision --ckpt_path
-    at batch TRAIN_BATCH, TRAIN_CKPT_STEPS steps: finite losses, K1's,
-    K5a's and K5b's launches the walk's (training_calls at the config), and
-    K5's calls at GEOMETRY_K5_DIMS the walk's site by site; the .pth's
-    size and write seconds, s/step, peak memory. Returns the launches."""
+def train_ckpt_cli(work_dir: str, geometry: str) -> dict:
+    """A GLIGEN .pth at ``geometry`` (one of TRAIN_CKPT_GEOMETRIES) trained
+    through the user's entry point: write_gligen_pth into ``work_dir``,
+    then cli/train_diffusion.py main --synthetic --mixed_precision
+    --ckpt_path at batch TRAIN_BATCH, TRAIN_CKPT_STEPS steps: finite
+    losses, K1's, K5a's and K5b's launches the walk's (training_calls at
+    the config), and K5's calls at GEOMETRY_K5_DIMS the walk's site by
+    site; the .pth's size and write seconds, s/step, peak memory. Returns
+    the launches."""
     from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
     from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
-    geometry = TRAIN_CKPT_GEOMETRY
     t_phase = time.perf_counter()
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
@@ -4308,7 +4327,7 @@ def train_ckpt_cli(work_dir: str) -> dict:
     sites = sites_by_dim(calls, "K5a", dims)
     walked_sites = {key: n * TRAIN_CKPT_STEPS
                     for key, n in sites_by_dim(walk, "K5a", dims).items()}
-    rec = {"phase": "train-ckpt", "geometry": GEOMETRY[geometry],
+    rec = {"phase": f"train-ckpt-{geometry}", "geometry": GEOMETRY[geometry],
            "num_heads": config["model"]["params"]["num_heads"],
            "card": nvidia_smi_line(), "batch": TRAIN_BATCH,
            "steps": TRAIN_CKPT_STEPS, "pth_gib": pth_gib, "write_s": write_s,
@@ -4325,9 +4344,9 @@ def train_ckpt_cli(work_dir: str) -> dict:
                  and all(math.isfinite(x) for x in losses))
     emit(rec)
     if not rec["ok"]:
-        raise SmokeFailure("train-ckpt: a loss is not finite, or K1's or K5's "
-                           "launches or K5's sites by head dim differ from "
-                           "the walk's")
+        raise SmokeFailure(f"train-ckpt-{geometry}: a loss is not finite, or "
+                           "K1's or K5's launches or K5's sites by head dim "
+                           "differ from the walk's")
     return counts
 
 
@@ -4342,9 +4361,10 @@ def phase_train_hires(work_dir: str) -> dict:
     rela_fuse gradients at batch 2 against plain_route() (phase
     train-grad's check, with its planted K5 fault), in bf16 and f32, at
     each of TRAIN_GRAD_GEOMETRIES (96^2 latents; num_heads 5 at 64^2;
-    num_heads 2 at 64^2; num_heads 5 at 96^2), K5's launches at
-    GEOMETRY_K5_DIMS the walk's. Then train_ckpt_cli: a num_heads 2 .pth
-    through --ckpt_path. Returns the launch counts of all."""
+    num_heads 2 at 64^2; num_heads 5 at 96^2; num_heads 1 at 64^2 and at
+    96^2), K5's launches at GEOMETRY_K5_DIMS the walk's. Then
+    train_ckpt_cli: a num_heads 2 and a num_heads 1 .pth through
+    --ckpt_path. Returns the launch counts of all."""
     from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
     from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
@@ -4393,7 +4413,8 @@ def phase_train_hires(work_dir: str) -> dict:
             add_counts(total, phase_train_grad(
                 mixed_precision=mixed, geometry=geometry,
                 label=f"train-grad-{geometry}{'' if mixed else '-f32'}"))
-    add_counts(total, train_ckpt_cli(work_dir))
+    for geometry in TRAIN_CKPT_GEOMETRIES:
+        add_counts(total, train_ckpt_cli(work_dir, geometry))
     return total
 
 
@@ -4942,15 +4963,18 @@ PROFILE_GROUPS = (
     # K1/f32's
     ("K5a/f32 flash_attention_bwd_dq", ("flash_bwd_dq_f32_ss_kernel",
                                         "flash_bwd_dq_f32_stream_kernel",
+                                        "flash_bwd_dq_f32_wide_kernel",
+                                        "flash_split_cols_f32_kernel<4>",
                                         *(f"flash_split_f32_kernel<{w}, 4>"
                                           for w in (40, 64, 80, 128, 160,
                                                     256, 320)))),
     ("K5b/f32 flash_attention_bwd_dkv", ("flash_bwd_dkv_f32_ss_kernel",
-                                         "flash_bwd_dkv_f32_stream_kernel")),
+                                         "flash_bwd_dkv_f32_stream_kernel",
+                                         "flash_bwd_dkv_f32_wide_kernel")),
     ("K1/f32 flash_attention", ("flash_fwd_f32_ss_kernel",
                                 "flash_split_f32_kernel",
                                 "flash_fwd_f32_wgmma_kernel",
-                                "flash_split_wide_f32_kernel",
+                                "flash_split_cols_f32_kernel",
                                 "flash_fwd_f32_wide_kernel")),
     ("K2/f32 group_norm", tuple(f"{k}<float>" for k in GN_KERNELS)),
     ("K3/f32 layer_norm", ("ln_kernel<float",)),
@@ -4963,8 +4987,10 @@ PROFILE_GROUPS = (
     ("K8a/f32 linear_fused", ("linear_f32_wgmma_kernel",)),
     ("K8b/f32 geglu_fused", ("geglu_f32_wgmma_kernel",)),
     ("K1 flash_attention", ("flash_fwd_kernel", "flash_fwd_wide_kernel")),
-    ("K5a flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("K5b flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K5a flash_attention_bwd_dq", ("flash_bwd_dq_kernel",
+                                    "flash_bwd_dq_wide_kernel")),
+    ("K5b flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",
+                                     "flash_bwd_dkv_wide_kernel")),
     ("K2 group_norm", GN_KERNELS),
     ("K3 layer_norm", ("ln_kernel",)),
     ("K4 ffn_ln_geglu", ("ffn_norm_rows_kernel", "ffn_up_wgmma_kernel",
@@ -5145,8 +5171,9 @@ def main(argv=None) -> int:
             # phases hires, heads5 and train-hires: SD-1.4 at 768^2 and
             # num_heads 5, generation and a batch-8 training step, bf16
             # and f32 (K1 at d 160, 64 and 128; K5 at the lse sites);
-            # phases heads1 and hires1: num_heads 1, generation alone (K1
-            # at d 320, 640 and 1280)
+            # phases heads1 and hires1: num_heads 1, generation (K1 at d
+            # 320, 640 and 1280; its training: the gradient checks' sites
+            # and train-ckpt's walk below)
             hires_batch = next(synthetic_layout_batches(
                 TRAIN_BATCH, TRAIN_HIRES_SIDE, TRAIN_MAX_BOXES))
             for name in GEOMETRY_RUNS:
@@ -5162,14 +5189,17 @@ def main(argv=None) -> int:
                         hires_batch if name == "hires" else train_batch,
                         TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS, f32=f32)
             del hires_batch
-            # phase train-hires' --ckpt_path run: num_heads 2, mixed
-            # precision, batch 8 (K1 with its lse and K5 at d 160 and 320)
-            gen_paths[f"train-{TRAIN_CKPT_GEOMETRY}"] = training_calls(
-                dataclasses.replace(unet_cfg, **GEOMETRY[TRAIN_CKPT_GEOMETRY]),
-                vae_cfg, clip_cfg, tok_len, train_batch, TRAIN_MAX_BOXES,
-                TRAIN_MAX_RELATIONS)
+            # phase train-hires' --ckpt_path runs: num_heads 2 and 1, mixed
+            # precision, batch 8 (K1 with its lse and K5 at d 160 and 320,
+            # and at 320 and 640)
+            for name in TRAIN_CKPT_GEOMETRIES:
+                gen_paths[f"train-{name}"] = training_calls(
+                    dataclasses.replace(unet_cfg, **GEOMETRY[name]),
+                    vae_cfg, clip_cfg, tok_len, train_batch, TRAIN_MAX_BOXES,
+                    TRAIN_MAX_RELATIONS)
             # phase train-hires' gradient checks at num_heads 2 and 5 at
-            # 768^2, bf16 and f32: K5 at the 256 and 320 widths
+            # 768^2 (K5 at the 256 and 320 widths) and num_heads 1 at 512^2
+            # and 768^2 (past 320: the column groups), bf16 and f32
             for name in WIDE_K5_GEOMETRIES:
                 for mixed, tag in ((True, ""), (False, "-f32")):
                     gen_paths[f"train-grad-{name}{tag}"] = wide_k5_sites(

@@ -673,7 +673,9 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
 //    (K5b) and columns < d are written (d = 40's 48-column tile would
 //    otherwise overwrite the next head's first 8 columns). As in K1, one
 //    instantiation takes every d up to its width (48, 64, 80, 128, 160,
-//    256, 320): the maps zero-fill Q, K, V and dO past d.
+//    256, 320): the maps zero-fill Q, K, V and dO past d. Past 320 the
+//    column-group kernels (flash_bwd_dq_wide_kernel,
+//    flash_bwd_dkv_wide_kernel, below) take any d.
 //  * Widths 256 and 320 (num_heads 5's 24^2 sites at 768^2, num_heads 2's
 //    32^2 sites at 512^2): two consumer warpgroups on 128 resident rows,
 //    as at d = 160, with 32-row stages at 256 and 16-row ones at 320
@@ -1185,13 +1187,365 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K5a and K5b past d = 320 (num_heads 1: d 640 at the 32^2 sites at 512^2
+// and the 48^2 ones at 768^2, 1280 at its 24^2 ones; num_heads 2's 24^2
+// sites at 768^2, d 640). Dq320/Dv320/Dk320 do not stretch there: their
+// resident pair (Q and dO, or K and V) takes 2 x 128 x d x 2 bytes, 320 KB
+// at d 640, past a block's 227 KB (even 64 resident rows take 160 KB at
+// 640 and 320 KB at 1280), and a 64 x d f32 accumulator is d / 2
+// registers a thread, 320 at d 640. So K1's column-group design
+// (flash_fwd_wide_kernel) carries over to the backward:
+//  * The output columns are split over the grid: G = ceil(d / 320) column
+//    groups on its third axis, ow = ceil(d / G) rounded up to 8 columns
+//    each (at most 320: d 640 runs as 2 x 320, 1280 as 4 x 320, 328 as 2 x
+//    168). Group g owns the output's columns g ow .. g ow + ow - 1 and
+//    reads the output product's B operand from that column on (five
+//    64-column chunks, zeros past d; columns past its ow are computed and
+//    never written). No two blocks write one element: no atomics.
+//  * A block is two consumer warpgroups on 64 output rows each (K5a q
+//    rows, K5b k rows: 128 a block) and a producer warpgroup, as Dq320's:
+//    a warpgroup's 64 x 320 accumulator (160 registers), its S and dP
+//    fragments over a 32-row tile (16 each) and their bf16 A fragments fit
+//    the 232 registers that setmaxnreg gives two consumer warpgroups. S
+//    and dP are computed once a group.
+//  * Nothing is resident. For each tile of kBS streamed rows (K5a keys, K5b
+//    q rows) the producer's first lane streams d / 64 score items through
+//    one ring, each one 64-column chunk of the block's 128 rows of the
+//    scores' first operands (K5a Q and dO, K5b K and V) and of the tile's
+//    rows of the second (K5a K and V, K5b Q and dO); S and dP chain over
+//    the items into one accumulator each, as the narrower widths chain
+//    them over their chunks. Then one output item through a second ring:
+//    the tile's rows of the group's columns of the output product's B (K5a
+//    K, for dQ += dS K[:, cols]; K5b dO, for dV += P^T dO[:, cols], or Q,
+//    for dK += dS^T Q[:, cols]), with (K5b) the tile's lse log2 e and
+//    delta, which the producer warp's lanes write beside it and arrive.
+//  * K5b keeps its split past 160: a dV pass (S^T alone: no V or dO in its
+//    score items), then a dK pass, each on the same column-group grid.
+//  * Rounding, masks and epilogue as the narrower widths': P and dS rounded
+//    to bf16 before their products, P masked to 0 past M (K5a) and P^T past
+//    N (K5b), only rows < N (M) and columns < d stored, dQ and dK scaled
+//    once there.
+//  * What bounds it: the tensor cores do G times the scores. K5a: 4 G N M
+//    d flops of S and dP beside 2 N M (320 G) of dQ, against the
+//    function's 6 N M d: 1.67x at d 640 (G = 2), 3x at 1280 (G = 4). And
+//    the block's rows are read again from L2 for every 32-row tile (512 d
+//    bytes for 16 K d flops). The price of a simple kernel; a faster one
+//    shares the scores across the groups.
+// kBS: streamed rows a tile; kStages, kOStages: the score ring's and the
+// output ring's depth; kPass: 0 K5a (dQ), 1 K5b's dV pass, 2 its dK pass
+template <int kBS_, int kStages_, int kOStages_, int kPass_>
+struct BwdWide {
+  static constexpr int kBS = kBS_, kStages = kStages_, kOStages = kOStages_,
+                       kPass = kPass_;
+  static constexpr int kGroups = 2, kBR = 128;  // 64 rows a consumer warpgroup
+  static constexpr int kON = 320;               // output columns a block at most
+  static constexpr int kOChunks = kON / 64;
+  static constexpr int kThreads = 128 * (kGroups + 1);  // + the producer's
+  static constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+  static constexpr int kNX = kPass == 1 ? 1 : 2;  // score products
+  static constexpr uint32_t kRowChunk = kBR * 128;   // 64 columns of the block's rows
+  static constexpr uint32_t kTileChunk = kBS * 128;  // ... of the tile's rows
+  // a score item: the first operands' chunks, then the second ones'
+  static constexpr uint32_t kItemBytes = kNX * (kRowChunk + kTileChunk);
+  static constexpr uint32_t kOutBytes = kOChunks * kTileChunk;  // an output item
+  static constexpr uint32_t kStatBytes = kPass ? 2 * kBS * 4 : 0;
+  // 1024 bytes of slack to align the swizzled tiles, both rings, the output
+  // items' statistics (K5b), the mbarriers
+  static constexpr size_t kSmemBytes =
+      1024 + kStages * kItemBytes + kOStages * (kOutBytes + kStatBytes) +
+      8 * 2 * (kStages + kOStages);
+  static_assert(kBS % 16 == 0 && kBS <= 64, "a tile's wgmma n");
+  static_assert(kItemBytes % 1024 == 0 && kTileChunk % 1024 == 0, "swizzle atoms");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
+
+using DqWide = BwdWide<32, 4, 3, 0>;  // 221 KB
+using DvWide = BwdWide<32, 6, 3, 1>;  // 182 KB (no V, no dO in the scores)
+using DkWide = BwdWide<32, 4, 3, 2>;  // 222 KB
+
+// The body of both kernels below: tq, tk, tv, tdo map the operands (the
+// block's rows in 128-row boxes, the tile's in kBS-row ones); out is dQ
+// (K5a), dV (K5b's pass 1) or dK (its pass 2); ow the group's columns
+template <class C>
+__device__ __forceinline__ void bwd_wide(const CUtensorMap& tq,
+                                         const CUtensorMap& tk,
+                                         const CUtensorMap& tv,
+                                         const CUtensorMap& tdo,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         bf16* __restrict__ out, int H, int N,
+                                         int M, int D, int ow, float scale,
+                                         float c) {
+  constexpr int S = C::kStages, SO = C::kOStages, BS = C::kBS;
+  constexpr bool kDkv = C::kPass != 0;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t ring = (base + 1023u) & ~1023u;       // item s at + s kItemBytes
+  const uint32_t oring = ring + S * C::kItemBytes;     // output item j at + j kOutBytes
+  const uint32_t st0 = oring + SO * C::kOutBytes;
+  float* stats = reinterpret_cast<float*>(smem_raw + (st0 - base));  // j at + 2 j BS
+  const uint32_t full = st0 + SO * C::kStatBytes;      // the score ring's at + 8 s
+  const uint32_t empty = full + 8 * S;
+  const uint32_t ofull = empty + 8 * S;                // the output ring's at + 8 j
+  const uint32_t oempty = ofull + 8 * SO;
+
+  // the operands' roles: the block's rows (a0, a1), the tile's (b0, b1),
+  // the output product's B (o)
+  const CUtensorMap* a0 = kDkv ? &tk : &tq;
+  const CUtensorMap* a1 = kDkv ? &tv : &tdo;
+  const CUtensorMap* b0 = kDkv ? &tq : &tk;
+  const CUtensorMap* b1 = kDkv ? &tdo : &tv;
+  const CUtensorMap* ob = C::kPass == 1 ? &tdo : C::kPass == 2 ? &tq : &tk;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int r0 = blockIdx.x * C::kBR;    // the block's output rows
+  const int c0 = ow * blockIdx.z;        // the group's first column
+  const int rows = kDkv ? M : N;         // the output's rows
+  const int len = kDkv ? N : M;          // the stream's rows
+  const int tiles = (len + BS - 1) / BS;
+  const int items = (D + 63) / 64;       // score items a tile
+  // the second consumer warpgroup of a ragged last row block may own no row
+  const int busy = min(C::kGroups, (rows - r0 + 63) / 64);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * busy);  // one arrival a consumer warp
+    }
+    for (int j = 0; j < SO; ++j) {
+      // K5b: the producer warp's 32 lanes arrive, the statistics written
+      mbar_init(ofull + 8 * j, kDkv ? 32 : 1);
+      mbar_init(oempty + 8 * j, 4 * busy);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * C::kGroups) {  // the producer warpgroup: its first warp
+    setmaxnreg_dec<C::kProducerRegs>();  // loads, the rest leave (K5a:
+    if (warp != 4 * C::kGroups || (!kDkv && lane != 0)) return;  // lane 0)
+    int n = 0;  // score items issued
+    for (int t = 0; t < tiles; ++t) {
+      if (lane == 0) {
+        for (int i = 0; i < items; ++i, ++n) {
+          const int s = n % S;
+          if (n >= S) mbar_wait(empty + 8 * s, ((n / S) - 1) & 1);
+          const uint32_t st = ring + s * C::kItemBytes, bar = full + 8 * s;
+          const uint32_t sy = st + C::kNX * C::kRowChunk;
+          mbar_expect_tx(bar, C::kItemBytes);
+          tma_load_4d(st, a0, bar, 64 * i, h, r0, b);
+          tma_load_4d(sy, b0, bar, 64 * i, h, BS * t, b);
+          if constexpr (C::kNX == 2) {
+            tma_load_4d(st + C::kRowChunk, a1, bar, 64 * i, h, r0, b);
+            tma_load_4d(sy + C::kTileChunk, b1, bar, 64 * i, h, BS * t, b);
+          }
+        }
+      }
+      // the output item, once its stage's last readers left
+      const int j = t % SO;
+      if (t >= SO) mbar_wait(oempty + 8 * j, ((t / SO) - 1) & 1);
+      const uint32_t bar = ofull + 8 * j;
+      if constexpr (kDkv) {  // the tile's lse log2 e and delta, 0 past N
+        float* sst = stats + j * 2 * BS;
+        for (int i = lane; i < BS; i += 32) {
+          const int q = BS * t + i;
+          const bool in = q < N;
+          sst[i] = in ? lse[(long long)bh * N + q] * kLog2e : 0.f;
+          sst[BS + i] = in ? delta[(long long)bh * N + q] : 0.f;
+        }
+      }
+      if (lane == 0) {
+        mbar_expect_tx(bar, C::kOutBytes);
+        for (int ch = 0; ch < C::kOChunks; ++ch)
+          tma_load_4d(oring + j * C::kOutBytes + ch * C::kTileChunk, ob, bar,
+                      c0 + 64 * ch, h, BS * t, b);
+      } else if (kDkv) {
+        mbar_arrive(bar);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g, its warp w owns rows 64 g + 16 w .. + 15
+  setmaxnreg_inc<C::kConsumerRegs>();
+  const int g = warp >> 2;
+  const int w = warp & 3;
+  if (g >= busy) return;
+  const int row0 = r0 + 64 * g + 16 * w + (lane >> 2);  // and row0 + 8
+  // K5a: this thread's rows' lse (times log2 e) and delta, zero past N
+  // (those rows are zero in Q and dO, never written)
+  float l2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if constexpr (!kDkv) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = row0 + 8 * r < N;
+      const long long i = (long long)bh * N + row0 + 8 * r;
+      l2[r] = in ? lse[i] * kLog2e : 0.f;
+      dl[r] = in ? delta[i] : 0.f;
+    }
+  }
+  float acc[C::kON / 2];
+#pragma unroll
+  for (int i = 0; i < C::kON / 2; ++i) acc[i] = 0.f;
+
+  int n = 0;  // score items read
+  for (int t = 0; t < tiles; ++t) {
+    // S = Q K^T, dP = dO V^T (K5b: S^T = K Q^T, dP^T = V dO^T), item by
+    // item, chained into one accumulator each (the first product's scale-d
+    // zeroes it)
+    float sc[BS / 2], dp[BS / 2];
+    for (int i = 0; i < items; ++i, ++n) {
+      const int s = n % S;
+      mbar_wait(full + 8 * s, (n / S) & 1);
+      __syncwarp();  // converged again for the warpgroup-wide wgmma
+      const uint32_t st = ring + s * C::kItemBytes + 64 * g * 128;
+      const uint32_t sy = ring + s * C::kItemBytes + C::kNX * C::kRowChunk;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss(sc, sw128_desc(st + 32 * kk, 16), sw128_desc(sy + 32 * kk, 16),
+                 i > 0 || kk > 0);
+        if constexpr (C::kNX == 2)
+          wgmma_ss(dp, sw128_desc(st + C::kRowChunk + 32 * kk, 16),
+                   sw128_desc(sy + C::kTileChunk + 32 * kk, 16), i > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      if constexpr (C::kNX == 2) fence_regs(dp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with it
+    }
+
+    const int j = t % SO;
+    mbar_wait(ofull + 8 * j, (t / SO) & 1);
+    __syncwarp();
+    const int t0 = t * BS;
+    uint32_t fa[BS / 16][4];
+    if constexpr (!kDkv) {
+      // P = exp2(S c - lse log2 e), 0 past M; dS = P (dP - delta), in sc
+      if (t0 + BS > M)
+        ds_rows<true>(sc, dp, l2, dl, c, M - t0, lane);
+      else
+        ds_rows<false>(sc, dp, l2, dl, c, BS, lane);
+      to_bf16(fa, sc);
+    } else {
+      // P^T = exp2(S^T c - lse log2 e), 0 past N; dS^T = P^T (dP^T - delta)
+      constexpr bool kDs = C::kPass == 2;
+      const float* stat = stats + j * 2 * BS;
+      if (t0 + BS > N)
+        p_ds_cols<true, BS / 2, kDs>(sc, dp, stat, c, N - t0, lane);
+      else
+        p_ds_cols<false, BS / 2, kDs>(sc, dp, stat, c, BS, lane);
+      if constexpr (kDs) to_bf16(fa, dp);  // dK += dS^T Q
+      else to_bf16(fa, sc);                // dV += P^T dO
+    }
+
+    // the output's columns c0 .. c0 + 319 (B MN-major, 64-column chunks):
+    // the first 256 (chunks 0-3) and the last 64 (chunk 4) as two products
+    // into the two parts of acc
+    const uint32_t ot = oring + j * C::kOutBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BS / 16; ++kk) {
+      wgmma_rs(*reinterpret_cast<float(*)[128]>(&acc[0]), fa[kk],
+               sw128_desc(ot + kk * 16 * 128, C::kTileChunk));
+      wgmma_rs(*reinterpret_cast<float(*)[32]>(&acc[128]), fa[kk],
+               sw128_desc(ot + 4 * C::kTileChunk + kk * 16 * 128, C::kTileChunk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(fa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(oempty + 8 * j);
+  }
+
+  // the group's columns below d, rows below the output's; dQ and dK scaled
+  const long long hd = (long long)H * D;  // row stride of the output
+  store_rows(acc, out + (long long)b * rows * hd + (long long)h * D + c0, hd,
+             row0, rows, min(ow, D - c0), C::kPass == 1 ? 1.f : scale, lane);
+}
+
+// K5a past d = 320: dQ
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dq,
+                         int H, int N, int M, int D, int ow, float scale,
+                         float c) {
+  static_assert(C::kPass == 0, "K5a");
+  bwd_wide<C>(tq, tk, tv, tdo, lse, delta, dq, H, N, M, D, ow, scale, c);
+}
+
+// K5b past d = 320: dV (C::kPass 1) or dK (2)
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ out, int H, int N, int M, int D,
+                          int ow, float scale, float c) {
+  static_assert(C::kPass != 0, "K5b");
+  bwd_wide<C>(tq, tk, tv, tdo, lse, delta, out, H, N, M, D, ow, scale, c);
+}
+
+// One of K5 past d = 320's kernels (launch_bwd's arguments): Q/dO boxes of
+// the block's rows (K5a) or the tile's (K5b), K/V boxes the other way
+// round, G = ceil(d / 320) column groups on the grid's third axis
+template <class C>
+int launch_bwd_wide(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, void* dk, void* dv, int B, int H, int N, int M,
+                    int D, long long q_bs, long long q_rs, long long k_bs,
+                    long long k_rs, long long v_bs, long long v_rs, float scale,
+                    cudaStream_t stream) {
+  constexpr bool kDq = C::kPass == 0;
+  const int q_box = kDq ? C::kBR : C::kBS;
+  const int kv_box = kDq ? C::kBS : C::kBR;
+  const long long hd = (long long)H * D;  // dO is contiguous
+  const int G = (D + C::kON - 1) / C::kON, ow = wide_cols(D, G);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = tensor_map(&tq, q, D, H, N, B, q_rs, q_bs, q_box);
+  if (err == 0) err = tensor_map(&tk, k, D, H, M, B, k_rs, k_bs, kv_box);
+  if (err == 0) err = tensor_map(&tv, v, D, H, M, B, v_rs, v_bs, kv_box);
+  if (err == 0) err = tensor_map(&tdo, dout, D, H, N, B, hd, N * hd, q_box);
+  if (err != 0) return err;
+  static unsigned long long smem_set = 0;
+  auto kern = [] {
+    if constexpr (kDq) return flash_bwd_dq_wide_kernel<C>;
+    else return flash_bwd_dkv_wide_kernel<C>;
+  }();
+  err = allow_smem(kern, C::kSmemBytes, smem_set);
+  if (err != 0) return err;
+  void* out = kDq ? dq : C::kPass == 1 ? dv : dk;
+  dim3 grid(((kDq ? N : M) + C::kBR - 1) / C::kBR, B * H, G);
+  kern<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(out), H, N, M, D, ow,
+      scale, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 // K5a when dq is given, else K5b (past 160 its dV pass, then its dK pass)
 int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, void* dk,
               void* dv, int B, int H, int N, int M, int D, long long q_bs,
               long long q_rs, long long k_bs, long long k_rs, long long v_bs,
               long long v_rs, float scale, void* stream) {
-  // the smallest width that holds d: 48, 64, 80, 128, 160, 256 or 320
+  // the smallest width that holds d: 48, 64, 80, 128, 160, 256 or 320;
+  // past it the column groups (any d)
   using Launch = decltype(&launch_bwd<Dq40, true>);
   Launch launch = nullptr, second = nullptr;
   const bool a = dq != nullptr;
@@ -1206,8 +1560,11 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
   } else if (D <= 320) {
     launch = a ? launch_bwd<Dq320, true> : launch_bwd<Dv320, false>;
     if (!a) second = launch_bwd<Dk320, false>;
+  } else {
+    launch = a ? launch_bwd_wide<DqWide> : launch_bwd_wide<DvWide>;
+    if (!a) second = launch_bwd_wide<DkWide>;
   }
-  if (launch == nullptr || D % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = launch(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, q_bs,
                    q_rs, k_bs, k_rs, v_bs, v_rs, scale, s);
@@ -1236,8 +1593,10 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 // split once a call by the same pre-pass, flash_split_f32_kernel), and at
 // widths 256 and 320 flash_bwd_dq_f32_stream_kernel and
 // flash_bwd_dkv_f32_stream_kernel (the same, the scores' depth streamed),
-// and K1/f32 past d = 512 flash_fwd_f32_wide_kernel (the scores' depth
-// streamed, the output columns split over the grid), all below.
+// and K1/f32 past d = 512 and K5a/K5b f32 past 320 flash_fwd_f32_wide_kernel,
+// flash_bwd_dq_f32_wide_kernel and flash_bwd_dkv_f32_wide_kernel (the
+// scores' depth streamed, the output columns split over the grid), all
+// below.
 
 namespace {
 
@@ -1768,10 +2127,11 @@ int f32_width(int D) {
 }
 
 // The width of K5a/f32's and K5b/f32's kernels for head dim D: f32_width's,
-// then the d-streamed kernels' (bwd_f32_stream); 0 past 320
+// then the d-streamed kernels' (bwd_f32_stream); past 320 the column
+// groups', D itself
 int bwd_f32_width(int D) {
   const int w = f32_width(D);
-  return w ? w : D <= 256 ? 256 : D <= 320 ? 320 : 0;
+  return w ? w : D <= 256 ? 256 : D <= 320 ? 320 : D;
 }
 
 // The workspace of K1/f32 at widths up to 160, in floats: K hi, K lo (B H
@@ -2110,7 +2470,7 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
 // keeps Q whole (128 KB at d 512, 160 KB at d 640), so this form streams
 // the scores' depth, and splits the output columns over the grid as the
 // bf16 form does:
-//  * A pre-pass (flash_split_wide_f32_kernel) writes K split into hi and
+//  * A pre-pass (flash_split_cols_f32_kernel<2>) writes K split into hi and
 //    lo rows and V split and transposed (d rows of Mp key slots, each
 //    8-key block at P's permuted k, zeros at the slots past M) into a
 //    workspace the wrapper allocates, as the narrow widths' pre-pass does,
@@ -2161,44 +2521,43 @@ struct FwdF32Wide {
 
 using FwdWideW = FwdF32Wide<256, 32, 6, 2, 64>;  // 225 KB
 
-// The pre-pass of K1/f32 past d = 512: K split as rows (hi (B H, M, D), lo
-// after it), V split and transposed ((B H, D, Mp), lo after hi, Mp = M
-// rounded up to 8; key m at slot p_key_slot of its 8-key block, zeros at
-// the slots of keys past M). A block takes 32 keys x 32 columns of one
-// (batch, head): blockIdx.x the key tile and the column tile, blockIdx.y
-// the (batch, head), blockIdx.z K (0) or V (1).
+// The pre-pass of K1/f32 past d = 512 (kJobs 2: K as rows, V transposed)
+// and of K5a/K5b f32 past d = 320 (kJobs 4): flash_split_f32_kernel's jobs
+// at the head dim D itself (rows D wide, hi (B H, n, D) then lo;
+// transposed operands (B H, D, np), lo after hi, row m at slot
+// p_key_slot of its 8-row block, zeros at the slots past n; its one shared
+// tile of every column, kD x 33 floats, would not fit a block there). A
+// block takes 32 rows x 32 columns of one (batch, head): blockIdx.x the
+// row tile (of `row_tiles`) and the column tile, blockIdx.y the (batch,
+// head), blockIdx.z the job.
+template <int kJobs>
 __global__ void __launch_bounds__(256)
-flash_split_wide_f32_kernel(const float* __restrict__ k, long long k_bs,
-                            long long k_rs, const float* __restrict__ v,
-                            long long v_bs, long long v_rs,
-                            float* __restrict__ kw, float* __restrict__ vt,
-                            int H, int M, int D) {
-  const int Mp = (M + 7) / 8 * 8;
-  const int key_tiles = (Mp + 31) / 32;
-  const int m0 = 32 * (blockIdx.x % key_tiles);
-  const int c0 = 32 * (blockIdx.x / key_tiles);
+flash_split_cols_f32_kernel(const __grid_constant__ SplitJobs<kJobs> jobs,
+                            int H, int D, int row_tiles) {
+  const SplitJob& job = jobs.job[blockIdx.z];
+  const int n = job.n, np = (n + 7) / 8 * 8;
+  const int m0 = 32 * (blockIdx.x % row_tiles);
+  const int c0 = 32 * (blockIdx.x / row_tiles);
+  if (m0 >= np) return;
   const int BH = gridDim.y, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int r = threadIdx.x / 8, cc = 4 * (threadIdx.x % 8);  // a key, 4 columns
+  const int r = threadIdx.x / 8, cc = 4 * (threadIdx.x % 8);  // a row, 4 columns
   const int m = m0 + r, col = c0 + cc;
-  const bool in = m < M && col < D;
-  if (blockIdx.z == 0) {  // K as rows
-    if (!in) return;
-    const float4 x = *reinterpret_cast<const float4*>(
-        k + b * k_bs + m * k_rs + (long long)h * D + col);
-    const float xv[4] = {x.x, x.y, x.z, x.w};
-    uint32_t hi[4], lo[4];
-    f32_tiles::split(xv, hi, lo);
-    float* at = kw + ((long long)bh * M + m) * D + col;
-    *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(at + (long long)BH * M * D) =
-        make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    return;
-  }
-  __shared__ float tile[32][33];  // [column][key slot]
   float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (in)
-    x = *reinterpret_cast<const float4*>(v + b * v_bs + m * v_rs +
+  if (m < n && col < D) {
+    x = *reinterpret_cast<const float4*>(job.src + b * job.bs + m * job.rs +
                                          (long long)h * D + col);
+    if (job.rows != nullptr) {
+      const float xv[4] = {x.x, x.y, x.z, x.w};
+      uint32_t hi[4], lo[4];
+      f32_tiles::split(xv, hi, lo);
+      float* at = job.rows + ((long long)bh * n + m) * D + col;
+      *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(at + (long long)BH * n * D) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+  if (job.t == nullptr) return;
+  __shared__ float tile[32][33];  // [column][row slot]
   const int p = p_key_slot(r);
   tile[cc][p] = x.x;
   tile[cc + 1][p] = x.y;
@@ -2207,13 +2566,13 @@ flash_split_wide_f32_kernel(const float* __restrict__ k, long long k_bs,
   __syncthreads();
   for (int i = threadIdx.x; i < 32 * 32; i += blockDim.x) {
     const int cl = i / 32, sl = i % 32;
-    if (c0 + cl >= D || m0 + sl >= Mp) continue;
+    if (c0 + cl >= D || m0 + sl >= np) continue;
     const float xs[1] = {tile[cl][sl]};
     uint32_t hi[1], lo[1];
     f32_tiles::split(xs, hi, lo);
-    float* at = vt + ((long long)bh * D + c0 + cl) * Mp + m0 + sl;
+    float* at = job.t + ((long long)bh * D + c0 + cl) * np + m0 + sl;
     at[0] = __uint_as_float(hi[0]);
-    at[(long long)BH * D * Mp] = __uint_as_float(lo[0]);
+    at[(long long)BH * D * np] = __uint_as_float(lo[0]);
   }
 }
 
@@ -2435,10 +2794,12 @@ int launch_fwd_f32_wide(const void* q, const void* k, const void* v, void* o,
   auto kern = flash_fwd_f32_wide_kernel<C>;
   err = allow_smem(kern, C::kSmemBytes, smem_set);
   if (err != 0) return err;
-  flash_split_wide_f32_kernel<<<dim3(((Mp + 31) / 32) * ((D + 31) / 32), BH, 2),
-                                256, 0, stream>>>(
-      static_cast<const float*>(k), k_bs, k_rs, static_cast<const float*>(v),
-      v_bs, v_rs, kw, vt, H, M, D);
+  const SplitJobs<2> jobs = {{
+      {static_cast<const float*>(k), k_bs, k_rs, kw, nullptr, M},
+      {static_cast<const float*>(v), v_bs, v_rs, nullptr, vt, M}}};
+  const int rows = (Mp + 31) / 32;  // key tiles
+  flash_split_cols_f32_kernel<2><<<dim3(rows * ((D + 31) / 32), BH, 2), 256,
+                                    0, stream>>>(jobs, H, D, rows);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   kern<<<dim3((N + C::kBQ - 1) / C::kBQ, BH, G), C::kThreads, C::kSmemBytes,
@@ -2576,7 +2937,7 @@ struct BwdF32W {
                                        8 * (2 * kStages + 1);
   static constexpr int kOutCols = kD;   // an output product's columns
   static constexpr int kTBoxRows = kD;  // rows of a transposed tile's box
-  static constexpr bool kStream = false;
+  static constexpr bool kStream = false, kWide = false;
   static_assert(kD % 8 == 0 && kBS % 16 == 0 && kBS <= 64, "tiles");
   static_assert(!kSplit || kGroups == 2, "kSplit shares 64 rows between two");
   static_assert(kStageBytes % 512 == 0 && kTChunk % 512 == 0, "swizzle atoms");
@@ -3047,20 +3408,36 @@ flash_bwd_dkv_f32_ss_kernel(const __grid_constant__ CUtensorMap tres,
 //    keys into a fresh accumulator added in round-to-nearest f32: the
 //    running sum (d / 2 registers) and one part fit the 255 registers of
 //    five warps. K5b runs as two launches, dV then dK, as at 128 and 160.
+//  * Past d = 320 (kWide: num_heads 1's d 640 and 1280, any d) the running
+//    sum of d / 2 registers and an output item carrying the whole
+//    transposed operand (80 KB hi and lo at d 640) no longer fit. So the
+//    output columns split over the grid, as K1/f32's flash_fwd_f32_wide_kernel
+//    splits them: G = ceil(d / 320) column groups on its third axis, ow =
+//    ceil(d / G) rounded up to 8 columns each (640 as 2 x 320, 1280 as 4 x
+//    320, 328 as 2 x 168). A block owns its group's columns of its 64
+//    rows: the running sum of 320 columns, the output item the tile's
+//    transposed operand at those columns alone (five 64-row boxes from the
+//    group's first column, zeros past d), the output product's parts past
+//    ow skipped. The score items are the narrower widths' (d / 32 of them,
+//    the last zero-filled past d), so every group computes the same S and
+//    dP: the scores' tensor-core work G times over. The workspace is d
+//    wide (no width to pad to), written by flash_split_cols_f32_kernel.
 //  * What bounds it: not the tensor cores. The 64 rows' operands are read
 //    again from L2 for every 16-key tile (4 x 64 x d x 4 bytes), so a
 //    tile moves 320 KB at d = 320 for 3 x 2 x 64 x 16 x 320 x 2 flops of
 //    scores: L2's bandwidth sets its time. It is the simple design that
 //    fits; a faster one is later work.
 
-// kD: the width (256 or 320); kStages: the ring's depth; kPartCols: the
-// output product's columns a wgmma (64 or 32); kDkv: K5b (else K5a);
-// kPass (K5b): 1 dV, 2 dK
-template <int kD_, int kStages_, int kPartCols_, bool kDkv_, int kPass_ = 0>
+// kD: the width (256 or 320; kWide: the output columns a block owns at
+// most); kStages: the ring's depth; kPartCols: the output product's columns
+// a wgmma (64 or 32); kDkv: K5b (else K5a); kPass (K5b): 1 dV, 2 dK; kWide:
+// past d = 320, the column groups
+template <int kD_, int kStages_, int kPartCols_, bool kDkv_, int kPass_ = 0,
+          bool kWide_ = false>
 struct BwdF32S {
   static constexpr int kD = kD_, kStages = kStages_, kOutCols = kPartCols_,
                        kPass = kPass_;
-  static constexpr bool kDkv = kDkv_, kStream = true;
+  static constexpr bool kDkv = kDkv_, kStream = true, kWide = kWide_;
   static constexpr int kBS = 16;            // keys (K5b: q rows) a tile
   static constexpr int kDC = 32;            // the scores' depth an item
   static constexpr int kItems = kD / kDC;   // score items a tile
@@ -3099,11 +3476,15 @@ using DkS256 = BwdF32S<256, 5, 64, true, 2>;    // 202 KB
 using DqS320 = BwdF32S<320, 5, 32, false>;      // 201 KB
 using DvS320 = BwdF32S<320, 5, 32, true, 1>;    // 202 KB
 using DkS320 = BwdF32S<320, 5, 32, true, 2>;    // 202 KB
+using DqSW = BwdF32S<320, 5, 32, false, 0, true>;   // 201 KB
+using DvSW = BwdF32S<320, 5, 32, true, 1, true>;    // 202 KB
+using DkSW = BwdF32S<320, 5, 32, true, 2, true>;    // 202 KB
 
-// The body of both kernels below: tres maps the workspace's first
+// The body of the kernels below: tres maps the workspace's first
 // operands (K5a Q, dO; K5b K, V; hi, lo), trows the second (K5a K, V; K5b
 // Q, dO), tt the transposed (K5a K^T; K5b Q^T, dO^T); out is dQ (K5a), dV
-// (K5b's pass 1) or dK (its pass 2)
+// (K5b's pass 1) or dK (its pass 2). With C::kWide the grid's third axis
+// holds the column groups (the workspace then Dt wide)
 template <class C>
 __device__ __forceinline__ void bwd_f32_stream(const CUtensorMap& tres,
                                                const CUtensorMap& trows,
@@ -3131,6 +3512,11 @@ __device__ __forceinline__ void bwd_f32_stream(const CUtensorMap& tres,
   const int r0 = blockIdx.x * C::kRes;  // the block's output rows
   const int len = C::kDkv ? N : M;      // the stream's rows
   const int tiles = (len + BS - 1) / BS;
+  // kWide: the group's columns c0 .. c0 + ow - 1, and score items over Dt
+  const int G = gridDim.z;
+  const int ow = C::kWide ? ((Dt + G - 1) / G + 7) / 8 * 8 : D;
+  const int c0 = C::kWide ? ow * blockIdx.z : 0;
+  const int items = C::kWide ? (Dt + C::kDC - 1) / C::kDC : I;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -3145,11 +3531,11 @@ __device__ __forceinline__ void bwd_f32_stream(const CUtensorMap& tres,
   if (warp == C::kProducer) {  // the producer warp: lane 0 loads
     int item = 0;
     for (int t = 0; t < tiles; ++t) {
-      for (int i = 0; i <= I; ++i, ++item) {
+      for (int i = 0; i <= items; ++i, ++item) {
         const int s = item % S;
         if (item >= S) mbar_wait(empty + 8 * s, ((item / S) - 1) & 1);
         const uint32_t bar = full + 8 * s, st = ring + s * C::kStageBytes;
-        if (C::kDkv && i == I) {  // the tile's lse log2 e and delta, 0 past N
+        if (C::kDkv && i == items) {  // the tile's lse log2 e and delta, 0 past N
           float* sst = stats + s * 2 * BS;
           for (int j = lane; j < BS; j += 32) {
             const int row = BS * t + j;
@@ -3159,7 +3545,7 @@ __device__ __forceinline__ void bwd_f32_stream(const CUtensorMap& tres,
           }
         }
         if (lane == 0) {
-          if (i < I) {  // score item i: 32 columns of each operand, hi, lo
+          if (i < items) {  // score item i: 32 columns of each operand, hi, lo
             mbar_expect_tx(bar, C::kScoreBytes);
             const uint32_t sy = st + 2 * C::kNX * C::kResBytes;
             for (int op = 0; op < 2 * C::kNX; ++op)
@@ -3171,13 +3557,13 @@ __device__ __forceinline__ void bwd_f32_stream(const CUtensorMap& tres,
                             bar, col, BS * t, op * BH + bh);
               }
           } else {      // the output item: the tile's transposed operand
-            mbar_expect_tx(bar, C::kOutBytes);
+            mbar_expect_tx(bar, C::kOutBytes);  // (kWide: the group's rows)
             for (int op = 0; op < 2; ++op)
               for (int j = 0; j < BS / 16; ++j)
                 for (int rr = 0; rr < D / C::kTBoxRows; ++rr)
                   tma_load_3d(st + op * C::kTBytes + j * C::kTChunk +
                                   rr * C::kTBoxRows * 64,
-                              &tt, bar, BS * t + 16 * j, C::kTBoxRows * rr,
+                              &tt, bar, BS * t + 16 * j, c0 + C::kTBoxRows * rr,
                               (C::kT0 + op) * BH + bh);
           }
         } else if (C::kDkv) {
@@ -3210,7 +3596,7 @@ __device__ __forceinline__ void bwd_f32_stream(const CUtensorMap& tres,
   for (int t = 0; t < tiles; ++t) {
     // S = Q K^T, dP = dO V^T (K5b: S^T = K Q^T, dP^T = V dO^T), item by item
     float sc[BS / 2], dp[BS / 2];
-    for (int i = 0; i < I; ++i, ++item) {
+    for (int i = 0; i < items; ++i, ++item) {
       const int s = item % S;
       mbar_wait(full + 8 * s, (item / S) & 1);
       __syncwarp();  // converged again for the warpgroup-wide wgmma
@@ -3256,6 +3642,7 @@ __device__ __forceinline__ void bwd_f32_stream(const CUtensorMap& tres,
     // the output's columns P at a time, each into a fresh accumulator
 #pragma unroll
     for (int p = 0; p < D / P; ++p) {
+      if (C::kWide && p * P >= ow) continue;  // no column of the group's
       float part[P / 2];
       wgmma_fence();
       product_f32<C>(part, ah, al, tb + p * P * 64);
@@ -3274,8 +3661,9 @@ __device__ __forceinline__ void bwd_f32_stream(const CUtensorMap& tres,
 
   const long long hd = (long long)H * Dt;  // row stride of the output
   const int rows = C::kDkv ? M : N;
-  store_rows_f32(acc, out + (long long)b * rows * hd + (long long)h * Dt, hd,
-                 row0, rows, Dt, C::kDkv && !kDoK ? 1.f : scale, lane);
+  store_rows_f32(acc, out + (long long)b * rows * hd + (long long)h * Dt + c0,
+                 hd, row0, rows, C::kWide ? min(ow, Dt - c0) : Dt,
+                 C::kDkv && !kDoK ? 1.f : scale, lane);
 }
 
 // K5a/f32 past d = 160: dQ
@@ -3306,6 +3694,34 @@ flash_bwd_dkv_f32_stream_kernel(const __grid_constant__ CUtensorMap tres,
   bwd_f32_stream<C>(tres, trows, tt, lse, delta, out, H, N, M, Dt, scale, c);
 }
 
+// K5a/f32 past d = 320: dQ, one column group a block (grid z)
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dq_f32_wide_kernel(const __grid_constant__ CUtensorMap tres,
+                             const __grid_constant__ CUtensorMap trows,
+                             const __grid_constant__ CUtensorMap tt,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dq, int H, int N, int M,
+                             int Dt, float scale, float c) {
+  static_assert(!C::kDkv && C::kWide, "K5a past 320");
+  bwd_f32_stream<C>(tres, trows, tt, lse, delta, dq, H, N, M, Dt, scale, c);
+}
+
+// K5b/f32 past d = 320: dV (C::kPass 1) or dK (2), one column group a block
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+flash_bwd_dkv_f32_wide_kernel(const __grid_constant__ CUtensorMap tres,
+                              const __grid_constant__ CUtensorMap trows,
+                              const __grid_constant__ CUtensorMap tt,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ out, int H, int N, int M,
+                              int Dt, float scale, float c) {
+  static_assert(C::kDkv && C::kWide, "K5b past 320");
+  bwd_f32_stream<C>(tres, trows, tt, lse, delta, out, H, N, M, Dt, scale, c);
+}
+
 // The workspace of K5a and K5b in f32, in floats, at the width D: Q and dO
 // split (hi, lo each: four (B H, N, D) blocks), K and V split (four (B H,
 // M, D)), K^T split (two (B H, D, Mp)), Q^T and dO^T split (four (B H, D,
@@ -3327,8 +3743,9 @@ struct BwdF32Ws {
 };
 
 // K5a (kDkv false, dq given) or K5b (or one of its passes) into the
-// workspace `ws` of width C::kD; first, with `prepare`, the pre-pass of
-// what K5a (bit 0) and K5b (bit 1) read; Dt is the head dim (<= the width)
+// workspace `ws` of width C::kD (C::kWide: Dt); first, with `prepare`, the
+// pre-pass of what K5a (bit 0) and K5b (bit 1) read; Dt is the head dim
+// (<= the width)
 template <class C>
 int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
@@ -3336,7 +3753,7 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
                    int Dt, long long q_bs, long long q_rs, long long k_bs,
                    long long k_rs, long long v_bs, long long v_rs, float scale,
                    float* ws, int prepare, cudaStream_t stream) {
-  constexpr int D = C::kD;
+  const int D = C::kWide ? Dt : C::kD;
   if (ws == nullptr) return (int)cudaErrorInvalidValue;
   const int BH = B * H, Np = (N + 7) / 8 * 8, Mp = (M + 7) / 8 * 8;
   const long long hd = (long long)H * Dt;  // dO is contiguous
@@ -3356,7 +3773,9 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   if (err != 0) return err;
   static unsigned long long smem_set = 0;
   auto kern = [] {
-    if constexpr (C::kStream && C::kDkv) return flash_bwd_dkv_f32_stream_kernel<C>;
+    if constexpr (C::kWide && C::kDkv) return flash_bwd_dkv_f32_wide_kernel<C>;
+    else if constexpr (C::kWide) return flash_bwd_dq_f32_wide_kernel<C>;
+    else if constexpr (C::kStream && C::kDkv) return flash_bwd_dkv_f32_stream_kernel<C>;
     else if constexpr (C::kStream) return flash_bwd_dq_f32_stream_kernel<C>;
     else if constexpr (C::kDkv) return flash_bwd_dkv_f32_ss_kernel<C>;
     else return flash_bwd_dq_f32_ss_kernel<C>;
@@ -3372,18 +3791,24 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
         {static_cast<const float*>(k), k_bs, k_rs, w.kv, ta ? w.kt : nullptr, M},
         {static_cast<const float*>(v), v_bs, v_rs, w.kv + 2ll * BH * M * D,
          nullptr, M}}};
-    const int rows = Np > Mp ? Np : Mp;
-    flash_split_f32_kernel<D, 4><<<dim3((rows + 31) / 32, BH, 4), 256, 0,
-                                   stream>>>(jobs, H, Dt);
+    const int rows = ((Np > Mp ? Np : Mp) + 31) / 32;  // row tiles
+    if constexpr (C::kWide)
+      flash_split_cols_f32_kernel<4><<<dim3(rows * ((D + 31) / 32), BH, 4),
+                                       256, 0, stream>>>(jobs, H, D, rows);
+    else
+      flash_split_f32_kernel<C::kD, 4><<<dim3(rows, BH, 4), 256, 0, stream>>>(
+          jobs, H, Dt);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
   const float c = scale * kLog2e;
   if constexpr (C::kStream) {
     float* out = static_cast<float*>(C::kDkv ? (C::kPass == 1 ? dv : dk) : dq);
-    kern<<<dim3(((C::kDkv ? M : N) + C::kRes - 1) / C::kRes, BH), C::kThreads,
-           C::kSmemBytes, stream>>>(tres, trows, tt, lse, delta, out, H, N, M,
-                                    Dt, scale, c);
+    // kWide: G = ceil(d / kD) column groups
+    const int G = C::kWide ? (Dt + C::kD - 1) / C::kD : 1;
+    kern<<<dim3(((C::kDkv ? M : N) + C::kRes - 1) / C::kRes, BH, G),
+           C::kThreads, C::kSmemBytes, stream>>>(tres, trows, tt, lse, delta,
+                                                 out, H, N, M, Dt, scale, c);
   } else if constexpr (C::kDkv) {
     kern<<<dim3((M + C::kRes - 1) / C::kRes, BH), C::kThreads, C::kSmemBytes,
            stream>>>(tres, trows, tt, lse, delta, static_cast<float*>(dk),
@@ -3403,8 +3828,8 @@ int flash_bwd_f32(const void* q, const void* k, const void* v,
                   long long k_rs, long long v_bs, long long v_rs, float scale,
                   void* ws, int prepare, void* stream) {
   // the smallest width that holds d: 40, 64, 80, 128, 160, 256 or 320
-  // (d % 4 == 0); K5b past 80 as its dV pass, then its dK pass on what the
-  // first prepared
+  // (d % 4 == 0), past it the column groups; K5b past 80 as its dV pass,
+  // then its dK pass on what the first prepared
   using Launch = decltype(&launch_bwd_f32<DqF40>);
   Launch first = nullptr, second = nullptr;
   const bool a = dq != nullptr;
@@ -3428,9 +3853,12 @@ int flash_bwd_f32(const void* q, const void* k, const void* v,
       first = a ? launch_bwd_f32<DqS320> : launch_bwd_f32<DvS320>;
       if (!a) second = launch_bwd_f32<DkS320>;
       break;
-    default: break;
+    default:
+      first = a ? launch_bwd_f32<DqSW> : launch_bwd_f32<DvSW>;
+      if (!a) second = launch_bwd_f32<DkSW>;
+      break;
   }
-  if (first == nullptr || D % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D % 4 != 0) return (int)cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = first(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, q_bs,
@@ -3446,8 +3874,10 @@ int flash_bwd_f32(const void* q, const void* k, const void* v,
 // K5a. q, k, v as for llt2i_flash_fwd; dout and dq contiguous (B, N, H*D);
 // lse and delta contiguous f32 (B, H, N). Every D <= 320 (D % 8 == 0) runs
 // the instantiation of the smallest width that holds it (48, 64, 80, 128,
-// 160, 256, 320; K5b past 160 as two launches); any other returns
-// cudaErrorInvalidValue without launching.
+// 160, 256, 320), every D past 320 the column-group kernels
+// (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel; any D); K5b past
+// 160 as two launches; D % 8 != 0 returns cudaErrorInvalidValue without
+// launching.
 LLT2I_API int llt2i_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dq, int B, int H,
@@ -3514,8 +3944,9 @@ LLT2I_API int llt2i_flash_fwd(const void* q, const void* k, const void* v,
 // llt2i_flash_fwd_f32_ws(B, H, M, D) bytes, 16-byte aligned, which the call
 // overwrites; 512: flash_fwd_f32_wgmma_kernel, ws null; past 512:
 // flash_fwd_f32_wide_kernel, with its workspace likewise); K5a and K5b: every
-// D <= 320 likewise (256, 320: the d-streamed kernels, bwd_f32_stream).
-// Any other d, scale <= 0 (K1) or a missing workspace returns
+// D <= 320 likewise (256, 320: the d-streamed kernels, bwd_f32_stream), every
+// D past 320 the column-group kernels (flash_bwd_*_f32_wide_kernel).
+// D % 4 != 0, scale <= 0 (K1) or a missing workspace returns
 // cudaErrorInvalidValue without launching.
 LLT2I_API int llt2i_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* o, float* lse, int B, int H, int N,
@@ -3553,7 +3984,7 @@ LLT2I_API long long llt2i_flash_fwd_f32_ws(int B, int H, int M, int D) {
   return w ? 4 * fwd_f32_ws_floats(B, H, M, w) : 0;
 }
 
-// K5a and K5b f32: every d <= 320 (d % 4 == 0), and a workspace `ws` of
+// K5a and K5b f32: every d (d % 4 == 0), and a workspace `ws` of
 // llt2i_flash_bwd_f32_ws(B, H, N, M, D) bytes, 16-byte aligned. With
 // `prepare`, the call first writes into it the split (and transposed)
 // operands that K5a (bit 0) and K5b (bit 1) read; with 0 it reads what an
@@ -3591,8 +4022,7 @@ LLT2I_API int llt2i_flash_bwd_dkv_f32(const void* q, const void* k,
 }
 
 // The bytes of the K5a/K5b f32 workspace for B x H heads of N queries and
-// M keys at head dim D (0 where no kernel takes D: past 320)
+// M keys at head dim D (past 320 at D itself)
 LLT2I_API long long llt2i_flash_bwd_f32_ws(int B, int H, int N, int M, int D) {
-  const int w = bwd_f32_width(D);
-  return w ? 4 * bwd_f32_ws_floats(B, H, N, M, w) : 0;
+  return 4 * bwd_f32_ws_floats(B, H, N, M, bwd_f32_width(D));
 }

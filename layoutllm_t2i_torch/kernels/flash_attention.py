@@ -20,24 +20,24 @@ kernels keep them in the operands' type), picked from q's dtype; q, k, v
 and dO share it.
 
 Head dims. The Pallas kernels take any d (they zero-pad it to 128 lanes);
-so does K1, and K5 up to 320. Each instantiation takes every d up to its
+so do K1 and K5, in both types. Each instantiation takes every d up to its
 width, its tensor maps zero-filling the columns past d (``K1_WIDTHS``,
 ``K5_WIDTHS``; the C entry points pick the smallest width that holds d):
-K1 every d <= 512, K5a/K5b every d <= 320, in both types (past 160 K5b
-runs as two launches from one wrapper call, a dV pass and a dK pass, one
-count; K5's f32 forms there stream the scores' depth,
-``flash_bwd_*_f32_stream_kernel``). K1 past 512 (``num_heads`` 1: d 640
-and 1280) runs the column-group kernels, ``flash_fwd_wide_kernel`` and
-``flash_fwd_f32_wide_kernel``, which take any d: the output's columns
-split over the grid, the scores' depth streamed, each d at its own width.
-The maps' head stride must be whole 16-byte vectors (d % 8 == 0 in bf16,
-d % 4 in f32): for any other d (16 heads at 320 channels give d 20; d 300
-in bf16 runs at 304, d 636 at 640) the wrapper launches the kernel on a
-zero-padded packed copy of q, k, v (and dO) at the next such d, with the
-scale of the true d, and returns the output's first d columns of each
-head (``padded_head_dim``; an explicit copy, not a fallback). Past 320 a
-K5 card call raises naming ROADMAP.md's Queue 2 (K5a/K5b past 320, then
-K3 past C 2048): ``num_heads`` 1 reaches K5 at d 640 in training.
+K1 every d <= 512, K5a/K5b every d <= 320 (past 160 K5b runs as two
+launches from one wrapper call, a dV pass and a dK pass, one count; K5's
+f32 forms there stream the scores' depth,
+``flash_bwd_*_f32_stream_kernel``). Past the widest (``num_heads`` 1: d
+640 and 1280) K1 and K5 run the column-group kernels
+(``flash_fwd_wide_kernel``, ``flash_bwd_dq_wide_kernel``,
+``flash_bwd_dkv_wide_kernel`` and their f32 forms), which take any d: the
+output's columns split over the grid, the scores' depth streamed, each d
+at its own width. The maps' head stride must be whole 16-byte vectors (d
+% 8 == 0 in bf16, d % 4 in f32): for any other d (16 heads at 320
+channels give d 20; d 300 in bf16 runs at 304, d 636 at 640) the wrapper
+launches the kernel on a zero-padded packed copy of q, k, v (and dO) at
+the next such d, with the scale of the true d, and returns the output's
+first d columns of each head (``padded_head_dim``; an explicit copy, not a
+fallback).
 
 K1/f32 at widths up to 160 and past 512 splits K and V (and
 transposes V) once a call into a workspace that the wrapper allocates for
@@ -61,13 +61,11 @@ from .dispatch import (needs_grad, operand_dtype, require, stream_handle,
 # the widths of the kernels' instantiations (csrc/flash_attention.cu): each
 # takes every head dim up to it, its maps zero-filling the columns past d.
 # bf16 rounds d up to 16 (wgmma's depth), so d 40 runs the 48-wide one.
-# K1 past its widest runs the column-group kernels, which take any d
+# Past its widest each runs the column-group kernels, which take any d
 K1_WIDTHS = {torch.bfloat16: (48, 64, 80, 128, 160, 512),
              torch.float32: (40, 64, 80, 128, 160, 512)}
 K5_WIDTHS = {torch.bfloat16: (48, 64, 80, 128, 160, 256, 320),
              torch.float32: (40, 64, 80, 128, 160, 256, 320)}
-# where the head dims past K5's widest are listed as still to port
-NOT_PORTED = "ROADMAP.md Queue 2: K5a/K5b past d 320, then K3 past C 2048"
 
 
 def padded_head_dim(d: int, dtype: torch.dtype) -> int:
@@ -80,17 +78,11 @@ def padded_head_dim(d: int, dtype: torch.dtype) -> int:
 def kernel_width(kid: str, dtype: torch.dtype, d: int) -> int:
     """The width of the instantiation of ``kid`` ("K1", "K5a" or "K5b")
     that runs head dim d in ``dtype``: the smallest that holds
-    ``padded_head_dim(d)``; K1 past its widest, the column-group kernel at
-    ``padded_head_dim(d)`` itself. Raises ValueError past K5's widest."""
+    ``padded_head_dim(d)``; past the widest, the column-group kernel at
+    ``padded_head_dim(d)`` itself."""
     dp = padded_head_dim(d, dtype)
     widths = (K1_WIDTHS if kid == "K1" else K5_WIDTHS)[dtype]
-    for w in widths:
-        if dp <= w:
-            return w
-    if kid == "K1":
-        return dp
-    raise ValueError(f"{kid}: head dim {d} is past the widest kernel "
-                     f"({widths[-1]}); not ported ({NOT_PORTED})")
+    return next((w for w in widths if dp <= w), dp)
 
 
 def pad_heads(t: torch.Tensor, heads: int, dp: int) -> torch.Tensor:
@@ -108,12 +100,10 @@ def unpad_heads(t: torch.Tensor, heads: int, d: int) -> torch.Tensor:
     return t.view(b, n, heads, hc // heads)[..., :d].reshape(b, n, heads * d)
 
 
-def _padded(kid, dtype, heads, *ts):
+def _padded(dtype, heads, *ts):
     """(d, the head dim the kernel runs at, ``ts`` as it takes them): the
-    packed operands' head dim, and zero-padded copies where the two differ.
-    Raises past ``kid``'s widest instantiation."""
+    packed operands' head dim, and zero-padded copies where the two differ."""
     d = ts[0].shape[2] // heads
-    kernel_width(kid, dtype, d)
     dp = padded_head_dim(d, dtype)
     if dp != d:
         ts = tuple(pad_heads(t, heads, dp) for t in ts)
@@ -213,7 +203,7 @@ def _launch_fwd(q, k, v, heads, scale, need_lse):
     """K1; with ``need_lse`` it also writes the (B, H, N) f32 lse. A head
     dim that is not whole 16-byte vectors runs on padded copies."""
     dtype = _check_qkv(q, k, v, heads, "flash_attention")
-    d, dp, (q, k, v) = _padded("K1", dtype, heads, q, k, v)
+    d, dp, (q, k, v) = _padded(dtype, heads, q, k, v)
     b, n, hc = q.shape
     m = k.shape[1]
     out = torch.empty((b, n, hc), dtype=q.dtype, device=q.device)
@@ -267,12 +257,11 @@ def bwd_f32_workspace(q: torch.Tensor, k: torch.Tensor,
                       heads: int) -> torch.Tensor:
     """The K5a/K5b f32 workspace of one backward call, on q's device and
     the caller's stream: ``llt2i_flash_bwd_f32_ws`` bytes at the padded
-    head dim (none at a head dim the kernels refuse, which then raise)."""
+    head dim."""
     b, n, hc = q.shape
     nbytes = lib("flash_attention").llt2i_flash_bwd_f32_ws(
         b, heads, n, k.shape[1], padded_head_dim(hc // heads, torch.float32))
-    return torch.empty(nbytes // 4, dtype=torch.float32,
-                       device=q.device) if nbytes else None
+    return torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
 
 
 def _f32_tail(q, k, heads, workspace, prepare, own):
@@ -283,7 +272,7 @@ def _f32_tail(q, k, heads, workspace, prepare, own):
         workspace, prepare = bwd_f32_workspace(q, k, heads), own
     elif prepare is None:
         prepare = own
-    return (None if workspace is None else workspace.data_ptr(), prepare)
+    return workspace.data_ptr(), prepare
 
 
 def _bwd_args(q, k, v, dout, lse, delta, heads):
@@ -307,7 +296,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          scale)[0]
     dtype = _check_bwd(q, k, v, dout, lse, delta, heads,
                        "flash_attention_bwd_dq")
-    d, dp, (q, k, v, dout) = _padded("K5a", dtype, heads, q, k, v, dout)
+    d, dp, (q, k, v, dout) = _padded(dtype, heads, q, k, v, dout)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)
     tail = (_f32_tail(q, k, heads, workspace, prepare, PREPARE_DQ)
@@ -334,7 +323,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          scale)[1:]
     dtype = _check_bwd(q, k, v, dout, lse, delta, heads,
                        "flash_attention_bwd_dkv")
-    d, dp, (q, k, v, dout) = _padded("K5b", dtype, heads, q, k, v, dout)
+    d, dp, (q, k, v, dout) = _padded(dtype, heads, q, k, v, dout)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     ptrs, dims = _bwd_args(q, k, v, dout, lse, delta, heads)

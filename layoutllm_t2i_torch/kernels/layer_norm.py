@@ -52,6 +52,10 @@ class LayerNorm(torch.autograd.Function):
 # the instantiations: dtype -> (C entry point, elements a 16-byte vector)
 _ENTRY = {torch.bfloat16: ("llt2i_layer_norm", 8),
           torch.float32: ("llt2i_layer_norm_f32", 4)}
+# the widest row the kernel keeps (csrc/layer_norm.cu), and where the rows
+# past it are listed as still to port (the Pallas kernel takes any C)
+MAX_C = 2048
+NOT_PORTED = "ROADMAP.md Queue 2: K3 past C 2048"
 
 
 def _forward(x, weight, bias, eps):
@@ -66,7 +70,10 @@ def _forward(x, weight, bias, eps):
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError("layer_norm: affine params must be (C,)")
     entry, per_vec = _ENTRY[dtype]
-    if c % per_vec or c > 2048:
+    if c > MAX_C:
+        raise ValueError(f"layer_norm: C={c} is past the widest kernel "
+                         f"({MAX_C}); not ported ({NOT_PORTED})")
+    if c % per_vec:
         raise ValueError(f"layer_norm: C={c} is unsupported for {dtype}")
     xp, wp, bp = x.data_ptr(), weight.data_ptr(), bias.data_ptr()
     if (xp | wp | bp) & 15:  # rows and params move as 16-byte vectors

@@ -36,7 +36,7 @@ two launches agreeing bit for bit, the size rules and the gradients of the
 K6, K8a and K8b Functions in f32; K5a/f32 and K5b/f32 at the f32
 training's batch-8 shapes, on strided operands fenced by NaN, into NaN
 outputs and a NaN-guarded shared workspace, bit for bit over launches,
-refusing other head dims; the TF32 wgmma kernels, K1/f32 at d 512,
+past d 320 on the column-group kernels; the TF32 wgmma kernels, K1/f32 at d 512,
 K4/f32's and K6/f32's up and down GEMMs and K8a/f32 (tf32_gemm.cuh), at
 ragged N, M and K (one row, widths off their tiles,
 two heads), with K1's lse, on operands fenced by NaN and Inf, into a NaN
@@ -211,19 +211,25 @@ def test_flash_attention_is_bitwise_repeatable(dev, gen, b, n, m, heads, d):
 
 
 def test_flash_attention_uninstantiated_head_dim_raises(dev, gen):
-    # K1 takes every head dim (past 512 the column-group kernel); a
-    # backward past K5's widest instantiation (320) raises before any K5
-    # launch, naming the ROADMAP item that lists it: a num_heads 1 training
-    # step (d 640 at 512^2's 32^2 sites)
+    # K1 takes every head dim (past 512 the column-group kernel), and so
+    # does its backward now (past 320 K5's column-group kernels): a num_heads
+    # 1 training step's site (d 640 at 512^2's 32^2 sites) raises nowhere,
+    # launches K1 once and K5a and K5b once each, and its gradients agree
+    # with the plain route's
     q, k, v, dout = _attention_inputs(gen, 1, 512, 512, 1, 640)
     leaves = [t.requires_grad_() for t in (q, k, v)]
     before = (K.flash_attention.launches, K.flash_attention_bwd_dq.launches,
               K.flash_attention_bwd_dkv.launches)
     out = K.flash_attention(*leaves, 1, 640 ** -0.5)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        torch.autograd.grad(out, leaves, dout)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
     assert (K.flash_attention.launches, K.flash_attention_bwd_dq.launches,
-            K.flash_attention_bwd_dkv.launches) == (before[0] + 1, *before[1:])
+            K.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    with K.plain_route():
+        ref = torch.autograd.grad(K.flash_attention(*leaves, 1, 640 ** -0.5),
+                                  leaves, dout)
+    assert agreement("K5a", grads[0], ref[0])["ok"]
+    assert agreement("K5b", grads[1:], ref[1:])["ok"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -452,6 +458,18 @@ def test_ffn_ln_geglu(dev, gen, m, k, scale):
            lambda: K.ffn_ln_geglu_plain(x, lw, lb, w1, b1, w2, b2, s), K.ffn_ln_geglu)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_past_2048_names_queue_2(dev, gen, dtype):
+    # K3's widest row is 2048 (the Pallas kernel takes any C): past it the
+    # wrapper raises naming ROADMAP.md's Queue 2 item, before any launch
+    x = _rand(gen, 8, 2560).to(dtype)
+    w, bias = _rand(gen, 2560).to(dtype), _rand(gen, 2560).to(dtype)
+    before = K.layer_norm.launches
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2: K3 past C 2048"):
+        K.layer_norm(x, w, bias, 1e-5)
+    assert K.layer_norm.launches == before
+
+
 def test_cuda_tensor_never_takes_the_plain_version(dev):
     x = torch.randn(4, 16, device=dev).half()  # f16: no kernel takes it
     with pytest.raises(ValueError, match="dtype"):
@@ -570,12 +588,16 @@ def test_flash_attention_backward(dev, gen, b, n, m, heads, d):
     (2, 1054, 1054, 5, 128), (1, 600, 630, 2, 144), (2, 576, 606, 8, 160),
     (1, 600, 630, 2, 168), (2, 576, 606, 5, 256), (1, 600, 630, 2, 300),
     (2, 1054, 1054, 2, 320),
+    # past 320, the column-group kernels: d 328 (two groups of 168, the
+    # last ragged), 640 (2 x 320) and 1280 (4 x 320), one head each at the
+    # num_heads 1 sites' lengths
+    (1, 600, 630, 2, 328), (2, 1054, 1054, 1, 640), (1, 576, 606, 1, 1280),
 ])
 def test_flash_attention_backward_head_dims(dev, gen, b, n, m, heads, d, dtype):
     # K5a and K5b at every width past 80 (K5b/f32 at 128 and 160, and K5b
-    # at 256 and 320 in both types, as its dV pass, then its dK pass: one
-    # count) and at d on a wider one (20 and bf16 300 through the padded
-    # copy), each against the plain backward
+    # at 256, 320 and past 320 in both types, as its dV pass, then its dK
+    # pass: one count) and at d on a wider one (20 and bf16 300 through the
+    # padded copy), each against the plain backward
     q, k, v, dout = (t.to(dtype) for t in _attention_inputs(gen, b, n, m, heads, d))
     s = d ** -0.5
     out, lse = K.flash_attention_lse_plain(q, k, v, heads, s)
@@ -693,17 +715,27 @@ def test_flash_attention_backward_is_bitwise_repeatable(dev, gen, b, n, m,
 
 
 def test_flash_attention_backward_uninstantiated_head_dim_raises(dev, gen):
-    # past the widest backward instantiation (320: num_heads 2 at 512^2's
-    # 32^2 sites) the wrappers raise before any launch
+    # past the widest backward instantiation (320) no wrapper raises any
+    # more: d 328 launches the column-group kernels once each (K5b's two
+    # passes one count), into outputs filled with NaN whose every element
+    # is written, nothing past them
     q, k, v, dout = _attention_inputs(gen, 1, 512, 512, 2, 328)
-    lse = torch.zeros(1, 2, 512, device=dev)
+    s = 328 ** -0.5
+    out, lse = K.flash_attention_lse_plain(q, k, v, 2, s)
+    delta = K.attention_delta(out, dout, 2)
+    ref = K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, 2, s)
     before = (K.flash_attention_bwd_dq.launches, K.flash_attention_bwd_dkv.launches)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 328 ** -0.5)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 328 ** -0.5)
+    dq = K.flash_attention_bwd_dq(q, k, v, dout, lse, delta, 2, s)
+    dk, dv = K.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, 2, s)
+    torch.cuda.synchronize()
     assert (K.flash_attention_bwd_dq.launches,
-            K.flash_attention_bwd_dkv.launches) == before
+            K.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    assert agreement("K5a", dq, ref[0])["ok"]
+    assert agreement("K5b", (dk, dv), ref[1:])["ok"]
+    (dq, dk, dv), guards = _bwd_into_nan(q, k, v, dout, lse, delta, 2, s)
+    assert all(bool(g.isnan().all()) for g in guards)
+    assert agreement("K5a", dq, ref[0])["ok"]
+    assert agreement("K5b", (dk, dv), ref[1:])["ok"]
 
 
 def test_flash_attention_autograd_through_the_kernels(dev, gen):
@@ -888,7 +920,10 @@ def test_flash_attention_lse_f32(dev, gen, f32, b, n, m, heads, d):
 
 
 @pytest.mark.parametrize("b,n,m,heads,d", TRAIN_SHAPES + [
-    (8, 4126, 4126, 8, 40), (8, 1054, 1054, 8, 80)])   # f32 training's batch
+    (8, 4126, 4126, 8, 40), (8, 1054, 1054, 8, 80),    # f32 training's batch
+    # past 320, the column-group kernels (and their pre-pass): d 328, 640
+    # and 1280 at the num_heads 1 sites' lengths
+    (1, 600, 630, 2, 328), (2, 1054, 1054, 1, 640), (1, 576, 606, 1, 1280)])
 def test_flash_attention_backward_f32(dev, gen, f32, b, n, m, heads, d):
     q, k, v, dout = (t.float() for t in _attention_inputs(gen, b, n, m, heads, d))
     s = d ** -0.5
@@ -1004,18 +1039,29 @@ def test_flash_attention_backward_f32_is_bitwise_repeatable(dev, gen, f32, b, n,
 
 
 def test_flash_attention_backward_f32_other_head_dims_raise(dev, gen, f32):
-    # d <= 320 only: no workspace and no launch at d 328
+    # past 320 no head dim raises any more: d 328 has a workspace (at d
+    # itself: q, dO, k, v split, k, q, dO also transposed) and launches the
+    # column-group kernels once each, sharing it as the autograd backward
+    # does, into NaN outputs and a NaN-guarded workspace
     q, k, v, dout = (t.float() for t in _attention_inputs(gen, 1, 512, 512, 2, 328))
-    lse = torch.zeros(1, 2, 512, device=dev)
-    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 328) == 0
-    assert lib("flash_attention").llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 320) > 0
-    before = (K.flash_attention_bwd_dq.launches, K.flash_attention_bwd_dkv.launches)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        K.flash_attention_bwd_dq(q, k, v, dout, lse, lse, 2, 328 ** -0.5)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        K.flash_attention_bwd_dkv(q, k, v, dout, lse, lse, 2, 328 ** -0.5)
-    assert (K.flash_attention_bwd_dq.launches,
-            K.flash_attention_bwd_dkv.launches) == before
+    s = 328 ** -0.5
+    fa = lib("flash_attention")
+    assert fa.llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 328) == 4 * 2 * 328 * (
+        4 * 512 + 4 * 512 + 2 * 512 + 4 * 512)
+    assert fa.llt2i_flash_bwd_f32_ws(1, 2, 512, 512, 320) > 0
+    out, lse = K.flash_attention_lse_plain(q, k, v, 2, s)
+    delta = K.attention_delta(out, dout, 2)
+    ref = K.flash_attention_bwd_plain(q, k, v, dout, lse, delta, 2, s)
+    _check_f32("K5a", lambda: K.flash_attention_bwd_dq(q, k, v, dout, lse,
+                                                        delta, 2, s),
+               lambda: ref[0], K.flash_attention_bwd_dq)
+    _check_f32("K5b", lambda: K.flash_attention_bwd_dkv(q, k, v, dout, lse,
+                                                         delta, 2, s),
+               lambda: ref[1:], K.flash_attention_bwd_dkv)
+    (dq, dk, dv), guards = _bwd_f32_into_nan(q, k, v, dout, lse, delta, 2, s)
+    assert all(bool(g.isnan().all()) for g in guards)
+    assert agreement("K5a/f32", dq, ref[0])["ok"]
+    assert agreement("K5b/f32", (dk, dv), ref[1:])["ok"]
 
 
 @pytest.mark.parametrize("d", [40, 80, 640])

@@ -124,7 +124,7 @@ def test_pipeline_at_another_geometry_matches_jax(bundles):
     assert pp.generate(PROMPTS, LAYOUTS, RELATIONS, seed=3).shape == (2, 32, 32, 3)
 
 
-@pytest.mark.parametrize("num_heads", [2, 4])
+@pytest.mark.parametrize("num_heads", [1, 2, 4])
 def test_gligen_config_dict_num_heads_reaches_the_trainer(tmp_path, monkeypatch,
                                                           num_heads):
     """train_diffusion --ckpt_path on a reference-format .pth whose

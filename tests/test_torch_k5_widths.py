@@ -15,12 +15,9 @@ depth. On a CPU tensor the wrappers take the plain versions, so here:
   they give ``tests/test_torch_kernels.py``'s one-pass emulation bit for
   bit, inside K5b's row; a pass not run, the dV pass fed dS^T, dV scaled
   or dK unscaled falls outside it (the f32 forms' cases are in
-  ``tests/test_torch_f32_kernels.py``);
-* past 320 the wrappers raise, naming what ROADMAP.md's Queue 2 still
-  lists.
+  ``tests/test_torch_f32_kernels.py``). Past 320 the column-group kernels
+  take over: ``tests/test_torch_k5_wide.py``.
 """
-import importlib
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -34,8 +31,6 @@ from layoutllm_t2i_torch.kernels.tolerance import agreement
 from test_torch_kernels import K5_TILES, _flash_bwd_emulated
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
-# the module (the package exports its function under the same name)
-FA = importlib.import_module("layoutllm_t2i_torch.kernels.flash_attention")
 GRAD_REL = 1e-5   # of the largest gradient
 
 
@@ -136,10 +131,3 @@ def test_k5b_passes_each_write_their_output(d, fault):
     got = agreement("K5b", (dk, dv), ref)
     assert got["ok"] == (fault is None), got
 
-
-@pytest.mark.parametrize("kid", ["K5a", "K5b"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_k5_past_320_names_the_rest_of_queue_2(kid, dtype):
-    assert FA.kernel_width(kid, dtype, 320) == 320
-    with pytest.raises(ValueError, match="K5a/K5b past d 320, then K3 past C 2048"):
-        FA.kernel_width(kid, dtype, 328)

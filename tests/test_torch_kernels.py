@@ -94,19 +94,12 @@ def test_kernel_width_is_the_smallest_that_holds_d(kid, dtype, d, width):
     assert FA.padded_head_dim(d, dtype) <= width
 
 
-@pytest.mark.parametrize("kid,d", [("K5a", 328), ("K5b", 328)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_head_dims_past_the_widest_kernel_raise(kid, dtype, d):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        FA.kernel_width(kid, dtype, d)
-
-
 def test_kernel_widths_are_the_c_entry_points():
     # the widths the C entry points switch on (csrc/flash_attention.cu):
-    # bf16 K1 and K5 by `D <= w`, K1 past the last on the column-group
-    # kernel, the f32 forms through f32_width (K1/f32 past 160 on its
+    # bf16 K1 and K5 by `D <= w`, each past the last on the column-group
+    # kernels, the f32 forms through f32_width (K1/f32 past 160 on its
     # 512-wide kernel, past 512 on its column groups) and K5's through
-    # bwd_f32_width, which adds the d-streamed 256 and 320
+    # bwd_f32_width, which adds the d-streamed 256 and 320, then D itself
     src = (Path(FA.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
 
     def body_of(start):
@@ -124,6 +117,10 @@ def test_kernel_widths_are_the_c_entry_points():
     assert "D > 512" not in f32_fwd.split("switch")[0]
     assert FA.kernel_width("K1", torch.float32, 516) == 516
     assert widths("int flash_bwd(const void* q") == FA.K5_WIDTHS[torch.bfloat16]
+    assert "launch_bwd_wide<DqWide>" in body_of("int flash_bwd(const void* q")
+    assert "D <= 320 ? 320 : D;" in body_of("int bwd_f32_width(int D)")
+    assert "launch_bwd_f32<DqSW>" in body_of("int flash_bwd_f32(const void* q")
+    assert FA.kernel_width("K5b", torch.float32, 324) == 324
     assert widths("int f32_width(int D)") == FA.K1_WIDTHS[torch.float32][:-1]
     assert widths("int f32_width(int D)") + widths("int bwd_f32_width(int D)") \
         == FA.K5_WIDTHS[torch.float32] == (40, 64, 80, 128, 160, 256, 320)

@@ -591,8 +591,9 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
     # call runs the backward's) and K4/f32's LN pre-pass (K7/f32's too,
     # counted under K4/f32)
     widths = (40, 64, 80, 128, 160, 256, 320)
-    f32_pre = {"K1/f32": {"flash_split_f32_kernel", "flash_split_wide_f32_kernel"},
-               "K5a/f32": {f"flash_split_f32_kernel<{d}, 4>" for d in widths},
+    f32_pre = {"K1/f32": {"flash_split_f32_kernel", "flash_split_cols_f32_kernel"},
+               "K5a/f32": {f"flash_split_f32_kernel<{d}, 4>" for d in widths}
+               | {"flash_split_cols_f32_kernel<4>"},
                "K4/f32": {"ffn_norm_rows_f32_kernel"}}
     for d in widths:
         for jobs, kid in ((2, "K1/f32"), (4, "K5a/f32")):
@@ -600,6 +601,12 @@ def test_profile_groups_and_wgmma_kernels_name_the_sources():
                      f"{jobs}>((anonymous namespace)::SplitJobs<{jobs}>, int)")
             assert next(g for g, keys in cs.PROFILE_GROUPS
                         if any(k in shown.lower() for k in keys)).split()[0] == kid
+    # the column-tiled pre-pass: K1/f32's past 512 (2 jobs), K5's past 320 (4)
+    for jobs, kid in ((2, "K1/f32"), (4, "K5a/f32")):
+        shown = (f"void (anonymous namespace)::flash_split_cols_f32_kernel<{jobs}>("
+                 f"(anonymous namespace)::SplitJobs<{jobs}>, int, int, int)")
+        assert next(g for g, keys in cs.PROFILE_GROUPS
+                    if any(k in shown.lower() for k in keys)).split()[0] == kid
     for kid in ("K1/f32", "K5a/f32", "K5b/f32", "K4/f32", "K6/f32", "K7/f32",
                 "K8a/f32", "K8b/f32"):
         off_wgmma = set(groups[kid]) - set(cs.WGMMA_KERNELS[lib_of[kid]])
@@ -930,8 +937,8 @@ def test_geometry_walks_route_as_the_jax_package(name):
     320 with num_heads 2, 64, 128 and 256 with num_heads 5 at 96^2, 320
     and 640 with num_heads 1, 320, 640 and 1280 with num_heads 1 at 96^2;
     and the training walk at the batch's latents takes K5 at every one of
-    them (the lse sites): past 320 (num_heads 1), where K5 is not ported,
-    so those two geometries generate only (GENERATION_ONLY)."""
+    them (the lse sites), past 320 (num_heads 1) on K5's column-group
+    kernels."""
     from layoutllm_t2i_tpu.ops import attention as jax_attention
 
     from layoutllm_t2i_torch.models.unet import UNetConfig
@@ -959,18 +966,14 @@ def test_geometry_walks_route_as_the_jax_package(name):
              "image": np.zeros((1, side, side, 3))}
     _, vae_cfg, clip_cfg = model_configs(small=False)
     train = cs.training_calls(cfg, vae_cfg, clip_cfg, 77, batch, 30, 10)
-    if name in cs.GENERATION_ONLY:
-        assert name not in cs.GEOMETRY_K5_DIMS
-        assert {d for d, _, _ in cs.sites_by_dim(train, "K5a", dims)} == dims
-        assert not cs.k5_takes((1, 1054, 1054, 1, 640, "lse"))
-        return
     assert set(cs.GEOMETRY_K5_DIMS[name]) == dims
     k5 = cs.sites_by_dim(train, "K5a", cs.GEOMETRY_K5_DIMS[name])
     assert {d for d, _, _ in k5} == dims
     assert cs.sites_by_dim(cs.unet_calls(cfg, 1, 30, 10, 77, train=True),
                            "K5a", cs.GEOMETRY_K5_DIMS[name]) == k5
     widest = {"hires": (606, 8, 160), "heads5": (1054, 5, 128),
-              "heads2": (1054, 2, 320), "hires5": (606, 5, 256)}[name]
+              "heads2": (1054, 2, 320), "hires5": (606, 5, 256),
+              "heads1": (1054, 1, 640), "hires1": (606, 1, 1280)}[name]
     n, heads, d = widest
     assert ("K1", (1, n, n, heads, d, "lse")) in train
     if side == cs.TRAIN_HIRES_SIDE:
@@ -978,27 +981,59 @@ def test_geometry_walks_route_as_the_jax_package(name):
 
 
 @pytest.mark.parametrize("mixed", [True, False])
-@pytest.mark.parametrize("name", ["heads2", "hires5"])
+@pytest.mark.parametrize("name", ["heads2", "hires5", "heads1", "hires1"])
 def test_wide_k5_rows_are_the_gradient_checks_sites(name, mixed):
-    """Phase kernels holds K5 at d 256 and 320 at the sites that phase
-    train-hires' gradient checks run (batch 2, N = M, the gated sites'
-    ragged tails of 30 rows), as its walk makes them, in the check's type;
-    and every K5 site of that walk past d 160 is among them."""
+    """Phase kernels holds K5 at d 256 and 320 (num_heads 2 and 5) and past
+    320 (num_heads 1: its sites past 320 alone, d 640 and 1280 on the
+    column-group kernels) at the sites that phase train-hires' gradient
+    checks run (batch 2, N = M, the gated sites' ragged tails of 30 rows),
+    as its walk makes them, in the check's type; and every K5 site of that
+    walk past WIDE_K5_GEOMETRIES[name] is among them."""
     from layoutllm_t2i_torch.models.unet import UNetConfig
 
     sites = cs.wide_k5_sites(UNetConfig(), name, mixed)
     cfg = dataclasses.replace(UNetConfig(), **cs.GEOMETRY[name])
     walk = cs.grad_walk(cfg, mixed)
-    assert cs.sites_by_dim(sites, "K5a", (256, 320)) == cs.sites_by_dim(
-        walk, "K5a", (256, 320))
+    wide = [d for d in cs.GEOMETRY_K5_DIMS[name] if d > cs.WIDE_K5_GEOMETRIES[name]]
+    assert cs.sites_by_dim(sites, "K5a", wide) == cs.sites_by_dim(walk, "K5a", wide)
     tag = () if mixed else ("f32",)
-    n, heads, d = {"heads2": (1024, 2, 320), "hires5": (576, 5, 256)}[name]
+    heads, sized = {"heads2": (2, [(1024, 320)]), "hires5": (5, [(576, 256)]),
+                    "heads1": (1, [(1024, 640)]),
+                    "hires1": (1, [(2304, 640), (576, 1280)])}[name]
+    assert sorted(d for _, d in sized) == wide
     cases = {(kid, args) for kid, _, args, _ in cs.kernel_cases({"g": sites})}
     assert cases == {(kid, (2, r, r, heads, d) + lse + tag)
-                     for r in (n, n + 30)
+                     for n, d in sized for r in (n, n + 30)
                      for kid, lse in (("K1", ("lse",)), ("K5a", ()), ("K5b", ()))}
-    assert cs.WIDE_K5_GEOMETRIES == tuple(
-        g for g, dims in cs.GEOMETRY_K5_DIMS.items() if max(dims) > 160)
+    assert set(cs.WIDE_K5_GEOMETRIES) == {
+        g for g, dims in cs.GEOMETRY_K5_DIMS.items() if max(dims) > 160}
+    assert set(cs.TRAIN_GRAD_GEOMETRIES) == set(cs.GEOMETRY_K5_DIMS)
+
+
+def test_ckpt_run_walk_at_one_head_matches_the_calls(recorded, tmp_path):
+    """Phase train-hires' --ckpt_path run at num_heads 1 (train-ckpt-heads1)
+    is held to training_calls at its config: a mixed-precision step of a
+    small trainer at one head records the walk's calls, K5 at every lse
+    site of the one head's d (32 and 64 here: the head takes the level's
+    channels whole)."""
+    recorded.mark_f32 = True
+    models = _models()
+    models = dataclasses.replace(models, unet_cfg=dataclasses.replace(
+        models.unet_cfg, num_heads=1))
+    cfg = TrainerConfig(output_root=str(tmp_path), name="t", batch_size=2,
+                        total_iters=1, warmup_steps=0, max_boxes=30,
+                        max_relations=10, mixed_precision=True)
+    trainer = DiffusionTrainer(cfg, iter(()), models=models)
+    batch = next(synthetic_layout_batches(2, 96, 30))
+    trainer.train_step(trainer.prepare_batch(batch), trainer.generator)
+    trainer.close()
+    want = cs.training_calls(models.unet_cfg, models.vae_cfg, models.clip_cfg,
+                             TOK_LEN, batch, 30, 10)
+    assert collections.Counter(recorded) == collections.Counter(want)
+    assert "heads1" in cs.TRAIN_CKPT_GEOMETRIES
+    lse_sites = {(args[3], args[4]) for kid, args in want
+                 if kid == "K1" and cs.has_lse(args)}
+    assert lse_sites == {(1, 32), (1, 64)}
 
 
 def test_training_walk_takes_the_latent_size_of_the_batch(recorded, tmp_path):
