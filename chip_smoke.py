@@ -104,8 +104,9 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                time a call. K1's, K5a's and K5b's rows add `exp_ms`, the
                time of their exponentials at the SFUs' rate (exp_ms()); the
                rows of the kernels on wgmma (K1, K5a, K5b, K4, K6, K7, K8a,
-               K8b) and K2's add `vs_library`, ms over library_ms, and
-               `device_vs_library`; K2's add the path its plan takes
+               K8b), K2's and K3's add `vs_library`, ms over library_ms, and
+               `device_vs_library`; K3's add `entry`, the C entry the row
+               launches (one warp a row, or past C 2048 one block a row); K2's add the path its plan takes
                (`path`: "cluster" on chip or "stream"), `cluster` (blocks a
                cluster) and `slab` (channels). Before the rows: the
                wrappers' raw stream handle against
@@ -191,8 +192,15 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                1054) the walk's site by site.
   8f. hires1   num_heads 1 at 768^2, PLMS-10 in bf16 and in f32: the same
                gates at d 320 (N 9216, 9246), 512 (the VAE's, N 9216), 640
-               (N 2304, 2334) and 1280 (N 576, 606). Neither trains: K5
-               past d 320 is not ported (ROADMAP.md Queue 2).
+               (N 2304, 2334) and 1280 (N 576, 606) (both train in
+               phase 13c's gradient checks).
+  8g. mult8    a channel_mult (1, 2, 4, 8) UNet at 512^2 (its own seed-0
+               weights: the deepest level and the middle block at 2560
+               channels), PLMS-10 in bf16 and in f32: the same gates, K1's
+               launches at d 40 and 80 the walk's site by site, and K3's
+               past C 2048 (the block-a-row kernel: the middle block's
+               LayerNorms at C 2560 over B x 64, B x 94 and B x 30 rows)
+               the walk's site by site, every recorded K3 call launched.
   9. bench     the port bench (cli/bench.py) as run with no flags, in this
                process: random weights from seed 0, bf16, 8 requests (CFG
                batch 16), iters 3, exact PLMS-50 then the fast preset on the
@@ -294,19 +302,23 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
                num_heads 1 and with num_heads 1 at 96^2 latents, bf16 and
                f32 (train-grad-hires[-f32], train-grad-heads5[-f32],
                train-grad-heads2[-f32], train-grad-hires5[-f32],
-               train-grad-heads1[-f32], train-grad-hires1[-f32]): the
-               planted dK fault must exceed the bound, K5's launches at
-               d 40/80/160, 64/128, 160/320, 64/128/256, 320/640 or
-               320/640/1280 the walk's site by site (past 320 K5's
-               column-group kernels). Then train-ckpt-heads2 and
-               train-ckpt-heads1: the seed-0 weights written by the port's
-               .pth writer with a GLIGEN config_dict of num_heads 2, then
-               1 (build/chip_smoke_train, 5.5 GiB, removed after), trained
-               by cli/train_diffusion.py main --synthetic
+               train-grad-heads1[-f32], train-grad-hires1[-f32]) and
+               with channel_mult (1, 2, 4, 8) (train-grad-mult8[-f32]):
+               the planted dK fault must exceed the bound, K5's launches
+               at d 40/80/160, 64/128, 160/320, 64/128/256, 320/640,
+               320/640/1280 or 40/80 the walk's site by site (past 320
+               K5's column-group kernels), and K3's forward launches past
+               C 2048 the walk's site by site. Then train-ckpt-heads2,
+               train-ckpt-heads1 and train-ckpt-mult8: the seed-0 weights
+               of that UNet written by the port's .pth writer with a
+               GLIGEN config_dict of num_heads 2, then 1, then
+               channel_mult [1, 2, 4, 8] (build/chip_smoke_train, 5.5 GiB,
+               and about 9.5 GiB for channel_mult's own weights, each removed
+               after), trained by cli/train_diffusion.py main --synthetic
                --mixed_precision --ckpt_path at batch 8, 2 steps: finite
                losses, K1's and K5's launches the walk's, K5's sites at d
-               160 and 320 (320 and 640) the walk's; s/step, peak
-               memory.
+               160 and 320 (320 and 640; 40 and 80) and K3's past C 2048
+               the walk's; s/step, peak memory.
  14. train-grad-f32  phase 12 with mixed_precision=False: every operand
                f32, the kernels' f32 forms, bound TRAIN_GRAD_F32_REL_TOL.
  15. train-f32 phase 13 with TrainerConfig()'s precision, f32 throughout
@@ -350,7 +362,12 @@ Phases, in order; each prints JSON lines and any failure exits non-zero:
      sums, its f32 launches and its `arith`, and the bf16 entries count
      bf16 launches only. K1's and K5's entries add `by_width`: their
      rows' sums by the width of the instantiation each head dim runs on
-     (kernels/flash_attention.py kernel_width). K5a's and K5b's
+     (kernels/flash_attention.py kernel_width); K3's entries add
+     `past_2048`: their rows' sums past C 2048 (the block-a-row kernel),
+     with `device_vs_library` against F.layer_norm, and the block-a-row
+     kernel's launches by phase (`launches`: mult8, and train-hires for
+     its gradient checks and train-ckpt-mult8, counted from their
+     recorded calls: "K3 past 2048" in their launch counts). K5a's and K5b's
      entries carry the pair's sums (`pair`: ms, device_ms, library_ms and
      library_device_ms of SDPA's backward counted once, bound_ms, exp_ms,
      vs_library, device_vs_library, and the largest shape's vs_library).
@@ -370,8 +387,14 @@ and 1280), batch 2, both types (wide_k5_sites), the
 generation and a batch-8 training step at 768^2 and with num_heads 5
 (phases hires, heads5 and train-hires), the generation with num_heads 1
 at 512^2 and 768^2 (phases heads1 and hires1: K1 at d 320, 640 and 1280),
+the generation and a batch-8 training step with channel_mult (1, 2, 4, 8)
+(phase mult8: K3 at C 2560, K2 at C 2560, 3840 and 5120),
 bf16 and f32, and train-ckpt's
-batch-8 mixed-precision steps at num_heads 2 and 1; the
+batch-8 mixed-precision steps at num_heads 2 and 1 and at channel_mult
+(1, 2, 4, 8); K3 past C 2048 at its edges (K3_WIDE_CALLS: C 2056, 2560 at
+257 rows, 5120 and 16384, both types) and the FF sites that the bench's
+batch 8 gives channel_mult (1, 2, 4, 8)'s middle block (MULT8_BENCH_FF_CALLS:
+K4, K4/f32 and K7 at M 1024, K 2560); the
 generation at
 2 requests (CFG batch 4) on each of
 its three routes (Route: the default, int8, and the split FF routes), the
@@ -505,7 +528,7 @@ WGMMA_KIDS = ("K1", "K5a", "K5b", "K4", "K6", "K7", "K8a", "K8b")
 # K2's kernels: the on-chip path's cluster kernel, the streaming path's two;
 # phase build prints their registers and spills
 GN_KERNELS = ("gn_cluster_kernel", "gn_stats_kernel", "gn_apply_kernel")
-VS_LIBRARY_KIDS = WGMMA_KIDS + ("K2",)
+VS_LIBRARY_KIDS = WGMMA_KIDS + ("K2", "K3")
 # K7's kernels and the TF32 wgmma kernels, which must compile without a
 # spill (ptxas)
 NO_SPILL_KERNELS = ("ffn_q_up_wgmma_kernel", "ffn_q_down_wgmma_kernel",
@@ -1435,6 +1458,7 @@ def phase_kernels(cases, acc=None):
     (summary, pairs, host floor); a summary's ``host_us`` stays a list of
     its rows' (host_us_median takes their median)."""
     from layoutllm_t2i_torch.kernels.flash_attention import kernel_width
+    from layoutllm_t2i_torch.kernels.layer_norm import WARP_MAX_C, entry_point
     from layoutllm_t2i_torch.kernels.tolerance import agreement, tol_id
 
     dev = torch.device("cuda")
@@ -1495,6 +1519,8 @@ def phase_kernels(cases, acc=None):
         if kid in VS_LIBRARY_KIDS and lib:
             rec["vs_library"] = rec["ms"] / rec["library_ms"]
             rec["device_vs_library"] = rec["device_ms"] / rec["library_device_ms"]
+        if kid == "K3":  # one warp a row, or past C 2048 one block a row
+            rec["entry"] = entry_point(args[1], dt)
         if kid == "K2" and split_world(args):
             plan = importlib.import_module(
                 "layoutllm_t2i_torch.kernels.group_norm").stream_plan(
@@ -1539,6 +1565,12 @@ def phase_kernels(cases, acc=None):
             w = agg.setdefault("by_width", {}).setdefault(rec["width"], dict.fromkeys(
                 ("ms", "device_ms", "library_ms", "library_device_ms",
                  "bound_ms", "shapes"), 0))
+            for key in w:
+                w[key] += 1 if key == "shapes" else rec[key]
+        if kid == "K3" and args[1] > WARP_MAX_C:   # the block-a-row rows' sums
+            w = agg.setdefault("past_2048", dict.fromkeys(
+                ("ms", "device_ms", "plain_ms", "library_ms",
+                 "library_device_ms", "bound_ms", "shapes"), 0))
             for key in w:
                 w[key] += 1 if key == "shapes" else rec[key]
         if not agree["ok"]:
@@ -2578,6 +2610,19 @@ HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72))
     for shape in ((4, 1054, 1054, 1, 520), (4, 1054, 1054, 1, 640),
                   (4, 606, 606, 1, 1280))] + [
     ("K1", (4, 1054, 1054, 2, 636) + lse) for lse in ((), ("lse",))]
+# K3 past C 2048 (the block-a-row kernel) at its edges, both types: C 2056
+# (257 vectors of 8 over 256 threads: the ragged tail), 2560 at 257 rows
+# (not a multiple of 8), 5120 (the widest concatenated input of a
+# channel_mult (1, 2, 4, 8) UNet) and 16384
+K3_WIDE_CALLS = [("K3", shape + tag) for tag in ((), ("f32",))
+                 for shape in ((8, 2056), (257, 2560), (512, 5120), (64, 16384))]
+# the FF sites of a channel_mult (1, 2, 4, 8) UNet's middle block at the
+# bench's batch 8 (CFG 16 over 8^2 positions: M 1024, K 2560, inner 10240),
+# where ffn_eligible holds: K4 (the norm3 site and a fuser's), K4/f32, and
+# K7 on an int8 UNet
+MULT8_BENCH_FF_CALLS = [("K4", (1024, 2560, 1.0)), ("K4", (1024, 2560, 0.5)),
+                        ("K4", (1024, 2560, 1.0, "f32")),
+                        ("K7", (1024, 2560, 1.0))]
 
 
 # phases hires and heads5: the seed-0 weights at another geometry (neither
@@ -2594,14 +2639,24 @@ HEAD_DIM_CALLS = [("K1", (2, 1024, 1024, 8, 48)), ("K1", (2, 1024, 1024, 8, 72))
 # (phases heads1 and hires1) and train (the gradient checks): num_heads 1
 # at 512^2 (K1 and K5 at d 320 on the 64^2 sites, 640 on the 32^2 ones)
 # and at 768^2 (320, 640 and 1280 on the 96^2, 48^2 and 24^2 sites): K1
-# past d 512 and K5 past 320 run the column-group kernels
+# past d 512 and K5 past 320 run the column-group kernels. One more
+# (phase mult8) generates and trains a UNet of its own weights:
+# channel_mult (1, 2, 4, 8) at 512^2, its deepest level and middle block
+# at 2560 channels (K3 past C 2048 on the block-a-row kernel; K2 at C 2560,
+# 3840 and 5120 over 8^2 positions; K1 and K5 at SD-1.4's d 40 and 80)
 GEOMETRY = {"hires": dict(image_size=96), "heads5": dict(num_heads=5),
             "heads2": dict(num_heads=2), "hires5": dict(image_size=96, num_heads=5),
-            "heads1": dict(num_heads=1), "hires1": dict(image_size=96, num_heads=1)}
+            "heads1": dict(num_heads=1), "hires1": dict(image_size=96, num_heads=1),
+            "mult8": dict(channel_mult=(1, 2, 4, 8))}
 GEOMETRY_RUNS = {"hires": ((torch.bfloat16, 10), (torch.float32, 10)),
                  "heads5": ((torch.bfloat16, 10), (torch.float32, 10)),
                  "heads1": ((torch.bfloat16, 10), (torch.float32, 10)),
-                 "hires1": ((torch.bfloat16, 10), (torch.float32, 10))}
+                 "hires1": ((torch.bfloat16, 10), (torch.float32, 10)),
+                 "mult8": ((torch.bfloat16, 10), (torch.float32, 10))}
+# the GEOMETRY fields that change no weight (inner = heads x d_head =
+# channels; the latent size sizes none): any other field gets the seed-0
+# weights of its own config
+SAME_WEIGHTS = ("image_size", "num_heads")
 # the geometries of GEOMETRY_RUNS whose batch-8 training step phase kernels
 # does not walk: for the time a 768^2 walk would add (their gradient
 # checks train them, and train-ckpt's num_heads 1 run has its walk)
@@ -2609,21 +2664,57 @@ GENERATION_ONLY = ("heads1", "hires1")
 # the head dims whose K1 sites each phase holds to the walk's launches, site
 # by site (N, M), and those its training check holds K5 to
 GEOMETRY_DIMS = {"hires": (160, 512), "heads5": (64, 128), "heads1": (320, 640),
-                 "hires1": (320, 512, 640, 1280)}
+                 "hires1": (320, 512, 640, 1280), "mult8": (40, 80)}
 GEOMETRY_K5_DIMS = {"hires": (40, 80, 160), "heads5": (64, 128),
                     "heads2": (160, 320), "hires5": (64, 128, 256),
-                    "heads1": (320, 640), "hires1": (320, 640, 1280)}
+                    "heads1": (320, 640), "hires1": (320, 640, 1280),
+                    "mult8": (40, 80)}
 GEOMETRY_PSNR_MIN_DB = 35.0   # tests/parity_setup.py's image gate
 
 
 def geometry_models(name: str, dtype, small: bool = False, device="cuda"):
     """random_models (seed 0) at full width (or ``small``) in ``dtype``,
-    its UNet config changed as GEOMETRY[name] says."""
+    its UNet config changed as GEOMETRY[name] says; where that changes a
+    weight's shape (a field outside SAME_WEIGHTS), the UNet's seed-0
+    weights at the new config, as modality_bundle makes them."""
+    from layoutllm_t2i_torch.models.initializers import Init
+    from layoutllm_t2i_torch.models.unet import init_unet_params
     from layoutllm_t2i_torch.pipeline.loaders import random_models
+    from layoutllm_t2i_torch.utils.trees import ParamTree
 
     models = random_models(small=small, device=device, dtype=dtype, seed=0)
-    return dataclasses.replace(models, unet_cfg=dataclasses.replace(
-        models.unet_cfg, **GEOMETRY[name]))
+    cfg = dataclasses.replace(models.unet_cfg, **GEOMETRY[name])
+    models = dataclasses.replace(models, unet_cfg=cfg)
+    if set(GEOMETRY[name]) - set(SAME_WEIGHTS):
+        gen = torch.Generator(device=models.device).manual_seed(0)
+        models = dataclasses.replace(models, unet_params=ParamTree(
+            init_unet_params(Init(gen, models.device, models.compute_dtype), cfg)))
+    return models
+
+
+def wide_k3_sites(calls, widths=None) -> dict:
+    """{(rows, C): calls} of the K3 calls past C 2048 (the block-a-row
+    kernel), either type; with ``widths``, at those C only."""
+    from layoutllm_t2i_torch.kernels.layer_norm import WARP_MAX_C
+
+    return dict(collections.Counter(
+        (args[0], args[1]) for kid, args in calls
+        if kid == "K3" and args[1] > WARP_MAX_C
+        and (widths is None or args[1] in widths)))
+
+
+def wide_k3_launches(calls) -> dict:
+    """{"K3 past 2048": n, "K3/f32 past 2048": n}: ``calls``' K3 calls past
+    C 2048 by type, the block-a-row kernel's launches. A phase adds them
+    to the launch counts it returns (as parallel's "K2 split"), and the
+    kernels line's K3 entries report them by phase."""
+    from layoutllm_t2i_torch.kernels.layer_norm import WARP_MAX_C
+
+    out = {"K3 past 2048": 0, "K3/f32 past 2048": 0}
+    for kid, args in calls:
+        if kid == "K3" and args[1] > WARP_MAX_C:
+            out[f"{row_kid(kid, args)} past 2048"] += 1
+    return out
 
 
 def sites_by_dim(calls, kid: str, dims) -> dict:
@@ -2637,14 +2728,18 @@ def sites_by_dim(calls, kid: str, dims) -> dict:
 
 
 def phase_geometry(name: str, small: bool = False, device="cuda"):
-    """Phase hires, heads5, heads1 or hires1: REQUESTS (CFG 7.5, alpha
-    (0.3, 0, 0.7)) on the seed-0 weights at GEOMETRY[name], PLMS in bf16
-    and in f32 (GEOMETRY_RUNS), each through the kernels and again under
-    plain_route() from the same noise: PSNR >= GEOMETRY_PSNR_MIN_DB, K1-K4
-    (or their f32 forms) launched, K1's launches the walk's
+    """Phase hires, heads5, heads1, hires1 or mult8: REQUESTS (CFG 7.5,
+    alpha (0.3, 0, 0.7)) on the seed-0 weights at GEOMETRY[name], PLMS in
+    bf16 and in f32 (GEOMETRY_RUNS), each through the kernels and again
+    under plain_route() from the same noise: PSNR >= GEOMETRY_PSNR_MIN_DB,
+    K1-K4 (or their f32 forms) launched, K1's launches the walk's
     (generation_calls over every UNet evaluation) in all and site by site
-    at the head dims of GEOMETRY_DIMS[name]. Returns (launches, recorded
-    calls). ``small`` and ``device``: the CPU test's small geometry."""
+    at the head dims of GEOMETRY_DIMS[name]; K3's calls past C 2048 the
+    walk's site by site (rows, C), present where the deepest level is
+    wider than 2048, and every recorded K3 call launched. Returns
+    (launches, recorded calls). ``small`` and ``device``: the CPU test's
+    small geometry."""
+    from layoutllm_t2i_torch.kernels.layer_norm import WARP_MAX_C
     from layoutllm_t2i_torch.pipeline.inference import InferencePipeline
 
     t_phase = time.perf_counter()
@@ -2665,22 +2760,33 @@ def phase_geometry(name: str, small: bool = False, device="cuda"):
                                 models.clip_cfg.max_length, REQUESTS, VAE_CHUNK,
                                 evals=unet_evaluations(pipe, b), f32=f32,
                                 distinct=False)
-        k1 = "K1/f32" if f32 else "K1"
+        k1, k3 = ("K1/f32", "K3/f32") if f32 else ("K1", "K3")
         kids = tuple(f"{k}/f32" if f32 else k for k in ("K1", "K2", "K3", "K4"))
         sites = sites_by_dim(run["calls"], "K1", GEOMETRY_DIMS[name])
         walked = sites_by_dim(walk, "K1", GEOMETRY_DIMS[name])
+        k3_sites = wide_k3_sites(run["calls"])
+        # the UNet's widths (the walk also holds the text encoder's calls,
+        # which run before the recording, in build_cond)
+        unet_widths = {cfg.model_channels * m for m in cfg.channel_mult}
+        wide = max(unet_widths) > WARP_MAX_C
         rec = {"dtype": str(dtype).split(".")[1], "steps": steps,
                "image_size": cfg.image_size, "num_heads": cfg.num_heads,
+               "channel_mult": list(cfg.channel_mult),
                **run_record(run, b, GEOMETRY_PSNR_MIN_DB, kids),
                "k1_sites": {f"d{d} N{n} M{m}": c for (d, n, m), c in sorted(sites.items())},
-               "k1_walked": launches_of(walk)[k1]}
+               "k1_walked": launches_of(walk)[k1],
+               "k3_wide_sites": {f"rows{r} C{c}": n for (r, c), n in sorted(k3_sites.items())}}
         rec["sites_match_walk"] = (
             sites == walked and run["counts"][k1] == rec["k1_walked"]
             and {d for d, _, _ in sites} == set(GEOMETRY_DIMS[name]))
-        rec["ok"] = rec["ok"] and rec["sites_match_walk"]
+        rec["k3_match_walk"] = (
+            k3_sites == wide_k3_sites(walk, unet_widths) and bool(k3_sites) == wide
+            and launches_of(run["calls"]).get(k3, 0) == run["counts"][k3])
+        rec["ok"] = rec["ok"] and rec["sites_match_walk"] and rec["k3_match_walk"]
         recs[rec["dtype"]] = rec
         ok = ok and rec["ok"]
         add_counts(total, run["counts"])
+        add_counts(total, wide_k3_launches(run["calls"]))
         calls += run["calls"]
         del models, pipe, run
         if torch.cuda.is_available():
@@ -2692,8 +2798,8 @@ def phase_geometry(name: str, small: bool = False, device="cuda"):
     if not ok:
         raise SmokeFailure(f"{name}: an image is off or disagrees with the "
                            "plain route, a kernel of the path did not launch, "
-                           "or K1's launches at the geometry's head dims are "
-                           "not the walk's")
+                           "or K1's launches at the geometry's head dims or "
+                           "K3's past C 2048 are not the walk's")
     return total, calls
 
 
@@ -3585,10 +3691,11 @@ def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
     each planted K5 fault. ``mixed_precision`` False: phase train-grad-f32,
     every operand f32 (the kernels' f32 forms), held to
     TRAIN_GRAD_F32_REL_TOL. ``geometry``: a GEOMETRY name (phase
-    train-hires: 96^2 latents, or num_heads 5), where the planted fault is
-    TRAIN_GRAD_CAUGHT's alone and K5's launches at GEOMETRY_K5_DIMS must
-    be the walk's site by site (unet_calls at batch 2 with the lse).
-    Returns the kernel route's launch counts."""
+    train-hires: 96^2 latents, num_heads 5, 2 or 1, channel_mult (1, 2,
+    4, 8)), where the planted fault is TRAIN_GRAD_CAUGHT's alone, K5's
+    launches at GEOMETRY_K5_DIMS must be the walk's site by site
+    (unet_calls at batch 2 with the lse) and so must K3's forward calls
+    past C 2048. Returns the kernel route's launch counts."""
     from layoutllm_t2i_torch.kernels import plain_route, reset_launches
     from layoutllm_t2i_torch.pipeline.loaders import random_models
     from layoutllm_t2i_torch.training.train_step import TrainStep, TrainStepConfig
@@ -3653,7 +3760,11 @@ def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
             sites == sites_by_dim(walk, "K5a", GEOMETRY_K5_DIMS[geometry])
             and {d for d, _, _ in sites} == set(GEOMETRY_K5_DIMS[geometry])
             and all(counts[f"{kid}{tag}"] == n for kid, n in k5["k5_walked"].items()))
-        launched = launched and k5["k5_match_walk"]
+        k3_sites = wide_k3_sites(calls)
+        counts.update(wide_k3_launches(calls))
+        k5["k3_wide_sites"] = {f"rows{r} C{c}": n for (r, c), n in sorted(k3_sites.items())}
+        k5["k3_match_walk"] = k3_sites == wide_k3_sites(walk)
+        launched = launched and k5["k5_match_walk"] and k5["k3_match_walk"]
     ok = (finite and not plain_launched and rel <= tol and launched
           and all(faults[name] > tol for name in faults
                   if name in TRAIN_GRAD_CAUGHT))
@@ -3673,9 +3784,9 @@ def phase_train_grad(mixed_precision: bool = True, route: Route = DEFAULT,
     if not ok:
         raise SmokeFailure(f"{label}: the kernel route lies outside the "
                            "bound, a planted fault it must catch inside it, "
-                           "a kernel of the step did not launch (or K5 other "
-                           "than the walk's), or a plain-route call launched "
-                           "a kernel")
+                           "a kernel of the step did not launch (or K5, or "
+                           "K3 past C 2048, other than the walk's), or a "
+                           "plain-route call launched a kernel")
     del models, step, g_p
     torch.cuda.empty_cache()
     return counts
@@ -4247,30 +4358,28 @@ TRAIN_HIRES_STEPS = 2
 TRAIN_HIRES_WALKED = ("K1", "K5a", "K5b")
 # the geometries of its gradient checks (GEOMETRY), bf16 and f32 each
 TRAIN_GRAD_GEOMETRIES = ("hires", "heads5", "heads2", "hires5", "heads1",
-                         "hires1")
+                         "hires1", "mult8")
 # its --ckpt_path runs: a reference-format .pth of the seed-0 weights whose
 # config_dict sets GEOMETRY[geometry], trained through the CLI at batch
 # TRAIN_BATCH in mixed precision, TRAIN_CKPT_STEPS steps, at each of
 # TRAIN_CKPT_GEOMETRIES (num_heads 2: K5 at d 160 and 320; num_heads 1:
-# 320 and 640)
-TRAIN_CKPT_GEOMETRIES = ("heads2", "heads1")
+# 320 and 640; channel_mult (1, 2, 4, 8): K3 at C 2560)
+TRAIN_CKPT_GEOMETRIES = ("heads2", "heads1", "mult8")
 TRAIN_CKPT_STEPS = 2
 
 
 def write_gligen_pth(path: str, geometry: str) -> dict:
-    """The seed-0 full-width weights (random_models, f32) written by the
-    port's .pth writer (checkpoint/export.py export_gligen_checkpoint) with
-    a reference GLIGEN config_dict whose model.params hold the UNet config
-    changed as GEOMETRY[geometry] says (the weights do not depend on the
-    head count: inner = heads x d_head = channels), and the VAE's and
-    CLIP's configs as the port's trainer exports them. Returns the
-    config_dict."""
+    """The seed-0 full-width weights at GEOMETRY[geometry] (geometry_models,
+    f32: SD-1.4's where only the head count changes, inner = heads x
+    d_head = channels; channel_mult's own) written by the port's .pth
+    writer (checkpoint/export.py export_gligen_checkpoint) with a
+    reference GLIGEN config_dict whose model.params hold that UNet config,
+    and the VAE's and CLIP's configs as the port's trainer exports them.
+    Returns the config_dict."""
     from layoutllm_t2i_torch.checkpoint.export import export_gligen_checkpoint
-    from layoutllm_t2i_torch.pipeline.loaders import random_models
 
-    models = random_models(small=False, device="cuda", dtype=torch.float32,
-                           seed=0)
-    u = dataclasses.replace(models.unet_cfg, **GEOMETRY[geometry])
+    models = geometry_models(geometry, torch.float32)
+    u = models.unet_cfg
     config = {"model": {"params": {
         "image_size": u.image_size, "in_channels": u.in_channels,
         "model_channels": u.model_channels, "out_channels": u.out_channels,
@@ -4296,9 +4405,9 @@ def train_ckpt_cli(work_dir: str, geometry: str) -> dict:
     then cli/train_diffusion.py main --synthetic --mixed_precision
     --ckpt_path at batch TRAIN_BATCH, TRAIN_CKPT_STEPS steps: finite
     losses, K1's, K5a's and K5b's launches the walk's (training_calls at
-    the config), and K5's calls at GEOMETRY_K5_DIMS the walk's site by
-    site; the .pth's size and write seconds, s/step, peak memory. Returns
-    the launches."""
+    the config), and K5's calls at GEOMETRY_K5_DIMS and K3's past C 2048
+    the walk's site by site; the .pth's size and write seconds, s/step,
+    peak memory. Returns the launches."""
     from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
     from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
@@ -4327,8 +4436,11 @@ def train_ckpt_cli(work_dir: str, geometry: str) -> dict:
     sites = sites_by_dim(calls, "K5a", dims)
     walked_sites = {key: n * TRAIN_CKPT_STEPS
                     for key, n in sites_by_dim(walk, "K5a", dims).items()}
+    k3_sites = wide_k3_sites(calls)
+    counts.update(wide_k3_launches(calls))
     rec = {"phase": f"train-ckpt-{geometry}", "geometry": GEOMETRY[geometry],
            "num_heads": config["model"]["params"]["num_heads"],
+           "channel_mult": config["model"]["params"]["channel_mult"],
            "card": nvidia_smi_line(), "batch": TRAIN_BATCH,
            "steps": TRAIN_CKPT_STEPS, "pth_gib": pth_gib, "write_s": write_s,
            "losses": losses, "s_per_step_each": [r["sec_per_iter"] for r in logged],
@@ -4338,15 +4450,18 @@ def train_ckpt_cli(work_dir: str, geometry: str) -> dict:
                                       for kid, n in walked.items()),
            "k5_match_walk": (sites == walked_sites
                              and {d for d, _, _ in sites} == set(dims)),
+           "k3_wide_sites": {f"rows{r} C{c}": n for (r, c), n in sorted(k3_sites.items())},
+           "k3_match_walk": k3_sites == {key: n * TRAIN_CKPT_STEPS for key, n
+                                         in wide_k3_sites(walk).items()},
            "phase_s": time.perf_counter() - t_phase, "launches": counts}
     rec["ok"] = (len(losses) == TRAIN_CKPT_STEPS and rec["launches_match_walk"]
-                 and rec["k5_match_walk"]
+                 and rec["k5_match_walk"] and rec["k3_match_walk"]
                  and all(math.isfinite(x) for x in losses))
     emit(rec)
     if not rec["ok"]:
         raise SmokeFailure(f"train-ckpt-{geometry}: a loss is not finite, or "
-                           "K1's or K5's launches or K5's sites by head dim "
-                           "differ from the walk's")
+                           "K1's or K5's launches, K5's sites by head dim or "
+                           "K3's past C 2048 differ from the walk's")
     return counts
 
 
@@ -4362,9 +4477,10 @@ def phase_train_hires(work_dir: str) -> dict:
     train-grad's check, with its planted K5 fault), in bf16 and f32, at
     each of TRAIN_GRAD_GEOMETRIES (96^2 latents; num_heads 5 at 64^2;
     num_heads 2 at 64^2; num_heads 5 at 96^2; num_heads 1 at 64^2 and at
-    96^2), K5's launches at GEOMETRY_K5_DIMS the walk's. Then
-    train_ckpt_cli: a num_heads 2 and a num_heads 1 .pth through
-    --ckpt_path. Returns the launch counts of all."""
+    96^2; channel_mult (1, 2, 4, 8) at 64^2), K5's launches at
+    GEOMETRY_K5_DIMS and K3's past C 2048 the walk's. Then train_ckpt_cli:
+    a num_heads 2, a num_heads 1 and a channel_mult (1, 2, 4, 8) .pth
+    through --ckpt_path. Returns the launch counts of all."""
     from layoutllm_t2i_torch.data.synthetic import synthetic_layout_batches
     from layoutllm_t2i_torch.pipeline.loaders import model_configs
 
@@ -4977,7 +5093,7 @@ PROFILE_GROUPS = (
                                 "flash_split_cols_f32_kernel",
                                 "flash_fwd_f32_wide_kernel")),
     ("K2/f32 group_norm", tuple(f"{k}<float>" for k in GN_KERNELS)),
-    ("K3/f32 layer_norm", ("ln_kernel<float",)),
+    ("K3/f32 layer_norm", ("ln_kernel<float", "ln_wide_kernel<float")),
     ("K7/f32 ffn_ln_geglu_q", ("ffn_q_up_f32_wgmma_kernel",
                                "ffn_q_down_f32_wgmma_kernel")),
     ("K4/f32 ffn_ln_geglu (+ K6/f32, K7/f32's LN)",
@@ -4992,7 +5108,7 @@ PROFILE_GROUPS = (
     ("K5b flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",
                                      "flash_bwd_dkv_wide_kernel")),
     ("K2 group_norm", GN_KERNELS),
-    ("K3 layer_norm", ("ln_kernel",)),
+    ("K3 layer_norm", ("ln_kernel", "ln_wide_kernel")),
     ("K4 ffn_ln_geglu", ("ffn_norm_rows_kernel", "ffn_up_wgmma_kernel",
                          "ffn_down_wgmma_kernel")),
     ("K6 ffn_geglu", ("ffn_res_up_wgmma_kernel",
@@ -5166,14 +5282,20 @@ def main(argv=None) -> int:
                 gen_paths[name] = generation_calls(
                     unet_cfg, vae_cfg, clip_cfg, tok_len, REQUESTS, VAE_CHUNK,
                     route=route, f32=True)
-            # K1 and K5 at head dims no model here routes to them
+            # K1 and K5 at head dims no model here routes to them; K3 past
+            # C 2048 at its edges; K4, K4/f32 and K7 at channel_mult (1, 2,
+            # 4, 8)'s middle block at the bench's batch
             gen_paths["head-dim"] = HEAD_DIM_CALLS
+            gen_paths["k3-wide"] = K3_WIDE_CALLS
+            gen_paths["mult8-bench-ff"] = MULT8_BENCH_FF_CALLS
             # phases hires, heads5 and train-hires: SD-1.4 at 768^2 and
             # num_heads 5, generation and a batch-8 training step, bf16
             # and f32 (K1 at d 160, 64 and 128; K5 at the lse sites);
             # phases heads1 and hires1: num_heads 1, generation (K1 at d
             # 320, 640 and 1280; its training: the gradient checks' sites
-            # and train-ckpt's walk below)
+            # and train-ckpt's walk below); phase mult8: channel_mult (1,
+            # 2, 4, 8), generation and a batch-8 training step (K3 at C
+            # 2560; K2 at C 2560, 3840 and 5120 over 8^2 positions)
             hires_batch = next(synthetic_layout_batches(
                 TRAIN_BATCH, TRAIN_HIRES_SIDE, TRAIN_MAX_BOXES))
             for name in GEOMETRY_RUNS:
@@ -5189,9 +5311,10 @@ def main(argv=None) -> int:
                         hires_batch if name == "hires" else train_batch,
                         TRAIN_MAX_BOXES, TRAIN_MAX_RELATIONS, f32=f32)
             del hires_batch
-            # phase train-hires' --ckpt_path runs: num_heads 2 and 1, mixed
-            # precision, batch 8 (K1 with its lse and K5 at d 160 and 320,
-            # and at 320 and 640)
+            # phase train-hires' --ckpt_path runs: num_heads 2 and 1 and
+            # channel_mult (1, 2, 4, 8), mixed precision, batch 8 (K1 with
+            # its lse and K5 at d 160 and 320, and at 320 and 640; K3 at C
+            # 2560)
             for name in TRAIN_CKPT_GEOMETRIES:
                 gen_paths[f"train-{name}"] = training_calls(
                     dataclasses.replace(unet_cfg, **GEOMETRY[name]),
@@ -5347,10 +5470,14 @@ def main(argv=None) -> int:
                 "heads5": generation + tuple(f"{kid}/f32" for kid in generation),
                 "heads1": generation + tuple(f"{kid}/f32" for kid in generation),
                 "hires1": generation + tuple(f"{kid}/f32" for kid in generation),
+                "mult8": generation + tuple(f"{kid}/f32" for kid in generation),
                 "train-hires": step_kernels(DEFAULT) + tuple(
                     f"{kid}/f32" for kid in step_kernels(DEFAULT))}
     missing = [f"{kid} ({path})" for path, kids in expected.items()
                for kid in kids if runs[path][kid] <= 0]
+    # K3's block-a-row kernel (past C 2048), launched by phase mult8
+    missing += [f"{kid} past C 2048 (mult8)" for kid in ("K3", "K3/f32")
+                if runs["mult8"].get(f"{kid} past 2048", 0) <= 0]
     line = []
     for kid, (name, src, replaces) in KERNEL_META.items():
         s = summary[kid]
@@ -5378,6 +5505,13 @@ def main(argv=None) -> int:
             line[-1]["pair"] = k5_pairs["f32" if kid != base else "bf16"]
         if "by_width" in s:
             line[-1]["by_width"] = {str(w): rec for w, rec in sorted(s["by_width"].items())}
+        if "past_2048" in s:
+            w = s["past_2048"]
+            line[-1]["past_2048"] = {
+                **w, "vs_library": w["ms"] / w["library_ms"],
+                "device_vs_library": w["device_ms"] / w["library_device_ms"],
+                "launches": {path: c[f"{kid} past 2048"] for path, c in runs.items()
+                             if c.get(f"{kid} past 2048")}}
         if kid != base:
             line[-1]["arith"] = F32_ARITH[base]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

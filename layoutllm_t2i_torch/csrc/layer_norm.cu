@@ -4,19 +4,28 @@
 // Replaces the TPU kernel `_ln_kernel` (l.309) of
 // layoutllm_t2i_tpu/ops/pallas/norms.py, launched by `_ln_pallas`
 // (l.322/333) under `layer_norm_fused` (l.358). That kernel takes any float
-// type: bf16 at the UNet's and the pipeline's CLIP sites, f32 in the
-// reward's CLIP towers (text C 768, vision C 1024 at 257 rows an image).
+// type and any C: bf16 at the UNet's and the pipeline's CLIP sites, f32 in
+// the reward's CLIP towers (text C 768, vision C 1024 at 257 rows an
+// image), and C 2560 in the middle block of a channel_mult (1, 2, 4, 8)
+// UNet.
 //
 // What bounds it on the H100: bytes (one read and one write per element,
 // ~10 flops each).
 //
-// The simple design: one warp per row. The row (C <= 2048) is held in
-// registers as 16-byte vectors (8 bf16 or 4 f32 values), so the mean and
-// the centred variance are two passes over registers, not over memory,
-// matching the reference's mean / mean((x - mean)^2) order. Rows past the
-// last full block of 8 are masked (the vision tower's 257·B rows). Every
-// LayerNorm site of the port runs here, C = 320 included: the TPU's
-// c % 128 gate measured XLA fusion, not a property of the function.
+// Two simple designs, both matching the reference's mean /
+// mean((x - mean)^2) order over 16-byte vectors (8 bf16 or 4 f32 values):
+// - C <= 2048 (`llt2i_layer_norm`, `llt2i_layer_norm_f32`): one warp per
+//   row. The row is held in registers, so the mean and the centred
+//   variance are two passes over registers, not over memory. Rows past the
+//   last full block of 8 are masked (the vision tower's 257·B rows). Every
+//   LayerNorm site of SD-1.4's geometry runs here, C = 320 included: the
+//   TPU's c % 128 gate measured XLA fusion, not a property of the function.
+// - any C (`llt2i_layer_norm_wide`, `_wide_f32`; the wrapper sends C > 2048
+//   here): one block of 256 threads per row. Each pass reads the row from
+//   global memory (a 2560-wide bf16 row is 5 KB, which the second and third
+//   reads find in L2), a thread summing its vectors in order; the block's
+//   sum is each warp's butterfly sum, then the 8 warps' sums in order
+//   through shared memory.
 #include "common.cuh"
 
 namespace {
@@ -138,6 +147,79 @@ int dispatch(const void* x, const void* g, const void* b, void* y, int rows,
   return launch_vpl<T>((C / E + 31) / 32, x, g, b, y, rows, C, eps, s);
 }
 
+// ---------------------------------------------------------------------------
+// any C: one block a row
+
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+
+// the block's sum of v, the same value in every thread: each warp's
+// butterfly sum, then the warps' sums in warp order
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) t += red[w];
+  __syncthreads();  // red is written again by the next sum
+  return t;
+}
+
+// thread t takes the row's 16-byte vectors t, t + 256, t + 512, ...
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+ln_wide_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+               const T* __restrict__ beta, T* __restrict__ y, int C,
+               float eps) {
+  constexpr int E = Vec<T>::kN;
+  __shared__ float red[kWideWarps];
+  const int nv = C / E;
+  const long long off = (long long)blockIdx.x * C;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + off);
+  float f[E];
+  float s = 0.f;
+  for (int vi = threadIdx.x; vi < nv; vi += kWideThreads) {
+    Vec<T>::load(xr[vi], f);
+#pragma unroll
+    for (int j = 0; j < E; ++j) s += f[j];
+  }
+  const float mean = block_sum(s, red) / C;
+  float ss = 0.f;
+  for (int vi = threadIdx.x; vi < nv; vi += kWideThreads) {
+    Vec<T>::load(xr[vi], f);
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const float d = f[j] - mean;
+      ss += d * d;
+    }
+  }
+  const float rstd = rsqrtf(block_sum(ss, red) / C + eps);
+  const uint4* gr = reinterpret_cast<const uint4*>(gamma);
+  const uint4* br = reinterpret_cast<const uint4*>(beta);
+  uint4* yr = reinterpret_cast<uint4*>(y + off);
+  for (int vi = threadIdx.x; vi < nv; vi += kWideThreads) {
+    float g[E], b[E], o[E];
+    Vec<T>::load(xr[vi], f);
+    Vec<T>::load(gr[vi], g);
+    Vec<T>::load(br[vi], b);
+#pragma unroll
+    for (int j = 0; j < E; ++j) o[j] = (f[j] - mean) * rstd * g[j] + b[j];
+    yr[vi] = Vec<T>::store(o);
+  }
+}
+
+template <typename T>
+int dispatch_wide(const void* x, const void* g, const void* b, void* y,
+                  int rows, int C, float eps, cudaStream_t s) {
+  if (C % Vec<T>::kN || C <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  ln_wide_kernel<T><<<rows, kWideThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const T*>(b), static_cast<T*>(y), C, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: (rows, C) bf16 contiguous; gamma, beta: (C,) bf16.
@@ -156,4 +238,21 @@ LLT2I_API int llt2i_layer_norm_f32(const void* x, const void* gamma,
                                    float eps, void* stream) {
   return dispatch<float>(x, gamma, beta, y, rows, C, eps,
                          static_cast<cudaStream_t>(stream));
+}
+
+// x, y: (rows, C) bf16 contiguous; gamma, beta: (C,) bf16. Any C % 8 == 0
+// (the wrapper's route past 2048).
+LLT2I_API int llt2i_layer_norm_wide(const void* x, const void* gamma,
+                                    const void* beta, void* y, int rows,
+                                    int C, float eps, void* stream) {
+  return dispatch_wide<bf16>(x, gamma, beta, y, rows, C, eps,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// x, y: (rows, C) f32 contiguous; gamma, beta: (C,) f32. Any C % 4 == 0.
+LLT2I_API int llt2i_layer_norm_wide_f32(const void* x, const void* gamma,
+                                        const void* beta, void* y, int rows,
+                                        int C, float eps, void* stream) {
+  return dispatch_wide<float>(x, gamma, beta, y, rows, C, eps,
+                              static_cast<cudaStream_t>(stream));
 }

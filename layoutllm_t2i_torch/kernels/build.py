@@ -72,6 +72,9 @@ SIGNATURES = {
     "layer_norm": {
         "llt2i_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
         "llt2i_layer_norm_f32": [_P, _P, _P, _P, _I, _I, _F, _P],
+        # one block a row: any C (the wrapper's route past 2048)
+        "llt2i_layer_norm_wide": [_P, _P, _P, _P, _I, _I, _F, _P],
+        "llt2i_layer_norm_wide_f32": [_P, _P, _P, _P, _I, _I, _F, _P],
     },
     "ffn": {
         "llt2i_ffn_ln_geglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,

@@ -3,7 +3,10 @@
 Replaces ``layoutllm_t2i_tpu/ops/pallas/norms.py`` ``_ln_pallas`` /
 ``_ln_kernel``, which takes any float type. The port's kernel has a bf16
 and an f32 instantiation, picked from ``x.dtype`` (the reward's CLIP towers
-run in f32); weight and bias come in the same type. Differentiable through
+run in f32); weight and bias come in the same type. Rows up to 2048 wide run
+one warp a row; wider rows (the middle block of a ``channel_mult`` (1, 2,
+4, 8) UNet, C 2560) one block a row, as ``entry_point`` picks. The Pallas
+kernel takes any C, and so does the port. Differentiable through
 ``LayerNorm``, whose backward is the plain version's VJP, as ``_ln_bwd``
 (norms.py:384) recomputes it.
 """
@@ -49,13 +52,19 @@ class LayerNorm(torch.autograd.Function):
         return plain_vjp(layer_norm_plain, args, ctx.needs_input_grad, grad)
 
 
-# the instantiations: dtype -> (C entry point, elements a 16-byte vector)
-_ENTRY = {torch.bfloat16: ("llt2i_layer_norm", 8),
-          torch.float32: ("llt2i_layer_norm_f32", 4)}
-# the widest row the kernel keeps (csrc/layer_norm.cu), and where the rows
-# past it are listed as still to port (the Pallas kernel takes any C)
-MAX_C = 2048
-NOT_PORTED = "ROADMAP.md Queue 2: K3 past C 2048"
+# the instantiations: dtype -> (one-warp C entry, block-a-row C entry,
+# elements a 16-byte vector)
+_ENTRY = {torch.bfloat16: ("llt2i_layer_norm", "llt2i_layer_norm_wide", 8),
+          torch.float32: ("llt2i_layer_norm_f32", "llt2i_layer_norm_wide_f32", 4)}
+# the widest row one warp holds in registers (csrc/layer_norm.cu); wider
+# rows run one block a row
+WARP_MAX_C = 2048
+
+
+def entry_point(c: int, dtype: torch.dtype) -> str:
+    """The C entry that a row of width ``c`` in ``dtype`` launches."""
+    warp, wide, _ = _ENTRY[dtype]
+    return wide if c > WARP_MAX_C else warp
 
 
 def _forward(x, weight, bias, eps):
@@ -69,11 +78,7 @@ def _forward(x, weight, bias, eps):
     check_operand(bias, "layer_norm: bias", dev, dtype)
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError("layer_norm: affine params must be (C,)")
-    entry, per_vec = _ENTRY[dtype]
-    if c > MAX_C:
-        raise ValueError(f"layer_norm: C={c} is past the widest kernel "
-                         f"({MAX_C}); not ported ({NOT_PORTED})")
-    if c % per_vec:
+    if c % _ENTRY[dtype][2]:
         raise ValueError(f"layer_norm: C={c} is unsupported for {dtype}")
     xp, wp, bp = x.data_ptr(), weight.data_ptr(), bias.data_ptr()
     if (xp | wp | bp) & 15:  # rows and params move as 16-byte vectors
@@ -82,7 +87,7 @@ def _forward(x, weight, bias, eps):
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    check(getattr(lib("layer_norm"), entry)(
+    check(getattr(lib("layer_norm"), entry_point(c, dtype))(
         xp, wp, bp, out.data_ptr(), rows, c, float(eps), stream_handle(dev)),
         "layer_norm")
     layer_norm.launches += 1

@@ -10,8 +10,8 @@ takes (SD-1.4's 40 and 80 and the VAE's 512; 160 at 768^2's 24^2 sites;
 64 and 128 with num_heads 5; 640 and 1280 with num_heads 1, on the
 column-group kernels; a d that is not whole 16-byte vectors through a
 padded copy, kernels/flash_attention.py), and its backward K5a/K5b every
-d up to 320; a site past that raises on the card, naming ROADMAP.md's
-Queue 2 item (num_heads 1 trains K5 at d 640).
+d as well (past 320 on the column-group kernels: num_heads 1 trains K5 at
+d 640).
 
 The q/k/v and output projections are plain matmuls on the dense (or
 dequantized) weights, as the JAX package's ``attention_with_projections``

@@ -15,7 +15,9 @@ the planner's copy of the on-chip kernel's shared-memory layout and the
 split pair over 2 and 4 blocks of rows (every block's partials handed to
 each apply launch, as the ranks' gather does), in bf16 and f32;
 wide and narrow LayerNorm rows in bf16 and in f32 (the reward towers'
-shapes, a ragged last row block), a partial FF row block; the training path's
+shapes, a ragged last row block; past C 2048 the block-a-row kernel on
+operands fenced by NaN, into a NaN-filled output, bit for bit), a partial
+FF row block; the training path's
 kernels: K1's lse output, the K5a/K5b backward at the ragged training
 shapes (N = M = 4126 and 1054), on operands fenced by NaN and Inf, into
 outputs filled with NaN (every element written, nothing past N, M or d),
@@ -258,6 +260,8 @@ def test_flash_attention_lse_past_512(dev, gen, dtype, b, n, m, heads, d):
     (1, 4096, 64, 32),
     (2, 1, 2560, 32),      # one row
     (1, 16384, 128, 8),
+    # channel_mult (1, 2, 4, 8)'s deepest output block: slab 160 (cluster)
+    (8, 64, 5120, 32),
 ])
 @pytest.mark.parametrize("silu", [False, True])
 def test_group_norm(dev, gen, n, hw, c, groups, silu):
@@ -437,7 +441,13 @@ def test_group_norm_fenced_operand(dev, gen, path, shape):
     assert got["ok"], got
 
 
-@pytest.mark.parametrize("rows,c", [(1, 8), (7, 1000), (33, 2048), (4126, 320)])
+# past C 2048 the block-a-row kernel: C 2056 (257 vectors: thread 0's second
+# vector the ragged tail), 2560 at 257 rows (not a multiple of 8), 5120, 16384
+K3_WIDE = [(8, 2056), (257, 2560), (64, 5120), (3, 16384)]
+
+
+@pytest.mark.parametrize("rows,c", [(1, 8), (7, 1000), (33, 2048), (4126, 320)]
+                         + K3_WIDE)
 def test_layer_norm(dev, gen, rows, c):
     x = _rand(gen, rows, c, scale=2.0, shift=0.5)
     w, bias = _rand(gen, c, scale=0.5, shift=1.0), _rand(gen, c, scale=0.5)
@@ -459,15 +469,37 @@ def test_ffn_ln_geglu(dev, gen, m, k, scale):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_layer_norm_past_2048_names_queue_2(dev, gen, dtype):
-    # K3's widest row is 2048 (the Pallas kernel takes any C): past it the
-    # wrapper raises naming ROADMAP.md's Queue 2 item, before any launch
-    x = _rand(gen, 8, 2560).to(dtype)
-    w, bias = _rand(gen, 2560).to(dtype), _rand(gen, 2560).to(dtype)
-    before = K.layer_norm.launches
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2: K3 past C 2048"):
-        K.layer_norm(x, w, bias, 1e-5)
-    assert K.layer_norm.launches == before
+@pytest.mark.parametrize("rows,c", [(257, 2056), (3, 16384)])
+def test_layer_norm_wide_fenced_and_repeatable(dev, gen, dtype, rows, c):
+    """K3's block-a-row entry on x fenced by NaN (a read past the rows
+    turns an output NaN), into an output filled with NaN between guards
+    (every element written, nothing past the last row), twice bit for bit,
+    within K3's row of the plain version."""
+    LN = importlib.import_module("layoutllm_t2i_torch.kernels.layer_norm")
+    entry = LN.entry_point(c, dtype)
+    assert "_wide" in entry
+    guard, n = 4096, rows * c
+    fenced = lambda: torch.full((n + 2 * guard,), float("nan"), device=dev,
+                                dtype=dtype)
+    buf = fenced()
+    x = buf[guard:guard + n].view(rows, c)
+    x.copy_(_rand(gen, rows, c, scale=2.0, shift=0.5))
+    w = _rand(gen, c, scale=0.5, shift=1.0).to(dtype)
+    bias = _rand(gen, c, scale=0.5).to(dtype)
+    outs = []
+    for _ in range(2):
+        out = fenced()
+        y = out[guard:guard + n].view(rows, c)
+        check(getattr(lib("layer_norm"), entry)(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, c,
+            1e-5, stream_handle(dev.index or 0)), "layer_norm")
+        torch.cuda.synchronize()
+        assert out[:guard].isnan().all() and out[guard + n:].isnan().all()
+        assert not y.isnan().any()
+        outs.append(y)
+    assert torch.equal(outs[0], outs[1])
+    got = agreement("K3", outs[0], K.layer_norm_plain(x, w, bias, 1e-5))
+    assert got["ok"], got
 
 
 def test_cuda_tensor_never_takes_the_plain_version(dev):
@@ -479,10 +511,11 @@ def test_cuda_tensor_never_takes_the_plain_version(dev):
 
 @pytest.mark.parametrize("rows,c", [(2056, 1024), (8, 1024), (616, 768),
                                     (6160, 768), (771, 1024), (1, 4),
-                                    (7, 1000), (33, 2048)])
+                                    (7, 1000), (33, 2048), (8, 2052)] + K3_WIDE)
 def test_layer_norm_f32(dev, gen, rows, c):
     """K3's f32 form at the reward towers' shapes (771 = 3 x 257 rows: a
-    ragged last block of 8 rows) and at the widths' edges."""
+    ragged last block of 8 rows), at the widths' edges and past 2048 on
+    the block-a-row kernel (2052: the first f32 width past it)."""
     x = _rand(gen, rows, c, scale=2.0, shift=0.5).float()
     w = _rand(gen, c, scale=0.5, shift=1.0).float()
     bias = _rand(gen, c, scale=0.5).float()
@@ -1143,6 +1176,7 @@ def test_group_norm_f32_refuses_a_bf16_plan_that_does_not_fit(dev, gen):
 @pytest.mark.parametrize("path,shape", [("cluster", (3, 49, 96)),
                                         ("cluster", (2, 4097, 96)),
                                         ("cluster", (8, 4096, 320)),
+                                        ("cluster", (4, 64, 5120)),
                                         ("stream", (2, 65536, 256)),
                                         ("stream", (8, 4096, 960))])
 @pytest.mark.parametrize("silu", [False, True])

@@ -16,6 +16,7 @@ is not.
 import collections
 import contextlib
 import dataclasses
+import importlib
 import importlib.util
 import os
 import re
@@ -51,6 +52,7 @@ def _chip_smoke():
 
 
 cs = _chip_smoke()
+LN = importlib.import_module("layoutllm_t2i_torch.kernels.layer_norm")
 TOK_LEN = 8
 
 
@@ -878,24 +880,43 @@ def counted_from_records(monkeypatch):
 # the small geometry's counterparts of GEOMETRY, with the head dims K1 takes
 # there under small_flash's thresholds: 16^2 latents (the VAE's 32^2
 # images; d 32 at the 8^2 level, the VAE's mid block's d 64 over 256
-# tokens) and 4 heads (d 8 at the 8^2 level; the 4^2 level stays plain)
+# tokens) and 4 heads (d 8 at the 8^2 level; the 4^2 level stays plain);
+# channel_mult (1, 2, 4, 8) at 16^2 latents (its own weights; d 16 and 32
+# at the 16^2 and 8^2 levels, the middle block at 2^2 and 256 channels)
 SMALL_GEOMETRY = {"hires": (dict(image_size=16), (32, 64)),
                   "heads5": (dict(num_heads=4), (8,)),
                   "heads1": (dict(num_heads=1), (32,)),
-                  "hires1": (dict(image_size=16, num_heads=1), (32, 64))}
+                  "hires1": (dict(image_size=16, num_heads=1), (32, 64)),
+                  "mult8": (dict(image_size=16, channel_mult=(1, 2, 4, 8)),
+                            (16, 32))}
 
 
 @pytest.mark.parametrize("name", sorted(SMALL_GEOMETRY))
 def test_phase_geometry_on_the_cpu(monkeypatch, small_flash, counted_from_records,
                                    name):
-    """Phase hires, heads5, heads1 or hires1 at the small geometry, 2 PLMS
-    steps in f32: the images through both routes, K1's launches the walk's
-    site by site at the geometry's head dims."""
+    """Phase hires, heads5, heads1, hires1 or mult8 at the small geometry, 2
+    PLMS steps in f32: the images through both routes, K1's launches the
+    walk's site by site at the geometry's head dims; for mult8, with the
+    one-warp width lowered to 128 so that the middle block's 256 channels
+    stand for C 2560, K3's calls past it the walk's site by site, counted
+    in the phase's launches."""
     update, dims = SMALL_GEOMETRY[name]
     monkeypatch.setitem(cs.GEOMETRY, name, update)
     monkeypatch.setitem(cs.GEOMETRY_RUNS, name, ((torch.float32, 2),))
     monkeypatch.setitem(cs.GEOMETRY_DIMS, name, dims)
+    if name == "mult8":
+        monkeypatch.setattr(LN, "WARP_MAX_C", 128)
     counts, calls = cs.phase_geometry(name, small=True, device="cpu")
+    wide = cs.wide_k3_sites(calls)
+    if name == "mult8":
+        # the middle block's LayerNorms over 3 UNet evaluations at CFG
+        # batch 4 (PLMS-2, the gated fusers elided at alpha 0.3 of 2
+        # steps): norm1, the relation fuser's first, attn2's and norm3 at 4
+        # positions a row, the relation fuser's other two at its 30 boxes
+        assert wide == {(16, 256): 12, (120, 256): 6}
+        assert counts["K3/f32 past 2048"] == 18 and counts["K3 past 2048"] == 0
+    else:
+        assert wide == {} and counts["K3/f32 past 2048"] == 0
     flash = [args for kid, args in calls if kid == "K1"]
     assert {args[4] for args in flash} >= set(dims)
     assert counts["K1/f32"] == len(flash)
@@ -935,10 +956,11 @@ def test_geometry_walks_route_as_the_jax_package(name):
     M >= _FLASH_MIN_KV), at the head dims these configurations reach:
     d 40, 80 and 160 at 96^2 latents, 64 and 128 with num_heads 5, 160 and
     320 with num_heads 2, 64, 128 and 256 with num_heads 5 at 96^2, 320
-    and 640 with num_heads 1, 320, 640 and 1280 with num_heads 1 at 96^2;
-    and the training walk at the batch's latents takes K5 at every one of
-    them (the lse sites), past 320 (num_heads 1) on K5's column-group
-    kernels."""
+    and 640 with num_heads 1, 320, 640 and 1280 with num_heads 1 at 96^2,
+    SD-1.4's 40 and 80 with channel_mult (1, 2, 4, 8) (its 16^2 and 8^2
+    levels stay plain); and the training walk at the batch's latents takes
+    K5 at every one of them (the lse sites), past 320 (num_heads 1) on K5's
+    column-group kernels."""
     from layoutllm_t2i_tpu.ops import attention as jax_attention
 
     from layoutllm_t2i_torch.models.unet import UNetConfig
@@ -953,7 +975,7 @@ def test_geometry_walks_route_as_the_jax_package(name):
     assert got == want
     dims = {"hires": {40, 80, 160}, "heads5": {64, 128}, "heads2": {160, 320},
             "hires5": {64, 128, 256}, "heads1": {320, 640},
-            "hires1": {320, 640, 1280}}[name]
+            "hires1": {320, 640, 1280}, "mult8": {40, 80}}[name]
     assert {d for _, _, d in got} == dims
     assert set(cs.GEOMETRY_DIMS.get(name, ())) - {512} <= dims
     # the training walk at 768^2 images runs the UNet at 96^2 latents, the
@@ -973,7 +995,8 @@ def test_geometry_walks_route_as_the_jax_package(name):
                            "K5a", cs.GEOMETRY_K5_DIMS[name]) == k5
     widest = {"hires": (606, 8, 160), "heads5": (1054, 5, 128),
               "heads2": (1054, 2, 320), "hires5": (606, 5, 256),
-              "heads1": (1054, 1, 640), "hires1": (606, 1, 1280)}[name]
+              "heads1": (1054, 1, 640), "hires1": (606, 1, 1280),
+              "mult8": (1054, 8, 80)}[name]
     n, heads, d = widest
     assert ("K1", (1, n, n, heads, d, "lse")) in train
     if side == cs.TRAIN_HIRES_SIDE:
@@ -1074,3 +1097,96 @@ def test_generation_walk_at_another_geometry_matches_the_calls(recorded):
                                1, evals=cs.unet_evaluations(pipe, 2), distinct=False)
     assert collections.Counter(recorded) == collections.Counter(want)
     assert ("K1", (4, 576, 576, 4, 16)) in want and ("K1", (4, 2304, 2304, 4, 8)) in want
+
+
+# ---------------------------------------------------------------------------
+# phase mult8: channel_mult (1, 2, 4, 8), whose deepest level and middle
+# block run at 2560 channels: K3 past C 2048 (the block-a-row kernel)
+
+
+def _mult8_walks():
+    """{name: calls} of the full-width channel_mult (1, 2, 4, 8) walks that
+    phases mult8, train-grad-mult8 and train-ckpt-mult8 and phase kernels
+    hold: the 2-request generation (CFG batch 4), the bench's (CFG batch
+    16), a batch-8 training step and the gradient checks' batch 2."""
+    from layoutllm_t2i_torch.pipeline.loaders import model_configs
+
+    unet_cfg, vae_cfg, clip_cfg = model_configs(small=False)
+    cfg = dataclasses.replace(unet_cfg, **cs.GEOMETRY["mult8"])
+    batch = next(synthetic_layout_batches(cs.TRAIN_BATCH, 512, cs.TRAIN_MAX_BOXES))
+    return cfg, {
+        "generate": cs.generation_calls(cfg, vae_cfg, clip_cfg, 77, cs.REQUESTS,
+                                        cs.VAE_CHUNK),
+        "bench": cs.generation_calls(cfg, vae_cfg, clip_cfg, 77,
+                                     cs.bench_requests(), cs.VAE_CHUNK),
+        "train": cs.training_calls(cfg, vae_cfg, clip_cfg, 77, batch,
+                                   cs.TRAIN_MAX_BOXES, cs.TRAIN_MAX_RELATIONS),
+        "grad": cs.grad_walk(cfg)}
+
+
+def test_mult8_walks_k3_sites_route_as_the_jax_package():
+    """The full-width channel_mult (1, 2, 4, 8) walks' K3 calls past C 2048
+    are the middle block's LayerNorms at C 2560 over B x 64 (norm1, the
+    relation fuser's first, attn2's, and below K4's 1024 rows norm3 and
+    the gated fuser's FF's), B x 94 (the gated fuser's) and B x 30 rows (the relation
+    fuser's other two). The JAX package sends a LayerNorm to its Pallas
+    kernel where C % 128 == 0 and rows % 8 == 0 (layoutllm_t2i_tpu/ops/
+    pallas/norms.py layer_norm_fused): every such site of the generation,
+    the bench and the batch-8 step; at the gradient checks' batch 2, 188
+    and 60 rows go to its XLA reference instead, the same function, which
+    the port runs on K3 as every other LayerNorm."""
+    cfg, walks = _mult8_walks()
+    assert cfg.model_channels * cfg.channel_mult[-1] == 2560
+    want = {"generate": {(256, 2560): 5, (376, 2560): 1, (120, 2560): 2},
+            # at 1024 rows both FF sites take K4, its LN inside
+            "bench": {(1024, 2560): 3, (1504, 2560): 1, (480, 2560): 2},
+            "train": {(512, 2560): 5, (752, 2560): 1, (240, 2560): 2},
+            "grad": {(128, 2560): 5, (188, 2560): 1, (60, 2560): 2}}
+    for name, calls in walks.items():
+        sites = cs.wide_k3_sites(calls)
+        assert sites == want[name], name
+        jax_routed = {rc for rc in sites if rc[1] % 128 == 0 and rc[0] % 8 == 0}
+        assert jax_routed == (set(sites) - {(188, 2560), (60, 2560)}), name
+    # the f32 walk holds the same sites as f32 calls
+    assert cs.wide_k3_sites(cs.f32_calls(walks["train"])) == want["train"]
+
+
+def test_kernel_rows_past_2048_are_the_walks_and_the_edges():
+    """Phase kernels' new rows: K3 past C 2048 at the mult8 walks' sites and
+    K3_WIDE_CALLS' edges (C 2056, 2560 at 257 rows, 5120, 16384), both
+    types; K2 at C 3840 and 5120 over 8^2 positions on the cluster path
+    (slabs 120 and 160, bf16 and f32 tiles); MULT8_BENCH_FF_CALLS the
+    FF sites of the bench's CFG batch 16 at the middle block (M 1024, K
+    2560: K4 on the default route, K7 on the int8 one)."""
+    cfg, walks = _mult8_walks()
+    paths = {"k3-wide": cs.K3_WIDE_CALLS, "mult8": walks["generate"],
+             "mult8-f32": cs.f32_calls(walks["generate"]),
+             "train-mult8": walks["train"],
+             "train-mult8-f32": cs.f32_calls(walks["train"]),
+             "mult8-bench-ff": cs.MULT8_BENCH_FF_CALLS}
+    cases = {(kid, args) for kid, _, args, _ in cs.kernel_cases(paths)}
+    k3 = {args for kid, args in cases if kid == "K3" and args[1] > 2048}
+    edges = {(8, 2056), (257, 2560), (512, 5120), (64, 16384)}
+    walked = {(256, 2560), (376, 2560), (120, 2560), (512, 2560), (752, 2560),
+              (240, 2560)}
+    assert k3 == {shape + tag for shape in edges | walked
+                  for tag in ((), ("f32",))}
+    assert {LN.entry_point(c, dt) for _, c, *_ in k3 for dt in (
+        torch.bfloat16, torch.float32)} == {"llt2i_layer_norm_wide",
+                                            "llt2i_layer_norm_wide_f32"}
+    k2 = {(args[0], args[2]) + args[5:] for kid, args in cases
+          if kid == "K2" and args[1] == 64 and args[2] in (3840, 5120)}
+    assert k2 == {(n, c) + tag for n in (4, 8) for c in (3840, 5120)
+                  for tag in ((), ("f32",))}
+    for n, c, *tag in k2:
+        plan = cs.gn_plan(n, 64, c, itemsize=4 if tag else 2)
+        assert (plan.path, plan.slab) == ("cluster", c // 32)
+    bench = cs.unet_calls(cfg, 16, 30, 5, 77)
+    bench_int8 = cs.unet_calls(cfg, 16, 30, 5, 77, route=cs.INT8)
+    ff = {(kid, args) for kid, args in bench + bench_int8
+          if kid in ("K4", "K7") and args[1] == 2560}
+    assert ff == {("K4", (1024, 2560, s)) for s in (1.0, 0.5)} | {
+        ("K7", (1024, 2560, s)) for s in (1.0, 0.5)}
+    rows = set(cs.MULT8_BENCH_FF_CALLS)
+    assert {c for c in rows if not cs.is_f32(c[1])} <= ff
+    assert ("K4", (1024, 2560, 1.0, "f32")) in rows
